@@ -41,3 +41,7 @@ def pytest_configure(config):
         "markers",
         "slow: compile-heavy tests (full engine/oracle parity); "
         "deselect with -m 'not slow' for the quick loop")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() "
+        "is false")
