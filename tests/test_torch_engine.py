@@ -113,7 +113,21 @@ def _videos(n=N_STEPS, hw=HW):
 def _port_engine(weights, dropout=0.0, lr=LR, **tta):
     sd, _variables, src = weights
     cfg = _cfg(tanet_ucf101_preset, dropout, lr, **tta)
-    return VittaEngine(get_model(cfg), cfg, sd, src)
+    return VittaEngine(get_model(cfg), cfg, sd, src, device="cpu")
+
+
+def test_engine_needs_the_card_unless_cpu_is_asked_for(weights):
+    """The engine's default device is the card; without one it raises
+    rather than carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default would run on it")
+    sd, _variables, src = weights
+    cfg = _cfg(tanet_ucf101_preset)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VittaEngine(get_model(cfg), cfg, sd, src)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VittaEngine(get_model(cfg), cfg, sd, src, device="cuda:0")
+    assert _port_engine(weights).device.type == "cpu"
 
 
 def test_select_tap_names(weights):

@@ -18,7 +18,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         vitta_tpu_torch.__path__, "vitta_tpu_torch."))
-    assert "vitta_tpu_torch.adapt.loops" in modules
+    for name in ("adapt.loops", "adapt.precompute", "models.swin",
+                 "ops.cuda_ln", "ops.cuda_bias", "ops.cuda_attention",
+                 "ops.cuda_mlp"):
+        assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"

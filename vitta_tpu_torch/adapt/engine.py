@@ -41,6 +41,18 @@ from vitta_tpu_torch.ops.stats import (CumulativeState, TapStats,
                                        cumulative_update, ema_update)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names the card and
+    there is none.  The port's entry points default to ``"cuda"`` and
+    never carry on on the CPU by themselves."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for and no CUDA device is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return device
+
+
 class RegSpec(NamedTuple):
     """One statistic-regularization channel: a tap leaf to read, the
     chosen layer names, and their source-side targets (one per configured
@@ -92,22 +104,31 @@ class VittaEngine:
     """Owns the model, optimizer and EMA of one adaptation stream.
 
     ``state_dict`` is the model's weights (a reference checkpoint, or
-    ``tanet_state_dict_from_jax`` of the JAX package's variables);
-    ``source_stats`` is ``{tap_name: (mean, var)}``, or
-    ``{stat_type: {tap_name: (mean, var)}}`` for several types.  Dropout
-    draws from ``self.generator``, a ``torch.Generator`` on ``device``.
+    ``tanet_state_dict_from_jax`` / ``swin_state_dict_from_jax`` of the
+    JAX package's variables); ``source_stats`` is
+    ``{tap_name: (mean, var)}``, or ``{stat_type: {tap_name: (mean, var)}}``
+    for several types.  Dropout draws from ``self.generator``, a
+    ``torch.Generator`` on ``device``.
+
+    The engine runs on the card: ``device`` defaults to ``"cuda"`` and the
+    constructor raises where there is none.  Only an explicit
+    ``device="cpu"`` runs on the CPU, as the tests do.
+
+    For Video Swin the forward paths work (``eval_step``, ``eval_logits``);
+    its adaptation step waits for the backward kernels and raises
+    ``NotImplementedError`` from ``backward`` on the card.
     """
 
     def __init__(self, model: torch.nn.Module, cfg: VittaConfig,
                  state_dict: Dict[str, torch.Tensor],
-                 source_stats: Dict[str, Any], device="cpu"):
+                 source_stats: Dict[str, Any], device="cuda"):
         cfg.tta.validate()
         tcfg = cfg.tta
         if tcfg.stat_reg != "mean_var":
             raise NotImplementedError(
                 f"stat_reg={tcfg.stat_reg!r} is not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.model.load_state_dict(state_dict, strict=True)
         self.generator = torch.Generator(device=self.device)

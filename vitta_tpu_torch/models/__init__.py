@@ -1,5 +1,6 @@
-"""Model zoo of the port: TANet (ResNet-50+TAM) so far."""
+"""Model zoo of the port: TANet (ResNet-50+TAM) and Video Swin so far."""
 
+from vitta_tpu_torch.models.swin import Recognizer3D
 from vitta_tpu_torch.models.tanet import TANet
 
 
@@ -14,4 +15,13 @@ def get_model(cfg):
                      clip_length=cfg.data.clip_length,
                      dropout=cfg.model.dropout,
                      stat_types=cfg.tta.tap_stat_types())
+    if arch == "videoswintransformer":
+        return Recognizer3D(num_classes=cfg.model.num_classes,
+                            patch_size=cfg.model.patch_size,
+                            window_size=cfg.model.window_size,
+                            embed_dim=cfg.model.embed_dim,
+                            depths=cfg.model.depths,
+                            num_heads=cfg.model.num_heads,
+                            drop_path_rate=cfg.model.drop_path_rate,
+                            stat_types=cfg.tta.tap_stat_types())
     raise NotImplementedError(f"arch={arch} is not ported yet")

@@ -1,6 +1,7 @@
-"""BatchNorm with statistic taps, and channels-last conv helpers.
+"""BatchNorm and LayerNorm with statistic taps, and channels-last conv
+helpers.
 
-The PyTorch counterpart of vitta_tpu/models/layers.py:136-191.  The
+The PyTorch counterpart of vitta_tpu/models/layers.py:136-258.  The
 reference registers forward hooks on its norm modules
 (utils/norm_stats_utils.py, corpus/basics.py:565-600); here a tapped
 forward fills a dict that the caller passes down, ``model(x, taps={})``,
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vitta_tpu_torch.ops.cuda_ln import layer_norm
 from vitta_tpu_torch.ops.stats import channel_stats
 
 # Leaf carrying the reference's per-layer batch count ``bz`` — the ``n``
@@ -64,11 +66,14 @@ def flatten_taps(taps: dict, leaf: str = "stat") -> dict:
 
 def record_typed_stats(taps: dict, name: str, x: torch.Tensor,
                        stat_types: Tuple[str, ...], clip_len: int,
-                       input_side: bool = False) -> None:
+                       input_side: bool = False,
+                       count: Optional[float] = None) -> None:
     """Record one tap per statistic type of the channels-last ``x``
     (vitta_tpu/models/layers.py:90-133): 2D features ``(N*T, H, W, C)``
     are unfolded by ``clip_len`` for the time-resolved types; BN1d-style
-    low-rank features take the full per-channel reduction."""
+    low-rank features take the full per-channel reduction.  ``count``
+    overrides the count leaf where dim 0 of ``x`` is not the reference
+    batch."""
     slot = taps.setdefault(name, {})
     for st in stat_types:
         leaf = tap_leaf_name(st, input_side)
@@ -89,9 +94,10 @@ def record_typed_stats(taps: dict, name: str, x: torch.Tensor,
         # 'spatial' on BN1d features has no tap (the reference's None
         # placeholder, basics.py:873-880)
     if not input_side and stat_types and _wants(taps, COUNT_LEAF):
-        slot[COUNT_LEAF] = float(x.shape[0] // clip_len
-                                 if (x.dim() == 4 and clip_len > 0)
-                                 else x.shape[0])
+        if count is None:
+            count = (x.shape[0] // clip_len if (x.dim() == 4 and clip_len > 0)
+                     else x.shape[0])
+        slot[COUNT_LEAF] = float(count)
 
 
 class BatchNorm(nn.Module):
@@ -155,6 +161,63 @@ class BatchNorm(nn.Module):
         if taps is not None:
             record_typed_stats(taps, self.tap_name, y.to(torch.float32),
                                self.stat_types, self.clip_len)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with statistic taps on both sides
+    (vitta_tpu/models/layers.py:194-258).
+
+    The Swin tap points are all LayerNorms except the patch-embed one
+    (corpus/basics.py:500-505), whose ``tap`` is False.  The variance is
+    the one-pass ``E[x^2] - E[x]^2`` in float32.  Parameter names are
+    torch's (``weight``, ``bias``).  Modes of ``forward``:
+
+    * ``"full"``: normalize ``x`` and return y, taps on both sides;
+    * ``"params"``: record the input-side tap of ``x`` and return
+      ``(weight, bias)`` for a fused consumer (ops/cuda_mlp.py normalizes
+      inside its kernel);
+    * ``"sow_output"``: ``x`` is the y computed elsewhere; record the
+      output-side tap under this layer's name and return it.
+
+    ``stat_count`` overrides the tap's count leaf when dim 0 of ``x`` is
+    not the reference batch.
+    """
+
+    def __init__(self, features: int, tap_name: str, eps: float = 1e-5,
+                 tap: bool = True,
+                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+        super().__init__()
+        for st in stat_types:
+            if st not in STAT_TYPES:
+                raise NotImplementedError(f"stat_type={st!r}")
+        self.features = features
+        self.tap_name = tap_name
+        self.eps = eps
+        self.tap = tap
+        self.stat_types = tuple(stat_types)
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x, taps: Optional[dict] = None, mode: str = "full",
+                stat_count: Optional[int] = None):
+        tapped = self.tap and taps is not None
+        if mode == "sow_output":
+            if tapped:
+                record_typed_stats(taps, self.tap_name, x.to(torch.float32),
+                                   self.stat_types, 0, count=stat_count)
+            return x
+        if tapped:
+            record_typed_stats(taps, self.tap_name, x.to(torch.float32),
+                               self.stat_types, 0, input_side=True)
+        if mode == "params":
+            return self.weight, self.bias
+        if mode != "full":
+            raise ValueError(f"unknown LayerNorm mode {mode!r}")
+        y = layer_norm(x, self.weight, self.bias, self.eps)
+        if tapped:
+            record_typed_stats(taps, self.tap_name, y.to(torch.float32),
+                               self.stat_types, 0, count=stat_count)
         return y
 
 

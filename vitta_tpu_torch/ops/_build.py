@@ -2,8 +2,9 @@
 
 Each ``vitta_tpu_torch/csrc/<name>.cu`` exports a plain C interface and is
 compiled on first use into ``build/vitta_tpu_torch/lib<name>_<hash>.so``
-at the root of the checkout.  The hash covers the source and the compiler
-flags, so an edited source is rebuilt and an unchanged one is reused.
+at the root of the checkout.  The hash covers the source, the shared
+headers (``csrc/*.cuh``) and the compiler flags, so an edited source is
+rebuilt and an unchanged one is reused.
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` there.
 """
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -48,7 +50,8 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
     flags exists; return the library's path.  Raises if nvcc fails."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + headers
                             + src.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.is_file():
@@ -66,14 +69,17 @@ def build(name: str) -> Path:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every ``csrc/*.cu``; return the seconds each took (near 0
-    when the library was already built)."""
-    seconds = {}
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    """Build every ``csrc/*.cu``, one ``nvcc`` per source and all at once;
+    return the seconds each took (near 0 when the library was already
+    built).  Raises if any build fails."""
+    def timed(name: str) -> float:
         t0 = time.perf_counter()
-        build(src.stem)
-        seconds[src.stem] = time.perf_counter() - t0
-    return seconds
+        build(name)
+        return time.perf_counter() - t0
+
+    names = [src.stem for src in sorted(CSRC_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -21,23 +21,14 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
+                                         raise_on)
+
 KSIZE = 3  # reference TAM kernel size (temporal_module.py:27)
 
 
-class LaunchCounters:
-    """Launches of the TAM kernels, and contiguity copies of incoming
-    gradients, since the last ``reset``."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.fwd = 0
-        self.bwd = 0
-        self.grad_copies = 0
-
-
-counters = LaunchCounters()
+# launches of the TAM kernels, and contiguity copies of incoming gradients
+counters = LaunchCounters("fwd", "bwd", "grad_copies")
 
 
 def tam_dynamic_conv_reference(x, attn, kernel):
@@ -77,27 +68,13 @@ def _check(x, attn, kernel, g=None):
     if x.dim() != 5:
         raise ValueError(f"x must be (N,T,H,W,C), got shape {tuple(x.shape)}")
     n, t, h, w, c = x.shape
-    want = {"attn": (attn, (n, t, c)), "kernel": (kernel, (n, c, KSIZE))}
+    want = [("x", x, x.shape), ("attn", attn, (n, t, c)),
+            ("kernel", kernel, (n, c, KSIZE))]
     if g is not None:
-        want["grad"] = (g, tuple(x.shape))
-    for name, (ten, shape) in (("x", (x, tuple(x.shape))), *want.items()):
-        if ten.device != x.device or ten.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, "
-                             f"got {ten.device}")
-        if ten.dtype != torch.float32:
-            raise TypeError(f"the TAM kernel takes float32 only; {name} is "
-                            f"{ten.dtype}")
-        if tuple(ten.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(ten.shape)}, "
-                             f"expected {shape}")
-        if not ten.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        want.append(("grad", g, x.shape))
+    for name, ten, shape in want:
+        check_tensor("TAM", name, ten, shape, x.device)
     return n, t, h * w, c
-
-
-def _raise_on(code: int, what: str):
-    if code != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {code}")
 
 
 def tam_fwd_cuda(x, attn, kernel):
@@ -109,7 +86,7 @@ def tam_fwd_cuda(x, attn, kernel):
         code = _lib().vitta_tam_fwd(x.data_ptr(), attn.data_ptr(),
                                     kernel.data_ptr(), out.data_ptr(),
                                     n, t, p, c, stream)
-    _raise_on(code, "TAM forward kernel")
+    raise_on(code, "TAM forward kernel")
     counters.fwd += 1
     return out
 
@@ -129,7 +106,7 @@ def tam_bwd_cuda(g, x, attn, kernel):
                                  kernel.data_ptr(), dx.data_ptr(),
                                  partial.data_ptr(), dattn.data_ptr(),
                                  dkernel.data_ptr(), n, t, p, c, stream)
-    _raise_on(code, "TAM backward kernel")
+    raise_on(code, "TAM backward kernel")
     counters.bwd += 1
     return dx, dattn, dkernel
 

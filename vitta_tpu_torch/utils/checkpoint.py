@@ -1,4 +1,5 @@
-"""TANet weights: reference checkpoints, and the JAX package's variables.
+"""Weights and statistics files: reference checkpoints, the JAX package's
+variables, and the reference's source-statistics file pair.
 
 The port's module tree uses the reference checkpoint's own key names
 (``base_model.layer1.0.net.conv1.weight``, ``base_model.layer1.0.tam.G.0
@@ -8,17 +9,25 @@ The port's module tree uses the reference checkpoint's own key names
 ``tanet_state_dict_from_jax`` is the inverse of the JAX package's
 ``convert_tanet_checkpoint`` (vitta_tpu/utils/checkpoint.py:64): it takes
 the ``{"params", "batch_stats"}`` trees as numpy arrays, so weights made
-by either package serve the other.  Neither function imports JAX.
+by either package serve the other.  ``swin_state_dict_from_jax`` is the
+same for Video Swin, the inverse of ``convert_swin_checkpoint``
+(vitta_tpu/utils/checkpoint.py:162).  Neither function imports JAX.
+
+``save_stats`` and ``load_reference_stats`` write and read the reference's
+object-array ``.npy`` pair (corpus/basics.py:306-307), one entry per norm
+layer in ``named_modules()`` order, so that statistics files made by the
+reference, the JAX package or this one serve all three.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from vitta_tpu_torch.models.resnet import RESNET50_LAYERS
+from vitta_tpu_torch.models.swin import relative_position_index
 
 
 def strip_module_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -95,3 +104,138 @@ def tanet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     sd["new_fc.weight"] = _t(np.transpose(params["new_fc"]["kernel"]))
     sd["new_fc.bias"] = _t(params["new_fc"]["bias"])
     return sd
+
+
+def swin_state_dict_from_jax(variables, depths=(2, 2, 18, 2),
+                             window_size=(8, 7, 7)) -> Dict[str, torch.Tensor]:
+    """JAX Video Swin variables -> the port's (and the reference's) state
+    dict, which loads with ``strict=True``: the
+    ``relative_position_index`` buffers, constants of ``window_size`` that
+    the JAX package does not store, are made here.
+
+    Conv3d kernel (pd,ph,pw,in,out) -> (out,in,pd,ph,pw); Dense (in,out) ->
+    (out,in); LayerNorm scale/bias -> weight/bias; the 4-D bias table
+    (2wd-1,2wh-1,2ww-1,nh) -> the reference's flat (R, nh)."""
+    params = variables["params"]
+    bb = params["backbone"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"] = _t(p["scale"])
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+    def dense(prefix, p):
+        sd[f"{prefix}.weight"] = _t(np.transpose(p["kernel"]))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _t(p["bias"])
+
+    sd["backbone.patch_embed.proj.weight"] = _t(
+        np.transpose(bb["patch_embed_proj"]["kernel"], (4, 3, 0, 1, 2)))
+    sd["backbone.patch_embed.proj.bias"] = _t(bb["patch_embed_proj"]["bias"])
+    ln("backbone.patch_embed.norm", bb["patch_embed_norm"])
+    for li, depth in enumerate(depths):
+        lp, tp = bb[f"layers_{li}"], f"backbone.layers.{li}"
+        for bi in range(depth):
+            bp, tb = lp[f"blocks_{bi}"], f"{tp}.blocks.{bi}"
+            ln(f"{tb}.norm1", bp["norm1"])
+            ln(f"{tb}.norm2", bp["norm2"])
+            dense(f"{tb}.attn.qkv", bp["attn"]["qkv"])
+            dense(f"{tb}.attn.proj", bp["attn"]["proj"])
+            table = np.asarray(bp["attn"]["rpb_table"])
+            sd[f"{tb}.attn.relative_position_bias_table"] = _t(
+                table.reshape(-1, table.shape[-1]))
+            sd[f"{tb}.attn.relative_position_index"] = torch.from_numpy(
+                relative_position_index(tuple(window_size)).copy())
+            dense(f"{tb}.mlp.fc1", bp["mlp"]["fc1"])
+            dense(f"{tb}.mlp.fc2", bp["mlp"]["fc2"])
+        if "downsample" in lp:
+            ln(f"{tp}.downsample.norm", lp["downsample"]["norm"])
+            dense(f"{tp}.downsample.reduction", lp["downsample"]["reduction"])
+    ln("backbone.norm", bb["norm"])
+    dense("cls_head.fc_cls", params["cls_head"]["fc_cls"])
+    return sd
+
+
+def tanet_norm_layers(use_tam: bool = True) -> List[Tuple[str, str]]:
+    """Norm layers of TANet in the torch ``named_modules()`` order used by
+    ``choose_layers`` (utils/BNS_utils.py:245-259): per bottleneck net.bn1,
+    net.bn2, net.bn3, [downsample bn], tam.G bn1d, tam.L bn1d.  Returns
+    ``[(tap_name, kind)]`` with kind in {"bn2d", "bn1d"}
+    (vitta_tpu/utils/checkpoint.py:117)."""
+    out: List[Tuple[str, str]] = [("base_model.bn1", "bn2d")]
+    for li, (_planes, blocks, _s) in enumerate(RESNET50_LAYERS, start=1):
+        for bi in range(blocks):
+            p = f"base_model.layer{li}_{bi}"
+            out += [(f"{p}.bn1", "bn2d"), (f"{p}.bn2", "bn2d"),
+                    (f"{p}.bn3", "bn2d")]
+            if bi == 0:
+                out.append((f"{p}.downsample_bn", "bn2d"))
+            if use_tam:
+                out += [(f"{p}.tam.g_bn", "bn1d"), (f"{p}.tam.l_bn", "bn1d")]
+    return out
+
+
+def swin_norm_layers(depths=(2, 2, 18, 2)) -> List[Tuple[str, str]]:
+    """LayerNorm order of Video Swin, all LN except the patch-embed one
+    (corpus/basics.py:500-505): per block norm1, norm2; the PatchMerging
+    norm after each of stages 0-2; the final backbone.norm
+    (vitta_tpu/utils/checkpoint.py:142)."""
+    out: List[Tuple[str, str]] = []
+    for si, d in enumerate(depths):
+        for bi in range(d):
+            p = f"backbone.layers_{si}.blocks_{bi}"
+            out += [(f"{p}.norm1", "ln"), (f"{p}.norm2", "ln")]
+        if si < len(depths) - 1:
+            out.append((f"backbone.layers_{si}.downsample.norm", "ln"))
+    out.append(("backbone.norm", "ln"))
+    return out
+
+
+def _stat_layers(arch: str, use_tam: bool, include_bn1d: bool, depths):
+    if arch == "tanet":
+        return [name for name, kind in tanet_norm_layers(use_tam)
+                if kind == "bn2d" or include_bn1d]
+    if arch == "videoswintransformer":
+        return [name for name, _ in swin_norm_layers(depths)]
+    raise NotImplementedError(arch)
+
+
+def load_reference_stats(mean_file: str, var_file: str, arch: str,
+                         use_tam: bool = True, include_bn1d: bool = False,
+                         depths=(2, 2, 18, 2)) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """The reference's object-array ``.npy`` pair as
+    ``{tap_name: (mean, var)}`` (vitta_tpu/utils/checkpoint.py:313).  For
+    TANet the files hold one entry per BatchNorm2d; the temporal statistic
+    types include the TAM's BatchNorm1d layers too (``include_bn1d``).
+    The files are pickled object arrays: load only files this program, the
+    JAX package or the reference wrote."""
+    means = list(np.load(mean_file, allow_pickle=True))
+    variances = list(np.load(var_file, allow_pickle=True))
+    names = _stat_layers(arch, use_tam, include_bn1d, depths)
+    if not len(means) == len(variances) == len(names):
+        raise ValueError(f"{len(means)} means and {len(variances)} variances "
+                         f"for {len(names)} norm layers of {arch}")
+    return {name: (np.asarray(m, np.float32), np.asarray(v, np.float32))
+            for name, m, v in zip(names, means, variances)}
+
+
+def save_stats(path_mean: str, path_var: str,
+               stats: Dict[str, Tuple[np.ndarray, np.ndarray]], arch: str,
+               use_tam: bool = True, include_bn1d: bool = False,
+               depths=(2, 2, 18, 2)) -> None:
+    """Write ``stats`` in the reference's object-array layout
+    (vitta_tpu/utils/checkpoint.py:379)."""
+    names = _stat_layers(arch, use_tam, include_bn1d, depths)
+
+    def obj_array(items):
+        # np.array(list, dtype=object) mis-broadcasts when entries share a
+        # leading dimension; build the ragged array explicitly
+        arr = np.empty(len(items), dtype=object)
+        for i, it in enumerate(items):
+            arr[i] = it
+        return arr
+
+    np.save(path_mean, obj_array([np.asarray(stats[n][0]) for n in names]),
+            allow_pickle=True)
+    np.save(path_var, obj_array([np.asarray(stats[n][1]) for n in names]),
+            allow_pickle=True)
