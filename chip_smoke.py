@@ -1,7 +1,7 @@
 """Smoke run of vitta_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, checks each against its plain PyTorch version, and
-drives the TANet float32 ViTTA stream and the Video Swin-B float32
-forward paths end to end.
+drives the TANet float32 ViTTA stream, the Video Swin-B float32 forward
+paths and the Video Swin-B float32 ViTTA stream end to end.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,14 @@ result line:
    window attention (with and without mask, dense and compact bias) and
    LayerNorm-MLP at every Swin-B stage shape for 1 and 2 clips; values,
    CUDA-event and device times of kernel, plain version and, where one
-   PyTorch call computes the same function, that call.
+   PyTorch call computes the same function, that call.  Then their four
+   backward kernels (LayerNorm, bias collapse, attention with and without
+   mask and with dense and compact bias, LayerNorm-MLP with and without a
+   cotangent on y) at every stage shape for 2 clips, the adapt batch, each
+   output against the plain backward version; the library calls timed
+   beside them are ``F.layer_norm``'s backward and
+   ``scaled_dot_product_attention``'s backward, which gives dq, dk and dv
+   and no bias gradient.
 5. TANet slice at small size: full-width TANet at T=2, 32x32, two
    tta_online steps on the card and on the CPU from one seeded state dict.
 6. TANet slice at full size: 101 classes, 2 views x 16 frames x 224x224,
@@ -36,6 +43,20 @@ result line:
    files written and reloaded, then ``eval_step`` over single videos; per
    forward pass the counters must show 29 LayerNorm, 24 bias, 24
    attention and 24 LayerNorm-MLP launches and no contiguity copy.
+
+10. Swin adapt slice at small size: the tiny config again, drop-path and
+   head dropout 0, two tta_online steps on the card and on the CPU from
+   one seeded state dict: losses, logits, updated parameters, EMA.
+11. Swin-B adapt slice at full size: swin_ucf101_preset, depths
+   (2, 2, 18, 2), drop-path 0.2 and head dropout 0.5 on, the statistics of
+   phase 9, ``tta_stream`` over seeded synthetic uint8 videos (2 views and
+   1 eval clip each); per video the counters must show 2 x (29, 24, 24,
+   24) forward launches and 29 / 24 / 24 / 24 backward launches of
+   LayerNorm / bias collapse / attention / LayerNorm-MLP.
+
+To leave the time to phases 10 and 11, phase 9 runs 3 statistics batches
+and 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where
+it ran 6.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
@@ -71,7 +92,7 @@ TAM_SITES = {(56, 56, 64): 3, (56, 56, 128): 1, (28, 28, 128): 3,
              (7, 7, 512): 2}
 FWD_TOL = 1e-5    # tests/test_pallas_tam.py's tolerances
 GRAD_TOL = 2e-4
-N_VIDEOS = 6      # full-slice videos; the first two are warm-up
+N_VIDEOS = 5      # full-slice videos; the first two are warm-up
 SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
@@ -93,8 +114,19 @@ LN_TOL = 1e-5      # the same one-pass float32 formula, sums in another order
 ATTN_TOL = 2e-5    # __expf and another summation order over 392 keys
 MLP_TOL = 1e-4     # tiled float32 sums over K <= 4096 terms: between the
                    # typical sqrt(K)*eps = 4e-6 and the worst K*eps = 2.4e-4
-SWIN_STAT_BATCHES = 4   # of 2 clips; the first is warm-up
-SWIN_EVAL_VIDEOS = 5    # of 1 clip; the first is warm-up
+SWIN_STAT_BATCHES = 3   # of 2 clips; the first is warm-up
+SWIN_EVAL_VIDEOS = 4    # of 1 clip; the first is warm-up
+SWIN_ADAPT_VIDEOS = 6   # of 2 views + 1 eval clip; the first two are warm-up
+SWIN_BWD_LAUNCHES = {"ln_bwd": 29, "bias_collapse": 24,
+                     "attn_packed_bwd": 24, "ln_mlp_bwd": 24}   # per step
+# backward kernels: |error| <= tol * (largest |value| of the plain version's
+# tensor).  The sums over rows and windows are taken in chunks and the
+# chunks added in order, not in the plain version's order; float32
+# throughout.  Measured on an H100: at most 1e-6 (LayerNorm), 1e-6
+# (attention), 3e-6 (LayerNorm-MLP, dx after two sums over up to 4096 terms).
+LN_BWD_TOL = 1e-5
+ATTN_BWD_TOL = 2e-5
+MLP_BWD_TOL = 2e-5
 
 
 def card_line() -> str:
@@ -165,6 +197,20 @@ def check_close(name, got, want, rtol, atol=None):
         raise AssertionError(f"{name}: max abs error {float(err.max()):.3e} "
                              f"exceeds rtol={rtol} atol={atol}")
     return float(err.max())
+
+
+def check_scaled(name, got, want, tol):
+    """Max abs error of ``got``; raises unless it is at most ``tol`` times
+    the largest magnitude in ``want``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    err = float((got - want).detach().abs().max())
+    scale = float(want.detach().abs().max())
+    if not err <= tol * max(scale, 1e-30):
+        raise AssertionError(f"{name}: max abs error {err:.3e} exceeds {tol} "
+                             f"of the largest value {scale:.3e}")
+    return err
 
 
 def bound(nbytes: float, flops: float):
@@ -316,9 +362,10 @@ def _report(what, err, times):
 
 def phase_swin_kernels(dev):
     """The four Video Swin forward kernels against their plain versions at
-    every Swin-B stage shape, for 1 and 2 clips; returns their JSON rows,
-    whose times are sums over the sites of one forward pass of 2 clips
-    (the source-statistics batch)."""
+    every Swin-B stage shape, for 1 and 2 clips, then the four backward
+    kernels for 2 clips; returns their JSON rows, whose times are sums
+    over the sites of one forward or backward pass of 2 clips (the
+    source-statistics batch and the adapt batch)."""
     import torch.nn.functional as F
     from vitta_tpu_torch.models.swin import relative_position_index
     from vitta_tpu_torch.ops import cuda_attention as ca
@@ -479,6 +526,170 @@ def phase_swin_kernels(dev):
                         flops=flops)
             del x, args
 
+
+    # ------------------------------------------------------------------
+    # the backward kernels, at the adapt batch of 2 clips
+    # E: LayerNorm backward; the library call is F.layer_norm's backward
+    ln_b = Totals()
+    for (tokens, c), sites in SWIN_LN_SITES.items():
+        x = randn(2 * tokens, c, scale=2.0) + 0.5
+        g, b, dy = randn(c), randn(c), randn(2 * tokens, c)
+        want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
+        got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+        err = max(check_scaled(f"ln bwd {tuple(x.shape)} {nm}", p, q,
+                               LN_BWD_TOL)
+                  for nm, p, q in zip(("dx", "dgamma", "dbeta"), got, want))
+        ln_b.err = max(ln_b.err, err)
+        del got, want
+        leaves = [v.clone().requires_grad_() for v in (x, g, b)]
+        y_lib = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-5)
+        t = {"kernel": measure(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5)),
+             "plain": measure(lambda: cl.layer_norm_backward_reference(
+                 x, g, dy, 1e-5)),
+             "F.layer_norm backward": measure(lambda: torch.autograd.grad(
+                 y_lib, leaves, dy, retain_graph=True))}
+        _report(f"ln bwd rows={2 * tokens} C={c}", err, t)
+        ln_b.add(sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                 plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
+                 library_ms=t["F.layer_norm backward"][0],
+                 library_device_ms=t["F.layer_norm backward"][1],
+                 bytes=(3 * x.numel() + 3 * c) * 4, flops=14 * x.numel())
+        del x, dy, leaves, y_lib
+
+    # F: bias collapse; no one PyTorch call computes it
+    coll = Totals()
+    for c, nh, _tokens, _nw, depth in SWIN_STAGES:
+        db = randn(nh, n_tok, n_tok)
+        got = cb.collapse_bias_cuda(db, wd)
+        if not torch.equal(got, cb.collapse_bias_reference(db, wd)):
+            raise AssertionError(f"bias collapse nh={nh}: the kernel and the "
+                                 "plain version differ")
+        t = {"kernel": measure(lambda: cb.collapse_bias_cuda(db, wd)),
+             "plain": measure(lambda: cb.collapse_bias_reference(db, wd))}
+        _report(f"bias collapse ({nh},{n_tok},{n_tok}) -> nh={nh}, bit-exact",
+                0.0, t)
+        coll.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                 plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
+                 bytes=(db.numel() + got.numel()) * 4, flops=db.numel())
+        del db, got
+
+    # G: attention backward; the library call is
+    # scaled_dot_product_attention's backward for dq, dk, dv (it has no
+    # bias gradient)
+    attn_b = Totals()
+    for c, nh, tokens, nw, depth in SWIN_STAGES:
+        hd = c // nh
+        scale = hd ** -0.5
+        vc = randn(nh, a_dim, hw, hw)
+        dense = cb.expand_bias_reference(vc, wd)
+        mask = None
+        if nw > 1:
+            mask = torch.where(
+                torch.rand(nw, n_tok, n_tok, device=dev, generator=gen) < 0.3,
+                -100.0, 0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+        b_ = 2 * tokens // n_tok
+        qkv, g = randn(b_, n_tok, 3 * c), randn(b_, n_tok, c)
+        for m in ((None, mask) if mask is not None else (None,)):
+            _out, ms_ = ca.attn_packed_fwd_cuda(qkv, dense, m, scale, nh,
+                                                save_ms=True)
+            want = ca.packed_attention_backward_reference(
+                qkv, dense, m, ms_, g, scale, nh)
+            want_c = cb.collapse_bias_reference(want[1], wd)
+            err = 0.0
+            for form, bias_t, want_db in (("dense", dense, want[1]),
+                                          ("compact", vc, want_c)):
+                got = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g, scale,
+                                              nh)
+                what = (f"attention bwd B_={b_} nh={nh} mask="
+                        f"{m is not None} {form}")
+                for i, nm in enumerate(("dq", "dk", "dv")):
+                    err = max(err, check_scaled(
+                        f"{what} {nm}", got[0][..., i * c:(i + 1) * c],
+                        want[0][..., i * c:(i + 1) * c], ATTN_BWD_TOL))
+                err = max(err, check_scaled(f"{what} dbias", got[1], want_db,
+                                            ATTN_BWD_TOL))
+                again = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g, scale,
+                                                nh)
+                if not (torch.equal(again[0], got[0])
+                        and torch.equal(again[1], got[1])):
+                    raise AssertionError(f"{what}: two runs differ")
+                del got, again
+            attn_b.err = max(attn_b.err, err)
+            del want, want_c
+            q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
+            leaves = [q5[i].detach().requires_grad_() for i in range(3)]
+            am = dense[None] if m is None else (
+                dense[None, None] + m[None, :, None]).expand(
+                    b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                        b_, nh, n_tok, n_tok)
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=am,
+                                                   scale=scale)
+            g4 = g.reshape(b_, n_tok, nh, hd).permute(0, 2, 1, 3)
+            t = {"kernel": measure(lambda: ca.attn_packed_bwd_cuda(
+                     qkv, dense, m, ms_, g, scale, nh)),
+                 "kernel compact": measure(lambda: ca.attn_packed_bwd_cuda(
+                     qkv, vc, m, ms_, g, scale, nh)),
+                 "plain": measure(lambda: ca.packed_attention_backward_reference(
+                     qkv, dense, m, ms_, g, scale, nh)),
+                 "sdpa backward": measure(lambda: torch.autograd.grad(
+                     o_lib, leaves, g4, retain_graph=True))}
+            _report(f"attention bwd B_={b_} N={n_tok} nh={nh} hd={hd} mask="
+                    f"{m is not None}", err, t)
+            sites = depth // 2 if mask is not None else depth
+            nbytes = (2 * qkv.numel() + g.numel() + ms_.numel()
+                      + 2 * dense.numel()
+                      + (0 if m is None else m.numel())) * 4
+            flops = b_ * nh * n_tok * n_tok * (10 * hd + 12)
+            attn_b.add(sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                       plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
+                       library_ms=t["sdpa backward"][0],
+                       library_device_ms=t["sdpa backward"][1],
+                       bytes=nbytes, flops=flops)
+            del leaves, am, o_lib, ms_
+        del qkv, g
+
+    # H: LayerNorm-MLP backward; no one PyTorch call computes it.  The
+    # tap's cotangent on y exists at the chosen blocks, stages 3 and 4
+    mlp_b = Totals()
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for stage, (c, _nh, tokens, _nw, depth) in enumerate(SWIN_STAGES):
+        f = 4 * c
+        gm, bt = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        w1, b1 = randn(f, c, scale=c ** -0.5), 0.1 * randn(f)
+        w2, b2 = randn(c, f, scale=f ** -0.5), 0.1 * randn(c)
+        m_rows = 2 * tokens
+        x = randn(m_rows, c, scale=1.5)
+        _o, y, a, s_ = cm.ln_mlp_fwd_cuda(x, gm, bt, w1, b1, w2, b2, 1e-5,
+                                          save_residuals=True)
+        go, gy_full = randn(m_rows, c), randn(m_rows, c)
+        for gy in (gy_full, None):
+            args = (x, y, a, s_, go, gy, gm, w1, w2, 1e-5)
+            got = cm.ln_mlp_bwd_cuda(*args)
+            want = cm.ln_mlp_backward_reference(*args)
+            err = max(check_scaled(f"ln_mlp bwd M={m_rows} C={c} gy="
+                                   f"{gy is not None} {nm}", p, q, MLP_BWD_TOL)
+                      for nm, p, q in zip(names, got, want))
+            mlp_b.err = max(mlp_b.err, err)
+            del got, want
+            t = {"kernel": measure(lambda: cm.ln_mlp_bwd_cuda(*args)),
+                 "plain": measure(lambda: cm.ln_mlp_backward_reference(*args))}
+            flops = 8 * m_rows * c * f + 4 * m_rows * f + 20 * m_rows * c
+            _report(f"ln_mlp bwd M={m_rows} C={c} F={f} gy={gy is not None}",
+                    err, t)
+            if t["kernel"][1]:
+                print(f"  kernel rate: {flops / t['kernel'][1] / 1e9:.1f} "
+                      "TFLOP/s float32 (operations over device time)",
+                      flush=True)
+            if (gy is not None) == (stage >= 2):
+                nbytes = ((5 if gy is not None else 4) * m_rows * c
+                          + 2 * m_rows * f + 4 * c * f + f + 4 * c) * 4
+                mlp_b.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                          plain_ms=t["plain"][0],
+                          plain_device_ms=t["plain"][1], bytes=nbytes,
+                          flops=flops)
+        del x, y, a, s_, go, gy_full, args
+
     src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
     rows = [ln.row("ln_fwd", f"{src}/ln.cu", f"{ops}/pallas_ln.py:47"),
             bias.row("bias_expand", f"{src}/bias.cu",
@@ -486,10 +697,18 @@ def phase_swin_kernels(dev):
             attn.row("attn_packed_fwd", f"{src}/attention.cu",
                      f"{ops}/pallas_attention.py:448"),
             mlp.row("ln_mlp_fwd", f"{src}/mlp.cu", f"{ops}/pallas_mlp.py:303",
-                    has_library=False)]
+                    has_library=False),
+            ln_b.row("ln_bwd", f"{src}/ln.cu", f"{ops}/pallas_ln.py:55"),
+            coll.row("bias_collapse", f"{src}/bias.cu",
+                     f"{ops}/pallas_bias.py:67", has_library=False),
+            attn_b.row("attn_packed_bwd", f"{src}/attention.cu",
+                       f"{ops}/pallas_attention.py:517"),
+            mlp_b.row("ln_mlp_bwd", f"{src}/mlp.cu", f"{ops}/pallas_mlp.py:322",
+                      has_library=False)]
+    per_pass = {**SWIN_LAUNCHES, **SWIN_BWD_LAUNCHES}
     for r in rows:
-        print(f"{r['name']} per Swin-B forward pass of 2 clips "
-              f"({SWIN_LAUNCHES[r['name']]} launches): event ms "
+        print(f"{r['name']} per Swin-B pass of 2 clips "
+              f"({per_pass[r['name']]} launches): event ms "
               f"{r['ms']:.3f}, device ms {fmt(r['device_ms'])}, plain "
               f"{r['plain_ms']:.3f} (device {fmt(r['plain_device_ms'])}), "
               f"library {fmt(r['library_ms'])} (device "
@@ -712,6 +931,10 @@ def _swin_counts():
             "bias_expand": cuda_bias.counters.fwd,
             "attn_packed_fwd": cuda_attention.counters.fwd,
             "ln_mlp_fwd": cuda_mlp.counters.fwd,
+            "ln_bwd": cuda_ln.counters.bwd,
+            "bias_collapse": cuda_bias.counters.bwd,
+            "attn_packed_bwd": cuda_attention.counters.bwd,
+            "ln_mlp_bwd": cuda_mlp.counters.bwd,
             "contiguity_copies": swin.counters.contiguity_copies}
 
 
@@ -778,7 +1001,8 @@ class _TimedBatches:
 def phase_swin_full_slice(cfg, seed, card):
     """The Swin of ``cfg`` (Swin-B at full width and depth) through the
     source-statistics precompute and source-only evaluation; returns the
-    launch counts of the run."""
+    launch counts of the run, the statistics as reloaded from their files
+    and the state dict."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.precompute import (
         compute_source_statistics, load_source_statistics_npz,
@@ -885,6 +1109,188 @@ def phase_swin_full_slice(cfg, seed, card):
           f"(uint8 copy and normalisation included), peak memory "
           f"{peak_eval / 2**30:.3f} GiB, predictions {preds}; launches over "
           f"{forwards} forward passes {counts}; on {card}", flush=True)
+    return counts, pair, sd
+
+
+def _swin_direct(cfg, sd, **kw):
+    """The Swin of ``cfg`` built directly, for the dropout rates that the
+    configuration has no field for."""
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    mc = cfg.model
+    model = Recognizer3D(mc.num_classes, patch_size=mc.patch_size,
+                         window_size=mc.window_size, embed_dim=mc.embed_dim,
+                         depths=mc.depths, num_heads=mc.num_heads, **kw)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def phase_swin_adapt_small(cfg, seed, t, hw):
+    """Two tta_online steps of the tiny Swin on the card and on the CPU,
+    drop-path and head dropout 0.
+
+    Tolerances as in ``phase_small_slice``: losses rtol 1e-3 / atol 1e-5,
+    eval logits rtol 2e-3 / atol 2e-4, the EMA rtol 1e-3 / atol 1e-5; lr is
+    raised to 1e-3 so that the updates stand far above float32 rounding,
+    and each parameter's update agrees to 2% of its norm."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3))
+    sd = _swin_weights(cfg, seed)
+    rng = np.random.default_rng(seed)
+    src = compute_source_statistics(
+        _swin_model(cfg, sd), _normalized_batches(rng, cfg, (2,), t, hw),
+        device="cpu")
+    videos = _videos(rng, 2, t, hw)
+    _reset_swin_counts()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = VittaEngine(_swin_direct(cfg, sd, drop_path_rate=0.0,
+                                       head_dropout=0.0), cfg, sd, src,
+                          device=dev)
+        state = eng.init_state()
+        metrics = []
+        for views, clip, label in videos:
+            state, m = eng.adapt_eval_step(state, views, clip, label)
+            metrics.append({f: float(getattr(m, f))
+                            for f in ("loss_reg", "loss_consis", "loss_ce")})
+        runs[dev] = (metrics, eng.eval_logits(videos[-1][1]).cpu(),
+                     {k: p.detach().cpu()
+                      for k, p in eng.model.named_parameters()},
+                     {k: (v.mean.cpu(), v.var.cpu())
+                      for k, v in state.ema.items()})
+    counts = _swin_counts()
+    (m_gpu, l_gpu, p_gpu, e_gpu), (m_cpu, l_cpu, p_cpu, e_cpu) = (
+        runs["cuda"], runs["cpu"])
+    for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
+        for f in a:
+            if not abs(a[f] - b[f]) <= 1e-5 + 1e-3 * abs(b[f]):
+                raise AssertionError(f"step {i} {f}: card {a[f]} cpu {b[f]}")
+    logit_err = check_close("swin adapt eval logits", l_gpu, l_cpu, 2e-3, 2e-4)
+    ema_err = max(check_close(f"swin adapt ema {k}", g, c, 1e-3, 1e-5)
+                  for k in e_cpu for g, c in zip(e_gpu[k], e_cpu[k]))
+    worst, moved = 0.0, 0
+    for k, p in p_cpu.items():
+        dg, dc = p_gpu[k] - sd[k], p - sd[k]
+        diff, norm = float((dg - dc).norm()), float(dc.norm())
+        if diff > 2e-2 * norm + 1e-8:
+            raise AssertionError(f"update of {k}: card and cpu differ by "
+                                 f"{diff / (norm + 1e-12):.3e} of its norm")
+        worst = max(worst, diff / (norm + 1e-12))
+        moved += norm > 0
+    if moved != len(p_cpu):
+        raise AssertionError(f"only {moved} of {len(p_cpu)} parameters moved")
+    for k in list(SWIN_LAUNCHES) + list(SWIN_BWD_LAUNCHES):
+        if counts[k] == 0:
+            raise AssertionError(f"swin adapt small slice: the {k} kernel "
+                                 "was never launched")
+    print(f"swin adapt small slice card vs cpu: losses {m_gpu} vs {m_cpu}; "
+          f"eval logits max abs err {logit_err:.2e}; EMA max abs err "
+          f"{ema_err:.2e}; all {moved} parameters moved, worst update "
+          f"difference {worst:.2e} of its norm; launches {counts}",
+          flush=True)
+
+
+def phase_swin_adapt_full(cfg, sd, stats, seed, card):
+    """tta_stream of Swin-B (``cfg``: swin_ucf101_preset) over seeded
+    videos, drop-path 0.2 and head dropout 0.5 on; returns the launch
+    counts of the run."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import tta_stream
+    from vitta_tpu_torch.models import get_model
+    n_videos, classes = SWIN_ADAPT_VIDEOS, cfg.model.num_classes
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    engine = VittaEngine(get_model(cfg), cfg, sd, stats)
+    if (engine.model.backbone.layers[2].blocks[-1].drop_path <= 0
+            or engine.model.cls_head.dropout != 0.5):
+        raise AssertionError("drop-path or head dropout is off")
+    rng = np.random.default_rng(seed + 1)
+    videos = _videos(rng, n_videos, t, hw)
+    writer = _StepTimes()
+    preds = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_swin_counts()
+    top1, state, meters = tta_stream(engine, videos, seed=seed,
+                                     metrics_writer=writer)
+    torch.cuda.synchronize()
+    counts = _swin_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for k in ("loss_reg", "loss_consis", "loss_ce"):
+        if not np.isfinite(meters[k].avg):
+            raise AssertionError(f"{k} is not finite: {meters[k].avg}")
+    if state.step != n_videos:
+        raise AssertionError(f"{state.step} steps for {n_videos} videos")
+    for clip in (videos[0][1], videos[-1][1]):
+        logits = engine.eval_logits(clip)
+        pred = int(torch.argmax(logits, -1)[0])
+        if (tuple(logits.shape) != (1, classes) or not 0 <= pred < classes
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("eval logits after adaptation are not "
+                                 f"finite (1, {classes})")
+        preds.append(pred)
+    # every parameter has a finite gradient from the last step; a block
+    # whose branch drop-path dropped for both views has an exactly zero one,
+    # and at lr 1e-5 an update below float32's spacing leaves a tensor as it
+    # was, so "most" is asked for and the counts are printed
+    params = dict(engine.model.named_parameters())
+    for k, p in params.items():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()) \
+                or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{k}: no finite gradient or value after "
+                                 "adaptation")
+    moved = sum(not torch.equal(p.detach(), engine.init_params[k])
+                for k, p in params.items())
+    tables = [k for k in params if k.endswith("relative_position_bias_table")]
+    tables_grad = sum(bool(params[k].grad.abs().max() > 0) for k in tables)
+    if 4 * moved < 3 * len(params) or 4 * tables_grad < 3 * len(tables):
+        raise AssertionError(
+            f"{moved} of {len(params)} parameters moved and {tables_grad} of "
+            f"{len(tables)} bias tables have a gradient: fewer than three in "
+            "four")
+    ema_norm = sum(float(s.mean.abs().sum() + s.var.abs().sum())
+                   for s in state.ema.values())
+    if not (np.isfinite(ema_norm) and ema_norm > 0):
+        raise AssertionError(f"EMA did not move (sum |ema| = {ema_norm})")
+    # per video: the adapt forward and the eval forward, one backward
+    for k, per_pass in SWIN_LAUNCHES.items():
+        if counts[k] != 2 * per_pass * n_videos:
+            raise AssertionError(f"{k}: {counts[k]} launches over {n_videos} "
+                                 f"videos, expected 2 x {per_pass} each")
+    for k, per_pass in SWIN_BWD_LAUNCHES.items():
+        if counts[k] != per_pass * n_videos:
+            raise AssertionError(f"{k}: {counts[k]} launches over {n_videos} "
+                                 f"videos, expected {per_pass} each")
+    warm = writer.ms[2:]
+    print(f"swin adapt full slice: {n_videos} videos, median "
+          f"{statistics.median(warm):.3f} ms/video (min {min(warm):.3f}, max "
+          f"{max(warm):.3f}) after {len(writer.ms) - len(warm)} warm-up (host "
+          f"clock, synchronised on the metrics; includes the uint8 "
+          f"host-to-device copy), peak memory {peak / 2**30:.3f} GiB, "
+          f"{moved} of {len(params)} parameter tensors moved, {tables_grad} "
+          f"of {len(tables)} bias tables with a gradient in the last step, "
+          f"losses reg {meters['loss_reg'].avg:.5f} consis "
+          f"{meters['loss_consis'].avg:.5f} ce {meters['loss_ce'].avg:.5f}, "
+          f"top1 {top1[0]:.1f}, predictions {preds}; launches {counts} "
+          f"({counts['contiguity_copies'] / n_videos:.1f} contiguity copies "
+          f"per video); on {card}", flush=True)
+
+    # where the time goes: one adapt+eval step with its inputs on the card
+    views, clip, label = (torch.from_numpy(a).cuda() for a in videos[-1])
+    box = [state]
+
+    def step():
+        box[0], _m = engine.adapt_eval_step(box[0], views, clip, label)
+
+    host_ms, busy, rows = device_breakdown(step, top=14)
+    if busy == 0:
+        print("swin adapt step: device time not measured", flush=True)
+    else:
+        print(f"swin adapt step, profiled: host {host_ms:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / host_ms):.2f}; "
+              "largest kernels: "
+              + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows),
+              flush=True)
     return counts
 
 
@@ -923,9 +1329,16 @@ def main() -> int:
         SEED, (2, 1, 2), 4, 24)
     phase_swin_card_vs_cpu("swin-B width, depths (2,2,2,1)",
                            _swin_cfg(depths=(2, 2, 2, 1)), SEED, (1,), 16, 224)
-    launches = phase_swin_full_slice(_swin_cfg(), SEED, card)
+    forward_launches, stats, sd = phase_swin_full_slice(_swin_cfg(), SEED,
+                                                        card)
+    tiny = dict(embed_dim=8, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                window_size=(2, 3, 3))
+    phase_swin_adapt_small(_swin_cfg(t=4, hw=24, **tiny), SEED, 4, 24)
+    launches = phase_swin_adapt_full(_swin_cfg(), sd, stats, SEED, card)
     for row in swin_rows:
+        # the adapt stream's count; the forward-only paths' beside it
         row["launches"] = launches[row["name"]]
+        row["launches_forward_paths"] = forward_launches[row["name"]]
     print(json.dumps({"kernels": tam_rows + swin_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

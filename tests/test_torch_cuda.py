@@ -11,7 +11,10 @@ dattn and dK in another order than the plain version's autograd.  The
 Video Swin forward kernels: LayerNorm 1e-5; bias expansion exact;
 attention 2e-5 (``__expf`` and another summation order); LayerNorm-MLP
 rtol 1e-4 / atol 1e-4 (tiled float32 sums over up to 4096 terms).  Their
-backward kernels are not ported: ``backward`` on a CUDA tensor raises.
+backward kernels against the plain backward versions: every gradient to
+2e-5 of its tensor's largest magnitude (``GRAD_REL``: the sums over rows or
+windows are taken in chunks and the chunks added in order, not in the
+plain version's order; float32 throughout), the bias collapse exactly.
 """
 
 import numpy as np
@@ -190,27 +193,251 @@ def test_ln_mlp_kernel_matches_plain(cuda_device, m, c):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
 
 
+# --------------------------------------------------------------------------
+# Video Swin backward kernels
+GRAD_REL = 2e-5
+
+
+def _assert_grad(name, got, want):
+    """|got - want| <= GRAD_REL * max|want| everywhere."""
+    assert got.shape == want.shape, name
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= GRAD_REL * max(scale, 1e-30), (
+        f"{name}: max abs error {err:.3e} on values up to {scale:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(392, 128), (1000, 256), (777, 512),
+                                    (33, 1024), (9, 2048), (50, 96), (7, 8)])
+def test_ln_backward_kernel_matches_plain(cuda_device, rows, c):
+    x = _randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5
+    g, dy = _randn(cuda_device, c, seed=2), _randn(cuda_device, rows, c, seed=3)
+    cuda_ln.counters.reset()
+    got = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    assert cuda_ln.counters.bwd == 1
+    want = cuda_ln.layer_norm_backward_reference(x, g, dy, 1e-5)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        _assert_grad(name, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,nh", [((8, 7, 7), 4), ((2, 3, 3), 2),
+                                       ((3, 2, 5), 32)])
+def test_bias_collapse_kernel_matches_plain_exactly(cuda_device, window, nh):
+    wd, wh, ww = window
+    n = wd * wh * ww
+    db = _randn(cuda_device, nh, n, n, seed=4)
+    cuda_bias.counters.reset()
+    got = cuda_bias.collapse_bias_cuda(db, wd)
+    assert cuda_bias.counters.bwd == 1
+    assert torch.equal(got, cuda_bias.collapse_bias_reference(db, wd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("case", [
+    dict(b_=8, nh=4, hd=32, window=(8, 7, 7), nw=4),
+    dict(b_=2, nh=32, hd=32, window=(8, 7, 7), nw=0),
+    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
+    dict(b_=4, nh=1, hd=24, window=(3, 5, 5), nw=2),
+    dict(b_=4, nh=1, hd=8, window=(2, 3, 3), nw=0)], ids=str)
+def test_attention_backward_kernel_matches_plain(cuda_device, case, compact):
+    qkv, vc, mask, wd = _attn_case(cuda_device, **case)
+    nh, hd = case["nh"], case["hd"]
+    scale = hd ** -0.5
+    bias = vc if compact else cuda_bias.expand_bias_reference(vc, wd)
+    g = _randn(cuda_device, qkv.shape[0], qkv.shape[1], nh * hd, seed=9)
+    _out, ms = cuda_attention.attn_packed_fwd_cuda(qkv, bias, mask, scale, nh,
+                                                   save_ms=True)
+    cuda_attention.counters.reset()
+    dqkv, dbias = cuda_attention.attn_packed_bwd_cuda(qkv, bias, mask, ms, g,
+                                                      scale, nh)
+    assert cuda_attention.counters.bwd == 1
+    want_dqkv, want_dbias = cuda_attention.packed_attention_backward_reference(
+        qkv, bias, mask, ms, g, scale, nh)
+    c = nh * hd
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _assert_grad(name, dqkv[..., i * c:(i + 1) * c],
+                     want_dqkv[..., i * c:(i + 1) * c])
+    _assert_grad("dbias", dbias, want_dbias)
+    # the same from run to run: no atomics anywhere
+    again = cuda_attention.attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale,
+                                                nh)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+def _mlp_case(device, m, c):
+    f = 4 * c
+    return (_randn(device, m, c, seed=1, scale=1.5),
+            1 + 0.1 * _randn(device, c, seed=2),
+            0.1 * _randn(device, c, seed=3),
+            _randn(device, f, c, seed=4, scale=c ** -0.5),
+            0.1 * _randn(device, f, seed=5),
+            _randn(device, c, f, seed=6, scale=f ** -0.5),
+            0.1 * _randn(device, c, seed=7))
+
+
+MLP_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gy", [True, False])
+@pytest.mark.parametrize("m,c", [(392, 1024), (1568, 512), (5000, 128),
+                                 (130, 256), (37, 64), (9, 8)])
+def test_ln_mlp_backward_kernel_matches_plain(cuda_device, m, c, with_gy):
+    x, g, bt, w1, b1, w2, b2 = _mlp_case(cuda_device, m, c)
+    go = _randn(cuda_device, m, c, seed=8)
+    gy = _randn(cuda_device, m, c, seed=9) if with_gy else None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _o, y, a, s = cuda_mlp.ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, 1e-5,
+                                               save_residuals=True)
+        cuda_mlp.counters.reset()
+        got = cuda_mlp.ln_mlp_bwd_cuda(x, y, a, s, go, gy, g, w1, w2, 1e-5)
+        assert cuda_mlp.counters.bwd == 1
+        want = cuda_mlp.ln_mlp_backward_reference(x, y, a, s, go, gy, g, w1,
+                                                  w2, 1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name, p, q in zip(MLP_GRADS, got, want):
+        _assert_grad(name, p, q)
+
+
+def _op_case(dev, op):
+    """(function of the differentiable inputs -> outputs tuple, its plain
+    version, the inputs, the module whose ``bwd`` counter moves)."""
+    if op == "ln":
+        ins = [_randn(dev, 40, 128, seed=1), _randn(dev, 128, seed=2),
+               _randn(dev, 128, seed=3)]
+        return (lambda *a: (cuda_ln.layer_norm(*a),),
+                lambda *a: (cuda_ln.layer_norm_reference(*a),), ins, cuda_ln)
+    if op == "bias":
+        ins = [_randn(dev, 2, 3, 9, 9, seed=1)]
+        return (lambda v: (cuda_bias.expand_bias(v, 2),),
+                lambda v: (cuda_bias.expand_bias_reference(v, 2),), ins,
+                cuda_bias)
+    if op == "attention":
+        qkv, vc, mask, _wd = _attn_case(dev, 6, 3, 8, (2, 3, 3), 3)
+        return (lambda a, b: (cuda_attention.window_attention_packed(
+                    a, b, mask, 8 ** -0.5, 3),),
+                lambda a, b: (cuda_attention.packed_attention_reference(
+                    a, b, mask, 8 ** -0.5, 3),), [qkv, vc], cuda_attention)
+    ins = list(_mlp_case(dev, 24, 16))
+    return (lambda *a: cuda_mlp.ln_mlp(*a),
+            lambda *a: cuda_mlp.ln_mlp_reference(*a), ins, cuda_mlp)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["ln", "bias", "attention", "ln_mlp"])
-def test_swin_ops_raise_in_backward_on_the_card(cuda_device, op):
+def test_swin_ops_differentiate_through_their_kernels(cuda_device, op):
+    """``backward`` through the wrapper launches the backward kernel once
+    and gives the gradients of autograd through the plain forward, for a
+    cotangent on every output."""
+    fn, plain, ins, mod = _op_case(cuda_device, op)
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want_in = [t.clone().requires_grad_() for t in ins]
+    mod.counters.reset()
+    outs = fn(*got_in)
+    cots = [_randn(cuda_device, *o.shape, seed=20 + i)
+            for i, o in enumerate(outs)]
+    got = torch.autograd.grad(outs, got_in, cots)
+    assert (mod.counters.fwd, mod.counters.bwd) == (1, 1)
+    want = torch.autograd.grad(plain(*want_in), want_in, cots)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_grad(f"{op} input {i}", a, b)
+
+
+@pytest.mark.cuda
+def test_ln_mlp_backward_without_a_cotangent_on_y(cuda_device):
+    ins = [t.requires_grad_() for t in _mlp_case(cuda_device, 24, 16)]
+    cuda_mlp.counters.reset()
+    o, _y = cuda_mlp.ln_mlp(*ins)
+    got = torch.autograd.grad(o.sum(), ins)
+    assert cuda_mlp.counters.bwd == 1
+    ref = [t.detach().clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(cuda_mlp.ln_mlp_reference(*ref)[0].sum(), ref)
+    for name, a, b in zip(MLP_GRADS, got, want):
+        _assert_grad(name, a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_bf16_and_strided_cotangents(cuda_device):
     dev = cuda_device
-    if op == "ln":
-        x = _randn(dev, 8, 128).requires_grad_()
-        out = cuda_ln.layer_norm(x, _randn(dev, 128), _randn(dev, 128))
-    elif op == "bias":
-        v = _randn(dev, 2, 3, 9, 9).requires_grad_()
-        out = cuda_bias.expand_bias(v, 2)
-    elif op == "attention":
-        qkv, vc, mask, _wd = _attn_case(dev, 6, 3, 8, (2, 3, 3), 3)
-        out = cuda_attention.window_attention_packed(
-            qkv.requires_grad_(), vc, mask, 8 ** -0.5, 3)
-    else:
-        x = _randn(dev, 8, 8).requires_grad_()
-        out, _y = cuda_mlp.ln_mlp(x, _randn(dev, 8), _randn(dev, 8),
-                                  _randn(dev, 32, 8), _randn(dev, 32),
-                                  _randn(dev, 8, 32), _randn(dev, 8))
-    with pytest.raises(NotImplementedError, match="PERF.md"):
-        out.sum().backward()
+    x, g = _randn(dev, 8, 128), _randn(dev, 128)
+    dy = _randn(dev, 8, 128, seed=1)
+    with pytest.raises(TypeError):
+        cuda_ln.ln_bwd_cuda(x, g, dy.bfloat16())
+    with pytest.raises(ValueError):
+        cuda_ln.ln_bwd_cuda(x, g, _randn(dev, 128, 8).t())
+    with pytest.raises(TypeError):
+        cuda_bias.collapse_bias_cuda(_randn(dev, 2, 18, 18).bfloat16(), 2)
+    with pytest.raises(ValueError):
+        cuda_bias.collapse_bias_cuda(_randn(dev, 2, 18, 18).transpose(1, 2), 2)
+    qkv, vc, mask, _wd = _attn_case(dev, 6, 3, 8, (2, 3, 3), 3)
+    _out, ms = cuda_attention.attn_packed_fwd_cuda(qkv, vc, mask, 8 ** -0.5, 3,
+                                                   save_ms=True)
+    cot = _randn(dev, 6, 18, 24, seed=2)
+    with pytest.raises(TypeError):
+        cuda_attention.attn_packed_bwd_cuda(qkv, vc, mask, ms, cot.bfloat16(),
+                                            8 ** -0.5, 3)
+    with pytest.raises(ValueError):
+        cuda_attention.attn_packed_bwd_cuda(
+            qkv, vc, mask, ms, _randn(dev, 6, 24, 18).transpose(1, 2),
+            8 ** -0.5, 3)
+    x, gm, bt, w1, b1, w2, b2 = _mlp_case(dev, 24, 16)
+    _o, y, a, s = cuda_mlp.ln_mlp_fwd_cuda(x, gm, bt, w1, b1, w2, b2, 1e-5,
+                                           save_residuals=True)
+    go = _randn(dev, 24, 16, seed=3)
+    with pytest.raises(TypeError):
+        cuda_mlp.ln_mlp_bwd_cuda(x, y, a, s, go.bfloat16(), None, gm, w1, w2)
+    with pytest.raises(ValueError):
+        cuda_mlp.ln_mlp_bwd_cuda(x, y, a, s, go, _randn(dev, 16, 24).t(), gm,
+                                 w1, w2)
+
+
+@pytest.mark.cuda
+def test_strided_cotangent_of_a_swin_op_is_copied_and_counted(cuda_device):
+    from vitta_tpu_torch.models import swin
+    x = _randn(cuda_device, 40, 128, seed=1).requires_grad_()
+    g, b = _randn(cuda_device, 128, seed=2), _randn(cuda_device, 128, seed=3)
+    cot = _randn(cuda_device, 128, 40, seed=4).t()
+    assert not cot.is_contiguous()
+    swin.counters.reset()
+    cuda_ln.layer_norm(x, g, b).backward(cot)
+    assert swin.counters.contiguity_copies == 1
+    ref = x.detach().clone().requires_grad_()
+    cuda_ln.layer_norm_reference(ref, g, b).backward(cot)
+    _assert_grad("dx", x.grad, ref.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ln", "attention", "ln_mlp"])
+def test_no_residual_is_saved_under_no_grad(cuda_device, op):
+    """Under ``torch.no_grad()`` the ops keep nothing for a backward: no
+    graph, and no more memory than their outputs; with a gradient wanted
+    the attention and the LayerNorm-MLP hold their residuals."""
+    fn, _plain, ins, _mod = _op_case(cuda_device, op)
+    ins = [t.requires_grad_() for t in ins]
+
+    def held(grad):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.set_grad_enabled(grad):
+            outs = fn(*ins)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.memory_allocated() - before
+                 - sum(o.numel() * 4 for o in outs))
+        return outs, extra
+
+    outs, extra = held(False)
+    assert all(o.grad_fn is None for o in outs)
+    assert extra <= 2048 * len(outs)      # the allocator's rounding only
+    outs, extra_grad = held(True)
+    assert all(o.grad_fn is not None for o in outs)
+    if op != "ln":                        # LayerNorm keeps only its inputs
+        assert extra_grad > extra
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The four Video Swin forward ops of the port against the JAX package's
-Pallas kernels, on the CPU.
+"""The four Video Swin ops of the port, forward, against the JAX package's
+Pallas kernels, on the CPU (their backward: tests/test_torch_swin_backward.py).
 
 The same numpy-seeded inputs go through the JAX function in interpret mode
 and through the port's wrapper on CPU tensors, where the wrapper takes its
@@ -196,7 +196,7 @@ def test_ln_mlp_keeps_leading_axes():
 # ------------------------------------------------- CPU backward is autograd
 def test_cpu_wrappers_are_differentiable():
     """On CPU tensors the wrappers are plain PyTorch, so autograd works;
-    the CUDA ops raise in backward (tests/test_torch_cuda.py)."""
+    on the card their backward is a kernel (tests/test_torch_cuda.py)."""
     x, g, bt, w1, b1, w2, b2 = _mlp_inputs(8, 8, seed=2)
     xt = _t(x).requires_grad_()
     o, y = ln_mlp(xt, _t(g), _t(bt), _t(w1.T), _t(b1), _t(w2.T), _t(b2))

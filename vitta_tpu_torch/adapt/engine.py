@@ -113,10 +113,6 @@ class VittaEngine:
     The engine runs on the card: ``device`` defaults to ``"cuda"`` and the
     constructor raises where there is none.  Only an explicit
     ``device="cpu"`` runs on the CPU, as the tests do.
-
-    For Video Swin the forward paths work (``eval_step``, ``eval_logits``);
-    its adaptation step waits for the backward kernels and raises
-    ``NotImplementedError`` from ``backward`` on the card.
     """
 
     def __init__(self, model: torch.nn.Module, cfg: VittaConfig,
@@ -270,8 +266,10 @@ class VittaEngine:
                 logits = torch.func.functional_call(
                     self.model, {**dict(self.model.named_buffers()), **params},
                     (eval_clip, None), {"train": False})
-        n_eval_views = self.cfg.data.test_crops * int(
-            self.cfg.data.sample_style.split("-")[-1])
+        # vitta_tpu/adapt/engine.py:528-531
+        n_eval_views = self.cfg.data.test_crops * (
+            int(self.cfg.data.sample_style.split("-")[-1])
+            if self.cfg.model.arch == "tanet" else self.cfg.data.num_clips)
         b = logits.shape[0] // n_eval_views
         return logits.reshape(b, n_eval_views, -1).mean(dim=1)
 

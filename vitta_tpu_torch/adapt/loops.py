@@ -16,8 +16,10 @@ from vitta_tpu_torch.utils.meters import AverageMeter
 
 def video_seed(seed: int, index: int) -> int:
     """Dropout seed of the stream's ``index``-th video: a function of the
-    video's index, as the JAX loop folds it into its key."""
-    return (seed << 32) + index
+    stream's seed and the video's index, as the JAX loop folds the index
+    into its key.  Both reach the low 32 bits, which are all that torch's
+    CPU generator reads of a seed."""
+    return ((seed * 1000003) ^ index) & (2 ** 63 - 1)
 
 
 def tta_stream(engine: VittaEngine, paired_data, seed: int = 0,

@@ -1,8 +1,13 @@
-// Packed window attention forward for Video Swin, for Hopper (sm_90a).
+// Packed window attention, forward and backward, for Video Swin, for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel of vitta_tpu/ops/pallas_attention.py:
+// Replaces the Pallas TPU kernels of vitta_tpu/ops/pallas_attention.py:
 //   _packed_fwd_kernel (:448) with its head loop _heads_fwd (:403),
-//   launched by _packed_attn_fwd (:556).
+//   launched by _packed_attn_fwd (:556), and
+//   _packed_bwd_kernel (:517) with its head loop _heads_bwd (:457) and
+//   _dbias_accum (:384), launched by _packed_attn_bwd (:598).
+//
+// Forward.
 //
 // What it computes, per window b and head h, on the packed projection
 // output qkv (B_, N, 3C) whose last axis is ordered (3, nh, hd):
@@ -36,6 +41,45 @@
 //    channel d; the division by the row sum is applied to the (N, hd) result.
 // Limits: hd <= 32 and N <= 416 (13 keys per lane); the wrapper raises
 // beyond them.
+//
+// Backward.  From (qkv, bias, mask, ms, g), with ms the forward's row
+// maximum m and sum s and g the cotangent of out:
+//   p  = exp(l - m) / s                  the same __expf as the forward
+//   dv = p^T g         dp = g v^T        rs = rowsum(dp * p)
+//   dl = p * (dp - rs)
+//   dq = scale * dl k  dk = scale * dl^T q
+//   dbias = sum over windows of dl, dense (nh, N, N) or collapsed onto the
+//           Toeplitz slices (nh, 2wd-1, hw, hw), as the bias came in
+// and dq, dk, dv are written packed, (B_, N, 3C), the layout of qkv.
+//
+// What bounds it: float32 operations again.  The TPU kernel holds one
+// window's (N, N) logits per head in VMEM and adds dbias into a block that
+// its sequential grid revisits.  Here nothing of size (N, N) fits a block,
+// dq is a sum over keys and dk, dv are sums over query rows, so the work is
+// two kernels that each recompute the logits, and no sum crosses a block:
+//  * the query kernel: a block owns one (window, head), or a share of its
+//    query rows; K and V lie transposed in shared memory (107 KB), a warp
+//    takes a few query rows at a time with the lanes on the keys, exactly
+//    as the forward does, and gets p, dp, rs and dl in registers.  It
+//    writes dl (B_, nh, N, N) and rs to scratch and computes dq;
+//  * the key kernel: a block owns the same problem by key rows; Q and g lie
+//    transposed in shared memory, the lanes are on the query rows, p and dl
+//    are recomputed from m, s and the rs of the first kernel, and dv and dk
+//    follow.  It reads bias and mask by columns, which costs half of each
+//    32-byte sector;
+//  * dq, dk and dv are sums over the lanes' index.  Each lane sums its 13
+//    columns for each of 32 (row, channel) pairs, and one butterfly of 31
+//    shuffles (warp_transpose_sum) leaves pair L's total on lane L: no
+//    second copy of K, V, Q or g in the other layout, which shared memory
+//    has no room for;
+//  * dbias: a third kernel adds the dl of all windows in the order of the
+//    windows (and, for the compact form, of the block diagonal).  dl passes
+//    through device memory once, 315 MB at Swin-B's first stage for two
+//    clips.  Keeping dbias in registers over a loop over windows would
+//    avoid that and costs 52 more registers per thread than there are.
+// Seven products of N*N*hd multiply-adds where five are the least possible
+// (the forward has two).  No atomics anywhere: every output is the same from
+// run to run.  The mask has no gradient.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -221,6 +265,354 @@ packed_attn_fwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+
+// ------------------------------------------------------------------ backward
+
+// Rows per warp pass and warps per block.  The block's two (hd, 417) tiles
+// leave one block to an SM, so the warps are all that hides its latencies,
+// and p and dl together are 26 registers per row and lane.  2 x 16 was the
+// fastest of five shapes at every Swin-B stage on an H100
+// (vitta_tpu_torch/tools/backward_variants.py builds this source with other
+// values of the two macros and times them; PERF.md has the numbers).
+#ifndef VITTA_ATTN_BWD_ROWS
+#define VITTA_ATTN_BWD_ROWS 2
+#endif
+#ifndef VITTA_ATTN_BWD_WARPS
+#define VITTA_ATTN_BWD_WARPS 16
+#endif
+constexpr int kBwdRows = VITTA_ATTN_BWD_ROWS;    // rows per warp pass
+constexpr int kBwdWarps = VITTA_ATTN_BWD_WARPS;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdDChunk = 32 / kBwdRows;        // channels per butterfly
+static_assert(kBwdRows * kBwdDChunk == 32, "rows per pass must divide 32");
+
+template <int H>
+__device__ __forceinline__ void butterfly_step(float* val, bool up) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? val[k] : val[k + H];
+    const float keep = up ? val[k + H] : val[k];
+    val[k] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// Every lane brings val[0..31]; lane L returns the sum over the warp's
+// lanes of val[L].  31 shuffles: at each step a lane passes on the half of
+// the indices whose bit differs from its own lane's.
+__device__ __forceinline__ float warp_transpose_sum(float* val, int lane) {
+  butterfly_step<16>(val, (lane & 16) != 0);
+  butterfly_step<8>(val, (lane & 8) != 0);
+  butterfly_step<4>(val, (lane & 4) != 0);
+  butterfly_step<2>(val, (lane & 2) != 0);
+  butterfly_step<1>(val, (lane & 1) != 0);
+  return val[0];
+}
+
+// tile[d][j] = src[j * stride + d] for j < n, d < hd; 0 for n <= j < kKStride.
+__device__ __forceinline__ void load_transposed(float* tile,
+                                                const float* __restrict__ src,
+                                                size_t stride, int n, int hd,
+                                                int tid) {
+  for (int idx = tid; idx < n * hd; idx += kBwdThreads) {
+    const int j = idx / hd, d = idx - j * hd;
+    tile[d * kKStride + j] = src[(size_t)j * stride + d];
+  }
+  const int kpad = kKStride - n;
+  for (int idx = tid; idx < hd * kpad; idx += kBwdThreads) {
+    const int d = idx / kpad;
+    tile[d * kKStride + n + (idx - d * kpad)] = 0.f;
+  }
+}
+
+// The warp's strip: strip[r][lane] = src[(r0 + r) * stride + lane], 0 outside.
+__device__ __forceinline__ void load_strip(float* strip,
+                                           const float* __restrict__ src,
+                                           size_t stride, int r0, int n,
+                                           int hd, int lane) {
+#pragma unroll
+  for (int r = 0; r < kBwdRows; ++r) {
+    const int i = r0 + r;
+    strip[r * 32 + lane] =
+        (i < n && lane < hd) ? src[(size_t)i * stride + lane] : 0.f;
+  }
+}
+
+// acc[r][t] += sum over d of strip[r][d] * tile[d][lane + 32 t]; d ascending
+// and strip * tile in one fmaf, which is the forward's logit bit for bit.
+__device__ __forceinline__ void strip_times_tile(
+    const float* strip, const float* tile, int hd, int lane,
+    float (&acc)[kBwdRows][kTMax]) {
+  for (int d = 0; d < hd; ++d) {
+    float cv[kTMax];
+    const float* td = tile + d * kKStride + lane;
+#pragma unroll
+    for (int t = 0; t < kTMax; ++t) cv[t] = td[32 * t];
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const float a = strip[r * 32 + d];
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) acc[r][t] = fmaf(a, cv[t], acc[r][t]);
+    }
+  }
+}
+
+// Lane r * kBwdDChunk + dd returns the sum over all columns j of
+// w[r][j] * tile[d0 + dd][j], the columns being spread over the lanes as
+// j = lane + 32 t.
+__device__ __forceinline__ float weights_times_tile(
+    const float (&w)[kBwdRows][kTMax], const float* tile, int d0, int hd,
+    int lane) {
+  float part[32];
+#pragma unroll
+  for (int dd = 0; dd < kBwdDChunk; ++dd) {
+    const int d = d0 + dd;
+    if (d < hd) {                       // the same for every lane
+      float cv[kTMax];
+      const float* td = tile + d * kKStride + lane;
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) cv[t] = td[32 * t];
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) {
+        float sum = 0.f;
+#pragma unroll
+        for (int t = 0; t < kTMax; ++t) sum = fmaf(w[r][t], cv[t], sum);
+        part[r * kBwdDChunk + dd] = sum;
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) part[r * kBwdDChunk + dd] = 0.f;
+    }
+  }
+  return warp_transpose_sum(part, lane);
+}
+
+struct BwdSmem {
+  float *t1, *t2, *s1, *s2, *m, *inv, *rs;
+};
+
+__device__ __forceinline__ BwdSmem bwd_smem(float* smem, int hd) {
+  BwdSmem p;
+  p.t1 = smem;                                   // (hd, kKStride)
+  p.t2 = p.t1 + round4(hd * kKStride);           // (hd, kKStride)
+  p.s1 = p.t2 + round4(hd * kKStride);           // (kBwdWarps, kBwdRows, 32)
+  p.s2 = p.s1 + kBwdWarps * kBwdRows * 32;
+  p.m = p.s2 + kBwdWarps * kBwdRows * 32;        // (kNMax) each
+  p.inv = p.m + kNMax;
+  p.rs = p.inv + kNMax;
+  return p;
+}
+
+// The query kernel: dl and rs to scratch, dq into dqkv.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+packed_attn_bwd_q_kernel(const float* __restrict__ qkv,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mask,
+                         const float* __restrict__ ms,
+                         const float* __restrict__ g,
+                         float* __restrict__ dqkv, float* __restrict__ dl_out,
+                         float* __restrict__ rs_out, int n, int nh, int hd,
+                         int nw, int compact, int wd, int hw, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int c = nh * hd, c3 = 3 * c;
+  const BwdSmem sm = bwd_smem(smem, hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* base = qkv + (size_t)b * n * c3 + h * hd;
+  const float* gbase = g + (size_t)b * n * c + h * hd;
+  float* Kt = sm.t1;
+  float* Vt = sm.t2;
+  load_transposed(Kt, base + c, c3, n, hd, tid);
+  load_transposed(Vt, base + 2 * c, c3, n, hd, tid);
+  __syncthreads();
+
+  float* Qw = sm.s1 + warp * kBwdRows * 32;
+  float* Gw = sm.s2 + warp * kBwdRows * 32;
+  const float* mask_b =
+      mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
+  const size_t prob = (size_t)b * nh + h;
+
+  for (int i0 = (blockIdx.z * kBwdWarps + warp) * kBwdRows; i0 < n;
+       i0 += gridDim.z * kBwdWarps * kBwdRows) {
+    load_strip(Qw, base, c3, i0, n, hd, lane);
+    load_strip(Gw, gbase, c, i0, n, hd, lane);
+    __syncwarp();
+
+    float p[kBwdRows][kTMax], dl[kBwdRows][kTMax];
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r)
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) p[r][t] = 0.f, dl[r][t] = 0.f;
+    strip_times_tile(Qw, Kt, hd, lane, p);        // q k^T
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const int i = i0 + r;             // the same for every lane of the warp
+      float mx = 0.f, inv = 0.f;
+      if (i < n) {
+        const float* mr = ms + ((size_t)b * n + i) * 2 * nh + 2 * h;
+        mx = mr[0];
+        inv = 1.0f / mr[1];
+      }
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) {
+        const int j = lane + 32 * t;
+        float e = 0.f;
+        if (i < n && j < n) {
+          float l = p[r][t] * scale + bias_at(bias, compact, h, i, j, n, wd, hw);
+          if (mask_b != nullptr) l += mask_b[(size_t)i * n + j];
+          e = __expf(l - mx) * inv;
+        }
+        p[r][t] = e;
+      }
+    }
+    strip_times_tile(Gw, Vt, hd, lane, dl);       // dp = g v^T
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      float part = 0.f;
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) part = fmaf(dl[r][t], p[r][t], part);
+      const float rs = warp_sum(part);
+      const int i = i0 + r;
+      float* drow = dl_out + (prob * n + (i < n ? i : 0)) * n;
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) {
+        const int j = lane + 32 * t;
+        dl[r][t] = p[r][t] * (dl[r][t] - rs);
+        if (i < n && j < n) drow[j] = dl[r][t];
+      }
+      if (lane == 0 && i < n) rs_out[prob * n + i] = rs;
+    }
+    // dq = scale * dl k: lane r * kBwdDChunk + dd ends with row r, channel dd
+    const int orow = i0 + lane / kBwdDChunk, od = lane % kBwdDChunk;
+    for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
+      const float tot = weights_times_tile(dl, Kt, d0, hd, lane);
+      if (orow < n && d0 + od < hd)
+        dqkv[((size_t)b * n + orow) * c3 + h * hd + d0 + od] = tot * scale;
+    }
+    __syncwarp();     // the strips are rewritten by the next pass
+  }
+}
+
+// The key kernel: dk and dv into dqkv, from the rs the query kernel left.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+packed_attn_bwd_kv_kernel(const float* __restrict__ qkv,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ ms,
+                          const float* __restrict__ g,
+                          const float* __restrict__ rs_in,
+                          float* __restrict__ dqkv, int n, int nh, int hd,
+                          int nw, int compact, int wd, int hw, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int c = nh * hd, c3 = 3 * c;
+  const BwdSmem sm = bwd_smem(smem, hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* base = qkv + (size_t)b * n * c3 + h * hd;
+  const float* gbase = g + (size_t)b * n * c + h * hd;
+  float* Qt = sm.t1;
+  float* Gt = sm.t2;
+  load_transposed(Qt, base, c3, n, hd, tid);
+  load_transposed(Gt, gbase, c, n, hd, tid);
+  const size_t prob = (size_t)b * nh + h;
+  for (int i = tid; i < kNMax; i += kBwdThreads) {
+    float mx = 0.f, inv = 0.f, rs = 0.f;
+    if (i < n) {
+      const float* mr = ms + ((size_t)b * n + i) * 2 * nh + 2 * h;
+      mx = mr[0];
+      inv = 1.0f / mr[1];
+      rs = rs_in[prob * n + i];
+    }
+    sm.m[i] = mx;
+    sm.inv[i] = inv;
+    sm.rs[i] = rs;
+  }
+  __syncthreads();
+
+  float* Kw = sm.s1 + warp * kBwdRows * 32;
+  float* Vw = sm.s2 + warp * kBwdRows * 32;
+  const float* mask_b =
+      mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
+
+  for (int j0 = (blockIdx.z * kBwdWarps + warp) * kBwdRows; j0 < n;
+       j0 += gridDim.z * kBwdWarps * kBwdRows) {
+    load_strip(Kw, base + c, c3, j0, n, hd, lane);
+    load_strip(Vw, base + 2 * c, c3, j0, n, hd, lane);
+    __syncwarp();
+
+    // pt[r][t] = p[i][j] and dlt[r][t] = dl[i][j] for key j = j0 + r and
+    // query i = lane + 32 t
+    float pt[kBwdRows][kTMax], dlt[kBwdRows][kTMax];
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r)
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) pt[r][t] = 0.f, dlt[r][t] = 0.f;
+    strip_times_tile(Kw, Qt, hd, lane, pt);       // (q k^T)^T
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) {
+      const int j = j0 + r;
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t) {
+        const int i = lane + 32 * t;
+        float e = 0.f;
+        if (i < n && j < n) {
+          float l = pt[r][t] * scale + bias_at(bias, compact, h, i, j, n, wd, hw);
+          if (mask_b != nullptr) l += mask_b[(size_t)i * n + j];
+          e = __expf(l - sm.m[i]) * sm.inv[i];
+        }
+        pt[r][t] = e;
+      }
+    }
+    const int orow = j0 + lane / kBwdDChunk, od = lane % kBwdDChunk;
+    float* obase = dqkv + ((size_t)b * n + (orow < n ? orow : 0)) * c3 + h * hd;
+    // dv = p^T g
+    for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
+      const float tot = weights_times_tile(pt, Gt, d0, hd, lane);
+      if (orow < n && d0 + od < hd) obase[2 * c + d0 + od] = tot;
+    }
+    strip_times_tile(Vw, Gt, hd, lane, dlt);      // dp^T = (g v^T)^T
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r)
+#pragma unroll
+      for (int t = 0; t < kTMax; ++t)
+        dlt[r][t] = pt[r][t] * (dlt[r][t] - sm.rs[lane + 32 * t]);
+    // dk = scale * dl^T q
+    for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
+      const float tot = weights_times_tile(dlt, Qt, d0, hd, lane);
+      if (orow < n && d0 + od < hd) obase[c + d0 + od] = tot * scale;
+    }
+    __syncwarp();     // the strips are rewritten by the next pass
+  }
+}
+
+// dbias from the dl of all windows, (B_, nh, N, N): the sum over the
+// windows in their order; for the compact form also over the block
+// diagonal, as collapse_bias_kernel (bias.cu) sums it.
+__global__ void __launch_bounds__(256)
+dbias_reduce_kernel(const float* __restrict__ dl, float* __restrict__ dbias,
+                    int b_, int n, int nh, int compact, int wd, int hw) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  const size_t per_window = (size_t)nh * n * n;
+  float acc = 0.f;
+  if (!compact) {
+    if (idx >= (long long)per_window) return;
+    for (int b = 0; b < b_; ++b) acc += dl[b * per_window + idx];
+  } else {
+    const int a_dim = 2 * wd - 1;
+    if (idx >= (long long)nh * a_dim * hw * hw) return;
+    const int j = (int)(idx % hw);
+    const int i = (int)((idx / hw) % hw);
+    const int a = (int)((idx / ((long long)hw * hw)) % a_dim);
+    const int h = (int)(idx / ((long long)a_dim * hw * hw));
+    for (int d1 = 0; d1 < wd; ++d1) {
+      const int d2 = d1 - (a - wd + 1);
+      if (d2 < 0 || d2 >= wd) continue;
+      const size_t at = ((size_t)h * n + d1 * hw + i) * n + d2 * hw + j;
+      for (int b = 0; b < b_; ++b) acc += dl[b * per_window + at];
+    }
+  }
+  dbias[idx] = acc;
+}
+
 int sm_count() {
   int dev = 0, count = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -237,6 +629,26 @@ size_t smem_bytes(int n, int hd) {
   return floats * sizeof(float);
 }
 
+size_t bwd_smem_bytes(int hd) {
+  const size_t floats = 2 * (size_t)round4(hd * kKStride) +
+                        2 * kBwdWarps * kBwdRows * 32 + 3 * kNMax;
+  return floats * sizeof(float);
+}
+
+bool bad_dims(int b_, int n, int nh, int hd, int nw, bool with_mask,
+              int compact, int wd, int hw) {
+  return b_ <= 0 || n <= 0 || nh <= 0 || hd <= 0 || n > kNMax || hd > 32 ||
+         b_ > 65535 || (with_mask && nw <= 0) ||
+         (compact && (wd <= 0 || hw <= 0 || wd * hw != n));
+}
+
+// few problems (the late stages at one or two clips): split each one's rows
+// over up to 4 blocks, as many as still fit the card at once
+int row_split(int problems) {
+  const int split = sm_count() / problems;
+  return split < 1 ? 1 : (split > 4 ? 4 : split);
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,9 +663,7 @@ int vitta_attn_packed_fwd(const float* qkv, const float* bias,
                           const float* mask, float* out, float* ms, int b_,
                           int n, int nh, int hd, int nw, int compact, int wd,
                           int hw, float scale, void* stream) {
-  if (b_ <= 0 || n <= 0 || nh <= 0 || hd <= 0 || n > kNMax || hd > 32 ||
-      b_ > 65535 || (mask != nullptr && nw <= 0) ||
-      (compact && (wd <= 0 || hw <= 0 || wd * hw != n)))
+  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw))
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(n, hd);
   if (smem > 48 * 1024) {
@@ -262,13 +672,55 @@ int vitta_attn_packed_fwd(const float* qkv, const float* bias,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  // few problems (the late stages at one or two clips): split each one's
-  // query rows over up to 4 blocks, as many as still fit the card at once
-  int split = sm_count() / (nh * b_);
-  split = split < 1 ? 1 : (split > 4 ? 4 : split);
-  const dim3 grid(nh, b_, split);
+  const dim3 grid(nh, b_, row_split(nh * b_));
   packed_attn_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       qkv, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale);
+  return (int)cudaGetLastError();
+}
+
+// Floats of scratch vitta_attn_packed_bwd needs: dl (b_, nh, n, n) and rs
+// (b_, nh, n).
+long long vitta_attn_bwd_scratch_floats(int b_, int n, int nh) {
+  return (long long)b_ * nh * n * (n + 1);
+}
+
+// g: (b_, n, nh*hd), the cotangent of out; ms as the forward wrote it;
+// dqkv: (b_, n, 3*nh*hd); dbias: in the bias's form.
+int vitta_attn_packed_bwd(const float* qkv, const float* bias,
+                          const float* mask, const float* ms, const float* g,
+                          float* dqkv, float* dbias, float* scratch, int b_,
+                          int n, int nh, int hd, int nw, int compact, int wd,
+                          int hw, float scale, void* stream) {
+  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(hd);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        packed_attn_bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(packed_attn_bwd_kv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  float* dl = scratch;
+  float* rs = scratch + (size_t)b_ * nh * n * n;
+  const dim3 grid(nh, b_, row_split(nh * b_));
+  packed_attn_bwd_q_kernel<<<grid, kBwdThreads, smem, st>>>(
+      qkv, bias, mask, ms, g, dqkv, dl, rs, n, nh, hd, nw, compact, wd, hw,
+      scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  packed_attn_bwd_kv_kernel<<<grid, kBwdThreads, smem, st>>>(
+      qkv, bias, mask, ms, g, rs, dqkv, n, nh, hd, nw, compact, wd, hw, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long outs =
+      compact ? (long long)nh * (2 * wd - 1) * hw * hw : (long long)nh * n * n;
+  dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, st>>>(
+      dl, dbias, b_, n, nh, compact, wd, hw);
   return (int)cudaGetLastError();
 }
 

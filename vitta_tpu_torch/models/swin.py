@@ -22,11 +22,14 @@ Parameter and buffer names are the reference checkpoint's
 dict loads with ``strict=True``; tap names are the JAX package's flattened
 ones (``backbone.layers_2.blocks_1.norm1``).
 
-Where the work goes on a CUDA tensor: every LayerNorm but norm2 through
-ops/cuda_ln.py, the bias expansion through ops/cuda_bias.py, the attention
-between the qkv and the output projection through ops/cuda_attention.py,
-and norm2 + MLP through ops/cuda_mlp.py — hand-written kernels, with no
-gate on the width or the row count.  The qkv, proj, PatchMerging and head
+Where the work goes on a CUDA tensor, forward and backward: every
+LayerNorm but norm2 through ops/cuda_ln.py, the bias expansion (and its
+collapse) through ops/cuda_bias.py, the attention between the qkv and the
+output projection through ops/cuda_attention.py, and norm2 + MLP through
+ops/cuda_mlp.py — hand-written kernels, with no gate on the width or the
+row count; each keeps what its backward reads only when a gradient is
+wanted.  Under ``train=True`` drop-path and the head's dropout draw from
+the caller's ``torch.Generator`` on the input's device.  The qkv, proj, PatchMerging and head
 projections are ``F.linear`` and the patch embedding is ``nn.Conv3d``, as
 the JAX package leaves them to XLA.  A clamped window (input smaller than
 the configured window) takes the reference's gather and plain attention on
@@ -49,22 +52,16 @@ import torch.nn.functional as F
 
 from vitta_tpu_torch.models.layers import LayerNorm
 from vitta_tpu_torch.models.tanet import dropout
-from vitta_tpu_torch.ops._launch import LaunchCounters
+from vitta_tpu_torch.ops._launch import contiguous_counted as _contiguous
+from vitta_tpu_torch.ops._launch import copy_counters as counters  # noqa: F401
 from vitta_tpu_torch.ops.cuda_attention import (attention_reference,
                                                 window_attention_packed)
 from vitta_tpu_torch.ops.cuda_bias import compact_bias, expand_bias
 from vitta_tpu_torch.ops.cuda_mlp import ln_mlp
 
-# copies made only to hand a kernel a contiguous tensor, since ``reset``
-counters = LaunchCounters("contiguity_copies")
-
-
-def _contiguous(x):
-    if x.is_contiguous():
-        return x
-    counters.contiguity_copies += 1
-    return x.contiguous()
-
+# ``counters.contiguity_copies``: copies made only to hand a kernel a
+# contiguous tensor, since ``counters.reset()``: activations in the forward
+# below and cotangents in the backward of the four ops
 
 def get_window_size(x_size, window_size, shift_size=None):
     """Clamp window/shift to the input size (swin_transformer.py:25-35)."""

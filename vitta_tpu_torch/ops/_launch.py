@@ -1,6 +1,6 @@
 """What every kernel wrapper of the port shares: launch counters, the
-checks a tensor passes before its pointer goes to a kernel, and the raise
-on a CUDA error code."""
+checks a tensor passes before its pointer goes to a kernel, the one place
+where a strided cotangent is copied, and the raise on a CUDA error code."""
 
 from __future__ import annotations
 
@@ -19,6 +19,29 @@ class LaunchCounters:
     def reset(self):
         for name in self._names:
             setattr(self, name, 0)
+
+
+# copies made only to hand a kernel a contiguous tensor, since ``reset``:
+# activations in the Video Swin forward (models/swin.py) and cotangents in
+# the backward of the four Video Swin ops
+copy_counters = LaunchCounters("contiguity_copies")
+
+
+def contiguous_counted(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if it is contiguous, else a contiguous copy, which is counted."""
+    if x.is_contiguous():
+        return x
+    copy_counters.contiguity_copies += 1
+    return x.contiguous()
+
+
+def grad_wanted(*tensors) -> bool:
+    """Whether an ``autograd.Function`` applied to ``tensors`` now would
+    record a graph: only then does its forward keep anything for a
+    backward.  To be asked before ``apply``: inside ``forward`` grad mode
+    is always off, and ``needs_input_grad`` ignores ``torch.no_grad()``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device):
@@ -40,11 +63,3 @@ def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device):
 def raise_on(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code}")
-
-
-def backward_not_ported(what: str, row: int):
-    """The error of a forward-only kernel's ``backward`` on the card."""
-    raise NotImplementedError(
-        f"the backward of the {what} kernel is not ported yet (row {row} of "
-        "the kernel table in PERF.md); on a CUDA tensor there is no "
-        "fallback to the plain version")

@@ -1,4 +1,5 @@
-"""Packed window attention forward: CUDA kernel, plain version, wrapper.
+"""Packed window attention, forward and backward: CUDA kernels, plain
+versions, autograd wrapper.
 
 Per window b and head h, on the packed qkv projection output (B_, N, 3C)
 whose last axis is ordered (3, nh, hd):
@@ -7,15 +8,18 @@ whose last axis is ordered (3, nh, hd):
 
 ``window_attention_packed`` sends a CPU tensor to the plain PyTorch version
 (``attention_reference`` on the unpacked views, the counterpart of
-vitta_tpu/ops/pallas_attention.py:42) and a CUDA tensor to the
-hand-written kernel in ``vitta_tpu_torch/csrc/attention.cu``, the
-counterpart of pallas_attention.py:403-454.  The bias is the dense
-(nh, N, N) tensor or its Toeplitz slices (nh, 2wd-1, hw, hw)
-(ops/cuda_bias.py); the kernel reads either.  With ``save_ms`` the softmax
-row maximum and sum (B_, N, 2nh) come back too, as a backward wants them
-(pallas_attention.py:442).  There is no fallback: a CUDA tensor the kernel
-does not take raises, and so does a backward pass on the card, whose
-kernel (pallas_attention.py:517) is not ported yet.
+vitta_tpu/ops/pallas_attention.py:42, under torch's own autograd) and a
+CUDA tensor to the hand-written kernels in
+``vitta_tpu_torch/csrc/attention.cu``, the counterparts of
+pallas_attention.py:403-454 (forward) and :457-527 (backward).  The bias is
+the dense (nh, N, N) tensor or its Toeplitz slices (nh, 2wd-1, hw, hw)
+(ops/cuda_bias.py); the kernels read either, and the backward returns the
+bias's cotangent in the form the bias came in.  When a gradient is wanted
+the forward keeps (qkv, bias, mask, ms), ms being the softmax row maximum
+and sum (B_, N, 2nh) (pallas_attention.py:442, :638-641), and the backward
+recomputes the softmax from them; ``packed_attention_backward_reference``
+is its plain version.  The mask has no gradient.  There is no fallback: a
+CUDA tensor a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import ctypes
 
 import torch
 
-from vitta_tpu_torch.ops._launch import (LaunchCounters, backward_not_ported,
-                                         check_tensor, raise_on)
-from vitta_tpu_torch.ops.cuda_bias import expand_bias_reference
+from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
+                                         contiguous_counted, grad_wanted,
+                                         raise_on)
+from vitta_tpu_torch.ops.cuda_bias import (collapse_bias_reference,
+                                           expand_bias_reference)
 
-counters = LaunchCounters("fwd")
+counters = LaunchCounters("fwd", "bwd")
 
 
 def attention_reference(q, k, v, bias, mask, scale: float):
@@ -78,6 +84,36 @@ def packed_attention_reference(qkv, bias, mask, scale: float, nh: int,
     return out, ms.reshape(b_, n, 2 * nh).contiguous()
 
 
+def packed_attention_backward_reference(qkv, bias, mask, ms, g, scale: float,
+                                        nh: int):
+    """(dqkv (B_, N, 3C), dbias in the bias's form) for the cotangent ``g``
+    (B_, N, C) of the attention output, written out from what the forward
+    keeps as the kernel computes it (pallas_attention.py:457-514): the
+    softmax is rebuilt from ``ms``."""
+    b_, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // nh
+    q5 = qkv.reshape(b_, n, 3, nh, hd)
+    q, k, v = q5[:, :, 0], q5[:, :, 1], q5[:, :, 2]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + _dense(bias)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(b_ // nw, nw, nh, n, n)
+                  + mask[None, :, None]).reshape(b_, nh, n, n)
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)          # (B_, nh, N, 2)
+    p = torch.exp(logits - ms4[..., 0:1]) / ms4[..., 1:2]
+    gh = g.reshape(b_, n, nh, hd)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    dl = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q) * scale
+    dbias = dl.sum(dim=0)
+    if bias.dim() == 4:
+        dbias = collapse_bias_reference(dbias, (bias.shape[1] + 1) // 2)
+    return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3), dbias
+
+
 _LIB = None
 
 
@@ -90,16 +126,20 @@ def _lib():
         lib.vitta_attn_packed_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                               i, i, ctypes.c_float, p]
         lib.vitta_attn_packed_fwd.restype = i
+        lib.vitta_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                              i, i, i, i, i, ctypes.c_float, p]
+        lib.vitta_attn_packed_bwd.restype = i
+        lib.vitta_attn_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_attn_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_attn_max_tokens.restype = i
         lib.vitta_attn_max_head_dim.restype = i
         _LIB = lib
     return _LIB
 
 
-def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
-                         save_ms: bool = False):
-    """Forward kernel: one launch; returns out (B_, N, C), and ms
-    (B_, N, 2nh) with ``save_ms``."""
+def _check(qkv, bias, mask, nh: int):
+    """Raise on anything the kernels do not take; return
+    (B_, N, C, hd, compact, wd, hw, nW)."""
     if qkv.dim() != 3 or qkv.shape[2] % (3 * nh) != 0:
         raise ValueError(f"qkv must be (B_, N, 3*nh*hd) with nh={nh}, got "
                          f"shape {tuple(qkv.shape)}")
@@ -129,9 +169,19 @@ def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
     lib = _lib()
     if n > lib.vitta_attn_max_tokens() or hd > lib.vitta_attn_max_head_dim():
         raise ValueError(
-            f"the window attention kernel takes N <= "
+            f"the window attention kernels take N <= "
             f"{lib.vitta_attn_max_tokens()} and hd <= "
             f"{lib.vitta_attn_max_head_dim()}; got N={n}, hd={hd}")
+    return b_, n, c, hd, compact, wd, hw, nw
+
+
+def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
+                         save_ms: bool = False):
+    """Forward kernel: one launch; returns out (B_, N, C), and ms
+    (B_, N, 2nh) with ``save_ms``."""
+    b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
+    dev = qkv.device
+    lib = _lib()
     out = torch.empty((b_, n, c), dtype=torch.float32, device=dev)
     ms = torch.empty((b_, n, 2 * nh), dtype=torch.float32,
                      device=dev) if save_ms else None
@@ -147,19 +197,60 @@ def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
     return (out, ms) if save_ms else out
 
 
+def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int):
+    """Backward kernels: one wrapper call, three launches on the current
+    stream; returns (dqkv (B_, N, 3C), dbias in the bias's form), allocated
+    here with the scratch (the bias cotangent of every window, B_*nh*N*N
+    floats)."""
+    b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
+    dev = qkv.device
+    check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
+    check_tensor("window attention", "grad", g, (b_, n, c), dev)
+    lib = _lib()
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias)
+    scratch = torch.empty(lib.vitta_attn_bwd_scratch_floats(b_, n, nh),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.vitta_attn_packed_bwd(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), ms.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+            scratch.data_ptr(), b_, n, nh, hd, nw, int(compact), wd, hw,
+            float(scale), stream)
+    raise_on(code, "window attention backward kernel")
+    counters.bwd += 1
+    return dqkv, dbias
+
+
 class PackedWindowAttention(torch.autograd.Function):
-    """The forward kernel as an autograd node whose backward raises."""
+    """The kernel pair as one differentiable op (the counterpart of the
+    custom VJP at pallas_attention.py:633-652).  With ``keep`` the forward
+    has the kernel emit the row maximum and sum and keeps (qkv, bias,
+    mask, ms); without it nothing is kept.  A strided cotangent is copied
+    once, and counted."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, mask, scale, nh, save_ms):
-        res = attn_packed_fwd_cuda(qkv, bias, mask, scale, nh, save_ms)
-        if save_ms:
-            ctx.mark_non_differentiable(res[1])
-        return res
+    def forward(ctx, qkv, bias, mask, scale, nh, save_ms, keep):
+        ctx.scale, ctx.nh = scale, nh
+        res = attn_packed_fwd_cuda(qkv, bias, mask, scale, nh,
+                                   save_ms or keep)
+        out, ms = res if (save_ms or keep) else (res, None)
+        if keep:
+            ctx.save_for_backward(qkv, bias, mask, ms)
+        if not save_ms:
+            return out
+        ctx.mark_non_differentiable(ms)
+        return out, ms
 
     @staticmethod
-    def backward(ctx, *grads):
-        backward_not_ported("packed window attention", 15)
+    def backward(ctx, g, g_ms=None):
+        qkv, bias, mask, ms = ctx.saved_tensors
+        dqkv, dbias = attn_packed_bwd_cuda(qkv, bias, mask, ms,
+                                           contiguous_counted(g), ctx.scale,
+                                           ctx.nh)
+        return dqkv, dbias, None, None, None, None, None
 
 
 def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
@@ -169,11 +260,12 @@ def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
 
     bias: dense (nh, N, N) or compact (nh, 2wd-1, hw, hw); mask (nW, N, N)
     of 0 / -100 or None.  A CPU tensor takes the plain version; a CUDA
-    tensor takes the kernel, which raises on any dtype other than float32,
-    a non-contiguous input, N > 416 or hd > 32."""
+    tensor takes the kernels (forward, and backward under autograd), which
+    raise on any dtype other than float32, a non-contiguous input, N > 416
+    or hd > 32."""
     if qkv.device.type == "cpu":
         return packed_attention_reference(qkv, bias, mask, scale, nh, save_ms)
     if qkv.device.type != "cuda":
         raise ValueError(f"no window attention for device {qkv.device}")
     return PackedWindowAttention.apply(qkv, bias, mask, float(scale), nh,
-                                       save_ms)
+                                       save_ms, grad_wanted(qkv, bias))

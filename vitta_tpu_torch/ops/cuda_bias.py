@@ -1,4 +1,5 @@
-"""Swin relative-position bias: compact form, dense expansion kernel.
+"""Swin relative-position bias: compact form, dense expansion kernel and
+its backward, the collapse kernel.
 
 The reference looks the (N, N) bias of a (wd, wh, ww) window up as
 ``table[relative_position_index]`` (swin_transformer.py:109-147).  The JAX
@@ -16,8 +17,12 @@ it is plain XLA there), and the dense bias is the block arrangement
 (``expand_bias_reference``, pallas_bias.py:157-159) and a CUDA tensor to
 the hand-written kernel in ``vitta_tpu_torch/csrc/bias.cu``, the
 counterpart of pallas_bias.py:59.  Both move values and compute nothing, so
-they agree bit for bit.  A backward pass on the card raises: its kernel
-(pallas_bias.py:67) is not ported yet.
+they agree bit for bit.  The backward of the expansion sums, for each
+element of V, the at most wd elements of dB that were copied from it:
+``collapse_bias_reference`` on the CPU and in the tests, the collapse
+kernel of ``csrc/bias.cu`` (the counterpart of pallas_bias.py:67) on the
+card, adding in the same order and so bit for bit the same.
+``compact_bias`` keeps torch's own autograd on every device.
 """
 
 from __future__ import annotations
@@ -29,10 +34,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vitta_tpu_torch.ops._launch import (LaunchCounters, backward_not_ported,
-                                         check_tensor, raise_on)
+from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
+                                         contiguous_counted, raise_on)
 
-counters = LaunchCounters("fwd")
+counters = LaunchCounters("fwd", "bwd")
 
 
 @functools.lru_cache(maxsize=8)
@@ -68,6 +73,25 @@ def expand_bias_reference(v, wd: int):
     return torch.cat(rows, dim=1)
 
 
+def collapse_bias_reference(db, wd: int):
+    """The expansion's backward: dense cotangent (nh, N, N) -> dV
+    (nh, 2wd-1, hw, hw), each slice the sum of the (hw, hw) blocks on one
+    block diagonal, added in the order of the block row
+    (pallas_bias.py:67-77)."""
+    hw = db.shape[-1] // wd
+    slices = []
+    for a in range(2 * wd - 1):
+        acc = None
+        for d1 in range(wd):
+            d2 = d1 - (a - wd + 1)
+            if not 0 <= d2 < wd:
+                continue
+            blk = db[:, d1 * hw:(d1 + 1) * hw, d2 * hw:(d2 + 1) * hw]
+            acc = blk if acc is None else acc + blk
+        slices.append(acc)
+    return torch.stack(slices, dim=1)
+
+
 _LIB = None
 
 
@@ -79,6 +103,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vitta_bias_expand.argtypes = [p, p, i, i, i, p]
         lib.vitta_bias_expand.restype = i
+        lib.vitta_bias_collapse.argtypes = [p, p, i, i, i, p]
+        lib.vitta_bias_collapse.restype = i
         _LIB = lib
     return _LIB
 
@@ -101,24 +127,47 @@ def expand_bias_cuda(v, wd: int):
     return out
 
 
+def collapse_bias_cuda(db, wd: int):
+    """Collapse kernel: one launch, output allocated here."""
+    if db.dim() != 3 or db.shape[1] != db.shape[2] or db.shape[1] % wd != 0:
+        raise ValueError(f"db must be (nh, N, N) with N a multiple of {wd}, "
+                         f"got shape {tuple(db.shape)}")
+    nh, n, _ = db.shape
+    hw = n // wd
+    check_tensor("bias collapse", "grad", db, (nh, n, n), db.device)
+    dv = torch.empty((nh, 2 * wd - 1, hw, hw), dtype=torch.float32,
+                     device=db.device)
+    stream = torch.cuda.current_stream(db.device).cuda_stream
+    with torch.cuda.device(db.device):
+        code = _lib().vitta_bias_collapse(db.data_ptr(), dv.data_ptr(), nh,
+                                          wd, hw, stream)
+    raise_on(code, "bias collapse kernel")
+    counters.bwd += 1
+    return dv
+
+
 class ExpandBias(torch.autograd.Function):
-    """The expansion kernel as an autograd node whose backward raises."""
+    """The expansion and collapse kernels as one differentiable op (the
+    counterpart of the custom VJP at pallas_bias.py:80-117).  Nothing is
+    kept for the backward but the window depth.  A strided cotangent is
+    copied once, and counted."""
 
     @staticmethod
     def forward(ctx, v, wd):
+        ctx.wd = wd
         return expand_bias_cuda(v, wd)
 
     @staticmethod
     def backward(ctx, g):
-        backward_not_ported("bias expansion", 6)
+        return collapse_bias_cuda(contiguous_counted(g), ctx.wd), None
 
 
 def expand_bias(v, wd: int):
     """Toeplitz slices (nh, 2wd-1, hw, hw) -> dense bias (nh, N, N).
 
-    A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    which raises on any dtype other than float32 or a non-contiguous
-    input."""
+    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
+    (expansion, and collapse under autograd), which raise on any dtype
+    other than float32 or a non-contiguous input."""
     if v.device.type == "cpu":
         return expand_bias_reference(v, wd)
     if v.device.type != "cuda":
