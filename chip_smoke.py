@@ -1,7 +1,8 @@
 """Smoke run of vitta_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, checks each against its plain PyTorch version, and
 drives the TANet float32 ViTTA stream, the Video Swin-B float32 forward
-paths and the Video Swin-B float32 ViTTA stream end to end.
+paths and the Video Swin-B float32 ViTTA stream end to end, the last under
+each of its three attention routes.
 
     python3 chip_smoke.py
 
@@ -54,9 +55,39 @@ result line:
    24) forward launches and 29 / 24 / 24 / 24 backward launches of
    LayerNorm / bias collapse / attention / LayerNorm-MLP.
 
-To leave the time to phases 10 and 11, phase 9 runs 3 statistics batches
-and 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where
-it ran 6.
+12. Projection-fused attention kernels against plain: ``attn_proj`` and
+   ``attn_ln_proj`` (qkv projection, window attention and output
+   projection in one op, without and with the LayerNorm in front) at every
+   Swin-B stage shape, forward for 1 clip (values only) and 2 clips,
+   backward for 2 clips, with and without mask, the LayerNorm form with
+   and without a cotangent on y: every output, two backward runs
+   bit-equal, CUDA-event and device times of kernel and plain version; for ``attn_proj`` the library call
+   ``F.multi_head_attention_forward`` (packed in-projection, attn_mask =
+   bias + mask made outside the timed call, ``need_weights=False``) and
+   its backward under autograd, which gives no bias gradient; no one call
+   computes the LayerNorm form with its second output y.  Beside both,
+   the device time of the composition the op replaces (LayerNorm kernel,
+   ``F.linear``, packed attention kernel, ``F.linear``).
+13. Small slices of the two projection-fused routes: the tiny Swin under
+   ``attn_route="proj"`` and ``"ln_proj"``, source statistics and eval
+   logits (as phase 7) and two tta_online steps (as phase 10) on the card
+   against the CPU.
+14. Swin-B slices of the two routes at full size: under ``"ln_proj"`` the
+   precompute and ``eval_step`` of phase 9 (statistics and logits must
+   agree with phase 9's packed route) and ``tta_stream`` over 5 videos;
+   under ``"proj"`` ``tta_stream`` over 3 videos.  Per forward pass the
+   counters must show, under ``"ln_proj"``, 24 ``attn_ln_proj``, 5
+   LayerNorm, 24 bias and 24 LayerNorm-MLP launches, no packed attention
+   and no contiguity copy, per step as many backward launches; under
+   ``"proj"`` 29 LayerNorm and 24 ``attn_proj``.  Ends with one line per
+   route: ms/video, host time, device busy, idle share, peak memory.
+
+Phases run in the order 1-4, 12, 5-11, 13, 14.  To leave the time to
+phases 10 and 11, phase 9 runs 3 statistics batches and 4 eval videos
+where it ran 4 and 5, and the TANet slice 5 videos where it ran 6; to
+leave it to phases 12 to 14, phases 3 and 4 time each call over 6 and 7
+runs (4 under the profiler) where they took 25 and 15 (20 and 10), and
+phase 12 over 5 (3) and only at 2 clips, the shapes its sums are made of.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
@@ -84,6 +115,13 @@ import traceback
 import numpy as np
 import torch
 
+# the set-up shared with vitta_tpu_torch/tools/attention_routes.py; without
+# the package beside this file the run ends here
+from vitta_tpu_torch.tools.synthetic import (
+    StepTimes as _StepTimes, device_breakdown,
+    normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
+    swin_weights as _swin_weights, videos as _videos)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # every TAM site of ResNet-50: (H, W, C) -> sites per forward pass
@@ -108,8 +146,6 @@ SWIN_STAGES = ((128, 4, 25088, 64, 2), (256, 8, 6272, 16, 2),
 SWIN_LN_SITES = {(25088, 128): 3, (6272, 256): 2, (6272, 512): 1,
                  (1568, 512): 18, (1568, 1024): 1, (392, 1024): 3,
                  (392, 2048): 1}
-SWIN_LAUNCHES = {"ln_fwd": 29, "bias_expand": 24, "attn_packed_fwd": 24,
-                 "ln_mlp_fwd": 24}     # per forward pass of Swin-B
 LN_TOL = 1e-5      # the same one-pass float32 formula, sums in another order
 ATTN_TOL = 2e-5    # __expf and another summation order over 392 keys
 MLP_TOL = 1e-4     # tiled float32 sums over K <= 4096 terms: between the
@@ -117,8 +153,9 @@ MLP_TOL = 1e-4     # tiled float32 sums over K <= 4096 terms: between the
 SWIN_STAT_BATCHES = 3   # of 2 clips; the first is warm-up
 SWIN_EVAL_VIDEOS = 4    # of 1 clip; the first is warm-up
 SWIN_ADAPT_VIDEOS = 6   # of 2 views + 1 eval clip; the first two are warm-up
-SWIN_BWD_LAUNCHES = {"ln_bwd": 29, "bias_collapse": 24,
-                     "attn_packed_bwd": 24, "ln_mlp_bwd": 24}   # per step
+SWIN_LN_PROJ_VIDEOS = 5   # the ln_proj route's stream; two warm-up
+SWIN_PROJ_VIDEOS = 3      # the proj route's stream; one warm-up
+SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
 # backward kernels: |error| <= tol * (largest |value| of the plain version's
 # tensor).  The sums over rows and windows are taken in chunks and the
 # chunks added in order, not in the plain version's order; float32
@@ -127,6 +164,13 @@ SWIN_BWD_LAUNCHES = {"ln_bwd": 29, "bias_collapse": 24,
 LN_BWD_TOL = 1e-5
 ATTN_BWD_TOL = 2e-5
 MLP_BWD_TOL = 2e-5
+# the projection-fused attention: |error| <= tol + tol * |value| forward, as
+# MLP_TOL (its qkv comes from a tiled float32 sum over K <= 1024 terms, goes
+# through the softmax of ATTN_TOL and a second such sum), and tol * (largest
+# |value|) backward, as MLP_BWD_TOL with room for the two further products
+# and the recomputed qkv in the chain
+PROJ_TOL = 1e-4
+PROJ_BWD_TOL = 5e-5
 
 
 def card_line() -> str:
@@ -169,25 +213,6 @@ def device_ms(fn, reps: int = 20):
     return us / 1e3 / reps if us > 0 else None
 
 
-def device_breakdown(fn, top: int = 8):
-    """(host ms, device-busy ms, [(kernel name, ms, launches)]) of one
-    call of ``fn`` that ends synchronised, from torch.profiler; the busy
-    time is the sum of all kernels' durations (one stream, so they do not
-    overlap), the list its ``top`` largest by name."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return host_ms, sum(r[1] for r in rows), rows[:top]
-
-
 def check_close(name, got, want, rtol, atol=None):
     """Max abs error of ``got``; raises unless |got-want| <= atol +
     rtol*|want| everywhere (atol defaults to rtol)."""
@@ -221,10 +246,10 @@ def bound(nbytes: float, flops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def measure(fn):
+def measure(fn, reps: int = 7, dev_reps: int = 4, grad: bool = False):
     """(CUDA-event ms, device ms or None) of one call of ``fn``."""
-    with torch.no_grad():
-        return cuda_ms(fn, reps=15), device_ms(fn, reps=10)
+    with torch.set_grad_enabled(grad):
+        return cuda_ms(fn, reps=reps), device_ms(fn, reps=dev_reps)
 
 
 def fmt(v) -> str:
@@ -305,7 +330,8 @@ def phase_tam_kernels(dev):
             ev, dv = {}, {}
             for name, fn in calls.items():
                 with torch.set_grad_enabled(name == "plain_bwd"):
-                    ev[name], dv[name] = cuda_ms(fn), device_ms(fn)
+                    ev[name], dv[name] = (cuda_ms(fn, reps=6, warmup=2),
+                                          device_ms(fn, reps=4))
             nbytes = x.numel() * 4
             print(f"tam n={n} t={t} {h}x{w}x{c}: err fwd {e_f:.2e} bwd "
                   f"{e_b:.2e} | event ms: fwd {ev['fwd']:.4f} plain "
@@ -705,7 +731,8 @@ def phase_swin_kernels(dev):
                        f"{ops}/pallas_attention.py:517"),
             mlp_b.row("ln_mlp_bwd", f"{src}/mlp.cu", f"{ops}/pallas_mlp.py:322",
                       has_library=False)]
-    per_pass = {**SWIN_LAUNCHES, **SWIN_BWD_LAUNCHES}
+    fwd, bwd = swin_launches(None)
+    per_pass = {**fwd, **bwd}
     for r in rows:
         print(f"{r['name']} per Swin-B pass of 2 clips "
               f"({per_pass[r['name']]} launches): event ms "
@@ -717,6 +744,283 @@ def phase_swin_kernels(dev):
     return rows
 
 
+def phase_swin_proj_kernels(dev):
+    """The projection-fused window attention kernels, with and without the
+    LayerNorm prologue, against their plain versions at every Swin-B stage
+    shape: forward for 1 and 2 clips, backward for 2 clips, with and
+    without mask, the LayerNorm form with and without a cotangent on y.
+    Returns their JSON rows, whose times are sums over the 24 sites of one
+    forward or backward pass of 2 clips.  The library call of ``attn_proj``
+    is ``F.multi_head_attention_forward`` on the token-major (N, B_, C) copy
+    of x, with the packed in-projection, attn_mask = bias + mask of shape
+    (B_*nh, N, N) made outside the timed call and ``need_weights=False``,
+    and its backward under autograd for dx and the four projection
+    gradients (it gives no bias gradient); the LayerNorm form returns y as
+    well, which no one call computes.  Beside each op the composition it
+    replaces is timed too (LayerNorm kernel, ``F.linear``, packed attention
+    kernel, ``F.linear``, and their backward under autograd): that one
+    runs the port's own kernels, so it is no library time."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_attention_proj as cp
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def quick(fn, grad=False):
+        return measure(fn, reps=5, dev_reps=3, grad=grad)
+
+    wd, wh, ww = SWIN_WINDOW
+    hw, n_tok = wh * ww, wd * wh * ww
+    eps = 1e-5
+    tot = {k: Totals() for k in ("proj_fwd", "proj_bwd", "ln_proj_fwd",
+                                 "ln_proj_bwd")}
+    comp = dict.fromkeys(tot, 0.0)       # the composition's device ms
+
+    def add_composition(key, sites, device_ms):
+        comp[key] = None if (device_ms is None or comp[key] is None) \
+            else comp[key] + sites * device_ms
+
+    bwd_names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+    ln_bwd_names = ("dx", "dgamma", "dbeta") + bwd_names[1:]
+    for stage, (c, nh, tokens, nw, depth) in enumerate(SWIN_STAGES):
+        hd = c // nh
+        scale = hd ** -0.5
+        gm, bt = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        wqkv, bqkv = randn(3 * c, c, scale=c ** -0.5), 0.1 * randn(3 * c)
+        wproj, bproj = randn(c, c, scale=c ** -0.5), 0.1 * randn(c)
+        dense = cb.expand_bias_reference(
+            randn(nh, 2 * wd - 1, hw, hw), wd)
+        mask = None
+        if nw > 1:
+            mask = torch.where(
+                torch.rand(nw, n_tok, n_tok, device=dev, generator=gen) < 0.3,
+                -100.0, 0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+        w = (wqkv, bqkv, wproj, bproj)
+        for clips in (1, 2):
+            b_ = clips * tokens // n_tok
+            m_rows = b_ * n_tok
+            x = randn(b_, n_tok, c, scale=1.5) + 0.3
+            g = randn(b_, n_tok, c)
+            gy_full = randn(b_, n_tok, c)
+            for m in ((None, mask) if mask is not None else (None,)):
+                tag = (f"B_={b_} N={n_tok} C={c} nh={nh} mask="
+                       f"{m is not None}")
+                sites = depth // 2 if mask is not None else depth
+                attn_flops = b_ * nh * n_tok * n_tok * (4 * hd + 6)
+                small = (4 * c * c + 4 * c + dense.numel()
+                         + (0 if m is None else m.numel()))
+                # forward, both forms
+                got = cp.attn_proj_fwd(x, *w, dense, m, scale, nh, True)
+                want = cp.proj_attention_reference(x, *w, dense, m, scale, nh,
+                                                   True)
+                err = max(check_close(f"attn_proj fwd {tag} {nm}", p_, q_,
+                                      PROJ_TOL)
+                          for nm, p_, q_ in zip(("out", "o_att", "ms"), got,
+                                                want))
+                tot["proj_fwd"].err = max(tot["proj_fwd"].err, err)
+                got_ln = cp.attn_ln_proj_fwd(x, gm, bt, eps, *w, dense, m,
+                                             scale, nh, True)
+                want_ln = cp.ln_proj_attention_reference(
+                    x, gm, bt, eps, *w, dense, m, scale, nh, True)
+                err_ln = max(check_close(f"attn_ln_proj fwd {tag} {nm}", p_,
+                                         q_, PROJ_TOL)
+                             for nm, p_, q_ in zip(("out", "y", "o_att", "ms"),
+                                                   got_ln, want_ln))
+                tot["ln_proj_fwd"].err = max(tot["ln_proj_fwd"].err, err_ln)
+                _o, o_att, ms_ = got
+                _o, _y, o_att_ln, ms_ln = got_ln
+                want_out = want[0]
+                del got, want, got_ln, want_ln, _o, _y
+
+                def composition(xin, with_ln):
+                    y = cl.layer_norm(xin, gm, bt, eps) if with_ln else xin
+                    qkv = F.linear(y, wqkv, bqkv)
+                    o = ca.window_attention_packed(qkv, dense, m, scale, nh)
+                    return F.linear(o, wproj, bproj), y
+
+                if clips == 1:      # the eval batch: held to plain, not timed
+                    print(f"attn_proj / attn_ln_proj fwd {tag}: max abs err "
+                          f"{max(err, err_ln):.2e}", flush=True)
+                    continue
+                times = {"proj": quick(lambda: cp.attn_proj_fwd(
+                             x, *w, dense, m, scale, nh)),
+                         "ln_proj": quick(lambda: cp.attn_ln_proj_fwd(
+                             x, gm, bt, eps, *w, dense, m, scale, nh))}
+                am = (dense[None] if m is None else
+                      dense[None, None] + m[None, :, None]).expand(
+                          b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                              b_ * nh, n_tok, n_tok)
+                x_t = x.transpose(0, 1).contiguous()
+
+                def mha(xin, wq, bq, wp_, bp_):
+                    return F.multi_head_attention_forward(
+                        xin, xin, xin, c, nh, wq, bq, None, None, False,
+                        0.0, wp_, bp_, training=False, need_weights=False,
+                        attn_mask=am)[0]
+
+                check_close(f"multi_head_attention_forward {tag}",
+                            mha(x_t, *w).transpose(0, 1), want_out, 1e-3)
+                times.update({
+                    "proj library": quick(lambda: mha(x_t, *w)),
+                    "proj plain": quick(lambda: cp.proj_attention_reference(
+                        x, *w, dense, m, scale, nh)),
+                    "ln_proj plain": quick(
+                        lambda: cp.ln_proj_attention_reference(
+                            x, gm, bt, eps, *w, dense, m, scale, nh)),
+                    "proj composition": quick(
+                        lambda: composition(x, False)),
+                    "ln_proj composition": quick(
+                        lambda: composition(x, True))})
+                _report(f"attn_proj / attn_ln_proj fwd {tag}",
+                        max(err, err_ln), times)
+                flops = 8 * m_rows * c * c + attn_flops
+                tot["proj_fwd"].add(
+                    sites, library_ms=times["proj library"][0],
+                    library_device_ms=times["proj library"][1])
+                for key, form, extra in (("proj_fwd", "proj", 0),
+                                         ("ln_proj_fwd", "ln_proj", 1)):
+                    tot[key].add(
+                        sites, ms=times[form][0], device_ms=times[form][1],
+                        plain_ms=times[f"{form} plain"][0],
+                        plain_device_ms=times[f"{form} plain"][1],
+                        bytes=((2 + extra) * m_rows * c + small
+                               + 2 * extra * c) * 4,
+                        flops=flops + extra * 8 * m_rows * c)
+                    add_composition(key, sites,
+                                    times[f"{form} composition"][1])
+
+                # backward, both forms, at the adapt batch
+                bflops = (16 * m_rows * c * c
+                          + b_ * nh * n_tok * n_tok * (10 * hd + 12))
+                got = cp.attn_proj_bwd(x, wqkv, bqkv, wproj, dense, m, o_att,
+                                       ms_, g, scale, nh)
+                want = cp.proj_attention_backward_reference(
+                    x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g, scale, nh)
+                err = max(check_scaled(f"attn_proj bwd {tag} {nm}", p_, q_,
+                                       PROJ_BWD_TOL)
+                          for nm, p_, q_ in zip(bwd_names, got, want))
+                again = cp.attn_proj_bwd(x, wqkv, bqkv, wproj, dense, m,
+                                         o_att, ms_, g, scale, nh)
+                if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                    raise AssertionError(f"attn_proj bwd {tag}: two runs "
+                                         "differ")
+                tot["proj_bwd"].err = max(tot["proj_bwd"].err, err)
+                del got, want, again
+                leaves = [v.detach().clone().requires_grad_()
+                          for v in (x, wqkv, bqkv, wproj, bproj, dense)]
+
+                def comp_graph(with_ln):
+                    xin, wq, bq, wp_, bp_, bias_ = leaves
+                    y = cl.layer_norm(xin, gm_l, bt_l, eps) if with_ln else xin
+                    o = ca.window_attention_packed(F.linear(y, wq, bq), bias_,
+                                                   m, scale, nh)
+                    return F.linear(o, wp_, bp_), y
+
+                gm_l = gm.detach().clone().requires_grad_()
+                bt_l = bt.detach().clone().requires_grad_()
+                lib_leaves = [v.detach().clone().requires_grad_()
+                              for v in (x_t, wqkv, bqkv, wproj, bproj)]
+                g_t = g.transpose(0, 1).contiguous()
+                with torch.enable_grad():
+                    out_c, _ = comp_graph(False)
+                    out_lib = mha(*lib_leaves)
+                times = {
+                    "proj library": quick(lambda: torch.autograd.grad(
+                        out_lib, lib_leaves, g_t, retain_graph=True),
+                        grad=True),
+                    "proj": quick(lambda: cp.attn_proj_bwd(
+                        x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g, scale,
+                        nh)),
+                    "proj plain": quick(
+                        lambda: cp.proj_attention_backward_reference(
+                            x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g,
+                            scale, nh)),
+                    "proj composition": quick(lambda: torch.autograd.grad(
+                        out_c, leaves, g, retain_graph=True), grad=True)}
+                del out_c, out_lib, lib_leaves, g_t
+                nbytes = (4 * m_rows * c + ms_.numel() + 2 * small) * 4
+                tot["proj_bwd"].add(
+                    sites, ms=times["proj"][0], device_ms=times["proj"][1],
+                    library_ms=times["proj library"][0],
+                    library_device_ms=times["proj library"][1],
+                    plain_ms=times["proj plain"][0],
+                    plain_device_ms=times["proj plain"][1], bytes=nbytes,
+                    flops=bflops)
+                add_composition("proj_bwd", sites,
+                                times["proj composition"][1])
+                for gy in (gy_full, None):
+                    args = (x, gm, bt, eps, wqkv, bqkv, wproj, dense, m,
+                            o_att_ln, ms_ln, g, gy, scale, nh)
+                    got = cp.attn_ln_proj_bwd(*args)
+                    want = cp.ln_proj_attention_backward_reference(*args)
+                    what = f"attn_ln_proj bwd {tag} gy={gy is not None}"
+                    e_ln = max(check_scaled(f"{what} {nm}", p_, q_,
+                                            PROJ_BWD_TOL)
+                               for nm, p_, q_ in zip(ln_bwd_names, got, want))
+                    again = cp.attn_ln_proj_bwd(*args)
+                    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    tot["ln_proj_bwd"].err = max(tot["ln_proj_bwd"].err, e_ln)
+                    err = max(err, e_ln)
+                    del got, want, again
+                    with torch.enable_grad():
+                        out_c, y_c = comp_graph(True)
+                    outs, cots = ([out_c, y_c], [g, gy]) if gy is not None \
+                        else ([out_c], [g])
+                    lv = leaves + [gm_l, bt_l]
+                    key = f"ln_proj gy={gy is not None}"
+                    times[key] = quick(lambda: cp.attn_ln_proj_bwd(*args))
+                    times[key + " plain"] = quick(
+                        lambda: cp.ln_proj_attention_backward_reference(*args))
+                    times[key + " composition"] = quick(
+                        lambda: torch.autograd.grad(outs, lv, cots,
+                                                    retain_graph=True),
+                        grad=True)
+                    del out_c, y_c, outs
+                    # the tap's cotangent exists at the chosen blocks,
+                    # stages 3 and 4
+                    if (gy is not None) == (stage >= 2):
+                        tot["ln_proj_bwd"].add(
+                            sites, ms=times[key][0], device_ms=times[key][1],
+                            plain_ms=times[key + " plain"][0],
+                            plain_device_ms=times[key + " plain"][1],
+                            bytes=nbytes + ((1 if gy is not None else 0)
+                                            * m_rows * c + 4 * c) * 4,
+                            flops=bflops + 20 * m_rows * c)
+                        add_composition("ln_proj_bwd", sites,
+                                        times[key + " composition"][1])
+                _report(f"attn_proj / attn_ln_proj bwd {tag}", err, times)
+                del leaves, o_att, ms_, o_att_ln, ms_ln, am, x_t, want_out
+            del x, g, gy_full
+
+    src, ops = "vitta_tpu_torch/csrc/attention_proj.cu", \
+        "vitta_tpu/ops/pallas_attention.py"
+    rows = [tot["proj_fwd"].row("attn_proj_fwd", src, f"{ops}:724"),
+            tot["proj_bwd"].row("attn_proj_bwd", src, f"{ops}:747"),
+            tot["ln_proj_fwd"].row("attn_ln_proj_fwd", src, f"{ops}:945",
+                                   False),
+            tot["ln_proj_bwd"].row("attn_ln_proj_bwd", src, f"{ops}:967",
+                                   False)]
+    for r, key in zip(rows, ("proj_fwd", "proj_bwd", "ln_proj_fwd",
+                             "ln_proj_bwd")):
+        r["composition_device_ms"] = comp[key]
+        print(f"{r['name']} per Swin-B pass of 2 clips (24 launches): event "
+              f"ms {r['ms']:.3f}, device ms {fmt(r['device_ms'])}, plain "
+              f"{r['plain_ms']:.3f} (device {fmt(r['plain_device_ms'])}), "
+              + ("library none" if "ln_proj" in r["name"] else
+                 f"library {r['library_ms']:.3f} (device "
+                 f"{fmt(r['library_device_ms'])})")
+              + f", the composition it replaces device "
+              f"{fmt(comp[key])}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}", flush=True)
+    return rows
+
+
 def _cfg(clip_length, num_classes, **model_kw):
     from vitta_tpu_torch.config import tanet_ucf101_preset
     cfg = tanet_ucf101_preset()
@@ -724,12 +1028,6 @@ def _cfg(clip_length, num_classes, **model_kw):
         data=dataclasses.replace(cfg.data, clip_length=clip_length),
         model=dataclasses.replace(cfg.model, num_classes=num_classes,
                                   **model_kw))
-
-
-def _videos(rng, n, t, hw, views=2):
-    return [(rng.integers(0, 256, (views, t, hw, hw, 3), dtype=np.uint8),
-             rng.integers(0, 256, (1, t, hw, hw, 3), dtype=np.uint8),
-             np.asarray([i % 101], np.int64)) for i in range(n)]
 
 
 def _source_stats(model, clip):
@@ -794,17 +1092,6 @@ def phase_small_slice(seed):
           f"difference {worst:.2e} of its norm", flush=True)
 
 
-class _StepTimes:
-    """Collects the per-video times ``tta_stream`` reports."""
-
-    def __init__(self):
-        self.ms = []
-
-    def scalar(self, tag, value, step):
-        if tag == "tta/step_ms":
-            self.ms.append(value)
-
-
 def phase_full_slice(seed, n_videos, card):
     """tta_stream over seeded videos at the reference operating point;
     returns the TAM launch counts of the run."""
@@ -865,47 +1152,11 @@ def phase_full_slice(seed, n_videos, card):
 
 
 # ---------------------------------------------------------------------------
-def _swin_cfg(t=16, hw=224, **model_kw):
-    from vitta_tpu_torch.config import swin_ucf101_preset
-    cfg = swin_ucf101_preset()
-    return cfg.replace(
-        data=dataclasses.replace(cfg.data, clip_length=t, input_size=hw,
-                                 scale_size=hw),
-        model=dataclasses.replace(cfg.model, **model_kw))
-
-
-def _swin_weights(cfg, seed):
-    """A seeded state dict of the model of ``cfg``; the bias tables are
-    drawn wide (std 0.5, not the initialiser's 0.02) so that a wrong bias
-    would show in the logits."""
+def _swin_model(cfg, sd, attn_route=None):
     from vitta_tpu_torch.models import get_model
-    torch.manual_seed(seed)
-    model = get_model(cfg)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("relative_position_bias_table"):
-                p.normal_(0.0, 0.5)
-    return {k: v.clone() for k, v in model.state_dict().items()}
-
-
-def _swin_model(cfg, sd):
-    from vitta_tpu_torch.models import get_model
-    model = get_model(cfg)
+    model = get_model(cfg, attn_route=attn_route)
     model.load_state_dict(sd, strict=True)
     return model
-
-
-def _normalized_batches(rng, cfg, sizes, t, hw):
-    """Seeded synthetic uint8 clips, normalised on the host as a loader
-    hands them to the precompute: [(float32 (B,T,S,S,3), labels)]."""
-    mean = np.asarray(cfg.data.input_mean, np.float32)
-    std = np.asarray(cfg.data.input_std, np.float32)
-    out = []
-    for b in sizes:
-        clip = rng.integers(0, 256, (b, t, hw, hw, 3), dtype=np.uint8)
-        out.append(((clip.astype(np.float32) - mean) / std,
-                    np.zeros(b, np.int64)))
-    return out
 
 
 def _compare_stats(what, got, want, names):
@@ -926,26 +1177,50 @@ def _compare_stats(what, got, want, names):
 
 def _swin_counts():
     from vitta_tpu_torch.models import swin
-    from vitta_tpu_torch.ops import cuda_attention, cuda_bias, cuda_ln, cuda_mlp
+    from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
+                                     cuda_bias, cuda_ln, cuda_mlp)
+    proj = cuda_attention_proj.counters
     return {"ln_fwd": cuda_ln.counters.fwd,
             "bias_expand": cuda_bias.counters.fwd,
             "attn_packed_fwd": cuda_attention.counters.fwd,
+            "attn_proj_fwd": proj.proj_fwd,
+            "attn_ln_proj_fwd": proj.ln_proj_fwd,
             "ln_mlp_fwd": cuda_mlp.counters.fwd,
             "ln_bwd": cuda_ln.counters.bwd,
             "bias_collapse": cuda_bias.counters.bwd,
             "attn_packed_bwd": cuda_attention.counters.bwd,
+            "attn_proj_bwd": proj.proj_bwd,
+            "attn_ln_proj_bwd": proj.ln_proj_bwd,
             "ln_mlp_bwd": cuda_mlp.counters.bwd,
             "contiguity_copies": swin.counters.contiguity_copies}
 
 
 def _reset_swin_counts():
     from vitta_tpu_torch.models import swin
-    from vitta_tpu_torch.ops import cuda_attention, cuda_bias, cuda_ln, cuda_mlp
-    for mod in (cuda_ln, cuda_bias, cuda_attention, cuda_mlp, swin):
+    from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
+                                     cuda_bias, cuda_ln, cuda_mlp)
+    for mod in (cuda_ln, cuda_bias, cuda_attention, cuda_attention_proj,
+                cuda_mlp, swin):
         mod.counters.reset()
 
 
-def phase_swin_card_vs_cpu(what, cfg, seed, sizes, t, hw):
+def swin_launches(route, blocks=24, other_norms=5):
+    """(forward, backward) launches per pass of a Swin with ``blocks``
+    blocks that all take ``route`` (None: the packed default), by kernel;
+    ``other_norms`` counts the LayerNorms outside the blocks (patch embed,
+    PatchMerging, final)."""
+    attn = {None: "attn_packed", "packed": "attn_packed", "proj": "attn_proj",
+            "ln_proj": "attn_ln_proj"}[route]
+    norms = other_norms + (0 if route == "ln_proj" else blocks)
+    fwd = {"ln_fwd": norms, "bias_expand": blocks, "attn_packed_fwd": 0,
+           "attn_proj_fwd": 0, "attn_ln_proj_fwd": 0, "ln_mlp_fwd": blocks}
+    bwd = {"ln_bwd": norms, "bias_collapse": blocks, "attn_packed_bwd": 0,
+           "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0, "ln_mlp_bwd": blocks}
+    fwd[attn + "_fwd"] = bwd[attn + "_bwd"] = blocks
+    return fwd, bwd
+
+
+def phase_swin_card_vs_cpu(what, cfg, seed, sizes, t, hw, attn_route=None):
     """Source statistics and eval logits of one seeded Swin on the card
     against the CPU.  Tolerances: statistics rtol 1e-3 / atol 1e-5, logits
     rtol 2e-3 / atol 2e-4 (tests/test_swin_parity.py's bounds: float32
@@ -961,17 +1236,17 @@ def phase_swin_card_vs_cpu(what, cfg, seed, sizes, t, hw):
     _reset_swin_counts()
     stats, logits = {}, {}
     for dev in ("cuda", "cpu"):
-        stats[dev] = compute_source_statistics(_swin_model(cfg, sd), batches,
-                                               device=dev)
-        eng = VittaEngine(_swin_model(cfg, sd), cfg, sd, stats[dev],
-                          device=dev)
+        stats[dev] = compute_source_statistics(
+            _swin_model(cfg, sd, attn_route), batches, device=dev)
+        eng = VittaEngine(_swin_model(cfg, sd, attn_route), cfg, sd,
+                          stats[dev], device=dev)
         logits[dev] = eng.eval_logits(clip).cpu()
     counts = _swin_counts()
     stat_err = _compare_stats(what, stats["cuda"], stats["cpu"], names)
     logit_err = check_close(f"{what} eval logits", logits["cuda"],
                             logits["cpu"], 2e-3, 2e-4)
-    for k in SWIN_LAUNCHES:
-        if counts[k] == 0:
+    for k, n in swin_launches(attn_route)[0].items():
+        if n and counts[k] == 0:
             raise AssertionError(f"{what}: the {k} kernel was never launched")
     print(f"{what} card vs cpu: {len(names)} taps max abs err {stat_err:.2e}; "
           f"eval logits max abs err {logit_err:.2e} (|logit| up to "
@@ -998,11 +1273,13 @@ class _TimedBatches:
         return [(b - a) * 1e3 for a, b in zip(self.stamps, self.stamps[1:])]
 
 
-def phase_swin_full_slice(cfg, seed, card):
+def phase_swin_full_slice(cfg, seed, card, attn_route=None,
+                          eval_videos=SWIN_EVAL_VIDEOS, sd=None):
     """The Swin of ``cfg`` (Swin-B at full width and depth) through the
-    source-statistics precompute and source-only evaluation; returns the
-    launch counts of the run, the statistics as reloaded from their files
-    and the state dict."""
+    source-statistics precompute and source-only evaluation under
+    ``attn_route``; returns the launch counts of the run, the statistics
+    as reloaded from their files, the state dict and the first video's
+    eval logits."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.precompute import (
         compute_source_statistics, load_source_statistics_npz,
@@ -1012,19 +1289,20 @@ def phase_swin_full_slice(cfg, seed, card):
     arch, depths, classes = (cfg.model.arch, cfg.model.depths,
                              cfg.model.num_classes)
     t, hw = cfg.data.clip_length, cfg.data.input_size
-    sd = _swin_weights(cfg, seed)
+    sd = _swin_weights(cfg, seed) if sd is None else sd
     rng = np.random.default_rng(seed)
     batches = _TimedBatches(_normalized_batches(
         rng, cfg, (2,) * SWIN_STAT_BATCHES, t, hw))
     videos = [(rng.integers(0, 256, (1, t, hw, hw, 3), dtype=np.uint8),
                np.asarray([i % classes], np.int64))
-              for i in range(SWIN_EVAL_VIDEOS)]
+              for i in range(eval_videos)]
     names = [n for n, _ in swin_norm_layers(depths)]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_swin_counts()
-    stats = compute_source_statistics(_swin_model(cfg, sd), batches)
+    stats = compute_source_statistics(_swin_model(cfg, sd, attn_route),
+                                      batches)
     torch.cuda.synchronize()
     peak_stats = torch.cuda.max_memory_allocated()
     if set(stats) != set(names):
@@ -1046,7 +1324,7 @@ def phase_swin_full_slice(cfg, seed, card):
                     and np.array_equal(loaded[name][1], v)):
                 raise AssertionError(f"{name} changed through its file")
 
-    engine = VittaEngine(_swin_model(cfg, sd), cfg, sd, pair)
+    engine = VittaEngine(_swin_model(cfg, sd, attn_route), cfg, sd, pair)
     torch.cuda.reset_peak_memory_stats()
     eval_ms, preds = [], []
     for clip, label in videos:
@@ -1085,10 +1363,8 @@ def phase_swin_full_slice(cfg, seed, card):
                   + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}"
                               for k, ms, n in rows), flush=True)
 
-    forwards = SWIN_STAT_BATCHES + SWIN_EVAL_VIDEOS + 1
-    per_block = sum(depths)
-    want = {"ln_fwd": per_block + len(depths) + 1, "bias_expand": per_block,
-            "attn_packed_fwd": per_block, "ln_mlp_fwd": per_block}
+    forwards = SWIN_STAT_BATCHES + eval_videos + 1
+    want = swin_launches(attn_route, sum(depths), len(depths) + 1)[0]
     for k, per_forward in want.items():
         if counts[k] != forwards * per_forward:
             raise AssertionError(
@@ -1098,33 +1374,35 @@ def phase_swin_full_slice(cfg, seed, card):
         raise AssertionError(f"{counts['contiguity_copies']} contiguity "
                              "copies on the Swin path")
     stat_ms = batches.ms()[1:]
-    print(f"swin full slice: source statistics {SWIN_STAT_BATCHES} batches of "
+    print(f"swin full slice ({attn_route or 'packed'}): source statistics "
+          f"{SWIN_STAT_BATCHES} batches of "
           f"2 clips, median {statistics.median(stat_ms) / 2:.3f} ms/clip "
           f"after 1 warm-up batch (host clock, each batch synchronised on "
           f"its statistics; float32 host-to-device copy included), peak "
           f"memory {peak_stats / 2**30:.3f} GiB, {len(names)} layers written "
           f"and "
-          f"reloaded; source-only eval {SWIN_EVAL_VIDEOS} videos, median "
+          f"reloaded; source-only eval {eval_videos} videos, median "
           f"{statistics.median(eval_ms[1:]):.3f} ms/clip after 1 warm-up "
           f"(uint8 copy and normalisation included), peak memory "
           f"{peak_eval / 2**30:.3f} GiB, predictions {preds}; launches over "
           f"{forwards} forward passes {counts}; on {card}", flush=True)
-    return counts, pair, sd
+    return counts, pair, sd, logits.cpu()
 
 
-def _swin_direct(cfg, sd, **kw):
+def _swin_direct(cfg, sd, attn_route=None, **kw):
     """The Swin of ``cfg`` built directly, for the dropout rates that the
     configuration has no field for."""
     from vitta_tpu_torch.models.swin import Recognizer3D
     mc = cfg.model
     model = Recognizer3D(mc.num_classes, patch_size=mc.patch_size,
                          window_size=mc.window_size, embed_dim=mc.embed_dim,
-                         depths=mc.depths, num_heads=mc.num_heads, **kw)
+                         depths=mc.depths, num_heads=mc.num_heads,
+                         attn_route=attn_route, **kw)
     model.load_state_dict(sd, strict=True)
     return model
 
 
-def phase_swin_adapt_small(cfg, seed, t, hw):
+def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None):
     """Two tta_online steps of the tiny Swin on the card and on the CPU,
     drop-path and head dropout 0.
 
@@ -1144,9 +1422,9 @@ def phase_swin_adapt_small(cfg, seed, t, hw):
     _reset_swin_counts()
     runs = {}
     for dev in ("cuda", "cpu"):
-        eng = VittaEngine(_swin_direct(cfg, sd, drop_path_rate=0.0,
-                                       head_dropout=0.0), cfg, sd, src,
-                          device=dev)
+        eng = VittaEngine(_swin_direct(cfg, sd, attn_route,
+                                       drop_path_rate=0.0, head_dropout=0.0),
+                          cfg, sd, src, device=dev)
         state = eng.init_state()
         metrics = []
         for views, clip, label in videos:
@@ -1179,27 +1457,32 @@ def phase_swin_adapt_small(cfg, seed, t, hw):
         moved += norm > 0
     if moved != len(p_cpu):
         raise AssertionError(f"only {moved} of {len(p_cpu)} parameters moved")
-    for k in list(SWIN_LAUNCHES) + list(SWIN_BWD_LAUNCHES):
-        if counts[k] == 0:
+    fwd, bwd = swin_launches(attn_route)
+    for k, n in {**fwd, **bwd}.items():
+        if n and counts[k] == 0:
             raise AssertionError(f"swin adapt small slice: the {k} kernel "
                                  "was never launched")
-    print(f"swin adapt small slice card vs cpu: losses {m_gpu} vs {m_cpu}; "
+    print(f"swin adapt small slice ({attn_route or 'packed'}) card vs cpu: "
+          f"losses {m_gpu} vs {m_cpu}; "
           f"eval logits max abs err {logit_err:.2e}; EMA max abs err "
           f"{ema_err:.2e}; all {moved} parameters moved, worst update "
           f"difference {worst:.2e} of its norm; launches {counts}",
           flush=True)
 
 
-def phase_swin_adapt_full(cfg, sd, stats, seed, card):
-    """tta_stream of Swin-B (``cfg``: swin_ucf101_preset) over seeded
-    videos, drop-path 0.2 and head dropout 0.5 on; returns the launch
-    counts of the run."""
+def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
+                          n_videos=SWIN_ADAPT_VIDEOS, warmup=2):
+    """tta_stream of Swin-B (``cfg``: swin_ucf101_preset) under
+    ``attn_route`` over seeded videos, drop-path 0.2 and head dropout 0.5
+    on; returns the launch counts of the run and a summary of its times."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.loops import tta_stream
     from vitta_tpu_torch.models import get_model
-    n_videos, classes = SWIN_ADAPT_VIDEOS, cfg.model.num_classes
+    classes = cfg.model.num_classes
+    route = attn_route or "packed"
     t, hw = cfg.data.clip_length, cfg.data.input_size
-    engine = VittaEngine(get_model(cfg), cfg, sd, stats)
+    engine = VittaEngine(get_model(cfg, attn_route=attn_route), cfg, sd,
+                         stats)
     if (engine.model.backbone.layers[2].blocks[-1].drop_path <= 0
             or engine.model.cls_head.dropout != 0.5):
         raise AssertionError("drop-path or head dropout is off")
@@ -1221,6 +1504,7 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card):
             raise AssertionError(f"{k} is not finite: {meters[k].avg}")
     if state.step != n_videos:
         raise AssertionError(f"{state.step} steps for {n_videos} videos")
+    _reset_swin_counts()
     for clip in (videos[0][1], videos[-1][1]):
         logits = engine.eval_logits(clip)
         pred = int(torch.argmax(logits, -1)[0])
@@ -1229,6 +1513,9 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card):
             raise AssertionError("eval logits after adaptation are not "
                                  f"finite (1, {classes})")
         preds.append(pred)
+    if _swin_counts()["contiguity_copies"]:
+        raise AssertionError(f"swin {route}: contiguity copies in a forward "
+                             "pass")
     # every parameter has a finite gradient from the last step; a block
     # whose branch drop-path dropped for both views has an exactly zero one,
     # and at lr 1e-5 an update below float32's spacing leaves a tensor as it
@@ -1253,16 +1540,23 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card):
     if not (np.isfinite(ema_norm) and ema_norm > 0):
         raise AssertionError(f"EMA did not move (sum |ema| = {ema_norm})")
     # per video: the adapt forward and the eval forward, one backward
-    for k, per_pass in SWIN_LAUNCHES.items():
+    fwd, bwd = swin_launches(attn_route, sum(cfg.model.depths),
+                             len(cfg.model.depths) + 1)
+    for k, per_pass in fwd.items():
         if counts[k] != 2 * per_pass * n_videos:
-            raise AssertionError(f"{k}: {counts[k]} launches over {n_videos} "
-                                 f"videos, expected 2 x {per_pass} each")
-    for k, per_pass in SWIN_BWD_LAUNCHES.items():
+            raise AssertionError(f"{route} {k}: {counts[k]} launches over "
+                                 f"{n_videos} videos, expected 2 x "
+                                 f"{per_pass} each")
+    for k, per_pass in bwd.items():
         if counts[k] != per_pass * n_videos:
-            raise AssertionError(f"{k}: {counts[k]} launches over {n_videos} "
-                                 f"videos, expected {per_pass} each")
-    warm = writer.ms[2:]
-    print(f"swin adapt full slice: {n_videos} videos, median "
+            raise AssertionError(f"{route} {k}: {counts[k]} launches over "
+                                 f"{n_videos} videos, expected {per_pass} "
+                                 "each")
+    warm = writer.ms[warmup:]
+    summary = {"route": route, "videos": len(warm),
+               "median_ms": statistics.median(warm), "min_ms": min(warm),
+               "max_ms": max(warm), "peak_gib": peak / 2**30}
+    print(f"swin adapt full slice ({route}): {n_videos} videos, median "
           f"{statistics.median(warm):.3f} ms/video (min {min(warm):.3f}, max "
           f"{max(warm):.3f}) after {len(writer.ms) - len(warm)} warm-up (host "
           f"clock, synchronised on the metrics; includes the uint8 "
@@ -1284,14 +1578,17 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card):
 
     host_ms, busy, rows = device_breakdown(step, top=14)
     if busy == 0:
-        print("swin adapt step: device time not measured", flush=True)
+        print(f"swin adapt step ({route}): device time not measured",
+              flush=True)
     else:
-        print(f"swin adapt step, profiled: host {host_ms:.3f} ms, device busy "
-              f"{busy:.3f} ms, idle share {max(0.0, 1 - busy / host_ms):.2f}; "
-              "largest kernels: "
+        summary.update(host_ms=host_ms, device_busy_ms=busy,
+                       idle_share=max(0.0, 1 - busy / host_ms))
+        print(f"swin adapt step ({route}), profiled: host {host_ms:.3f} ms, "
+              f"device busy {busy:.3f} ms, idle share "
+              f"{summary['idle_share']:.2f}; largest kernels: "
               + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows),
               flush=True)
-    return counts
+    return counts, summary
 
 
 def main() -> int:
@@ -1299,7 +1596,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from vitta_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1315,11 +1611,23 @@ def main() -> int:
           f" ({time.perf_counter() - t0:.2f} s in all) into "
           f"{os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
 
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[{what}: {now - clock[0]:.1f} s]", flush=True)
+        clock[0] = now
+
     dev = torch.device("cuda")
     tam_rows = phase_tam_kernels(dev)
+    lap("phase 3, TAM kernels")
     swin_rows = phase_swin_kernels(dev)
+    lap("phase 4, Swin kernels")
+    proj_rows = phase_swin_proj_kernels(dev)
+    lap("phase 12, projection-fused attention kernels")
     phase_small_slice(SEED)
     launches = phase_full_slice(SEED, N_VIDEOS, card)
+    lap("phases 5-6, TANet slices")
     for row in tam_rows:
         row["launches"] = launches[row["name"].split("_")[1]]
     phase_swin_card_vs_cpu(
@@ -1329,17 +1637,59 @@ def main() -> int:
         SEED, (2, 1, 2), 4, 24)
     phase_swin_card_vs_cpu("swin-B width, depths (2,2,2,1)",
                            _swin_cfg(depths=(2, 2, 2, 1)), SEED, (1,), 16, 224)
-    forward_launches, stats, sd = phase_swin_full_slice(_swin_cfg(), SEED,
-                                                        card)
+    lap("phases 7-8, Swin card against CPU")
+    forward_launches, stats, sd, logits = phase_swin_full_slice(
+        _swin_cfg(), SEED, card)
+    lap("phase 9, Swin-B forward slice")
     tiny = dict(embed_dim=8, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
                 window_size=(2, 3, 3))
     phase_swin_adapt_small(_swin_cfg(t=4, hw=24, **tiny), SEED, 4, 24)
-    launches = phase_swin_adapt_full(_swin_cfg(), sd, stats, SEED, card)
+    launches, packed = phase_swin_adapt_full(_swin_cfg(), sd, stats, SEED,
+                                             card)
+    lap("phases 10-11, Swin adapt slices")
     for row in swin_rows:
         # the adapt stream's count; the forward-only paths' beside it
         row["launches"] = launches[row["name"]]
         row["launches_forward_paths"] = forward_launches[row["name"]]
-    print(json.dumps({"kernels": tam_rows + swin_rows}))
+
+    # the projection-fused routes: small slices, then the full ones
+    for route in ("proj", "ln_proj"):
+        phase_swin_card_vs_cpu(
+            f"swin small slice ({route})", _swin_cfg(t=4, hw=24, **tiny),
+            SEED, (2, 1, 2), 4, 24, attn_route=route)
+        phase_swin_adapt_small(_swin_cfg(t=4, hw=24, **tiny), SEED, 4, 24,
+                               attn_route=route)
+    lap("phase 13, small slices of the projection-fused routes")
+    fused_forward, ln_stats, _sd, ln_logits = phase_swin_full_slice(
+        _swin_cfg(), SEED, card, attn_route="ln_proj",
+        eval_videos=SWIN_PROJ_EVAL_VIDEOS, sd=sd)
+    stat_err = _compare_stats("swin ln_proj against packed", ln_stats, stats,
+                              list(stats))
+    logit_err = check_close("swin ln_proj against packed, eval logits",
+                            ln_logits, logits, 2e-3, 2e-4)
+    print(f"swin full slice, ln_proj against packed: {len(stats)} source "
+          f"statistics max abs err {stat_err:.2e}, eval logits max abs err "
+          f"{logit_err:.2e}", flush=True)
+    ln_launches, ln_proj = phase_swin_adapt_full(
+        _swin_cfg(), sd, stats, SEED, card, attn_route="ln_proj",
+        n_videos=SWIN_LN_PROJ_VIDEOS, warmup=2)
+    proj_launches, proj = phase_swin_adapt_full(
+        _swin_cfg(), sd, stats, SEED, card, attn_route="proj",
+        n_videos=SWIN_PROJ_VIDEOS, warmup=1)
+    for row in proj_rows:
+        by_route = ln_launches if "ln_proj" in row["name"] else proj_launches
+        row["launches"] = by_route[row["name"]]
+        row["launches_forward_paths"] = fused_forward[row["name"]]
+    lap("phase 14, Swin-B slices of the projection-fused routes")
+    for s in (packed, ln_proj, proj):
+        print(f"swin-B adapt step, route {s['route']}: median "
+              f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
+              f"{s['max_ms']:.3f}, {s['videos']} videos), host "
+              f"{fmt(s.get('host_ms'))} ms, device busy "
+              f"{fmt(s.get('device_busy_ms'))} ms, idle share "
+              f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
+              f"GiB; on {card}", flush=True)
+    print(json.dumps({"kernels": tam_rows + swin_rows + proj_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

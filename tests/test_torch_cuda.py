@@ -15,14 +15,19 @@ backward kernels against the plain backward versions: every gradient to
 2e-5 of its tensor's largest magnitude (``GRAD_REL``: the sums over rows or
 windows are taken in chunks and the chunks added in order, not in the
 plain version's order; float32 throughout), the bias collapse exactly.
+The projection-fused attention kernels: forward rtol 1e-4 / atol 1e-4 as
+the LayerNorm-MLP (two tiled float32 products around the attention's
+softmax); every gradient to 5e-5 of its tensor's largest magnitude
+(``PROJ_GRAD_REL``: four tiled products and the recomputed qkv in the chain,
+where the LayerNorm-MLP backward has two).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vitta_tpu_torch.ops import (cuda_attention, cuda_bias, cuda_ln,
-                                 cuda_mlp, cuda_tam)
+from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
+                                 cuda_bias, cuda_ln, cuda_mlp, cuda_tam)
 from vitta_tpu_torch.ops.cuda_tam import (tam_dynamic_conv,
                                           tam_dynamic_conv_reference)
 
@@ -198,12 +203,12 @@ def test_ln_mlp_kernel_matches_plain(cuda_device, m, c):
 GRAD_REL = 2e-5
 
 
-def _assert_grad(name, got, want):
-    """|got - want| <= GRAD_REL * max|want| everywhere."""
+def _assert_grad(name, got, want, rel=GRAD_REL):
+    """|got - want| <= rel * max|want| everywhere."""
     assert got.shape == want.shape, name
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
-    assert err <= GRAD_REL * max(scale, 1e-30), (
+    assert err <= rel * max(scale, 1e-30), (
         f"{name}: max abs error {err:.3e} on values up to {scale:.3e}")
 
 
@@ -455,3 +460,244 @@ def test_swin_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):       # C = 6 is no multiple of 4
         cuda_mlp.ln_mlp(_randn(dev, 4, 6), g[:6], g[:6], _randn(dev, 24, 6),
                         _randn(dev, 24), _randn(dev, 6, 24), g[:6])
+
+
+# --------------------------------------------------------------------------
+# projection-fused window attention, with and without the LayerNorm prologue
+PROJ_TOL = 1e-4
+PROJ_GRAD_REL = 5e-5
+PROJ_CASES = [
+    dict(b_=8, nh=4, hd=32, window=(8, 7, 7), nw=4),
+    dict(b_=2, nh=32, hd=32, window=(8, 7, 7), nw=0),
+    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
+    dict(b_=4, nh=2, hd=12, window=(3, 2, 5), nw=2),
+    dict(b_=4, nh=1, hd=8, window=(2, 3, 3), nw=0)]
+PROJ_GRADS = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+LN_PROJ_GRADS = ("dx", "dgamma", "dbeta") + PROJ_GRADS[1:]
+
+
+@pytest.fixture
+def float32_matmul():
+    """The plain versions' products in float32, as the kernels' are."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _proj_case(device, b_, nh, hd, window, nw):
+    """(x, gamma, beta, (wqkv, bqkv, wproj, bproj), dense bias, mask, scale)."""
+    _qkv, vc, mask, wd = _attn_case(device, b_, nh, hd, window, nw)
+    c = nh * hd
+    n = window[0] * window[1] * window[2]
+    w = (_randn(device, 3 * c, c, seed=11, scale=c ** -0.5),
+         0.1 * _randn(device, 3 * c, seed=12),
+         _randn(device, c, c, seed=13, scale=c ** -0.5),
+         0.1 * _randn(device, c, seed=14))
+    return (_randn(device, b_, n, c, seed=10, scale=1.5) + 0.3,
+            1 + 0.1 * _randn(device, c, seed=15),
+            0.1 * _randn(device, c, seed=16), w,
+            cuda_bias.expand_bias_reference(vc, wd), mask, hd ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PROJ_CASES, ids=str)
+def test_attn_proj_kernels_match_plain(cuda_device, float32_matmul, case):
+    cp = cuda_attention_proj
+    x, _gm, _bt, w, bias, mask, scale = _proj_case(cuda_device, **case)
+    nh = case["nh"]
+    cp.counters.reset()
+    got = cp.attn_proj_fwd(x, *w, bias, mask, scale, nh, save_residuals=True)
+    assert cp.counters.proj_fwd == 1
+    want = cp.proj_attention_reference(x, *w, bias, mask, scale, nh, True)
+    for name, a, b in zip(("out", "o_att", "ms"), got, want):
+        torch.testing.assert_close(a, b, rtol=PROJ_TOL, atol=PROJ_TOL,
+                                   msg=name)
+    torch.testing.assert_close(
+        cp.attn_proj_fwd(x, *w, bias, mask, scale, nh), got[0], rtol=0, atol=0)
+    _out, o_att, ms = got
+    g = _randn(cuda_device, *x.shape, seed=17)
+    args = (x, w[0], w[1], w[2], bias, mask, o_att, ms, g, scale, nh)
+    grads = cp.attn_proj_bwd(*args)
+    assert cp.counters.proj_bwd == 1
+    for name, a, b in zip(PROJ_GRADS, grads,
+                          cp.proj_attention_backward_reference(*args)):
+        _assert_grad(name, a, b, PROJ_GRAD_REL)
+    # the same from run to run: no atomics anywhere
+    assert all(torch.equal(a, b)
+               for a, b in zip(cp.attn_proj_bwd(*args), grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_gy", [True, False])
+@pytest.mark.parametrize("case", PROJ_CASES, ids=str)
+def test_attn_ln_proj_kernels_match_plain(cuda_device, float32_matmul, case,
+                                          with_gy):
+    cp = cuda_attention_proj
+    x, gm, bt, w, bias, mask, scale = _proj_case(cuda_device, **case)
+    nh = case["nh"]
+    cp.counters.reset()
+    got = cp.attn_ln_proj_fwd(x, gm, bt, 1e-5, *w, bias, mask, scale, nh,
+                              save_residuals=True)
+    assert cp.counters.ln_proj_fwd == 1
+    want = cp.ln_proj_attention_reference(x, gm, bt, 1e-5, *w, bias, mask,
+                                          scale, nh, True)
+    for name, a, b in zip(("out", "y", "o_att", "ms"), got, want):
+        torch.testing.assert_close(a, b, rtol=PROJ_TOL, atol=PROJ_TOL,
+                                   msg=name)
+    _out, _y, o_att, ms = got
+    g = _randn(cuda_device, *x.shape, seed=17)
+    gy = _randn(cuda_device, *x.shape, seed=18) if with_gy else None
+    args = (x, gm, bt, 1e-5, w[0], w[1], w[2], bias, mask, o_att, ms, g, gy,
+            scale, nh)
+    grads = cp.attn_ln_proj_bwd(*args)
+    assert cp.counters.ln_proj_bwd == 1
+    for name, a, b in zip(LN_PROJ_GRADS, grads,
+                          cp.ln_proj_attention_backward_reference(*args)):
+        _assert_grad(name, a, b, PROJ_GRAD_REL)
+    assert all(torch.equal(a, b)
+               for a, b in zip(cp.attn_ln_proj_bwd(*args), grads))
+
+
+def _proj_op(dev, op, case=PROJ_CASES[2]):
+    """(function of the differentiable inputs, its plain version, inputs)."""
+    cp = cuda_attention_proj
+    x, gm, bt, w, bias, mask, scale = _proj_case(dev, **case)
+    nh = case["nh"]
+    if op == "proj":
+        return (lambda *a: (cp.window_attention_proj(*a, mask, scale, nh),),
+                lambda *a: (cp.proj_attention_reference(*a, mask, scale, nh),),
+                [x, *w, bias])
+    return (lambda a, b, c, *r: cp.window_attention_ln_proj(
+                a, b, c, 1e-5, *r, mask, scale, nh),
+            lambda a, b, c, *r: cp.ln_proj_attention_reference(
+                a, b, c, 1e-5, *r, mask, scale, nh),
+            [x, gm, bt, *w, bias])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["proj", "ln_proj"])
+def test_proj_ops_differentiate_through_their_kernels(cuda_device,
+                                                      float32_matmul, op):
+    cp = cuda_attention_proj
+    fn, plain, ins = _proj_op(cuda_device, op)
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want_in = [t.clone().requires_grad_() for t in ins]
+    cp.counters.reset()
+    outs = fn(*got_in)
+    cots = [_randn(cuda_device, *o.shape, seed=20 + i)
+            for i, o in enumerate(outs)]
+    got = torch.autograd.grad(outs, got_in, cots)
+    assert (getattr(cp.counters, f"{op}_fwd"),
+            getattr(cp.counters, f"{op}_bwd")) == (1, 1)
+    want = torch.autograd.grad(plain(*want_in), want_in, cots)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_grad(f"{op} input {i}", a, b, PROJ_GRAD_REL)
+
+
+@pytest.mark.cuda
+def test_ln_proj_with_a_cotangent_on_one_output_only(cuda_device,
+                                                     float32_matmul):
+    fn, plain, ins = _proj_op(cuda_device, "ln_proj")
+    for which in (0, 1):
+        got_in = [t.clone().requires_grad_() for t in ins]
+        want_in = [t.clone().requires_grad_() for t in ins]
+        got = torch.autograd.grad(fn(*got_in)[which].square().sum(), got_in,
+                                  allow_unused=True)
+        want = torch.autograd.grad(plain(*want_in)[which].square().sum(),
+                                   want_in, allow_unused=True)
+        for name, a, b in zip(LN_PROJ_GRADS, got, want):
+            if b is None or float(b.abs().max()) == 0.0:
+                assert a is None or float(a.abs().max()) == 0.0, name
+            else:
+                _assert_grad(f"output {which} {name}", a, b, PROJ_GRAD_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["proj", "ln_proj"])
+def test_frozen_parameters_get_no_gradient(cuda_device, float32_matmul, op):
+    """A parameter that wants no gradient gets None; the others are
+    unchanged by its absence."""
+    fn, _plain, ins = _proj_op(cuda_device, op)
+    full_in = [t.clone().requires_grad_() for t in ins]
+    full = torch.autograd.grad(fn(*full_in)[0].square().sum(), full_in)
+    frozen = {1, 2, len(ins) - 1} if op == "proj" else {1, 4, len(ins) - 1}
+    part_in = [t.clone().requires_grad_(i not in frozen)
+               for i, t in enumerate(ins)]
+    fn(*part_in)[0].square().sum().backward()
+    for i, (t, want) in enumerate(zip(part_in, full)):
+        if i in frozen:
+            assert t.grad is None, i
+        else:
+            assert torch.equal(t.grad, want), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["proj", "ln_proj"])
+def test_proj_ops_save_no_residual_under_no_grad(cuda_device, op):
+    fn, _plain, ins = _proj_op(cuda_device, op, PROJ_CASES[0])
+    ins = [t.requires_grad_() for t in ins]
+
+    def held(grad):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.set_grad_enabled(grad):
+            outs = fn(*ins)
+        torch.cuda.synchronize()
+        return outs, (torch.cuda.memory_allocated() - before
+                      - sum(o.numel() * 4 for o in outs))
+
+    outs, extra = held(False)
+    assert all(o.grad_fn is None for o in outs)
+    assert extra <= 2048 * len(outs)      # the allocator's rounding only
+    outs, extra_grad = held(True)
+    assert all(o.grad_fn is not None for o in outs)
+    # o_att and ms are kept, qkv is not: less than two activations
+    x = ins[0]
+    assert x.numel() * 4 <= extra_grad < 2 * x.numel() * 4
+
+
+@pytest.mark.cuda
+def test_strided_cotangent_of_a_proj_op_is_copied_and_counted(cuda_device,
+                                                              float32_matmul):
+    from vitta_tpu_torch.models import swin
+    fn, plain, ins = _proj_op(cuda_device, "proj")
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want_in = [t.clone().requires_grad_() for t in ins]
+    b_, n, c = ins[0].shape
+    cot = _randn(cuda_device, b_, c, n, seed=30).transpose(1, 2)
+    assert not cot.is_contiguous()
+    swin.counters.reset()
+    got = torch.autograd.grad(fn(*got_in), got_in, [cot])
+    assert swin.counters.contiguity_copies == 1
+    want = torch.autograd.grad(plain(*want_in), want_in, [cot])
+    for name, a, b in zip(PROJ_GRADS, got, want):
+        _assert_grad(name, a, b, PROJ_GRAD_REL)
+
+
+@pytest.mark.cuda
+def test_proj_kernels_reject_what_they_do_not_take(cuda_device):
+    cp = cuda_attention_proj
+    dev = cuda_device
+    x, gm, bt, w, bias, mask, scale = _proj_case(dev, **PROJ_CASES[2])
+    with pytest.raises(TypeError):
+        cp.window_attention_proj(x.bfloat16(), *w, bias, mask, scale, 3)
+    with pytest.raises(ValueError):       # a strided input
+        cp.window_attention_proj(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                 *w, bias, mask, scale, 3)
+    with pytest.raises(ValueError):       # the compact bias form
+        cp.window_attention_proj(x, *w, _randn(dev, 3, 3, 9, 9), mask, scale, 3)
+    with pytest.raises(ValueError):       # weights in the (in, out) layout
+        cp.window_attention_proj(x, w[0].t().contiguous(), *w[1:], bias, mask,
+                                 scale, 3)
+    with pytest.raises(ValueError):       # hd = 64 > 32
+        cp.window_attention_proj(
+            _randn(dev, 2, 18, 64), _randn(dev, 192, 64), _randn(dev, 192),
+            _randn(dev, 64, 64), _randn(dev, 64), _randn(dev, 1, 18, 18), None,
+            0.125, 1)
+    with pytest.raises(ValueError):       # 6 windows, 4 mask windows
+        cp.window_attention_ln_proj(x, gm, bt, 1e-5, *w, bias,
+                                    _randn(dev, 4, 18, 18), scale, 3)
+    with pytest.raises(TypeError):
+        cp.window_attention_ln_proj(x, gm.double(), bt, 1e-5, *w, bias, mask,
+                                    scale, 3)

@@ -20,7 +20,8 @@ def test_port_imports_no_jax():
         vitta_tpu_torch.__path__, "vitta_tpu_torch."))
     for name in ("adapt.loops", "adapt.precompute", "models.swin",
                  "ops.cuda_ln", "ops.cuda_bias", "ops.cuda_attention",
-                 "ops.cuda_mlp"):
+                 "ops.cuda_mlp", "ops.cuda_attention_proj", "ops.dispatch",
+                 "tools.attention_routes", "tools.synthetic"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

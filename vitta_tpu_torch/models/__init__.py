@@ -4,8 +4,10 @@ from vitta_tpu_torch.models.swin import Recognizer3D
 from vitta_tpu_torch.models.tanet import TANet
 
 
-def get_model(cfg):
-    """Model-zoo dispatch (reference corpus/basics.py:1447-1493)."""
+def get_model(cfg, attn_route=None):
+    """Model-zoo dispatch (reference corpus/basics.py:1447-1493).
+    ``attn_route`` chooses Video Swin's attention route ("packed", "proj"
+    or "ln_proj"; None reads the flags of ops/dispatch.py)."""
     arch = cfg.model.arch
     if cfg.model.compute_dtype != "float32":
         raise NotImplementedError(
@@ -23,5 +25,6 @@ def get_model(cfg):
                             depths=cfg.model.depths,
                             num_heads=cfg.model.num_heads,
                             drop_path_rate=cfg.model.drop_path_rate,
-                            stat_types=cfg.tta.tap_stat_types())
+                            stat_types=cfg.tta.tap_stat_types(),
+                            attn_route=attn_route)
     raise NotImplementedError(f"arch={arch} is not ported yet")

@@ -29,11 +29,31 @@ output projection through ops/cuda_attention.py, and norm2 + MLP through
 ops/cuda_mlp.py — hand-written kernels, with no gate on the width or the
 row count; each keeps what its backward reads only when a gradient is
 wanted.  Under ``train=True`` drop-path and the head's dropout draw from
-the caller's ``torch.Generator`` on the input's device.  The qkv, proj, PatchMerging and head
-projections are ``F.linear`` and the patch embedding is ``nn.Conv3d``, as
-the JAX package leaves them to XLA.  A clamped window (input smaller than
-the configured window) takes the reference's gather and plain attention on
-every device, as it does in the JAX package.
+the caller's ``torch.Generator`` on the input's device.  The qkv, proj,
+PatchMerging and head projections are ``F.linear`` and the patch embedding
+is ``nn.Conv3d``, as the JAX package leaves them to XLA.  A clamped window
+(input smaller than the configured window) takes the reference's gather and
+plain attention on every device, as it does in the JAX package.
+
+That is the default, packed, attention route.  ``attn_route`` (an argument
+of every module from ``Recognizer3D`` down to ``SwinBlock3D``, which
+resolves it once, at construction, and hands its attention a concrete route
+per call; None reads the environment flags of ops/dispatch.py, any other
+value reads nothing of the environment) chooses between it and the
+two projection-fused forms of vitta_tpu/models/swin.py:243-254, :361-386,
+which run through ops/cuda_attention_proj.py with the qkv and output
+projections inside the op:
+
+* ``"proj"``: norm1 stays a standalone LayerNorm; bias expansion and one op;
+* ``"ln_proj"``: norm1 moves into the op as well; roll and window partition
+  then act on the un-normalized x (LayerNorm is token-wise), and the op
+  returns the LayerNorm output in window layout for the output-side tap.
+  Only a block that pads nothing and whose taps are spatiotemp alone (the
+  one statistic that does not depend on the token order) takes this form;
+  any other falls back: to ``"proj"``, or under None to what
+  ``VITTA_ATTN_PROJ_FUSED`` says (``dispatch.resolve_attn_route``).
+
+No route changes a parameter, a ``state_dict`` key or a tap name.
 
 Not ported, being layouts of the TPU and no change of the math: the
 window-resident stage form, the patchify-matmul patch embedding, and the
@@ -50,14 +70,17 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from vitta_tpu_torch.models.layers import LayerNorm
+from vitta_tpu_torch.models.layers import LayerNorm, layer_norm
 from vitta_tpu_torch.models.tanet import dropout
 from vitta_tpu_torch.ops._launch import contiguous_counted as _contiguous
 from vitta_tpu_torch.ops._launch import copy_counters as counters  # noqa: F401
 from vitta_tpu_torch.ops.cuda_attention import (attention_reference,
                                                 window_attention_packed)
+from vitta_tpu_torch.ops.cuda_attention_proj import (window_attention_ln_proj,
+                                                     window_attention_proj)
 from vitta_tpu_torch.ops.cuda_bias import compact_bias, expand_bias
 from vitta_tpu_torch.ops.cuda_mlp import ln_mlp
+from vitta_tpu_torch.ops.dispatch import resolve_attn_route
 
 # ``counters.contiguity_copies``: copies made only to hand a kernel a
 # contiguous tensor, since ``counters.reset()``: activations in the forward
@@ -186,18 +209,40 @@ class WindowAttention3D(nn.Module):
             self._mask_cache[key] = torch.from_numpy(mask_np).to(device)
         return self._mask_cache[key]
 
-    def forward(self, x, mask_np=None, mask_key=None):
+    def forward(self, x, mask_np=None, mask_key=None, route="packed",
+                ln=None):
         """x: (B_, n, C) windows; ``mask_np`` the (nW, n, n) numpy shift
-        mask or None, ``mask_key`` what identifies it."""
+        mask or None, ``mask_key`` what identifies it.  ``route`` is what
+        the block resolved for this call: ``"packed"`` or ``"proj"``
+        without ``ln``; ``"ln_proj"`` with ``ln`` = (gamma, beta, eps) of
+        the preceding LayerNorm (norm1) and ``x`` un-normalized, and the
+        call then returns (out, y) with y the LayerNorm output
+        (vitta_tpu/models/swin.py:188-254)."""
+        if (route == "ln_proj") != (ln is not None):
+            raise ValueError("route 'ln_proj' and ln=(gamma, beta, eps) go "
+                             "together")
         b_, n, c = x.shape
         nh = self.num_heads
         wd, wh, ww = self.window_size
         mask = self._mask(mask_np, mask_key, x.device)
-        qkv = self.qkv(x)                                  # (B_, n, 3C)
-        if n == wd * wh * ww:
+        full = n == wd * wh * ww
+        if full:
             bias = expand_bias(
                 compact_bias(self.relative_position_bias_table,
                              self.window_size), wd)       # (nh, N, N)
+        if full and ln is not None:
+            return window_attention_ln_proj(
+                _contiguous(x), ln[0], ln[1], ln[2], self.qkv.weight,
+                self.qkv.bias, self.proj.weight, self.proj.bias, bias, mask,
+                self.scale, nh)
+        y = x if ln is None else layer_norm(x, *ln)
+        if full and route == "proj":
+            out = window_attention_proj(
+                _contiguous(y), self.qkv.weight, self.qkv.bias,
+                self.proj.weight, self.proj.bias, bias, mask, self.scale, nh)
+            return out if ln is None else (out, y)
+        qkv = self.qkv(y)                                  # (B_, n, 3C)
+        if full:
             out = window_attention_packed(_contiguous(qkv), bias, mask,
                                           self.scale, nh)
         else:
@@ -211,7 +256,8 @@ class WindowAttention3D(nn.Module):
             q5 = qkv.reshape(b_, n, 3, nh, c // nh)
             out = attention_reference(q5[:, :, 0], q5[:, :, 1], q5[:, :, 2],
                                       bias, mask, self.scale).reshape(b_, n, c)
-        return self.proj(out)
+        out = self.proj(out)
+        return out if ln is None else (out, y)
 
 
 class Mlp(nn.Module):
@@ -231,13 +277,22 @@ class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, tap_prefix: str,
                  window_size=(8, 7, 7), shift_size=(0, 0, 0),
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 attn_route: Optional[str] = None):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.drop_path = drop_path
         self.norm1 = LayerNorm(dim, f"{tap_prefix}.norm1",
                                stat_types=stat_types)
+        # resolved here, once: this is the layer that knows the taps and
+        # the padding, and it hands the attention a concrete route per call
+        self.attn_route, self.attn_fallback = resolve_attn_route(attn_route)
+        if (self.attn_route == "ln_proj"
+                and tuple(stat_types) != ("spatiotemp",)):
+            # the op returns y in window layout: only the token-order-
+            # invariant spatiotemp tap may read it
+            self.attn_route = self.attn_fallback
         self.attn = WindowAttention3D(dim, self.window_size, num_heads)
         self.norm2 = LayerNorm(dim, f"{tap_prefix}.norm2",
                                stat_types=stat_types)
@@ -251,8 +306,16 @@ class SwinBlock3D(nn.Module):
         shortcut = x
         wd, wh, ww = window
         pad_d, pad_h, pad_w = (-d) % wd, (-h) % wh, (-w) % ww
-        x = self.norm1(_contiguous(x), taps)
-        if pad_d or pad_h or pad_w:
+        padded = bool(pad_d or pad_h or pad_w)
+        # norm1 inside the attention op: gated off under padding, since
+        # LayerNorm(0-pad) != 0
+        route = self.attn_route
+        if route == "ln_proj" and padded:
+            route = self.attn_fallback
+        fuse_ln = route == "ln_proj"
+        if not fuse_ln:
+            x = self.norm1(_contiguous(x), taps)
+        if padded:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h, 0, pad_d))
         dp, hp, wp = d + pad_d, h + pad_h, w + pad_w
         mask_np = compute_shift_mask(dp, hp, wp, window, shift)
@@ -261,12 +324,23 @@ class SwinBlock3D(nn.Module):
                            dims=(1, 2, 3))
         # the bias table and index are sized by the CONFIGURED window; the
         # attention slices [:n, :n] when the effective window is clamped
-        attn = self.attn(window_partition(x, window), mask_np,
-                         (dp, hp, wp, window, shift))
+        mask_key = (dp, hp, wp, window, shift)
+        if fuse_ln:
+            # the module still owns the parameters and records both tap
+            # sides: the input here, the output from the y the op returns,
+            # counted per sample, not per window
+            gamma, beta = self.norm1(shortcut, taps, mode="params")
+            attn, ln_out = self.attn(window_partition(x, window), mask_np,
+                                     mask_key, route,
+                                     ln=(gamma, beta, self.norm1.eps))
+            self.norm1(ln_out, taps, mode="sow_output", stat_count=b)
+        else:
+            attn = self.attn(window_partition(x, window), mask_np, mask_key,
+                             route)
         x = window_reverse(attn, window, b, dp, hp, wp)
         if any(shift):
             x = torch.roll(x, shifts=shift, dims=(1, 2, 3))
-        if pad_d or pad_h or pad_w:
+        if padded:
             x = x[:, :d, :h, :w]
         x = shortcut + drop_path(x, self.drop_path, train, generator)
         return self._mlp_tail(x, taps, train, generator)
@@ -313,14 +387,16 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  drop_paths, downsample: bool, tap_prefix: str,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 attn_route: Optional[str] = None):
         super().__init__()
         shift = tuple(s // 2 for s in window_size)
         self.blocks = nn.ModuleList([
             SwinBlock3D(dim, num_heads, f"{tap_prefix}.blocks_{i}",
                         window_size=window_size,
                         shift_size=(0, 0, 0) if i % 2 == 0 else shift,
-                        drop_path=drop_paths[i], stat_types=stat_types)
+                        drop_path=drop_paths[i], stat_types=stat_types,
+                        attn_route=attn_route)
             for i in range(depth)])
         self.downsample = PatchMerging(
             dim, f"{tap_prefix}.downsample",
@@ -366,7 +442,8 @@ class SwinTransformer3D(nn.Module):
                  depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
                  window_size=(8, 7, 7), drop_path_rate: float = 0.2,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
-                 tap_prefix: str = "backbone"):
+                 tap_prefix: str = "backbone",
+                 attn_route: Optional[str] = None):
         super().__init__()
         self.patch_embed = PatchEmbed3D(patch_size, embed_dim, tap_prefix)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -375,7 +452,8 @@ class SwinTransformer3D(nn.Module):
             layers.append(BasicLayer(
                 embed_dim * 2 ** li, depth, num_heads[li], tuple(window_size),
                 tuple(dpr[i0:i0 + depth]), li < len(depths) - 1,
-                f"{tap_prefix}.layers_{li}", stat_types=stat_types))
+                f"{tap_prefix}.layers_{li}", stat_types=stat_types,
+                attn_route=attn_route))
             i0 += depth
         self.layers = nn.ModuleList(layers)
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
@@ -416,12 +494,14 @@ class Recognizer3D(nn.Module):
                  window_size=(8, 7, 7), embed_dim: int = 128,
                  depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
                  drop_path_rate: float = 0.2, head_dropout: float = 0.5,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 attn_route: Optional[str] = None):
         super().__init__()
         self.backbone = SwinTransformer3D(
             patch_size=patch_size, embed_dim=embed_dim, depths=depths,
             num_heads=num_heads, window_size=window_size,
-            drop_path_rate=drop_path_rate, stat_types=tuple(stat_types))
+            drop_path_rate=drop_path_rate, stat_types=tuple(stat_types),
+            attn_route=attn_route)
         self.cls_head = I3DHead(self.backbone.num_features, num_classes,
                                 dropout=head_dropout)
 
