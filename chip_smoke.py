@@ -2,7 +2,8 @@
 from this checkout, checks each against its plain PyTorch version, and
 drives the TANet float32 ViTTA stream, the Video Swin-B float32 forward
 paths and the Video Swin-B float32 ViTTA stream end to end, the last under
-each of its three attention routes.
+each of its four attention routes, and Video Swin-T's forward paths and
+stream under two of them.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,8 @@ result line:
    at once.
 3. TAM kernels against plain: the dynamic conv forward and backward at
    every TAM shape of ResNet-50 (n=2 adapt, n=1 eval, t=16, and t=3 for
-   the zero-padded ends), values, CUDA-event and device times.
+   the zero-padded ends), values; CUDA-event and device times at the adapt
+   batch, the shapes its sums are made of.
 4. Video Swin kernels against plain: LayerNorm, bias expansion, packed
    window attention (with and without mask, dense and compact bias) and
    LayerNorm-MLP at every Swin-B stage shape for 1 and 2 clips; values,
@@ -82,12 +84,38 @@ result line:
    ``"proj"`` 29 LayerNorm and 24 ``attn_proj``.  Ends with one line per
    route: ms/video, host time, device busy, idle share, peak memory.
 
-Phases run in the order 1-4, 12, 5-11, 13, 14.  To leave the time to
+15. MLP kernels without the LayerNorm and attention kernels per (head,
+   window) against plain, forward and backward, at every Swin-T and every
+   Swin-B stage shape for 2 clips, the attention with and without mask on
+   q, k, v as views of a packed projection output: every output, two
+   backward runs bit-equal, CUDA-event and device times of kernel and plain
+   version; beside the MLP the ``F.linear``-``F.gelu``-``F.linear``
+   composition and its backward under autograd, beside the attention
+   ``scaled_dot_product_attention`` and its backward.
+16. Small slices of the ``"heads"`` route and of both branches of the MLP
+   (norm2 inside the LayerNorm-MLP kernel where the width is a multiple of
+   128, apart otherwise): the tiny Swin under ``attn_route="heads"``, and
+   embed 16 over four stages at 48x48 (widths 16 to 128) under ``"heads"``
+   and packed; source statistics, eval logits and two tta_online steps on
+   the card against the CPU, as phases 7 and 10.
+17. Video Swin-T at full size (embed 96, depths (2, 2, 6, 2), heads
+   (3, 6, 12, 24), otherwise swin_ucf101_preset): the precompute and
+   ``eval_step`` of phase 9 and ``tta_stream`` over 6 videos on the packed
+   route, then both again under ``"heads"`` (statistics and logits must
+   agree with the packed route's); per forward pass the counters must show
+   21 LayerNorm (12 norm1, 4 norm2 of stages 1-2, 5 others), 12 bias, 4 MLP
+   and 8 LayerNorm-MLP launches, 12 packed or 12 per-(head, window)
+   attention launches and none of the other, per step as many backward
+   launches, and no contiguity copy.  Then Swin-B's ``tta_stream`` over 3
+   videos under ``"heads"``.
+
+Phases run in the order 1-4, 12, 15, 5-11, 13, 14, 16, 17.  To leave the time to
 phases 10 and 11, phase 9 runs 3 statistics batches and 4 eval videos
 where it ran 4 and 5, and the TANet slice 5 videos where it ran 6; to
 leave it to phases 12 to 14, phases 3 and 4 time each call over 6 and 7
 runs (4 under the profiler) where they took 25 and 15 (20 and 10), and
-phase 12 over 5 (3) and only at 2 clips, the shapes its sums are made of.
+phase 12 over 5 (3) and only at 2 clips, the shapes its sums are made of;
+to leave it to phases 15 to 17, phase 3 times the adapt batch only.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
@@ -118,7 +146,7 @@ import torch
 # the set-up shared with vitta_tpu_torch/tools/attention_routes.py; without
 # the package beside this file the run ends here
 from vitta_tpu_torch.tools.synthetic import (
-    StepTimes as _StepTimes, device_breakdown,
+    SWIN_MODELS, StepTimes as _StepTimes, device_breakdown,
     normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
     swin_weights as _swin_weights, videos as _videos)
 
@@ -153,6 +181,13 @@ MLP_TOL = 1e-4     # tiled float32 sums over K <= 4096 terms: between the
 SWIN_STAT_BATCHES = 3   # of 2 clips; the first is warm-up
 SWIN_EVAL_VIDEOS = 4    # of 1 clip; the first is warm-up
 SWIN_ADAPT_VIDEOS = 6   # of 2 views + 1 eval clip; the first two are warm-up
+# Swin-T (embed 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24)): the same
+# tokens and windows per stage as Swin-B
+SWIN_T_STAGES = ((96, 3, 25088, 64, 2), (192, 6, 6272, 16, 2),
+                 (384, 12, 1568, 4, 6), (768, 24, 392, 1, 2))
+SWIN_T_STAT_EVAL_VIDEOS = 3   # Swin-T's eval videos; one warm-up
+SWIN_T_VIDEOS = 6             # Swin-T's streams; two warm-up
+SWIN_B_HEADS_VIDEOS = 3       # Swin-B's stream under "heads"; one warm-up
 SWIN_LN_PROJ_VIDEOS = 5   # the ln_proj route's stream; two warm-up
 SWIN_PROJ_VIDEOS = 3      # the proj route's stream; one warm-up
 SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
@@ -205,11 +240,18 @@ def device_ms(fn, reps: int = 20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        # every kernel name was launched in each of the calls: a count that
+        # is no multiple of them means the trace lost events, so once more
+        if events and all(e.count % reps == 0 for e in events):
+            break
+    us = sum(e.self_device_time_total for e in events)
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -319,6 +361,11 @@ def phase_tam_kernels(dev):
                                   GRAD_TOL)
                       for nm, p, q in zip(("dx", "dattn", "dkernel"), ins, refs))
             err["fwd"], err["bwd"] = max(err["fwd"], e_f), max(err["bwd"], e_b)
+            if (n, t) != (2, 16):   # held to plain; the adapt batch is timed
+                print(f"tam n={n} t={t} {h}x{w}x{c}: err fwd {e_f:.2e} bwd "
+                      f"{e_b:.2e}", flush=True)
+                del x, a, k, g, ins, refs, out, ref
+                continue
 
             ref = tam_dynamic_conv_reference(*refs)
             calls = {
@@ -339,22 +386,21 @@ def phase_tam_kernels(dev):
                   f"{ev['plain_bwd']:.4f} | device ms: fwd {fmt(dv['fwd'])} "
                   f"plain {fmt(dv['plain_fwd'])}, bwd {fmt(dv['bwd'])} plain "
                   f"{fmt(dv['plain_bwd'])}", flush=True)
-            if (n, t) == (2, 16):
-                small = (a.numel() + k.numel()) * 4
-                need["fwd"][0] += sites * (2 * nbytes + small)
-                need["fwd"][1] += sites * 7 * x.numel()
-                need["bwd"][0] += sites * (3 * nbytes + 2 * small)
-                need["bwd"][1] += sites * 14 * x.numel()
-                for name in per_step:
-                    per_step[name] += sites * ev[name]
-                    if dev_step[name] is not None and dv[name] is not None:
-                        dev_step[name] += sites * dv[name]
-                    else:
-                        dev_step[name] = None
-                if dv["fwd"] and dv["bwd"]:
-                    print(f"  kernel bandwidth: fwd {2 * nbytes / dv['fwd'] / 1e6:.0f}"
-                          f" GB/s, bwd {3 * nbytes / dv['bwd'] / 1e6:.0f} GB/s "
-                          "(ideal bytes over device time)", flush=True)
+            small = (a.numel() + k.numel()) * 4
+            need["fwd"][0] += sites * (2 * nbytes + small)
+            need["fwd"][1] += sites * 7 * x.numel()
+            need["bwd"][0] += sites * (3 * nbytes + 2 * small)
+            need["bwd"][1] += sites * 14 * x.numel()
+            for name in per_step:
+                per_step[name] += sites * ev[name]
+                if dev_step[name] is not None and dv[name] is not None:
+                    dev_step[name] += sites * dv[name]
+                else:
+                    dev_step[name] = None
+            if dv["fwd"] and dv["bwd"]:
+                print(f"  kernel bandwidth: fwd {2 * nbytes / dv['fwd'] / 1e6:.0f}"
+                      f" GB/s, bwd {3 * nbytes / dv['bwd'] / 1e6:.0f} GB/s "
+                      "(ideal bytes over device time)", flush=True)
             del x, a, k, g, ins, refs, out, ref
     for label, d in (("event", per_step), ("device", dev_step)):
         if None in d.values():
@@ -1021,6 +1067,240 @@ def phase_swin_proj_kernels(dev):
     return rows
 
 
+def phase_unfused_kernels(dev):
+    """The MLP kernels without the LayerNorm and the attention kernels per
+    (head, window) against their plain versions, forward and backward, at
+    every Swin-T and every Swin-B stage shape for 2 clips, the attention
+    with and without mask and on q, k, v as views of a packed projection
+    output, as the model hands them over; two runs of each backward must
+    be bit-equal.  Returns their JSON rows, whose times are sums over the
+    sites of one forward or backward pass of Swin-T on 2 clips: the MLP at
+    the 4 blocks of stages 1 and 2 (widths 96 and 192, the ones the model
+    sends to these kernels), the attention at all 12 blocks.  Timed beside
+    the MLP is the composition ``F.linear``-``F.gelu``-``F.linear`` (which
+    is its plain version) and that composition's backward under autograd;
+    beside the attention ``scaled_dot_product_attention`` on the same
+    views with attn_mask = bias + mask made outside the timed call, and its
+    backward, which gives no bias gradient."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def quick(fn, grad=False):
+        return measure(fn, reps=5, dev_reps=3, grad=grad)
+
+    wd, wh, ww = SWIN_WINDOW
+    hw, n_tok = wh * ww, wd * wh * ww
+    tot = {k: Totals() for k in ("mlp_fwd", "mlp_bwd", "heads_fwd",
+                                 "heads_bwd")}
+    swin_b_heads = {"heads_fwd": 0.0, "heads_bwd": 0.0}   # device ms, 24 sites
+    models = (("swin-T", SWIN_T_STAGES), ("swin-B", SWIN_STAGES))
+
+    # rows 8 and 9: the MLP without the LayerNorm
+    grads = ("dx", "dw1", "db1", "dw2", "db2")
+    for model, stages in models:
+        for stage, (c, _nh, tokens, _nw, depth) in enumerate(stages):
+            f, m_rows = 4 * c, 2 * tokens
+            w1, b1 = randn(f, c, scale=c ** -0.5), 0.1 * randn(f)
+            w2, b2 = randn(c, f, scale=f ** -0.5), 0.1 * randn(c)
+            x, g = randn(m_rows, c, scale=1.5), randn(m_rows, c)
+            got = cm.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
+            want = cm.mlp_reference(x, w1, b1, w2, b2, save_residuals=True)
+            tag = f"{model} M={m_rows} C={c} F={f}"
+            err = max(check_close(f"mlp fwd {tag} {nm}", p, q, MLP_TOL)
+                      for nm, p, q in zip(("o", "a", "s"), got, want))
+            if not torch.equal(cm.mlp_fwd_cuda(x, w1, b1, w2, b2), got[0]):
+                raise AssertionError(f"mlp fwd {tag}: o differs without the "
+                                     "residuals")
+            _o, a, s_ = got
+            del got, want, _o
+            args = (x, a, s_, g, w1, w2)
+            got = cm.mlp_bwd_cuda(*args)
+            want = cm.mlp_backward_reference(*args)
+            err_b = max(check_scaled(f"mlp bwd {tag} {nm}", p, q, MLP_BWD_TOL)
+                        for nm, p, q in zip(grads, got, want))
+            if not all(torch.equal(p, q)
+                       for p, q in zip(cm.mlp_bwd_cuda(*args), got)):
+                raise AssertionError(f"mlp bwd {tag}: two runs differ")
+            del got, want
+            leaves = [v.detach().clone().requires_grad_()
+                      for v in (x, w1, b1, w2, b2)]
+            with torch.enable_grad():
+                o_lib = cm.mlp_reference(*leaves)
+            t = {"fwd": quick(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2)),
+                 "fwd keeping a, s": quick(lambda: cm.mlp_fwd_cuda(
+                     x, w1, b1, w2, b2, save_residuals=True)),
+                 "fwd plain (F.linear-gelu-F.linear)": quick(
+                     lambda: cm.mlp_reference(x, w1, b1, w2, b2)),
+                 "bwd": quick(lambda: cm.mlp_bwd_cuda(*args)),
+                 "bwd plain": quick(
+                     lambda: cm.mlp_backward_reference(*args)),
+                 "bwd of the composition": quick(
+                     lambda: torch.autograd.grad(o_lib, leaves, g,
+                                                 retain_graph=True),
+                     grad=True)}
+            _report(f"mlp {tag}", max(err, err_b), t)
+            flops = 4 * m_rows * c * f + 10 * m_rows * f
+            bflops = 8 * m_rows * c * f + 4 * m_rows * f
+            for d, fl in (("fwd", flops), ("bwd", bflops)):
+                if t[d][1]:
+                    print(f"  {d} kernel rate: {fl / t[d][1] / 1e9:.1f} "
+                          "TFLOP/s float32 (operations over device time)",
+                          flush=True)
+            tot["mlp_fwd"].err = max(tot["mlp_fwd"].err, err)
+            tot["mlp_bwd"].err = max(tot["mlp_bwd"].err, err_b)
+            # the sites of the model's path: Swin-T's stages 1 and 2
+            if model == "swin-T" and stage < 2:
+                plain = t["fwd plain (F.linear-gelu-F.linear)"]
+                tot["mlp_fwd"].add(
+                    depth, ms=t["fwd"][0], device_ms=t["fwd"][1],
+                    plain_ms=plain[0], plain_device_ms=plain[1],
+                    bytes=(2 * m_rows * c + 2 * c * f + f + c) * 4,
+                    flops=flops)
+                tot["mlp_bwd"].add(
+                    depth, ms=t["bwd"][0], device_ms=t["bwd"][1],
+                    plain_ms=t["bwd plain"][0],
+                    plain_device_ms=t["bwd plain"][1],
+                    library_ms=t["bwd of the composition"][0],
+                    library_device_ms=t["bwd of the composition"][1],
+                    bytes=(3 * m_rows * c + 2 * m_rows * f + 4 * c * f + f
+                           + c) * 4, flops=bflops)
+            del x, g, a, s_, args, leaves, o_lib
+
+    # rows 12 and 13: the attention per (head, window)
+    for model, stages in models:
+        for c, nh, tokens, nw, depth in stages:
+            hd = c // nh
+            scale = hd ** -0.5
+            dense = cb.expand_bias_reference(
+                randn(nh, 2 * wd - 1, hw, hw), wd)
+            mask = None
+            if nw > 1:
+                mask = torch.where(
+                    torch.rand(nw, n_tok, n_tok, device=dev,
+                               generator=gen) < 0.3, -100.0, 0.0)
+                mask.diagonal(dim1=1, dim2=2).zero_()
+            b_ = 2 * tokens // n_tok
+            qkv = randn(b_, n_tok, 3 * c)
+            q, k, v = qkv.reshape(b_, n_tok, 3, nh, hd).unbind(2)
+            g = randn(b_, n_tok, nh, hd)
+            for m in ((None, mask) if mask is not None else (None,)):
+                tag = (f"{model} B_={b_} N={n_tok} nh={nh} hd={hd} mask="
+                       f"{m is not None}")
+                want = ca.attention_reference(q, k, v, dense, m, scale)
+                err = check_close(f"attention (heads) fwd {tag}",
+                                  ca.attn_heads_fwd_cuda(q, k, v, dense, m,
+                                                         scale),
+                                  want, ATTN_TOL)
+                del want
+                got = ca.attn_heads_bwd_cuda(q, k, v, dense, m, g, scale)
+                want = ca.heads_attention_backward_reference(q, k, v, dense,
+                                                             m, g, scale)
+                err_b = max(check_scaled(f"attention (heads) bwd {tag} {nm}",
+                                         p_, q_, ATTN_BWD_TOL)
+                            for nm, p_, q_ in zip(("dq", "dk", "dv", "dbias"),
+                                                  got, want))
+                again = ca.attn_heads_bwd_cuda(q, k, v, dense, m, g, scale)
+                if not all(torch.equal(p_, q_) for p_, q_ in zip(again, got)):
+                    raise AssertionError(f"attention (heads) bwd {tag}: two "
+                                         "runs differ")
+                del got, want, again
+                q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                leaves = [q5[i].detach().requires_grad_() for i in range(3)]
+                am = dense[None] if m is None else (
+                    dense[None, None] + m[None, :, None]).expand(
+                        b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                            b_, nh, n_tok, n_tok)
+                with torch.enable_grad():
+                    o_lib = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=am, scale=scale)
+                g4 = g.permute(0, 2, 1, 3)
+                t = {"fwd": quick(lambda: ca.attn_heads_fwd_cuda(
+                         q, k, v, dense, m, scale)),
+                     "fwd plain": quick(lambda: ca.attention_reference(
+                         q, k, v, dense, m, scale)),
+                     "fwd sdpa": quick(
+                         lambda: F.scaled_dot_product_attention(
+                             q5[0], q5[1], q5[2], attn_mask=am, scale=scale)),
+                     "bwd": quick(lambda: ca.attn_heads_bwd_cuda(
+                         q, k, v, dense, m, g, scale)),
+                     "bwd plain": quick(
+                         lambda: ca.heads_attention_backward_reference(
+                             q, k, v, dense, m, g, scale)),
+                     "bwd sdpa": quick(lambda: torch.autograd.grad(
+                         o_lib, leaves, g4, retain_graph=True), grad=True)}
+                _report(f"attention (heads) {tag}", max(err, err_b), t)
+                tot["heads_fwd"].err = max(tot["heads_fwd"].err, err)
+                tot["heads_bwd"].err = max(tot["heads_bwd"].err, err_b)
+                # shifted blocks are every second one where there is a mask
+                sites = depth // 2 if mask is not None else depth
+                if model == "swin-B":
+                    for d in ("fwd", "bwd"):
+                        key = f"heads_{d}"
+                        swin_b_heads[key] = None if (
+                            t[d][1] is None or swin_b_heads[key] is None) \
+                            else swin_b_heads[key] + sites * t[d][1]
+                    del leaves, am, o_lib
+                    continue
+                small = dense.numel() + (0 if m is None else m.numel())
+                pairs = b_ * nh * n_tok * n_tok
+                tot["heads_fwd"].add(
+                    sites, ms=t["fwd"][0], device_ms=t["fwd"][1],
+                    plain_ms=t["fwd plain"][0],
+                    plain_device_ms=t["fwd plain"][1],
+                    library_ms=t["fwd sdpa"][0],
+                    library_device_ms=t["fwd sdpa"][1],
+                    bytes=(4 * b_ * n_tok * c + small) * 4,
+                    flops=pairs * (4 * hd + 6))
+                tot["heads_bwd"].add(
+                    sites, ms=t["bwd"][0], device_ms=t["bwd"][1],
+                    plain_ms=t["bwd plain"][0],
+                    plain_device_ms=t["bwd plain"][1],
+                    library_ms=t["bwd sdpa"][0],
+                    library_device_ms=t["bwd sdpa"][1],
+                    bytes=(7 * b_ * n_tok * c + small + dense.numel()) * 4,
+                    flops=pairs * (10 * hd + 12))
+                del leaves, am, o_lib
+            del qkv, q, k, v, g
+
+    src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
+    rows = [tot["mlp_fwd"].row("mlp_fwd", f"{src}/mlp.cu",
+                               f"{ops}/pallas_mlp.py:138", has_library=False),
+            tot["mlp_bwd"].row("mlp_bwd", f"{src}/mlp.cu",
+                               f"{ops}/pallas_mlp.py:154", has_library=False),
+            tot["heads_fwd"].row("attn_heads_fwd", f"{src}/attention.cu",
+                                 f"{ops}/pallas_attention.py:83"),
+            tot["heads_bwd"].row("attn_heads_bwd", f"{src}/attention.cu",
+                                 f"{ops}/pallas_attention.py:91")]
+    # no one PyTorch call computes the MLP: its forward composition is the
+    # plain version, its backward composition is kept beside the row
+    rows[0]["composition_device_ms"] = rows[0]["plain_device_ms"]
+    rows[1]["composition_device_ms"] = tot["mlp_bwd"].sum["library_device_ms"]
+    rows[2]["swin_b_device_ms"] = swin_b_heads["heads_fwd"]
+    rows[3]["swin_b_device_ms"] = swin_b_heads["heads_bwd"]
+    fwd, bwd = swin_launches("heads", 96, (2, 2, 6, 2))
+    per_pass = {**fwd, **bwd}
+    for r in rows:
+        extra = (f", the composition device "
+                 f"{fmt(r['composition_device_ms'])}"
+                 if "composition_device_ms" in r else
+                 f", at Swin-B's 24 blocks device "
+                 f"{fmt(r['swin_b_device_ms'])}")
+        print(f"{r['name']} per Swin-T pass of 2 clips "
+              f"({per_pass[r['name']]} launches): event ms {r['ms']:.3f}, "
+              f"device ms {fmt(r['device_ms'])}, plain {r['plain_ms']:.3f} "
+              f"(device {fmt(r['plain_device_ms'])}), library "
+              f"{fmt(r['library_ms'])} (device "
+              f"{fmt(r['library_device_ms'])}){extra}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}", flush=True)
+    return rows
+
+
 def _cfg(clip_length, num_classes, **model_kw):
     from vitta_tpu_torch.config import tanet_ucf101_preset
     cfg = tanet_ucf101_preset()
@@ -1183,15 +1463,19 @@ def _swin_counts():
     return {"ln_fwd": cuda_ln.counters.fwd,
             "bias_expand": cuda_bias.counters.fwd,
             "attn_packed_fwd": cuda_attention.counters.fwd,
+            "attn_heads_fwd": cuda_attention.counters.heads_fwd,
             "attn_proj_fwd": proj.proj_fwd,
             "attn_ln_proj_fwd": proj.ln_proj_fwd,
             "ln_mlp_fwd": cuda_mlp.counters.fwd,
+            "mlp_fwd": cuda_mlp.counters.mlp_fwd,
             "ln_bwd": cuda_ln.counters.bwd,
             "bias_collapse": cuda_bias.counters.bwd,
             "attn_packed_bwd": cuda_attention.counters.bwd,
+            "attn_heads_bwd": cuda_attention.counters.heads_bwd,
             "attn_proj_bwd": proj.proj_bwd,
             "attn_ln_proj_bwd": proj.ln_proj_bwd,
             "ln_mlp_bwd": cuda_mlp.counters.bwd,
+            "mlp_bwd": cuda_mlp.counters.mlp_bwd,
             "contiguity_copies": swin.counters.contiguity_copies}
 
 
@@ -1204,18 +1488,28 @@ def _reset_swin_counts():
         mod.counters.reset()
 
 
-def swin_launches(route, blocks=24, other_norms=5):
-    """(forward, backward) launches per pass of a Swin with ``blocks``
-    blocks that all take ``route`` (None: the packed default), by kernel;
-    ``other_norms`` counts the LayerNorms outside the blocks (patch embed,
-    PatchMerging, final)."""
+def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2)):
+    """(forward, backward) launches per pass, by kernel, of a Swin of this
+    width and these depths (the defaults are Swin-B's) whose blocks all
+    take ``route`` (None: the packed default) on full windows.  A stage
+    whose width is a multiple of 128 runs norm2 inside the LayerNorm-MLP
+    kernel, any other as a LayerNorm launch of its own in front of the MLP
+    kernel (``dispatch.mlp_ln_fused``; the token counts of a 16x224x224
+    clip are multiples of 8 at every stage).  Outside the blocks there is
+    one LayerNorm per stage (patch embed, PatchMerging) and the final one."""
     attn = {None: "attn_packed", "packed": "attn_packed", "proj": "attn_proj",
-            "ln_proj": "attn_ln_proj"}[route]
-    norms = other_norms + (0 if route == "ln_proj" else blocks)
+            "ln_proj": "attn_ln_proj", "heads": "attn_heads"}[route]
+    blocks = sum(depths)
+    fused = sum(d for i, d in enumerate(depths)
+                if (embed_dim << i) % 128 == 0)
+    norms = (len(depths) + 1 + (0 if route == "ln_proj" else blocks)
+             + blocks - fused)
     fwd = {"ln_fwd": norms, "bias_expand": blocks, "attn_packed_fwd": 0,
-           "attn_proj_fwd": 0, "attn_ln_proj_fwd": 0, "ln_mlp_fwd": blocks}
+           "attn_heads_fwd": 0, "attn_proj_fwd": 0, "attn_ln_proj_fwd": 0,
+           "ln_mlp_fwd": fused, "mlp_fwd": blocks - fused}
     bwd = {"ln_bwd": norms, "bias_collapse": blocks, "attn_packed_bwd": 0,
-           "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0, "ln_mlp_bwd": blocks}
+           "attn_heads_bwd": 0, "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0,
+           "ln_mlp_bwd": fused, "mlp_bwd": blocks - fused}
     fwd[attn + "_fwd"] = bwd[attn + "_bwd"] = blocks
     return fwd, bwd
 
@@ -1245,7 +1539,8 @@ def phase_swin_card_vs_cpu(what, cfg, seed, sizes, t, hw, attn_route=None):
     stat_err = _compare_stats(what, stats["cuda"], stats["cpu"], names)
     logit_err = check_close(f"{what} eval logits", logits["cuda"],
                             logits["cpu"], 2e-3, 2e-4)
-    for k, n in swin_launches(attn_route)[0].items():
+    for k, n in swin_launches(attn_route, cfg.model.embed_dim,
+                              cfg.model.depths)[0].items():
         if n and counts[k] == 0:
             raise AssertionError(f"{what}: the {k} kernel was never launched")
     print(f"{what} card vs cpu: {len(names)} taps max abs err {stat_err:.2e}; "
@@ -1274,8 +1569,9 @@ class _TimedBatches:
 
 
 def phase_swin_full_slice(cfg, seed, card, attn_route=None,
-                          eval_videos=SWIN_EVAL_VIDEOS, sd=None):
-    """The Swin of ``cfg`` (Swin-B at full width and depth) through the
+                          eval_videos=SWIN_EVAL_VIDEOS, sd=None,
+                          what="swin-B"):
+    """The Swin of ``cfg`` (at full width and depth) through the
     source-statistics precompute and source-only evaluation under
     ``attn_route``; returns the launch counts of the run, the statistics
     as reloaded from their files, the state dict and the first video's
@@ -1348,23 +1644,24 @@ def phase_swin_full_slice(cfg, seed, card, attn_route=None,
     clips2 = torch.from_numpy(batches.batches[0][0]).cuda()
     clip1 = torch.from_numpy(videos[0][0]).cuda()
     with torch.no_grad():
-        for what, fn in (
+        for which, fn in (
                 ("tapped forward of 2 clips",
                  lambda: engine.model(clips2, Taps({"stat"}), train=False)),
                 ("eval forward of 1 clip",
                  lambda: engine.eval_logits(clip1))):
             host_ms, busy, rows = device_breakdown(fn)
             if busy == 0:
-                print(f"swin {what}: device time not measured", flush=True)
+                print(f"{what} {which}: device time not measured",
+                      flush=True)
                 continue
-            print(f"swin {what}, profiled: host {host_ms:.3f} ms, device "
+            print(f"{what} {which}, profiled: host {host_ms:.3f} ms, device "
                   f"busy {busy:.3f} ms, idle share "
                   f"{max(0.0, 1 - busy / host_ms):.2f}; largest kernels: "
                   + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}"
                               for k, ms, n in rows), flush=True)
 
     forwards = SWIN_STAT_BATCHES + eval_videos + 1
-    want = swin_launches(attn_route, sum(depths), len(depths) + 1)[0]
+    want = swin_launches(attn_route, cfg.model.embed_dim, depths)[0]
     for k, per_forward in want.items():
         if counts[k] != forwards * per_forward:
             raise AssertionError(
@@ -1374,7 +1671,7 @@ def phase_swin_full_slice(cfg, seed, card, attn_route=None,
         raise AssertionError(f"{counts['contiguity_copies']} contiguity "
                              "copies on the Swin path")
     stat_ms = batches.ms()[1:]
-    print(f"swin full slice ({attn_route or 'packed'}): source statistics "
+    print(f"{what} full slice ({attn_route or 'packed'}): source statistics "
           f"{SWIN_STAT_BATCHES} batches of "
           f"2 clips, median {statistics.median(stat_ms) / 2:.3f} ms/clip "
           f"after 1 warm-up batch (host clock, each batch synchronised on "
@@ -1402,8 +1699,9 @@ def _swin_direct(cfg, sd, attn_route=None, **kw):
     return model
 
 
-def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None):
-    """Two tta_online steps of the tiny Swin on the card and on the CPU,
+def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None,
+                           what="swin adapt small slice"):
+    """Two tta_online steps of a small Swin on the card and on the CPU,
     drop-path and head dropout 0.
 
     Tolerances as in ``phase_small_slice``: losses rtol 1e-3 / atol 1e-5,
@@ -1457,12 +1755,12 @@ def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None):
         moved += norm > 0
     if moved != len(p_cpu):
         raise AssertionError(f"only {moved} of {len(p_cpu)} parameters moved")
-    fwd, bwd = swin_launches(attn_route)
+    fwd, bwd = swin_launches(attn_route, cfg.model.embed_dim,
+                             cfg.model.depths)
     for k, n in {**fwd, **bwd}.items():
         if n and counts[k] == 0:
-            raise AssertionError(f"swin adapt small slice: the {k} kernel "
-                                 "was never launched")
-    print(f"swin adapt small slice ({attn_route or 'packed'}) card vs cpu: "
+            raise AssertionError(f"{what}: the {k} kernel was never launched")
+    print(f"{what} ({attn_route or 'packed'}) card vs cpu: "
           f"losses {m_gpu} vs {m_cpu}; "
           f"eval logits max abs err {logit_err:.2e}; EMA max abs err "
           f"{ema_err:.2e}; all {moved} parameters moved, worst update "
@@ -1471,10 +1769,12 @@ def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None):
 
 
 def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
-                          n_videos=SWIN_ADAPT_VIDEOS, warmup=2):
-    """tta_stream of Swin-B (``cfg``: swin_ucf101_preset) under
-    ``attn_route`` over seeded videos, drop-path 0.2 and head dropout 0.5
-    on; returns the launch counts of the run and a summary of its times."""
+                          n_videos=SWIN_ADAPT_VIDEOS, warmup=2,
+                          what="swin-B"):
+    """tta_stream of the Swin of ``cfg`` (swin_ucf101_preset, at Swin-B's
+    or Swin-T's width and depth) under ``attn_route`` over seeded videos,
+    drop-path 0.2 and head dropout 0.5 on; returns the launch counts of
+    the run and a summary of its times."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.loops import tta_stream
     from vitta_tpu_torch.models import get_model
@@ -1514,8 +1814,8 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
                                  f"finite (1, {classes})")
         preds.append(pred)
     if _swin_counts()["contiguity_copies"]:
-        raise AssertionError(f"swin {route}: contiguity copies in a forward "
-                             "pass")
+        raise AssertionError(f"{what} {route}: contiguity copies in a "
+                             "forward pass")
     # every parameter has a finite gradient from the last step; a block
     # whose branch drop-path dropped for both views has an exactly zero one,
     # and at lr 1e-5 an update below float32's spacing leaves a tensor as it
@@ -1540,23 +1840,23 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
     if not (np.isfinite(ema_norm) and ema_norm > 0):
         raise AssertionError(f"EMA did not move (sum |ema| = {ema_norm})")
     # per video: the adapt forward and the eval forward, one backward
-    fwd, bwd = swin_launches(attn_route, sum(cfg.model.depths),
-                             len(cfg.model.depths) + 1)
+    fwd, bwd = swin_launches(attn_route, cfg.model.embed_dim,
+                             cfg.model.depths)
     for k, per_pass in fwd.items():
         if counts[k] != 2 * per_pass * n_videos:
-            raise AssertionError(f"{route} {k}: {counts[k]} launches over "
-                                 f"{n_videos} videos, expected 2 x "
+            raise AssertionError(f"{what} {route} {k}: {counts[k]} launches "
+                                 f"over {n_videos} videos, expected 2 x "
                                  f"{per_pass} each")
     for k, per_pass in bwd.items():
         if counts[k] != per_pass * n_videos:
-            raise AssertionError(f"{route} {k}: {counts[k]} launches over "
-                                 f"{n_videos} videos, expected {per_pass} "
+            raise AssertionError(f"{what} {route} {k}: {counts[k]} launches "
+                                 f"over {n_videos} videos, expected {per_pass} "
                                  "each")
     warm = writer.ms[warmup:]
-    summary = {"route": route, "videos": len(warm),
+    summary = {"model": what, "route": route, "videos": len(warm),
                "median_ms": statistics.median(warm), "min_ms": min(warm),
                "max_ms": max(warm), "peak_gib": peak / 2**30}
-    print(f"swin adapt full slice ({route}): {n_videos} videos, median "
+    print(f"{what} adapt full slice ({route}): {n_videos} videos, median "
           f"{statistics.median(warm):.3f} ms/video (min {min(warm):.3f}, max "
           f"{max(warm):.3f}) after {len(writer.ms) - len(warm)} warm-up (host "
           f"clock, synchronised on the metrics; includes the uint8 "
@@ -1578,12 +1878,12 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
 
     host_ms, busy, rows = device_breakdown(step, top=14)
     if busy == 0:
-        print(f"swin adapt step ({route}): device time not measured",
+        print(f"{what} adapt step ({route}): device time not measured",
               flush=True)
     else:
         summary.update(host_ms=host_ms, device_busy_ms=busy,
                        idle_share=max(0.0, 1 - busy / host_ms))
-        print(f"swin adapt step ({route}), profiled: host {host_ms:.3f} ms, "
+        print(f"{what} adapt step ({route}), profiled: host {host_ms:.3f} ms, "
               f"device busy {busy:.3f} ms, idle share "
               f"{summary['idle_share']:.2f}; largest kernels: "
               + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows),
@@ -1625,6 +1925,8 @@ def main() -> int:
     lap("phase 4, Swin kernels")
     proj_rows = phase_swin_proj_kernels(dev)
     lap("phase 12, projection-fused attention kernels")
+    unfused_rows = phase_unfused_kernels(dev)
+    lap("phase 15, MLP and per-(head, window) attention kernels")
     phase_small_slice(SEED)
     launches = phase_full_slice(SEED, N_VIDEOS, card)
     lap("phases 5-6, TANet slices")
@@ -1681,15 +1983,67 @@ def main() -> int:
         row["launches"] = by_route[row["name"]]
         row["launches_forward_paths"] = fused_forward[row["name"]]
     lap("phase 14, Swin-B slices of the projection-fused routes")
-    for s in (packed, ln_proj, proj):
-        print(f"swin-B adapt step, route {s['route']}: median "
+
+    # the per-(head, window) route and both branches of the MLP: small
+    # slices.  embed 16 over four stages at 48 x 48 gives widths 16 to 128,
+    # whose last stage runs norm2 inside the LayerNorm-MLP kernel and the
+    # others apart (the embed-8 slices above take the latter at every stage)
+    both = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+                window_size=(2, 3, 3))
+    for route, hw_, kw in (("heads", 24, tiny), ("heads", 48, both),
+                           (None, 48, both)):
+        name = f"embed {kw['embed_dim']} at {hw_}"
+        phase_swin_card_vs_cpu(
+            f"swin small slice, {name} ({route or 'packed'})",
+            _swin_cfg(t=4, hw=hw_, **kw), SEED, (2, 1, 2), 4, hw_,
+            attn_route=route)
+        phase_swin_adapt_small(_swin_cfg(t=4, hw=hw_, **kw), SEED, 4, hw_,
+                               attn_route=route,
+                               what=f"swin adapt small slice, {name}")
+    lap("phase 16, small slices of the heads route and both MLP branches")
+
+    # Swin-T at full width and depth: packed, then "heads"
+    cfg_t = _swin_cfg(**SWIN_MODELS["swin_t"])
+    t_forward, t_stats, t_sd, t_logits = phase_swin_full_slice(
+        cfg_t, SEED, card, eval_videos=SWIN_T_STAT_EVAL_VIDEOS, what="swin-T")
+    t_launches, t_packed = phase_swin_adapt_full(
+        cfg_t, t_sd, t_stats, SEED, card, n_videos=SWIN_T_VIDEOS,
+        what="swin-T")
+    th_forward, th_stats, _sd, th_logits = phase_swin_full_slice(
+        cfg_t, SEED, card, attn_route="heads",
+        eval_videos=SWIN_T_STAT_EVAL_VIDEOS, sd=t_sd, what="swin-T")
+    stat_err = _compare_stats("swin-T heads against packed", th_stats,
+                              t_stats, list(t_stats))
+    logit_err = check_close("swin-T heads against packed, eval logits",
+                            th_logits, t_logits, 2e-3, 2e-4)
+    print(f"swin-T full slice, heads against packed: {len(t_stats)} source "
+          f"statistics max abs err {stat_err:.2e}, eval logits max abs err "
+          f"{logit_err:.2e}", flush=True)
+    th_launches, t_heads = phase_swin_adapt_full(
+        cfg_t, t_sd, t_stats, SEED, card, attn_route="heads",
+        n_videos=SWIN_T_VIDEOS, what="swin-T")
+    bh_launches, b_heads = phase_swin_adapt_full(
+        _swin_cfg(), sd, stats, SEED, card, attn_route="heads",
+        n_videos=SWIN_B_HEADS_VIDEOS, warmup=1)
+    for row in unfused_rows:
+        by_route, fwd_paths = ((th_launches, th_forward)
+                               if "heads" in row["name"]
+                               else (t_launches, t_forward))
+        row["launches"] = by_route[row["name"]]
+        row["launches_forward_paths"] = fwd_paths[row["name"]]
+        if "heads" in row["name"]:
+            row["launches_swin_b"] = bh_launches[row["name"]]
+    lap("phase 17, Swin-T slices and Swin-B under the heads route")
+    for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads):
+        print(f"{s['model']} adapt step, route {s['route']}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
               f"{s['max_ms']:.3f}, {s['videos']} videos), host "
               f"{fmt(s.get('host_ms'))} ms, device busy "
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
-    print(json.dumps({"kernels": tam_rows + swin_rows + proj_rows}))
+    print(json.dumps({"kernels": tam_rows + swin_rows + proj_rows
+                      + unfused_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ The projection-fused attention kernels: forward rtol 1e-4 / atol 1e-4 as
 the LayerNorm-MLP (two tiled float32 products around the attention's
 softmax); every gradient to 5e-5 of its tensor's largest magnitude
 (``PROJ_GRAD_REL``: four tiled products and the recomputed qkv in the chain,
-where the LayerNorm-MLP backward has two).
+where the LayerNorm-MLP backward has two).  The MLP without the LayerNorm
+and the attention per (head, window) are held to the bounds of the
+LayerNorm-MLP and of the packed attention.
 """
 
 import numpy as np
@@ -701,3 +703,154 @@ def test_proj_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         cp.window_attention_ln_proj(x, gm.double(), bt, 1e-5, *w, bias, mask,
                                     scale, 3)
+
+
+# --------------------------------------------------------------------------
+# the MLP without the LayerNorm, and the attention per (head, window)
+PLAIN_MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(3136, 96), (1568, 192), (500, 384),
+                                 (130, 768), (392, 128), (37, 24), (9, 8)])
+def test_mlp_kernels_match_plain(cuda_device, float32_matmul, m, c):
+    x, _g, _bt, w1, b1, w2, b2 = _mlp_case(cuda_device, m, c)
+    cuda_mlp.counters.reset()
+    got = cuda_mlp.mlp(x, w1, b1, w2, b2, save_residuals=True)
+    assert cuda_mlp.counters.mlp_fwd == 1
+    want = cuda_mlp.mlp_reference(x, w1, b1, w2, b2, save_residuals=True)
+    for name, a, b in zip(("o", "a", "s"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    assert torch.equal(cuda_mlp.mlp(x, w1, b1, w2, b2), got[0])
+    _o, a, s = got
+    g = _randn(cuda_device, m, c, seed=8)
+    grads = cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2)
+    assert cuda_mlp.counters.mlp_bwd == 1
+    for name, p, q in zip(PLAIN_MLP_GRADS, grads,
+                          cuda_mlp.mlp_backward_reference(x, a, s, g, w1, w2)):
+        _assert_grad(name, p, q)
+    # the same from run to run: no atomics anywhere
+    assert all(torch.equal(p, q) for p, q in zip(
+        cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2), grads))
+    assert (cuda_mlp.counters.fwd, cuda_mlp.counters.bwd) == (0, 0)
+
+
+def _heads_case(device, layout, b_, nh, hd, window, nw):
+    """(q, k, v, dense bias, mask, scale) with q, k, v (B_, N, nh, hd) as
+    views of a packed tensor, as tensors of their own, or as views of
+    head-major (nh, B_, N, hd) tensors."""
+    qkv, vc, mask, wd = _attn_case(device, b_, nh, hd, window, nw)
+    n = qkv.shape[1]
+    q, k, v = qkv.reshape(b_, n, 3, nh, hd).unbind(2)
+    if layout == "own":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    elif layout == "head_major":
+        q, k, v = (t.permute(2, 0, 1, 3).contiguous().permute(1, 2, 0, 3)
+                   for t in (q, k, v))
+    return q, k, v, cuda_bias.expand_bias_reference(vc, wd), mask, hd ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "own", "head_major"])
+@pytest.mark.parametrize("case", [
+    dict(b_=8, nh=3, hd=32, window=(8, 7, 7), nw=4),
+    dict(b_=2, nh=24, hd=32, window=(8, 7, 7), nw=0),
+    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
+    dict(b_=4, nh=1, hd=24, window=(3, 5, 5), nw=2)], ids=str)
+def test_heads_attention_kernels_match_plain(cuda_device, case, layout):
+    ca = cuda_attention
+    q, k, v, bias, mask, scale = _heads_case(cuda_device, layout, **case)
+    if case["nh"] > 1:      # with one head every layout is the same memory
+        assert q.is_contiguous() == (layout == "own")
+    ca.counters.reset()
+    got = ca.window_attention_heads(q, k, v, bias, mask, scale)
+    assert ca.counters.heads_fwd == 1
+    want = ca.attention_reference(q, k, v, bias, mask, scale)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    g = _randn(cuda_device, *q.shape, seed=9)
+    grads = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale)
+    assert ca.counters.heads_bwd == 1
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads,
+                          ca.heads_attention_backward_reference(
+                              q, k, v, bias, mask, g, scale)):
+        assert a.is_contiguous()
+        _assert_grad(name, a, b)
+    assert all(torch.equal(a, b) for a, b in zip(
+        ca.attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale), grads))
+    # the packed kernels' counters do not move
+    assert (ca.counters.fwd, ca.counters.bwd) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mlp", "heads"])
+def test_unfused_ops_differentiate_through_their_kernels(cuda_device,
+                                                         float32_matmul, op):
+    """``backward`` through the wrapper launches the backward kernel once,
+    copies nothing, and gives the gradients of autograd through the plain
+    forward; under ``no_grad`` nothing is kept."""
+    from vitta_tpu_torch.models import swin
+    dev = cuda_device
+    if op == "mlp":
+        x, _g, _bt, w1, b1, w2, b2 = _mlp_case(dev, 24, 16)
+        ins, mod, names = [x, w1, b1, w2, b2], cuda_mlp, ("mlp_fwd", "mlp_bwd")
+        fn, plain = cuda_mlp.mlp, cuda_mlp.mlp_reference
+    else:
+        qkv, vc, mask, wd = _attn_case(dev, 6, 3, 8, (2, 3, 3), 3)
+        ins = [qkv, cuda_bias.expand_bias_reference(vc, wd)]
+        mod, names = cuda_attention, ("heads_fwd", "heads_bwd")
+
+        def on_views(f):
+            return lambda a, b: f(*a.reshape(6, 18, 3, 3, 8).unbind(2), b,
+                                  mask, 8 ** -0.5)
+        fn = on_views(cuda_attention.window_attention_heads)
+        plain = on_views(cuda_attention.attention_reference)
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want_in = [t.clone().requires_grad_() for t in ins]
+    mod.counters.reset()
+    swin.counters.reset()
+    out = fn(*got_in)
+    cot = _randn(dev, *out.shape, seed=20)
+    got = torch.autograd.grad(out, got_in, cot)
+    assert tuple(getattr(mod.counters, n) for n in names) == (1, 1)
+    assert swin.counters.contiguity_copies == 0
+    want = torch.autograd.grad(plain(*want_in), want_in, cot)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_grad(f"{op} input {i}", a, b)
+    with torch.no_grad():
+        assert fn(*got_in).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_unfused_kernels_reject_what_they_do_not_take(cuda_device):
+    dev = cuda_device
+    x, _g, _bt, w1, b1, w2, b2 = _mlp_case(dev, 24, 16)
+    with pytest.raises(TypeError):
+        cuda_mlp.mlp(x.bfloat16(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):       # weights in the (in, out) layout
+        cuda_mlp.mlp(x, w1.t().contiguous(), b1, w2, b2)
+    with pytest.raises(ValueError):       # C = 6 is no multiple of 4
+        cuda_mlp.mlp(_randn(dev, 4, 6), _randn(dev, 24, 6), _randn(dev, 24),
+                     _randn(dev, 6, 24), _randn(dev, 6))
+    q, k, v, bias, mask, scale = _heads_case(dev, "views", 6, 3, 8, (2, 3, 3),
+                                             3)
+    ca = cuda_attention
+    with pytest.raises(TypeError):
+        ca.window_attention_heads(q.bfloat16(), k, v, bias, mask, scale)
+    with pytest.raises(ValueError):       # a head's channels strided
+        ca.window_attention_heads(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v, bias, mask,
+            scale)
+    with pytest.raises(ValueError):       # the compact bias form
+        ca.window_attention_heads(q, k, v, _randn(dev, 3, 3, 9, 9), mask,
+                                  scale)
+    with pytest.raises(ValueError):       # hd = 64 > 32
+        ca.window_attention_heads(*(_randn(dev, 2, 18, 1, 64),) * 3,
+                                  _randn(dev, 1, 18, 18), None, 0.125)
+    far = torch.zeros(6_000_000 + 4, device=dev).as_strided(
+        (1, 2, 1, 4), (0, 6_000_000, 4, 1))
+    with pytest.raises(ValueError):       # tokens too far apart
+        ca.window_attention_heads(far, far, far, _randn(dev, 1, 2, 2), None,
+                                  0.5)
+    with pytest.raises(ValueError):       # a strided cotangent, unwrapped
+        ca.attn_heads_bwd_cuda(q, k, v, bias, mask,
+                               _randn(dev, 6, 3, 18, 8).transpose(1, 2), scale)

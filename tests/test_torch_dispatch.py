@@ -1,6 +1,8 @@
 """The port's attention-route flags (vitta_tpu_torch/ops/dispatch.py): the
 same environment names and the same tri-state as vitta_tpu/ops/dispatch.py
-(tests/test_dispatch_flags.py), and what ``attn_route=None`` makes of them.
+(tests/test_dispatch_flags.py), what ``attn_route=None`` makes of them, the
+route no flag gives (``"heads"``), and the shape rule that fuses norm2 into
+the MLP op.
 """
 
 import pytest
@@ -134,3 +136,37 @@ def test_a_tap_other_than_spatiotemp_takes_the_fallback(clean_env):
     clean_env.setenv("VITTA_ATTN_PROJ_FUSED", "1")
     assert route(stat_types=("temp",)) == "proj"
     assert route() == "ln_proj"
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"VITTA_ATTN_LN": "1"}, {"VITTA_ATTN_PROJ_FUSED": "1"},
+    {"VITTA_ATTN_LN": "1", "VITTA_ATTN_PROJ_FUSED": "1"},
+    {"VITTA_ATTN_NO_PROJ": "1"}], ids=lambda e: "+".join(e) or "unset")
+def test_no_flag_gives_the_heads_route(env, clean_env):
+    """vitta_tpu takes its per-(head, window) kernel from a memory estimate
+    and has no flag for it; here only the argument selects it."""
+    assert "heads" in dispatch.ATTN_ROUTES
+    for var, value in env.items():
+        clean_env.setenv(var, value)
+    assert "heads" not in dispatch.resolve_attn_route(None)
+    assert dispatch.resolve_attn_route("heads") == ("heads", "heads")
+    block = SwinBlock3D(8, 2, "b", window_size=(2, 3, 3), attn_route="heads",
+                        stat_types=("spatiotemp", "temp"))
+    assert (block.attn_route, block.attn_fallback) == ("heads", "heads")
+
+
+@pytest.mark.parametrize("c,tokens,want", [
+    # Swin-B, 2 clips and 1: every stage fuses
+    (128, 50176, True), (256, 12544, True), (512, 3136, True),
+    (1024, 784, True), (1024, 392, True),
+    # Swin-T / Swin-S: 96 and 192 do not, 384 and 768 do
+    (96, 50176, False), (192, 12544, False), (384, 3136, True),
+    (768, 784, True),
+    # whole groups of 8 tokens only
+    (128, 396, False), (128, 8, True), (8, 64, False), (64, 64, False)])
+def test_mlp_rule_mirrors_the_jax_model(c, tokens, want):
+    """vitta_tpu/models/swin.py:428, without its ``pallas_enabled()``: the
+    port's two branches are kernels on the card and plain versions on the
+    CPU alike."""
+    assert dispatch.mlp_ln_fused(c, tokens) is want
+    assert (c % 128 == 0 and tokens % 8 == 0) is want

@@ -35,3 +35,24 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "0"
+
+
+def test_mlp_and_heads_names_import_without_jax():
+    """The MLP without the LayerNorm, the attention per (head, window), the
+    fourth route and the MLP rule, from a process that never saw JAX."""
+    code = (
+        "import sys\n"
+        "from vitta_tpu_torch.ops.cuda_mlp import mlp, mlp_reference, "
+        "mlp_backward_reference\n"
+        "from vitta_tpu_torch.ops.cuda_attention import "
+        "window_attention_heads, heads_attention_backward_reference\n"
+        "from vitta_tpu_torch.ops.dispatch import ATTN_ROUTES, mlp_ln_fused\n"
+        "from vitta_tpu_torch.models import swin\n"
+        "assert ATTN_ROUTES == ('packed', 'proj', 'ln_proj', 'heads')\n"
+        "assert swin.mlp is mlp and swin.mlp_ln_fused is mlp_ln_fused\n"
+        "assert swin.window_attention_heads is window_attention_heads\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu')]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

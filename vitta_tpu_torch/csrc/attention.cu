@@ -1,11 +1,14 @@
-// Packed window attention, forward and backward, for Video Swin, for Hopper
-// (sm_90a).
+// Window attention, forward and backward, for Video Swin, for Hopper
+// (sm_90a): on the packed projection output (vitta_attn_packed_*) and per
+// (head, window) on separate q, k, v (vitta_attn_heads_*).
 //
 // Replaces the Pallas TPU kernels of vitta_tpu/ops/pallas_attention.py:
 //   _packed_fwd_kernel (:448) with its head loop _heads_fwd (:403),
 //   launched by _packed_attn_fwd (:556), and
 //   _packed_bwd_kernel (:517) with its head loop _heads_bwd (:457) and
-//   _dbias_accum (:384), launched by _packed_attn_bwd (:598).
+//   _dbias_accum (:384), launched by _packed_attn_bwd (:598); per (head,
+//   window) _fwd_kernel (:83), launched by _pallas_attn_fwd (:140), and
+//   _bwd_kernel (:91), launched by _pallas_attn_bwd (:161).
 //
 // Forward.
 //
@@ -81,6 +84,25 @@
 // (the forward has two).  No atomics anywhere: every output is the same from
 // run to run.  The mask has no gradient.
 //
+// Per (head, window).  The TPU kernel of this route takes q, k and v as three
+// head-major tensors (nh, B_, N, hd), which costs a transposing copy of each
+// in front and of the output behind, one grid step per (head, window), a
+// dense bias only, and keeps no row maximum and sum: its backward rebuilds
+// the softmax from q and k.  Here the device code above addresses q, k, v
+// and their cotangents through a base pointer and three strides each
+// (attention_kernels.cuh: Rows), so the same kernels read the three where
+// they lie: as views of the packed projection output, as (B_, N, nh, hd)
+// tensors of their own, or head-major; no transposing copy exists.  What
+// the route keeps of its own:
+//  * the forward writes no row maximum and sum, and nothing but
+//    (q, k, v, bias, mask) is kept for the backward;
+//  * the backward's first launch is the forward kernel with no output: it
+//    rebuilds the maximum and sum (q k^T and the softmax's two passes, no
+//    p v), bit for bit what the forward had, into scratch; then the query
+//    kernel, the key kernel and the sum over the windows as above.  Eight
+//    products of N*N*hd multiply-adds where five are the least possible;
+//  * dq, dk, dv are three outputs, each (B_, N, nh, hd); dbias is dense.
+//
 // The kernels and their launchers are in attention_kernels.cuh, which
 // attention_proj.cu includes too.
 
@@ -93,6 +115,8 @@ extern "C" {
 // The largest window and head size the kernel takes.
 int vitta_attn_max_tokens() { return vitta::attn::kMaxTokens; }
 int vitta_attn_max_head_dim() { return vitta::attn::kMaxHeadDim; }
+// The largest stride, in floats, between two tokens of q, k or v.
+long long vitta_attn_max_row_stride() { return vitta::attn::kMaxRowStride; }
 
 // bias: dense (nh, n, n) when compact == 0, else (nh, 2wd-1, hw, hw) with
 // wd*hw == n.  mask: (nw, n, n) or null.  ms: (b_, n, 2nh) or null.
@@ -122,6 +146,54 @@ int vitta_attn_packed_bwd(const float* qkv, const float* bias,
   return (int)vitta::attn::launch_packed_bwd(
       qkv, bias, mask, ms, g, dqkv, dbias, scratch, b_, n, nh, hd, nw,
       compact, wd, hw, scale, (cudaStream_t)stream);
+}
+
+// Per (head, window), on separate q, k, v: element (b, i, h, d) of q lies at
+// q[b*strides[0] + i*strides[1] + h*strides[2] + d], of k and v likewise
+// with strides[3..5] and strides[6..8] (a host array of 9).  bias: dense
+// (nh, n, n).  mask: (nw, n, n) or null.  out: (b_, n, nh, hd).
+int vitta_attn_heads_fwd(const float* q, const float* k, const float* v,
+                         const long long* strides, const float* bias,
+                         const float* mask, float* out, int b_, int n, int nh,
+                         int hd, int nw, float scale, void* stream) {
+  using vitta::attn::InRows;
+  const long long* s = strides;
+  return (int)vitta::attn::launch_fwd(
+      InRows{q, s[0], s[1], s[2]}, InRows{k, s[3], s[4], s[5]},
+      InRows{v, s[6], s[7], s[8]}, bias, mask, out, nullptr, b_, n, nh, hd, nw,
+      0, 0, 0, scale, (cudaStream_t)stream);
+}
+
+// Floats of scratch vitta_attn_heads_bwd needs: the packed backward's and the
+// rebuilt row maximum and sum (b_, n, 2nh).
+long long vitta_attn_heads_bwd_scratch_floats(int b_, int n, int nh) {
+  return vitta::attn::bwd_scratch_floats(b_, n, nh) + (long long)b_ * n * 2 * nh;
+}
+
+// g: (b_, n, nh, hd), the cotangent of out; dq, dk, dv: (b_, n, nh, hd),
+// contiguous; dbias: (nh, n, n).
+int vitta_attn_heads_bwd(const float* q, const float* k, const float* v,
+                         const long long* strides, const float* bias,
+                         const float* mask, const float* g, float* dq,
+                         float* dk, float* dv, float* dbias, float* scratch,
+                         int b_, int n, int nh, int hd, int nw, float scale,
+                         void* stream) {
+  using vitta::attn::InRows;
+  using vitta::attn::OutRows;
+  if (dbias == nullptr) return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  const InRows qr{q, s[0], s[1], s[2]}, kr{k, s[3], s[4], s[5]},
+      vr{v, s[6], s[7], s[8]};
+  const long long c = (long long)nh * hd;
+  float* ms = scratch + vitta::attn::bwd_scratch_floats(b_, n, nh);
+  cudaError_t e = vitta::attn::launch_fwd(qr, kr, vr, bias, mask, nullptr, ms,
+                                          b_, n, nh, hd, nw, 0, 0, 0, scale,
+                                          (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)vitta::attn::launch_bwd(
+      qr, kr, vr, bias, mask, ms, g, OutRows{dq, n * c, c, hd},
+      OutRows{dk, n * c, c, hd}, OutRows{dv, n * c, c, hd}, dbias, scratch, b_,
+      n, nh, hd, nw, 0, 0, 0, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
-// The device code and the host-side launchers of the packed window attention,
-// forward and backward, shared by attention.cu (the packed op) and
-// attention_proj.cu (the projection-fused ops, which run the same kernels
-// between their own matrix products).  attention.cu's header says what the
-// kernels compute, what bounds them and how the work is laid out.
+// The device code and the host-side launchers of the window attention,
+// forward and backward, shared by attention.cu (the packed op and the
+// per-(head, window) op on separate q, k, v) and attention_proj.cu (the
+// projection-fused ops, which run the same kernels between their own matrix
+// products).  attention.cu's header says what the kernels compute, what
+// bounds them and how the work is laid out.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -19,6 +20,28 @@ constexpr int kNMax = kTMax * 32;      // 416
 constexpr int kKStride = kNMax + 1;    // odd: the transposing store is conflict-free
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// One of q, k, v, or of their cotangents, as the kernels address it: element
+// (window b, token i, head h, channel d) lies at p[b*sb + i*sr + h*sh + d].
+// The packed projection output (B_, N, 3, nh, hd) gives three of these with
+// sb = N*3C, sr = 3C, sh = hd and p moved on by 0, C and 2C; a (B_, N, nh, hd)
+// tensor of its own gives sb = N*C, sr = C, sh = hd; a head-major
+// (nh, B_, N, hd) one gives sb = N*hd, sr = hd, sh = B_*N*hd.
+template <typename T>
+struct Rows {
+  T* p;
+  long long sb, sr, sh;
+  __host__ __device__ T* at(int b, int h) const { return p + b * sb + h * sh; }
+};
+using InRows = Rows<const float>;
+using OutRows = Rows<float>;
+
+// q, k or v (which = 0, 1, 2) of the packed tensor (B_, N, 3, nh, hd).
+template <typename T>
+inline Rows<T> packed_rows(T* qkv, int which, int n, int nh, int hd) {
+  const long long c = (long long)nh * hd;
+  return Rows<T>{qkv + which * c, n * 3 * c, 3 * c, hd};
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -44,29 +67,35 @@ __device__ __forceinline__ float bias_at(const float* __restrict__ bias,
   return bias[(((size_t)h * (2 * wd - 1) + d1 - d2 + wd - 1) * hw + ii) * hw + jj];
 }
 
+// Without kOut only ms is written, and v and out are not touched (the first
+// launch of a backward whose forward kept no row maximum and sum).
+template <bool kOut>
 __global__ void __launch_bounds__(kThreads, 1)
-packed_attn_fwd_kernel(const float* __restrict__ qkv,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ mask,
-                       float* __restrict__ out, float* __restrict__ ms,
-                       int n, int nh, int hd, int nw, int compact, int wd,
-                       int hw, float scale) {
+attn_fwd_kernel(const InRows q, const InRows k, const InRows v,
+                const float* __restrict__ bias,
+                const float* __restrict__ mask, float* __restrict__ out,
+                float* __restrict__ ms, int n, int nh, int hd, int nw,
+                int compact, int wd, int hw, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int c = nh * hd, c3 = 3 * c;
+  const int c = nh * hd;
   const int n4 = round4(n);
   float* Kt = smem;                               // (hd, kKStride)
   float* Vs = Kt + round4(hd * kKStride);         // (n4, hd)
   float* Ps = Vs + round4(n4 * hd);               // (kWarps, kRows, kNMax)
   float* Qs = Ps + kWarps * kRows * kNMax;        // (kWarps, kRows, 32)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* base = qkv + (size_t)b * n * c3 + h * hd;
+  const float* __restrict__ qb = q.at(b, h);
+  const float* __restrict__ kb = k.at(b, h);
+  const float* __restrict__ vb = v.at(b, h);
+  // row offsets in 32 bits (the launcher checks that they fit): the loop
+  // below is address arithmetic and little else
+  const int qsr = (int)q.sr, ksr = (int)k.sr, vsr = (int)v.sr;
 
   for (int idx = tid; idx < n * hd; idx += kThreads) {
     const int j = idx / hd, d = idx - j * hd;
-    const float* row = base + (size_t)j * c3;
-    Kt[d * kKStride + j] = row[c + d];
-    Vs[j * hd + d] = row[2 * c + d];
+    Kt[d * kKStride + j] = kb[j * ksr + d];
+    if (kOut) Vs[j * hd + d] = vb[j * vsr + d];
   }
   const int kpad = kKStride - n;
   for (int idx = tid; idx < hd * kpad; idx += kThreads) {
@@ -89,7 +118,7 @@ packed_attn_fwd_kernel(const float* __restrict__ qkv,
     for (int r = 0; r < kRows; ++r) {
       const int i = i0 + r;
       Qw[r * 32 + lane] =
-          (i < n && lane < hd) ? base[(size_t)i * c3 + lane] : 0.f;
+          (i < n && lane < hd) ? qb[i * qsr + lane] : 0.f;
     }
     __syncwarp();
 
@@ -135,7 +164,7 @@ packed_attn_fwd_kernel(const float* __restrict__ qkv,
         for (int t = 0; t < kTMax; ++t) {
           const float e =
               (lane + 32 * t < n) ? __expf(acc[r][t] - mx) : 0.f;
-          pr[32 * t] = e;
+          if (kOut) pr[32 * t] = e;
           s += e;
         }
         rsum[r] = warp_sum(s);
@@ -149,7 +178,7 @@ packed_attn_fwd_kernel(const float* __restrict__ qkv,
     }
     __syncwarp();
 
-    if (lane < hd) {
+    if (kOut && lane < hd) {
       float o[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) o[r] = 0.f;
@@ -329,25 +358,25 @@ __device__ __forceinline__ BwdSmem bwd_smem(float* smem, int hd) {
 
 // The query kernel: dl and rs to scratch, dq into dqkv.
 __global__ void __launch_bounds__(kBwdThreads, 1)
-packed_attn_bwd_q_kernel(const float* __restrict__ qkv,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ ms,
-                         const float* __restrict__ g,
-                         float* __restrict__ dqkv, float* __restrict__ dl_out,
-                         float* __restrict__ rs_out, int n, int nh, int hd,
-                         int nw, int compact, int wd, int hw, float scale) {
+attn_bwd_q_kernel(const InRows q, const InRows k, const InRows v,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ mask,
+                  const float* __restrict__ ms, const float* __restrict__ g,
+                  const OutRows dq, float* __restrict__ dl_out,
+                  float* __restrict__ rs_out, int n, int nh, int hd, int nw,
+                  int compact, int wd, int hw, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int c = nh * hd, c3 = 3 * c;
+  const int c = nh * hd;
   const BwdSmem sm = bwd_smem(smem, hd);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* base = qkv + (size_t)b * n * c3 + h * hd;
+  const float* __restrict__ qb = q.at(b, h);
   const float* gbase = g + (size_t)b * n * c + h * hd;
+  float* __restrict__ dqb = dq.at(b, h);
   float* Kt = sm.t1;
   float* Vt = sm.t2;
-  load_transposed(Kt, base + c, c3, n, hd, tid);
-  load_transposed(Vt, base + 2 * c, c3, n, hd, tid);
+  load_transposed(Kt, k.at(b, h), k.sr, n, hd, tid);
+  load_transposed(Vt, v.at(b, h), v.sr, n, hd, tid);
   __syncthreads();
 
   float* Qw = sm.s1 + warp * kBwdRows * 32;
@@ -358,7 +387,7 @@ packed_attn_bwd_q_kernel(const float* __restrict__ qkv,
 
   for (int i0 = (blockIdx.z * kBwdWarps + warp) * kBwdRows; i0 < n;
        i0 += gridDim.z * kBwdWarps * kBwdRows) {
-    load_strip(Qw, base, c3, i0, n, hd, lane);
+    load_strip(Qw, qb, q.sr, i0, n, hd, lane);
     load_strip(Gw, gbase, c, i0, n, hd, lane);
     __syncwarp();
 
@@ -411,7 +440,7 @@ packed_attn_bwd_q_kernel(const float* __restrict__ qkv,
     for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
       const float tot = weights_times_tile(dl, Kt, d0, hd, lane);
       if (orow < n && d0 + od < hd)
-        dqkv[((size_t)b * n + orow) * c3 + h * hd + d0 + od] = tot * scale;
+        dqb[orow * dq.sr + d0 + od] = tot * scale;
     }
     __syncwarp();     // the strips are rewritten by the next pass
   }
@@ -419,24 +448,24 @@ packed_attn_bwd_q_kernel(const float* __restrict__ qkv,
 
 // The key kernel: dk and dv into dqkv, from the rs the query kernel left.
 __global__ void __launch_bounds__(kBwdThreads, 1)
-packed_attn_bwd_kv_kernel(const float* __restrict__ qkv,
-                          const float* __restrict__ bias,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ ms,
-                          const float* __restrict__ g,
-                          const float* __restrict__ rs_in,
-                          float* __restrict__ dqkv, int n, int nh, int hd,
-                          int nw, int compact, int wd, int hw, float scale) {
+attn_bwd_kv_kernel(const InRows q, const InRows k, const InRows v,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ ms, const float* __restrict__ g,
+                   const float* __restrict__ rs_in, const OutRows dk,
+                   const OutRows dv, int n, int nh, int hd, int nw,
+                   int compact, int wd, int hw, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int c = nh * hd, c3 = 3 * c;
+  const int c = nh * hd;
   const BwdSmem sm = bwd_smem(smem, hd);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* base = qkv + (size_t)b * n * c3 + h * hd;
+  const float* __restrict__ kb = k.at(b, h);
+  const float* __restrict__ vb = v.at(b, h);
   const float* gbase = g + (size_t)b * n * c + h * hd;
   float* Qt = sm.t1;
   float* Gt = sm.t2;
-  load_transposed(Qt, base, c3, n, hd, tid);
+  load_transposed(Qt, q.at(b, h), q.sr, n, hd, tid);
   load_transposed(Gt, gbase, c, n, hd, tid);
   const size_t prob = (size_t)b * nh + h;
   for (int i = tid; i < kNMax; i += kBwdThreads) {
@@ -460,8 +489,8 @@ packed_attn_bwd_kv_kernel(const float* __restrict__ qkv,
 
   for (int j0 = (blockIdx.z * kBwdWarps + warp) * kBwdRows; j0 < n;
        j0 += gridDim.z * kBwdWarps * kBwdRows) {
-    load_strip(Kw, base + c, c3, j0, n, hd, lane);
-    load_strip(Vw, base + 2 * c, c3, j0, n, hd, lane);
+    load_strip(Kw, kb, k.sr, j0, n, hd, lane);
+    load_strip(Vw, vb, v.sr, j0, n, hd, lane);
     __syncwarp();
 
     // pt[r][t] = p[i][j] and dlt[r][t] = dl[i][j] for key j = j0 + r and
@@ -488,11 +517,13 @@ packed_attn_bwd_kv_kernel(const float* __restrict__ qkv,
       }
     }
     const int orow = j0 + lane / kBwdDChunk, od = lane % kBwdDChunk;
-    float* obase = dqkv + ((size_t)b * n + (orow < n ? orow : 0)) * c3 + h * hd;
+    const int orow_in = orow < n ? orow : 0;
+    float* __restrict__ dkb = dk.at(b, h) + orow_in * dk.sr;
+    float* __restrict__ dvb = dv.at(b, h) + orow_in * dv.sr;
     // dv = p^T g
     for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
       const float tot = weights_times_tile(pt, Gt, d0, hd, lane);
-      if (orow < n && d0 + od < hd) obase[2 * c + d0 + od] = tot;
+      if (orow < n && d0 + od < hd) dvb[d0 + od] = tot;
     }
     strip_times_tile(Vw, Gt, hd, lane, dlt);      // dp^T = (g v^T)^T
 #pragma unroll
@@ -503,7 +534,7 @@ packed_attn_bwd_kv_kernel(const float* __restrict__ qkv,
     // dk = scale * dl^T q
     for (int d0 = 0; d0 < hd; d0 += kBwdDChunk) {
       const float tot = weights_times_tile(dlt, Qt, d0, hd, lane);
-      if (orow < n && d0 + od < hd) obase[c + d0 + od] = tot * scale;
+      if (orow < n && d0 + od < hd) dkb[d0 + od] = tot * scale;
     }
     __syncwarp();     // the strips are rewritten by the next pass
   }
@@ -574,31 +605,63 @@ inline int row_split(int problems) {
   return split < 1 ? 1 : (split > 4 ? 4 : split);
 }
 
-// The largest window and head size the kernels take.
+// The largest window and head size the kernels take, and the largest stride
+// between two tokens of q, k or v (a token's offset is taken in 32 bits).
 constexpr int kMaxTokens = kNMax;
 constexpr int kMaxHeadDim = 32;
+constexpr long long kMaxRowStride = 0x7fffffff / kNMax;
 
 // Forward, one launch on `stream`.  bias: dense (nh, n, n) when compact == 0,
 // else (nh, 2wd-1, hw, hw) with wd*hw == n.  mask: (nw, n, n) or null.
-// ms: (b_, n, 2nh) or null.  Returns the first error.
+// out: (b_, n, nh*hd), or null to write ms alone.  ms: (b_, n, 2nh) or null.
+// Returns the first error.
+template <bool kOut>
+inline cudaError_t launch_fwd_as(const InRows& q, const InRows& k,
+                                 const InRows& v, const float* bias,
+                                 const float* mask, float* out, float* ms,
+                                 int b_, int n, int nh, int hd, int nw,
+                                 int compact, int wd, int hw, float scale,
+                                 cudaStream_t stream) {
+  const size_t smem = smem_bytes(n, hd);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_kernel<kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(nh, b_, row_split(nh * b_));
+  attn_fwd_kernel<kOut><<<grid, kThreads, smem, stream>>>(
+      q, k, v, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_fwd(const InRows& q, const InRows& k,
+                              const InRows& v, const float* bias,
+                              const float* mask, float* out, float* ms, int b_,
+                              int n, int nh, int hd, int nw, int compact,
+                              int wd, int hw, float scale,
+                              cudaStream_t stream) {
+  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
+      (out == nullptr && ms == nullptr) || q.sr > kMaxRowStride ||
+      k.sr > kMaxRowStride || v.sr > kMaxRowStride)
+    return cudaErrorInvalidValue;
+  return out != nullptr
+             ? launch_fwd_as<true>(q, k, v, bias, mask, out, ms, b_, n, nh, hd,
+                                   nw, compact, wd, hw, scale, stream)
+             : launch_fwd_as<false>(q, k, v, bias, mask, out, ms, b_, n, nh,
+                                    hd, nw, compact, wd, hw, scale, stream);
+}
+
+// The same on the packed projection output qkv (b_, n, 3*nh*hd).
 inline cudaError_t launch_packed_fwd(const float* qkv, const float* bias,
                                      const float* mask, float* out, float* ms,
                                      int b_, int n, int nh, int hd, int nw,
                                      int compact, int wd, int hw, float scale,
                                      cudaStream_t stream) {
-  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw))
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, hd);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(nh, b_, row_split(nh * b_));
-  packed_attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(
-      qkv, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale);
-  return cudaGetLastError();
+  return launch_fwd(packed_rows(qkv, 0, n, nh, hd),
+                    packed_rows(qkv, 1, n, nh, hd),
+                    packed_rows(qkv, 2, n, nh, hd), bias, mask, out, ms, b_, n,
+                    nh, hd, nw, compact, wd, hw, scale, stream);
 }
 
 // Floats of scratch launch_packed_bwd needs: dl (b_, nh, n, n) and rs
@@ -609,24 +672,25 @@ inline long long bwd_scratch_floats(int b_, int n, int nh) {
 
 // Backward, three launches on `stream` (two when dbias is null: the sum of
 // dl over the windows is then not taken).  g: (b_, n, nh*hd), the cotangent
-// of out; ms as the forward wrote it; dqkv: (b_, n, 3*nh*hd); dbias: in the
-// bias's form.  Returns the first error.
-inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
-                                     const float* mask, const float* ms,
-                                     const float* g, float* dqkv, float* dbias,
-                                     float* scratch, int b_, int n, int nh,
-                                     int hd, int nw, int compact, int wd,
-                                     int hw, float scale,
-                                     cudaStream_t stream) {
+// of out; ms (b_, n, 2nh) as a forward launch wrote it; dbias: in the bias's
+// form.  Returns the first error.
+inline cudaError_t launch_bwd(const InRows& q, const InRows& k,
+                              const InRows& v, const float* bias,
+                              const float* mask, const float* ms,
+                              const float* g, const OutRows& dq,
+                              const OutRows& dk, const OutRows& dv,
+                              float* dbias, float* scratch, int b_, int n,
+                              int nh, int hd, int nw, int compact, int wd,
+                              int hw, float scale, cudaStream_t stream) {
   if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw))
     return cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(hd);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        packed_attn_bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_bwd_q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(packed_attn_bwd_kv_kernel,
+    e = cudaFuncSetAttribute(attn_bwd_kv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return e;
@@ -634,13 +698,14 @@ inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
   float* dl = scratch;
   float* rs = scratch + (size_t)b_ * nh * n * n;
   const dim3 grid(nh, b_, row_split(nh * b_));
-  packed_attn_bwd_q_kernel<<<grid, kBwdThreads, smem, stream>>>(
-      qkv, bias, mask, ms, g, dqkv, dl, rs, n, nh, hd, nw, compact, wd, hw,
+  attn_bwd_q_kernel<<<grid, kBwdThreads, smem, stream>>>(
+      q, k, v, bias, mask, ms, g, dq, dl, rs, n, nh, hd, nw, compact, wd, hw,
       scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  packed_attn_bwd_kv_kernel<<<grid, kBwdThreads, smem, stream>>>(
-      qkv, bias, mask, ms, g, rs, dqkv, n, nh, hd, nw, compact, wd, hw, scale);
+  attn_bwd_kv_kernel<<<grid, kBwdThreads, smem, stream>>>(
+      q, k, v, bias, mask, ms, g, rs, dk, dv, n, nh, hd, nw, compact, wd, hw,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || dbias == nullptr) return e;
   const long long outs =
@@ -648,6 +713,24 @@ inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
   dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
       dl, dbias, b_, n, nh, compact, wd, hw);
   return cudaGetLastError();
+}
+
+// The same on the packed qkv (b_, n, 3*nh*hd), dq, dk and dv written packed
+// into dqkv, the layout of qkv.
+inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
+                                     const float* mask, const float* ms,
+                                     const float* g, float* dqkv, float* dbias,
+                                     float* scratch, int b_, int n, int nh,
+                                     int hd, int nw, int compact, int wd,
+                                     int hw, float scale,
+                                     cudaStream_t stream) {
+  return launch_bwd(packed_rows(qkv, 0, n, nh, hd),
+                    packed_rows(qkv, 1, n, nh, hd),
+                    packed_rows(qkv, 2, n, nh, hd), bias, mask, ms, g,
+                    packed_rows(dqkv, 0, n, nh, hd),
+                    packed_rows(dqkv, 1, n, nh, hd),
+                    packed_rows(dqkv, 2, n, nh, hd), dbias, scratch, b_, n, nh,
+                    hd, nw, compact, wd, hw, scale, stream);
 }
 
 }  // namespace attn

@@ -1,11 +1,13 @@
-// Fused LayerNorm -> MLP, forward and backward, for Video Swin, for Hopper
-// (sm_90a).
+// The Video Swin MLP, forward and backward, with the LayerNorm in front of
+// it (vitta_lnmlp_*) and without (vitta_mlp_*), for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of vitta_tpu/ops/pallas_mlp.py:
 //   _lnmlp_fwd_kernel (:303) and its pipelined form (:386), launched by
 //   _pallas_lnmlp_fwd (:523), and
 //   _lnmlp_bwd_kernel (:322) and its pipelined form (:438), launched by
-//   _pallas_lnmlp_bwd (:560).
+//   _pallas_lnmlp_bwd (:560); without the LayerNorm
+//   _fwd_kernel (:138), launched by _pallas_mlp_fwd (:192), and
+//   _bwd_kernel (:154), launched by _pallas_mlp_bwd (:222).
 //
 // What the forward computes, on x (M, C) with the weights in torch.nn.Linear
 // layout (w1 (F, C), w2 (C, F)):
@@ -46,6 +48,14 @@
 // weight gradients, sums over all M rows, are split over blockIdx.z and
 // added in a fixed order.  db1, db2, dgamma and dbeta are summed the same
 // way (reduce.cuh).
+//
+// Without the LayerNorm (the widths that are no multiple of 128: Video
+// Swin-T's and Swin-S's 96 and 192) the same products run on x itself:
+// forward launches 2 and 3 above on x, o = gelu(x w1^T + b1) w2^T + b2;
+// backward dh = (g w2) * s, dx = dh w1, dw1 = dh^T x, dw2 = g^T a and the two
+// column sums, with no LayerNorm launch before or behind.  96 and 384 are no
+// multiples of the 128 x 128 tile: gemm_tiles masks the ragged edge, so a
+// quarter of the edge tiles' multiply-adds are spent on zeros.
 
 #include <cuda_runtime.h>
 
@@ -70,6 +80,21 @@ BwdScratch bwd_scratch(int m, int c, int f) {
   s.dy = (long long)m * c;
   // a multiple of 4, so that what follows stays 16-byte aligned
   s.ln = (vitta::ln_bwd_scratch_floats(m, c) + 3) / 4 * 4;
+  s.grad = max2(grad_partial_floats(f, c, m), grad_partial_floats(c, f, m));
+  s.cols = (long long)vitta::col_chunks(m) * f;
+  return s;
+}
+
+// The plain MLP backward's scratch: dh (m, f), the partial weight-gradient
+// products, the partial column sums.
+struct MlpBwdScratch {
+  long long dh, grad, cols;
+  long long total() const { return dh + grad + cols; }
+};
+
+MlpBwdScratch mlp_bwd_scratch(int m, int c, int f) {
+  MlpBwdScratch s;
+  s.dh = (long long)m * f;
   s.grad = max2(grad_partial_floats(f, c, m), grad_partial_floats(c, f, m));
   s.cols = (long long)vitta::col_chunks(m) * f;
   return s;
@@ -141,6 +166,57 @@ int vitta_lnmlp_bwd(const float* x, const float* y, const float* a,
   e = vitta::launch_col_sums(go, cols, db2, m, c, st);
   if (e != cudaSuccess) return (int)e;
   return (int)vitta::launch_ln_bwd(x, gamma, dy, dx, dgb, ln, m, c, eps, st);
+}
+
+// The MLP without the LayerNorm.  x, o: (m, c); w1 (f, c); w2 (c, f);
+// a: (m, f), always written (it passes through device memory between the two
+// products); s: (m, f) or null.
+int vitta_mlp_fwd(const float* x, const float* w1, const float* b1,
+                  const float* w2, const float* b2, float* a, float* s,
+                  float* o, int m, int c, int f, void* stream) {
+  if (bad_dims(m, c, f)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e =
+      launch_gemm<false, EPI_GELU>(x, w1, b1, nullptr, a, s, m, f, c, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_gemm<false, EPI_BIAS>(a, w2, b2, nullptr, o, nullptr, m,
+                                           c, f, st);
+}
+
+// Floats of scratch vitta_mlp_bwd needs.
+long long vitta_mlp_bwd_scratch_floats(int m, int c, int f) {
+  if (bad_dims(m, c, f)) return -1;
+  return mlp_bwd_scratch(m, c, f).total();
+}
+
+// x, g, dx: (m, c); a, s: (m, f); w1, dw1: (f, c); w2, dw2: (c, f); db1: (f);
+// db2: (c).
+int vitta_mlp_bwd(const float* x, const float* a, const float* s,
+                  const float* g, const float* w1, const float* w2, float* dx,
+                  float* dw1, float* db1, float* dw2, float* db2,
+                  float* scratch, int m, int c, int f, void* stream) {
+  if (bad_dims(m, c, f) || vitta::col_chunks(m) > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const MlpBwdScratch sz = mlp_bwd_scratch(m, c, f);
+  float* dh = scratch;
+  float* grad = dh + sz.dh;
+  float* cols = grad + sz.grad;
+  // dh = (g w2) * s, then dx = dh w1
+  cudaError_t e = launch_gemm<true, EPI_MUL>(g, w2, nullptr, s, dh, nullptr,
+                                             m, f, c, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm<true, EPI_ADD>(dh, w1, nullptr, nullptr, dx, nullptr, m, c,
+                                 f, st);
+  if (e != cudaSuccess) return (int)e;
+  // dw1 = dh^T x, dw2 = g^T a, over all m rows
+  e = launch_grad_gemm(dh, x, dw1, grad, f, c, m, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_grad_gemm(g, a, dw2, grad, c, f, m, st);
+  if (e != cudaSuccess) return (int)e;
+  e = vitta::launch_col_sums(dh, cols, db1, m, f, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)vitta::launch_col_sums(g, cols, db2, m, c, st);
 }
 
 }  // extern "C"

@@ -22,13 +22,15 @@ Parameter and buffer names are the reference checkpoint's
 dict loads with ``strict=True``; tap names are the JAX package's flattened
 ones (``backbone.layers_2.blocks_1.norm1``).
 
-Where the work goes on a CUDA tensor, forward and backward: every
-LayerNorm but norm2 through ops/cuda_ln.py, the bias expansion (and its
-collapse) through ops/cuda_bias.py, the attention between the qkv and the
-output projection through ops/cuda_attention.py, and norm2 + MLP through
-ops/cuda_mlp.py — hand-written kernels, with no gate on the width or the
-row count; each keeps what its backward reads only when a gradient is
-wanted.  Under ``train=True`` drop-path and the head's dropout draw from
+Where the work goes on a CUDA tensor, forward and backward: the LayerNorms
+through ops/cuda_ln.py, the bias expansion (and its collapse) through
+ops/cuda_bias.py, the attention between the qkv and the output projection
+through ops/cuda_attention.py, and the MLP through ops/cuda_mlp.py, with
+norm2 inside that op where ``dispatch.mlp_ln_fused`` holds (widths that are
+multiples of 128: all of Swin-B's) and as a LayerNorm of its own in front
+of it otherwise (Swin-T's and Swin-S's 96 and 192), the two branches of
+vitta_tpu/models/swin.py:428-437 — hand-written kernels; each keeps what
+its backward reads only when a gradient is wanted.  Under ``train=True`` drop-path and the head's dropout draw from
 the caller's ``torch.Generator`` on the input's device.  The qkv, proj,
 PatchMerging and head projections are ``F.linear`` and the patch embedding
 is ``nn.Conv3d``, as the JAX package leaves them to XLA.  A clamped window
@@ -53,6 +55,11 @@ projections inside the op:
   any other falls back: to ``"proj"``, or under None to what
   ``VITTA_ATTN_PROJ_FUSED`` says (``dispatch.resolve_attn_route``).
 
+A fourth value, ``"heads"``, keeps the projections outside as the packed
+route does and runs the attention per (head, window) on q, k and v as three
+views of the qkv output (``window_attention_heads``): the route vitta_tpu
+takes where its packed kernel does not fit.  No flag gives it.
+
 No route changes a parameter, a ``state_dict`` key or a tap name.
 
 Not ported, being layouts of the TPU and no change of the math: the
@@ -75,12 +82,13 @@ from vitta_tpu_torch.models.tanet import dropout
 from vitta_tpu_torch.ops._launch import contiguous_counted as _contiguous
 from vitta_tpu_torch.ops._launch import copy_counters as counters  # noqa: F401
 from vitta_tpu_torch.ops.cuda_attention import (attention_reference,
+                                                window_attention_heads,
                                                 window_attention_packed)
 from vitta_tpu_torch.ops.cuda_attention_proj import (window_attention_ln_proj,
                                                      window_attention_proj)
 from vitta_tpu_torch.ops.cuda_bias import compact_bias, expand_bias
-from vitta_tpu_torch.ops.cuda_mlp import ln_mlp
-from vitta_tpu_torch.ops.dispatch import resolve_attn_route
+from vitta_tpu_torch.ops.cuda_mlp import ln_mlp, mlp
+from vitta_tpu_torch.ops.dispatch import mlp_ln_fused, resolve_attn_route
 
 # ``counters.contiguity_copies``: copies made only to hand a kernel a
 # contiguous tensor, since ``counters.reset()``: activations in the forward
@@ -213,11 +221,11 @@ class WindowAttention3D(nn.Module):
                 ln=None):
         """x: (B_, n, C) windows; ``mask_np`` the (nW, n, n) numpy shift
         mask or None, ``mask_key`` what identifies it.  ``route`` is what
-        the block resolved for this call: ``"packed"`` or ``"proj"``
-        without ``ln``; ``"ln_proj"`` with ``ln`` = (gamma, beta, eps) of
-        the preceding LayerNorm (norm1) and ``x`` un-normalized, and the
-        call then returns (out, y) with y the LayerNorm output
-        (vitta_tpu/models/swin.py:188-254)."""
+        the block resolved for this call: ``"packed"``, ``"heads"`` or
+        ``"proj"`` without ``ln``; ``"ln_proj"`` with ``ln`` = (gamma,
+        beta, eps) of the preceding LayerNorm (norm1) and ``x``
+        un-normalized, and the call then returns (out, y) with y the
+        LayerNorm output (vitta_tpu/models/swin.py:188-254)."""
         if (route == "ln_proj") != (ln is not None):
             raise ValueError("route 'ln_proj' and ln=(gamma, beta, eps) go "
                              "together")
@@ -242,7 +250,12 @@ class WindowAttention3D(nn.Module):
                 self.proj.weight, self.proj.bias, bias, mask, self.scale, nh)
             return out if ln is None else (out, y)
         qkv = self.qkv(y)                                  # (B_, n, 3C)
-        if full:
+        if full and route == "heads":
+            # q, k, v as views of the projection output, read where they lie
+            q, k, v = qkv.reshape(b_, n, 3, nh, c // nh).unbind(2)
+            out = window_attention_heads(q, k, v, bias, mask,
+                                         self.scale).reshape(b_, n, c)
+        elif full:
             out = window_attention_packed(_contiguous(qkv), bias, mask,
                                           self.scale, nh)
         else:
@@ -262,8 +275,8 @@ class WindowAttention3D(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> exact GELU -> fc2 (swin_transformer.py:48-65); owns the
-    parameters only: the block runs them through the fused LayerNorm-MLP
-    op together with norm2."""
+    parameters only: the block runs them through the MLP op, with or
+    without norm2 inside it."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -346,14 +359,22 @@ class SwinBlock3D(nn.Module):
         return self._mlp_tail(x, taps, train, generator)
 
     def _mlp_tail(self, x, taps, train, generator):
-        """norm2 fused into the MLP op: the module still owns the
-        parameters and records both tap sides (the input here, the output
-        from the y the op returns), so tap names do not move."""
-        gamma, beta = self.norm2(x, taps, mode="params")
-        y, ln_out = ln_mlp(_contiguous(x), gamma, beta, self.mlp.fc1.weight,
-                           self.mlp.fc1.bias, self.mlp.fc2.weight,
-                           self.mlp.fc2.bias, self.norm2.eps)
-        self.norm2(ln_out, taps, mode="sow_output")
+        """norm2 and the MLP (vitta_tpu/models/swin.py:422-439).  Where
+        ``mlp_ln_fused`` holds norm2 runs inside the MLP op: the module
+        still owns the parameters and records both tap sides (the input
+        here, the output from the y the op returns), so tap names do not
+        move.  Otherwise norm2 is a LayerNorm of its own and the MLP op has
+        none."""
+        c = x.shape[-1]
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if mlp_ln_fused(c, x.numel() // c):
+            gamma, beta = self.norm2(x, taps, mode="params")
+            y, ln_out = ln_mlp(_contiguous(x), gamma, beta, fc1.weight,
+                               fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+            self.norm2(ln_out, taps, mode="sow_output")
+        else:
+            y = mlp(self.norm2(_contiguous(x), taps), fc1.weight, fc1.bias,
+                    fc2.weight, fc2.bias)
         return x + drop_path(y, self.drop_path, train, generator)
 
 

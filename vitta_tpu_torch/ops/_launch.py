@@ -44,9 +44,10 @@ def grad_wanted(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device):
-    """Raise unless ``ten`` is a contiguous float32 CUDA tensor of
-    ``shape`` on ``device``."""
+def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device,
+                 contiguous: bool = True):
+    """Raise unless ``ten`` is a float32 CUDA tensor of ``shape`` on
+    ``device``, and contiguous unless the kernel takes its strides."""
     if ten.device.type != "cuda" or ten.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
                          f"{ten.device}")
@@ -56,7 +57,7 @@ def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device):
     if tuple(ten.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(ten.shape)}, expected "
                          f"{tuple(shape)}")
-    if not ten.is_contiguous():
+    if contiguous and not ten.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -1,5 +1,5 @@
-"""Packed window attention, forward and backward: CUDA kernels, plain
-versions, autograd wrapper.
+"""Window attention, packed and per (head, window), forward and backward:
+CUDA kernels, plain versions, autograd wrappers.
 
 Per window b and head h, on the packed qkv projection output (B_, N, 3C)
 whose last axis is ordered (3, nh, hd):
@@ -18,8 +18,21 @@ bias's cotangent in the form the bias came in.  When a gradient is wanted
 the forward keeps (qkv, bias, mask, ms), ms being the softmax row maximum
 and sum (B_, N, 2nh) (pallas_attention.py:442, :638-641), and the backward
 recomputes the softmax from them; ``packed_attention_backward_reference``
-is its plain version.  The mask has no gradient.  There is no fallback: a
-CUDA tensor a kernel does not take raises.
+is its plain version.
+
+``window_attention_heads`` is the same function on separate q, k, v
+(B_, N, nh, hd) with a dense bias, the counterpart of
+``fused_window_attention`` (pallas_attention.py:214), which vitta_tpu takes
+where its packed kernel does not fit; ``attention_reference`` is its plain
+forward and ``heads_attention_backward_reference`` its plain backward.  Its
+kernels (the counterparts of pallas_attention.py:83 and :91) read q, k and
+v where they lie, through three strides each, so views of the packed
+projection output cost no copy.  It keeps (q, k, v, bias, mask) and no row
+maximum and sum (pallas_attention.py:198-200): the backward rebuilds them
+first, and returns dq, dk, dv as three tensors and a dense dbias.
+
+The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
+does not take raises.
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
 from vitta_tpu_torch.ops.cuda_bias import (collapse_bias_reference,
                                            expand_bias_reference)
 
-counters = LaunchCounters("fwd", "bwd")
+# fwd, bwd: the packed kernels; heads_fwd, heads_bwd: those per (head, window)
+counters = LaunchCounters("fwd", "bwd", "heads_fwd", "heads_bwd")
 
 
 def attention_reference(q, k, v, bias, mask, scale: float):
@@ -114,6 +128,27 @@ def packed_attention_backward_reference(qkv, bias, mask, ms, g, scale: float,
     return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3), dbias
 
 
+def heads_attention_backward_reference(q, k, v, bias, mask, g, scale: float):
+    """(dq, dk, dv, dbias) for the cotangent ``g`` (B_, N, nh, hd) of the
+    attention output, written out from (q, k, v, bias, mask) as the kernel
+    computes it (pallas_attention.py:91-124): the softmax is rebuilt from
+    the logits, nothing of the forward's is read."""
+    b_, n, nh, _ = q.shape
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + bias[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(b_ // nw, nw, nh, n, n)
+                  + mask[None, :, None]).reshape(b_, nh, n, n)
+    e = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    dl = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q) * scale
+    return dq, dk, dv, dl.sum(dim=0)
+
+
 _LIB = None
 
 
@@ -131,8 +166,18 @@ def _lib():
         lib.vitta_attn_packed_bwd.restype = i
         lib.vitta_attn_bwd_scratch_floats.argtypes = [i, i, i]
         lib.vitta_attn_bwd_scratch_floats.restype = ctypes.c_longlong
+        ll = ctypes.POINTER(ctypes.c_longlong)
+        lib.vitta_attn_heads_fwd.argtypes = [p, p, p, ll, p, p, p, i, i, i, i,
+                                             i, ctypes.c_float, p]
+        lib.vitta_attn_heads_fwd.restype = i
+        lib.vitta_attn_heads_bwd.argtypes = [p, p, p, ll] + [p] * 8 + [
+            i, i, i, i, i, ctypes.c_float, p]
+        lib.vitta_attn_heads_bwd.restype = i
+        lib.vitta_attn_heads_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_attn_heads_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_attn_max_tokens.restype = i
         lib.vitta_attn_max_head_dim.restype = i
+        lib.vitta_attn_max_row_stride.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -269,3 +314,123 @@ def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
         raise ValueError(f"no window attention for device {qkv.device}")
     return PackedWindowAttention.apply(qkv, bias, mask, float(scale), nh,
                                        save_ms, grad_wanted(qkv, bias))
+
+
+def _check_heads(q, k, v, bias, mask):
+    """Raise on anything the per-(head, window) kernels do not take; return
+    (B_, N, nh, hd, nW, the nine strides as a ctypes array).  q, k and v
+    may be strided views as long as each head's channels are contiguous."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B_, N, nh, hd), got shape "
+                         f"{tuple(q.shape)}")
+    b_, n, nh, hd = q.shape
+    dev = q.device
+    strides = []
+    for name, ten in (("q", q), ("k", k), ("v", v)):
+        check_tensor("window attention", name, ten, (b_, n, nh, hd), dev,
+                     contiguous=False)
+        if ten.stride(3) != 1 and hd > 1:
+            raise ValueError(f"{name}: the channels of a head must be "
+                             f"contiguous, got strides {ten.stride()}")
+        strides += [ten.stride(0), ten.stride(1), ten.stride(2)]
+    check_tensor("window attention", "bias", bias, (nh, n, n), dev)
+    nw = 0
+    if mask is not None:
+        nw = mask.shape[0]
+        check_tensor("window attention", "mask", mask, (nw, n, n), dev)
+        if b_ % nw != 0:
+            raise ValueError(f"{b_} windows are not a multiple of the "
+                             f"mask's {nw}")
+    lib = _lib()
+    if n > lib.vitta_attn_max_tokens() or hd > lib.vitta_attn_max_head_dim():
+        raise ValueError(
+            f"the window attention kernels take N <= "
+            f"{lib.vitta_attn_max_tokens()} and hd <= "
+            f"{lib.vitta_attn_max_head_dim()}; got N={n}, hd={hd}")
+    if max(strides[1::3]) > lib.vitta_attn_max_row_stride():
+        raise ValueError(
+            f"the window attention kernels take q, k, v whose tokens lie at "
+            f"most {lib.vitta_attn_max_row_stride()} floats apart; got "
+            f"strides {strides[1::3]}")
+    return b_, n, nh, hd, nw, (ctypes.c_longlong * 9)(*strides)
+
+
+def attn_heads_fwd_cuda(q, k, v, bias, mask, scale: float):
+    """Forward kernel per (head, window): one launch; returns out
+    (B_, N, nh, hd) and writes nothing else."""
+    b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
+    dev = q.device
+    out = torch.empty((b_, n, nh, hd), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = _lib().vitta_attn_heads_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), b_, n, nh, hd, nw, float(scale), stream)
+    raise_on(code, "window attention (heads) forward kernel")
+    counters.heads_fwd += 1
+    return out
+
+
+def attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale: float):
+    """Backward kernels per (head, window): one wrapper call, four launches
+    on the current stream, the first of which rebuilds the softmax's row
+    maximum and sum; returns (dq, dk, dv, each (B_, N, nh, hd) and
+    contiguous, dbias (nh, N, N)), allocated here with the scratch."""
+    b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
+    dev = q.device
+    check_tensor("window attention", "grad", g, (b_, n, nh, hd), dev)
+    lib = _lib()
+    dq, dk, dv = (torch.empty((b_, n, nh, hd), dtype=torch.float32,
+                              device=dev) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    scratch = torch.empty(lib.vitta_attn_heads_bwd_scratch_floats(b_, n, nh),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.vitta_attn_heads_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), scratch.data_ptr(), b_, n, nh, hd, nw,
+            float(scale), stream)
+    raise_on(code, "window attention (heads) backward kernel")
+    counters.heads_bwd += 1
+    return dq, dk, dv, dbias
+
+
+class HeadsWindowAttention(torch.autograd.Function):
+    """The kernel pair as one differentiable op (the counterpart of the
+    custom VJP at pallas_attention.py:192-211).  With ``keep`` the forward
+    keeps (q, k, v, bias, mask) and nothing it computed; without it nothing
+    is kept.  A strided cotangent is copied once, and counted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale, keep):
+        ctx.scale = scale
+        if keep:
+            ctx.save_for_backward(q, k, v, bias, mask)
+        return attn_heads_fwd_cuda(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        return attn_heads_bwd_cuda(q, k, v, bias, mask, contiguous_counted(g),
+                                   ctx.scale) + (None, None, None)
+
+
+def window_attention_heads(q, k, v, bias, mask, scale: float):
+    """Window attention on separate ``q``, ``k``, ``v`` (B_, N, nh, hd) ->
+    (B_, N, nh, hd).
+
+    bias: dense (nh, N, N); mask (nW, N, N) of 0 / -100 or None.  A CPU
+    tensor takes the plain version; a CUDA tensor takes the kernels
+    (forward, and backward under autograd), which read strided views where
+    they lie and raise on any dtype other than float32, a head whose
+    channels are not contiguous, N > 416 or hd > 32."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, bias, mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no window attention for device {q.device}")
+    return HeadsWindowAttention.apply(q, k, v, bias, mask, float(scale),
+                                      grad_wanted(q, k, v, bias))

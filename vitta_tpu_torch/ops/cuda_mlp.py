@@ -1,5 +1,6 @@
-"""Fused LayerNorm -> MLP, forward and backward: CUDA kernels, plain
-versions, autograd wrapper.
+"""The Video Swin MLP with the LayerNorm in front of it (``ln_mlp``) and
+without (``mlp``), forward and backward: CUDA kernels, plain versions,
+autograd wrappers.
 
     y = LayerNorm(x) * gamma + beta;  o = fc2(gelu(fc1(y)))   (exact GELU)
 
@@ -15,8 +16,18 @@ the forward keeps (x, y, a, s, gamma, w1, w2), a and s (M, F) being the
 GELU's value and derivative (pallas_mlp.py:317-319, :599-602); the backward
 takes the cotangents of both outputs, that of ``y`` (the tap's) entering
 the LayerNorm backward, and ``ln_mlp_backward_reference`` is its plain
-version.  There is no fallback: a CUDA tensor a kernel does not take
-raises.
+version.
+
+``mlp`` is the same op without the LayerNorm, ``o = fc2(gelu(fc1(x)))``,
+for the widths whose norm2 runs as a LayerNorm of its own
+(ops/dispatch.py:``mlp_ln_fused``): the counterpart of ``fused_mlp``
+(pallas_mlp.py:657), with ``mlp_reference`` (:272) as its plain version
+and the kernels ``vitta_mlp_fwd`` / ``vitta_mlp_bwd`` of the same source
+as the counterparts of pallas_mlp.py:138 and :154.  When a gradient is
+wanted it keeps (x, w1, w2, a, s) (pallas_mlp.py:256-258); otherwise the
+forward writes no s and keeps nothing (:249-253).
+
+There is no fallback: a CUDA tensor a kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -33,7 +44,9 @@ from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
 from vitta_tpu_torch.ops.cuda_ln import (layer_norm_backward_reference,
                                          layer_norm_reference)
 
-counters = LaunchCounters("fwd", "bwd")
+# fwd, bwd: the LayerNorm-MLP kernels; mlp_fwd, mlp_bwd: those without the
+# LayerNorm
+counters = LaunchCounters("fwd", "bwd", "mlp_fwd", "mlp_bwd")
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -68,6 +81,26 @@ def ln_mlp_backward_reference(x, y, a, s, go, gy, gamma, w1, w2,
             go.sum(dim=0))
 
 
+def mlp_reference(x, w1, b1, w2, b2, save_residuals: bool = False):
+    """fc1 -> exact GELU -> fc2 on ``x`` (..., C); with ``save_residuals``
+    (o, a, s), a and s being the GELU's value and derivative."""
+    h = F.linear(x, w1, b1)
+    a = F.gelu(h)
+    o = F.linear(a, w2, b2)
+    if not save_residuals:
+        return o
+    phi = 0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
+    return o, a, phi + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
+
+
+def mlp_backward_reference(x, a, s, g, w1, w2):
+    """(dx, dw1, db1, dw2, db2) for the cotangent ``g`` of o, written out
+    from what the forward keeps as the kernel computes it
+    (pallas_mlp.py:154-183); x, g (M, C), a, s (M, F)."""
+    dh = (g @ w2) * s
+    return dh @ w1, dh.t() @ x, dh.sum(dim=0), g.t() @ a, g.sum(dim=0)
+
+
 _LIB = None
 
 
@@ -84,11 +117,17 @@ def _lib():
         lib.vitta_lnmlp_bwd.restype = i
         lib.vitta_lnmlp_bwd_scratch_floats.argtypes = [i, i, i]
         lib.vitta_lnmlp_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_mlp_fwd.argtypes = [p] * 8 + [i, i, i, p]
+        lib.vitta_mlp_fwd.restype = i
+        lib.vitta_mlp_bwd.argtypes = [p] * 12 + [i, i, i, p]
+        lib.vitta_mlp_bwd.restype = i
+        lib.vitta_mlp_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
 
-def _check(x2, w1, named):
+def _check(x2, w1, named, what="LayerNorm-MLP"):
     """Raise on anything the kernels do not take; ``named`` lists
     (name, tensor, shape as a string of m, c, f).  Returns (M, C, F)."""
     if x2.dim() != 2:
@@ -97,10 +136,10 @@ def _check(x2, w1, named):
     f = w1.shape[0]
     dims = {"m": m, "c": c, "f": f}
     for name, ten, shape in named:
-        check_tensor("LayerNorm-MLP", name, ten,
-                     tuple(dims[d] for d in shape), x2.device)
+        check_tensor(what, name, ten, tuple(dims[d] for d in shape),
+                     x2.device)
     if c % 4 != 0 or f % 4 != 0:
-        raise ValueError(f"the LayerNorm-MLP kernels take C and F that are "
+        raise ValueError(f"the {what} kernels take C and F that are "
                          f"multiples of 4 (16-byte rows); got C={c}, F={f}")
     if m == 0:
         raise ValueError("x has no rows")
@@ -219,3 +258,98 @@ def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
                              w2, b2, float(eps), save_residuals,
                              grad_wanted(x, gamma, beta, w1, b1, w2, b2))
     return (res[0].reshape(x.shape), res[1].reshape(x.shape)) + tuple(res[2:])
+
+
+def mlp_fwd_cuda(x2, w1, b1, w2, b2, save_residuals: bool = False):
+    """Forward kernels of the MLP without the LayerNorm on ``x2`` (M, C):
+    one wrapper call, two launches on the current stream; returns o, and
+    with ``save_residuals`` (o, a, s)."""
+    m, c, f = _check(x2, w1, (("x", x2, "mc"), ("w1", w1, "fc"),
+                              ("b1", b1, "f"), ("w2", w2, "cf"),
+                              ("b2", b2, "c")), "MLP")
+    dev = x2.device
+    o = torch.empty_like(x2)
+    a = torch.empty((m, f), dtype=torch.float32, device=dev)
+    s = torch.empty_like(a) if save_residuals else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = _lib().vitta_mlp_fwd(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), a.data_ptr(),
+            None if s is None else s.data_ptr(), o.data_ptr(), m, c, f,
+            stream)
+    raise_on(code, "MLP forward kernel")
+    counters.mlp_fwd += 1
+    return (o, a, s) if save_residuals else o
+
+
+def mlp_bwd_cuda(x2, a, s, g, w1, w2):
+    """Backward kernels of the MLP without the LayerNorm: one wrapper call,
+    its launches on the current stream.  Returns (dx, dw1, db1, dw2, db2),
+    allocated here with the scratch (dh (M, F) and the partial sums)."""
+    m, c, f = _check(x2, w1, (("x", x2, "mc"), ("a", a, "mf"),
+                              ("s", s, "mf"), ("grad of o", g, "mc"),
+                              ("w1", w1, "fc"), ("w2", w2, "cf")), "MLP")
+    dev = x2.device
+    lib = _lib()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dx, dw1, db1, dw2, db2 = new(m, c), new(f, c), new(f), new(c, f), new(c)
+    scratch = new(lib.vitta_mlp_bwd_scratch_floats(m, c, f))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.vitta_mlp_bwd(
+            x2.data_ptr(), a.data_ptr(), s.data_ptr(), g.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            scratch.data_ptr(), m, c, f, stream)
+    raise_on(code, "MLP backward kernel")
+    counters.mlp_bwd += 1
+    return dx, dw1, db1, dw2, db2
+
+
+class Mlp(torch.autograd.Function):
+    """The kernels as one differentiable op (the counterpart of the custom
+    VJP at pallas_mlp.py:249-269).  With ``keep`` the forward has the
+    kernel emit a and s and keeps (x, w1, w2, a, s); without it nothing is
+    kept.  A strided cotangent is copied once, and counted."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, save_residuals, keep):
+        res = mlp_fwd_cuda(x2, w1, b1, w2, b2, save_residuals or keep)
+        if keep:
+            ctx.save_for_backward(x2, w1, w2, *res[1:])          # a, s
+        if not save_residuals:
+            return res[0] if keep else res
+        ctx.mark_non_differentiable(res[1], res[2])
+        return res
+
+    @staticmethod
+    def backward(ctx, g, *_residual_grads):
+        x2, w1, w2, a, s = ctx.saved_tensors
+        return mlp_bwd_cuda(x2, a, s, contiguous_counted(g), w1, w2) \
+            + (None, None)
+
+
+def mlp(x, w1, b1, w2, b2, save_residuals: bool = False):
+    """(fc1 -> exact GELU -> fc2)(x) over the last axis of ``x`` (..., C),
+    in x's shape; with ``save_residuals`` also a and s as (M, F).
+
+    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
+    (forward, and backward under autograd), which raise on any dtype other
+    than float32, a non-contiguous input, or a C or F that is not a
+    multiple of 4."""
+    if x.device.type == "cpu":
+        res = mlp_reference(x, w1, b1, w2, b2, save_residuals)
+        if save_residuals:
+            f = w1.shape[0]
+            return res[0], res[1].reshape(-1, f), res[2].reshape(-1, f)
+        return res
+    if x.device.type != "cuda":
+        raise ValueError(f"no MLP implementation for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    res = Mlp.apply(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2,
+                    save_residuals, grad_wanted(x, w1, b1, w2, b2))
+    if not save_residuals:
+        return res.reshape(x.shape)
+    return (res[0].reshape(x.shape),) + tuple(res[1:])

@@ -1,14 +1,15 @@
-"""Time Video Swin-B's adapt step under its three attention routes in one
+"""Time Video Swin's adapt step under its four attention routes in one
 process, on the card.
 
-    python3 -m vitta_tpu_torch.tools.attention_routes [videos per stream]
+    python3 -m vitta_tpu_torch.tools.attention_routes [swin_b|swin_t] [videos per stream]
 
-Builds Swin-B (``swin_ucf101_preset``, float32, drop-path 0.2 and head
+Builds the model (``swin_ucf101_preset``, which is Swin-B, or Swin-T's
+width, depths and heads in its place; float32, drop-path 0.2 and head
 dropout 0.5 on) once per route from one seeded state dict and one set of
 source statistics, then runs ``tta_stream`` over the same seeded synthetic
 uint8 videos (2 views and 1 eval clip of 16x224x224 each) in the order
-packed, proj, ln_proj, ln_proj, proj, packed, so that a drift of the host
-over the call falls on every route alike.  Prints, per stream, the median,
+packed, proj, ln_proj, heads, heads, ln_proj, proj, packed, so that a drift
+of the host over the call falls on every route alike.  Prints, per stream, the median,
 least and largest ms/video after two warm-up videos (host clock,
 synchronised on each video's metrics, host-to-device copy included) and
 the peak memory, then per route both streams' videos together and one
@@ -29,12 +30,14 @@ from vitta_tpu_torch.adapt.engine import VittaEngine
 from vitta_tpu_torch.adapt.loops import tta_stream
 from vitta_tpu_torch.adapt.precompute import compute_source_statistics
 from vitta_tpu_torch.models import get_model
-from vitta_tpu_torch.tools.synthetic import (StepTimes, device_breakdown,
+from vitta_tpu_torch.tools.synthetic import (SWIN_MODELS, StepTimes,
+                                             device_breakdown,
                                              normalized_batches, swin_cfg,
                                              swin_weights)
 from vitta_tpu_torch.tools.synthetic import videos as synthetic_videos
 
-ORDER = ("packed", "proj", "ln_proj", "ln_proj", "proj", "packed")
+ORDER = ("packed", "proj", "ln_proj", "heads", "heads", "ln_proj", "proj",
+         "packed")
 WARMUP = 2
 SEED = 0
 
@@ -56,15 +59,17 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("attention_routes: no CUDA device", file=sys.stderr)
         return 1
-    n_videos = int(argv[1]) if len(argv) > 1 else 10
+    args = argv[1:]
+    name = args.pop(0) if args and args[0] in SWIN_MODELS else "swin_b"
+    n_videos = int(args[0]) if args else 10
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"device: {card}", flush=True)
+    print(f"device: {card}; model {name}", flush=True)
 
-    cfg = swin_cfg()
+    cfg = swin_cfg(**SWIN_MODELS[name])
     t, hw = cfg.data.clip_length, cfg.data.input_size
     sd = swin_weights(cfg, SEED)
     model = get_model(cfg, attn_route="packed")
@@ -106,7 +111,7 @@ def main(argv) -> int:
               f"{max(ms):.3f}, {len(ms)} videos), device busy "
               + ("not measured" if not busy else
                  f"{statistics.mean(busy):.3f} ms")
-              + f", host of the profiled steps "
+              + f", {name}, host of the profiled steps "
               f"{', '.join(f'{h:.3f}' for _w, h, _b, _p in runs)} ms, peak "
               f"memory {max(p for *_x, p in runs):.3f} GiB; on {card}",
               flush=True)

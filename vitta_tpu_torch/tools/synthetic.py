@@ -12,6 +12,17 @@ import numpy as np
 import torch
 
 
+# Video Swin models by name, as fields of the model config that differ from
+# ``swin_ucf101_preset`` (Swin-B).  Swin-T: SwinTransformer/
+# Video-Swin-Transformer, configs/recognition/swin/
+# swin_tiny_patch244_window877_kinetics400_1k.py
+SWIN_MODELS = {
+    "swin_b": {},
+    "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2),
+                   num_heads=(3, 6, 12, 24)),
+}
+
+
 def swin_cfg(t=16, hw=224, **model_kw):
     """``swin_ucf101_preset`` at ``t`` frames of ``hw`` x ``hw``, with
     ``model_kw`` replacing fields of its model config."""
