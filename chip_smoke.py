@@ -1,9 +1,10 @@
 """Smoke run of vitta_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, checks each against its plain PyTorch version, and
-drives the TANet float32 ViTTA stream, the Video Swin-B float32 forward
-paths and the Video Swin-B float32 ViTTA stream end to end, the last under
-each of its four attention routes, and Video Swin-T's forward paths and
-stream under two of them.
+drives the TANet float32 ViTTA stream under each of its three
+regularization modes and as the epoch-style loop, the Video Swin-B float32
+forward paths and the Video Swin-B float32 ViTTA stream end to end, the
+last under each of its four attention routes, and Video Swin-T's forward
+paths and stream under two of them.
 
     python3 chip_smoke.py
 
@@ -30,12 +31,17 @@ result line:
    ``scaled_dot_product_attention``'s backward, which gives dq, dk and dv
    and no bias gradient.
 5. TANet slice at small size: full-width TANet at T=2, 32x32, two
-   tta_online steps on the card and on the CPU from one seeded state dict.
+   tta_online steps on the card and on the CPU from one seeded state dict:
+   losses, logits, updated parameters, EMA.
 6. TANet slice at full size: 101 classes, 2 views x 16 frames x 224x224,
    the reference operating point (tanet_ucf101_preset), through
    ``tta_stream`` over seeded synthetic uint8 videos; the TAM launch
    counters must show 16 forward launches per forward pass and 16
-   backward launches per step.
+   backward launches per step, the BatchNorm-statistics counters one
+   forward and one backward launch per step at each of the 29 chosen
+   BatchNorm layers (layer3 and layer4, from ``select_tap_names``) and none
+   in the eval forward.  Then one profiled step: host time, device busy,
+   idle share, and the busy time by class of kernel.
 7. Swin slice at small size: the tiny config of tests/test_swin_parity.py
    (shifted windows, clamped windows, PatchMerging padding): source
    statistics and eval logits on the card against the CPU.
@@ -109,7 +115,30 @@ result line:
    launches, and no contiguity copy.  Then Swin-B's ``tta_stream`` over 3
    videos under ``"heads"``.
 
-Phases run in the order 1-4, 12, 15, 5-11, 13, 14, 16, 17.  To leave the time to
+18. BatchNorm-statistics kernels against plain (``fused_bn_relu_stats``:
+   BatchNorm in its inference form, optional ReLU, channel mean and
+   variance of the output): forward and backward with cotangents on all
+   three outputs, ``relu`` False and True, at every BatchNorm2d shape a
+   TANet mean_var step reads (R from 1,568 to 25,088, C from 256 to 2,048)
+   and the two BatchNorm1d shapes of a TAM; y, m, v, dx, dscale, dbias, two
+   runs bit-equal; CUDA-event and device times of kernel and plain version
+   summed over one adapt pass.  No one PyTorch call returns y and the
+   statistics, so the library time is none; the composition
+   ``F.batch_norm`` (eval form) + ``torch.var_mean`` is timed beside it.
+19. Small slices of the engine's other modes, card against CPU, two steps
+   each as phase 5: TANet under BNS (``running_manner`` True and False),
+   under cossim (``l1_loss``), with Adam on the norm layers' affine
+   parameters, and through ``tta_epoch_adapt``; the tiny Swin of phase 10
+   under cossim.
+20. TANet at full size in those modes: a 3-video ``tta_stream`` under BNS
+   and one under cossim (one warm-up each; the BatchNorm-statistics
+   kernels must not run: neither reads the output's spatiotemp leaf), and
+   ``tta_epoch_adapt`` over 3 videos with its ``validate`` pass (29 forward
+   and 29 backward launches per step).  Ends with one line per mode:
+   ms/video, host time, device busy, idle share, peak memory.
+
+Phases run in the order 1-4, 12, 15, 18, 5, 6, 19, 20, 7-11, 13, 14, 16, 17.  No
+earlier full-size stream was cut for phases 18 to 20.  To leave the time to
 phases 10 and 11, phase 9 runs 3 statistics batches and 4 eval videos
 where it ran 4 and 5, and the TANet slice 5 videos where it ran 6; to
 leave it to phases 12 to 14, phases 3 and 4 time each call over 6 and 7
@@ -149,6 +178,9 @@ from vitta_tpu_torch.tools.synthetic import (
     SWIN_MODELS, StepTimes as _StepTimes, device_breakdown,
     normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
     swin_weights as _swin_weights, videos as _videos)
+from vitta_tpu_torch.tools.tanet_breakdown import (
+    profile_step as _profile_step, tanet_cfg as _cfg,
+    tanet_engine as _tanet_engine, tanet_source as _tanet_source)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -159,6 +191,17 @@ TAM_SITES = {(56, 56, 64): 3, (56, 56, 128): 1, (28, 28, 128): 3,
 FWD_TOL = 1e-5    # tests/test_pallas_tam.py's tolerances
 GRAD_TOL = 2e-4
 N_VIDEOS = 5      # full-slice videos; the first two are warm-up
+TANET_MODE_VIDEOS = 3   # the BNS, cossim and epoch-style streams; one warm-up
+# every BatchNorm2d of layer3 and layer4 on the adapt batch of 2 x 16 frames
+# at 224 x 224, the layers a TANet mean_var step reads: (rows, C) -> sites
+BN_SITES = {(25088, 256): 1, (6272, 256): 11, (6272, 1024): 7,
+            (6272, 512): 1, (1568, 512): 5, (1568, 2048): 4}
+# the two BatchNorm1d shapes of a TAM (layer3's: g_bn (N*C, 2T), l_bn (N, T,
+# C/4)), values only
+BN1D_SHAPES = (((512, 32), "g_bn"), ((2, 16, 64), "l_bn"))
+BN_TOL = 1e-5       # y and m; v rtol 1e-4 / atol 1e-5 (tests/test_pallas_
+                    # stats.py's): E[y^2] - m^2 from sums in another order
+BN_BWD_TOL = 2e-5   # of each gradient's largest value, as LN_BWD_TOL's kind
 SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
@@ -289,9 +332,12 @@ def bound(nbytes: float, flops: float):
 
 
 def measure(fn, reps: int = 7, dev_reps: int = 4, grad: bool = False):
-    """(CUDA-event ms, device ms or None) of one call of ``fn``."""
+    """(CUDA-event ms, device ms or None) of one call of ``fn``; the
+    profiler is asked once more where it recorded no kernel."""
     with torch.set_grad_enabled(grad):
-        return cuda_ms(fn, reps=reps), device_ms(fn, reps=dev_reps)
+        event = cuda_ms(fn, reps=reps)
+        device = device_ms(fn, reps=dev_reps)
+        return event, device_ms(fn, reps=dev_reps) if device is None else device
 
 
 def fmt(v) -> str:
@@ -1301,112 +1347,267 @@ def phase_unfused_kernels(dev):
     return rows
 
 
-def _cfg(clip_length, num_classes, **model_kw):
-    from vitta_tpu_torch.config import tanet_ucf101_preset
-    cfg = tanet_ucf101_preset()
-    return cfg.replace(
-        data=dataclasses.replace(cfg.data, clip_length=clip_length),
-        model=dataclasses.replace(cfg.model, num_classes=num_classes,
-                                  **model_kw))
+def phase_bn_stats_kernels(dev):
+    """The BatchNorm-statistics kernels against plain on the card, forward
+    and backward with cotangents on y, m and v, ``relu`` False and True, at
+    every BatchNorm2d shape a TANet mean_var step reads and the two
+    BatchNorm1d shapes of a TAM; returns the two JSON rows, their times
+    summed over one adapt pass (``relu=False``, the form ``BatchNorm``
+    calls).  No one PyTorch call returns y and the statistics: the
+    composition ``F.batch_norm`` (eval form) + ``torch.var_mean`` and its
+    backward under autograd are timed beside the kernels."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_stats
+    from vitta_tpu_torch.ops.cuda_stats import (
+        bn_stats_bwd_cuda, bn_stats_fwd_cuda, fused_bn_relu_stats,
+        fused_bn_relu_stats_reference)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+
+    def value_and_grads(fn, relu, x, scale, bias, mean, var, cots):
+        ins = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y, (m, v) = fn(*ins, mean, var, relu=relu)
+        torch.autograd.backward((y, m, v), cots)
+        return [y.detach(), m.detach(), v.detach()] + [t.grad for t in ins]
+
+    fwd, bwd = Totals(), Totals()
+    comp = dict.fromkeys(("fwd", "bwd", "fwd_device", "bwd_device"), 0.0)
+    shapes = [((r, c), n, f"{r}x{c}") for (r, c), n in BN_SITES.items()]
+    shapes += [(shape, 0, name) for shape, name in BN1D_SHAPES]
+    for shape, sites, label in shapes:
+        c = shape[-1]
+        x = rand(*shape) * 2.0 + 0.5
+        scale, bias = torch.rand(c, device=dev, generator=gen) + 0.5, rand(c)
+        mean = rand(c) * 0.1
+        var = torch.rand(c, device=dev, generator=gen) + 0.5
+        cots = (rand(*shape), rand(c), rand(c))
+        for relu in (False, True):
+            cuda_stats.counters.reset()
+            got = value_and_grads(fused_bn_relu_stats, relu, x, scale, bias,
+                                  mean, var, cots)
+            again = value_and_grads(fused_bn_relu_stats, relu, x, scale, bias,
+                                    mean, var, cots)
+            if (cuda_stats.counters.fwd, cuda_stats.counters.bwd) != (2, 2):
+                raise AssertionError("bn_stats: a call did not launch")
+            want = value_and_grads(fused_bn_relu_stats_reference, relu, x,
+                                   scale, bias, mean, var, cots)
+            torch.cuda.synchronize()
+            what = f"bn_stats {label} relu={relu}"
+            e_f = max(check_close(f"{what} y", got[0], want[0], BN_TOL),
+                      check_close(f"{what} m", got[1], want[1], BN_TOL, 1e-6),
+                      check_close(f"{what} v", got[2], want[2], 1e-4, 1e-5))
+            e_b = max(check_scaled(f"{what} {n}", g, w, BN_BWD_TOL)
+                      for n, g, w in zip(("dx", "dscale", "dbias"), got[3:],
+                                         want[3:]))
+            for n, a, b in zip(("y", "m", "v", "dx", "dscale", "dbias"), got,
+                               again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what}: two runs differ in {n}")
+            fwd.err, bwd.err = max(fwd.err, e_f), max(bwd.err, e_b)
+            if sites == 0 or relu:
+                print(f"{what}: max abs err fwd {e_f:.2e} bwd {e_b:.2e}, two "
+                      "runs bit-equal", flush=True)
+        if sites == 0:
+            continue
+        x2 = x.reshape(-1, c)
+        m = bn_stats_fwd_cuda(x2, scale, bias, mean, var, 1e-5, False)[1]
+        ref_in = [t.clone().requires_grad_() for t in (x2, scale, bias)]
+        ref_y, (ref_m, ref_v) = fused_bn_relu_stats_reference(
+            *ref_in, mean, var, relu=False)
+
+        def composition(xi, wi, bi):
+            y = F.batch_norm(xi, mean, var, wi, bi, False, 0.0, 1e-5)
+            v, mm = torch.var_mean(y, dim=0, unbiased=False)
+            return y, mm, v
+
+        comp_out = composition(*ref_in)
+        with torch.no_grad():
+            check_close(f"bn_stats {label} composition", comp_out[0], ref_y,
+                        1e-4)
+        calls = {
+            "fwd": (lambda: bn_stats_fwd_cuda(x2, scale, bias, mean, var,
+                                              1e-5, False), False),
+            "bwd": (lambda: bn_stats_bwd_cuda(x2, scale, bias, mean, var, m,
+                                              *cots, 1e-5, False), False),
+            "plain_fwd": (lambda: fused_bn_relu_stats_reference(
+                x2, scale, bias, mean, var, relu=False), False),
+            "plain_bwd": (lambda: torch.autograd.grad(
+                (ref_y, ref_m, ref_v), ref_in, cots, retain_graph=True), True),
+            "comp_fwd": (lambda: composition(x2, scale, bias), False),
+            "comp_bwd": (lambda: torch.autograd.grad(
+                comp_out, ref_in, cots, retain_graph=True), True)}
+        t = {k: measure(fn, reps=6, dev_reps=4, grad=grad)
+             for k, (fn, grad) in calls.items()}
+        _report(f"bn_stats {label} ({sites} sites)", max(e_f, e_b), t)
+        n = x.numel()
+        fwd.add(sites, ms=t["fwd"][0], plain_ms=t["plain_fwd"][0],
+                device_ms=t["fwd"][1], plain_device_ms=t["plain_fwd"][1],
+                bytes=(2 * n + 6 * c) * 4, flops=6 * n)
+        bwd.add(sites, ms=t["bwd"][0], plain_ms=t["plain_bwd"][0],
+                device_ms=t["bwd"][1], plain_device_ms=t["plain_bwd"][1],
+                bytes=(3 * n + 10 * c) * 4, flops=12 * n)
+        for d in ("fwd", "bwd"):
+            comp[d] += sites * t[f"comp_{d}"][0]
+            dv = t[f"comp_{d}"][1]
+            comp[f"{d}_device"] = (None if dv is None
+                                   or comp[f"{d}_device"] is None
+                                   else comp[f"{d}_device"] + sites * dv)
+        del x, x2, cots, ref_in, ref_y, comp_out, got, again, want
+    rows = []
+    for d, tot in (("fwd", fwd), ("bwd", bwd)):
+        # the TPU function has no backward: both rows stand for its one site
+        row = tot.row(f"bn_stats_{d}", "vitta_tpu_torch/csrc/bn_stats.cu",
+                      "vitta_tpu/ops/pallas_stats.py:68", has_library=False)
+        row["composition_ms"] = comp[d]
+        row["composition_device_ms"] = comp[f"{d}_device"]
+        rows.append(row)
+        print(f"bn_stats_{d} per TANet adapt pass (29 sites, relu=False): "
+              f"device ms kernel {fmt(row['device_ms'])} plain "
+              f"{fmt(row['plain_device_ms'])} composition (F.batch_norm + "
+              f"torch.var_mean{', autograd' if d == 'bwd' else ''}) "
+              f"{fmt(row['composition_device_ms'])}; event ms {row['ms']:.4f} "
+              f"/ {row['plain_ms']:.4f} / {row['composition_ms']:.4f}; library"
+              f" call: none (no one PyTorch call returns y and the "
+              f"statistics); bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}", flush=True)
+    return rows
 
 
-def _source_stats(model, clip):
-    from vitta_tpu_torch.models.layers import Taps, flatten_taps
-    taps = Taps({"stat"})
-    with torch.no_grad():
-        model(clip, taps)
-    return {k: (s.mean.cpu().numpy(), s.var.cpu().numpy())
-            for k, s in flatten_taps(taps).items()
-            if "g_bn" not in k and "l_bn" not in k}
+def _assert_updates_agree(what, sd, p_gpu, p_cpu, rel):
+    """Each parameter's update from ``sd`` on the card against the CPU's, to
+    ``rel`` of its norm; returns the worst ratio and how many moved."""
+    worst, moved = 0.0, 0
+    for k, p in p_cpu.items():
+        dg, dc = p_gpu[k] - sd[k], p - sd[k]
+        diff, norm = float((dg - dc).norm()), float(dc.norm())
+        if diff > rel * norm + 1e-8:
+            raise AssertionError(f"{what}: update of {k}: card and cpu differ "
+                                 f"by {diff / (norm + 1e-12):.3e} of its norm")
+        worst = max(worst, diff / (norm + 1e-12))
+        moved += norm > 0
+    return worst, moved
 
 
-def phase_small_slice(seed):
-    """Two tta_online steps at T=2, 32x32 on the card and on the CPU.
+def phase_small_slice(seed, what="small slice", tta=None, optim=None,
+                      epoch=False, rel=2e-2):
+    """Two tta_online steps at T=2, 32x32 on the card and on the CPU, under
+    the ``tta`` and ``optim`` overrides; with ``epoch`` the epoch-style
+    loop (two adapt-only steps, then one evaluation pass) instead.
 
-    Tolerances: losses rtol 1e-3 / atol 1e-5 and eval logits rtol 2e-3 /
-    atol 2e-4 (cuDNN and oneDNN float32 convs sum in different orders;
-    tests/test_tanet_parity.py's bound); lr is raised to 1e-2 so that the
-    weight updates stand far above float32 rounding, and each tensor's
-    update agrees to 2% of its norm."""
+    Tolerances: losses and the EMA rtol 1e-3 / atol 1e-5 and eval logits
+    rtol 2e-3 / atol 2e-4 (cuDNN and oneDNN float32 convs sum in different
+    orders; tests/test_tanet_parity.py's bound); lr is raised to 1e-2 so
+    that the weight updates stand far above float32 rounding, and each
+    tensor's update agrees to ``rel`` (2%) of its norm.  Under Adam an
+    element whose gradient is rounding noise moves by lr in either
+    direction, so that slice runs at lr 1e-3 and 10%."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import tta_epoch_adapt
     from vitta_tpu_torch.models import get_model
-    cfg = _cfg(2, 101, dropout=0.0)
-    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-2))
+    from vitta_tpu_torch.ops import cuda_stats
+    cfg = _cfg(2, 101, tta=tta, optim={"lr": 1e-2, **(optim or {})},
+               dropout=0.0)
     torch.manual_seed(seed)
     model = get_model(cfg)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(seed)
-    src = _source_stats(model, torch.from_numpy(
-        rng.normal(size=(2, 2, 32, 32, 3)).astype(np.float32)))
+    src = _tanet_source(model, torch.from_numpy(
+        rng.normal(size=(2, 2, 32, 32, 3)).astype(np.float32)),
+        cfg.tta.stat_reg)
     videos = _videos(rng, 2, 2, 32)
+    cuda_stats.counters.reset()
     runs = {}
     for dev in ("cuda", "cpu"):
         eng = VittaEngine(get_model(cfg), cfg, sd, src, device=dev)
-        state = eng.init_state()
         metrics = []
-        for views, clip, label in videos:
-            state, m = eng.adapt_eval_step(state, views, clip, label)
-            metrics.append({f: float(getattr(m, f))
-                            for f in ("loss_reg", "loss_consis", "loss_ce")})
+        if epoch:
+            top1, state = tta_epoch_adapt(
+                eng, videos, [(c, l) for _v, c, l in videos], seed=seed)
+            metrics.append({"top1": top1})
+        else:
+            state = eng.init_state()
+            for views, clip, label in videos:
+                state, m = eng.adapt_eval_step(state, views, clip, label)
+                metrics.append({f: float(getattr(m, f)) for f in
+                                ("loss_reg", "loss_consis", "loss_ce")})
+        if state.step != len(videos):
+            raise AssertionError(f"{what}: {state.step} steps")
         logits = eng.eval_logits(videos[-1][1]).cpu()
         params = {k: p.detach().cpu() for k, p in eng.model.named_parameters()}
-        runs[dev] = (metrics, logits, params)
-    (m_gpu, l_gpu, p_gpu), (m_cpu, l_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+        runs[dev] = (metrics, logits, params,
+                     {k: (v.mean.cpu(), v.var.cpu())
+                      for k, v in state.ema.items()})
+    bn_launches = (cuda_stats.counters.fwd, cuda_stats.counters.bwd)
+    (m_gpu, l_gpu, p_gpu, e_gpu), (m_cpu, l_cpu, p_cpu, e_cpu) = (
+        runs["cuda"], runs["cpu"])
     for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
         for f in a:
             if not abs(a[f] - b[f]) <= 1e-5 + 1e-3 * abs(b[f]):
-                raise AssertionError(f"step {i} {f}: card {a[f]} cpu {b[f]}")
-    logit_err = check_close("eval logits", l_gpu, l_cpu, 2e-3, 2e-4)
-    worst = 0.0
-    for k, init in sd.items():
-        if k not in p_cpu:
-            continue
-        dg, dc = p_gpu[k] - init, p_cpu[k] - init
-        rel = float((dg - dc).norm() / (dc.norm() + 1e-12))
-        if float((dg - dc).norm()) > 2e-2 * float(dc.norm()) + 1e-8:
-            raise AssertionError(f"update of {k}: card and cpu differ by "
-                                 f"{rel:.3e} of its norm")
-        worst = max(worst, rel)
-    print(f"small slice card vs cpu: losses {m_gpu} vs {m_cpu}; eval logits "
-          f"max abs err {logit_err:.2e}; worst update "
-          f"difference {worst:.2e} of its norm", flush=True)
+                raise AssertionError(f"{what}: step {i} {f}: card {a[f]} cpu "
+                                     f"{b[f]}")
+    logit_err = check_close(f"{what} eval logits", l_gpu, l_cpu, 2e-3, 2e-4)
+    if not e_cpu:
+        raise AssertionError(f"{what}: no layer was chosen")
+    ema_err = max(check_close(f"{what} ema {k}", g, c, 1e-3, 1e-5)
+                  for k in e_cpu for g, c in zip(e_gpu[k], e_cpu[k]))
+    worst, moved = _assert_updates_agree(what, sd, p_gpu, p_cpu, rel)
+    if moved == 0:
+        raise AssertionError(f"{what}: no parameter moved")
+    print(f"{what} card vs cpu: {m_gpu} vs {m_cpu}; eval logits max abs err "
+          f"{logit_err:.2e}; EMA of {len(e_cpu)} layers max abs err "
+          f"{ema_err:.2e}; {moved} parameters moved, worst update difference "
+          f"{worst:.2e} of its norm; bn_stats launches fwd/bwd {bn_launches}",
+          flush=True)
+    return bn_launches
 
 
-def phase_full_slice(seed, n_videos, card):
-    """tta_stream over seeded videos at the reference operating point;
-    returns the TAM launch counts of the run."""
-    from vitta_tpu_torch.adapt.engine import VittaEngine
-    from vitta_tpu_torch.adapt.loops import tta_stream
-    from vitta_tpu_torch.models import get_model
-    from vitta_tpu_torch.ops import cuda_tam
-    cfg = _cfg(16, 101)
-    dev = torch.device("cuda")
-    torch.manual_seed(seed)
-    model = get_model(cfg)
-    sd = {k: v.clone() for k, v in model.state_dict().items()}
-    rng = np.random.default_rng(seed)
-    clean = torch.from_numpy(rng.normal(size=(2, 16, 224, 224, 3))
-                             .astype(np.float32)).to(dev)
-    src = _source_stats(model.to(dev), clean)
-    del clean, model
-    engine = VittaEngine(get_model(cfg), cfg, sd, src, device=dev)
+def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
+                     warmup=2, epoch=False):
+    """TANet at the reference operating point over seeded videos, under the
+    ``tta`` overrides: ``tta_stream``, or with ``epoch`` ``tta_epoch_adapt``
+    (adapt-only steps, then one ``validate`` pass).  Returns the launch
+    counts of the run and a summary of its times."""
+    from vitta_tpu_torch.adapt.loops import tta_epoch_adapt, tta_stream
+    from vitta_tpu_torch.ops import cuda_stats, cuda_tam
+    cfg = _cfg(16, 101, tta=tta)
+    engine, rng = _tanet_engine(cfg, seed)
     videos = _videos(rng, n_videos, 16, 224)
+    chosen = len(engine.tap_names)
     writer = _StepTimes()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_tam.counters.reset()
-    top1, state, meters = tta_stream(engine, videos, seed=seed,
-                                     metrics_writer=writer)
+    cuda_stats.counters.reset()
+    t0 = time.perf_counter()
+    if epoch:
+        top1, state = tta_epoch_adapt(
+            engine, videos, [(c, l) for _v, c, l in videos], seed=seed)
+        meters = None
+    else:
+        top1, state, meters = tta_stream(engine, videos, seed=seed,
+                                         metrics_writer=writer)
+        top1 = top1[0]
     torch.cuda.synchronize()
-    counts = (cuda_tam.counters.fwd, cuda_tam.counters.bwd,
-              cuda_tam.counters.grad_copies)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {"tam_fwd": cuda_tam.counters.fwd,
+              "tam_bwd": cuda_tam.counters.bwd,
+              "bn_stats_fwd": cuda_stats.counters.fwd,
+              "bn_stats_bwd": cuda_stats.counters.bwd}
+    grad_copies = cuda_tam.counters.grad_copies
     peak = torch.cuda.max_memory_allocated()
 
-    for k in ("loss_reg", "loss_consis", "loss_ce"):
-        if not np.isfinite(meters[k].avg):
-            raise AssertionError(f"{k} is not finite: {meters[k].avg}")
+    if meters is not None:
+        for k in ("loss_reg", "loss_consis", "loss_ce"):
+            if not np.isfinite(meters[k].avg):
+                raise AssertionError(f"{what}: {k} is not finite: "
+                                     f"{meters[k].avg}")
+        if not meters["loss_reg"].avg > 0:
+            raise AssertionError(f"{what}: the regularization loss is 0")
     if state.step != n_videos:
         raise AssertionError(f"{state.step} steps for {n_videos} videos")
+    for k, p in engine.model.named_parameters():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{what}: {k} is not finite")
     moved = sum(not torch.equal(p.detach(), engine.init_params[k])
                 for k, p in engine.model.named_parameters())
     if moved == 0:
@@ -1415,20 +1616,55 @@ def phase_full_slice(seed, n_videos, card):
                    for s in state.ema.values())
     if not (np.isfinite(ema_norm) and ema_norm > 0):
         raise AssertionError(f"EMA did not move (sum |ema| = {ema_norm})")
-    want = (32 * n_videos, 16 * n_videos)
-    if counts[:2] != want:
-        raise AssertionError(f"TAM launches fwd/bwd {counts[:2]}, expected "
-                             f"{want} (16+16 forward and 16 backward per step)")
-    warm = writer.ms[2:]
-    print(f"full slice: {n_videos} videos, median {statistics.median(warm):.3f}"
-          f" ms/video after {len(writer.ms) - len(warm)} warm-up (host clock, "
-          f"synchronised on the metrics; includes the uint8 host-to-device "
-          f"copy), peak memory {peak / 2**30:.3f} GiB, {moved} parameter "
-          f"tensors moved, losses reg {meters['loss_reg'].avg:.5f} consis "
-          f"{meters['loss_consis'].avg:.5f} ce {meters['loss_ce'].avg:.5f}, "
-          f"top1 {top1[0]:.1f}; TAM launches fwd {counts[0]} bwd {counts[1]}, "
-          f"gradient contiguity copies {counts[2]}; on {card}", flush=True)
-    return {"fwd": counts[0], "bwd": counts[1]}
+    # per video: the adapt forward (16 TAM sites) and the eval forward (16),
+    # one backward.  The BatchNorm-statistics kernel runs where a step reads
+    # a BatchNorm's output-side spatiotemp leaf: at every chosen layer of a
+    # mean_var step, forward and backward, never in the untapped eval
+    # forward, and not under BNS (input side) or cossim (another leaf).
+    reads_stat = cfg.tta.stat_reg == "mean_var" and not cfg.tta.before_norm
+    bn = chosen * n_videos if reads_stat else 0
+    want = {"tam_fwd": 32 * n_videos, "tam_bwd": 16 * n_videos,
+            "bn_stats_fwd": bn, "bn_stats_bwd": bn}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"({chosen} chosen layers)")
+    ms = writer.ms[warmup:] if writer.ms else [wall_ms / n_videos]
+    summary = {"mode": what, "videos": len(ms), "chosen": chosen,
+               "median_ms": statistics.median(ms), "min_ms": min(ms),
+               "max_ms": max(ms), "peak_gib": peak / 2**30}
+    losses = ("" if meters is None else
+              f"losses reg {meters['loss_reg'].avg:.5f} consis "
+              f"{meters['loss_consis'].avg:.5f} ce "
+              f"{meters['loss_ce'].avg:.5f}, ")
+    print(f"full slice ({what}): {n_videos} videos, {chosen} chosen layers, "
+          + (f"{wall_ms / n_videos:.3f} ms/video over the adapt-only steps "
+             f"and the evaluation pass (no warm-up apart)" if epoch else
+             f"median {summary['median_ms']:.3f} ms/video after {warmup} "
+             f"warm-up")
+          + f" (host clock, synchronised on the metrics; includes the uint8 "
+          f"host-to-device copy), peak memory {peak / 2**30:.3f} GiB, {moved} "
+          f"parameter tensors moved, {losses}top1 {top1:.1f}; launches "
+          f"{counts}, gradient contiguity copies {grad_copies}; on {card}",
+          flush=True)
+
+    # where the time goes: one adapt+eval step with its inputs on the card
+    host_ms, busy, classes, largest = _profile_step(engine, videos[-1], state)
+    if busy == 0:
+        print(f"TANet adapt step ({what}): device time not measured",
+              flush=True)
+    else:
+        summary.update(host_ms=host_ms, device_busy_ms=busy,
+                       idle_share=max(0.0, 1 - busy / host_ms),
+                       classes=classes)
+        print(f"TANet adapt step ({what}), profiled: host {host_ms:.3f} ms, "
+              f"device busy {busy:.3f} ms, idle share "
+              f"{summary['idle_share']:.2f}; by class, ms (launches): "
+              + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
+                          for k, v in classes.items())
+              + "; largest kernels: "
+              + "; ".join(f"{k[:50]} {t:.3f} ms x{n}" for k, t, n in largest[:6]),
+              flush=True)
+    return counts, summary
 
 
 # ---------------------------------------------------------------------------
@@ -1700,28 +1936,43 @@ def _swin_direct(cfg, sd, attn_route=None, **kw):
 
 
 def phase_swin_adapt_small(cfg, seed, t, hw, attn_route=None,
-                           what="swin adapt small slice"):
+                           what="swin adapt small slice", cossim=False):
     """Two tta_online steps of a small Swin on the card and on the CPU,
-    drop-path and head dropout 0.
+    drop-path and head dropout 0; with ``cossim`` under
+    ``stat_reg="cossim"``, the relation-map targets from
+    ``compute_cossim_statistics`` of one clean batch.
 
     Tolerances as in ``phase_small_slice``: losses rtol 1e-3 / atol 1e-5,
     eval logits rtol 2e-3 / atol 2e-4, the EMA rtol 1e-3 / atol 1e-5; lr is
     raised to 1e-3 so that the updates stand far above float32 rounding,
     and each parameter's update agrees to 2% of its norm."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
-    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    from vitta_tpu_torch.adapt.precompute import (compute_cossim_statistics,
+                                                  compute_source_statistics)
     cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3))
+    kw = {}
+    if cossim:
+        cfg = cfg.replace(tta=dataclasses.replace(
+            cfg.tta, stat_reg="cossim", stat_type=("temp",)))
+        kw = dict(stat_types=cfg.tta.tap_stat_types())
     sd = _swin_weights(cfg, seed)
     rng = np.random.default_rng(seed)
-    src = compute_source_statistics(
-        _swin_model(cfg, sd), _normalized_batches(rng, cfg, (2,), t, hw),
-        device="cpu")
+    batches = _normalized_batches(rng, cfg, (2,), t, hw)
+    if cossim:
+        # every norm layer relates its t / 2 token planes in time
+        src = compute_cossim_statistics(
+            _swin_model(cfg, sd), batches, clip_len=t, device="cpu",
+            tap_filter=lambda n: "patch_embed" not in n)
+    else:
+        src = compute_source_statistics(_swin_model(cfg, sd), batches,
+                                        device="cpu")
     videos = _videos(rng, 2, t, hw)
     _reset_swin_counts()
     runs = {}
     for dev in ("cuda", "cpu"):
         eng = VittaEngine(_swin_direct(cfg, sd, attn_route,
-                                       drop_path_rate=0.0, head_dropout=0.0),
+                                       drop_path_rate=0.0, head_dropout=0.0,
+                                       **kw),
                           cfg, sd, src, device=dev)
         state = eng.init_state()
         metrics = []
@@ -1927,11 +2178,44 @@ def main() -> int:
     lap("phase 12, projection-fused attention kernels")
     unfused_rows = phase_unfused_kernels(dev)
     lap("phase 15, MLP and per-(head, window) attention kernels")
-    phase_small_slice(SEED)
-    launches = phase_full_slice(SEED, N_VIDEOS, card)
+    bn_rows = phase_bn_stats_kernels(dev)
+    lap("phase 18, BatchNorm-statistics kernels")
+    small_bn = phase_small_slice(SEED)
+    if 0 in small_bn:
+        raise AssertionError("small slice: the bn_stats kernels never ran")
+    launches, tanet = phase_full_slice(SEED, N_VIDEOS, card)
+    if tanet["chosen"] != 29:   # 19 BatchNorm2d in layer3 + 10 in layer4
+        raise AssertionError(f"{tanet['chosen']} chosen layers, expected 29")
     lap("phases 5-6, TANet slices")
-    for row in tam_rows:
-        row["launches"] = launches[row["name"].split("_")[1]]
+    for row in tam_rows + bn_rows:
+        row["launches"] = launches[row["name"]]
+    # the engine's other modes on TANet: small slices against the CPU, then
+    # each at full size
+    for what, kw in (
+            ("BNS, running EMA", dict(tta=dict(stat_reg="BNS"))),
+            ("BNS, raw batch statistics",
+             dict(tta=dict(stat_reg="BNS", running_manner=False))),
+            ("cossim, l1_loss",
+             dict(tta=dict(stat_reg="cossim", stat_type=("temp",)))),
+            ("Adam on the norm affine parameters",
+             dict(optim=dict(lr=1e-3, update_only_bn_affine=True), rel=0.1)),
+            ("tta_epoch_adapt", dict(epoch=True))):
+        phase_small_slice(SEED, what=f"small slice ({what})", **kw)
+    phase_swin_adapt_small(
+        _swin_cfg(t=4, hw=24, embed_dim=8, depths=(1, 1, 2, 1),
+                  num_heads=(1, 2, 4, 8), window_size=(2, 3, 3)),
+        SEED, 4, 24, what="swin adapt small slice, cossim", cossim=True)
+    lap("phase 19, small slices of the engine's other modes")
+    tanet_modes = [tanet]
+    for what, kw in (
+            ("BNS", dict(tta=dict(stat_reg="BNS"))),
+            ("cossim", dict(tta=dict(stat_reg="cossim",
+                                     stat_type=("temp",)))),
+            ("tta_epoch_adapt", dict(epoch=True))):
+        _counts, summary = phase_full_slice(SEED, TANET_MODE_VIDEOS, card,
+                                            what=what, warmup=1, **kw)
+        tanet_modes.append(summary)
+    lap("phase 20, TANet under BNS, cossim and the epoch-style loop")
     phase_swin_card_vs_cpu(
         "swin small slice", _swin_cfg(
             t=4, hw=24, embed_dim=8, depths=(1, 1, 2, 1),
@@ -2034,6 +2318,14 @@ def main() -> int:
         if "heads" in row["name"]:
             row["launches_swin_b"] = bh_launches[row["name"]]
     lap("phase 17, Swin-T slices and Swin-B under the heads route")
+    for s in tanet_modes:
+        print(f"TANet, {s['mode']}: median {s['median_ms']:.3f} ms/video (min "
+              f"{s['min_ms']:.3f}, max {s['max_ms']:.3f}, {s['videos']} "
+              f"videos), {s['chosen']} chosen layers, host "
+              f"{fmt(s.get('host_ms'))} ms, device busy "
+              f"{fmt(s.get('device_busy_ms'))} ms, idle share "
+              f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
+              f"GiB; on {card}", flush=True)
     for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads):
         print(f"{s['model']} adapt step, route {s['route']}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
@@ -2042,7 +2334,7 @@ def main() -> int:
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
-    print(json.dumps({"kernels": tam_rows + swin_rows + proj_rows
+    print(json.dumps({"kernels": tam_rows + bn_rows + swin_rows + proj_rows
                       + unfused_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

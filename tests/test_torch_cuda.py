@@ -21,7 +21,10 @@ softmax); every gradient to 5e-5 of its tensor's largest magnitude
 (``PROJ_GRAD_REL``: four tiled products and the recomputed qkv in the chain,
 where the LayerNorm-MLP backward has two).  The MLP without the LayerNorm
 and the attention per (head, window) are held to the bounds of the
-LayerNorm-MLP and of the packed attention.
+LayerNorm-MLP and of the packed attention.  The BatchNorm-statistics
+kernels: y and the mean rtol / atol 1e-5, the variance rtol 1e-4 / atol 1e-5
+(tests/test_pallas_stats.py's: ``E[y^2] - m^2`` from sums taken in another
+order), every gradient to 2e-5 of its tensor's largest magnitude.
 """
 
 import numpy as np
@@ -29,7 +32,8 @@ import pytest
 import torch
 
 from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
-                                 cuda_bias, cuda_ln, cuda_mlp, cuda_tam)
+                                 cuda_bias, cuda_ln, cuda_mlp, cuda_stats,
+                                 cuda_tam)
 from vitta_tpu_torch.ops.cuda_tam import (tam_dynamic_conv,
                                           tam_dynamic_conv_reference)
 
@@ -854,3 +858,177 @@ def test_unfused_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):       # a strided cotangent, unwrapped
         ca.attn_heads_bwd_cuda(q, k, v, bias, mask,
                                _randn(dev, 6, 3, 18, 8).transpose(1, 2), scale)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (inference) + ReLU + channel statistics (csrc/bn_stats.cu)
+
+def _bn_inputs(device, lead, c, seed=0, offset=0.0):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.normal(size=(*lead, c)) * 2.0 + offset,    # x
+            rng.random(c) + 0.5, rng.normal(size=c),       # scale, bias
+            rng.normal(size=c), rng.random(c) + 0.5,       # mean, var
+            rng.normal(size=(*lead, c)),                   # cotangent of y
+            rng.normal(size=c), rng.normal(size=c))        # of m and of v
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrs]
+
+
+def _bn_value_and_grads(fn, relu, x, scale, bias, mean, var, g_y, g_m, g_v):
+    x, scale, bias = (t.clone().requires_grad_() for t in (x, scale, bias))
+    y, (m, v) = fn(x, scale, bias, mean, var, relu=relu)
+    torch.autograd.backward((y, m, v), (g_y, g_m, g_v))
+    return [y.detach(), m.detach(), v.detach(), x.grad, scale.grad, bias.grad]
+
+
+def _assert_bn_close(got, want):
+    for g, w, name in zip(got[:3], want[:3], ("y", "mean", "var")):
+        rtol, atol = (1e-4, 1e-5) if name == "var" else (1e-5, 1e-5)
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)
+    for g, w, name in zip(got[3:], want[3:], ("dx", "dscale", "dbias")):
+        _assert_grad(name, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("lead,c", [
+    ((1024,), 128), ((200,), 256), ((100,), 32), ((37,), 30), ((1,), 5),
+    ((4, 7, 7), 2048), ((32, 28, 28), 256), ((2, 16), 64), ((512,), 33)],
+    ids=str)
+def test_bn_stats_kernels_match_plain(cuda_device, lead, c, relu):
+    ins = _bn_inputs(cuda_device, lead, c)
+    cuda_stats.counters.reset()
+    got = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats, relu, *ins)
+    assert (cuda_stats.counters.fwd, cuda_stats.counters.bwd) == (1, 1)
+    want = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats_reference,
+                               relu, *ins)
+    assert got[0].shape == ins[0].shape and got[1].shape == (c,)
+    _assert_bn_close(got, want)
+    again = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats, relu, *ins)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)      # no atomics: two runs are bit-equal
+
+
+@pytest.mark.cuda
+def test_bn_stats_backward_kernel_matches_its_plain_version(cuda_device):
+    x, scale, bias, mean, var, g_y, g_m, g_v = _bn_inputs(
+        cuda_device, (300,), 96, seed=1)
+    for relu in (False, True):
+        _y, m, _v = cuda_stats.bn_stats_fwd_cuda(x, scale, bias, mean, var,
+                                                 1e-5, relu)
+        for cots in ((g_y, g_m, g_v), (g_y, None, None), (None, g_m, None),
+                     (None, None, g_v)):
+            got = cuda_stats.bn_stats_bwd_cuda(x, scale, bias, mean, var, m,
+                                               *cots, 1e-5, relu)
+            want = cuda_stats.fused_bn_relu_stats_backward_reference(
+                x, scale, bias, mean, var, m, *cots, eps=1e-5, relu=relu)
+            for g, w, name in zip(got, want, ("dx", "dscale", "dbias")):
+                if name == "dbias" and not relu and cots[0] is None \
+                        and cots[1] is None:
+                    # sum_rows(y - m) is 0 but for rounding: nothing to
+                    # scale the error by
+                    assert float(g.abs().max()) <= 1e-5
+                    continue
+                _assert_grad(f"{name} relu={relu}", g, w)
+
+
+@pytest.mark.cuda
+def test_bn_stats_with_a_cotangent_on_the_statistics_only(cuda_device):
+    """The adaptation loss reads m and v of a layer whose y also feeds the
+    next layer; a layer read for its statistics alone has no cotangent on
+    y, and none is made."""
+    ins = _bn_inputs(cuda_device, (64, 7), 48, seed=2)
+
+    def grads(fn):
+        x, scale, bias = (t.clone().requires_grad_() for t in ins[:3])
+        _y, (m, v) = fn(x, scale, bias, ins[3], ins[4], relu=False)
+        ((m * ins[6]).sum() + (v * ins[7]).sum()).backward()
+        return x.grad, scale.grad, bias.grad
+
+    for g, w, name in zip(grads(cuda_stats.fused_bn_relu_stats),
+                          grads(cuda_stats.fused_bn_relu_stats_reference),
+                          ("dx", "dscale", "dbias")):
+        _assert_grad(name, g, w)
+
+
+@pytest.mark.cuda
+def test_bn_stats_variance_of_an_offset_channel(cuda_device):
+    """``E[y^2] - m^2`` cancels where |m| is far above the spread: the
+    kernel stays within the plain version's own tolerance there."""
+    ins = _bn_inputs(cuda_device, (25088,), 256, seed=3, offset=30.0)
+    _y, (m, v) = cuda_stats.fused_bn_relu_stats(*ins[:5], relu=False)
+    _yr, (mr, vr) = cuda_stats.fused_bn_relu_stats_reference(*ins[:5],
+                                                             relu=False)
+    torch.testing.assert_close(m, mr, rtol=1e-5, atol=1e-5)
+    # the two one-pass forms each carry a few roundings of m^2
+    bound = 8 * torch.finfo(torch.float32).eps * float((mr * mr).max())
+    assert float((v - vr).abs().max()) <= bound + 1e-4 * float(vr.abs().max())
+
+
+@pytest.mark.cuda
+def test_bn_stats_saves_no_residual_under_no_grad(cuda_device):
+    x, scale, bias, mean, var = _bn_inputs(cuda_device, (50,), 16)[:5]
+    scale.requires_grad_()
+    with torch.no_grad():
+        y, _stats = cuda_stats.fused_bn_relu_stats(x, scale, bias, mean, var)
+    assert y.grad_fn is None and not y.requires_grad
+    y, _m, _v = cuda_stats.BnReluStats.apply(x, scale, bias, mean, var, 1e-5,
+                                             True, True)
+    assert len(y.grad_fn.saved_tensors) == 6   # x, the four vectors, m
+
+
+@pytest.mark.cuda
+def test_bn_stats_kernels_reject_what_they_do_not_take(cuda_device):
+    x, scale, bias, mean, var, g_y = _bn_inputs(cuda_device, (40,), 16)[:6]
+    with pytest.raises(TypeError, match="float32"):
+        cuda_stats.fused_bn_relu_stats(x.double(), scale, bias, mean, var)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_stats.fused_bn_relu_stats(x.T.contiguous().T, scale, bias, mean,
+                                       var)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_stats.fused_bn_relu_stats(x, scale[:-1], bias, mean, var)
+    with pytest.raises(ValueError, match="no gradient"):
+        cuda_stats.fused_bn_relu_stats(x, scale, bias,
+                                       mean.clone().requires_grad_(), var)
+    xg = x.clone().requires_grad_()
+    y, _stats = cuda_stats.fused_bn_relu_stats(xg, scale, bias, mean, var)
+    strided = torch.empty(16, 40, device=cuda_device).T    # (40, 16) strided
+    with pytest.raises(ValueError, match="contiguous"):
+        y.backward(strided)
+
+
+@pytest.mark.cuda
+def test_tapped_batch_norm_goes_through_the_kernel(cuda_device):
+    """``BatchNorm`` in the inference form with the "stat" leaf read takes
+    y and the leaf from the kernel, and only at the layers ``Taps`` names;
+    values and gradients as the plain path's."""
+    from vitta_tpu_torch.models.layers import BatchNorm, Taps
+    torch.manual_seed(0)
+    x = torch.randn(4, 6, 6, 24, device=cuda_device)
+
+    def run(names, read_stat=True):
+        bn = BatchNorm(24, "a.bn").to(cuda_device)
+        torch.manual_seed(1)           # the same layer in every run
+        with torch.no_grad():
+            bn.running_mean.normal_()
+            bn.running_var.uniform_(0.5, 1.5)
+            bn.weight.uniform_(0.5, 1.5)
+        taps = Taps({"stat"}, names)
+        xr = x.clone().requires_grad_()
+        y = bn(xr, taps)
+        loss = y.square().sum()
+        if read_stat:
+            s = taps["a.bn"]["stat"]
+            loss = loss + s.mean.sum() + 3 * s.var.sum()
+        loss.backward()
+        return y.detach(), xr.grad, bn.weight.grad, bn.bias.grad, taps
+
+    cuda_stats.counters.reset()
+    kernel = run({"a.bn"})
+    assert (cuda_stats.counters.fwd, cuda_stats.counters.bwd) == (1, 1)
+    plain = run({"other"}, read_stat=False)
+    assert (cuda_stats.counters.fwd, cuda_stats.counters.bwd) == (1, 1)
+    assert not plain[4]
+    # the same y; the gradients differ by the statistics' term, which the
+    # tests above hold against the plain op under autograd
+    torch.testing.assert_close(kernel[0], plain[0], rtol=1e-5, atol=1e-5)
+    assert all(bool(torch.isfinite(g).all()) for g in kernel[1:4])

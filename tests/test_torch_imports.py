@@ -21,6 +21,7 @@ def test_port_imports_no_jax():
     for name in ("adapt.loops", "adapt.precompute", "models.swin",
                  "ops.cuda_ln", "ops.cuda_bias", "ops.cuda_attention",
                  "ops.cuda_mlp", "ops.cuda_attention_proj", "ops.dispatch",
+                 "ops.cuda_stats", "ops.relation",
                  "tools.attention_routes", "tools.synthetic"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
@@ -51,6 +52,34 @@ def test_mlp_and_heads_names_import_without_jax():
         "assert ATTN_ROUTES == ('packed', 'proj', 'ln_proj', 'heads')\n"
         "assert swin.mlp is mlp and swin.mlp_ln_fused is mlp_ln_fused\n"
         "assert swin.window_attention_heads is window_attention_heads\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu')]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_stats_op_and_engine_modes_import_without_jax():
+    """The BatchNorm-statistics op, the relation maps, and the engine's
+    other modes' entry points, from a process that never saw JAX."""
+    code = (
+        "import sys\n"
+        "from vitta_tpu_torch.ops.cuda_stats import fused_bn_relu_stats, "
+        "fused_bn_relu_stats_reference, "
+        "fused_bn_relu_stats_backward_reference, counters\n"
+        "from vitta_tpu_torch.ops.relation import pairwise_similarity, "
+        "upper_triangle_idx, cossim_regularization\n"
+        "from vitta_tpu_torch.adapt.loops import tta_epoch_adapt\n"
+        "from vitta_tpu_torch.adapt.precompute import "
+        "compute_cossim_statistics\n"
+        "from vitta_tpu_torch.adapt.optim import norm_affine_mask\n"
+        "from vitta_tpu_torch.adapt.engine import batch_stats_as_tapdict\n"
+        "from vitta_tpu_torch.utils.checkpoint import save_cossim, "
+        "load_reference_cossim\n"
+        "from vitta_tpu_torch.models import layers\n"
+        "assert 'cossim' in layers.STAT_TYPES\n"
+        "assert layers.fused_bn_relu_stats is fused_bn_relu_stats\n"
+        "assert (counters.fwd, counters.bwd) == (0, 0)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu')]\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -6,7 +6,10 @@ from shared weights.  Tolerance rtol 1e-3 / atol 1e-5 on every layer's
 mean and variance: float32 convolutions and matrix products summed in
 different orders (oneDNN against XLA:CPU), then averaged over the batches
 in float64 on both sides.  Files are compared exactly: what one package
-writes, the other reads back unchanged.
+writes, the other reads back unchanged.  The relation-map precompute of the
+cossim mode is held to the same tolerance (cosines of the same features),
+and its file, with None at the layers that have no map, round-trips both
+ways.
 """
 
 import dataclasses
@@ -203,3 +206,91 @@ def test_swin_b_file_pair_loads_in_the_jax_package(tmp_path):
         stats, "videoswintransformer", str(tmp_path), tag="b")
     _assert_stats_equal(jax_ckpt.load_reference_stats(
         mean_p, var_p, "videoswintransformer"), stats)
+
+
+@pytest.mark.parametrize("stat_type", ["temp", "spatiotemp"])
+def test_tanet_cossim_statistics_match_jax(tanet, stat_type):
+    model, jm, variables, batches = tanet
+    want = jax_pre.compute_cossim_statistics(jm, variables, batches,
+                                             clip_len=2, stat_type=stat_type)
+    got = pre.compute_cossim_statistics(model, batches, clip_len=2,
+                                        stat_type=stat_type, device="cpu")
+    assert set(got) == set(want) and got
+    # every BatchNorm2d, and for 'temp' the rank-3 l_bn of each TAM too
+    assert len(got) == (53 + 16 if stat_type == "temp" else 53)
+    for name, vec in got.items():
+        assert vec.dtype == np.float32 and vec.shape == want[name].shape
+        np.testing.assert_allclose(vec, want[name], rtol=1e-3, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_swin_cossim_statistics_match_jax(swin):
+    model, _jm, variables, batches = swin
+    # built as a cossim run builds it (``tap_stat_types``): with the
+    # spatiotemp taps alone the JAX stages keep their activations in window
+    # layout, which has no time axis to relate
+    jm = JaxRecognizer3D(num_classes=K, drop_path_rate=0.0,
+                         stat_types=("cossim",), **SWIN_KW)
+    want = jax_pre.compute_cossim_statistics(jm, variables, batches,
+                                             clip_len=4)
+    keep = lambda n: "patch_embed" not in n
+    got = pre.compute_cossim_statistics(model, batches, clip_len=4,
+                                        device="cpu", tap_filter=keep)
+    assert set(got) == {n for n in want if keep(n)}
+    assert set(got) == {n for n, _ in ckpt.swin_norm_layers(DEPTHS)}
+    for name, vec in got.items():
+        np.testing.assert_allclose(vec, want[name], rtol=1e-3, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_cossim_precompute_leaves_no_hook_and_refuses_window_layout(swin):
+    model, _jm, _variables, batches = swin
+    pre.compute_cossim_statistics(model, batches[:1], clip_len=4,
+                                  device="cpu")
+    assert not any(m._forward_hooks for m in model.modules())
+    cfg = swin_ucf101_preset()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, num_classes=K, drop_path_rate=0.0, **SWIN_KW))
+    with pytest.raises(ValueError, match="ln_proj"):
+        pre.compute_cossim_statistics(get_model(cfg, attn_route="ln_proj"),
+                                      batches[:1], clip_len=4, device="cpu")
+
+
+def test_cossim_files_round_trip_between_packages(tanet, tmp_path):
+    model, _jm, _variables, batches = tanet
+    sims = pre.compute_cossim_statistics(model, batches[:1], clip_len=2,
+                                         device="cpu")
+    names = [n for n, _ in ckpt.tanet_norm_layers()]
+    assert any(n not in sims for n in names)        # the g_bn placeholders
+
+    def check(loaded):
+        assert list(loaded) == names
+        for n in names:
+            if n in sims:
+                np.testing.assert_array_equal(loaded[n], sims[n], err_msg=n)
+            else:
+                assert loaded[n] is None
+
+    port_file, jax_file = str(tmp_path / "p.npy"), str(tmp_path / "j.npy")
+    ckpt.save_cossim(port_file, sims, "tanet")
+    jax_ckpt.save_cossim(jax_file, sims, "tanet")
+    for path in (port_file, jax_file):
+        check(jax_ckpt.load_reference_cossim(path, "tanet"))
+        check(ckpt.load_reference_cossim(path, "tanet"))
+    with pytest.raises(ValueError):
+        ckpt.load_reference_cossim(port_file, "videoswintransformer")
+
+
+def test_swin_cossim_file_round_trips(tmp_path):
+    rng = np.random.default_rng(0)
+    sims = {n: rng.normal(size=6).astype(np.float32)
+            for n, _ in ckpt.swin_norm_layers(DEPTHS)}
+    path = str(tmp_path / "s.npy")
+    ckpt.save_cossim(path, sims, "videoswintransformer", depths=DEPTHS)
+    for loaded in (ckpt.load_reference_cossim(path, "videoswintransformer",
+                                              depths=DEPTHS),
+                   jax_ckpt.load_reference_cossim(
+                       path, "videoswintransformer", depths=DEPTHS)):
+        assert set(loaded) == set(sims)
+        for n, v in sims.items():
+            np.testing.assert_array_equal(loaded[n], v)

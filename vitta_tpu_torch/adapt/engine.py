@@ -1,13 +1,18 @@
 """The ViTTA adaptation engine — one adapt+eval step per test video.
 
-The PyTorch counterpart of vitta_tpu/adapt/engine.py for
-``stat_reg="mean_var"`` (reference corpus/basics.py:403-747).  One step:
+The PyTorch counterpart of vitta_tpu/adapt/engine.py (reference
+corpus/basics.py:403-747).  One step:
 
-* a tapped forward of the augmented views (``model(views, taps)``);
+* a tapped forward of the augmented views (``model(views, taps)``), the
+  taps restricted to the leaves and layers the step reads;
 * per chosen layer: EMA update of the channel statistics
   (``MovingAverageTensor``) or the cumulative meter, and the alignment
   loss against the source statistics — the gradient flows only through
-  the current batch's contribution (utils/utils_.py:211);
+  the current batch's contribution (utils/utils_.py:211).  Under
+  ``stat_reg="BNS"`` the source is the model's own running statistics and
+  the tap the norm layer's input (BNS_utils.py:19-77); under ``"cossim"``
+  the source is a temporal relation-map vector per layer and the tap the
+  ``cossim`` one (relation_map_utils.py:186-331);
 * sum-L1 prediction consistency across the views
   (pred_consistency_utils.py:15-31);
 * ``loss = lambda_reg * sum(reg) + lambda_consis * consis``
@@ -33,8 +38,8 @@ import torch
 
 from vitta_tpu_torch.adapt.optim import build_optimizer
 from vitta_tpu_torch.config import VittaConfig
-from vitta_tpu_torch.models.layers import (COUNT_LEAF, Taps, flatten_taps,
-                                           tap_leaf_name)
+from vitta_tpu_torch.models.layers import (COUNT_LEAF, BatchNorm, Taps,
+                                           flatten_taps, tap_leaf_name)
 from vitta_tpu_torch.ops.losses import (compute_regularization, cross_entropy,
                                         pred_consistency, topk_accuracy)
 from vitta_tpu_torch.ops.stats import (CumulativeState, TapStats,
@@ -56,12 +61,23 @@ def resolve_device(device) -> torch.device:
 class RegSpec(NamedTuple):
     """One statistic-regularization channel: a tap leaf to read, the
     chosen layer names, and their source-side targets (one per configured
-    ``stat_type`` in mean_var mode, basics.py:850-906)."""
+    ``stat_type`` in mean_var mode, basics.py:850-906; a single one keyed
+    'BNS' / 'cossim' in those modes)."""
 
     key: str
     leaf: str
     names: Tuple[str, ...]
     source: Dict[str, TapStats]
+
+
+def batch_stats_as_tapdict(model: torch.nn.Module) -> Dict[str, TapStats]:
+    """Copies of the BatchNorm layers' running statistics as
+    ``{tap_name: TapStats}``: the source side of the BNS regularization
+    (BNFeatureHook captures running_mean / var at init, BNS_utils.py:28-30;
+    vitta_tpu/adapt/engine.py:83-97)."""
+    return {m.tap_name: TapStats(m.running_mean.detach().clone(),
+                                 m.running_var.detach().clone())
+            for m in model.modules() if isinstance(m, BatchNorm)}
 
 
 def select_tap_names(available, chosen_blocks, source_stats=None) -> Tuple[str, ...]:
@@ -107,8 +123,12 @@ class VittaEngine:
     ``tanet_state_dict_from_jax`` / ``swin_state_dict_from_jax`` of the
     JAX package's variables); ``source_stats`` is
     ``{tap_name: (mean, var)}``, or ``{stat_type: {tap_name: (mean, var)}}``
-    for several types.  Dropout draws from ``self.generator``, a
-    ``torch.Generator`` on ``device``.
+    for several types; under ``stat_reg="cossim"`` it is
+    ``{tap_name: vector or None}`` (``load_reference_cossim``), and under
+    ``"BNS"`` it is not read and may be None.  ``tap_names`` overrides the
+    selection by ``chosen_blocks``, restricted to the layers that have a
+    source.  Dropout draws from ``self.generator``, a ``torch.Generator``
+    on ``device``.
 
     The engine runs on the card: ``device`` defaults to ``"cuda"`` and the
     constructor raises where there is none.  Only an explicit
@@ -117,12 +137,10 @@ class VittaEngine:
 
     def __init__(self, model: torch.nn.Module, cfg: VittaConfig,
                  state_dict: Dict[str, torch.Tensor],
-                 source_stats: Dict[str, Any], device="cuda"):
+                 source_stats: Optional[Dict[str, Any]] = None,
+                 tap_names: Optional[Tuple[str, ...]] = None, device="cuda"):
         cfg.tta.validate()
         tcfg = cfg.tta
-        if tcfg.stat_reg != "mean_var":
-            raise NotImplementedError(
-                f"stat_reg={tcfg.stat_reg!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -139,19 +157,49 @@ class VittaEngine:
                                       device=self.device)
         self._norm_div255 = cfg.model.arch != "videoswintransformer"
 
-        nested = source_stats and all(isinstance(v, dict)
-                                      for v in source_stats.values())
-        per_type = source_stats if nested else {tcfg.stat_type[0]: source_stats}
+        def pick(src):
+            if tap_names is None:
+                names = select_tap_names(src.keys(), tcfg.chosen_blocks, src)
+            else:  # explicit override, restricted to layers this spec covers
+                names = tuple(n for n in tap_names if n in src)
+            return names, {k: src[k] for k in names}
+
         specs = []
-        for st in tcfg.stat_type:
-            if st not in per_type:
-                raise KeyError(f"stat_type {st!r} has no source statistics "
-                               f"(got types {sorted(per_type)})")
-            src = {k: TapStats(self._tensor(m), self._tensor(v))
-                   for k, (m, v) in per_type[st].items()}
-            names = select_tap_names(src.keys(), tcfg.chosen_blocks, src)
-            specs.append(RegSpec(st, tap_leaf_name(st, tcfg.before_norm),
-                                 names, {k: src[k] for k in names}))
+        if tcfg.stat_reg == "BNS":
+            # always the norm *input*, against the layer's running stats
+            specs.append(RegSpec("BNS", "stat_in",
+                                 *pick(batch_stats_as_tapdict(self.model))))
+        elif tcfg.stat_reg == "cossim":
+            if source_stats is None:
+                raise ValueError("cossim mode needs relation-map targets "
+                                 "(temp_cossim_clean_file)")
+            # targets wrapped as zero-variance TapStats: the l1 / mse
+            # regularization then coincides with the reference's cossim
+            # loss (relation_map_utils.py:326-331); None entries (layers
+            # without a relation map) are skipped (basics.py:916)
+            src = {}
+            for k, v in source_stats.items():
+                if v is not None:
+                    vec = self._tensor(v)
+                    src[k] = TapStats(vec, torch.zeros_like(vec))
+            specs.append(RegSpec(
+                "cossim", tap_leaf_name("cossim", tcfg.before_norm),
+                *pick(src)))
+        else:
+            if source_stats is None:
+                raise ValueError("mean_var mode needs source statistics")
+            nested = source_stats and all(isinstance(v, dict)
+                                          for v in source_stats.values())
+            per_type = (source_stats if nested
+                        else {tcfg.stat_type[0]: source_stats})
+            for st in tcfg.stat_type:
+                if st not in per_type:
+                    raise KeyError(f"stat_type {st!r} has no source "
+                                   f"statistics (got types {sorted(per_type)})")
+                src = {k: TapStats(self._tensor(m), self._tensor(v))
+                       for k, (m, v) in per_type[st].items()}
+                specs.append(RegSpec(st, tap_leaf_name(st, tcfg.before_norm),
+                                     *pick(src)))
         self.reg_specs = tuple(specs)
         self._multi = len(specs) > 1
         self.tap_names = specs[0].names
@@ -159,6 +207,8 @@ class VittaEngine:
         if not tcfg.moving_avg:
             leaves.add(COUNT_LEAF)
         self._tap_leaves = frozenset(leaves)
+        # the layers any channel reads: no other layer reduces anything
+        self._tap_layers = frozenset(n for s in specs for n in s.names)
         self.optimizer = build_optimizer(cfg.optim, self.model,
                                          arch=cfg.model.arch,
                                          partial_bn=cfg.model.partial_bn)
@@ -168,7 +218,7 @@ class VittaEngine:
 
     # ------------------------------------------------------------------
     def _init_ema_for(self, spec: RegSpec) -> dict:
-        if self.cfg.tta.moving_avg:
+        if self.cfg.tta.moving_avg or spec.key == "BNS":
             # MovingAverageTensor starts from 0 (utils_.py:204-208)
             return {k: TapStats(torch.zeros_like(s.mean), torch.zeros_like(s.var))
                     for k, s in spec.source.items()}
@@ -220,7 +270,7 @@ class VittaEngine:
 
     def _losses(self, ema, views, generator):
         tcfg = self.cfg.tta
-        taps = Taps(self._tap_leaves)
+        taps = Taps(self._tap_leaves, self._tap_layers)
         logits = self.model(views, taps, train=True, generator=generator,
                             **self._bn_kw())
         n_views = tcfg.n_augmented_views if tcfg.if_sample_tta_aug_views else 1
@@ -233,7 +283,14 @@ class VittaEngine:
             ema_sub = ema[spec.key] if self._multi else ema
             new_sub = {}
             for name in spec.names:
-                if tcfg.moving_avg:
+                if spec.key == "BNS":
+                    # BNFeatureHook: raw batch stats, or running-manner EMA
+                    # with momentum_bns (BNS_utils.py:55-77)
+                    updated = (ema_update(ema_sub[name], tapd[name],
+                                          tcfg.momentum_bns)
+                               if tcfg.running_manner else tapd[name])
+                    new_sub[name] = updated
+                elif tcfg.moving_avg:
                     updated = ema_update(ema_sub[name], tapd[name],
                                          tcfg.momentum_mvg)
                     new_sub[name] = updated
@@ -302,6 +359,26 @@ class VittaEngine:
         metrics = StepMetrics(loss_reg.detach(), loss_consis.detach(), loss_ce,
                               top1, top5, torch.argmax(eval_logits, -1))
         return dataclasses.replace(state, ema=ema, step=state.step + 1), metrics
+
+    def adapt_step(self, state: TTAState, views, label,
+                   generator: Optional[torch.Generator] = None):
+        """Adaptation without the per-video evaluation: one gradient step
+        on ``views``, for the epoch-style loop that adapts over the whole
+        stream and evaluates once at the end (``test_time_adapt``,
+        basics.py:760-1084; vitta_tpu/adapt/engine.py:545-563).  Returns
+        ``(state, (loss_reg, loss_consis, loss_ce))``."""
+        generator = self.generator if generator is None else generator
+        views = self._maybe_normalize(views)
+        label = self._to_device(label).long()
+        self.model.zero_grad(set_to_none=True)
+        loss, loss_reg, loss_consis, mean_logits, ema = self._losses(
+            state.ema, views, generator)
+        loss.backward()
+        self.optimizer.step()
+        loss_ce = cross_entropy(mean_logits.detach(), label)
+        state = dataclasses.replace(state, ema=_detach(ema),
+                                    step=state.step + 1)
+        return state, (loss_reg.detach(), loss_consis.detach(), loss_ce)
 
     def eval_step(self, params, eval_clip, label):
         """(top1, top5, pred) of ``eval_clip`` under ``params``

@@ -1,14 +1,17 @@
 """Host-side adaptation / evaluation loops.
 
 The PyTorch counterpart of vitta_tpu/adapt/loops.py:26-138 (reference
-corpus/basics.py ``tta_standard`` 403-747, ``validate`` 96-217): iterate
-the video stream, run the engine's steps, aggregate meters.
+corpus/basics.py ``tta_standard`` 403-747, ``test_time_adapt`` 760-1084,
+``validate`` 96-217): iterate the video stream, run the engine's steps,
+aggregate meters.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Optional, Tuple
+
+import numpy as np
 
 from vitta_tpu_torch.adapt.engine import TTAState, VittaEngine
 from vitta_tpu_torch.utils.meters import AverageMeter
@@ -60,6 +63,30 @@ def tta_stream(engine: VittaEngine, paired_data, seed: int = 0,
                   loss_consis=losses_consis, loss_ce=losses_ce,
                   batch_time=batch_time)
     return [top1.avg], state, meters
+
+
+def tta_epoch_adapt(engine: VittaEngine, tta_data, eval_data,
+                    n_epochs: int = 1, seed: int = 0,
+                    logger=None) -> Tuple[float, TTAState]:
+    """Epoch-style legacy adaptation (``test_time_adapt``,
+    corpus/basics.py:760-1084): adapt over the whole stream for
+    ``n_epochs`` with ``adapt_step``, then a single evaluation pass with
+    the adapted parameters (``validate_brief``, basics.py:1105-1189).
+    ``tta_data`` yields (views, eval clip or None, label) tuples, or items
+    with ``frames`` and ``label``; the step's dropout seed is
+    ``video_seed(seed, ep * 100003 + bi)``."""
+    state = engine.init_state()
+    for ep in range(n_epochs):
+        for bi, item in enumerate(tta_data):
+            views, _clip, label = item if isinstance(item, tuple) else (
+                item.frames, None, np.asarray([item.label], np.int64))
+            engine.generator.manual_seed(video_seed(seed, ep * 100003 + bi))
+            state, losses = engine.adapt_step(state, views, label)
+            if logger and bi % 20 == 0:
+                logger.debug(f"epoch-TTA [{ep}][{bi}] reg "
+                             f"{float(losses[0]):.4f}")
+    top1, _top5 = validate(engine, eval_data, params=state.params)
+    return top1, state
 
 
 def validate(engine: VittaEngine, data, params=None) -> Tuple[float, float]:

@@ -12,6 +12,13 @@ weight/bias of every BatchNorm2d except the stem's ``base_model.bn1`` stay
 frozen — here by leaving them out of the optimizer, where the JAX package
 multiplies their update by a 0 mask (optim.py:34).  TAM's BN1d affine
 stays trainable (torch's partial-BN matches BatchNorm2d only).
+
+``update_only_bn_affine`` (utils/BNS_utils.py:262-288): Adam(lr, betas
+(adam_b1, adam_b2), no weight decay) over the weight and bias of the norm
+layers alone, every other parameter frozen, partial-BN not applied
+(vitta_tpu/adapt/optim.py:125-129).  ``torch.optim.Adam`` and ``optax.adam``
+compute the same update: both add eps (1e-8) outside the square root of the
+bias-corrected second moment.
 """
 
 from __future__ import annotations
@@ -33,15 +40,34 @@ def tanet_trainable_mask(named_params) -> Dict[str, bool]:
     return {name: not _BN2D_AFFINE.search(name) for name, _ in named_params}
 
 
+# weight and bias of the norm layers the JAX package's ``norm_affine_mask``
+# names (vitta_tpu/adapt/optim.py:51-62: bn1/2/3, downsample_bn, g_bn, l_bn,
+# norm, norm1, norm2), under the port's state-dict names.  The patch
+# embedding's norm is ``patch_embed_norm`` there and so not in the set.
+_NORM_AFFINE = re.compile(
+    r"(^|\.)(bn[123]|downsample\.1|G\.1|L\.1|norm|norm1|norm2)"
+    r"\.(weight|bias)$")
+
+
+def norm_affine_mask(named_params) -> Dict[str, bool]:
+    """True for the weight / bias of norm layers (collect_bn_params,
+    BNS_utils.py:278-288)."""
+    return {name: bool(_NORM_AFFINE.search(name))
+            and ".patch_embed.norm." not in name
+            for name, _ in named_params}
+
+
 def build_optimizer(cfg: OptimConfig, model: torch.nn.Module,
                     arch: str = "tanet",
                     partial_bn: bool = False) -> torch.optim.Optimizer:
     """torch-style SGD(momentum, weight_decay) over the trainable
-    parameters of ``model``."""
-    if cfg.update_only_bn_affine:
-        raise NotImplementedError(
-            "update_only_bn_affine (Adam on norm affine) is not ported yet")
+    parameters of ``model``, or with ``update_only_bn_affine`` Adam over
+    its norm layers' weight and bias."""
     named = list(model.named_parameters())
+    if cfg.update_only_bn_affine:
+        mask = norm_affine_mask(named)
+        return torch.optim.Adam([p for name, p in named if mask[name]],
+                                lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2))
     if arch == "tanet" and partial_bn:
         mask = tanet_trainable_mask(named)
         params = [p for name, p in named if mask[name]]

@@ -9,8 +9,8 @@ variances*, not the variance of the pooled set; replicated here), and save
 both the reference-compatible object-array ``.npy`` pair
 (basics.py:306-307) and a name-keyed ``.npz``.
 
-``compute_cossim_statistics`` (the relation-map precompute) waits for the
-port of ops/relation.py.
+``compute_cossim_statistics`` is the relation-map precompute of the cossim
+mode (``compute_cos_similarity``, basics.py:311-401).
 """
 
 from __future__ import annotations
@@ -23,7 +23,10 @@ import numpy as np
 import torch
 
 from vitta_tpu_torch.adapt.engine import resolve_device
-from vitta_tpu_torch.models.layers import Taps, flatten_taps, tap_leaf_name
+from vitta_tpu_torch.models.layers import (BatchNorm, LayerNorm, Taps,
+                                           flatten_taps, tap_leaf_name)
+from vitta_tpu_torch.ops.relation import (pairwise_similarity,
+                                          upper_triangle_cosine)
 from vitta_tpu_torch.ops.stats import TapStats
 from vitta_tpu_torch.utils.checkpoint import save_stats
 
@@ -85,6 +88,83 @@ def compute_source_statistics(model: torch.nn.Module, data_iter,
         if logger and bi % print_freq == 0:
             logger.debug(f"compute_stats batch {bi}")
     return acc.result()
+
+
+def _batch_similarity(feat: torch.Tensor, clip_len: int, stat_type: str):
+    """One norm layer's batch-mean similarity vector, or None where the
+    feature has no relation map (vitta_tpu/adapt/precompute.py:122-140)."""
+    if feat.dim() == 4:              # (N*T, H, W, C) -> (N, T, H, W, C)
+        feat = feat.reshape(feat.shape[0] // clip_len, clip_len,
+                            *feat.shape[1:])
+    elif feat.dim() == 3:
+        # rank-3 BN1d feature, channels-last (N, T, C): the temporal map
+        # over its T rows (compute_sim_for_NCT, relation_map_utils.py:
+        # 153-162), for 'temp' only; other types have a None placeholder
+        # at BN1d positions (basics.py:333-335)
+        if stat_type != "temp":
+            return None
+        return torch.mean(upper_triangle_cosine(feat), dim=0)
+    elif feat.dim() != 5:
+        return None                  # rank-2 BN1d features: no relation map
+    return pairwise_similarity(feat, stat_type)
+
+
+def compute_cossim_statistics(model: torch.nn.Module, data_iter,
+                              clip_len: int, stat_type: str = "temp",
+                              device="cuda", tap_filter=None, logger=None):
+    """Pairwise-similarity precompute, the counterpart of
+    ``compute_cos_similarity`` (corpus/basics.py:311-401) with
+    ``ComputePairwiseSimilarityHook``: per norm layer, the batch-mean
+    upper-triangle cosine-similarity vector of its output, averaged over
+    the batches with AverageMeter weighting.  Returns
+    ``{tap_name: vector}``; ``save_cossim`` writes it as
+    ``list_{stat_type}_relationmap``.
+
+    Where flax captures the norm modules' outputs, forward hooks on the
+    port's ``BatchNorm`` and ``LayerNorm`` modules read them (a LayerNorm
+    whose normalization runs inside a fused op hands its y to the module in
+    ``"sow_output"`` mode, which the hook sees like any output).  The
+    ``"ln_proj"`` attention route returns that y in window layout, which
+    has lost the time axis: build the model on another route.  Runs without
+    gradients on ``device``, by default the card.
+    """
+    device = resolve_device(device)
+    model = model.to(device)
+    if any(getattr(m, "attn_route", None) == "ln_proj"
+           for m in model.modules()):
+        raise ValueError("the relation-map precompute needs the norm "
+                         "outputs in token layout: build the model with an "
+                         "attn_route other than 'ln_proj'")
+    sims: Dict[str, TapStats] = {}
+
+    def hook(module, _args, out):
+        # reduced here, so that no layer's activation outlives its forward;
+        # the "params" mode's (weight, bias) pair is no activation
+        if not isinstance(out, torch.Tensor):
+            return
+        name = module.tap_name
+        if tap_filter is not None and not tap_filter(name):
+            return
+        sim = _batch_similarity(out.to(torch.float32), clip_len, stat_type)
+        if sim is not None:
+            sims[name] = TapStats(sim, torch.zeros_like(sim))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (BatchNorm, LayerNorm))]
+    acc = StatAccumulator()
+    try:
+        for bi, (clips, _labels) in enumerate(data_iter):
+            x = torch.as_tensor(clips).to(device)
+            sims.clear()
+            with torch.no_grad():
+                model(x, None, train=False)
+            acc.update(sims, n=float(x.shape[0]))
+            if logger and bi % 50 == 0:
+                logger.debug(f"compute_cossim batch {bi}")
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: m for k, (m, _v) in acc.result().items()}
 
 
 def save_source_statistics(stats, arch: str, out_dir: str,

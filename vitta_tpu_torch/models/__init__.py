@@ -6,8 +6,11 @@ from vitta_tpu_torch.models.tanet import TANet
 
 def get_model(cfg, attn_route=None):
     """Model-zoo dispatch (reference corpus/basics.py:1447-1493).
-    ``attn_route`` chooses Video Swin's attention route ("packed", "proj"
-    or "ln_proj"; None reads the flags of ops/dispatch.py)."""
+    ``attn_route`` chooses Video Swin's attention route ("packed", "proj",
+    "ln_proj" or "heads", ``ops/dispatch.py:ATTN_ROUTES``; None reads the
+    flags of ops/dispatch.py).  The norm layers record the statistic types
+    of ``cfg.tta.tap_stat_types()``: the configured ``stat_type`` list, or
+    the ``cossim`` tap under ``stat_reg="cossim"``."""
     arch = cfg.model.arch
     if cfg.model.compute_dtype != "float32":
         raise NotImplementedError(

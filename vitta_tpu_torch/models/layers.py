@@ -11,8 +11,15 @@ The dict maps each norm layer's name — exactly the JAX package's
 flattened tap name, e.g. ``base_model.layer3_0.bn1`` — to its leaves:
 ``stat`` (output side), ``stat_in`` (input side), ``stat_<type>`` for the
 other statistic types, and the count leaf ``stat_n``.  A plain dict
-collects every leaf; a ``Taps`` with ``leaves`` set collects only those,
-so the adaptation step pays for no reduction it does not read.
+collects every leaf of every layer; a ``Taps`` collects only its
+``leaves``, and only at its ``names`` where those are given, so the
+adaptation step pays for no reduction it does not read (in the JAX package
+XLA removes the reductions nobody reads).
+
+In the inference form a tapped ``BatchNorm`` takes its output and the
+output-side ``stat`` leaf from one op, ``fused_bn_relu_stats``
+(ops/cuda_stats.py): on the card one pass over the activation instead of
+the normalization and two reductions.
 
 Layout: activations are channels-last ``(..., C)`` tensors, as in the JAX
 package.  2D features are ``(N*T, H, W, C)`` and contiguous, which is the
@@ -29,14 +36,16 @@ from torch import nn
 import torch.nn.functional as F
 
 from vitta_tpu_torch.ops.cuda_ln import layer_norm
-from vitta_tpu_torch.ops.stats import channel_stats
+from vitta_tpu_torch.ops.cuda_stats import fused_bn_relu_stats
+from vitta_tpu_torch.ops.relation import (pairwise_similarity,
+                                          upper_triangle_cosine)
+from vitta_tpu_torch.ops.stats import TapStats, channel_stats
 
 # Leaf carrying the reference's per-layer batch count ``bz`` — the ``n``
 # of the cumulative meters (norm_stats_utils.py:177-182,244-249).
 COUNT_LEAF = "stat_n"
 
-# 'cossim' waits for the relation-map port (vitta_tpu/ops/relation.py).
-STAT_TYPES = ("spatiotemp", "spatial", "temp", "temp_v2")
+STAT_TYPES = ("spatiotemp", "spatial", "temp", "temp_v2", "cossim")
 
 
 def tap_leaf_name(stat_type: str, input_side: bool = False) -> str:
@@ -46,14 +55,22 @@ def tap_leaf_name(stat_type: str, input_side: bool = False) -> str:
 
 
 class Taps(dict):
-    """A tap dict that collects only the named ``leaves``."""
+    """A tap dict that collects only the named ``leaves``, and only at the
+    layers in ``names`` (None: every layer; the counterpart of ``tap_names``
+    at vitta_tpu/adapt/engine.py:172)."""
 
-    def __init__(self, leaves: Iterable[str]):
+    def __init__(self, leaves: Iterable[str],
+                 names: Optional[Iterable[str]] = None):
         super().__init__()
         self.leaves = frozenset(leaves)
+        self.names = None if names is None else frozenset(names)
 
 
-def _wants(taps: dict, leaf: str) -> bool:
+def _wants(taps: dict, leaf: str, name: Optional[str] = None) -> bool:
+    """Whether ``taps`` collects ``leaf`` (at the layer ``name``)."""
+    names = getattr(taps, "names", None)
+    if name is not None and names is not None and name not in names:
+        return False
     leaves = getattr(taps, "leaves", None)
     return leaves is None or leaf in leaves
 
@@ -64,23 +81,52 @@ def flatten_taps(taps: dict, leaf: str = "stat") -> dict:
             if leaf in leaves}
 
 
+def _cossim_vector(x: torch.Tensor, clip_len: int):
+    """The temporal pairwise-similarity vector of a norm layer's feature
+    (vitta_tpu/models/layers.py:62-87, CombineCossimRegHook.hook_fn,
+    relation_map_utils.py:254-299): rank 5 and rank 4 unfolded by
+    ``clip_len`` give the (T, T) upper triangle over CHW rows, rank-3 BN1d
+    features the one over their T rows of C; rank 2 has no relation map
+    (None)."""
+    if x.dim() == 5:
+        return pairwise_similarity(x, "temp")
+    if x.dim() == 4 and clip_len > 0:
+        xr = x.reshape(x.shape[0] // clip_len, clip_len, *x.shape[1:])
+        return pairwise_similarity(xr, "temp")
+    if x.dim() == 3:                     # (N, T, C) channels-last BN1d
+        return torch.mean(upper_triangle_cosine(x), dim=0)
+    return None
+
+
 def record_typed_stats(taps: dict, name: str, x: torch.Tensor,
                        stat_types: Tuple[str, ...], clip_len: int,
                        input_side: bool = False,
-                       count: Optional[float] = None) -> None:
+                       count: Optional[float] = None,
+                       spatiotemp: Optional[TapStats] = None) -> None:
     """Record one tap per statistic type of the channels-last ``x``
     (vitta_tpu/models/layers.py:90-133): 2D features ``(N*T, H, W, C)``
     are unfolded by ``clip_len`` for the time-resolved types; BN1d-style
-    low-rank features take the full per-channel reduction.  ``count``
+    low-rank features take the full per-channel reduction; ``cossim`` is
+    the similarity vector wrapped as a zero-variance ``TapStats``, so that
+    the meters and the l1 / mse regularization apply unchanged.  ``count``
     overrides the count leaf where dim 0 of ``x`` is not the reference
-    batch."""
+    batch; ``spatiotemp`` is that type's statistics of ``x`` where the
+    caller has them already.  A layer that ``taps`` does not name records
+    nothing."""
+    names = getattr(taps, "names", None)
+    if names is not None and name not in names:
+        return
     slot = taps.setdefault(name, {})
     for st in stat_types:
         leaf = tap_leaf_name(st, input_side)
         if not _wants(taps, leaf):
             continue
-        if st == "spatiotemp":
-            slot[leaf] = channel_stats(x)
+        if st == "cossim":
+            sim = _cossim_vector(x, clip_len)
+            if sim is not None:
+                slot[leaf] = TapStats(sim, torch.zeros_like(sim))
+        elif st == "spatiotemp":
+            slot[leaf] = channel_stats(x) if spatiotemp is None else spatiotemp
         elif x.dim() >= 5:
             slot[leaf] = channel_stats(x, stat_type=st, time_axis=1)
         elif x.dim() == 4:
@@ -109,6 +155,14 @@ class BatchNorm(nn.Module):
     ``fix_BNS``) is the default; the batch-stat form optionally updates
     the running statistics in place.  Parameter and buffer names are
     torch's, so a reference state dict loads as it is.
+
+    Where a tapped forward in the inference form reads this layer's
+    output-side ``stat`` leaf, y and the leaf come from
+    ``fused_bn_relu_stats(..., relu=False)``: exactly ``y = BN(x)`` followed
+    by ``channel_stats(y)`` (vitta_tpu/models/layers.py:183-190).  The other
+    statistic types are reduced from y by the plain functions; the
+    batch-statistics form (its mean and var carry gradients) and the
+    untapped forward stay plain tensor code.
     """
 
     def __init__(self, features: int, tap_name: str,
@@ -155,6 +209,17 @@ class BatchNorm(nn.Module):
                     self.running_var.copy_((1 - m) * self.running_var
                                            + m * unbiased)
                     self.num_batches_tracked.add_(1)
+        if (use_running_average and taps is not None
+                and "spatiotemp" in self.stat_types
+                and _wants(taps, "stat", self.tap_name)):
+            # the inference form with its output's statistics read: y and
+            # the "stat" leaf from one op (the kernel on the card)
+            yf, stat = fused_bn_relu_stats(
+                xf, self.weight, self.bias, mean, var, eps=self.eps,
+                relu=False)
+            record_typed_stats(taps, self.tap_name, yf, self.stat_types,
+                               self.clip_len, spatiotemp=stat)
+            return yf.to(x.dtype)
         inv = torch.rsqrt(var + self.eps) * self.weight
         # (x - mean) * inv + bias as one pass over the activation
         y = torch.addcmul(self.bias - mean * inv, xf, inv).to(x.dtype)

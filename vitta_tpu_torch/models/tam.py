@@ -64,7 +64,9 @@ class TAM(nn.Module):
         kernel = self.G[4](self.G[3](g)).reshape(n, c, self.kernel_size)
 
         # local branch: Conv1d on (N, C, T); its BN is channels-last (N, T, C/4)
-        l = self.L[0](pooled.transpose(1, 2)).transpose(1, 2)
+        # (laid out anew: the norm layers take contiguous activations, and
+        # this one is N*T*C/4 values)
+        l = self.L[0](pooled.transpose(1, 2)).transpose(1, 2).contiguous()
         l = self.L[2](self.L[1](l, taps, **bn_kw))
         attn = self.L[4](self.L[3](l.transpose(1, 2))).transpose(1, 2)
 

@@ -1,0 +1,208 @@
+"""BatchNorm (inference form) + optional ReLU + channel statistics of the
+output: CUDA kernels, plain versions, autograd wrapper.
+
+    y = (x - mean) * rsqrt(var + eps) * scale + bias,  y = max(y, 0) if relu
+    m = sum_rows(y) / R,  v = sum_rows(y^2) / R - m^2
+
+over the rows of a channels-last ``x`` (..., C) with per-channel ``scale``,
+``bias``, ``mean``, ``var`` (C,): what ``BatchNorm`` in its inference form
+followed by ``channel_stats`` of its output computes, with one read of ``x``
+and one write of ``y``.  ``fused_bn_relu_stats`` keeps the contract of
+vitta_tpu/ops/pallas_stats.py:68 (``relu`` is an argument, the statistics are
+of the tensor it returns) and sends a CPU tensor to the plain PyTorch version
+(``fused_bn_relu_stats_reference``, under torch's own autograd) and a CUDA
+tensor to the hand-written kernels in ``vitta_tpu_torch/csrc/bn_stats.cu``.
+The JAX function has no backward; the port's ``BatchNorm`` calls this op on
+the adaptation path, so here it has one (``fused_bn_relu_stats_backward_
+reference`` is its plain version): ``mean`` and ``var`` are buffers in the
+inference form and get no gradient.  There is no fallback: a CUDA tensor the
+kernels do not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
+                                         grad_wanted, raise_on)
+from vitta_tpu_torch.ops.stats import TapStats, channel_stats
+
+counters = LaunchCounters("fwd", "bwd")
+
+
+def fused_bn_relu_stats_reference(x, scale, bias, mean, var, *,
+                                  eps: float = 1e-5, relu: bool = True):
+    """``(y, TapStats(m, v))`` of ``x`` (..., C) in plain PyTorch: the
+    normalization as one ``addcmul`` pass, then ``channel_stats`` of the
+    (post-ReLU) output."""
+    inv = torch.rsqrt(var + eps) * scale
+    y = torch.addcmul(bias - mean * inv, x, inv)
+    if relu:
+        y = torch.relu(y)
+    return y, channel_stats(y)
+
+
+def fused_bn_relu_stats_backward_reference(x, scale, bias, mean, var, m,
+                                           g_y=None, g_m=None, g_v=None, *,
+                                           eps: float = 1e-5,
+                                           relu: bool = True):
+    """(dx, dscale, dbias) at ``x`` (R, C) for the cotangents of y, m and v
+    (None: zero), written out as the backward kernel computes it: y is
+    recomputed from ``x``, ``m`` is the forward's mean."""
+    rows = x.shape[0]
+    rstd = torch.rsqrt(var + eps)
+    inv = rstd * scale
+    xhat = (x - mean) * rstd
+    t = torch.addcmul(bias - mean * inv, x, inv)
+    y = torch.relu(t) if relu else t
+    g = torch.zeros_like(x) if g_y is None else g_y
+    if g_m is not None:
+        g = g + g_m / rows
+    if g_v is not None:
+        g = g + g_v * 2.0 * (y - m) / rows
+    if relu:
+        g = g * (t > 0)
+    return g * inv, torch.sum(g * xhat, dim=0), torch.sum(g, dim=0)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from vitta_tpu_torch.ops._build import load_library
+        lib = load_library("bn_stats")
+        p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float)
+        lib.vitta_bn_stats_scratch_floats.argtypes = [ll, i]
+        lib.vitta_bn_stats_scratch_floats.restype = ll
+        lib.vitta_bn_stats_fwd.argtypes = [p] * 8 + [ll, i, f, i, p]
+        lib.vitta_bn_stats_fwd.restype = i
+        lib.vitta_bn_stats_bwd.argtypes = [p] * 12 + [ll, i, f, i, p]
+        lib.vitta_bn_stats_bwd.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check_inputs(x2, scale, bias, mean, var):
+    if x2.dim() != 2:
+        raise ValueError(f"x must be (R, C), got shape {tuple(x2.shape)}")
+    rows, c = x2.shape
+    if rows == 0 or c == 0:
+        raise ValueError(f"x has shape {tuple(x2.shape)}: nothing to reduce")
+    check_tensor("BatchNorm-statistics", "x", x2, (rows, c), x2.device)
+    for name, ten in (("scale", scale), ("bias", bias), ("mean", mean),
+                      ("var", var)):
+        check_tensor("BatchNorm-statistics", name, ten, (c,), x2.device)
+    return rows, c
+
+
+def bn_stats_fwd_cuda(x2, scale, bias, mean, var, eps: float = 1e-5,
+                      relu: bool = True):
+    """Forward kernels on ``x2`` (R, C): one wrapper call, two launches on
+    the current stream (the pass over x, then the ordered sum of its
+    partials); returns (y, m, v), allocated here with the scratch."""
+    rows, c = _check_inputs(x2, scale, bias, mean, var)
+    lib = _lib()
+    y = torch.empty_like(x2)
+    stats = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    scratch = torch.empty(lib.vitta_bn_stats_scratch_floats(rows, c),
+                          dtype=torch.float32, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        code = lib.vitta_bn_stats_fwd(
+            x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), rows, c, float(eps), int(relu), stream)
+    raise_on(code, "BatchNorm-statistics forward kernel")
+    counters.fwd += 1
+    return y, stats[0], stats[1]
+
+
+def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
+                      g_v=None, eps: float = 1e-5, relu: bool = True):
+    """Backward kernels on ``x2`` (R, C), the forward's mean ``m`` (C,) and
+    the cotangents ``g_y`` (R, C), ``g_m`` (C,), ``g_v`` (C,), each of which
+    may be None: one wrapper call, two launches; returns (dx, dscale,
+    dbias).  A strided ``g_y`` raises and is never copied; the (C,)
+    cotangents are laid out contiguously where they are not (the gradient
+    of a sum over channels is one expanded scalar)."""
+    rows, c = _check_inputs(x2, scale, bias, mean, var)
+    check_tensor("BatchNorm-statistics", "m", m, (c,), x2.device)
+    g_m = None if g_m is None else g_m.contiguous()
+    g_v = None if g_v is None else g_v.contiguous()
+    for name, ten, shape in (("the cotangent of y", g_y, (rows, c)),
+                             ("the cotangent of the mean", g_m, (c,)),
+                             ("the cotangent of the variance", g_v, (c,))):
+        if ten is not None:
+            check_tensor("BatchNorm-statistics", name, ten, shape, x2.device)
+    lib = _lib()
+    dx = torch.empty_like(x2)
+    dsb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    scratch = torch.empty(lib.vitta_bn_stats_scratch_floats(rows, c),
+                          dtype=torch.float32, device=x2.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        code = lib.vitta_bn_stats_bwd(
+            x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), m.data_ptr(), ptr(g_y), ptr(g_m), ptr(g_v),
+            dx.data_ptr(), dsb.data_ptr(), scratch.data_ptr(), rows, c,
+            float(eps), int(relu), stream)
+    raise_on(code, "BatchNorm-statistics backward kernel")
+    counters.bwd += 1
+    return dx, dsb[0], dsb[1]
+
+
+class BnReluStats(torch.autograd.Function):
+    """The kernel pair as one differentiable op over (y, m, v).  The forward
+    keeps x, the parameters and m when a gradient is wanted, not y: the
+    backward recomputes y from x (recovering xhat from y would divide by
+    ``scale``).  Absent cotangents stay absent (no zeros are made)."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, mean, var, eps, relu, keep):
+        ctx.eps, ctx.relu = eps, relu
+        ctx.set_materialize_grads(False)
+        y, m, v = bn_stats_fwd_cuda(x2, scale, bias, mean, var, eps, relu)
+        if keep:
+            ctx.save_for_backward(x2, scale, bias, mean, var, m)
+        return y, m, v
+
+    @staticmethod
+    def backward(ctx, g_y, g_m, g_v):
+        x2, scale, bias, mean, var, m = ctx.saved_tensors
+        dx, dscale, dbias = bn_stats_bwd_cuda(
+            x2, scale, bias, mean, var, m, g_y, g_m, g_v, ctx.eps, ctx.relu)
+        return dx, dscale, dbias, None, None, None, None, None
+
+
+def fused_bn_relu_stats(x, scale, bias, mean, var, *, eps: float = 1e-5,
+                        relu: bool = True):
+    """``(y, TapStats(m, v))``: y in the shape of ``x`` (..., C), the
+    statistics (C,) over all leading axes.
+
+    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
+    (forward, and backward under autograd), which raise on any dtype other
+    than float32, on a non-contiguous input or cotangent of y (the leading
+    axes are flattened as a view, no activation is copied), and on a
+    ``mean`` or ``var`` that asks for a gradient."""
+    if x.device.type == "cpu":
+        return fused_bn_relu_stats_reference(x, scale, bias, mean, var,
+                                             eps=eps, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError("no BatchNorm-statistics implementation for device "
+                         f"{x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if grad_wanted(mean, var):
+        raise ValueError("mean and var get no gradient from the kernel: they "
+                         "are buffers in BatchNorm's inference form")
+    c = x.shape[-1]
+    y, m, v = BnReluStats.apply(x.reshape(-1, c), scale, bias, mean, var,
+                                float(eps), bool(relu),
+                                grad_wanted(x, scale, bias))
+    return y.reshape(x.shape), TapStats(m, v)

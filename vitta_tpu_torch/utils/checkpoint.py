@@ -17,11 +17,14 @@ same for Video Swin, the inverse of ``convert_swin_checkpoint``
 object-array ``.npy`` pair (corpus/basics.py:306-307), one entry per norm
 layer in ``named_modules()`` order, so that statistics files made by the
 reference, the JAX package or this one serve all three.
+``save_cossim`` and ``load_reference_cossim`` do the same for the relation-
+map file of the cossim mode (one entry per norm layer, None where a layer
+has no map).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -239,3 +242,35 @@ def save_stats(path_mean: str, path_var: str,
             allow_pickle=True)
     np.save(path_var, obj_array([np.asarray(stats[n][1]) for n in names]),
             allow_pickle=True)
+
+
+def load_reference_cossim(path: str, arch: str = "tanet",
+                          use_tam: bool = True, depths=(2, 2, 18, 2)
+                          ) -> Dict[str, Optional[np.ndarray]]:
+    """A ``list_{stat_type}_relationmap_*.npy`` file as
+    ``{tap_name: sim_vec or None}`` (vitta_tpu/utils/checkpoint.py:346).
+    The file holds one entry per norm layer in ``choose_layers`` order, None
+    at layers without a relation map (basics.py:328-338,397-401); those stay
+    None so that the engine skips them as the reference's registration does
+    (basics.py:916).  A pickled object array: load only files this program,
+    the JAX package or the reference wrote."""
+    entries = list(np.load(path, allow_pickle=True))
+    names = _stat_layers(arch, use_tam, True, depths)   # every norm layer
+    if len(entries) != len(names):
+        raise ValueError(f"{len(entries)} entries for {len(names)} norm "
+                         f"layers of {arch}")
+    return {name: (None if e is None else np.asarray(e, np.float32))
+            for name, e in zip(names, entries)}
+
+
+def save_cossim(path: str, sims: Dict[str, Optional[np.ndarray]], arch: str,
+                use_tam: bool = True, depths=(2, 2, 18, 2)) -> None:
+    """Write relation-map vectors in the reference layout: one object-array
+    entry per norm layer, None where ``sims`` has no map
+    (vitta_tpu/utils/checkpoint.py:365)."""
+    names = _stat_layers(arch, use_tam, True, depths)   # every norm layer
+    arr = np.empty(len(names), dtype=object)
+    for i, name in enumerate(names):
+        arr[i] = (np.asarray(sims[name], np.float32)
+                  if sims.get(name) is not None else None)
+    np.save(path, arr, allow_pickle=True)
