@@ -26,10 +26,14 @@ result line:
    backward kernels (LayerNorm, bias collapse, attention with and without
    mask and with dense and compact bias, LayerNorm-MLP with and without a
    cotangent on y) at every stage shape for 2 clips, the adapt batch, each
-   output against the plain backward version; the library calls timed
-   beside them are ``F.layer_norm``'s backward and
-   ``scaled_dot_product_attention``'s backward, which gives dq, dk and dv
-   and no bias gradient.
+   output against the plain backward version, the attention's also for 1
+   clip (values only), where the last two stages have fewer problems than
+   the card has SMs and blocks share them; every attention backward call's
+   launches are read from the profiler (its kernel, the sum of the blocks'
+   shares of dk and dv where problems are shared, the sum of dl over the
+   windows).  The library calls timed beside them are ``F.layer_norm``'s
+   backward and ``scaled_dot_product_attention``'s backward, which gives
+   dq, dk and dv and no bias gradient.
 5. TANet slice at small size: full-width TANet at T=2, 32x32, two
    tta_online steps on the card and on the CPU from one seeded state dict:
    losses, logits, updated parameters, EMA.
@@ -94,7 +98,9 @@ result line:
    window) against plain, forward and backward, at every Swin-T and every
    Swin-B stage shape for 2 clips, the attention with and without mask on
    q, k, v as views of a packed projection output: every output, two
-   backward runs bit-equal, CUDA-event and device times of kernel and plain
+   backward runs bit-equal, the attention backward (from the row maximum
+   and sum its forward kept) making the packed backward's launches and none
+   of the forward kernel, CUDA-event and device times of kernel and plain
    version; beside the MLP the ``F.linear``-``F.gelu``-``F.linear``
    composition and its backward under autograd, beside the attention
    ``scaled_dot_product_attention`` and its backward.
@@ -154,7 +160,10 @@ comparisons are float32 ones.
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, NVIDIA's published H100 SXM peaks.
+operations over 67 TFLOP/s, NVIDIA's published H100 SXM peaks.  The
+attention backward runs its matrix products on the tensor cores in split
+TF32; its rows also carry ``tf32x3_floor_ms``, three tf32 products of
+those products at the dense TF32 rate of 495 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -206,6 +215,7 @@ SEED = 0
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12      # dense TF32 on the tensor cores
 
 # Swin-B on a 16x224x224 clip, per stage: width C, heads, tokens per clip,
 # windows per clip (= the shift mask's nW), blocks
@@ -237,8 +247,9 @@ SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
 # backward kernels: |error| <= tol * (largest |value| of the plain version's
 # tensor).  The sums over rows and windows are taken in chunks and the
 # chunks added in order, not in the plain version's order; float32
-# throughout.  Measured on an H100: at most 1e-6 (LayerNorm), 1e-6
-# (attention), 3e-6 (LayerNorm-MLP, dx after two sums over up to 4096 terms).
+# throughout, the attention's products in split TF32.  Measured on an H100:
+# at most 1e-6 (LayerNorm), 5e-6 (attention), 3e-6 (LayerNorm-MLP, dx after
+# two sums over up to 4096 terms).
 LN_BWD_TOL = 1e-5
 ATTN_BWD_TOL = 2e-5
 MLP_BWD_TOL = 2e-5
@@ -344,12 +355,37 @@ def fmt(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
+def kernel_launches(fn):
+    """{kernel name: launches} of one call of ``fn``, from torch.profiler
+    (asked again where it recorded no kernel)."""
+    for _attempt in range(3):
+        _host, _busy, rows = device_breakdown(fn, top=None)
+        if rows:
+            return {name: launches for name, _ms, launches in rows}
+    raise AssertionError("the profiler recorded no kernel")
+
+
+def check_attn_bwd_launches(what, fn, split):
+    """The launches of one attention backward call: attn_bwd_kernel, the
+    sum of the blocks' shares of dk and dv where ``split`` > 1 blocks share
+    a problem, the sum of dl over the windows; no forward kernel.  Returns
+    their number."""
+    names = kernel_launches(fn)
+    want = 2 + (split > 1)
+    if (sum(names.values()) != want
+            or any("attn_fwd_kernel" in k for k in names)
+            or not any("attn_bwd_kernel" in k for k in names)):
+        raise AssertionError(f"{what}: launches {names}, expected {want} "
+                             "with attn_bwd_kernel and no forward kernel")
+    return want
+
+
 class Totals:
     """Per-forward-pass sums of one kernel's measurements over its sites:
     ``add`` takes the sites' count and one site's numbers."""
 
     KEYS = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
-            "library_device_ms", "bytes", "flops")
+            "library_device_ms", "bytes", "flops", "tc_flops")
 
     def __init__(self):
         self.sum = dict.fromkeys(self.KEYS, 0.0)
@@ -365,14 +401,19 @@ class Totals:
     def row(self, name, source, replaces, has_library=True):
         ms, by = bound(self.sum["bytes"], self.sum["flops"])
         s = self.sum
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "max_abs_err": self.err, "ms": s["ms"],
-                "plain_ms": s["plain_ms"], "bound_ms": ms, "bound_by": by,
-                "library_ms": s["library_ms"] if has_library else None,
-                "device_ms": s["device_ms"],
-                "plain_device_ms": s["plain_device_ms"],
-                "library_device_ms":
-                    s["library_device_ms"] if has_library else None}
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "max_abs_err": self.err, "ms": s["ms"],
+               "plain_ms": s["plain_ms"], "bound_ms": ms, "bound_by": by,
+               "library_ms": s["library_ms"] if has_library else None,
+               "device_ms": s["device_ms"],
+               "plain_device_ms": s["plain_device_ms"],
+               "library_device_ms":
+                   s["library_device_ms"] if has_library else None}
+        if s["tc_flops"]:
+            # products on the tensor cores in split TF32: three tf32
+            # products for each, at the dense TF32 rate
+            row["tf32x3_floor_ms"] = 3 * s["tc_flops"] / TF32_FLOP_PER_S * 1e3
+        return row
 
 
 # ---------------------------------------------------------------------------
@@ -693,7 +734,9 @@ def phase_swin_kernels(dev):
 
     # G: attention backward; the library call is
     # scaled_dot_product_attention's backward for dq, dk, dv (it has no
-    # bias gradient)
+    # bias gradient).  One clip too, values and launches only: Swin-B's
+    # last two stages then have fewer problems than the card has SMs, and
+    # blocks share a problem (at 2 clips the last stage already does)
     attn_b = Totals()
     for c, nh, tokens, nw, depth in SWIN_STAGES:
         hd = c // nh
@@ -706,66 +749,80 @@ def phase_swin_kernels(dev):
                 torch.rand(nw, n_tok, n_tok, device=dev, generator=gen) < 0.3,
                 -100.0, 0.0)
             mask.diagonal(dim1=1, dim2=2).zero_()
-        b_ = 2 * tokens // n_tok
-        qkv, g = randn(b_, n_tok, 3 * c), randn(b_, n_tok, c)
-        for m in ((None, mask) if mask is not None else (None,)):
-            _out, ms_ = ca.attn_packed_fwd_cuda(qkv, dense, m, scale, nh,
-                                                save_ms=True)
-            want = ca.packed_attention_backward_reference(
-                qkv, dense, m, ms_, g, scale, nh)
-            want_c = cb.collapse_bias_reference(want[1], wd)
-            err = 0.0
-            for form, bias_t, want_db in (("dense", dense, want[1]),
-                                          ("compact", vc, want_c)):
-                got = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g, scale,
-                                              nh)
-                what = (f"attention bwd B_={b_} nh={nh} mask="
-                        f"{m is not None} {form}")
-                for i, nm in enumerate(("dq", "dk", "dv")):
-                    err = max(err, check_scaled(
-                        f"{what} {nm}", got[0][..., i * c:(i + 1) * c],
-                        want[0][..., i * c:(i + 1) * c], ATTN_BWD_TOL))
-                err = max(err, check_scaled(f"{what} dbias", got[1], want_db,
-                                            ATTN_BWD_TOL))
-                again = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g, scale,
-                                                nh)
-                if not (torch.equal(again[0], got[0])
-                        and torch.equal(again[1], got[1])):
-                    raise AssertionError(f"{what}: two runs differ")
-                del got, again
-            attn_b.err = max(attn_b.err, err)
-            del want, want_c
-            q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
-            leaves = [q5[i].detach().requires_grad_() for i in range(3)]
-            am = dense[None] if m is None else (
-                dense[None, None] + m[None, :, None]).expand(
-                    b_ // nw, nw, nh, n_tok, n_tok).reshape(
-                        b_, nh, n_tok, n_tok)
-            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=am,
-                                                   scale=scale)
-            g4 = g.reshape(b_, n_tok, nh, hd).permute(0, 2, 1, 3)
-            t = {"kernel": measure(lambda: ca.attn_packed_bwd_cuda(
-                     qkv, dense, m, ms_, g, scale, nh)),
-                 "kernel compact": measure(lambda: ca.attn_packed_bwd_cuda(
-                     qkv, vc, m, ms_, g, scale, nh)),
-                 "plain": measure(lambda: ca.packed_attention_backward_reference(
-                     qkv, dense, m, ms_, g, scale, nh)),
-                 "sdpa backward": measure(lambda: torch.autograd.grad(
-                     o_lib, leaves, g4, retain_graph=True))}
-            _report(f"attention bwd B_={b_} N={n_tok} nh={nh} hd={hd} mask="
-                    f"{m is not None}", err, t)
-            sites = depth // 2 if mask is not None else depth
-            nbytes = (2 * qkv.numel() + g.numel() + ms_.numel()
-                      + 2 * dense.numel()
-                      + (0 if m is None else m.numel())) * 4
-            flops = b_ * nh * n_tok * n_tok * (10 * hd + 12)
-            attn_b.add(sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
-                       plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
-                       library_ms=t["sdpa backward"][0],
-                       library_device_ms=t["sdpa backward"][1],
-                       bytes=nbytes, flops=flops)
-            del leaves, am, o_lib, ms_
-        del qkv, g
+        for clips in (2, 1):
+            b_ = clips * tokens // n_tok
+            split = ca.bwd_split(b_, nh, dev)
+            qkv, g = randn(b_, n_tok, 3 * c), randn(b_, n_tok, c)
+            for m in ((None, mask) if mask is not None else (None,)):
+                _out, ms_ = ca.attn_packed_fwd_cuda(qkv, dense, m, scale, nh,
+                                                    save_ms=True)
+                want = ca.packed_attention_backward_reference(
+                    qkv, dense, m, ms_, g, scale, nh)
+                want_c = cb.collapse_bias_reference(want[1], wd)
+                what = (f"attention bwd B_={b_} N={n_tok} nh={nh} hd={hd} "
+                        f"mask={m is not None}")
+                err = 0.0
+                for form, bias_t, want_db in (("dense", dense, want[1]),
+                                              ("compact", vc, want_c)):
+                    got = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
+                                                  scale, nh)
+                    for i, nm in enumerate(("dq", "dk", "dv")):
+                        err = max(err, check_scaled(
+                            f"{what} {form} {nm}",
+                            got[0][..., i * c:(i + 1) * c],
+                            want[0][..., i * c:(i + 1) * c], ATTN_BWD_TOL))
+                    err = max(err, check_scaled(f"{what} {form} dbias",
+                                                got[1], want_db, ATTN_BWD_TOL))
+                    again = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
+                                                    scale, nh)
+                    if not (torch.equal(again[0], got[0])
+                            and torch.equal(again[1], got[1])):
+                        raise AssertionError(f"{what} {form}: two runs differ")
+                    del got, again
+                attn_b.err = max(attn_b.err, err)
+                del want, want_c
+                launches = check_attn_bwd_launches(
+                    what, lambda: ca.attn_packed_bwd_cuda(
+                        qkv, dense, m, ms_, g, scale, nh), split)
+                what += f", {split} block(s) a problem, {launches} launches"
+                if clips == 1:
+                    print(f"{what}: max abs err {err:.2e}, two runs "
+                          "bit-equal", flush=True)
+                    del ms_
+                    continue
+                q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                leaves = [q5[i].detach().requires_grad_() for i in range(3)]
+                am = dense[None] if m is None else (
+                    dense[None, None] + m[None, :, None]).expand(
+                        b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                            b_, nh, n_tok, n_tok)
+                o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=am,
+                                                       scale=scale)
+                g4 = g.reshape(b_, n_tok, nh, hd).permute(0, 2, 1, 3)
+                t = {"kernel": measure(lambda: ca.attn_packed_bwd_cuda(
+                         qkv, dense, m, ms_, g, scale, nh)),
+                     "kernel compact": measure(lambda: ca.attn_packed_bwd_cuda(
+                         qkv, vc, m, ms_, g, scale, nh)),
+                     "plain": measure(
+                         lambda: ca.packed_attention_backward_reference(
+                             qkv, dense, m, ms_, g, scale, nh)),
+                     "sdpa backward": measure(lambda: torch.autograd.grad(
+                         o_lib, leaves, g4, retain_graph=True))}
+                _report(what, err, t)
+                sites = depth // 2 if mask is not None else depth
+                nbytes = (2 * qkv.numel() + g.numel() + ms_.numel()
+                          + 2 * dense.numel()
+                          + (0 if m is None else m.numel())) * 4
+                pairs = b_ * nh * n_tok * n_tok
+                attn_b.add(sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                           plain_ms=t["plain"][0],
+                           plain_device_ms=t["plain"][1],
+                           library_ms=t["sdpa backward"][0],
+                           library_device_ms=t["sdpa backward"][1],
+                           bytes=nbytes, flops=pairs * (10 * hd + 12),
+                           tc_flops=pairs * 10 * hd)
+                del leaves, am, o_lib, ms_
+            del qkv, g
 
     # H: LayerNorm-MLP backward; no one PyTorch call computes it.  The
     # tap's cotangent on y exists at the chosen blocks, stages 3 and 4
@@ -832,8 +889,17 @@ def phase_swin_kernels(dev):
               f"{r['plain_ms']:.3f} (device {fmt(r['plain_device_ms'])}), "
               f"library {fmt(r['library_ms'])} (device "
               f"{fmt(r['library_device_ms'])}), bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']}", flush=True)
+              f"{r['bound_by']}{_floor(r)}", flush=True)
     return rows
+
+
+def _floor(row) -> str:
+    """The split-TF32 floor of a row whose products run on the tensor
+    cores, to print beside its float32 bound."""
+    if "tf32x3_floor_ms" not in row:
+        return ""
+    return (f"; split-TF32 floor {row['tf32x3_floor_ms']:.4f} (3 tf32 "
+            "products of its matrix products at 495 TFLOP/s)")
 
 
 def phase_swin_proj_kernels(dev):
@@ -1244,18 +1310,28 @@ def phase_unfused_kernels(dev):
                                                          scale),
                                   want, ATTN_TOL)
                 del want
-                got = ca.attn_heads_bwd_cuda(q, k, v, dense, m, g, scale)
+                # the backward reads the row maximum and sum its forward
+                # kept; the plain version rebuilds them from the logits
+                _o, ms_h = ca.attn_heads_fwd_cuda(q, k, v, dense, m, scale,
+                                                  save_ms=True)
+                got = ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_h, g, scale)
                 want = ca.heads_attention_backward_reference(q, k, v, dense,
                                                              m, g, scale)
                 err_b = max(check_scaled(f"attention (heads) bwd {tag} {nm}",
                                          p_, q_, ATTN_BWD_TOL)
                             for nm, p_, q_ in zip(("dq", "dk", "dv", "dbias"),
                                                   got, want))
-                again = ca.attn_heads_bwd_cuda(q, k, v, dense, m, g, scale)
+                again = ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_h, g,
+                                               scale)
                 if not all(torch.equal(p_, q_) for p_, q_ in zip(again, got)):
                     raise AssertionError(f"attention (heads) bwd {tag}: two "
                                          "runs differ")
-                del got, want, again
+                del got, want, again, _o
+                launches = check_attn_bwd_launches(
+                    f"attention (heads) bwd {tag}",
+                    lambda: ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_h, g,
+                                                   scale),
+                    ca.bwd_split(b_, nh, dev))
                 q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
                 leaves = [q5[i].detach().requires_grad_() for i in range(3)]
                 am = dense[None] if m is None else (
@@ -1274,13 +1350,15 @@ def phase_unfused_kernels(dev):
                          lambda: F.scaled_dot_product_attention(
                              q5[0], q5[1], q5[2], attn_mask=am, scale=scale)),
                      "bwd": quick(lambda: ca.attn_heads_bwd_cuda(
-                         q, k, v, dense, m, g, scale)),
+                         q, k, v, dense, m, ms_h, g, scale)),
                      "bwd plain": quick(
                          lambda: ca.heads_attention_backward_reference(
                              q, k, v, dense, m, g, scale)),
                      "bwd sdpa": quick(lambda: torch.autograd.grad(
                          o_lib, leaves, g4, retain_graph=True), grad=True)}
-                _report(f"attention (heads) {tag}", max(err, err_b), t)
+                _report(f"attention (heads) {tag}, backward {launches} "
+                        "launches, none of the forward kernel",
+                        max(err, err_b), t)
                 tot["heads_fwd"].err = max(tot["heads_fwd"].err, err)
                 tot["heads_bwd"].err = max(tot["heads_bwd"].err, err_b)
                 # shifted blocks are every second one where there is a mask
@@ -1291,7 +1369,7 @@ def phase_unfused_kernels(dev):
                         swin_b_heads[key] = None if (
                             t[d][1] is None or swin_b_heads[key] is None) \
                             else swin_b_heads[key] + sites * t[d][1]
-                    del leaves, am, o_lib
+                    del leaves, am, o_lib, ms_h
                     continue
                 small = dense.numel() + (0 if m is None else m.numel())
                 pairs = b_ * nh * n_tok * n_tok
@@ -1309,9 +1387,10 @@ def phase_unfused_kernels(dev):
                     plain_device_ms=t["bwd plain"][1],
                     library_ms=t["bwd sdpa"][0],
                     library_device_ms=t["bwd sdpa"][1],
-                    bytes=(7 * b_ * n_tok * c + small + dense.numel()) * 4,
-                    flops=pairs * (10 * hd + 12))
-                del leaves, am, o_lib
+                    bytes=(7 * b_ * n_tok * c + ms_h.numel() + small
+                           + dense.numel()) * 4,
+                    flops=pairs * (10 * hd + 12), tc_flops=pairs * 10 * hd)
+                del leaves, am, o_lib, ms_h
             del qkv, q, k, v, g
 
     src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
@@ -1343,7 +1422,8 @@ def phase_unfused_kernels(dev):
               f"(device {fmt(r['plain_device_ms'])}), library "
               f"{fmt(r['library_ms'])} (device "
               f"{fmt(r['library_device_ms'])}){extra}, bound "
-              f"{r['bound_ms']:.4f} by {r['bound_by']}", flush=True)
+              f"{r['bound_ms']:.4f} by {r['bound_by']}{_floor(r)}",
+              flush=True)
     return rows
 
 

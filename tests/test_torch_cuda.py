@@ -14,7 +14,8 @@ rtol 1e-4 / atol 1e-4 (tiled float32 sums over up to 4096 terms).  Their
 backward kernels against the plain backward versions: every gradient to
 2e-5 of its tensor's largest magnitude (``GRAD_REL``: the sums over rows or
 windows are taken in chunks and the chunks added in order, not in the
-plain version's order; float32 throughout), the bias collapse exactly.
+plain version's order; float32 throughout, the attention's products in
+split TF32), the bias collapse exactly.
 The projection-fused attention kernels: forward rtol 1e-4 / atol 1e-4 as
 the LayerNorm-MLP (two tiled float32 products around the attention's
 softmax); every gradient to 5e-5 of its tensor's largest magnitude
@@ -36,6 +37,7 @@ from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
                                  cuda_tam)
 from vitta_tpu_torch.ops.cuda_tam import (tam_dynamic_conv,
                                           tam_dynamic_conv_reference)
+from vitta_tpu_torch.tools.synthetic import device_breakdown
 
 torch.set_num_threads(1)
 
@@ -252,7 +254,9 @@ def test_bias_collapse_kernel_matches_plain_exactly(cuda_device, window, nh):
     dict(b_=2, nh=32, hd=32, window=(8, 7, 7), nw=0),
     dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
     dict(b_=4, nh=1, hd=24, window=(3, 5, 5), nw=2),
-    dict(b_=4, nh=1, hd=8, window=(2, 3, 3), nw=0)], ids=str)
+    dict(b_=4, nh=1, hd=8, window=(2, 3, 3), nw=0),
+    dict(b_=1, nh=32, hd=32, window=(8, 7, 7), nw=0),
+    dict(b_=2, nh=16, hd=32, window=(8, 7, 7), nw=2)], ids=str)
 def test_attention_backward_kernel_matches_plain(cuda_device, case, compact):
     qkv, vc, mask, wd = _attn_case(cuda_device, **case)
     nh, hd = case["nh"], case["hd"]
@@ -276,6 +280,33 @@ def test_attention_backward_kernel_matches_plain(cuda_device, case, compact):
     again = cuda_attention.attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale,
                                                 nh)
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,nh", [(8, 4), (2, 32), (1, 32)])
+def test_attention_backward_launches(cuda_device, b_, nh):
+    """One backward call: the kernel, the sum of the blocks' shares of dk
+    and dv where a problem is shared (fewer problems than SMs), and the
+    sum of dl over the windows; the per-(head, window) form the same, and
+    no launch of the forward kernel."""
+    ca = cuda_attention
+    qkv, vc, _mask, wd = _attn_case(cuda_device, b_, nh, 32, (8, 7, 7), 0)
+    bias = cuda_bias.expand_bias_reference(vc, wd)
+    g = _randn(cuda_device, b_, 392, nh * 32, seed=9)
+    _out, ms = ca.attn_packed_fwd_cuda(qkv, bias, None, 32 ** -0.5, nh,
+                                       save_ms=True)
+    q, k, v = qkv.reshape(b_, 392, 3, nh, 32).unbind(2)
+    want = 2 + (ca.bwd_split(b_, nh, cuda_device) > 1)
+    for fn in (lambda: ca.attn_packed_bwd_cuda(qkv, bias, None, ms, g,
+                                               32 ** -0.5, nh),
+               lambda: ca.attn_heads_bwd_cuda(
+                   q, k, v, bias, None, ms, g.reshape(b_, 392, nh, 32),
+                   32 ** -0.5)):
+        names = {name: launches for name, _ms, launches
+                 in device_breakdown(fn, top=None)[2]}
+        assert sum(names.values()) == want, names
+        assert not any("attn_fwd_kernel" in k for k in names), names
+        assert any("attn_bwd_kernel" in k for k in names), names
 
 
 def _mlp_case(device, m, c):
@@ -771,8 +802,10 @@ def test_heads_attention_kernels_match_plain(cuda_device, case, layout):
     assert ca.counters.heads_fwd == 1
     want = ca.attention_reference(q, k, v, bias, mask, scale)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    out, ms = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale, save_ms=True)
+    assert ca.counters.heads_fwd == 2 and torch.equal(out, got)
     g = _randn(cuda_device, *q.shape, seed=9)
-    grads = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale)
+    grads = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
     assert ca.counters.heads_bwd == 1
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads,
                           ca.heads_attention_backward_reference(
@@ -780,7 +813,7 @@ def test_heads_attention_kernels_match_plain(cuda_device, case, layout):
         assert a.is_contiguous()
         _assert_grad(name, a, b)
     assert all(torch.equal(a, b) for a, b in zip(
-        ca.attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale), grads))
+        ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale), grads))
     # the packed kernels' counters do not move
     assert (ca.counters.fwd, ca.counters.bwd) == (0, 0)
 
@@ -856,7 +889,7 @@ def test_unfused_kernels_reject_what_they_do_not_take(cuda_device):
         ca.window_attention_heads(far, far, far, _randn(dev, 1, 2, 2), None,
                                   0.5)
     with pytest.raises(ValueError):       # a strided cotangent, unwrapped
-        ca.attn_heads_bwd_cuda(q, k, v, bias, mask,
+        ca.attn_heads_bwd_cuda(q, k, v, bias, mask, _randn(dev, 6, 18, 6),
                                _randn(dev, 6, 3, 18, 8).transpose(1, 2), scale)
 
 

@@ -55,34 +55,53 @@
 //           Toeplitz slices (nh, 2wd-1, hw, hw), as the bias came in
 // and dq, dk, dv are written packed, (B_, N, 3C), the layout of qkv.
 //
-// What bounds it: float32 operations again.  The TPU kernel holds one
-// window's (N, N) logits per head in VMEM and adds dbias into a block that
-// its sequential grid revisits.  Here nothing of size (N, N) fits a block,
-// dq is a sum over keys and dk, dv are sums over query rows, so the work is
-// two kernels that each recompute the logits, and no sum crosses a block:
-//  * the query kernel: a block owns one (window, head), or a share of its
-//    query rows; K and V lie transposed in shared memory (107 KB), a warp
-//    takes a few query rows at a time with the lanes on the keys, exactly
-//    as the forward does, and gets p, dp, rs and dl in registers.  It
-//    writes dl (B_, nh, N, N) and rs to scratch and computes dq;
-//  * the key kernel: a block owns the same problem by key rows; Q and g lie
-//    transposed in shared memory, the lanes are on the query rows, p and dl
-//    are recomputed from m, s and the rs of the first kernel, and dv and dk
-//    follow.  It reads bias and mask by columns, which costs half of each
-//    32-byte sector;
-//  * dq, dk and dv are sums over the lanes' index.  Each lane sums its 13
-//    columns for each of 32 (row, channel) pairs, and one butterfly of 31
-//    shuffles (warp_transpose_sum) leaves pair L's total on lane L: no
-//    second copy of K, V, Q or g in the other layout, which shared memory
-//    has no room for;
-//  * dbias: a third kernel adds the dl of all windows in the order of the
-//    windows (and, for the compact form, of the block diagonal).  dl passes
-//    through device memory once, 315 MB at Swin-B's first stage for two
-//    clips.  Keeping dbias in registers over a loop over windows would
-//    avoid that and costs 52 more registers per thread than there are.
-// Seven products of N*N*hd multiply-adds where five are the least possible
-// (the forward has two).  No atomics anywhere: every output is the same from
-// run to run.  The mask has no gradient.
+// What bounds it: operations, five (N, N, hd) products per problem (10 N^2 hd
+// of 12 N^2 hd + 10 N^2 float32 operations) against 11 N hd floats of q, k,
+// v, g, dq, dk, dv.  The TPU kernel holds a window's (N, N) logits per head
+// in VMEM and adds dbias into a block that its sequential grid revisits.
+// Here one block owns one (window, head) problem in one pass:
+//  * K and V of the problem lie in shared memory (2 x 416 x 36 floats); a
+//    warp owns 32 keys (13 warps cover N <= 416), the block walks the query
+//    rows 16 at a time, and the q and g strips (with the rows' m and s) come
+//    in by cp.async, double-buffered, while the previous strip computes.
+//    So do the strip's 16 rows of the bias and the mask (the compact bias
+//    gathered run by run), issued once the logits of the strip before have
+//    read theirs, so that their device-memory latency hides behind the rest
+//    of the strip.  210 KB a block, one block an SM, and ptxas allots 128
+//    registers a thread (13 warps count as 16);
+//  * per strip and warp: s^T = K q^T and dp^T = V g^T as (16 keys, 8 rows)
+//    tiles; p, the warp's part of rs, then rs from all warps through shared
+//    memory in warp order; dl; dv += p^T g and dk += dl^T q, accumulated in
+//    registers (64 a lane) over the strips; and the warp's share of dq = dl K
+//    over its keys, the shares added in warp order through shared memory.
+//    Five products, none recomputed; nothing of size (N, N) leaves the chip
+//    but dl, and dl only when dbias is wanted;
+//  * every product runs on the tensor cores, mma.sync.m16n8k8 on tf32
+//    operands, at float32 accuracy: each operand is split x = hi + lo into
+//    two tf32 values (hi rounded to nearest, lo the remainder cut to tf32,
+//    four integer and float operations) and a b = lo*hi + hi*lo + hi*hi
+//    ("3xTF32").  One tf32 product keeps about three decimal digits, which
+//    the 2e-5 tolerance of the backward does not allow.  mma.sync and not
+//    wgmma: wgmma reads tf32 operands only K-major from shared memory, and
+//    dv = p^T g and dk = dl^T q contract over query rows, which would need
+//    transposed copies.  Computing s^T rather than s makes the accumulator
+//    tiles of s^T and dp^T the A operands of those two products as they lie
+//    in registers (a k step maps column t to row 2t and t + 4 to 2t + 1); only
+//    dl crosses the lanes, through the warp's own shared-memory tile, for dq;
+//  * the logits read the bias and mask from shared memory in the tiles'
+//    order, four rows of eight neighbouring keys an access, without a
+//    branch: what lies past row or key N is computed and then not selected;
+//  * dl (B_, nh, N, N) goes to device memory, four rows of eight keys per
+//    access, and a second kernel adds the windows in their order (and, for
+//    the compact form, the block diagonal);
+//  * where whole problems would leave SMs without a block (Swin-B's last
+//    stage: 64 problems for 2 clips, 32 for one), up to four blocks share a
+//    problem by strips, write their shares of dk and dv to scratch, and a
+//    third kernel adds them in block order.
+// No float atomics anywhere: every output is the same from run to run.  The
+// logits are recomputed in another order than the forward summed them, so
+// p is not the forward's to the last bit and its rows sum to 1 within the
+// float32 rounding of the products.  The mask has no gradient.
 //
 // Per (head, window).  The TPU kernel of this route takes q, k and v as three
 // head-major tensors (nh, B_, N, hd), which costs a transposing copy of each
@@ -92,16 +111,10 @@
 // and their cotangents through a base pointer and three strides each
 // (attention_kernels.cuh: Rows), so the same kernels read the three where
 // they lie: as views of the packed projection output, as (B_, N, nh, hd)
-// tensors of their own, or head-major; no transposing copy exists.  What
-// the route keeps of its own:
-//  * the forward writes no row maximum and sum, and nothing but
-//    (q, k, v, bias, mask) is kept for the backward;
-//  * the backward's first launch is the forward kernel with no output: it
-//    rebuilds the maximum and sum (q k^T and the softmax's two passes, no
-//    p v), bit for bit what the forward had, into scratch; then the query
-//    kernel, the key kernel and the sum over the windows as above.  Eight
-//    products of N*N*hd multiply-adds where five are the least possible;
-//  * dq, dk, dv are three outputs, each (B_, N, nh, hd); dbias is dense.
+// tensors of their own, or head-major; no transposing copy exists.  The
+// forward writes the row maximum and sum as the packed one does, and the
+// backward reads them: the same launches as the packed backward.  dq, dk, dv
+// are three outputs, each (B_, N, nh, hd); dbias is dense.
 //
 // The kernels and their launchers are in attention_kernels.cuh, which
 // attention_proj.cu includes too.
@@ -129,10 +142,17 @@ int vitta_attn_packed_fwd(const float* qkv, const float* bias,
                                              scale, (cudaStream_t)stream);
 }
 
-// Floats of scratch vitta_attn_packed_bwd needs: dl (b_, nh, n, n) and rs
-// (b_, nh, n).
-long long vitta_attn_bwd_scratch_floats(int b_, int n, int nh) {
-  return vitta::attn::bwd_scratch_floats(b_, n, nh);
+// Floats of scratch vitta_attn_packed_bwd and vitta_attn_heads_bwd need:
+// dl (b_, nh, n, n) and, where a problem is shared by several blocks, their
+// shares of dk and dv.
+long long vitta_attn_bwd_scratch_floats(int b_, int n, int nh, int hd) {
+  return vitta::attn::bwd_scratch_floats(b_, n, nh, hd);
+}
+
+// Blocks that share one problem in the backward (1 where there are enough
+// problems for the card's SMs).
+int vitta_attn_bwd_split(int b_, int nh) {
+  return vitta::attn::bwd_split(b_, nh);
 }
 
 // g: (b_, n, nh*hd), the cotangent of out; ms as the forward wrote it;
@@ -151,49 +171,40 @@ int vitta_attn_packed_bwd(const float* qkv, const float* bias,
 // Per (head, window), on separate q, k, v: element (b, i, h, d) of q lies at
 // q[b*strides[0] + i*strides[1] + h*strides[2] + d], of k and v likewise
 // with strides[3..5] and strides[6..8] (a host array of 9).  bias: dense
-// (nh, n, n).  mask: (nw, n, n) or null.  out: (b_, n, nh, hd).
+// (nh, n, n).  mask: (nw, n, n) or null.  out: (b_, n, nh, hd).  ms:
+// (b_, n, 2nh) or null.
 int vitta_attn_heads_fwd(const float* q, const float* k, const float* v,
                          const long long* strides, const float* bias,
-                         const float* mask, float* out, int b_, int n, int nh,
-                         int hd, int nw, float scale, void* stream) {
+                         const float* mask, float* out, float* ms, int b_,
+                         int n, int nh, int hd, int nw, float scale,
+                         void* stream) {
   using vitta::attn::InRows;
   const long long* s = strides;
   return (int)vitta::attn::launch_fwd(
       InRows{q, s[0], s[1], s[2]}, InRows{k, s[3], s[4], s[5]},
-      InRows{v, s[6], s[7], s[8]}, bias, mask, out, nullptr, b_, n, nh, hd, nw,
-      0, 0, 0, scale, (cudaStream_t)stream);
+      InRows{v, s[6], s[7], s[8]}, bias, mask, out, ms, b_, n, nh, hd, nw, 0,
+      0, 0, scale, (cudaStream_t)stream);
 }
 
-// Floats of scratch vitta_attn_heads_bwd needs: the packed backward's and the
-// rebuilt row maximum and sum (b_, n, 2nh).
-long long vitta_attn_heads_bwd_scratch_floats(int b_, int n, int nh) {
-  return vitta::attn::bwd_scratch_floats(b_, n, nh) + (long long)b_ * n * 2 * nh;
-}
-
-// g: (b_, n, nh, hd), the cotangent of out; dq, dk, dv: (b_, n, nh, hd),
-// contiguous; dbias: (nh, n, n).
+// ms as the forward wrote it; g: (b_, n, nh, hd), the cotangent of out; dq,
+// dk, dv: (b_, n, nh, hd), contiguous; dbias: (nh, n, n).
 int vitta_attn_heads_bwd(const float* q, const float* k, const float* v,
                          const long long* strides, const float* bias,
-                         const float* mask, const float* g, float* dq,
-                         float* dk, float* dv, float* dbias, float* scratch,
-                         int b_, int n, int nh, int hd, int nw, float scale,
-                         void* stream) {
+                         const float* mask, const float* ms, const float* g,
+                         float* dq, float* dk, float* dv, float* dbias,
+                         float* scratch, int b_, int n, int nh, int hd,
+                         int nw, float scale, void* stream) {
   using vitta::attn::InRows;
   using vitta::attn::OutRows;
   if (dbias == nullptr) return (int)cudaErrorInvalidValue;
   const long long* s = strides;
-  const InRows qr{q, s[0], s[1], s[2]}, kr{k, s[3], s[4], s[5]},
-      vr{v, s[6], s[7], s[8]};
   const long long c = (long long)nh * hd;
-  float* ms = scratch + vitta::attn::bwd_scratch_floats(b_, n, nh);
-  cudaError_t e = vitta::attn::launch_fwd(qr, kr, vr, bias, mask, nullptr, ms,
-                                          b_, n, nh, hd, nw, 0, 0, 0, scale,
-                                          (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
   return (int)vitta::attn::launch_bwd(
-      qr, kr, vr, bias, mask, ms, g, OutRows{dq, n * c, c, hd},
-      OutRows{dk, n * c, c, hd}, OutRows{dv, n * c, c, hd}, dbias, scratch, b_,
-      n, nh, hd, nw, 0, 0, 0, scale, (cudaStream_t)stream);
+      InRows{q, s[0], s[1], s[2]}, InRows{k, s[3], s[4], s[5]},
+      InRows{v, s[6], s[7], s[8]}, bias, mask, ms, g,
+      OutRows{dq, n * c, c, hd}, OutRows{dk, n * c, c, hd},
+      OutRows{dv, n * c, c, hd}, dbias, scratch, b_, n, nh, hd, nw, 0, 0, 0,
+      scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

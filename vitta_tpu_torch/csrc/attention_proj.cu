@@ -41,7 +41,8 @@
 //   forward:  [ln_rows]  gemm_tiles<BIAS>  packed_attn_fwd  gemm_tiles<BIAS>
 //   backward: [ln_rows]  grad product + column sums (dwproj, dbproj)
 //             gemm_tiles (g_att)   gemm_tiles<BIAS> (qkv again)
-//             packed_attn_bwd_q, _kv, dbias_reduce
+//             packed attention backward (attn_bwd, [the dk, dv sum],
+//             [dbias_reduce])
 //             gemm_tiles<ADD> (dx or dy)   grad product + column sums
 //             (dwqkv, dbqkv)   [LayerNorm backward]
 // Every matrix product is gemm_tiles (gemm_tiles.cuh), the attention kernels
@@ -95,7 +96,7 @@ BwdScratch bwd_scratch(int b_, int n, int nh, int hd, bool with_ln) {
   s.gatt = m * c;
   s.y = s.dy = with_ln ? m * c : 0;
   s.ln = with_ln ? round4ll(ln_bwd_scratch_floats(m, c)) : 0;
-  s.attn = round4ll(attn::bwd_scratch_floats(b_, n, nh));
+  s.attn = round4ll(attn::bwd_scratch_floats(b_, n, nh, hd));
   s.grad = max2(grad_partial_floats(3 * c, c, (int)m),
                 grad_partial_floats(c, c, (int)m));
   s.cols = (long long)col_chunks(m) * 3 * c;

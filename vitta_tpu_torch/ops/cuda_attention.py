@@ -27,9 +27,18 @@ where its packed kernel does not fit; ``attention_reference`` is its plain
 forward and ``heads_attention_backward_reference`` its plain backward.  Its
 kernels (the counterparts of pallas_attention.py:83 and :91) read q, k and
 v where they lie, through three strides each, so views of the packed
-projection output cost no copy.  It keeps (q, k, v, bias, mask) and no row
-maximum and sum (pallas_attention.py:198-200): the backward rebuilds them
-first, and returns dq, dk, dv as three tensors and a dense dbias.
+projection output cost no copy.  The JAX op keeps (q, k, v, bias, mask)
+and its backward rebuilds the softmax from the logits
+(pallas_attention.py:198-200); this one also keeps the row maximum and sum
+its forward kernel wrote, as the packed op does, so that its backward
+kernel is the packed one's on strided rows and rebuilds nothing.  The op's
+inputs and outputs are the JAX op's; the backward returns dq, dk, dv as
+three tensors and a dense dbias.
+
+The backward kernel computes its five matrix products on the tensor cores
+in split TF32 (each float32 operand a sum of two tf32 values, three tf32
+products per product), which keeps float32's accuracy
+(tests/test_torch_attention_tf32.py emulates it on the CPU).
 
 The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
 does not take raises.
@@ -130,9 +139,10 @@ def packed_attention_backward_reference(qkv, bias, mask, ms, g, scale: float,
 
 def heads_attention_backward_reference(q, k, v, bias, mask, g, scale: float):
     """(dq, dk, dv, dbias) for the cotangent ``g`` (B_, N, nh, hd) of the
-    attention output, written out from (q, k, v, bias, mask) as the kernel
-    computes it (pallas_attention.py:91-124): the softmax is rebuilt from
-    the logits, nothing of the forward's is read."""
+    attention output, written out from (q, k, v, bias, mask) as the TPU
+    kernel computes it (pallas_attention.py:91-124): the softmax is rebuilt
+    from the logits.  The CUDA kernel reads the row maximum and sum its
+    forward wrote instead, those of the same logits."""
     b_, n, nh, _ = q.shape
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + bias[None]
     if mask is not None:
@@ -164,17 +174,17 @@ def _lib():
         lib.vitta_attn_packed_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                               i, i, i, i, i, ctypes.c_float, p]
         lib.vitta_attn_packed_bwd.restype = i
-        lib.vitta_attn_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_attn_bwd_scratch_floats.argtypes = [i, i, i, i]
         lib.vitta_attn_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_attn_bwd_split.argtypes = [i, i]
+        lib.vitta_attn_bwd_split.restype = i
         ll = ctypes.POINTER(ctypes.c_longlong)
-        lib.vitta_attn_heads_fwd.argtypes = [p, p, p, ll, p, p, p, i, i, i, i,
-                                             i, ctypes.c_float, p]
+        lib.vitta_attn_heads_fwd.argtypes = [p, p, p, ll, p, p, p, p, i, i, i,
+                                             i, i, ctypes.c_float, p]
         lib.vitta_attn_heads_fwd.restype = i
-        lib.vitta_attn_heads_bwd.argtypes = [p, p, p, ll] + [p] * 8 + [
+        lib.vitta_attn_heads_bwd.argtypes = [p, p, p, ll] + [p] * 9 + [
             i, i, i, i, i, ctypes.c_float, p]
         lib.vitta_attn_heads_bwd.restype = i
-        lib.vitta_attn_heads_bwd_scratch_floats.argtypes = [i, i, i]
-        lib.vitta_attn_heads_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_attn_max_tokens.restype = i
         lib.vitta_attn_max_head_dim.restype = i
         lib.vitta_attn_max_row_stride.restype = ctypes.c_longlong
@@ -242,11 +252,28 @@ def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
     return (out, ms) if save_ms else out
 
 
+def bwd_split(b_: int, nh: int, device=None) -> int:
+    """Blocks that share one (window, head) problem in the backward kernel
+    on ``device``'s card: 1 unless the problems are fewer than its SMs."""
+    with torch.cuda.device(device):
+        return _lib().vitta_attn_bwd_split(b_, nh)
+
+
+def _bwd_scratch(b_, n, nh, hd, dev):
+    """The backward's scratch (the bias cotangent of every window, B_*nh*N*N
+    floats, and the blocks' shares of dk and dv where they share a
+    problem), sized on ``dev``'s card."""
+    with torch.cuda.device(dev):
+        floats = _lib().vitta_attn_bwd_scratch_floats(b_, n, nh, hd)
+    return torch.empty(floats, dtype=torch.float32, device=dev)
+
+
 def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int):
-    """Backward kernels: one wrapper call, three launches on the current
-    stream; returns (dqkv (B_, N, 3C), dbias in the bias's form), allocated
-    here with the scratch (the bias cotangent of every window, B_*nh*N*N
-    floats)."""
+    """Backward kernels: one wrapper call, two to three launches on the
+    current stream (the kernel, the sum of the blocks' shares of dk and dv
+    where problems are shared, the sum of dl over the windows); returns
+    (dqkv (B_, N, 3C), dbias in the bias's form), allocated here with the
+    scratch."""
     b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
     dev = qkv.device
     check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
@@ -254,8 +281,7 @@ def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int):
     lib = _lib()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
-    scratch = torch.empty(lib.vitta_attn_bwd_scratch_floats(b_, n, nh),
-                          dtype=torch.float32, device=dev)
+    scratch = _bwd_scratch(b_, n, nh, hd, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.vitta_attn_packed_bwd(
@@ -355,45 +381,50 @@ def _check_heads(q, k, v, bias, mask):
     return b_, n, nh, hd, nw, (ctypes.c_longlong * 9)(*strides)
 
 
-def attn_heads_fwd_cuda(q, k, v, bias, mask, scale: float):
+def attn_heads_fwd_cuda(q, k, v, bias, mask, scale: float,
+                        save_ms: bool = False):
     """Forward kernel per (head, window): one launch; returns out
-    (B_, N, nh, hd) and writes nothing else."""
+    (B_, N, nh, hd), and ms (B_, N, 2nh) with ``save_ms``."""
     b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
     dev = q.device
     out = torch.empty((b_, n, nh, hd), dtype=torch.float32, device=dev)
+    ms = torch.empty((b_, n, 2 * nh), dtype=torch.float32,
+                     device=dev) if save_ms else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = _lib().vitta_attn_heads_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), b_, n, nh, hd, nw, float(scale), stream)
+            out.data_ptr(), None if ms is None else ms.data_ptr(), b_, n, nh,
+            hd, nw, float(scale), stream)
     raise_on(code, "window attention (heads) forward kernel")
     counters.heads_fwd += 1
-    return out
+    return (out, ms) if save_ms else out
 
 
-def attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale: float):
-    """Backward kernels per (head, window): one wrapper call, four launches
-    on the current stream, the first of which rebuilds the softmax's row
-    maximum and sum; returns (dq, dk, dv, each (B_, N, nh, hd) and
-    contiguous, dbias (nh, N, N)), allocated here with the scratch."""
+def attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale: float):
+    """Backward kernels per (head, window), from the row maximum and sum
+    ``ms`` the forward wrote: one wrapper call, the packed backward's two to
+    three launches on the current stream; returns (dq, dk, dv, each
+    (B_, N, nh, hd) and contiguous, dbias (nh, N, N)), allocated here with
+    the scratch."""
     b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
     dev = q.device
+    check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
     check_tensor("window attention", "grad", g, (b_, n, nh, hd), dev)
     lib = _lib()
     dq, dk, dv = (torch.empty((b_, n, nh, hd), dtype=torch.float32,
                               device=dev) for _ in range(3))
     dbias = torch.empty_like(bias)
-    scratch = torch.empty(lib.vitta_attn_heads_bwd_scratch_floats(b_, n, nh),
-                          dtype=torch.float32, device=dev)
+    scratch = _bwd_scratch(b_, n, nh, hd, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = lib.vitta_attn_heads_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), scratch.data_ptr(), b_, n, nh, hd, nw,
-            float(scale), stream)
+            ms.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), b_, n, nh,
+            hd, nw, float(scale), stream)
     raise_on(code, "window attention (heads) backward kernel")
     counters.heads_bwd += 1
     return dq, dk, dv, dbias
@@ -402,20 +433,24 @@ def attn_heads_bwd_cuda(q, k, v, bias, mask, g, scale: float):
 class HeadsWindowAttention(torch.autograd.Function):
     """The kernel pair as one differentiable op (the counterpart of the
     custom VJP at pallas_attention.py:192-211).  With ``keep`` the forward
-    keeps (q, k, v, bias, mask) and nothing it computed; without it nothing
-    is kept.  A strided cotangent is copied once, and counted."""
+    has the kernel emit the row maximum and sum and keeps (q, k, v, bias,
+    mask, ms); without it nothing is kept.  A strided cotangent is copied
+    once, and counted."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale, keep):
         ctx.scale = scale
-        if keep:
-            ctx.save_for_backward(q, k, v, bias, mask)
-        return attn_heads_fwd_cuda(q, k, v, bias, mask, scale)
+        if not keep:
+            return attn_heads_fwd_cuda(q, k, v, bias, mask, scale)
+        out, ms = attn_heads_fwd_cuda(q, k, v, bias, mask, scale, True)
+        ctx.save_for_backward(q, k, v, bias, mask, ms)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, mask = ctx.saved_tensors
-        return attn_heads_bwd_cuda(q, k, v, bias, mask, contiguous_counted(g),
+        q, k, v, bias, mask, ms = ctx.saved_tensors
+        return attn_heads_bwd_cuda(q, k, v, bias, mask, ms,
+                                   contiguous_counted(g),
                                    ctx.scale) + (None, None, None)
 
 

@@ -267,10 +267,11 @@ def _bwd_cuda(x, ln, wqkv, bqkv, wproj, bias, mask, o_att, ms, g, gy, scale,
     dx = new(b_, n, c)
     shapes = ((3 * c, c), (3 * c,), (c, c), (c,), (nh, n, n))
     grads = [new(*s) if w else None for s, w in zip(shapes, want)]
-    scratch = new(lib.vitta_attn_proj_bwd_scratch_floats(b_, n, nh, hd,
-                                                         int(ln is not None)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        # sized for this card: a problem's blocks depend on its SM count
+        scratch = new(lib.vitta_attn_proj_bwd_scratch_floats(
+            b_, n, nh, hd, int(ln is not None)))
         if ln is None:
             dgb = None
             code = lib.vitta_attn_proj_bwd(

@@ -81,12 +81,13 @@ class StepTimes:
             self.ms.append(value)
 
 
-def device_breakdown(fn, top: int = 8):
+def device_breakdown(fn, top: int | None = 8):
     """(host ms, device-busy ms, [(kernel name, ms, launches)]) of one
     call of ``fn`` that ends synchronised, from torch.profiler, after one
     call to warm up; the busy time is the sum of all kernels' durations
     (one stream, so they do not overlap), the list its ``top`` largest by
-    name.  The busy time is 0 when the profiler records no kernel."""
+    name (all of them where ``top`` is None).  The busy time is 0 when the
+    profiler records no kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
