@@ -142,15 +142,20 @@ result line:
    ``tta_epoch_adapt`` over 3 videos with its ``validate`` pass (29 forward
    and 29 backward launches per step).  Ends with one line per mode:
    ms/video, host time, device busy, idle share, peak memory.
+21. gemm_tiles' rates: at every Swin-B and Swin-T stage shape of 2 clips,
+   float32-equivalent TFLOP/s (2MNK over the device time of its launches)
+   of the MLP's forward and backward products and, at Swin-B's, of the
+   projection-fused attention's, beside ``torch.matmul`` (TF32 off) on the
+   same products; one line per shape and one JSON line of them all.
 
-Phases run in the order 1-4, 12, 15, 18, 5, 6, 19, 20, 7-11, 13, 14, 16, 17.  No
-earlier full-size stream was cut for phases 18 to 20.  To leave the time to
-phases 10 and 11, phase 9 runs 3 statistics batches and 4 eval videos
-where it ran 4 and 5, and the TANet slice 5 videos where it ran 6; to
-leave it to phases 12 to 14, phases 3 and 4 time each call over 6 and 7
-runs (4 under the profiler) where they took 25 and 15 (20 and 10), and
-phase 12 over 5 (3) and only at 2 clips, the shapes its sums are made of;
-to leave it to phases 15 to 17, phase 3 times the adapt batch only.
+Phases run in the order 1-4, 12, 15, 21, 18, 5, 6, 19, 20, 7-11, 13, 14,
+16, 17.  No earlier full-size stream was cut for phases 18 to 21.  To
+leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
+4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
+ran 6; to leave it to phases 12 to 14, phases 3 and 4 time each call over
+6 and 7 runs (4 under the profiler) where they took 25 and 15 (20 and 10),
+and phase 12 over 5 (3) and only at 2 clips, the shapes its sums are made
+of; to leave it to phases 15 to 17, phase 3 times the adapt batch only.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
@@ -161,8 +166,9 @@ Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, NVIDIA's published H100 SXM peaks.  The
-attention backward runs its matrix products on the tensor cores in split
-TF32; its rows also carry ``tf32x3_floor_ms``, three tf32 products of
+attention kernels and gemm_tiles run their matrix products on the tensor
+cores in split TF32; the rows of the kernels built on them (8-19 of
+PERF.md's table) also carry ``tf32x3_floor_ms``, three tf32 products of
 those products at the dense TF32 rate of 495 TFLOP/s.
 """
 
@@ -648,7 +654,8 @@ def phase_swin_kernels(dev):
                              plain_device_ms=t["plain"][1],
                              library_ms=t["sdpa"][0],
                              library_device_ms=t["sdpa"][1],
-                             bytes=nbytes, flops=flops)
+                             bytes=nbytes, flops=flops,
+                             tc_flops=b_ * nh * n_tok * n_tok * 4 * hd)
                 del want, want_ms, am
             del qkv
 
@@ -682,7 +689,7 @@ def phase_swin_kernels(dev):
                 mlp.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
                         plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
                         bytes=(3 * x.numel() + 2 * c * f + f + 3 * c) * 4,
-                        flops=flops)
+                        flops=flops, tc_flops=4 * m_rows * c * f)
             del x, args
 
 
@@ -862,7 +869,7 @@ def phase_swin_kernels(dev):
                 mlp_b.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
                           plain_ms=t["plain"][0],
                           plain_device_ms=t["plain"][1], bytes=nbytes,
-                          flops=flops)
+                          flops=flops, tc_flops=8 * m_rows * c * f)
         del x, y, a, s_, go, gy_full, args
 
     src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
@@ -1037,6 +1044,7 @@ def phase_swin_proj_kernels(dev):
                 _report(f"attn_proj / attn_ln_proj fwd {tag}",
                         max(err, err_ln), times)
                 flops = 8 * m_rows * c * c + attn_flops
+                tc_fwd = 8 * m_rows * c * c + b_ * nh * n_tok * n_tok * 4 * hd
                 tot["proj_fwd"].add(
                     sites, library_ms=times["proj library"][0],
                     library_device_ms=times["proj library"][1])
@@ -1048,13 +1056,14 @@ def phase_swin_proj_kernels(dev):
                         plain_device_ms=times[f"{form} plain"][1],
                         bytes=((2 + extra) * m_rows * c + small
                                + 2 * extra * c) * 4,
-                        flops=flops + extra * 8 * m_rows * c)
+                        flops=flops + extra * 8 * m_rows * c, tc_flops=tc_fwd)
                     add_composition(key, sites,
                                     times[f"{form} composition"][1])
 
                 # backward, both forms, at the adapt batch
                 bflops = (16 * m_rows * c * c
                           + b_ * nh * n_tok * n_tok * (10 * hd + 12))
+                tc_bwd = 16 * m_rows * c * c + b_ * nh * n_tok * n_tok * 10 * hd
                 got = cp.attn_proj_bwd(x, wqkv, bqkv, wproj, dense, m, o_att,
                                        ms_, g, scale, nh)
                 want = cp.proj_attention_backward_reference(
@@ -1108,7 +1117,7 @@ def phase_swin_proj_kernels(dev):
                     library_device_ms=times["proj library"][1],
                     plain_ms=times["proj plain"][0],
                     plain_device_ms=times["proj plain"][1], bytes=nbytes,
-                    flops=bflops)
+                    flops=bflops, tc_flops=tc_bwd)
                 add_composition("proj_bwd", sites,
                                 times["proj composition"][1])
                 for gy in (gy_full, None):
@@ -1149,7 +1158,7 @@ def phase_swin_proj_kernels(dev):
                             plain_device_ms=times[key + " plain"][1],
                             bytes=nbytes + ((1 if gy is not None else 0)
                                             * m_rows * c + 4 * c) * 4,
-                            flops=bflops + 20 * m_rows * c)
+                            flops=bflops + 20 * m_rows * c, tc_flops=tc_bwd)
                         add_composition("ln_proj_bwd", sites,
                                         times[key + " composition"][1])
                 _report(f"attn_proj / attn_ln_proj bwd {tag}", err, times)
@@ -1175,7 +1184,7 @@ def phase_swin_proj_kernels(dev):
                  f"{fmt(r['library_device_ms'])})")
               + f", the composition it replaces device "
               f"{fmt(comp[key])}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']}", flush=True)
+              f"{r['bound_by']}{_floor(r)}", flush=True)
     return rows
 
 
@@ -1273,7 +1282,7 @@ def phase_unfused_kernels(dev):
                     depth, ms=t["fwd"][0], device_ms=t["fwd"][1],
                     plain_ms=plain[0], plain_device_ms=plain[1],
                     bytes=(2 * m_rows * c + 2 * c * f + f + c) * 4,
-                    flops=flops)
+                    flops=flops, tc_flops=4 * m_rows * c * f)
                 tot["mlp_bwd"].add(
                     depth, ms=t["bwd"][0], device_ms=t["bwd"][1],
                     plain_ms=t["bwd plain"][0],
@@ -1281,7 +1290,7 @@ def phase_unfused_kernels(dev):
                     library_ms=t["bwd of the composition"][0],
                     library_device_ms=t["bwd of the composition"][1],
                     bytes=(3 * m_rows * c + 2 * m_rows * f + 4 * c * f + f
-                           + c) * 4, flops=bflops)
+                           + c) * 4, flops=bflops, tc_flops=8 * m_rows * c * f)
             del x, g, a, s_, args, leaves, o_lib
 
     # rows 12 and 13: the attention per (head, window)
@@ -1380,7 +1389,7 @@ def phase_unfused_kernels(dev):
                     library_ms=t["fwd sdpa"][0],
                     library_device_ms=t["fwd sdpa"][1],
                     bytes=(4 * b_ * n_tok * c + small) * 4,
-                    flops=pairs * (4 * hd + 6))
+                    flops=pairs * (4 * hd + 6), tc_flops=pairs * 4 * hd)
                 tot["heads_bwd"].add(
                     sites, ms=t["bwd"][0], device_ms=t["bwd"][1],
                     plain_ms=t["bwd plain"][0],
@@ -1425,6 +1434,94 @@ def phase_unfused_kernels(dev):
               f"{r['bound_ms']:.4f} by {r['bound_by']}{_floor(r)}",
               flush=True)
     return rows
+
+
+def _gemm_device_ms(fn):
+    """Device ms of one call of ``fn`` in its products, from torch.profiler:
+    the gemm_tiles launches and the reduce_partials launches that add a
+    weight gradient's k-chunk partials (they also finish the bias column
+    sums, which this counts too).  Raises where the profiler recorded no
+    gemm_tiles launch."""
+    _host, _busy, rows = device_breakdown(fn, top=None)
+    if not any("gemm_tiles" in name for name, _t, _n in rows):
+        raise AssertionError("the profiler recorded no gemm_tiles launch")
+    return sum(t for name, t, _n in rows
+               if "gemm_tiles" in name or "reduce_partials" in name)
+
+
+def phase_gemm_rates(dev):
+    """gemm_tiles' rate at every Swin-B and Swin-T stage shape of 2 clips:
+    float32-equivalent operations (2MNK per product) over the device time of
+    its launches and of the partial sums' reduce_partials launches in one
+    call, for the MLP's two forward and four backward
+    products (rows 8-11) and, at Swin-B's shapes, the projection-fused
+    attention's two forward and five backward products (rows 16-19; the
+    backward computes qkv again); beside it ``torch.matmul`` (TF32 off) on
+    the same products, device time from the profiler.  Returns {shape:
+    {call: (gemm_tiles TFLOP/s, torch.matmul TFLOP/s)}}."""
+    from vitta_tpu_torch.ops import cuda_attention_proj as cp
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    wd, wh, ww = SWIN_WINDOW
+    hw, n_tok = wh * ww, wd * wh * ww
+    out = {}
+    for model, stages in (("swin-B", SWIN_STAGES), ("swin-T", SWIN_T_STAGES)):
+        for c, nh, tokens, _nw, _depth in stages:
+            m, f = 2 * tokens, 4 * c
+            x, g = randn(m, c, scale=1.5), randn(m, c)
+            w1, b1 = randn(f, c, scale=c ** -0.5), 0.1 * randn(f)
+            w2, b2 = randn(c, f, scale=f ** -0.5), 0.1 * randn(c)
+            _o, a, s_ = cm.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
+            calls = {
+                "mlp forward": (lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2),
+                                lambda: (x @ w1.t(), a @ w2.t()),
+                                4 * m * c * f),
+                "mlp backward": (
+                    lambda: cm.mlp_bwd_cuda(x, a, s_, g, w1, w2),
+                    lambda: (g @ w2, a @ w1, a.t() @ x, g.t() @ a),
+                    8 * m * c * f)}
+            if model == "swin-B":
+                b_, hd = m // n_tok, c // nh
+                x3, g3 = x.reshape(b_, n_tok, c), g.reshape(b_, n_tok, c)
+                wqkv = randn(3 * c, c, scale=c ** -0.5)
+                bqkv = 0.1 * randn(3 * c)
+                wproj, bproj = randn(c, c, scale=c ** -0.5), 0.1 * randn(c)
+                dense = cb.expand_bias_reference(
+                    randn(nh, 2 * wd - 1, hw, hw), wd)
+                w = (wqkv, bqkv, wproj, bproj)
+                _o, o_att, ms_ = cp.attn_proj_fwd(x3, *w, dense, None,
+                                                  hd ** -0.5, nh, True)
+                qkv = x @ wqkv.t()
+                calls["proj forward"] = (
+                    lambda: cp.attn_proj_fwd(x3, *w, dense, None, hd ** -0.5,
+                                             nh),
+                    lambda: (x @ wqkv.t(), x @ wproj.t()), 8 * m * c * c)
+                calls["proj backward"] = (
+                    lambda: cp.attn_proj_bwd(x3, wqkv, bqkv, wproj, dense,
+                                             None, o_att, ms_, g3,
+                                             hd ** -0.5, nh),
+                    lambda: (g @ wproj, x @ wqkv.t(), qkv @ wqkv, g.t() @ x,
+                             qkv.t() @ x), 22 * m * c * c)
+            rates = {}
+            for call, (kernel, library, flops) in calls.items():
+                k_ms = _gemm_device_ms(kernel)
+                l_ms = device_ms(library, reps=3)
+                rates[call] = (flops / k_ms / 1e9,
+                               None if l_ms is None else flops / l_ms / 1e9)
+            shape = f"{model} M={m} C={c}"
+            print(f"gemm_tiles {shape}: " + ", ".join(
+                f"{call} {r:.1f} TFLOP/s (torch.matmul {fmt(lib)})"
+                for call, (r, lib) in rates.items())
+                  + " (2MNK over device time, gemm_tiles with its partial sums' "
+                  "reduce_partials, TF32 off in torch)", flush=True)
+            out[shape] = rates
+            del x, g, a, s_, calls
+    return out
 
 
 def phase_bn_stats_kernels(dev):
@@ -2258,6 +2355,8 @@ def main() -> int:
     lap("phase 12, projection-fused attention kernels")
     unfused_rows = phase_unfused_kernels(dev)
     lap("phase 15, MLP and per-(head, window) attention kernels")
+    gemm_rates = phase_gemm_rates(dev)
+    lap("phase 21, gemm_tiles' rates")
     bn_rows = phase_bn_stats_kernels(dev)
     lap("phase 18, BatchNorm-statistics kernels")
     small_bn = phase_small_slice(SEED)
@@ -2414,6 +2513,10 @@ def main() -> int:
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
+    print("gemm_tiles rates, TFLOP/s (gemm_tiles, torch.matmul): "
+          + json.dumps({k: {c: [round(v, 2) if v else v for v in r]
+                            for c, r in calls.items()}
+                        for k, calls in gemm_rates.items()}), flush=True)
     print(json.dumps({"kernels": tam_rows + bn_rows + swin_rows + proj_rows
                       + unfused_rows}))
     print(card)

@@ -1,29 +1,38 @@
-"""The window-attention backward kernel's arithmetic, emulated on the CPU.
+"""The window-attention kernels' arithmetic, emulated on the CPU.
 
-vitta_tpu_torch/csrc/attention_kernels.cuh (``attn_bwd_kernel``) computes
-the backward of the window attention in one pass per (window, head)
-problem, with its five matrix products on the tensor cores in split TF32:
-every float32 operand x is hi + lo, two tf32 values (10 mantissa bits; hi
-rounded to nearest, lo the remainder x - hi cut to 10 bits), and each
-product of a step of eight is lo*hi + hi*lo + hi*hi, summed in float32.
-A CUDA kernel has no CPU mode, so ``split_tf32_backward`` below runs the
-same algorithm with torch on float32 tensors: 16-row query strips; 32-key
-slabs, one per warp; s^T and dp^T per slab from the forward's row maximum
-and sum; rs and dq summed over the slabs in warp order; dk and dv
-accumulated over the strips, over several blocks' shares of the strips
-where a problem is split, the shares added in block order.  The tf32 rounding is done by bit arithmetic on
-``view(torch.int32)``.
+vitta_tpu_torch/csrc/attention_kernels.cuh computes the window attention,
+forward (``attn_fwd_kernel``) and backward (``attn_bwd_kernel``), with its
+matrix products on the tensor cores in split TF32 (csrc/tf32.cuh): every
+float32 operand x is hi + lo, two tf32 values (10 mantissa bits; hi rounded
+to nearest, lo the remainder x - hi cut to 10 bits), and each product of a
+step of eight is lo*hi + hi*lo + hi*hi, three mma steps, each one's sum cut
+toward zero to float32 as the tensor cores cut it.  A CUDA kernel has no
+CPU mode, so the same algorithms run here with torch on float32 tensors,
+the tf32 rounding done by bit arithmetic on ``view(torch.int32)``
+(tests/torch_tf32.py):
 
-It is held to the JAX package's backward on the same numpy-seeded inputs:
-the per-(head, window) Pallas kernel ``_pallas_attn_bwd`` in interpret mode
-(the route of ``window_attention_heads``, dense bias) and the packed op
-``fused_window_attention_packed`` under ``jax.vjp`` in interpret mode
-(dense and compact bias), at hd = 32, at Swin's N = 392 and at a ragged
-N = 75, with and without a shift mask.  Tolerance: each gradient within
-2e-5 of its largest magnitude, chip_smoke.py's ``ATTN_BWD_TOL`` for the
-kernel against its plain version on the card.  The same algorithm with one
-tf32 product per product fails that tolerance, which is why the kernel
-splits its operands.
+* the backward, ``split_tf32_backward`` below: 16-row query strips; 32-key
+  slabs, one per warp; s^T and dp^T per slab from the forward's row maximum
+  and sum; rs and dq summed over the slabs in warp order; dk and dv
+  accumulated in place over the strips, over several blocks' shares of the
+  strips where a problem is split, the shares added in block order;
+* the forward, ``torch_tf32.attention_forward``: 16-row query strips, keys
+  in chunks of 32, the online softmax (a running maximum and sum per row, o
+  rescaled where the maximum grows), p v from p as it lies, added to o in
+  place over all keys, out = o / sum, and the rows' final maximum and sum.
+
+They are held to the JAX package's kernels on the same numpy-seeded inputs,
+in interpret mode: the per-(head, window) Pallas kernels ``_pallas_attn_fwd``
+and ``_pallas_attn_bwd`` (the route of ``window_attention_heads``, dense
+bias), the packed forward ``_packed_attn_fwd`` (out and the rows' maximum
+and sum) and the packed op ``fused_window_attention_packed`` under
+``jax.vjp``, dense and compact bias, at hd = 32, at Swin's N = 392 and at a
+ragged N = 75, with and without a shift mask.  Tolerances: chip_smoke.py's
+for the kernels against their plain versions on the card, each gradient
+within ``ATTN_BWD_TOL`` = 2e-5 of its largest magnitude, the forward's out
+and row maximum and sum within ``ATTN_TOL`` = 2e-5 + 2e-5 |value|.  The
+same algorithms with one tf32 product per product fail those tolerances,
+which is why the kernels split their operands.
 """
 
 import jax.numpy as jnp
@@ -32,55 +41,21 @@ import pytest
 import torch
 
 import jax
-from vitta_tpu.ops.pallas_attention import (_pallas_attn_bwd,
+from vitta_tpu.ops.pallas_attention import (_packed_attn_fwd,
+                                            _pallas_attn_bwd,
+                                            _pallas_attn_fwd,
                                             fused_window_attention_packed)
 from vitta_tpu_torch.ops.cuda_attention import packed_attention_reference
 from vitta_tpu_torch.ops.cuda_bias import (collapse_bias_reference,
                                            expand_bias_reference)
 
+from tests.torch_tf32 import attention_forward, mm, split, tf32
+
 torch.set_num_threads(1)
 
 ATTN_BWD_TOL = 2e-5     # of each gradient's largest magnitude
-STRIP, SLAB, HD_PAD, STEP = 16, 32, 32, 8
-
-
-def tf32(x):
-    """x rounded to tf32 (10 explicit mantissa bits), to nearest with ties
-    away from zero, as cvt.rna.tf32.f32 rounds and the kernel's split_tf32
-    computes it; the result is a float32."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def cut_tf32(x):
-    """x cut to tf32: the 13 low mantissa bits dropped."""
-    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def split(x):
-    """(hi, lo) as split_tf32 makes them: tf32 values with hi + lo = x to
-    about 2^-21 of x."""
-    hi = tf32(x)
-    return hi, cut_tf32(x - hi)
-
-
-def mm(a, b, passes):
-    """a @ b as the kernel's mma steps compute it: the contraction in steps
-    of eight, each added to the float32 sum as three products of split
-    operands (``passes=3``) or as one product of tf32-rounded operands."""
-    out = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
-                      + (a.shape[-2], b.shape[-1]))
-    for k0 in range(0, a.shape[-1], STEP):
-        ak, bk = a[..., k0:k0 + STEP], b[..., k0:k0 + STEP, :]
-        if passes == 1:
-            out = out + tf32(ak) @ tf32(bk)
-            continue
-        ah, al = split(ak)
-        bh, bl = split(bk)
-        out = out + al @ bh
-        out = out + ah @ bl
-        out = out + ah @ bh
-    return out
+ATTN_TOL = 2e-5         # |error| <= ATTN_TOL + ATTN_TOL |value|, forward
+STRIP, SLAB, HD_PAD = 16, 32, 32
 
 
 def _pad(x, rows):
@@ -148,8 +123,8 @@ def split_tf32_backward(q, k, v, bias, mask, ms, g, scale, blocks=1,
             for w in range(warps):                        # in warp order
                 rs = rs + part[:, w]
             dlt = p * (dpt - rs[:, None, None, :])       # (P, W, 32, 16)
-            dva = dva + mm(p, gs, passes)
-            dka = dka + mm(dlt, qs, passes)
+            dva = mm(p, gs, passes, out=dva)          # in place, as the
+            dka = mm(dlt, qs, passes, out=dka)        # kernel's registers
             shares = mm(dlt.transpose(-1, -2), kw, passes)   # (P, W, 16, 32)
             total = torch.zeros(probs, STRIP, HD_PAD)
             for w in range(warps):
@@ -339,10 +314,97 @@ def test_one_tf32_product_fails_the_tolerance():
     assert min(single.values()) > 10 * ATTN_BWD_TOL, single
 
 
+# ------------------------------------------------------------ the forward
+def _emulate_fwd(qkv, dense, mask, scale, passes=3):
+    q, k, v = torch.from_numpy(qkv).unbind(2)
+    return attention_forward(
+        q, k, v, dense, None if mask is None else torch.from_numpy(mask),
+        scale, passes)
+
+
+def _fwd_heads_reference(qkv, dense, mask, scale):
+    """out (B_, N, nh, hd) of vitta_tpu's per-(head, window) Pallas forward
+    kernel, in interpret mode."""
+    to3 = lambda a: jnp.asarray(np.ascontiguousarray(a.transpose(2, 0, 1, 3)))
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    out = _pallas_attn_fwd(to3(q), to3(k), to3(v), jnp.asarray(dense.numpy()),
+                           None if mask is None else jnp.asarray(mask), scale,
+                           interpret=True)
+    return np.asarray(out).transpose(1, 2, 0, 3)
+
+
+def _fwd_packed_reference(qkv, bias, mask, scale):
+    """out (B_, N, nh, hd) and ms (B_, N, 2nh) of vitta_tpu's packed Pallas
+    forward kernel in interpret mode, the bias dense or compact."""
+    b_, n, _, nh, hd = qkv.shape
+    out, ms = _packed_attn_fwd(
+        jnp.asarray(qkv.reshape(b_, n, 3 * nh * hd)), jnp.asarray(bias.numpy()),
+        None if mask is None else jnp.asarray(mask), scale, nh, save_ms=True,
+        interpret=True)
+    return np.asarray(out).reshape(b_, n, nh, hd), np.asarray(ms)
+
+
+def _fwd_errors(got, want):
+    """Each output's largest |error| / (1 + |value|): at most ATTN_TOL where
+    |error| <= ATTN_TOL + ATTN_TOL |value| everywhere, chip_smoke.py's test
+    of the forward kernel against its plain version."""
+    return {name: float((np.abs(np.asarray(a) - np.asarray(w))
+                         / (1 + np.abs(np.asarray(w)))).max())
+            for name, a, w in zip(("out", "ms"), got, want)}
+
+
+@pytest.mark.parametrize("n,with_mask", [(392, True), (392, False),
+                                         (75, True), (75, False)])
+def test_split_tf32_forward_matches_the_heads_pallas_kernel(n, with_mask):
+    """The online softmax over 32-key chunks against the per-(head, window)
+    Pallas kernel (out) and the plain forward (its row maximum and sum)."""
+    qkv, _g, vc, mask, wd = _inputs(n, with_mask, seed=4)
+    scale = 32 ** -0.5
+    dense = expand_bias_reference(torch.from_numpy(vc), wd)
+    out, ms = _emulate_fwd(qkv, dense, mask, scale)
+    want = (_fwd_heads_reference(qkv, dense, mask, scale),
+            _forward_ms(qkv, dense, mask, scale))
+    errs = _fwd_errors((out, ms), want)
+    assert max(errs.values()) <= ATTN_TOL, errs
+
+
+@pytest.mark.parametrize("n,with_mask,form", [
+    (392, True, "dense"), (392, True, "compact"), (392, False, "compact"),
+    (75, True, "dense"), (75, False, "compact")])
+def test_split_tf32_forward_matches_the_packed_pallas_kernel(n, with_mask,
+                                                             form):
+    """out and the rows' maximum and sum against the packed Pallas kernel,
+    which reads the bias dense or as its Toeplitz slices."""
+    qkv, _g, vc, mask, wd = _inputs(n, with_mask, seed=5)
+    scale = 32 ** -0.5
+    compact = torch.from_numpy(vc)
+    dense = expand_bias_reference(compact, wd)
+    got = _emulate_fwd(qkv, dense, mask, scale)
+    want = _fwd_packed_reference(
+        qkv, compact if form == "compact" else dense, mask, scale)
+    errs = _fwd_errors(got, want)
+    assert max(errs.values()) <= ATTN_TOL, errs
+
+
+def test_forward_with_one_tf32_product_fails_the_tolerance():
+    """With one tf32 product per product, out and the rows' maximum miss
+    ATTN_TOL, where the split keeps them inside it."""
+    qkv, _g, vc, mask, wd = _inputs(392, True, seed=6)
+    scale = 32 ** -0.5
+    compact = torch.from_numpy(vc)
+    dense = expand_bias_reference(compact, wd)
+    want = _fwd_packed_reference(qkv, compact, mask, scale)
+    split3 = _fwd_errors(_emulate_fwd(qkv, dense, mask, scale), want)
+    single = _fwd_errors(_emulate_fwd(qkv, dense, mask, scale, passes=1), want)
+    assert max(split3.values()) <= ATTN_TOL, split3
+    assert min(single.values()) > 5 * ATTN_TOL, single
+
+
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_attention_tf32.py
     # prints each gradient's error over its largest magnitude against the
-    # Pallas kernel, split TF32 and one tf32 product, at the tests' shapes
+    # Pallas kernel, split TF32 and one tf32 product, at the tests' shapes,
+    # then the forward's errors over 1 + |value|
     for n, with_mask, seed in ((392, True, 3), (392, False, 0), (75, True, 0)):
         qkv, g, vc, mask, wd = _inputs(n, with_mask, seed=seed)
         dense = expand_bias_reference(torch.from_numpy(vc), wd)
@@ -352,4 +414,10 @@ if __name__ == "__main__":
                                       passes=passes)
             errs = _errors((dq, dk, dv, window_sum(dl)), want)
             print(f"N={n} mask={with_mask} {passes} tf32 product(s): "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        for passes in (3, 1):
+            errs = _fwd_errors(
+                _emulate_fwd(qkv, dense, mask, 32 ** -0.5, passes=passes),
+                _fwd_packed_reference(qkv, dense, mask, 32 ** -0.5))
+            print(f"forward N={n} mask={with_mask} {passes} tf32 product(s): "
                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))

@@ -18,32 +18,39 @@
 //   out = softmax(l) v                                    written (B_, N, C)
 // and, on request, each row's softmax maximum and sum (B_, N, 2nh), which a
 // backward reads instead of reducing again.  The bias is taken dense
-// (nh, N, N) or as Toeplitz slices (nh, 2wd-1, hw, hw); bias_at() is the one
-// place that knows the difference.
+// (nh, N, N) or as Toeplitz slices (nh, 2wd-1, hw, hw).
 //
-// What bounds it: float32 operations (4*N*N*hd per problem against about
-// 12*N*hd bytes of q, k, v and out), and inside the SM the shared-memory
-// loads that feed them.  The TPU kernel handles one window per grid step and
-// loops over the heads; here a block of 16 warps owns one (window, head)
-// problem, or a share of its query rows where whole problems would leave SMs
-// without a block, and the (N, N) logits never exist anywhere:
-//  * K (transposed, so that lanes walk keys without bank conflicts) and V of
-//    the head are read from the packed tensor into shared memory, 104 KB at
-//    N = 392, hd = 32; with the warps' strips below the block holds 213 KB,
-//    which needs the opt-in above 48 KB and leaves one block to an SM, so
-//    the 16 warps are all that hides its latencies (with 8 warps an H100
-//    took about 1.5 times as long at every Swin-B stage);
-//  * a warp takes four query rows at a time; each lane keeps the logits of
-//    keys lane, lane+32, ... in registers (13 per row at N = 392, the tail
-//    masked), so one K value loaded from shared memory feeds four rows;
-//  * the softmax is the exact two-pass one, over registers and two shuffle
-//    reductions.  A masked entry is -100, not -inf, and every row holds its
-//    own unmasked diagonal, so no row's maximum is -inf and nothing is NaN;
-//  * the unnormalised probabilities go through a per-warp shared-memory
-//    strip so that p v reads them as broadcasts while lane d owns output
-//    channel d; the division by the row sum is applied to the (N, hd) result.
-// Limits: hd <= 32 and N <= 416 (13 keys per lane); the wrapper raises
-// beyond them.
+// What bounds it: operations (4*N*N*hd per problem against about 12*N*hd
+// bytes of q, k, v and out).  The TPU kernel handles one window per grid
+// step and loops over the heads; here a block of 16 warps owns one (window,
+// head) problem, or a share of its query strips where whole problems would
+// leave SMs without a block, and the (N, N) logits never exist anywhere:
+//  * K and V of the head come into shared memory by cp.async (2 x 392 x 36
+//    floats at N = 392, hd = 32, rows past N zeros); with the bias's column
+//    offsets and the warps' q tiles 151 KB; at 123 registers a thread the
+//    16 warps fill an SM's register file (without the q tiles, 8 warps a
+//    block at two blocks an SM took as long at Swin-B's stages 1-2 and up
+//    to 1.6 times as long where problems are fewer than SMs);
+//  * a warp takes one 16-row query strip at a time, its q staged by
+//    cp.async in the warp's tile and split once into tensor-core operands
+//    held in registers, and walks the keys 32 at a time: s = q k^T as
+//    (16 rows, 8 keys) tiles of mma.sync.m16n8k8 on tf32 operands, each
+//    float32 operand split x = hi + lo and a b = lo*hi + hi*lo + hi*hi
+//    ("3xTF32", tf32.cuh), float32 accuracy at three
+//    tensor-core products (one tf32 product keeps about three decimal
+//    digits, which ATTN_TOL does not allow);
+//  * the logits take the bias and mask from device memory (L2) in the
+//    accumulator tiles' layout, and the softmax is the online one: a running
+//    maximum per row, the sum so far and o rescaled where it grows.  A
+//    masked entry is -100, not -inf, and every row holds its own unmasked
+//    diagonal, so no row's maximum is -inf and nothing is NaN;
+//  * o += p v on the tensor cores from p as it lies in the logits'
+//    accumulator registers (a k step maps column t to key 2t and t + 4 to
+//    key 2t + 1, and V's rows in shared memory are read in that order): p
+//    never leaves registers.  The division by the row sum is applied to
+//    the (16, hd) result, and the row's final maximum and sum are what ms
+//    keeps, under the same __expf.
+// Limits: hd <= 32 and N <= 416; the wrapper raises beyond them.
 //
 // Backward.  From (qkv, bias, mask, ms, g), with ms the forward's row
 // maximum m and sum s and g the cotangent of out:

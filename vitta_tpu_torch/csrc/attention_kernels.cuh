@@ -11,23 +11,23 @@
 
 #include <cstdint>
 
+#include "tf32.cuh"
+
 namespace vitta {
 namespace attn {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;               // query rows per warp pass
-constexpr int kTMax = 13;              // keys per lane
-constexpr int kNMax = kTMax * 32;      // 416
-constexpr int kKStride = kNMax + 1;    // odd: the transposing store is conflict-free
-
 // The largest window and head size the kernels take, and the largest stride
 // between two tokens of q, k or v (a token's offset is taken in 32 bits).
+constexpr int kNMax = 416;
 constexpr int kMaxTokens = kNMax;
 constexpr int kMaxHeadDim = 32;
 constexpr long long kMaxRowStride = 0x7fffffff / kNMax;
+// Row stride, in floats, of K, V and the query strips in shared memory:
+// 36 puts the rows that mma's operand layouts read at once in different banks.
+constexpr int kLd = kMaxHeadDim + 4;
+constexpr int kDT = kMaxHeadDim / 8;       // 8-channel tiles of a head: 4
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
 
 // One of q, k, v, or of their cotangents, as the kernels address it: element
 // (window b, token i, head h, channel d) lies at p[b*sb + i*sr + h*sh + d].
@@ -51,180 +51,228 @@ inline Rows<T> packed_rows(T* qkv, int which, int n, int nh, int hd) {
   return Rows<T>{qkv + which * c, n * 3 * c, 3 * c, hd};
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Rows r0 .. r0 + rows - 1 of head h of window b of x into dst (rows, kLd),
+// asynchronously; rows at or past n and channels at or past hd are zeros.
+// vec: 16-byte copies (x's pointer and strides and hd are multiples of 4).
+__device__ __forceinline__ void load_rows(float* dst, const InRows& x, int b,
+                                          int h, int r0, int rows, int n,
+                                          int hd, bool vec, int tid,
+                                          int nthreads) {
+  const float* base = x.at(b, h);
+  if (vec) {
+    constexpr int kChunks = kMaxHeadDim / 4;
+    for (int idx = tid; idx < rows * kChunks; idx += nthreads) {
+      const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
+      const bool ok = r0 + r < n && c < hd;
+      cp_async<16>(dst + r * kLd + c,
+                   ok ? base + (long long)(r0 + r) * x.sr + c : base, ok);
+    }
+  } else {
+    for (int idx = tid; idx < rows * kMaxHeadDim; idx += nthreads) {
+      const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
+      const bool ok = r0 + r < n && c < hd;
+      cp_async<4>(dst + r * kLd + c,
+                  ok ? base + (long long)(r0 + r) * x.sr + c : base, ok);
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// ------------------------------------------------------------------- forward
 
-// bias[h, i, j] from the dense (nh, N, N) form, or from the Toeplitz slices
-// (nh, 2wd-1, hw, hw): block-row d1 = i / hw, block-column d2 = j / hw.
-__device__ __forceinline__ float bias_at(const float* __restrict__ bias,
-                                         int compact, int h, int i, int j,
-                                         int n, int wd, int hw) {
-  if (!compact) return bias[((size_t)h * n + i) * n + j];
-  const int d1 = i / hw, ii = i - d1 * hw;
-  const int d2 = j / hw, jj = j - d2 * hw;
-  return bias[(((size_t)h * (2 * wd - 1) + d1 - d2 + wd - 1) * hw + ii) * hw + jj];
-}
+// The forward kernel's shape: kFwdWarps warps a block, each owning one
+// 16-row query strip of the problem at a time, the keys taken kFwdKeys at a
+// time.  vitta_tpu_torch/tools/gemm_variants.py builds this source with
+// other values of the two macros and times them.
+#ifndef VITTA_ATTN_FWD_WARPS
+#define VITTA_ATTN_FWD_WARPS 16
+#endif
+#ifndef VITTA_ATTN_FWD_KEYS
+#define VITTA_ATTN_FWD_KEYS 32
+#endif
 
-// out, and ms where it is not null.
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kFwdWarps = VITTA_ATTN_FWD_WARPS;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdKeys = VITTA_ATTN_FWD_KEYS;
+constexpr int kFwdKT = kFwdKeys / 8;       // 8-key tiles of a chunk
+static_assert(kFwdWarps >= 1 && kFwdWarps <= 16, "1 to 16 warps");
+static_assert(kFwdKeys == 16 || kFwdKeys == 32 || kFwdKeys == 64,
+              "chunks of 16, 32 or 64 keys");
+
+// One (window, head) problem, or the query strips z, z + Z, ... of it where
+// gridDim.z = Z > 1: out, and ms where it is not null.  Each warp takes its
+// own strips; K and V of the problem lie in shared memory, (round8(n), kLd)
+// each, rows past n zeros, then the bias's column offsets and each warp's
+// (16, kLd) tile of its strip's q.
+__global__ void __launch_bounds__(kFwdThreads, kFwdWarps <= 8 ? 2 : 1)
 attn_fwd_kernel(const InRows q, const InRows k, const InRows v,
                 const float* __restrict__ bias,
                 const float* __restrict__ mask, float* __restrict__ out,
                 float* __restrict__ ms, int n, int nh, int hd, int nw,
-                int compact, int wd, int hw, float scale) {
+                int compact, int wd, int hw, float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int c = nh * hd;
-  const int n4 = round4(n);
-  float* Kt = smem;                               // (hd, kKStride)
-  float* Vs = Kt + round4(hd * kKStride);         // (n4, hd)
-  float* Ps = Vs + round4(n4 * hd);               // (kWarps, kRows, kNMax)
-  float* Qs = Ps + kWarps * kRows * kNMax;        // (kWarps, kRows, 32)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* __restrict__ qb = q.at(b, h);
-  const float* __restrict__ kb = k.at(b, h);
-  const float* __restrict__ vb = v.at(b, h);
-  // row offsets in 32 bits (the launcher checks that they fit): the loop
-  // below is address arithmetic and little else
-  const int qsr = (int)q.sr, ksr = (int)k.sr, vsr = (int)v.sr;
-
-  for (int idx = tid; idx < n * hd; idx += kThreads) {
-    const int j = idx / hd, d = idx - j * hd;
-    Kt[d * kKStride + j] = kb[j * ksr + d];
-    Vs[j * hd + d] = vb[j * vsr + d];
+  const int gq = lane >> 2, tq = lane & 3;     // mma's g and t
+  const int keys = round8(n);
+  float* Ks = smem;                            // (keys, kLd)
+  float* Vs = Ks + keys * kLd;                 // (keys, kLd)
+  int* coff = reinterpret_cast<int*>(Vs + keys * kLd);   // (keys)
+  float* Qw = Vs + keys * (kLd + 1) + warp * 16 * kLd;   // (16, kLd)
+  load_rows(Ks, k, b, h, 0, keys, n, hd, vec != 0, tid, kFwdThreads);
+  load_rows(Vs, v, b, h, 0, keys, n, hd, vec != 0, tid, kFwdThreads);
+  cp_async_commit();
+  // bias[h, i, j] lies at roff(i) + coff[j]: dense (nh, n, n), roff =
+  // (h n + i) n and coff = j; compact (nh, 2wd-1, hw, hw) with i = d1 hw + ii,
+  // j = d2 hw + jj, roff = ((h (2wd-1) + d1 + wd-1) hw + ii) hw and coff =
+  // jj - d2 hw hw.  Keys past n read key n - 1's and are not selected.
+  for (int j = tid; j < keys; j += kFwdThreads) {
+    const int jc = j < n ? j : n - 1;
+    coff[j] = compact ? jc % hw - (jc / hw) * hw * hw : jc;
   }
-  const int kpad = kKStride - n;
-  for (int idx = tid; idx < hd * kpad; idx += kThreads) {
-    const int d = idx / kpad;
-    Kt[d * kKStride + n + (idx - d * kpad)] = 0.f;
-  }
-  for (int idx = tid; idx < (n4 - n) * hd; idx += kThreads)
-    Vs[n * hd + idx] = 0.f;
+  cp_async_wait_all();
   __syncthreads();
 
-  float* Pw = Ps + warp * kRows * kNMax;
-  float* Qw = Qs + warp * kRows * 32;
-  const float* mask_b =
+  const float* __restrict__ mask_b =
       mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
-
-  // blockIdx.z shares the problem's query rows among gridDim.z blocks
-  for (int i0 = (blockIdx.z * kWarps + warp) * kRows; i0 < n;
-       i0 += gridDim.z * kWarps * kRows) {
+  const int c = nh * hd;
+  const int strips = (n + 15) / 16;
+  for (int s = blockIdx.z * kFwdWarps + warp; s < strips;
+       s += gridDim.z * kFwdWarps) {
+    // the lane's rows i0 + gq + 8u, u = 0, 1 (clamped to n - 1 for reads)
+    const int i0 = s * 16;
+    int row[2];
+    size_t roff[2], moff[2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      Qw[r * 32 + lane] =
-          (i < n && lane < hd) ? qb[i * qsr + lane] : 0.f;
-    }
-    __syncwarp();
-
-    float acc[kRows][kTMax];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < kTMax; ++t) acc[r][t] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float kv[kTMax];
-      const float* kd = Kt + d * kKStride + lane;
-#pragma unroll
-      for (int t = 0; t < kTMax; ++t) kv[t] = kd[32 * t];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float q = Qw[r * 32 + d];
-#pragma unroll
-        for (int t = 0; t < kTMax; ++t) acc[r][t] = fmaf(q, kv[t], acc[r][t]);
-      }
-    }
-
-    float rsum[kRows], rmax[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;          // the same for every lane of the warp
-      float* pr = Pw + r * kNMax + lane;
-      if (i < n) {
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int t = 0; t < kTMax; ++t) {
-          const int j = lane + 32 * t;
-          float l = -CUDART_INF_F;
-          if (j < n) {
-            l = acc[r][t] * scale + bias_at(bias, compact, h, i, j, n, wd, hw);
-            if (mask_b != nullptr) l += mask_b[(size_t)i * n + j];
-          }
-          acc[r][t] = l;
-          mx = fmaxf(mx, l);
-        }
-        mx = warp_max(mx);
-        float s = 0.f;
-#pragma unroll
-        for (int t = 0; t < kTMax; ++t) {
-          const float e =
-              (lane + 32 * t < n) ? __expf(acc[r][t] - mx) : 0.f;
-          pr[32 * t] = e;
-          s += e;
-        }
-        rsum[r] = warp_sum(s);
-        rmax[r] = mx;
+    for (int u = 0; u < 2; ++u) {
+      row[u] = i0 + gq + 8 * u;
+      const int i = row[u] < n ? row[u] : n - 1;
+      if (compact) {
+        const int d1 = i / hw;
+        roff[u] = ((size_t)(h * (2 * wd - 1) + d1 + wd - 1) * hw + i -
+                   d1 * hw) * hw;
       } else {
-#pragma unroll
-        for (int t = 0; t < kTMax; ++t) pr[32 * t] = 0.f;
-        rsum[r] = 1.f;
-        rmax[r] = 0.f;
+        roff[u] = ((size_t)h * n + i) * n;
       }
+      moff[u] = (size_t)i * n;
     }
+    // the strip's q through the warp's tile (zeros past row n and channel
+    // hd), then as A fragments by ldmatrix, split once: (16 rows, 8
+    // channels) a k step; lane l addresses row l % 8 of quarter l / 8
+    __syncwarp();                    // the last strip's fragments are read
+    load_rows(Qw, q, b, h, i0, 16, n, hd, vec != 0, lane, 32);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncwarp();
+    FragA qf[kDT];
+#pragma unroll
+    for (int ks = 0; ks < kDT; ++ks) {
+      float x[4];
+      ldmatrix_x4(x, Qw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                         8 * ks + 4 * (lane >> 4));
+      qf[ks] = frag_a(x[0], x[1], x[2], x[3]);
+    }
 
-    if (lane < hd) {
-      float o[kRows];
+    // online softmax over the key chunks: the rows' running maximum, the
+    // lane's share of their sums, and o, (16 rows, 8 channels) tiles
+    float o[kDT][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) o[r] = 0.f;
-      for (int j = 0; j < n4; j += 4) {
-        const float v0 = Vs[j * hd + lane];
-        const float v1 = Vs[(j + 1) * hd + lane];
-        const float v2 = Vs[(j + 2) * hd + lane];
-        const float v3 = Vs[(j + 3) * hd + lane];
+    for (int dt = 0; dt < kDT; ++dt)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 p =
-              *reinterpret_cast<const float4*>(Pw + r * kNMax + j);
-          o[r] = fmaf(p.x, v0, o[r]);
-          o[r] = fmaf(p.y, v1, o[r]);
-          o[r] = fmaf(p.z, v2, o[r]);
-          o[r] = fmaf(p.w, v3, o[r]);
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+    float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F}, lsum[2] = {0.f, 0.f};
+
+    for (int j0 = 0; j0 < n; j0 += kFwdKeys) {
+      // logits of the chunk's 8-key tiles; element e of a tile is row
+      // gq + 8 (e >> 1), key 2 tq + (e & 1); tiles past n stay -inf and
+      // are skipped (the same for the whole warp)
+      float lg[kFwdKT][4];
+#pragma unroll
+      for (int nt = 0; nt < kFwdKT; ++nt) {
+        const int jt = j0 + 8 * nt;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lg[nt][e] = -CUDART_INF_F;
+        if (jt >= n) continue;
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < kDT; ++ks) {
+          const int at = (jt + gq) * kLd + 8 * ks + tq;
+          mma_3xtf32(sc, qf[ks], frag_b(Ks[at], Ks[at + 4]));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = e >> 1, j = jt + 2 * tq + (e & 1);
+          const int jc = j < n ? j : n - 1;
+          float l = fmaf(sc[e], scale, bias[roff[u] + coff[j]]);
+          if (mask_b != nullptr) l += mask_b[moff[u] + jc];
+          lg[nt][e] = j < n ? l : -CUDART_INF_F;
         }
       }
+      // the rows' new maximum over the four lanes that share each row,
+      // the correction of what was summed so far, and p in place of l
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = i0 + r;
-        if (i < n)
-          out[((size_t)b * n + i) * c + h * hd + lane] = o[r] / rsum[r];
+      for (int u = 0; u < 2; ++u) {
+        float cmax = -CUDART_INF_F;
+#pragma unroll
+        for (int nt = 0; nt < kFwdKT; ++nt)
+          cmax = fmaxf(cmax, fmaxf(lg[nt][2 * u], lg[nt][2 * u + 1]));
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
+        const float mnew = fmaxf(mrow[u], cmax);
+        const float corr = __expf(mrow[u] - mnew);
+        mrow[u] = mnew;
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kFwdKT; ++nt)
+#pragma unroll
+          for (int e = 2 * u; e < 2 * u + 2; ++e) {
+            lg[nt][e] = __expf(lg[nt][e] - mnew);
+            sum += lg[nt][e];
+          }
+        lsum[u] = fmaf(lsum[u], corr, sum);
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt) {
+          o[dt][2 * u] *= corr;
+          o[dt][2 * u + 1] *= corr;
+        }
       }
-    }
-    if (ms != nullptr && lane == 0) {
+      // o += p v: a tile of p is the A operand as it lies once a k step
+      // maps column t to key 2t and t + 4 to key 2t + 1, and V's rows
+      // follow that map
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = i0 + r;
-        if (i < n) {
-          float* m = ms + ((size_t)b * n + i) * 2 * nh + 2 * h;
-          m[0] = rmax[r];
-          m[1] = rsum[r];
+      for (int nt = 0; nt < kFwdKT; ++nt) {
+        const int jt = j0 + 8 * nt;
+        if (jt >= n) continue;
+        const FragA pf = frag_a(lg[nt][0], lg[nt][2], lg[nt][1], lg[nt][3]);
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt) {
+          const int at = (jt + 2 * tq) * kLd + 8 * dt + gq;
+          mma_3xtf32(o[dt], pf, frag_b(Vs[at], Vs[at + kLd]));
         }
       }
     }
-    __syncwarp();     // the strips are rewritten by the next pass
+
+    // the rows' sums over the four lanes; out = o / sum, and m and the sum
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      lsum[u] += __shfl_xor_sync(0xffffffffu, lsum[u], 1);
+      lsum[u] += __shfl_xor_sync(0xffffffffu, lsum[u], 2);
+      if (row[u] >= n) continue;
+      float* orow = out + ((size_t)b * n + row[u]) * c + h * hd;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * dt + 2 * tq + e;
+          if (d < hd) orow[d] = o[dt][2 * u + e] / lsum[u];
+        }
+      if (ms != nullptr && tq == 0) {
+        float* m = ms + ((size_t)b * n + row[u]) * 2 * nh + 2 * h;
+        m[0] = mrow[u];
+        m[1] = lsum[u];
+      }
+    }
   }
 }
-
 
 // ------------------------------------------------------------------ backward
 
@@ -253,12 +301,8 @@ constexpr int kSN = kBwdStrip / 8;         // 8-row tiles of a strip
 constexpr int kSM = kBwdStrip / 16;        // 16-row tiles of a strip
 constexpr int kKM = kBwdKeys / 16;         // 16-key tiles of a warp's keys
 constexpr int kKK = kBwdKeys / 8;          // 8-key steps over a warp's keys
-constexpr int kDT = kMaxHeadDim / 8;       // 8-channel tiles of a head: 4
 constexpr int kBwdMaxWarps = kNMax / kBwdKeys;
 constexpr int kBwdMaxThreads = kBwdMaxWarps * 32;
-// Row stride, in floats, of K, V and the q and g strips in shared memory:
-// 36 puts the rows that mma's operand layouts read at once in different banks.
-constexpr int kLd = kMaxHeadDim + 4;
 constexpr int kTile = kBwdStrip * 32;      // a warp's dl / dq tile
 
 // Warps of a backward block: as many as the keys need.
@@ -271,112 +315,6 @@ __host__ __device__ inline int bwd_warps(int n) {
 // rows of eight neighbouring keys an access reads lie in different banks.
 __host__ __device__ inline int bwd_ldb(int n) {
   return bwd_warps(n) * kBwdKeys + 4;
-}
-
-// x = hi + lo to about 2^-21 of x, hi and lo tf32 values (10 mantissa
-// bits): hi rounded to nearest, ties away from zero (what cvt.rna.tf32.f32
-// gives, in two integer operations, which issue faster than the
-// conversion), x - hi exact in float32, lo that remainder cut to tf32.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-// Operands of mma.m16n8k8 with tf32 inputs, each split in two.  A (16 x 8):
-// a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
-// B (8 x 8): b0 (row t, col g), b1 (t + 4, g); the accumulator (16 x 8):
-// c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1); g is the
-// lane's group (lane / 4) and t its place in it (lane % 4).
-struct FragA {
-  unsigned hi[4], lo[4];
-};
-struct FragB {
-  unsigned hi[2], lo[2];
-};
-
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
-                                        float a3) {
-  FragA f;
-  split_tf32(a0, f.hi[0], f.lo[0]);
-  split_tf32(a1, f.hi[1], f.lo[1]);
-  split_tf32(a2, f.hi[2], f.lo[2]);
-  split_tf32(a3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split_tf32(b0, f.hi[0], f.lo[0]);
-  split_tf32(b1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b at float32 accuracy: three tf32 products (lo hi, hi lo, hi hi,
-// the small terms first); the lo lo term is below float32's rounding.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
-                                           const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// cp.async of kBytes from global to shared memory; without `full` the bytes
-// are zeros and nothing is read.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool full) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (kBytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-                 "l"(src), "r"(full ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(s),
-                 "l"(src), "n"(kBytes), "r"(full ? kBytes : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// Rows r0 .. r0 + rows - 1 of head h of window b of x into dst (rows, kLd),
-// asynchronously; rows at or past n and channels at or past hd are zeros.
-// vec: 16-byte copies (x's pointer and strides and hd are multiples of 4).
-__device__ __forceinline__ void load_rows(float* dst, const InRows& x, int b,
-                                          int h, int r0, int rows, int n,
-                                          int hd, bool vec, int tid,
-                                          int nthreads) {
-  const float* base = x.at(b, h);
-  if (vec) {
-    constexpr int kChunks = kMaxHeadDim / 4;
-    for (int idx = tid; idx < rows * kChunks; idx += nthreads) {
-      const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
-      const bool ok = r0 + r < n && c < hd;
-      cp_async<16>(dst + r * kLd + c,
-                   ok ? base + (long long)(r0 + r) * x.sr + c : base, ok);
-    }
-  } else {
-    for (int idx = tid; idx < rows * kMaxHeadDim; idx += nthreads) {
-      const int r = idx / kMaxHeadDim, c = idx - r * kMaxHeadDim;
-      const bool ok = r0 + r < n && c < hd;
-      cp_async<4>(dst + r * kLd + c,
-                  ok ? base + (long long)(r0 + r) * x.sr + c : base, ok);
-    }
-  }
 }
 
 // A warp's (kBwdStrip, 32) tile holds dl and then the warp's share of dq.
@@ -776,11 +714,11 @@ inline int sm_count() {
   return count;
 }
 
-inline size_t smem_bytes(int n, int hd) {
-  const size_t floats = (size_t)round4(hd * kKStride) +
-                        round4(round4(n) * hd) + kWarps * kRows * kNMax +
-                        kWarps * kRows * 32;
-  return floats * sizeof(float);
+// K and V (round8(n), kLd), the bias's column offsets and the warps' q
+// tiles: 151,328 bytes at n = 392.
+inline size_t fwd_smem_bytes(int n) {
+  return ((size_t)round8(n) * (2 * kLd + 1) + kFwdWarps * 16 * kLd) *
+         sizeof(float);
 }
 
 inline size_t bwd_smem_bytes(int n) {
@@ -808,6 +746,12 @@ inline int row_split(int problems, int most = 4) {
 // Blocks per problem of the backward.
 inline int bwd_split(int b_, int nh) { return row_split(b_ * nh, kBwdSplit); }
 
+// 16-byte copies of x's rows are aligned.
+inline bool rows_aligned(const InRows& x) {
+  return (reinterpret_cast<std::uintptr_t>(x.p) & 15) == 0 && x.sb % 4 == 0 &&
+         x.sr % 4 == 0 && x.sh % 4 == 0;
+}
+
 // Forward, one launch on `stream`.  bias: dense (nh, n, n) when compact == 0,
 // else (nh, 2wd-1, hw, hw) with wd*hw == n.  mask: (nw, n, n) or null.
 // out: (b_, n, nh*hd).  ms: (b_, n, 2nh) or null.  Returns the first error.
@@ -821,16 +765,23 @@ inline cudaError_t launch_fwd(const InRows& q, const InRows& k,
       out == nullptr || q.sr > kMaxRowStride || k.sr > kMaxRowStride ||
       v.sr > kMaxRowStride)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n, hd);
+  const size_t smem = fwd_smem_bytes(n);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_fwd_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
   }
+  const int vec =
+      hd % 4 == 0 && rows_aligned(q) && rows_aligned(k) && rows_aligned(v);
   const dim3 grid(nh, b_, row_split(nh * b_));
-  attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale);
+  attn_fwd_kernel<<<grid, kFwdThreads, smem, stream>>>(
+      q, k, v, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale,
+      vec);
   return cudaGetLastError();
 }
 
@@ -852,12 +803,6 @@ inline long long bwd_scratch_floats(int b_, int n, int nh, int hd) {
   const int split = bwd_split(b_, nh);
   const long long per = (long long)b_ * nh * n;
   return per * n + (split > 1 ? 2LL * split * per * hd : 0);
-}
-
-// 16-byte copies of x's rows are aligned.
-inline bool rows_aligned(const InRows& x) {
-  return (reinterpret_cast<std::uintptr_t>(x.p) & 15) == 0 && x.sb % 4 == 0 &&
-         x.sr % 4 == 0 && x.sh % 4 == 0;
 }
 
 // Backward on `stream`: the kernel, the sum of the blocks' shares of dk and

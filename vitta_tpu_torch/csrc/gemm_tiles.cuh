@@ -1,26 +1,45 @@
 // The port's own float32 matrix product for Hopper (sm_90a): one
-// shared-memory tiled kernel with its epilogues and host-side launchers,
-// shared by mlp.cu (the six products of the fused LayerNorm->MLP) and
-// attention_proj.cu (the qkv and output projections of the projection-fused
-// window attention and every product of their backward).
+// shared-memory tiled kernel on the tensor cores, with its epilogues and
+// host-side launchers, shared by mlp.cu (the six products of the fused
+// LayerNorm->MLP and of the MLP without it) and attention_proj.cu (the qkv
+// and output projections of the projection-fused window attention and every
+// product of their backward).
 //
 // gemm_tiles computes C = op(A) op(B) for row-major operands in one of two
 // layouts each: "k-minor" (the contraction index is the contiguous one: an
 // activation (M, K) as A, an nn.Linear weight (N, K) as B) or "k-major" (the
 // contraction index is the row: B (K, N) for a cotangent times a weight, and
 // both A (K, M) and B (K, N) for the weight gradients, which contract over
-// the activation's rows).  256 threads hold a BM x BN tile of C in registers
-// (8x8 or 4x4 each); the K loop stages BK-deep slices of A and B through
-// double-buffered shared memory, stored k-major so that a thread reads its
-// rows and columns as 16-byte vectors (a k-major operand is copied as it
-// lies, a k-minor one is transposed on the way in), and loads the next slice
-// from device memory into registers while it multiplies the current one.  A
-// thread's rows and columns are split into groups of four, half a tile
-// apart, so that the lanes of a quarter-warp read distinct banks.  Tiles of
-// 128x128x8 are used where they fill the card at least once, 64x64x16
-// otherwise (the late stages of Swin-B at one or two clips give few rows).
-// Any number of activation rows is taken; every other extent must be a
-// multiple of 4 (16-byte rows).
+// the activation's rows).
+//
+// What bounds it: operations, 2MNK of them against (MK + NK + MN) floats.
+// The products run on the tensor cores as mma.sync.m16n8k8 on tf32
+// operands in split TF32 (tf32.cuh): each float32 operand x = hi + lo, and
+// a b = lo*hi + hi*lo + hi*hi, float32 accuracy at three tensor-core
+// products (one tf32 product keeps about three decimal digits, which
+// MLP_TOL and MLP_BWD_TOL do not allow).  The split is made in registers as
+// each fragment is loaded (splitting a slice once in shared memory, into hi
+// and lo copies, was slower at every Swin shape on an H100).  The products
+// of one slice, four k steps, go to fresh accumulators that are then added
+// to the running sums with a float add, which rounds to nearest: the tensor
+// cores add into their accumulator with truncation, at its scale, and
+// summed in place over K = 4096 that bias took dx of the LayerNorm-MLP's
+// backward to 3.9e-5 of its largest value on an H100, past MLP_BWD_TOL.  A block owns a BM x BN tile of C, each of its warps a
+// WM x WN share of it in accumulator registers: 128 x 128 with 8 warps of
+// 64 x 32 where such tiles fill the card twice, 64 x 64 with 4 warps of
+// 32 x 32 otherwise (the late stages of Swin-B at one or two clips give few
+// rows).  The K loop stages BK-deep slices of A and B with 16-byte
+// cp.async copies, as they lie in device memory, into a ring of kGemmStages
+// shared-memory slots, so that the next slices' copies are in flight while
+// the tensor cores work on the current one.  A k-minor slice is stored
+// [row][k] with a row stride of BK + 4 floats (36), a k-major one [k][row]
+// with a stride of its width + 8 (136 or 72): the fragment loads of a warp
+// then hit 32 different banks, a k-minor one by ldmatrix.  Zero fill
+// (cp.async with a source size of 0) covers the ragged edges: any number
+// of activation rows, and a K that is a multiple of 4 but not of BK.  Every
+// other extent must be a multiple of 4 (16-byte rows).  Each lane stores
+// two neighbouring columns of its accumulator tiles at once, through the
+// epilogue.
 //
 // A weight gradient contracts over all rows of the activation (up to 50,176)
 // into an output of few tiles.  The TPU kernels add it up in an output block
@@ -29,18 +48,42 @@
 // (reduce.cuh) adds the partials in a fixed order: enough blocks to fill the
 // card, no atomics, the same result from run to run.
 //
-// Sums run over K terms in float32 in tile order, which is not the order of
-// any library product: at K = 4096 two such sums of O(1) terms differ by
-// some 1e-5 of the output's scale.
+// Sums run over K terms in float32, slice by slice in k order, which is not
+// the order of any library product: at K = 4096 two such sums of O(1) terms
+// differ by some 1e-5 of the output's scale.
+//
+// vitta_tpu_torch/tools/gemm_variants.py builds mlp.cu with other values of
+// VITTA_GEMM_BK, VITTA_GEMM_STAGES and VITTA_GEMM_FRESH and times them.
 
 #pragma once
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
+#include "tf32.cuh"
+
+#ifndef VITTA_GEMM_BK
+#define VITTA_GEMM_BK 32
+#endif
+#ifndef VITTA_GEMM_STAGES
+#define VITTA_GEMM_STAGES 3
+#endif
+#ifndef VITTA_GEMM_FRESH
+#define VITTA_GEMM_FRESH 4
+#endif
 
 namespace vitta {
 
-constexpr int kGemmThreads = 256;
+constexpr int kGemmBK = VITTA_GEMM_BK;          // k depth of a staged slice
+constexpr int kGemmStages = VITTA_GEMM_STAGES;  // slices in the ring
+static_assert(kGemmBK == 16 || kGemmBK == 32, "slices of 16 or 32 k");
+static_assert(kGemmStages >= 2 && kGemmStages <= 4, "2 to 4 stages");
+// k steps of eight summed in one fresh accumulator before it is added to
+// the running sum: four, a whole slice of BK = 32
+constexpr int kGemmFresh = VITTA_GEMM_FRESH;
+static_assert(kGemmFresh == 1 || kGemmFresh == 2 || kGemmFresh == 4,
+              "1, 2 or 4 k steps a fresh sum");
+static_assert(kGemmBK / 8 % kGemmFresh == 0, "whole fresh sums a slice");
+
 constexpr int EPI_BIAS = 0;   // C = acc + bias[col]
 constexpr int EPI_GELU = 1;   // C = gelu(acc + bias[col]), S = its derivative
 constexpr int EPI_MUL = 2;    // C = acc * aux[row][col]
@@ -53,154 +96,203 @@ __device__ __forceinline__ void gelu_parts(float h, float& a, float& s) {
   s = phi + h * expf(-0.5f * h * h) * 0.3989422804014327f;
 }
 
+// The shared-memory slice of an operand whose tile has R rows (of M or N):
+// k-minor [R][BK] with stride BK + 4 (== 4 mod 32 for BK = 32, 20 for 16),
+// k-major [BK][R] with stride R + 8 (== 8 mod 32).
+template <int R, bool KM>
+struct Slice {
+  static constexpr int ld = KM ? R + 8 : kGemmBK + 4;
+  static constexpr int floats = KM ? kGemmBK * ld : R * ld;
+};
+
+// Rows r0 .. r0 + R - 1 (of `rows`) and k0 .. k0 + BK - 1 (below kend) of
+// an operand into its slice, asynchronously; zeros where either is past its
+// end.  src[r * K + k] (k-minor) or src[k * rows + r] (k-major, rows a
+// multiple of 4).
+template <int R, bool KM, int kThreads>
+__device__ __forceinline__ void stage_slice(float* dst,
+                                            const float* __restrict__ src,
+                                            int rows, int K, int r0, int k0,
+                                            int kend, int tid) {
+  constexpr int kChunks = R * kGemmBK / 4;   // 16-byte copies
+  static_assert(kChunks % kThreads == 0, "whole copies per thread");
+  constexpr int kPerLine = KM ? R / 4 : kGemmBK / 4;
+#pragma unroll
+  for (int i = 0; i < kChunks / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int line = idx / kPerLine, q = (idx % kPerLine) * 4;
+    if (KM) {
+      const bool ok = k0 + line < kend && r0 + q < rows;
+      cp_async<16>(dst + line * Slice<R, KM>::ld + q,
+                   ok ? src + (size_t)(k0 + line) * rows + r0 + q : src, ok);
+    } else {
+      const bool ok = r0 + line < rows && k0 + q < kend;
+      cp_async<16>(dst + line * Slice<R, KM>::ld + q,
+                   ok ? src + (size_t)(r0 + line) * K + k0 + q : src, ok);
+    }
+  }
+}
+
+// An SM holds one block of 8 warps at once, or two of 4: ptxas then gives
+// the 128 x 128 tile 255 registers a thread and spills nothing (at two
+// blocks of 8 warps it keeps to 128 and spills).
+template <int BM, int BN, int WM, int WN>
+struct GemmShape {
+  static constexpr int warps = (BM / WM) * (BN / WN);
+  static constexpr int threads = warps * 32;
+  static constexpr int blocks = 8 / warps;   // per SM
+};
+
 // C (M, N) = sum over k in this block's chunk of K of a[m][k] * b[n][k], where
 // a[m][k] is A[m*K + k] (A_KM false) or A[k*M + m] (A_KM true), and b[n][k]
 // is B[n*K + k] or B[k*N + n] likewise.  blockIdx.z takes the k range
 // [z*kchunk, min(K, (z+1)*kchunk)); kchunk is a multiple of BK.
-template <int BM, int BN, int BK, int TM, int TN, bool A_KM, bool B_KM, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
+template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
+__global__ void __launch_bounds__(GemmShape<BM, BN, WM, WN>::threads,
+                                  GemmShape<BM, BN, WM, WN>::blocks)
 gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
            const float* __restrict__ bias, const float* __restrict__ aux,
            float* __restrict__ Cout, float* __restrict__ Sout, int M, int N,
            int K, int kchunk) {
-  static_assert(BM / TM == 16 && BN / TN == 16, "256 threads as 16 x 16");
-  static_assert(BM * BK == 4 * kGemmThreads && BN * BK == 4 * kGemmThreads,
-                "one 16-byte load per thread and operand");
-  static_assert(TM % 4 == 0 && TN % 4 == 0, "groups of four");
-  constexpr int GM = TM / 4, GN = TN / 4;       // groups of four rows/columns
-  constexpr int SM_ = BM / GM, SN_ = BN / GN;   // distance between groups
-  constexpr int KQ = BK / 4;
+  constexpr int kThreads = GemmShape<BM, BN, WM, WN>::threads;
+  constexpr int MI = WM / 16, NI = WN / 8;      // mma tiles of a warp
+  using SA = Slice<BM, A_KM>;
+  using SB = Slice<BN, B_KM>;
+  constexpr int kStage = SA::floats + SB::floats;
+  static_assert(WM % 16 == 0 && WN % 16 == 0, "whole mma tiles, in pairs");
+  extern __shared__ __align__(16) float smem[];
 
-  __shared__ __align__(16) float As[2][BK][BM + 4];
-  __shared__ __align__(16) float Bs[2][BK][BN + 4];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;         // mma's g and t
+  const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kbeg = blockIdx.z * kchunk;
   const int kend = kbeg + kchunk < K ? kbeg + kchunk : K;
-  // the one 16-byte load of this thread per operand and slice: a k-minor
-  // operand gives four k of one row, a k-major one four rows of one k
-  const int a_r = A_KM ? (tid % (BM / 4)) * 4 : tid / KQ;
-  const int a_k = A_KM ? tid / (BM / 4) : (tid % KQ) * 4;
-  const int b_r = B_KM ? (tid % (BN / 4)) * 4 : tid / KQ;
-  const int b_k = B_KM ? tid / (BN / 4) : (tid % KQ) * 4;
-  const bool a_ok = m0 + a_r < M, b_ok = n0 + b_r < N;   // M, N multiples of 4
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
 
-  auto load_a = [&](int k0) -> float4 {
-    const int k = k0 + a_k;
-    if (!a_ok || k >= kend) return zero4;
-    return *reinterpret_cast<const float4*>(
-        A_KM ? A + (size_t)k * M + m0 + a_r : A + (size_t)(m0 + a_r) * K + k);
-  };
-  auto load_b = [&](int k0) -> float4 {
-    const int k = k0 + b_k;
-    if (!b_ok || k >= kend) return zero4;
-    return *reinterpret_cast<const float4*>(
-        B_KM ? B + (size_t)k * N + n0 + b_r : B + (size_t)(n0 + b_r) * K + k);
-  };
-  auto store_a = [&](int buf, const float4& v) {
-    if (A_KM) {
-      *reinterpret_cast<float4*>(&As[buf][a_k][a_r]) = v;
-    } else {
-      As[buf][a_k + 0][a_r] = v.x;
-      As[buf][a_k + 1][a_r] = v.y;
-      As[buf][a_k + 2][a_r] = v.z;
-      As[buf][a_k + 3][a_r] = v.w;
-    }
-  };
-  auto store_b = [&](int buf, const float4& v) {
-    if (B_KM) {
-      *reinterpret_cast<float4*>(&Bs[buf][b_k][b_r]) = v;
-    } else {
-      Bs[buf][b_k + 0][b_r] = v.x;
-      Bs[buf][b_k + 1][b_r] = v.y;
-      Bs[buf][b_k + 2][b_r] = v.z;
-      Bs[buf][b_k + 3][b_r] = v.w;
-    }
+  auto stage = [&](int slot, int k0) {
+    float* As = smem + slot * kStage;
+    stage_slice<BM, A_KM, kThreads>(As, A, M, K, m0, k0, kend, tid);
+    stage_slice<BN, B_KM, kThreads>(As + SA::floats, B, N, K, n0, k0, kend,
+                                    tid);
   };
 
-  float acc[TM][TN];
+  float acc[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  float4 ra = load_a(kbeg), rb = load_b(kbeg);
-  store_a(0, ra);
-  store_b(0, rb);
-  __syncthreads();
-
-  const int nk = (kend - kbeg + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nk) stage(s, kbeg + s * kGemmBK);
+    cp_async_commit();
+  }
   for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {
-      ra = load_a(kbeg + (kt + 1) * BK);
-      rb = load_b(kbeg + (kt + 1) * BK);
-    }
+    cp_async_wait<kGemmStages - 2>();     // slice kt has landed
+    __syncthreads();                      // and slice kt - 1 is read by all
+    const int next = kt + kGemmStages - 1;
+    if (next < nk) stage(next % kGemmStages, kbeg + next * kGemmBK);
+    cp_async_commit();
+    const float* As = smem + (kt % kGemmStages) * kStage;
+    const float* Bs = As + SA::floats;
+    // kGemmFresh k steps at a time into fresh sums of every tile of the
+    // warp, k step by k step: the warp's B fragments, then one A fragment
+    // at a time; a k-minor operand by ldmatrix (lane l addresses row l % 8
+    // of its quarter, ql = l / 8), a k-major one element by element
+    const int ql = lane >> 3, rl = lane & 7;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
+    for (int kp = 0; kp < kGemmBK / 8; kp += kGemmFresh) {
+      float d[MI][NI][4];
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&As[cur][k][g * SM_ + ty * 4]);
-        a[4 * g] = t.x, a[4 * g + 1] = t.y, a[4 * g + 2] = t.z, a[4 * g + 3] = t.w;
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
+#pragma unroll
+      for (int kk = kp; kk < kp + kGemmFresh; ++kk) {
+        FragB bf[NI];
+#pragma unroll
+        for (int j = 0; j < NI; j += 2) {
+          if (B_KM) {
+#pragma unroll
+            for (int jj = j; jj < j + 2; ++jj) {
+              const int n = wn0 + 8 * jj + g, k = 8 * kk + t;
+              bf[jj] = frag_b(Bs[k * SB::ld + n], Bs[(k + 4) * SB::ld + n]);
+            }
+          } else {
+            float r[4];
+            ldmatrix_x4(r, Bs + (wn0 + 8 * j + rl + 8 * (ql >> 1)) * SB::ld +
+                               8 * kk + 4 * (ql & 1));
+            bf[j] = frag_b(r[0], r[1]);
+            bf[j + 1] = frag_b(r[2], r[3]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          FragA af;
+          if (A_KM) {
+            const int m = wm0 + 16 * i + g, k = 8 * kk + t;
+            af = frag_a(As[k * SA::ld + m], As[k * SA::ld + m + 8],
+                        As[(k + 4) * SA::ld + m],
+                        As[(k + 4) * SA::ld + m + 8]);
+          } else {
+            float r[4];
+            ldmatrix_x4(r, As + (wm0 + 16 * i + rl + 8 * (ql & 1)) * SA::ld +
+                               8 * kk + 4 * (ql >> 1));
+            af = frag_a(r[0], r[1], r[2], r[3]);
+          }
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma_3xtf32(d[i][j], af, bf[j]);
+        }
       }
 #pragma unroll
-      for (int g = 0; g < GN; ++g) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&Bs[cur][k][g * SN_ + tx * 4]);
-        b[4 * g] = t.x, b[4 * g + 1] = t.y, b[4 * g + 2] = t.z, b[4 * g + 3] = t.w;
-      }
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int j = 0; j < NI; ++j)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
     }
-    if (more) {
-      store_a(cur ^ 1, ra);
-      store_b(cur ^ 1, rb);
-    }
-    __syncthreads();
   }
 
+  // the epilogue on accumulator element pairs (row, col), (row, col + 1):
+  // col is even and N a multiple of 4, so both lie inside or both outside
   if (EPI == EPI_RAW) Cout += (size_t)blockIdx.z * M * N;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + (i / 4) * SM_ + ty * 4 + (i % 4);
-    if (row >= M) continue;
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int g = 0; g < GN; ++g) {
-      const int col = n0 + g * SN_ + tx * 4;
-      if (col >= N) continue;          // N is a multiple of 4
-      float4 v = make_float4(acc[i][4 * g], acc[i][4 * g + 1],
-                             acc[i][4 * g + 2], acc[i][4 * g + 3]);
-      if (EPI == EPI_BIAS || EPI == EPI_GELU) {
-        const float4 bb = *reinterpret_cast<const float4*>(bias + col);
-        v.x += bb.x, v.y += bb.y, v.z += bb.z, v.w += bb.w;
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm0 + 16 * i + g + 8 * half;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = n0 + wn0 + 8 * j + 2 * t;
+        if (col >= N) continue;
+        float2 v = make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+        const size_t at = (size_t)row * N + col;
+        if (EPI == EPI_BIAS || EPI == EPI_GELU) {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+          v.x += bb.x, v.y += bb.y;
+        }
+        if (EPI == EPI_GELU) {
+          float2 s;
+          gelu_parts(v.x, v.x, s.x);
+          gelu_parts(v.y, v.y, s.y);
+          if (Sout != nullptr) *reinterpret_cast<float2*>(Sout + at) = s;
+        }
+        if (EPI == EPI_MUL || (EPI == EPI_ADD && aux != nullptr)) {
+          const float2 x = *reinterpret_cast<const float2*>(aux + at);
+          if (EPI == EPI_MUL)
+            v.x *= x.x, v.y *= x.y;
+          else
+            v.x += x.x, v.y += x.y;
+        }
+        *reinterpret_cast<float2*>(Cout + at) = v;
       }
-      if (EPI == EPI_GELU) {
-        float4 s;
-        gelu_parts(v.x, v.x, s.x);
-        gelu_parts(v.y, v.y, s.y);
-        gelu_parts(v.z, v.z, s.z);
-        gelu_parts(v.w, v.w, s.w);
-        if (Sout != nullptr)
-          *reinterpret_cast<float4*>(Sout + (size_t)row * N + col) = s;
-      }
-      if (EPI == EPI_MUL || (EPI == EPI_ADD && aux != nullptr)) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(aux + (size_t)row * N + col);
-        if (EPI == EPI_MUL)
-          v.x *= x.x, v.y *= x.y, v.z *= x.z, v.w *= x.w;
-        else
-          v.x += x.x, v.y += x.y, v.z += x.z, v.w += x.w;
-      }
-      *reinterpret_cast<float4*>(Cout + (size_t)row * N + col) = v;
     }
-  }
 }
 
 inline int sm_count() {
@@ -215,29 +307,52 @@ inline int sm_count() {
   return count;
 }
 
-// One product over the whole of K; the larger tile where it fills the card.
+// One launch of gemm_tiles with its ring of slices in dynamic shared
+// memory (above the 48 KB default: the opt-in, and the largest carve-out,
+// which leaves room for as many blocks as the registers allow).
+template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
+cudaError_t launch_tiles(dim3 grid, const float* A, const float* B,
+                         const float* bias, const float* aux, float* Cout,
+                         float* Sout, int M, int N, int K, int kchunk,
+                         cudaStream_t stream) {
+  const auto kernel = gemm_tiles<BM, BN, WM, WN, A_KM, B_KM, EPI>;
+  constexpr size_t smem = sizeof(float) * kGemmStages *
+                          (Slice<BM, A_KM>::floats + Slice<BN, B_KM>::floats);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, GemmShape<BM, BN, WM, WN>::threads, smem, stream>>>(
+      A, B, bias, aux, Cout, Sout, M, N, K, kchunk);
+  return cudaGetLastError();
+}
+
+// One product over the whole of K; the larger tile where it fills the card
+// twice (one block of it an SM: a single wave would leave SMs idle behind
+// its tail, which cost Swin-B's stage-2 and stage-4 products 8-15% on an
+// H100), the smaller one otherwise.
 template <bool B_KM, int EPI>
 cudaError_t launch_gemm(const float* A, const float* B, const float* bias,
                         const float* aux, float* Cout, float* Sout, int M,
                         int N, int K, cudaStream_t stream) {
   const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big >= sm_count()) {
-    const dim3 grid((N + 127) / 128, (M + 127) / 128);
-    gemm_tiles<128, 128, 8, 8, 8, false, B_KM, EPI>
-        <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, aux, Cout, Sout, M, N,
-                                            K, K);
-  } else {
-    const dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_tiles<64, 64, 16, 4, 4, false, B_KM, EPI>
-        <<<grid, kGemmThreads, 0, stream>>>(A, B, bias, aux, Cout, Sout, M, N,
-                                            K, K);
-  }
-  return cudaGetLastError();
+  if (big >= 2LL * sm_count())
+    return launch_tiles<128, 128, 64, 32, false, B_KM, EPI>(
+        dim3((N + 127) / 128, (M + 127) / 128), A, B, bias, aux, Cout, Sout,
+        M, N, K, K, stream);
+  return launch_tiles<64, 64, 32, 32, false, B_KM, EPI>(
+      dim3((N + 63) / 64, (M + 63) / 64), A, B, bias, aux, Cout, Sout, M, N,
+      K, K, stream);
 }
 
 // How out (M, N) = A^T B with A (K, M) and B (K, N) is cut: the tile edge,
-// the number of chunks of K and their length (a multiple of 16, so of both
-// tiles' BK).  About two blocks per SM, chunks of at least 256 rows.
+// the number of chunks of K and their length (a multiple of BK).  About two
+// blocks per SM, chunks of at least 256 rows.
 struct GradPlan {
   int tile, splits, kchunk;
 };
@@ -250,7 +365,7 @@ inline GradPlan grad_plan(int M, int N, int K) {
   long long want = (2LL * sm_count() + tiles - 1) / tiles;
   const long long most = K / 256 > 1 ? K / 256 : 1;
   want = want < 1 ? 1 : (want > most ? most : want);
-  p.kchunk = (int)(((K + want - 1) / want + 15) / 16 * 16);
+  p.kchunk = (int)(((K + want - 1) / want + kGemmBK - 1) / kGemmBK * kGemmBK);
   p.splits = (K + p.kchunk - 1) / p.kchunk;
   return p;
 }
@@ -262,25 +377,24 @@ inline long long grad_partial_floats(int M, int N, int K) {
 
 // out (M, N) = A^T B, summed over the K rows in chunks and then over the
 // chunks in order; `partial` holds grad_partial_floats(M, N, K).
-inline cudaError_t launch_grad_gemm(const float* A, const float* B, float* out,
-                             float* partial, int M, int N, int K,
-                             cudaStream_t stream) {
+inline cudaError_t launch_grad_gemm(const float* A, const float* B,
+                                    float* out, float* partial, int M, int N,
+                                    int K, cudaStream_t stream) {
   const GradPlan p = grad_plan(M, N, K);
   float* dst = p.splits > 1 ? partial : out;
   const dim3 grid((N + p.tile - 1) / p.tile, (M + p.tile - 1) / p.tile,
                   p.splits);
-  if (p.tile == 128)
-    gemm_tiles<128, 128, 8, 8, 8, true, true, EPI_RAW>
-        <<<grid, kGemmThreads, 0, stream>>>(A, B, nullptr, nullptr, dst,
-                                            nullptr, M, N, K, p.kchunk);
-  else
-    gemm_tiles<64, 64, 16, 4, 4, true, true, EPI_RAW>
-        <<<grid, kGemmThreads, 0, stream>>>(A, B, nullptr, nullptr, dst,
-                                            nullptr, M, N, K, p.kchunk);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      p.tile == 128
+          ? launch_tiles<128, 128, 64, 32, true, true, EPI_RAW>(
+                grid, A, B, nullptr, nullptr, dst, nullptr, M, N, K,
+                p.kchunk, stream)
+          : launch_tiles<64, 64, 32, 32, true, true, EPI_RAW>(
+                grid, A, B, nullptr, nullptr, dst, nullptr, M, N, K,
+                p.kchunk, stream);
   if (e != cudaSuccess || p.splits == 1) return e;
-  return launch_reduce_partials(partial, out, p.splits,
-                                       (long long)M * N, stream);
+  return launch_reduce_partials(partial, out, p.splits, (long long)M * N,
+                                stream);
 }
 
 inline long long max2(long long a, long long b) { return a > b ? a : b; }

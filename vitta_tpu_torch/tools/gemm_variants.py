@@ -1,0 +1,353 @@
+"""Time gemm_tiles and the attention forward at other shapes, on the card.
+
+    python3 -m vitta_tpu_torch.tools.gemm_variants
+
+``csrc/gemm_tiles.cuh`` fixes the matrix product's k depth per staged
+slice (``VITTA_GEMM_BK``, 32), the number of slices in its cp.async ring
+(``VITTA_GEMM_STAGES``, 3) and the k steps summed in one fresh accumulator
+(``VITTA_GEMM_FRESH``, 4); ``csrc/attention_kernels.cuh`` fixes the
+attention forward's warps per block (``VITTA_ATTN_FWD_WARPS``, 16) and keys
+per chunk (``VITTA_ATTN_FWD_KEYS``, 32).  This script builds
+``csrc/mlp.cu`` once per entry of ``GEMM_VARIANTS`` and
+``csrc/attention.cu`` once per entry of ``FWD_VARIANTS``, all at once, with
+``nvcc -Xptxas -v``, prints each kernel's registers and spills, checks
+every build against the plain version, and prints CUDA-event times:
+
+* the MLP without the LayerNorm (two products forward: x w1^T with the
+  GELU, a w2^T; four backward: (g w2) * s, dh w1, dh^T x, g^T a) at every
+  Swin-B and Swin-T stage shape of 2 clips, as float32-equivalent TFLOP/s
+  (2MNK over the call's time), beside ``torch.matmul`` (TF32 off) on the
+  same products;
+* the packed attention forward at every Swin-B and Swin-T stage shape of 2
+  clips (with the shift mask where the stage has one) and Swin-B's last
+  stage at 1 clip, beside ``scaled_dot_product_attention``.
+
+First it times the tensor cores' own rate under ``mma.sync``: a kernel
+that issues nothing but independent ``mma.sync.m16n8k8`` tf32 products on
+register operands (``ROOF_SOURCE``), the ceiling of any split-TF32 kernel
+built on that instruction (a third of it in float32-equivalent terms).
+A variant that does not build, or does not launch (more shared memory than
+a block may have), is reported and left out.  Needs a CUDA device and nvcc;
+the libraries go to ``build/vitta_tpu_torch/variants/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+import torch.nn.functional as F
+
+from vitta_tpu_torch.ops import _build
+from vitta_tpu_torch.ops import cuda_attention as ca
+from vitta_tpu_torch.ops import cuda_bias as cb
+from vitta_tpu_torch.ops import cuda_mlp as cm
+
+# name -> macro values; the first of each is the source's own
+GEMM_VARIANTS = {
+    "BK 32, 3 stages, fresh sums of 4 steps": {},
+    "fresh sums of 1 step": {"VITTA_GEMM_FRESH": 1},
+    "fresh sums of 2 steps": {"VITTA_GEMM_FRESH": 2},
+    "4 stages": {"VITTA_GEMM_STAGES": 4},
+    "BK 16, fresh sums of 2 steps": {"VITTA_GEMM_BK": 16,
+                                     "VITTA_GEMM_FRESH": 2},
+}
+FWD_VARIANTS = {
+    "16 warps, 32 keys": {},
+    "8 warps": {"VITTA_ATTN_FWD_WARPS": 8},
+    "16 keys": {"VITTA_ATTN_FWD_KEYS": 16},
+}
+# (model, width C) of every Swin stage, tokens per clip per stage
+MLP_SHAPES = (("swin-B", 128), ("swin-B", 256), ("swin-B", 512),
+              ("swin-B", 1024), ("swin-T", 96), ("swin-T", 192),
+              ("swin-T", 384), ("swin-T", 768))
+TOKENS = (25088, 6272, 1568, 392)
+# attention stages: model, width, heads, windows per clip, mask windows (0:
+# no mask), clips; Swin-B's last stage also for 1 clip
+ATTN_STAGES = (("swin-B", 128, 4, 64, 64, 2), ("swin-B", 256, 8, 16, 16, 2),
+               ("swin-B", 512, 16, 4, 4, 2), ("swin-B", 1024, 32, 1, 0, 2),
+               ("swin-B", 1024, 32, 1, 0, 1), ("swin-T", 96, 3, 64, 64, 2),
+               ("swin-T", 192, 6, 16, 16, 2), ("swin-T", 384, 12, 4, 4, 2),
+               ("swin-T", 768, 24, 1, 0, 2))
+WD, HW = 8, 49
+ROOF_SOURCE = r"""
+#include "tf32.cuh"
+// kChains independent accumulators a warp, mma.sync on register operands:
+// the rate of the tensor cores under mma.sync, nothing else in the loop
+constexpr int kChains = 8;
+__global__ void mma_roof(float* out, int iters) {
+  unsigned a[4], b[2];
+  for (int e = 0; e < 4; ++e) a[e] = 0x3f800000u + threadIdx.x + e;
+  b[0] = 0x3f800000u + threadIdx.x, b[1] = b[0] + 7;
+  float acc[kChains][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) vitta::mma_tf32(acc[j], a, b);
+  float s = 0.f;
+  for (int j = 0; j < kChains; ++j) s += acc[j][0] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int roof(float* out, int blocks, int threads, int iters,
+                    void* stream) {
+  mma_roof<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+ROOF_CHAINS = 8
+MLP_TOL, MLP_BWD_TOL, ATTN_TOL = 1e-4, 2e-5, 2e-5   # chip_smoke.py's
+
+
+def build(source: str, tag: str, macros: dict, kernel: str):
+    """(library, ptxas summary) of the variant, or (None, nvcc's error)."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"lib{source}_{tag}.so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+           *(f"-D{k}={v}" for k, v in macros.items()),
+           "-o", str(out), str(_build.CSRC_DIR / f"{source}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, f"nvcc failed:\n{proc.stderr[-3000:]}"
+    lines = proc.stderr.splitlines()
+    info = []
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            name = re.search(r"'(\S+)'", line)
+            args = re.search(rf"{kernel}(I\S*?E)v", name.group(1) if name
+                             else "")
+            used = " ".join(lines[k + 1:k + 4]).replace("ptxas info    :", "")
+            regs = re.search(r"Used (\d+) registers", used)
+            spill = re.search(r"(\d+) bytes spill stores", used)
+            info.append(f"{kernel}{args.group(1) if args else ''}: "
+                        f"{regs.group(1) if regs else '?'} registers, "
+                        f"{spill.group(1) if spill else '?'} bytes spilled")
+    return ctypes.CDLL(str(out)), "; ".join(info)
+
+
+def mma_roof(dev, stream) -> str:
+    """TFLOP/s of tf32 mma.sync.m16n8k8 alone (2 x 16 x 8 x 8 operations
+    each), over every SM at 4 blocks of 8 warps."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "mma_roof.cu"
+    src.write_text(ROOF_SOURCE)
+    lib_path = out_dir / "libmma_roof.so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+           "-o", str(lib_path), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        return f"does not build:\n{proc.stderr[-2000:]}"
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.roof.argtypes = [p, i, i, i, p]
+    lib.roof.restype = i
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, iters = 256, 4096
+    out = torch.empty(blocks * threads, device=dev)
+    ms = event_ms(lambda: lib.roof(out.data_ptr(), blocks, threads, iters,
+                                   stream))
+    flops = blocks * threads // 32 * iters * ROOF_CHAINS * 2 * 16 * 8 * 8
+    rate = flops / ms / 1e9
+    return (f"{rate:.1f} TFLOP/s tf32 ({rate / 3:.1f} float32-equivalent in "
+            f"split TF32) over {blocks} blocks of {threads} threads")
+
+
+def bind(lib, source: str):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if source == "mlp":
+        lib.vitta_mlp_fwd.argtypes = [p] * 8 + [i, i, i, p]
+        lib.vitta_mlp_fwd.restype = i
+        lib.vitta_mlp_bwd.argtypes = [p] * 12 + [i, i, i, p]
+        lib.vitta_mlp_bwd.restype = i
+        lib.vitta_mlp_bwd_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
+    else:
+        lib.vitta_attn_packed_fwd.argtypes = [p] * 5 + [i] * 8 + [
+            ctypes.c_float, p]
+        lib.vitta_attn_packed_fwd.restype = i
+    return lib
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def close(name, got, want, tol):
+    """Max abs error; raises unless |got - want| <= tol + tol |want|."""
+    err = (got - want).abs()
+    if not bool((err <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{name}: max abs error {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def scaled(name, got, want, tol):
+    """Max abs error; raises unless it is at most tol of want's largest
+    magnitude."""
+    err = float((got - want).abs().max())
+    if not err <= tol * float(want.abs().max()):
+        raise AssertionError(f"{name}: error {err:.3e} of the largest value "
+                             f"{float(want.abs().max()):.3e}")
+    return err
+
+
+def run_mlp(libs, dev, gen, stream):
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    for (model, c), tokens in zip(MLP_SHAPES, TOKENS * 2):
+        m, f = 2 * tokens, 4 * c
+        x, g = randn(m, c, scale=1.5), randn(m, c)
+        w1, b1 = randn(f, c, scale=c ** -0.5), 0.1 * randn(f)
+        w2, b2 = randn(c, f, scale=f ** -0.5), 0.1 * randn(c)
+        o_ref, a_ref, s_ref = cm.mlp_reference(x, w1, b1, w2, b2, True)
+        want = cm.mlp_backward_reference(x, a_ref, s_ref, g, w1, w2)
+        fwd_fl, bwd_fl = 4 * m * c * f, 8 * m * c * f
+        lib_f = event_ms(lambda: (torch.matmul(x, w1.t()),
+                                  torch.matmul(a_ref, w2.t())))
+        lib_b = event_ms(lambda: (torch.matmul(g, w2), torch.matmul(a_ref, w1),
+                                  torch.matmul(a_ref.t(), x),
+                                  torch.matmul(g.t(), a_ref)))
+        print(f"{model} M={m} C={c} F={f}: torch.matmul (TF32 off) forward "
+              f"{lib_f:.3f} ms, {fwd_fl / lib_f / 1e9:.1f} TFLOP/s; backward "
+              f"{lib_b:.3f} ms, {bwd_fl / lib_b / 1e9:.1f} TFLOP/s", flush=True)
+        o, a, s = (torch.empty_like(t) for t in (o_ref, a_ref, s_ref))
+        grads = [torch.empty_like(t) for t in want]
+        for name, lib in libs.items():
+            scratch = torch.empty(lib.vitta_mlp_bwd_scratch_floats(m, c, f),
+                                  device=dev)
+
+            def fwd():
+                return lib.vitta_mlp_fwd(
+                    x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    b2.data_ptr(), a.data_ptr(), s.data_ptr(), o.data_ptr(),
+                    m, c, f, stream)
+
+            def bwd():
+                return lib.vitta_mlp_bwd(
+                    x.data_ptr(), a_ref.data_ptr(), s_ref.data_ptr(),
+                    g.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                    *(t.data_ptr() for t in grads), scratch.data_ptr(), m, c,
+                    f, stream)
+            code = fwd() or bwd()
+            if code != 0:
+                print(f"  {name}: does not launch (CUDA error {code})",
+                      flush=True)
+                continue
+            torch.cuda.synchronize()
+            try:
+                err = max(close(f"{name} {nm}", got, ref, MLP_TOL)
+                          for nm, got, ref in (("o", o, o_ref),
+                                               ("a", a, a_ref),
+                                               ("s", s, s_ref)))
+                err_b = max(scaled(f"{name} {nm}", got, ref, MLP_BWD_TOL)
+                            for nm, got, ref in zip(
+                                ("dx", "dw1", "db1", "dw2", "db2"), grads,
+                                want))
+            except AssertionError as e:
+                print(f"  {name}: fails the tolerance: {e}", flush=True)
+                continue
+            tf, tb = event_ms(fwd), event_ms(bwd)
+            print(f"  {name}: forward {tf:.3f} ms, {fwd_fl / tf / 1e9:.1f} "
+                  f"TFLOP/s; backward {tb:.3f} ms, {bwd_fl / tb / 1e9:.1f} "
+                  f"TFLOP/s (max abs err {err:.1e}, backward {err_b:.1e})",
+                  flush=True)
+            del scratch
+        del x, g, o_ref, a_ref, s_ref, want, o, a, s, grads
+
+
+def run_attention(libs, dev, gen, stream):
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    n = WD * HW
+    for model, c, nh, windows, nw, clips in ATTN_STAGES:
+        hd, b_ = c // nh, clips * windows
+        scale = hd ** -0.5
+        qkv = randn(b_, n, 3 * c)
+        dense = cb.expand_bias_reference(randn(nh, 2 * WD - 1, HW, HW), WD)
+        mask = None
+        if nw:
+            mask = torch.where(torch.rand(nw, n, n, device=dev, generator=gen)
+                               < 0.3, -100.0, 0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+        want, want_ms = ca.packed_attention_reference(qkv, dense, mask, scale,
+                                                      nh, save_ms=True)
+        q5 = qkv.reshape(b_, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        am = dense[None] if mask is None else (
+            dense[None, None] + mask[None, :, None]).expand(
+                b_ // nw, nw, nh, n, n).reshape(b_, nh, n, n)
+        sdpa = event_ms(lambda: F.scaled_dot_product_attention(
+            q5[0], q5[1], q5[2], attn_mask=am, scale=scale))
+        print(f"{model} attention B_={b_} nh={nh} N={n} mask="
+              f"{mask is not None}: "
+              f"sdpa {sdpa:.3f} ms; forward by variant:", flush=True)
+        out, ms = torch.empty_like(want), torch.empty_like(want_ms)
+        for name, lib in libs.items():
+            def run():
+                return lib.vitta_attn_packed_fwd(
+                    qkv.data_ptr(), dense.data_ptr(),
+                    None if mask is None else mask.data_ptr(), out.data_ptr(),
+                    ms.data_ptr(), b_, n, nh, hd, max(nw, 1), 0, WD, HW,
+                    scale, stream)
+            code = run()
+            if code != 0:
+                print(f"  {name}: does not launch (CUDA error {code})",
+                      flush=True)
+                continue
+            torch.cuda.synchronize()
+            try:
+                err = max(close(f"{name} out", out, want, ATTN_TOL),
+                          close(f"{name} ms", ms, want_ms, ATTN_TOL))
+            except AssertionError as e:
+                print(f"  {name}: fails the tolerance: {e}", flush=True)
+                continue
+            print(f"  {name}: {event_ms(run):.3f} ms (max abs err "
+                  f"{err:.1e})", flush=True)
+        del qkv, dense, mask, want, want_ms, am, out, ms
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("gemm_variants: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"device: {card}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    jobs = [("mlp", f"g{k}", name, macros, "gemm_tiles")
+            for k, (name, macros) in enumerate(GEMM_VARIANTS.items())]
+    jobs += [("attention", f"f{k}", name, macros, "attn_fwd_kernel")
+             for k, (name, macros) in enumerate(FWD_VARIANTS.items())]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = list(pool.map(lambda j: build(j[0], j[1], j[3], j[4]), jobs))
+    libs = {"mlp": {}, "attention": {}}
+    for (source, _tag, name, _macros, _k), (lib, info) in zip(jobs, built):
+        print(f"{source}.cu, {name}: {info}", flush=True)
+        if lib is not None:
+            libs[source][name] = bind(lib, source)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"mma.sync tf32 alone: {mma_roof(dev, stream)}", flush=True)
+    run_attention(libs["attention"], dev, gen, stream)
+    run_mlp(libs["mlp"], dev, gen, stream)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
