@@ -72,8 +72,12 @@ result line:
    projection in one op, without and with the LayerNorm in front) at every
    Swin-B stage shape, forward for 1 clip (values only) and 2 clips,
    backward for 2 clips, with and without mask, the LayerNorm form with
-   and without a cotangent on y: every output, two backward runs
-   bit-equal, CUDA-event and device times of kernel and plain version; for ``attn_proj`` the library call
+   and without a cotangent on y: every output (the forward's qkv, and y,
+   among them; the backward reads them), two backward runs bit-equal, the
+   backward's launches per call within its budget (at most 8 without the
+   LayerNorm and 11 with it, 2 fewer where both pairs of products run as
+   one launch each; no qkv product, no LayerNorm forward, no column-sum
+   pass), CUDA-event and device times of kernel and plain version; for ``attn_proj`` the library call
    ``F.multi_head_attention_forward`` (packed in-projection, attn_mask =
    bias + mask made outside the timed call, ``need_weights=False``) and
    its backward under autograd, which gives no bias gradient; no one call
@@ -91,8 +95,12 @@ result line:
    counters must show, under ``"ln_proj"``, 24 ``attn_ln_proj``, 5
    LayerNorm, 24 bias and 24 LayerNorm-MLP launches, no packed attention
    and no contiguity copy, per step as many backward launches; under
-   ``"proj"`` 29 LayerNorm and 24 ``attn_proj``.  Ends with one line per
-   route: ms/video, host time, device busy, idle share, peak memory.
+   ``"proj"`` 29 LayerNorm and 24 ``attn_proj``.  Then one adapt+eval
+   step under packed, proj and ln_proj in turns (packed, proj, ln_proj,
+   ln_proj, proj, packed; one engine each): device busy and the step's
+   peak memory above what the engines hold.  Ends with one line per route:
+   ms/video, host time, device busy, idle share, peak memory, and for
+   these three the interleaved device busy and step peak.
 
 15. MLP kernels without the LayerNorm and attention kernels per (head,
    window) against plain, forward and backward, at every Swin-T and every
@@ -190,7 +198,7 @@ import torch
 # the set-up shared with vitta_tpu_torch/tools/attention_routes.py; without
 # the package beside this file the run ends here
 from vitta_tpu_torch.tools.synthetic import (
-    SWIN_MODELS, StepTimes as _StepTimes, device_breakdown,
+    SWIN_MODELS, StepTimes as _StepTimes, device_breakdown, kernel_launches,
     normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
     swin_weights as _swin_weights, videos as _videos)
 from vitta_tpu_torch.tools.tanet_breakdown import (
@@ -263,7 +271,7 @@ MLP_BWD_TOL = 2e-5
 # MLP_TOL (its qkv comes from a tiled float32 sum over K <= 1024 terms, goes
 # through the softmax of ATTN_TOL and a second such sum), and tol * (largest
 # |value|) backward, as MLP_BWD_TOL with room for the two further products
-# and the recomputed qkv in the chain
+# and the attention's in the chain
 PROJ_TOL = 1e-4
 PROJ_BWD_TOL = 5e-5
 
@@ -361,16 +369,6 @@ def fmt(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def kernel_launches(fn):
-    """{kernel name: launches} of one call of ``fn``, from torch.profiler
-    (asked again where it recorded no kernel)."""
-    for _attempt in range(3):
-        _host, _busy, rows = device_breakdown(fn, top=None)
-        if rows:
-            return {name: launches for name, _ms, launches in rows}
-    raise AssertionError("the profiler recorded no kernel")
-
-
 def check_attn_bwd_launches(what, fn, split):
     """The launches of one attention backward call: attn_bwd_kernel, the
     sum of the blocks' shares of dk and dv where ``split`` > 1 blocks share
@@ -384,6 +382,32 @@ def check_attn_bwd_launches(what, fn, split):
         raise AssertionError(f"{what}: launches {names}, expected {want} "
                              "with attn_bwd_kernel and no forward kernel")
     return want
+
+
+def check_proj_bwd_launches(what, fn, with_ln):
+    """The launches of one projection-fused attention backward call, held to
+    the chain's budget: the two pairs of products (one launch each where
+    they are grouped, two otherwise), the attention backward (2 or 3), the
+    LayerNorm backward's rows and columns, one reduce for every partial
+    sum; at most 8 without the LayerNorm and 11 with it, 2 fewer where both
+    pairs are grouped.  No qkv product (no gemm_tiles with two k-minor
+    operands and the bias epilogue), no LayerNorm forward, no column-sum
+    pass, no forward attention kernel.  Returns the launches' count."""
+    names = kernel_launches(fn)
+    total = sum(names.values())
+    pairs = sum(n for k, n in names.items() if "gemm_pair" in k)
+    products = pairs + sum(n for k, n in names.items() if "gemm_tiles" in k)
+    reduces = sum(n for k, n in names.items() if "reduce_sums" in k)
+    budget = (11 if with_ln else 8) - pairs
+    bad = [k for k in names if any(
+        a in k for a in ("col_sums", "reduce_partials", "ln_rows_vec",
+                         "ln_rows_any", "attn_fwd_kernel",
+                         "false, false, 0>"))]
+    if (total > budget or products != 4 - pairs or reduces != 1 or bad
+            or not any("attn_bwd_kernel" in k for k in names)):
+        raise AssertionError(f"{what}: launches {names}, {total} against a "
+                             f"budget of {budget}")
+    return total
 
 
 class Totals:
@@ -944,6 +968,7 @@ def phase_swin_proj_kernels(dev):
     tot = {k: Totals() for k in ("proj_fwd", "proj_bwd", "ln_proj_fwd",
                                  "ln_proj_bwd")}
     comp = dict.fromkeys(tot, 0.0)       # the composition's device ms
+    per_call = {"proj_bwd": set(), "ln_proj_bwd": set()}  # launches a call
 
     def add_composition(key, sites, device_ms):
         comp[key] = None if (device_ms is None or comp[key] is None) \
@@ -985,8 +1010,8 @@ def phase_swin_proj_kernels(dev):
                                                    True)
                 err = max(check_close(f"attn_proj fwd {tag} {nm}", p_, q_,
                                       PROJ_TOL)
-                          for nm, p_, q_ in zip(("out", "o_att", "ms"), got,
-                                                want))
+                          for nm, p_, q_ in zip(("out", "qkv", "o_att", "ms"),
+                                                got, want))
                 tot["proj_fwd"].err = max(tot["proj_fwd"].err, err)
                 got_ln = cp.attn_ln_proj_fwd(x, gm, bt, eps, *w, dense, m,
                                              scale, nh, True)
@@ -994,13 +1019,15 @@ def phase_swin_proj_kernels(dev):
                     x, gm, bt, eps, *w, dense, m, scale, nh, True)
                 err_ln = max(check_close(f"attn_ln_proj fwd {tag} {nm}", p_,
                                          q_, PROJ_TOL)
-                             for nm, p_, q_ in zip(("out", "y", "o_att", "ms"),
-                                                   got_ln, want_ln))
+                             for nm, p_, q_ in zip(
+                                 ("out", "y", "qkv", "o_att", "ms"), got_ln,
+                                 want_ln))
                 tot["ln_proj_fwd"].err = max(tot["ln_proj_fwd"].err, err_ln)
-                _o, o_att, ms_ = got
-                _o, _y, o_att_ln, ms_ln = got_ln
+                # what each forward keeps, which its backward reads
+                _o, qkv_, o_att, ms_ = got
+                _o, y_ln, qkv_ln, o_att_ln, ms_ln = got_ln
                 want_out = want[0]
-                del got, want, got_ln, want_ln, _o, _y
+                del got, want, got_ln, want_ln, _o
 
                 def composition(xin, with_ln):
                     y = cl.layer_norm(xin, gm, bt, eps) if with_ln else xin
@@ -1064,18 +1091,20 @@ def phase_swin_proj_kernels(dev):
                 bflops = (16 * m_rows * c * c
                           + b_ * nh * n_tok * n_tok * (10 * hd + 12))
                 tc_bwd = 16 * m_rows * c * c + b_ * nh * n_tok * n_tok * 10 * hd
-                got = cp.attn_proj_bwd(x, wqkv, bqkv, wproj, dense, m, o_att,
-                                       ms_, g, scale, nh)
-                want = cp.proj_attention_backward_reference(
-                    x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g, scale, nh)
+                pargs = (x, qkv_, wqkv, wproj, dense, m, o_att, ms_, g,
+                         scale, nh)
+                got = cp.attn_proj_bwd(*pargs)
+                want = cp.proj_attention_backward_reference(*pargs)
                 err = max(check_scaled(f"attn_proj bwd {tag} {nm}", p_, q_,
                                        PROJ_BWD_TOL)
                           for nm, p_, q_ in zip(bwd_names, got, want))
-                again = cp.attn_proj_bwd(x, wqkv, bqkv, wproj, dense, m,
-                                         o_att, ms_, g, scale, nh)
+                again = cp.attn_proj_bwd(*pargs)
                 if not all(torch.equal(a, b) for a, b in zip(again, got)):
                     raise AssertionError(f"attn_proj bwd {tag}: two runs "
                                          "differ")
+                launches = {"proj": check_proj_bwd_launches(
+                    f"attn_proj bwd {tag}", lambda: cp.attn_proj_bwd(*pargs),
+                    False)}
                 tot["proj_bwd"].err = max(tot["proj_bwd"].err, err)
                 del got, want, again
                 leaves = [v.detach().clone().requires_grad_()
@@ -1100,17 +1129,14 @@ def phase_swin_proj_kernels(dev):
                     "proj library": quick(lambda: torch.autograd.grad(
                         out_lib, lib_leaves, g_t, retain_graph=True),
                         grad=True),
-                    "proj": quick(lambda: cp.attn_proj_bwd(
-                        x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g, scale,
-                        nh)),
+                    "proj": quick(lambda: cp.attn_proj_bwd(*pargs)),
                     "proj plain": quick(
-                        lambda: cp.proj_attention_backward_reference(
-                            x, wqkv, bqkv, wproj, dense, m, o_att, ms_, g,
-                            scale, nh)),
+                        lambda: cp.proj_attention_backward_reference(*pargs)),
                     "proj composition": quick(lambda: torch.autograd.grad(
                         out_c, leaves, g, retain_graph=True), grad=True)}
                 del out_c, out_lib, lib_leaves, g_t
-                nbytes = (4 * m_rows * c + ms_.numel() + 2 * small) * 4
+                # x, qkv, o_att, g read, dx written
+                nbytes = (7 * m_rows * c + ms_.numel() + 2 * small) * 4
                 tot["proj_bwd"].add(
                     sites, ms=times["proj"][0], device_ms=times["proj"][1],
                     library_ms=times["proj library"][0],
@@ -1121,7 +1147,7 @@ def phase_swin_proj_kernels(dev):
                 add_composition("proj_bwd", sites,
                                 times["proj composition"][1])
                 for gy in (gy_full, None):
-                    args = (x, gm, bt, eps, wqkv, bqkv, wproj, dense, m,
+                    args = (x, y_ln, qkv_ln, gm, eps, wqkv, wproj, dense, m,
                             o_att_ln, ms_ln, g, gy, scale, nh)
                     got = cp.attn_ln_proj_bwd(*args)
                     want = cp.ln_proj_attention_backward_reference(*args)
@@ -1132,6 +1158,9 @@ def phase_swin_proj_kernels(dev):
                     again = cp.attn_ln_proj_bwd(*args)
                     if not all(torch.equal(a, b) for a, b in zip(again, got)):
                         raise AssertionError(f"{what}: two runs differ")
+                    launches[f"ln_proj gy={gy is not None}"] = \
+                        check_proj_bwd_launches(
+                            what, lambda: cp.attn_ln_proj_bwd(*args), True)
                     tot["ln_proj_bwd"].err = max(tot["ln_proj_bwd"].err, e_ln)
                     err = max(err, e_ln)
                     del got, want, again
@@ -1156,13 +1185,20 @@ def phase_swin_proj_kernels(dev):
                             sites, ms=times[key][0], device_ms=times[key][1],
                             plain_ms=times[key + " plain"][0],
                             plain_device_ms=times[key + " plain"][1],
-                            bytes=nbytes + ((1 if gy is not None else 0)
+                            bytes=nbytes + ((2 if gy is not None else 1)
                                             * m_rows * c + 4 * c) * 4,
                             flops=bflops + 20 * m_rows * c, tc_flops=tc_bwd)
                         add_composition("ln_proj_bwd", sites,
                                         times[key + " composition"][1])
                 _report(f"attn_proj / attn_ln_proj bwd {tag}", err, times)
+                print(f"attn_proj / attn_ln_proj bwd {tag}: launches per "
+                      "call " + ", ".join(f"{k} {v}" for k, v in
+                                          launches.items()), flush=True)
+                for k, v in launches.items():
+                    per_call["proj_bwd" if k == "proj" else
+                             "ln_proj_bwd"].add(v)
                 del leaves, o_att, ms_, o_att_ln, ms_ln, am, x_t, want_out
+                del qkv_, y_ln, qkv_ln
             del x, g, gy_full
 
     src, ops = "vitta_tpu_torch/csrc/attention_proj.cu", \
@@ -1176,6 +1212,8 @@ def phase_swin_proj_kernels(dev):
     for r, key in zip(rows, ("proj_fwd", "proj_bwd", "ln_proj_fwd",
                              "ln_proj_bwd")):
         r["composition_device_ms"] = comp[key]
+        if key in per_call:
+            r["launches_per_call"] = sorted(per_call[key])
         print(f"{r['name']} per Swin-B pass of 2 clips (24 launches): event "
               f"ms {r['ms']:.3f}, device ms {fmt(r['device_ms'])}, plain "
               f"{r['plain_ms']:.3f} (device {fmt(r['plain_device_ms'])}), "
@@ -1184,7 +1222,9 @@ def phase_swin_proj_kernels(dev):
                  f"{fmt(r['library_device_ms'])})")
               + f", the composition it replaces device "
               f"{fmt(comp[key])}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']}{_floor(r)}", flush=True)
+              f"{r['bound_by']}{_floor(r)}"
+              + (f"; launches per call {r['launches_per_call']}"
+                 if key in per_call else ""), flush=True)
     return rows
 
 
@@ -1438,15 +1478,19 @@ def phase_unfused_kernels(dev):
 
 def _gemm_device_ms(fn):
     """Device ms of one call of ``fn`` in its products, from torch.profiler:
-    the gemm_tiles launches and the reduce_partials launches that add a
-    weight gradient's k-chunk partials (they also finish the bias column
-    sums, which this counts too).  Raises where the profiler recorded no
-    gemm_tiles launch."""
+    the gemm_tiles and gemm_pair launches and the reduce_partials or
+    reduce_sums launches that add a weight gradient's k-chunk partials
+    (they also finish the bias column sums and, in the projection-fused
+    attention with the LayerNorm, its dgamma and dbeta, which this counts
+    too).  Raises where the profiler recorded no gemm_tiles or gemm_pair
+    launch."""
     _host, _busy, rows = device_breakdown(fn, top=None)
-    if not any("gemm_tiles" in name for name, _t, _n in rows):
+    gemm = ("gemm_tiles", "gemm_pair")
+    if not any(k in name for name, _t, _n in rows for k in gemm):
         raise AssertionError("the profiler recorded no gemm_tiles launch")
     return sum(t for name, t, _n in rows
-               if "gemm_tiles" in name or "reduce_partials" in name)
+               if any(k in name for k in gemm + ("reduce_partials",
+                                                 "reduce_sums")))
 
 
 def phase_gemm_rates(dev):
@@ -1455,8 +1499,8 @@ def phase_gemm_rates(dev):
     its launches and of the partial sums' reduce_partials launches in one
     call, for the MLP's two forward and four backward
     products (rows 8-11) and, at Swin-B's shapes, the projection-fused
-    attention's two forward and five backward products (rows 16-19; the
-    backward computes qkv again); beside it ``torch.matmul`` (TF32 off) on
+    attention's two forward and four backward products (rows 16-19; the
+    backward reads the qkv its forward kept); beside it ``torch.matmul`` (TF32 off) on
     the same products, device time from the profiler.  Returns {shape:
     {call: (gemm_tiles TFLOP/s, torch.matmul TFLOP/s)}}."""
     from vitta_tpu_torch.ops import cuda_attention_proj as cp
@@ -1494,19 +1538,19 @@ def phase_gemm_rates(dev):
                 dense = cb.expand_bias_reference(
                     randn(nh, 2 * wd - 1, hw, hw), wd)
                 w = (wqkv, bqkv, wproj, bproj)
-                _o, o_att, ms_ = cp.attn_proj_fwd(x3, *w, dense, None,
-                                                  hd ** -0.5, nh, True)
-                qkv = x @ wqkv.t()
+                _o, qkv3, o_att, ms_ = cp.attn_proj_fwd(x3, *w, dense, None,
+                                                        hd ** -0.5, nh, True)
+                qkv = qkv3.reshape(m, 3 * c)
                 calls["proj forward"] = (
                     lambda: cp.attn_proj_fwd(x3, *w, dense, None, hd ** -0.5,
                                              nh),
                     lambda: (x @ wqkv.t(), x @ wproj.t()), 8 * m * c * c)
                 calls["proj backward"] = (
-                    lambda: cp.attn_proj_bwd(x3, wqkv, bqkv, wproj, dense,
+                    lambda: cp.attn_proj_bwd(x3, qkv3, wqkv, wproj, dense,
                                              None, o_att, ms_, g3,
                                              hd ** -0.5, nh),
-                    lambda: (g @ wproj, x @ wqkv.t(), qkv @ wqkv, g.t() @ x,
-                             qkv.t() @ x), 22 * m * c * c)
+                    lambda: (g @ wproj, qkv @ wqkv, g.t() @ x, qkv.t() @ x),
+                    16 * m * c * c)
             rates = {}
             for call, (kernel, library, flops) in calls.items():
                 k_ms = _gemm_device_ms(kernel)
@@ -2319,6 +2363,49 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
     return counts, summary
 
 
+def phase_routes_interleaved(cfg, sd, stats, seed, card):
+    """One adapt+eval step of the Swin of ``cfg`` under packed, proj and
+    ln_proj in turns (packed, proj, ln_proj, ln_proj, proj, packed), one
+    engine per route built once and warmed up, on one seeded video with its
+    inputs on the card: device busy of each step (torch.profiler) and its
+    peak memory above what the engines hold between steps, the memory a
+    route's activations and kept tensors take.  Returns {route: {"busy":
+    [ms], "peak": [GiB]}}."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.models import get_model
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    views, clip, label = (torch.from_numpy(a).cuda() for a in
+                          _videos(np.random.default_rng(seed + 2), 1, t,
+                                  hw)[0])
+    routes = ("packed", "proj", "ln_proj")
+    engines = {r: VittaEngine(get_model(cfg, attn_route=r), cfg, sd, stats)
+               for r in routes}
+    states = {r: e.init_state() for r, e in engines.items()}
+    out = {r: {"busy": [], "peak": []} for r in routes}
+    for route in routes + routes[::-1]:
+        def step():
+            states[route], _m = engines[route].adapt_eval_step(
+                states[route], views, clip, label)
+        step()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        out[route]["peak"].append(
+            (torch.cuda.max_memory_allocated() - before) / 2**30)
+        _host, busy, _rows = device_breakdown(step, top=None)
+        out[route]["busy"].append(busy if busy > 0 else None)
+    for route, r in out.items():
+        print(f"swin-B adapt step, interleaved, route {route}: device busy "
+              + ", ".join(fmt(b) for b in r["busy"]) + " ms, step peak "
+              "above the engines' memory "
+              + ", ".join(f"{p:.3f}" for p in r["peak"]) + f" GiB; on {card}",
+              flush=True)
+    del engines, states
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2445,6 +2532,7 @@ def main() -> int:
         by_route = ln_launches if "ln_proj" in row["name"] else proj_launches
         row["launches"] = by_route[row["name"]]
         row["launches_forward_paths"] = fused_forward[row["name"]]
+    interleaved = phase_routes_interleaved(_swin_cfg(), sd, stats, SEED, card)
     lap("phase 14, Swin-B slices of the projection-fused routes")
 
     # the per-(head, window) route and both branches of the MLP: small
@@ -2513,6 +2601,14 @@ def main() -> int:
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
+    streams = {"packed": packed, "proj": proj, "ln_proj": ln_proj}
+    for route, r in interleaved.items():
+        busy = [b for b in r["busy"] if b is not None]
+        print(f"swin-B adapt step, route {route}, interleaved with the other "
+              f"two: device busy {fmt(statistics.mean(busy) if busy else None)}"
+              f" ms, step peak {max(r['peak']):.3f} GiB above the engines' "
+              f"memory; peak of its own stream "
+              f"{streams[route]['peak_gib']:.3f} GiB; on {card}", flush=True)
     print("gemm_tiles rates, TFLOP/s (gemm_tiles, torch.matmul): "
           + json.dumps({k: {c: [round(v, 2) if v else v for v in r]
                             for c, r in calls.items()}

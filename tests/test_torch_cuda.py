@@ -19,7 +19,7 @@ split TF32), the bias collapse exactly.
 The projection-fused attention kernels: forward rtol 1e-4 / atol 1e-4 as
 the LayerNorm-MLP (two tiled float32 products around the attention's
 softmax); every gradient to 5e-5 of its tensor's largest magnitude
-(``PROJ_GRAD_REL``: four tiled products and the recomputed qkv in the chain,
+(``PROJ_GRAD_REL``: four tiled products and the attention's in the chain,
 where the LayerNorm-MLP backward has two).  The MLP without the LayerNorm
 and the attention per (head, window) are held to the bounds of the
 LayerNorm-MLP and of the packed attention.  The BatchNorm-statistics
@@ -37,7 +37,7 @@ from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
                                  cuda_tam)
 from vitta_tpu_torch.ops.cuda_tam import (tam_dynamic_conv,
                                           tam_dynamic_conv_reference)
-from vitta_tpu_torch.tools.synthetic import device_breakdown
+from vitta_tpu_torch.tools.synthetic import device_breakdown, kernel_launches
 
 torch.set_num_threads(1)
 
@@ -547,14 +547,15 @@ def test_attn_proj_kernels_match_plain(cuda_device, float32_matmul, case):
     got = cp.attn_proj_fwd(x, *w, bias, mask, scale, nh, save_residuals=True)
     assert cp.counters.proj_fwd == 1
     want = cp.proj_attention_reference(x, *w, bias, mask, scale, nh, True)
-    for name, a, b in zip(("out", "o_att", "ms"), got, want):
+    for name, a, b in zip(("out", "qkv", "o_att", "ms"), got, want):
         torch.testing.assert_close(a, b, rtol=PROJ_TOL, atol=PROJ_TOL,
                                    msg=name)
     torch.testing.assert_close(
         cp.attn_proj_fwd(x, *w, bias, mask, scale, nh), got[0], rtol=0, atol=0)
-    _out, o_att, ms = got
+    _out, qkv, o_att, ms = got
     g = _randn(cuda_device, *x.shape, seed=17)
-    args = (x, w[0], w[1], w[2], bias, mask, o_att, ms, g, scale, nh)
+    # the backward from the kept qkv, the kernel's and the plain version's
+    args = (x, qkv, w[0], w[2], bias, mask, o_att, ms, g, scale, nh)
     grads = cp.attn_proj_bwd(*args)
     assert cp.counters.proj_bwd == 1
     for name, a, b in zip(PROJ_GRADS, grads,
@@ -579,13 +580,13 @@ def test_attn_ln_proj_kernels_match_plain(cuda_device, float32_matmul, case,
     assert cp.counters.ln_proj_fwd == 1
     want = cp.ln_proj_attention_reference(x, gm, bt, 1e-5, *w, bias, mask,
                                           scale, nh, True)
-    for name, a, b in zip(("out", "y", "o_att", "ms"), got, want):
+    for name, a, b in zip(("out", "y", "qkv", "o_att", "ms"), got, want):
         torch.testing.assert_close(a, b, rtol=PROJ_TOL, atol=PROJ_TOL,
                                    msg=name)
-    _out, _y, o_att, ms = got
+    _out, y, qkv, o_att, ms = got
     g = _randn(cuda_device, *x.shape, seed=17)
     gy = _randn(cuda_device, *x.shape, seed=18) if with_gy else None
-    args = (x, gm, bt, 1e-5, w[0], w[1], w[2], bias, mask, o_att, ms, g, gy,
+    args = (x, y, qkv, gm, 1e-5, w[0], w[2], bias, mask, o_att, ms, g, gy,
             scale, nh)
     grads = cp.attn_ln_proj_bwd(*args)
     assert cp.counters.ln_proj_bwd == 1
@@ -594,6 +595,67 @@ def test_attn_ln_proj_kernels_match_plain(cuda_device, float32_matmul, case,
         _assert_grad(name, a, b, PROJ_GRAD_REL)
     assert all(torch.equal(a, b)
                for a, b in zip(cp.attn_ln_proj_bwd(*args), grads))
+
+
+def proj_bwd_launches(fn, with_ln):
+    """{kernel name: launches} of one backward call ``fn``, checked against
+    the chain's budget: a pair of products in one launch or two, before and
+    after the attention backward (2 or 3 launches), the LayerNorm
+    backward's rows and columns, and one reduce for every partial sum; no
+    qkv product, no LayerNorm forward, no separate column sums."""
+    names = kernel_launches(fn)
+    total = sum(names.values())
+    grouped = sum(n for k, n in names.items() if "gemm_pair" in k)
+    products = grouped + sum(n for k, n in names.items() if "gemm_tiles" in k)
+    assert products == 4 - grouped, names
+    assert total <= (11 if with_ln else 8) - grouped, names
+    assert sum(n for k, n in names.items() if "reduce_sums" in k) == 1, names
+    assert sum(n for k, n in names.items() if "attn_bwd_kernel" in k) == 1
+    for absent in ("col_sums", "reduce_partials", "ln_rows_vec",
+                   "ln_rows_any", "attn_fwd_kernel", "false, false, 0>"):
+        assert not any(absent in k for k in names), (absent, names)
+    return names
+
+
+# the backward's cases and how many of its two pairs of products run as one
+# launch (csrc/gemm_tiles.cuh:pair_grouped): both at PROJ_CASES[0] and at
+# PROJ_CASES[2] (a tile of 64), the g_att pair alone at Swin-B's stage 2
+CHAIN_CASES = [(PROJ_CASES[0], 2), (PROJ_CASES[2], 2),
+               (dict(b_=32, nh=8, hd=32, window=(8, 7, 7), nw=16), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["proj", "ln_proj"])
+@pytest.mark.parametrize("case,pairs", CHAIN_CASES, ids=str)
+def test_proj_backward_chain(cuda_device, float32_matmul, case, pairs, op):
+    """The backward from the kept qkv (and y) against the plain version,
+    within its launch budget, the same bits twice."""
+    cp = cuda_attention_proj
+    x, gm, bt, w, bias, mask, scale = _proj_case(cuda_device, **case)
+    nh = case["nh"]
+    g = _randn(cuda_device, *x.shape, seed=17)
+    if op == "proj":
+        _out, qkv, o_att, ms = cp.attn_proj_fwd(x, *w, bias, mask, scale, nh,
+                                                True)
+        args = (x, qkv, w[0], w[2], bias, mask, o_att, ms, g, scale, nh)
+        run, plain, names = (cp.attn_proj_bwd,
+                             cp.proj_attention_backward_reference,
+                             PROJ_GRADS)
+    else:
+        _out, y, qkv, o_att, ms = cp.attn_ln_proj_fwd(
+            x, gm, bt, 1e-5, *w, bias, mask, scale, nh, True)
+        gy = _randn(cuda_device, *x.shape, seed=18)
+        args = (x, y, qkv, gm, 1e-5, w[0], w[2], bias, mask, o_att, ms, g,
+                gy, scale, nh)
+        run, plain, names = (cp.attn_ln_proj_bwd,
+                             cp.ln_proj_attention_backward_reference,
+                             LN_PROJ_GRADS)
+    got = run(*args)
+    for name, a, b in zip(names, got, plain(*args)):
+        _assert_grad(name, a, b, PROJ_GRAD_REL)
+    assert all(torch.equal(a, b) for a, b in zip(run(*args), got))
+    launches = proj_bwd_launches(lambda: run(*args), op == "ln_proj")
+    assert sum(n for k, n in launches.items() if "gemm_pair" in k) == pairs
 
 
 def _proj_op(dev, op, case=PROJ_CASES[2]):
@@ -689,9 +751,10 @@ def test_proj_ops_save_no_residual_under_no_grad(cuda_device, op):
     assert extra <= 2048 * len(outs)      # the allocator's rounding only
     outs, extra_grad = held(True)
     assert all(o.grad_fn is not None for o in outs)
-    # o_att and ms are kept, qkv is not: less than two activations
+    # qkv (three activations), o_att and ms are kept (y too, an output):
+    # four activations and the rows' statistics, less than five
     x = ins[0]
-    assert x.numel() * 4 <= extra_grad < 2 * x.numel() * 4
+    assert 4 * x.numel() * 4 <= extra_grad < 5 * x.numel() * 4
 
 
 @pytest.mark.cuda

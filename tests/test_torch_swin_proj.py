@@ -7,8 +7,9 @@ them) and (b) torch autograd through the plain forward, on the same
 numpy-seeded inputs and cotangents.
 
 The plain backward versions are what the CUDA backward kernels are held to
-on the card (tests/test_torch_cuda.py, chip_smoke.py); this file holds them
-to the two references that exist without a card.  Sizes are small and keep
+on the card (tests/test_torch_cuda.py, chip_smoke.py); this file holds them,
+fed the qkv (and y) that the forward keeps, to the two references that
+exist without a card, which recompute both.  Sizes are small and keep
 the real structure: windows (2, 3, 3) and (3, 2, 5), so N = 18 and 30 with
 an hw (9, 10) that is no multiple of 8; 2 to 4 heads; C = 24, 16 and 32,
 no multiple of 128; more than one mask window.
@@ -153,38 +154,45 @@ def test_ln_proj_forward_matches_pallas(case, with_mask):
 
 
 def test_residuals_are_those_of_the_packed_op():
-    """o_att and ms are what the backward reads; out follows from o_att."""
+    """qkv, o_att and ms are what the backward reads: qkv is the qkv
+    projection of x (of y in the LayerNorm form), o_att and ms the packed
+    attention's output and row statistics at it; out follows from o_att."""
     d = _inputs("w233_nh3", True, seed=2)
     x, w, bias, mask = _torch_args(d)
-    out, o_att, ms = proj_attention_reference(x, *w, bias, mask, d["scale"],
-                                              d["nh"], save_residuals=True)
+    out, qkv, o_att, ms = proj_attention_reference(
+        x, *w, bias, mask, d["scale"], d["nh"], save_residuals=True)
+    assert qkv.shape == x.shape[:2] + (3 * x.shape[2],)
     assert o_att.shape == x.shape
     assert ms.shape == (x.shape[0], x.shape[1], 2 * d["nh"])
+    _close(qkv, torch.nn.functional.linear(x, w[0], w[1]), 0, "qkv")
     _close(out, torch.nn.functional.linear(o_att, w[2], w[3]), 1e-6, "out")
     res = ln_proj_attention_reference(x, _t(d["gamma"]), _t(d["beta"]), EPS,
                                       *w, bias, mask, d["scale"], d["nh"],
                                       save_residuals=True)
-    assert len(res) == 4 and res[2].shape == x.shape
+    assert len(res) == 5 and res[3].shape == x.shape
+    _close(res[2], torch.nn.functional.linear(res[1], w[0], w[1]), 0, "qkv")
 
 
 # ----------------------------------------------------------------- backward
 def _plain_proj_backward(d):
+    """The plain backward fed what the plain forward kept."""
     x, w, bias, mask = _torch_args(d)
-    _out, o_att, ms = proj_attention_reference(x, *w, bias, mask, d["scale"],
-                                               d["nh"], save_residuals=True)
+    _out, qkv, o_att, ms = proj_attention_reference(
+        x, *w, bias, mask, d["scale"], d["nh"], save_residuals=True)
     return proj_attention_backward_reference(
-        x, w[0], w[1], w[2], bias, mask, o_att, ms, _t(d["g"]), d["scale"],
+        x, qkv, w[0], w[2], bias, mask, o_att, ms, _t(d["g"]), d["scale"],
         d["nh"])
 
 
 def _plain_ln_proj_backward(d, with_gy):
+    """The plain backward fed what the plain forward kept, y among it."""
     x, w, bias, mask = _torch_args(d)
     gm, bt = _t(d["gamma"]), _t(d["beta"])
-    _out, _y, o_att, ms = ln_proj_attention_reference(
+    _out, y, qkv, o_att, ms = ln_proj_attention_reference(
         x, gm, bt, EPS, *w, bias, mask, d["scale"], d["nh"],
         save_residuals=True)
     return ln_proj_attention_backward_reference(
-        x, gm, bt, EPS, w[0], w[1], w[2], bias, mask, o_att, ms, _t(d["g"]),
+        x, y, qkv, gm, EPS, w[0], w[2], bias, mask, o_att, ms, _t(d["g"]),
         _t(d["gy"]) if with_gy else None, d["scale"], d["nh"])
 
 

@@ -15,6 +15,9 @@ hold to the JAX package:
   added to the running sum with float32's rounding to nearest; a weight
   gradient's rows in the chunks of ``grad_plan``, their partial products
   added in chunk order.
+* ``col_sums``: the bias gradient that gemm_tiles' ``EPI_PART`` takes
+  beside a weight gradient, the column sums of its A over the same chunks
+  and slices, written as one more row of each chunk's partial.
 * ``attention_forward``: ``attn_fwd_kernel`` (csrc/attention_kernels.cuh),
   16-row query strips, keys in chunks of 32, s = q k^T summed in place over
   its k steps, o += p v in place over all keys, the online softmax (running
@@ -32,6 +35,7 @@ FWD_KEYS = 32        # keys per chunk of the attention forward
 HD_PAD = 32          # head channels the attention kernels hold
 GEMM_BK = 32         # k per staged slice of gemm_tiles
 SM_COUNT = 132       # an H100 SXM's SMs, as grad_plan reads them
+SUM_PARTS = 2        # threads on one column of EPI_PART's column sums
 
 
 def tf32(x):
@@ -130,6 +134,34 @@ def grad_gemm(a, b, passes=3):
         rows = slice(z * kchunk, min(k, (z + 1) * kchunk))
         part = gemm(a[rows].t(), b[rows], passes)
         out = part if out is None else out + part
+    return out
+
+
+def col_sums(a, n):
+    """The column sums of a (K, M) as gemm_tiles' EPI_PART computes them
+    beside the weight gradient a^T b, b of n columns: the K rows in
+    grad_plan's chunks; in a chunk, slices of 32 rows, each slice's rows in
+    SUM_PARTS runs of 16 that as many threads add one after the other into
+    a fresh float32 sum, added to that thread's running sum; the threads'
+    sums added in order into the chunk's row of the partials; the chunks'
+    rows added in chunk order (reduce_sums)."""
+    k, m = a.shape
+    splits, kchunk = grad_plan(m, n, k)
+    run = GEMM_BK // SUM_PARTS
+    out = torch.zeros(m)
+    for z in range(splits):
+        end = min(k, (z + 1) * kchunk)
+        part = [torch.zeros(m) for _ in range(SUM_PARTS)]
+        for s0 in range(z * kchunk, end, GEMM_BK):
+            for p in range(SUM_PARTS):
+                fresh = torch.zeros(m)
+                for r in range(s0 + p * run, min(end, s0 + (p + 1) * run)):
+                    fresh = fresh + a[r]
+                part[p] = part[p] + fresh
+        total = torch.zeros(m)
+        for p in range(SUM_PARTS):
+            total = total + part[p]
+        out = out + total
     return out
 
 

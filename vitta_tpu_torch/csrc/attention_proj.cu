@@ -14,12 +14,13 @@
 //   qkv   = y wqkv^T + bqkv                   last axis ordered (3, nh, hd)
 //   o_att = softmax(scale q k^T + bias[h] + mask[b mod nW]) v   per head
 //   out   = o_att wproj^T + bproj
-// and returns out (and y, which the norm1 tap reads); on request it keeps
-// o_att and ms, each row's softmax maximum and sum (B_, N, 2nh), for the
-// backward.  The bias is dense, (nh, N, N).
+// and returns out and qkv (and y, which the norm1 tap reads); on request it
+// keeps o_att and ms, each row's softmax maximum and sum (B_, N, 2nh), for
+// the backward.  The bias is dense, (nh, N, N).
 //
-// What the backward computes, from (x, o_att, ms, g, gy) with g and gy the
-// cotangents of out and y (gy may be absent), qkv (and y) recomputed from x:
+// What the backward computes, from (x, y, qkv, o_att, ms, g, gy) as the
+// forward left them, with g and gy the cotangents of out and y (gy may be
+// absent; y is x without the LN):
 //   dwproj = g^T o_att  (C, C)      dbproj = column sums of g
 //   g_att  = g wproj                (M, C)
 //   dqkv, dbias = the packed attention backward of g_att at qkv
@@ -28,29 +29,42 @@
 //   dx, dgamma, dbeta = LayerNorm backward of dy at x     (ln_rows.cuh)
 //
 // What bounds it: float32 operations, 8*M*C*C of them in the two forward
-// projections and 16*M*C*C in the backward's four products (and 6*M*C*C more
-// for the recomputed qkv), on top of the attention's own.
+// projections and 16*M*C*C in the backward's four products, on top of the
+// attention's own.
 //
 // The TPU kernels handle one window per grid step with wqkv, wproj, the bias
 // of every head and the float32 weight-gradient accumulators resident in
-// VMEM.  A Hopper SM has 227 KB of shared memory, where one window's qkv at
+// VMEM, and recompute a window's qkv in the backward, where it lived in VMEM
+// only.  A Hopper SM has 227 KB of shared memory, where one window's qkv at
 // Swin-B's last stage is 4.8 MB and the accumulators are 16.8 MB, so an
-// entry point here is a chain of launches on one stream, with qkv, g_att,
-// dqkv (and y, dy) in device-memory scratch that the caller allocates, as
-// mlp.cu does with its hidden activation:
+// entry point here is a chain of launches on one stream, with g_att, dqkv
+// (and dy) in device-memory scratch that the caller allocates, as mlp.cu
+// does with its hidden activation.  The forward writes qkv to device memory
+// anyway, so it hands it out: the caller keeps it (and y) for the backward,
+// which then makes no qkv product and no LayerNorm forward (an eval forward
+// keeps nothing).
 //   forward:  [ln_rows]  gemm_tiles<BIAS>  packed_attn_fwd  gemm_tiles<BIAS>
-//   backward: [ln_rows]  grad product + column sums (dwproj, dbproj)
-//             gemm_tiles (g_att)   gemm_tiles<BIAS> (qkv again)
+//   backward: {g_att, dwproj with dbproj}            launch_rows_and_grad
 //             packed attention backward (attn_bwd, [the dk, dv sum],
 //             [dbias_reduce])
-//             gemm_tiles<ADD> (dx or dy)   grad product + column sums
-//             (dwqkv, dbqkv)   [LayerNorm backward]
-// Every matrix product is gemm_tiles (gemm_tiles.cuh), the attention kernels
-// are those of the packed op (attention_kernels.cuh), and every sum over
-// windows or rows goes through per-block partials added in a fixed order
-// (reduce.cuh): no float atomics, two runs give the same bits.  A null
-// pointer for dwqkv, dbqkv, dwproj, dbproj or dbias skips that output's
-// launches (a frozen parameter).
+//             {dx or dy, dwqkv with dbqkv}           launch_rows_and_grad
+//             [LayerNorm backward rows, columns]
+//             one reduce_sums: dwproj, dbproj, dwqkv, dbqkv [, dgamma, dbeta]
+// Each {pair} is one gemm_pair launch where pair_grouped says so (as
+// measured: the g_att pair always, the dx pair except where its row product
+// alone fills the card with the small tile more than 1.5 times) and two
+// launches otherwise.  A bias gradient is the column sums of its weight
+// gradient's k-major A, summed from the slices that product stages anyway
+// and written as one more row of its k-chunk partials (EPI_PART): no second
+// read of g or dqkv.  Every matrix product is gemm_tiles' (gemm_tiles.cuh),
+// the attention kernels are those of the packed op (attention_kernels.cuh),
+// and every sum over windows or rows goes through per-block partials added
+// in a fixed order (reduce.cuh): no float atomics, two runs give the same
+// bits.  So 5 or 6 launches without the LN (the attention backward takes 2
+// or 3), 7 or 8 with it, where both pairs are one launch, and one more for
+// each pair that is not.  A null pointer for dwqkv, dbqkv, dwproj, dbproj
+// or dbias leaves that output out (a frozen parameter); a weight-gradient
+// product runs where its weight or its bias wants a gradient.
 //
 // One stream: the scratch is the caller's, allocated per call from a
 // stream-ordered allocator, and is read only by launches made here on the
@@ -80,26 +94,25 @@ bool bad_dims(int b_, int n, int nh, int hd) {
 }
 
 // The backward's scratch, in floats and in this order; every piece starts
-// 16-byte aligned.  y, dy and ln are used by the LayerNorm form only.
+// 16-byte aligned.  gatt holds dy too in the LayerNorm form (g_att is dead
+// once the attention backward has read it); ln is used by that form only.
+// grad_o and grad_q hold the k-chunk partials of dwproj / dbproj and of
+// dwqkv / dbqkv, which the last launch adds up.
 struct BwdScratch {
-  long long qkv, dqkv, gatt, y, dy, ln, attn, grad, cols;
-  long long total() const {
-    return qkv + dqkv + gatt + y + dy + ln + attn + grad + cols;
-  }
+  long long dqkv, gatt, ln, attn, grad_o, grad_q;
+  long long total() const { return dqkv + gatt + ln + attn + grad_o + grad_q; }
 };
 
 BwdScratch bwd_scratch(int b_, int n, int nh, int hd, bool with_ln) {
   const int c = nh * hd;
   const long long m = (long long)b_ * n;
   BwdScratch s;
-  s.qkv = s.dqkv = 3 * m * c;
+  s.dqkv = 3 * m * c;
   s.gatt = m * c;
-  s.y = s.dy = with_ln ? m * c : 0;
   s.ln = with_ln ? round4ll(ln_bwd_scratch_floats(m, c)) : 0;
   s.attn = round4ll(attn::bwd_scratch_floats(b_, n, nh, hd));
-  s.grad = max2(grad_partial_floats(3 * c, c, (int)m),
-                grad_partial_floats(c, c, (int)m));
-  s.cols = (long long)col_chunks(m) * 3 * c;
+  s.grad_o = round4ll(grad_sums_floats(c, c, (int)m));
+  s.grad_q = round4ll(grad_sums_floats(3 * c, c, (int)m));
   return s;
 }
 
@@ -128,79 +141,90 @@ cudaError_t forward(const float* x, const float* gamma, const float* beta,
                                       nullptr, m, c, c, st);
 }
 
-// gamma == null: no LayerNorm; gy, dgb unused and dx = dqkv wqkv.
-cudaError_t backward(const float* x, const float* gamma, const float* beta,
-                     const float* wqkv, const float* bqkv, const float* wproj,
-                     const float* bias, const float* mask, const float* o_att,
-                     const float* ms, const float* g, const float* gy,
-                     float* dx, float* dgb, float* dwqkv, float* dbqkv,
-                     float* dwproj, float* dbproj, float* dbias,
+// gamma == null: no LayerNorm; y is x, gy and dgb unused and dx = dqkv wqkv.
+cudaError_t backward(const float* x, const float* y, const float* qkv,
+                     const float* gamma, const float* wqkv,
+                     const float* wproj, const float* bias, const float* mask,
+                     const float* o_att, const float* ms, const float* g,
+                     const float* gy, float* dx, float* dgb, float* dwqkv,
+                     float* dbqkv, float* dwproj, float* dbproj, float* dbias,
                      float* scratch, int b_, int n, int nh, int hd, int nw,
                      float eps, float scale, cudaStream_t st) {
   if (bad_dims(b_, n, nh, hd)) return cudaErrorInvalidValue;
   const bool with_ln = gamma != nullptr;
   const int c = nh * hd, m = b_ * n;
   const BwdScratch sz = bwd_scratch(b_, n, nh, hd, with_ln);
-  float* qkv = scratch;
-  float* dqkv = qkv + sz.qkv;
+  float* dqkv = scratch;
   float* gatt = dqkv + sz.dqkv;
-  float* y = gatt + sz.gatt;
-  float* dy = y + sz.y;
-  float* ln = dy + sz.dy;
+  float* ln = gatt + sz.gatt;
   float* att = ln + sz.ln;
-  float* grad = att + sz.attn;
-  float* cols = grad + sz.grad;
-  cudaError_t e;
-  // the input of the qkv projection: y, recomputed, or x itself
-  const float* yin = x;
-  if (with_ln) {
-    e = launch_ln_rows(x, gamma, beta, y, m, c, eps, st);
-    if (e != cudaSuccess) return e;
-    yin = y;
-  }
-  // the output projection: dwproj = g^T o_att, dbproj, g_att = g wproj
-  if (dwproj != nullptr) {
-    e = launch_grad_gemm(g, o_att, dwproj, grad, c, c, m, st);
-    if (e != cudaSuccess) return e;
-  }
-  if (dbproj != nullptr) {
-    e = launch_col_sums(g, cols, dbproj, m, c, st);
-    if (e != cudaSuccess) return e;
-  }
-  e = launch_gemm<true, EPI_ADD>(g, wproj, nullptr, nullptr, gatt, nullptr, m,
-                                 c, c, st);
-  if (e != cudaSuccess) return e;
-  // qkv again, then the attention backward
-  e = launch_gemm<false, EPI_BIAS>(yin, wqkv, bqkv, nullptr, qkv, nullptr, m,
-                                   3 * c, c, st);
+  float* grad_o = att + sz.attn;
+  float* grad_q = grad_o + sz.grad_o;
+  const bool want_o = dwproj != nullptr || dbproj != nullptr;
+  const bool want_q = dwqkv != nullptr || dbqkv != nullptr;
+  // the output projection: g_att = g wproj beside dwproj = g^T o_att and
+  // dbproj
+  cudaError_t e = launch_rows_and_grad(
+      g, wproj, nullptr, gatt, m, c, c, want_o ? g : nullptr, o_att, grad_o,
+      c, c, m, pair_grouped(m, c, c), st);
   if (e != cudaSuccess) return e;
   e = attn::launch_packed_bwd(qkv, bias, mask, ms, gatt, dqkv, dbias, att, b_,
                               n, nh, hd, nw, 0, 0, 0, scale, st);
   if (e != cudaSuccess) return e;
-  // the qkv projection: dy = dqkv wqkv (+ gy), dwqkv = dqkv^T y, dbqkv
-  e = launch_gemm<true, EPI_ADD>(dqkv, wqkv, nullptr, with_ln ? gy : nullptr,
-                                 with_ln ? dy : dx, nullptr, m, c, 3 * c, st);
+  // the qkv projection: dy = dqkv wqkv (+ gy) beside dwqkv = dqkv^T y and
+  // dbqkv; dy takes g_att's place
+  float* dy = with_ln ? gatt : dx;
+  e = launch_rows_and_grad(dqkv, wqkv, with_ln ? gy : nullptr, dy, m, c,
+                           3 * c, want_q ? dqkv : nullptr, y, grad_q, 3 * c,
+                           c, m, pair_grouped(m, c, 3 * c), st);
   if (e != cudaSuccess) return e;
-  if (dwqkv != nullptr) {
-    e = launch_grad_gemm(dqkv, yin, dwqkv, grad, 3 * c, c, m, st);
+  PartialSums sums;
+  bool fits = true;
+  if (with_ln) {
+    e = launch_ln_bwd_parts(x, gamma, dy, dx, ln, m, c, eps, st);
     if (e != cudaSuccess) return e;
+    fits = sums.add(ln_bwd_partials(ln, m), 2LL * c, dgb, col_chunks(m),
+                    2LL * c);
   }
-  if (dbqkv != nullptr) {
-    e = launch_col_sums(dqkv, cols, dbqkv, m, 3 * c, st);
-    if (e != cudaSuccess) return e;
-  }
-  if (!with_ln) return cudaSuccess;
-  return launch_ln_bwd(x, gamma, dy, dx, dgb, ln, m, c, eps, st);
+  if (want_o)
+    fits = fits && add_grad_sums(sums, grad_o, dwproj, dbproj, c, c, m);
+  if (want_q)
+    fits = fits && add_grad_sums(sums, grad_q, dwqkv, dbqkv, 3 * c, c, m);
+  if (!fits) return cudaErrorInvalidValue;
+  return launch_reduce_sums(sums, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the forward needs: qkv (b_, n, 3c).
-long long vitta_attn_proj_fwd_scratch_floats(int b_, int n, int nh, int hd) {
-  if (bad_dims(b_, n, nh, hd)) return -1;
-  return 3LL * b_ * n * nh * hd;
+// x, o_att, out: (b_, n, c) with c = nh*hd; wqkv (3c, c); wproj (c, c);
+// bias (nh, n, n); mask (nw, n, n) or null; qkv (b_, n, 3c) and o_att are
+// always written, ms (b_, n, 2nh) where it is not null.
+int vitta_attn_proj_fwd(const float* x, const float* wqkv, const float* bqkv,
+                        const float* wproj, const float* bproj,
+                        const float* bias, const float* mask, float* qkv,
+                        float* o_att, float* ms, float* out, int b_, int n,
+                        int nh, int hd, int nw, float scale, void* stream) {
+  return (int)forward(x, nullptr, nullptr, wqkv, bqkv, wproj, bproj, bias,
+                      mask, nullptr, qkv, o_att, ms, out, b_, n, nh, hd, nw,
+                      0.f, scale, (cudaStream_t)stream);
+}
+
+// As vitta_attn_proj_fwd on LayerNorm(x); also writes y (b_, n, c).
+int vitta_attn_ln_proj_fwd(const float* x, const float* gamma,
+                           const float* beta, const float* wqkv,
+                           const float* bqkv, const float* wproj,
+                           const float* bproj, const float* bias,
+                           const float* mask, float* y, float* qkv,
+                           float* o_att, float* ms, float* out, int b_, int n,
+                           int nh, int hd, int nw, float eps, float scale,
+                           void* stream) {
+  if (gamma == nullptr || beta == nullptr || y == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)forward(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask, y,
+                      qkv, o_att, ms, out, b_, n, nh, hd, nw, eps, scale,
+                      (cudaStream_t)stream);
 }
 
 // Floats of scratch the backward needs, with or without the LayerNorm.
@@ -210,39 +234,10 @@ long long vitta_attn_proj_bwd_scratch_floats(int b_, int n, int nh, int hd,
   return bwd_scratch(b_, n, nh, hd, with_ln != 0).total();
 }
 
-// x, o_att, out: (b_, n, c) with c = nh*hd; wqkv (3c, c); wproj (c, c);
-// bias (nh, n, n); mask (nw, n, n) or null; ms (b_, n, 2nh) or null; o_att
-// is always written; scratch as vitta_attn_proj_fwd_scratch_floats says.
-int vitta_attn_proj_fwd(const float* x, const float* wqkv, const float* bqkv,
-                        const float* wproj, const float* bproj,
-                        const float* bias, const float* mask, float* o_att,
-                        float* ms, float* out, float* scratch, int b_, int n,
-                        int nh, int hd, int nw, float scale, void* stream) {
-  return (int)forward(x, nullptr, nullptr, wqkv, bqkv, wproj, bproj, bias,
-                      mask, nullptr, scratch, o_att, ms, out, b_, n, nh, hd,
-                      nw, 0.f, scale, (cudaStream_t)stream);
-}
-
-// As vitta_attn_proj_fwd on LayerNorm(x); also writes y (b_, n, c).
-int vitta_attn_ln_proj_fwd(const float* x, const float* gamma,
-                           const float* beta, const float* wqkv,
-                           const float* bqkv, const float* wproj,
-                           const float* bproj, const float* bias,
-                           const float* mask, float* y, float* o_att,
-                           float* ms, float* out, float* scratch, int b_,
-                           int n, int nh, int hd, int nw, float eps,
-                           float scale, void* stream) {
-  if (gamma == nullptr || beta == nullptr || y == nullptr)
-    return (int)cudaErrorInvalidValue;
-  return (int)forward(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask, y,
-                      scratch, o_att, ms, out, b_, n, nh, hd, nw, eps, scale,
-                      (cudaStream_t)stream);
-}
-
-// g, dx: (b_, n, c); dwqkv (3c, c); dbqkv (3c); dwproj (c, c); dbproj (c);
-// dbias (nh, n, n); each of the last five may be null, and is then not
-// computed.
-int vitta_attn_proj_bwd(const float* x, const float* wqkv, const float* bqkv,
+// x, qkv, o_att, ms as the forward left them; g, dx: (b_, n, c); dwqkv
+// (3c, c); dbqkv (3c); dwproj (c, c); dbproj (c); dbias (nh, n, n); each of
+// the last five may be null, and is then not computed.
+int vitta_attn_proj_bwd(const float* x, const float* qkv, const float* wqkv,
                         const float* wproj, const float* bias,
                         const float* mask, const float* o_att,
                         const float* ms, const float* g, float* dx,
@@ -250,28 +245,28 @@ int vitta_attn_proj_bwd(const float* x, const float* wqkv, const float* bqkv,
                         float* dbproj, float* dbias, float* scratch, int b_,
                         int n, int nh, int hd, int nw, float scale,
                         void* stream) {
-  return (int)backward(x, nullptr, nullptr, wqkv, bqkv, wproj, bias, mask,
-                       o_att, ms, g, nullptr, dx, nullptr, dwqkv, dbqkv,
-                       dwproj, dbproj, dbias, scratch, b_, n, nh, hd, nw, 0.f,
-                       scale, (cudaStream_t)stream);
+  return (int)backward(x, x, qkv, nullptr, wqkv, wproj, bias, mask, o_att, ms,
+                       g, nullptr, dx, nullptr, dwqkv, dbqkv, dwproj, dbproj,
+                       dbias, scratch, b_, n, nh, hd, nw, 0.f, scale,
+                       (cudaStream_t)stream);
 }
 
-// As vitta_attn_proj_bwd, through the LayerNorm: gy (b_, n, c) is the
-// cotangent of y or null; dgb (2, c) = dgamma then dbeta.
-int vitta_attn_ln_proj_bwd(const float* x, const float* gamma,
-                           const float* beta, const float* wqkv,
-                           const float* bqkv, const float* wproj,
-                           const float* bias, const float* mask,
-                           const float* o_att, const float* ms, const float* g,
-                           const float* gy, float* dx, float* dgb,
-                           float* dwqkv, float* dbqkv, float* dwproj,
-                           float* dbproj, float* dbias, float* scratch, int b_,
-                           int n, int nh, int hd, int nw, float eps,
-                           float scale, void* stream) {
-  if (gamma == nullptr || beta == nullptr || dgb == nullptr)
+// As vitta_attn_proj_bwd, through the LayerNorm: y as the forward wrote it;
+// gy (b_, n, c) is the cotangent of y or null; dgb (2, c) = dgamma then
+// dbeta.
+int vitta_attn_ln_proj_bwd(const float* x, const float* y, const float* qkv,
+                           const float* gamma, const float* wqkv,
+                           const float* wproj, const float* bias,
+                           const float* mask, const float* o_att,
+                           const float* ms, const float* g, const float* gy,
+                           float* dx, float* dgb, float* dwqkv, float* dbqkv,
+                           float* dwproj, float* dbproj, float* dbias,
+                           float* scratch, int b_, int n, int nh, int hd,
+                           int nw, float eps, float scale, void* stream) {
+  if (gamma == nullptr || y == nullptr || dgb == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)backward(x, gamma, beta, wqkv, bqkv, wproj, bias, mask, o_att,
-                       ms, g, gy, dx, dgb, dwqkv, dbqkv, dwproj, dbproj, dbias,
+  return (int)backward(x, y, qkv, gamma, wqkv, wproj, bias, mask, o_att, ms,
+                       g, gy, dx, dgb, dwqkv, dbqkv, dwproj, dbproj, dbias,
                        scratch, b_, n, nh, hd, nw, eps, scale,
                        (cudaStream_t)stream);
 }

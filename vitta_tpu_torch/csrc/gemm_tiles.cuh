@@ -52,8 +52,14 @@
 // the order of any library product: at K = 4096 two such sums of O(1) terms
 // differ by some 1e-5 of the output's scale.
 //
+// A backward that holds a weight gradient and a product independent of it
+// (attention_proj.cu) can run both as one gemm_pair launch, the block index
+// picking the problem, and take the bias gradient, the column sums of the
+// weight gradient's A, from the slices that product stages (EPI_PART).
+//
 // vitta_tpu_torch/tools/gemm_variants.py builds mlp.cu with other values of
-// VITTA_GEMM_BK, VITTA_GEMM_STAGES and VITTA_GEMM_FRESH and times them.
+// VITTA_GEMM_BK, VITTA_GEMM_STAGES and VITTA_GEMM_FRESH and times them;
+// tools/pair_variants.py times a pair as one launch against two.
 
 #pragma once
 #include <cuda_runtime.h>
@@ -89,6 +95,10 @@ constexpr int EPI_GELU = 1;   // C = gelu(acc + bias[col]), S = its derivative
 constexpr int EPI_MUL = 2;    // C = acc * aux[row][col]
 constexpr int EPI_ADD = 3;    // C = acc + aux[row][col]   (aux may be null)
 constexpr int EPI_RAW = 4;    // C[blockIdx.z] = acc       (partial products)
+// C[z] = acc, each chunk's M x N partial product followed by one more row
+// of M: the chunk's column sums of A (a k-major A, so the sums over the
+// activation's rows that a bias gradient is); chunks M*N + M floats apart
+constexpr int EPI_PART = 5;
 
 __device__ __forceinline__ void gelu_parts(float h, float& a, float& s) {
   const float phi = 0.5f * (1.0f + erff(h * 0.7071067811865476f));
@@ -145,28 +155,29 @@ struct GemmShape {
 
 // C (M, N) = sum over k in this block's chunk of K of a[m][k] * b[n][k], where
 // a[m][k] is A[m*K + k] (A_KM false) or A[k*M + m] (A_KM true), and b[n][k]
-// is B[n*K + k] or B[k*N + n] likewise.  blockIdx.z takes the k range
-// [z*kchunk, min(K, (z+1)*kchunk)); kchunk is a multiple of BK.
+// is B[n*K + k] or B[k*N + n] likewise.  The block is tile (bx, by) of C
+// and chunk bz of K, the k range [bz*kchunk, min(K, (bz+1)*kchunk));
+// kchunk is a multiple of BK.  The body of gemm_tiles (blockIdx's own tile)
+// and of gemm_pair (two products in one launch).
 template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
-__global__ void __launch_bounds__(GemmShape<BM, BN, WM, WN>::threads,
-                                  GemmShape<BM, BN, WM, WN>::blocks)
-gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
-           const float* __restrict__ bias, const float* __restrict__ aux,
-           float* __restrict__ Cout, float* __restrict__ Sout, int M, int N,
-           int K, int kchunk) {
+__device__ __forceinline__ void gemm_tile(
+    const float* __restrict__ A, const float* __restrict__ B,
+    const float* __restrict__ bias, const float* __restrict__ aux,
+    float* __restrict__ Cout, float* __restrict__ Sout, int M, int N, int K,
+    int kchunk, int bx, int by, int bz, float* smem) {
   constexpr int kThreads = GemmShape<BM, BN, WM, WN>::threads;
   constexpr int MI = WM / 16, NI = WN / 8;      // mma tiles of a warp
   using SA = Slice<BM, A_KM>;
   using SB = Slice<BN, B_KM>;
   constexpr int kStage = SA::floats + SB::floats;
   static_assert(WM % 16 == 0 && WN % 16 == 0, "whole mma tiles, in pairs");
-  extern __shared__ __align__(16) float smem[];
+  static_assert(EPI != EPI_PART || A_KM, "column sums of a k-major A");
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;         // mma's g and t
   const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * kchunk;
+  const int m0 = by * BM, n0 = bx * BN;
+  const int kbeg = bz * kchunk;
   const int kend = kbeg + kchunk < K ? kbeg + kchunk : K;
   const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
 
@@ -185,6 +196,15 @@ gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
+  // EPI_PART: the column sums of A over the chunk, in the blocks of the
+  // first column of tiles, each column cut into kSumParts runs of rows
+  // that as many threads sum slice by slice
+  constexpr int kSumParts = kThreads / BM;
+  static_assert(EPI != EPI_PART || kThreads % BM == 0, "whole runs of rows");
+  const bool sums = EPI == EPI_PART && bx == 0;
+  const int scol = tid % BM, spart = tid / BM;
+  float csum = 0.f;
+
 #pragma unroll
   for (int s = 0; s < kGemmStages - 1; ++s) {
     if (s < nk) stage(s, kbeg + s * kGemmBK);
@@ -198,6 +218,14 @@ gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
     cp_async_commit();
     const float* As = smem + (kt % kGemmStages) * kStage;
     const float* Bs = As + SA::floats;
+    if (EPI == EPI_PART && sums) {
+      // this thread's rows of column scol of the slice, summed afresh
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kGemmBK / kSumParts; ++r)
+        s += As[(spart * (kGemmBK / kSumParts) + r) * SA::ld + scol];
+      csum += s;
+    }
     // kGemmFresh k steps at a time into fresh sums of every tile of the
     // warp, k step by k step: the warp's B fragments, then one A fragment
     // at a time; a k-minor operand by ldmatrix (lane l addresses row l % 8
@@ -260,7 +288,22 @@ gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
 
   // the epilogue on accumulator element pairs (row, col), (row, col + 1):
   // col is even and N a multiple of 4, so both lie inside or both outside
-  if (EPI == EPI_RAW) Cout += (size_t)blockIdx.z * M * N;
+  if (EPI == EPI_RAW) Cout += (size_t)bz * M * N;
+  if (EPI == EPI_PART) {
+    Cout += (size_t)bz * ((size_t)M * N + M);
+    if (sums) {   // uniform over the block: bx is the block's own
+      cp_async_wait<0>();
+      __syncthreads();          // every slice read; smem is free
+      smem[tid] = csum;
+      __syncthreads();
+      if (tid < BM && m0 + tid < M) {
+        float total = 0.f;
+#pragma unroll
+        for (int p = 0; p < kSumParts; ++p) total += smem[p * BM + tid];
+        Cout[(size_t)M * N + m0 + tid] = total;
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -293,6 +336,19 @@ gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
         *reinterpret_cast<float2*>(Cout + at) = v;
       }
     }
+}
+
+template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
+__global__ void __launch_bounds__(GemmShape<BM, BN, WM, WN>::threads,
+                                  GemmShape<BM, BN, WM, WN>::blocks)
+gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
+           const float* __restrict__ bias, const float* __restrict__ aux,
+           float* __restrict__ Cout, float* __restrict__ Sout, int M, int N,
+           int K, int kchunk) {
+  extern __shared__ __align__(16) float smem[];
+  gemm_tile<BM, BN, WM, WN, A_KM, B_KM, EPI>(A, B, bias, aux, Cout, Sout, M,
+                                             N, K, kchunk, blockIdx.x,
+                                             blockIdx.y, blockIdx.z, smem);
 }
 
 inline int sm_count() {
@@ -398,5 +454,138 @@ inline cudaError_t launch_grad_gemm(const float* A, const float* B,
 }
 
 inline long long max2(long long a, long long b) { return a > b ? a : b; }
+
+// ------------------------------------------------ a weight gradient and a
+// row product in one launch, for a backward whose chain holds both
+// (attention_proj.cu): dW = A^T B with its bias gradient, the column sums
+// of A, beside a product that does not depend on it.
+
+// Floats of the partials of a weight gradient with its column sums:
+// grad_plan's chunks, M*N + M floats each (EPI_PART).
+inline long long grad_sums_floats(int M, int N, int K) {
+  return (long long)grad_plan(M, N, K).splits * ((long long)M * N + M);
+}
+
+// One product of a pair as gemm_pair's blocks see it: its operands and its
+// blocks, gx x gy tiles of C times gz chunks of K.
+struct GemmJob {
+  const float* A;
+  const float* B;
+  const float* aux;
+  float* C;
+  int M, N, K, kchunk, gx, gy, gz;
+  __host__ __device__ int blocks() const { return gx * gy * gz; }
+};
+
+// Two products of one tile shape in one launch: the row product R (an
+// activation times a weight, k-minor A, k-major B, + aux) and the weight
+// gradient G (k-major A and B, partials with column sums).  The block index
+// picks the problem, G's blocks first where g_first: the blocks that run
+// more slices start first.
+template <int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(GemmShape<BM, BN, WM, WN>::threads,
+                                  GemmShape<BM, BN, WM, WN>::blocks)
+gemm_pair(const GemmJob r, const GemmJob gr, int g_first) {
+  extern __shared__ __align__(16) float smem[];
+  const int nr = r.blocks(), ng = gr.blocks();
+  int b = blockIdx.x;
+  const bool is_r = g_first ? b >= ng : b < nr;
+  if (is_r) {
+    b -= g_first ? ng : 0;
+    gemm_tile<BM, BN, WM, WN, false, true, EPI_ADD>(
+        r.A, r.B, nullptr, r.aux, r.C, nullptr, r.M, r.N, r.K, r.kchunk,
+        b % r.gx, b / r.gx % r.gy, b / (r.gx * r.gy), smem);
+  } else {
+    b -= g_first ? 0 : nr;
+    gemm_tile<BM, BN, WM, WN, true, true, EPI_PART>(
+        gr.A, gr.B, nullptr, nullptr, gr.C, nullptr, gr.M, gr.N, gr.K,
+        gr.kchunk, b % gr.gx, b / gr.gx % gr.gy, b / (gr.gx * gr.gy), smem);
+  }
+}
+
+template <int BM, int BN, int WM, int WN>
+cudaError_t launch_pair(const GemmJob& r, const GemmJob& g,
+                        cudaStream_t stream) {
+  const auto kernel = gemm_pair<BM, BN, WM, WN>;
+  constexpr int rows = Slice<BM, false>::floats + Slice<BN, true>::floats;
+  constexpr int grad = Slice<BM, true>::floats + Slice<BN, true>::floats;
+  constexpr size_t smem =
+      sizeof(float) * kGemmStages * (rows > grad ? rows : grad);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<r.blocks() + g.blocks(), GemmShape<BM, BN, WM, WN>::threads, smem,
+           stream>>>(r, g, g.kchunk > r.kchunk ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// Whether a pair goes into one launch, for a row product (M, N) of depth K:
+// as measured on an NVIDIA H100 80GB HBM3 at 700.00 W, at every Swin-B and
+// Swin-T stage of 2 clips
+// (tools/pair_variants.py; PERF.md keeps the table), one launch was faster
+// for every row product no deeper than it is wide (g_att, K = N: 1-19%),
+// and for the deeper ones (dx, K = 3N) except where the row product alone
+// runs more than 1.5 waves of launch_gemm's small tile (stage 2, 2.2-3.0
+// waves: 3-12% slower as one launch, at the weight gradient's large tile).
+// The one shape this rule misjudges is Swin-T's stage 4 (0.6 waves), where
+// one launch was 2% slower.
+inline bool pair_grouped(int M, int N, int K) {
+  if (K <= N) return true;
+  const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
+  const long long small = (long long)((M + 63) / 64) * ((N + 63) / 64);
+  return big >= 2LL * sm_count() || 2 * small <= 3LL * 2 * sm_count();
+}
+
+// out (M, N) = A B + aux (A (M, K), B (K, N) k-major, aux (M, N) or null),
+// and partial = the weight gradient GA^T GB (GA (gk, gm), GB (gk, gn)) in
+// grad_plan's chunks, each with GA's column sums, as EPI_PART lays them
+// out; one launch where `grouped` (the tile of the weight gradient for
+// both), two otherwise.  A null A or GA leaves that product out.  No
+// partial is added up here: the caller's launch_reduce_sums does it.
+inline cudaError_t launch_rows_and_grad(const float* A, const float* B,
+                                        const float* aux, float* out, int M,
+                                        int N, int K, const float* GA,
+                                        const float* GB, float* partial,
+                                        int gm, int gn, int gk, bool grouped,
+                                        cudaStream_t stream) {
+  const GradPlan p = grad_plan(gm, gn, gk);
+  if (grouped && A != nullptr && GA != nullptr) {
+    const int t = p.tile;
+    const GemmJob r{A, B, aux, out, M, N, K, K, (N + t - 1) / t,
+                    (M + t - 1) / t, 1};
+    const GemmJob g{GA, GB, nullptr, partial, gm, gn, gk, p.kchunk,
+                    (gn + t - 1) / t, (gm + t - 1) / t, p.splits};
+    return t == 128 ? launch_pair<128, 128, 64, 32>(r, g, stream)
+                    : launch_pair<64, 64, 32, 32>(r, g, stream);
+  }
+  cudaError_t e = cudaSuccess;
+  if (A != nullptr)
+    e = launch_gemm<true, EPI_ADD>(A, B, nullptr, aux, out, nullptr, M, N, K,
+                                   stream);
+  if (e != cudaSuccess || GA == nullptr) return e;
+  const dim3 grid((gn + p.tile - 1) / p.tile, (gm + p.tile - 1) / p.tile,
+                  p.splits);
+  return p.tile == 128
+             ? launch_tiles<128, 128, 64, 32, true, true, EPI_PART>(
+                   grid, GA, GB, nullptr, nullptr, partial, nullptr, gm, gn,
+                   gk, p.kchunk, stream)
+             : launch_tiles<64, 64, 32, 32, true, true, EPI_PART>(
+                   grid, GA, GB, nullptr, nullptr, partial, nullptr, gm, gn,
+                   gk, p.kchunk, stream);
+}
+
+// Adds a weight gradient's partials (laid out by launch_rows_and_grad) to
+// `sums`: dw (M, N) and db (M), either may be null.
+inline bool add_grad_sums(PartialSums& sums, const float* partial, float* dw,
+                          float* db, int M, int N, int K) {
+  const GradPlan p = grad_plan(M, N, K);
+  const long long stride = (long long)M * N + M;
+  return sums.add(partial, stride, dw, p.splits, (long long)M * N) &&
+         sums.add(partial + (long long)M * N, stride, db, p.splits, M);
+}
 
 }  // namespace vitta

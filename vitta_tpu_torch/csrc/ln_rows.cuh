@@ -265,16 +265,21 @@ inline long long ln_bwd_scratch_floats(long long rows, int c) {
   return 2 * rows + (long long)col_chunks(rows) * 2 * c;
 }
 
-// Launch the LayerNorm backward on `stream`: dx (rows, c), dgb (2, c) =
-// (dgamma, dbeta); scratch as ln_bwd_scratch_floats says.  Returns the first
-// launch error.
-inline cudaError_t launch_ln_bwd(const float* x, const float* gamma,
-                                 const float* dy, float* dx, float* dgb,
-                                 float* scratch, long long rows, int c,
-                                 float eps, cudaStream_t stream) {
+// The first two launches of the LayerNorm backward on `stream`: dx (rows,
+// c), and per chunk of rows the partial (2, c) of dgamma and dbeta, which
+// ln_bwd_partials points at and a reduce adds up (launch_ln_bwd's own, or
+// a chain's one reduce_sums).  Returns the first launch error.
+inline float* ln_bwd_partials(float* scratch, long long rows) {
+  return scratch + 2 * rows;
+}
+
+inline cudaError_t launch_ln_bwd_parts(const float* x, const float* gamma,
+                                       const float* dy, float* dx,
+                                       float* scratch, long long rows, int c,
+                                       float eps, cudaStream_t stream) {
   if (rows <= 0) return cudaErrorInvalidValue;
   float* stats = scratch;
-  float* partial = scratch + 2 * rows;
+  float* partial = ln_bwd_partials(scratch, rows);
   const unsigned blocks =
       (unsigned)((rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
 #define VITTA_LN_BWD_CASE(V)                                                 \
@@ -299,9 +304,21 @@ inline cudaError_t launch_ln_bwd(const float* x, const float* gamma,
   const dim3 grid((c + kColLanes - 1) / kColLanes, chunks);
   const dim3 block(kColLanes, kColWarps);
   ln_bwd_cols<<<grid, block, 0, stream>>>(x, dy, stats, partial, rows, c);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// The LayerNorm backward on `stream`: dx (rows, c), dgb (2, c) = (dgamma,
+// dbeta); scratch as ln_bwd_scratch_floats says.  Returns the first launch
+// error.
+inline cudaError_t launch_ln_bwd(const float* x, const float* gamma,
+                                 const float* dy, float* dx, float* dgb,
+                                 float* scratch, long long rows, int c,
+                                 float eps, cudaStream_t stream) {
+  const cudaError_t e =
+      launch_ln_bwd_parts(x, gamma, dy, dx, scratch, rows, c, eps, stream);
   if (e != cudaSuccess) return e;
-  return launch_reduce_partials(partial, dgb, chunks, 2LL * c, stream);
+  return launch_reduce_partials(ln_bwd_partials(scratch, rows), dgb,
+                                col_chunks(rows), 2LL * c, stream);
 }
 
 }  // namespace vitta

@@ -1,5 +1,5 @@
 // Reductions across blocks, shared by the backward kernels (ln.cu, mlp.cu,
-// attention.cu).
+// attention.cu, attention_proj.cu).
 //
 // The TPU kernels accumulate a sum over all rows (dgamma, dbeta, the weight
 // and bias gradients) in one output block that a sequential grid revisits.
@@ -36,6 +36,61 @@ inline cudaError_t launch_reduce_partials(const float* partial, float* out,
   const unsigned blocks = (unsigned)((L + kReduceThreads - 1) / kReduceThreads);
   reduce_partials_kernel<<<blocks, kReduceThreads, 0, stream>>>(partial, out,
                                                                 P, L);
+  return cudaGetLastError();
+}
+
+// Several such sums in one launch, for a chain that leaves the partials of
+// a few outputs behind (attention_proj.cu's backward: the two weight
+// gradients, their biases, dgamma and dbeta).  Sum j adds count partials,
+// stride floats apart, of len floats each: out[i] = partial[0 * stride +
+// i] + ... + partial[(count - 1) * stride + i], in that order, as
+// reduce_partials adds them; its blocks are first[j] .. first[j + 1] - 1.
+constexpr int kMaxPartialSums = 6;
+
+struct PartialSum {
+  const float* partial;
+  float* out;
+  long long stride, len;
+  int count;
+};
+
+struct PartialSums {
+  PartialSum sum[kMaxPartialSums];
+  int first[kMaxPartialSums + 1];
+  int n = 0;
+
+  // an output that is null is not wanted and is skipped
+  bool add(const float* partial, long long stride, float* out, int count,
+           long long len) {
+    if (out == nullptr || len <= 0) return true;
+    if (n == kMaxPartialSums) return false;
+    sum[n] = PartialSum{partial, out, stride, len, count};
+    first[0] = 0;
+    first[n + 1] =
+        first[n] + (int)((len + kReduceThreads - 1) / kReduceThreads);
+    ++n;
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_sums_kernel(const PartialSums sums) {
+  int j = 0;
+  while (j + 1 < sums.n && (int)blockIdx.x >= sums.first[j + 1]) ++j;
+  const PartialSum s = sums.sum[j];
+  const long long i =
+      (long long)(blockIdx.x - sums.first[j]) * kReduceThreads + threadIdx.x;
+  if (i >= s.len) return;
+  float acc = 0.f;
+  for (int p = 0; p < s.count; ++p)
+    acc += s.partial[(long long)p * s.stride + i];
+  s.out[i] = acc;
+}
+
+inline cudaError_t launch_reduce_sums(const PartialSums& sums,
+                                      cudaStream_t stream) {
+  if (sums.n == 0) return cudaSuccess;
+  reduce_sums_kernel<<<sums.first[sums.n], kReduceThreads, 0, stream>>>(sums);
   return cudaGetLastError();
 }
 

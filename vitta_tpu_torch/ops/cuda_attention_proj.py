@@ -21,20 +21,23 @@ and ``ln_proj_attention_reference``, under torch's own autograd) and a CUDA
 tensor the hand-written kernels in ``vitta_tpu_torch/csrc/attention_proj.cu``,
 the counterparts of pallas_attention.py:724-782 and :945-1016; every matrix
 product on that path is the kernels' own.  When a gradient is wanted the
-forward keeps what the JAX package keeps (pallas_attention.py:901-905,
-:1125-1130): the inputs, o_att (B_, N, C) and ms, the softmax row maximum
-and sum (B_, N, 2nh); the backward recomputes qkv (and y) from x.
-``proj_attention_backward_reference`` and
-``ln_proj_attention_backward_reference`` are its plain versions.  A
-parameter that wants no gradient gets None and its launches are skipped.
-The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
-does not take raises.
+forward keeps the inputs, o_att (B_, N, C), ms, the softmax row maximum
+and sum (B_, N, 2nh), and qkv (B_, N, 3C), which the forward computes
+anyway (and y, an output of the LayerNorm form); the backward then makes
+no qkv product and no LayerNorm forward.  The JAX package keeps less
+(pallas_attention.py:901-905, :1125-1130) and recomputes qkv and y: one
+window's qkv lived in the TPU kernel's VMEM only.  On the card the kept qkv
+costs 3C floats a token per block.  ``proj_attention_backward_reference``
+and ``ln_proj_attention_backward_reference`` are the backward's plain
+versions, from the same kept tensors.  A parameter that wants no gradient
+gets None and its launches are skipped.  The mask has no gradient.  There
+is no fallback: a CUDA tensor a kernel does not take raises.
 
-The scratch (qkv, its cotangent and the partial sums) comes from torch's
-caching allocator inside each wrapper, on the input's device and current
-stream, and is freed on return; the allocator hands it out again only to
-work queued on the same stream behind the kernels that read it.  The port
-runs everything on one stream.
+The backward's scratch (the cotangents of the attention's output and of
+qkv, the partial sums) comes from torch's caching allocator inside each
+wrapper, on the input's device and current stream, and is freed on return;
+the allocator hands it out again only to work queued on the same stream
+behind the kernels that read it.  The port runs everything on one stream.
 """
 
 from __future__ import annotations
@@ -63,25 +66,25 @@ def proj_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
                              scale: float, nh: int,
                              save_residuals: bool = False):
     """The unfused composition on ``x`` (B_, N, C); returns out, and with
-    ``save_residuals`` (out, o_att, ms)."""
+    ``save_residuals`` (out, qkv, o_att, ms)."""
     qkv = F.linear(x, wqkv, bqkv)
     if not save_residuals:
         o_att = packed_attention_reference(qkv, bias, mask, scale, nh)
         return F.linear(o_att, wproj, bproj)
     o_att, ms = packed_attention_reference(qkv, bias, mask, scale, nh, True)
-    return F.linear(o_att, wproj, bproj), o_att, ms
+    return F.linear(o_att, wproj, bproj), qkv, o_att, ms
 
 
-def proj_attention_backward_reference(x, wqkv, bqkv, wproj, bias, mask,
-                                      o_att, ms, g, scale: float, nh: int):
+def proj_attention_backward_reference(x, qkv, wqkv, wproj, bias, mask, o_att,
+                                      ms, g, scale: float, nh: int):
     """(dx, dwqkv, dbqkv, dwproj, dbproj, dbias) for the cotangent ``g`` of
-    out, written out from what the forward keeps as the kernel computes it
-    (pallas_attention.py:747-782): qkv is recomputed from x."""
+    out, written out from what the forward keeps (x, qkv, o_att, ms) as the
+    kernels compute it: the products of pallas_attention.py:747-782 with
+    qkv read, not recomputed."""
     c = x.shape[-1]
     g2, o2, x2 = g.reshape(-1, c), o_att.reshape(-1, c), x.reshape(-1, c)
     dwproj, dbproj = g2.t() @ o2, g2.sum(dim=0)
     g_att = g @ wproj
-    qkv = F.linear(x, wqkv, bqkv)
     dqkv, dbias = packed_attention_backward_reference(qkv, bias, mask, ms,
                                                       g_att, scale, nh)
     d2 = dqkv.reshape(-1, 3 * c)
@@ -92,23 +95,23 @@ def ln_proj_attention_reference(x, gamma, beta, eps: float, wqkv, bqkv, wproj,
                                 bproj, bias, mask, scale: float, nh: int,
                                 save_residuals: bool = False):
     """LayerNorm, then ``proj_attention_reference``; returns (out, y), and
-    with ``save_residuals`` (out, y, o_att, ms)."""
+    with ``save_residuals`` (out, y, qkv, o_att, ms)."""
     y = layer_norm_reference(x, gamma, beta, eps)
     res = proj_attention_reference(y, wqkv, bqkv, wproj, bproj, bias, mask,
                                    scale, nh, save_residuals)
     return (res[0], y) + tuple(res[1:]) if save_residuals else (res, y)
 
 
-def ln_proj_attention_backward_reference(x, gamma, beta, eps: float, wqkv,
-                                         bqkv, wproj, bias, mask, o_att, ms,
-                                         g, gy, scale: float, nh: int):
+def ln_proj_attention_backward_reference(x, y, qkv, gamma, eps: float, wqkv,
+                                         wproj, bias, mask, o_att, ms, g, gy,
+                                         scale: float, nh: int):
     """(dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias) for the
-    cotangents ``g`` of out and ``gy`` of y (or None), as the kernel
-    computes them (pallas_attention.py:967-1016): y and the row statistics
-    are recomputed from x."""
-    y = layer_norm_reference(x, gamma, beta, eps)
+    cotangents ``g`` of out and ``gy`` of y (or None), from what the forward
+    keeps (x, y, qkv, o_att, ms) as the kernels compute it
+    (pallas_attention.py:967-1016 with y and qkv read, not recomputed); the
+    LayerNorm backward takes the row statistics from x."""
     dy, dwqkv, dbqkv, dwproj, dbproj, dbias = \
-        proj_attention_backward_reference(y, wqkv, bqkv, wproj, bias, mask,
+        proj_attention_backward_reference(y, qkv, wqkv, wproj, bias, mask,
                                           o_att, ms, g, scale, nh)
     if gy is not None:
         dy = dy + gy
@@ -136,8 +139,6 @@ def _lib():
         for fn in (lib.vitta_attn_proj_fwd, lib.vitta_attn_ln_proj_fwd,
                    lib.vitta_attn_proj_bwd, lib.vitta_attn_ln_proj_bwd):
             fn.restype = i
-        lib.vitta_attn_proj_fwd_scratch_floats.argtypes = [i] * 4
-        lib.vitta_attn_proj_fwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_attn_proj_bwd_scratch_floats.argtypes = [i] * 5
         lib.vitta_attn_proj_bwd_scratch_floats.restype = ctypes.c_longlong
         _LIB = lib
@@ -188,7 +189,8 @@ _FWD_NAMED = (("wqkv", "tc"), ("bqkv", "t"), ("wproj", "cc"), ("bproj", "c"),
 
 def _fwd_cuda(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, scale, nh,
               save_residuals):
-    """Both forward entry points; ``ln`` is (gamma, beta, eps) or None."""
+    """Both forward entry points; ``ln`` is (gamma, beta, eps) or None.
+    Returns (out, y or None, qkv, o_att, ms or None)."""
     named = [("x", x, "bnc")] + [
         (name, ten, shape) for (name, shape), ten in
         zip(_FWD_NAMED, (wqkv, bqkv, wproj, bproj, bias))]
@@ -198,9 +200,8 @@ def _fwd_cuda(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, scale, nh,
     dev = x.device
     lib = _lib()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    out, o_att = new(b_, n, c), new(b_, n, c)
+    out, qkv, o_att = new(b_, n, c), new(b_, n, 3 * c), new(b_, n, c)
     ms = new(b_, n, 2 * nh) if save_residuals else None
-    scratch = new(lib.vitta_attn_proj_fwd_scratch_floats(b_, n, nh, hd))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if ln is None:
@@ -208,56 +209,58 @@ def _fwd_cuda(x, ln, wqkv, bqkv, wproj, bproj, bias, mask, scale, nh,
             code = lib.vitta_attn_proj_fwd(
                 x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wproj.data_ptr(), bproj.data_ptr(), bias.data_ptr(),
-                _ptr(mask), o_att.data_ptr(), _ptr(ms), out.data_ptr(),
-                scratch.data_ptr(), b_, n, nh, hd, nw, float(scale), stream)
+                _ptr(mask), qkv.data_ptr(), o_att.data_ptr(), _ptr(ms),
+                out.data_ptr(), b_, n, nh, hd, nw, float(scale), stream)
         else:
             y = new(b_, n, c)
             code = lib.vitta_attn_ln_proj_fwd(
                 x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
                 wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
                 bproj.data_ptr(), bias.data_ptr(), _ptr(mask), y.data_ptr(),
-                o_att.data_ptr(), _ptr(ms), out.data_ptr(),
-                scratch.data_ptr(), b_, n, nh, hd, nw, float(ln[2]),
-                float(scale), stream)
+                qkv.data_ptr(), o_att.data_ptr(), _ptr(ms), out.data_ptr(),
+                b_, n, nh, hd, nw, float(ln[2]), float(scale), stream)
     raise_on(code, f"{WHAT} forward kernel")
-    return out, y, o_att, ms
+    return out, y, qkv, o_att, ms
 
 
 def attn_proj_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask, scale: float,
                   nh: int, save_residuals: bool = False):
     """Forward kernels on ``x`` (B_, N, C): one wrapper call, three
     launches on the current stream; returns out, and with
-    ``save_residuals`` (out, o_att, ms)."""
-    out, _y, o_att, ms = _fwd_cuda(x, None, wqkv, bqkv, wproj, bproj, bias,
-                                   mask, scale, nh, save_residuals)
+    ``save_residuals`` (out, qkv, o_att, ms), what the backward reads."""
+    out, _y, qkv, o_att, ms = _fwd_cuda(x, None, wqkv, bqkv, wproj, bproj,
+                                        bias, mask, scale, nh,
+                                        save_residuals)
     counters.proj_fwd += 1
-    return (out, o_att, ms) if save_residuals else out
+    return (out, qkv, o_att, ms) if save_residuals else out
 
 
 def attn_ln_proj_fwd(x, gamma, beta, eps: float, wqkv, bqkv, wproj, bproj,
                      bias, mask, scale: float, nh: int,
                      save_residuals: bool = False):
     """Forward kernels with the LayerNorm in front: four launches; returns
-    (out, y), and with ``save_residuals`` (out, y, o_att, ms)."""
-    out, y, o_att, ms = _fwd_cuda(x, (gamma, beta, eps), wqkv, bqkv, wproj,
-                                  bproj, bias, mask, scale, nh,
-                                  save_residuals)
+    (out, y), and with ``save_residuals`` (out, y, qkv, o_att, ms)."""
+    out, y, qkv, o_att, ms = _fwd_cuda(x, (gamma, beta, eps), wqkv, bqkv,
+                                       wproj, bproj, bias, mask, scale, nh,
+                                       save_residuals)
     counters.ln_proj_fwd += 1
-    return (out, y, o_att, ms) if save_residuals else (out, y)
+    return (out, y, qkv, o_att, ms) if save_residuals else (out, y)
 
 
 # which of (dwqkv, dbqkv, dwproj, dbproj, dbias) a backward computes
 ALL_GRADS = (True,) * 5
 
 
-def _bwd_cuda(x, ln, wqkv, bqkv, wproj, bias, mask, o_att, ms, g, gy, scale,
-              nh, want):
-    named = [("x", x, "bnc"), ("wqkv", wqkv, "tc"), ("bqkv", bqkv, "t"),
+def _bwd_cuda(x, y, qkv, ln, wqkv, wproj, bias, mask, o_att, ms, g, gy,
+              scale, nh, want):
+    """Both backward entry points; ``ln`` is (gamma, eps) or None, and then
+    y is None (the qkv projection's input is x)."""
+    named = [("x", x, "bnc"), ("qkv", qkv, "bnt"), ("wqkv", wqkv, "tc"),
              ("wproj", wproj, "cc"), ("bias", bias, "hnn"),
              ("o_att", o_att, "bnc"), ("ms", ms, "bnm"),
              ("grad of out", g, "bnc")]
     if ln is not None:
-        named += [("gamma", ln[0], "c"), ("beta", ln[1], "c")]
+        named += [("y", y, "bnc"), ("gamma", ln[0], "c")]
     if gy is not None:
         named.append(("grad of y", gy, "bnc"))
     b_, n, c, hd, nw = _check(x, nh, mask, named)
@@ -269,13 +272,14 @@ def _bwd_cuda(x, ln, wqkv, bqkv, wproj, bias, mask, o_att, ms, g, gy, scale,
     grads = [new(*s) if w else None for s, w in zip(shapes, want)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        # sized for this card: a problem's blocks depend on its SM count
+        # sized for this card: the products' chunks and a problem's blocks
+        # depend on its SM count
         scratch = new(lib.vitta_attn_proj_bwd_scratch_floats(
             b_, n, nh, hd, int(ln is not None)))
         if ln is None:
             dgb = None
             code = lib.vitta_attn_proj_bwd(
-                x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                x.data_ptr(), qkv.data_ptr(), wqkv.data_ptr(),
                 wproj.data_ptr(), bias.data_ptr(), _ptr(mask),
                 o_att.data_ptr(), ms.data_ptr(), g.data_ptr(), dx.data_ptr(),
                 *(_ptr(t) for t in grads), scratch.data_ptr(), b_, n, nh, hd,
@@ -283,35 +287,35 @@ def _bwd_cuda(x, ln, wqkv, bqkv, wproj, bias, mask, o_att, ms, g, gy, scale,
         else:
             dgb = new(2, c)
             code = lib.vitta_attn_ln_proj_bwd(
-                x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
-                wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-                bias.data_ptr(), _ptr(mask), o_att.data_ptr(), ms.data_ptr(),
-                g.data_ptr(), _ptr(gy), dx.data_ptr(), dgb.data_ptr(),
+                x.data_ptr(), y.data_ptr(), qkv.data_ptr(), ln[0].data_ptr(),
+                wqkv.data_ptr(), wproj.data_ptr(), bias.data_ptr(),
+                _ptr(mask), o_att.data_ptr(), ms.data_ptr(), g.data_ptr(),
+                _ptr(gy), dx.data_ptr(), dgb.data_ptr(),
                 *(_ptr(t) for t in grads), scratch.data_ptr(), b_, n, nh, hd,
-                nw, float(ln[2]), float(scale), stream)
+                nw, float(ln[1]), float(scale), stream)
     raise_on(code, f"{WHAT} backward kernel")
     return dx, dgb, grads
 
 
-def attn_proj_bwd(x, wqkv, bqkv, wproj, bias, mask, o_att, ms, g,
+def attn_proj_bwd(x, qkv, wqkv, wproj, bias, mask, o_att, ms, g,
                   scale: float, nh: int, want=ALL_GRADS):
-    """Backward kernels: one wrapper call, its launches on the current
-    stream.  Returns (dx, dwqkv, dbqkv, dwproj, dbproj, dbias), allocated
-    here with the scratch; an entry whose ``want`` is False is None and is
-    not computed."""
-    dx, _dgb, grads = _bwd_cuda(x, None, wqkv, bqkv, wproj, bias, mask, o_att,
-                                ms, g, None, scale, nh, want)
+    """Backward kernels from what the forward kept (x, qkv, o_att, ms): one
+    wrapper call, its launches on the current stream.  Returns (dx, dwqkv,
+    dbqkv, dwproj, dbproj, dbias), allocated here with the scratch; an
+    entry whose ``want`` is False is None and is not computed."""
+    dx, _dgb, grads = _bwd_cuda(x, None, qkv, None, wqkv, wproj, bias, mask,
+                                o_att, ms, g, None, scale, nh, want)
     counters.proj_bwd += 1
     return (dx, *grads)
 
 
-def attn_ln_proj_bwd(x, gamma, beta, eps: float, wqkv, bqkv, wproj, bias,
-                     mask, o_att, ms, g, gy, scale: float, nh: int,
+def attn_ln_proj_bwd(x, y, qkv, gamma, eps: float, wqkv, wproj, bias, mask,
+                     o_att, ms, g, gy, scale: float, nh: int,
                      want=ALL_GRADS):
-    """Backward kernels through the LayerNorm; ``gy`` may be None (no
-    cotangent on y).  Returns (dx, dgamma, dbeta, dwqkv, dbqkv, dwproj,
-    dbproj, dbias)."""
-    dx, dgb, grads = _bwd_cuda(x, (gamma, beta, eps), wqkv, bqkv, wproj, bias,
+    """Backward kernels through the LayerNorm, from what the forward kept
+    (x, y, qkv, o_att, ms); ``gy`` may be None (no cotangent on y).
+    Returns (dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias)."""
+    dx, dgb, grads = _bwd_cuda(x, y, qkv, (gamma, eps), wqkv, wproj, bias,
                                mask, o_att, ms, g, gy, scale, nh, want)
     counters.ln_proj_bwd += 1
     return (dx, dgb[0], dgb[1], *grads)
@@ -321,7 +325,7 @@ def attn_ln_proj_bwd(x, gamma, beta, eps: float, wqkv, bqkv, wproj, bias,
 class ProjWindowAttention(torch.autograd.Function):
     """The kernels as one differentiable op (the counterpart of the custom
     VJP at pallas_attention.py:895-919).  With ``keep`` the forward has
-    the kernel emit ms and keeps (x, wqkv, bqkv, wproj, bias, mask, o_att,
+    the kernel emit ms and keeps (x, wqkv, wproj, bias, mask, qkv, o_att,
     ms); without it nothing is kept.  A strided cotangent is copied once,
     and counted."""
 
@@ -332,18 +336,18 @@ class ProjWindowAttention(torch.autograd.Function):
         if not keep:
             return attn_proj_fwd(x, wqkv, bqkv, wproj, bproj, bias, mask,
                                  scale, nh)
-        out, o_att, ms = attn_proj_fwd(x, wqkv, bqkv, wproj, bproj, bias,
-                                       mask, scale, nh, True)
-        ctx.save_for_backward(x, wqkv, bqkv, wproj, bias, mask, o_att, ms)
+        out, qkv, o_att, ms = attn_proj_fwd(x, wqkv, bqkv, wproj, bproj,
+                                            bias, mask, scale, nh, True)
+        ctx.save_for_backward(x, wqkv, wproj, bias, mask, qkv, o_att, ms)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, wqkv, bqkv, wproj, bias, mask, o_att, ms = ctx.saved_tensors
+        x, wqkv, wproj, bias, mask, qkv, o_att, ms = ctx.saved_tensors
         need = ctx.needs_input_grad
         want = (need[1], need[2], need[3], need[4], need[5])
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = attn_proj_bwd(
-            x, wqkv, bqkv, wproj, bias, mask, o_att, ms,
+            x, qkv, wqkv, wproj, bias, mask, o_att, ms,
             contiguous_counted(g), ctx.scale, ctx.nh, want)
         return (dx if need[0] else None, dwqkv, dbqkv, dwproj, dbproj, dbias,
                 None, None, None, None)
@@ -351,8 +355,9 @@ class ProjWindowAttention(torch.autograd.Function):
 
 class LnProjWindowAttention(torch.autograd.Function):
     """The LayerNorm form (the counterpart of the custom VJP at
-    pallas_attention.py:1117-1146).  An output without a cotangent arrives
-    as None, not as zeros."""
+    pallas_attention.py:1117-1146); with ``keep`` it also keeps y, its own
+    output.  An output without a cotangent arrives as None, not as
+    zeros."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -362,16 +367,16 @@ class LnProjWindowAttention(torch.autograd.Function):
         if not keep:
             return attn_ln_proj_fwd(x, gamma, beta, eps, wqkv, bqkv, wproj,
                                     bproj, bias, mask, scale, nh)
-        out, y, o_att, ms = attn_ln_proj_fwd(x, gamma, beta, eps, wqkv, bqkv,
-                                             wproj, bproj, bias, mask, scale,
-                                             nh, True)
-        ctx.save_for_backward(x, gamma, beta, wqkv, bqkv, wproj, bias, mask,
+        out, y, qkv, o_att, ms = attn_ln_proj_fwd(
+            x, gamma, beta, eps, wqkv, bqkv, wproj, bproj, bias, mask, scale,
+            nh, True)
+        ctx.save_for_backward(x, y, qkv, gamma, wqkv, wproj, bias, mask,
                               o_att, ms)
         return out, y
 
     @staticmethod
     def backward(ctx, g, gy):
-        (x, gamma, beta, wqkv, bqkv, wproj, bias, mask, o_att,
+        (x, y, qkv, gamma, wqkv, wproj, bias, mask, o_att,
          ms) = ctx.saved_tensors
         need = ctx.needs_input_grad
         want = (need[3], need[4], need[5], need[6], need[7])
@@ -379,7 +384,7 @@ class LnProjWindowAttention(torch.autograd.Function):
         if gy is not None:
             gy = contiguous_counted(gy)
         (dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj,
-         dbias) = attn_ln_proj_bwd(x, gamma, beta, ctx.eps, wqkv, bqkv, wproj,
+         dbias) = attn_ln_proj_bwd(x, y, qkv, gamma, ctx.eps, wqkv, wproj,
                                    bias, mask, o_att, ms, g, gy, ctx.scale,
                                    ctx.nh, want)
         return (dx if need[0] else None, dgamma if need[1] else None,
