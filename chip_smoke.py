@@ -449,7 +449,9 @@ class Totals:
 # ---------------------------------------------------------------------------
 def phase_tam_kernels(dev):
     """TAM kernel against plain on the card; returns its JSON rows."""
-    from vitta_tpu_torch.ops.cuda_tam import (tam_bwd_cuda, tam_fwd_cuda,
+    from vitta_tpu_torch.ops.cuda_tam import (BWD_DEPTH, bwd_plan,
+                                              bwd_plan_cuda,
+                                              tam_bwd_cuda, tam_fwd_cuda,
                                               tam_dynamic_conv,
                                               tam_dynamic_conv_reference)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -461,7 +463,9 @@ def phase_tam_kernels(dev):
     # element); backward reads g and x again, writes dx, dattn, dK
     need = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     for (h, w, c), sites in TAM_SITES.items():
-        for n, t in ((2, 16), (1, 16), (2, 3)):
+        # the adapt batch, one clip, three frames, and the backward's edge
+        # cases: one frame, one past its chunk depth
+        for n, t in ((2, 16), (1, 16), (2, 3), (2, 1), (2, BWD_DEPTH + 1)):
             x = torch.randn(n, t, h, w, c, device=dev, generator=gen)
             a = torch.sigmoid(torch.randn(n, t, c, device=dev, generator=gen))
             k = torch.softmax(torch.randn(n, c, 3, device=dev, generator=gen), -1)
@@ -478,12 +482,27 @@ def phase_tam_kernels(dev):
                                   GRAD_TOL)
                       for nm, p, q in zip(("dx", "dattn", "dkernel"), ins, refs))
             err["fwd"], err["bwd"] = max(err["fwd"], e_f), max(err["bwd"], e_b)
+            # no float atomics: two runs give the autograd run's bits
+            again = tam_bwd_cuda(g, x, a, k)
+            if not all(torch.equal(u, p.grad) for u, p in zip(again, ins)):
+                raise AssertionError(f"tam bwd {(n, t, h, w, c)}: two runs "
+                                     "differ")
+            del again
             if (n, t) != (2, 16):   # held to plain; the adapt batch is timed
                 print(f"tam n={n} t={t} {h}x{w}x{c}: err fwd {e_f:.2e} bwd "
                       f"{e_b:.2e}", flush=True)
                 del x, a, k, g, ins, refs, out, ref
                 continue
 
+            plan = bwd_plan_cuda(n, t, h * w, c)
+            if plan != bwd_plan(n, t, h * w, c):   # BWD_DEPTH is the kernel's
+                raise AssertionError(f"tam bwd {(n, t, h, w, c)}: the kernel's"
+                                     f" plan {plan} is not bwd_plan's")
+            print(f"tam bwd n={n} t={t} {h}x{w}x{c}: two runs bit-equal; "
+                  f"blocks {plan['ncc']} x {plan['npb']} x "
+                  f"{n * plan['nseg']} of {plan['wc']} x {plan['slots']} "
+                  f"threads, {plan['pp']} positions a thread, segments of "
+                  f"{plan['seg_len']} frames", flush=True)
             ref = tam_dynamic_conv_reference(*refs)
             calls = {
                 "fwd": lambda: tam_fwd_cuda(x, a, k),
@@ -517,8 +536,32 @@ def phase_tam_kernels(dev):
             if dv["fwd"] and dv["bwd"]:
                 print(f"  kernel bandwidth: fwd {2 * nbytes / dv['fwd'] / 1e6:.0f}"
                       f" GB/s, bwd {3 * nbytes / dv['bwd'] / 1e6:.0f} GB/s "
-                      "(ideal bytes over device time)", flush=True)
+                      "(ideal bytes over device time); bwd device "
+                      f"{dv['bwd'] * 1e3:.2f} us against its bound "
+                      f"{bound(3 * nbytes + 2 * small, 0)[0] * 1e3:.2f} us",
+                      flush=True)
             del x, a, k, g, ins, refs, out, ref
+    # the backward's launches, read from the profiler: one call at each
+    # site of the adapt batch, in one trace
+    calls = []
+    for h, w, c in TAM_SITES:
+        shape = (2, 16, h, w, c)
+        x, g = (torch.randn(*shape, device=dev, generator=gen)
+                for _ in range(2))
+        a = torch.sigmoid(torch.randn(2, 16, c, device=dev, generator=gen))
+        k = torch.softmax(torch.randn(2, c, 3, device=dev, generator=gen), -1)
+        calls.append((g, x, a, k))
+    names = kernel_launches(lambda: [tam_bwd_cuda(*args) for args in calls])
+    per_kernel = [sum(v for key, v in names.items() if kern in key)
+                  for kern in ("tam_bwd_kernel", "tam_bwd_reduce_kernel")]
+    if per_kernel != [len(calls)] * 2 or sum(names.values()) != 2 * len(calls):
+        raise AssertionError(f"tam bwd: launches {names} over one call at "
+                             f"each of {len(calls)} sites, expected "
+                             "tam_bwd_kernel and tam_bwd_reduce_kernel once "
+                             "a call")
+    print(f"tam bwd: 2 launches a call at each of the {len(calls)} sites "
+          "(tam_bwd_kernel, tam_bwd_reduce_kernel; profiler)", flush=True)
+    del calls
     for label, d in (("event", per_step), ("device", dev_step)):
         if None in d.values():
             print(f"tam per adapt step, {label} ms: not measured", flush=True)
@@ -610,6 +653,12 @@ def phase_swin_kernels(dev):
              "plain": measure(lambda: cb.expand_bias_reference(v, wd)),
              "gather": measure(gather)}
         _report(f"bias nh={nh} -> ({nh},{n_tok},{n_tok}), bit-exact", 0.0, t)
+        moved = (v.numel() + got.numel()) * 4
+        if t["kernel"][1]:
+            print(f"  bias expansion nh={nh}: device {t['kernel'][1] * 1e3:.2f}"
+                  f" us, {moved / t['kernel'][1] / 1e6:.0f} GB/s, bound "
+                  f"{bound(moved, 0)[0] * 1e3:.2f} us ({depth} launches a "
+                  "pass)", flush=True)
         bias.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
                  plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
                  library_ms=t["gather"][0], library_device_ms=t["gather"][1],

@@ -43,7 +43,11 @@ torch.set_num_threads(1)
 
 FWD_TOL, GRAD_TOL = 1e-5, 2e-4
 SHAPES = [dict(), dict(t=3), dict(h=16), dict(n=1, t=16, h=7, w=7, c=64),
-          dict(n=2, t=16, h=14, w=14, c=256), dict(c=30, w=5)]
+          dict(n=2, t=16, h=14, w=14, c=256), dict(c=30, w=5),
+          # the backward's edge cases: one frame; one frame past its chunk
+          # depth at 16-byte columns; channels no multiple of 4 at T = 16
+          dict(t=1), dict(t=cuda_tam.BWD_DEPTH + 1, h=7, w=7, c=64),
+          dict(n=2, t=16, h=7, w=5, c=30)]
 
 
 @pytest.fixture
@@ -82,6 +86,69 @@ def test_kernel_matches_plain(cuda_device, shape):
     for g, w, name, tol in zip(got, want, ("out", "dx", "dattn", "dkernel"),
                                (FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
         torch.testing.assert_close(g, w, rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES[4:], ids=str)
+def test_backward_gives_the_same_bits_twice(cuda_device, shape):
+    """No float atomics: two runs of the backward give the same bits."""
+    x, attn, kernel, cot = _inputs(cuda_device, **shape)
+    first = cuda_tam.tam_bwd_cuda(cot, x, attn, kernel)
+    again = cuda_tam.tam_bwd_cuda(cot, x, attn, kernel)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_backward_launches(cuda_device):
+    """Two launches a call: the blocks' kernel and the sum of their partial
+    rows (read from the profiler)."""
+    x, attn, kernel, cot = _inputs(cuda_device, **SHAPES[4])
+    names = kernel_launches(lambda: cuda_tam.tam_bwd_cuda(cot, x, attn,
+                                                          kernel))
+    assert sum(names.values()) == 2, names
+    assert sum(n for k, n in names.items() if "tam_bwd_kernel" in k) == 1
+    assert sum(n for k, n in names.items() if "tam_bwd_reduce" in k) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,p,c", [(2, 16, 3136, 64), (2, 16, 3136, 128),
+                                     (2, 16, 784, 128), (2, 16, 784, 256),
+                                     (2, 16, 196, 256), (2, 16, 196, 512),
+                                     (2, 16, 49, 512), (1, 16, 49, 512),
+                                     (2, 3, 196, 256), (2, 1, 35, 30),
+                                     (2, 9, 35, 64), (1, 17, 12, 20),
+                                     (3, 40, 7, 8)])
+def test_backward_plan_matches_the_kernels(cuda_device, n, t, p, c):
+    """``bwd_plan``, which the CPU tests follow, is the kernel's own, with
+    16-byte units and, where C % 4 == 0, with one channel a thread."""
+    for vec in ((1, 0) if c % 4 == 0 else (0,)):
+        assert (cuda_tam.bwd_plan_cuda(n, t, p, c, vec)
+                == cuda_tam.bwd_plan(n, t, p, c, vec)), vec
+
+
+@pytest.mark.cuda
+def test_backward_takes_unaligned_views(cuda_device):
+    """Contiguous views that start 4 bytes past a 16-byte boundary take the
+    one-channel path (no misaligned 16-byte access) and give the plain
+    version's gradients."""
+    x, attn, kernel, cot = _inputs(cuda_device, **SHAPES[4])
+
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+
+    xs, attns, cots = shifted(x), shifted(attn), shifted(cot)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 4
+    assert cuda_tam.bwd_vec(x.shape[-1], cots, xs, attns) == 0
+    got = cuda_tam.tam_bwd_cuda(cots, xs, attns, kernel)
+    torch.cuda.synchronize()
+    want = _value_and_grads(tam_dynamic_conv_reference, x, attn, kernel,
+                            cot)[1:]
+    for g, w, name in zip(got, want, ("dx", "dattn", "dkernel")):
+        torch.testing.assert_close(g, w, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   msg=name)
 
 
 @pytest.mark.cuda
@@ -132,8 +199,13 @@ def test_ln_kernel_matches_plain(cuda_device, rows, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window,nh", [((8, 7, 7), 4), ((2, 3, 3), 2),
-                                       ((3, 2, 5), 32)])
+                                       ((3, 2, 5), 32), ((2, 3, 3), 32),
+                                       ((4, 7, 7), 32), ((16, 14, 14), 2),
+                                       ((2, 70, 70), 1)])
 def test_bias_kernel_matches_plain_exactly(cuda_device, window, nh):
+    """Both store paths (16-byte where N % 4 == 0, else scalar), shared
+    memory beyond 48 KB ((16, 14, 14)) and rows that do not fit in it,
+    read from V where they lie ((2, 70, 70))."""
     wd, wh, ww = window
     table = _randn(cuda_device,
                    (2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), nh, seed=4)

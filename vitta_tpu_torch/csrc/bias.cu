@@ -11,9 +11,19 @@
 // Pure data movement: the output equals the block concatenation bit for bit.
 //
 // What bounds it: bytes, almost all of them the write of B (V is (2wd-1)/wd^2
-// of B's size and stays in cache).  One block writes one row of B; its
-// threads walk the row's columns, so every warp store is one contiguous
-// line, and the reads of V are contiguous within each hw-wide segment.
+// of B's size).  A block per (head h, in-frame row i) writes the wd rows
+// d1*hw + i of B.  Each of them draws on the same 2wd-1 rows V[h, a, i, :],
+// so the block reads those once into shared memory, in reverse order of a:
+//   r[b*hw + j] = V[h, 2wd-2-b, i, j],
+// and row d1*hw + i of B is then the contiguous run r[(wd-1-d1)*hw ...] of
+// N floats: a copy, with no index arithmetic per element.  Where N % 4 == 0
+// every row of B starts 16-byte aligned (its offset is a multiple of N),
+// and the block keeps four copies of r, copy s shifted by s floats, so that
+// each run starts aligned in one of them: every thread moves 16 bytes with
+// one shared-memory load and one store.  Otherwise the rows go out float by
+// float from the one copy.  Where the copies do not fit in shared memory
+// (2wd-1 rows of hw floats beyond 227 KB), the block reads V where it lies,
+// walking each row's wd segments with running indices.
 //
 // The collapse is the transpose of that arrangement: each element of dV is
 // the sum of the elements of dB that were copied from it,
@@ -29,21 +39,91 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr size_t kMaxSmem = 227 * 1024;   // a block's shared memory on Hopper
 
-__global__ void __launch_bounds__(kThreads)
-expand_bias_kernel(const float* __restrict__ v, float* __restrict__ out,
-                   int wd, int hw) {
-  const int n = wd * hw;
-  const int row = blockIdx.x;          // d1*hw + i
-  const int h = blockIdx.y;
-  const int d1 = row / hw, i = row - d1 * hw;
-  const int a_dim = 2 * wd - 1;
-  const float* vh = v + (size_t)h * a_dim * hw * hw;
-  float* orow = out + ((size_t)h * n + row) * n;
-  for (int col = threadIdx.x; col < n; col += kThreads) {
-    const int d2 = col / hw, j = col - d2 * hw;
-    orow[col] = vh[((size_t)(d1 - d2 + wd - 1) * hw + i) * hw + j];
+// Steps a running (segment, offset) pair forward by `step` elements of
+// segments `len` long: a division's work only where step > len.
+__device__ __forceinline__ void advance(int& seg, int& off, int step,
+                                        int len) {
+  off += step;
+  while (off >= len) {
+    off -= len;
+    ++seg;
   }
+}
+
+// grid (hw, nh): block (i, h) writes rows d1*hw + i of head h.  VEC: N % 4
+// == 0, four shifted copies of r `pitch` floats apart; else one copy.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+expand_bias_staged(const float* __restrict__ v, float* __restrict__ out,
+                   int wd, int hw, int pitch) {
+  extern __shared__ __align__(16) float st[];
+  const int i = blockIdx.x, h = blockIdx.y;
+  const int a_dim = 2 * wd - 1, n = wd * hw;
+  const float* vi = v + ((size_t)h * a_dim * hw + i) * hw;   // V[h, 0, i, :]
+  for (int b = threadIdx.x >> 5; b < a_dim; b += kThreads / 32) {
+    const float* src = vi + (size_t)(a_dim - 1 - b) * hw * hw;
+    for (int j = threadIdx.x & 31; j < hw; j += 32) {
+      const float val = src[j];
+      const int k = b * hw + j;
+      if (VEC) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (k >= s) st[s * pitch + k - s] = val;
+      } else {
+        st[k] = val;
+      }
+    }
+  }
+  __syncthreads();
+  float* rows = out + ((size_t)h * n + i) * n;   // row d1*hw + i: + d1*hw*n
+  const int len = VEC ? n / 4 : n;                // a row, in moves
+  int d1 = 0, q = 0;
+  advance(d1, q, threadIdx.x, len);
+  while (d1 < wd) {
+    const int o = (wd - 1 - d1) * hw;             // the row's run in r
+    float* dst = rows + (size_t)d1 * hw * n;
+    if (VEC) {
+      const float4* src =
+          reinterpret_cast<const float4*>(st + (o & 3) * pitch) + (o >> 2);
+      reinterpret_cast<float4*>(dst)[q] = src[q];
+    } else {
+      dst[q] = st[o + q];
+    }
+    advance(d1, q, kThreads, len);
+  }
+}
+
+// The same rows read from V where it lies, for windows whose rows r do not
+// fit in shared memory.
+__global__ void __launch_bounds__(kThreads)
+expand_bias_direct(const float* __restrict__ v, float* __restrict__ out,
+                   int wd, int hw) {
+  const int i = blockIdx.x, h = blockIdx.y;
+  const int a_dim = 2 * wd - 1, n = wd * hw;
+  const float* vi = v + ((size_t)h * a_dim * hw + i) * hw;
+  for (int d1 = 0; d1 < wd; ++d1) {
+    float* dst = out + ((size_t)h * n + d1 * hw + i) * n;
+    int d2 = 0, j = 0;
+    advance(d2, j, threadIdx.x, hw);
+    while (d2 < wd) {
+      dst[d2 * hw + j] = vi[(size_t)(d1 - d2 + wd - 1) * hw * hw + j];
+      advance(d2, j, kThreads, hw);
+    }
+  }
+}
+
+template <class K>
+int launch_staged(K kernel, dim3 grid, size_t smem, cudaStream_t s,
+                  const float* v, float* out, int wd, int hw, int pitch) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, kThreads, smem, s>>>(v, out, wd, hw, pitch);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -76,9 +156,18 @@ int vitta_bias_expand(const float* v, float* out, int nh, int wd, int hw,
                       void* stream) {
   if (nh <= 0 || wd <= 0 || hw <= 0 || nh > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(wd * hw, nh);
-  expand_bias_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(v, out, wd,
-                                                                  hw);
+  const dim3 grid(hw, nh);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int len = (2 * wd - 1) * hw;
+  const int pitch = (len + 3) & ~3;
+  const bool vec = (wd * hw) % 4 == 0;
+  const size_t smem = (vec ? 4 * (size_t)pitch : (size_t)len) * sizeof(float);
+  if (smem <= kMaxSmem)
+    return vec ? launch_staged(expand_bias_staged<true>, grid, smem, s, v,
+                               out, wd, hw, pitch)
+               : launch_staged(expand_bias_staged<false>, grid, smem, s, v,
+                               out, wd, hw, pitch);
+  expand_bias_direct<<<grid, kThreads, 0, s>>>(v, out, wd, hw);
   return (int)cudaGetLastError();
 }
 

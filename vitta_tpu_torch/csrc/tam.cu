@@ -18,30 +18,56 @@
 // What bounds it: memory.  The arithmetic is a few multiply-adds per
 // element; at the ResNet-50 TAM sites one adapt step moves about 0.49 GB
 // in the forward (read x, write out) and 0.73 GB in the backward (read g
-// and x, write dx).  The design therefore reads and writes each element
-// exactly once:
-//  * one thread owns one (n, p, c) column and walks t with a three-deep
-//    register window, so the TPU kernel's re-read of the neighbouring
-//    frames (three frame reads per output frame) disappears;
-//  * attn and K are indexed by c straight from their small tensors (the
-//    TPU kernel broadcast them to per-lane rows only for its tiling);
-//  * neighbouring threads own neighbouring channels, so every warp load
-//    and store is one contiguous 128-byte line;
-//  * the backward keeps its dK partial sums in registers over t, reduces
-//    dattn and dK over the block's positions in shared memory in a fixed
-//    order, writes one partial row per block, and a second small kernel
-//    sums the partial rows in a fixed order.  No atomics: the result is
-//    deterministic, and differs from a plain reduction only by the order
-//    of float32 additions.  The partial rows add (T+3)/(T*kPosPerBlock)
-//    of x's size to the backward's traffic.
+// and x, write dx).  Each element is read and written once.
+//
+// Forward: one thread owns one (n, p, c) column and walks t with a
+// three-deep register window; neighbouring threads own neighbouring
+// channels, so every warp load and store is one contiguous line.
+//
+// Backward: at the 14x14 and 7x7 sites one column per thread is too few
+// threads to keep the memory busy if each walks its 16 frames with two
+// loads in flight.  So:
+//  * a thread owns one (n, p) column of 4 channels where C % 4 == 0 and the
+//    caller's g, x, attn and dx are 16-byte aligned (16-byte loads and
+//    stores; one channel where not), and walks its frames in
+//    chunks of kDepth: it issues the chunk's loads of g[t+1], x[t] and
+//    attn[t] before any arithmetic, and carries g[t-1] and g[t] across
+//    chunks in registers;
+//  * where the grid has fewer blocks than the card has multiprocessors, T
+//    is cut into segments of seg_len frames, each read with a one-frame
+//    halo of g on either side: the longest segments that give at least a
+//    block a multiprocessor, or one chunk each (`plan_for`).  Cutting a
+//    grid that fills the card already measured slower;
+//  * a block spans up to kMaxUnits units of a position (threads in x) and
+//    `slots` positions (threads in y), and each thread walks `pp` positions
+//    in turn, so that a block sums at least
+//    kMinPositions positions: its dattn rows (one per frame of its segment)
+//    and dK rows (3) are summed per thread over its positions, then over the
+//    slots in shared memory in slot order, and written as partial rows of
+//    about 3-6 % of x's size;
+//  * the partial rows are summed in a fixed order by a second launch (warp
+//    lane l adds the rows l, l+32, ... in turn, then the lanes in a
+//    butterfly).  No float atomics: the result has the same bits from run
+//    to run, and differs from a plain reduction only by the order of
+//    float32 additions.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kFwdThreads = 256;
-constexpr int kChanPerBlock = 32;   // one warp spans 32 channels
-constexpr int kPosPerBlock = 8;     // 8 warps: 8 positions per block
+constexpr int kBwdThreads = 256;
+// The backward's shape, as measured best (PERF.md's kernel table, row 2;
+// vitta_tpu_torch/tools/tam_variants.py times other values on patched
+// copies of this file).  ops/cuda_tam.py:bwd_plan mirrors them.
+constexpr int kDepth = 4;           // frames whose loads a thread issues together
+constexpr int kMaxUnits = 16;       // most units of a position a block spans
+constexpr int kTargetBlocks = 132;  // blocks the grid aims at: an H100's SMs
+constexpr int kMinBlocks = 2;       // backward blocks an SM must hold (registers)
+constexpr int kMinPositions = 32;   // positions a backward block sums
+constexpr int kMaxSegFrames = 16;   // bounds the block's shared memory
 constexpr int kReduceThreads = 256;
 
 __global__ void tam_fwd_kernel(const float* __restrict__ x,
@@ -69,108 +95,297 @@ __global__ void tam_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-// grid (ceil(C/32), ceil(P/8), N), block (32, 8).  Shared memory holds one
-// slot per thread for each of T dattn rows and 3 dK rows.
-__global__ void tam_bwd_kernel(const float* __restrict__ g,
-                               const float* __restrict__ x,
-                               const float* __restrict__ attn,
-                               const float* __restrict__ kern,
-                               float* __restrict__ dx,
-                               float* __restrict__ partial,
-                               int T, int P, int C) {
-  extern __shared__ float slots[];   // [(T + 3)][kPosPerBlock][kChanPerBlock]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * kChanPerBlock + tx;
-  const int p = blockIdx.y * kPosPerBlock + ty;
-  const int n = blockIdx.z;
-  const int rows = T + 3;
-  const int slot = ty * kChanPerBlock + tx;
-  constexpr int kRowStride = kPosPerBlock * kChanPerBlock;
+// ---- the backward ---------------------------------------------------------
+// Lane arithmetic on a unit of columns: float4 (4 channels) or float.
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 operator*(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ void operator+=(float4& a, float4 b) { a = a + b; }
+template <class V> __device__ __forceinline__ V zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float shfl_xor(float v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+__device__ __forceinline__ float4 shfl_xor(float4 v, int o) {
+  return make_float4(shfl_xor(v.x, o), shfl_xor(v.y, o), shfl_xor(v.z, o),
+                     shfl_xor(v.w, o));
+}
+__device__ __forceinline__ float comp(float v, int) { return v; }
+__device__ __forceinline__ float comp(float4 v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+// K[n, c, k] for the unit's channels, as a unit
+__device__ __forceinline__ float kern_unit(const float* kc, int k, float*) {
+  return kc[k];
+}
+__device__ __forceinline__ float4 kern_unit(const float* kc, int k, float4*) {
+  return make_float4(kc[k], kc[3 + k], kc[6 + k], kc[9 + k]);
+}
 
-  if (c < C && p < P) {
-    const long long PC = (long long)P * C;
-    const long long base = (long long)n * T * PC + (long long)p * C + c;
-    const float* kc = kern + ((long long)n * C + c) * 3;
-    const float k0 = kc[0], k1 = kc[1], k2 = kc[2];
-    const float* as = attn + (long long)n * T * C + c;
-    float dk0 = 0.f, dk1 = 0.f, dk2 = 0.f;
-    float gm = 0.f;
-    float g0 = g[base];
-    for (int t = 0; t < T; ++t) {
-      const long long off = base + t * PC;
-      const float gp = (t + 1 < T) ? g[off + PC] : 0.f;
-      const float xt = x[off];
-      const float at = as[t * C];
-      const float dy = k0 * gp + k1 * g0 + k2 * gm;
-      dx[off] = at * dy;
-      slots[t * kRowStride + slot] = dy * xt;
-      const float yt = at * xt;
-      dk0 += gp * yt;
-      dk1 += g0 * yt;
-      dk2 += gm * yt;
-      gm = g0;
-      g0 = gp;
-    }
-    slots[T * kRowStride + slot] = dk0;
-    slots[(T + 1) * kRowStride + slot] = dk1;
-    slots[(T + 2) * kRowStride + slot] = dk2;
+// How the backward cuts its work; `vitta_tam_bwd_plan` exports it and
+// vitta_tpu_torch/ops/cuda_tam.py:bwd_plan mirrors it.
+struct Plan {
+  int vec;        // C % 4 == 0: units of 4 channels
+  int units;      // units per position: C / 4 or C
+  int wc;         // units a block spans (threads in x)
+  int slots;      // positions a block walks at once (threads in y)
+  int pp;         // positions each thread walks in turn
+  int seg_len;    // frames of a segment, a multiple of kDepth
+  int nseg;       // segments of T
+  int npb;        // position blocks
+  int ncc;        // channel chunks
+};
+
+int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// vec: the caller's g, x, attn and dx are 16-byte aligned and C % 4 == 0
+Plan plan_for(int N, int T, int P, int C, bool vec) {
+  Plan q;
+  q.vec = vec;
+  q.units = q.vec ? C / 4 : C;
+  q.wc = q.units < kMaxUnits ? q.units : kMaxUnits;
+  q.slots = kBwdThreads / q.wc;
+  q.pp = cdiv(kMinPositions, q.slots);
+  q.npb = cdiv(P, (long long)q.slots * q.pp);
+  q.ncc = cdiv(q.units, q.wc);
+  const long long blocks = (long long)N * q.ncc * q.npb;
+  // at least `want` segments: each of at most 1/want of T's chunks
+  const int want = blocks >= kTargetBlocks ? 1 : cdiv(kTargetBlocks, blocks);
+  int chunks = cdiv(T, kDepth) / want;
+  chunks = chunks > 1 ? chunks : 1;
+  const int most = kMaxSegFrames / kDepth > 0 ? kMaxSegFrames / kDepth : 1;
+  chunks = chunks < most ? chunks : most;
+  q.seg_len = chunks * kDepth;
+  q.nseg = cdiv(T, q.seg_len);
+  return q;
+}
+
+long long part_a_floats(const Plan& q, int N, int T, int C) {
+  return (long long)N * q.npb * T * C;
+}
+long long part_k_floats(const Plan& q, int N, int C) {
+  return (long long)N * q.nseg * q.npb * 3 * C;
+}
+
+// One output of the sum over partial rows: dattn[n, r, unit] (r < T) over
+// the position blocks, or dK[n, unit, r - T] over (segment, position
+// block), by a whole warp: lane l adds rows l, l + 32, ... in turn, then
+// the lanes are added in a butterfly.
+template <class V>
+__device__ void sum_output(const V* __restrict__ part_a,
+                           const V* __restrict__ part_k,
+                           float* __restrict__ dattn,
+                           float* __restrict__ dkern, int l, int n, int r,
+                           int u, int T, int U, int npb, int nseg) {
+  const V* src;
+  long long step;
+  int count;
+  if (r < T) {
+    src = part_a + ((long long)n * npb * T + r) * U + u;
+    step = (long long)T * U;
+    count = npb;
   } else {
-    for (int r = 0; r < rows; ++r) slots[r * kRowStride + slot] = 0.f;
+    src = part_k + ((long long)n * nseg * npb * 3 + (r - T)) * U + u;
+    step = 3LL * U;
+    count = nseg * npb;
   }
+  // four rows' loads in flight at a time, added in the same order
+  V acc = zero<V>();
+  for (int j0 = l; j0 < count; j0 += 4 * 32) {
+    V v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = j0 + 32 * e < count ? src[(j0 + 32 * e) * step] : zero<V>();
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j0 + 32 * e < count) acc += v[e];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += shfl_xor(acc, o);
+  if (l != 0) return;
+  constexpr int W = sizeof(V) / sizeof(float);
+  if (r < T) {
+    reinterpret_cast<V*>(dattn)[((long long)n * T + r) * U + u] = acc;
+  } else {
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      dkern[((long long)n * U * W + u * W + q) * 3 + (r - T)] = comp(acc, q);
+  }
+}
+
+// grid (ncc, npb, N * nseg), block (wc, slots).  Shared memory holds one
+// slot per thread for each of the segment's dattn rows and the 3 dK rows.
+template <class V>
+__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
+tam_bwd_kernel(const V* __restrict__ g, const V* __restrict__ x,
+               const V* __restrict__ attn, const float* __restrict__ kern,
+               V* __restrict__ dx, V* __restrict__ part_a,
+               V* __restrict__ part_k, int T, int P, int U, int seg_len,
+               int nseg, int pp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* sh = reinterpret_cast<V*>(smem);
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int wc = blockDim.x, slots = blockDim.y;
+  const int slot = threadIdx.y * wc + threadIdx.x;
+  const int rs = wc * slots;                 // a shared row's stride
+  const int u = blockIdx.x * wc + threadIdx.x;
+  const int pb = blockIdx.y, npb = gridDim.y;
+  const int n = blockIdx.z / nseg, seg = blockIdx.z - n * nseg;
+  const int t0 = seg * seg_len;
+  const int t1 = T < t0 + seg_len ? T : t0 + seg_len;
+  const int L = t1 - t0;
+  const long long PU = (long long)P * U;    // a frame, in units
+
+  V k0 = zero<V>(), k1 = zero<V>(), k2 = zero<V>();
+  V dk0 = zero<V>(), dk1 = zero<V>(), dk2 = zero<V>();
+  if (u < U) {
+    const float* kc = kern + ((long long)n * U + u) * W * 3;
+    k0 = kern_unit(kc, 0, (V*)nullptr);
+    k1 = kern_unit(kc, 1, (V*)nullptr);
+    k2 = kern_unit(kc, 2, (V*)nullptr);
+  }
+  for (int m = 0; m < pp; ++m) {
+    const int p = (pb * pp + m) * slots + threadIdx.y;
+    if (u >= U || p >= P) {        // so are the thread's later positions
+      if (m == 0)
+        for (int r = 0; r < L; ++r) sh[r * rs + slot] = zero<V>();
+      break;
+    }
+    const long long col = ((long long)n * T * P + p) * U + u;
+    const V* gs = g + col;
+    const V* xs = x + col;
+    const V* as = attn + (long long)n * T * U + u;
+    V* ds = dx + col;
+    V gm = t0 > 0 ? gs[(t0 - 1) * PU] : zero<V>();
+    V gc = gs[t0 * PU];
+    for (int c0 = t0; c0 < t1; c0 += kDepth) {
+      V gn[kDepth], xv[kDepth], av[kDepth];
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const int t = c0 + d;
+        gn[d] = (t < t1 && t + 1 < T) ? gs[(t + 1) * PU] : zero<V>();
+        xv[d] = t < t1 ? xs[t * PU] : zero<V>();
+        av[d] = t < t1 ? as[t * U] : zero<V>();
+      }
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const int t = c0 + d;
+        if (t < t1) {
+          const V dy = k0 * gn[d] + k1 * gc + k2 * gm;
+          ds[t * PU] = av[d] * dy;
+          const V q = dy * xv[d];
+          V& cell = sh[(t - t0) * rs + slot];
+          cell = m == 0 ? q : cell + q;
+          const V y = av[d] * xv[d];
+          dk0 += gn[d] * y;
+          dk1 += gc * y;
+          dk2 += gm * y;
+          gm = gc;
+          gc = gn[d];
+        }
+      }
+    }
+  }
+  sh[L * rs + slot] = dk0;
+  sh[(L + 1) * rs + slot] = dk1;
+  sh[(L + 2) * rs + slot] = dk2;
   __syncthreads();
 
-  // Sum each (row, channel) over the block's positions, in a fixed order.
-  const long long prow = ((long long)n * gridDim.y + blockIdx.y) * rows;
-  for (int o = slot; o < rows * kChanPerBlock; o += kRowStride) {
-    const int r = o / kChanPerBlock, cx = o % kChanPerBlock;
-    const int cc = blockIdx.x * kChanPerBlock + cx;
-    if (cc >= C) continue;
-    float s = 0.f;
-    for (int y = 0; y < kPosPerBlock; ++y)
-      s += slots[r * kRowStride + y * kChanPerBlock + cx];
-    partial[(prow + r) * C + cc] = s;
+  // each (row, unit) summed over the slots in slot order: one partial row
+  for (int o = slot; o < (L + 3) * wc; o += rs) {
+    const int r = o / wc, ux = o - r * wc;
+    const int uu = blockIdx.x * wc + ux;
+    if (uu >= U) continue;
+    V s = sh[r * rs + ux];
+    for (int y = 1; y < slots; ++y) s += sh[r * rs + y * wc + ux];
+    if (r < L)
+      part_a[(((long long)n * npb + pb) * T + t0 + r) * U + uu] = s;
+    else
+      part_k[((((long long)n * nseg + seg) * npb + pb) * 3 + (r - L)) * U +
+             uu] = s;
   }
 }
 
-// One thread per output element: dattn (N, T, C) and dK (N, C, 3) are the
-// sums of the partial rows (N, nPB, T + 3, C) over the nPB position blocks.
-__global__ void tam_bwd_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ dattn,
-                                      float* __restrict__ dkern,
-                                      int N, int nPB, int T, int C) {
-  const int rows = T + 3;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)N * rows * C) return;
-  const int c = (int)(idx % C);
-  const int r = (int)((idx / C) % rows);
-  const int n = (int)(idx / ((long long)rows * C));
-  const float* src = partial + ((long long)n * nPB * rows + r) * C + c;
-  const long long step = (long long)rows * C;
-  float s = 0.f;
-  for (int b = 0; b < nPB; ++b) s += src[b * step];
-  if (r < T)
-    dattn[((long long)n * T + r) * C + c] = s;
-  else
-    dkern[((long long)n * C + c) * 3 + (r - T)] = s;
+// A warp per output (n, row, unit) of dattn and dK.
+template <class V>
+__global__ void __launch_bounds__(kReduceThreads)
+tam_bwd_reduce_kernel(const V* __restrict__ part_a,
+                      const V* __restrict__ part_k, float* __restrict__ dattn,
+                      float* __restrict__ dkern, int N, int T, int U,
+                      int npb, int nseg) {
+  const long long w =
+      ((long long)blockIdx.x * kReduceThreads + threadIdx.x) >> 5;
+  if (w >= (long long)N * (T + 3) * U) return;
+  const int u = (int)(w % U);
+  const int r = (int)((w / U) % (T + 3));
+  const int n = (int)(w / ((long long)U * (T + 3)));
+  sum_output(part_a, part_k, dattn, dkern, threadIdx.x & 31, n, r, u, T,
+             U, npb, nseg);
 }
 
-int pos_blocks(int P) { return (P + kPosPerBlock - 1) / kPosPerBlock; }
-
-size_t bwd_smem_bytes(int T) {
-  return (size_t)(T + 3) * kPosPerBlock * kChanPerBlock * sizeof(float);
+template <class V>
+int launch_bwd(const Plan& q, const float* g, const float* x,
+               const float* attn, const float* kern, float* dx,
+               float* scratch, float* dattn, float* dkern, int N, int T,
+               int P, int C, cudaStream_t s) {
+  const size_t smem = (size_t)(q.seg_len + 3) * q.wc * q.slots * sizeof(V);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tam_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  V* part_a = reinterpret_cast<V*>(scratch);
+  V* part_k = reinterpret_cast<V*>(scratch + part_a_floats(q, N, T, C));
+  const dim3 grid(q.ncc, q.npb, N * q.nseg);
+  const dim3 block(q.wc, q.slots);
+  tam_bwd_kernel<V><<<grid, block, smem, s>>>(
+      reinterpret_cast<const V*>(g), reinterpret_cast<const V*>(x),
+      reinterpret_cast<const V*>(attn), kern, reinterpret_cast<V*>(dx),
+      part_a, part_k, T, P, q.units, q.seg_len, q.nseg, q.pp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long threads = (long long)N * (T + 3) * q.units * 32;
+  tam_bwd_reduce_kernel<V>
+      <<<cdiv(threads, kReduceThreads), kReduceThreads, 0, s>>>(
+          part_a, part_k, dattn, dkern, N, T, q.units, q.npb, q.nseg);
+  return (int)cudaGetLastError();
 }
 
 bool bad_dims(int N, int T, int P, int C) {
   return N <= 0 || T <= 0 || P <= 0 || C <= 0 || N > 65535;
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the backward needs for its partial rows.
-long long vitta_tam_bwd_scratch_floats(int N, int T, int P, int C) {
-  return (long long)N * pos_blocks(P) * (T + 3) * C;
+// The backward takes 16-byte units (vec = 1) only where C % 4 == 0 and the
+// caller's g, x, attn and dx are 16-byte aligned; the caller decides, and
+// passes the same vec to these three functions.
+
+// Floats of scratch the backward needs: its partial rows.
+long long vitta_tam_bwd_scratch_floats(int N, int T, int P, int C, int vec) {
+  const Plan q = plan_for(N, T, P, C, vec != 0);
+  return part_a_floats(q, N, T, C) + part_k_floats(q, N, C);
+}
+
+// The backward's plan, as the nine ints of `Plan` in order.
+void vitta_tam_bwd_plan(int N, int T, int P, int C, int vec, int* out) {
+  const Plan q = plan_for(N, T, P, C, vec != 0);
+  const int v[9] = {q.vec, q.units, q.wc, q.slots, q.pp,
+                    q.seg_len, q.nseg, q.npb, q.ncc};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
 }
 
 int vitta_tam_fwd(const float* x, const float* attn, const float* kern,
@@ -184,30 +399,21 @@ int vitta_tam_fwd(const float* x, const float* attn, const float* kern,
 }
 
 int vitta_tam_bwd(const float* g, const float* x, const float* attn,
-                  const float* kern, float* dx, float* partial, float* dattn,
-                  float* dkern, int N, int T, int P, int C, void* stream) {
-  if (bad_dims(N, T, P, C) || pos_blocks(P) > 65535)
+                  const float* kern, float* dx, float* scratch, float* dattn,
+                  float* dkern, int N, int T, int P, int C, int vec,
+                  void* stream) {
+  if (bad_dims(N, T, P, C)) return (int)cudaErrorInvalidValue;
+  if (vec && (C % 4 != 0 || !aligned16(g) || !aligned16(x) ||
+              !aligned16(attn) || !aligned16(dx)))
+    return (int)cudaErrorMisalignedAddress;
+  const Plan q = plan_for(N, T, P, C, vec != 0);
+  if (q.npb > 65535 || (long long)N * q.nseg > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_bytes(T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tam_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int nPB = pos_blocks(P);
-  const dim3 grid((C + kChanPerBlock - 1) / kChanPerBlock, nPB, N);
-  const dim3 block(kChanPerBlock, kPosPerBlock);
   cudaStream_t s = (cudaStream_t)stream;
-  tam_bwd_kernel<<<grid, block, smem, s>>>(g, x, attn, kern, dx, partial,
-                                           T, P, C);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long outs = (long long)N * (T + 3) * C;
-  tam_bwd_reduce_kernel<<<(unsigned)((outs + kReduceThreads - 1) / kReduceThreads),
-                          kReduceThreads, 0, s>>>(partial, dattn, dkern, N,
-                                                  nPB, T, C);
-  return (int)cudaGetLastError();
+  return q.vec ? launch_bwd<float4>(q, g, x, attn, kern, dx, scratch, dattn,
+                                    dkern, N, T, P, C, s)
+               : launch_bwd<float>(q, g, x, attn, kern, dx, scratch, dattn,
+                                   dkern, N, T, P, C, s);
 }
 
 }  // extern "C"

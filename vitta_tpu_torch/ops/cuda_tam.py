@@ -11,7 +11,11 @@ models/tanet_models/temporal_module.py:43-65):
 vitta_tpu/ops/pallas_tam.py:50) and a CUDA tensor to the hand-written
 kernel in ``vitta_tpu_torch/csrc/tam.cu`` (forward and backward, wrapped in
 ``TamDynamicConv``).  There is no fallback: a CUDA tensor the kernel does
-not take raises.
+not take raises.  ``bwd_plan`` mirrors how the backward kernel cuts its
+work (``plan_for`` in tam.cu), so that the CPU tests can follow its order
+of summation.  The backward takes 4 channels a thread with 16-byte loads
+only where C % 4 == 0 and its inputs are 16-byte aligned; a view that
+starts elsewhere takes its one-channel path.
 """
 
 from __future__ import annotations
@@ -29,6 +33,39 @@ KSIZE = 3  # reference TAM kernel size (temporal_module.py:27)
 
 # launches of the TAM kernels, and contiguity copies of incoming gradients
 counters = LaunchCounters("fwd", "bwd", "grad_copies")
+
+# csrc/tam.cu's constants: frames a thread loads together (kDepth), most
+# units of a position a block spans, positions a block sums, most frames a
+# segment, blocks the grid aims at, threads a block
+BWD_DEPTH, BWD_MAX_UNITS, BWD_MIN_POSITIONS = 4, 16, 32
+BWD_MAX_SEG_FRAMES, BWD_TARGET_BLOCKS, BWD_THREADS = 16, 132, 256
+PLAN_KEYS = ("vec", "units", "wc", "slots", "pp", "seg_len", "nseg", "npb",
+             "ncc")
+
+
+def bwd_plan(n, t, p, c, vec=None, depth=BWD_DEPTH):
+    """How the backward kernel cuts (N, T, P, C), as ``plan_for`` in
+    csrc/tam.cu: units of 4 channels where ``vec`` (by default C % 4 == 0;
+    the kernel also needs its inputs 16-byte aligned), else of 1; a block
+    of ``wc`` units x ``slots`` positions, each thread walking ``pp``
+    positions; ``npb`` position blocks, ``ncc`` channel chunks; T cut into
+    ``nseg`` segments of ``seg_len`` frames."""
+    cdiv = lambda a, b: -(-a // b)
+    vec = int(c % 4 == 0 if vec is None else vec)
+    units = c // 4 if vec else c
+    wc = min(units, BWD_MAX_UNITS)
+    slots = BWD_THREADS // wc
+    pp = cdiv(BWD_MIN_POSITIONS, slots)
+    npb = cdiv(p, slots * pp)
+    ncc = cdiv(units, wc)
+    blocks = n * ncc * npb
+    want = 1 if blocks >= BWD_TARGET_BLOCKS else cdiv(BWD_TARGET_BLOCKS,
+                                                       blocks)
+    chunks = min(max(cdiv(t, depth) // want, 1),
+                 max(BWD_MAX_SEG_FRAMES // depth, 1))
+    seg_len = chunks * depth
+    return dict(zip(PLAN_KEYS, (vec, units, wc, slots, pp, seg_len,
+                                cdiv(t, seg_len), npb, ncc)))
 
 
 def tam_dynamic_conv_reference(x, attn, kernel):
@@ -55,10 +92,12 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vitta_tam_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.vitta_tam_fwd.restype = i
-        lib.vitta_tam_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.vitta_tam_bwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.vitta_tam_bwd.restype = i
-        lib.vitta_tam_bwd_scratch_floats.argtypes = [i, i, i, i]
+        lib.vitta_tam_bwd_scratch_floats.argtypes = [i] * 5
         lib.vitta_tam_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_tam_bwd_plan.argtypes = [i] * 5 + [p]
+        lib.vitta_tam_bwd_plan.restype = None
         _LIB = lib
     return _LIB
 
@@ -77,6 +116,21 @@ def _check(x, attn, kernel, g=None):
     return n, t, h * w, c
 
 
+def bwd_vec(c, *tensors):
+    """1 where the backward takes 16-byte units of 4 channels: C % 4 == 0
+    and every tensor it reads or writes by the unit starts on a 16-byte
+    boundary; else 0 (one channel a thread)."""
+    return int(c % 4 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
+
+
+def bwd_plan_cuda(n, t, p, c, vec=None):
+    """The backward kernel's own plan for (N, T, P, C), from csrc/tam.cu."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    vec = int(c % 4 == 0 if vec is None else vec)
+    _lib().vitta_tam_bwd_plan(n, t, p, c, vec, out)
+    return dict(zip(PLAN_KEYS, out))
+
+
 def tam_fwd_cuda(x, attn, kernel):
     """Forward kernel: one launch, output allocated here."""
     n, t, p, c = _check(x, attn, kernel)
@@ -92,20 +146,23 @@ def tam_fwd_cuda(x, attn, kernel):
 
 
 def tam_bwd_cuda(g, x, attn, kernel):
-    """Backward kernel: (dx, dattn, dkernel) for the cotangent ``g``."""
+    """Backward kernel: (dx, dattn, dkernel) for the cotangent ``g``; two
+    launches, the second the sum of the blocks' partial rows."""
     n, t, p, c = _check(x, attn, kernel, g)
     lib = _lib()
     dx = torch.empty_like(x)
     dattn = torch.empty_like(attn)
     dkernel = torch.empty_like(kernel)
-    partial = torch.empty(lib.vitta_tam_bwd_scratch_floats(n, t, p, c),
+    vec = bwd_vec(c, g, x, attn, dx)
+    scratch = torch.empty(lib.vitta_tam_bwd_scratch_floats(n, t, p, c, vec),
                           dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.vitta_tam_bwd(g.data_ptr(), x.data_ptr(), attn.data_ptr(),
                                  kernel.data_ptr(), dx.data_ptr(),
-                                 partial.data_ptr(), dattn.data_ptr(),
-                                 dkernel.data_ptr(), n, t, p, c, stream)
+                                 scratch.data_ptr(), dattn.data_ptr(),
+                                 dkernel.data_ptr(), n, t, p, c, vec,
+                                 stream)
     raise_on(code, "TAM backward kernel")
     counters.bwd += 1
     return dx, dattn, dkernel
