@@ -28,12 +28,18 @@ result line:
    cotangent on y) at every stage shape for 2 clips, the adapt batch, each
    output against the plain backward version, the attention's also for 1
    clip (values only), where the last two stages have fewer problems than
-   the card has SMs and blocks share them; every attention backward call's
-   launches are read from the profiler (its kernel, the sum of the blocks'
-   shares of dk and dv where problems are shared, the sum of dl over the
-   windows).  The library calls timed beside them are ``F.layer_norm``'s
-   backward and ``scaled_dot_product_attention``'s backward, which gives
-   dq, dk and dv and no bias gradient.
+   the card has SMs and blocks share them.  The LayerNorm backward also at
+   every Swin-T site (widths 96 to 1536); each call holds the kernel's plan
+   to ``ln_bwd_plan``, makes 2 launches and gives the same bits twice, each
+   collapse 1 launch; their device us per site beside the bound and the
+   rate.  Launches per call are read from the libraries' own counts
+   (csrc/launches.cuh): every attention backward call's are its kernel,
+   the sum of the blocks' shares of dk and dv where problems are shared,
+   the sum of dl over the windows.  The library calls timed beside them
+   are ``F.layer_norm``'s backward, one ``index_add`` over a flat map from
+   dB to dV (what autograd makes of the expansion's gather) and
+   ``scaled_dot_product_attention``'s backward, which gives dq, dk and dv
+   and no bias gradient.
 5. TANet slice at small size: full-width TANet at T=2, 32x32, two
    tta_online steps on the card and on the CPU from one seeded state dict:
    losses, logits, updated parameters, EMA.
@@ -198,9 +204,14 @@ import torch
 # the set-up shared with vitta_tpu_torch/tools/attention_routes.py; without
 # the package beside this file the run ends here
 from vitta_tpu_torch.tools.synthetic import (
-    SWIN_MODELS, StepTimes as _StepTimes, device_breakdown, kernel_launches,
+    SWIN_MODELS, StepTimes as _StepTimes, device_breakdown,
     normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
     swin_weights as _swin_weights, videos as _videos)
+from vitta_tpu_torch.ops._launch import launches_of
+# every LayerNorm kernel site of one Swin-B and one Swin-T forward pass:
+# (tokens per clip, C) -> sites
+from vitta_tpu_torch.tools.ln_bias_sites import (SWIN_LN_SITES,
+                                                 SWIN_T_LN_SITES)
 from vitta_tpu_torch.tools.tanet_breakdown import (
     profile_step as _profile_step, tanet_cfg as _cfg,
     tanet_engine as _tanet_engine, tanet_source as _tanet_source)
@@ -236,11 +247,6 @@ TF32_FLOP_PER_S = 495e12      # dense TF32 on the tensor cores
 SWIN_WINDOW = (8, 7, 7)
 SWIN_STAGES = ((128, 4, 25088, 64, 2), (256, 8, 6272, 16, 2),
                (512, 16, 1568, 4, 18), (1024, 32, 392, 1, 2))
-# every LayerNorm kernel site of one forward pass: (tokens per clip, C) ->
-# sites (patch-embed norm, norm1 of each block, PatchMerging norms, final)
-SWIN_LN_SITES = {(25088, 128): 3, (6272, 256): 2, (6272, 512): 1,
-                 (1568, 512): 18, (1568, 1024): 1, (392, 1024): 3,
-                 (392, 2048): 1}
 LN_TOL = 1e-5      # the same one-pass float32 formula, sums in another order
 ATTN_TOL = 2e-5    # __expf and another summation order over 392 keys
 MLP_TOL = 1e-4     # tiled float32 sums over K <= 4096 terms: between the
@@ -372,9 +378,9 @@ def fmt(v) -> str:
 def check_attn_bwd_launches(what, fn, split):
     """The launches of one attention backward call: attn_bwd_kernel, the
     sum of the blocks' shares of dk and dv where ``split`` > 1 blocks share
-    a problem, the sum of dl over the windows; no forward kernel.  Returns
-    their number."""
-    names = kernel_launches(fn)
+    a problem, the sum of dl over the windows; no forward kernel (the
+    libraries' own counts).  Returns their number."""
+    names = launches_of(fn)
     want = 2 + (split > 1)
     if (sum(names.values()) != want
             or any("attn_fwd_kernel" in k for k in names)
@@ -388,12 +394,13 @@ def check_proj_bwd_launches(what, fn, with_ln):
     """The launches of one projection-fused attention backward call, held to
     the chain's budget: the two pairs of products (one launch each where
     they are grouped, two otherwise), the attention backward (2 or 3), the
-    LayerNorm backward's rows and columns, one reduce for every partial
-    sum; at most 8 without the LayerNorm and 11 with it, 2 fewer where both
-    pairs are grouped.  No qkv product (no gemm_tiles with two k-minor
-    operands and the bias epilogue), no LayerNorm forward, no column-sum
-    pass, no forward attention kernel.  Returns the launches' count."""
-    names = kernel_launches(fn)
+    LayerNorm backward's one (dx and its blocks' partials), one reduce for
+    every partial sum; at most 8 without the LayerNorm and 11 with it, 2
+    fewer where both pairs are grouped.  No qkv product (no gemm_tiles with
+    two k-minor operands and the bias epilogue), no LayerNorm forward, no
+    column-sum pass, no forward attention kernel (the libraries' own
+    counts).  Returns the launches' count."""
+    names = launches_of(fn)
     total = sum(names.values())
     pairs = sum(n for k, n in names.items() if "gemm_pair" in k)
     products = pairs + sum(n for k, n in names.items() if "gemm_tiles" in k)
@@ -541,8 +548,8 @@ def phase_tam_kernels(dev):
                       f"{bound(3 * nbytes + 2 * small, 0)[0] * 1e3:.2f} us",
                       flush=True)
             del x, a, k, g, ins, refs, out, ref
-    # the backward's launches, read from the profiler: one call at each
-    # site of the adapt batch, in one trace
+    # the backward's launches, from the library's own counts: one call at
+    # each site of the adapt batch
     calls = []
     for h, w, c in TAM_SITES:
         shape = (2, 16, h, w, c)
@@ -551,7 +558,7 @@ def phase_tam_kernels(dev):
         a = torch.sigmoid(torch.randn(2, 16, c, device=dev, generator=gen))
         k = torch.softmax(torch.randn(2, c, 3, device=dev, generator=gen), -1)
         calls.append((g, x, a, k))
-    names = kernel_launches(lambda: [tam_bwd_cuda(*args) for args in calls])
+    names = launches_of(lambda: [tam_bwd_cuda(*args) for args in calls])
     per_kernel = [sum(v for key, v in names.items() if kern in key)
                   for kern in ("tam_bwd_kernel", "tam_bwd_reduce_kernel")]
     if per_kernel != [len(calls)] * 2 or sum(names.values()) != 2 * len(calls):
@@ -560,7 +567,8 @@ def phase_tam_kernels(dev):
                              "tam_bwd_kernel and tam_bwd_reduce_kernel once "
                              "a call")
     print(f"tam bwd: 2 launches a call at each of the {len(calls)} sites "
-          "(tam_bwd_kernel, tam_bwd_reduce_kernel; profiler)", flush=True)
+          "(tam_bwd_kernel, tam_bwd_reduce_kernel; the library's counts)",
+          flush=True)
     del calls
     for label, d in (("event", per_step), ("device", dev_step)):
         if None in d.values():
@@ -768,49 +776,115 @@ def phase_swin_kernels(dev):
 
     # ------------------------------------------------------------------
     # the backward kernels, at the adapt batch of 2 clips
-    # E: LayerNorm backward; the library call is F.layer_norm's backward
+    # E: LayerNorm backward; the library call is F.layer_norm's backward.
+    # Swin-B's sites make the row; Swin-T's (widths 96 to 1536, none of
+    # them 128 * 2^k) are held and timed too.  Each call: the kernel's own
+    # plan, two launches, the same bits twice
     ln_b = Totals()
-    for (tokens, c), sites in SWIN_LN_SITES.items():
-        x = randn(2 * tokens, c, scale=2.0) + 0.5
-        g, b, dy = randn(c), randn(c), randn(2 * tokens, c)
-        want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
-        got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
-        err = max(check_scaled(f"ln bwd {tuple(x.shape)} {nm}", p, q,
-                               LN_BWD_TOL)
-                  for nm, p, q in zip(("dx", "dgamma", "dbeta"), got, want))
-        ln_b.err = max(ln_b.err, err)
-        del got, want
-        leaves = [v.clone().requires_grad_() for v in (x, g, b)]
-        y_lib = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-5)
-        t = {"kernel": measure(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5)),
-             "plain": measure(lambda: cl.layer_norm_backward_reference(
-                 x, g, dy, 1e-5)),
-             "F.layer_norm backward": measure(lambda: torch.autograd.grad(
-                 y_lib, leaves, dy, retain_graph=True))}
-        _report(f"ln bwd rows={2 * tokens} C={c}", err, t)
-        ln_b.add(sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
-                 plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
-                 library_ms=t["F.layer_norm backward"][0],
-                 library_device_ms=t["F.layer_norm backward"][1],
-                 bytes=(3 * x.numel() + 3 * c) * 4, flops=14 * x.numel())
-        del x, dy, leaves, y_lib
+    for model, ln_sites in (("swin_b", SWIN_LN_SITES),
+                            ("swin_t", SWIN_T_LN_SITES)):
+        dev_sum, bound_sum = 0.0, 0.0      # ms a pass
+        for (tokens, c), sites in ln_sites.items():
+            rows = 2 * tokens
+            x = randn(rows, c, scale=2.0) + 0.5
+            g, b, dy = randn(c), randn(c), randn(rows, c)
+            want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
+            got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+            what = f"ln bwd {model} rows={rows} C={c}"
+            err = max(check_scaled(f"{what} {nm}", p, q, LN_BWD_TOL)
+                      for nm, p, q in zip(("dx", "dgamma", "dbeta"), got,
+                                          want))
+            ln_b.err = max(ln_b.err, err)
+            again = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError(f"{what}: two runs differ")
+            vec = cl.bwd_vec(c, x, g, dy, got[0])
+            plan = cl.ln_bwd_plan_cuda(rows, c, vec)
+            if plan != cl.ln_bwd_plan(rows, c, vec):
+                raise AssertionError(f"{what}: the kernel's plan {plan} is "
+                                     "not ln_bwd_plan's")
+            names = launches_of(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5))
+            if (sum(names.values()) != 2
+                    or sum(n for k, n in names.items()
+                           if k.startswith("ln_bwd_kernel")) != 1
+                    or names.get("reduce_partials_kernel") != 1):
+                raise AssertionError(f"{what}: launches {names}, expected "
+                                     "ln_bwd_kernel and reduce_partials once")
+            del got, want, again
+            leaves = [v.clone().requires_grad_() for v in (x, g, b)]
+            y_lib = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-5)
+            t = {"kernel": measure(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5)),
+                 "plain": measure(lambda: cl.layer_norm_backward_reference(
+                     x, g, dy, 1e-5)),
+                 "F.layer_norm backward": measure(lambda: torch.autograd.grad(
+                     y_lib, leaves, dy, retain_graph=True))}
+            _report(f"{what}, 2 launches, two runs bit-equal", err, t)
+            nbytes = (3 * x.numel() + 3 * c) * 4
+            bound_ms = bound(nbytes, 0)[0]
+            dev_ms = t["kernel"][1]
+            bound_sum += sites * bound_ms
+            dev_sum = None if dev_ms is None or dev_sum is None \
+                else dev_sum + sites * dev_ms
+            if dev_ms:
+                print(f"  {what}: device {dev_ms * 1e3:.2f} us, "
+                      f"{nbytes / dev_ms / 1e6:.0f} GB/s, bound "
+                      f"{bound_ms * 1e3:.2f} us ({sites} calls a pass; "
+                      f"{plan['blocks']} blocks of {plan['rows_per_block']} "
+                      f"rows, {plan['wpr']} warp(s) a row, {plan['units']} "
+                      f"{'float4' if vec else 'float'} units a lane, "
+                      f"{plan['batch']} row(s) at once)", flush=True)
+            if model == "swin_b":
+                ln_b.add(sites, ms=t["kernel"][0], device_ms=dev_ms,
+                         plain_ms=t["plain"][0],
+                         plain_device_ms=t["plain"][1],
+                         library_ms=t["F.layer_norm backward"][0],
+                         library_device_ms=t["F.layer_norm backward"][1],
+                         bytes=nbytes, flops=14 * x.numel())
+            del x, dy, leaves, y_lib
+        print(f"ln bwd per {model} pass of 2 clips: device ms "
+              f"{fmt(dev_sum)}, bound {bound_sum:.4f}", flush=True)
 
-    # F: bias collapse; no one PyTorch call computes it
+    # F: bias collapse; the library call is one index_add_ into a zeroed
+    # dV over a flat map from dB to dV, what autograd makes of the
+    # expansion's gather (index_add_ adds with atomics, in no fixed order)
     coll = Totals()
     for c, nh, _tokens, _nw, depth in SWIN_STAGES:
         db = randn(nh, n_tok, n_tok)
         got = cb.collapse_bias_cuda(db, wd)
+        what = f"bias collapse nh={nh}"
         if not torch.equal(got, cb.collapse_bias_reference(db, wd)):
-            raise AssertionError(f"bias collapse nh={nh}: the kernel and the "
-                                 "plain version differ")
+            raise AssertionError(f"{what}: the kernel and the plain version "
+                                 "differ")
+        names = launches_of(lambda: cb.collapse_bias_cuda(db, wd))
+        if (sum(names.values()) != 1
+                or names.get("collapse_bias_staged<true>") != 1):
+            raise AssertionError(f"{what}: launches {names}, expected "
+                                 "collapse_bias_staged<true> once")
+        r = torch.arange(n_tok, device=dev)
+        d1, i = r // hw, r % hw
+        a_of = d1[:, None] - d1[None, :] + wd - 1          # (N, N)
+        flat = (((torch.arange(nh, device=dev)[:, None, None] * a_dim
+                  + a_of) * hw + i[:, None]) * hw + i[None, :]).reshape(-1)
+        zeros = torch.zeros(got.numel(), device=dev)
+        lib_call = lambda: zeros.index_add(0, flat, db.reshape(-1))
+        check_close(f"{what} index_add", lib_call().view_as(got), got, 1e-5)
         t = {"kernel": measure(lambda: cb.collapse_bias_cuda(db, wd)),
-             "plain": measure(lambda: cb.collapse_bias_reference(db, wd))}
-        _report(f"bias collapse ({nh},{n_tok},{n_tok}) -> nh={nh}, bit-exact",
-                0.0, t)
+             "plain": measure(lambda: cb.collapse_bias_reference(db, wd)),
+             "index_add": measure(lib_call)}
+        _report(f"{what} ({nh},{n_tok},{n_tok}) -> ({nh},{a_dim},{hw},{hw}), "
+                "bit-exact, 1 launch", 0.0, t)
+        nbytes = (db.numel() + got.numel()) * 4
+        if t["kernel"][1]:
+            print(f"  {what}: device {t['kernel'][1] * 1e3:.2f} us, "
+                  f"{nbytes / t['kernel'][1] / 1e6:.0f} GB/s, bound "
+                  f"{bound(nbytes, 0)[0] * 1e3:.2f} us ({depth} launches a "
+                  "pass)", flush=True)
         coll.add(depth, ms=t["kernel"][0], device_ms=t["kernel"][1],
                  plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
-                 bytes=(db.numel() + got.numel()) * 4, flops=db.numel())
-        del db, got
+                 library_ms=t["index_add"][0],
+                 library_device_ms=t["index_add"][1],
+                 bytes=nbytes, flops=db.numel())
+        del db, got, flat, zeros
 
     # G: attention backward; the library call is
     # scaled_dot_product_attention's backward for dq, dk, dv (it has no
@@ -955,7 +1029,7 @@ def phase_swin_kernels(dev):
                     has_library=False),
             ln_b.row("ln_bwd", f"{src}/ln.cu", f"{ops}/pallas_ln.py:55"),
             coll.row("bias_collapse", f"{src}/bias.cu",
-                     f"{ops}/pallas_bias.py:67", has_library=False),
+                     f"{ops}/pallas_bias.py:67"),
             attn_b.row("attn_packed_bwd", f"{src}/attention.cu",
                        f"{ops}/pallas_attention.py:517"),
             mlp_b.row("ln_mlp_bwd", f"{src}/mlp.cu", f"{ops}/pallas_mlp.py:322",

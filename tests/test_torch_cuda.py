@@ -37,7 +37,7 @@ from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
                                  cuda_tam)
 from vitta_tpu_torch.ops.cuda_tam import (tam_dynamic_conv,
                                           tam_dynamic_conv_reference)
-from vitta_tpu_torch.tools.synthetic import device_breakdown, kernel_launches
+from vitta_tpu_torch.ops._launch import launches_of
 
 torch.set_num_threads(1)
 
@@ -101,10 +101,9 @@ def test_backward_gives_the_same_bits_twice(cuda_device, shape):
 @pytest.mark.cuda
 def test_backward_launches(cuda_device):
     """Two launches a call: the blocks' kernel and the sum of their partial
-    rows (read from the profiler)."""
+    rows (the library's own counts)."""
     x, attn, kernel, cot = _inputs(cuda_device, **SHAPES[4])
-    names = kernel_launches(lambda: cuda_tam.tam_bwd_cuda(cot, x, attn,
-                                                          kernel))
+    names = launches_of(lambda: cuda_tam.tam_bwd_cuda(cot, x, attn, kernel))
     assert sum(names.values()) == 2, names
     assert sum(n for k, n in names.items() if "tam_bwd_kernel" in k) == 1
     assert sum(n for k, n in names.items() if "tam_bwd_reduce" in k) == 1
@@ -292,9 +291,16 @@ def _assert_grad(name, got, want, rel=GRAD_REL):
         f"{name}: max abs error {err:.3e} on values up to {scale:.3e}")
 
 
+# the backward's shapes: small ones, then Swin-T's widths 96, 384 and 1536
+# and Swin-B's 2048 at the rows of the adapt batch, and the widest single
+# floats (sixteen warps a row)
+LN_BWD_SHAPES = [(392, 128), (1000, 256), (777, 512), (33, 1024), (9, 2048),
+                 (50, 96), (7, 8), (50176, 96), (3136, 384), (784, 1536),
+                 (784, 2048), (10, 4090)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,c", [(392, 128), (1000, 256), (777, 512),
-                                    (33, 1024), (9, 2048), (50, 96), (7, 8)])
+@pytest.mark.parametrize("rows,c", LN_BWD_SHAPES)
 def test_ln_backward_kernel_matches_plain(cuda_device, rows, c):
     x = _randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5
     g, dy = _randn(cuda_device, c, seed=2), _randn(cuda_device, rows, c, seed=3)
@@ -307,9 +313,76 @@ def test_ln_backward_kernel_matches_plain(cuda_device, rows, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", LN_BWD_SHAPES + [(50176, 128),
+                                                    (3136, 512), (1, 8)])
+def test_ln_backward_plan_matches_the_kernels(cuda_device, rows, c):
+    """``ln_bwd_plan``, which the CPU tests follow, is the kernel's own, in
+    float4 units and in single floats."""
+    for vec in ((1, 0) if c % 4 == 0 else (0,)):
+        assert (cuda_ln.ln_bwd_plan_cuda(rows, c, vec)
+                == cuda_ln.ln_bwd_plan(rows, c, vec)), vec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", [(3136, 512), (784, 2048), (50, 96),
+                                    (7, 8)])
+def test_ln_backward_gives_the_same_bits_twice(cuda_device, rows, c):
+    """Two launches a call (dx with the blocks' partials, their sum in
+    block order), no float atomics: the same bits every run."""
+    x = _randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5
+    g, dy = _randn(cuda_device, c, seed=2), _randn(cuda_device, rows, c, seed=3)
+    first = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    names = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
+    assert sum(names.values()) == 2, names
+    assert names.get("reduce_partials_kernel") == 1, names
+    again = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_ln_backward_takes_unaligned_views(cuda_device):
+    """Contiguous views that start 4 bytes past a 16-byte boundary take the
+    single-float path (no misaligned 16-byte access) and give the plain
+    version's gradients; the C entry refuses float4 units on them."""
+    rows, c = 300, 128
+
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+
+    x = shifted(_randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5)
+    dy = shifted(_randn(cuda_device, rows, c, seed=3))
+    g = _randn(cuda_device, c, seed=2)
+    assert cuda_ln.bwd_vec(c, x, g, dy) == 0
+    names = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
+    assert any(k.startswith("ln_bwd_kernel<false") for k in names), names
+    got = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    want = cuda_ln.layer_norm_backward_reference(x, g, dy, 1e-5)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, want):
+        _assert_grad(name, a, b)
+    lib = cuda_ln._lib()
+    dx = torch.empty(rows, c, device=cuda_device)
+    dgb = torch.empty(2, c, device=cuda_device)
+    scratch = torch.empty(lib.vitta_ln_bwd_scratch_floats(rows, c),
+                          device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.vitta_ln_bwd(x.data_ptr(), g.data_ptr(), dy.data_ptr(),
+                            dx.data_ptr(), dgb.data_ptr(), scratch.data_ptr(),
+                            rows, c, 1e-5, 1, stream) != 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window,nh", [((8, 7, 7), 4), ((2, 3, 3), 2),
-                                       ((3, 2, 5), 32)])
+                                       ((3, 2, 5), 32), ((4, 7, 7), 32),
+                                       ((16, 14, 14), 2), ((2, 70, 70), 1),
+                                       ((16, 16, 16), 1)])
 def test_bias_collapse_kernel_matches_plain_exactly(cuda_device, window, nh):
+    """16-byte copies where N % 4 == 0, else single floats; shared memory
+    beyond 48 KB ((16, 14, 14): 200 KB, (2, 70, 70): 78 KB), and rows that
+    do not fit in it, read where they lie ((16, 16, 16): 256 KB); one
+    launch a call."""
     wd, wh, ww = window
     n = wd * wh * ww
     db = _randn(cuda_device, nh, n, n, seed=4)
@@ -317,6 +390,11 @@ def test_bias_collapse_kernel_matches_plain_exactly(cuda_device, window, nh):
     got = cuda_bias.collapse_bias_cuda(db, wd)
     assert cuda_bias.counters.bwd == 1
     assert torch.equal(got, cuda_bias.collapse_bias_reference(db, wd))
+    names = launches_of(lambda: cuda_bias.collapse_bias_cuda(db, wd))
+    staged = wd * n * 4 <= 227 * 1024
+    assert names == {("collapse_bias_staged<true>" if staged and n % 4 == 0
+                      else "collapse_bias_staged<false>" if staged
+                      else "collapse_bias_direct"): 1}, names
 
 
 @pytest.mark.cuda
@@ -374,8 +452,7 @@ def test_attention_backward_launches(cuda_device, b_, nh):
                lambda: ca.attn_heads_bwd_cuda(
                    q, k, v, bias, None, ms, g.reshape(b_, 392, nh, 32),
                    32 ** -0.5)):
-        names = {name: launches for name, _ms, launches
-                 in device_breakdown(fn, top=None)[2]}
+        names = launches_of(fn)
         assert sum(names.values()) == want, names
         assert not any("attn_fwd_kernel" in k for k in names), names
         assert any("attn_bwd_kernel" in k for k in names), names
@@ -673,9 +750,11 @@ def proj_bwd_launches(fn, with_ln):
     """{kernel name: launches} of one backward call ``fn``, checked against
     the chain's budget: a pair of products in one launch or two, before and
     after the attention backward (2 or 3 launches), the LayerNorm
-    backward's rows and columns, and one reduce for every partial sum; no
-    qkv product, no LayerNorm forward, no separate column sums."""
-    names = kernel_launches(fn)
+    backward's one (dx and its blocks' partials), and one reduce for every
+    partial sum; no
+    qkv product, no LayerNorm forward, no separate column sums (the
+    libraries' own counts)."""
+    names = launches_of(fn)
     total = sum(names.values())
     grouped = sum(n for k, n in names.items() if "gemm_pair" in k)
     products = grouped + sum(n for k, n in names.items() if "gemm_tiles" in k)

@@ -11,6 +11,7 @@
 
 #include <cstdint>
 
+#include "launches.cuh"
 #include "tf32.cuh"
 
 namespace vitta {
@@ -678,7 +679,7 @@ dkv_sum_kernel(const float* __restrict__ part, const OutRows dk,
 
 // dbias from the dl of all windows, (B_, nh, N, N): the sum over the
 // windows in their order; for the compact form also over the block
-// diagonal, as collapse_bias_kernel (bias.cu) sums it.
+// diagonal, as the collapse (bias.cu) sums it.
 __global__ void __launch_bounds__(256)
 dbias_reduce_kernel(const float* __restrict__ dl, float* __restrict__ dbias,
                     int b_, int n, int nh, int compact, int wd, int hw) {
@@ -782,6 +783,7 @@ inline cudaError_t launch_fwd(const InRows& q, const InRows& k,
   attn_fwd_kernel<<<grid, kFwdThreads, smem, stream>>>(
       q, k, v, bias, mask, out, ms, n, nh, hd, nw, compact, wd, hw, scale,
       vec);
+  count_launch("attn_fwd_kernel");
   return cudaGetLastError();
 }
 
@@ -844,12 +846,14 @@ inline cudaError_t launch_bwd(const InRows& q, const InRows& k,
       q, k, v, gr, bias, mask, ms, dq, dk, dv,
       dbias != nullptr ? scratch : nullptr, part, n, nh, hd, nw, compact, wd,
       hw, scale, vec, vec_rows);
+  count_launch("attn_bwd_kernel");
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (part != nullptr) {
     const long long outs = 2LL * b_ * nh * n * hd;
     dkv_sum_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
         part, dk, dv, split, b_, n, nh, hd, scale);
+    count_launch("dkv_sum_kernel");
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -858,6 +862,7 @@ inline cudaError_t launch_bwd(const InRows& q, const InRows& k,
       compact ? (long long)nh * (2 * wd - 1) * hw * hw : (long long)nh * n * n;
   dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
       scratch, dbias, b_, n, nh, compact, wd, hw);
+  count_launch("dbias_reduce_kernel");
   return cudaGetLastError();
 }
 

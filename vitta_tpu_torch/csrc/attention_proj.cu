@@ -48,7 +48,7 @@
 //             packed attention backward (attn_bwd, [the dk, dv sum],
 //             [dbias_reduce])
 //             {dx or dy, dwqkv with dbqkv}           launch_rows_and_grad
-//             [LayerNorm backward rows, columns]
+//             [LayerNorm backward: dx and the blocks' partials]
 //             one reduce_sums: dwproj, dbproj, dwqkv, dbqkv [, dgamma, dbeta]
 // Each {pair} is one gemm_pair launch where pair_grouped says so (as
 // measured: the g_att pair always, the dx pair except where its row product
@@ -61,7 +61,7 @@
 // and every sum over windows or rows goes through per-block partials added
 // in a fixed order (reduce.cuh): no float atomics, two runs give the same
 // bits.  So 5 or 6 launches without the LN (the attention backward takes 2
-// or 3), 7 or 8 with it, where both pairs are one launch, and one more for
+// or 3), 6 or 7 with it, where both pairs are one launch, and one more for
 // each pair that is not.  A null pointer for dwqkv, dbqkv, dwproj, dbproj
 // or dbias leaves that output out (a frozen parameter); a weight-gradient
 // product runs where its weight or its bias wants a gradient.
@@ -90,7 +90,7 @@ long long round4ll(long long v) { return (v + 3) / 4 * 4; }
 bool bad_dims(int b_, int n, int nh, int hd) {
   const long long m = (long long)b_ * n;
   return b_ <= 0 || n <= 0 || nh <= 0 || hd <= 0 || (nh * hd) % 4 != 0 ||
-         (m + 63) / 64 > 65535 || col_chunks(m) > 65535;
+         (m + 63) / 64 > 65535;
 }
 
 // The backward's scratch, in floats and in this order; every piece starts
@@ -150,9 +150,10 @@ cudaError_t backward(const float* x, const float* y, const float* qkv,
                      float* dbqkv, float* dwproj, float* dbproj, float* dbias,
                      float* scratch, int b_, int n, int nh, int hd, int nw,
                      float eps, float scale, cudaStream_t st) {
-  if (bad_dims(b_, n, nh, hd)) return cudaErrorInvalidValue;
   const bool with_ln = gamma != nullptr;
   const int c = nh * hd, m = b_ * n;
+  if (bad_dims(b_, n, nh, hd) || (with_ln && c > kLnBwdMaxC))
+    return cudaErrorInvalidValue;
   const BwdScratch sz = bwd_scratch(b_, n, nh, hd, with_ln);
   float* dqkv = scratch;
   float* gatt = dqkv + sz.dqkv;
@@ -181,9 +182,10 @@ cudaError_t backward(const float* x, const float* y, const float* qkv,
   PartialSums sums;
   bool fits = true;
   if (with_ln) {
-    e = launch_ln_bwd_parts(x, gamma, dy, dx, ln, m, c, eps, st);
+    e = launch_ln_bwd_parts(x, gamma, dy, dx, ln, m, c, eps,
+                            ln_bwd_vec_ok(x, gamma, dy, dx, c), st);
     if (e != cudaSuccess) return e;
-    fits = sums.add(ln_bwd_partials(ln, m), 2LL * c, dgb, col_chunks(m),
+    fits = sums.add(ln, 2LL * c, dgb, (int)ln_bwd_partial_count(m, c),
                     2LL * c);
   }
   if (want_o)

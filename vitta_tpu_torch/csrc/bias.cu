@@ -31,12 +31,27 @@
 //                    dB[h, d1*hw + i, (d1 - (a - wd + 1))*hw + j],
 // at most wd of them, added in the order of d1 as the TPU kernel and the
 // plain version add them, so the three agree bit for bit.  Bound by bytes,
-// the read of dB; one thread per element of dV, neighbouring threads on
-// neighbouring j, so a warp reads hw-wide contiguous segments of dB.
+// the read of dB.  A block per (head h, in-frame row i), grid (hw, nh) as
+// the expansion's, needs exactly the wd whole rows d1*hw + i of dB: it
+// copies them into shared memory, st[d1*N + col], every copy in flight
+// before any is used (cp.async, 16 bytes a copy where N % 4 == 0 and dB is
+// 16-byte aligned, so that every row starts aligned; one float otherwise),
+// then makes dV[h, a, i, :] for the 2wd-1 values of a, each element the
+// sum over d1 of st[d1*N + (d1 - a + wd - 1)*hw + j], with running indices
+// and no division.  Where the rows do not fit in shared memory (wd*N floats
+// beyond 227 KB), the block reads them from dB where they lie, in the same
+// order.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "launches.cuh"
+#include "tf32.cuh"
+
 namespace {
+
+using vitta::count_launch;
 
 constexpr int kThreads = 128;
 constexpr size_t kMaxSmem = 227 * 1024;   // a block's shared memory on Hopper
@@ -114,38 +129,82 @@ expand_bias_direct(const float* __restrict__ v, float* __restrict__ out,
   }
 }
 
-template <class K>
-int launch_staged(K kernel, dim3 grid, size_t smem, cudaStream_t s,
-                  const float* v, float* out, int wd, int hw, int pitch) {
+// grid (hw, nh): block (i, h) makes dV[h, a, i, :] for every a from rows
+// d1*hw + i of dB[h], staged in shared memory.  VEC: 16-byte copies.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+collapse_bias_staged(const float* __restrict__ db, float* __restrict__ dv,
+                     int wd, int hw) {
+  extern __shared__ __align__(16) float st[];
+  const int i = blockIdx.x, h = blockIdx.y;
+  const int a_dim = 2 * wd - 1, n = wd * hw;
+  const float* rows = db + ((size_t)h * n + i) * n;   // row d1*hw + i: + d1*hw*n
+  const int len = VEC ? n / 4 : n;                    // a row, in copies
+  int d1 = 0, q = 0;
+  advance(d1, q, threadIdx.x, len);
+  while (d1 < wd) {
+    const float* src = rows + (size_t)d1 * hw * n;
+    if (VEC)
+      vitta::cp_async<16>(st + d1 * n + 4 * q, src + 4 * q, true);
+    else
+      vitta::cp_async<4>(st + d1 * n + q, src + q, true);
+    advance(d1, q, kThreads, len);
+  }
+  vitta::cp_async_commit();
+  vitta::cp_async_wait_all();
+  __syncthreads();
+  // dV[h, a, i, :] at out + a*hw*hw
+  float* out = dv + ((size_t)h * a_dim * hw + i) * hw;
+  int a = 0, j = 0;
+  advance(a, j, threadIdx.x, hw);
+  while (a < a_dim) {
+    const int lo = a - wd + 1 > 0 ? a - wd + 1 : 0;   // d2 = d1 - a + wd - 1
+    const int hi = a + 1 < wd ? a + 1 : wd;            // in [0, wd)
+    const int at = (wd - 1 - a) * hw + j;              // + d1*(n + hw)
+    float acc = st[at + lo * (n + hw)];
+    for (int d = lo + 1; d < hi; ++d) acc += st[at + d * (n + hw)];
+    out[(size_t)a * hw * hw + j] = acc;
+    advance(a, j, kThreads, hw);
+  }
+}
+
+// The same from dB where it lies, for windows whose wd rows do not fit in
+// shared memory.
+__global__ void __launch_bounds__(kThreads)
+collapse_bias_direct(const float* __restrict__ db, float* __restrict__ dv,
+                     int wd, int hw) {
+  const int i = blockIdx.x, h = blockIdx.y;
+  const int a_dim = 2 * wd - 1, n = wd * hw;
+  const float* rows = db + ((size_t)h * n + i) * n;
+  float* out = dv + ((size_t)h * a_dim * hw + i) * hw;
+  int a = 0, j = 0;
+  advance(a, j, threadIdx.x, hw);
+  while (a < a_dim) {
+    const int lo = a - wd + 1 > 0 ? a - wd + 1 : 0;
+    const int hi = a + 1 < wd ? a + 1 : wd;
+    const long long at = (wd - 1 - a) * hw + j;       // + d1*(hw*n + hw)
+    const long long step = (long long)hw * n + hw;
+    float acc = rows[at + lo * step];
+    for (int d = lo + 1; d < hi; ++d) acc += rows[at + d * step];
+    out[(size_t)a * hw * hw + j] = acc;
+    advance(a, j, kThreads, hw);
+  }
+}
+
+// One launch of a kernel of this file with `smem` bytes of dynamic shared
+// memory (above the 48 KB default only after the opt-in), counted under
+// `name`.
+template <class K, class... Args>
+int launch_counted(K kernel, const char* name, dim3 grid, size_t smem,
+                   cudaStream_t s, Args... args) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<grid, kThreads, smem, s>>>(v, out, wd, hw, pitch);
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  count_launch(name);
   return (int)cudaGetLastError();
-}
-
-__global__ void __launch_bounds__(kThreads)
-collapse_bias_kernel(const float* __restrict__ db, float* __restrict__ dv,
-                     int nh, int wd, int hw) {
-  const int a_dim = 2 * wd - 1;
-  const long long total = (long long)nh * a_dim * hw * hw;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int j = (int)(idx % hw);
-  const int i = (int)((idx / hw) % hw);
-  const int a = (int)((idx / ((long long)hw * hw)) % a_dim);
-  const int h = (int)(idx / ((long long)a_dim * hw * hw));
-  const int n = wd * hw;
-  const float* dbh = db + (size_t)h * n * n;
-  float acc = 0.f;
-  for (int d1 = 0; d1 < wd; ++d1) {
-    const int d2 = d1 - (a - wd + 1);
-    if (d2 < 0 || d2 >= wd) continue;
-    acc += dbh[(size_t)(d1 * hw + i) * n + d2 * hw + j];
-  }
-  dv[idx] = acc;
 }
 
 }  // namespace
@@ -162,23 +221,36 @@ int vitta_bias_expand(const float* v, float* out, int nh, int wd, int hw,
   const int pitch = (len + 3) & ~3;
   const bool vec = (wd * hw) % 4 == 0;
   const size_t smem = (vec ? 4 * (size_t)pitch : (size_t)len) * sizeof(float);
-  if (smem <= kMaxSmem)
-    return vec ? launch_staged(expand_bias_staged<true>, grid, smem, s, v,
-                               out, wd, hw, pitch)
-               : launch_staged(expand_bias_staged<false>, grid, smem, s, v,
-                               out, wd, hw, pitch);
-  expand_bias_direct<<<grid, kThreads, 0, s>>>(v, out, wd, hw);
-  return (int)cudaGetLastError();
+  if (smem > kMaxSmem)
+    return launch_counted(expand_bias_direct, "expand_bias_direct", grid, 0,
+                          s, v, out, wd, hw);
+  return vec ? launch_counted(expand_bias_staged<true>,
+                              "expand_bias_staged<true>", grid, smem, s, v,
+                              out, wd, hw, pitch)
+             : launch_counted(expand_bias_staged<false>,
+                              "expand_bias_staged<false>", grid, smem, s, v,
+                              out, wd, hw, pitch);
 }
 
 int vitta_bias_collapse(const float* db, float* dv, int nh, int wd, int hw,
                         void* stream) {
-  if (nh <= 0 || wd <= 0 || hw <= 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)nh * (2 * wd - 1) * hw * hw;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  collapse_bias_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      db, dv, nh, wd, hw);
-  return (int)cudaGetLastError();
+  if (nh <= 0 || wd <= 0 || hw <= 0 || nh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(hw, nh);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int n = wd * hw;
+  const size_t smem = (size_t)wd * n * sizeof(float);
+  if (smem > kMaxSmem)
+    return launch_counted(collapse_bias_direct, "collapse_bias_direct", grid,
+                          0, s, db, dv, wd, hw);
+  const bool vec =
+      n % 4 == 0 && (reinterpret_cast<std::uintptr_t>(db) & 15) == 0;
+  return vec ? launch_counted(collapse_bias_staged<true>,
+                              "collapse_bias_staged<true>", grid, smem, s, db,
+                              dv, wd, hw)
+             : launch_counted(collapse_bias_staged<false>,
+                              "collapse_bias_staged<false>", grid, smem, s,
+                              db, dv, wd, hw);
 }
 
 }  // extern "C"

@@ -280,11 +280,15 @@ int vitta_bn_stats_fwd(const float* x, const float* scale, const float* bias,
       bn_stats_fwd_kernel<1, false><<<grid, block, 0, st>>>(
           x, scale, bias, mean, var, y, scratch, rows, c, eps);
   }
+  count_launch(template_name("bn_stats_fwd_kernel",
+                             bn_vectorized(c, x, y, nullptr) ? 4 : 1,
+                             relu != 0).c_str());
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   bn_stats_finish_kernel<<<(c + kReduceThreads - 1) / kReduceThreads,
                            kReduceThreads, 0, st>>>(
       scratch, stats, bn_chunks(rows), c, 1.f / (float)rows);
+  count_launch("bn_stats_finish_kernel");
   return (int)cudaGetLastError();
 }
 
@@ -320,6 +324,9 @@ int vitta_bn_stats_bwd(const float* x, const float* scale, const float* bias,
           x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
           eps);
   }
+  count_launch(template_name("bn_stats_bwd_kernel",
+                             bn_vectorized(c, x, g_y, dx) ? 4 : 1,
+                             relu != 0).c_str());
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the partials are (chunks, 2 c): one ordered sum gives dscale and dbias

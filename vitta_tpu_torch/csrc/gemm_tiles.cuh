@@ -64,6 +64,7 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include "launches.cuh"
 #include "reduce.cuh"
 #include "tf32.cuh"
 
@@ -385,6 +386,9 @@ cudaError_t launch_tiles(dim3 grid, const float* A, const float* B,
   }
   kernel<<<grid, GemmShape<BM, BN, WM, WN>::threads, smem, stream>>>(
       A, B, bias, aux, Cout, Sout, M, N, K, kchunk);
+  static const std::string name =
+      template_name("gemm_tiles", BM, BN, WM, WN, A_KM, B_KM, EPI);
+  count_launch(name.c_str());
   return cudaGetLastError();
 }
 
@@ -520,6 +524,8 @@ cudaError_t launch_pair(const GemmJob& r, const GemmJob& g,
   if (e != cudaSuccess) return e;
   kernel<<<r.blocks() + g.blocks(), GemmShape<BM, BN, WM, WN>::threads, smem,
            stream>>>(r, g, g.kchunk > r.kchunk ? 1 : 0);
+  static const std::string name = template_name("gemm_pair", BM, BN, WM, WN);
+  count_launch(name.c_str());
   return cudaGetLastError();
 }
 

@@ -17,9 +17,11 @@
 // reductions, no shared memory and no second pass over device memory.  The
 // TPU kernel's row blocks (a power-of-two divisor of R) have no counterpart:
 // any R is taken, eight rows to a block.  The backward is bound by bytes
-// too; the TPU kernel adds dgamma and dbeta into one block that its
-// sequential grid revisits, which a CUDA grid cannot: ln_rows.cuh sums them
-// by chunks of rows and adds the chunks in a fixed order, without atomics.
+// too (x and dy read, dx written); the TPU kernel adds dgamma and dbeta into
+// one block that its sequential grid revisits, which a CUDA grid cannot:
+// here each block keeps its rows' column sums in registers as it makes dx,
+// writes one partial, and a second launch adds the partials in block order,
+// without atomics (ln_rows.cuh).
 
 #include "ln_rows.cuh"
 
@@ -37,14 +39,27 @@ long long vitta_ln_bwd_scratch_floats(long long rows, int c) {
   return vitta::ln_bwd_scratch_floats(rows, c);
 }
 
-// dx (rows, c); dgb (2, c) = dgamma then dbeta.
+// The backward's plan, as six numbers: vec, units, batch, wpr, blocks,
+// rows_per_block (LnBwdPlan); units 0 where it takes no such shape.
+void vitta_ln_bwd_plan(long long rows, int c, int vec, long long* out) {
+  const vitta::LnBwdPlan q = vitta::ln_bwd_plan(rows, c, vec != 0);
+  const long long v[6] = {q.vec, q.units, q.batch, q.wpr, q.blocks,
+                          q.rows_per_block};
+  for (int k = 0; k < 6; ++k) out[k] = v[k];
+}
+
+// dx (rows, c); dgb (2, c) = dgamma then dbeta.  Two launches.  vec: 16-byte
+// units, which the caller takes only where c % 4 == 0 and x, gamma, dy and
+// dx are 16-byte aligned; refused otherwise.
 int vitta_ln_bwd(const float* x, const float* gamma, const float* dy,
                  float* dx, float* dgb, float* scratch, long long rows, int c,
-                 float eps, void* stream) {
-  if (rows <= 0 || c <= 0 || vitta::col_chunks(rows) > 65535)
+                 float eps, int vec, void* stream) {
+  if (vitta::ln_bwd_plan(rows, c, false).units == 0)
     return (int)cudaErrorInvalidValue;
+  if (vec && !vitta::ln_bwd_vec_ok(x, gamma, dy, dx, c))
+    return (int)cudaErrorMisalignedAddress;
   return (int)vitta::launch_ln_bwd(x, gamma, dy, dx, dgb, scratch, rows, c,
-                                   eps, (cudaStream_t)stream);
+                                   eps, vec != 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

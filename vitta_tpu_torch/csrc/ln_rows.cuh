@@ -17,18 +17,32 @@
 // wg = dy * gamma:
 //   dx     = rstd * (wg - mean(wg) - xh * mean(wg * xh))         per row
 //   dgamma = sum over rows of dy * xh,   dbeta = sum over rows of dy
-// dx is one warp per row again (x and dy read once, dx written once, the
-// row's mu and rstd kept in a (rows, 2) scratch).  dgamma and dbeta are sums
-// over all rows: a second kernel walks columns (a warp on 32 neighbouring
-// columns, 8 warps over a chunk of 256 rows), recomputes xh from the kept
-// statistics and writes one partial (2, C) per chunk; reduce_partials
-// (reduce.cuh) adds the chunks in order.  That reads x and dy a second time
-// (5 passes over the activation where 3 are the least possible); at the
-// Swin-B shapes the second read comes from the L2 cache.
+// Bound by bytes: x and dy read once, dx written once, 3 passes over the
+// activation.  One kernel makes them: a block of kLnBwdWarps warps owns a
+// contiguous range of rows, and its warps walk them in groups of
+// `wpr` warps a row (one warp up to C = 512 floats, 2, 4 or 8 beyond, so
+// that a lane holds at most 16 floats of a row of each input; 8 in single
+// floats, up to 16 warps).  A lane owns
+// the same columns in every row: float4 units where C % 4 == 0 and the
+// pointers are 16-byte aligned (the ragged last unit masked), single floats
+// otherwise.  Where a row is short, a warp takes up to 4 rows at once, all
+// their loads issued before any is used.  Each lane keeps sum dy * xh and
+// sum dy for its columns in registers across the rows, in the order it takes
+// them; at the end the block adds its row groups in group order through
+// shared memory and writes one partial (2, C).  reduce_partials (reduce.cuh;
+// reduce_sums in the projection-fused chain) adds the blocks' partials in
+// block order: no float atomics, the same bits every run.  The plan
+// (ln_bwd_plan) depends on rows, C and the unit alone; the grid is at most
+// kLnBwdBlocks blocks of at least kLnBwdMinRows rows, so that the partials
+// stay a small share of the activation.  ops/cuda_ln.py:ln_bwd_plan mirrors
+// it.
 
 #pragma once
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "launches.cuh"
 #include "reduce.cuh"
 
 namespace vitta {
@@ -115,6 +129,7 @@ inline cudaError_t launch_ln_rows(const float* x, const float* gamma,
   case 128 * V:                                                              \
     ln_rows_vec<V><<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, y,     \
                                                       rows, eps);            \
+    count_launch("ln_rows_vec<" #V ">");                                     \
     break;
   switch (c) {
     VITTA_LN_CASE(1)
@@ -125,6 +140,7 @@ inline cudaError_t launch_ln_rows(const float* x, const float* gamma,
     default:
       ln_rows_any<<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, y, rows,
                                                      c, eps);
+      count_launch("ln_rows_any");
   }
 #undef VITTA_LN_CASE
   return cudaGetLastError();
@@ -132,193 +148,313 @@ inline cudaError_t launch_ln_rows(const float* x, const float* gamma,
 
 // ---------------------------------------------------------------- backward
 
-template <int VEC>
-__global__ void __launch_bounds__(kLnThreads)
-ln_bwd_rows_vec(const float* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ dy, float* __restrict__ dx,
-                float* __restrict__ stats, long long rows, float eps) {
-  constexpr int C = 128 * VEC;
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float4* xr = reinterpret_cast<const float4*>(x + row * C);
-  const float4* dr = reinterpret_cast<const float4*>(dy + row * C);
-  const float4* g4 = reinterpret_cast<const float4*>(gamma);
-  float4 v[VEC], w[VEC];
-  float s = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    v[i] = xr[lane + 32 * i];
-    w[i] = dr[lane + 32 * i];
-    s += v[i].x + v[i].y + v[i].z + v[i].w;
-    sq += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
+constexpr int kLnBwdWarps = 16;                 // one block an SM
+constexpr int kLnBwdThreads = 32 * kLnBwdWarps;
+constexpr int kLnBwdBlocks = 132;               // an H100's SMs
+constexpr int kLnBwdMinRows = 8;                // rows a block takes at least
+// floats of a row a lane holds per input: 4 float4 units, or 8 single
+// floats (16 spill: their indices and masks take the registers)
+constexpr int kLnBwdLaneFloats = 16;
+constexpr int kLnBwdLaneScalars = 8;
+constexpr int kLnBwdMaxBatch = 4;               // rows a warp takes at once
+constexpr int kLnBwdMaxC = 8 * 32 * kLnBwdLaneFloats;   // 4096
+// groups * c <= kLnBwdWarps / wpr * (32 * wpr * kLnBwdLaneFloats)
+constexpr int kLnBwdRedFloats = kLnBwdWarps * 32 * kLnBwdLaneFloats;
+
+// How the backward cuts its work; ops/cuda_ln.py:ln_bwd_plan mirrors it.
+struct LnBwdPlan {
+  int vec;           // float4 units (1) or single floats (0)
+  int units;         // units a lane holds of a row
+  int batch;         // rows a warp takes at once (1 where wpr > 1)
+  int wpr;           // warps a row
+  long long blocks;  // the grid, and the number of partials
+  long long rows_per_block;
+};
+
+// The plan for (rows, c) in 16-byte units (vec) or single floats; units 0
+// where c is too wide (> kLnBwdMaxC) or the arguments are no shape.
+inline LnBwdPlan ln_bwd_plan(long long rows, int c, bool vec) {
+  LnBwdPlan q{vec ? 1 : 0, 0, 1, 1, 0, 0};
+  const int w = vec ? 4 : 1;
+  if (rows <= 0 || c <= 0 || c > kLnBwdMaxC || (vec && c % 4 != 0)) return q;
+  const int n = c / w;                          // units in a row
+  auto per_lane = [&](int wpr) { return (n + 32 * wpr - 1) / (32 * wpr); };
+  const int most = vec ? kLnBwdLaneFloats : kLnBwdLaneScalars;
+  while (per_lane(q.wpr) * w > most) q.wpr *= 2;
+  q.units = per_lane(q.wpr);
+  if (!vec)                                    // 1, 2, 4 or 8 floats
+    while (q.units & (q.units - 1)) q.units += q.units & -q.units;
+  if (q.wpr == 1) {
+    q.batch = kLnBwdLaneFloats / (q.units * w);
+    if (q.batch > kLnBwdMaxBatch) q.batch = kLnBwdMaxBatch;
   }
-  s = warp_sum(s);
-  sq = warp_sum(sq);
-  const float mu = s * (1.0f / C);
-  const float rstd = rsqrtf(sq * (1.0f / C) - mu * mu + eps);
-  float a = 0.f, b = 0.f;      // sums of wg and of wg * xh
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    const float4 g = g4[lane + 32 * i];
-    v[i].x = (v[i].x - mu) * rstd, w[i].x *= g.x;
-    v[i].y = (v[i].y - mu) * rstd, w[i].y *= g.y;
-    v[i].z = (v[i].z - mu) * rstd, w[i].z *= g.z;
-    v[i].w = (v[i].w - mu) * rstd, w[i].w *= g.w;
-    a += w[i].x + w[i].y + w[i].z + w[i].w;
-    b += w[i].x * v[i].x + w[i].y * v[i].y + w[i].z * v[i].z + w[i].w * v[i].w;
-  }
-  a = warp_sum(a) * (1.0f / C);
-  b = warp_sum(b) * (1.0f / C);
-  float4* or_ = reinterpret_cast<float4*>(dx + row * C);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    float4 o;
-    o.x = rstd * (w[i].x - a - v[i].x * b);
-    o.y = rstd * (w[i].y - a - v[i].y * b);
-    o.z = rstd * (w[i].z - a - v[i].z * b);
-    o.w = rstd * (w[i].w - a - v[i].w * b);
-    or_[lane + 32 * i] = o;
-  }
-  if (lane == 0) {
-    stats[2 * row] = mu;
-    stats[2 * row + 1] = rstd;
-  }
+  q.blocks = (rows + kLnBwdMinRows - 1) / kLnBwdMinRows;
+  if (q.blocks > kLnBwdBlocks) q.blocks = kLnBwdBlocks;
+  q.rows_per_block = (rows + q.blocks - 1) / q.blocks;
+  q.blocks = (rows + q.rows_per_block - 1) / q.rows_per_block;
+  return q;
 }
 
-__global__ void __launch_bounds__(kLnThreads)
-ln_bwd_rows_any(const float* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ dy, float* __restrict__ dx,
-                float* __restrict__ stats, long long rows, int c, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float* xr = x + row * c;
-  const float* dr = dy + row * c;
-  float s = 0.f, sq = 0.f;
-  for (int j = lane; j < c; j += 32) {
-    const float v = xr[j];
-    s += v;
-    sq += v * v;
-  }
-  s = warp_sum(s);
-  sq = warp_sum(sq);
-  const float mu = s / c;
-  const float rstd = rsqrtf(sq / c - mu * mu + eps);
-  float a = 0.f, b = 0.f;
-  for (int j = lane; j < c; j += 32) {
-    const float wg = dr[j] * gamma[j];
-    a += wg;
-    b += wg * (xr[j] - mu) * rstd;
-  }
-  a = warp_sum(a) / c;
-  b = warp_sum(b) / c;
-  float* or_ = dx + row * c;
-  for (int j = lane; j < c; j += 32)
-    or_[j] = rstd * (dr[j] * gamma[j] - a - (xr[j] - mu) * rstd * b);
-  if (lane == 0) {
-    stats[2 * row] = mu;
-    stats[2 * row + 1] = rstd;
-  }
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
-// partial[chunk][0][col] = sum of dy * xh, partial[chunk][1][col] = sum of dy
-// over the chunk's rows.  grid (ceil(c / 32), chunks), block (32, 8).
-__global__ void __launch_bounds__(kColLanes * kColWarps)
-ln_bwd_cols(const float* __restrict__ x, const float* __restrict__ dy,
-            const float* __restrict__ stats, float* __restrict__ partial,
-            long long rows, int c) {
-  __shared__ float pg[kColWarps][kColLanes + 1];
-  __shared__ float pb[kColWarps][kColLanes + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * kColLanes + tx;
-  const long long r0 = (long long)blockIdx.y * kColChunk;
-  const long long r1 = r0 + kColChunk < rows ? r0 + kColChunk : rows;
-  float ag = 0.f, ab = 0.f;
-  if (col < c)
-    for (long long r = r0 + ty; r < r1; r += kColWarps) {
-      const float d = dy[r * c + col];
-      ag += d * (x[r * c + col] - stats[2 * r]) * stats[2 * r + 1];
-      ab += d;
-    }
-  pg[ty][tx] = ag;
-  pb[ty][tx] = ab;
-  __syncthreads();
-  if (ty == 0 && col < c) {
-    float tg = 0.f, tb = 0.f;
-#pragma unroll
-    for (int w = 0; w < kColWarps; ++w) {
-      tg += pg[w][tx];
-      tb += pb[w][tx];
-    }
-    float* p = partial + (long long)blockIdx.y * 2 * c;
-    p[col] = tg;
-    p[c + col] = tb;
-  }
+// Whether the backward may take 16-byte units on these pointers.
+inline bool ln_bwd_vec_ok(const float* x, const float* gamma, const float* dy,
+                          const float* dx, int c) {
+  return c % 4 == 0 && aligned16(x) && aligned16(gamma) && aligned16(dy) &&
+         aligned16(dx);
 }
 
-// Floats of scratch the backward needs: the rows' (mu, rstd) and one
-// partial (2, c) per chunk of rows.
+// The number of (2, c) partials the backward leaves, one a block; the same
+// for both units.
+inline long long ln_bwd_partial_count(long long rows, int c) {
+  return ln_bwd_plan(rows, c, false).blocks;
+}
+
+// Floats of scratch the backward needs: its partials.
 inline long long ln_bwd_scratch_floats(long long rows, int c) {
-  return 2 * rows + (long long)col_chunks(rows) * 2 * c;
+  return ln_bwd_partial_count(rows, c) * 2 * c;
 }
 
-// The first two launches of the LayerNorm backward on `stream`: dx (rows,
-// c), and per chunk of rows the partial (2, c) of dgamma and dbeta, which
-// ln_bwd_partials points at and a reduce adds up (launch_ln_bwd's own, or
-// a chain's one reduce_sums).  Returns the first launch error.
-inline float* ln_bwd_partials(float* scratch, long long rows) {
-  return scratch + 2 * rows;
-}
-
-inline cudaError_t launch_ln_bwd_parts(const float* x, const float* gamma,
-                                       const float* dy, float* dx,
-                                       float* scratch, long long rows, int c,
-                                       float eps, cudaStream_t stream) {
-  if (rows <= 0) return cudaErrorInvalidValue;
-  float* stats = scratch;
-  float* partial = ln_bwd_partials(scratch, rows);
-  const unsigned blocks =
-      (unsigned)((rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
-#define VITTA_LN_BWD_CASE(V)                                                 \
-  case 128 * V:                                                              \
-    ln_bwd_rows_vec<V><<<blocks, kLnThreads, 0, stream>>>(x, gamma, dy, dx,  \
-                                                          stats, rows, eps); \
-    break;
-  switch (c) {
-    VITTA_LN_BWD_CASE(1)
-    VITTA_LN_BWD_CASE(2)
-    VITTA_LN_BWD_CASE(4)
-    VITTA_LN_BWD_CASE(8)
-    VITTA_LN_BWD_CASE(16)
-    default:
-      ln_bwd_rows_any<<<blocks, kLnThreads, 0, stream>>>(x, gamma, dy, dx,
-                                                         stats, rows, c, eps);
+template <bool VEC>
+struct LnUnit;
+template <>
+struct LnUnit<true> {
+  using T = float4;
+  static constexpr int floats = 4;
+  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static float& at(float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
   }
-#undef VITTA_LN_BWD_CASE
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int chunks = col_chunks(rows);
-  const dim3 grid((c + kColLanes - 1) / kColLanes, chunks);
-  const dim3 block(kColLanes, kColWarps);
-  ln_bwd_cols<<<grid, block, 0, stream>>>(x, dy, stats, partial, rows, c);
+};
+template <>
+struct LnUnit<false> {
+  using T = float;
+  static constexpr int floats = 1;
+  __device__ static float zero() { return 0.f; }
+  __device__ static float& at(float& v, int) { return v; }
+};
+
+// grid (plan.blocks), block kLnBwdThreads.  Block b takes rows [b * rpb,
+// min((b + 1) * rpb, rows)); its warps form kLnBwdWarps / wpr groups of wpr
+// warps, and at step s group g takes the BATCH rows from
+// r0 + (s * groups + g) * BATCH.  A lane of warp k of its group owns units
+// t, t + 32 * wpr, ... (UNITS of them), t = 32 * k + lane.
+template <bool VEC, int UNITS, int BATCH>
+__global__ void __launch_bounds__(kLnBwdThreads, 1)
+ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ dy, float* __restrict__ dx,
+              float* __restrict__ partial, long long rows, int c, int wpr,
+              long long rows_per_block, float eps) {
+  using U = LnUnit<VEC>;
+  using T = typename U::T;
+  constexpr int W = U::floats;
+  __shared__ float red[kLnBwdRedFloats];        // (groups, c)
+  __shared__ float2 xch[2][kLnBwdWarps * BATCH];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kLnBwdWarps / wpr, grp = warp / wpr;
+  const int t = (warp - grp * wpr) * 32 + lane, stride = 32 * wpr;
+  const int n = c / W;
+  const T* xu = reinterpret_cast<const T*>(x);
+  const T* du = reinterpret_cast<const T*>(dy);
+  T* ou = reinterpret_cast<T*>(dx);
+  T gm[UNITS];
+  float acc_g[UNITS * W], acc_b[UNITS * W];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = t + stride * i;
+    gm[i] = u < n ? reinterpret_cast<const T*>(gamma)[u] : U::zero();
+#pragma unroll
+    for (int k = 0; k < W; ++k) acc_g[i * W + k] = acc_b[i * W + k] = 0.f;
+  }
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = r0 + rows_per_block < rows ? r0 + rows_per_block : rows;
+  const long long steps = (r1 - r0 + (long long)groups * BATCH - 1) /
+                          ((long long)groups * BATCH);
+  const float inv_c = 1.0f / c;
+  for (long long s = 0; s < steps; ++s) {
+    const long long base = r0 + (s * groups + grp) * BATCH;
+    T xv[BATCH][UNITS], dv[BATCH][UNITS];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b)
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i) {
+        const int u = t + stride * i;
+        const bool ok = base + b < r1 && u < n;
+        xv[b][i] = ok ? xu[(base + b) * n + u] : U::zero();
+        dv[b][i] = ok ? du[(base + b) * n + u] : U::zero();
+      }
+    // the rows' sums and sums of squares, over the row's warps
+    float mu[BATCH], rstd[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      float sm = 0.f, sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i)
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const float v = U::at(xv[b][i], k);
+          sm += v;
+          sq += v * v;
+        }
+      mu[b] = warp_sum(sm);
+      rstd[b] = warp_sum(sq);
+    }
+    if (wpr > 1) {
+      if (lane == 0)
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b)
+          xch[0][warp * BATCH + b] = make_float2(mu[b], rstd[b]);
+      __syncthreads();
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        float2 v = xch[0][grp * wpr * BATCH + b];
+        for (int k = 1; k < wpr; ++k) {
+          const float2 o = xch[0][(grp * wpr + k) * BATCH + b];
+          v.x += o.x, v.y += o.y;
+        }
+        mu[b] = v.x, rstd[b] = v.y;
+      }
+    }
+    // xh in place of x; the sums of wg and wg * xh
+    float ma[BATCH], mb[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const float m = mu[b] * inv_c;
+      const float r = rsqrtf(rstd[b] * inv_c - m * m + eps);
+      mu[b] = m, rstd[b] = r;
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i)
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          float& v = U::at(xv[b][i], k);
+          v = (v - m) * r;
+          const float wg = U::at(dv[b][i], k) * U::at(gm[i], k);
+          sa += wg;
+          sb += wg * v;
+        }
+      ma[b] = warp_sum(sa);
+      mb[b] = warp_sum(sb);
+    }
+    if (wpr > 1) {
+      if (lane == 0)
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b)
+          xch[1][warp * BATCH + b] = make_float2(ma[b], mb[b]);
+      __syncthreads();
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        float2 v = xch[1][grp * wpr * BATCH + b];
+        for (int k = 1; k < wpr; ++k) {
+          const float2 o = xch[1][(grp * wpr + k) * BATCH + b];
+          v.x += o.x, v.y += o.y;
+        }
+        ma[b] = v.x, mb[b] = v.y;
+      }
+    }
+    // dx, and this lane's column sums, row after row
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      if (base + b >= r1) break;
+      const float a = ma[b] * inv_c, bb = mb[b] * inv_c, r = rstd[b];
+#pragma unroll
+      for (int i = 0; i < UNITS; ++i) {
+        const int u = t + stride * i;
+        if (u >= n) break;
+        T o;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const float xh = U::at(xv[b][i], k), d = U::at(dv[b][i], k);
+          U::at(o, k) = r * (d * U::at(gm[i], k) - a - xh * bb);
+          acc_g[i * W + k] += d * xh;
+          acc_b[i * W + k] += d;
+        }
+        ou[(base + b) * n + u] = o;
+      }
+    }
+  }
+  // the block's partial: its groups added in group order, dgamma then dbeta
+  float* out = partial + (long long)blockIdx.x * 2 * c;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = t + stride * i;
+      if (u < n)
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          red[grp * c + u * W + k] = part == 0 ? acc_g[i * W + k]
+                                               : acc_b[i * W + k];
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < c; col += kLnBwdThreads) {
+      float v = red[col];
+      for (int g = 1; g < groups; ++g) v += red[g * c + col];
+      out[part * c + col] = v;
+    }
+    __syncthreads();
+  }
+}
+
+template <bool VEC, int UNITS, int BATCH>
+cudaError_t launch_ln_bwd_kernel(const LnBwdPlan& q, const float* x,
+                                 const float* gamma, const float* dy,
+                                 float* dx, float* partial, long long rows,
+                                 int c, float eps, cudaStream_t stream) {
+  ln_bwd_kernel<VEC, UNITS, BATCH><<<(unsigned)q.blocks, kLnBwdThreads, 0,
+                                     stream>>>(x, gamma, dy, dx, partial, rows,
+                                               c, q.wpr, q.rows_per_block,
+                                               eps);
+  static const std::string name =
+      template_name("ln_bwd_kernel", VEC, UNITS, BATCH);
+  count_launch(name.c_str());
   return cudaGetLastError();
 }
 
-// The LayerNorm backward on `stream`: dx (rows, c), dgb (2, c) = (dgamma,
-// dbeta); scratch as ln_bwd_scratch_floats says.  Returns the first launch
-// error.
+// The first launch of the LayerNorm backward on `stream`: dx (rows, c) and
+// the blocks' partials (ln_bwd_partial_count of them, (2, c) each) in
+// `scratch`, which a reduce adds up (launch_ln_bwd's own, or a chain's one
+// reduce_sums).  vec: 16-byte units, which the caller has checked
+// (ln_bwd_vec_ok).  Returns the launch's error.
+inline cudaError_t launch_ln_bwd_parts(const float* x, const float* gamma,
+                                       const float* dy, float* dx,
+                                       float* scratch, long long rows, int c,
+                                       float eps, bool vec,
+                                       cudaStream_t stream) {
+  const LnBwdPlan q = ln_bwd_plan(rows, c, vec);
+  if (q.units == 0) return cudaErrorInvalidValue;
+#define VITTA_LN_BWD_CASE(V, UN, B)                                          \
+  if (vec == V && q.units == UN && q.batch == B)                             \
+    return launch_ln_bwd_kernel<V, UN, B>(q, x, gamma, dy, dx, scratch, rows, \
+                                          c, eps, stream);
+  VITTA_LN_BWD_CASE(true, 1, 4)
+  VITTA_LN_BWD_CASE(true, 2, 2)
+  VITTA_LN_BWD_CASE(true, 3, 1)
+  VITTA_LN_BWD_CASE(true, 4, 1)
+  VITTA_LN_BWD_CASE(false, 1, 4)
+  VITTA_LN_BWD_CASE(false, 2, 4)
+  VITTA_LN_BWD_CASE(false, 4, 4)
+  VITTA_LN_BWD_CASE(false, 8, 2)
+  VITTA_LN_BWD_CASE(false, 8, 1)
+#undef VITTA_LN_BWD_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The LayerNorm backward on `stream`, two launches: dx (rows, c), dgb (2, c)
+// = (dgamma, dbeta); scratch as ln_bwd_scratch_floats says.  Returns the
+// first launch error.
 inline cudaError_t launch_ln_bwd(const float* x, const float* gamma,
                                  const float* dy, float* dx, float* dgb,
                                  float* scratch, long long rows, int c,
-                                 float eps, cudaStream_t stream) {
-  const cudaError_t e =
-      launch_ln_bwd_parts(x, gamma, dy, dx, scratch, rows, c, eps, stream);
+                                 float eps, bool vec, cudaStream_t stream) {
+  const cudaError_t e = launch_ln_bwd_parts(x, gamma, dy, dx, scratch, rows,
+                                            c, eps, vec, stream);
   if (e != cudaSuccess) return e;
-  return launch_reduce_partials(ln_bwd_partials(scratch, rows), dgb,
-                                col_chunks(rows), 2LL * c, stream);
+  return launch_reduce_partials(scratch, dgb,
+                                (int)ln_bwd_partial_count(rows, c), 2LL * c,
+                                stream);
 }
 
 }  // namespace vitta

@@ -41,7 +41,7 @@
 // to the tuning of this kernel.  One backward call is, on one stream: the
 // two products for dh and dy (dh passes through device memory once, in a
 // scratch buffer, never over s), the two weight-gradient products, two
-// column sums, and the LayerNorm backward.
+// column sums, and the LayerNorm backward (two launches).
 //
 // gemm_tiles, its epilogues (the bias, the GELU, the product with s, the sum
 // with gy) and its launchers are in gemm_tiles.cuh, which also says how the
@@ -140,7 +140,10 @@ int vitta_lnmlp_bwd(const float* x, const float* y, const float* a,
                     float* dx, float* dgb, float* dw1, float* db1, float* dw2,
                     float* db2, float* scratch, int m, int c, int f, float eps,
                     void* stream) {
-  if (bad_dims(m, c, f) || vitta::col_chunks(m) > 65535)
+  // the column sums' grid is (.., col_chunks(m)); the LayerNorm backward
+  // takes c up to kLnBwdMaxC
+  if (bad_dims(m, c, f) || vitta::col_chunks(m) > 65535 ||
+      c > vitta::kLnBwdMaxC)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const BwdScratch sz = bwd_scratch(m, c, f);
@@ -165,7 +168,9 @@ int vitta_lnmlp_bwd(const float* x, const float* y, const float* a,
   if (e != cudaSuccess) return (int)e;
   e = vitta::launch_col_sums(go, cols, db2, m, c, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)vitta::launch_ln_bwd(x, gamma, dy, dx, dgb, ln, m, c, eps, st);
+  return (int)vitta::launch_ln_bwd(x, gamma, dy, dx, dgb, ln, m, c, eps,
+                                   vitta::ln_bwd_vec_ok(x, gamma, dy, dx, c),
+                                   st);
 }
 
 // The MLP without the LayerNorm.  x, o: (m, c); w1 (f, c); w2 (c, f);

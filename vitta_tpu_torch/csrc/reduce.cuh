@@ -7,9 +7,22 @@
 // block writes one partial result, and reduce_partials adds the partials in
 // a fixed order.  No float atomics: the result is the same from run to run
 // and differs from a plain reduction only by the order of float32 additions.
+// An output's partials are added one after the other, in partial order.
+// Where they are few, a thread takes one output and reads them one by one.
+// Where they are many (kStagedCount or more: the LayerNorm backward's and
+// the BatchNorm statistics' one partial per block, the weight gradients of
+// the small products' many k-chunks), that would leave a thread waiting
+// out the L2 cache's latency once for each: there a block of kSumThreads
+// threads takes 32 neighbouring outputs and copies up to kStageRows of
+// their partials at once into shared memory, every copy in flight together
+// (cp.async), and one warp adds them, a lane an output, in the same order.
+// Both forms give the same bits.
 
 #pragma once
 #include <cuda_runtime.h>
+
+#include "launches.cuh"
+#include "tf32.cuh"
 
 namespace vitta {
 
@@ -17,25 +30,68 @@ constexpr int kReduceThreads = 256;
 constexpr int kColLanes = 32;        // columns per block of a column sum
 constexpr int kColWarps = 8;         // rows in flight per block
 constexpr int kColChunk = 256;       // rows per block
+constexpr int kSumThreads = 256;     // a block of reduce_partials / _sums
+constexpr int kStagedCount = 32;     // partials from which a sum is staged
+constexpr int kStageRows = 128;      // partials staged at once
+
+// Outputs a block of a sum of `count` partials takes.
+__host__ __device__ inline int sum_outputs_per_block(int count) {
+  return count >= kStagedCount ? 32 : kSumThreads;
+}
+
+// out[i] = partial[i] + partial[stride + i] + ... + partial[(count - 1) *
+// stride + i], added in that order, for the block's outputs i from i0 (one
+// a thread, or 32 staged; sum_outputs_per_block).  Every thread of the
+// block calls it.
+__device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
+                                             float* __restrict__ out,
+                                             int count, long long stride,
+                                             long long i0, long long len) {
+  if (count < kStagedCount) {
+    const long long i = i0 + threadIdx.x;
+    if (i >= len) return;
+    float s = 0.f;
+    for (int p = 0; p < count; ++p) s += partial[p * stride + i];
+    out[i] = s;
+    return;
+  }
+  __shared__ float tile[kStageRows][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i = i0 + lane;
+  const bool ok = i < len;
+  float s = 0.f;
+  for (int p0 = 0; p0 < count; p0 += kStageRows) {
+    const int rows = count - p0 < kStageRows ? count - p0 : kStageRows;
+    for (int r = warp; r < rows; r += kSumThreads / 32)
+      cp_async<4>(&tile[r][lane], partial + (p0 + r) * stride + (ok ? i : 0),
+                  ok);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (warp == 0)
+      for (int r = 0; r < rows; ++r) s += tile[r][lane];
+    __syncthreads();
+  }
+  if (warp == 0 && ok) out[i] = s;
+}
 
 // out[i] = partial[0][i] + partial[1][i] + ... + partial[P-1][i], i < L.
-__global__ void __launch_bounds__(kReduceThreads)
+__global__ void __launch_bounds__(kSumThreads)
 reduce_partials_kernel(const float* __restrict__ partial,
                        float* __restrict__ out, int P, long long L) {
-  const long long i = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i >= L) return;
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += partial[(long long)p * L + i];
-  out[i] = s;
+  ordered_sums(partial, out, P, L,
+               (long long)blockIdx.x * sum_outputs_per_block(P), L);
 }
 
 inline cudaError_t launch_reduce_partials(const float* partial, float* out,
                                           int P, long long L,
                                           cudaStream_t stream) {
   if (L <= 0) return cudaSuccess;
-  const unsigned blocks = (unsigned)((L + kReduceThreads - 1) / kReduceThreads);
-  reduce_partials_kernel<<<blocks, kReduceThreads, 0, stream>>>(partial, out,
-                                                                P, L);
+  const int per = sum_outputs_per_block(P);
+  const unsigned blocks = (unsigned)((L + per - 1) / per);
+  reduce_partials_kernel<<<blocks, kSumThreads, 0, stream>>>(partial, out, P,
+                                                             L);
+  count_launch("reduce_partials_kernel");
   return cudaGetLastError();
 }
 
@@ -65,32 +121,30 @@ struct PartialSums {
     if (out == nullptr || len <= 0) return true;
     if (n == kMaxPartialSums) return false;
     sum[n] = PartialSum{partial, out, stride, len, count};
+    const int per = sum_outputs_per_block(count);
     first[0] = 0;
-    first[n + 1] =
-        first[n] + (int)((len + kReduceThreads - 1) / kReduceThreads);
+    first[n + 1] = first[n] + (int)((len + per - 1) / per);
     ++n;
     return true;
   }
 };
 
-__global__ void __launch_bounds__(kReduceThreads)
+__global__ void __launch_bounds__(kSumThreads)
 reduce_sums_kernel(const PartialSums sums) {
   int j = 0;
   while (j + 1 < sums.n && (int)blockIdx.x >= sums.first[j + 1]) ++j;
   const PartialSum s = sums.sum[j];
-  const long long i =
-      (long long)(blockIdx.x - sums.first[j]) * kReduceThreads + threadIdx.x;
-  if (i >= s.len) return;
-  float acc = 0.f;
-  for (int p = 0; p < s.count; ++p)
-    acc += s.partial[(long long)p * s.stride + i];
-  s.out[i] = acc;
+  ordered_sums(s.partial, s.out, s.count, s.stride,
+               (long long)(blockIdx.x - sums.first[j]) *
+                   sum_outputs_per_block(s.count),
+               s.len);
 }
 
 inline cudaError_t launch_reduce_sums(const PartialSums& sums,
                                       cudaStream_t stream) {
   if (sums.n == 0) return cudaSuccess;
-  reduce_sums_kernel<<<sums.first[sums.n], kReduceThreads, 0, stream>>>(sums);
+  reduce_sums_kernel<<<sums.first[sums.n], kSumThreads, 0, stream>>>(sums);
+  count_launch("reduce_sums_kernel");
   return cudaGetLastError();
 }
 
@@ -131,6 +185,7 @@ inline cudaError_t launch_col_sums(const float* x, float* partial, float* out,
   const dim3 grid((c + kColLanes - 1) / kColLanes, chunks);
   const dim3 block(kColLanes, kColWarps);
   col_sums_kernel<<<grid, block, 0, stream>>>(x, partial, rows, c);
+  count_launch("col_sums_kernel");
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_reduce_partials(partial, out, chunks, c, stream);

@@ -55,6 +55,8 @@
 
 #include <cstdint>
 
+#include "launches.cuh"
+
 namespace {
 
 constexpr int kFwdThreads = 256;
@@ -349,12 +351,16 @@ int launch_bwd(const Plan& q, const float* g, const float* x,
       reinterpret_cast<const V*>(g), reinterpret_cast<const V*>(x),
       reinterpret_cast<const V*>(attn), kern, reinterpret_cast<V*>(dx),
       part_a, part_k, T, P, q.units, q.seg_len, q.nseg, q.pp);
+  vitta::count_launch(sizeof(V) == 16 ? "tam_bwd_kernel<float4>"
+                                      : "tam_bwd_kernel<float>");
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long threads = (long long)N * (T + 3) * q.units * 32;
   tam_bwd_reduce_kernel<V>
       <<<cdiv(threads, kReduceThreads), kReduceThreads, 0, s>>>(
           part_a, part_k, dattn, dkern, N, T, q.units, q.npb, q.nseg);
+  vitta::count_launch(sizeof(V) == 16 ? "tam_bwd_reduce_kernel<float4>"
+                                      : "tam_bwd_reduce_kernel<float>");
   return (int)cudaGetLastError();
 }
 
@@ -395,6 +401,7 @@ int vitta_tam_fwd(const float* x, const float* attn, const float* kern,
   const dim3 grid((unsigned)((PC + kFwdThreads - 1) / kFwdThreads), N);
   tam_fwd_kernel<<<grid, kFwdThreads, 0, (cudaStream_t)stream>>>(
       x, attn, kern, out, T, C, PC);
+  vitta::count_launch("tam_fwd_kernel");
   return (int)cudaGetLastError();
 }
 

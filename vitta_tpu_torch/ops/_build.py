@@ -82,6 +82,11 @@ def build_all() -> Dict[str, float]:
         return dict(zip(names, pool.map(timed, names)))
 
 
+def loaded_libraries():
+    """The kernel libraries this process has loaded so far."""
+    return list(_LOADED.values())
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     lib = _LOADED.get(name)

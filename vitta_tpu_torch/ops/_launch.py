@@ -1,8 +1,12 @@
 """What every kernel wrapper of the port shares: launch counters, the
 checks a tensor passes before its pointer goes to a kernel, the one place
-where a strided cotangent is copied, and the raise on a CUDA error code."""
+where a strided cotangent is copied, and the raise on a CUDA error code;
+and the kernel libraries' own counts of their launches, by kernel."""
 
 from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict
 
 import torch
 
@@ -61,6 +65,43 @@ def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def float4_units(c: int, *tensors) -> int:
+    """1 where a kernel may move 16-byte units of 4 floats: C % 4 == 0 and
+    every tensor it reads or writes by the unit starts on a 16-byte
+    boundary; else 0 (a contiguous view may start 4 bytes past one)."""
+    return int(c % 4 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
+
+
 def raise_on(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code}")
+
+
+def library_launches() -> Dict[str, int]:
+    """{kernel name: launches} made so far in this process by the kernel
+    libraries it has loaded (csrc/launches.cuh: every launch site counts
+    its own launches), added up over the libraries."""
+    from vitta_tpu_torch.ops._build import loaded_libraries
+    counts: Dict[str, int] = {}
+    for lib in loaded_libraries():
+        read = lib.vitta_launch_counts
+        read.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        read.restype = ctypes.c_int
+        need = read(None, 0)
+        buf = ctypes.create_string_buffer(need + 1)
+        read(buf, need + 1)
+        for line in buf.value.decode().splitlines():
+            name, n = line.rsplit("\t", 1)
+            counts[name] = counts.get(name, 0) + int(n)
+    return counts
+
+
+def launches_of(fn: Callable[[], object]) -> Dict[str, int]:
+    """{kernel name: launches} that one call of ``fn`` made, from the
+    libraries' own counts: the kernels it launched and how often, whether
+    or not a profiler is running."""
+    before = library_launches()
+    fn()
+    after = library_launches()
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n != before.get(k, 0)}

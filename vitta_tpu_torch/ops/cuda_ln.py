@@ -10,8 +10,11 @@ autograd) and a CUDA tensor to the hand-written kernels in
 ``vitta_tpu_torch/csrc/ln.cu``, the counterparts of
 vitta_tpu/ops/pallas_ln.py:47 (forward) and :55 (backward: dx, dgamma,
 dbeta from ``(x, gamma, dy)``, the row statistics recomputed).
-``layer_norm_backward_reference`` is the backward kernel's plain version.
-There is no fallback: a CUDA tensor a kernel does not take raises.
+``layer_norm_backward_reference`` is the backward kernel's plain version;
+``ln_bwd_plan`` mirrors how the backward kernel cuts its rows (its blocks'
+column sums are added in the order the plan fixes; the card tests hold it
+to the kernel's own).  There is no fallback: a CUDA tensor a kernel does
+not take raises.
 """
 
 from __future__ import annotations
@@ -21,10 +24,20 @@ import ctypes
 import torch
 
 from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         contiguous_counted, grad_wanted,
-                                         raise_on)
+                                         contiguous_counted, float4_units,
+                                         grad_wanted, raise_on)
 
 counters = LaunchCounters("fwd", "bwd")
+
+# csrc/ln_rows.cuh's constants of the backward's plan
+BWD_WARPS = 16           # a block: 16 warps, one block an SM
+BWD_BLOCKS = 132         # blocks at most: an H100's SMs
+BWD_MIN_ROWS = 8         # rows a block takes at least
+BWD_LANE_FLOATS = 16     # floats of a row a lane holds, per input
+BWD_LANE_SCALARS = 8     # the same in single floats
+BWD_MAX_BATCH = 4        # rows a warp takes at once
+BWD_MAX_C = 8 * 32 * BWD_LANE_FLOATS
+PLAN_KEYS = ("vec", "units", "batch", "wpr", "blocks", "rows_per_block")
 
 
 def layer_norm_reference(x, gamma, beta, eps: float = 1e-5):
@@ -51,6 +64,41 @@ def layer_norm_backward_reference(x, gamma, dy, eps: float = 1e-5):
     return dx, torch.sum(dy * xh, dim=0), torch.sum(dy, dim=0)
 
 
+def ln_bwd_plan(rows: int, c: int, vec: int) -> dict:
+    """How the backward kernel cuts (rows, C) (csrc/ln_rows.cuh:
+    ln_bwd_plan): ``vec`` 1 for float4 units (C % 4 == 0), 0 for single
+    floats; ``wpr`` warps a row, each lane holding ``units`` units of it;
+    ``batch`` rows a warp takes at once (where wpr is 1); ``blocks`` blocks
+    of ``rows_per_block`` contiguous rows (the last may have fewer), one
+    partial (2, C) each.  Raises where the kernel takes no such shape."""
+    w = 4 if vec else 1
+    if rows <= 0 or not 0 < c <= BWD_MAX_C or (vec and c % 4):
+        raise ValueError(f"the LayerNorm backward takes rows > 0 and 0 < C "
+                         f"<= {BWD_MAX_C} (a multiple of 4 in 16-byte "
+                         f"units), got ({rows}, {c}), vec={vec}")
+    n = c // w
+
+    def per_lane(wpr):
+        return -(-n // (32 * wpr))
+
+    wpr = 1
+    while per_lane(wpr) * w > (BWD_LANE_FLOATS if vec else BWD_LANE_SCALARS):
+        wpr *= 2
+    units = per_lane(wpr)
+    if not vec:
+        units = 1 << (units - 1).bit_length()      # 1, 2, 4 or 8
+    batch = min(BWD_MAX_BATCH, BWD_LANE_FLOATS // (units * w)) \
+        if wpr == 1 else 1
+    blocks = min(BWD_BLOCKS, -(-rows // BWD_MIN_ROWS))
+    per_block = -(-rows // blocks)
+    return dict(vec=int(bool(vec)), units=units, batch=batch, wpr=wpr,
+                blocks=-(-rows // per_block), rows_per_block=per_block)
+
+
+# 1 where the backward takes float4 units, else 0 (single floats)
+bwd_vec = float4_units
+
+
 _LIB = None
 
 
@@ -64,11 +112,15 @@ def _lib():
                                      ctypes.c_int, ctypes.c_float, p]
         lib.vitta_ln_fwd.restype = ctypes.c_int
         lib.vitta_ln_bwd.argtypes = [p, p, p, p, p, p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_float, p]
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int, p]
         lib.vitta_ln_bwd.restype = ctypes.c_int
         lib.vitta_ln_bwd_scratch_floats.argtypes = [ctypes.c_longlong,
                                                     ctypes.c_int]
         lib.vitta_ln_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_ln_bwd_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, p]
+        lib.vitta_ln_bwd_plan.restype = None
         _LIB = lib
     return _LIB
 
@@ -92,10 +144,20 @@ def ln_fwd_cuda(x2, gamma, beta, eps: float = 1e-5):
     return y
 
 
+def ln_bwd_plan_cuda(rows: int, c: int, vec: int) -> dict:
+    """The backward kernel's own plan, from csrc/ln_rows.cuh (units 0 where
+    it takes no such shape)."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _lib().vitta_ln_bwd_plan(rows, c, int(vec), out)
+    return dict(zip(PLAN_KEYS, out))
+
+
 def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
     """Backward kernels on ``x2`` (R, C) and the cotangent ``dy`` (R, C):
-    one wrapper call, three launches on the current stream; returns
-    (dx, dgamma, dbeta), allocated here with the scratch."""
+    one wrapper call, two launches on the current stream (dx with the
+    blocks' partial column sums, then their sum); returns (dx, dgamma,
+    dbeta), allocated here with the scratch.  float4 units where
+    ``bwd_vec`` says so, single floats otherwise."""
     if x2.dim() != 2:
         raise ValueError(f"x must be (R, C), got shape {tuple(x2.shape)}")
     rows, c = x2.shape
@@ -104,16 +166,20 @@ def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
     check_tensor("LayerNorm", "x", x2, (rows, c), x2.device)
     check_tensor("LayerNorm", "gamma", gamma, (c,), x2.device)
     check_tensor("LayerNorm", "grad", dy, (rows, c), x2.device)
+    if c > BWD_MAX_C:
+        raise ValueError(f"the LayerNorm backward takes C up to {BWD_MAX_C}, "
+                         f"got {c}")
     lib = _lib()
     dx = torch.empty_like(x2)
     dgb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
     scratch = torch.empty(lib.vitta_ln_bwd_scratch_floats(rows, c),
                           dtype=torch.float32, device=x2.device)
+    vec = bwd_vec(c, x2, gamma, dy, dx)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         code = lib.vitta_ln_bwd(x2.data_ptr(), gamma.data_ptr(),
                                 dy.data_ptr(), dx.data_ptr(), dgb.data_ptr(),
-                                scratch.data_ptr(), rows, c, float(eps),
+                                scratch.data_ptr(), rows, c, float(eps), vec,
                                 stream)
     raise_on(code, "LayerNorm backward kernel")
     counters.bwd += 1

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         raise_on)
+                                         float4_units, raise_on)
 
 KSIZE = 3  # reference TAM kernel size (temporal_module.py:27)
 
@@ -116,11 +116,9 @@ def _check(x, attn, kernel, g=None):
     return n, t, h * w, c
 
 
-def bwd_vec(c, *tensors):
-    """1 where the backward takes 16-byte units of 4 channels: C % 4 == 0
-    and every tensor it reads or writes by the unit starts on a 16-byte
-    boundary; else 0 (one channel a thread)."""
-    return int(c % 4 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
+# 1 where the backward takes 16-byte units of 4 channels, else 0 (one
+# channel a thread)
+bwd_vec = float4_units
 
 
 def bwd_plan_cuda(n, t, p, c, vec=None):

@@ -100,25 +100,3 @@ def device_breakdown(fn, top: int | None = 8):
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return host_ms, sum(r[1] for r in rows), rows[:top]
-
-
-def kernel_launches(fn, reps: int = 2, attempts: int = 3):
-    """{kernel name: launches} of one call of ``fn`` that ends synchronised,
-    from torch.profiler over ``reps`` calls after one to warm up.  A trace
-    can lose kernels: one in which a kernel's count is no multiple of
-    ``reps``, or that holds none, is taken again, up to ``attempts`` times;
-    raises if none is whole."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        counts = {e.key: e.count for e in prof.key_averages()
-                  if e.self_device_time_total > 0}
-        if counts and all(n % reps == 0 for n in counts.values()):
-            return {k: n // reps for k, n in counts.items()}
-    raise AssertionError(f"no whole trace of {reps} calls in {attempts} "
-                         "attempts")
