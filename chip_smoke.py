@@ -1,7 +1,8 @@
 """Smoke run of vitta_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, checks each against its plain PyTorch version, and
 drives the TANet float32 ViTTA stream under each of its three
-regularization modes and as the epoch-style loop, the Video Swin-B float32
+regularization modes and as the epoch-style loop, the TANet bfloat16
+stream and its trajectory against the float32 one, the Video Swin-B float32
 forward paths and the Video Swin-B float32 ViTTA stream end to end, the
 last under each of its four attention routes, and Video Swin-T's forward
 paths and stream under two of them.
@@ -161,9 +162,40 @@ result line:
    of the MLP's forward and backward products and, at Swin-B's, of the
    projection-fused attention's, beside ``torch.matmul`` (TF32 off) on the
    same products; one line per shape and one JSON line of them all.
+22. The TAM and BatchNorm-statistics kernels at bfloat16 (rows 1, 2 and 7
+   in the bfloat16 TANet: bfloat16 activations and cotangents, float32
+   attn, weights, parameters, statistics and their gradients) against
+   their plain versions, which round at the same points: every TAM shape
+   of phase 3 at n=2 and n=1 with t=16 and at t=3, the BatchNorm shapes of
+   phase 18 with ``relu`` False and True.  The TAM's out and dx must be the
+   plain versions' bits, dattn and dkernel within GRAD_TOL; the
+   BatchNorm's y and dx within one bfloat16 ulp, its statistics within
+   BN_TOL (variance rtol 1e-4 / atol 1e-5), dscale and dbias within
+   BN_BWD_TOL; launches per call from the libraries' counts, of the
+   bfloat16 instances only; two runs bit-equal; a view 2 bytes past a
+   16-byte boundary takes each kernel's one-value path.  Device ms per
+   adapt pass beside the bound at bfloat16's bytes, and the plain
+   versions' (and the BatchNorm's ``F.batch_norm`` + ``torch.var_mean``
+   composition at bfloat16).
+23. TANet at bfloat16 (``compute_dtype="bfloat16"``; float32 masters,
+   SGD, losses, EMA and statistics): the small slice of phase 5 card
+   against CPU, held to tests/test_torch_bf16_engine.py's bounds, then the
+   full slice of phase 6 over 5 videos: ms/video, host time, device busy,
+   idle share, busy by class of kernel, peak memory, per video 32 TAM
+   forward and 16 backward launches and 29 + 29 BatchNorm-statistics
+   launches, every one of them a bfloat16 kernel by the libraries' own
+   counts (so no plain version ran) and none a float32 one.
+24. float32 against bfloat16 trajectories on the card: the same float32
+   masters, source statistics and 40 seeded uint8 videos through
+   ``adapt_eval_step`` at each dtype; prints the quantities of
+   benchmarks/results/bf16_gate_tanet.json (prediction agreement, top-1,
+   the largest reg and consistency loss differences, the final reg loss's
+   relative difference, parameter and EMA relative L2 drift) and holds
+   them to GATE_BOUNDS.
 
-Phases run in the order 1-4, 12, 15, 21, 18, 5, 6, 19, 20, 7-11, 13, 14,
-16, 17.  No earlier full-size stream was cut for phases 18 to 21.  To
+Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
+7-11, 13, 14, 16, 17.  No earlier full-size stream was cut for phases 18
+to 24.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
 ran 6; to leave it to phases 12 to 14, phases 3 and 4 time each call over
@@ -173,8 +205,10 @@ of; to leave it to phases 15 to 17, phase 3 times the adapt batch only.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
-kernels.  TF32 is switched off for matmuls and convolutions, because the
-comparisons are float32 ones.
+kernels (the bfloat16 rows named ``..._bf16``).  TF32 is switched off for
+matmuls and convolutions, because the comparisons of every phase but
+22-24 are float32 ones; those are bfloat16's, whose convolutions run on
+the tensor cores at bfloat16 whatever the TF32 switch.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes the function must move (each input
@@ -237,6 +271,25 @@ BN_TOL = 1e-5       # y and m; v rtol 1e-4 / atol 1e-5 (tests/test_pallas_
                     # stats.py's): E[y^2] - m^2 from sums in another order
 BN_BWD_TOL = 2e-5   # of each gradient's largest value, as LN_BWD_TOL's kind
 SEED = 0
+BF16_VIDEOS = 5     # the bfloat16 TANet stream (phase 23); two warm-up
+GATE_VIDEOS = 40    # phase 24's two streams, float32 and bfloat16
+# Phase 24's bounds on the bfloat16 trajectory against the float32 one
+# (TANet, tanet_ucf101_preset, lr 5e-5, seeded random weights), stated
+# before its first run (PERF.md).  The TPU's run of
+# benchmarks/bf16_gate.py (benchmarks/results/bf16_gate_tanet.json, 120
+# videos) measured agreement 1.0, reg-loss final difference 6.5e-4,
+# parameter drift 5.9e-7 and EMA drift 4.6e-4.  The bounds: 101 nearly
+# equal logits of random weights can swap their argmax under bfloat16's
+# rounding in a few videos (0.9); the reg loss sums |differences| of
+# statistics that bfloat16 moves by ~2^-9 of their size (1e-2); the
+# weights move by well under 1e-3 of their norm at lr 5e-5 in 40 steps, of
+# which bfloat16 changes a few % (1e-4); the EMA follows the statistics
+# (2e-2).  The consistency loss's largest difference is held to a tenth of
+# its largest float32 value (it is an L1 sum of logit differences).
+GATE_BOUNDS = {"pred_agreement": (">=", 0.9),
+               "reg_loss_final_reldiff": ("<=", 1e-2),
+               "params_rel_l2_drift": ("<=", 1e-4),
+               "ema_rel_l2_drift": ("<=", 2e-2)}
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
@@ -1605,11 +1658,15 @@ def _gemm_device_ms(fn):
     reduce_sums launches that add a weight gradient's k-chunk partials
     (they also finish the bias column sums and, in the projection-fused
     attention with the LayerNorm, its dgamma and dbeta, which this counts
-    too).  Raises where the profiler recorded no gemm_tiles or gemm_pair
-    launch."""
-    _host, _busy, rows = device_breakdown(fn, top=None)
+    too).  torch.profiler now and then records no kernel of a call (see
+    ``device_ms``), so it is asked up to three times; raises where it
+    recorded no gemm_tiles or gemm_pair launch in any of them."""
     gemm = ("gemm_tiles", "gemm_pair")
-    if not any(k in name for name, _t, _n in rows for k in gemm):
+    for _attempt in range(3):
+        _host, _busy, rows = device_breakdown(fn, top=None)
+        if any(k in name for name, _t, _n in rows for k in gemm):
+            break
+    else:
         raise AssertionError("the profiler recorded no gemm_tiles launch")
     return sum(t for name, t, _n in rows
                if any(k in name for k in gemm + ("reduce_partials",
@@ -1817,6 +1874,420 @@ def phase_bn_stats_kernels(dev):
     return rows
 
 
+def _bf16_ulps(name, got, want):
+    """(values that differ, largest difference in bfloat16 ulps of |want|)
+    of two bfloat16 tensors; raises beyond one ulp, or beyond 2^-20 of the
+    largest |want| where a value near 0 is the difference of larger float32
+    terms (a few float32 roundings of those)."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype} against {want.dtype}")
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    err = (g - w).abs()
+    if not bool((err <= torch.maximum(ulp, 2.0 ** -20 * w.abs().max())).all()):
+        raise AssertionError(f"{name}: {float((err / ulp).max()):.1f} "
+                             "bfloat16 ulps from the plain version")
+    return int((err > 0).sum()), float((err / ulp).max())
+
+
+def _bf16_name(name: str) -> bool:
+    return "bfloat16" in name or "bf16" in name
+
+
+def phase_bf16_kernels(dev):
+    """The TAM and BatchNorm-statistics kernels at bfloat16 against their
+    plain versions (rows 1, 2 and 7 in the bfloat16 TANet): every TAM site
+    of ResNet-50 at n=2 and n=1 with t=16 and at t=3, and the 29 BatchNorm
+    layers of a mean_var step (6 shapes) with ``relu`` False and True.  The
+    TAM's out and dx must be the plain versions' bits (bf16 x bf16 products
+    are exact in float32 and the plain versions add in the kernels' order),
+    dattn and dkernel within GRAD_TOL; the BatchNorm's y and dx within one
+    bfloat16 ulp (``_bf16_ulps``), its statistics within BN_TOL (variance
+    rtol 1e-4 / atol 1e-5) and dscale / dbias within BN_BWD_TOL of their
+    largest value.  Launches per call from the libraries' counts (the
+    float32 numbers: 1 and 2 for the TAM, 2 and 2 for the BatchNorm, of
+    the bfloat16 instances); two backward runs bit-equal; a view 2 bytes
+    past a 16-byte boundary takes each kernel's one-value path.  Times per
+    adapt pass beside the bound at bfloat16's bytes; returns the four JSON
+    rows."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_stats
+    from vitta_tpu_torch.ops.cuda_stats import (
+        bn_stats_bwd_cuda, bn_stats_fwd_cuda,
+        fused_bn_relu_stats_backward_reference,
+        fused_bn_relu_stats_reference)
+    from vitta_tpu_torch.ops.cuda_tam import (
+        tam_bwd_cuda, tam_dynamic_conv_backward_reference,
+        tam_dynamic_conv_reference, tam_fwd_cuda)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
+
+    def launches_by_kind(fn):
+        names = launches_of(fn)
+        if any(not _bf16_name(k) for k in names
+               if k.startswith(("tam_fwd", "tam_bwd_kernel", "bn_stats_fwd_k",
+                                "bn_stats_bwd_k"))):
+            raise AssertionError(f"a float32 kernel ran at bfloat16: {names}")
+        return names
+
+    def shifted(v):       # the same values 2 bytes past a 16-byte boundary
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+
+    # ---- the TAM, rows 1 and 2
+    tam = {"fwd": Totals(), "bwd": Totals()}
+    differ = {"out": 0, "dx": 0}
+    for (h, w, c), sites in TAM_SITES.items():
+        for n, t in ((2, 16), (1, 16), (2, 3)):
+            x = rand(n, t, h, w, c).to(bf16)
+            g = rand(n, t, h, w, c).to(bf16)
+            a = torch.sigmoid(rand(n, t, c))
+            k = torch.softmax(rand(n, c, 3), -1)
+            what = f"tam bf16 {(n, t, h, w, c)}"
+            fwd_names = launches_by_kind(lambda: tam_fwd_cuda(x, a, k))
+            bwd_names = launches_by_kind(lambda: tam_bwd_cuda(g, x, a, k))
+            if (sum(fwd_names.values()) != 1 or sum(bwd_names.values()) != 2
+                    or not any("tam_bwd_kernel" in k_ and _bf16_name(k_)
+                               for k_ in bwd_names)):
+                raise AssertionError(f"{what}: launches {fwd_names}, "
+                                     f"{bwd_names}")
+            out = tam_fwd_cuda(x, a, k)
+            got = tam_bwd_cuda(g, x, a, k)
+            again = tam_bwd_cuda(g, x, a, k)
+            want_out = tam_dynamic_conv_reference(x, a, k)
+            want = tam_dynamic_conv_backward_reference(g, x, a, k)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want_out):
+                raise AssertionError(
+                    f"{what}: out is not the plain version's "
+                    f"({_bf16_ulps('out', out, want_out)})")
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(
+                    f"{what}: dx is not the plain version's "
+                    f"({_bf16_ulps('dx', got[0], want[0])})")
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"{what}: two backward runs differ")
+            e_b = max(check_close(f"{what} {nm}", u, v, GRAD_TOL)
+                      for nm, u, v in zip(("dattn", "dkernel"), got[1:],
+                                          want[1:]))
+            tam["bwd"].err = max(tam["bwd"].err, e_b)
+            if (n, t) != (2, 16):
+                print(f"{what}: out and dx the plain versions' bits, dattn /"
+                      f" dkernel max abs err {e_b:.2e}; launches "
+                      f"{fwd_names}, {bwd_names}", flush=True)
+                continue
+            calls = {"fwd": (lambda: tam_fwd_cuda(x, a, k), False),
+                     "bwd": (lambda: tam_bwd_cuda(g, x, a, k), False),
+                     "plain_fwd": (lambda: tam_dynamic_conv_reference(
+                         x, a, k), False),
+                     "plain_bwd": (lambda: tam_dynamic_conv_backward_reference(
+                         g, x, a, k), False)}
+            tm = {nm: measure(fn, reps=6, dev_reps=4, grad=gr)
+                  for nm, (fn, gr) in calls.items()}
+            _report(f"{what} ({sites} sites)", e_b, tm)
+            small = (a.numel() + k.numel()) * 4
+            for d, nbytes, flops in (("fwd", 2 * x.numel() * 2 + small,
+                                      7 * x.numel()),
+                                     ("bwd", 3 * x.numel() * 2 + 2 * small,
+                                      14 * x.numel())):
+                tam[d].add(sites, ms=tm[d][0], plain_ms=tm[f"plain_{d}"][0],
+                           device_ms=tm[d][1],
+                           plain_device_ms=tm[f"plain_{d}"][1],
+                           bytes=nbytes, flops=flops)
+                dv = tm[d][1]
+                print(f"  {d} device us {fmt(dv and dv * 1e3)} against its "
+                      f"bound {bound(nbytes, 0)[0] * 1e3:.2f} us at "
+                      "bfloat16's bytes", flush=True)
+    # a view 2 bytes off: the one-channel paths, the same values
+    x, g = rand(2, 16, 14, 14, 256).to(bf16), rand(2, 16, 14, 14, 256).to(bf16)
+    a, k = torch.sigmoid(rand(2, 16, 256)), torch.softmax(rand(2, 256, 3), -1)
+    xs, gs = shifted(x), shifted(g)
+    names = {**launches_by_kind(lambda: tam_fwd_cuda(xs, a, k)),
+             **launches_by_kind(lambda: tam_bwd_cuda(gs, xs, a, k))}
+    if ("tam_fwd_kernel<__nv_bfloat16>" not in names
+            or "tam_bwd_kernel<float, __nv_bfloat16>" not in names):
+        raise AssertionError(f"tam bf16 unaligned view: launches {names}")
+    got = tam_bwd_cuda(gs, xs, a, k)
+    want = tam_dynamic_conv_backward_reference(g, x, a, k)
+    if not (torch.equal(tam_fwd_cuda(xs, a, k),
+                        tam_dynamic_conv_reference(x, a, k))
+            and torch.equal(got[0], want[0])):
+        raise AssertionError("tam bf16 unaligned view: values differ")
+    for nm, u, v in zip(("dattn", "dkernel"), got[1:], want[1:]):
+        check_close(f"tam bf16 unaligned view {nm}", u, v, GRAD_TOL)
+    print(f"tam bf16, a view 2 bytes past a 16-byte boundary (2, 16, 14, 14,"
+          f" 256): launches {names}, out and dx the plain versions' bits",
+          flush=True)
+    del x, g, xs, gs, got, want
+
+    # ---- the BatchNorm statistics, row 7
+    bn = {"fwd": Totals(), "bwd": Totals()}
+    comp = {"fwd": 0.0, "bwd": 0.0}
+    worst_ulps = 0.0
+    for (r, c), sites in BN_SITES.items():
+        x = (rand(r, c) * 2.0 + 0.5).to(bf16)
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias, mean = rand(c), rand(c) * 0.1
+        var = torch.rand(c, device=dev, generator=gen) + 0.5
+        g_y, g_m, g_v = rand(r, c).to(bf16), rand(c), rand(c)
+        for relu in (False, True):
+            what = f"bn_stats bf16 {r}x{c} relu={relu}"
+            cuda_stats.counters.reset()
+            names = launches_by_kind(lambda: bn_stats_fwd_cuda(
+                x, scale, bias, mean, var, 1e-5, relu))
+            y, m, v = bn_stats_fwd_cuda(x, scale, bias, mean, var, 1e-5, relu)
+            names_b = launches_by_kind(lambda: bn_stats_bwd_cuda(
+                x, scale, bias, mean, var, m, g_y, g_m, g_v, 1e-5, relu))
+            if sum(names.values()) != 2 or sum(names_b.values()) != 2:
+                raise AssertionError(f"{what}: launches {names}, {names_b}")
+            got = bn_stats_bwd_cuda(x, scale, bias, mean, var, m, g_y, g_m,
+                                    g_v, 1e-5, relu)
+            again = bn_stats_bwd_cuda(x, scale, bias, mean, var, m, g_y, g_m,
+                                      g_v, 1e-5, relu)
+            y2, m2, v2 = bn_stats_fwd_cuda(x, scale, bias, mean, var, 1e-5,
+                                           relu)
+            want_y, (want_m, want_v) = fused_bn_relu_stats_reference(
+                x, scale, bias, mean, var, relu=relu)
+            want = fused_bn_relu_stats_backward_reference(
+                x, scale, bias, mean, var, m, g_y, g_m, g_v, relu=relu)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(u, v_) for u, v_ in zip(got, again))
+                    and torch.equal(y, y2) and torch.equal(m, m2)
+                    and torch.equal(v, v2)):
+                raise AssertionError(f"{what}: two runs differ")
+            n_y, u_y = _bf16_ulps(f"{what} y", y, want_y)
+            n_dx, u_dx = _bf16_ulps(f"{what} dx", got[0], want[0])
+            worst_ulps = max(worst_ulps, u_y, u_dx)
+            e_f = max(check_close(f"{what} m", m, want_m, BN_TOL, 1e-6),
+                      check_close(f"{what} v", v, want_v, 1e-4, 1e-5))
+            e_b = max(check_scaled(f"{what} {nm}", u, w_, BN_BWD_TOL)
+                      for nm, u, w_ in zip(("dscale", "dbias"), got[1:],
+                                           want[1:]))
+            bn["fwd"].err = max(bn["fwd"].err, e_f)
+            bn["bwd"].err = max(bn["bwd"].err, e_b)
+            print(f"{what}: y {n_y} and dx {n_dx} of {x.numel()} values an "
+                  f"ulp from the plain version's, statistics max abs err "
+                  f"{e_f:.2e}, dscale / dbias {e_b:.2e}; launches {names}, "
+                  f"{names_b}; two runs bit-equal", flush=True)
+        w_in = [t.clone().requires_grad_() for t in (x, scale, bias)]
+
+        def composition(xi, wi, bi):
+            yc = F.batch_norm(xi, mean, var, wi, bi, False, 0.0, 1e-5)
+            vc, mc = torch.var_mean(yc.float(), dim=0, unbiased=False)
+            return yc, mc, vc
+        comp_out = composition(*w_in)
+        calls = {
+            "fwd": (lambda: bn_stats_fwd_cuda(x, scale, bias, mean, var,
+                                              1e-5, False), False),
+            "bwd": (lambda: bn_stats_bwd_cuda(x, scale, bias, mean, var, m,
+                                              g_y, g_m, g_v, 1e-5, False),
+                    False),
+            "plain_fwd": (lambda: fused_bn_relu_stats_reference(
+                x, scale, bias, mean, var, relu=False), False),
+            "plain_bwd": (lambda: fused_bn_relu_stats_backward_reference(
+                x, scale, bias, mean, var, m, g_y, g_m, g_v, relu=False),
+                False),
+            "comp_fwd": (lambda: composition(x, scale, bias), False),
+            "comp_bwd": (lambda: torch.autograd.grad(
+                comp_out, w_in, (g_y, g_m, g_v), retain_graph=True), True)}
+        tm = {nm: measure(fn, reps=6, dev_reps=4, grad=gr)
+              for nm, (fn, gr) in calls.items()}
+        _report(f"bn_stats bf16 {r}x{c} ({sites} sites)",
+                max(bn["fwd"].err, bn["bwd"].err), tm)
+        nel = x.numel()
+        bn["fwd"].add(sites, ms=tm["fwd"][0], plain_ms=tm["plain_fwd"][0],
+                      device_ms=tm["fwd"][1],
+                      plain_device_ms=tm["plain_fwd"][1],
+                      bytes=2 * nel * 2 + 6 * c * 4, flops=6 * nel)
+        bn["bwd"].add(sites, ms=tm["bwd"][0], plain_ms=tm["plain_bwd"][0],
+                      device_ms=tm["bwd"][1],
+                      plain_device_ms=tm["plain_bwd"][1],
+                      bytes=3 * nel * 2 + 10 * c * 4, flops=12 * nel)
+        for d in ("fwd", "bwd"):
+            dv = tm[f"comp_{d}"][1]
+            comp[d] = (None if dv is None or comp[d] is None
+                       else comp[d] + sites * dv)
+        del x, g_y, got, again, want, want_y, w_in, comp_out
+    # a view 2 bytes off: the one-value path
+    x = (rand(6272, 256) * 2.0 + 0.5).to(bf16)
+    scale, bias = torch.rand(256, device=dev, generator=gen) + 0.5, rand(256)
+    mean = rand(256) * 0.1
+    var = torch.rand(256, device=dev, generator=gen) + 0.5
+    g_y = rand(6272, 256).to(bf16)
+    xs, gs = shifted(x), shifted(g_y)
+    names = {**launches_by_kind(lambda: bn_stats_fwd_cuda(
+        xs, scale, bias, mean, var, 1e-5, False)),
+        **launches_by_kind(lambda: bn_stats_bwd_cuda(
+            xs, scale, bias, mean, var, mean, gs, None, None, 1e-5, False))}
+    if ("bn_stats_fwd_kernel<1, false, __nv_bfloat16>" not in names
+            or "bn_stats_bwd_kernel<1, false, __nv_bfloat16>" not in names):
+        raise AssertionError(f"bn_stats bf16 unaligned view: launches {names}")
+    y, m, v = bn_stats_fwd_cuda(xs, scale, bias, mean, var, 1e-5, False)
+    want_y, (want_m, _wv) = fused_bn_relu_stats_reference(
+        x, scale, bias, mean, var, relu=False)
+    _bf16_ulps("bn_stats bf16 unaligned view y", y, want_y)
+    check_close("bn_stats bf16 unaligned view m", m, want_m, BN_TOL, 1e-6)
+    dx = bn_stats_bwd_cuda(xs, scale, bias, mean, var, m, gs, None, None,
+                           1e-5, False)[0]
+    _bf16_ulps("bn_stats bf16 unaligned view dx", dx,
+               fused_bn_relu_stats_backward_reference(
+                   x, scale, bias, mean, var, m, g_y, relu=False)[0])
+    print(f"bn_stats bf16, a view 2 bytes past a 16-byte boundary (6272 x "
+          f"256): launches {names}; y and dx within one ulp; largest y / dx "
+          f"difference at the sites {worst_ulps:.2f} ulps", flush=True)
+
+    rows = []
+    for d, line in (("fwd", 77), ("bwd", 92)):
+        rows.append(tam[d].row(f"tam_{d}_bf16", "vitta_tpu_torch/csrc/tam.cu",
+                               f"vitta_tpu/ops/pallas_tam.py:{line}",
+                               has_library=False))
+    for d in ("fwd", "bwd"):
+        row = bn[d].row(f"bn_stats_{d}_bf16",
+                        "vitta_tpu_torch/csrc/bn_stats.cu",
+                        "vitta_tpu/ops/pallas_stats.py:68", has_library=False)
+        row["composition_device_ms"] = comp[d]
+        rows.append(row)
+    for row in rows:
+        print(f"{row['name']} per TANet adapt pass: device ms kernel "
+              f"{fmt(row['device_ms'])} plain {fmt(row['plain_device_ms'])}"
+              + (f" composition (F.batch_norm + torch.var_mean at bfloat16) "
+                 f"{fmt(row['composition_device_ms'])}"
+                 if "composition_device_ms" in row else "")
+              + f"; event ms {row['ms']:.4f} / {row['plain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} at bfloat16's "
+              "bytes; library call: none", flush=True)
+    return rows
+
+
+def _assert_bf16_slice(what, sd, runs, bn_launches):
+    """Card against CPU at bfloat16 (both the port): two bfloat16 runs that
+    round at other points (cuDNN against oneDNN), held as
+    tests/test_torch_bf16_engine.py holds the port to vitta_tpu at
+    bfloat16: reg and ce losses rtol 1e-3, consistency atol 2e-4; eval
+    logits within 2e-2 of the largest; each EMA layer's mean within 1e-2 of
+    its largest, its variance at rtol 2e-2 / atol 1e-2 of the layer's
+    largest v + m^2 (one ulp on every bfloat16 y moves E[y^2] by up to
+    2^-7 of it); the whole update within 5% of its norm, the median
+    tensor's within 2%, every tensor's within 75%."""
+    (m_gpu, l_gpu, p_gpu, e_gpu), (m_cpu, l_cpu, p_cpu, e_cpu) = (
+        runs["cuda"], runs["cpu"])
+    for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
+        for f in ("loss_reg", "loss_ce"):
+            if not abs(a[f] - b[f]) <= 1e-3 * abs(b[f]):
+                raise AssertionError(f"{what}: step {i} {f}: card {a[f]} cpu "
+                                     f"{b[f]}")
+        if not abs(a["loss_consis"] - b["loss_consis"]) <= 2e-4:
+            raise AssertionError(f"{what}: step {i} loss_consis: card "
+                                 f"{a['loss_consis']} cpu {b['loss_consis']}")
+    logit_err = check_scaled(f"{what} eval logits", l_gpu, l_cpu, 2e-2)
+    if not e_cpu:
+        raise AssertionError(f"{what}: no layer was chosen")
+    for k in e_cpu:
+        (gm, gv), (cm, cv) = e_gpu[k], e_cpu[k]
+        scale = float(cm.abs().max())
+        check_close(f"{what} ema mean {k}", gm, cm, 0.0, 1e-2 * scale)
+        second = float((cv.abs() + cm * cm).max())   # E[y^2]'s size
+        check_close(f"{what} ema var {k}", gv, cv, 2e-2, 1e-2 * second)
+    diffs, norms, each = [], [], []
+    for k, p in p_cpu.items():
+        dg, dc = p_gpu[k] - sd[k], p - sd[k]
+        diff, norm = float((dg - dc).norm()), float(dc.norm())
+        diffs.append(diff)
+        norms.append(norm)
+        if norm > 0:
+            each.append(diff / norm)
+            if diff > 0.75 * norm:
+                raise AssertionError(
+                    f"{what}: update of {k}: card and cpu differ by "
+                    f"{diff / norm:.3f} of its norm")
+    whole = float(np.linalg.norm(diffs) / np.linalg.norm(norms))
+    if not (whole <= 5e-2 and float(np.median(each)) <= 2e-2):
+        raise AssertionError(f"{what}: the whole update {whole:.4f}, the "
+                             f"median tensor's {np.median(each):.4f} of "
+                             "their norms")
+    print(f"{what} card vs cpu: {m_gpu} vs {m_cpu}; eval logits max abs err "
+          f"{logit_err:.2e}; EMA of {len(e_cpu)} layers within bounds; "
+          f"{len(each)} parameters moved, the whole update {whole:.4f} of "
+          f"its norm apart, median tensor {np.median(each):.4f}, worst "
+          f"{max(each):.4f}; bn_stats launches fwd/bwd {bn_launches}",
+          flush=True)
+
+
+def phase_bf16_trajectories(card, n_videos, seed=SEED, t=16, hw=224,
+                            device="cuda"):
+    """float32 against bfloat16 on the card, the quantities of
+    benchmarks/results/bf16_gate_tanet.json: the same float32 masters,
+    source statistics and uint8 videos (one seeded generator a video),
+    TANet at the reference operating point (tanet_ucf101_preset, dropout
+    masks from the same seeds) through ``adapt_eval_step`` at each dtype.
+    Returns the gate's numbers and raises beyond GATE_BOUNDS (``t``,
+    ``hw`` and ``device`` other than the card's only to rehearse it)."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import video_seed
+    from vitta_tpu_torch.models import get_model
+    eng32, _rng = _tanet_engine(_cfg(t, 101), seed, hw=hw, device=device)
+    sd = {k: v.detach().clone() for k, v in eng32.model.state_dict().items()}
+    src = {k: (s.mean.cpu().numpy(), s.var.cpu().numpy())
+           for k, s in eng32.reg_specs[0].source.items()}
+
+    def stream(engine):
+        state = engine.init_state()
+        out = {f: [] for f in ("pred", "loss_reg", "loss_consis", "top1")}
+        for i in range(n_videos):
+            rng = np.random.default_rng(10_000 + i)
+            views = rng.integers(0, 256, (2, t, hw, hw, 3), dtype=np.uint8)
+            clip = rng.integers(0, 256, (1, t, hw, hw, 3), dtype=np.uint8)
+            label = np.asarray([i % 101], np.int64)
+            engine.generator.manual_seed(video_seed(seed, i))
+            state, m = engine.adapt_eval_step(state, views, clip, label)
+            out["pred"].append(int(m.pred[0]))
+            for f in ("loss_reg", "loss_consis", "top1"):
+                out[f].append(float(getattr(m, f)))
+        params = torch.cat([p.detach().double().flatten()
+                            for p in engine.model.parameters()])
+        ema = torch.cat([t.detach().double().flatten()
+                         for s in state.ema.values() for t in s])
+        return {k: np.asarray(v) for k, v in out.items()}, params, ema
+
+    t0 = time.perf_counter()
+    t32, p32, e32 = stream(eng32)
+    del eng32
+    cfg16 = _cfg(t, 101, compute_dtype="bfloat16")
+    eng16 = VittaEngine(get_model(cfg16), cfg16, sd, src, device=device)
+    t16, p16, e16 = stream(eng16)
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    gate = {
+        "n_videos": n_videos,
+        "pred_agreement": float(np.mean(t32["pred"] == t16["pred"])),
+        "top1_fp32": float(np.mean(t32["top1"])) / 100,
+        "top1_bf16": float(np.mean(t16["top1"])) / 100,
+        "reg_loss_max_absdiff": float(np.max(np.abs(t32["loss_reg"]
+                                                    - t16["loss_reg"]))),
+        "reg_loss_final_reldiff": float(
+            abs(t32["loss_reg"][-1] - t16["loss_reg"][-1])
+            / max(abs(t32["loss_reg"][-1]), 1e-9)),
+        "consis_loss_max_absdiff": float(np.max(np.abs(
+            t32["loss_consis"] - t16["loss_consis"]))),
+        "consis_loss_max_fp32": float(np.max(t32["loss_consis"])),
+        "params_rel_l2_drift": rel(p16, p32),
+        "ema_rel_l2_drift": rel(e16, e32)}
+    print(f"TANet fp32 against bf16 trajectories ({n_videos} videos each, "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(gate)
+          + f"; on {card}", flush=True)
+    bad = [k for k, (op, lim) in GATE_BOUNDS.items()
+           if not (gate[k] >= lim if op == ">=" else gate[k] <= lim)]
+    if gate["consis_loss_max_absdiff"] > (
+            0.1 * gate["consis_loss_max_fp32"] + 1e-4):
+        bad.append("consis_loss_max_absdiff")
+    if bad:
+        raise AssertionError(f"bf16 trajectories beyond their bounds: {bad}")
+    return gate
+
+
 def _assert_updates_agree(what, sd, p_gpu, p_cpu, rel):
     """Each parameter's update from ``sd`` on the card against the CPU's, to
     ``rel`` of its norm; returns the worst ratio and how many moved."""
@@ -1833,10 +2304,11 @@ def _assert_updates_agree(what, sd, p_gpu, p_cpu, rel):
 
 
 def phase_small_slice(seed, what="small slice", tta=None, optim=None,
-                      epoch=False, rel=2e-2):
+                      epoch=False, rel=2e-2, dtype="float32"):
     """Two tta_online steps at T=2, 32x32 on the card and on the CPU, under
     the ``tta`` and ``optim`` overrides; with ``epoch`` the epoch-style
-    loop (two adapt-only steps, then one evaluation pass) instead.
+    loop (two adapt-only steps, then one evaluation pass) instead; at
+    ``dtype`` "bfloat16" the bfloat16 TANet, held to ``_assert_bf16_slice``.
 
     Tolerances: losses and the EMA rtol 1e-3 / atol 1e-5 and eval logits
     rtol 2e-3 / atol 2e-4 (cuDNN and oneDNN float32 convs sum in different
@@ -1850,7 +2322,7 @@ def phase_small_slice(seed, what="small slice", tta=None, optim=None,
     from vitta_tpu_torch.models import get_model
     from vitta_tpu_torch.ops import cuda_stats
     cfg = _cfg(2, 101, tta=tta, optim={"lr": 1e-2, **(optim or {})},
-               dropout=0.0)
+               dropout=0.0, compute_dtype=dtype)
     torch.manual_seed(seed)
     model = get_model(cfg)
     sd = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1882,6 +2354,9 @@ def phase_small_slice(seed, what="small slice", tta=None, optim=None,
                      {k: (v.mean.cpu(), v.var.cpu())
                       for k, v in state.ema.items()})
     bn_launches = (cuda_stats.counters.fwd, cuda_stats.counters.bwd)
+    if dtype == "bfloat16":
+        _assert_bf16_slice(what, sd, runs, bn_launches)
+        return bn_launches
     (m_gpu, l_gpu, p_gpu, e_gpu), (m_cpu, l_cpu, p_cpu, e_cpu) = (
         runs["cuda"], runs["cpu"])
     for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
@@ -1906,14 +2381,18 @@ def phase_small_slice(seed, what="small slice", tta=None, optim=None,
 
 
 def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
-                     warmup=2, epoch=False):
+                     warmup=2, epoch=False, dtype="float32"):
     """TANet at the reference operating point over seeded videos, under the
-    ``tta`` overrides: ``tta_stream``, or with ``epoch`` ``tta_epoch_adapt``
-    (adapt-only steps, then one ``validate`` pass).  Returns the launch
-    counts of the run and a summary of its times."""
+    ``tta`` overrides, at ``dtype`` (float32, or the bfloat16 TANet):
+    ``tta_stream``, or with ``epoch`` ``tta_epoch_adapt`` (adapt-only
+    steps, then one ``validate`` pass).  The wrappers' counters and the
+    libraries' own counts must agree: every call launched its kernel, of
+    the run's type (a bfloat16 tensor never reaches a plain version, nor a
+    float32 kernel).  Returns the launch counts of the run and a summary of
+    its times."""
     from vitta_tpu_torch.adapt.loops import tta_epoch_adapt, tta_stream
     from vitta_tpu_torch.ops import cuda_stats, cuda_tam
-    cfg = _cfg(16, 101, tta=tta)
+    cfg = _cfg(16, 101, tta=tta, compute_dtype=dtype)
     engine, rng = _tanet_engine(cfg, seed)
     videos = _videos(rng, n_videos, 16, 224)
     chosen = len(engine.tap_names)
@@ -1922,17 +2401,23 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
     torch.cuda.reset_peak_memory_stats()
     cuda_tam.counters.reset()
     cuda_stats.counters.reset()
+    out = {}
+
+    def run():
+        if epoch:
+            out["top1"], out["state"] = tta_epoch_adapt(
+                engine, videos, [(c, l) for _v, c, l in videos], seed=seed)
+            out["meters"] = None
+        else:
+            top1, out["state"], out["meters"] = tta_stream(
+                engine, videos, seed=seed, metrics_writer=writer)
+            out["top1"] = top1[0]
+        torch.cuda.synchronize()
+
     t0 = time.perf_counter()
-    if epoch:
-        top1, state = tta_epoch_adapt(
-            engine, videos, [(c, l) for _v, c, l in videos], seed=seed)
-        meters = None
-    else:
-        top1, state, meters = tta_stream(engine, videos, seed=seed,
-                                         metrics_writer=writer)
-        top1 = top1[0]
-    torch.cuda.synchronize()
+    library = launches_of(run)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    top1, state, meters = out["top1"], out["state"], out["meters"]
     counts = {"tam_fwd": cuda_tam.counters.fwd,
               "tam_bwd": cuda_tam.counters.bwd,
               "bn_stats_fwd": cuda_stats.counters.fwd,
@@ -1972,15 +2457,29 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want} "
                              f"({chosen} chosen layers)")
+    for bf16 in (True, False):
+        got = {k: sum(n for name, n in library.items() if name.startswith(pre)
+                      and ("bfloat16" in name or "bf16" in name) == bf16)
+               for k, pre in (("tam_fwd", "tam_fwd"),
+                              ("tam_bwd", "tam_bwd_kernel"),
+                              ("bn_stats_fwd", "bn_stats_fwd_kernel"),
+                              ("bn_stats_bwd", "bn_stats_bwd_kernel"))}
+        if got != (counts if bf16 == (dtype == "bfloat16")
+                   else dict.fromkeys(counts, 0)):
+            raise AssertionError(
+                f"{what}: the libraries' {'bfloat16' if bf16 else 'float32'}"
+                f" launches {got} against the wrappers' {counts} at {dtype}")
     ms = writer.ms[warmup:] if writer.ms else [wall_ms / n_videos]
-    summary = {"mode": what, "videos": len(ms), "chosen": chosen,
+    summary = {"mode": what, "dtype": dtype, "videos": len(ms),
+               "chosen": chosen,
                "median_ms": statistics.median(ms), "min_ms": min(ms),
                "max_ms": max(ms), "peak_gib": peak / 2**30}
     losses = ("" if meters is None else
               f"losses reg {meters['loss_reg'].avg:.5f} consis "
               f"{meters['loss_consis'].avg:.5f} ce "
               f"{meters['loss_ce'].avg:.5f}, ")
-    print(f"full slice ({what}): {n_videos} videos, {chosen} chosen layers, "
+    print(f"full slice ({what}, {dtype}): {n_videos} videos, {chosen} "
+          f"chosen layers, "
           + (f"{wall_ms / n_videos:.3f} ms/video over the adapt-only steps "
              f"and the evaluation pass (no warm-up apart)" if epoch else
              f"median {summary['median_ms']:.3f} ms/video after {warmup} "
@@ -1988,19 +2487,21 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
           + f" (host clock, synchronised on the metrics; includes the uint8 "
           f"host-to-device copy), peak memory {peak / 2**30:.3f} GiB, {moved} "
           f"parameter tensors moved, {losses}top1 {top1:.1f}; launches "
-          f"{counts}, gradient contiguity copies {grad_copies}; on {card}",
+          f"{counts} (the libraries' counts of the {dtype} kernels the same),"
+          f" gradient contiguity copies {grad_copies}; on {card}",
           flush=True)
 
     # where the time goes: one adapt+eval step with its inputs on the card
     host_ms, busy, classes, largest = _profile_step(engine, videos[-1], state)
     if busy == 0:
-        print(f"TANet adapt step ({what}): device time not measured",
-              flush=True)
+        print(f"TANet adapt step ({what}, {dtype}): device time not "
+              "measured", flush=True)
     else:
         summary.update(host_ms=host_ms, device_busy_ms=busy,
                        idle_share=max(0.0, 1 - busy / host_ms),
                        classes=classes)
-        print(f"TANet adapt step ({what}), profiled: host {host_ms:.3f} ms, "
+        print(f"TANet adapt step ({what}, {dtype}), profiled: host "
+              f"{host_ms:.3f} ms, "
               f"device busy {busy:.3f} ms, idle share "
               f"{summary['idle_share']:.2f}; by class, ms (launches): "
               + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
@@ -2541,7 +3042,8 @@ def main() -> int:
     card = card_line()
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}); TF32 off for "
-          "matmuls and convolutions: every comparison is float32", flush=True)
+          "matmuls and convolutions: every comparison is float32 but those "
+          "of phases 22-24, which are bfloat16's", flush=True)
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -2569,6 +3071,8 @@ def main() -> int:
     lap("phase 21, gemm_tiles' rates")
     bn_rows = phase_bn_stats_kernels(dev)
     lap("phase 18, BatchNorm-statistics kernels")
+    bf16_rows = phase_bf16_kernels(dev)
+    lap("phase 22, bfloat16 TAM and BatchNorm-statistics kernels")
     small_bn = phase_small_slice(SEED)
     if 0 in small_bn:
         raise AssertionError("small slice: the bn_stats kernels never ran")
@@ -2578,6 +3082,20 @@ def main() -> int:
     lap("phases 5-6, TANet slices")
     for row in tam_rows + bn_rows:
         row["launches"] = launches[row["name"]]
+    # the bfloat16 TANet: small slice card against CPU, the full stream,
+    # then float32 against bfloat16 trajectories
+    small_bf16 = phase_small_slice(SEED, what="small slice (bfloat16)",
+                                   dtype="bfloat16")
+    if 0 in small_bf16:
+        raise AssertionError("small slice (bfloat16): the bn_stats kernels "
+                             "never ran")
+    bf16_launches, tanet_bf16 = phase_full_slice(SEED, BF16_VIDEOS, card,
+                                                 dtype="bfloat16")
+    for row in bf16_rows:
+        row["launches"] = bf16_launches[row["name"][:-len("_bf16")]]
+    lap("phase 23, TANet bfloat16 slices")
+    gate = phase_bf16_trajectories(card, GATE_VIDEOS)
+    lap("phase 24, float32 against bfloat16 trajectories")
     # the engine's other modes on TANet: small slices against the CPU, then
     # each at full size
     for what, kw in (
@@ -2595,7 +3113,7 @@ def main() -> int:
                   num_heads=(1, 2, 4, 8), window_size=(2, 3, 3)),
         SEED, 4, 24, what="swin adapt small slice, cossim", cossim=True)
     lap("phase 19, small slices of the engine's other modes")
-    tanet_modes = [tanet]
+    tanet_modes = [tanet, tanet_bf16]
     for what, kw in (
             ("BNS", dict(tta=dict(stat_reg="BNS"))),
             ("cossim", dict(tta=dict(stat_reg="cossim",
@@ -2709,7 +3227,8 @@ def main() -> int:
             row["launches_swin_b"] = bh_launches[row["name"]]
     lap("phase 17, Swin-T slices and Swin-B under the heads route")
     for s in tanet_modes:
-        print(f"TANet, {s['mode']}: median {s['median_ms']:.3f} ms/video (min "
+        print(f"TANet, {s['mode']}, {s['dtype']}: median "
+              f"{s['median_ms']:.3f} ms/video (min "
               f"{s['min_ms']:.3f}, max {s['max_ms']:.3f}, {s['videos']} "
               f"videos), {s['chosen']} chosen layers, host "
               f"{fmt(s.get('host_ms'))} ms, device busy "
@@ -2736,8 +3255,10 @@ def main() -> int:
           + json.dumps({k: {c: [round(v, 2) if v else v for v in r]
                             for c, r in calls.items()}
                         for k, calls in gemm_rates.items()}), flush=True)
-    print(json.dumps({"kernels": tam_rows + bn_rows + swin_rows + proj_rows
-                      + unfused_rows}))
+    print("TANet fp32 against bf16 trajectories: " + json.dumps(gate),
+          flush=True)
+    print(json.dumps({"kernels": tam_rows + bn_rows + bf16_rows + swin_rows
+                      + proj_rows + unfused_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -152,9 +152,17 @@ def test_backward_takes_unaligned_views(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_bfloat16_and_strided_input(cuda_device):
-    x, attn, kernel, _ = _inputs(cuda_device)
+    """The kernels take float32 and bfloat16 x (bfloat16 since the bfloat16
+    TANet): float16 and float64 raise, as do a bfloat16 attn, a cotangent of
+    another dtype than x's and a strided x."""
+    x, attn, kernel, cot = _inputs(cuda_device)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            tam_dynamic_conv(x.to(dtype), attn, kernel)
     with pytest.raises(TypeError):
-        tam_dynamic_conv(x.bfloat16(), attn, kernel)
+        cuda_tam.tam_fwd_cuda(x.bfloat16(), attn.bfloat16(), kernel)
+    with pytest.raises(TypeError):
+        cuda_tam.tam_bwd_cuda(cot, x.bfloat16(), attn, kernel)
     with pytest.raises(ValueError):
         tam_dynamic_conv(x.transpose(2, 3), attn, kernel)
 
@@ -1226,8 +1234,16 @@ def test_bn_stats_saves_no_residual_under_no_grad(cuda_device):
 @pytest.mark.cuda
 def test_bn_stats_kernels_reject_what_they_do_not_take(cuda_device):
     x, scale, bias, mean, var, g_y = _bn_inputs(cuda_device, (40,), 16)[:6]
-    with pytest.raises(TypeError, match="float32"):
-        cuda_stats.fused_bn_relu_stats(x.double(), scale, bias, mean, var)
+    for dtype in (torch.float16, torch.float64):   # float32, bfloat16 only
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cuda_stats.fused_bn_relu_stats(x.to(dtype), scale, bias, mean,
+                                           var)
+    with pytest.raises(TypeError, match="float32"):   # parameters: float32
+        cuda_stats.fused_bn_relu_stats(x.bfloat16(), scale.bfloat16(), bias,
+                                       mean, var)
+    with pytest.raises(TypeError):     # a cotangent of another dtype than x
+        cuda_stats.bn_stats_bwd_cuda(x.bfloat16(), scale, bias, mean, var,
+                                     mean, g_y, None, None)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_stats.fused_bn_relu_stats(x.T.contiguous().T, scale, bias, mean,
                                        var)
@@ -1279,3 +1295,217 @@ def test_tapped_batch_norm_goes_through_the_kernel(cuda_device):
     # tests above hold against the plain op under autograd
     torch.testing.assert_close(kernel[0], plain[0], rtol=1e-5, atol=1e-5)
     assert all(bool(torch.isfinite(g).all()) for g in kernel[1:4])
+
+
+# --------------------------------------------------------------------------
+# bfloat16: the TAM and BatchNorm-statistics kernels (rows 1, 2 and 7) in
+# the bfloat16 TANet, against their plain versions at the same rounding
+# points.  bf16 x bf16 products are exact in float32 and the plain versions
+# add in the kernels' order, so the TAM's out and dx are the twin's bits;
+# dattn and dkernel are float32 sums in another order (GRAD_TOL).  y and dx
+# of the BatchNorm come from float32 formulas that may round a few values
+# apart (rsqrt and the fused multiply-add): one bfloat16 ulp, or, near 0,
+# a few float32 roundings of the terms that cancel there; its
+# statistics and parameter gradients are float32 sums (the float32
+# tolerances above).
+BF16 = torch.bfloat16
+# ResNet-50's TAM sites (H, W, C) at the adapt batch (n=2), the eval clip
+# (n=1) and t=3, and the one-channel path (C % 4 != 0)
+BF16_TAM_SHAPES = [dict(n=n, t=t, h=h, w=h, c=c)
+                   for h, c in ((56, 64), (56, 128), (28, 128), (28, 256),
+                                (14, 256), (14, 512), (7, 512))
+                   for n, t in ((2, 16), (1, 16), (2, 3))]
+BF16_TAM_SHAPES += [dict(n=2, t=5, h=7, w=5, c=30), dict(t=1, c=24)]
+
+
+def _bf16_tam_inputs(device, **shape):
+    x, attn, kernel, cot = _inputs(device, **shape)
+    return x.to(BF16), attn, kernel, cot.to(BF16)
+
+
+def _within_one_bf16_ulp(name, got, want):
+    """|got - want| <= one bfloat16 ulp of |want|, or 2^-20 of the largest
+    |want| where a value near 0 is the difference of larger float32 terms
+    (a few float32 roundings of those); returns how many values differ."""
+    assert got.dtype == want.dtype == BF16, name
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    tol = torch.maximum(ulp, 2.0 ** -20 * w.abs().max())
+    assert bool(((g - w).abs() <= tol).all()), (
+        f"{name}: {int(((g - w).abs() > tol).sum())} values beyond one ulp, "
+        f"worst {float((g - w).abs().max()):.3e}")
+    return int((g != w).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BF16_TAM_SHAPES, ids=str)
+def test_tam_bf16_kernels_match_plain(cuda_device, shape):
+    x, attn, kernel, cot = _bf16_tam_inputs(cuda_device, **shape)
+    out = launches_of(lambda: cuda_tam.tam_fwd_cuda(x, attn, kernel))
+    assert sum(out.values()) == 1 and all(
+        "bf16" in k or "bfloat16" in k for k in out), out
+    names = launches_of(lambda: cuda_tam.tam_bwd_cuda(cot, x, attn, kernel))
+    assert sum(names.values()) == 2, names
+    assert sum(n for k, n in names.items()
+               if "tam_bwd_kernel" in k and "bfloat16" in k) == 1, names
+    cuda_tam.counters.reset()
+    got = _value_and_grads(tam_dynamic_conv, x, attn, kernel, cot)
+    assert (cuda_tam.counters.fwd, cuda_tam.counters.bwd) == (1, 1)
+    assert got[0].dtype == got[1].dtype == BF16
+    assert got[2].dtype == got[3].dtype == torch.float32
+    want_out = tam_dynamic_conv_reference(x, attn, kernel)
+    want = cuda_tam.tam_dynamic_conv_backward_reference(cot, x, attn, kernel)
+    assert torch.equal(got[0], want_out)
+    assert torch.equal(got[1], want[0])
+    for g, w, name in zip(got[2:], want[1:], ("dattn", "dkernel")):
+        torch.testing.assert_close(g, w, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   msg=name)
+    again = cuda_tam.tam_bwd_cuda(cot, x, attn, kernel)
+    assert all(torch.equal(a, b) for a, b in zip(again, got[1:]))
+
+
+@pytest.mark.cuda
+def test_tam_bf16_takes_unaligned_views(cuda_device):
+    """bfloat16 views 2 bytes past a 16-byte boundary take the one-channel
+    forward and backward, with the plain versions' values."""
+    x, attn, kernel, cot = _bf16_tam_inputs(cuda_device,
+                                            **BF16_TAM_SHAPES[12])
+
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+
+    xs, cots = shifted(x), shifted(cot)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 2
+    c = x.shape[-1]
+    assert cuda_tam.fwd_vec_bf16(c, xs, attn, xs) == 0
+    assert cuda_tam.bwd_vec(c, cots, xs, attn, xs) == 0
+    assert cuda_tam.bwd_vec(c, cot, x, attn, x) == 1
+    fwd = launches_of(lambda: cuda_tam.tam_fwd_cuda(xs, attn, kernel))
+    assert list(fwd) == ["tam_fwd_kernel<__nv_bfloat16>"], fwd
+    bwd = launches_of(lambda: cuda_tam.tam_bwd_cuda(cots, xs, attn, kernel))
+    assert "tam_bwd_kernel<float, __nv_bfloat16>" in bwd, bwd
+    assert torch.equal(cuda_tam.tam_fwd_cuda(xs, attn, kernel),
+                       tam_dynamic_conv_reference(x, attn, kernel))
+    got = cuda_tam.tam_bwd_cuda(cots, xs, attn, kernel)
+    want = cuda_tam.tam_dynamic_conv_backward_reference(cot, x, attn, kernel)
+    assert torch.equal(got[0], want[0])
+    for g, w, name in zip(got[1:], want[1:], ("dattn", "dkernel")):
+        torch.testing.assert_close(g, w, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   msg=name)
+
+
+def _bf16_bn_inputs(device, lead, c, seed=0):
+    ins = _bn_inputs(device, lead, c, seed)
+    ins[0], ins[5] = ins[0].to(BF16), ins[5].to(BF16)
+    return ins
+
+
+def _assert_bn_bf16_close(got, want):
+    _within_one_bf16_ulp("y", got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5,
+                               msg="mean")
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5,
+                               msg="var")
+    _within_one_bf16_ulp("dx", got[3], want[3])
+    for g, w, name in zip(got[4:], want[4:], ("dscale", "dbias")):
+        _assert_grad(name, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("lead,c", [
+    ((25088,), 256), ((6272,), 256), ((6272,), 1024), ((6272,), 512),
+    ((1568,), 512), ((1568,), 2048),          # a TANet mean_var step's
+    ((200,), 24), ((37,), 30), ((1,), 5), ((2, 16), 64)], ids=str)
+def test_bn_stats_bf16_kernels_match_plain(cuda_device, lead, c, relu):
+    ins = _bf16_bn_inputs(cuda_device, lead, c)
+    cuda_stats.counters.reset()
+    got = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats, relu, *ins)
+    assert (cuda_stats.counters.fwd, cuda_stats.counters.bwd) == (1, 1)
+    assert got[0].dtype == got[3].dtype == BF16
+    assert all(t.dtype == torch.float32 for t in got[1:3] + got[4:])
+    x2 = ins[0].reshape(-1, c)
+    m = got[1]
+    want_y, (want_m, want_v) = cuda_stats.fused_bn_relu_stats_reference(
+        *ins[:5], relu=relu)
+    want_b = cuda_stats.fused_bn_relu_stats_backward_reference(
+        x2, *ins[1:5], m, ins[5].reshape(-1, c), ins[6], ins[7], relu=relu)
+    _assert_bn_bf16_close(got, [want_y, want_m, want_v,
+                                want_b[0].reshape(ins[0].shape),
+                                *want_b[1:]])
+    again = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats, relu, *ins)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)      # no atomics: two runs are bit-equal
+    wide = c % 8 == 0
+    names = launches_of(lambda: cuda_stats.bn_stats_fwd_cuda(
+        x2, *ins[1:5], 1e-5, relu))
+    want_name = (f"bn_stats_fwd_kernel<{8 if wide else 1}, "
+                 f"{str(relu).lower()}, __nv_bfloat16>")
+    assert names == {want_name: 1, "bn_stats_finish_kernel": 1}, names
+
+
+@pytest.mark.cuda
+def test_bn_stats_bf16_takes_unaligned_views(cuda_device):
+    """A bfloat16 x 2 bytes past a 16-byte boundary takes the one-value
+    path, forward and backward, with the plain versions' values."""
+    x, scale, bias, mean, var, g_y, g_m, g_v = _bf16_bn_inputs(
+        cuda_device, (300,), 96, seed=1)
+    buf = torch.empty(x.numel() + 1, dtype=BF16, device=cuda_device)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 2
+    names = launches_of(lambda: cuda_stats.bn_stats_fwd_cuda(
+        xs, scale, bias, mean, var, 1e-5, False))
+    assert "bn_stats_fwd_kernel<1, false, __nv_bfloat16>" in names, names
+    y, m, v = cuda_stats.bn_stats_fwd_cuda(xs, scale, bias, mean, var, 1e-5,
+                                           False)
+    want_y, (want_m, want_v) = cuda_stats.fused_bn_relu_stats_reference(
+        x, scale, bias, mean, var, relu=False)
+    _within_one_bf16_ulp("y", y, want_y)
+    torch.testing.assert_close(m, want_m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v, want_v, rtol=1e-4, atol=1e-5)
+    names = launches_of(lambda: cuda_stats.bn_stats_bwd_cuda(
+        xs, scale, bias, mean, var, m, g_y, g_m, g_v, 1e-5, False))
+    assert "bn_stats_bwd_kernel<1, false, __nv_bfloat16>" in names, names
+    got = cuda_stats.bn_stats_bwd_cuda(xs, scale, bias, mean, var, m, g_y,
+                                       g_m, g_v, 1e-5, False)
+    want = cuda_stats.fused_bn_relu_stats_backward_reference(
+        x, scale, bias, mean, var, m, g_y, g_m, g_v, relu=False)
+    _within_one_bf16_ulp("dx", got[0], want[0])
+    for g, w, name in zip(got[1:], want[1:], ("dscale", "dbias")):
+        _assert_grad(name, g, w)
+
+
+@pytest.mark.cuda
+def test_bf16_tanet_runs_through_the_kernels(cuda_device):
+    """The bfloat16 TANet's tapped forward and backward on the card: every
+    TAM and every tapped BatchNorm2d through the bfloat16 kernels (the
+    libraries' counts), the TAM branches' BatchNorm1d (float32 there, as in
+    vitta_tpu) through the float32 ones."""
+    from vitta_tpu_torch.models.layers import Taps
+    from vitta_tpu_torch.models.tanet import TANet
+    torch.manual_seed(0)
+    model = TANet(5, clip_length=4, dtype="bfloat16").to(cuda_device)
+    x = torch.randn(2, 4, 64, 64, 3, device=cuda_device)
+
+    def step():
+        taps = Taps({"stat"})
+        logits = model(x, taps)
+        loss = logits.sum() + sum(v["stat"].var.sum() for v in taps.values())
+        loss.backward()
+    names = launches_of(step)
+
+    def count(*parts, bf16=True):
+        return sum(n for k, n in names.items()
+                   if all(p in k for p in parts)
+                   and ("bfloat16" in k or "bf16" in k) == bf16)
+    assert count("tam_fwd") == 16 and count("tam_fwd", bf16=False) == 0
+    assert count("tam_bwd_kernel") == 16, names
+    assert count("tam_bwd_kernel", bf16=False) == 0, names
+    for d in ("fwd", "bwd"):
+        assert count(f"bn_stats_{d}_kernel") == 53, names
+        assert count(f"bn_stats_{d}_kernel", bf16=False) == 32, names

@@ -7,8 +7,8 @@
 // port's BatchNorm calls this op on the adaptation path, so the backward is
 // written here.
 //
-// What it computes, for x (R, C) float32 with channels last and per-channel
-// scale, bias, mean, var (C):
+// What it computes, for x (R, C) with channels last and per-channel
+// scale, bias, mean, var (C), all float32, or x, y, g_y and dx bfloat16:
 //   y = (x - mean) * rsqrt(var + eps) * scale + bias,  y = max(y, 0) if relu
 //   m = sum_rows(y) / R,  v = sum_rows(y^2) / R - m^2          (both (C))
 // and, from the cotangents g_y (R, C), g_m (C), g_v (C), each of which may
@@ -18,10 +18,20 @@
 //   dx = G * inv,  dscale = sum_rows(G * xhat),  dbias = sum_rows(G)
 // y is recomputed from x in the backward; mean and var get no gradient.
 //
+// At bfloat16 the arithmetic is float32 and y is rounded to bfloat16 where
+// it is stored; m and v are the statistics of that rounded y, as
+// vitta_tpu/models/layers.py:183-190 (the BatchNorm this op serves there)
+// taps them from y.astype(float32), and the backward's y in the g_v term
+// is the rounded one too.  G stays float32; dx is rounded to bfloat16 once.
+// (The Pallas kernel, which no vitta_tpu model calls, sums the unrounded y:
+// pallas_stats.py:54-57.)
+//
 // What bounds it: bytes.  A dozen operations per element against one read of
 // x and one write of y (backward: x and g_y read, dx written).  The design:
 // threads run along C, so a warp reads neighbouring addresses of one row, 16
-// bytes a thread where C is a multiple of 4; a block owns a chunk of rows and
+// bytes a thread where C is a multiple of 4 (of 8 at bfloat16; one element a
+// thread where not, or where a view starts off a 16-byte boundary); a block
+// owns a chunk of rows and
 // a tile of columns, keeps each column's sums in registers while it writes y
 // (or dx), and writes one partial per (chunk, column).  The TPU kernel adds
 // into one scratch block that its sequential grid revisits; a CUDA grid has
@@ -29,6 +39,10 @@
 // (reduce.cuh) and no float atomic is used: two runs are bit-equal.  The TPU
 // kernel's row tile (a divisor of R, a multiple of 8) has no counterpart: any
 // R and any C >= 1 are taken.
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
 
 #include "reduce.cuh"
 
@@ -42,6 +56,10 @@ inline long long bn_chunks(long long rows) {
   return (rows + kBnChunk - 1) / kBnChunk;
 }
 
+using bf16 = __nv_bfloat16;
+
+// V values of type E from p as float32 (16 bytes where V > 1), and back,
+// rounded to nearest even at bfloat16.
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float (&out)[V]) {
   if constexpr (V == 4) {
@@ -59,6 +77,43 @@ __device__ __forceinline__ void store_vec(float* p, const float (&in)[V]) {
   } else {
     *p = in[0];
   }
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const bf16* p, float (&out)[V]) {
+  if constexpr (V == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[2 * j] = __uint_as_float(w[j] << 16);
+      out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+    out[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&in)[V]) {
+  if constexpr (V == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(in[2 * j], in[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *p = __float2bfloat16_rn(in[0]);
+  }
+}
+
+// v rounded to E, as float32: the value store_vec writes (the identity at
+// float32).
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Adds the block's kBnWarps per-row-group sums of V columns in the order of
@@ -85,13 +140,13 @@ __device__ __forceinline__ void block_col_sum(
 
 // grid (chunks, column tiles), block (32, 8).  partial (chunks, 2, c): the
 // chunk's sum of y, then of y^2.
-template <int V, bool RELU>
+template <int V, bool RELU, class E>
 __global__ void __launch_bounds__(kBnLanes * kBnWarps)
-bn_stats_fwd_kernel(const float* __restrict__ x,
+bn_stats_fwd_kernel(const E* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     const float* __restrict__ mean,
-                    const float* __restrict__ var, float* __restrict__ y,
+                    const float* __restrict__ var, E* __restrict__ y,
                     float* __restrict__ partial, long long rows, int c,
                     float eps) {
   __shared__ float part[kBnWarps][kBnLanes * V + 1];
@@ -118,6 +173,7 @@ bn_stats_fwd_kernel(const float* __restrict__ x,
       for (int j = 0; j < V; ++j) {
         float t = fmaf(v[j], inv[j], shift[j]);
         if (RELU) t = fmaxf(t, 0.f);
+        t = round_to(t, y);          // the statistics are of the stored y
         v[j] = t;
         s[j] += t;
         ss[j] = fmaf(t, t, ss[j]);
@@ -160,17 +216,17 @@ bn_stats_finish_kernel(const float* __restrict__ partial,
 
 // grid (chunks, column tiles), block (32, 8).  partial (chunks, 2, c): the
 // chunk's sum of G * xhat, then of G.  g_y, g_m, g_v may be null.
-template <int V, bool RELU>
+template <int V, bool RELU, class E>
 __global__ void __launch_bounds__(kBnLanes * kBnWarps)
-bn_stats_bwd_kernel(const float* __restrict__ x,
+bn_stats_bwd_kernel(const E* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     const float* __restrict__ mean,
                     const float* __restrict__ var,
                     const float* __restrict__ m,
-                    const float* __restrict__ g_y,
+                    const E* __restrict__ g_y,
                     const float* __restrict__ g_m,
-                    const float* __restrict__ g_v, float* __restrict__ dx,
+                    const float* __restrict__ g_v, E* __restrict__ dx,
                     float* __restrict__ partial, long long rows, int c,
                     float eps) {
   __shared__ float part[kBnWarps][kBnLanes * V + 1];
@@ -209,7 +265,7 @@ bn_stats_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float t = fmaf(v[j], inv[j], shift[j]);
-        const float yv = RELU ? fmaxf(t, 0.f) : t;
+        const float yv = round_to(RELU ? fmaxf(t, 0.f) : t, x);
         float G = g[j] + gm[j] + gv2[j] * (yv - mstat[j]);
         if (RELU && !(t > 0.f)) G = 0.f;
         ds[j] = fmaf(G, (v[j] - mu[j]) * rstd[j], ds[j]);
@@ -230,19 +286,114 @@ inline dim3 bn_grid(long long rows, int c) {
   return dim3((unsigned)bn_chunks(rows), (unsigned)((c + per_block - 1) / per_block));
 }
 
-// 16-byte loads need c a multiple of 4 and every (rows, c) pointer aligned.
-inline bool bn_vectorized(int c, const void* a, const void* b,
+// 16-byte loads need c a multiple of W (4 floats, 8 bfloat16 values) and
+// every (rows, c) pointer aligned.
+inline bool bn_vectorized(int c, int w, const void* a, const void* b,
                           const void* d) {
   const unsigned long long bits = (unsigned long long)a |
                                   (unsigned long long)b |
                                   (unsigned long long)d;
-  return c % 4 == 0 && (bits & 15ULL) == 0;
+  return c % w == 0 && (bits & 15ULL) == 0;
 }
 
 inline bool bn_shape_ok(long long rows, int c) {
   // grid.x holds the chunks (at most 2^31 - 1), grid.y the column tiles
   return rows > 0 && c > 0 && bn_chunks(rows) <= 2147483647LL &&
          (c + kBnLanes - 1) / kBnLanes <= 65535;
+}
+
+// Values a 16-byte unit of E holds.
+template <class E> constexpr int kVec = 16 / (int)sizeof(E);
+
+// "base<v, relu>" at float32, "base<v, relu, __nv_bfloat16>" at bfloat16:
+// the kernel's name in the library's launch counts.
+inline std::string kernel_name(const char* base, int v, bool relu,
+                               const float*) {
+  return template_name(base, v, relu);
+}
+inline std::string kernel_name(const char* base, int v, bool relu,
+                               const bf16*) {
+  std::string s = template_name(base, v, relu);
+  return s.insert(s.size() - 1, ", __nv_bfloat16");
+}
+
+// The forward: the pass over x, then the ordered sum of its partials.
+template <class E>
+int bn_fwd(const E* x, const float* scale, const float* bias,
+           const float* mean, const float* var, E* y, float* stats,
+           float* scratch, long long rows, int c, float eps, int relu,
+           cudaStream_t st) {
+  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
+  constexpr int W = kVec<E>;
+  const dim3 block(kBnLanes, kBnWarps);
+  const bool vec = bn_vectorized(c, W, x, y, nullptr);
+  if (vec) {
+    const dim3 grid = bn_grid<W>(rows, c);
+    if (relu)
+      bn_stats_fwd_kernel<W, true, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, y, scratch, rows, c, eps);
+    else
+      bn_stats_fwd_kernel<W, false, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, y, scratch, rows, c, eps);
+  } else {
+    const dim3 grid = bn_grid<1>(rows, c);
+    if (relu)
+      bn_stats_fwd_kernel<1, true, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, y, scratch, rows, c, eps);
+    else
+      bn_stats_fwd_kernel<1, false, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, y, scratch, rows, c, eps);
+  }
+  count_launch(
+      kernel_name("bn_stats_fwd_kernel", vec ? W : 1, relu != 0, x).c_str());
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bn_stats_finish_kernel<<<(c + kReduceThreads - 1) / kReduceThreads,
+                           kReduceThreads, 0, st>>>(
+      scratch, stats, bn_chunks(rows), c, 1.f / (float)rows);
+  count_launch("bn_stats_finish_kernel");
+  return (int)cudaGetLastError();
+}
+
+// The backward: the pass over x and g_y, then one ordered sum of the
+// partials, which are (chunks, 2 c), for dscale and dbias.
+template <class E>
+int bn_bwd(const E* x, const float* scale, const float* bias,
+           const float* mean, const float* var, const float* m, const E* g_y,
+           const float* g_m, const float* g_v, E* dx, float* dsb,
+           float* scratch, long long rows, int c, float eps, int relu,
+           cudaStream_t st) {
+  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
+  constexpr int W = kVec<E>;
+  const dim3 block(kBnLanes, kBnWarps);
+  const bool vec = bn_vectorized(c, W, x, g_y, dx);
+  if (vec) {
+    const dim3 grid = bn_grid<W>(rows, c);
+    if (relu)
+      bn_stats_bwd_kernel<W, true, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
+          eps);
+    else
+      bn_stats_bwd_kernel<W, false, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
+          eps);
+  } else {
+    const dim3 grid = bn_grid<1>(rows, c);
+    if (relu)
+      bn_stats_bwd_kernel<1, true, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
+          eps);
+    else
+      bn_stats_bwd_kernel<1, false, E><<<grid, block, 0, st>>>(
+          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
+          eps);
+  }
+  count_launch(
+      kernel_name("bn_stats_bwd_kernel", vec ? W : 1, relu != 0, x).c_str());
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_reduce_partials(scratch, dsb, (int)bn_chunks(rows),
+                                     2LL * c, st);
 }
 
 }  // namespace vitta
@@ -259,37 +410,8 @@ int vitta_bn_stats_fwd(const float* x, const float* scale, const float* bias,
                        const float* mean, const float* var, float* y,
                        float* stats, float* scratch, long long rows, int c,
                        float eps, int relu, void* stream) {
-  using namespace vitta;
-  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 block(kBnLanes, kBnWarps);
-  if (bn_vectorized(c, x, y, nullptr)) {
-    const dim3 grid = bn_grid<4>(rows, c);
-    if (relu)
-      bn_stats_fwd_kernel<4, true><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-    else
-      bn_stats_fwd_kernel<4, false><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-  } else {
-    const dim3 grid = bn_grid<1>(rows, c);
-    if (relu)
-      bn_stats_fwd_kernel<1, true><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-    else
-      bn_stats_fwd_kernel<1, false><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-  }
-  count_launch(template_name("bn_stats_fwd_kernel",
-                             bn_vectorized(c, x, y, nullptr) ? 4 : 1,
-                             relu != 0).c_str());
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bn_stats_finish_kernel<<<(c + kReduceThreads - 1) / kReduceThreads,
-                           kReduceThreads, 0, st>>>(
-      scratch, stats, bn_chunks(rows), c, 1.f / (float)rows);
-  count_launch("bn_stats_finish_kernel");
-  return (int)cudaGetLastError();
+  return vitta::bn_fwd(x, scale, bias, mean, var, y, stats, scratch, rows, c,
+                       eps, relu, (cudaStream_t)stream);
 }
 
 // dx (rows, c); dsb (2, c) = dscale then dbias.  g_y, g_m, g_v may be null.
@@ -299,39 +421,31 @@ int vitta_bn_stats_bwd(const float* x, const float* scale, const float* bias,
                        const float* g_y, const float* g_m, const float* g_v,
                        float* dx, float* dsb, float* scratch, long long rows,
                        int c, float eps, int relu, void* stream) {
-  using namespace vitta;
-  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 block(kBnLanes, kBnWarps);
-  if (bn_vectorized(c, x, g_y, dx)) {
-    const dim3 grid = bn_grid<4>(rows, c);
-    if (relu)
-      bn_stats_bwd_kernel<4, true><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-    else
-      bn_stats_bwd_kernel<4, false><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-  } else {
-    const dim3 grid = bn_grid<1>(rows, c);
-    if (relu)
-      bn_stats_bwd_kernel<1, true><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-    else
-      bn_stats_bwd_kernel<1, false><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-  }
-  count_launch(template_name("bn_stats_bwd_kernel",
-                             bn_vectorized(c, x, g_y, dx) ? 4 : 1,
-                             relu != 0).c_str());
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  // the partials are (chunks, 2 c): one ordered sum gives dscale and dbias
-  return (int)launch_reduce_partials(scratch, dsb, (int)bn_chunks(rows),
-                                     2LL * c, st);
+  return vitta::bn_bwd(x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, dsb,
+                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
+}
+
+// The same at bfloat16: x, y, g_y and dx bfloat16, everything else float32.
+int vitta_bn_stats_fwd_bf16(const void* x, const float* scale,
+                            const float* bias, const float* mean,
+                            const float* var, void* y, float* stats,
+                            float* scratch, long long rows, int c, float eps,
+                            int relu, void* stream) {
+  return vitta::bn_fwd(reinterpret_cast<const vitta::bf16*>(x), scale, bias,
+                       mean, var, reinterpret_cast<vitta::bf16*>(y), stats,
+                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
+}
+
+int vitta_bn_stats_bwd_bf16(const void* x, const float* scale,
+                            const float* bias, const float* mean,
+                            const float* var, const float* m, const void* g_y,
+                            const float* g_m, const float* g_v, void* dx,
+                            float* dsb, float* scratch, long long rows, int c,
+                            float eps, int relu, void* stream) {
+  return vitta::bn_bwd(reinterpret_cast<const vitta::bf16*>(x), scale, bias,
+                       mean, var, m, reinterpret_cast<const vitta::bf16*>(g_y),
+                       g_m, g_v, reinterpret_cast<vitta::bf16*>(dx), dsb,
+                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
 }
 
 }  // extern "C"

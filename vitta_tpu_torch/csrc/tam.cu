@@ -11,26 +11,47 @@
 //             dattn[n,s,c] = sum over (h,w) of dy[s]*x[s]
 //             dK[n,c,k]    = sum over (t,h,w) of g[t-k+1]*y[t]
 //
-// Layout: x, out, g and dx are (N, T, P, C) float32 and contiguous, with
-// P = H*W: the channels-last activations of the port, with no copy.  attn
-// is (N, T, C), the kernel weights (N, C, 3).
+// Layout: x, out, g and dx are (N, T, P, C) and contiguous, with P = H*W:
+// the channels-last activations of the port, with no copy.  attn is (N, T,
+// C), the kernel weights (N, C, 3), both float32.
+//
+// Types: float32 throughout, or bfloat16 activations (x, out, g, dx) beside
+// float32 attn and weights, the bfloat16 TANet's (the TAM's branches stay
+// float32).  At bfloat16 the kernels do what the JAX reference does at that
+// type (vitta_tpu/ops/pallas_tam.py:50-60): attn and the weights are
+// rounded to bfloat16 where they are loaded; then every product and sum is
+// float32, and out and dx are rounded to bfloat16 once, where they are
+// stored; dattn and dK are float32 sums.  bf16 x bf16 and bf16 x (bf16 x
+// bf16) products are exact in float32, so out and dK's terms carry no
+// rounding before their sums, and dy's three terms none before theirs.
 //
 // What bounds it: memory.  The arithmetic is a few multiply-adds per
 // element; at the ResNet-50 TAM sites one adapt step moves about 0.49 GB
 // in the forward (read x, write out) and 0.73 GB in the backward (read g
-// and x, write dx).  Each element is read and written once.
+// and x, write dx) in float32, half that in bfloat16.  Each element is
+// read and written once.
 //
 // Forward: one thread owns one (n, p, c) column and walks t with a
 // three-deep register window; neighbouring threads own neighbouring
-// channels, so every warp load and store is one contiguous line.
+// channels, so every warp load and store is one contiguous line.  At
+// bfloat16, where C % 8 == 0 and x, attn and out are 16-byte aligned, a
+// thread owns 8 channels of the column instead (16-byte loads and stores,
+// tam_fwd_bf16x8_kernel), an eighth as many threads, so it issues the
+// loads of kFwdDepth frames at once; a view that starts elsewhere takes
+// the one-channel kernel.
 //
 // Backward: at the 14x14 and 7x7 sites one column per thread is too few
 // threads to keep the memory busy if each walks its 16 frames with two
 // loads in flight.  So:
 //  * a thread owns one (n, p) column of 4 channels where C % 4 == 0 and the
 //    caller's g, x, attn and dx are 16-byte aligned (16-byte loads and
-//    stores; one channel where not), and walks its frames in
-//    chunks of kDepth: it issues the chunk's loads of g[t+1], x[t] and
+//    stores; one channel where not).  At bfloat16 the unit stays 4
+//    channels, now 8 bytes of g, x and dx (attn is float32: 16), so that
+//    the plan, the shared memory and the registers are the float32 ones:
+//    8 channels a thread would need 32-byte cells in shared memory (one
+//    block an SM at a 16-frame segment) and more registers for a window of
+//    kDepth frames than two blocks an SM leave a thread.  A thread walks
+//    chunks of kDepth frames: it issues the chunk's loads of g[t+1], x[t] and
 //    attn[t] before any arithmetic, and carries g[t-1] and g[t] across
 //    chunks in registers;
 //  * where the grid has fewer blocks than the card has multiprocessors, T
@@ -51,6 +72,7 @@
 //    to run, and differs from a plain reduction only by the order of
 //    float32 additions.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,6 +82,7 @@
 namespace {
 
 constexpr int kFwdThreads = 256;
+constexpr int kFwdDepth = 4;        // frames a bf16x8 forward thread loads at once
 constexpr int kBwdThreads = 256;
 // The backward's shape, as measured best (PERF.md's kernel table, row 2;
 // vitta_tpu_torch/tools/tam_variants.py times other values on patched
@@ -72,28 +95,150 @@ constexpr int kMinPositions = 32;   // positions a backward block sums
 constexpr int kMaxSegFrames = 16;   // bounds the block's shared memory
 constexpr int kReduceThreads = 256;
 
-__global__ void tam_fwd_kernel(const float* __restrict__ x,
+// Activations of type E as float32, and back (rounded to nearest even).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <class E> __device__ __forceinline__ E from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// A float32 input (attn, a kernel weight) rounded to E, as float32: the
+// identity at float32.
+template <class E> __device__ __forceinline__ float round_as(float v) {
+  return to_f32(from_f32<E>(v));
+}
+
+// One (n, p, c) column a thread.
+template <class E>
+__global__ void tam_fwd_kernel(const E* __restrict__ x,
                                const float* __restrict__ attn,
                                const float* __restrict__ kern,
-                               float* __restrict__ out,
+                               E* __restrict__ out,
                                int T, int C, long long PC) {
   const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= PC) return;
   const int n = blockIdx.y;
   const int c = (int)(col % C);
   const float* kc = kern + ((long long)n * C + c) * 3;
-  const float k0 = kc[0], k1 = kc[1], k2 = kc[2];
-  const float* xs = x + (long long)n * T * PC + col;
+  const float k0 = round_as<E>(kc[0]), k1 = round_as<E>(kc[1]),
+              k2 = round_as<E>(kc[2]);
+  const E* xs = x + (long long)n * T * PC + col;
   const float* as = attn + (long long)n * T * C + c;
-  float* os = out + (long long)n * T * PC + col;
+  E* os = out + (long long)n * T * PC + col;
 
   float ym = 0.f;
-  float y0 = as[0] * xs[0];
+  float y0 = round_as<E>(as[0]) * to_f32(xs[0]);
   for (int t = 0; t < T; ++t) {
-    const float yp = (t + 1 < T) ? as[(t + 1) * C] * xs[(t + 1) * PC] : 0.f;
-    os[t * PC] = k0 * ym + k1 * y0 + k2 * yp;
+    const float yp = (t + 1 < T)
+        ? round_as<E>(as[(t + 1) * C]) * to_f32(xs[(t + 1) * PC]) : 0.f;
+    os[t * PC] = from_f32<E>(k0 * ym + k1 * y0 + k2 * yp);
     ym = y0;
     y0 = yp;
+  }
+}
+
+// bfloat16 with C % 8 == 0 and 16-byte-aligned x, attn and out: 8
+// channels of one (n, p) a thread, 16-byte loads and stores of x and out
+// (two of attn's 8 floats), the same arithmetic as tam_fwd_kernel's.
+__device__ __forceinline__ void unpack8(uint4 u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    w[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void attn8(const float* p, float (&a)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a[j] = round_as<__nv_bfloat16>(v[j]);
+}
+
+__global__ void tam_fwd_bf16x8_kernel(const uint4* __restrict__ x,
+                                      const float* __restrict__ attn,
+                                      const float* __restrict__ kern,
+                                      uint4* __restrict__ out, int T, int C,
+                                      long long PU) {
+  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= PU) return;
+  const int n = blockIdx.y;
+  const int c = (int)(u % (C / 8)) * 8;
+  const float* kc = kern + ((long long)n * C + c) * 3;
+  float k0[8], k1[8], k2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    k0[j] = round_as<__nv_bfloat16>(kc[3 * j]);
+    k1[j] = round_as<__nv_bfloat16>(kc[3 * j + 1]);
+    k2[j] = round_as<__nv_bfloat16>(kc[3 * j + 2]);
+  }
+  const uint4* xs = x + (long long)n * T * PU + u;
+  const float* as = attn + (long long)n * T * C + c;
+  uint4* os = out + (long long)n * T * PU + u;
+
+  float ym[8], y0[8], a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) ym[j] = 0.f;
+  unpack8(xs[0], y0);
+  attn8(as, a);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) y0[j] *= a[j];
+  // frames t0 .. t0 + kFwdDepth - 1: the loads of x[t + 1] and attn[t + 1]
+  // for all of them are issued before any arithmetic
+  for (int t0 = 0; t0 < T; t0 += kFwdDepth) {
+    uint4 xn[kFwdDepth];
+    float4 an[kFwdDepth][2];
+#pragma unroll
+    for (int d = 0; d < kFwdDepth; ++d) {
+      const int t = t0 + d + 1;
+      if (t < T) {
+        xn[d] = xs[t * PU];
+        an[d][0] = *reinterpret_cast<const float4*>(as + t * C);
+        an[d][1] = *reinterpret_cast<const float4*>(as + t * C + 4);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < kFwdDepth; ++d) {
+      const int t = t0 + d;
+      if (t < T) {
+        float yp[8];
+        if (t + 1 < T) {
+          unpack8(xn[d], yp);
+          const float av[8] = {an[d][0].x, an[d][0].y, an[d][0].z,
+                               an[d][0].w, an[d][1].x, an[d][1].y,
+                               an[d][1].z, an[d][1].w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yp[j] *= round_as<__nv_bfloat16>(av[j]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) yp[j] = 0.f;
+        }
+        float o[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[j] = k0[j] * ym[j] + k1[j] * y0[j] + k2[j] * yp[j];
+          ym[j] = y0[j];
+          y0[j] = yp[j];
+        }
+        os[t * PU] = pack8(o);
+      }
+    }
   }
 }
 
@@ -122,13 +267,57 @@ __device__ __forceinline__ float comp(float v, int) { return v; }
 __device__ __forceinline__ float comp(float4 v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
-// K[n, c, k] for the unit's channels, as a unit
+// K[n, c, k] for the unit's channels, rounded to E, as a unit
+template <class E>
 __device__ __forceinline__ float kern_unit(const float* kc, int k, float*) {
-  return kc[k];
+  return round_as<E>(kc[k]);
 }
+template <class E>
 __device__ __forceinline__ float4 kern_unit(const float* kc, int k, float4*) {
-  return make_float4(kc[k], kc[3 + k], kc[6 + k], kc[9 + k]);
+  return make_float4(round_as<E>(kc[k]), round_as<E>(kc[3 + k]),
+                     round_as<E>(kc[6 + k]), round_as<E>(kc[9 + k]));
 }
+// attn's unit rounded to E
+template <class E> __device__ __forceinline__ float round_unit(float v) {
+  return round_as<E>(v);
+}
+template <class E> __device__ __forceinline__ float4 round_unit(float4 v) {
+  return make_float4(round_as<E>(v.x), round_as<E>(v.y), round_as<E>(v.z),
+                     round_as<E>(v.w));
+}
+
+// A unit of V's width of activations of type E: how it lies in memory
+// (raw) and its values as V.  At bfloat16 a unit of 4 channels is 8 bytes.
+template <class V, class E> struct Act;
+template <class V> struct Act<V, float> {
+  using raw = V;
+  static __device__ __forceinline__ V load(raw r) { return r; }
+  static __device__ __forceinline__ raw store(V v) { return v; }
+};
+template <> struct Act<float, __nv_bfloat16> {
+  using raw = __nv_bfloat16;
+  static __device__ __forceinline__ float load(raw r) {
+    return __bfloat162float(r);
+  }
+  static __device__ __forceinline__ raw store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+template <> struct Act<float4, __nv_bfloat16> {
+  using raw = uint2;
+  static __device__ __forceinline__ float4 load(raw r) {
+    return make_float4(__uint_as_float(r.x << 16),
+                       __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16),
+                       __uint_as_float(r.y & 0xffff0000u));
+  }
+  static __device__ __forceinline__ raw store(float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                      *reinterpret_cast<const uint32_t*>(&hi));
+  }
+};
 
 // How the backward cuts its work; `vitta_tam_bwd_plan` exports it and
 // vitta_tpu_torch/ops/cuda_tam.py:bwd_plan mirrors it.
@@ -146,7 +335,8 @@ struct Plan {
 
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// vec: the caller's g, x, attn and dx are 16-byte aligned and C % 4 == 0
+// vec: C % 4 == 0 and the caller's g, x, attn and dx start on their
+// units' boundaries (float32: 16 bytes; bfloat16: 8, attn 16)
 Plan plan_for(int N, int T, int P, int C, bool vec) {
   Plan q;
   q.vec = vec;
@@ -223,13 +413,17 @@ __device__ void sum_output(const V* __restrict__ part_a,
 
 // grid (ncc, npb, N * nseg), block (wc, slots).  Shared memory holds one
 // slot per thread for each of the segment's dattn rows and the 3 dK rows.
-template <class V>
+// g, x and dx are activations of type E (A's raw units), everything else
+// float32; the arithmetic is V's, float32.
+template <class V, class E>
 __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
-tam_bwd_kernel(const V* __restrict__ g, const V* __restrict__ x,
+tam_bwd_kernel(const typename Act<V, E>::raw* __restrict__ g,
+               const typename Act<V, E>::raw* __restrict__ x,
                const V* __restrict__ attn, const float* __restrict__ kern,
-               V* __restrict__ dx, V* __restrict__ part_a,
-               V* __restrict__ part_k, int T, int P, int U, int seg_len,
-               int nseg, int pp) {
+               typename Act<V, E>::raw* __restrict__ dx,
+               V* __restrict__ part_a, V* __restrict__ part_k, int T, int P,
+               int U, int seg_len, int nseg, int pp) {
+  using A = Act<V, E>;
   extern __shared__ __align__(16) unsigned char smem[];
   V* sh = reinterpret_cast<V*>(smem);
   constexpr int W = sizeof(V) / sizeof(float);
@@ -248,9 +442,9 @@ tam_bwd_kernel(const V* __restrict__ g, const V* __restrict__ x,
   V dk0 = zero<V>(), dk1 = zero<V>(), dk2 = zero<V>();
   if (u < U) {
     const float* kc = kern + ((long long)n * U + u) * W * 3;
-    k0 = kern_unit(kc, 0, (V*)nullptr);
-    k1 = kern_unit(kc, 1, (V*)nullptr);
-    k2 = kern_unit(kc, 2, (V*)nullptr);
+    k0 = kern_unit<E>(kc, 0, (V*)nullptr);
+    k1 = kern_unit<E>(kc, 1, (V*)nullptr);
+    k2 = kern_unit<E>(kc, 2, (V*)nullptr);
   }
   for (int m = 0; m < pp; ++m) {
     const int p = (pb * pp + m) * slots + threadIdx.y;
@@ -260,27 +454,27 @@ tam_bwd_kernel(const V* __restrict__ g, const V* __restrict__ x,
       break;
     }
     const long long col = ((long long)n * T * P + p) * U + u;
-    const V* gs = g + col;
-    const V* xs = x + col;
+    const typename A::raw* gs = g + col;
+    const typename A::raw* xs = x + col;
     const V* as = attn + (long long)n * T * U + u;
-    V* ds = dx + col;
-    V gm = t0 > 0 ? gs[(t0 - 1) * PU] : zero<V>();
-    V gc = gs[t0 * PU];
+    typename A::raw* ds = dx + col;
+    V gm = t0 > 0 ? A::load(gs[(t0 - 1) * PU]) : zero<V>();
+    V gc = A::load(gs[t0 * PU]);
     for (int c0 = t0; c0 < t1; c0 += kDepth) {
       V gn[kDepth], xv[kDepth], av[kDepth];
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
         const int t = c0 + d;
-        gn[d] = (t < t1 && t + 1 < T) ? gs[(t + 1) * PU] : zero<V>();
-        xv[d] = t < t1 ? xs[t * PU] : zero<V>();
-        av[d] = t < t1 ? as[t * U] : zero<V>();
+        gn[d] = (t < t1 && t + 1 < T) ? A::load(gs[(t + 1) * PU]) : zero<V>();
+        xv[d] = t < t1 ? A::load(xs[t * PU]) : zero<V>();
+        av[d] = t < t1 ? round_unit<E>(as[t * U]) : zero<V>();
       }
 #pragma unroll
       for (int d = 0; d < kDepth; ++d) {
         const int t = c0 + d;
         if (t < t1) {
           const V dy = k0 * gn[d] + k1 * gc + k2 * gm;
-          ds[t * PU] = av[d] * dy;
+          ds[t * PU] = A::store(av[d] * dy);
           const V q = dy * xv[d];
           V& cell = sh[(t - t0) * rs + slot];
           cell = m == 0 ? q : cell + q;
@@ -331,15 +525,31 @@ tam_bwd_reduce_kernel(const V* __restrict__ part_a,
              U, npb, nseg);
 }
 
-template <class V>
-int launch_bwd(const Plan& q, const float* g, const float* x,
-               const float* attn, const float* kern, float* dx,
+// The name a profiler gives the instance, for the library's launch counts.
+template <class V, class E> const char* bwd_kernel_name();
+template <> const char* bwd_kernel_name<float4, float>() {
+  return "tam_bwd_kernel<float4>";
+}
+template <> const char* bwd_kernel_name<float, float>() {
+  return "tam_bwd_kernel<float>";
+}
+template <> const char* bwd_kernel_name<float4, __nv_bfloat16>() {
+  return "tam_bwd_kernel<float4, __nv_bfloat16>";
+}
+template <> const char* bwd_kernel_name<float, __nv_bfloat16>() {
+  return "tam_bwd_kernel<float, __nv_bfloat16>";
+}
+
+template <class V, class E>
+int launch_bwd(const Plan& q, const void* g, const void* x,
+               const float* attn, const float* kern, void* dx,
                float* scratch, float* dattn, float* dkern, int N, int T,
                int P, int C, cudaStream_t s) {
+  using R = typename Act<V, E>::raw;
   const size_t smem = (size_t)(q.seg_len + 3) * q.wc * q.slots * sizeof(V);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tam_bwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tam_bwd_kernel<V, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -347,12 +557,11 @@ int launch_bwd(const Plan& q, const float* g, const float* x,
   V* part_k = reinterpret_cast<V*>(scratch + part_a_floats(q, N, T, C));
   const dim3 grid(q.ncc, q.npb, N * q.nseg);
   const dim3 block(q.wc, q.slots);
-  tam_bwd_kernel<V><<<grid, block, smem, s>>>(
-      reinterpret_cast<const V*>(g), reinterpret_cast<const V*>(x),
-      reinterpret_cast<const V*>(attn), kern, reinterpret_cast<V*>(dx),
+  tam_bwd_kernel<V, E><<<grid, block, smem, s>>>(
+      reinterpret_cast<const R*>(g), reinterpret_cast<const R*>(x),
+      reinterpret_cast<const V*>(attn), kern, reinterpret_cast<R*>(dx),
       part_a, part_k, T, P, q.units, q.seg_len, q.nseg, q.pp);
-  vitta::count_launch(sizeof(V) == 16 ? "tam_bwd_kernel<float4>"
-                                      : "tam_bwd_kernel<float>");
+  vitta::count_launch(bwd_kernel_name<V, E>());
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long threads = (long long)N * (T + 3) * q.units * 32;
@@ -368,9 +577,10 @@ bool bad_dims(int N, int T, int P, int C) {
   return N <= 0 || T <= 0 || P <= 0 || C <= 0 || N > 65535;
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
+bool aligned16(const void* p) { return aligned(p, 16); }
 
 }  // namespace
 
@@ -399,7 +609,7 @@ int vitta_tam_fwd(const float* x, const float* attn, const float* kern,
   if (bad_dims(N, T, P, C)) return (int)cudaErrorInvalidValue;
   const long long PC = (long long)P * C;
   const dim3 grid((unsigned)((PC + kFwdThreads - 1) / kFwdThreads), N);
-  tam_fwd_kernel<<<grid, kFwdThreads, 0, (cudaStream_t)stream>>>(
+  tam_fwd_kernel<float><<<grid, kFwdThreads, 0, (cudaStream_t)stream>>>(
       x, attn, kern, out, T, C, PC);
   vitta::count_launch("tam_fwd_kernel");
   return (int)cudaGetLastError();
@@ -417,10 +627,62 @@ int vitta_tam_bwd(const float* g, const float* x, const float* attn,
   if (q.npb > 65535 || (long long)N * q.nseg > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return q.vec ? launch_bwd<float4>(q, g, x, attn, kern, dx, scratch, dattn,
-                                    dkern, N, T, P, C, s)
-               : launch_bwd<float>(q, g, x, attn, kern, dx, scratch, dattn,
-                                   dkern, N, T, P, C, s);
+  return q.vec ? launch_bwd<float4, float>(q, g, x, attn, kern, dx, scratch,
+                                           dattn, dkern, N, T, P, C, s)
+               : launch_bwd<float, float>(q, g, x, attn, kern, dx, scratch,
+                                          dattn, dkern, N, T, P, C, s);
+}
+
+// bfloat16 x and out, float32 attn and kern.  vec = 1: C % 8 == 0 and x,
+// attn and out 16-byte aligned (8 channels a thread; the caller decides),
+// else one channel a thread.
+int vitta_tam_fwd_bf16(const void* x, const float* attn, const float* kern,
+                       void* out, int N, int T, int P, int C, int vec,
+                       void* stream) {
+  if (bad_dims(N, T, P, C)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long PC = (long long)P * C;
+  if (vec) {
+    if (C % 8 != 0 || !aligned16(x) || !aligned16(attn) || !aligned16(out))
+      return (int)cudaErrorMisalignedAddress;
+    const long long PU = PC / 8;
+    const dim3 grid((unsigned)((PU + kFwdThreads - 1) / kFwdThreads), N);
+    tam_fwd_bf16x8_kernel<<<grid, kFwdThreads, 0, s>>>(
+        reinterpret_cast<const uint4*>(x), attn, kern,
+        reinterpret_cast<uint4*>(out), T, C, PU);
+    vitta::count_launch("tam_fwd_bf16x8_kernel");
+  } else {
+    const dim3 grid((unsigned)((PC + kFwdThreads - 1) / kFwdThreads), N);
+    tam_fwd_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, s>>>(
+        reinterpret_cast<const __nv_bfloat16*>(x), attn, kern,
+        reinterpret_cast<__nv_bfloat16*>(out), T, C, PC);
+    vitta::count_launch("tam_fwd_kernel<__nv_bfloat16>");
+  }
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 g, x and dx, float32 attn, kern, dattn and dkern.  vec = 1: C %
+// 4 == 0, g, x and dx 8-byte and attn 16-byte aligned (units of 4
+// channels, the float32 plan; the caller decides and passes the same vec
+// to vitta_tam_bwd_scratch_floats).
+int vitta_tam_bwd_bf16(const void* g, const void* x, const float* attn,
+                       const float* kern, void* dx, float* scratch,
+                       float* dattn, float* dkern, int N, int T, int P, int C,
+                       int vec, void* stream) {
+  if (bad_dims(N, T, P, C)) return (int)cudaErrorInvalidValue;
+  if (vec && (C % 4 != 0 || !aligned(g, 8) || !aligned(x, 8) ||
+              !aligned16(attn) || !aligned(dx, 8)))
+    return (int)cudaErrorMisalignedAddress;
+  const Plan q = plan_for(N, T, P, C, vec != 0);
+  if (q.npb > 65535 || (long long)N * q.nseg > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return q.vec ? launch_bwd<float4, __nv_bfloat16>(
+                     q, g, x, attn, kern, dx, scratch, dattn, dkern, N, T, P,
+                     C, s)
+               : launch_bwd<float, __nv_bfloat16>(
+                     q, g, x, attn, kern, dx, scratch, dattn, dkern, N, T, P,
+                     C, s);
 }
 
 }  // extern "C"

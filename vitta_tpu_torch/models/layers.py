@@ -21,6 +21,13 @@ output-side ``stat`` leaf from one op, ``fused_bn_relu_stats``
 (ops/cuda_stats.py): on the card one pass over the activation instead of
 the normalization and two reductions.
 
+Types: activations are float32, or bfloat16 in the bfloat16 TANet
+(``TANet(dtype="bfloat16")``); parameters, statistics and taps are always
+float32.  A norm layer computes in float32 and returns its input's dtype;
+its taps read a float32 view of the activation, made only where a leaf is
+recorded.  ``conv_nhwc`` runs a conv at its input's dtype from the float32
+master weights, as flax's ``promote_dtype`` does.
+
 Layout: activations are channels-last ``(..., C)`` tensors, as in the JAX
 package.  2D features are ``(N*T, H, W, C)`` and contiguous, which is the
 ``torch.channels_last`` memory of an ``(N*T, C, H, W)`` tensor, so a conv
@@ -112,15 +119,18 @@ def record_typed_stats(taps: dict, name: str, x: torch.Tensor,
     overrides the count leaf where dim 0 of ``x`` is not the reference
     batch; ``spatiotemp`` is that type's statistics of ``x`` where the
     caller has them already.  A layer that ``taps`` does not name records
-    nothing."""
+    nothing.  The statistics are of ``x`` in float32: a bfloat16 ``x`` is
+    read as float32 once, and only where a leaf is reduced from it."""
     names = getattr(taps, "names", None)
     if names is not None and name not in names:
         return
     slot = taps.setdefault(name, {})
-    for st in stat_types:
+    wanted = [st for st in stat_types
+              if _wants(taps, tap_leaf_name(st, input_side))]
+    if any(st != "spatiotemp" or spatiotemp is None for st in wanted):
+        x = x.to(torch.float32)
+    for st in wanted:
         leaf = tap_leaf_name(st, input_side)
-        if not _wants(taps, leaf):
-            continue
         if st == "cossim":
             sim = _cossim_vector(x, clip_len)
             if sim is not None:
@@ -163,6 +173,13 @@ class BatchNorm(nn.Module):
     statistic types are reduced from y by the plain functions; the
     batch-statistics form (its mean and var carry gradients) and the
     untapped forward stay plain tensor code.
+
+    The math is float32 and y has x's dtype: a bfloat16 x gives a bfloat16
+    y (rounded once), whose statistics are those of the rounded y, as in
+    vitta_tpu.  The kernel reads and writes bfloat16, and so does the
+    inference form where no kernel runs (torch's ``batch_norm`` at
+    bfloat16 with float32 parameters); a float32 copy of x is made only for
+    the batch-statistics form and where an input-side leaf is recorded.
     """
 
     def __init__(self, features: int, tap_name: str,
@@ -189,13 +206,13 @@ class BatchNorm(nn.Module):
     def forward(self, x, taps: Optional[dict] = None, *,
                 use_running_average: bool = True,
                 update_running_stats: bool = False):
-        xf = x.to(torch.float32)
         if taps is not None:
-            record_typed_stats(taps, self.tap_name, xf, self.stat_types,
+            record_typed_stats(taps, self.tap_name, x, self.stat_types,
                                self.clip_len, input_side=True)
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
+            xf = x.to(torch.float32)
             dims = tuple(range(x.dim() - 1))
             mean = torch.mean(xf, dim=dims)
             var = torch.mean(torch.square(xf), dim=dims) - torch.square(mean)
@@ -214,18 +231,27 @@ class BatchNorm(nn.Module):
                 and _wants(taps, "stat", self.tap_name)):
             # the inference form with its output's statistics read: y and
             # the "stat" leaf from one op (the kernel on the card)
-            yf, stat = fused_bn_relu_stats(
-                xf, self.weight, self.bias, mean, var, eps=self.eps,
+            y, stat = fused_bn_relu_stats(
+                x, self.weight, self.bias, mean, var, eps=self.eps,
                 relu=False)
-            record_typed_stats(taps, self.tap_name, yf, self.stat_types,
+            record_typed_stats(taps, self.tap_name, y, self.stat_types,
                                self.clip_len, spatiotemp=stat)
-            return yf.to(x.dtype)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        # (x - mean) * inv + bias as one pass over the activation
-        y = torch.addcmul(self.bias - mean * inv, xf, inv).to(x.dtype)
+            return y
+        if use_running_average and x.dtype != torch.float32:
+            # bfloat16 in the inference form: one pass that reads and
+            # writes bfloat16 and computes in float32 (torch's batch_norm
+            # with float32 parameters), y rounded once
+            y = F.batch_norm(x.movedim(-1, 1), mean, var, self.weight,
+                             self.bias, False, 0.0,
+                             self.eps).movedim(1, -1).contiguous()
+        else:
+            inv = torch.rsqrt(var + self.eps) * self.weight
+            # (x - mean) * inv + bias as one float32 pass over the
+            # activation, rounded to x's dtype
+            y = torch.addcmul(self.bias - mean * inv, x, inv).to(x.dtype)
         if taps is not None:
-            record_typed_stats(taps, self.tap_name, y.to(torch.float32),
-                               self.stat_types, self.clip_len)
+            record_typed_stats(taps, self.tap_name, y, self.stat_types,
+                               self.clip_len)
         return y
 
 
@@ -287,10 +313,17 @@ class LayerNorm(nn.Module):
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``conv`` to a channels-last ``(N, H, W, C)`` tensor.  The
-    permuted view is channels_last memory, which cuDNN and oneDNN take
-    and return as is; ``contiguous`` is then free."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    """Apply ``conv`` to a channels-last ``(N, H, W, C)`` tensor at x's
+    dtype: the float32 weight is cast to it, as flax's ``promote_dtype``
+    does (vitta_tpu/models/resnet.py), and its gradient comes back to the
+    float32 master through the cast.  The permuted view is channels_last
+    memory, which cuDNN and oneDNN take and return as is; ``contiguous`` is
+    then free."""
+    weight = conv.weight.to(x.dtype)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, conv.stride,
+                 conv.padding, conv.dilation, conv.groups)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def max_pool_nhwc(x, window: int, stride: int, padding: int):
@@ -300,5 +333,7 @@ def max_pool_nhwc(x, window: int, stride: int, padding: int):
 
 
 def global_avg_pool_2d(x):
-    """AdaptiveAvgPool2d(1) over (N, H, W, C) -> (N, C)."""
-    return torch.mean(x, dim=(1, 2))
+    """AdaptiveAvgPool2d(1) over (N, H, W, C) -> (N, C) float32, whatever
+    x's dtype (vitta_tpu/models/resnet.py upcasts before it pools); the sum
+    is float32, with no float32 copy of x."""
+    return torch.mean(x, dim=(1, 2), dtype=torch.float32)

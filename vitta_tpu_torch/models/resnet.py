@@ -6,7 +6,11 @@ models/tanet_models/tanet.py:125-150 and temporal_module.py:68-140):
 * channels-last frames ``(N*T, H, W, C)``;
 * stride on the 3x3 conv2 (torchvision v1.5 Bottleneck);
 * TAM inserted after conv1/bn1/relu (temporal_module.py:85-91);
-* every BatchNorm records its channel statistics into the tap dict.
+* every BatchNorm records its channel statistics into the tap dict;
+* ``dtype`` is the compute dtype: the stem casts the normalised input to
+  it (vitta_tpu/models/resnet.py:95), convolutions, BatchNorm outputs,
+  residual adds and ReLUs run at it, the TAM's branches and the pooled
+  features are float32, the parameters always float32.
 
 Module names are the reference checkpoint's (``layer3.2.net.conv1``,
 ``layer3.2.tam.G.0``), so its state dict loads with ``strict=True``; tap
@@ -16,7 +20,7 @@ source-statistics dict serves both packages.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,6 +28,20 @@ from torch import nn
 from vitta_tpu_torch.models.layers import (BatchNorm, conv_nhwc,
                                            global_avg_pool_2d, max_pool_nhwc)
 from vitta_tpu_torch.models.tam import TAM
+
+# the compute dtypes the model runs at, by the names of the configuration
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
+    """``dtype`` ("float32", "bfloat16" or a torch dtype) as a torch dtype;
+    raises on any other."""
+    name = str(dtype).replace("torch.", "")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype!r}: TANet runs at "
+                         f"{' or '.join(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
 
 RESNET50_LAYERS: Tuple[Tuple[int, int, int], ...] = (
     # (planes, blocks, first-stride)
@@ -85,12 +103,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTAM(nn.Module):
-    """ResNet-50 + TAM feature extractor: (N*T, H, W, 3) -> (N*T, 2048)."""
+    """ResNet-50 + TAM feature extractor: (N*T, H, W, 3) -> (N*T, 2048)
+    float32, computing at ``dtype`` (float32 or bfloat16)."""
 
     def __init__(self, clip_len: int,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
-                 tap_prefix: str = "base_model"):
+                 tap_prefix: str = "base_model",
+                 dtype: Union[str, torch.dtype] = torch.float32):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64, f"{tap_prefix}.bn1", stat_types, clip_len)
         inplanes = 64
@@ -106,6 +127,7 @@ class ResNetTAM(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*stage))
 
     def forward(self, x, taps: Optional[dict] = None, **bn_kw):
+        x = x.to(self.dtype)
         x = torch.relu(self.bn1(conv_nhwc(self.conv1, x), taps, **bn_kw))
         x = max_pool_nhwc(x, 3, 2, 1)
         for li in range(1, len(RESNET50_LAYERS) + 1):

@@ -11,6 +11,10 @@ models/tanet_models/temporal_module.py:12-65):
 * the dynamic depthwise temporal convolution, ``tam_dynamic_conv``: the
   hand-written CUDA kernel on the card, its plain version on the CPU.
 
+The branches run in float32 whatever x's dtype, on a float32 pooling of x
+(vitta_tpu/models/tam.py:52-72); the dynamic convolution takes x at its
+dtype (bfloat16 in the bfloat16 TANet) beside float32 attn and kernel.
+
 Submodule names are the reference's (``G.0``, ``G.1``, ``L.0`` ...), so
 its state dict loads as it is; the BN1d taps carry the JAX names
 ``<block>.tam.g_bn`` and ``<block>.tam.l_bn``.
@@ -55,8 +59,10 @@ class TAM(nn.Module):
         t = self.clip_len
         n = nt // t
 
-        # spatial pool: (N*T, H, W, C) -> (N, T, C)
-        pooled = torch.mean(x.to(torch.float32), dim=(1, 2)).reshape(n, t, c)
+        # spatial pool: (N*T, H, W, C) -> (N, T, C), summed in float32
+        # without a float32 copy of x
+        pooled = torch.mean(x, dim=(1, 2), dtype=torch.float32).reshape(
+            n, t, c)
 
         # global branch: Dense over T for each (sample, channel)
         g = self.G[0](pooled.transpose(1, 2).reshape(n * c, t))

@@ -12,6 +12,10 @@ models/tanet_models/tanet.py:16-333):
 ``fix_BNS`` (corpus/basics.py:606-611): norm layers use running
 statistics unless the caller asks for the batch-stat form; ``train``
 only switches dropout on.
+
+``dtype`` ("float32" or "bfloat16", ``cfg.model.compute_dtype``) is the
+backbone's compute dtype (vitta_tpu/models/tanet.py:35); the parameters,
+the pooled features, dropout, ``new_fc`` and the logits stay float32.
 """
 
 from __future__ import annotations
@@ -36,12 +40,15 @@ def dropout(x, rate: float, generator: Optional[torch.Generator]):
 class TANet(nn.Module):
     def __init__(self, num_classes: int, clip_length: int = 16,
                  dropout: float = 0.8,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 dtype: str = "float32"):
         super().__init__()
         self.num_classes = num_classes
         self.clip_length = clip_length
         self.dropout = dropout
-        self.base_model = ResNetTAM(clip_length, tuple(stat_types))
+        self.base_model = ResNetTAM(clip_length, tuple(stat_types),
+                                    dtype=dtype)
+        self.dtype = self.base_model.dtype
         self.new_fc = nn.Linear(2048, num_classes)
 
     def forward(self, x, taps: Optional[dict] = None, *, train: bool = False,

@@ -49,14 +49,16 @@ def grad_wanted(*tensors) -> bool:
 
 
 def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device,
-                 contiguous: bool = True):
-    """Raise unless ``ten`` is a float32 CUDA tensor of ``shape`` on
-    ``device``, and contiguous unless the kernel takes its strides."""
+                 contiguous: bool = True, dtypes=(torch.float32,)):
+    """Raise unless ``ten`` is a CUDA tensor of ``shape`` on ``device`` with
+    one of ``dtypes`` (by default float32 only), and contiguous unless the
+    kernel takes its strides."""
     if ten.device.type != "cuda" or ten.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
                          f"{ten.device}")
-    if ten.dtype != torch.float32:
-        raise TypeError(f"the {what} kernel takes float32 only; {name} is "
+    if ten.dtype not in dtypes:
+        takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"the {what} kernel takes {takes} only; {name} is "
                         f"{ten.dtype}")
     if tuple(ten.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(ten.shape)}, expected "
@@ -65,11 +67,22 @@ def check_tensor(what: str, name: str, ten: torch.Tensor, shape, device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def vector_units(c: int, width: int, *tensors) -> int:
+    """1 where a kernel may move units of ``width`` channels at once: C %
+    width == 0 and every tensor it moves by the unit starts on a boundary
+    of the unit's bytes (``width`` elements of its type, at most 16 bytes);
+    else 0.  A contiguous view may start one element past such a boundary:
+    4 bytes in float32, 2 in bfloat16."""
+    return int(c % width == 0 and all(
+        t.data_ptr() % min(16, width * t.element_size()) == 0
+        for t in tensors))
+
+
 def float4_units(c: int, *tensors) -> int:
     """1 where a kernel may move 16-byte units of 4 floats: C % 4 == 0 and
     every tensor it reads or writes by the unit starts on a 16-byte
     boundary; else 0 (a contiguous view may start 4 bytes past one)."""
-    return int(c % 4 == 0 and all(v.data_ptr() % 16 == 0 for v in tensors))
+    return vector_units(c, 4, *tensors)
 
 
 def raise_on(code: int, what: str):

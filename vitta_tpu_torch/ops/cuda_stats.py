@@ -9,14 +9,27 @@ over the rows of a channels-last ``x`` (..., C) with per-channel ``scale``,
 followed by ``channel_stats`` of its output computes, with one read of ``x``
 and one write of ``y``.  ``fused_bn_relu_stats`` keeps the contract of
 vitta_tpu/ops/pallas_stats.py:68 (``relu`` is an argument, the statistics are
-of the tensor it returns) and sends a CPU tensor to the plain PyTorch version
-(``fused_bn_relu_stats_reference``, under torch's own autograd) and a CUDA
-tensor to the hand-written kernels in ``vitta_tpu_torch/csrc/bn_stats.cu``.
+of the tensor it returns) and sends a CPU tensor to the plain PyTorch versions
+(``fused_bn_relu_stats_reference`` and its backward) and a CUDA tensor to
+the hand-written kernels in ``vitta_tpu_torch/csrc/bn_stats.cu``.
 The JAX function has no backward; the port's ``BatchNorm`` calls this op on
 the adaptation path, so here it has one (``fused_bn_relu_stats_backward_
 reference`` is its plain version): ``mean`` and ``var`` are buffers in the
 inference form and get no gradient.  There is no fallback: a CUDA tensor the
 kernels do not take raises.
+
+x (with y, the cotangent of y and dx) may be float32 or bfloat16; the
+parameters, the statistics and their cotangents are float32.  At bfloat16
+the arithmetic is float32, y is rounded to bfloat16 once, and m and v are
+the statistics of that rounded y: what vitta_tpu/models/layers.py:183-190,
+the tapped BatchNorm this op serves, records (``y.astype(float32)``), not
+the Pallas kernel's sums of the unrounded y (pallas_stats.py:54-57), which
+no vitta_tpu model calls.  The backward keeps G, the cotangent of y plus
+those of m and v, in float32 (JAX's autodiff rounds it to bfloat16 there),
+uses the rounded y in the v term, and rounds dx to bfloat16 once.  On the
+CPU ``BnReluStatsPlain`` runs the plain forward and the plain backward
+(``fused_bn_relu_stats_backward_reference``) at either dtype: at bfloat16
+torch's autograd of the plain forward would round G as JAX does.
 """
 
 from __future__ import annotations
@@ -31,16 +44,21 @@ from vitta_tpu_torch.ops.stats import TapStats, channel_stats
 
 counters = LaunchCounters("fwd", "bwd")
 
+# the types the kernels take for x, y, the cotangent of y and dx
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def fused_bn_relu_stats_reference(x, scale, bias, mean, var, *,
                                   eps: float = 1e-5, relu: bool = True):
     """``(y, TapStats(m, v))`` of ``x`` (..., C) in plain PyTorch: the
-    normalization as one ``addcmul`` pass, then ``channel_stats`` of the
-    (post-ReLU) output."""
+    normalization as one float32 ``addcmul`` pass (x bfloat16 is read as
+    float32 without a copy), y rounded to x's dtype, then ``channel_stats``
+    of that (post-ReLU) y."""
     inv = torch.rsqrt(var + eps) * scale
     y = torch.addcmul(bias - mean * inv, x, inv)
     if relu:
         y = torch.relu(y)
+    y = y.to(x.dtype)
     return y, channel_stats(y)
 
 
@@ -50,21 +68,24 @@ def fused_bn_relu_stats_backward_reference(x, scale, bias, mean, var, m,
                                            relu: bool = True):
     """(dx, dscale, dbias) at ``x`` (R, C) for the cotangents of y, m and v
     (None: zero), written out as the backward kernel computes it: y is
-    recomputed from ``x``, ``m`` is the forward's mean."""
+    recomputed from ``x`` and rounded to its dtype, ``m`` is the forward's
+    mean, G is float32 and dx is rounded to x's dtype once."""
     rows = x.shape[0]
+    xf = x.float()
     rstd = torch.rsqrt(var + eps)
     inv = rstd * scale
-    xhat = (x - mean) * rstd
-    t = torch.addcmul(bias - mean * inv, x, inv)
-    y = torch.relu(t) if relu else t
-    g = torch.zeros_like(x) if g_y is None else g_y
+    xhat = (xf - mean) * rstd
+    t = torch.addcmul(bias - mean * inv, xf, inv)
+    y = (torch.relu(t) if relu else t).to(x.dtype).float()
+    g = torch.zeros_like(xf) if g_y is None else g_y.float()
     if g_m is not None:
         g = g + g_m / rows
     if g_v is not None:
         g = g + g_v * 2.0 * (y - m) / rows
     if relu:
         g = g * (t > 0)
-    return g * inv, torch.sum(g * xhat, dim=0), torch.sum(g, dim=0)
+    return ((g * inv).to(x.dtype), torch.sum(g * xhat, dim=0),
+            torch.sum(g, dim=0))
 
 
 _LIB = None
@@ -83,6 +104,10 @@ def _lib():
         lib.vitta_bn_stats_fwd.restype = i
         lib.vitta_bn_stats_bwd.argtypes = [p] * 12 + [ll, i, f, i, p]
         lib.vitta_bn_stats_bwd.restype = i
+        lib.vitta_bn_stats_fwd_bf16.argtypes = [p] * 8 + [ll, i, f, i, p]
+        lib.vitta_bn_stats_fwd_bf16.restype = i
+        lib.vitta_bn_stats_bwd_bf16.argtypes = [p] * 12 + [ll, i, f, i, p]
+        lib.vitta_bn_stats_bwd_bf16.restype = i
         _LIB = lib
     return _LIB
 
@@ -93,7 +118,8 @@ def _check_inputs(x2, scale, bias, mean, var):
     rows, c = x2.shape
     if rows == 0 or c == 0:
         raise ValueError(f"x has shape {tuple(x2.shape)}: nothing to reduce")
-    check_tensor("BatchNorm-statistics", "x", x2, (rows, c), x2.device)
+    check_tensor("BatchNorm-statistics", "x", x2, (rows, c), x2.device,
+                 dtypes=ACT_DTYPES)
     for name, ten in (("scale", scale), ("bias", bias), ("mean", mean),
                       ("var", var)):
         check_tensor("BatchNorm-statistics", name, ten, (c,), x2.device)
@@ -112,8 +138,10 @@ def bn_stats_fwd_cuda(x2, scale, bias, mean, var, eps: float = 1e-5,
     scratch = torch.empty(lib.vitta_bn_stats_scratch_floats(rows, c),
                           dtype=torch.float32, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    entry = (lib.vitta_bn_stats_fwd if x2.dtype == torch.float32
+             else lib.vitta_bn_stats_fwd_bf16)
     with torch.cuda.device(x2.device):
-        code = lib.vitta_bn_stats_fwd(
+        code = entry(
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             var.data_ptr(), y.data_ptr(), stats.data_ptr(),
             scratch.data_ptr(), rows, c, float(eps), int(relu), stream)
@@ -134,11 +162,13 @@ def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
     check_tensor("BatchNorm-statistics", "m", m, (c,), x2.device)
     g_m = None if g_m is None else g_m.contiguous()
     g_v = None if g_v is None else g_v.contiguous()
-    for name, ten, shape in (("the cotangent of y", g_y, (rows, c)),
-                             ("the cotangent of the mean", g_m, (c,)),
-                             ("the cotangent of the variance", g_v, (c,))):
+    for name, ten, shape, dtype in (
+            ("the cotangent of y", g_y, (rows, c), x2.dtype),
+            ("the cotangent of the mean", g_m, (c,), torch.float32),
+            ("the cotangent of the variance", g_v, (c,), torch.float32)):
         if ten is not None:
-            check_tensor("BatchNorm-statistics", name, ten, shape, x2.device)
+            check_tensor("BatchNorm-statistics", name, ten, shape, x2.device,
+                         dtypes=(dtype,))
     lib = _lib()
     dx = torch.empty_like(x2)
     dsb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
@@ -146,8 +176,10 @@ def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
                           dtype=torch.float32, device=x2.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    entry = (lib.vitta_bn_stats_bwd if x2.dtype == torch.float32
+             else lib.vitta_bn_stats_bwd_bf16)
     with torch.cuda.device(x2.device):
-        code = lib.vitta_bn_stats_bwd(
+        code = entry(
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             var.data_ptr(), m.data_ptr(), ptr(g_y), ptr(g_m), ptr(g_v),
             dx.data_ptr(), dsb.data_ptr(), scratch.data_ptr(), rows, c,
@@ -180,19 +212,44 @@ class BnReluStats(torch.autograd.Function):
         return dx, dscale, dbias, None, None, None, None, None
 
 
+class BnReluStatsPlain(torch.autograd.Function):
+    """The plain forward and backward as one differentiable op over (y, m,
+    v): the CPU's op."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, mean, var, eps, relu):
+        ctx.eps, ctx.relu = eps, relu
+        ctx.set_materialize_grads(False)
+        y, (m, v) = fused_bn_relu_stats_reference(x2, scale, bias, mean, var,
+                                                  eps=eps, relu=relu)
+        ctx.save_for_backward(x2, scale, bias, mean, var, m)
+        return y, m, v
+
+    @staticmethod
+    def backward(ctx, g_y, g_m, g_v):
+        x2, scale, bias, mean, var, m = ctx.saved_tensors
+        dx, dscale, dbias = fused_bn_relu_stats_backward_reference(
+            x2, scale, bias, mean, var, m, g_y, g_m, g_v, eps=ctx.eps,
+            relu=ctx.relu)
+        return dx, dscale, dbias, None, None, None, None
+
+
 def fused_bn_relu_stats(x, scale, bias, mean, var, *, eps: float = 1e-5,
                         relu: bool = True):
     """``(y, TapStats(m, v))``: y in the shape of ``x`` (..., C), the
     statistics (C,) over all leading axes.
 
-    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
-    (forward, and backward under autograd), which raise on any dtype other
-    than float32, on a non-contiguous input or cotangent of y (the leading
-    axes are flattened as a view, no activation is copied), and on a
-    ``mean`` or ``var`` that asks for a gradient."""
+    y has x's dtype, float32 or bfloat16; the parameters and statistics are
+    float32.  A CPU tensor takes the plain versions (``BnReluStatsPlain``);
+    a CUDA tensor takes the kernels (forward, and backward under autograd),
+    which raise on any other dtype, on a non-contiguous input or cotangent
+    of y (the leading axes are flattened as a view, no activation is
+    copied), and on a ``mean`` or ``var`` that asks for a gradient."""
     if x.device.type == "cpu":
-        return fused_bn_relu_stats_reference(x, scale, bias, mean, var,
-                                             eps=eps, relu=relu)
+        c = x.shape[-1]
+        y, m, v = BnReluStatsPlain.apply(x.reshape(-1, c), scale, bias, mean,
+                                         var, float(eps), bool(relu))
+        return y.reshape(x.shape), TapStats(m, v)
     if x.device.type != "cuda":
         raise ValueError("no BatchNorm-statistics implementation for device "
                          f"{x.device}")

@@ -16,6 +16,22 @@ work (``plan_for`` in tam.cu), so that the CPU tests can follow its order
 of summation.  The backward takes 4 channels a thread with 16-byte loads
 only where C % 4 == 0 and its inputs are 16-byte aligned; a view that
 starts elsewhere takes its one-channel path.
+
+x (and the cotangent) may be float32 or bfloat16; attn and the weights are
+float32.  At bfloat16 the kernels and the plain versions round at the same
+points, those of the JAX reference at that type (pallas_tam.py:53,58):
+attn and the weights are rounded to bfloat16 as they are read, the
+arithmetic is float32, out and dx are rounded to bfloat16 once; dattn and
+dkernel stay float32.  Products of bfloat16 values are exact in float32 and
+the plain versions add in the kernels' order, so out and dx have the
+kernels' bits; dattn and dkernel differ by the order of float32 sums.  On
+the CPU ``TamPlain`` runs the plain forward and the plain backward
+(``tam_dynamic_conv_backward_reference``) at either dtype: at bfloat16
+torch's autograd of the plain forward would round the gradients of attn
+and the weights to bfloat16.  At bfloat16 the
+backward's 4-channel units are 8 bytes of g, x and dx, and the forward
+takes 8 channels a thread with 16-byte loads where C % 8 == 0 and x, attn
+and out are 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -26,9 +42,11 @@ import torch
 import torch.nn.functional as F
 
 from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         float4_units, raise_on)
+                                         raise_on, vector_units)
 
 KSIZE = 3  # reference TAM kernel size (temporal_module.py:27)
+# the activations' types the kernels take (attn and the weights: float32)
+ACT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # launches of the TAM kernels, and contiguity copies of incoming gradients
@@ -68,17 +86,63 @@ def bwd_plan(n, t, p, c, vec=None, depth=BWD_DEPTH):
                                 cdiv(t, seg_len), npb, ncc)))
 
 
+def _rounded(v, dtype):
+    """``v`` rounded to ``dtype`` and back: the identity where it is
+    ``dtype`` already."""
+    return v.to(dtype).to(v.dtype)
+
+
 def tam_dynamic_conv_reference(x, attn, kernel):
-    """x (N,T,H,W,C), attn (N,T,C), kernel (N,C,K) -> (N,T,H,W,C)."""
+    """x (N,T,H,W,C), attn (N,T,C), kernel (N,C,K) -> (N,T,H,W,C), in the
+    kernels' arithmetic: float32, from attn and the weights rounded to x's
+    dtype, the output rounded to x's dtype once (at float32 every cast is
+    the identity)."""
     t = x.shape[1]
-    y = x * attn[:, :, None, None, :].to(x.dtype)
+    y = x.float() * _rounded(attn, x.dtype)[:, :, None, None, :]
     pad = KSIZE // 2
     yp = F.pad(y, (0, 0, 0, 0, 0, 0, pad, pad))
     out = torch.zeros_like(y)
     for k in range(KSIZE):
-        wk = kernel[:, None, None, None, :, k].to(x.dtype)
+        wk = _rounded(kernel, x.dtype)[:, None, None, None, :, k]
         out = out + wk * yp[:, k:k + t]
-    return out
+    return out.to(x.dtype)
+
+
+def tam_dynamic_conv_backward_reference(g, x, attn, kernel):
+    """(dx, dattn, dkernel) for the cotangent ``g`` of
+    ``tam_dynamic_conv_reference``, written out as the backward kernel
+    computes it: dy[s] = (K0 g[s+1] + K1 g[s]) + K2 g[s-1] in float32 from
+    the rounded weights, dx = attn * dy rounded to x's dtype once, dattn and
+    dkernel float32 sums over (H, W) and (T, H, W); the gradients of attn
+    and the weights are those of their rounded values."""
+    t = x.shape[1]
+    a = _rounded(attn, x.dtype)[:, :, None, None, :]
+    k = [_rounded(kernel, x.dtype)[:, None, None, None, :, j]
+         for j in range(KSIZE)]
+    gp = F.pad(g.float(), (0, 0, 0, 0, 0, 0, 1, 1))   # g[-1] = g[T] = 0
+    dy = k[0] * gp[:, 2:] + k[1] * gp[:, 1:t + 1] + k[2] * gp[:, :t]
+    xf = x.float()
+    y = a * xf
+    dx = (a * dy).to(x.dtype)
+    dattn = torch.sum(dy * xf, dim=(2, 3))
+    dkernel = torch.stack([torch.sum(gp[:, 2 - j:2 - j + t] * y,
+                                     dim=(1, 2, 3)) for j in range(KSIZE)],
+                          dim=-1)
+    return dx, dattn, dkernel
+
+
+class TamPlain(torch.autograd.Function):
+    """The plain forward and backward as one differentiable op: the CPU's
+    TAM."""
+
+    @staticmethod
+    def forward(ctx, x, attn, kernel):
+        ctx.save_for_backward(x, attn, kernel)
+        return tam_dynamic_conv_reference(x, attn, kernel)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tam_dynamic_conv_backward_reference(g, *ctx.saved_tensors)
 
 
 _LIB = None
@@ -94,6 +158,10 @@ def _lib():
         lib.vitta_tam_fwd.restype = i
         lib.vitta_tam_bwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.vitta_tam_bwd.restype = i
+        lib.vitta_tam_fwd_bf16.argtypes = [p, p, p, p] + [i] * 5 + [p]
+        lib.vitta_tam_fwd_bf16.restype = i
+        lib.vitta_tam_bwd_bf16.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.vitta_tam_bwd_bf16.restype = i
         lib.vitta_tam_bwd_scratch_floats.argtypes = [i] * 5
         lib.vitta_tam_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_tam_bwd_plan.argtypes = [i] * 5 + [p]
@@ -107,18 +175,24 @@ def _check(x, attn, kernel, g=None):
     if x.dim() != 5:
         raise ValueError(f"x must be (N,T,H,W,C), got shape {tuple(x.shape)}")
     n, t, h, w, c = x.shape
-    want = [("x", x, x.shape), ("attn", attn, (n, t, c)),
-            ("kernel", kernel, (n, c, KSIZE))]
+    check_tensor("TAM", "x", x, x.shape, x.device, dtypes=ACT_DTYPES)
+    check_tensor("TAM", "attn", attn, (n, t, c), x.device)
+    check_tensor("TAM", "kernel", kernel, (n, c, KSIZE), x.device)
     if g is not None:
-        want.append(("grad", g, x.shape))
-    for name, ten, shape in want:
-        check_tensor("TAM", name, ten, shape, x.device)
+        check_tensor("TAM", "grad", g, x.shape, x.device, dtypes=(x.dtype,))
     return n, t, h * w, c
 
 
-# 1 where the backward takes 16-byte units of 4 channels, else 0 (one
-# channel a thread)
-bwd_vec = float4_units
+def bwd_vec(c, *tensors) -> int:
+    """1 where the backward takes units of 4 channels (16 bytes of float32,
+    8 of bfloat16; attn's always 16), else 0 (one channel a thread)."""
+    return vector_units(c, 4, *tensors)
+
+
+def fwd_vec_bf16(c, *tensors) -> int:
+    """1 where the bfloat16 forward takes 8 channels a thread (16 bytes of
+    x and out, 32 of attn, each 16-byte aligned), else 0."""
+    return vector_units(c, 8, *tensors)
 
 
 def bwd_plan_cuda(n, t, p, c, vec=None):
@@ -134,10 +208,13 @@ def tam_fwd_cuda(x, attn, kernel):
     n, t, p, c = _check(x, attn, kernel)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), attn.data_ptr(), kernel.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
-        code = _lib().vitta_tam_fwd(x.data_ptr(), attn.data_ptr(),
-                                    kernel.data_ptr(), out.data_ptr(),
-                                    n, t, p, c, stream)
+        if x.dtype == torch.float32:
+            code = _lib().vitta_tam_fwd(*ptrs, n, t, p, c, stream)
+        else:
+            code = _lib().vitta_tam_fwd_bf16(
+                *ptrs, n, t, p, c, fwd_vec_bf16(c, x, attn, out), stream)
     raise_on(code, "TAM forward kernel")
     counters.fwd += 1
     return out
@@ -155,12 +232,13 @@ def tam_bwd_cuda(g, x, attn, kernel):
     scratch = torch.empty(lib.vitta_tam_bwd_scratch_floats(n, t, p, c, vec),
                           dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    entry = (lib.vitta_tam_bwd if x.dtype == torch.float32
+             else lib.vitta_tam_bwd_bf16)
     with torch.cuda.device(x.device):
-        code = lib.vitta_tam_bwd(g.data_ptr(), x.data_ptr(), attn.data_ptr(),
-                                 kernel.data_ptr(), dx.data_ptr(),
-                                 scratch.data_ptr(), dattn.data_ptr(),
-                                 dkernel.data_ptr(), n, t, p, c, vec,
-                                 stream)
+        code = entry(g.data_ptr(), x.data_ptr(), attn.data_ptr(),
+                     kernel.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+                     dattn.data_ptr(), dkernel.data_ptr(), n, t, p, c, vec,
+                     stream)
     raise_on(code, "TAM backward kernel")
     counters.bwd += 1
     return dx, dattn, dkernel
@@ -188,11 +266,12 @@ def tam_dynamic_conv(x, attn, kernel):
     """Fused y = dynconv_t(attn * x). x (N,T,H,W,C), attn (N,T,C) in
     [0,1], kernel (N,C,K=3) softmax weights -> (N,T,H,W,C).
 
-    A CPU tensor takes the plain version; a CUDA tensor takes the kernel,
-    which raises on any dtype other than float32, any other shape, or a
+    x is float32 or bfloat16 (and so is out), attn and kernel float32.  A
+    CPU tensor takes the plain versions (``TamPlain``); a CUDA tensor takes
+    the kernels, which raise on any other dtype, any other shape, or a
     non-contiguous input."""
     if x.device.type == "cpu":
-        return tam_dynamic_conv_reference(x, attn, kernel)
+        return TamPlain.apply(x, attn, kernel)
     if x.device.type != "cuda":
         raise ValueError(f"no TAM implementation for device {x.device}")
     return TamDynamicConv.apply(x, attn, kernel)

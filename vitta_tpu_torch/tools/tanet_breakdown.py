@@ -1,17 +1,20 @@
 """Where a TANet adaptation step's device time goes, by class of kernel.
 
-    python3 -m vitta_tpu_torch.tools.tanet_breakdown [n_videos] [stat_reg]
+    python3 -m vitta_tpu_torch.tools.tanet_breakdown [n_videos] [stat_reg] \
+        [compute_dtype]
 
 Runs ``tta_stream`` of TANet at the reference operating point
 (``tanet_ucf101_preset``: 101 classes, 2 views x 16 frames x 224 x 224,
-float32, seeded random weights, synthetic uint8 videos) over ``n_videos``
-(default 6, the first two warm-up) under ``stat_reg`` (default
-``mean_var``), then profiles one adapt+eval step with its inputs on the
-card (``tools/synthetic.py:device_breakdown``) and prints the step's host
-time, device-busy time and idle share, the busy time split into classes of
-kernels by name (convolutions and matrix products, elementwise passes,
-reductions, the hand-written kernels, the optimizer, the rest), and the
-largest kernels.  Needs a CUDA device; the numbers are that card's.
+seeded random weights, synthetic uint8 videos) at ``compute_dtype``
+(default ``float32``; ``bfloat16``: the bfloat16 TANet, float32 masters)
+over ``n_videos`` (default 6, the first two warm-up) under ``stat_reg``
+(default ``mean_var``), then profiles one adapt+eval step with its inputs
+on the card (``tools/synthetic.py:device_breakdown``) and prints the step's
+host time, device-busy time and idle share, the busy time split into
+classes of kernels by name (convolutions and matrix products, cuDNN's
+layout transposes, elementwise passes (casts among them), reductions, the
+hand-written kernels, the optimizer, the rest), and the largest kernels.
+Needs a CUDA device; the numbers are that card's.
 
 chip_smoke.py shares the set-up and the classes.  To compare two checkouts
 on one card, run the module from each in one command, in turns.
@@ -37,12 +40,13 @@ KERNEL_CLASSES = (
     ("reduce_partials", ("reduce_partials", "col_sums")),
     ("optimizer", ("multi_tensor", "foreach", "fused_sgd", "fused_adam")),
     ("reduction", ("reduce_kernel", "Reduce", "mean_kernel", "sum_kernel")),
+    ("transpose", ("nchwToNhwc", "nhwcToNchw")),
     ("convolution_or_product", ("cudnn", "conv", "gemm", "xmma", "cutlass",
                                 "implicit", "wgrad", "dgrad", "sm90_",
                                 "sm80_", "ampere", "hopper", "gemv")),
     ("pooling", ("pool",)),
     ("elementwise", ("elementwise", "Elementwise", "CatArray", "copy",
-                     "fill", "where", "nchwToNhwc", "nhwcToNchw")),
+                     "fill", "where")),
 )
 
 
@@ -129,6 +133,7 @@ def profile_step(engine, video, state=None):
 def main(argv) -> int:
     n_videos = int(argv[1]) if len(argv) > 1 else 6
     stat_reg = argv[2] if len(argv) > 2 else "mean_var"
+    dtype = argv[3] if len(argv) > 3 else "float32"
     if not torch.cuda.is_available():
         print("tanet_breakdown: no CUDA device", file=sys.stderr)
         return 1
@@ -141,7 +146,8 @@ def main(argv) -> int:
     tta = dict(stat_reg=stat_reg)
     if stat_reg == "cossim":
         tta["stat_type"] = ("temp",)
-    engine, rng = tanet_engine(tanet_cfg(16, 101, tta=tta), seed=0)
+    engine, rng = tanet_engine(tanet_cfg(16, 101, tta=tta,
+                                         compute_dtype=dtype), seed=0)
     data = videos(rng, n_videos, 16, 224)
     writer = StepTimes()
     torch.cuda.synchronize()
@@ -153,7 +159,8 @@ def main(argv) -> int:
     host_ms, busy, classes, largest = profile_step(engine, data[-1], state)
     warm = writer.ms[2:] or writer.ms
     print(json.dumps({
-        "card": card, "stat_reg": stat_reg, "videos": len(warm),
+        "card": card, "stat_reg": stat_reg, "compute_dtype": dtype,
+        "videos": len(warm),
         "median_ms_per_video": statistics.median(warm),
         "min_ms": min(warm), "max_ms": max(warm), "peak_gib": peak,
         "loss_reg": meters["loss_reg"].avg, "host_ms": host_ms,
