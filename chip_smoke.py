@@ -193,9 +193,54 @@ result line:
    relative difference, parameter and EMA relative L2 drift) and holds
    them to GATE_BOUNDS.
 
+25. The LayerNorm, LayerNorm-MLP and packed attention kernels at bfloat16
+   (rows 3, 4, 10, 11, 14 and 15 in the bfloat16 Swin: activations,
+   weights and their gradients bfloat16, gamma, beta, bias, mask, row
+   statistics, dgamma, dbeta and dbias float32) against their plain
+   versions, which round where vitta_tpu's Pallas kernels round at
+   bfloat16: every Swin-B LayerNorm site and stage shape at 1 and 2 clips,
+   forward and backward (the attention's backward also at 1 clip, dense and
+   compact bias), held by vitta_tpu_torch/tools/bf16_checks.py (one
+   bfloat16 ulp; every step of the LayerNorm-MLP and the attention from the
+   kernel's own rounded intermediates, read from its outputs, its
+   backward's scratch and the attention's instances that write bfloat16(e),
+   and those intermediates against their plain values; end to end the
+   attention's out and dqkv at most 1e-4 of the values beyond one ulp, those
+   within 2^-7 of the absolute products through e and dl); two backward
+   runs bit-equal; launches per call, of bfloat16 instances only; a
+   LayerNorm view 2 bytes past a 16-byte boundary on the one-value path.
+   Each row's ``max_abs_err`` is the largest difference of any of its
+   outputs, bfloat16 and float32, from the plain version it is held to.
+   Device ms per Swin-B pass of 2 clips beside the bound at bfloat16
+   (bytes over 3.35 TB/s, operations over 989 TFLOP/s), the float32
+   kernel's on the same values, the plain versions' and the library
+   calls' (F.layer_norm and its backward, sdpa with the bias as attn_mask
+   and its backward; the LayerNorm-MLP's F.layer_norm-F.linear-F.gelu-
+   F.linear composition and its autograd backward beside it, no one call
+   computing it); the device times from CUDA graphs' replays
+   (``graph_ms``), the libraries' backward from the profiler.
+26. A small bfloat16 Swin (embed 128, depths (2, 1), heads (4, 8), window
+   (2, 3, 3), 4 x 48 x 48: every width a multiple of 128, as Swin-B's):
+   two tta_online steps on the card and on the CPU, held as phase 23's.
+27. Swin-B at bfloat16 (``Recognizer3D(..., dtype="bfloat16")``, float32
+   masters, SGD, losses and statistics; the float32 model's source
+   statistics): ``tta_stream`` over 6 videos, per video the launches of
+   phase 11, every LayerNorm, LayerNorm-MLP and attention launch a
+   bfloat16 kernel by the libraries' counts; ms/video, peak memory and a
+   profiled step: host, device busy, idle share, busy by class of kernel.
+28. float32 against bfloat16 Swin-B trajectories over 40 videos, as phase
+   24: the quantities of benchmarks/bf16_gate.py (swin), held to
+   GATE_BOUNDS.
+29. Swin-B adapt+eval steps in turns in one process, on one video: float32,
+   bfloat16 with the engine's bfloat16 twin of the cast weights, bfloat16
+   casting them at every use (3 rounds of the three and back): the host's
+   time to enqueue each step and its wall time, and a profiled step of
+   each: device busy, launches, the copy kernels' launches and time.
+
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
-7-11, 13, 14, 16, 17.  No earlier full-size stream was cut for phases 18
-to 24.  To
+7-11, 13, 14, 16, 17, 26-29, 25 (25 last: the memory of its CUDA graphs
+would stand in phase 27's peak).  No earlier full-size stream was cut for
+phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
 ran 6; to leave it to phases 12 to 14, phases 3 and 4 time each call over
@@ -207,8 +252,9 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that one JSON line of the
 kernels (the bfloat16 rows named ``..._bf16``).  TF32 is switched off for
 matmuls and convolutions, because the comparisons of every phase but
-22-24 are float32 ones; those are bfloat16's, whose convolutions run on
-the tensor cores at bfloat16 whatever the TF32 switch.
+22-28 are float32 ones; those are bfloat16's, whose products and
+convolutions run on the tensor cores at bfloat16 whatever the TF32
+switch.
 
 Each kernel's ``bound_ms`` is the least time the card could take for the
 same work: the larger of the bytes the function must move (each input
@@ -217,7 +263,10 @@ operations over 67 TFLOP/s, NVIDIA's published H100 SXM peaks.  The
 attention kernels and gemm_tiles run their matrix products on the tensor
 cores in split TF32; the rows of the kernels built on them (8-19 of
 PERF.md's table) also carry ``tf32x3_floor_ms``, three tf32 products of
-those products at the dense TF32 rate of 495 TFLOP/s.
+those products at the dense TF32 rate of 495 TFLOP/s.  The bfloat16 Swin
+rows (phase 25) count their operations against the dense bfloat16
+tensor-core rate, 989 TFLOP/s (``BF16_FLOP_PER_S``), and their bytes at
+bfloat16 (float32 for the bias, mask, row statistics and parameters).
 """
 
 from __future__ import annotations
@@ -240,7 +289,8 @@ import torch
 from vitta_tpu_torch.tools.synthetic import (
     SWIN_MODELS, StepTimes as _StepTimes, device_breakdown,
     normalized_batches as _normalized_batches, swin_cfg as _swin_cfg,
-    swin_weights as _swin_weights, videos as _videos)
+    swin_model as _synthetic_swin, swin_weights as _swin_weights,
+    videos as _videos)
 from vitta_tpu_torch.ops._launch import launches_of
 # every LayerNorm kernel site of one Swin-B and one Swin-T forward pass:
 # (tokens per clip, C) -> sites
@@ -294,6 +344,7 @@ GATE_BOUNDS = {"pred_agreement": (">=", 0.9),
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 FP32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12      # dense TF32 on the tensor cores
+BF16_FLOP_PER_S = 989e12      # dense bfloat16 on the tensor cores
 
 # Swin-B on a 16x224x224 clip, per stage: width C, heads, tokens per clip,
 # windows per clip (= the shift mask's nW), blocks
@@ -407,11 +458,12 @@ def check_scaled(name, got, want, tol):
     return err
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the least time the card could take to
-    move ``nbytes`` and do ``flops`` float32 operations."""
+    move ``nbytes`` and do ``flops`` operations at ``flop_rate`` (float32's
+    by default; the bfloat16 rows' at the bfloat16 tensor-core rate)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -488,8 +540,9 @@ class Totals:
             else:
                 self.sum[key] += sites * v
 
-    def row(self, name, source, replaces, has_library=True):
-        ms, by = bound(self.sum["bytes"], self.sum["flops"])
+    def row(self, name, source, replaces, has_library=True,
+            flop_rate=FP32_FLOP_PER_S):
+        ms, by = bound(self.sum["bytes"], self.sum["flops"], flop_rate)
         s = self.sum
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": self.err, "ms": s["ms"],
@@ -1875,20 +1928,14 @@ def phase_bn_stats_kernels(dev):
 
 
 def _bf16_ulps(name, got, want):
-    """(values that differ, largest difference in bfloat16 ulps of |want|)
-    of two bfloat16 tensors; raises beyond one ulp, or beyond 2^-20 of the
-    largest |want| where a value near 0 is the difference of larger float32
-    terms (a few float32 roundings of those)."""
-    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
-        raise AssertionError(f"{name}: {got.dtype} against {want.dtype}")
-    g, w = got.float(), want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
-                     - 7)
-    err = (g - w).abs()
-    if not bool((err <= torch.maximum(ulp, 2.0 ** -20 * w.abs().max())).all()):
-        raise AssertionError(f"{name}: {float((err / ulp).max()):.1f} "
-                             "bfloat16 ulps from the plain version")
-    return int((err > 0).sum()), float((err / ulp).max())
+    """(values that differ, largest difference in units of the bound) of
+    two bfloat16 tensors; raises beyond one ulp of |want|, or beyond 2^-20
+    of the largest |want| where that is more (a value near 0 is the
+    difference of larger float32 terms, a few float32 roundings of
+    those)."""
+    from vitta_tpu_torch.tools.bf16_checks import assert_bf16_within
+    share, ulps, _err = assert_bf16_within(name, got, want)
+    return round(share * want.numel()), ulps
 
 
 def _bf16_name(name: str) -> bool:
@@ -2138,7 +2185,8 @@ def phase_bf16_kernels(dev):
                    x, scale, bias, mean, var, m, g_y, relu=False)[0])
     print(f"bn_stats bf16, a view 2 bytes past a 16-byte boundary (6272 x "
           f"256): launches {names}; y and dx within one ulp; largest y / dx "
-          f"difference at the sites {worst_ulps:.2f} ulps", flush=True)
+          f"difference at the sites {worst_ulps:.2f} of the bound (one ulp, "
+          f"or the floor)", flush=True)
 
     rows = []
     for d, line in (("fwd", 77), ("bwd", 92)):
@@ -2163,7 +2211,7 @@ def phase_bf16_kernels(dev):
     return rows
 
 
-def _assert_bf16_slice(what, sd, runs, bn_launches):
+def _assert_bf16_slice(what, sd, runs, launches):
     """Card against CPU at bfloat16 (both the port): two bfloat16 runs that
     round at other points (cuDNN against oneDNN), held as
     tests/test_torch_bf16_engine.py holds the port to vitta_tpu at
@@ -2213,7 +2261,7 @@ def _assert_bf16_slice(what, sd, runs, bn_launches):
           f"{logit_err:.2e}; EMA of {len(e_cpu)} layers within bounds; "
           f"{len(each)} parameters moved, the whole update {whole:.4f} of "
           f"its norm apart, median tensor {np.median(each):.4f}, worst "
-          f"{max(each):.4f}; bn_stats launches fwd/bwd {bn_launches}",
+          f"{max(each):.4f}; kernel launches {launches}",
           flush=True)
 
 
@@ -3030,6 +3078,849 @@ def phase_routes_interleaved(cfg, sd, stats, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Video Swin-B at bfloat16 (phases 25-28)
+
+def _bf16_swin_launches(names, parts=("ln_rows", "ln_bwd_kernel",
+                                       "gemm_tiles", "attn_fwd",
+                                       "attn_bwd")):
+    """Raise where a float32 instance of the Swin kernels ran among
+    ``names`` (the libraries' counts of a bfloat16 run)."""
+    bad = {k: n for k, n in names.items()
+           if any(k.startswith(p) for p in parts) and not _bf16_name(k)}
+    if bad:
+        raise AssertionError(f"float32 Swin kernels ran at bfloat16: {bad}")
+
+
+def graph_ms(fn, calls: int = 5, reps: int = 3) -> float:
+    """Device ms per call of ``fn`` from CUDA events around the replay of a
+    CUDA graph of ``calls`` calls (median of ``reps`` replays): the kernels
+    back to back, no host in between, and no profiler, whose traces drop
+    kernels after many profiles in one process (phase 25 saw device times
+    below the bytes' bound).  ``fn`` runs once on a side stream first, as
+    capture asks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def _measure_bf16(fn):
+    """(CUDA-event ms of one call, device ms a call from a CUDA graph's
+    replay) of ``fn``."""
+    return cuda_ms(fn, reps=6), graph_ms(fn)
+
+
+def _measure_bf16_grad(backward):
+    """The same for a library call's autograd backward, which a CUDA graph
+    does not take from outside its forward: event ms, and device ms from
+    the profiler (asked again, twice at most, where it recorded no kernel;
+    where it drops kernels it reads low, in the library's favour)."""
+    with torch.enable_grad():
+        event = cuda_ms(backward, reps=6)
+        device = None
+        for _ in range(3):
+            device = device_ms(backward, reps=4)
+            if device is not None:
+                break
+    return event, device
+
+
+def phase_bf16_swin_kernels(dev):
+    """Phase 25: the bfloat16 LayerNorm, LayerNorm-MLP and packed attention
+    kernels (rows 3, 4, 10, 11, 14, 15 in the bfloat16 Swin) against their
+    plain versions at every Swin-B stage shape, forward at 1 and 2 clips,
+    backward at 2 clips (the attention's also at 1 clip), held by
+    vitta_tpu_torch/tools/bf16_checks.py: every bfloat16 output within one
+    bfloat16 ulp of the plain version computed from the kernel's own
+    rounded intermediates (the LayerNorm-MLP's a, dh, dhc and dy; the
+    attention's e from its instances that write it, and dl from the
+    backward's scratch), those intermediates within one ulp (e) or the
+    float32 tolerance (dl, dh, dy) of their plain values, the attention's
+    out and dqkv end to end at most 1e-4 of the values beyond one ulp and
+    those within 2^-7 of the absolute products through e and dl; float32
+    outputs (dgamma, dbeta, ms, dbias) within the float32 phases'
+    tolerances; two backward runs bit-equal; launches per call from the
+    libraries' counts, every one a bfloat16 instance; a LayerNorm view 2
+    bytes past a 16-byte boundary on the one-value path.  Each row's
+    ``max_abs_err`` is the largest difference of any of its outputs from
+    the plain version it is held to.  Device ms per Swin-B pass of 2 clips
+    (CUDA graphs' replays, ``graph_ms``) beside the bound at bfloat16
+    (bytes over 3.35 TB/s, operations over the dense bfloat16 tensor-core
+    rate), the float32 kernel's on the same values by the same replays
+    (``float32_device_ms``), the plain versions', the library calls'
+    (F.layer_norm, sdpa with the bias as attn_mask, their backward from
+    the profiler; the LayerNorm-MLP has none, its F.layer_norm-F.linear-
+    F.gelu-F.linear composition is timed beside it).  Returns the six JSON
+    rows."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    from vitta_tpu_torch.tools.bf16_checks import (
+        assert_bf16_mostly_within, assert_bf16_within, ln_mlp_bwd_stages,
+        ln_mlp_fwd_stages, packed_attention_bf16_bwd_stages,
+        packed_attention_bf16_fwd_stage, packed_attention_bf16_intermediates,
+        packed_attention_bf16_slack)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def bf(*shape, scale=1.0):
+        return randn(*shape, scale=scale).to(bf16)
+
+    def kernels(fn, want):
+        names = launches_of(fn)
+        _bf16_swin_launches(names)
+        if sum(names.values()) != want:
+            raise AssertionError(f"launches {names}, expected {want}")
+        return names
+
+    tot = {k: Totals() for k in ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
+                                 "mlp_fwd", "mlp_bwd")}
+
+    def per_site(t, sizes):
+        """One line: each kernel's device us a call beside its bound at
+        bfloat16 and its launches a call; ``sizes`` is {label: (time key,
+        bytes, operations, launches)}."""
+        print("  " + "; ".join(
+            f"{label} device us {fmt(t[key][1] and t[key][1] * 1e3)} against "
+            f"its bound {bound(nb, fl, BF16_FLOP_PER_S)[0] * 1e3:.2f} us, "
+            f"{n} launches a call"
+            for label, (key, nb, fl, n) in sizes.items()), flush=True)
+    comp = {"mlp_fwd": 0.0, "mlp_bwd": 0.0}
+    f32 = {k: 0.0 for k in tot}     # the float32 kernels' device ms a pass
+    apart = {}
+
+    def note(key, row, result):
+        """Keep an output's share of values that differ, its largest
+        difference in units of its bound and (end to end) share beyond one
+        ulp, and its largest absolute difference in ``row``'s
+        max_abs_err."""
+        share, ulps, err = result[:3]
+        s0, u0, b0 = apart.get(key, (0.0, 0.0, 0.0))
+        apart[key] = (max(s0, share), max(u0, ulps),
+                      max(b0, result[3] if len(result) > 3 else 0.0))
+        tot[row].err = max(tot[row].err, err)
+
+    def scaled(row, *args):
+        tot[row].err = max(tot[row].err, check_scaled(*args))
+
+    def add_f32(key, sites, fn):
+        """The float32 kernel on the same values, by the same replays."""
+        ms_ = graph_ms(fn)
+        f32[key] = None if f32[key] is None or ms_ is None else (
+            f32[key] + sites * ms_)
+
+    # rows 3 and 4: every LayerNorm site
+    for (tokens, c), sites in SWIN_LN_SITES.items():
+        g, b = randn(c), randn(c)
+        gb, bb = g.to(bf16), b.to(bf16)
+        for clips in (1, 2):
+            x = (randn(clips * tokens, c, scale=2.0) + 0.5).to(bf16)
+            what = f"ln bf16 rows={clips * tokens} C={c}"
+            kernels(lambda: cl.ln_fwd_cuda(x, g, b, 1e-5), 1)
+            note("y", "ln_fwd", assert_bf16_within(
+                f"{what} y", cl.ln_fwd_cuda(x, g, b, 1e-5),
+                cl.layer_norm_reference(x, g, b, 1e-5)))
+            if clips == 1:
+                continue
+            dy = bf(clips * tokens, c)
+            kernels(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5), 2)
+            got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+            again = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+            want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError(f"{what}: two backward runs differ")
+            note("dx", "ln_bwd", assert_bf16_within(f"{what} dx", got[0],
+                                                    want[0]))
+            for nm, p, q in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+                scaled("ln_bwd", f"{what} {nm}", p, q, LN_BWD_TOL)
+            err = tot["ln_bwd"].err
+            xl = x.detach().requires_grad_()
+            gl, bl = gb.detach().requires_grad_(), bb.detach().requires_grad_()
+            yl = F.layer_norm(xl, (c,), gl, bl, 1e-5)
+            t = {"kernel": _measure_bf16(
+                     lambda: cl.ln_fwd_cuda(x, g, b, 1e-5)),
+                 "plain": _measure_bf16(lambda: cl.layer_norm_reference(
+                     x, g, b, 1e-5)),
+                 "F.layer_norm": _measure_bf16(lambda: F.layer_norm(
+                     x, (c,), gb, bb, 1e-5)),
+                 "kernel bwd": _measure_bf16(lambda: cl.ln_bwd_cuda(
+                     x, g, dy, 1e-5)),
+                 "plain bwd": _measure_bf16(
+                     lambda: cl.layer_norm_backward_reference(x, g, dy, 1e-5)),
+                 "F.layer_norm bwd": _measure_bf16_grad(
+                     lambda: torch.autograd.grad(yl, (xl, gl, bl), dy,
+                                                 retain_graph=True))}
+            _report(f"{what} ({sites} sites)", err, t)
+            xf, dyf = x.float(), dy.float()
+            add_f32("ln_fwd", sites, lambda: cl.ln_fwd_cuda(xf, g, b, 1e-5))
+            add_f32("ln_bwd", sites, lambda: cl.ln_bwd_cuda(xf, g, dyf, 1e-5))
+            del xf, dyf
+            nel = x.numel()
+            per_site(t, {"fwd": ("kernel", 2 * nel * 2 + 2 * c * 4, 8 * nel,
+                                 1),
+                         "bwd": ("kernel bwd", 3 * nel * 2 + 3 * c * 4,
+                                 12 * nel, 2)})
+            tot["ln_fwd"].add(sites, ms=t["kernel"][0],
+                              device_ms=t["kernel"][1],
+                              plain_ms=t["plain"][0],
+                              plain_device_ms=t["plain"][1],
+                              library_ms=t["F.layer_norm"][0],
+                              library_device_ms=t["F.layer_norm"][1],
+                              bytes=2 * nel * 2 + 2 * c * 4, flops=8 * nel)
+            tot["ln_bwd"].add(sites, ms=t["kernel bwd"][0],
+                              device_ms=t["kernel bwd"][1],
+                              plain_ms=t["plain bwd"][0],
+                              plain_device_ms=t["plain bwd"][1],
+                              library_ms=t["F.layer_norm bwd"][0],
+                              library_device_ms=t["F.layer_norm bwd"][1],
+                              bytes=3 * nel * 2 + 3 * c * 4, flops=12 * nel)
+            del x, dy, got, again, want, xl, yl
+    # a view 2 bytes off a 16-byte boundary: the one-value paths
+    x = (randn(6272, 256, scale=2.0) + 0.5).to(bf16)
+    dy, g, b = bf(6272, 256), randn(256), randn(256)
+    buf = torch.empty(x.numel() + 1, dtype=bf16, device=dev)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    names = {**launches_of(lambda: cl.ln_fwd_cuda(xs, g, b, 1e-5)),
+             **launches_of(lambda: cl.ln_bwd_cuda(xs, g, dy, 1e-5))}
+    if "ln_rows_any<__nv_bfloat16>" not in names or not any(
+            k.startswith("ln_bwd_kernel<false") for k in names):
+        raise AssertionError(f"ln bf16 unaligned view: launches {names}")
+    assert_bf16_within("ln bf16 unaligned view y",
+                       cl.ln_fwd_cuda(xs, g, b, 1e-5),
+                       cl.layer_norm_reference(x, g, b, 1e-5))
+    assert_bf16_within("ln bf16 unaligned view dx",
+                       cl.ln_bwd_cuda(xs, g, dy, 1e-5)[0],
+                       cl.layer_norm_backward_reference(x, g, dy, 1e-5)[0])
+    print(f"ln bf16, a view 2 bytes past a 16-byte boundary (6272 x 256): "
+          f"launches {names}, y and dx within one ulp", flush=True)
+    del x, xs, buf, dy
+
+    # rows 14 and 15: the packed attention at every stage
+    wd, wh, ww = SWIN_WINDOW
+    n_tok = wd * wh * ww
+    for c, nh, tokens, nw, depth in SWIN_STAGES:
+        hd, scale = c // nh, (c // nh) ** -0.5
+        vc = randn(nh, 2 * wd - 1, wh * ww, wh * ww, scale=0.5)
+        dense = cb.expand_bias_reference(vc, wd)
+        mask = None
+        if nw > 1:
+            mask = torch.where(torch.rand(nw, n_tok, n_tok, device=dev,
+                                          generator=gen) < 0.3, -100.0, 0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+        for clips in (1, 2):
+            b_ = clips * tokens // n_tok
+            split = ca.bwd_split(b_, nh, dev)
+            qkv, g = bf(b_, n_tok, 3 * c), bf(b_, n_tok, c)
+            for m in ((None, mask) if mask is not None else (None,)):
+                what = (f"attention bf16 B_={b_} nh={nh} hd={hd} mask="
+                        f"{m is not None}")
+                out, ms_ = ca.attn_packed_fwd_cuda(qkv, dense, m, scale, nh,
+                                                   save_ms=True)
+                want, want_ms = ca.packed_attention_bf16_reference(
+                    qkv, dense, m, scale, nh, save_ms=True)
+                tot["attn_fwd"].err = max(tot["attn_fwd"].err, check_close(
+                    f"{what} row max/sum", ms_, want_ms, ATTN_TOL))
+                # the steps on the kernel's own e and dl, and those against
+                # their plain values
+                tf = {}
+                out_t, ms_t = ca.attn_packed_fwd_cuda(
+                    qkv, dense, m, scale, nh, save_ms=True, taps=tf)
+                if not (torch.equal(out_t, out) and torch.equal(ms_t, ms_)):
+                    raise AssertionError(f"{what}: the tapped forward differs")
+                e_want, dl_want = packed_attention_bf16_intermediates(
+                    qkv, dense, m, ms_, g, scale, nh)
+                note("e (forward)", "attn_fwd", assert_bf16_within(
+                    f"{what} forward e", tf["e"], e_want))
+                note("out from its e", "attn_fwd", assert_bf16_within(
+                    f"{what} out from the kernel's e", out,
+                    packed_attention_bf16_fwd_stage(qkv, ms_, tf["e"], nh)))
+                del tf, out_t, ms_t
+                s_out, s_dqkv = packed_attention_bf16_slack(
+                    qkv, dense, m, ms_, g, scale, nh)
+                note("out", "attn_fwd", assert_bf16_mostly_within(
+                    f"{what} out", out, want, s_out))
+                del s_out
+                kernels(lambda: ca.attn_packed_fwd_cuda(qkv, dense, m, scale,
+                                                        nh), 1)
+                for form, bias_t in (("dense", dense), ("compact", vc)):
+                    got = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
+                                                  scale, nh)
+                    again = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
+                                                    scale, nh)
+                    wq, wb = ca.packed_attention_bf16_backward_reference(
+                        qkv, bias_t, m, ms_, g, scale, nh)
+                    if not (torch.equal(got[0], again[0])
+                            and torch.equal(got[1], again[1])):
+                        raise AssertionError(f"{what} {form}: two backward "
+                                             "runs differ")
+                    tb = {}
+                    tapped = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
+                                                     scale, nh, taps=tb)
+                    if not (torch.equal(tapped[0], got[0])
+                            and torch.equal(tapped[1], got[1])):
+                        raise AssertionError(f"{what} {form}: the tapped "
+                                             "backward differs")
+                    note("e (backward)", "attn_bwd", assert_bf16_within(
+                        f"{what} {form} backward e", tb["e"], e_want))
+                    scaled("attn_bwd", f"{what} {form} dl", tb["dl"], dl_want,
+                           ATTN_BWD_TOL)
+                    note("dqkv from its e and dl", "attn_bwd",
+                         assert_bf16_within(
+                             f"{what} {form} dqkv from the kernel's e and dl",
+                             got[0], packed_attention_bf16_bwd_stages(
+                                 qkv, ms_, g, tb["e"], tb["dl"], scale, nh)))
+                    note("dqkv", "attn_bwd", assert_bf16_mostly_within(
+                        f"{what} {form} dqkv", got[0], wq, s_dqkv))
+                    scaled("attn_bwd", f"{what} {form} dbias", got[1], wb,
+                           ATTN_BWD_TOL)
+                    del got, again, wq, wb, tb, tapped
+                del e_want, dl_want, s_dqkv
+                err = max(tot["attn_fwd"].err, tot["attn_bwd"].err)
+                kernels(lambda: ca.attn_packed_bwd_cuda(
+                    qkv, dense, m, ms_, g, scale, nh), 2 + (split > 1))
+                if clips == 1:
+                    print(f"{what}, {split} block(s) a problem: out and dqkv "
+                          "within their bounds, two runs bit-equal",
+                          flush=True)
+                    continue
+                q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                leaves = [q5[i].detach().requires_grad_() for i in range(3)]
+                am = (dense[None] if m is None else (
+                    dense[None, None] + m[None, :, None]).expand(
+                        b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                            b_, nh, n_tok, n_tok)).to(bf16)
+                o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=am,
+                                                       scale=scale)
+                g4 = g.reshape(b_, n_tok, nh, hd).permute(0, 2, 1, 3)
+                t = {"kernel": _measure_bf16(lambda: ca.attn_packed_fwd_cuda(
+                         qkv, dense, m, scale, nh)),
+                     "plain": _measure_bf16(
+                         lambda: ca.packed_attention_bf16_reference(
+                             qkv, dense, m, scale, nh)),
+                     "sdpa": _measure_bf16(
+                         lambda: F.scaled_dot_product_attention(
+                             q5[0], q5[1], q5[2], attn_mask=am, scale=scale)),
+                     "kernel bwd": _measure_bf16(
+                         lambda: ca.attn_packed_bwd_cuda(
+                             qkv, dense, m, ms_, g, scale, nh)),
+                     "plain bwd": _measure_bf16(
+                         lambda: ca.packed_attention_bf16_backward_reference(
+                             qkv, dense, m, ms_, g, scale, nh)),
+                     "sdpa bwd": _measure_bf16_grad(
+                         lambda: torch.autograd.grad(o_lib, leaves, g4,
+                                                     retain_graph=True))}
+                _report(f"{what}, {split} block(s) a problem", err, t)
+                # shifted blocks are every second one where there is a mask
+                sites = depth // 2 if mask is not None else depth
+                qf, gf = qkv.float(), g.float()
+                _o32, ms32 = ca.attn_packed_fwd_cuda(qf, dense, m, scale, nh,
+                                                     save_ms=True)
+                add_f32("attn_fwd", sites, lambda: ca.attn_packed_fwd_cuda(
+                    qf, dense, m, scale, nh))
+                add_f32("attn_bwd", sites, lambda: ca.attn_packed_bwd_cuda(
+                    qf, dense, m, ms32, gf, scale, nh))
+                del qf, gf, _o32, ms32
+                pairs = b_ * nh * n_tok * n_tok
+                extra = dense.numel() * 4 + (0 if m is None else m.numel() * 4)
+                per_site(t, {
+                    "fwd": ("kernel", (qkv.numel() + out.numel()) * 2 + extra,
+                            pairs * (4 * hd + 6), 1),
+                    "bwd": ("kernel bwd", (2 * qkv.numel() + g.numel()) * 2
+                            + ms_.numel() * 4 + dense.numel() * 4 + extra,
+                            pairs * (10 * hd + 12), 2 + (split > 1))})
+                tot["attn_fwd"].add(
+                    sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                    plain_ms=t["plain"][0], plain_device_ms=t["plain"][1],
+                    library_ms=t["sdpa"][0], library_device_ms=t["sdpa"][1],
+                    bytes=(qkv.numel() + out.numel()) * 2 + extra,
+                    flops=pairs * (4 * hd + 6))
+                tot["attn_bwd"].add(
+                    sites, ms=t["kernel bwd"][0],
+                    device_ms=t["kernel bwd"][1],
+                    plain_ms=t["plain bwd"][0],
+                    plain_device_ms=t["plain bwd"][1],
+                    library_ms=t["sdpa bwd"][0],
+                    library_device_ms=t["sdpa bwd"][1],
+                    bytes=(2 * qkv.numel() + g.numel()) * 2
+                    + ms_.numel() * 4 + dense.numel() * 4 + extra,
+                    flops=pairs * (10 * hd + 12))
+                del leaves, am, o_lib, q5
+            del qkv, g, out, ms_, want
+
+    # rows 10 and 11: the LayerNorm-MLP at every stage; the tap's cotangent
+    # on y exists at the chosen blocks, stages 3 and 4
+    names_b = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for stage, (c, _nh, tokens, _nw, depth) in enumerate(SWIN_STAGES):
+        f = 4 * c
+        gm, bt = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        w1, b1 = bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
+        w2, b2 = bf(c, f, scale=f ** -0.5), bf(c, scale=0.1)
+        for clips in (1, 2):
+            m_rows = clips * tokens
+            x = bf(m_rows, c, scale=1.5)
+            args = (x, gm, bt, w1, b1, w2, b2, 1e-5)
+            what = f"ln_mlp bf16 M={m_rows} C={c}"
+            kernels(lambda: cm.ln_mlp_fwd_cuda(*args, save_residuals=True), 3)
+            got = cm.ln_mlp_fwd_cuda(*args, save_residuals=True)
+            want = ln_mlp_fwd_stages(*args, got[1], got[2])
+            for nm, p, q in zip(("o", "y", "a", "s"), got, want):
+                note(f"mlp {nm}", "mlp_fwd",
+                     assert_bf16_within(f"{what} {nm}", p, q))
+            if clips == 1:
+                del got, want, x, args
+                continue
+            _o, y, a, s_ = got
+            go = bf(m_rows, c)
+            gy = bf(m_rows, c, scale=0.1) if stage >= 2 else None
+            scratch = torch.empty(cm.ln_mlp_bwd_scratch_floats(
+                m_rows, c, f, bf16), dtype=torch.float32, device=dev)
+            bargs = (x, y, a, s_, go, gy, gm, w1, w2, 1e-5)
+            kernels(lambda: cm.ln_mlp_bwd_cuda(*bargs), 12)
+            res = cm.ln_mlp_bwd_cuda(*bargs, scratch=scratch)
+            dh, dhc, dyk = cm.bf16_bwd_scratch_views(scratch, m_rows, c, f)
+            ref = ln_mlp_bwd_stages(*bargs, dh, dhc, dyk)
+            again = cm.ln_mlp_bwd_cuda(*bargs)
+            if not all(torch.equal(p, q) for p, q in zip(res, again)):
+                raise AssertionError(f"{what}: two backward runs differ")
+            if not torch.equal(dhc, ref["dhc"]):
+                raise AssertionError(f"{what}: dh is not rounded once")
+            # dh and dy are intermediates: checked, not counted as outputs
+            for nm, dh_ in (("dh", dh), ("dy", dyk)):
+                check_scaled(f"{what} {nm}", dh_, ref[nm], MLP_BWD_TOL)
+            for nm, p in zip(names_b, res):
+                if nm in ("dgamma", "dbeta"):
+                    scaled("mlp_bwd", f"{what} {nm}", p, ref[nm], MLP_BWD_TOL)
+                else:
+                    note(f"mlp {nm}", "mlp_bwd", assert_bf16_within(
+                        f"{what} {nm}", p, ref[nm]))
+            err = tot["mlp_bwd"].err
+            # the composition, at bfloat16, forward and autograd backward
+            leaves = [t_.detach().requires_grad_()
+                      for t_ in (x, gm.to(bf16), bt.to(bf16), w1, b1, w2, b2)]
+
+            def composition(xi, gi, bi, w1i, b1i, w2i, b2i):
+                yi = F.layer_norm(xi, (c,), gi, bi, 1e-5)
+                return F.linear(F.gelu(F.linear(yi, w1i, b1i)), w2i, b2i), yi
+            co, cy = composition(*leaves)
+            cots = (go, gy) if gy is not None else (go,)
+            outs = (co, cy) if gy is not None else (co,)
+            t = {"kernel": _measure_bf16(lambda: cm.ln_mlp_fwd_cuda(*args)),
+                 "plain": _measure_bf16(lambda: cm.ln_mlp_reference(*args)),
+                 "composition": _measure_bf16(lambda: composition(*leaves)),
+                 "kernel bwd": _measure_bf16(
+                     lambda: cm.ln_mlp_bwd_cuda(*bargs)),
+                 "plain bwd": _measure_bf16(
+                     lambda: cm.ln_mlp_backward_reference(*bargs)),
+                 "composition bwd": _measure_bf16_grad(
+                     lambda: torch.autograd.grad(outs, leaves, cots,
+                                                 retain_graph=True))}
+            _report(f"{what} F={f} gy={gy is not None}", err, t)
+            a32 = (x.float(), gm, bt, w1.float(), b1.float(), w2.float(),
+                   b2.float(), 1e-5)
+            _o32, y32, a_32, s32 = cm.ln_mlp_fwd_cuda(*a32,
+                                                      save_residuals=True)
+            b32 = (a32[0], y32, a_32, s32, go.float(),
+                   None if gy is None else gy.float(), gm, a32[3], a32[5],
+                   1e-5)
+            add_f32("mlp_fwd", depth, lambda: cm.ln_mlp_fwd_cuda(*a32))
+            add_f32("mlp_bwd", depth, lambda: cm.ln_mlp_bwd_cuda(*b32))
+            del a32, b32, _o32, y32, a_32, s32
+            flops_f = 4 * m_rows * c * f + 10 * m_rows * f + 8 * m_rows * c
+            flops_b = 8 * m_rows * c * f + 4 * m_rows * f + 20 * m_rows * c
+            for key, flops in (("kernel", flops_f), ("kernel bwd", flops_b)):
+                if t[key][1]:
+                    print(f"  {key} rate: {flops / t[key][1] / 1e9:.1f} "
+                          "TFLOP/s (operations over device time)", flush=True)
+            bytes_f = (3 * x.numel() + 2 * c * f + f + c) * 2 + 2 * c * 4
+            bytes_b = ((5 if gy is not None else 4) * m_rows * c
+                       + 2 * m_rows * f + 4 * c * f + f + c) * 2 + 3 * c * 4
+            per_site(t, {"fwd": ("kernel", bytes_f, flops_f, 3),
+                         "bwd": ("kernel bwd", bytes_b, flops_b, 12)})
+            tot["mlp_fwd"].add(depth, ms=t["kernel"][0],
+                               device_ms=t["kernel"][1],
+                               plain_ms=t["plain"][0],
+                               plain_device_ms=t["plain"][1],
+                               bytes=bytes_f, flops=flops_f)
+            tot["mlp_bwd"].add(depth, ms=t["kernel bwd"][0],
+                               device_ms=t["kernel bwd"][1],
+                               plain_ms=t["plain bwd"][0],
+                               plain_device_ms=t["plain bwd"][1],
+                               bytes=bytes_b, flops=flops_b)
+            for key in ("mlp_fwd", "mlp_bwd"):
+                dv = t["composition" + (" bwd" if key == "mlp_bwd" else "")][1]
+                comp[key] = (None if dv is None or comp[key] is None
+                             else comp[key] + depth * dv)
+            del x, args, bargs, got, want, res, again, ref, scratch, leaves
+            del co, cy, outs
+    print("bf16 Swin kernels, by output against the plain version it is held "
+          "to: the largest share of values that differ, difference in units "
+          "of its bound (one ulp, or the floor), and share beyond one ulp "
+          "(end to end): " + json.dumps(
+              {k: [round(v[0], 6), round(v[1], 3), v[2]]
+               for k, v in apart.items()}), flush=True)
+
+    src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
+    rows = [
+        tot["ln_fwd"].row("ln_fwd_bf16", f"{src}/ln.cu",
+                          f"{ops}/pallas_ln.py:47", flop_rate=BF16_FLOP_PER_S),
+        tot["ln_bwd"].row("ln_bwd_bf16", f"{src}/ln.cu",
+                          f"{ops}/pallas_ln.py:55", flop_rate=BF16_FLOP_PER_S),
+        tot["attn_fwd"].row("attn_packed_fwd_bf16", f"{src}/attention.cu",
+                            f"{ops}/pallas_attention.py:448",
+                            flop_rate=BF16_FLOP_PER_S),
+        tot["attn_bwd"].row("attn_packed_bwd_bf16", f"{src}/attention.cu",
+                            f"{ops}/pallas_attention.py:517",
+                            flop_rate=BF16_FLOP_PER_S),
+        tot["mlp_fwd"].row("ln_mlp_fwd_bf16", f"{src}/mlp.cu",
+                           f"{ops}/pallas_mlp.py:303", has_library=False,
+                           flop_rate=BF16_FLOP_PER_S),
+        tot["mlp_bwd"].row("ln_mlp_bwd_bf16", f"{src}/mlp.cu",
+                           f"{ops}/pallas_mlp.py:322", has_library=False,
+                           flop_rate=BF16_FLOP_PER_S)]
+    rows[4]["composition_device_ms"] = comp["mlp_fwd"]
+    rows[5]["composition_device_ms"] = comp["mlp_bwd"]
+    for row, key in zip(rows, ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
+                               "mlp_fwd", "mlp_bwd")):
+        row["float32_device_ms"] = f32[key]
+    for row in rows:
+        print(f"{row['name']} per Swin-B pass of 2 clips: device ms kernel "
+              f"{fmt(row['device_ms'])} float32 kernel "
+              f"{fmt(row['float32_device_ms'])} plain "
+              f"{fmt(row['plain_device_ms'])} "
+              f"library {fmt(row['library_device_ms'])}"
+              + (f" composition {fmt(row['composition_device_ms'])}"
+                 if "composition_device_ms" in row else "")
+              + f"; event ms {row['ms']:.4f} / {row['plain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} at bfloat16",
+              flush=True)
+    return rows
+
+
+BF16_SWIN_SMALL = dict(embed_dim=128, depths=(2, 1), num_heads=(4, 8),
+                       window_size=(2, 3, 3))
+
+
+def phase_bf16_swin_small(seed, t=4, hw=48):
+    """Phase 26: two tta_online steps of a small bfloat16 Swin (Swin-B's
+    first width, every width a multiple of 128 so that norm2 runs inside
+    the LayerNorm-MLP as on Swin-B: embed 128, depths (2, 1), heads (4, 8),
+    window (2, 3, 3), 4 x 48 x 48), drop-path and head dropout 0, lr 1e-3,
+    on the card and on the CPU from one seeded state dict and the source
+    statistics of the float32 model; held as the bfloat16 TANet's small
+    slice (``_assert_bf16_slice``).  Both round where the kernels round
+    (the CPU through the plain versions); cuBLAS and oneDNN round the qkv,
+    proj and merging products and cuDNN and oneDNN the patch embedding
+    each their own way."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    cfg = _swin_cfg(t=t, hw=hw, **BF16_SWIN_SMALL)
+    chosen = ("layers.1", "backbone.norm")
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3),
+                      tta=dataclasses.replace(cfg.tta, chosen_blocks=chosen))
+    sd = _swin_weights(cfg, seed)
+    rng = np.random.default_rng(seed)
+    batches = _normalized_batches(rng, cfg, (2,), t, hw)
+    src = compute_source_statistics(_swin_model(cfg, sd), batches,
+                                    device="cpu")
+    videos = _videos(rng, 2, t, hw)
+    _reset_swin_counts()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        names = {}
+        eng = VittaEngine(_synthetic_swin(cfg, "bfloat16", drop_path_rate=0.0,
+                                          head_dropout=0.0),
+                          cfg, sd, src, device=dev)
+        state = eng.init_state()
+        metrics = []
+
+        def steps():
+            nonlocal state
+            for views, clip, label in videos:
+                state, m = eng.adapt_eval_step(state, views, clip, label)
+                metrics.append({f: float(getattr(m, f)) for f in
+                                ("loss_reg", "loss_consis", "loss_ce")})
+        names = launches_of(steps)
+        if dev == "cuda":
+            _bf16_swin_launches(names)
+        runs[dev] = (metrics, eng.eval_logits(videos[-1][1]).cpu(),
+                     {k: p.detach().cpu()
+                      for k, p in eng.model.named_parameters()},
+                     {k: (v.mean.cpu(), v.var.cpu())
+                      for k, v in state.ema.items()})
+    counts = _swin_counts()
+    fwd, bwd = swin_launches("packed", 128, (2, 1))
+    for k, n in {**fwd, **bwd}.items():
+        if n and counts[k] == 0:
+            raise AssertionError(f"bf16 swin small slice: the {k} kernel was "
+                                 "never launched")
+    _assert_bf16_slice("swin small slice (bfloat16)", sd, runs,
+                       {k: counts[k] for k in ("ln_mlp_fwd", "ln_mlp_bwd",
+                                               "attn_packed_fwd",
+                                               "attn_packed_bwd")})
+
+
+def phase_bf16_swin_full(cfg, sd, stats, seed, card,
+                         n_videos=SWIN_ADAPT_VIDEOS, warmup=2):
+    """Phase 27: Swin-B's tta_stream at bfloat16 (``Recognizer3D(...,
+    dtype="bfloat16")``, the construction of vitta_tpu's bench.py:117;
+    float32 masters, SGD, losses and statistics) over seeded videos with
+    the float32 model's source statistics, drop-path 0.2 and head dropout
+    0.5: per video 2 x (29, 24, 24, 24) forward and 29 / 24 / 24 / 24
+    backward launches of LayerNorm / bias / attention / LayerNorm-MLP,
+    every LayerNorm, attention and LayerNorm-MLP launch a bfloat16 kernel
+    by the libraries' own counts and none a float32 one, no contiguity
+    copy; ms/video, peak memory, then one profiled step: host, device busy,
+    idle share, busy by class of kernel.  Returns (launch counts, summary)."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import tta_stream
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    engine = VittaEngine(_synthetic_swin(cfg, "bfloat16"), cfg, sd, stats)
+    rng = np.random.default_rng(seed + 1)
+    videos = _videos(rng, n_videos, t, hw)
+    writer = _StepTimes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_swin_counts()
+    box = {}
+
+    def run():
+        box["out"] = tta_stream(engine, videos, seed=seed,
+                                metrics_writer=writer)
+    names = launches_of(run)
+    torch.cuda.synchronize()
+    top1, state, meters = box["out"]
+    counts = _swin_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _bf16_swin_launches(names)
+    for k in ("loss_reg", "loss_consis", "loss_ce"):
+        if not np.isfinite(meters[k].avg):
+            raise AssertionError(f"bf16 swin-B {k} is not finite")
+    logits = engine.eval_logits(videos[-1][1])
+    if (tuple(logits.shape) != (1, cfg.model.num_classes)
+            or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError("bf16 swin-B eval logits are not finite float32")
+    fwd, bwd = swin_launches("packed")
+    for k, per_pass in fwd.items():
+        if counts[k] != 2 * per_pass * n_videos:
+            raise AssertionError(f"bf16 swin-B {k}: {counts[k]} launches over "
+                                 f"{n_videos} videos, expected 2 x {per_pass}")
+    for k, per_pass in bwd.items():
+        if counts[k] != per_pass * n_videos:
+            raise AssertionError(f"bf16 swin-B {k}: {counts[k]} launches over "
+                                 f"{n_videos} videos, expected {per_pass}")
+    if counts["contiguity_copies"]:
+        raise AssertionError("bf16 swin-B: contiguity copies")
+    for k, p in engine.model.named_parameters():
+        if p.dtype != torch.float32 or p.grad is None or not bool(
+                torch.isfinite(p.grad).all()):
+            raise AssertionError(f"bf16 swin-B {k}: no finite float32 "
+                                 "gradient on a float32 master")
+    warm = writer.ms[warmup:]
+    summary = {"model": "swin-B", "route": "packed", "dtype": "bfloat16",
+               "videos": len(warm), "median_ms": statistics.median(warm),
+               "min_ms": min(warm), "max_ms": max(warm),
+               "peak_gib": peak / 2**30}
+    print(f"swin-B bfloat16 adapt full slice: {n_videos} videos, median "
+          f"{summary['median_ms']:.3f} ms/video (min {min(warm):.3f}, max "
+          f"{max(warm):.3f}) after {warmup} warm-up, peak memory "
+          f"{summary['peak_gib']:.3f} GiB, losses reg "
+          f"{meters['loss_reg'].avg:.5f} consis "
+          f"{meters['loss_consis'].avg:.5f}, launches {counts}; bfloat16 "
+          f"kernel instances "
+          f"{sum(n for k, n in names.items() if _bf16_name(k))}; on {card}",
+          flush=True)
+    views, clip, label = (torch.from_numpy(a).cuda() for a in videos[-1])
+    st = [state]
+
+    def step():
+        st[0], _m = engine.adapt_eval_step(st[0], views, clip, label)
+    host_ms, busy, rows = device_breakdown(step, top=None)
+    if busy == 0:
+        print("swin-B bfloat16 adapt step: device time not measured",
+              flush=True)
+        return counts, summary
+    classes = {}
+    for k, ms, n in rows:
+        cls = ("the port's kernels" if "vitta::" in k or k.startswith((
+                   "expand_bias", "collapse_bias", "(anonymous namespace)"))
+               else "cuBLAS / cuDNN products" if any(
+                s in k for s in ("gemm", "nvjet", "xmma", "cutlass", "conv",
+                                 "sm90")) else "elementwise" if any(
+                s in k for s in ("elementwise", "vectorized", "Elementwise"))
+            else "reductions" if "reduce" in k.lower() else "other")
+        ms0, n0 = classes.get(cls, (0.0, 0))
+        classes[cls] = (ms0 + ms, n0 + n)
+    summary.update(host_ms=host_ms, device_busy_ms=busy,
+                   idle_share=max(0.0, 1 - busy / host_ms))
+    print(f"swin-B bfloat16 adapt step, profiled: host {host_ms:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{summary['idle_share']:.2f}; by class: "
+          + "; ".join(f"{c} {ms:.3f} ms x{n}" for c, (ms, n) in
+                      sorted(classes.items(), key=lambda kv: -kv[1][0]))
+          + "; largest kernels: "
+          + "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows[:12]),
+          flush=True)
+    return counts, summary
+
+
+def phase_bf16_swin_trajectories(cfg, sd, stats, card, n_videos,
+                                 seed=SEED):
+    """Phase 28: float32 against bfloat16 Swin-B on the card, the quantities
+    of benchmarks/bf16_gate.py (swin): the same float32 masters, source
+    statistics and uint8 videos (one seeded generator a video), drop-path
+    and dropout masks from the same seeds, through ``adapt_eval_step`` at
+    each dtype, held to GATE_BOUNDS."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import video_seed
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    classes = cfg.model.num_classes
+
+    def stream(dtype):
+        engine = VittaEngine(_synthetic_swin(cfg, dtype), cfg, sd, stats)
+        state = engine.init_state()
+        out = {f: [] for f in ("pred", "loss_reg", "loss_consis", "top1")}
+        for i in range(n_videos):
+            rng = np.random.default_rng(20_000 + i)
+            views = rng.integers(0, 256, (2, t, hw, hw, 3), dtype=np.uint8)
+            clip = rng.integers(0, 256, (1, t, hw, hw, 3), dtype=np.uint8)
+            label = np.asarray([i % classes], np.int64)
+            engine.generator.manual_seed(video_seed(seed, i))
+            state, m = engine.adapt_eval_step(state, views, clip, label)
+            out["pred"].append(int(m.pred[0]))
+            for f in ("loss_reg", "loss_consis", "top1"):
+                out[f].append(float(getattr(m, f)))
+        params = torch.cat([p.detach().double().flatten()
+                            for p in engine.model.parameters()])
+        ema = torch.cat([x.detach().double().flatten()
+                         for s in state.ema.values() for x in s])
+        return {k: np.asarray(v) for k, v in out.items()}, params, ema
+
+    t0 = time.perf_counter()
+    t32, p32, e32 = stream("float32")
+    t16, p16, e16 = stream("bfloat16")
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    gate = {
+        "n_videos": n_videos,
+        "pred_agreement": float(np.mean(t32["pred"] == t16["pred"])),
+        "top1_fp32": float(np.mean(t32["top1"])) / 100,
+        "top1_bf16": float(np.mean(t16["top1"])) / 100,
+        "reg_loss_max_absdiff": float(np.max(np.abs(t32["loss_reg"]
+                                                    - t16["loss_reg"]))),
+        "reg_loss_final_reldiff": float(
+            abs(t32["loss_reg"][-1] - t16["loss_reg"][-1])
+            / max(abs(t32["loss_reg"][-1]), 1e-9)),
+        "consis_loss_max_absdiff": float(np.max(np.abs(
+            t32["loss_consis"] - t16["loss_consis"]))),
+        "consis_loss_max_fp32": float(np.max(t32["loss_consis"])),
+        "params_rel_l2_drift": rel(p16, p32),
+        "ema_rel_l2_drift": rel(e16, e32)}
+    print(f"Swin-B fp32 against bf16 trajectories ({n_videos} videos each, "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(gate)
+          + f"; on {card}", flush=True)
+    bad = [k for k, (op, lim) in GATE_BOUNDS.items()
+           if not (gate[k] >= lim if op == ">=" else gate[k] <= lim)]
+    if gate["consis_loss_max_absdiff"] > (
+            0.1 * gate["consis_loss_max_fp32"] + 1e-4):
+        bad.append("consis_loss_max_absdiff")
+    if bad:
+        raise AssertionError(f"Swin-B bf16 trajectories beyond their bounds: "
+                             f"{bad}")
+    return gate
+
+
+def phase_bf16_swin_interleaved(cfg, sd, stats, seed, card, rounds=3):
+    """Phase 29: Swin-B adapt+eval steps at float32, at bfloat16 with the
+    engine's bfloat16 twin of the cast weights (the default) and at
+    bfloat16 casting them at every use (``half_twin=False``), in turns in
+    one process (the three, then the three backwards, ``rounds`` times,
+    after two warm-up steps each), one engine each built once, on one
+    seeded video with its inputs on the card: per step the host's time to
+    enqueue it (until ``adapt_eval_step`` returns) and its wall time (until
+    the card has finished); then one profiled step of each: device busy,
+    launches, and the launches and busy time of copy kernels (the dtype
+    casts among them).  Returns {variant: {"enqueue": [ms], "wall": [ms],
+    ...}}."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    views, clip, label = (torch.from_numpy(a).cuda() for a in
+                          _videos(np.random.default_rng(seed + 3), 1, t,
+                                  hw)[0])
+    variants = {"float32": ("float32", True),
+                "bfloat16": ("bfloat16", True),
+                "bfloat16, cast at use": ("bfloat16", False)}
+    engines = {v: VittaEngine(_synthetic_swin(cfg, d), cfg, sd, stats,
+                              half_twin=twin)
+               for v, (d, twin) in variants.items()}
+    if (engines["bfloat16"]._twin is None
+            or engines["bfloat16, cast at use"]._twin is not None):
+        raise AssertionError("bf16 swin-B: the twin is not where asked")
+    states = {v: e.init_state() for v, e in engines.items()}
+    out = {v: {"enqueue": [], "wall": []} for v in variants}
+
+    def step(v):
+        states[v], _m = engines[v].adapt_eval_step(states[v], views, clip,
+                                                   label)
+    for v in variants:
+        for _ in range(2):
+            step(v)
+    order = list(variants)
+    for _ in range(rounds):
+        for v in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(v)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out[v]["enqueue"].append((t1 - t0) * 1e3)
+            out[v]["wall"].append((t2 - t0) * 1e3)
+    for v in variants:
+        _host, busy, rows = device_breakdown(lambda: step(v), top=None)
+        casts = [(ms, n) for k, ms, n in rows if "copy" in k.lower()]
+        r = out[v]
+        r.update(busy=busy if busy > 0 else None,
+                 launches=sum(n for _k, _ms, n in rows),
+                 cast_launches=sum(n for _ms, n in casts),
+                 cast_ms=sum(ms for ms, _n in casts))
+        print(f"swin-B adapt step {v}, in turns with the others: enqueue "
+              f"median {statistics.median(r['enqueue']):.3f} ms ("
+              + ", ".join(f"{x:.1f}" for x in r["enqueue"]) + "), wall "
+              f"median {statistics.median(r['wall']):.3f} ms ("
+              + ", ".join(f"{x:.1f}" for x in r["wall"]) + "); profiled: "
+              f"device busy {fmt(r['busy'])} ms, {r['launches']} launches, "
+              f"of which copy kernels (dtype casts among them) "
+              f"{r['cast_launches']} taking {r['cast_ms']:.3f} ms; on {card}",
+              flush=True)
+    del engines, states
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3226,6 +4117,24 @@ def main() -> int:
         if "heads" in row["name"]:
             row["launches_swin_b"] = bh_launches[row["name"]]
     lap("phase 17, Swin-T slices and Swin-B under the heads route")
+    # Video Swin-B at bfloat16: a small slice card against CPU, the full
+    # stream, float32 against bfloat16 trajectories, then its kernels (whose
+    # CUDA graphs would otherwise stand in the stream's peak memory)
+    phase_bf16_swin_small(SEED)
+    lap("phase 26, bfloat16 Swin small slice")
+    b16_launches, b16 = phase_bf16_swin_full(_swin_cfg(), sd, stats, SEED,
+                                             card)
+    lap("phase 27, Swin-B bfloat16 stream")
+    swin_gate = phase_bf16_swin_trajectories(_swin_cfg(), sd, stats, card,
+                                             GATE_VIDEOS)
+    lap("phase 28, Swin-B float32 against bfloat16 trajectories")
+    dtype_turns = phase_bf16_swin_interleaved(_swin_cfg(), sd, stats, SEED,
+                                              card)
+    lap("phase 29, Swin-B float32 and bfloat16 steps in turns")
+    swin_bf16_rows = phase_bf16_swin_kernels(dev)
+    for row in swin_bf16_rows:
+        row["launches"] = b16_launches[row["name"][:-len("_bf16")]]
+    lap("phase 25, bfloat16 Swin kernels")
     for s in tanet_modes:
         print(f"TANet, {s['mode']}, {s['dtype']}: median "
               f"{s['median_ms']:.3f} ms/video (min "
@@ -3235,8 +4144,9 @@ def main() -> int:
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
-    for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads):
-        print(f"{s['model']} adapt step, route {s['route']}: median "
+    for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads, b16):
+        print(f"{s['model']} adapt step, route {s['route']}"
+              f"{', bfloat16' if s.get('dtype') == 'bfloat16' else ''}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
               f"{s['max_ms']:.3f}, {s['videos']} videos), host "
               f"{fmt(s.get('host_ms'))} ms, device busy "
@@ -3257,8 +4167,14 @@ def main() -> int:
                         for k, calls in gemm_rates.items()}), flush=True)
     print("TANet fp32 against bf16 trajectories: " + json.dumps(gate),
           flush=True)
+    print("Swin-B fp32 against bf16 trajectories: " + json.dumps(swin_gate),
+          flush=True)
+    print("Swin-B float32 and bfloat16 steps in turns, ms: " + json.dumps(
+        {d: {k: (round(statistics.median(v), 3) if isinstance(v, list)
+                 else v) for k, v in r.items()}
+         for d, r in dtype_turns.items()}) + f"; on {card}", flush=True)
     print(json.dumps({"kernels": tam_rows + bn_rows + bf16_rows + swin_rows
-                      + proj_rows + unfused_rows}))
+                      + proj_rows + unfused_rows + swin_bf16_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

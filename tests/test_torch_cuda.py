@@ -25,7 +25,8 @@ and the attention per (head, window) are held to the bounds of the
 LayerNorm-MLP and of the packed attention.  The BatchNorm-statistics
 kernels: y and the mean rtol / atol 1e-5, the variance rtol 1e-4 / atol 1e-5
 (tests/test_pallas_stats.py's: ``E[y^2] - m^2`` from sums taken in another
-order), every gradient to 2e-5 of its tensor's largest magnitude.
+order), every gradient to 2e-5 of its tensor's largest magnitude.  The
+bfloat16 kernels: see the two bfloat16 sections at the end.
 """
 
 import numpy as np
@@ -644,8 +645,9 @@ def test_swin_kernels_reject_what_they_do_not_take(cuda_device):
     dev = cuda_device
     x = _randn(dev, 8, 128)
     g = _randn(dev, 128)
-    with pytest.raises(TypeError):
-        cuda_ln.layer_norm(x.bfloat16(), g, g)
+    for dtype in (torch.float16, torch.float64):   # float32, bfloat16 only
+        with pytest.raises(TypeError):
+            cuda_ln.layer_norm(x.to(dtype), g, g)
     with pytest.raises(ValueError):
         cuda_ln.layer_norm(x.t(), g[:8], g[:8])
     with pytest.raises(ValueError):       # hd = 64 > 32
@@ -1326,16 +1328,12 @@ def _bf16_tam_inputs(device, **shape):
 def _within_one_bf16_ulp(name, got, want):
     """|got - want| <= one bfloat16 ulp of |want|, or 2^-20 of the largest
     |want| where a value near 0 is the difference of larger float32 terms
-    (a few float32 roundings of those); returns how many values differ."""
-    assert got.dtype == want.dtype == BF16, name
-    g, w = got.float(), want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
-                     - 7)
-    tol = torch.maximum(ulp, 2.0 ** -20 * w.abs().max())
-    assert bool(((g - w).abs() <= tol).all()), (
-        f"{name}: {int(((g - w).abs() > tol).sum())} values beyond one ulp, "
-        f"worst {float((g - w).abs().max()):.3e}")
-    return int((g != w).sum())
+    (a few float32 roundings of those)
+    (vitta_tpu_torch/tools/bf16_checks.py); returns how many values
+    differ."""
+    from vitta_tpu_torch.tools.bf16_checks import assert_bf16_within
+    share, _ulps, _err = assert_bf16_within(name, got, want)
+    return round(share * want.numel())
 
 
 @pytest.mark.cuda
@@ -1404,7 +1402,7 @@ def _bf16_bn_inputs(device, lead, c, seed=0):
     return ins
 
 
-def _assert_bn_bf16_close(got, want):
+def _assert_bn_within_one_bf16_ulp(got, want):
     _within_one_bf16_ulp("y", got[0], want[0])
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5,
                                msg="mean")
@@ -1434,7 +1432,7 @@ def test_bn_stats_bf16_kernels_match_plain(cuda_device, lead, c, relu):
         *ins[:5], relu=relu)
     want_b = cuda_stats.fused_bn_relu_stats_backward_reference(
         x2, *ins[1:5], m, ins[5].reshape(-1, c), ins[6], ins[7], relu=relu)
-    _assert_bn_bf16_close(got, [want_y, want_m, want_v,
+    _assert_bn_within_one_bf16_ulp(got, [want_y, want_m, want_v,
                                 want_b[0].reshape(ins[0].shape),
                                 *want_b[1:]])
     again = _bn_value_and_grads(cuda_stats.fused_bn_relu_stats, relu, *ins)
@@ -1509,3 +1507,369 @@ def test_bf16_tanet_runs_through_the_kernels(cuda_device):
     for d in ("fwd", "bwd"):
         assert count(f"bn_stats_{d}_kernel") == 53, names
         assert count(f"bn_stats_{d}_kernel", bf16=False) == 32, names
+
+
+# --------------------------------------------------------------------------
+# bfloat16: the Video Swin-B kernels (rows 3, 4, 10, 11, 14 and 15) in the
+# bfloat16 Swin, against their plain versions, which round where the
+# kernels round (vitta_tpu's rounding points at the compute dtype), by
+# vitta_tpu_torch/tools/bf16_checks.py: every bfloat16 output within one
+# bfloat16 ulp of the plain version's (or 2^-20 of its tensor's largest
+# magnitude, for a value near 0 that is the difference of larger float32
+# terms); the LayerNorm-MLP's outputs each from the kernel's own rounded
+# inputs to that step (a, and dh, its rounded form and dy from the
+# backward's scratch); the attention's each from the kernel's own rounded e
+# and dl (its instances that write bfloat16(e), and dl in the backward's
+# scratch), with e within one ulp and dl within GRAD_REL of their plain
+# values, and end to end at most 1e-4 of the values beyond one ulp (or 2^-12
+# of the largest), those within 2^-7 of the absolute products through e and
+# dl.  Float32 outputs (dgamma, dbeta, dh, dy, dbias, ms) to GRAD_REL / 2e-5,
+# as at float32.
+# Inputs are rounded to bfloat16 once; the plain versions run on the card.
+# Swin-B at one clip: every LayerNorm shape (tokens, C), the stage widths
+# and the merging norms, and rows and widths the vector path does not take
+SWIN_B_LN_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
+                  (6272, 512), (1568, 1024), (392, 2048), (50, 96), (7, 8),
+                  (33, 24)]
+SWIN_B_MLP_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
+                   (77, 256), (9, 8)]
+SWIN_B_ATTN_BF16 = [dict(b_=64, nh=4, hd=32, window=(8, 7, 7), nw=64),
+                    dict(b_=16, nh=8, hd=32, window=(8, 7, 7), nw=16),
+                    dict(b_=4, nh=16, hd=32, window=(8, 7, 7), nw=4),
+                    dict(b_=2, nh=32, hd=32, window=(8, 7, 7), nw=0),
+                    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
+                    dict(b_=4, nh=2, hd=16, window=(3, 2, 5), nw=0)]
+
+
+def _bf16_randn(device, *shape, seed=0, scale=1.0):
+    return _randn(device, *shape, seed=seed, scale=scale).to(BF16)
+
+
+def _bf16_names(names):
+    """The launches of bfloat16 kernel instances among ``names``."""
+    return {k: n for k, n in names.items() if "bf16" in k or "bfloat16" in k}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", SWIN_B_LN_BF16, ids=str)
+def test_ln_bf16_kernels_match_plain(cuda_device, rows, c):
+    x = (_randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5).to(BF16)
+    g, b = _randn(cuda_device, c, seed=2), _randn(cuda_device, c, seed=3)
+    dy = _bf16_randn(cuda_device, rows, c, seed=4)
+    cuda_ln.counters.reset()
+    xg = x.clone().requires_grad_()
+    gg, bg = g.clone().requires_grad_(), b.clone().requires_grad_()
+    y = cuda_ln.layer_norm(xg, gg, bg, 1e-5)
+    y.backward(dy)
+    assert (cuda_ln.counters.fwd, cuda_ln.counters.bwd) == (1, 1)
+    assert y.dtype == xg.grad.dtype == BF16
+    assert gg.grad.dtype == bg.grad.dtype == torch.float32
+    _within_one_bf16_ulp("y", y.detach(), cuda_ln.layer_norm_reference(x, g, b, 1e-5))
+    want = cuda_ln.layer_norm_backward_reference(x, g, dy, 1e-5)
+    _within_one_bf16_ulp("dx", xg.grad, want[0])
+    _assert_grad("dgamma", gg.grad, want[1])
+    _assert_grad("dbeta", bg.grad, want[2])
+    fwd = launches_of(lambda: cuda_ln.ln_fwd_cuda(x, g, b, 1e-5))
+    assert sum(fwd.values()) == 1 and _bf16_names(fwd) == fwd, fwd
+    vector = c in (64, 128, 256, 512, 1024, 2048)
+    assert any("ln_rows_bf16x8" in k for k in fwd) == vector, fwd
+    bwd = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
+    assert sum(bwd.values()) == 2, bwd
+    assert sum(_bf16_names(bwd).values()) == 1, bwd
+    again = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    assert torch.equal(again[0], xg.grad)     # no atomics: bit-equal
+    assert torch.equal(again[1], gg.grad)
+
+
+@pytest.mark.cuda
+def test_ln_bf16_takes_unaligned_views(cuda_device):
+    """bfloat16 views 2 bytes past a 16-byte boundary take the one-value
+    forward and backward, with the plain versions' values."""
+    rows, c = 300, 256
+    x = (_randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5).to(BF16)
+    dy = _bf16_randn(cuda_device, rows, c, seed=3)
+    g, b = _randn(cuda_device, c, seed=2), _randn(cuda_device, c, seed=4)
+
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+
+    xs, dys = shifted(x), shifted(dy)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 2
+    assert cuda_ln.bwd_vec(c, xs, g, dys) == 0
+    assert cuda_ln.bwd_vec(c, x, g, dy) == 1
+    fwd = launches_of(lambda: cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5))
+    assert fwd == {"ln_rows_any<__nv_bfloat16>": 1}, fwd
+    _within_one_bf16_ulp("y", cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5),
+                cuda_ln.layer_norm_reference(x, g, b, 1e-5))
+    bwd = launches_of(lambda: cuda_ln.ln_bwd_cuda(xs, g, dys, 1e-5))
+    assert any(k.startswith("ln_bwd_kernel<false") and "bfloat16" in k
+               for k in bwd), bwd
+    got = cuda_ln.ln_bwd_cuda(xs, g, dys, 1e-5)
+    want = cuda_ln.layer_norm_backward_reference(x, g, dy, 1e-5)
+    _within_one_bf16_ulp("dx", got[0], want[0])
+    _assert_grad("dgamma", got[1], want[1])
+    _assert_grad("dbeta", got[2], want[2])
+
+
+def _bf16_mlp_case(device, m, c):
+    x, g, bt, w1, b1, w2, b2 = _mlp_case(device, m, c)
+    return (x.to(BF16), g, bt, w1.to(BF16), b1.to(BF16), w2.to(BF16),
+            b2.to(BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", SWIN_B_MLP_BF16, ids=str)
+def test_ln_mlp_bf16_kernels_match_plain(cuda_device, m, c):
+    from vitta_tpu_torch.tools.bf16_checks import (ln_mlp_bwd_stages,
+                                                   ln_mlp_fwd_stages)
+    x, g, bt, w1, b1, w2, b2 = _bf16_mlp_case(cuda_device, m, c)
+    cuda_mlp.counters.reset()
+    got = cuda_mlp.ln_mlp_fwd_cuda(x, g, bt, w1, b1, w2, b2, 1e-5,
+                                   save_residuals=True)
+    assert cuda_mlp.counters.fwd == 1
+    _o, y, a, s = got
+    want = ln_mlp_fwd_stages(x, g, bt, w1, b1, w2, b2, 1e-5, y, a)
+    for name, p, q in zip(("o", "y", "a", "s"), got, want):
+        _within_one_bf16_ulp(name, p, q)
+    # the backward from what the forward kept, with and without gy, each
+    # step against the plain version on the kernel's own inputs to it
+    go = _bf16_randn(cuda_device, m, c, seed=8)
+    f = 4 * c
+    scratch = torch.empty(cuda_mlp.ln_mlp_bwd_scratch_floats(m, c, f, BF16),
+                          dtype=torch.float32, device=cuda_device)
+    for gy in (_bf16_randn(cuda_device, m, c, seed=9, scale=0.1), None):
+        res = cuda_mlp.ln_mlp_bwd_cuda(x, y, a, s, go, gy, g, w1, w2, 1e-5,
+                                       scratch=scratch)
+        dh, dhc, dy = cuda_mlp.bf16_bwd_scratch_views(scratch, m, c, f)
+        ref = ln_mlp_bwd_stages(x, y, a, s, go, gy, g, w1, w2, 1e-5, dh,
+                                dhc, dy)
+        _assert_grad("dh", dh, ref["dh"])
+        assert torch.equal(dhc, ref["dhc"])       # dh rounded once
+        _assert_grad("dy", dy, ref["dy"])
+        for name, r in zip(MLP_GRADS, res):
+            if name in ("dgamma", "dbeta"):
+                assert r.dtype == torch.float32, name
+                _assert_grad(name, r, ref[name])
+            else:
+                _within_one_bf16_ulp(name, r, ref[name])
+        again = cuda_mlp.ln_mlp_bwd_cuda(x, y, a, s, go, gy, g, w1, w2, 1e-5)
+        assert all(torch.equal(p, q) for p, q in zip(res, again))
+    fwd = launches_of(lambda: cuda_mlp.ln_mlp_fwd_cuda(
+        x, g, bt, w1, b1, w2, b2, 1e-5, save_residuals=True))
+    assert sum(fwd.values()) == 3 and _bf16_names(fwd) == fwd, fwd
+    bwd = launches_of(lambda: cuda_mlp.ln_mlp_bwd_cuda(
+        x, y, a, s, go, None, g, w1, w2, 1e-5))
+    assert sum(n for k, n in bwd.items() if "gemm_tiles_bf16" in k) == 4, bwd
+    assert not any(k.startswith("gemm_tiles<") for k in bwd), bwd
+    assert sum(bwd.values()) == 12, bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("case", SWIN_B_ATTN_BF16, ids=str)
+def test_attention_bf16_kernels_match_plain(cuda_device, case, compact):
+    from vitta_tpu_torch.tools.bf16_checks import (
+        assert_bf16_mostly_within, packed_attention_bf16_bwd_stages,
+        packed_attention_bf16_fwd_stage, packed_attention_bf16_intermediates,
+        packed_attention_bf16_slack)
+    qkv, vc, mask, wd = _attn_case(cuda_device, **case)
+    qkv = qkv.to(BF16)
+    nh, hd = case["nh"], case["hd"]
+    scale = hd ** -0.5
+    bias = vc if compact else cuda_bias.expand_bias_reference(vc, wd)
+    cuda_attention.counters.reset()
+    out, ms = cuda_attention.attn_packed_fwd_cuda(qkv, bias, mask, scale, nh,
+                                                  save_ms=True)
+    assert cuda_attention.counters.fwd == 1
+    want, want_ms = cuda_attention.packed_attention_bf16_reference(
+        qkv, bias, mask, scale, nh, save_ms=True)
+    torch.testing.assert_close(ms, want_ms, rtol=2e-5, atol=2e-5)
+    g = _bf16_randn(cuda_device, *out.shape, seed=5)
+    # each step on the kernel's own rounded e and dl, and those against
+    # their plain values
+    tf, tb = {}, {}
+    out_t, ms_t = cuda_attention.attn_packed_fwd_cuda(
+        qkv, bias, mask, scale, nh, save_ms=True, taps=tf)
+    assert torch.equal(out_t, out) and torch.equal(ms_t, ms)
+    e_want, dl_want = packed_attention_bf16_intermediates(
+        qkv, bias, mask, ms, g, scale, nh)
+    _within_one_bf16_ulp("forward e", tf["e"], e_want)
+    _within_one_bf16_ulp("out from the kernel's e", out,
+                         packed_attention_bf16_fwd_stage(qkv, ms, tf["e"], nh))
+    dqkv, dbias = cuda_attention.attn_packed_bwd_cuda(qkv, bias, mask, ms, g,
+                                                      scale, nh)
+    dqkv_t, dbias_t = cuda_attention.attn_packed_bwd_cuda(
+        qkv, bias, mask, ms, g, scale, nh, taps=tb)
+    assert torch.equal(dqkv_t, dqkv) and torch.equal(dbias_t, dbias)
+    _within_one_bf16_ulp("backward e", tb["e"], e_want)
+    _assert_grad("dl", tb["dl"], dl_want)
+    _within_one_bf16_ulp("dqkv from the kernel's e and dl", dqkv,
+                         packed_attention_bf16_bwd_stages(
+                             qkv, ms, g, tb["e"], tb["dl"], scale, nh))
+    # end to end against the plain version on its own e and dl
+    wq, wb = cuda_attention.packed_attention_bf16_backward_reference(
+        qkv, bias, mask, ms, g, scale, nh)
+    slack_out, slack_dqkv = packed_attention_bf16_slack(qkv, bias, mask, ms,
+                                                        g, scale, nh)
+    assert_bf16_mostly_within("out", out, want, slack_out)
+    assert_bf16_mostly_within("dqkv", dqkv, wq, slack_dqkv)
+    assert dbias.dtype == torch.float32
+    _assert_grad("dbias", dbias, wb)
+    again = cuda_attention.attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale,
+                                                nh)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+    fwd = launches_of(lambda: cuda_attention.attn_packed_fwd_cuda(
+        qkv, bias, mask, scale, nh))
+    assert fwd == {"attn_fwd_bf16_kernel": 1}, fwd
+    bwd = launches_of(lambda: cuda_attention.attn_packed_bwd_cuda(
+        qkv, bias, mask, ms, g, scale, nh))
+    split = cuda_attention.bwd_split(case["b_"], nh, cuda_device)
+    assert bwd.get("attn_bwd_bf16_kernel") == 1, bwd
+    assert bwd.get("dkv_sum_kernel<__nv_bfloat16>", 0) == (split > 1), bwd
+    assert sum(bwd.values()) == 2 + (split > 1), bwd
+
+
+@pytest.mark.cuda
+def test_bf16_swin_kernels_refuse_unaligned_views(cuda_device):
+    """The bfloat16 LayerNorm-MLP and attention kernels move 16-byte units
+    of 8 values and refuse a tensor 2 bytes past a 16-byte boundary (the
+    LayerNorm takes it: test_ln_bf16_takes_unaligned_views)."""
+    x, g, bt, w1, b1, w2, b2 = _bf16_mlp_case(cuda_device, 24, 16)
+    buf = torch.empty(x.numel() + 1, dtype=BF16, device=cuda_device)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_mlp.ln_mlp(xs, g, bt, w1, b1, w2, b2)
+    qkv, vc, mask, wd = _attn_case(cuda_device, 6, 3, 8, (2, 3, 3), 3)
+    qkv = qkv.to(BF16)
+    buf = torch.empty(qkv.numel() + 1, dtype=BF16, device=cuda_device)
+    qs = buf[1:].view(qkv.shape)
+    qs.copy_(qkv)
+    bias = cuda_bias.expand_bias_reference(vc, wd)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_attention.window_attention_packed(qs, bias, mask, 8 ** -0.5, 3)
+    with pytest.raises(TypeError):            # the bias stays float32
+        cuda_attention.window_attention_packed(qkv, bias.to(BF16), mask,
+                                               8 ** -0.5, 3)
+    with pytest.raises(TypeError):            # gamma and beta stay float32
+        cuda_mlp.ln_mlp(x, g.to(BF16), bt, w1, b1, w2, b2)
+    with pytest.raises(TypeError):            # so do the MLP's weights not
+        cuda_mlp.ln_mlp(x, g, bt, w1.float(), b1, w2, b2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ln", "attention", "ln_mlp"])
+def test_bf16_swin_ops_differentiate_through_their_kernels(cuda_device, op):
+    """Under autograd each bfloat16 op runs its forward and its backward
+    kernel once, returns bfloat16 gradients for bfloat16 inputs and
+    float32 ones for float32 inputs."""
+    fn, _plain, ins, mod = _op_case(cuda_device, op)
+    ins = [t.to(BF16) if i == 0 or (op == "ln_mlp" and i >= 3) else t
+           for i, t in enumerate(ins)]
+    ins = [t.requires_grad_() for t in ins]
+    mod.counters.reset()
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum(o.float().sum() for o in outs).backward()
+    assert (mod.counters.fwd, mod.counters.bwd) == (1, 1)
+    for t in ins:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+
+
+def _bf16_swin(device, embed_dim=128, route="packed"):
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    torch.manual_seed(0)
+    return Recognizer3D(5, window_size=(2, 3, 3), embed_dim=embed_dim,
+                        depths=(2, 1), num_heads=(4, 8), attn_route=route,
+                        dtype="bfloat16").to(device)
+
+
+@pytest.mark.cuda
+def test_bf16_swin_runs_through_the_kernels(cuda_device):
+    """The bfloat16 Swin's tapped forward and backward on the card: every
+    LayerNorm, LayerNorm-MLP and packed attention through the bfloat16
+    kernels (the libraries' counts), none through a float32 one."""
+    from vitta_tpu_torch.models.layers import Taps
+    model = _bf16_swin(cuda_device)
+    x = torch.randn(2, 4, 48, 48, 3, device=cuda_device)
+
+    def step():
+        taps = Taps({"stat"})
+        logits = model(x, taps, train=True)
+        loss = logits.sum() + sum(v["stat"].var.sum() for v in taps.values())
+        loss.backward()
+    names = launches_of(step)
+
+    def count(part, bf16=True):
+        return sum(n for k, n in names.items()
+                   if part in k and ("bfloat16" in k or "bf16" in k) == bf16)
+    # 6 LayerNorms of their own (norm1 of the 3 blocks, the patch-embed,
+    # merging and final norms) and norm2 in each of the 3 LayerNorm-MLPs
+    assert count("ln_rows") == 6 + 3, names
+    assert count("ln_rows", bf16=False) == 0, names
+    assert count("ln_bwd_kernel") == 6 + 3, names   # and 3 in the LN-MLPs
+    assert count("attn_fwd_bf16_kernel") == 3, names
+    assert count("attn_bwd_bf16_kernel") == 3, names
+    assert count("gemm_tiles_bf16") == 3 * (2 + 4), names
+    for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
+        assert count(part, bf16=False) == 0, names
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_bf16_swin_half_twin_gives_the_bits_of_casting_at_use(cuda_device):
+    """On the card, two adapt+eval steps of the small bfloat16 Swin with
+    the engine's bfloat16 twin of the cast weights (foreach copies) and
+    casting them at every use: the same losses, predictions, EMA and
+    float32 masters, bit for bit."""
+    import dataclasses
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    from vitta_tpu_torch.tools.synthetic import (normalized_batches,
+                                                 swin_cfg, swin_model,
+                                                 swin_weights, videos)
+    cfg = swin_cfg(t=4, hw=48, embed_dim=128, depths=(2, 1),
+                   num_heads=(4, 8), window_size=(2, 3, 3))
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3),
+                      tta=dataclasses.replace(
+                          cfg.tta, chosen_blocks=("layers.1",
+                                                  "backbone.norm")))
+    sd = swin_weights(cfg, 0)
+    rng = np.random.default_rng(0)
+    source = swin_model(cfg)
+    source.load_state_dict(sd)
+    src = compute_source_statistics(
+        source, normalized_batches(rng, cfg, (2,), 4, 48), device=cuda_device)
+    clips = videos(rng, 2, 4, 48)
+    runs = []
+    for twin in (True, False):
+        eng = VittaEngine(swin_model(cfg, "bfloat16", drop_path_rate=0.0,
+                                     head_dropout=0.0), cfg, sd, src,
+                          device=cuda_device, half_twin=twin)
+        assert (eng._twin is not None) == twin
+        state, metrics = eng.init_state(), []
+        for views, clip, label in clips:
+            state, m = eng.adapt_eval_step(state, views, clip, label)
+            metrics.append([getattr(m, f) for f in
+                            ("loss_reg", "loss_consis", "loss_ce", "pred")])
+        runs.append((metrics, eng.model.state_dict(), state.ema))
+    (m1, p1, e1), (m2, p2, e2) = runs
+    for a, b in zip(m1, m2):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(p1[k], p2[k]) for k in p1)
+    assert all(torch.equal(x, y) for k in e1 for x, y in zip(e1[k], e2[k]))
+
+
+@pytest.mark.cuda
+def test_bf16_swin_refuses_what_is_not_ported(cuda_device):
+    """At bfloat16 the routes other than packed and the widths whose norm2
+    runs apart (rows 8-9) raise, naming the ROADMAP's queue."""
+    for route in ("proj", "ln_proj", "heads"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _bf16_swin(cuda_device, route=route)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _bf16_swin(cuda_device, embed_dim=96)

@@ -40,6 +40,7 @@ from vitta_tpu_torch.adapt.optim import build_optimizer
 from vitta_tpu_torch.config import VittaConfig
 from vitta_tpu_torch.models.layers import (COUNT_LEAF, BatchNorm, Taps,
                                            flatten_taps, tap_leaf_name)
+from vitta_tpu_torch.models.swin import HalfTwin
 from vitta_tpu_torch.ops.losses import (compute_regularization, cross_entropy,
                                         pred_consistency, topk_accuracy)
 from vitta_tpu_torch.ops.stats import (CumulativeState, TapStats,
@@ -133,12 +134,24 @@ class VittaEngine:
     The engine runs on the card: ``device`` defaults to ``"cuda"`` and the
     constructor raises where there is none.  Only an explicit
     ``device="cpu"`` runs on the CPU, as the tests do.
+
+    A bfloat16 model (``TANet(dtype="bfloat16")``,
+    ``Recognizer3D(dtype="bfloat16")``) is taken as it is: its parameters,
+    and so the masters that SGD updates, are float32, and the taps,
+    losses, EMA and logits it hands back are float32.  TANet casts its
+    weights where it uses them.  A bfloat16 Video Swin under SGD reads a
+    bfloat16 copy of the weights it casts (``HalfTwin``, vitta_tpu's
+    ``params_half``), refreshed after every update and reset, unless
+    ``half_twin`` is False: the same values as a cast at every use, with
+    two foreach calls a step where the casts took about 600 launches and
+    autograd nodes.
     """
 
     def __init__(self, model: torch.nn.Module, cfg: VittaConfig,
                  state_dict: Dict[str, torch.Tensor],
                  source_stats: Optional[Dict[str, Any]] = None,
-                 tap_names: Optional[Tuple[str, ...]] = None, device="cuda"):
+                 tap_names: Optional[Tuple[str, ...]] = None, device="cuda",
+                 half_twin: bool = True):
         cfg.tta.validate()
         tcfg = cfg.tta
         self.cfg = cfg
@@ -212,6 +225,13 @@ class VittaEngine:
         self.optimizer = build_optimizer(cfg.optim, self.model,
                                          arch=cfg.model.arch,
                                          partial_bn=cfg.model.partial_bn)
+        # the bfloat16 copy of a bfloat16 Swin's cast weights, under SGD
+        # (vitta_tpu/adapt/engine.py:262-270)
+        HalfTwin.remove(self.model)
+        self._twin = (HalfTwin(self.model) if half_twin
+                      and cfg.model.arch == "videoswintransformer"
+                      and getattr(self.model, "dtype", None) == torch.bfloat16
+                      and not cfg.optim.update_only_bn_affine else None)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.asarray(a, np.float32), device=self.device)
@@ -237,6 +257,7 @@ class VittaEngine:
             for k, b in self.model.named_buffers():
                 b.copy_(self._init_buffers[k])
         self.model.zero_grad(set_to_none=True)
+        self._refresh_twin()
         self.optimizer.state.clear()   # SGD's first step sets v = d, as v0 = 0
         if self._multi:
             ema = {s.key: self._init_ema_for(s) for s in self.reg_specs}
@@ -244,6 +265,19 @@ class VittaEngine:
             ema = self._init_ema_for(self.reg_specs[0])
         return TTAState(dict(self.model.named_parameters()), self.optimizer,
                         ema, step, dict(self.model.named_buffers()))
+
+    def _update(self, loss):
+        """Backward and one optimizer step on the masters (through the
+        bfloat16 copy's gradients where there is one, refreshed after)."""
+        loss.backward()
+        if self._twin is not None:
+            self._twin.grads_to_masters()
+        self.optimizer.step()
+        self._refresh_twin()
+
+    def _refresh_twin(self):
+        if self._twin is not None:
+            self._twin.refresh()
 
     # ------------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:
@@ -349,8 +383,7 @@ class VittaEngine:
             self.model.zero_grad(set_to_none=True)
             loss, loss_reg, loss_consis, mean_logits, ema = self._losses(
                 ema, views, generator)
-            loss.backward()
-            self.optimizer.step()
+            self._update(loss)
         # detach the EMA carry (the meter's sum is detached between steps)
         ema = _detach(ema)
         loss_ce = cross_entropy(mean_logits.detach(), label)
@@ -373,8 +406,7 @@ class VittaEngine:
         self.model.zero_grad(set_to_none=True)
         loss, loss_reg, loss_consis, mean_logits, ema = self._losses(
             state.ema, views, generator)
-        loss.backward()
-        self.optimizer.step()
+        self._update(loss)
         loss_ce = cross_entropy(mean_logits.detach(), label)
         state = dataclasses.replace(state, ema=_detach(ema),
                                     step=state.step + 1)

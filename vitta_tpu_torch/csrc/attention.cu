@@ -125,6 +125,17 @@
 //
 // The kernels and their launchers are in attention_kernels.cuh, which
 // attention_proj.cu includes too.
+//
+// At bfloat16 (vitta_attn_packed_{fwd,bwd}_bf16): the packed pair as
+// vitta_tpu runs it at the compute dtype, qkv, out, g and dqkv bfloat16,
+// the bias, mask, ms and dbias float32, every product one
+// mma.sync.m16n8k16 on bfloat16 operands.  attention_kernels.cuh says where
+// it rounds (the TPU kernel's points): the forward walks the keys twice,
+// for the row maximum and then for e, its sum and e v, since e is rounded
+// against the final maximum; the backward keeps this kernel's layout (a
+// warp's 32 keys, 16-row strips, dl through a warp tile into dq, dbias
+// from dl in a second launch).  What bounds it: the same operations against
+// the dense bfloat16 rate, 989 TFLOP/s.
 
 #include <cuda_runtime.h>
 
@@ -212,6 +223,39 @@ int vitta_attn_heads_bwd(const float* q, const float* k, const float* v,
       OutRows{dq, n * c, c, hd}, OutRows{dk, n * c, c, hd},
       OutRows{dv, n * c, c, hd}, dbias, scratch, b_, n, nh, hd, nw, 0, 0, 0,
       scale, (cudaStream_t)stream);
+}
+
+// The packed pair at bfloat16: qkv (b_, n, 3C), out (b_, n, C), g and dqkv
+// bfloat16; bias, mask, ms, dbias and scratch (vitta_attn_bwd_scratch_floats)
+// float32.  qkv, out, g and dqkv must be 16-byte aligned and hd a multiple
+// of 8 (cudaErrorMisalignedAddress / InvalidValue otherwise).  e_tap is
+// nullptr on the model's path; a check passes (b_, nh, n, n) bfloat16 for
+// the kernel's rounded e (its instances with kTap true), and reads the
+// backward's dl from the first b_ * nh * n * n floats of scratch.
+int vitta_attn_packed_fwd_bf16(const void* qkv, const float* bias,
+                               const float* mask, void* out, float* ms,
+                               int b_, int n, int nh, int hd, int nw,
+                               int compact, int wd, int hw, float scale,
+                               void* e_tap, void* stream) {
+  return (int)vitta::attn::launch_packed_fwd_bf16(
+      reinterpret_cast<const vitta::bf16*>(qkv), bias, mask,
+      reinterpret_cast<vitta::bf16*>(out), ms,
+      reinterpret_cast<vitta::bf16*>(e_tap), b_, n, nh, hd, nw, compact, wd,
+      hw, scale, (cudaStream_t)stream);
+}
+
+int vitta_attn_packed_bwd_bf16(const void* qkv, const float* bias,
+                               const float* mask, const float* ms,
+                               const void* g, void* dqkv, float* dbias,
+                               float* scratch, int b_, int n, int nh, int hd,
+                               int nw, int compact, int wd, int hw,
+                               float scale, void* e_tap, void* stream) {
+  return (int)vitta::attn::launch_packed_bwd_bf16(
+      reinterpret_cast<const vitta::bf16*>(qkv), bias, mask, ms,
+      reinterpret_cast<const vitta::bf16*>(g),
+      reinterpret_cast<vitta::bf16*>(dqkv), dbias, scratch,
+      reinterpret_cast<vitta::bf16*>(e_tap), b_, n, nh, hd, nw, compact, wd,
+      hw, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,13 @@
 // here each block keeps its rows' column sums in registers as it makes dx,
 // writes one partial, and a second launch adds the partials in block order,
 // without atomics (ln_rows.cuh).
+//
+// At bfloat16 (vitta_tpu runs these kernels at the compute dtype: x, y, dy
+// and dx bfloat16; gamma, beta, the statistics, every sum and dgamma and
+// dbeta float32, pallas_ln.py:47-73) the same kernels take bfloat16 rows:
+// y and dx are rounded once.  The bound halves with the bytes; the forward
+// moves 16-byte units of 8 values, the backward units of 4 (8 bytes), so
+// that its plan and the columns a lane owns stay those of float32.
 
 #include "ln_rows.cuh"
 
@@ -60,6 +67,33 @@ int vitta_ln_bwd(const float* x, const float* gamma, const float* dy,
     return (int)cudaErrorMisalignedAddress;
   return (int)vitta::launch_ln_bwd(x, gamma, dy, dx, dgb, scratch, rows, c,
                                    eps, vec != 0, (cudaStream_t)stream);
+}
+
+// The same at bfloat16: x, y, dy, dx bfloat16; gamma, beta, dgb, scratch
+// float32.  vec: units of 4 values (8 bytes), refused where x, dy or dx is
+// not 8-byte aligned or gamma not 16-byte aligned.
+int vitta_ln_fwd_bf16(const void* x, const float* gamma, const float* beta,
+                      void* y, long long rows, int c, float eps,
+                      void* stream) {
+  if (rows < 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  return (int)vitta::launch_ln_rows(reinterpret_cast<const vitta::bf16*>(x),
+                                    gamma, beta,
+                                    reinterpret_cast<vitta::bf16*>(y), rows,
+                                    c, eps, (cudaStream_t)stream);
+}
+
+int vitta_ln_bwd_bf16(const void* x, const float* gamma, const void* dy,
+                      void* dx, float* dgb, float* scratch, long long rows,
+                      int c, float eps, int vec, void* stream) {
+  const auto* xb = reinterpret_cast<const vitta::bf16*>(x);
+  const auto* dyb = reinterpret_cast<const vitta::bf16*>(dy);
+  auto* dxb = reinterpret_cast<vitta::bf16*>(dx);
+  if (vitta::ln_bwd_plan(rows, c, false).units == 0)
+    return (int)cudaErrorInvalidValue;
+  if (vec && !vitta::ln_bwd_vec_ok(xb, gamma, dyb, dxb, c))
+    return (int)cudaErrorMisalignedAddress;
+  return (int)vitta::launch_ln_bwd(xb, gamma, dyb, dxb, dgb, scratch, rows,
+                                   c, eps, vec != 0, (cudaStream_t)stream);
 }
 
 }  // extern "C"

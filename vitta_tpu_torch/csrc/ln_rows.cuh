@@ -10,8 +10,11 @@
 // the work is bound by bytes (one read and one write of the activation),
 // so nothing else may touch device memory.  The vector form takes
 // C == 128 * VEC (every Swin-B width); the generic form takes any C and
-// reads the row a second time, which the L1 cache serves.
-
+// reads the row a second time, which the L1 cache serves.  At bfloat16
+// (x and y bfloat16, gamma, beta and every sum float32, y rounded once)
+// the vector form moves 16-byte units of 8 values, LANES = min(32, C / 8)
+// lanes a row and 32 / LANES rows a warp (C = 128: two rows a warp), so
+// that every lane holds whole units of one row.
 //
 // Backward, from (x, gamma, dy), with xh = (x - mu) * rstd recomputed and
 // wg = dy * gamma:
@@ -35,13 +38,19 @@
 // (ln_bwd_plan) depends on rows, C and the unit alone; the grid is at most
 // kLnBwdBlocks blocks of at least kLnBwdMinRows rows, so that the partials
 // stay a small share of the activation.  ops/cuda_ln.py:ln_bwd_plan mirrors
-// it.
+// it.  The element types are template arguments: x and dx float32 or
+// bfloat16 (EX), dy float32 or bfloat16 (ED; float32 with a bfloat16 x in
+// the LayerNorm-MLP backward, whose dy is a float32 sum); gamma, the sums
+// and the partials are float32 at either, and dx is rounded once.  A unit
+// is 4 elements at both, 16 bytes of float32 or 8 of bfloat16, so that the
+// plan, and the columns a lane owns, are the same at both types.
 
 #pragma once
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16.cuh"
 #include "launches.cuh"
 #include "reduce.cuh"
 
@@ -94,18 +103,65 @@ ln_rows_vec(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// 4 elements of a row (16 bytes of float32, 8 of bfloat16) or one, as
+// float32, and back, rounded to nearest even at bfloat16.
+template <int W>
+__device__ __forceinline__ void load_elems(const float* p, float (&o)[W]) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    o[0] = t.x, o[1] = t.y, o[2] = t.z, o[3] = t.w;
+  } else {
+    o[0] = *p;
+  }
+}
+template <int W>
+__device__ __forceinline__ void load_elems(const bf16* p, float (&o)[W]) {
+  if constexpr (W == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    o[0] = bf16_lo(t.x), o[1] = bf16_hi(t.x);
+    o[2] = bf16_lo(t.y), o[3] = bf16_hi(t.y);
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
+}
+template <int W>
+__device__ __forceinline__ void store_elems(float* p, const float (&v)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+template <int W>
+__device__ __forceinline__ void store_elems(bf16* p, const float (&v)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  else
+    *p = __float2bfloat16_rn(v[0]);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_float(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_float(bf16& d, float v) {
+  d = __float2bfloat16_rn(v);
+}
+
+template <class E>
 __global__ void __launch_bounds__(kLnThreads)
-ln_rows_any(const float* __restrict__ x, const float* __restrict__ gamma,
-            const float* __restrict__ beta, float* __restrict__ y,
+ln_rows_any(const E* __restrict__ x, const float* __restrict__ gamma,
+            const float* __restrict__ beta, E* __restrict__ y,
             long long rows, int c, float eps) {
   const int lane = threadIdx.x & 31;
   const long long row =
       (long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const float* xr = x + row * c;
+  const E* xr = x + row * c;
   float s = 0.f, sq = 0.f;
   for (int j = lane; j < c; j += 32) {
-    const float v = xr[j];
+    const float v = to_float(xr[j]);
     s += v;
     sq += v * v;
   }
@@ -113,9 +169,74 @@ ln_rows_any(const float* __restrict__ x, const float* __restrict__ gamma,
   sq = warp_sum(sq);
   const float mu = s / c;
   const float rstd = rsqrtf(sq / c - mu * mu + eps);
-  float* yr = y + row * c;
+  E* yr = y + row * c;
   for (int j = lane; j < c; j += 32)
-    yr[j] = (xr[j] - mu) * rstd * gamma[j] + beta[j];
+    from_float(yr[j], (to_float(xr[j]) - mu) * rstd * gamma[j] + beta[j]);
+}
+
+// bfloat16 rows of C = 8 * UNITS * LANES: LANES lanes a row, each with
+// UNITS 16-byte units of 8 values, 32 / LANES rows a warp; the sums over a
+// row's lanes only.
+template <int UNITS, int LANES>
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_bf16x8(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, bf16* __restrict__ y,
+               long long rows, float eps) {
+  constexpr int C = 8 * UNITS * LANES;
+  constexpr int kRowsPerWarp = 32 / LANES;
+  const int lane = threadIdx.x & 31, sub = lane % LANES;
+  const long long row =
+      ((long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5)) *
+          kRowsPerWarp + lane / LANES;
+  const bool ok = row < rows;
+  float v[UNITS][8];
+  float s = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    uint4 t = make_uint4(0u, 0u, 0u, 0u);
+    if (ok)
+      t = *reinterpret_cast<const uint4*>(x + row * C +
+                                          8 * (sub + LANES * i));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][2 * j] = bf16_lo(w[j]);
+      v[i][2 * j + 1] = bf16_hi(w[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s += v[i][j];
+      sq += v[i][j] * v[i][j];
+    }
+  }
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  if (!ok) return;
+  const float mu = s * (1.0f / C);
+  const float rstd = rsqrtf(sq * (1.0f / C) - mu * mu + eps);
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int c0 = 8 * (sub + LANES * i);
+    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c0);
+    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c0 + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(beta + c0);
+    const float4 b1 = *reinterpret_cast<const float4*>(beta + c0 + 4);
+    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = (v[i][j] - mu) * rstd * g[j] + b[j];
+    *reinterpret_cast<uint4*>(y + row * C + c0) =
+        make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]),
+                   pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 // Launch the row LayerNorm on `stream`; returns the launch's error code.
@@ -138,11 +259,43 @@ inline cudaError_t launch_ln_rows(const float* x, const float* gamma,
     VITTA_LN_CASE(8)
     VITTA_LN_CASE(16)
     default:
-      ln_rows_any<<<blocks, kLnThreads, 0, stream>>>(x, gamma, beta, y, rows,
-                                                     c, eps);
-      count_launch("ln_rows_any");
+      ln_rows_any<float><<<blocks, kLnThreads, 0, stream>>>(
+          x, gamma, beta, y, rows, c, eps);
+      count_launch("ln_rows_any<float>");
   }
 #undef VITTA_LN_CASE
+  return cudaGetLastError();
+}
+
+// The same at bfloat16 (x, y bfloat16): 16-byte units where C is one of
+// the vector widths and x, y, gamma and beta are 16-byte aligned, one
+// value at a time otherwise, with the same values.
+inline cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
+                                  const float* beta, bf16* y, long long rows,
+                                  int c, float eps, cudaStream_t stream) {
+  if (rows <= 0) return cudaSuccess;
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(gamma) &&
+                   aligned16(beta);
+#define VITTA_LN_BF16_CASE(U, L)                                             \
+  if (vec && c == 8 * U * L) {                                               \
+    constexpr long long per = (long long)kLnRowsPerBlock * (32 / L);         \
+    ln_rows_bf16x8<U, L><<<(unsigned)((rows + per - 1) / per), kLnThreads,   \
+                           0, stream>>>(x, gamma, beta, y, rows, eps);       \
+    count_launch("ln_rows_bf16x8<" #U ", " #L ">");                         \
+    return cudaGetLastError();                                               \
+  }
+  VITTA_LN_BF16_CASE(1, 8)
+  VITTA_LN_BF16_CASE(1, 16)
+  VITTA_LN_BF16_CASE(1, 32)
+  VITTA_LN_BF16_CASE(2, 32)
+  VITTA_LN_BF16_CASE(4, 32)
+  VITTA_LN_BF16_CASE(8, 32)
+#undef VITTA_LN_BF16_CASE
+  ln_rows_any<bf16><<<(unsigned)((rows + kLnRowsPerBlock - 1) /
+                                 kLnRowsPerBlock),
+                      kLnThreads, 0, stream>>>(x, gamma, beta, y, rows, c,
+                                               eps);
+  count_launch("ln_rows_any<__nv_bfloat16>");
   return cudaGetLastError();
 }
 
@@ -195,15 +348,19 @@ inline LnBwdPlan ln_bwd_plan(long long rows, int c, bool vec) {
   return q;
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
+// Whether p starts on a boundary of a unit of 4 elements of its type.
+template <class E>
+inline bool unit_aligned(const E* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (4 * sizeof(E) - 1)) == 0;
 }
 
-// Whether the backward may take 16-byte units on these pointers.
-inline bool ln_bwd_vec_ok(const float* x, const float* gamma, const float* dy,
-                          const float* dx, int c) {
-  return c % 4 == 0 && aligned16(x) && aligned16(gamma) && aligned16(dy) &&
-         aligned16(dx);
+// Whether the backward may take units of 4 elements on these pointers
+// (gamma, float32, in 16 bytes).
+template <class EX, class ED>
+inline bool ln_bwd_vec_ok(const EX* x, const float* gamma, const ED* dy,
+                          const EX* dx, int c) {
+  return c % 4 == 0 && unit_aligned(x) && aligned16(gamma) &&
+         unit_aligned(dy) && unit_aligned(dx);
 }
 
 // The number of (2, c) partials the backward leaves, one a block; the same
@@ -217,54 +374,50 @@ inline long long ln_bwd_scratch_floats(long long rows, int c) {
   return ln_bwd_partial_count(rows, c) * 2 * c;
 }
 
-template <bool VEC>
-struct LnUnit;
-template <>
-struct LnUnit<true> {
-  using T = float4;
-  static constexpr int floats = 4;
-  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static float& at(float4& v, int k) {
-    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-  }
-};
-template <>
-struct LnUnit<false> {
-  using T = float;
-  static constexpr int floats = 1;
-  __device__ static float zero() { return 0.f; }
-  __device__ static float& at(float& v, int) { return v; }
-};
+// The name of a backward instance: "ln_bwd_kernel<vec, units, batch>" at
+// float32, with the two element types appended otherwise.
+inline const char* type_tag(const float*) { return "float"; }
+inline const char* type_tag(const bf16*) { return "__nv_bfloat16"; }
+
+template <class EX, class ED>
+std::string ln_bwd_name(bool vec, int units, int batch) {
+  std::string s = template_name("ln_bwd_kernel", vec, units, batch);
+  if (sizeof(EX) == 4 && sizeof(ED) == 4) return s;
+  s.pop_back();
+  return s + ", " + type_tag((const EX*)nullptr) + ", " +
+         type_tag((const ED*)nullptr) + ">";
+}
 
 // grid (plan.blocks), block kLnBwdThreads.  Block b takes rows [b * rpb,
 // min((b + 1) * rpb, rows)); its warps form kLnBwdWarps / wpr groups of wpr
 // warps, and at step s group g takes the BATCH rows from
 // r0 + (s * groups + g) * BATCH.  A lane of warp k of its group owns units
-// t, t + 32 * wpr, ... (UNITS of them), t = 32 * k + lane.
-template <bool VEC, int UNITS, int BATCH>
+// t, t + 32 * wpr, ... (UNITS of them), t = 32 * k + lane; a unit is W = 4
+// elements (VEC) or 1, held as float32 whatever EX and ED are.
+template <bool VEC, int UNITS, int BATCH, class EX, class ED>
 __global__ void __launch_bounds__(kLnBwdThreads, 1)
-ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ dy, float* __restrict__ dx,
+ln_bwd_kernel(const EX* __restrict__ x, const float* __restrict__ gamma,
+              const ED* __restrict__ dy, EX* __restrict__ dx,
               float* __restrict__ partial, long long rows, int c, int wpr,
               long long rows_per_block, float eps) {
-  using U = LnUnit<VEC>;
-  using T = typename U::T;
-  constexpr int W = U::floats;
+  constexpr int W = VEC ? 4 : 1;
   __shared__ float red[kLnBwdRedFloats];        // (groups, c)
   __shared__ float2 xch[2][kLnBwdWarps * BATCH];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = kLnBwdWarps / wpr, grp = warp / wpr;
   const int t = (warp - grp * wpr) * 32 + lane, stride = 32 * wpr;
   const int n = c / W;
-  const T* xu = reinterpret_cast<const T*>(x);
-  const T* du = reinterpret_cast<const T*>(dy);
-  T* ou = reinterpret_cast<T*>(dx);
-  T gm[UNITS];
+  float gm[UNITS][W];
   float acc_g[UNITS * W], acc_b[UNITS * W];
 #pragma unroll
   for (int i = 0; i < UNITS; ++i) {
     const int u = t + stride * i;
-    gm[i] = u < n ? reinterpret_cast<const T*>(gamma)[u] : U::zero();
+    if (u < n) {
+      load_elems<W>(gamma + (long long)u * W, gm[i]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < W; ++k) gm[i][k] = 0.f;
+    }
 #pragma unroll
     for (int k = 0; k < W; ++k) acc_g[i * W + k] = acc_b[i * W + k] = 0.f;
   }
@@ -275,15 +428,20 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   const float inv_c = 1.0f / c;
   for (long long s = 0; s < steps; ++s) {
     const long long base = r0 + (s * groups + grp) * BATCH;
-    T xv[BATCH][UNITS], dv[BATCH][UNITS];
+    float xv[BATCH][UNITS][W], dv[BATCH][UNITS][W];
 #pragma unroll
     for (int b = 0; b < BATCH; ++b)
 #pragma unroll
       for (int i = 0; i < UNITS; ++i) {
         const int u = t + stride * i;
-        const bool ok = base + b < r1 && u < n;
-        xv[b][i] = ok ? xu[(base + b) * n + u] : U::zero();
-        dv[b][i] = ok ? du[(base + b) * n + u] : U::zero();
+        if (base + b < r1 && u < n) {
+          const long long at = ((base + b) * n + u) * W;
+          load_elems<W>(x + at, xv[b][i]);
+          load_elems<W>(dy + at, dv[b][i]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < W; ++k) xv[b][i][k] = dv[b][i][k] = 0.f;
+        }
       }
     // the rows' sums and sums of squares, over the row's warps
     float mu[BATCH], rstd[BATCH];
@@ -294,7 +452,7 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       for (int i = 0; i < UNITS; ++i)
 #pragma unroll
         for (int k = 0; k < W; ++k) {
-          const float v = U::at(xv[b][i], k);
+          const float v = xv[b][i][k];
           sm += v;
           sq += v * v;
         }
@@ -329,9 +487,9 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       for (int i = 0; i < UNITS; ++i)
 #pragma unroll
         for (int k = 0; k < W; ++k) {
-          float& v = U::at(xv[b][i], k);
+          float& v = xv[b][i][k];
           v = (v - m) * r;
-          const float wg = U::at(dv[b][i], k) * U::at(gm[i], k);
+          const float wg = dv[b][i][k] * gm[i][k];
           sa += wg;
           sb += wg * v;
         }
@@ -363,15 +521,15 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       for (int i = 0; i < UNITS; ++i) {
         const int u = t + stride * i;
         if (u >= n) break;
-        T o;
+        float o[W];
 #pragma unroll
         for (int k = 0; k < W; ++k) {
-          const float xh = U::at(xv[b][i], k), d = U::at(dv[b][i], k);
-          U::at(o, k) = r * (d * U::at(gm[i], k) - a - xh * bb);
+          const float xh = xv[b][i][k], d = dv[b][i][k];
+          o[k] = r * (d * gm[i][k] - a - xh * bb);
           acc_g[i * W + k] += d * xh;
           acc_b[i * W + k] += d;
         }
-        ou[(base + b) * n + u] = o;
+        store_elems<W>(dx + ((base + b) * n + u) * W, o);
       }
     }
   }
@@ -398,17 +556,15 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <bool VEC, int UNITS, int BATCH>
-cudaError_t launch_ln_bwd_kernel(const LnBwdPlan& q, const float* x,
-                                 const float* gamma, const float* dy,
-                                 float* dx, float* partial, long long rows,
-                                 int c, float eps, cudaStream_t stream) {
-  ln_bwd_kernel<VEC, UNITS, BATCH><<<(unsigned)q.blocks, kLnBwdThreads, 0,
-                                     stream>>>(x, gamma, dy, dx, partial, rows,
-                                               c, q.wpr, q.rows_per_block,
-                                               eps);
-  static const std::string name =
-      template_name("ln_bwd_kernel", VEC, UNITS, BATCH);
+template <bool VEC, int UNITS, int BATCH, class EX, class ED>
+cudaError_t launch_ln_bwd_kernel(const LnBwdPlan& q, const EX* x,
+                                 const float* gamma, const ED* dy, EX* dx,
+                                 float* partial, long long rows, int c,
+                                 float eps, cudaStream_t stream) {
+  ln_bwd_kernel<VEC, UNITS, BATCH, EX, ED>
+      <<<(unsigned)q.blocks, kLnBwdThreads, 0, stream>>>(
+          x, gamma, dy, dx, partial, rows, c, q.wpr, q.rows_per_block, eps);
+  static const std::string name = ln_bwd_name<EX, ED>(VEC, UNITS, BATCH);
   count_launch(name.c_str());
   return cudaGetLastError();
 }
@@ -416,13 +572,13 @@ cudaError_t launch_ln_bwd_kernel(const LnBwdPlan& q, const float* x,
 // The first launch of the LayerNorm backward on `stream`: dx (rows, c) and
 // the blocks' partials (ln_bwd_partial_count of them, (2, c) each) in
 // `scratch`, which a reduce adds up (launch_ln_bwd's own, or a chain's one
-// reduce_sums).  vec: 16-byte units, which the caller has checked
+// reduce_sums).  vec: units of 4 elements, which the caller has checked
 // (ln_bwd_vec_ok).  Returns the launch's error.
-inline cudaError_t launch_ln_bwd_parts(const float* x, const float* gamma,
-                                       const float* dy, float* dx,
-                                       float* scratch, long long rows, int c,
-                                       float eps, bool vec,
-                                       cudaStream_t stream) {
+template <class EX, class ED>
+inline cudaError_t launch_ln_bwd_parts(const EX* x, const float* gamma,
+                                       const ED* dy, EX* dx, float* scratch,
+                                       long long rows, int c, float eps,
+                                       bool vec, cudaStream_t stream) {
   const LnBwdPlan q = ln_bwd_plan(rows, c, vec);
   if (q.units == 0) return cudaErrorInvalidValue;
 #define VITTA_LN_BWD_CASE(V, UN, B)                                          \
@@ -445,8 +601,9 @@ inline cudaError_t launch_ln_bwd_parts(const float* x, const float* gamma,
 // The LayerNorm backward on `stream`, two launches: dx (rows, c), dgb (2, c)
 // = (dgamma, dbeta); scratch as ln_bwd_scratch_floats says.  Returns the
 // first launch error.
-inline cudaError_t launch_ln_bwd(const float* x, const float* gamma,
-                                 const float* dy, float* dx, float* dgb,
+template <class EX, class ED>
+inline cudaError_t launch_ln_bwd(const EX* x, const float* gamma,
+                                 const ED* dy, EX* dx, float* dgb,
                                  float* scratch, long long rows, int c,
                                  float eps, bool vec, cudaStream_t stream) {
   const cudaError_t e = launch_ln_bwd_parts(x, gamma, dy, dx, scratch, rows,

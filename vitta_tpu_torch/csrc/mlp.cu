@@ -59,6 +59,8 @@
 
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
 #include "gemm_tiles.cuh"
 #include "ln_rows.cuh"
 
@@ -103,6 +105,38 @@ MlpBwdScratch mlp_bwd_scratch(int m, int c, int f) {
 bool bad_dims(int m, int c, int f) {
   return m <= 0 || c <= 0 || f <= 0 || c % 4 != 0 || f % 4 != 0 ||
          (m + 63) / 64 > 65535;
+}
+
+// The bfloat16 backward's scratch, in floats and in this order: dh (m, f)
+// float32, dhc (m, f) bfloat16, dy (m, c) float32, the LayerNorm
+// backward's, the partial weight-gradient products (one chunk or more),
+// the partial column sums.
+struct Bf16BwdScratch {
+  long long dh, dhc, dy, ln, grad, cols;
+  long long total() const { return dh + dhc + dy + ln + grad + cols; }
+};
+
+Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f) {
+  Bf16BwdScratch s;
+  s.dh = (long long)m * f;
+  s.dhc = ((long long)m * f / 2 + 3) / 4 * 4;
+  s.dy = (long long)m * c;
+  s.ln = (vitta::ln_bwd_scratch_floats(m, c) + 3) / 4 * 4;
+  s.grad = max2(grad_partial_floats_bf16(f, c, m),
+                grad_partial_floats_bf16(c, f, m));
+  s.cols = (long long)vitta::col_chunks(m) * f;
+  return s;
+}
+
+// bfloat16: every extent a multiple of 8 (16-byte rows of 8 values)
+bool bad_dims_bf16(int m, int c, int f) {
+  return bad_dims(m, c, f) || c % 8 != 0 || f % 8 != 0;
+}
+
+bool all_aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (p != nullptr && !vitta::aligned16(p)) return false;
+  return true;
 }
 
 }  // namespace
@@ -222,6 +256,112 @@ int vitta_mlp_bwd(const float* x, const float* a, const float* s,
   e = vitta::launch_col_sums(dh, cols, db1, m, f, st);
   if (e != cudaSuccess) return (int)e;
   return (int)vitta::launch_col_sums(g, cols, db2, m, c, st);
+}
+
+// ------------------------------------------------------------- bfloat16
+// The same forward and backward at bfloat16 (the header says where they
+// round): x, y, a, s, o, w1, b1, w2, b2, go, gy, dx, dw1, db1, dw2, db2
+// bfloat16, gamma, beta, dgb and the scratch float32.  Every bfloat16 and
+// float32 pointer must be 16-byte aligned and c and f multiples of 8:
+// anything else is refused (cudaErrorMisalignedAddress / InvalidValue).
+
+int vitta_lnmlp_fwd_bf16(const void* x, const float* gamma, const float* beta,
+                         const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* y, void* a, void* s, void* o,
+                         int m, int c, int f, float eps, void* stream) {
+  if (bad_dims_bf16(m, c, f)) return (int)cudaErrorInvalidValue;
+  if (!all_aligned16({x, gamma, beta, w1, b1, w2, b2, y, a, s, o}))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16* xb = reinterpret_cast<const bf16*>(x);
+  bf16* yb = reinterpret_cast<bf16*>(y);
+  bf16* ab = reinterpret_cast<bf16*>(a);
+  cudaError_t e = vitta::launch_ln_rows(xb, gamma, beta, yb, m, c, eps, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm_bf16<false, EPI_GELU>(
+      yb, reinterpret_cast<const bf16*>(w1), reinterpret_cast<const bf16*>(b1),
+      nullptr, Bf16Out{nullptr, ab, reinterpret_cast<bf16*>(s)}, m, f, c, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_gemm_bf16<false, EPI_BIAS>(
+      ab, reinterpret_cast<const bf16*>(w2), reinterpret_cast<const bf16*>(b2),
+      nullptr, Bf16Out{nullptr, reinterpret_cast<bf16*>(o), nullptr}, m, c, f,
+      st);
+}
+
+// Floats of scratch vitta_lnmlp_bwd_bf16 needs.
+long long vitta_lnmlp_bwd_bf16_scratch_floats(int m, int c, int f) {
+  if (bad_dims_bf16(m, c, f)) return -1;
+  return bf16_bwd_scratch(m, c, f).total();
+}
+
+// Where vitta_lnmlp_bwd_bf16 leaves its intermediates in its scratch, in
+// floats from its start: offsets[0] dh (m, f) float32, offsets[1] its
+// rounded form dhc (m, f) bfloat16, offsets[2] dy (m, c) float32 (the
+// layout the entry below uses); -1 each for dimensions it refuses.
+void vitta_lnmlp_bwd_bf16_plan(int m, int c, int f, long long* offsets) {
+  if (bad_dims_bf16(m, c, f)) {
+    offsets[0] = offsets[1] = offsets[2] = -1;
+    return;
+  }
+  const Bf16BwdScratch sz = bf16_bwd_scratch(m, c, f);
+  offsets[0] = 0;
+  offsets[1] = sz.dh;
+  offsets[2] = sz.dh + sz.dhc;
+}
+
+int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
+                         const void* s, const void* go, const void* gy,
+                         const float* gamma, const void* w1, const void* w2,
+                         void* dx, float* dgb, void* dw1, void* db1,
+                         void* dw2, void* db2, float* scratch, int m, int c,
+                         int f, float eps, void* stream) {
+  if (bad_dims_bf16(m, c, f) || vitta::col_chunks(m) > 65535 ||
+      c > vitta::kLnBwdMaxC)
+    return (int)cudaErrorInvalidValue;
+  if (!all_aligned16({x, y, a, s, go, gy, gamma, w1, w2, dx, dgb, dw1, db1,
+                      dw2, db2, scratch}))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Bf16BwdScratch sz = bf16_bwd_scratch(m, c, f);
+  float* dh = scratch;
+  bf16* dhc = reinterpret_cast<bf16*>(dh + sz.dh);
+  float* dy = dh + sz.dh + sz.dhc;
+  float* ln = dy + sz.dy;
+  float* grad = ln + sz.ln;
+  float* cols = grad + sz.grad;
+  const bf16* gob = reinterpret_cast<const bf16*>(go);
+  // dh = (go w2) * s, float32 and rounded; then dy = dhc w1 + gy
+  cudaError_t e = launch_gemm_bf16<true, EPI_MUL>(
+      gob, reinterpret_cast<const bf16*>(w2), nullptr,
+      reinterpret_cast<const bf16*>(s), Bf16Out{dh, dhc, nullptr}, m, f, c,
+      st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_gemm_bf16<true, EPI_ADD>(
+      dhc, reinterpret_cast<const bf16*>(w1), nullptr,
+      reinterpret_cast<const bf16*>(gy), Bf16Out{dy, nullptr, nullptr}, m, c,
+      f, st);
+  if (e != cudaSuccess) return (int)e;
+  // dw1 = dhc^T y, dw2 = go^T a, over all m rows, rounded once
+  e = launch_grad_gemm_bf16(dhc, reinterpret_cast<const bf16*>(y),
+                            reinterpret_cast<bf16*>(dw1), grad, f, c, m, st);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_grad_gemm_bf16(gob, reinterpret_cast<const bf16*>(a),
+                            reinterpret_cast<bf16*>(dw2), grad, c, f, m, st);
+  if (e != cudaSuccess) return (int)e;
+  e = vitta::launch_col_sums(dh, cols, reinterpret_cast<bf16*>(db1), m, f,
+                             st);
+  if (e != cudaSuccess) return (int)e;
+  e = vitta::launch_col_sums(gob, cols, reinterpret_cast<bf16*>(db2), m, c,
+                             st);
+  if (e != cudaSuccess) return (int)e;
+  const bf16* xb = reinterpret_cast<const bf16*>(x);
+  bf16* dxb = reinterpret_cast<bf16*>(dx);
+  return (int)vitta::launch_ln_bwd(xb, gamma, (const float*)dy, dxb, dgb, ln,
+                                   m, c, eps,
+                                   vitta::ln_bwd_vec_ok(xb, gamma,
+                                                        (const float*)dy, dxb,
+                                                        c),
+                                   st);
 }
 
 }  // extern "C"

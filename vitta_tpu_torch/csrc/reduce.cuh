@@ -16,11 +16,13 @@
 // threads takes 32 neighbouring outputs and copies up to kStageRows of
 // their partials at once into shared memory, every copy in flight together
 // (cp.async), and one warp adds them, a lane an output, in the same order.
-// Both forms give the same bits.
+// Both forms give the same bits.  The sums are float32; an output may be
+// bfloat16 (the bfloat16 weight and bias gradients), rounded once.
 
 #pragma once
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "launches.cuh"
 #include "tf32.cuh"
 
@@ -39,12 +41,18 @@ __host__ __device__ inline int sum_outputs_per_block(int count) {
   return count >= kStagedCount ? 32 : kSumThreads;
 }
 
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // out[i] = partial[i] + partial[stride + i] + ... + partial[(count - 1) *
 // stride + i], added in that order, for the block's outputs i from i0 (one
 // a thread, or 32 staged; sum_outputs_per_block).  Every thread of the
 // block calls it.
+template <class TOut>
 __device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
-                                             float* __restrict__ out,
+                                             TOut* __restrict__ out,
                                              int count, long long stride,
                                              long long i0, long long len) {
   if (count < kStagedCount) {
@@ -52,7 +60,7 @@ __device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
     if (i >= len) return;
     float s = 0.f;
     for (int p = 0; p < count; ++p) s += partial[p * stride + i];
-    out[i] = s;
+    put(out + i, s);
     return;
   }
   __shared__ float tile[kStageRows][33];
@@ -72,26 +80,29 @@ __device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
       for (int r = 0; r < rows; ++r) s += tile[r][lane];
     __syncthreads();
   }
-  if (warp == 0 && ok) out[i] = s;
+  if (warp == 0 && ok) put(out + i, s);
 }
 
 // out[i] = partial[0][i] + partial[1][i] + ... + partial[P-1][i], i < L.
+template <class TOut>
 __global__ void __launch_bounds__(kSumThreads)
 reduce_partials_kernel(const float* __restrict__ partial,
-                       float* __restrict__ out, int P, long long L) {
+                       TOut* __restrict__ out, int P, long long L) {
   ordered_sums(partial, out, P, L,
                (long long)blockIdx.x * sum_outputs_per_block(P), L);
 }
 
-inline cudaError_t launch_reduce_partials(const float* partial, float* out,
+template <class TOut>
+inline cudaError_t launch_reduce_partials(const float* partial, TOut* out,
                                           int P, long long L,
                                           cudaStream_t stream) {
   if (L <= 0) return cudaSuccess;
   const int per = sum_outputs_per_block(P);
   const unsigned blocks = (unsigned)((L + per - 1) / per);
-  reduce_partials_kernel<<<blocks, kSumThreads, 0, stream>>>(partial, out, P,
-                                                             L);
-  count_launch("reduce_partials_kernel");
+  reduce_partials_kernel<TOut><<<blocks, kSumThreads, 0, stream>>>(
+      partial, out, P, L);
+  count_launch(sizeof(TOut) == 4 ? "reduce_partials_kernel"
+                                 : "reduce_partials_kernel<__nv_bfloat16>");
   return cudaGetLastError();
 }
 
@@ -152,11 +163,18 @@ inline int col_chunks(long long rows) {
   return (int)((rows + kColChunk - 1) / kColChunk);
 }
 
-// partial[chunk][col] = sum of x[r][col] over the chunk's rows, x (rows, c).
-// grid (ceil(c / 32), chunks), block (32, 8): a warp reads 32 neighbouring
-// columns of one row, the 8 warps walk the chunk's rows.
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16 v) {
+  return __bfloat162float(v);
+}
+
+// partial[chunk][col] = sum of x[r][col] over the chunk's rows, x (rows, c)
+// float32 or bfloat16, the sums float32.  grid (ceil(c / 32), chunks),
+// block (32, 8): a warp reads 32 neighbouring columns of one row, the 8
+// warps walk the chunk's rows.
+template <class TIn>
 __global__ void __launch_bounds__(kColLanes * kColWarps)
-col_sums_kernel(const float* __restrict__ x, float* __restrict__ partial,
+col_sums_kernel(const TIn* __restrict__ x, float* __restrict__ partial,
                 long long rows, int c) {
   __shared__ float part[kColWarps][kColLanes + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -165,7 +183,8 @@ col_sums_kernel(const float* __restrict__ x, float* __restrict__ partial,
   const long long r1 = r0 + kColChunk < rows ? r0 + kColChunk : rows;
   float s = 0.f;
   if (col < c)
-    for (long long r = r0 + ty; r < r1; r += kColWarps) s += x[r * c + col];
+    for (long long r = r0 + ty; r < r1; r += kColWarps)
+      s += as_float(x[r * c + col]);
   part[ty][tx] = s;
   __syncthreads();
   if (ty == 0 && col < c) {
@@ -177,15 +196,17 @@ col_sums_kernel(const float* __restrict__ x, float* __restrict__ partial,
 }
 
 // out[col] = sum over all rows of x[r][col]; partial holds
-// col_chunks(rows) * c floats.
-inline cudaError_t launch_col_sums(const float* x, float* partial, float* out,
+// col_chunks(rows) * c floats.  out is rounded once where it is bfloat16.
+template <class TIn, class TOut>
+inline cudaError_t launch_col_sums(const TIn* x, float* partial, TOut* out,
                                    long long rows, int c,
                                    cudaStream_t stream) {
   const int chunks = col_chunks(rows);
   const dim3 grid((c + kColLanes - 1) / kColLanes, chunks);
   const dim3 block(kColLanes, kColWarps);
-  col_sums_kernel<<<grid, block, 0, stream>>>(x, partial, rows, c);
-  count_launch("col_sums_kernel");
+  col_sums_kernel<TIn><<<grid, block, 0, stream>>>(x, partial, rows, c);
+  count_launch(sizeof(TIn) == 4 ? "col_sums_kernel"
+                                : "col_sums_kernel<__nv_bfloat16>");
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_reduce_partials(partial, out, chunks, c, stream);

@@ -38,8 +38,8 @@ def compute_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
     raises on any other."""
     name = str(dtype).replace("torch.", "")
     if name not in COMPUTE_DTYPES:
-        raise ValueError(f"compute dtype {dtype!r}: TANet runs at "
-                         f"{' or '.join(COMPUTE_DTYPES)}")
+        raise ValueError(f"compute dtype {dtype!r}: the port's models run "
+                         f"at {' or '.join(COMPUTE_DTYPES)}")
     return COMPUTE_DTYPES[name]
 
 

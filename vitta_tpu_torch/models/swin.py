@@ -65,6 +65,22 @@ No route changes a parameter, a ``state_dict`` key or a tap name.
 Not ported, being layouts of the TPU and no change of the math: the
 window-resident stage form, the patchify-matmul patch embedding, and the
 scoped-VMEM gates that move Swin-B's fourth stage to other kernels.
+
+``dtype`` (an argument of every module from ``Recognizer3D`` down, "float32"
+or "bfloat16", vitta_tpu/models/swin.py's ``dtype``) is the compute dtype.
+The parameters stay float32 (the masters).  At bfloat16 the patch
+embedding's input, the activations, the residual adds, drop-path and the
+window partition and roll are bfloat16; the Conv3d, qkv, proj, fc1, fc2
+and PatchMerging's reduction cast their weight and bias to bfloat16 where
+they use them, as flax's ``promote_dtype`` does (the gradient of the cast
+upcasts the bfloat16 gradient to the float32 master); the LayerNorms'
+parameters, the relative-position tables, their bias and the shift mask
+stay float32, and so does the head, which pools in float32
+(vitta_tpu/models/swin.py:700-705).  The LayerNorm, LayerNorm-MLP and
+packed attention kernels run at bfloat16.  Only the packed route and
+widths that are multiples of 128 (norm2 inside the LayerNorm-MLP op, every
+width of Swin-B) are ported at bfloat16: the other routes and Swin-T's 96
+and 192 raise ``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from vitta_tpu_torch.models.layers import LayerNorm, layer_norm
+from vitta_tpu_torch.models.resnet import compute_dtype
 from vitta_tpu_torch.models.tanet import dropout
 from vitta_tpu_torch.ops._launch import contiguous_counted as _contiguous
 from vitta_tpu_torch.ops._launch import copy_counters as counters  # noqa: F401
@@ -93,6 +110,82 @@ from vitta_tpu_torch.ops.dispatch import mlp_ln_fused, resolve_attn_route
 # ``counters.contiguity_copies``: copies made only to hand a kernel a
 # contiguous tensor, since ``counters.reset()``: activations in the forward
 # below and cotangents in the backward of the four ops
+
+
+def _not_ported_bf16(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} at bfloat16 is not ported (ROADMAP.md, queue 1): the "
+        "bfloat16 Swin runs the packed route at widths that are multiples "
+        "of 128")
+
+
+def at_dtype(p, dt):
+    """A weight or bias ``p`` at the compute dtype ``dt``: the bfloat16
+    twin an engine keeps of it (``p.half_twin``, see ``HalfTwin``) where
+    there is one, else ``p`` cast here, as flax's ``promote_dtype`` casts
+    (the cast's gradient upcasts the bfloat16 gradient to the master)."""
+    twin = getattr(p, "half_twin", None)
+    return twin if twin is not None and twin.dtype == dt else p.to(dt)
+
+
+def half_cast_params(model: nn.Module):
+    """The parameters a bfloat16 Video Swin casts where it uses them: those
+    of every nn.Linear and nn.Conv3d of its backbone (qkv, proj, fc1, fc2,
+    PatchMerging's reduction, the patch embedding), as
+    vitta_tpu/adapt/engine.py's ``half_cast_flags`` picks the
+    kernel-owning modules of the backbone; the norms, the relative-position
+    tables and the head stay float32."""
+    backbone = getattr(model, "backbone", model)
+    return [p for mod in backbone.modules()
+            if isinstance(mod, (nn.Linear, nn.Conv3d))
+            for p in mod.parameters(recurse=False)]
+
+
+class HalfTwin:
+    """A bfloat16 copy of a bfloat16 Swin's cast weights
+    (``half_cast_params``), which ``at_dtype`` hands the model in place of
+    a cast: vitta_tpu's ``params_half`` (vitta_tpu/adapt/engine.py:125-132).
+    The copies are autograd leaves; ``grads_to_masters`` upcasts their
+    bfloat16 gradients into float32 gradients of the masters, and
+    ``refresh`` copies the masters into them after every change of the
+    masters.  Each is one foreach call where a cast at every use took a
+    launch and an autograd node a tensor: the same values, bit for bit,
+    since the cast is the same rounding and each weight has one use a
+    forward."""
+
+    def __init__(self, model: nn.Module):
+        self.masters = half_cast_params(model)
+        self.halves = [p.detach().to(torch.bfloat16).requires_grad_()
+                       for p in self.masters]
+        self.grads = [torch.zeros_like(p) for p in self.masters]
+        for p, h in zip(self.masters, self.halves):
+            p.half_twin = h
+
+    def refresh(self):
+        with torch.no_grad():
+            torch._foreach_copy_(self.halves, self.masters)
+
+    def grads_to_masters(self):
+        """The masters' float32 gradients from their copies' (None where a
+        copy took no gradient); the copies' gradients are dropped."""
+        got = [i for i, h in enumerate(self.halves) if h.grad is not None]
+        if got:
+            torch._foreach_copy_([self.grads[i] for i in got],
+                                 [self.halves[i].grad for i in got])
+        for p in self.masters:
+            p.grad = None
+        for i in got:
+            self.masters[i].grad = self.grads[i]
+        for h in self.halves:
+            h.grad = None
+
+    @staticmethod
+    def remove(model: nn.Module):
+        """Drop any copies an earlier engine left on ``model``: it casts
+        again."""
+        for p in half_cast_params(model):
+            p.__dict__.pop("half_twin", None)
+
 
 def get_window_size(x_size, window_size, shift_size=None):
     """Clamp window/shift to the input size (swin_transformer.py:25-35)."""
@@ -191,9 +284,10 @@ class WindowAttention3D(nn.Module):
     (swin_transformer.py:87-169)."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int],
-                 num_heads: int):
+                 num_heads: int, dtype="float32"):
         super().__init__()
         self.dim = dim
+        self.dtype = compute_dtype(dtype)
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
@@ -244,12 +338,14 @@ class WindowAttention3D(nn.Module):
                 self.qkv.bias, self.proj.weight, self.proj.bias, bias, mask,
                 self.scale, nh)
         y = x if ln is None else layer_norm(x, *ln)
+        dt = self.dtype
         if full and route == "proj":
             out = window_attention_proj(
                 _contiguous(y), self.qkv.weight, self.qkv.bias,
                 self.proj.weight, self.proj.bias, bias, mask, self.scale, nh)
             return out if ln is None else (out, y)
-        qkv = self.qkv(y)                                  # (B_, n, 3C)
+        qkv = F.linear(y, at_dtype(self.qkv.weight, dt),
+                       at_dtype(self.qkv.bias, dt))     # (B_, n, 3C)
         if full and route == "heads":
             # q, k, v as views of the projection output, read where they lie
             q, k, v = qkv.reshape(b_, n, 3, nh, c // nh).unbind(2)
@@ -266,10 +362,12 @@ class WindowAttention3D(nn.Module):
             idx = self.relative_position_index[:n, :n].reshape(-1)
             bias = self.relative_position_bias_table[idx].reshape(
                 n, n, nh).permute(2, 0, 1)
-            q5 = qkv.reshape(b_, n, 3, nh, c // nh)
+            q5 = qkv.reshape(b_, n, 3, nh, c // nh).to(torch.float32)
             out = attention_reference(q5[:, :, 0], q5[:, :, 1], q5[:, :, 2],
-                                      bias, mask, self.scale).reshape(b_, n, c)
-        out = self.proj(out)
+                                      bias, mask, self.scale).reshape(
+                                          b_, n, c).to(dt)
+        out = F.linear(out, at_dtype(self.proj.weight, dt),
+                       at_dtype(self.proj.bias, dt))
         return out if ln is None else (out, y)
 
 
@@ -291,8 +389,9 @@ class SwinBlock3D(nn.Module):
                  window_size=(8, 7, 7), shift_size=(0, 0, 0),
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
-                 attn_route: Optional[str] = None):
+                 attn_route: Optional[str] = None, dtype="float32"):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
         self.drop_path = drop_path
@@ -306,7 +405,15 @@ class SwinBlock3D(nn.Module):
             # the op returns y in window layout: only the token-order-
             # invariant spatiotemp tap may read it
             self.attn_route = self.attn_fallback
-        self.attn = WindowAttention3D(dim, self.window_size, num_heads)
+        if self.dtype == torch.bfloat16:
+            if self.attn_route != "packed":
+                raise _not_ported_bf16(f"attn_route={self.attn_route!r}")
+            if dim % 128:
+                raise _not_ported_bf16(
+                    f"width {dim} (norm2 apart from the MLP, PERF.md rows "
+                    "8-9)")
+        self.attn = WindowAttention3D(dim, self.window_size, num_heads,
+                                      dtype=self.dtype)
         self.norm2 = LayerNorm(dim, f"{tap_prefix}.norm2",
                                stat_types=stat_types)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
@@ -367,11 +474,19 @@ class SwinBlock3D(nn.Module):
         none."""
         c = x.shape[-1]
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        dt = self.dtype
         if mlp_ln_fused(c, x.numel() // c):
             gamma, beta = self.norm2(x, taps, mode="params")
-            y, ln_out = ln_mlp(_contiguous(x), gamma, beta, fc1.weight,
-                               fc1.bias, fc2.weight, fc2.bias, self.norm2.eps)
+            y, ln_out = ln_mlp(_contiguous(x), gamma, beta,
+                               at_dtype(fc1.weight, dt),
+                               at_dtype(fc1.bias, dt),
+                               at_dtype(fc2.weight, dt),
+                               at_dtype(fc2.bias, dt),
+                               self.norm2.eps)
             self.norm2(ln_out, taps, mode="sow_output")
+        elif dt == torch.bfloat16:
+            raise _not_ported_bf16(f"{x.numel() // c} tokens of width {c} "
+                                   "(norm2 apart from the MLP)")
         else:
             y = mlp(self.norm2(_contiguous(x), taps), fc1.weight, fc1.bias,
                     fc2.weight, fc2.bias)
@@ -382,8 +497,10 @@ class PatchMerging(nn.Module):
     """2x2 spatial merge (swin_transformer.py:277-312)."""
 
     def __init__(self, dim: int, tap_prefix: str,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 dtype="float32"):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.norm = LayerNorm(4 * dim, f"{tap_prefix}.norm",
                               stat_types=stat_types)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
@@ -400,7 +517,8 @@ class PatchMerging(nn.Module):
         x = x.reshape(b, d, hp // 2, 2, wp // 2, 2, c)
         x = x.permute(0, 1, 2, 4, 5, 3, 6)
         x = x.reshape(b, d, hp // 2, wp // 2, 4 * c)
-        return self.reduction(self.norm(x, taps))
+        return F.linear(self.norm(x, taps),
+                        at_dtype(self.reduction.weight, self.dtype))
 
 
 class BasicLayer(nn.Module):
@@ -409,7 +527,7 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  drop_paths, downsample: bool, tap_prefix: str,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
-                 attn_route: Optional[str] = None):
+                 attn_route: Optional[str] = None, dtype="float32"):
         super().__init__()
         shift = tuple(s // 2 for s in window_size)
         self.blocks = nn.ModuleList([
@@ -417,11 +535,11 @@ class BasicLayer(nn.Module):
                         window_size=window_size,
                         shift_size=(0, 0, 0) if i % 2 == 0 else shift,
                         drop_path=drop_paths[i], stat_types=stat_types,
-                        attn_route=attn_route)
+                        attn_route=attn_route, dtype=dtype)
             for i in range(depth)])
         self.downsample = PatchMerging(
-            dim, f"{tap_prefix}.downsample",
-            stat_types=stat_types) if downsample else None
+            dim, f"{tap_prefix}.downsample", stat_types=stat_types,
+            dtype=dtype) if downsample else None
 
     def forward(self, x, taps=None, *, train: bool = False, generator=None):
         for blk in self.blocks:
@@ -435,8 +553,10 @@ class PatchEmbed3D(nn.Module):
     """Conv3d patchify + LayerNorm without a tap
     (swin_transformer.py:416-456)."""
 
-    def __init__(self, patch_size, embed_dim: int, tap_prefix: str):
+    def __init__(self, patch_size, embed_dim: int, tap_prefix: str,
+                 dtype="float32"):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.patch_size = tuple(patch_size)
         self.proj = nn.Conv3d(3, embed_dim, kernel_size=self.patch_size,
                               stride=self.patch_size)
@@ -451,8 +571,13 @@ class PatchEmbed3D(nn.Module):
             x = F.pad(x, (0, 0, 0, (-w) % pw, 0, (-h) % ph, 0, (-t) % pd))
         # the permuted view of a channels-last clip is channels_last_3d
         # memory, which the convolution takes and returns as is; then the
-        # view back is contiguous and ``contiguous`` is free
-        x = self.proj(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        # view back is contiguous and ``contiguous`` is free.  The clip and
+        # the weights at the compute dtype
+        dt = self.dtype
+        x = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3),
+                     at_dtype(self.proj.weight, dt),
+                     at_dtype(self.proj.bias, dt),
+                     self.proj.stride).permute(0, 2, 3, 4, 1)
         return self.norm(_contiguous(x))
 
 
@@ -464,9 +589,11 @@ class SwinTransformer3D(nn.Module):
                  window_size=(8, 7, 7), drop_path_rate: float = 0.2,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
                  tap_prefix: str = "backbone",
-                 attn_route: Optional[str] = None):
+                 attn_route: Optional[str] = None, dtype="float32"):
         super().__init__()
-        self.patch_embed = PatchEmbed3D(patch_size, embed_dim, tap_prefix)
+        self.dtype = compute_dtype(dtype)
+        self.patch_embed = PatchEmbed3D(patch_size, embed_dim, tap_prefix,
+                                        dtype=dtype)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         layers, i0 = [], 0
         for li, depth in enumerate(depths):
@@ -474,7 +601,7 @@ class SwinTransformer3D(nn.Module):
                 embed_dim * 2 ** li, depth, num_heads[li], tuple(window_size),
                 tuple(dpr[i0:i0 + depth]), li < len(depths) - 1,
                 f"{tap_prefix}.layers_{li}", stat_types=stat_types,
-                attn_route=attn_route))
+                attn_route=attn_route, dtype=dtype))
             i0 += depth
         self.layers = nn.ModuleList(layers)
         self.num_features = embed_dim * 2 ** (len(depths) - 1)
@@ -501,7 +628,8 @@ class I3DHead(nn.Module):
         nn.init.zeros_(self.fc_cls.bias)
 
     def forward(self, x, *, train: bool = False, generator=None):
-        x = torch.mean(x.to(torch.float32), dim=(1, 2, 3))       # (B, C)
+        # pooled in float32 at either compute dtype, without a float32 copy
+        x = torch.mean(x, dim=(1, 2, 3), dtype=torch.float32)    # (B, C)
         if train and self.dropout > 0:
             x = dropout(x, self.dropout, generator)
         return self.fc_cls(x)
@@ -516,13 +644,14 @@ class Recognizer3D(nn.Module):
                  depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
                  drop_path_rate: float = 0.2, head_dropout: float = 0.5,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
-                 attn_route: Optional[str] = None):
+                 attn_route: Optional[str] = None, dtype="float32"):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.backbone = SwinTransformer3D(
             patch_size=patch_size, embed_dim=embed_dim, depths=depths,
             num_heads=num_heads, window_size=window_size,
             drop_path_rate=drop_path_rate, stat_types=tuple(stat_types),
-            attn_route=attn_route)
+            attn_route=attn_route, dtype=dtype)
         self.cls_head = I3DHead(self.backbone.num_features, num_classes,
                                 dropout=head_dropout)
 
@@ -538,4 +667,4 @@ class Recognizer3D(nn.Module):
 
     def features(self, x):
         feats = self.backbone(x)
-        return torch.mean(feats, dim=(1, 2, 3))
+        return torch.mean(feats, dim=(1, 2, 3), dtype=torch.float32)

@@ -40,6 +40,21 @@ in split TF32 (each float32 operand a sum of two tf32 values, three tf32
 products per product), which keeps float32's accuracy
 (tests/test_torch_attention_tf32.py emulates it on the CPU).
 
+At bfloat16 (``window_attention_packed`` only: qkv, out, the cotangent and
+dqkv bfloat16; the bias, the mask, ms and dbias float32) the kernels are
+``vitta_attn_packed_{fwd,bwd}_bf16``, the counterparts of the same Pallas
+kernels at the compute dtype, with one bfloat16 tensor-core product per
+fragment, and they round where those do (pallas_attention.py:358-514,
+VJP :644-649): the logits (q k^T) * scale + bias + mask and the softmax's
+e = exp(l - m) and sum are float32, e is rounded before e v, out = (e v) /
+s once; the backward rounds gs = g / s before dv = e^T gs and dl before dq
+and dk, keeps dl float32 for dbias, and rounds dq, dk and dv once.
+``packed_attention_bf16_reference`` and
+``packed_attention_bf16_backward_reference`` are their plain versions, and
+on the CPU a bfloat16 qkv runs them as one autograd Function
+(``PackedAttentionPlain``).  The per-(head, window) op at bfloat16 is not
+ported (ROADMAP.md, queue 1).
+
 The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
 does not take raises.
 """
@@ -137,6 +152,71 @@ def packed_attention_backward_reference(qkv, bias, mask, ms, g, scale: float,
     return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3), dbias
 
 
+def _bf16_logits(qkv, bias, mask, scale: float, nh: int):
+    """q, k, v of the packed bfloat16 ``qkv`` as float32 (B_, N, nh, hd)
+    and the logits (B_, nh, N, N), float32 as the bfloat16 kernels make
+    them: (q k^T) * scale + bias + mask."""
+    b_, n, c3 = qkv.shape
+    q, k, v = qkv.reshape(b_, n, 3, nh, c3 // 3 // nh).to(
+        torch.float32).unbind(2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + _dense(bias)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(b_ // nw, nw, nh, n, n)
+                  + mask[None, :, None]).reshape(b_, nh, n, n)
+    return q, k, v, logits
+
+
+def packed_attention_bf16_reference(qkv, bias, mask, scale: float, nh: int,
+                                    save_ms: bool = False):
+    """The packed attention at bfloat16 as the kernel computes it
+    (pallas_attention.py:358-454 at the compute dtype): out bfloat16
+    (B_, N, C), and with ``save_ms`` the float32 row maximum and sum of
+    the logits' exp (B_, N, 2nh)."""
+    b_, n, c3 = qkv.shape
+    _q, _k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
+    m = logits.amax(dim=-1)                                    # (B_, nh, N)
+    e = torch.exp(logits - m[..., None])
+    s = e.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).to(torch.float32),
+                     v) / s.permute(0, 2, 1)[..., None]
+    out = o.reshape(b_, n, c3 // 3).to(qkv.dtype)
+    if not save_ms:
+        return out
+    ms = torch.stack([m, s], dim=-1).permute(0, 2, 1, 3)       # (B_, N, nh, 2)
+    return out, ms.reshape(b_, n, 2 * nh).contiguous()
+
+
+def packed_attention_bf16_backward_reference(qkv, bias, mask, ms, g,
+                                             scale: float, nh: int):
+    """(dqkv (B_, N, 3C) bfloat16, dbias float32 in the bias's form) at
+    bfloat16, as the kernel computes it (pallas_attention.py:457-514 at the
+    compute dtype): e from the forward's row maximum, gs = bfloat16(g / s),
+    dv = bfloat16(e)^T gs, dl float32 (into dbias), dq and dk from
+    bfloat16(dl)."""
+    b_, n, c3 = qkv.shape
+    hd = c3 // 3 // nh
+    f32, bf16 = torch.float32, torch.bfloat16
+    q, k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)          # (B_, nh, N, 2)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]                                   # (B_, nh, N, 1)
+    gh = g.reshape(b_, n, nh, hd).to(f32)
+    gs = (gh * inv.permute(0, 2, 1, 3)).to(bf16).to(f32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(bf16).to(f32), gs)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    dl = e * (dp - rs) * inv
+    dlc = dl.to(bf16).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
+    dbias = dl.sum(dim=0)
+    if bias.dim() == 4:
+        dbias = collapse_bias_reference(dbias, (bias.shape[1] + 1) // 2)
+    return (torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3).to(qkv.dtype),
+            dbias)
+
+
 def heads_attention_backward_reference(q, k, v, bias, mask, g, scale: float):
     """(dq, dk, dv, dbias) for the cotangent ``g`` (B_, N, nh, hd) of the
     attention output, written out from (q, k, v, bias, mask) as the TPU
@@ -188,13 +268,21 @@ def _lib():
         lib.vitta_attn_max_tokens.restype = i
         lib.vitta_attn_max_head_dim.restype = i
         lib.vitta_attn_max_row_stride.restype = ctypes.c_longlong
+        # the float32 entries' arguments and e_tap before the stream
+        lib.vitta_attn_packed_fwd_bf16.argtypes = \
+            lib.vitta_attn_packed_fwd.argtypes[:-1] + [p, p]
+        lib.vitta_attn_packed_fwd_bf16.restype = i
+        lib.vitta_attn_packed_bwd_bf16.argtypes = \
+            lib.vitta_attn_packed_bwd.argtypes[:-1] + [p, p]
+        lib.vitta_attn_packed_bwd_bf16.restype = i
         _LIB = lib
     return _LIB
 
 
 def _check(qkv, bias, mask, nh: int):
     """Raise on anything the kernels do not take; return
-    (B_, N, C, hd, compact, wd, hw, nW)."""
+    (B_, N, C, hd, compact, wd, hw, nW).  qkv float32 or bfloat16 (then on
+    a 16-byte boundary, hd a multiple of 8); bias and mask float32."""
     if qkv.dim() != 3 or qkv.shape[2] % (3 * nh) != 0:
         raise ValueError(f"qkv must be (B_, N, 3*nh*hd) with nh={nh}, got "
                          f"shape {tuple(qkv.shape)}")
@@ -202,7 +290,13 @@ def _check(qkv, bias, mask, nh: int):
     c = c3 // 3
     hd = c // nh
     dev = qkv.device
-    check_tensor("window attention", "qkv", qkv, (b_, n, c3), dev)
+    check_tensor("window attention", "qkv", qkv, (b_, n, c3), dev,
+                 dtypes=(torch.float32, torch.bfloat16))
+    if qkv.dtype == torch.bfloat16 and (qkv.data_ptr() % 16 or hd % 8):
+        raise ValueError(f"the bfloat16 window attention kernels take a qkv "
+                         f"on a 16-byte boundary and hd a multiple of 8; got "
+                         f"hd={hd}, qkv {qkv.data_ptr() % 16} bytes past a "
+                         f"boundary")
     compact = bias.dim() == 4
     wd = hw = 0
     if compact:
@@ -230,23 +324,42 @@ def _check(qkv, bias, mask, nh: int):
     return b_, n, c, hd, compact, wd, hw, nw
 
 
+def _e_tap(taps, qkv, b_, n, nh):
+    """None, or the (B_, nh, N, N) bfloat16 tensor for the kernel's
+    rounded e, kept in ``taps["e"]`` (a dict a check passes in)."""
+    if taps is None:
+        return None
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError("taps are read from the bfloat16 kernels only")
+    taps["e"] = torch.empty((b_, nh, n, n), dtype=torch.bfloat16,
+                            device=qkv.device)
+    return taps["e"]
+
+
 def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
-                         save_ms: bool = False):
+                         save_ms: bool = False, taps=None):
     """Forward kernel: one launch; returns out (B_, N, C), and ms
-    (B_, N, 2nh) with ``save_ms``."""
+    (B_, N, 2nh) with ``save_ms``.  ``taps``, a dict, at bfloat16 only:
+    the kernel's instance that also writes bfloat16(e) runs, and
+    ``taps["e"]`` (B_, nh, N, N) holds it, for a check."""
     b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
     dev = qkv.device
     lib = _lib()
-    out = torch.empty((b_, n, c), dtype=torch.float32, device=dev)
+    out = torch.empty((b_, n, c), dtype=qkv.dtype, device=dev)
     ms = torch.empty((b_, n, 2 * nh), dtype=torch.float32,
                      device=dev) if save_ms else None
+    e_tap = _e_tap(taps, qkv, b_, n, nh)
+    bf16 = qkv.dtype == torch.bfloat16
+    fwd = lib.vitta_attn_packed_fwd_bf16 if bf16 else lib.vitta_attn_packed_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.vitta_attn_packed_fwd(
+        code = fwd(
             qkv.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             None if ms is None else ms.data_ptr(), b_, n, nh, hd, nw,
-            int(compact), wd, hw, float(scale), stream)
+            int(compact), wd, hw, float(scale),
+            *((None if e_tap is None else e_tap.data_ptr(),) if bf16 else ()),
+            stream)
     raise_on(code, "window attention forward kernel")
     counters.fwd += 1
     return (out, ms) if save_ms else out
@@ -268,29 +381,44 @@ def _bwd_scratch(b_, n, nh, hd, dev):
     return torch.empty(floats, dtype=torch.float32, device=dev)
 
 
-def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int):
+def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int,
+                         taps=None):
     """Backward kernels: one wrapper call, two to three launches on the
     current stream (the kernel, the sum of the blocks' shares of dk and dv
     where problems are shared, the sum of dl over the windows); returns
     (dqkv (B_, N, 3C), dbias in the bias's form), allocated here with the
-    scratch."""
+    scratch.  ``taps``, a dict, at bfloat16 only: ``taps["e"]`` holds the
+    kernel's bfloat16(e) as ``attn_packed_fwd_cuda`` does, and
+    ``taps["dl"]`` (B_, nh, N, N) float32 its dl, the scratch's first
+    B_*nh*N*N floats."""
     b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
     dev = qkv.device
     check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
-    check_tensor("window attention", "grad", g, (b_, n, c), dev)
+    check_tensor("window attention", "grad", g, (b_, n, c), dev,
+                 dtypes=(qkv.dtype,))
+    if g.data_ptr() % 16:
+        raise ValueError("the window attention kernels take a cotangent on "
+                         "a 16-byte boundary")
     lib = _lib()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
     scratch = _bwd_scratch(b_, n, nh, hd, dev)
+    e_tap = _e_tap(taps, qkv, b_, n, nh)
+    bf16 = qkv.dtype == torch.bfloat16
+    bwd = lib.vitta_attn_packed_bwd_bf16 if bf16 else lib.vitta_attn_packed_bwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.vitta_attn_packed_bwd(
+        code = bwd(
             qkv.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), ms.data_ptr(),
             g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
             scratch.data_ptr(), b_, n, nh, hd, nw, int(compact), wd, hw,
-            float(scale), stream)
+            float(scale),
+            *((None if e_tap is None else e_tap.data_ptr(),) if bf16 else ()),
+            stream)
     raise_on(code, "window attention backward kernel")
+    if taps is not None:
+        taps["dl"] = scratch[:b_ * nh * n * n].view(b_, nh, n, n)
     counters.bwd += 1
     return dqkv, dbias
 
@@ -324,6 +452,26 @@ class PackedWindowAttention(torch.autograd.Function):
         return dqkv, dbias, None, None, None, None, None
 
 
+class PackedAttentionPlain(torch.autograd.Function):
+    """The bfloat16 plain forward and plain backward as one differentiable
+    op, the CPU's form at bfloat16: it rounds where the kernels round."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, scale, nh):
+        ctx.scale, ctx.nh = scale, nh
+        out, ms = packed_attention_bf16_reference(qkv, bias, mask, scale, nh,
+                                                  save_ms=True)
+        ctx.save_for_backward(qkv, bias, mask, ms)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, mask, ms = ctx.saved_tensors
+        dqkv, dbias = packed_attention_bf16_backward_reference(
+            qkv, bias, mask, ms, g, ctx.scale, ctx.nh)
+        return dqkv, dbias, None, None, None
+
+
 def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
                             save_ms: bool = False):
     """Window attention on packed ``qkv`` (B_, N, 3C) -> (B_, N, C), the
@@ -332,9 +480,17 @@ def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
     bias: dense (nh, N, N) or compact (nh, 2wd-1, hw, hw); mask (nW, N, N)
     of 0 / -100 or None.  A CPU tensor takes the plain version; a CUDA
     tensor takes the kernels (forward, and backward under autograd), which
-    raise on any dtype other than float32, a non-contiguous input, N > 416
-    or hd > 32."""
+    raise on a qkv other than float32 or bfloat16 (bias and mask float32),
+    a non-contiguous input, N > 416 or hd > 32.  At bfloat16 the CPU takes
+    the bfloat16 plain versions, forward and backward
+    (``PackedAttentionPlain``)."""
     if qkv.device.type == "cpu":
+        if qkv.dtype == torch.bfloat16:
+            if save_ms or not grad_wanted(qkv, bias):
+                return packed_attention_bf16_reference(qkv, bias, mask, scale,
+                                                       nh, save_ms)
+            return PackedAttentionPlain.apply(qkv, bias, mask, float(scale),
+                                              nh)
         return packed_attention_reference(qkv, bias, mask, scale, nh, save_ms)
     if qkv.device.type != "cuda":
         raise ValueError(f"no window attention for device {qkv.device}")

@@ -15,6 +15,11 @@ dbeta from ``(x, gamma, dy)``, the row statistics recomputed).
 column sums are added in the order the plan fixes; the card tests hold it
 to the kernel's own).  There is no fallback: a CUDA tensor a kernel does
 not take raises.
+
+At bfloat16 (x, y, dy and dx bfloat16; gamma, beta, the statistics, every
+sum, dgamma and dbeta float32) the kernels round y and dx once, where
+vitta_tpu/ops/pallas_ln.py:47-73 rounds them at the compute dtype, and the
+plain versions round at the same points.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import ctypes
 import torch
 
 from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         contiguous_counted, float4_units,
-                                         grad_wanted, raise_on)
+                                         contiguous_counted, grad_wanted,
+                                         raise_on, vector_units)
 
 counters = LaunchCounters("fwd", "bwd")
 
@@ -53,7 +58,11 @@ def layer_norm_reference(x, gamma, beta, eps: float = 1e-5):
 def layer_norm_backward_reference(x, gamma, dy, eps: float = 1e-5):
     """(dx, dgamma, dbeta) of ``layer_norm_reference`` at ``x`` (R, C) for
     the cotangent ``dy``, written out as the kernel computes it
-    (vitta_tpu/ops/pallas_ln.py:55-73)."""
+    (vitta_tpu/ops/pallas_ln.py:55-73).  x and dy may be bfloat16: the
+    arithmetic is float32, dx has x's dtype (rounded once), dgamma and
+    dbeta are float32."""
+    out_dtype = x.dtype
+    x, dy = x.to(torch.float32), dy.to(torch.float32)
     mean = torch.mean(x, dim=-1, keepdim=True)
     mean_sq = torch.mean(torch.square(x), dim=-1, keepdim=True)
     rstd = torch.rsqrt(mean_sq - torch.square(mean) + eps)
@@ -61,7 +70,8 @@ def layer_norm_backward_reference(x, gamma, dy, eps: float = 1e-5):
     wg = dy * gamma
     dx = rstd * (wg - torch.mean(wg, dim=-1, keepdim=True)
                  - xh * torch.mean(wg * xh, dim=-1, keepdim=True))
-    return dx, torch.sum(dy * xh, dim=0), torch.sum(dy, dim=0)
+    return (dx.to(out_dtype), torch.sum(dy * xh, dim=0),
+            torch.sum(dy, dim=0))
 
 
 def ln_bwd_plan(rows: int, c: int, vec: int) -> dict:
@@ -95,8 +105,14 @@ def ln_bwd_plan(rows: int, c: int, vec: int) -> dict:
                 blocks=-(-rows // per_block), rows_per_block=per_block)
 
 
-# 1 where the backward takes float4 units, else 0 (single floats)
-bwd_vec = float4_units
+ACT_DTYPES = (torch.float32, torch.bfloat16)   # x, y, dy, dx
+
+
+def bwd_vec(c: int, *tensors) -> int:
+    """1 where the backward takes units of 4 elements (16 bytes of
+    float32, 8 of bfloat16): C % 4 == 0 and every tensor starts on a
+    boundary of its unit; else 0 (single elements)."""
+    return vector_units(c, 4, *tensors)
 
 
 _LIB = None
@@ -121,24 +137,32 @@ def _lib():
         lib.vitta_ln_bwd_plan.argtypes = [ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int, p]
         lib.vitta_ln_bwd_plan.restype = None
+        lib.vitta_ln_fwd_bf16.argtypes = lib.vitta_ln_fwd.argtypes
+        lib.vitta_ln_fwd_bf16.restype = ctypes.c_int
+        lib.vitta_ln_bwd_bf16.argtypes = lib.vitta_ln_bwd.argtypes
+        lib.vitta_ln_bwd_bf16.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def ln_fwd_cuda(x2, gamma, beta, eps: float = 1e-5):
-    """Forward kernel on ``x2`` (R, C): one launch, output allocated here."""
+    """Forward kernel on ``x2`` (R, C), float32 or bfloat16: one launch,
+    output allocated here at x's dtype."""
     if x2.dim() != 2:
         raise ValueError(f"x must be (R, C), got shape {tuple(x2.shape)}")
     rows, c = x2.shape
-    check_tensor("LayerNorm", "x", x2, (rows, c), x2.device)
+    check_tensor("LayerNorm", "x", x2, (rows, c), x2.device,
+                 dtypes=ACT_DTYPES)
     check_tensor("LayerNorm", "gamma", gamma, (c,), x2.device)
     check_tensor("LayerNorm", "beta", beta, (c,), x2.device)
     y = torch.empty_like(x2)
+    lib = _lib()
+    fwd = lib.vitta_ln_fwd_bf16 if x2.dtype == torch.bfloat16 \
+        else lib.vitta_ln_fwd
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
-        code = _lib().vitta_ln_fwd(x2.data_ptr(), gamma.data_ptr(),
-                                   beta.data_ptr(), y.data_ptr(), rows, c,
-                                   float(eps), stream)
+        code = fwd(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                   y.data_ptr(), rows, c, float(eps), stream)
     raise_on(code, "LayerNorm forward kernel")
     counters.fwd += 1
     return y
@@ -156,16 +180,19 @@ def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
     """Backward kernels on ``x2`` (R, C) and the cotangent ``dy`` (R, C):
     one wrapper call, two launches on the current stream (dx with the
     blocks' partial column sums, then their sum); returns (dx, dgamma,
-    dbeta), allocated here with the scratch.  float4 units where
-    ``bwd_vec`` says so, single floats otherwise."""
+    dbeta), allocated here with the scratch.  x and dy float32, or both
+    bfloat16 (dx then bfloat16, dgamma and dbeta float32).  Units of 4
+    elements where ``bwd_vec`` says so, single elements otherwise."""
     if x2.dim() != 2:
         raise ValueError(f"x must be (R, C), got shape {tuple(x2.shape)}")
     rows, c = x2.shape
     if rows == 0:
         raise ValueError("x has no rows")
-    check_tensor("LayerNorm", "x", x2, (rows, c), x2.device)
+    check_tensor("LayerNorm", "x", x2, (rows, c), x2.device,
+                 dtypes=ACT_DTYPES)
     check_tensor("LayerNorm", "gamma", gamma, (c,), x2.device)
-    check_tensor("LayerNorm", "grad", dy, (rows, c), x2.device)
+    check_tensor("LayerNorm", "grad", dy, (rows, c), x2.device,
+                 dtypes=(x2.dtype,))
     if c > BWD_MAX_C:
         raise ValueError(f"the LayerNorm backward takes C up to {BWD_MAX_C}, "
                          f"got {c}")
@@ -175,12 +202,13 @@ def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
     scratch = torch.empty(lib.vitta_ln_bwd_scratch_floats(rows, c),
                           dtype=torch.float32, device=x2.device)
     vec = bwd_vec(c, x2, gamma, dy, dx)
+    bwd = lib.vitta_ln_bwd_bf16 if x2.dtype == torch.bfloat16 \
+        else lib.vitta_ln_bwd
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
-        code = lib.vitta_ln_bwd(x2.data_ptr(), gamma.data_ptr(),
-                                dy.data_ptr(), dx.data_ptr(), dgb.data_ptr(),
-                                scratch.data_ptr(), rows, c, float(eps), vec,
-                                stream)
+        code = bwd(x2.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                   dx.data_ptr(), dgb.data_ptr(), scratch.data_ptr(), rows,
+                   c, float(eps), vec, stream)
     raise_on(code, "LayerNorm backward kernel")
     counters.bwd += 1
     return dx, dgb[0], dgb[1]
@@ -212,7 +240,7 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernels
     (forward, and backward under autograd), which raise on any dtype other
-    than float32 or a non-contiguous input."""
+    than float32 or bfloat16 or a non-contiguous input."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     if x.device.type != "cuda":

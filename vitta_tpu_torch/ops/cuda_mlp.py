@@ -27,6 +27,19 @@ as the counterparts of pallas_mlp.py:138 and :154.  When a gradient is
 wanted it keeps (x, w1, w2, a, s) (pallas_mlp.py:256-258); otherwise the
 forward writes no s and keeps nothing (:249-253).
 
+At bfloat16 (``ln_mlp`` only: x, the four MLP weights and biases, y, a, s,
+o and every gradient but dgamma and dbeta bfloat16; gamma, beta and every
+sum float32) the kernels are ``vitta_lnmlp_{fwd,bwd}_bf16``, the
+counterparts of the same Pallas kernels at the compute dtype, and round
+where they do (pallas_mlp.py:303-353, VJP :605-613): y before y w1^T, a and
+s once each, o once; dh = (go w2) * s in float32, rounded (dhc) before dy
+and dw1; dy + gy in float32; dx, dw1, db1, dw2 and db2 once.  The plain
+versions round at the same points, and on the CPU a bfloat16 ``ln_mlp``
+runs the plain forward and the plain backward as one autograd Function, so
+that it rounds where the kernels do (at float32 the CPU keeps torch's
+autograd of the plain forward).  ``mlp`` at bfloat16 is not ported
+(ROADMAP.md, queue 1): its kernels take float32 only.
+
 There is no fallback: a CUDA tensor a kernel does not take raises.
 """
 
@@ -51,19 +64,27 @@ counters = LaunchCounters("fwd", "bwd", "mlp_fwd", "mlp_bwd")
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
+def gelu_derivative(h):
+    """Phi(h) + h * phi(h), the exact GELU's derivative (pallas_mlp.py:
+    ``_gelu_parts``), on float32 ``h``."""
+    phi = 0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
+    return phi + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
+
+
 def ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
                      save_residuals: bool = False):
     """The unfused composition on ``x`` (..., C); returns (o, y), and with
-    ``save_residuals`` (o, y, a, s)."""
+    ``save_residuals`` (o, y, a, s).  At bfloat16 (x and the MLP weights)
+    the arithmetic is float32 and y, a, s and o are rounded where the
+    kernels round them; at float32 every cast is the identity."""
+    dt, f32 = x.dtype, torch.float32
     y = layer_norm_reference(x, gamma, beta, eps)
-    h = F.linear(y, w1, b1)
-    a = F.gelu(h)
-    o = F.linear(a, w2, b2)
+    h = F.linear(y.to(f32), w1.to(f32), b1.to(f32))
+    a = F.gelu(h).to(dt)
+    o = F.linear(a.to(f32), w2.to(f32), b2.to(f32)).to(dt)
     if not save_residuals:
         return o, y
-    phi = 0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
-    s = phi + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
-    return o, y, a, s
+    return o, y, a, gelu_derivative(h).to(dt)
 
 
 def ln_mlp_backward_reference(x, y, a, s, go, gy, gamma, w1, w2,
@@ -71,14 +92,20 @@ def ln_mlp_backward_reference(x, y, a, s, go, gy, gamma, w1, w2,
     """(dx, dgamma, dbeta, dw1, db1, dw2, db2) for the cotangents ``go`` of
     o and ``gy`` of y (or None), written out from what the forward keeps
     as the kernel computes it (pallas_mlp.py:322-369); all of (M, C) or
-    (M, F)."""
-    dh = (go @ w2) * s
-    dy = dh @ w1
+    (M, F).  At bfloat16 the arithmetic is float32, dh is rounded (dhc)
+    before the two products that read it, and dx and the weight and bias
+    gradients are rounded once; dgamma and dbeta are float32."""
+    dt, f32 = x.dtype, torch.float32
+    go32 = go.to(f32)
+    dh = (go32 @ w2.to(f32)) * s.to(f32)
+    dhc = dh.to(dt).to(f32)
+    dy = dhc @ w1.to(f32)
     if gy is not None:
-        dy = dy + gy
+        dy = dy + gy.to(f32)
     dx, dgamma, dbeta = layer_norm_backward_reference(x, gamma, dy, eps)
-    return (dx, dgamma, dbeta, dh.t() @ y, dh.sum(dim=0), go.t() @ a,
-            go.sum(dim=0))
+    return (dx.to(dt), dgamma, dbeta, (dhc.t() @ y.to(f32)).to(dt),
+            dh.sum(dim=0).to(dt), (go32.t() @ a.to(f32)).to(dt),
+            go32.sum(dim=0).to(dt))
 
 
 def mlp_reference(x, w1, b1, w2, b2, save_residuals: bool = False):
@@ -89,8 +116,7 @@ def mlp_reference(x, w1, b1, w2, b2, save_residuals: bool = False):
     o = F.linear(a, w2, b2)
     if not save_residuals:
         return o
-    phi = 0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
-    return o, a, phi + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
+    return o, a, gelu_derivative(h)
 
 
 def mlp_backward_reference(x, a, s, g, w1, w2):
@@ -123,24 +149,47 @@ def _lib():
         lib.vitta_mlp_bwd.restype = i
         lib.vitta_mlp_bwd_scratch_floats.argtypes = [i, i, i]
         lib.vitta_mlp_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_lnmlp_fwd_bf16.argtypes = lib.vitta_lnmlp_fwd.argtypes
+        lib.vitta_lnmlp_fwd_bf16.restype = i
+        lib.vitta_lnmlp_bwd_bf16.argtypes = lib.vitta_lnmlp_bwd.argtypes
+        lib.vitta_lnmlp_bwd_bf16.restype = i
+        lib.vitta_lnmlp_bwd_bf16_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_lnmlp_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_lnmlp_bwd_bf16_plan.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+        lib.vitta_lnmlp_bwd_bf16_plan.restype = None
         _LIB = lib
     return _LIB
 
 
-def _check(x2, w1, named, what="LayerNorm-MLP"):
+# the parameters that stay float32 at bfloat16
+_F32_NAMES = ("gamma", "beta")
+
+
+def _check(x2, w1, named, what="LayerNorm-MLP", bf16=False):
     """Raise on anything the kernels do not take; ``named`` lists
-    (name, tensor, shape as a string of m, c, f).  Returns (M, C, F)."""
+    (name, tensor, shape as a string of m, c, f).  With ``bf16`` every
+    tensor but gamma and beta is bfloat16, C and F are multiples of 8 and
+    every tensor starts on a 16-byte boundary.  Returns (M, C, F)."""
     if x2.dim() != 2:
         raise ValueError(f"x must be (M, C), got shape {tuple(x2.shape)}")
     m, c = x2.shape
     f = w1.shape[0]
     dims = {"m": m, "c": c, "f": f}
     for name, ten, shape in named:
+        dtype = torch.bfloat16 if bf16 and name not in _F32_NAMES \
+            else torch.float32
         check_tensor(what, name, ten, tuple(dims[d] for d in shape),
-                     x2.device)
-    if c % 4 != 0 or f % 4 != 0:
+                     x2.device, dtypes=(dtype,))
+        if bf16 and ten.data_ptr() % 16:
+            raise ValueError(f"the bfloat16 {what} kernels take tensors "
+                             f"that start on a 16-byte boundary; {name} "
+                             f"does not")
+    unit = 8 if bf16 else 4
+    if c % unit != 0 or f % unit != 0:
         raise ValueError(f"the {what} kernels take C and F that are "
-                         f"multiples of 4 (16-byte rows); got C={c}, F={f}")
+                         f"multiples of {unit} (16-byte rows); got C={c}, "
+                         f"F={f}")
     if m == 0:
         raise ValueError("x has no rows")
     return m, c, f
@@ -149,19 +198,23 @@ def _check(x2, w1, named, what="LayerNorm-MLP"):
 def ln_mlp_fwd_cuda(x2, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
                     save_residuals: bool = False):
     """Forward kernels on ``x2`` (M, C): one wrapper call, three launches
-    on the current stream; outputs and the (M, F) scratch allocated here."""
+    on the current stream; outputs and the (M, F) scratch allocated here,
+    at x's dtype (float32, or bfloat16 with bfloat16 MLP weights)."""
+    bf16 = x2.dtype == torch.bfloat16
     m, c, f = _check(x2, w1, (("x", x2, "mc"), ("gamma", gamma, "c"),
                               ("beta", beta, "c"), ("w1", w1, "fc"),
                               ("b1", b1, "f"), ("w2", w2, "cf"),
-                              ("b2", b2, "c")))
+                              ("b2", b2, "c")), bf16=bf16)
     dev = x2.device
     y = torch.empty_like(x2)
     o = torch.empty_like(x2)
-    a = torch.empty((m, f), dtype=torch.float32, device=dev)
+    a = torch.empty((m, f), dtype=x2.dtype, device=dev)
     s = torch.empty_like(a) if save_residuals else None
+    lib = _lib()
+    fwd = lib.vitta_lnmlp_fwd_bf16 if bf16 else lib.vitta_lnmlp_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = _lib().vitta_lnmlp_fwd(
+        code = fwd(
             x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
             a.data_ptr(), None if s is None else s.data_ptr(), o.data_ptr(),
@@ -171,26 +224,65 @@ def ln_mlp_fwd_cuda(x2, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
     return (o, y, a, s) if save_residuals else (o, y)
 
 
-def ln_mlp_bwd_cuda(x2, y, a, s, go, gy, gamma, w1, w2, eps: float = 1e-5):
+def ln_mlp_bwd_scratch_floats(m: int, c: int, f: int, dtype) -> int:
+    """Floats of scratch the backward kernels take at ``dtype``."""
+    lib = _lib()
+    return (lib.vitta_lnmlp_bwd_bf16_scratch_floats
+            if dtype == torch.bfloat16
+            else lib.vitta_lnmlp_bwd_scratch_floats)(m, c, f)
+
+
+def bf16_bwd_scratch_views(scratch, m: int, c: int, f: int):
+    """(dh (M, F) float32, dhc (M, F) bfloat16, dy (M, C) float32): the
+    bfloat16 backward's intermediates as it leaves them in its float32
+    ``scratch``, at the offsets the library gives
+    (``vitta_lnmlp_bwd_bf16_plan``), for a check that holds each step to
+    its plain version on the kernel's own inputs."""
+    offsets = (ctypes.c_longlong * 3)()
+    _lib().vitta_lnmlp_bwd_bf16_plan(m, c, f, offsets)
+    dh_at, dhc_at, dy_at = offsets
+    if dh_at < 0:
+        raise ValueError(f"no bfloat16 LayerNorm-MLP backward for M={m}, "
+                         f"C={c}, F={f}")
+    mf = m * f
+    dh = scratch[dh_at:dh_at + mf].view(m, f)
+    dhc = scratch[dhc_at:dhc_at + mf // 2].view(torch.bfloat16).view(m, f)
+    dy = scratch[dy_at:dy_at + m * c].view(m, c)
+    return dh, dhc, dy
+
+
+def ln_mlp_bwd_cuda(x2, y, a, s, go, gy, gamma, w1, w2, eps: float = 1e-5,
+                    scratch=None):
     """Backward kernels: one wrapper call, its launches on the current
     stream; ``gy`` may be None (no cotangent on y).  Returns (dx, dgamma,
     dbeta, dw1, db1, dw2, db2), allocated here with the scratch (dh (M, F),
-    dy (M, C) and the partial sums)."""
+    dy (M, C) and the partial sums; ``scratch`` may be passed in, and at
+    bfloat16 ``bf16_bwd_scratch_views`` reads dh, its rounded form and dy
+    from it afterwards).  At bfloat16 every gradient but dgamma and dbeta
+    is bfloat16."""
+    bf16 = x2.dtype == torch.bfloat16
     named = [("x", x2, "mc"), ("y", y, "mc"), ("a", a, "mf"), ("s", s, "mf"),
              ("grad of o", go, "mc"), ("gamma", gamma, "c"),
              ("w1", w1, "fc"), ("w2", w2, "cf")]
     if gy is not None:
         named.append(("grad of y", gy, "mc"))
-    m, c, f = _check(x2, w1, named)
+    m, c, f = _check(x2, w1, named, bf16=bf16)
     dev = x2.device
     lib = _lib()
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    dx, dgb, dw1, db1, dw2, db2 = (new(m, c), new(2, c), new(f, c), new(f),
-                                   new(c, f), new(c))
-    scratch = new(lib.vitta_lnmlp_bwd_scratch_floats(m, c, f))
+    new = lambda *shape: torch.empty(shape, dtype=x2.dtype, device=dev)
+    dx, dw1, db1, dw2, db2 = new(m, c), new(f, c), new(f), new(c, f), new(c)
+    dgb = torch.empty((2, c), dtype=torch.float32, device=dev)
+    floats = ln_mlp_bwd_scratch_floats(m, c, f, x2.dtype)
+    if scratch is None:
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    elif (scratch.dtype != torch.float32 or scratch.device != dev
+          or scratch.numel() < floats or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be {floats} contiguous float32 "
+                         f"values on {dev}")
+    bwd = lib.vitta_lnmlp_bwd_bf16 if bf16 else lib.vitta_lnmlp_bwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.vitta_lnmlp_bwd(
+        code = bwd(
             x2.data_ptr(), y.data_ptr(), a.data_ptr(), s.data_ptr(),
             go.data_ptr(), None if gy is None else gy.data_ptr(),
             gamma.data_ptr(), w1.data_ptr(), w2.data_ptr(), dx.data_ptr(),
@@ -232,17 +324,45 @@ class LayerNormMlp(torch.autograd.Function):
         return grads + (None, None, None)
 
 
+class LayerNormMlpPlain(torch.autograd.Function):
+    """The plain forward and the plain backward as one differentiable op,
+    the CPU's form at bfloat16: it rounds where the kernels round, forward
+    and backward (``ln_mlp_reference``, ``ln_mlp_backward_reference``)."""
+
+    @staticmethod
+    def forward(ctx, x2, gamma, beta, w1, b1, w2, b2, eps):
+        ctx.eps = eps
+        o, y, a, s = ln_mlp_reference(x2, gamma, beta, w1, b1, w2, b2, eps,
+                                      save_residuals=True)
+        ctx.save_for_backward(x2, y, a, s, gamma, w1, w2)
+        return o, y
+
+    @staticmethod
+    def backward(ctx, go, gy):
+        x2, y, a, s, gamma, w1, w2 = ctx.saved_tensors
+        return ln_mlp_backward_reference(x2, y, a, s, go, gy, gamma, w1, w2,
+                                         ctx.eps) + (None,)
+
+
 def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
            save_residuals: bool = False):
     """(LayerNorm -> fc1 -> exact GELU -> fc2)(x) over the last axis of
     ``x`` (..., C); returns (o, y) in x's shape, and with
-    ``save_residuals`` also a and s as (M, F).
+    ``save_residuals`` also a and s as (M, F).  x and the MLP weights and
+    biases float32, or all bfloat16; gamma and beta float32.
 
-    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
-    (forward, and backward under autograd), which raise on any dtype other
-    than float32, a non-contiguous input, or a C or F that is not a
-    multiple of 4."""
+    A CPU tensor takes the plain version (at bfloat16 with the plain
+    backward, ``LayerNormMlpPlain``, where a gradient is wanted); a CUDA
+    tensor takes the kernels (forward, and backward under autograd), which
+    raise on any other dtype, a non-contiguous input, or a C or F that is
+    not a multiple of 4 (8 at bfloat16)."""
     if x.device.type == "cpu":
+        if (x.dtype == torch.bfloat16 and not save_residuals
+                and grad_wanted(x, gamma, beta, w1, b1, w2, b2)):
+            c = x.shape[-1]
+            o, y = LayerNormMlpPlain.apply(x.reshape(-1, c), gamma, beta, w1,
+                                           b1, w2, b2, float(eps))
+            return o.reshape(x.shape), y.reshape(x.shape)
         res = ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps,
                                save_residuals)
         if save_residuals:

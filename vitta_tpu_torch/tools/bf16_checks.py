@@ -1,0 +1,204 @@
+"""How the bfloat16 Video Swin kernels (LayerNorm, LayerNorm-MLP, packed
+attention) are held to their plain versions on the card; shared by
+chip_smoke.py and tests/test_torch_cuda.py.
+
+A bfloat16 output of a kernel and of its plain version round float32 values
+that their float32 sums reach in other orders, so a value may round one ulp
+apart: every output is held within one bfloat16 ulp of the plain version's
+(``assert_bf16_within``), or a floor of its tensor's largest magnitude,
+2^-20, where a value near 0 is the difference of larger float32 terms.
+
+An output made from an intermediate that the op rounds inside (the
+LayerNorm-MLP's a before o, dh before dy and dw1; the attention's e before
+e v and dv, dl before dq and dk) inherits that intermediate's one-ulp
+differences, each moving it by up to a bfloat16 ulp of one term of its sum.
+So each output is held, to one ulp everywhere, to its plain version
+computed from the kernel's own rounded intermediates, and each intermediate
+to its plain value: the LayerNorm-MLP's a is an output, and dh, its
+rounded form and dy lie in the backward's scratch (``ln_mlp_fwd_stages``,
+``ln_mlp_bwd_stages``); the attention kernels' instances that also write
+bfloat16(e), and the backward's dl in its scratch, give the attention's
+(``packed_attention_bf16_fwd_stage``, ``packed_attention_bf16_bwd_stages``,
+``packed_attention_bf16_intermediates``).
+
+End to end, against the plain version on its own intermediates, the
+attention's out and dqkv are held by ``assert_bf16_mostly_within``: at most
+``BEYOND_SHARE`` (1e-4) of the values beyond one ulp or 2^-12 of the
+tensor's largest magnitude, and those within ``2^-7`` (one bfloat16 ulp
+relative to a value, at most) times the sum of the absolute products that
+pass through the rounded intermediates (``packed_attention_bf16_slack``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+FLOOR = 2.0 ** -20
+ULP_REL = 2.0 ** -7
+# the end-to-end attention check: the share of values that may lie beyond
+# one ulp or BEYOND_FLOOR of the largest magnitude
+BEYOND_SHARE = 1e-4
+BEYOND_FLOOR = 2.0 ** -12
+
+
+def _ulp(w):
+    """One bfloat16 ulp of each |w| (float32)."""
+    return torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+def _same_shape(name, got, want):
+    if got.dtype != BF16 or want.dtype != BF16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
+                             f"against {want.dtype} {tuple(want.shape)}")
+    return got.float(), want.float()
+
+
+def assert_bf16_within(name, got, want, floor=FLOOR):
+    """Raise unless ``got`` and ``want`` are bfloat16 of one shape and
+    |got - want| <= max(one ulp of |want|, floor * max|want|) everywhere;
+    returns (the share of values that differ at all, the largest difference
+    in units of that bound, the largest absolute difference)."""
+    g, w = _same_shape(name, got, want)
+    tol = torch.maximum(_ulp(w), floor * w.abs().max())
+    diff = (g - w).abs()
+    bad = diff > tol
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {w.numel()} values beyond the "
+            f"bound, worst {float(diff.max()):.3e} on values up to "
+            f"{float(w.abs().max()):.3e}")
+    return (float((g != w).float().mean()), float((diff / tol).max()),
+            float(diff.max()))
+
+
+def assert_bf16_mostly_within(name, got, want, slack,
+                              share=BEYOND_SHARE, floor=BEYOND_FLOOR):
+    """Raise unless ``got`` and ``want`` are bfloat16 of one shape, at most
+    ``share`` of the values lie beyond max(one ulp of |want|, floor *
+    max|want|), and every value lies within that plus ``slack``; returns
+    (the share of values that differ at all, the largest difference in
+    units of that bound, the largest absolute difference, the share
+    beyond)."""
+    g, w = _same_shape(name, got, want)
+    diff = (g - w).abs()
+    tol = torch.maximum(_ulp(w), floor * w.abs().max())
+    beyond = float((diff > tol).float().mean())
+    over = diff > tol + slack
+    if beyond > share or bool(over.any()):
+        raise AssertionError(
+            f"{name}: {beyond:.2e} of {w.numel()} values beyond one ulp "
+            f"(at most {share:.0e}), {int(over.sum())} beyond the slack, "
+            f"worst {float(diff.max()):.3e} on values up to "
+            f"{float(w.abs().max()):.3e}")
+    return (float((g != w).float().mean()), float((diff / tol).max()),
+            float(diff.max()), beyond)
+
+
+def ln_mlp_fwd_stages(x, gamma, beta, w1, b1, w2, b2, eps, y, a):
+    """The plain values of the bfloat16 LayerNorm-MLP forward's rounded
+    outputs (o, y, a, s), each from the kernel's own rounded inputs: y from
+    x, a and s from the kernel's y, o from the kernel's a."""
+    from vitta_tpu_torch.ops.cuda_ln import layer_norm_reference
+    from vitta_tpu_torch.ops.cuda_mlp import gelu_derivative
+    h = F.linear(y.to(F32), w1.to(F32), b1.to(F32))
+    return (F.linear(a.to(F32), w2.to(F32), b2.to(F32)).to(BF16),
+            layer_norm_reference(x, gamma, beta, eps), F.gelu(h).to(BF16),
+            gelu_derivative(h).to(BF16))
+
+
+def ln_mlp_bwd_stages(x, y, a, s, go, gy, gamma, w1, w2, eps, dh, dhc, dy):
+    """The plain values of the bfloat16 LayerNorm-MLP backward's steps, each
+    from the kernel's own inputs to it (dh, its rounded form dhc and dy as
+    the kernel left them in its scratch): {"dh", "dhc", "dy" (float32 but
+    dhc), "dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"}."""
+    from vitta_tpu_torch.ops.cuda_ln import layer_norm_backward_reference
+    go32 = go.to(F32)
+    dy_ref = dhc.to(F32) @ w1.to(F32)
+    if gy is not None:
+        dy_ref = dy_ref + gy.to(F32)
+    dx, dgamma, dbeta = layer_norm_backward_reference(x, gamma, dy, eps)
+    return {"dh": (go32 @ w2.to(F32)) * s.to(F32), "dhc": dh.to(BF16),
+            "dy": dy_ref, "dx": dx, "dgamma": dgamma, "dbeta": dbeta,
+            "dw1": (dhc.to(F32).t() @ y.to(F32)).to(BF16),
+            "db1": dh.sum(dim=0).to(BF16),
+            "dw2": (go32.t() @ a.to(F32)).to(BF16),
+            "db2": go32.sum(dim=0).to(BF16)}
+
+
+def packed_attention_bf16_slack(qkv, bias, mask, ms, g, scale: float,
+                                nh: int):
+    """(out's, dqkv's) bound on what the attention's internally rounded
+    intermediates may move them by: 2^-7 times sum_j p_ij |v_j| for out,
+    sum_i e_ij |gs_i| for dv, scale sum_j |dl_ij| |k_j| for dq and
+    scale sum_i |dl_ij| |q_i| for dk, in the layouts of out and dqkv."""
+    from vitta_tpu_torch.ops.cuda_attention import _bf16_logits
+    b_, n, c3 = qkv.shape
+    hd = c3 // 3 // nh
+    q, k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]
+    out = torch.einsum("bhqk,bkhd->bqhd", e * inv, v.abs())
+    gh = g.reshape(b_, n, nh, hd).to(F32)
+    gs = (gh * inv.permute(0, 2, 1, 3)).to(BF16).to(F32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    dl = (e * (dp - rs) * inv).abs()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.abs()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.abs()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", e, gs.abs())
+    return (ULP_REL * out.reshape(b_, n, c3 // 3),
+            ULP_REL * torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3))
+
+
+def _packed(qkv, ms, nh: int):
+    """q, k, v float32 (B_, N, nh, hd) of the packed bfloat16 ``qkv`` and
+    the row sums s (B_, N, nh) of the forward's ``ms``."""
+    b_, n, c3 = qkv.shape
+    q, k, v = qkv.reshape(b_, n, 3, nh, c3 // 3 // nh).to(F32).unbind(2)
+    return q, k, v, ms.reshape(b_, n, nh, 2)[..., 1]
+
+
+def packed_attention_bf16_fwd_stage(qkv, ms, e, nh: int):
+    """The plain out of the bfloat16 attention forward from the kernel's own
+    rounded ``e`` (B_, nh, N, N) and ``ms``: bfloat16((e v) / s)."""
+    b_, n, c3 = qkv.shape
+    _q, _k, v, s = _packed(qkv, ms, nh)
+    o = torch.einsum("bhqk,bkhd->bqhd", e.to(F32), v) / s[..., None]
+    return o.reshape(b_, n, c3 // 3).to(BF16)
+
+
+def packed_attention_bf16_bwd_stages(qkv, ms, g, e, dl, scale: float,
+                                     nh: int):
+    """The plain dqkv of the bfloat16 attention backward from the kernel's
+    own rounded ``e`` and float32 ``dl`` (B_, nh, N, N): dv =
+    bfloat16(e^T bfloat16(g / s)), dq and dk from bfloat16(dl), times
+    scale, rounded."""
+    b_, n, c3 = qkv.shape
+    q, k, _v, s = _packed(qkv, ms, nh)
+    gs = (g.reshape(q.shape).to(F32) * (1.0 / s)[..., None]).to(BF16).to(F32)
+    dlc = dl.to(BF16).to(F32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(F32), gs)
+    return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3).to(BF16)
+
+
+def packed_attention_bf16_intermediates(qkv, bias, mask, ms, g, scale: float,
+                                        nh: int):
+    """The plain (bfloat16(e), dl float32), (B_, nh, N, N) each, from the
+    logits and the kernel's row maximum and sum ``ms``: the values the
+    kernels' e and dl are held to."""
+    from vitta_tpu_torch.ops.cuda_attention import _bf16_logits
+    b_, n, _c3 = qkv.shape
+    _q, _k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.reshape(v.shape).to(F32), v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    return e.to(BF16), e * (dp - rs) * inv

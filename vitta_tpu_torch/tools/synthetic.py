@@ -34,6 +34,23 @@ def swin_cfg(t=16, hw=224, **model_kw):
         model=dataclasses.replace(cfg.model, **model_kw))
 
 
+def swin_model(cfg, dtype="float32", attn_route="packed", **kw):
+    """The Video Swin of ``cfg`` at the compute ``dtype``, built directly as
+    vitta_tpu's benchmark builds its bfloat16 Swin-B
+    (``Recognizer3D(..., dtype=...)``, bench.py:117): ``get_model`` builds
+    Video Swin at float32 only.  ``kw`` overrides Recognizer3D's other
+    arguments (the dropout rates)."""
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    mc = cfg.model
+    args = dict(patch_size=mc.patch_size, window_size=mc.window_size,
+                embed_dim=mc.embed_dim, depths=mc.depths,
+                num_heads=mc.num_heads, drop_path_rate=mc.drop_path_rate,
+                stat_types=cfg.tta.tap_stat_types(), attn_route=attn_route,
+                dtype=dtype)
+    args.update(kw)
+    return Recognizer3D(mc.num_classes, **args)
+
+
 def swin_weights(cfg, seed):
     """A seeded state dict of the model of ``cfg``; the bias tables are
     drawn wide (std 0.5, not the initialiser's 0.02) so that a wrong bias
