@@ -209,23 +209,30 @@ result line:
    within 2^-7 of the absolute products through e and dl); two backward
    runs bit-equal; launches per call, of bfloat16 instances only; a
    LayerNorm view 2 bytes past a 16-byte boundary on the one-value path.
-   Each row's ``max_abs_err`` is the largest difference of any of its
-   outputs, bfloat16 and float32, from the plain version it is held to.
-   Device ms per Swin-B pass of 2 clips beside the bound at bfloat16
-   (bytes over 3.35 TB/s, operations over 989 TFLOP/s), the float32
-   kernel's on the same values, the plain versions' and the library
-   calls' (F.layer_norm and its backward, sdpa with the bias as attn_mask
-   and its backward; the LayerNorm-MLP's F.layer_norm-F.linear-F.gelu-
-   F.linear composition and its autograd backward beside it, no one call
-   computing it); the device times from CUDA graphs' replays
-   (``graph_ms``), the libraries' backward from the profiler.
+   The attention's forward on the compact bias gives the dense bias's bits;
+   its backward's compact dbias is the kernel's own dl collapsed per window
+   and added in window order, bit for bit, and its scratch smaller than
+   one (B_, nh, N, N) dl.  Each row's ``max_abs_err`` is the largest
+   difference of any of its outputs, bfloat16 and float32, from the plain
+   version it is held to.  Device ms per Swin-B pass of 2 clips beside the
+   bound at bfloat16 (bytes over 3.35 TB/s, operations over 989 TFLOP/s),
+   the float32 kernel's on the same values, the plain versions' and the
+   library calls' (F.layer_norm and its backward, sdpa with the bias as
+   attn_mask and its backward, with the bias's gradient for the attention
+   row, the backend named; the LayerNorm-MLP's F.layer_norm-F.linear-
+   F.gelu-F.linear composition and its autograd backward beside it, no one
+   call computing it); the attention rows on the compact bias the model
+   hands them, the dense form's times beside them; the device times from
+   CUDA graphs' replays (``graph_ms``), the libraries' backward from the
+   profiler.
 26. A small bfloat16 Swin (embed 128, depths (2, 1), heads (4, 8), window
    (2, 3, 3), 4 x 48 x 48: every width a multiple of 128, as Swin-B's):
    two tta_online steps on the card and on the CPU, held as phase 23's.
 27. Swin-B at bfloat16 (``Recognizer3D(..., dtype="bfloat16")``, float32
    masters, SGD, losses and statistics; the float32 model's source
    statistics): ``tta_stream`` over 6 videos, per video the launches of
-   phase 11, every LayerNorm, LayerNorm-MLP and attention launch a
+   phase 11 but the bias expansion and collapse (the attention takes the
+   compact bias), every LayerNorm, LayerNorm-MLP and attention launch a
    bfloat16 kernel by the libraries' counts; ms/video, peak memory and a
    profiled step: host, device busy, idle share, busy by class of kernel.
 28. float32 against bfloat16 Swin-B trajectories over 40 videos, as phase
@@ -2617,7 +2624,8 @@ def _reset_swin_counts():
         mod.counters.reset()
 
 
-def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2)):
+def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2),
+                  dtype="float32"):
     """(forward, backward) launches per pass, by kernel, of a Swin of this
     width and these depths (the defaults are Swin-B's) whose blocks all
     take ``route`` (None: the packed default) on full windows.  A stage
@@ -2625,7 +2633,9 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2)):
     kernel, any other as a LayerNorm launch of its own in front of the MLP
     kernel (``dispatch.mlp_ln_fused``; the token counts of a 16x224x224
     clip are multiples of 8 at every stage).  Outside the blocks there is
-    one LayerNorm per stage (patch embed, PatchMerging) and the final one."""
+    one LayerNorm per stage (patch embed, PatchMerging) and the final one.
+    At bfloat16 the packed attention takes the compact bias itself: no
+    expansion and no collapse launch."""
     attn = {None: "attn_packed", "packed": "attn_packed", "proj": "attn_proj",
             "ln_proj": "attn_ln_proj", "heads": "attn_heads"}[route]
     blocks = sum(depths)
@@ -2640,6 +2650,8 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2)):
            "attn_heads_bwd": 0, "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0,
            "ln_mlp_bwd": fused, "mlp_bwd": blocks - fused}
     fwd[attn + "_fwd"] = bwd[attn + "_bwd"] = blocks
+    if dtype == "bfloat16":
+        fwd["bias_expand"] = bwd["bias_collapse"] = 0
     return fwd, bwd
 
 
@@ -3144,6 +3156,18 @@ def _measure_bf16_grad(backward):
     return event, device
 
 
+def sdpa_backend(leaves, mask, scale) -> str:
+    """The backend torch's dispatcher picks for scaled_dot_product_attention
+    on these inputs (its own choice function), or "unknown"."""
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = torch._fused_sdp_choice(*leaves, mask, 0.0, False,
+                                         scale=scale)
+        return SDPBackend(choice).name
+    except Exception as exc:       # an internal function: name what failed
+        return f"unknown ({type(exc).__name__})"
+
+
 def phase_bf16_swin_kernels(dev):
     """Phase 25: the bfloat16 LayerNorm, LayerNorm-MLP and packed attention
     kernels (rows 3, 4, 10, 11, 14, 15 in the bfloat16 Swin) against their
@@ -3168,8 +3192,13 @@ def phase_bf16_swin_kernels(dev):
     rate), the float32 kernel's on the same values by the same replays
     (``float32_device_ms``), the plain versions', the library calls'
     (F.layer_norm, sdpa with the bias as attn_mask, their backward from
-    the profiler; the LayerNorm-MLP has none, its F.layer_norm-F.linear-
-    F.gelu-F.linear composition is timed beside it).  Returns the six JSON
+    the profiler, sdpa's with the bias's gradient too for row 15; the
+    LayerNorm-MLP has none, its F.layer_norm-F.linear-F.gelu-F.linear
+    composition is timed beside it).  The attention rows are timed on the
+    compact bias, the form the bfloat16 model hands them, with the dense
+    form's device ms beside them (``dense_bias_device_ms``); the compact
+    forward must give the dense one's bits, the compact dbias the kernel's
+    own dl collapsed per window in window order.  Returns the six JSON
     rows."""
     import torch.nn.functional as F
     from vitta_tpu_torch.ops import cuda_attention as ca
@@ -3211,6 +3240,10 @@ def phase_bf16_swin_kernels(dev):
             for label, (key, nb, fl, n) in sizes.items()), flush=True)
     comp = {"mlp_fwd": 0.0, "mlp_bwd": 0.0}
     f32 = {k: 0.0 for k in tot}     # the float32 kernels' device ms a pass
+    # the bfloat16 attention on the dense bias, and sdpa's backward without
+    # the bias's gradient, device ms a pass
+    dense_ms = {"attn_fwd": 0.0, "attn_bwd": 0.0}
+    no_dbias = 0.0
     apart = {}
 
     def note(key, row, result):
@@ -3320,7 +3353,9 @@ def phase_bf16_swin_kernels(dev):
           f"launches {names}, y and dx within one ulp", flush=True)
     del x, xs, buf, dy
 
-    # rows 14 and 15: the packed attention at every stage
+    # rows 14 and 15: the packed attention at every stage.  The model's
+    # path hands the bfloat16 kernels the compact bias (models/swin.py);
+    # the rows' times are that form's, the dense form's beside them
     wd, wh, ww = SWIN_WINDOW
     n_tok = wd * wh * ww
     for c, nh, tokens, nw, depth in SWIN_STAGES:
@@ -3345,6 +3380,14 @@ def phase_bf16_swin_kernels(dev):
                     qkv, dense, m, scale, nh, save_ms=True)
                 tot["attn_fwd"].err = max(tot["attn_fwd"].err, check_close(
                     f"{what} row max/sum", ms_, want_ms, ATTN_TOL))
+                # the compact bias's strips hold other rows, each row's
+                # sums run in the same order: the same bits
+                out_c, ms_c = ca.attn_packed_fwd_cuda(qkv, vc, m, scale, nh,
+                                                      save_ms=True)
+                if not (torch.equal(out_c, out) and torch.equal(ms_c, ms_)):
+                    raise AssertionError(f"{what}: the compact bias's "
+                                         "forward differs from the dense's")
+                del out_c, ms_c
                 # the steps on the kernel's own e and dl, and those against
                 # their plain values
                 tf = {}
@@ -3365,8 +3408,9 @@ def phase_bf16_swin_kernels(dev):
                 note("out", "attn_fwd", assert_bf16_mostly_within(
                     f"{what} out", out, want, s_out))
                 del s_out
-                kernels(lambda: ca.attn_packed_fwd_cuda(qkv, dense, m, scale,
-                                                        nh), 1)
+                for bias_t in (dense, vc):
+                    kernels(lambda: ca.attn_packed_fwd_cuda(qkv, bias_t, m,
+                                                            scale, nh), 1)
                 for form, bias_t in (("dense", dense), ("compact", vc)):
                     got = ca.attn_packed_bwd_cuda(qkv, bias_t, m, ms_, g,
                                                   scale, nh)
@@ -3398,14 +3442,34 @@ def phase_bf16_swin_kernels(dev):
                         f"{what} {form} dqkv", got[0], wq, s_dqkv))
                     scaled("attn_bwd", f"{what} {form} dbias", got[1], wb,
                            ATTN_BWD_TOL)
+                    if form == "compact":
+                        # the kernel's partials, summed in window order, on
+                        # its own dl: the plain order's bits
+                        if not torch.equal(got[1], ca.dbias_in_window_order(
+                                tb["dl"], vc)):
+                            raise AssertionError(
+                                f"{what}: the compact dbias is not the "
+                                "windows' collapsed dl in window order")
+                    names = kernels(lambda: ca.attn_packed_bwd_cuda(
+                        qkv, bias_t, m, ms_, g, scale, nh), 2 + (split > 1))
+                    reduce_ = ("dbias_windows_kernel" if form == "compact"
+                               else "dbias_reduce_kernel")
+                    if names.get(reduce_) != 1:
+                        raise AssertionError(f"{what} {form}: launches "
+                                             f"{names}, no {reduce_}")
+                    floats = ca.bwd_scratch_floats(
+                        b_, n_tok, nh, hd, bf16, form == "compact", wd,
+                        wh * ww, device=dev)
+                    if form == "compact" and floats >= b_ * nh * n_tok ** 2:
+                        raise AssertionError(f"{what}: the compact form's "
+                                             f"scratch holds {floats} floats")
                     del got, again, wq, wb, tb, tapped
                 del e_want, dl_want, s_dqkv
                 err = max(tot["attn_fwd"].err, tot["attn_bwd"].err)
-                kernels(lambda: ca.attn_packed_bwd_cuda(
-                    qkv, dense, m, ms_, g, scale, nh), 2 + (split > 1))
                 if clips == 1:
                     print(f"{what}, {split} block(s) a problem: out and dqkv "
-                          "within their bounds, two runs bit-equal",
+                          "within their bounds, two runs bit-equal, the "
+                          "compact form's out and ms the dense form's bits",
                           flush=True)
                     continue
                 q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
@@ -3416,25 +3480,43 @@ def phase_bf16_swin_kernels(dev):
                             b_, nh, n_tok, n_tok)).to(bf16)
                 o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=am,
                                                        scale=scale)
+                # sdpa with the bias's gradient too, row 15's like for like
+                am_g = am.expand(b_, nh, n_tok, n_tok).contiguous(
+                    ).requires_grad_()
+                with torch.enable_grad():
+                    o_lib_b = F.scaled_dot_product_attention(
+                        *leaves, attn_mask=am_g, scale=scale)
                 g4 = g.reshape(b_, n_tok, nh, hd).permute(0, 2, 1, 3)
                 t = {"kernel": _measure_bf16(lambda: ca.attn_packed_fwd_cuda(
-                         qkv, dense, m, scale, nh)),
+                         qkv, vc, m, scale, nh)),
+                     "kernel dense": _measure_bf16(
+                         lambda: ca.attn_packed_fwd_cuda(qkv, dense, m, scale,
+                                                         nh)),
                      "plain": _measure_bf16(
                          lambda: ca.packed_attention_bf16_reference(
-                             qkv, dense, m, scale, nh)),
+                             qkv, vc, m, scale, nh)),
                      "sdpa": _measure_bf16(
                          lambda: F.scaled_dot_product_attention(
                              q5[0], q5[1], q5[2], attn_mask=am, scale=scale)),
                      "kernel bwd": _measure_bf16(
                          lambda: ca.attn_packed_bwd_cuda(
+                             qkv, vc, m, ms_, g, scale, nh)),
+                     "kernel bwd dense": _measure_bf16(
+                         lambda: ca.attn_packed_bwd_cuda(
                              qkv, dense, m, ms_, g, scale, nh)),
                      "plain bwd": _measure_bf16(
                          lambda: ca.packed_attention_bf16_backward_reference(
-                             qkv, dense, m, ms_, g, scale, nh)),
+                             qkv, vc, m, ms_, g, scale, nh)),
                      "sdpa bwd": _measure_bf16_grad(
                          lambda: torch.autograd.grad(o_lib, leaves, g4,
-                                                     retain_graph=True))}
+                                                     retain_graph=True)),
+                     "sdpa bwd with dbias": _measure_bf16_grad(
+                         lambda: torch.autograd.grad(
+                             o_lib_b, leaves + [am_g], g4,
+                             retain_graph=True))}
                 _report(f"{what}, {split} block(s) a problem", err, t)
+                print(f"  sdpa's backend: {sdpa_backend(leaves, am_g, scale)}"
+                      " (with the bias's gradient)", flush=True)
                 # shifted blocks are every second one where there is a mask
                 sites = depth // 2 if mask is not None else depth
                 qf, gf = qkv.float(), g.float()
@@ -3445,13 +3527,21 @@ def phase_bf16_swin_kernels(dev):
                 add_f32("attn_bwd", sites, lambda: ca.attn_packed_bwd_cuda(
                     qf, dense, m, ms32, gf, scale, nh))
                 del qf, gf, _o32, ms32
+                for key, tk in (("attn_fwd", "kernel dense"),
+                                ("attn_bwd", "kernel bwd dense")):
+                    dense_ms[key] = (None if dense_ms[key] is None
+                                     or t[tk][1] is None
+                                     else dense_ms[key] + sites * t[tk][1])
+                dv = t["sdpa bwd"][1]
+                no_dbias = (None if no_dbias is None or dv is None
+                            else no_dbias + sites * dv)
                 pairs = b_ * nh * n_tok * n_tok
-                extra = dense.numel() * 4 + (0 if m is None else m.numel() * 4)
+                extra = vc.numel() * 4 + (0 if m is None else m.numel() * 4)
                 per_site(t, {
                     "fwd": ("kernel", (qkv.numel() + out.numel()) * 2 + extra,
                             pairs * (4 * hd + 6), 1),
                     "bwd": ("kernel bwd", (2 * qkv.numel() + g.numel()) * 2
-                            + ms_.numel() * 4 + dense.numel() * 4 + extra,
+                            + ms_.numel() * 4 + vc.numel() * 4 + extra,
                             pairs * (10 * hd + 12), 2 + (split > 1))})
                 tot["attn_fwd"].add(
                     sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
@@ -3464,12 +3554,12 @@ def phase_bf16_swin_kernels(dev):
                     device_ms=t["kernel bwd"][1],
                     plain_ms=t["plain bwd"][0],
                     plain_device_ms=t["plain bwd"][1],
-                    library_ms=t["sdpa bwd"][0],
-                    library_device_ms=t["sdpa bwd"][1],
+                    library_ms=t["sdpa bwd with dbias"][0],
+                    library_device_ms=t["sdpa bwd with dbias"][1],
                     bytes=(2 * qkv.numel() + g.numel()) * 2
-                    + ms_.numel() * 4 + dense.numel() * 4 + extra,
+                    + ms_.numel() * 4 + vc.numel() * 4 + extra,
                     flops=pairs * (10 * hd + 12))
-                del leaves, am, o_lib, q5
+                del leaves, am, o_lib, q5, am_g, o_lib_b
             del qkv, g, out, ms_, want
 
     # rows 10 and 11: the LayerNorm-MLP at every stage; the tap's cotangent
@@ -3607,6 +3697,9 @@ def phase_bf16_swin_kernels(dev):
     for row, key in zip(rows, ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
                                "mlp_fwd", "mlp_bwd")):
         row["float32_device_ms"] = f32[key]
+    rows[2]["dense_bias_device_ms"] = dense_ms["attn_fwd"]
+    rows[3]["dense_bias_device_ms"] = dense_ms["attn_bwd"]
+    rows[3]["library_without_dbias_device_ms"] = no_dbias
     for row in rows:
         print(f"{row['name']} per Swin-B pass of 2 clips: device ms kernel "
               f"{fmt(row['device_ms'])} float32 kernel "
@@ -3615,6 +3708,12 @@ def phase_bf16_swin_kernels(dev):
               f"library {fmt(row['library_device_ms'])}"
               + (f" composition {fmt(row['composition_device_ms'])}"
                  if "composition_device_ms" in row else "")
+              + (f" kernel on the dense bias "
+                 f"{fmt(row['dense_bias_device_ms'])}"
+                 if "dense_bias_device_ms" in row else "")
+              + (f" library without dbias "
+                 f"{fmt(row['library_without_dbias_device_ms'])}"
+                 if "library_without_dbias_device_ms" in row else "")
               + f"; event ms {row['ms']:.4f} / {row['plain_ms']:.4f}; bound "
               f"{row['bound_ms']:.4f} ms by {row['bound_by']} at bfloat16",
               flush=True)
@@ -3673,7 +3772,7 @@ def phase_bf16_swin_small(seed, t=4, hw=48):
                      {k: (v.mean.cpu(), v.var.cpu())
                       for k, v in state.ema.items()})
     counts = _swin_counts()
-    fwd, bwd = swin_launches("packed", 128, (2, 1))
+    fwd, bwd = swin_launches("packed", 128, (2, 1), "bfloat16")
     for k, n in {**fwd, **bwd}.items():
         if n and counts[k] == 0:
             raise AssertionError(f"bf16 swin small slice: the {k} kernel was "
@@ -3690,8 +3789,9 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     dtype="bfloat16")``, the construction of vitta_tpu's bench.py:117;
     float32 masters, SGD, losses and statistics) over seeded videos with
     the float32 model's source statistics, drop-path 0.2 and head dropout
-    0.5: per video 2 x (29, 24, 24, 24) forward and 29 / 24 / 24 / 24
-    backward launches of LayerNorm / bias / attention / LayerNorm-MLP,
+    0.5: per video 2 x (29, 0, 24, 24) forward and 29 / 0 / 24 / 24
+    backward launches of LayerNorm / bias / attention / LayerNorm-MLP (the
+    attention takes the compact bias: no expansion, no collapse),
     every LayerNorm, attention and LayerNorm-MLP launch a bfloat16 kernel
     by the libraries' own counts and none a float32 one, no contiguity
     copy; ms/video, peak memory, then one profiled step: host, device busy,
@@ -3725,7 +3825,7 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
             or logits.dtype != torch.float32
             or not bool(torch.isfinite(logits).all())):
         raise AssertionError("bf16 swin-B eval logits are not finite float32")
-    fwd, bwd = swin_launches("packed")
+    fwd, bwd = swin_launches("packed", dtype="bfloat16")
     for k, per_pass in fwd.items():
         if counts[k] != 2 * per_pass * n_videos:
             raise AssertionError(f"bf16 swin-B {k}: {counts[k]} launches over "

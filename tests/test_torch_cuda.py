@@ -1534,11 +1534,13 @@ SWIN_B_LN_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
 SWIN_B_MLP_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
                    (77, 256), (9, 8)]
 SWIN_B_ATTN_BF16 = [dict(b_=64, nh=4, hd=32, window=(8, 7, 7), nw=64),
+                    dict(b_=128, nh=4, hd=32, window=(8, 7, 7), nw=64),
                     dict(b_=16, nh=8, hd=32, window=(8, 7, 7), nw=16),
                     dict(b_=4, nh=16, hd=32, window=(8, 7, 7), nw=4),
                     dict(b_=2, nh=32, hd=32, window=(8, 7, 7), nw=0),
                     dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
-                    dict(b_=4, nh=2, hd=16, window=(3, 2, 5), nw=0)]
+                    dict(b_=4, nh=2, hd=16, window=(3, 2, 5), nw=0),
+                    dict(b_=4, nh=2, hd=16, window=(3, 5, 5), nw=2)]
 
 
 def _bf16_randn(device, *shape, seed=0, scale=1.0):
@@ -1729,7 +1731,41 @@ def test_attention_bf16_kernels_match_plain(cuda_device, case, compact):
     split = cuda_attention.bwd_split(case["b_"], nh, cuda_device)
     assert bwd.get("attn_bwd_bf16_kernel") == 1, bwd
     assert bwd.get("dkv_sum_kernel<__nv_bfloat16>", 0) == (split > 1), bwd
+    # dbias: the windows' compact partials added, or dl summed (dense)
+    assert bwd.get("dbias_windows_kernel" if compact
+                   else "dbias_reduce_kernel") == 1, bwd
     assert sum(bwd.values()) == 2 + (split > 1), bwd
+
+
+@pytest.mark.cuda
+def test_bf16_swin_backward_keeps_dl_on_chip(cuda_device, monkeypatch):
+    """On the model's path the bfloat16 attention backward takes the compact
+    bias, and its scratch holds the (window, head) partials of the compact
+    dbias and the blocks' shares of dk and dv: no (B_, nh, N, N) dl."""
+    from vitta_tpu_torch.models.layers import Taps
+    seen = []
+    real = cuda_attention._bwd_scratch
+
+    def spy(b_, n, nh, hd, dev, dtype=torch.float32, compact=False, wd=0,
+            hw=0, tap=False):
+        out = real(b_, n, nh, hd, dev, dtype, compact, wd, hw, tap)
+        seen.append((b_, n, nh, hd, dtype, compact, wd, hw, tap,
+                     out.numel()))
+        return out
+    monkeypatch.setattr(cuda_attention, "_bwd_scratch", spy)
+    model = _bf16_swin(cuda_device)
+    x = torch.randn(2, 4, 48, 48, 3, device=cuda_device)
+    taps = Taps({"stat"})
+    logits = model(x, taps, train=True)
+    (logits.sum() + sum(v["stat"].var.sum() for v in taps.values())).backward()
+    assert len(seen) == 3, seen
+    for b_, n, nh, hd, dtype, compact, wd, hw, tap, floats in seen:
+        assert dtype == BF16 and compact and not tap, seen
+        split = cuda_attention.bwd_split(b_, nh, cuda_device)
+        partials = b_ * nh * (2 * wd - 1) * hw * hw
+        shares = 2 * split * b_ * nh * n * hd if split > 1 else 0
+        assert floats == partials + shares, seen
+        assert floats - shares < b_ * nh * n * n, seen
 
 
 @pytest.mark.cuda

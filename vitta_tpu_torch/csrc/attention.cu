@@ -130,12 +130,24 @@
 // vitta_tpu runs it at the compute dtype, qkv, out, g and dqkv bfloat16,
 // the bias, mask, ms and dbias float32, every product one
 // mma.sync.m16n8k16 on bfloat16 operands.  attention_kernels.cuh says where
-// it rounds (the TPU kernel's points): the forward walks the keys twice,
-// for the row maximum and then for e, its sum and e v, since e is rounded
-// against the final maximum; the backward keeps this kernel's layout (a
-// warp's 32 keys, 16-row strips, dl through a warp tile into dq, dbias
-// from dl in a second launch).  What bounds it: the same operations against
-// the dense bfloat16 rate, 989 TFLOP/s.
+// it rounds (the TPU kernel's points) and how the work is laid out.  What
+// bounds it: the bytes (qkv, out, bias and mask read once: 0.21 ms a
+// Swin-B forward pass against 0.08 ms of products at 989 TFLOP/s), so both
+// kernels read the bias and the mask once a logit from rows staged in
+// shared memory by 16-byte cp.async copies.  The forward forms each logit
+// once and keeps it in registers (a strip's keys split over five warps)
+// between the row maximum and e, since e is rounded against the final
+// maximum.  The backward keeps the float32 kernel's layout (a warp's 32
+// keys, 16-row strips) with two barriers a strip, forms gs in each warp's
+// own fragments, and with the compact bias collapses dl over the frame
+// pairs on chip, a (window, head) partial at a time, in vitta_tpu's order
+// (_dbias_accum): with that bias no (B_, nh, N, N) dl leaves the chip.
+// The products stay on mma.sync, not wgmma: they are about 2% of either
+// kernel's instructions and, at the dense bfloat16 rate, about 4% of its
+// time on the card; what each waits on is the integer and shared-memory
+// work around the logits and the strips' barriers (PERF.md, rows 14 and
+// 15 at bfloat16; tools/attention_bf16_sites.py --sass prints the
+// instruction mix).
 
 #include <cuda_runtime.h>
 
@@ -225,13 +237,26 @@ int vitta_attn_heads_bwd(const float* q, const float* k, const float* v,
       scale, (cudaStream_t)stream);
 }
 
+// Floats of scratch vitta_attn_packed_bwd_bf16 needs: dl (b_, nh, n, n)
+// with the dense bias (compact 0) or a tap, the (window, head) partials of
+// the compact dbias (b_, nh, 2wd-1, hw, hw), and the blocks' shares of dk
+// and dv where blocks share a problem.
+long long vitta_attn_bwd_bf16_scratch_floats(int b_, int n, int nh, int hd,
+                                             int compact, int wd, int hw,
+                                             int tap) {
+  return vitta::attn::bwd_bf16_scratch_floats(b_, n, nh, hd, compact, wd, hw,
+                                              tap);
+}
+
 // The packed pair at bfloat16: qkv (b_, n, 3C), out (b_, n, C), g and dqkv
-// bfloat16; bias, mask, ms, dbias and scratch (vitta_attn_bwd_scratch_floats)
-// float32.  qkv, out, g and dqkv must be 16-byte aligned and hd a multiple
+// bfloat16; bias, mask, ms, dbias and scratch
+// (vitta_attn_bwd_bf16_scratch_floats) float32; a compact window at most 16
+// frames deep.  qkv, out, g and dqkv must be 16-byte aligned and hd a multiple
 // of 8 (cudaErrorMisalignedAddress / InvalidValue otherwise).  e_tap is
 // nullptr on the model's path; a check passes (b_, nh, n, n) bfloat16 for
 // the kernel's rounded e (its instances with kTap true), and reads the
-// backward's dl from the first b_ * nh * n * n floats of scratch.
+// backward's dl from the first b_ * nh * n * n floats of scratch (sized
+// with tap = 1).
 int vitta_attn_packed_fwd_bf16(const void* qkv, const float* bias,
                                const float* mask, void* out, float* ms,
                                int b_, int n, int nh, int hd, int nw,

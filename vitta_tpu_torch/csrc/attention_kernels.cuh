@@ -918,20 +918,71 @@ inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
 //             dp = g v^T; rs = rowsum(dp * e) * inv; dl = e (dp - rs) inv
 //             (float32, into dbias); dq = (bfloat16(dl) k) * scale,
 //             dk = (bfloat16(dl)^T q) * scale; dq, dk, dv rounded.
-// The forward's e is taken against the row's final maximum, which the
-// float32 kernel's online softmax does not know until its last chunk, so
-// the bfloat16 forward walks the keys twice: the maximum first, then e, its
-// sum and e v (the logits computed twice by the same instructions, so the
-// second pass sees the first's values).  Every operand of a product is read
-// from shared memory by ldmatrix (k-minor) or ldmatrix.trans (k-major), or
-// is an accumulator tile pair rounded to bfloat16 in registers (bf16.cuh).
-// q, k, v, g and their gradients are moved in 16-byte units of 8 values:
-// the C entries refuse rows that are not 16-byte aligned.
+// Both kernels form a logit as the same float32 expression,
+// fmaf(q.k, scale, bias) + mask, so that the backward's e is the forward's.
+//
+// Strips.  Both walk a problem's query rows 16 at a time.  With the dense
+// bias a strip is 16 consecutive rows.  With the compact bias (wd <= 16) a
+// strip holds rows ii-major: slot t = di wd + d1 is row d1 hw + ii with
+// ii = s ips + di and ips = 16 / wd, so a strip holds every frame d1 of
+// ips rows ii.  Its bias is then (2wd-1) contiguous spans of the compact
+// tensor, bias[h, a, ii0 .. ii0 + ips - 1, :], a = d1 - d2 + wd - 1, and
+// every element of the backward's compact partial (a, ii, jj) takes all of
+// its terms, the frame pairs d1 - d2 = a - wd + 1, from one strip.  A block
+// keeps its strips' rows in a table (rowtab).
+//
+// Staging.  The bias and mask rows a strip reads come into shared memory by
+// cp.async in 16-byte units: the chunks that hold a run of floats, each
+// chunk at the offset it has from a 16-byte boundary in device memory, so
+// that a run starting anywhere is copied whole (a chunk never crosses a
+// page; the floats around the run that it also holds are not read).  The
+// reader finds float x of the run at (run's slot) + (its shift) + x.  The
+// compact spans are then moved once to shift-free places, each thread the
+// chunks it copied, so that bias(slot t, key j) lies at R(t) + K(j): a
+// lookup is one add.  Rows past n, and the slots of a strip that hold no
+// row, read slot 0's row or stale spans and are not selected.  Each strip's
+// rows are asked for a whole strip ahead of their use.
+//
+// Forward (attn_fwd_bf16_kernel).  A group of five warps takes one strip at
+// a time, each warp a fifth of the keys, 16-key steps (80 keys at N = 392):
+// the warp's logits stay in registers (40 a lane at N = 392), formed once
+// from its q k^T tiles and the staged bias and mask.  The rows' maxima go
+// through shared memory to the group (a named barrier of 160 threads), e =
+// exp(l - m) against the row's final maximum in place, its sum and
+// bfloat16(e) v on the tensor cores, and the warps' partial o and sums meet
+// in shared memory at a second named barrier, added in warp order; out of
+// a strip is formed while the next strip's logits wait for its first
+// barrier.  A block holds two or three groups (as many as fit 227 KB) over
+// one K and V; its groups take the problem's strips in turns, so no
+// block-wide barrier runs inside the loop.  The q rows and compact spans
+// are the group's, the mask and dense bias rows of a warp's keys its own.
+//
+// Backward (attn_bwd_bf16_kernel).  The layout of the float32 kernel: a
+// warp owns 32 keys (13 warps at N <= 416), dk and dv accumulate in
+// registers, and the block walks the strips with two barriers each: after
+// the logits (the rows' rs parts), after dl, dv, dk and the warps' dq
+// shares.  gs = bfloat16(g / s) is formed in each warp's own B fragments of
+// g.  The warps' rs parts and dq shares are added over 13 slots in warp
+// order, those of warps a short window lacks held at zero, and rs, dp - rs
+// and dl are rounded one operation at a time, as the reference rounds them.
+// With the compact bias the strip's float32 dl goes to shared memory, and
+// the block adds, for each (a, ii, jj) of the strip, its frame pairs in d1
+// order, as _dbias_accum does (pallas_attention.py:384-400), and writes the
+// (window, head) partial (B_, nh, 2wd-1, hw, hw) once; dbias_windows_kernel
+// then adds the windows in their order.  The strip's dq and this collapse
+// run while the next strip's logits wait for its first barrier.  Where
+// blocks share a problem by strips, each strip's partials are wholly its
+// block's, so the order holds.  With the dense
+// bias each (window, head)'s partial is its dl: dl goes to the scratch
+// (B_, nh, N, N) and dbias_reduce_kernel adds the windows in their order.
+//
 // The instances with kTap true also write bfloat16(e) of every (row, key)
 // to e_tap (B_, nh, N, N), the value each product takes, and the backward
-// writes dl to its scratch as always: a check reads both and holds each
-// output to its plain version on the kernel's own rounded e and dl.  The
-// model's path runs the kTap false instances.
+// writes dl to the scratch's first B_ nh N^2 floats with either bias: a
+// check reads both and holds each output to its plain version on the
+// kernel's own rounded e and dl.  The model's path runs the kTap false
+// instances.  q, k, v, g and their gradients are moved in 16-byte units of
+// 8 values: the C entries refuse rows that are not 16-byte aligned.
 
 using InRowsB = Rows<const bf16>;
 using OutRowsB = Rows<bf16>;
@@ -939,8 +990,15 @@ using OutRowsB = Rows<bf16>;
 // Row stride, in bfloat16 values, of K, V, q and g in shared memory: 40
 // values (80 bytes) put the eight rows an ldmatrix reads in different banks.
 constexpr int kLdB = kMaxHeadDim + 8;
+// The widest compact window depth: a strip holds every frame of a row.
+constexpr int kMaxWd = 16;
 
-__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
+__host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~15; }
+// The least v >= x with v = 4 (mod 16): rows of that many floats put the
+// rows 2 apart that mma's accumulator layout reads at once in other banks.
+__host__ __device__ inline int ld4mod16(int x) {
+  return x + (((4 - x) % 16) + 16) % 16;
+}
 
 // Rows r0 .. r0 + rows - 1 of head h of window b of x into dst (rows,
 // kLdB), asynchronously, 16 bytes a copy; rows at or past n and channels at
@@ -959,21 +1017,145 @@ __device__ __forceinline__ void load_rows_bf16(bf16* dst, const InRowsB& x,
   }
 }
 
-// The logits of an (16 rows, 8 keys) accumulator tile sc of keys jt ..:
-// element e is row i0 + gq + 8 (e >> 1), key jt + 2 tq + (e & 1); -inf past
-// key n.  The same instructions in both passes of the forward.
-__device__ __forceinline__ void logits_tile(
-    float (&lg)[4], const float (&sc)[4], int jt, int n, int tq,
-    const size_t (&roff)[2], const size_t (&moff)[2], const int* coff,
-    const float* __restrict__ bias, const float* __restrict__ mask_b,
-    float scale) {
+// The query rows of a problem's strips (see above): ips 0 for the dense
+// bias's consecutive rows, 16 / wd for the compact bias's ii-major ones.
+struct Strips {
+  int n, wd, hw, ips;
+  __host__ __device__ int count() const {
+    return ips ? (hw + ips - 1) / ips : (n + 15) / 16;
+  }
+  // The row in slot t (0 .. 15) of strip s, or -1.
+  __device__ __forceinline__ int row(int s, int t) const {
+    if (ips == 0) {
+      const int i = 16 * s + t;
+      return i < n ? i : -1;
+    }
+    const int di = t / wd, d1 = t - di * wd, ii = s * ips + di;
+    return di < ips && ii < hw ? d1 * hw + ii : -1;
+  }
+};
+
+// The table of the strips' rows, rowtab[16 s + t]: the row of slot t of
+// strip s, or -1 - (slot 0's row) where the slot holds none.
+__device__ __forceinline__ void fill_rowtab(int* rowtab, const Strips& sp,
+                                            int tid, int nthreads) {
+  for (int idx = tid; idx < 16 * sp.count(); idx += nthreads) {
+    const int s = idx >> 4, i = sp.row(s, idx & 15);
+    rowtab[idx] = i >= 0 ? i : -1 - sp.row(s, 0);
+  }
+}
+
+// The row slot t's bias and mask are read from: its own, or slot 0's.
+__device__ __forceinline__ int read_row(int r) { return r >= 0 ? r : -1 - r; }
+
+// The 16 rows of a strip of x (head h of window b; rowtab of the strip)
+// into dst (16, kLdB), asynchronously; slots without a row and channels at
+// or past hd zeros.
+__device__ __forceinline__ void load_strip_rows(bf16* dst, const InRowsB& x,
+                                                int b, int h,
+                                                const int* rows, int hd,
+                                                int tid, int nthreads) {
+  const bf16* base = x.at(b, h);
+  for (int idx = tid; idx < 16 * (kMaxHeadDim / 8); idx += nthreads) {
+    const int t = idx >> 2, c = (idx & 3) * 8, i = rows[t];
+    const bool ok = i >= 0 && c < hd;
+    cp_async16(dst + t * kLdB + c,
+               ok ? base + (long long)i * x.sr + c : base, ok);
+  }
+}
+
+// Float offset of p within its 16-byte chunk.
+__device__ __forceinline__ int float_shift(const float* p) {
+  return (int)((reinterpret_cast<std::uintptr_t>(p) >> 2) & 3);
+}
+
+__device__ __forceinline__ const float* chunk_base(const float* p) {
+  return reinterpret_cast<const float*>(reinterpret_cast<std::uintptr_t>(p) &
+                                        ~std::uintptr_t(15));
+}
+
+// 16-byte chunks that hold a run of len floats from p.
+__device__ __forceinline__ int run_chunks(const float* p, int len) {
+  return (float_shift(p) + len + 3) >> 2;
+}
+
+// Floats a staged run of len floats may take: its chunks with the shift.
+__host__ __device__ inline int run_floats(int len) {
+  return 4 * ((len + 6) >> 2);
+}
+
+// Keys k0 .. k0 + len - 1 of the 16 rows of a strip (rowtab of the strip)
+// of the (n, n) matrix at base (a head's dense bias, a window's mask), into
+// dst (16, ld): warp w0, w0 + wstep, ... take rows, their lanes the
+// chunks.  Key j of slot t then lies at dst[t ld + float_shift(base +
+// read_row(rows[t]) n + k0) + j - k0].
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* base,
+                                           const int* rows, int n, int k0,
+                                           int len, int w0, int wstep,
+                                           int lane) {
+  for (int t = w0; t < 16; t += wstep) {
+    const float* src = base + (size_t)read_row(rows[t]) * n + k0;
+    const float* cb = chunk_base(src);
+    const int chunks = run_chunks(src, len);
+    for (int c = lane; c < chunks; c += 32)
+      cp_async<16>(dst + t * ld + 4 * c, cb + 4 * c, true);
+  }
+}
+
+// The same for one warp, two lanes a row: lane 2t + c0 takes chunks c0,
+// c0 + 2, ... of row t.
+__device__ __forceinline__ void stage_rows_warp(float* dst, int ld,
+                                                const float* base,
+                                                const int* rows, int n,
+                                                int k0, int len, int lane) {
+  const int t = lane >> 1;
+  const float* src = base + (size_t)read_row(rows[t]) * n + k0;
+  const float* cb = chunk_base(src);
+  const int chunks = run_chunks(src, len);
+  for (int c = lane & 1; c < chunks; c += 2)
+    cp_async<16>(dst + t * ld + 4 * c, cb + 4 * c, true);
+}
+
+// The compact bias of strip s (first row ii0): spans a = 0 .. 2wd-2 of
+// bias_h[a, ii0 .. ii0 + rows - 1, :] into raw (2wd-1, slot), warps w0,
+// w0 + wstep, ... a span, their lanes its chunks.
+__device__ __forceinline__ void stage_spans(float* raw, int slot,
+                                            const float* bias_h, int wd,
+                                            int hw, int ii0, int rows,
+                                            int w0, int wstep, int lane) {
+  const int len = rows * hw;
+  for (int a = w0; a < 2 * wd - 1; a += wstep) {
+    const float* src = bias_h + ((size_t)a * hw + ii0) * hw;
+    const float* cb = chunk_base(src);
+    const int chunks = run_chunks(src, len);
+    for (int c = lane; c < chunks; c += 32)
+      cp_async<16>(raw + a * slot + 4 * c, cb + 4 * c, true);
+  }
+}
+
+// The same chunks, once they have landed (each thread its own), moved to
+// their shift-free places: element (a, ii, jj) to dst[a span + (ii - ii0)
+// hw + jj], span = ips hw.
+__device__ __forceinline__ void align_spans(float* dst, int span,
+                                            const float* raw, int slot,
+                                            const float* bias_h, int wd,
+                                            int hw, int ii0, int rows,
+                                            int w0, int wstep, int lane) {
+  const int len = rows * hw;
+  for (int a = w0; a < 2 * wd - 1; a += wstep) {
+    const float* src = bias_h + ((size_t)a * hw + ii0) * hw;
+    const int sh = float_shift(src), chunks = run_chunks(src, len);
+    for (int c = lane; c < chunks; c += 32) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(raw + a * slot + 4 * c);
+      const float v[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int u = e >> 1, j = jt + 2 * tq + (e & 1);
-    const int jc = j < n ? j : n - 1;
-    float l = fmaf(sc[e], scale, bias[roff[u] + coff[j]]);
-    if (mask_b != nullptr) l += mask_b[moff[u] + jc];
-    lg[e] = j < n ? l : -CUDART_INF_F;
+      for (int e = 0; e < 4; ++e) {
+        const int p = 4 * c + e - sh;
+        if (p >= 0 && p < len) dst[a * span + p] = v[e];
+      }
+    }
   }
 }
 
@@ -991,118 +1173,300 @@ __device__ __forceinline__ void qk_tile(float (&sc)[4],
   mma_bf16(sc, qf[1], b1);
 }
 
-// The forward at bfloat16: grid, block and the strips of attn_fwd_kernel;
-// K and V (round16(n), kLdB) bfloat16, the bias's column offsets and the
-// warps' q tiles in shared memory.
-template <bool kTap>
-__global__ void __launch_bounds__(kFwdThreads, kFwdWarps <= 8 ? 2 : 1)
+// The compact bias's place of slot t, R(t) = (wd-1 + d1) span + di hw, and
+// of key j, K(j) = jj - d2 span: bias(t, j) lies at R(t) + K(j) of the
+// aligned spans, whose stride span (>= ips hw) each kernel chooses for the
+// banks its lanes read at once.
+__device__ __forceinline__ int span_row(int t, int wd, int hw, int ips,
+                                        int span) {
+  const int tt = t < ips * wd ? t : 0, di = tt / wd;
+  return (wd - 1 + tt - di * wd) * span + di * hw;
+}
+__device__ __forceinline__ int span_key(int j, int n, int hw, int span) {
+  const int jc = min(j, n - 1), d2 = jc / hw;
+  return jc - d2 * hw - d2 * span;
+}
+
+// ----------------------------------------------------- bfloat16 forward
+
+constexpr int kFwdGroupWarps = 5;                 // a strip's keys, 5 ways
+constexpr int kFwdGroupThreads = kFwdGroupWarps * 32;
+constexpr int kFwdMaxGroups = 3;
+constexpr int kFwdMaxSteps = 6;                   // 16-key steps a warp
+constexpr int kRedLd = 40;                        // a partial o row, floats
+static_assert(kFwdGroupWarps * kFwdMaxSteps * 16 >= kNMax,
+              "the group's warps cover kNMax keys");
+
+// The forward's shared memory, in bytes from its start: K, V, the strips'
+// rows and (compact) each key's K(j); then per group its two q strips, the
+// warps' row maxima, sums and partial o, the rows' final maxima, the
+// compact spans as copied and shift-free, and each warp's staged mask and
+// dense-bias rows.
+struct FwdBf16Layout {
+  int steps, kw, keys, wld, span, slot;
+  size_t vs, rowtab, kd, group0, g_max, g_sum, g_mfin, g_o, g_raw, g_spans,
+      g_wm, g_wb, group_bytes;
+  __host__ __device__ FwdBf16Layout(int n, int compact, int wd, int hw,
+                                    bool with_mask) {
+    const Strips sp{n, wd, hw, compact ? 16 / wd : 0};
+    steps = ((n + 15) / 16 + kFwdGroupWarps - 1) / kFwdGroupWarps;
+    kw = 16 * steps;
+    keys = kFwdGroupWarps * kw;
+    wld = run_floats(kw);
+    // lanes gq read slots gq, frames d1 = gq: span = 8 (mod 32) puts 8
+    // frames' rows in 4 bank groups, two to a group
+    span = compact ? sp.ips * hw + ((8 - sp.ips * hw) % 32 + 32) % 32 : 0;
+    slot = compact ? run_floats(sp.ips * hw) : 0;
+    vs = (size_t)keys * kLdB * 2;
+    rowtab = 2 * vs;
+    kd = rowtab + (size_t)16 * sp.count() * 4;
+    group0 = align16(kd + (compact ? (size_t)keys * 4 : 0));
+    g_max = 2 * 16 * kLdB * 2;
+    g_sum = g_max + kFwdGroupWarps * 16 * 4;
+    g_mfin = g_sum + kFwdGroupWarps * 16 * 4;
+    g_o = g_mfin + 16 * 4;
+    g_raw = g_o + (size_t)kFwdGroupWarps * 16 * kRedLd * 4;
+    g_spans = g_raw + (compact ? (size_t)(2 * wd - 1) * slot * 4 : 0);
+    g_wm = align16(g_spans + (compact ? (size_t)(2 * wd - 1) * span * 4 : 0));
+    g_wb = g_wm + (with_mask ? (size_t)kFwdGroupWarps * 16 * wld * 4 : 0);
+    group_bytes = align16(g_wb + (compact ? 0 : (size_t)kFwdGroupWarps * 16 *
+                                                    wld * 4));
+  }
+  __host__ __device__ size_t bytes(int groups) const {
+    return group0 + groups * group_bytes;
+  }
+};
+
+// The group's 160 threads meet at named barrier 1 + grp (0 is the block's).
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "n"(kFwdGroupThreads)
+               : "memory");
+}
+
+template <bool kTap, bool kCompact>
+__global__ void __launch_bounds__(kFwdMaxGroups * kFwdGroupThreads, 1)
 attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
                      const float* __restrict__ bias,
                      const float* __restrict__ mask, bf16* __restrict__ out,
                      float* __restrict__ ms, bf16* __restrict__ e_tap, int n,
-                     int nh, int hd, int nw, int compact, int wd, int hw,
-                     float scale) {
+                     int nh, int hd, int nw, int wd, int hw, float scale) {
   extern __shared__ __align__(16) unsigned char attn_smem_bf16[];
+  const FwdBf16Layout L(n, kCompact, wd, hw, mask != nullptr);
+  const int groups = blockDim.x / kFwdGroupThreads;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;     // mma's g and t
-  const int keys = round16(n);
-  bf16* Ks = reinterpret_cast<bf16*>(attn_smem_bf16);   // (keys, kLdB)
-  bf16* Vs = Ks + keys * kLdB;                           // (keys, kLdB)
-  int* coff = reinterpret_cast<int*>(Vs + keys * kLdB);  // (keys)
-  bf16* Qw = reinterpret_cast<bf16*>(coff + keys) + warp * 16 * kLdB;
-  load_rows_bf16(Ks, k, b, h, 0, keys, n, hd, tid, kFwdThreads);
-  load_rows_bf16(Vs, v, b, h, 0, keys, n, hd, tid, kFwdThreads);
-  cp_async_commit();
-  for (int j = tid; j < keys; j += kFwdThreads) {
-    const int jc = j < n ? j : n - 1;
-    coff[j] = compact ? jc % hw - (jc / hw) * hw * hw : jc;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
+  const int grp = warp / kFwdGroupWarps, wg = warp - grp * kFwdGroupWarps;
+  const int gt = tid - grp * kFwdGroupThreads;
+  const int gq = lane >> 2, tq = lane & 3;       // mma's g and t
+  unsigned char* sm = attn_smem_bf16;
+  bf16* Ks = reinterpret_cast<bf16*>(sm);                  // (keys, kLdB)
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L.vs);           // (keys, kLdB)
+  int* rowtab = reinterpret_cast<int*>(sm + L.rowtab);     // (strips, 16)
+  int* kd = reinterpret_cast<int*>(sm + L.kd);             // (keys): K(j)
+  unsigned char* gs = sm + L.group0 + grp * L.group_bytes;
+  bf16* Qg = reinterpret_cast<bf16*>(gs);                  // (2, 16, kLdB)
+  float* red_max = reinterpret_cast<float*>(gs + L.g_max); // (5, 16)
+  float* red_sum = reinterpret_cast<float*>(gs + L.g_sum); // (5, 16)
+  float* mfin = reinterpret_cast<float*>(gs + L.g_mfin);   // (16)
+  float* red_o = reinterpret_cast<float*>(gs + L.g_o);     // (5, 16, kRedLd)
+  float* raw = reinterpret_cast<float*>(gs + L.g_raw);     // (2wd-1, slot)
+  float* spans = reinterpret_cast<float*>(gs + L.g_spans); // (2wd-1, span)
+  float* wm = reinterpret_cast<float*>(gs + L.g_wm) + wg * 16 * L.wld;
+  float* wb = reinterpret_cast<float*>(gs + L.g_wb) + wg * 16 * L.wld;
+  const Strips sp{n, wd, hw, kCompact ? 16 / wd : 0};
+  const int strips = sp.count();
+  const int kb = wg * L.kw;                      // the warp's first key
+  const int klen = min(L.kw, n - kb);            // its keys below n
+  const float* __restrict__ bias_h =
+      bias + (size_t)h * (kCompact ? (2 * wd - 1) * hw * hw : n * n);
   const float* __restrict__ mask_b =
       mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
+
+  // strip s's q rows into Qg buffer qb and compact spans into raw (the
+  // group's), and the mask and dense bias rows of the warp's keys (its own)
+  auto stage_group = [&](int s, int qb) {
+    load_strip_rows(Qg + qb * 16 * kLdB, q, b, h, rowtab + 16 * s, hd, gt,
+                    kFwdGroupThreads);
+    if (kCompact) {
+      const int ii0 = s * sp.ips;
+      stage_spans(raw, L.slot, bias_h, wd, hw, ii0, min(sp.ips, hw - ii0),
+                  wg, kFwdGroupWarps, lane);
+    }
+  };
+  auto align_group = [&](int s) {
+    if (kCompact) {
+      const int ii0 = s * sp.ips;
+      align_spans(spans, L.span, raw, L.slot, bias_h, wd, hw, ii0,
+                  min(sp.ips, hw - ii0), wg, kFwdGroupWarps, lane);
+    }
+  };
+  auto stage_warp = [&](int s) {
+    if (klen <= 0) return;
+    if (mask_b != nullptr)
+      stage_rows_warp(wm, L.wld, mask_b, rowtab + 16 * s, n, kb, klen, lane);
+    if (!kCompact)
+      stage_rows_warp(wb, L.wld, bias_h, rowtab + 16 * s, n, kb, klen, lane);
+  };
+
+  load_rows_bf16(Ks, k, b, h, 0, L.keys, n, hd, tid, blockDim.x);
+  load_rows_bf16(Vs, v, b, h, 0, L.keys, n, hd, tid, blockDim.x);
+  fill_rowtab(rowtab, sp, tid, blockDim.x);
+  if (kCompact)
+    for (int j = tid; j < L.keys; j += blockDim.x)
+      kd[j] = span_key(j, n, hw, L.span);
+  __syncthreads();                               // rowtab
+  int s = blockIdx.z * groups + grp;
+  const int sstep = gridDim.z * groups;
+  if (s < strips) {
+    stage_group(s, 0);
+    stage_warp(s);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  if (s < strips) align_group(s);
+  __syncthreads();
+
+  // the compact bias's places of the lane's slots gq and gq + 8
+  int rsp[2] = {0, 0};
+  if (kCompact)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      rsp[u] = span_row(gq + 8 * u, wd, hw, sp.ips, L.span);
   const int c = nh * hd;
-  const int strips = (n + 15) / 16;
-  for (int s = blockIdx.z * kFwdWarps + warp; s < strips;
-       s += gridDim.z * kFwdWarps) {
-    const int i0 = s * 16;
-    int row[2];
-    size_t roff[2], moff[2];
+  // out of strip ps = (the warps' o) / (their sums), each added in warp
+  // order, and the rows' maximum and sum: run after the next strip's
+  // logits, before its first barrier, which the next writes of the
+  // group's partials wait behind
+  auto finish = [&](int ps) {
+    if (ps < 0) return;
+    const int* prow = rowtab + 16 * ps;
+    for (int p = gt; p < 16 * 16; p += kFwdGroupThreads) {
+      const int r = p >> 4, d = 2 * (p & 15);
+      const int i = prow[r];
+      if (i < 0 || d >= hd) continue;
+      float sum = 0.f, o0 = 0.f, o1 = 0.f;
+#pragma unroll
+      for (int w = 0; w < kFwdGroupWarps; ++w) {
+        sum += red_sum[w * 16 + r];
+        const float2 x = *reinterpret_cast<const float2*>(
+            red_o + (w * 16 + r) * kRedLd + d);
+        o0 += x.x;
+        o1 += x.y;
+      }
+      *reinterpret_cast<unsigned*>(out + ((size_t)b * n + i) * c + h * hd +
+                                   d) = pack_bf16(o0 / sum, o1 / sum);
+      if (ms != nullptr && d == 0) {
+        float* mp = ms + ((size_t)b * n + i) * 2 * nh + 2 * h;
+        mp[0] = mfin[r];
+        mp[1] = sum;
+      }
+    }
+  };
+  int qb = 0, prev = -1;
+  for (; s < strips; s += sstep, qb ^= 1) {
+    // the next strip's group rows, a whole strip ahead
+    if (s + sstep < strips) stage_group(s + sstep, qb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();          // the warp's rows of strip s
+    __syncwarp();
+    const int* rows = rowtab + 16 * s;
+    // the lane's slots gq and gq + 8: their rows and where their mask and
+    // dense bias values lie
+    int row[2], moff[2] = {0, 0}, boff[2] = {0, 0};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      row[u] = i0 + gq + 8 * u;
-      const int i = row[u] < n ? row[u] : n - 1;
-      if (compact) {
-        const int d1 = i / hw;
-        roff[u] = ((size_t)(h * (2 * wd - 1) + d1 + wd - 1) * hw + i -
-                   d1 * hw) * hw;
-      } else {
-        roff[u] = ((size_t)h * n + i) * n;
-      }
-      moff[u] = (size_t)i * n;
+      const int t = gq + 8 * u, r = rows[t], rr = read_row(r);
+      row[u] = r;
+      if (mask_b != nullptr)
+        moff[u] = t * L.wld + float_shift(mask_b + (size_t)rr * n + kb) - kb;
+      boff[u] = kCompact ? rsp[u]
+                         : t * L.wld +
+                               float_shift(bias_h + (size_t)rr * n + kb) - kb;
     }
-    // the strip's q as A fragments, two k16 steps over the channels
-    __syncwarp();
-    load_rows_bf16(Qw, q, b, h, i0, 16, n, hd, lane, 32);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncwarp();
     unsigned qf[2][4];
+    const bf16* Qb = Qg + qb * 16 * kLdB;
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks)
-      ldsm_x4(qf[ks], Qw + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdB +
+      ldsm_x4(qf[ks], Qb + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdB +
                           16 * ks + 8 * (lane >> 4));
 
-    // pass 1: the rows' maxima over all keys
-    float mrow[2] = {-CUDART_INF_F, -CUDART_INF_F};
-    for (int jt = 0; jt < n; jt += 8) {
-      float sc[4], lg[4];
-      qk_tile(sc, qf, Ks, jt, lane);
-      logits_tile(lg, sc, jt, n, tq, roff, moff, coff, bias, mask_b, scale);
-      mrow[0] = fmaxf(mrow[0], fmaxf(lg[0], lg[1]));
-      mrow[1] = fmaxf(mrow[1], fmaxf(lg[2], lg[3]));
-    }
+    // the logits of the warp's keys, once: element e of tile (st, hf) is
+    // row slot gq + 8 (e >> 1), key kb + 16 st + 8 hf + 2 tq + (e & 1)
+    float lg[kFwdMaxSteps][2][4];
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int st = 0; st < kFwdMaxSteps; ++st)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int jt = kb + 16 * st + 8 * hf;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lg[st][hf][e] = -CUDART_INF_F;
+        if (st >= L.steps || jt >= n) continue;
+        float sc[4];
+        qk_tile(sc, qf, Ks, jt, lane);
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = jt + 2 * tq + cc;
+          const int kj = kCompact ? kd[j] : j;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int e = 2 * u + cc;
+            float l = fmaf(sc[e], scale,
+                           kCompact ? spans[boff[u] + kj] : wb[boff[u] + kj]);
+            if (mask_b != nullptr) l += wm[moff[u] + j];
+            l = j < n ? l : -CUDART_INF_F;
+            lg[st][hf][e] = l;
+            mx[u] = fmaxf(mx[u], l);
+          }
+        }
+      }
+    __syncwarp();                // the warp's rows are read
+    if (s + sstep < strips) stage_warp(s + sstep);
+    cp_async_commit();
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      mrow[u] = fmaxf(mrow[u], __shfl_xor_sync(0xffffffffu, mrow[u], 1));
-      mrow[u] = fmaxf(mrow[u], __shfl_xor_sync(0xffffffffu, mrow[u], 2));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 1));
+      mx[u] = fmaxf(mx[u], __shfl_xor_sync(0xffffffffu, mx[u], 2));
+      if (tq == 0) red_max[wg * 16 + gq + 8 * u] = mx[u];
+    }
+    finish(prev);
+    group_sync(grp);
+    float m[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      m[u] = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kFwdGroupWarps; ++w)
+        m[u] = fmaxf(m[u], red_max[w * 16 + gq + 8 * u]);
+      if (wg == 0 && tq == 0) mfin[gq + 8 * u] = m[u];
     }
 
-    // pass 2: e = exp(l - m), its sum, and o += bfloat16(e) v over 16 keys
-    // at a time: the two 8-key tiles of e are the A fragment as they lie
+    // e = exp(l - m), its sum and o += bfloat16(e) v over 16 keys a step:
+    // the two 8-key tiles of e are the A fragment as they lie (keys past n
+    // hold -inf: e = 0)
     float o[kDT][4];
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
     float lsum[2] = {0.f, 0.f};
-    for (int j0 = 0; j0 < n; j0 += 16) {
+#pragma unroll
+    for (int st = 0; st < kFwdMaxSteps; ++st) {
+      const int j0 = kb + 16 * st;
+      if (st >= L.steps || j0 >= n) continue;
       float ex[2][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int jt = j0 + 8 * half;
-        if (jt >= n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ex[half][e] = 0.f;
-          continue;
-        }
-        float sc[4], lg[4];
-        qk_tile(sc, qf, Ks, jt, lane);
-        logits_tile(lg, sc, jt, n, tq, roff, moff, coff, bias, mask_b,
-                    scale);
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = jt + 2 * tq + (e & 1);
-          const float x = j < n ? __expf(lg[e] - mrow[e >> 1]) : 0.f;
-          ex[half][e] = x;
+          const float x = __expf(lg[st][hf][e] - m[e >> 1]);
+          ex[hf][e] = x;
           lsum[e >> 1] += x;
-          if (kTap && j < n && row[e >> 1] < n)
+          const int j = j0 + 8 * hf + 2 * tq + (e & 1);
+          if (kTap && j < n && row[e >> 1] >= 0)
             e_tap[(((size_t)b * nh + h) * n + row[e >> 1]) * n + j] =
                 __float2bfloat16_rn(x);
         }
-      }
       const unsigned pa[4] = {pack_bf16(ex[0][0], ex[0][1]),
                               pack_bf16(ex[0][2], ex[0][3]),
                               pack_bf16(ex[1][0], ex[1][1]),
@@ -1117,114 +1481,192 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
         mma_bf16(o[2 * dp + 1], pa, b1);
       }
     }
-
-    // the rows' sums over the four lanes; out = o / sum, rounded
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       lsum[u] += __shfl_xor_sync(0xffffffffu, lsum[u], 1);
       lsum[u] += __shfl_xor_sync(0xffffffffu, lsum[u], 2);
-      if (row[u] >= n) continue;
-      bf16* orow = out + ((size_t)b * n + row[u]) * c + h * hd;
+      const int r = gq + 8 * u;
+      if (tq == 0) red_sum[wg * 16 + r] = lsum[u];
 #pragma unroll
-      for (int dt = 0; dt < kDT; ++dt) {
-        const int d = 8 * dt + 2 * tq;
-        if (d < hd)
-          *reinterpret_cast<unsigned*>(orow + d) =
-              pack_bf16(o[dt][2 * u] / lsum[u], o[dt][2 * u + 1] / lsum[u]);
-      }
-      if (ms != nullptr && tq == 0) {
-        float* m = ms + ((size_t)b * n + row[u]) * 2 * nh + 2 * h;
-        m[0] = mrow[u];
-        m[1] = lsum[u];
-      }
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(red_o + (wg * 16 + r) * kRedLd + 8 * dt +
+                                   2 * tq) =
+            make_float2(o[dt][2 * u], o[dt][2 * u + 1]);
     }
+    // the next strip's group rows have landed (this thread's): its spans
+    // to their shift-free places, read by all after the barrier
+    cp_async_wait<1>();
+    if (s + sstep < strips) align_group(s + sstep);
+    group_sync(grp);
+
+    prev = s;
   }
+  finish(prev);
 }
 
-// The backward at bfloat16: grid, block, strips of 16 query rows and the
-// warps' 32 keys of attn_bwd_kernel.  Shared memory: K, V (keys, kLdB), the
-// q and g strips double-buffered and gs (16, kLdB) bfloat16; the rows' m
-// and s, the warps' parts of rs, each warp's bfloat16(dl) tile (32 keys,
-// 16 rows + 8) and float32 dq tile (16, 32), the strip's bias and mask rows.
+// --------------------------------------------------- bfloat16 backward
+
+// Shared memory of the backward, in bytes from its start: K, V (keys,
+// kLdB), the q and g strips double-buffered, each warp's bfloat16(dl) tile
+// (32 keys, 16 rows + 8), the rows' m and s double-buffered, the warps' rs
+// parts and float32 dq tiles, the strips' rows, the strip's mask rows (16,
+// ldw), then the dense bias rows (16, ldw), or the compact spans as copied,
+// the shift-free spans and the strip's float32 dl (16, ldl).  The compact
+// form double-buffers the mask rows and the shift-free spans.
 constexpr int kLdDl = 24;       // a dl tile's row stride: 48 bytes
 constexpr int kDlTile = kBwdKeys * kLdDl;
 
-__host__ __device__ inline size_t bwd_bf16_smem_bytes(int n) {
-  const size_t warps = bwd_warps(n);
-  const size_t halves = 2 * warps * kBwdKeys * kLdB + 5 * 16 * kLdB +
-                        warps * kDlTile;
-  const size_t floats = 4 * 16 + warps * 16 + warps * 16 * 32 +
-                        2 * 16 * (size_t)bwd_ldb(n);
-  return halves * 2 + floats * 4;
-}
+struct BwdBf16Layout {
+  int warps, keys, ldw, ldl, span, slot, nbuf;
+  size_t vs, qs, gs, dlt, ms, rs, tiles, rowtab, ws, bs, raw, spans, dls,
+      total;
+  __host__ __device__ BwdBf16Layout(int n, int compact, int wd, int hw,
+                                    bool with_mask) {
+    const Strips sp{n, wd, hw, compact ? 16 / wd : 0};
+    warps = bwd_warps(n);
+    keys = warps * kBwdKeys;
+    ldw = ld4mod16(run_floats(keys));   // the warps' keys past n too
+    ldl = keys + 4;
+    // lanes tq read slots 2 tq, frames 2 tq: span = 4 (mod 32) puts them
+    // 8 banks apart, the 8 keys gq beside each other
+    span = compact ? sp.ips * hw + ((4 - sp.ips * hw) % 32 + 32) % 32 : 0;
+    slot = compact ? run_floats(sp.ips * hw) : 0;
+    nbuf = compact ? 2 : 1;
+    vs = (size_t)keys * kLdB * 2;
+    qs = 2 * vs;
+    gs = qs + 2 * 16 * kLdB * 2;
+    dlt = gs + 2 * 16 * kLdB * 2;
+    ms = dlt + (size_t)warps * kDlTile * 2;
+    rs = ms + 2 * 16 * 2 * 4;
+    tiles = rs + (size_t)kBwdMaxWarps * 16 * 4;
+    rowtab = tiles + (size_t)kBwdMaxWarps * 16 * 32 * 4;
+    ws = align16(rowtab + (size_t)16 * sp.count() * 4);
+    bs = ws + (with_mask ? (size_t)nbuf * 16 * ldw * 4 : 0);
+    if (compact) {
+      raw = bs;
+      spans = raw + (size_t)(2 * wd - 1) * slot * 4;
+      dls = align16(spans + (size_t)2 * (2 * wd - 1) * span * 4);
+      total = dls + (size_t)16 * ldl * 4;
+    } else {
+      raw = spans = dls = bs + (size_t)16 * ldw * 4;
+      total = dls;
+    }
+  }
+};
 
-template <bool kTap>
+template <bool kTap, bool kCompact>
 __global__ void __launch_bounds__(kBwdMaxThreads, 1)
 attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
                      const InRowsB g, const float* __restrict__ bias,
                      const float* __restrict__ mask,
                      const float* __restrict__ ms, const OutRowsB dq,
                      const OutRowsB dk, const OutRowsB dv,
-                     float* __restrict__ dl_out, float* __restrict__ kv_part,
-                     bf16* __restrict__ e_tap, int n, int nh, int hd, int nw,
-                     int compact, int wd, int hw, float scale, int vec_rows) {
+                     float* __restrict__ dl_out, float* __restrict__ dpart,
+                     float* __restrict__ kv_part, bf16* __restrict__ e_tap,
+                     int n, int nh, int hd, int nw, int wd, int hw,
+                     float scale) {
   static_assert(kBwdKeys == 32, "a warp's keys are two k16 steps");
   extern __shared__ __align__(16) unsigned char attn_bwd_smem_bf16[];
+  const BwdBf16Layout L(n, kCompact, wd, hw, mask != nullptr);
   const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, nthreads = blockDim.x, warps = nthreads >> 5;
-  const int ldb = bwd_ldb(n);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;     // mma's g and t
   const int ql = lane >> 3, rl = lane & 7;     // ldmatrix's matrix and row
-  const int keys = warps * kBwdKeys;
-  bf16* Ks = reinterpret_cast<bf16*>(attn_bwd_smem_bf16);  // (keys, kLdB)
-  bf16* Vs = Ks + keys * kLdB;                              // (keys, kLdB)
-  bf16* Qs = Vs + keys * kLdB;                   // (2, 16, kLdB)
-  bf16* Gs = Qs + 2 * 16 * kLdB;                 // (2, 16, kLdB)
-  bf16* GSs = Gs + 2 * 16 * kLdB;                // (16, kLdB)
-  bf16* dlt = GSs + 16 * kLdB + warp * kDlTile;  // the warp's (32, kLdDl)
-  float* Ms = reinterpret_cast<float*>(GSs + 16 * kLdB + warps * kDlTile);
-  float* rs_part = Ms + 4 * 16;                  // (warps, 16)
-  float* tiles = rs_part + warps * 16;           // (warps, 16 * 32)
-  float* Bs = tiles + warps * 16 * 32;           // (16, ldb)
-  float* Ws = Bs + 16 * ldb;                     // (16, ldb)
+  unsigned char* sm = attn_bwd_smem_bf16;
+  bf16* Ks = reinterpret_cast<bf16*>(sm);                 // (keys, kLdB)
+  bf16* Vs = reinterpret_cast<bf16*>(sm + L.vs);          // (keys, kLdB)
+  bf16* Qs = reinterpret_cast<bf16*>(sm + L.qs);          // (2, 16, kLdB)
+  bf16* Gs = reinterpret_cast<bf16*>(sm + L.gs);          // (2, 16, kLdB)
+  bf16* dlt = reinterpret_cast<bf16*>(sm + L.dlt) + warp * kDlTile;
+  float* Ms = reinterpret_cast<float*>(sm + L.ms);        // (2, 16, 2)
+  float* rs_part = reinterpret_cast<float*>(sm + L.rs);   // (warps, 16)
+  float* tiles = reinterpret_cast<float*>(sm + L.tiles);  // (warps, 16 * 32)
+  int* rowtab = reinterpret_cast<int*>(sm + L.rowtab);    // (strips, 16)
+  float* Ws = reinterpret_cast<float*>(sm + L.ws);        // (nbuf, 16, ldw)
+  float* Bs = reinterpret_cast<float*>(sm + L.bs);        // (16, ldw)
+  float* raw = reinterpret_cast<float*>(sm + L.raw);      // (2wd-1, slot)
+  float* spans = reinterpret_cast<float*>(sm + L.spans);  // (2, 2wd-1, span)
+  float* DLs = reinterpret_cast<float*>(sm + L.dls);      // (16, ldl)
   float* tile = tiles + warp * 16 * 32;
+  const Strips sp{n, wd, hw, kCompact ? 16 / wd : 0};
+  const int strips = sp.count();
+  const int a_dim = 2 * wd - 1;
+  const int warps = L.warps;
   const float* __restrict__ bias_h =
-      bias + (size_t)h * (compact ? (2 * wd - 1) * hw * hw : n * n);
+      bias + (size_t)h * (kCompact ? a_dim * hw * hw : n * n);
   const float* __restrict__ mask_b =
       mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
 
-  auto load_strip = [&](int buf, int i0) {
-    load_rows_bf16(Qs + buf * 16 * kLdB, q, b, h, i0, 16, n, hd, tid,
-                   nthreads);
-    load_rows_bf16(Gs + buf * 16 * kLdB, g, b, h, i0, 16, n, hd, tid,
-                   nthreads);
-    for (int r = tid; r < 16; r += nthreads) {
-      const bool ok = i0 + r < n;
-      cp_async<8>(Ms + (buf * 16 + r) * 2,
-                  ok ? ms + ((size_t)b * n + i0 + r) * 2 * nh + 2 * h : ms,
-                  ok);
+  auto load_strip = [&](int buf, int s) {
+    const int* rows = rowtab + 16 * s;
+    load_strip_rows(Qs + buf * 16 * kLdB, q, b, h, rows, hd, tid, nthreads);
+    load_strip_rows(Gs + buf * 16 * kLdB, g, b, h, rows, hd, tid, nthreads);
+    for (int t = tid; t < 16; t += nthreads) {
+      const int i = rows[t];
+      cp_async<8>(Ms + (buf * 16 + t) * 2,
+                  i >= 0 ? ms + ((size_t)b * n + i) * 2 * nh + 2 * h : ms,
+                  i >= 0);
     }
   };
-  auto load_bias = [&](int i0) {
-    load_bias_rows(Bs, Ws, bias_h, mask_b, i0, 16, n, ldb, compact, wd, hw,
-                   vec_rows, warp, warps, lane);
+  // strip s's mask rows into Ws buffer buf, and its compact spans (raw) or
+  // dense bias rows
+  auto load_bias = [&](int s, int buf) {
+    const int* rows = rowtab + 16 * s;
+    if (mask_b != nullptr)
+      stage_rows(Ws + buf * 16 * L.ldw, L.ldw, mask_b, rows, n, 0, n, warp,
+                 warps, lane);
+    if (kCompact) {
+      const int ii0 = s * sp.ips;
+      stage_spans(raw, L.slot, bias_h, wd, hw, ii0, min(sp.ips, hw - ii0),
+                  warp, warps, lane);
+    } else {
+      stage_rows(Bs, L.ldw, bias_h, rows, n, 0, n, warp, warps, lane);
+    }
   };
-  const int strips = (n + 15) / 16;
+  auto align_bias = [&](int s, int buf) {
+    if (kCompact) {
+      const int ii0 = s * sp.ips;
+      align_spans(spans + buf * a_dim * L.span, L.span, raw, L.slot, bias_h,
+                  wd, hw, ii0, min(sp.ips, hw - ii0), warp, warps, lane);
+    }
+  };
   const int z = blockIdx.z, zs = gridDim.z;
-  load_rows_bf16(Ks, k, b, h, 0, keys, n, hd, tid, nthreads);
-  load_rows_bf16(Vs, v, b, h, 0, keys, n, hd, tid, nthreads);
-  if (mask_b == nullptr)
-    for (int idx = tid; idx < 16 * ldb; idx += nthreads) Ws[idx] = 0.f;
+  load_rows_bf16(Ks, k, b, h, 0, L.keys, n, hd, tid, nthreads);
+  load_rows_bf16(Vs, v, b, h, 0, L.keys, n, hd, tid, nthreads);
+  fill_rowtab(rowtab, sp, tid, nthreads);
+  // the rs parts and dq shares of warps the block does not have: zeros,
+  // so that the sums run over kBwdMaxWarps slots without a test
+  for (int idx = warps * 16 + tid; idx < kBwdMaxWarps * 16; idx += nthreads)
+    rs_part[idx] = 0.f;
+  for (int idx = warps * 512 + tid; idx < kBwdMaxWarps * 512;
+       idx += nthreads)
+    tiles[idx] = 0.f;
+  __syncthreads();                             // rowtab
   if (z < strips) {
-    load_strip(0, z * 16);
-    load_bias(z * 16);
+    load_strip(0, z);
+    load_bias(z, 0);
   }
   cp_async_commit();
   cp_async_wait_all();
+  if (z < strips) align_bias(z, 0);
   __syncthreads();
 
   const int kb = warp * kBwdKeys;              // the warp's first key
+  // the lane's keys kb + 16 mt + 8 hh + gq and slots 8 nt + 2 tq + u: the
+  // compact bias's places K(j) and R(t), or the key clamped to n - 1
+  int kpl[2][2], rsp[2][2], kvalid = 0;
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2)
+#pragma unroll
+    for (int i3 = 0; i3 < 2; ++i3) {
+      const int j = kb + 16 * i2 + 8 * i3 + gq;
+      kpl[i2][i3] = kCompact ? span_key(j, n, hw, L.span) : min(j, n - 1);
+      kvalid |= (j < n) << (2 * i2 + i3);
+      rsp[i2][i3] =
+          kCompact ? span_row(8 * i2 + 2 * tq + i3, wd, hw, sp.ips, L.span)
+                   : 0;
+    }
   float* __restrict__ dl_b =
       dl_out != nullptr ? dl_out + ((size_t)b * nh + h) * n * n : nullptr;
   bf16* __restrict__ dqb = dq.at(b, h);
@@ -1238,22 +1680,71 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
 #pragma unroll
       for (int e = 0; e < 4; ++e) dka[mt][dn][e] = dva[mt][dn][e] = 0.f;
 
-  int buf = 0;
+  // strip ps's dq (the warps' shares added in warp order, times scale,
+  // rounded) and, with the compact bias, its part of the (window, head)'s
+  // compact dbias: run after the next strip's logits, before its first
+  // barrier, which the next writes of the tiles and of DLs wait behind
+  auto finish = [&](int ps) {
+    if (ps < 0) return;
+    const int* rows = rowtab + 16 * ps;
+    const int s = ps;
+    for (int idx = tid; idx < 16 * 32; idx += nthreads) {
+      const int r = idx >> 5, cc = (idx & 31) ^ tile_swizzle(r);
+      const int i = rows[r];
+      if (i < 0 || cc >= hd) continue;
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdMaxWarps; ++w) x += tiles[w * 16 * 32 + idx];
+      dqb[(long long)i * dq.sr + cc] = __float2bfloat16_rn(x * scale);
+    }
+    if (kCompact) {
+      // the strip's part of the (window, head)'s compact dbias: for each
+      // (a, ii, jj) its frame pairs d1 - d2 = a - wd + 1 added in d1
+      // order; a warp a (a, ii) row, its lanes the columns jj
+      const int ii0 = s * sp.ips, nrows = min(sp.ips, hw - ii0);
+      float* dp_b = dpart + ((size_t)b * nh + h) * a_dim * hw * hw;
+      for (int p = warp; p < a_dim * nrows; p += warps) {
+        const int a = p / nrows, di = p - a * nrows, off = a - (wd - 1);
+        const int d1a = max(0, off), terms = min(wd, wd + off) - d1a;
+        const int step = L.ldl + hw;
+        const float* src = DLs + (di * wd + d1a) * L.ldl + (d1a - off) * hw;
+        float* dst = dp_b + ((size_t)a * hw + ii0 + di) * hw;
+        for (int jj = lane; jj < hw; jj += 32) {
+          float acc = src[jj];
+#pragma unroll 1
+          for (int d = 1; d < terms; ++d) acc += src[d * step + jj];
+          dst[jj] = acc;
+        }
+      }
+    }
+  };
+
+  int buf = 0, prev = -1;
   for (int s = z; s < strips; s += zs, buf ^= 1) {
-    const int i0 = s * 16;
-    if (s + zs < strips) load_strip(buf ^ 1, (s + zs) * 16);
+    const bool next = s + zs < strips;
+    const int wbuf = kCompact ? buf : 0;       // this strip's mask rows
+    if (next) {
+      load_strip(buf ^ 1, s + zs);
+      // with two buffers the next strip's bias and mask come in now
+      if (kCompact) load_bias(s + zs, buf ^ 1);
+    }
     cp_async_commit();
     const bf16* Qb = Qs + buf * 16 * kLdB;
     const bf16* Gb = Gs + buf * 16 * kLdB;
     const float* Mb = Ms + buf * 16 * 2;
-    // gs = bfloat16(g / s) of the strip's rows (zeros past row n)
-    for (int idx = tid; idx < 16 * kMaxHeadDim; idx += nthreads) {
-      const int r = idx / kMaxHeadDim, c = idx % kMaxHeadDim;
-      const float inv = i0 + r < n ? __frcp_rn(Mb[2 * r + 1]) : 0.f;
-      GSs[r * kLdB + c] =
-          __float2bfloat16_rn(__bfloat162float(Gb[r * kLdB + c]) * inv);
-    }
-    __syncthreads();
+    const float* Wb = Ws + wbuf * 16 * L.ldw;
+    const float* Sb = spans + buf * a_dim * L.span;
+    const int* rows = rowtab + 16 * s;
+    // the lane's slots 8 nt + 2 tq + u: 1 / s (0 where the slot holds no
+    // row)
+    float inv[2][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = 8 * nt + 2 * tq + u;
+        inv[nt][u] = rows[t] >= 0 ? __frcp_rn(Mb[2 * t + 1]) : 0.f;
+      }
 
     // s^T = K q^T and dp^T = V g^T on the warp's keys, (16 keys, 8 rows)
     // tiles over two k16 steps of channels: A from K or V (k-minor), B the
@@ -1287,14 +1778,21 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
     }
 
     // e = exp(l - m) in place of s, and the warp's part of rowsum(dp * e).
-    // Element e of a tile: key kb + 16 mt + 8 (e >> 1) + gq, row
+    // Element e of a tile: key kb + 16 mt + 8 (e >> 1) + gq, slot
     // 8 nt + 2 tq + (e & 1)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int r = 8 * nt + 2 * tq + u;
-        const bool rok = i0 + r < n;
+        const int r = 8 * nt + 2 * tq + u, i = rows[r], rr = read_row(i);
+        const bool rok = i >= 0;
+        const float* wrow =
+            mask_b != nullptr
+                ? Wb + r * L.ldw + float_shift(mask_b + (size_t)rr * n)
+                : nullptr;
+        const float* brow =
+            kCompact ? Sb + rsp[nt][u]
+                     : Bs + r * L.ldw + float_shift(bias_h + (size_t)rr * n);
         const float rmax = Mb[2 * r];
         float acc = 0.f;
 #pragma unroll
@@ -1302,13 +1800,15 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int e = 2 * hh + u, j = kb + 16 * mt + 8 * hh + gq;
-            const float l =
-                fmaf(st[mt][nt][e], scale, Bs[r * ldb + j]) + Ws[r * ldb + j];
-            const float x = rok && j < n ? __expf(l - rmax) : 0.f;
+            float l = fmaf(st[mt][nt][e], scale, brow[kpl[mt][hh]]);
+            if (mask_b != nullptr) l += wrow[j];
+            const float x = rok && (kvalid >> (2 * mt + hh) & 1)
+                                ? __expf(l - rmax)
+                                : 0.f;
             st[mt][nt][e] = x;
             acc = fmaf(dpt[mt][nt][e], x, acc);
             if (kTap && rok && j < n)
-              e_tap[(((size_t)b * nh + h) * n + i0 + r) * n + j] =
+              e_tap[(((size_t)b * nh + h) * n + i) * n + j] =
                   __float2bfloat16_rn(x);
           }
         acc += __shfl_xor_sync(0xffffffffu, acc, 4);
@@ -1316,34 +1816,44 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
         acc += __shfl_xor_sync(0xffffffffu, acc, 16);
         if (gq == 0) rs_part[warp * 16 + r] = acc;
       }
+    finish(prev);
     __syncthreads();
-    if (s + zs < strips) load_bias((s + zs) * 16);
+    // with one buffer the next strip's bias and mask come in now
+    if (!kCompact && next) load_bias(s + zs, 0);
     cp_async_commit();
 
-    // rs = (the warps' parts in warp order) * inv; dl = e (dp - rs) inv
+    // rs = (the warps' parts in warp order) * inv; dl = e (dp - rs) inv,
+    // to the strip's dl rows (compact) or the scratch (dense, or a tap)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int r = 8 * nt + 2 * tq + u, i = i0 + r;
-        const float inv = i < n ? __frcp_rn(Mb[2 * r + 1]) : 0.f;
+        const int r = 8 * nt + 2 * tq + u, i = rows[r];
         float rs = 0.f;
-        for (int w = 0; w < warps; ++w) rs += rs_part[w * 16 + r];
-        rs *= inv;
+#pragma unroll
+        for (int w = 0; w < kBwdMaxWarps; ++w) rs += rs_part[w * 16 + r];
+        // rounded where the reference rounds: rs, dp - rs, then the two
+        // products (no contraction into an fma)
+        rs = __fmul_rn(rs, inv[nt][u]);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int e = 2 * hh + u, j = kb + 16 * mt + 8 * hh + gq;
-            const float dl = st[mt][nt][e] * (dpt[mt][nt][e] - rs) * inv;
+            const float dl = __fmul_rn(
+                __fmul_rn(st[mt][nt][e], __fsub_rn(dpt[mt][nt][e], rs)),
+                inv[nt][u]);
             dpt[mt][nt][e] = dl;
-            if (dl_b != nullptr && i < n && j < n) dl_b[i * n + j] = dl;
+            if (kCompact) DLs[r * L.ldl + j] = dl;
+            if (dl_b != nullptr && i >= 0 && j < n) dl_b[i * n + j] = dl;
           }
       }
 
     // dv += bfloat16(e)^T gs and dk += bfloat16(dl)^T q over the strip's 16
     // rows, one k16 step: the two 8-row tiles rounded in pairs are the A
-    // fragment; B is gs or q (rows the contraction: ldmatrix.trans)
+    // fragment; B is gs or q (rows the contraction: ldmatrix.trans), gs =
+    // bfloat16(g / s) formed in the B fragments of g (register r holds
+    // slots 2 tq, 2 tq + 1, plus 8 where r is odd)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
       const unsigned ea[4] = {pack_bf16(st[mt][0][0], st[mt][0][1]),
@@ -1358,8 +1868,12 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
       for (int dp = 0; dp < kDT / 2; ++dp) {
         const int at = (rl + 8 * (ql & 1)) * kLdB + 16 * dp + 8 * (ql >> 1);
         unsigned gsb[4], qbt[4];
-        ldsm_x4_trans(gsb, GSs + at);
+        ldsm_x4_trans(gsb, Gb + at);
         ldsm_x4_trans(qbt, Qb + at);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          gsb[r] = pack_bf16(bf16_lo(gsb[r]) * inv[r & 1][0],
+                             bf16_hi(gsb[r]) * inv[r & 1][1]);
         const unsigned s0[2] = {gsb[0], gsb[1]}, s1[2] = {gsb[2], gsb[3]};
         const unsigned t0[2] = {qbt[0], qbt[1]}, t1[2] = {qbt[2], qbt[3]};
         mma_bf16(dva[mt][2 * dp], ea, s0);
@@ -1367,8 +1881,8 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
         mma_bf16(dka[mt][2 * dp], la, t0);
         mma_bf16(dka[mt][2 * dp + 1], la, t1);
       }
-      // bfloat16(dl) into the warp's tile, [key][row]: lane's pairs of rows
-      // 2 tq, 2 tq + 1 at keys 16 mt + gq and + 8
+      // bfloat16(dl) into the warp's tile, [key][slot]: lane's pairs of
+      // slots 2 tq, 2 tq + 1 at keys 16 mt + gq and + 8
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         *reinterpret_cast<unsigned*>(dlt + (16 * mt + gq) * kLdDl + 8 * nt +
@@ -1410,18 +1924,12 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
           make_float2(dqa[dn][2], dqa[dn][3]);
     }
     cp_async_wait_all();     // the next strip and its rows have landed
+    if (next) align_bias(s + zs, buf ^ 1);
     __syncthreads();
 
-    // the strip's dq: the warps' shares added in warp order, times scale,
-    // rounded
-    for (int idx = tid; idx < 16 * 32; idx += nthreads) {
-      const int r = idx >> 5, c = (idx & 31) ^ tile_swizzle(r);
-      float x = 0.f;
-      for (int w = 0; w < warps; ++w) x += tiles[w * 16 * 32 + idx];
-      if (i0 + r < n && c < hd)
-        dqb[(long long)(i0 + r) * dq.sr + c] = __float2bfloat16_rn(x * scale);
-    }
+    prev = s;
   }
+  finish(prev);
 
   // dk and dv of the warp's keys: element e of tile (mt, dn) is key
   // kb + 16 mt + gq + 8 (e >> 1), channels 8 dn + 2 tq and + 1
@@ -1452,8 +1960,17 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
       }
 }
 
-inline size_t fwd_bf16_smem_bytes(int n) {
-  return (size_t)round16(n) * (2 * kLdB * 2 + 4) + kFwdWarps * 16 * kLdB * 2;
+// dbias (nh, 2wd-1, hw, hw) from the (window, head) partials (b_, nh,
+// 2wd-1, hw, hw): the windows added in their order, from 0, as vitta_tpu's
+// grid adds them into its zeroed dbias (pallas_attention.py:517-527).
+__global__ void __launch_bounds__(256)
+dbias_windows_kernel(const float* __restrict__ part, float* __restrict__ dbias,
+                     int b_, long long per) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= per) return;
+  float acc = 0.f;
+  for (int b = 0; b < b_; ++b) acc += part[b * per + idx];
+  dbias[idx] = acc;
 }
 
 // 16-byte units of q, k, v, g and their gradients: pointers and strides
@@ -1463,48 +1980,65 @@ inline bool rows_aligned_bf16(const Rows<const bf16>& x) {
          x.sr % 8 == 0 && x.sh % 8 == 0;
 }
 
-// The packed forward at bfloat16: qkv, out bfloat16 (b_, n, 3*nh*hd) and
-// (b_, n, nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One
-// launch.  cudaErrorMisalignedAddress where qkv or out is not 16-byte
-// aligned.
-template <bool kTap>
+// The shapes the bfloat16 kernels take beyond the float32 ones: hd a
+// multiple of 8, a compact window at most kMaxWd frames deep.
+inline bool bad_dims_bf16(int b_, int n, int nh, int hd, int nw,
+                          bool with_mask, int compact, int wd, int hw) {
+  return bad_dims(b_, n, nh, hd, nw, with_mask, compact, wd, hw) ||
+         hd % 8 != 0 || 3LL * nh * hd > kMaxRowStride ||
+         (compact && wd > kMaxWd);
+}
+
+// Groups of five warps a forward block: as many as fit shared memory, up to
+// kFwdMaxGroups.
+inline int fwd_bf16_groups(const FwdBf16Layout& L) {
+  int groups = kFwdMaxGroups;
+  while (groups > 1 && L.bytes(groups) > 232448) --groups;
+  return groups;
+}
+
+template <bool kTap, bool kCompact>
 inline cudaError_t launch_fwd_bf16_instance(const InRowsB& q, const InRowsB& k,
                                             const InRowsB& v,
                                             const float* bias,
                                             const float* mask, bf16* out,
                                             float* ms, bf16* e_tap, int b_,
                                             int n, int nh, int hd, int nw,
-                                            int compact, int wd, int hw,
-                                            float scale, cudaStream_t stream) {
-  const size_t smem = fwd_bf16_smem_bytes(n);
+                                            int wd, int hw, float scale,
+                                            cudaStream_t stream) {
+  auto kernel = attn_fwd_bf16_kernel<kTap, kCompact>;
+  const FwdBf16Layout L(n, kCompact, wd, hw, mask != nullptr);
+  const int groups = fwd_bf16_groups(L);
+  const size_t smem = L.bytes(groups);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd_bf16_kernel<kTap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attn_fwd_bf16_kernel<kTap>,
+      e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(nh, b_, row_split(nh * b_));
-  attn_fwd_bf16_kernel<kTap><<<grid, kFwdThreads, smem, stream>>>(
-      q, k, v, bias, mask, out, ms, e_tap, n, nh, hd, nw, compact, wd, hw,
-      scale);
+  kernel<<<grid, groups * kFwdGroupThreads, smem, stream>>>(
+      q, k, v, bias, mask, out, ms, e_tap, n, nh, hd, nw, wd, hw, scale);
   count_launch(kTap ? "attn_fwd_bf16_kernel<tap>" : "attn_fwd_bf16_kernel");
   return cudaGetLastError();
 }
 
-// e_tap: nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e) (kTap).
+// The packed forward at bfloat16: qkv, out bfloat16 (b_, n, 3*nh*hd) and
+// (b_, n, nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One
+// launch.  cudaErrorMisalignedAddress where qkv or out is not 16-byte
+// aligned.  e_tap: nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e)
+// (kTap).
 inline cudaError_t launch_packed_fwd_bf16(const bf16* qkv, const float* bias,
                                           const float* mask, bf16* out,
                                           float* ms, bf16* e_tap, int b_,
                                           int n, int nh, int hd, int nw,
                                           int compact, int wd, int hw,
                                           float scale, cudaStream_t stream) {
-  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
-      out == nullptr || hd % 8 != 0 ||
-      3LL * nh * hd > kMaxRowStride)
+  if (bad_dims_bf16(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
+      out == nullptr)
     return cudaErrorInvalidValue;
   const InRowsB q = packed_rows(qkv, 0, n, nh, hd);
   const InRowsB k = packed_rows(qkv, 1, n, nh, hd);
@@ -1512,29 +2046,45 @@ inline cudaError_t launch_packed_fwd_bf16(const bf16* qkv, const float* bias,
   if (!rows_aligned_bf16(q) || !rows_aligned_bf16(k) ||
       !rows_aligned_bf16(v) || (reinterpret_cast<std::uintptr_t>(out) & 15))
     return cudaErrorMisalignedAddress;
-  return e_tap != nullptr
-             ? launch_fwd_bf16_instance<true>(q, k, v, bias, mask, out, ms,
-                                              e_tap, b_, n, nh, hd, nw,
-                                              compact, wd, hw, scale, stream)
-             : launch_fwd_bf16_instance<false>(q, k, v, bias, mask, out, ms,
-                                               nullptr, b_, n, nh, hd, nw,
-                                               compact, wd, hw, scale, stream);
+  const bool tap = e_tap != nullptr;
+#define VITTA_FWD_BF16(T, C)                                                 \
+  launch_fwd_bf16_instance<T, C>(q, k, v, bias, mask, out, ms, e_tap, b_, n, \
+                                 nh, hd, nw, wd, hw, scale, stream)
+  if (compact)
+    return tap ? VITTA_FWD_BF16(true, true) : VITTA_FWD_BF16(false, true);
+  return tap ? VITTA_FWD_BF16(true, false) : VITTA_FWD_BF16(false, false);
+#undef VITTA_FWD_BF16
+}
+
+// Floats of scratch launch_packed_bwd_bf16 needs: dl (b_, nh, n, n) with
+// the dense bias or a tap, the (window, head) partials (b_, nh, 2wd-1, hw,
+// hw) with the compact bias, and the blocks' shares of dk and dv where
+// blocks share a problem, in that order.
+inline long long bwd_bf16_scratch_floats(int b_, int n, int nh, int hd,
+                                         int compact, int wd, int hw,
+                                         int tap) {
+  const long long probs = (long long)b_ * nh;
+  const int split = bwd_split(b_, nh);
+  return (!compact || tap ? probs * n * n : 0) +
+         (compact ? probs * (2 * wd - 1) * hw * hw : 0) +
+         (split > 1 ? 2LL * split * probs * n * hd : 0);
 }
 
 // The packed backward at bfloat16: qkv, g, dqkv bfloat16; bias, mask, ms,
-// dbias, scratch float32.  The kernel, the sum of the blocks' float32
-// shares of dk and dv where problems are shared, and the sum of dl over the
-// windows (dbias, float32).
-// e_tap: nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e) (kTap); dl
-// is the first b_ * nh * n * n floats of scratch, (b_, nh, n, n), where
-// dbias is asked for.
+// dbias, scratch float32 (bwd_bf16_scratch_floats, laid out as it says).
+// The kernel, the sum of the blocks' float32 shares of dk and dv where
+// problems are shared, and dbias: the windows' compact partials added in
+// window order (dbias_windows_kernel), or, with the dense bias, dl summed
+// over the windows (dbias_reduce_kernel).  e_tap: nullptr, or (b_, nh, n,
+// n) bfloat16 for bfloat16(e) (kTap), which also writes dl to the
+// scratch's first b_ nh n^2 floats.
 inline cudaError_t launch_packed_bwd_bf16(
     const bf16* qkv, const float* bias, const float* mask, const float* ms,
     const bf16* g, bf16* dqkv, float* dbias, float* scratch, bf16* e_tap,
     int b_, int n, int nh, int hd, int nw, int compact, int wd, int hw,
     float scale, cudaStream_t stream) {
-  if (bad_dims(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
-      ms == nullptr || hd % 8 != 0 || 3LL * nh * hd > kMaxRowStride)
+  if (bad_dims_bf16(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
+      ms == nullptr || dbias == nullptr || scratch == nullptr)
     return cudaErrorInvalidValue;
   const long long c = (long long)nh * hd;
   const InRowsB q = packed_rows(qkv, 0, n, nh, hd);
@@ -1548,43 +2098,52 @@ inline cudaError_t launch_packed_bwd_bf16(
       !rows_aligned_bf16(v) || !rows_aligned_bf16(gr) ||
       (reinterpret_cast<std::uintptr_t>(dqkv) & 15))
     return cudaErrorMisalignedAddress;
-  const int vec_rows =
-      n % 4 == 0 && (reinterpret_cast<std::uintptr_t>(bias) & 15) == 0 &&
-      (reinterpret_cast<std::uintptr_t>(mask) & 15) == 0;
-  const size_t smem = bwd_bf16_smem_bytes(n);
-  auto kernel = e_tap != nullptr ? attn_bwd_bf16_kernel<true>
-                                 : attn_bwd_bf16_kernel<false>;
-  if (smem > 48 * 1024) {
+  const bool tap = e_tap != nullptr;
+  const long long probs = (long long)b_ * nh;
+  float* dl = !compact || tap ? scratch : nullptr;
+  float* part = compact ? scratch + (dl != nullptr ? probs * n * n : 0)
+                        : nullptr;
+  const int split = bwd_split(b_, nh);
+  float* kvp = split > 1 ? scratch + (dl != nullptr ? probs * n * n : 0) +
+                               (compact ? probs * (2 * wd - 1) * hw * hw : 0)
+                         : nullptr;
+  const BwdBf16Layout L(n, compact, wd, hw, mask != nullptr);
+  auto kernel = compact ? (tap ? attn_bwd_bf16_kernel<true, true>
+                               : attn_bwd_bf16_kernel<false, true>)
+                        : (tap ? attn_bwd_bf16_kernel<true, false>
+                               : attn_bwd_bf16_kernel<false, false>);
+  if (L.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
     if (e != cudaSuccess) return e;
   }
-  const int split = bwd_split(b_, nh);
-  float* part = split > 1 ? scratch + (size_t)b_ * nh * n * n : nullptr;
   const dim3 grid(nh, b_, split);
-  kernel<<<grid, bwd_warps(n) * 32, smem, stream>>>(
-      q, k, v, gr, bias, mask, ms, dq, dk, dv,
-      dbias != nullptr ? scratch : nullptr, part, e_tap, n, nh, hd, nw,
-      compact, wd, hw, scale, vec_rows);
-  count_launch(e_tap != nullptr ? "attn_bwd_bf16_kernel<tap>"
-                                : "attn_bwd_bf16_kernel");
+  kernel<<<grid, L.warps * 32, L.total, stream>>>(
+      q, k, v, gr, bias, mask, ms, dq, dk, dv, dl, part, kvp, e_tap, n, nh,
+      hd, nw, wd, hw, scale);
+  count_launch(tap ? "attn_bwd_bf16_kernel<tap>" : "attn_bwd_bf16_kernel");
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (part != nullptr) {
+  if (kvp != nullptr) {
     const long long outs = 2LL * b_ * nh * n * hd;
     dkv_sum_kernel<bf16><<<(unsigned)((outs + 255) / 256), 256, 0,
-                           stream>>>(part, dk, dv, split, b_, n, nh, hd,
+                           stream>>>(kvp, dk, dv, split, b_, n, nh, hd,
                                      scale);
     count_launch("dkv_sum_kernel<__nv_bfloat16>");
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  if (dbias == nullptr) return cudaSuccess;
-  const long long outs =
-      compact ? (long long)nh * (2 * wd - 1) * hw * hw : (long long)nh * n * n;
-  dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
-      scratch, dbias, b_, n, nh, compact, wd, hw);
-  count_launch("dbias_reduce_kernel");
+  if (compact) {
+    const long long per = (long long)nh * (2 * wd - 1) * hw * hw;
+    dbias_windows_kernel<<<(unsigned)((per + 255) / 256), 256, 0, stream>>>(
+        part, dbias, b_, per);
+    count_launch("dbias_windows_kernel");
+  } else {
+    const long long outs = (long long)nh * n * n;
+    dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
+        dl, dbias, b_, n, nh, 0, wd, hw);
+    count_launch("dbias_reduce_kernel");
+  }
   return cudaGetLastError();
 }
 

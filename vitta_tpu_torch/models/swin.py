@@ -77,7 +77,12 @@ upcasts the bfloat16 gradient to the float32 master); the LayerNorms'
 parameters, the relative-position tables, their bias and the shift mask
 stay float32, and so does the head, which pools in float32
 (vitta_tpu/models/swin.py:700-705).  The LayerNorm, LayerNorm-MLP and
-packed attention kernels run at bfloat16.  Only the packed route and
+packed attention kernels run at bfloat16; the attention takes the
+relative-position bias in its compact form (nh, 2wd-1, hw, hw), with no
+expansion kernel, and its backward returns the compact gradient in
+vitta_tpu's own order (each window collapsed over its frame pairs, then
+the windows added), where float32 expands the bias and collapses the sum
+over the windows.  Only the packed route and
 widths that are multiples of 128 (norm2 inside the LayerNorm-MLP op, every
 width of Swin-B) are ported at bfloat16: the other routes and Swin-T's 96
 and 192 raise ``NotImplementedError`` (ROADMAP.md, queue 1).
@@ -329,9 +334,13 @@ class WindowAttention3D(nn.Module):
         mask = self._mask(mask_np, mask_key, x.device)
         full = n == wd * wh * ww
         if full:
-            bias = expand_bias(
-                compact_bias(self.relative_position_bias_table,
-                             self.window_size), wd)       # (nh, N, N)
+            # compact (nh, 2wd-1, hw, hw) at bfloat16, whose packed kernels
+            # read it and collapse its gradient on chip
+            # (ops/cuda_attention.py); dense (nh, N, N) otherwise
+            bias = compact_bias(self.relative_position_bias_table,
+                                self.window_size)
+            if self.dtype != torch.bfloat16:
+                bias = expand_bias(bias, wd)
         if full and ln is not None:
             return window_attention_ln_proj(
                 _contiguous(x), ln[0], ln[1], ln[2], self.qkv.weight,

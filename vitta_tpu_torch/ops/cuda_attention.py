@@ -48,7 +48,11 @@ fragment, and they round where those do (pallas_attention.py:358-514,
 VJP :644-649): the logits (q k^T) * scale + bias + mask and the softmax's
 e = exp(l - m) and sum are float32, e is rounded before e v, out = (e v) /
 s once; the backward rounds gs = g / s before dv = e^T gs and dl before dq
-and dk, keeps dl float32 for dbias, and rounds dq, dk and dv once.
+and dk, keeps dl float32 for dbias, and rounds dq, dk and dv once.  Its
+dbias is summed in vitta_tpu's order (``dbias_in_window_order``): each
+window's dl, for the compact bias collapsed over the frame pairs in d1
+order, then the windows in their order; with the compact bias the kernel
+collapses on chip and writes (window, head) partials, never dl itself.
 ``packed_attention_bf16_reference`` and
 ``packed_attention_bf16_backward_reference`` are their plain versions, and
 on the CPU a bfloat16 qkv runs them as one autograd Function
@@ -210,11 +214,27 @@ def packed_attention_bf16_backward_reference(qkv, bias, mask, ms, g,
     dlc = dl.to(bf16).to(f32)
     dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
-    dbias = dl.sum(dim=0)
-    if bias.dim() == 4:
-        dbias = collapse_bias_reference(dbias, (bias.shape[1] + 1) // 2)
     return (torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3).to(qkv.dtype),
-            dbias)
+            dbias_in_window_order(dl, bias))
+
+
+def dbias_in_window_order(dl, bias):
+    """dbias from dl (B_, nh, N, N) in the bias's form, in vitta_tpu's
+    order (pallas_attention.py:384-400, :517-527): each window's dl, for
+    the compact bias collapsed over its frame pairs in d1 order, added into
+    a zero dbias window by window.  The bfloat16 backward kernel sums in
+    this order (tests/test_torch_attention_bf16_order.py emulates how it
+    makes its compact partials)."""
+    part = dl
+    if bias.dim() == 4:
+        b_, nh, n, _ = dl.shape
+        wd = (bias.shape[1] + 1) // 2
+        part = collapse_bias_reference(dl.reshape(b_ * nh, n, n), wd)
+        part = part.reshape(b_, nh, *part.shape[1:])
+    dbias = torch.zeros_like(part[0])
+    for window in part.unbind(0):
+        dbias = dbias + window
+    return dbias
 
 
 def heads_attention_backward_reference(q, k, v, bias, mask, g, scale: float):
@@ -256,6 +276,8 @@ def _lib():
         lib.vitta_attn_packed_bwd.restype = i
         lib.vitta_attn_bwd_scratch_floats.argtypes = [i, i, i, i]
         lib.vitta_attn_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_attn_bwd_bf16_scratch_floats.argtypes = [i] * 8
+        lib.vitta_attn_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_attn_bwd_split.argtypes = [i, i]
         lib.vitta_attn_bwd_split.restype = i
         ll = ctypes.POINTER(ctypes.c_longlong)
@@ -298,6 +320,10 @@ def _check(qkv, bias, mask, nh: int):
                          f"hd={hd}, qkv {qkv.data_ptr() % 16} bytes past a "
                          f"boundary")
     compact = bias.dim() == 4
+    if compact and qkv.dtype == torch.bfloat16 and bias.shape[1] > 31:
+        raise ValueError(f"the bfloat16 window attention kernels take a "
+                         f"compact bias of a window at most 16 frames deep, "
+                         f"got {(bias.shape[1] + 1) // 2}")
     wd = hw = 0
     if compact:
         wd, hw = (bias.shape[1] + 1) // 2, bias.shape[-1]
@@ -372,12 +398,26 @@ def bwd_split(b_: int, nh: int, device=None) -> int:
         return _lib().vitta_attn_bwd_split(b_, nh)
 
 
-def _bwd_scratch(b_, n, nh, hd, dev):
-    """The backward's scratch (the bias cotangent of every window, B_*nh*N*N
-    floats, and the blocks' shares of dk and dv where they share a
-    problem), sized on ``dev``'s card."""
-    with torch.cuda.device(dev):
-        floats = _lib().vitta_attn_bwd_scratch_floats(b_, n, nh, hd)
+def bwd_scratch_floats(b_: int, n: int, nh: int, hd: int, dtype,
+                       compact: bool = False, wd: int = 0, hw: int = 0,
+                       tap: bool = False, device=None) -> int:
+    """Floats of the backward's scratch on ``device``'s card.  float32: the
+    bias cotangent of every window (B_*nh*N*N) and the blocks' shares of dk
+    and dv where they share a problem.  bfloat16: dl (B_*nh*N*N) only with
+    the dense bias or a ``tap``, the (window, head) partials of the compact
+    dbias (B_*nh*(2wd-1)*hw*hw), and the same shares."""
+    with torch.cuda.device(device):
+        if dtype == torch.bfloat16:
+            return _lib().vitta_attn_bwd_bf16_scratch_floats(
+                b_, n, nh, hd, int(compact), wd, hw, int(tap))
+        return _lib().vitta_attn_bwd_scratch_floats(b_, n, nh, hd)
+
+
+def _bwd_scratch(b_, n, nh, hd, dev, dtype=torch.float32, compact=False,
+                 wd=0, hw=0, tap=False):
+    """The backward's scratch (``bwd_scratch_floats``) on ``dev``."""
+    floats = bwd_scratch_floats(b_, n, nh, hd, dtype, compact, wd, hw, tap,
+                                dev)
     return torch.empty(floats, dtype=torch.float32, device=dev)
 
 
@@ -385,12 +425,13 @@ def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int,
                          taps=None):
     """Backward kernels: one wrapper call, two to three launches on the
     current stream (the kernel, the sum of the blocks' shares of dk and dv
-    where problems are shared, the sum of dl over the windows); returns
-    (dqkv (B_, N, 3C), dbias in the bias's form), allocated here with the
-    scratch.  ``taps``, a dict, at bfloat16 only: ``taps["e"]`` holds the
-    kernel's bfloat16(e) as ``attn_packed_fwd_cuda`` does, and
-    ``taps["dl"]`` (B_, nh, N, N) float32 its dl, the scratch's first
-    B_*nh*N*N floats."""
+    where problems are shared, the sum over the windows of dl, or at
+    bfloat16 with the compact bias of the windows' compact partials);
+    returns (dqkv (B_, N, 3C), dbias in the bias's form), allocated here
+    with the scratch (``bwd_scratch_floats``).  ``taps``, a dict, at
+    bfloat16 only: ``taps["e"]`` holds the kernel's bfloat16(e) as
+    ``attn_packed_fwd_cuda`` does, and ``taps["dl"]`` (B_, nh, N, N)
+    float32 its dl, the scratch's first B_*nh*N*N floats."""
     b_, n, c, hd, compact, wd, hw, nw = _check(qkv, bias, mask, nh)
     dev = qkv.device
     check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
@@ -402,7 +443,8 @@ def attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale: float, nh: int,
     lib = _lib()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
-    scratch = _bwd_scratch(b_, n, nh, hd, dev)
+    scratch = _bwd_scratch(b_, n, nh, hd, dev, qkv.dtype, compact, wd, hw,
+                           taps is not None)
     e_tap = _e_tap(taps, qkv, b_, n, nh)
     bf16 = qkv.dtype == torch.bfloat16
     bwd = lib.vitta_attn_packed_bwd_bf16 if bf16 else lib.vitta_attn_packed_bwd
