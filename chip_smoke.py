@@ -1808,6 +1808,128 @@ def phase_gemm_rates(dev):
     return out
 
 
+def start_ptxas_report(build):
+    """nvcc of csrc/mlp.cu with ``-Xptxas -v`` into the build directory,
+    started beside build_all (the kernels' own build keeps its flags):
+    the report ``wgmma_build_report`` reads."""
+    out = build.BUILD_DIR / "ptxas_report_mlp.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out), str(build.CSRC_DIR / "mlp.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wgmma_build_report(build, proc):
+    """One line on every gemm_wgmma_bf16 instance of the mlp library: its
+    registers and spills (ptxas -v), its dynamic shared memory (the plan's
+    formula, ``cuda_mlp.wgmma_smem_bytes``) and its HGMMA instructions in
+    the SASS of the built library (cuobjdump -sass): wgmma runs there.
+    Raises where one spills or has no HGMMA."""
+    import collections
+    import re
+    from vitta_tpu_torch.ops.cuda_mlp import wgmma_smem_bytes
+    _out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v of mlp.cu failed:\n{err}")
+    ptx = {}
+    name = None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and "gemm_wgmma_bf16" in name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                ptx.setdefault(name, {})["spills"] = (int(m.group(1)),
+                                                      int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                ptx.setdefault(name, {})["regs"] = int(m.group(1))
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.build("mlp"))],
+                          capture_output=True, text=True, check=True).stdout
+    parts = []
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        if "gemm_wgmma_bf16" not in fn:
+            continue
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
+                part))
+        bm, bn, stages, epi = (int(v) for v in re.findall(r"Li(\d+)E", fn))
+        promote, a_mn, b_mn = re.findall(r"Lb(\d)E", fn)
+        info = ptx.get(fn, {})
+        spills = info.get("spills", (None, None))
+        if ops["HGMMA"] == 0 or spills != (0, 0):
+            raise AssertionError(f"{fn}: {ops['HGMMA']} HGMMA, spills "
+                                 f"{spills}")
+        parts.append(f"<{bm}x{bn}, {stages} slots, promotion {promote}, A "
+                     f"MN-major {a_mn}, B MN-major {b_mn}, epilogue {epi}>: "
+                     f"{info.get('regs')} registers at launch, spill "
+                     f"stores/loads {spills[0]}/{spills[1]} bytes, dynamic "
+                     f"shared memory {wgmma_smem_bytes(bm, bn, stages)} "
+                     f"bytes, HGMMA {ops['HGMMA']} of {sum(ops.values())} "
+                     f"instructions")
+    if not parts:
+        raise AssertionError("no gemm_wgmma_bf16 kernel in the mlp library")
+    print(f"gemm_wgmma_bf16 instances in csrc/mlp.cu ({len(parts)}; ptxas -v, "
+          "cuobjdump -sass; epilogue 0 bias, 1 GELU, 2 * s, 3 + gy, 4 "
+          "partials): "
+          + "; ".join(parts), flush=True)
+
+
+def phase_wgmma_rates(dev):
+    """Phase 21 at bfloat16: the wgmma core's rate for each of the
+    LayerNorm-MLP's six products (rows 10 bf16 and 11 bf16) at every Swin-B
+    stage shape of 2 clips, 2MNK over the device ms of one call by CUDA
+    graphs' replays (``graph_ms``; the call is the product with its
+    epilogue, dh's with db1's column partials, a weight gradient with the
+    reduce_partials of its chunks where its plan cuts K; dw1 and dw2 each
+    alone, where the backward runs them in one launch), beside
+    ``torch.matmul`` at bfloat16 on the same operands (a yardstick the port
+    never calls), and each product's plan.  Returns {shape: {product:
+    (core TFLOP/s, torch.matmul TFLOP/s)}}."""
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    for c, _nh, tokens, _nw, _depth in SWIN_STAGES:
+        m, f = 2 * tokens, 4 * c
+        y, w1, b1 = bf(m, c), bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
+        a, w2, b2 = bf(m, f), bf(c, f, scale=f ** -0.5), bf(c, scale=0.1)
+        go, s_, gy, dhc = bf(m, c), bf(m, f), bf(m, c, scale=0.1), bf(m, f)
+        prod = cm.bf16_product_cuda
+        calls = {
+            "h": (lambda: prod("h", y, w1, b1), lambda: y @ w1.t()),
+            "o": (lambda: prod("o", a, w2, b2), lambda: a @ w2.t()),
+            "dh": (lambda: prod("dh", go, w2, aux=s_), lambda: go @ w2),
+            "dy": (lambda: prod("dy", dhc, w1, aux=gy), lambda: dhc @ w1),
+            "dw1": (lambda: prod("dw1", dhc, y), lambda: dhc.t() @ y),
+            "dw2": (lambda: prod("dw2", go, a), lambda: go.t() @ a)}
+        flops = 2 * m * c * f
+        rates = {k: (flops / graph_ms(kern) / 1e9, flops / graph_ms(lib) / 1e9)
+                 for k, (kern, lib) in calls.items()}
+        plan = cm.bf16_gemm_plan_cuda(m, c, f)
+        shape = f"swin-B M={m} C={c}"
+        print(f"gemm_wgmma_bf16 {shape}: " + ", ".join(
+            f"{k} {r:.1f} TFLOP/s (torch.matmul {lib:.1f}; tile "
+            f"{plan[k]['bm']}x{plan[k]['bn']}, {plan[k]['splits']} chunks of "
+            f"K, grid {plan[k]['grid']})"
+            for k, (r, lib) in rates.items())
+              + " (2MNK over device time, CUDA graphs' replays)", flush=True)
+        out[shape] = rates
+        del y, w1, b1, a, w2, b2, go, s_, gy, dhc, calls
+    return out
+
+
 def phase_bn_stats_kernels(dev):
     """The BatchNorm-statistics kernels against plain on the card, forward
     and backward with cotangents on y, m and v, ``relu`` False and True, at
@@ -3104,14 +3226,21 @@ def _bf16_swin_launches(names, parts=("ln_rows", "ln_bwd_kernel",
         raise AssertionError(f"float32 Swin kernels ran at bfloat16: {bad}")
 
 
+_SIDE_STREAM = []
+
+
 def graph_ms(fn, calls: int = 5, reps: int = 3) -> float:
     """Device ms per call of ``fn`` from CUDA events around the replay of a
     CUDA graph of ``calls`` calls (median of ``reps`` replays): the kernels
     back to back, no host in between, and no profiler, whose traces drop
     kernels after many profiles in one process (phase 25 saw device times
     below the bytes' bound).  ``fn`` runs once on a side stream first, as
-    capture asks."""
-    side = torch.cuda.Stream()
+    capture asks: one stream for every call, since torch keeps a cuBLAS
+    workspace for each stream a product ran on, which would stand in the
+    later phases' peak memory."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -3225,6 +3354,22 @@ def phase_bf16_swin_kernels(dev):
         if sum(names.values()) != want:
             raise AssertionError(f"launches {names}, expected {want}")
         return names
+
+    wgmma = {"mlp_fwd": {}, "mlp_bwd": {}}
+
+    def mlp_kernels(key, fn, want, products):
+        """kernels(), and the LayerNorm-MLP's products all on the wgmma
+        core (gemm_wgmma_bf16), none on gemm_tiles."""
+        names = kernels(fn, want)
+        wg = {k: n for k, n in names.items()
+              if k.startswith("gemm_wgmma_bf16")}
+        if (sum(wg.values()) != products
+                or any(k.startswith("gemm_tiles") for k in names)):
+            raise AssertionError(f"launches {names}: expected {products} of "
+                                 "gemm_wgmma_bf16 and none of gemm_tiles")
+        for k, n in wg.items():
+            wgmma[key][k] = wgmma[key].get(k, 0) + n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     tot = {k: Totals() for k in ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
                                  "mlp_fwd", "mlp_bwd")}
@@ -3575,7 +3720,12 @@ def phase_bf16_swin_kernels(dev):
             x = bf(m_rows, c, scale=1.5)
             args = (x, gm, bt, w1, b1, w2, b2, 1e-5)
             what = f"ln_mlp bf16 M={m_rows} C={c}"
-            kernels(lambda: cm.ln_mlp_fwd_cuda(*args, save_residuals=True), 3)
+            if (cm.bf16_gemm_plan_cuda(m_rows, c, f)
+                    != cm.bf16_gemm_plan(m_rows, c, f, sms)):
+                raise AssertionError(f"{what}: the library's plan is not "
+                                     "cuda_mlp.bf16_gemm_plan")
+            mlp_kernels("mlp_fwd", lambda: cm.ln_mlp_fwd_cuda(
+                *args, save_residuals=True), 3, 2)
             got = cm.ln_mlp_fwd_cuda(*args, save_residuals=True)
             want = ln_mlp_fwd_stages(*args, got[1], got[2])
             for nm, p, q in zip(("o", "y", "a", "s"), got, want):
@@ -3590,7 +3740,13 @@ def phase_bf16_swin_kernels(dev):
             scratch = torch.empty(cm.ln_mlp_bwd_scratch_floats(
                 m_rows, c, f, bf16), dtype=torch.float32, device=dev)
             bargs = (x, y, a, s_, go, gy, gm, w1, w2, 1e-5)
-            kernels(lambda: cm.ln_mlp_bwd_cuda(*bargs), 12)
+            # 8 to 10 launches (12 on mma.sync): db1 is summed in the dh
+            # product's epilogue (its column partials, then
+            # reduce_partials), dw1 and dw2 share one launch, and a weight
+            # gradient left in one chunk is rounded in its epilogue
+            n_bwd = cm.bf16_bwd_launches(m_rows, c, f, sms)
+            mlp_kernels("mlp_bwd", lambda: cm.ln_mlp_bwd_cuda(*bargs), n_bwd,
+                        3)
             res = cm.ln_mlp_bwd_cuda(*bargs, scratch=scratch)
             dh, dhc, dyk = cm.bf16_bwd_scratch_views(scratch, m_rows, c, f)
             ref = ln_mlp_bwd_stages(*bargs, dh, dhc, dyk)
@@ -3650,7 +3806,7 @@ def phase_bf16_swin_kernels(dev):
             bytes_b = ((5 if gy is not None else 4) * m_rows * c
                        + 2 * m_rows * f + 4 * c * f + f + c) * 2 + 3 * c * 4
             per_site(t, {"fwd": ("kernel", bytes_f, flops_f, 3),
-                         "bwd": ("kernel bwd", bytes_b, flops_b, 12)})
+                         "bwd": ("kernel bwd", bytes_b, flops_b, n_bwd)})
             tot["mlp_fwd"].add(depth, ms=t["kernel"][0],
                                device_ms=t["kernel"][1],
                                plain_ms=t["plain"][0],
@@ -3686,12 +3842,15 @@ def phase_bf16_swin_kernels(dev):
         tot["attn_bwd"].row("attn_packed_bwd_bf16", f"{src}/attention.cu",
                             f"{ops}/pallas_attention.py:517",
                             flop_rate=BF16_FLOP_PER_S),
-        tot["mlp_fwd"].row("ln_mlp_fwd_bf16", f"{src}/mlp.cu",
+        tot["mlp_fwd"].row("ln_mlp_fwd_bf16", f"{src}/gemm_wgmma_bf16.cuh",
                            f"{ops}/pallas_mlp.py:303", has_library=False,
                            flop_rate=BF16_FLOP_PER_S),
-        tot["mlp_bwd"].row("ln_mlp_bwd_bf16", f"{src}/mlp.cu",
+        tot["mlp_bwd"].row("ln_mlp_bwd_bf16", f"{src}/gemm_wgmma_bf16.cuh",
                            f"{ops}/pallas_mlp.py:322", has_library=False,
                            flop_rate=BF16_FLOP_PER_S)]
+    # the product kernels the rows ran (mlp.cu's entries launch them)
+    rows[4]["kernels_launched"] = sorted(wgmma["mlp_fwd"])
+    rows[5]["kernels_launched"] = sorted(wgmma["mlp_bwd"])
     rows[4]["composition_device_ms"] = comp["mlp_fwd"]
     rows[5]["composition_device_ms"] = comp["mlp_bwd"]
     for row, key in zip(rows, ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
@@ -4037,10 +4196,12 @@ def main() -> int:
           "of phases 22-24, which are bfloat16's", flush=True)
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report(_build)
     built = _build.build_all()
     print(f"build: {', '.join(f'{k}.cu {v:.2f} s' for k, v in built.items())}"
           f" ({time.perf_counter() - t0:.2f} s in all) into "
           f"{os.path.relpath(_build.BUILD_DIR, ROOT)}", flush=True)
+    wgmma_build_report(_build, ptxas)
 
     clock = [time.perf_counter()]
 
@@ -4231,6 +4392,10 @@ def main() -> int:
     dtype_turns = phase_bf16_swin_interleaved(_swin_cfg(), sd, stats, SEED,
                                               card)
     lap("phase 29, Swin-B float32 and bfloat16 steps in turns")
+    # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
+    # streams, whose peak memory their cuBLAS workspace would stand in
+    wgmma_rates = phase_wgmma_rates(dev)
+    lap("phase 21, gemm_wgmma_bf16's rates")
     swin_bf16_rows = phase_bf16_swin_kernels(dev)
     for row in swin_bf16_rows:
         row["launches"] = b16_launches[row["name"][:-len("_bf16")]]
@@ -4265,6 +4430,10 @@ def main() -> int:
           + json.dumps({k: {c: [round(v, 2) if v else v for v in r]
                             for c, r in calls.items()}
                         for k, calls in gemm_rates.items()}), flush=True)
+    print("gemm_wgmma_bf16 rates, TFLOP/s (the core with its epilogue, "
+          "torch.matmul at bfloat16): " + json.dumps(
+              {k: {c: [round(v, 2) for v in r] for c, r in calls.items()}
+               for k, calls in wgmma_rates.items()}), flush=True)
     print("TANet fp32 against bf16 trajectories: " + json.dumps(gate),
           flush=True)
     print("Swin-B fp32 against bf16 trajectories: " + json.dumps(swin_gate),

@@ -1532,7 +1532,7 @@ SWIN_B_LN_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
                   (6272, 512), (1568, 1024), (392, 2048), (50, 96), (7, 8),
                   (33, 24)]
 SWIN_B_MLP_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
-                   (77, 256), (9, 8)]
+                   (3136, 512), (784, 1024), (77, 256), (9, 8)]
 SWIN_B_ATTN_BF16 = [dict(b_=64, nh=4, hd=32, window=(8, 7, 7), nw=64),
                     dict(b_=128, nh=4, hd=32, window=(8, 7, 7), nw=64),
                     dict(b_=16, nh=8, hd=32, window=(8, 7, 7), nw=16),
@@ -1664,9 +1664,65 @@ def test_ln_mlp_bf16_kernels_match_plain(cuda_device, m, c):
     assert sum(fwd.values()) == 3 and _bf16_names(fwd) == fwd, fwd
     bwd = launches_of(lambda: cuda_mlp.ln_mlp_bwd_cuda(
         x, y, a, s, go, None, g, w1, w2, 1e-5))
-    assert sum(n for k, n in bwd.items() if "gemm_tiles_bf16" in k) == 4, bwd
-    assert not any(k.startswith("gemm_tiles<") for k in bwd), bwd
-    assert sum(bwd.values()) == 12, bwd
+    # the backward's products in 3 launches (dh, dy, and dw1 with dw2 in
+    # one), and at most 10 launches a call (12 on mma.sync): db1 is summed in
+    # the dh product's epilogue (its column partials per 64 rows, then
+    # reduce_partials), no col_sums_kernel pass over dh; a weight gradient
+    # whose plan leaves K in one chunk is rounded in the epilogue, with no
+    # reduce_partials launch
+    assert sum(n for k, n in fwd.items() if "gemm_wgmma_bf16" in k) == 2, fwd
+    assert sum(n for k, n in bwd.items() if "gemm_wgmma_bf16" in k) == 3, bwd
+    assert not any(k.startswith("gemm_tiles") for k in {**fwd, **bwd}), bwd
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sum(bwd.values()) == cuda_mlp.bf16_bwd_launches(m, c, f, sms), bwd
+    assert sum(n for k, n in bwd.items() if k.startswith("col_sums")) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", SWIN_B_MLP_BF16, ids=str)
+def test_bf16_gemm_plan_matches_the_kernels(cuda_device, m, c):
+    """``bf16_gemm_plan``, which the CPU tests of the summation order
+    follow, is the library's own on this card."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (cuda_mlp.bf16_gemm_plan_cuda(m, c, 4 * c)
+            == cuda_mlp.bf16_gemm_plan(m, c, 4 * c, sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(77, 64), (3136, 512), (784, 1024)],
+                         ids=str)
+def test_bf16_products_match_float32(cuda_device, m, c):
+    """Each of the six wgmma products alone, on bfloat16 operands, against
+    the float32 product of the same values: float32 outputs (dh, dy) to
+    1e-5 of their largest value, bfloat16 ones within one ulp."""
+    f = 4 * c
+    bf = lambda *shape, seed, scale=1.0: _bf16_randn(cuda_device, *shape,
+                                                      seed=seed, scale=scale)
+    y, w1, b1 = bf(m, c, seed=1), bf(f, c, seed=2, scale=c ** -0.5), \
+        bf(f, seed=3, scale=0.1)
+    a, w2, b2 = bf(m, f, seed=4), bf(c, f, seed=5, scale=f ** -0.5), \
+        bf(c, seed=6, scale=0.1)
+    go, s, gy, dhc = bf(m, c, seed=7), bf(m, f, seed=8), \
+        bf(m, c, seed=9, scale=0.1), bf(m, f, seed=10)
+    f32 = lambda t: t.float()
+    h = f32(y) @ f32(w1).t() + f32(b1)
+    ga, gs = cuda_mlp.bf16_product_cuda("h", y, w1, b1)
+    _within_one_bf16_ulp("a", ga, torch.nn.functional.gelu(h).to(BF16))
+    _within_one_bf16_ulp("s", gs, cuda_mlp.gelu_derivative(h).to(BF16))
+    _within_one_bf16_ulp("o", cuda_mlp.bf16_product_cuda("o", a, w2, b2),
+                         (f32(a) @ f32(w2).t() + f32(b2)).to(BF16))
+    dh, dhc_k = cuda_mlp.bf16_product_cuda("dh", go, w2, aux=s)
+    want = (f32(go) @ f32(w2)) * f32(s)
+    _assert_grad("dh", dh, want)
+    assert torch.equal(dhc_k, dh.to(BF16))
+    for aux in (gy, None):
+        want = f32(dhc) @ f32(w1) + (0 if aux is None else f32(aux))
+        _assert_grad("dy", cuda_mlp.bf16_product_cuda("dy", dhc, w1,
+                                                      aux=aux), want)
+    _within_one_bf16_ulp("dw1", cuda_mlp.bf16_product_cuda("dw1", dhc, y),
+                         (f32(dhc).t() @ f32(y)).to(BF16))
+    _within_one_bf16_ulp("dw2", cuda_mlp.bf16_product_cuda("dw2", go, a),
+                         (f32(go).t() @ f32(a)).to(BF16))
 
 
 @pytest.mark.cuda
@@ -1849,7 +1905,8 @@ def test_bf16_swin_runs_through_the_kernels(cuda_device):
     assert count("ln_bwd_kernel") == 6 + 3, names   # and 3 in the LN-MLPs
     assert count("attn_fwd_bf16_kernel") == 3, names
     assert count("attn_bwd_bf16_kernel") == 3, names
-    assert count("gemm_tiles_bf16") == 3 * (2 + 4), names
+    # 2 products a forward, 3 launches a backward (dw1 and dw2 in one)
+    assert count("gemm_wgmma_bf16") == 3 * (2 + 3), names
     for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
         assert count(part, bf16=False) == 0, names
     assert all(p.grad is not None and p.grad.dtype == torch.float32

@@ -1,6 +1,7 @@
 // bfloat16 tensor-core products for Hopper (sm_90a), the neighbour of
-// tf32.cuh: shared by the bfloat16 matrix product (gemm_tiles.cuh,
-// gemm_tile_bf16) and the bfloat16 window attention (attention_kernels.cuh).
+// tf32.cuh: the bfloat16 window attention's (attention_kernels.cuh), and the
+// rounding and packing helpers the bfloat16 matrix product
+// (gemm_wgmma_bf16.cuh) shares.
 //
 // mma.sync.m16n8k16 takes bfloat16 operands and adds their products to a
 // float32 accumulator.  A product of two bfloat16 values (8 significant
@@ -8,8 +9,8 @@
 // gives what vitta_tpu's dot_general(bf16, bf16, preferred_element_type=
 // float32) gives, up to the order of the float32 additions: no split, as
 // the float32 kernels need (3xTF32, tf32.cuh).  The tensor cores still add
-// into their accumulator with truncation, so the callers keep gemm_tiles'
-// fresh accumulator per staged slice.
+// into their accumulator with truncation, so a long sum takes fresh
+// accumulators per staged slice (gemm_tiles.cuh).
 //
 // Fragments of m16n8k16 (g = lane / 4, t = lane % 4), each register two
 // bfloat16 values, the lower column first:

@@ -61,22 +61,13 @@
 // VITTA_GEMM_BK, VITTA_GEMM_STAGES and VITTA_GEMM_FRESH and times them;
 // tools/pair_variants.py times a pair as one launch against two.
 //
-// gemm_tile_bf16 is the same product on bfloat16 operands, for the
-// bfloat16 LayerNorm-MLP (mlp.cu; vitta_tpu's Pallas kernels at the compute
-// dtype, pallas_mlp.py:303-353): the same tiles, warps, ring of cp.async
-// slices (16-byte copies of 8 values) and k-minor / k-major layouts, each
-// fragment one mma.sync.m16n8k16 bfloat16 product (bf16.cuh; exact
-// products, no split), a k-minor operand by ldmatrix and a k-major one by
-// ldmatrix.trans, a fresh accumulator per slice of 32 k as above.  Its
-// epilogues read a bfloat16 bias or aux and write float32 and / or
-// bfloat16 (Bf16Out), rounded once; the weight gradients' partials stay
-// float32 and reduce_partials rounds their sum once.  Every extent but the
-// activation's rows must be a multiple of 8 (16-byte rows of bfloat16).
+// The bfloat16 products of the LayerNorm-MLP run on wgmma instead
+// (gemm_wgmma_bf16.cuh), which uses this header's epilogue codes and
+// gelu_parts.
 
 #pragma once
 #include <cuda_runtime.h>
 
-#include "bf16.cuh"
 #include "launches.cuh"
 #include "reduce.cuh"
 #include "tf32.cuh"
@@ -605,277 +596,6 @@ inline bool add_grad_sums(PartialSums& sums, const float* partial, float* dw,
   const long long stride = (long long)M * N + M;
   return sums.add(partial, stride, dw, p.splits, (long long)M * N) &&
          sums.add(partial + (long long)M * N, stride, db, p.splits, M);
-}
-
-// ------------------------------------------------------------- bfloat16
-
-// The slice of a bfloat16 operand whose tile has R rows: k-minor [R][BK]
-// with stride BK + 8 values (80 bytes at BK = 32), k-major [BK][R] with
-// stride R + 8 (272 or 144 bytes): the eight 16-byte rows one ldmatrix
-// reads lie in different banks, and every row starts on 16 bytes.
-template <int R, bool KM>
-struct SliceB16 {
-  static constexpr int ld = KM ? R + 8 : kGemmBK + 8;
-  static constexpr int elems = KM ? kGemmBK * ld : R * ld;
-};
-
-// stage_slice at bfloat16: 16-byte copies of 8 values (rows a multiple of
-// 8 where the operand is k-major, K where it is k-minor).
-template <int R, bool KM, int kThreads>
-__device__ __forceinline__ void stage_slice_bf16(bf16* dst,
-                                                 const bf16* __restrict__ src,
-                                                 int rows, int K, int r0,
-                                                 int k0, int kend, int tid) {
-  constexpr int kChunks = R * kGemmBK / 8;
-  static_assert(kChunks % kThreads == 0, "whole copies per thread");
-  constexpr int kPerLine = KM ? R / 8 : kGemmBK / 8;
-#pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int line = idx / kPerLine, q = (idx % kPerLine) * 8;
-    if (KM) {
-      const bool ok = k0 + line < kend && r0 + q < rows;
-      cp_async16(dst + line * SliceB16<R, KM>::ld + q,
-                 ok ? src + (size_t)(k0 + line) * rows + r0 + q : src, ok);
-    } else {
-      const bool ok = r0 + line < rows && k0 + q < kend;
-      cp_async16(dst + line * SliceB16<R, KM>::ld + q,
-                 ok ? src + (size_t)(r0 + line) * K + k0 + q : src, ok);
-    }
-  }
-}
-
-// Where a bfloat16 product's epilogue writes: float32 (f), bfloat16 (b),
-// both, and under EPI_GELU the derivative (s, bfloat16); null: not wanted.
-// EPI_RAW writes f only, chunk bz at f + bz * M * N.
-struct Bf16Out {
-  float* f;
-  bf16* b;
-  bf16* s;
-};
-
-// gemm_tile on bfloat16 operands: A, B, bias and aux bfloat16, the sums
-// float32.  Epilogues as gemm_tile's: EPI_BIAS and EPI_GELU add the bias
-// (its bfloat16 value), EPI_GELU writes gelu and its derivative, EPI_MUL
-// multiplies by aux, EPI_ADD adds aux where it is not null.
-template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
-__device__ __forceinline__ void gemm_tile_bf16(
-    const bf16* __restrict__ A, const bf16* __restrict__ B,
-    const bf16* __restrict__ bias, const bf16* __restrict__ aux,
-    const Bf16Out& out, int M, int N, int K, int kchunk, int bx, int by,
-    int bz, bf16* smem) {
-  constexpr int kThreads = GemmShape<BM, BN, WM, WN>::threads;
-  constexpr int MI = WM / 16, NI = WN / 8;      // mma tiles of a warp
-  using SA = SliceB16<BM, A_KM>;
-  using SB = SliceB16<BN, B_KM>;
-  constexpr int kStage = SA::elems + SB::elems;
-  static_assert(WM % 16 == 0 && WN % 16 == 0, "whole mma tiles, in pairs");
-  static_assert(kGemmBK % 16 == 0, "whole k16 steps a slice");
-  static_assert(EPI != EPI_PART, "no column sums at bfloat16");
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;         // mma's g and t
-  const int ql = lane >> 3, rl = lane & 7;       // ldmatrix's matrix and row
-  const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
-  const int m0 = by * BM, n0 = bx * BN;
-  const int kbeg = bz * kchunk;
-  const int kend = kbeg + kchunk < K ? kbeg + kchunk : K;
-  const int nk = (kend - kbeg + kGemmBK - 1) / kGemmBK;
-
-  auto stage = [&](int slot, int k0) {
-    bf16* As = smem + slot * kStage;
-    stage_slice_bf16<BM, A_KM, kThreads>(As, A, M, K, m0, k0, kend, tid);
-    stage_slice_bf16<BN, B_KM, kThreads>(As + SA::elems, B, N, K, n0, k0,
-                                         kend, tid);
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < nk) stage(s, kbeg + s * kGemmBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kGemmStages - 2>();     // slice kt has landed
-    __syncthreads();                      // and slice kt - 1 is read by all
-    const int next = kt + kGemmStages - 1;
-    if (next < nk) stage(next % kGemmStages, kbeg + next * kGemmBK);
-    cp_async_commit();
-    const bf16* As = smem + (kt % kGemmStages) * kStage;
-    const bf16* Bs = As + SA::elems;
-    // the slice's products into fresh sums, k16 step by k16 step: the
-    // warp's B fragments two 8-column tiles at a time, then one A fragment
-    // at a time; lane l addresses row l % 8 of matrix l / 8 (bf16.cuh)
-    float d[MI][NI][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-      unsigned bfr[NI][2];
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {
-        unsigned r[4];
-        if (B_KM)
-          ldsm_x4_trans(r, Bs + (16 * kk + rl + 8 * (ql & 1)) * SB::ld + wn0 +
-                               8 * j + 8 * (ql >> 1));
-        else
-          ldsm_x4(r, Bs + (wn0 + 8 * j + rl + 8 * (ql >> 1)) * SB::ld +
-                         16 * kk + 8 * (ql & 1));
-        bfr[j][0] = r[0], bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2], bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        unsigned af[4];
-        if (A_KM)
-          ldsm_x4_trans(af, As + (16 * kk + rl + 8 * (ql >> 1)) * SA::ld +
-                                wm0 + 16 * i + 8 * (ql & 1));
-        else
-          ldsm_x4(af, As + (wm0 + 16 * i + rl + 8 * (ql & 1)) * SA::ld +
-                          16 * kk + 8 * (ql >> 1));
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_bf16(d[i][j], af, bfr[j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
-  }
-
-  // the epilogue on accumulator element pairs (row, col), (row, col + 1):
-  // col is even and N a multiple of 8, so both lie inside or both outside
-  float* outf = out.f;
-  if (EPI == EPI_RAW) outf += (size_t)bz * M * N;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm0 + 16 * i + g + 8 * half;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int col = n0 + wn0 + 8 * j + 2 * t;
-        if (col >= N) continue;
-        float v0 = acc[i][j][2 * half], v1 = acc[i][j][2 * half + 1];
-        const size_t at = (size_t)row * N + col;
-        if (EPI == EPI_BIAS || EPI == EPI_GELU) {
-          const unsigned w = *reinterpret_cast<const unsigned*>(bias + col);
-          v0 += bf16_lo(w), v1 += bf16_hi(w);
-        }
-        if (EPI == EPI_GELU) {
-          float s0, s1;
-          gelu_parts(v0, v0, s0);
-          gelu_parts(v1, v1, s1);
-          if (out.s != nullptr)
-            *reinterpret_cast<unsigned*>(out.s + at) = pack_bf16(s0, s1);
-        }
-        if (EPI == EPI_MUL || (EPI == EPI_ADD && aux != nullptr)) {
-          const unsigned w = *reinterpret_cast<const unsigned*>(aux + at);
-          if (EPI == EPI_MUL)
-            v0 *= bf16_lo(w), v1 *= bf16_hi(w);
-          else
-            v0 += bf16_lo(w), v1 += bf16_hi(w);
-        }
-        if (outf != nullptr)
-          *reinterpret_cast<float2*>(outf + at) = make_float2(v0, v1);
-        if (EPI != EPI_RAW && out.b != nullptr)
-          *reinterpret_cast<unsigned*>(out.b + at) = pack_bf16(v0, v1);
-      }
-    }
-}
-
-template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
-__global__ void __launch_bounds__(GemmShape<BM, BN, WM, WN>::threads,
-                                  GemmShape<BM, BN, WM, WN>::blocks)
-gemm_tiles_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                const bf16* __restrict__ bias, const bf16* __restrict__ aux,
-                const Bf16Out out, int M, int N, int K, int kchunk) {
-  extern __shared__ __align__(16) unsigned char gemm_smem_bf16[];
-  gemm_tile_bf16<BM, BN, WM, WN, A_KM, B_KM, EPI>(
-      A, B, bias, aux, out, M, N, K, kchunk, blockIdx.x, blockIdx.y,
-      blockIdx.z, reinterpret_cast<bf16*>(gemm_smem_bf16));
-}
-
-template <int BM, int BN, int WM, int WN, bool A_KM, bool B_KM, int EPI>
-cudaError_t launch_tiles_bf16(dim3 grid, const bf16* A, const bf16* B,
-                              const bf16* bias, const bf16* aux,
-                              const Bf16Out& out, int M, int N, int K,
-                              int kchunk, cudaStream_t stream) {
-  const auto kernel = gemm_tiles_bf16<BM, BN, WM, WN, A_KM, B_KM, EPI>;
-  constexpr size_t smem =
-      sizeof(bf16) * kGemmStages *
-      (SliceB16<BM, A_KM>::elems + SliceB16<BN, B_KM>::elems);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, GemmShape<BM, BN, WM, WN>::threads, smem, stream>>>(
-      A, B, bias, aux, out, M, N, K, kchunk);
-  static const std::string name =
-      template_name("gemm_tiles_bf16", BM, BN, WM, WN, A_KM, B_KM, EPI);
-  count_launch(name.c_str());
-  return cudaGetLastError();
-}
-
-// launch_gemm at bfloat16: A (M, K) k-minor; the same choice of tile.
-template <bool B_KM, int EPI>
-cudaError_t launch_gemm_bf16(const bf16* A, const bf16* B, const bf16* bias,
-                             const bf16* aux, const Bf16Out& out, int M,
-                             int N, int K, cudaStream_t stream) {
-  const long long big = (long long)((M + 127) / 128) * ((N + 127) / 128);
-  if (big >= 2LL * sm_count())
-    return launch_tiles_bf16<128, 128, 64, 32, false, B_KM, EPI>(
-        dim3((N + 127) / 128, (M + 127) / 128), A, B, bias, aux, out, M, N, K,
-        K, stream);
-  return launch_tiles_bf16<64, 64, 32, 32, false, B_KM, EPI>(
-      dim3((N + 63) / 64, (M + 63) / 64), A, B, bias, aux, out, M, N, K, K,
-      stream);
-}
-
-// Floats of the float32 partials of a bfloat16 weight gradient: every
-// chunk's, one chunk included (its sum is rounded by the reduce).
-inline long long grad_partial_floats_bf16(int M, int N, int K) {
-  return (long long)grad_plan(M, N, K).splits * M * N;
-}
-
-// out (M, N) bfloat16 = A^T B with A (K, M) and B (K, N) bfloat16, summed
-// over the K rows in float32 chunks into `partial` and then over the chunks
-// in order by reduce_partials, which rounds once: two launches.
-inline cudaError_t launch_grad_gemm_bf16(const bf16* A, const bf16* B,
-                                         bf16* out, float* partial, int M,
-                                         int N, int K, cudaStream_t stream) {
-  const GradPlan p = grad_plan(M, N, K);
-  const dim3 grid((N + p.tile - 1) / p.tile, (M + p.tile - 1) / p.tile,
-                  p.splits);
-  const Bf16Out dst{partial, nullptr, nullptr};
-  cudaError_t e =
-      p.tile == 128
-          ? launch_tiles_bf16<128, 128, 64, 32, true, true, EPI_RAW>(
-                grid, A, B, nullptr, nullptr, dst, M, N, K, p.kchunk, stream)
-          : launch_tiles_bf16<64, 64, 32, 32, true, true, EPI_RAW>(
-                grid, A, B, nullptr, nullptr, dst, M, N, K, p.kchunk, stream);
-  if (e != cudaSuccess) return e;
-  return launch_reduce_partials(partial, out, p.splits, (long long)M * N,
-                                stream);
 }
 
 }  // namespace vitta

@@ -49,6 +49,13 @@
 // added in a fixed order.  db1, db2, dgamma and dbeta are summed the same
 // way (reduce.cuh).
 //
+// At bfloat16 (vitta_lnmlp_{fwd,bwd}_bf16, the Pallas kernels at the
+// compute dtype) the launches are the same but the six products run on
+// gemm_wgmma_bf16 (gemm_wgmma_bf16.cuh: wgmma fed by TMA, a fresh float32
+// sum per 64-deep slice, each value rounded once in the epilogue), each
+// cut by its own plan (bf16_plan), and the weight gradients' chunks are
+// added in order by reduce_partials, which rounds once.
+//
 // Without the LayerNorm (the widths that are no multiple of 128: Video
 // Swin-T's and Swin-S's 96 and 192) the same products run on x itself:
 // forward launches 2 and 3 above on x, o = gelu(x w1^T + b1) w2^T + b2;
@@ -62,6 +69,7 @@
 #include <initializer_list>
 
 #include "gemm_tiles.cuh"
+#include "gemm_wgmma_bf16.cuh"
 #include "ln_rows.cuh"
 
 namespace {
@@ -107,10 +115,118 @@ bool bad_dims(int m, int c, int f) {
          (m + 63) / 64 > 65535;
 }
 
+// The six bfloat16 products, as the entries below run them.
+constexpr int kH = 0, kO = 1, kDh = 2, kDy = 3, kDw1 = 4, kDw2 = 5;
+constexpr int kProducts = 6;
+
+// A product's extents: C (M, N) over K, A (a_rows, a_cols) and B
+// (b_rows, b_cols) as they lie in device memory.
+struct Dims {
+  int M, N, K;
+  long long a_rows, a_cols, b_rows, b_cols;
+};
+
+Dims product_dims(int which, int m, int c, int f) {
+  switch (which) {
+    case kH:   return Dims{m, f, c, m, c, f, c};    // y w1^T
+    case kO:   return Dims{m, c, f, m, f, c, f};    // a w2^T
+    case kDh:  return Dims{m, f, c, m, c, c, f};    // go w2
+    case kDy:  return Dims{m, c, f, m, f, f, c};    // dhc w1
+    case kDw1: return Dims{f, c, m, m, f, m, c};    // dhc^T y
+    default:   return Dims{c, f, m, m, c, m, f};    // go^T a
+  }
+}
+
+bool is_grad(int which) { return which == kDw1 || which == kDw2; }
+
+// A product's plan.  The two weight gradients share one launch: their
+// chunks of K are cut for the tiles of both, and both report its grid.
+WgPlan bf16_plan(int which, int m, int c, int f) {
+  const Dims d = product_dims(which, m, c, f);
+  if (!is_grad(which)) return wg_row_plan(d.M, d.N, d.K, sm_count());
+  const Dims o = product_dims(which == kDw1 ? kDw2 : kDw1, m, c, f);
+  const long long tiles = wg_grad_tiles(d.M, d.N) + wg_grad_tiles(o.M, o.N);
+  WgPlan p = wg_grad_plan(d.M, d.N, d.K, tiles, sm_count());
+  const int work =
+      p.work + wg_grad_plan(o.M, o.N, o.K, tiles, sm_count()).work;
+  const int slots = (p.bm == 64 ? 2 : 1) * sm_count();
+  p.grid = work < slots ? work : slots;
+  return p;
+}
+
+// The float32 partials a product writes: a weight gradient's chunks where
+// its plan cuts K (one chunk is rounded in the epilogue), a row product's
+// likewise (VITTA_WG_ROW_SPLIT), else dh's column sums per 64 rows.
+long long product_scratch_floats(int which, int m, int c, int f) {
+  const Dims d = product_dims(which, m, c, f);
+  const WgPlan p = bf16_plan(which, m, c, f);
+  if (p.splits > 1) return (long long)p.splits * d.M * d.N;
+  return which == kDh ? colsum_partials(m) * f : 0;
+}
+
+// Weight gradient `which` as wgmma_grads takes it.
+WgGrad grad_job(int which, const CUtensorMap& ta, const CUtensorMap& tb,
+                bf16* out, float* partial, int m, int c, int f) {
+  const Dims d = product_dims(which, m, c, f);
+  return WgGrad{&ta, &tb, d.M, d.N, d.K, bf16_plan(which, m, c, f), out,
+                partial};
+}
+
+// A weight gradient's chunks, where its plan cuts K, added in order into
+// its output and rounded once.
+cudaError_t grad_sums(const WgGrad& g, cudaStream_t st) {
+  if (g.plan.splits == 1) return cudaSuccess;
+  return launch_reduce_partials(g.partial, g.out, g.plan.splits,
+                                (long long)g.M * g.N, st);
+}
+
+// Product `which` on the operands behind ta and tb: the row products'
+// epilogues write `out` (dh's also its column sums per 64 rows to
+// `colsum`, where it is not null); a weight gradient goes to grad_out,
+// through its chunks' partials at `partial` where its plan cuts K (then two
+// launches).  A row product cut into chunks needs `partial` too, and is
+// refused without it.
+cudaError_t run_product(int which, const CUtensorMap& ta,
+                        const CUtensorMap& tb, const bf16* bias,
+                        const bf16* aux, const Bf16Out& out, float* partial,
+                        bf16* grad_out, int m, int c, int f, cudaStream_t st,
+                        float* colsum = nullptr) {
+  const Dims d = product_dims(which, m, c, f);
+  const WgPlan p = bf16_plan(which, m, c, f);
+  if (which < kDw1 && p.splits > 1 && partial == nullptr)
+    return cudaErrorNotSupported;
+  switch (which) {
+    case kH:
+      return wgmma_product<false, false, EPI_GELU>(ta, tb, bias, nullptr, out,
+                                                   partial, d.M, d.N, d.K, p,
+                                                   st);
+    case kO:
+      return wgmma_product<false, false, EPI_BIAS>(ta, tb, bias, nullptr, out,
+                                                   partial, d.M, d.N, d.K, p,
+                                                   st);
+    case kDh:
+      return wgmma_product<false, true, EPI_MUL>(ta, tb, nullptr, aux, out,
+                                                 partial, d.M, d.N, d.K, p,
+                                                 st, colsum);
+    case kDy:
+      return wgmma_product<false, true, EPI_ADD>(ta, tb, nullptr, aux, out,
+                                                 partial, d.M, d.N, d.K, p,
+                                                 st);
+    default: {
+      const WgGrad g = grad_job(which, ta, tb, grad_out, partial, m, c, f);
+      const cudaError_t e = wgmma_grads(g, nullptr, st);
+      return e != cudaSuccess ? e : grad_sums(g, st);
+    }
+  }
+}
+
+const bf16* as_bf16(const void* p) { return reinterpret_cast<const bf16*>(p); }
+
 // The bfloat16 backward's scratch, in floats and in this order: dh (m, f)
 // float32, dhc (m, f) bfloat16, dy (m, c) float32, the LayerNorm
-// backward's, the partial weight-gradient products (one chunk or more),
-// the partial column sums.
+// backward's, the weight gradients' float32 partials (dw1's, then dw2's,
+// where their plans cut K), the partial column sums of db1 and then of
+// db2.
 struct Bf16BwdScratch {
   long long dh, dhc, dy, ln, grad, cols;
   long long total() const { return dh + dhc + dy + ln + grad + cols; }
@@ -122,9 +238,11 @@ Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f) {
   s.dhc = ((long long)m * f / 2 + 3) / 4 * 4;
   s.dy = (long long)m * c;
   s.ln = (vitta::ln_bwd_scratch_floats(m, c) + 3) / 4 * 4;
-  s.grad = max2(grad_partial_floats_bf16(f, c, m),
-                grad_partial_floats_bf16(c, f, m));
-  s.cols = (long long)vitta::col_chunks(m) * f;
+  s.grad = product_scratch_floats(kDw1, m, c, f) +
+           product_scratch_floats(kDw2, m, c, f);
+  // db1's column partials (the dh product's, a row per 64 rows), then
+  // db2's (col_sums of go), one after the other
+  s.cols = max2(colsum_partials(m) * f, (long long)vitta::col_chunks(m) * c);
   return s;
 }
 
@@ -264,6 +382,9 @@ int vitta_mlp_bwd(const float* x, const float* a, const float* s,
 // bfloat16, gamma, beta, dgb and the scratch float32.  Every bfloat16 and
 // float32 pointer must be 16-byte aligned and c and f multiples of 8:
 // anything else is refused (cudaErrorMisalignedAddress / InvalidValue).
+// The six products run on gemm_wgmma_bf16 (gemm_wgmma_bf16.cuh), each by
+// its plan (bf16_plan); the entries encode one tensor map per operand
+// tensor, before their first launch.
 
 int vitta_lnmlp_fwd_bf16(const void* x, const float* gamma, const float* beta,
                          const void* w1, const void* b1, const void* w2,
@@ -276,16 +397,20 @@ int vitta_lnmlp_fwd_bf16(const void* x, const float* gamma, const float* beta,
   const bf16* xb = reinterpret_cast<const bf16*>(x);
   bf16* yb = reinterpret_cast<bf16*>(y);
   bf16* ab = reinterpret_cast<bf16*>(a);
+  CUtensorMap my, mw1, ma, mw2;
+  if (!make_map(&my, yb, m, c) || !make_map(&mw1, as_bf16(w1), f, c) ||
+      !make_map(&ma, ab, m, f) || !make_map(&mw2, as_bf16(w2), c, f))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = vitta::launch_ln_rows(xb, gamma, beta, yb, m, c, eps, st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_bf16<false, EPI_GELU>(
-      yb, reinterpret_cast<const bf16*>(w1), reinterpret_cast<const bf16*>(b1),
-      nullptr, Bf16Out{nullptr, ab, reinterpret_cast<bf16*>(s)}, m, f, c, st);
+  e = run_product(kH, my, mw1, as_bf16(b1), nullptr,
+                  Bf16Out{nullptr, ab, reinterpret_cast<bf16*>(s)}, nullptr,
+                  nullptr, m, c, f, st);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_gemm_bf16<false, EPI_BIAS>(
-      ab, reinterpret_cast<const bf16*>(w2), reinterpret_cast<const bf16*>(b2),
-      nullptr, Bf16Out{nullptr, reinterpret_cast<bf16*>(o), nullptr}, m, c, f,
-      st);
+  return (int)run_product(kO, ma, mw2, as_bf16(b2), nullptr,
+                          Bf16Out{nullptr, reinterpret_cast<bf16*>(o),
+                                  nullptr},
+                          nullptr, nullptr, m, c, f, st);
 }
 
 // Floats of scratch vitta_lnmlp_bwd_bf16 needs.
@@ -309,6 +434,25 @@ void vitta_lnmlp_bwd_bf16_plan(int m, int c, int f, long long* offsets) {
   offsets[2] = sz.dh + sz.dhc;
 }
 
+// How the six products are cut on this card, in the order h, o, dh, dy,
+// dw1, dw2: six ints each, the tile's rows and columns, the chunks of K,
+// their length, the persistent grid and the block's dynamic shared memory
+// in bytes (out: 36 ints); all -1 for dimensions the entries refuse.
+void vitta_lnmlp_bf16_plan(int m, int c, int f, int* out) {
+  for (int which = 0; which < kProducts; ++which) {
+    int* q = out + 6 * which;
+    if (bad_dims_bf16(m, c, f)) {
+      q[0] = q[1] = q[2] = q[3] = q[4] = q[5] = -1;
+      continue;
+    }
+    const WgPlan p = bf16_plan(which, m, c, f);
+    q[0] = p.bm, q[1] = p.bn, q[2] = p.splits, q[3] = p.kchunk, q[4] = p.grid;
+    q[5] = p.bm == 64    ? WgShape<64, 128, kStages64>::smem
+           : p.bn == 256 ? WgShape<128, 256, 3>::smem
+                         : WgShape<128, 128, kStages128>::smem;
+  }
+}
+
 int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
                          const void* s, const void* go, const void* gy,
                          const float* gamma, const void* w1, const void* w2,
@@ -329,27 +473,38 @@ int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
   float* ln = dy + sz.dy;
   float* grad = ln + sz.ln;
   float* cols = grad + sz.grad;
-  const bf16* gob = reinterpret_cast<const bf16*>(go);
-  // dh = (go w2) * s, float32 and rounded; then dy = dhc w1 + gy
-  cudaError_t e = launch_gemm_bf16<true, EPI_MUL>(
-      gob, reinterpret_cast<const bf16*>(w2), nullptr,
-      reinterpret_cast<const bf16*>(s), Bf16Out{dh, dhc, nullptr}, m, f, c,
-      st);
+  const bf16* gob = as_bf16(go);
+  CUtensorMap mgo, mw2, mdhc, mw1, my, ma;
+  if (!make_map(&mgo, gob, m, c) || !make_map(&mw2, as_bf16(w2), c, f) ||
+      !make_map(&mdhc, dhc, m, f) || !make_map(&mw1, as_bf16(w1), f, c) ||
+      !make_map(&my, as_bf16(y), m, c) || !make_map(&ma, as_bf16(a), m, f))
+    return (int)cudaErrorInvalidValue;
+  // dh = (go w2) * s, float32 and rounded, with its column sums per 64
+  // rows, added in order into db1; then dy = dhc w1 + gy
+  cudaError_t e = run_product(kDh, mgo, mw2, nullptr, as_bf16(s),
+                              Bf16Out{dh, dhc, nullptr}, nullptr, nullptr,
+                              m, c, f, st, cols);
   if (e != cudaSuccess) return (int)e;
-  e = launch_gemm_bf16<true, EPI_ADD>(
-      dhc, reinterpret_cast<const bf16*>(w1), nullptr,
-      reinterpret_cast<const bf16*>(gy), Bf16Out{dy, nullptr, nullptr}, m, c,
-      f, st);
+  e = launch_reduce_partials(cols, reinterpret_cast<bf16*>(db1),
+                             (int)colsum_partials(m), (long long)f, st);
   if (e != cudaSuccess) return (int)e;
-  // dw1 = dhc^T y, dw2 = go^T a, over all m rows, rounded once
-  e = launch_grad_gemm_bf16(dhc, reinterpret_cast<const bf16*>(y),
-                            reinterpret_cast<bf16*>(dw1), grad, f, c, m, st);
+  e = run_product(kDy, mdhc, mw1, nullptr, as_bf16(gy),
+                  Bf16Out{dy, nullptr, nullptr}, nullptr, nullptr, m, c, f,
+                  st);
   if (e != cudaSuccess) return (int)e;
-  e = launch_grad_gemm_bf16(gob, reinterpret_cast<const bf16*>(a),
-                            reinterpret_cast<bf16*>(dw2), grad, c, f, m, st);
+  // dw1 = dhc^T y and dw2 = go^T a, over all m rows, in one launch, each
+  // rounded once: in the epilogue, or where K is cut into chunks by the
+  // ordered sum of their partials
+  const WgGrad g1 = grad_job(kDw1, mdhc, my, reinterpret_cast<bf16*>(dw1),
+                             grad, m, c, f);
+  const WgGrad g2 = grad_job(kDw2, mgo, ma, reinterpret_cast<bf16*>(dw2),
+                             grad + product_scratch_floats(kDw1, m, c, f), m,
+                             c, f);
+  e = wgmma_grads(g1, &g2, st);
   if (e != cudaSuccess) return (int)e;
-  e = vitta::launch_col_sums(dh, cols, reinterpret_cast<bf16*>(db1), m, f,
-                             st);
+  e = grad_sums(g1, st);
+  if (e != cudaSuccess) return (int)e;
+  e = grad_sums(g2, st);
   if (e != cudaSuccess) return (int)e;
   e = vitta::launch_col_sums(gob, cols, reinterpret_cast<bf16*>(db2), m, c,
                              st);
@@ -362,6 +517,45 @@ int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
                                                         (const float*)dy, dxb,
                                                         c),
                                    st);
+}
+
+// Floats of scratch vitta_lnmlp_bf16_product needs for product `which`.
+long long vitta_lnmlp_bf16_product_scratch_floats(int which, int m, int c,
+                                                  int f) {
+  if (bad_dims_bf16(m, c, f) || which < 0 || which >= kProducts) return -1;
+  return product_scratch_floats(which, m, c, f);
+}
+
+// One of the six products alone, by the plan the entries use, for timing
+// and checks (chip_smoke.py phase 21, tools/gemm_variants.py); the port's
+// path does not call it.  which: 0 h, 1 o, 2 dh, 3 dy, 4 dw1, 5 dw2.  A and
+// B as that product reads them: h y (m, c), w1 (f, c); o a (m, f), w2
+// (c, f); dh go (m, c), w2; dy dhc (m, f), w1; dw1 dhc, y (m, c); dw2 go,
+// a.  bias b1 (h) or b2 (o); aux s (dh) or gy (dy, may be null).  out_f
+// float32 dh or dy; out_b bfloat16 a (h), o, dhc (dh), dw1 or dw2; out_s s
+// (h, may be null).  partial: the floats the entry above names (dh also
+// writes its column sums there, as the backward does).
+int vitta_lnmlp_bf16_product(int which, const void* A, const void* B,
+                             const void* bias, const void* aux, float* out_f,
+                             void* out_b, void* out_s, float* partial, int m,
+                             int c, int f, void* stream) {
+  if (bad_dims_bf16(m, c, f) || which < 0 || which >= kProducts)
+    return (int)cudaErrorInvalidValue;
+  if (!all_aligned16({A, B, bias, aux, out_f, out_b, out_s, partial}))
+    return (int)cudaErrorMisalignedAddress;
+  const Dims d = product_dims(which, m, c, f);
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, as_bf16(A), d.a_rows, d.a_cols) ||
+      !make_map(&tb, as_bf16(B), d.b_rows, d.b_cols))
+    return (int)cudaErrorInvalidValue;
+  const bool grad = is_grad(which);
+  const bool sums = which == kDh && bf16_plan(which, m, c, f).splits == 1;
+  bf16* ob = reinterpret_cast<bf16*>(out_b);
+  return (int)run_product(
+      which, ta, tb, as_bf16(bias), as_bf16(aux),
+      grad ? Bf16Out{} : Bf16Out{out_f, ob, reinterpret_cast<bf16*>(out_s)},
+      partial, grad ? ob : nullptr, m, c, f, (cudaStream_t)stream,
+      sums ? partial : nullptr);
 }
 
 }  // extern "C"

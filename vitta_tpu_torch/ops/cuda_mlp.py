@@ -158,8 +158,144 @@ def _lib():
         lib.vitta_lnmlp_bwd_bf16_plan.argtypes = [
             i, i, i, ctypes.POINTER(ctypes.c_longlong)]
         lib.vitta_lnmlp_bwd_bf16_plan.restype = None
+        lib.vitta_lnmlp_bf16_plan.argtypes = [i, i, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+        lib.vitta_lnmlp_bf16_plan.restype = None
+        lib.vitta_lnmlp_bf16_product.argtypes = [i] + [p] * 8 + [i, i, i, p]
+        lib.vitta_lnmlp_bf16_product.restype = i
+        lib.vitta_lnmlp_bf16_product_scratch_floats.argtypes = [i, i, i, i]
+        lib.vitta_lnmlp_bf16_product_scratch_floats.restype = \
+            ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+# The six products of the bfloat16 kernels, in the order the library's plan
+# gives them, each as C (M, N) over K from (m, c, f): h = y w1^T, o = a
+# w2^T, dh = go w2, dy = dhc w1, dw1 = dhc^T y, dw2 = go^T a.
+BF16_PRODUCTS = ("h", "o", "dh", "dy", "dw1", "dw2")
+BF16_PLAN_KEYS = ("bm", "bn", "splits", "kchunk", "grid", "smem")
+_SLICE = 64           # k depth of the core's slices (gemm_wgmma_bf16.cuh)
+_GRAD_ROWS = 512      # a weight gradient's chunk of K is at least this
+# ring slots of the 128- and 64-row tiles (VITTA_WG_STAGES_128 / _64)
+_STAGES = {128: 4, 64: 3}
+
+
+def wgmma_smem_bytes(bm: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of a gemm_wgmma_bf16 block (WgShape::smem):
+    1024 bytes of alignment slack, the ring of 64-deep slices of A and B
+    (8192 bytes a 64 x 64 box), the consumers' float32 staging rows (64 x
+    136 a warpgroup) and two mbarriers a slot."""
+    return (1024 + stages * (bm + bn) // 64 * 8192
+            + bm // 64 * 64 * 136 * 4 + 2 * stages * 8)
+
+
+def bf16_product_dims(m: int, c: int, f: int):
+    """{product: (M, N, K)} of the six bfloat16 products."""
+    return {"h": (m, f, c), "o": (m, c, f), "dh": (m, f, c),
+            "dy": (m, c, f), "dw1": (f, c, m), "dw2": (c, f, m)}
+
+
+def bf16_gemm_plan(m: int, c: int, f: int, sms: int = 132):
+    """How the bfloat16 core cuts each product on a card of ``sms`` SMs, as
+    ``wg_row_plan`` / ``wg_grad_plan`` in csrc/gemm_wgmma_bf16.cuh:
+    {product: {bm, bn, splits, kchunk, grid, smem}}.  A row product takes
+    64 x 128 tiles (two blocks an SM) where cdiv(t64, sms) < 2 cdiv(t128,
+    sms), or the two tie and t128 < 2 sms, else 128 x 128 (one), over all
+    of K; the two weight gradients, in one launch, 128 x 128 tiles and
+    min(sms // their tiles, K // 512) chunks of K each (at least one), a
+    multiple of 64 long, added in chunk order; the launch's grid is
+    min(their work items, SMs)."""
+    cdiv = lambda a, b: -(-a // b)
+    dims = bf16_product_dims(m, c, f)
+    grad_tiles = sum(cdiv(dims[k][0], 128) * cdiv(dims[k][1], 128)
+                     for k in ("dw1", "dw2"))
+    plan, work = {}, {}
+    for name, (mm, nn, kk) in dims.items():
+        if name in ("dw1", "dw2"):
+            bm = 128
+            splits = min(max(sms // grad_tiles, 1),
+                         max(kk // _GRAD_ROWS, 1))
+        else:
+            t128 = cdiv(mm, 128) * cdiv(nn, 128)
+            t64 = cdiv(mm, 64) * cdiv(nn, 128)
+            w64, w128 = cdiv(t64, sms), 2 * cdiv(t128, sms)
+            bm = 64 if w64 < w128 or (w64 == w128 and t128 < 2 * sms) \
+                else 128
+            splits = 1
+        kchunk = cdiv(cdiv(kk, splits), _SLICE) * _SLICE
+        splits = cdiv(kk, kchunk)
+        work[name] = cdiv(mm, bm) * cdiv(nn, 128) * splits
+        grid = min(work[name], (2 if bm == 64 else 1) * sms)
+        plan[name] = dict(zip(BF16_PLAN_KEYS, (
+            bm, 128, splits, kchunk, grid,
+            wgmma_smem_bytes(bm, 128, _STAGES[bm]))))
+    # the two weight gradients share one launch: its grid
+    for name in ("dw1", "dw2"):
+        plan[name]["grid"] = min(work["dw1"] + work["dw2"], sms)
+    return plan
+
+
+def bf16_bwd_launches(m: int, c: int, f: int, sms: int = 132) -> int:
+    """Launches of one bfloat16 backward call: dh with db1's column
+    partials, their ordered sum, dy, both weight gradients in one launch
+    and the ordered sums of those whose plan cuts K, db2's column sums (two)
+    and the LayerNorm backward (two)."""
+    plan = bf16_gemm_plan(m, c, f, sms)
+    return 8 + sum(plan[k]["splits"] > 1 for k in ("dw1", "dw2"))
+
+
+def bf16_gemm_plan_cuda(m: int, c: int, f: int):
+    """The library's own plan of the six products on this card (the same
+    keys as ``bf16_gemm_plan``)."""
+    k = len(BF16_PLAN_KEYS)
+    out = (ctypes.c_int * (k * len(BF16_PRODUCTS)))()
+    _lib().vitta_lnmlp_bf16_plan(m, c, f, out)
+    return {name: dict(zip(BF16_PLAN_KEYS, out[k * i:k * i + k]))
+            for i, name in enumerate(BF16_PRODUCTS)}
+
+
+def bf16_product_cuda(name: str, a, b, bias=None, aux=None, lib=None):
+    """One of the six bfloat16 products alone, by the plan the kernels use,
+    on the current stream (for timing and checks: chip_smoke.py phase 21,
+    tools/gemm_variants.py; the port's path runs them inside
+    ``ln_mlp_fwd_cuda`` / ``ln_mlp_bwd_cuda``).  ``a`` and ``b`` as that
+    product reads them (h: y, w1; o: a, w2; dh: go, w2; dy: dhc, w1; dw1:
+    dhc, y; dw2: go, a), ``bias`` b1 or b2, ``aux`` s (dh) or gy (dy).
+    Returns h: (a, s); o: o; dh: (dh float32, dhc); dy: dy float32; dw1,
+    dw2: the gradient.  ``lib``: another build of csrc/mlp.cu (the
+    variants tool's)."""
+    which = BF16_PRODUCTS.index(name)
+    for label, ten in (("a", a), ("b", b), ("bias", bias), ("aux", aux)):
+        if ten is not None:
+            check_tensor(f"bfloat16 product {name}", label, ten, ten.shape,
+                         a.device, dtypes=(torch.bfloat16,))
+    # (C, F) from the operands' shapes; a's rows are M
+    m, (ar, ac), (br, bc) = a.shape[0], a.shape, b.shape
+    c, f = {"h": (ac, br), "o": (br, ac), "dh": (ac, bc), "dy": (bc, ac),
+            "dw1": (bc, ac), "dw2": (ac, bc)}[name]
+    mm, nn, _kk = bf16_product_dims(m, c, f)[name]
+    dev = a.device
+    lib = lib or _lib()
+    new = lambda dt: torch.empty((mm, nn), dtype=dt, device=dev)
+    out_f = new(torch.float32) if name in ("dh", "dy") else None
+    out_b = None if name == "dy" else new(torch.bfloat16)
+    out_s = new(torch.bfloat16) if name == "h" else None
+    floats = lib.vitta_lnmlp_bf16_product_scratch_floats(which, m, c, f)
+    if floats < 0:
+        raise ValueError(f"no bfloat16 product {name} for M={m}, C={c}, "
+                         f"F={f}")
+    partial = (torch.empty(floats, dtype=torch.float32, device=dev)
+               if floats else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = lib.vitta_lnmlp_bf16_product(
+            which, ptr(a), ptr(b), ptr(bias), ptr(aux), ptr(out_f),
+            ptr(out_b), ptr(out_s), ptr(partial), m, c, f, stream)
+    raise_on(code, f"bfloat16 product {name}")
+    return {"h": (out_b, out_s), "o": out_b, "dh": (out_f, out_b),
+            "dy": out_f}.get(name, out_b)
 
 
 # the parameters that stay float32 at bfloat16

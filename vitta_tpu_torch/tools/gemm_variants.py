@@ -1,6 +1,26 @@
-"""Time gemm_tiles and the attention forward at other shapes, on the card.
+"""Time gemm_tiles, the bfloat16 wgmma core and the attention forward at
+other shapes, on the card.
 
-    python3 -m vitta_tpu_torch.tools.gemm_variants
+    python3 -m vitta_tpu_torch.tools.gemm_variants          # all three
+    python3 -m vitta_tpu_torch.tools.gemm_variants bf16     # the core only
+
+The bfloat16 core (``csrc/gemm_wgmma_bf16.cuh``, the LayerNorm-MLP's six
+products at bfloat16) fixes its ring's slots (``VITTA_WG_STAGES_128``, 4;
+``VITTA_WG_STAGES_64``, 3), the sum of each 64-deep slice in fresh
+accumulators (``VITTA_WG_PROMOTE``, 1), the tile (``VITTA_WG_TILE``: 0 the
+plan's choice, or 64, 128, 256 for every row product), the row
+products' chunks of K (``VITTA_WG_ROW_SPLIT``, 1), the weight
+gradients' tile rows (``VITTA_WG_GRAD_TILE``, 128) and the exponential of
+the GELU derivative's phi (``VITTA_WG_EXPF``, 0: ``__expf``).
+``BF16_VARIANTS``
+builds ``csrc/mlp.cu`` with other values; each of the six products
+(``cuda_mlp.bf16_product_cuda`` on the variant's library) is checked at
+every Swin-B stage shape of 2 clips and stage 3's of 1 clip (the eval
+forward) against the float32 product of the same bfloat16 values
+(bfloat16 outputs within one ulp or 2^-20 of the largest, float32 ones to
+2e-5 of the largest; a variant outside is reported, not timed) and timed
+by CUDA graphs' replays (``graph_ms``), in turns, beside ``torch.matmul``
+at bfloat16.
 
 ``csrc/gemm_tiles.cuh`` fixes the matrix product's k depth per staged
 slice (``VITTA_GEMM_BK``, 32), the number of slices in its cp.async ring
@@ -56,6 +76,24 @@ GEMM_VARIANTS = {
     "BK 16, fresh sums of 2 steps": {"VITTA_GEMM_BK": 16,
                                      "VITTA_GEMM_FRESH": 2},
 }
+BF16_VARIANTS = {
+    "the plan (4 / 3 slots, promotion)": {},
+    "promotion off": {"VITTA_WG_PROMOTE": 0},
+    "128 x 128 tiles": {"VITTA_WG_TILE": 128},
+    "64 x 128 tiles": {"VITTA_WG_TILE": 64},
+    "128 x 256 tiles, promotion off": {"VITTA_WG_TILE": 256,
+                                       "VITTA_WG_PROMOTE": 0},
+    "3 slots at 128 rows": {"VITTA_WG_STAGES_128": 3},
+    "2 slots at 64 rows": {"VITTA_WG_STAGES_64": 2},
+    "4 slots at 64 rows (one block a SM)": {"VITTA_WG_STAGES_64": 4},
+    "row products in 2 chunks of K": {"VITTA_WG_ROW_SPLIT": 2},
+    "weight gradients at 64 rows": {"VITTA_WG_GRAD_TILE": 64},
+    "expf for the GELU derivative's phi": {"VITTA_WG_EXPF": 1},
+}
+# (M, C) of Swin-B's stages at 2 clips, and stage 3 at 1 clip (the eval
+# forward)
+BF16_SHAPES = ((50176, 128), (12544, 256), (3136, 512), (1568, 512),
+               (784, 1024))
 FWD_VARIANTS = {
     "16 warps, 32 keys": {},
     "8 warps": {"VITTA_ATTN_FWD_WARPS": 8},
@@ -158,7 +196,13 @@ def mma_roof(dev, stream) -> str:
 
 def bind(lib, source: str):
     p, i = ctypes.c_void_p, ctypes.c_int
-    if source == "mlp":
+    if source == "mlp_bf16":
+        lib.vitta_lnmlp_bf16_product.argtypes = [i] + [p] * 8 + [i, i, i, p]
+        lib.vitta_lnmlp_bf16_product.restype = i
+        lib.vitta_lnmlp_bf16_product_scratch_floats.argtypes = [i, i, i, i]
+        lib.vitta_lnmlp_bf16_product_scratch_floats.restype = \
+            ctypes.c_longlong
+    elif source == "mlp":
         lib.vitta_mlp_fwd.argtypes = [p] * 8 + [i, i, i, p]
         lib.vitta_mlp_fwd.restype = i
         lib.vitta_mlp_bwd.argtypes = [p] * 12 + [i, i, i, p]
@@ -183,6 +227,39 @@ def event_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_SIDE_STREAM = []
+
+
+def graph_ms(fn, calls: int = 5, reps: int = 5) -> float:
+    """Device ms per call of ``fn`` from CUDA events around the replay of a
+    CUDA graph of ``calls`` calls (median of ``reps`` replays): the
+    kernels back to back, no host in between (chip_smoke.py's way)."""
+    if not _SIDE_STREAM:    # one for every call: torch keeps a cuBLAS
+        _SIDE_STREAM.append(torch.cuda.Stream())   # workspace a stream
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[len(times) // 2]
 
 
 def close(name, got, want, tol):
@@ -268,6 +345,70 @@ def run_mlp(libs, dev, gen, stream):
         del x, g, o_ref, a_ref, s_ref, want, o, a, s, grads
 
 
+def run_bf16(libs, dev, gen):
+    """Each of the six bfloat16 products by every variant at BF16_SHAPES:
+    checked against the float32 product, then timed; the row-split variant
+    only where it cuts K (o and dy, and h and dh where K = C allows)."""
+    from vitta_tpu_torch.tools.bf16_checks import assert_bf16_within
+    bf16 = torch.bfloat16
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(bf16)
+
+    for m, c in BF16_SHAPES:
+        f = 4 * c
+        y, w1, b1 = bf(m, c), bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
+        a, w2, b2 = bf(m, f), bf(c, f, scale=f ** -0.5), bf(c, scale=0.1)
+        go, s_, gy, dhc = bf(m, c), bf(m, f), bf(m, c, scale=0.1), bf(m, f)
+        f32 = lambda t: t.float()
+        h = f32(y) @ f32(w1).t() + f32(b1)
+        calls = {   # name: (operands, bias, aux, want, torch.matmul)
+            "h": ((y, w1), b1, None, (F.gelu(h).to(bf16),
+                                      cm.gelu_derivative(h).to(bf16)),
+                  lambda: y @ w1.t()),
+            "o": ((a, w2), b2, None,
+                  (f32(a) @ f32(w2).t() + f32(b2)).to(bf16),
+                  lambda: a @ w2.t()),
+            "dh": ((go, w2), None, s_, ((f32(go) @ f32(w2)) * f32(s_), None),
+                   lambda: go @ w2),
+            "dy": ((dhc, w1), None, gy, f32(dhc) @ f32(w1) + f32(gy),
+                   lambda: dhc @ w1),
+            "dw1": ((dhc, y), None, None, (f32(dhc).t() @ f32(y)).to(bf16),
+                    lambda: dhc.t() @ y),
+            "dw2": ((go, a), None, None, (f32(go).t() @ f32(a)).to(bf16),
+                    lambda: go.t() @ a)}
+        flops = 2 * m * c * f
+        for name, (ops, bias, aux, want, mm) in calls.items():
+            line = [f"torch.matmul {flops / graph_ms(mm) / 1e9:.1f}"]
+            for variant, lib in libs.items():
+                run = lambda: cm.bf16_product_cuda(name, *ops, bias=bias,
+                                                   aux=aux, lib=lib)
+                try:
+                    got = run()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    line.append(f"{variant}: does not launch ({e})")
+                    continue
+                try:
+                    gots = got if isinstance(got, tuple) else (got,)
+                    wants = want if isinstance(want, tuple) else (want,)
+                    for k, (g_, w_) in enumerate(zip(gots, wants)):
+                        if w_ is None:
+                            continue
+                        if w_.dtype == bf16:
+                            assert_bf16_within(f"{name}[{k}]", g_, w_)
+                        else:
+                            scaled(f"{name}[{k}]", g_, w_, 2e-5)
+                except AssertionError as e:
+                    line.append(f"{variant}: fails the check ({e})")
+                    continue
+                line.append(f"{variant} {flops / graph_ms(run) / 1e9:.1f}")
+            print(f"bf16 {name} M={m} C={c} F={f}, TFLOP/s: "
+                  + "; ".join(line), flush=True)
+        del y, w1, b1, a, w2, b2, go, s_, gy, dhc, calls
+
+
 def run_attention(libs, dev, gen, stream):
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=gen)
@@ -330,22 +471,30 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {card}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    jobs = [("mlp", f"g{k}", name, macros, "gemm_tiles")
-            for k, (name, macros) in enumerate(GEMM_VARIANTS.items())]
-    jobs += [("attention", f"f{k}", name, macros, "attn_fwd_kernel")
-             for k, (name, macros) in enumerate(FWD_VARIANTS.items())]
+    only_bf16 = sys.argv[1:] == ["bf16"]
+    jobs = [("mlp_bf16", f"w{k}", name, macros, "gemm_wgmma_bf16")
+            for k, (name, macros) in enumerate(BF16_VARIANTS.items())]
+    if not only_bf16:
+        jobs += [("mlp", f"g{k}", name, macros, "gemm_tiles")
+                 for k, (name, macros) in enumerate(GEMM_VARIANTS.items())]
+        jobs += [("attention", f"f{k}", name, macros, "attn_fwd_kernel")
+                 for k, (name, macros) in enumerate(FWD_VARIANTS.items())]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        built = list(pool.map(lambda j: build(j[0], j[1], j[3], j[4]), jobs))
-    libs = {"mlp": {}, "attention": {}}
+        built = list(pool.map(
+            lambda j: build(j[0].replace("_bf16", ""), j[1], j[3], j[4]),
+            jobs))
+    libs = {"mlp_bf16": {}, "mlp": {}, "attention": {}}
     for (source, _tag, name, _macros, _k), (lib, info) in zip(jobs, built):
-        print(f"{source}.cu, {name}: {info}", flush=True)
+        print(f"{source}, {name}: {info}", flush=True)
         if lib is not None:
             libs[source][name] = bind(lib, source)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    print(f"mma.sync tf32 alone: {mma_roof(dev, stream)}", flush=True)
-    run_attention(libs["attention"], dev, gen, stream)
-    run_mlp(libs["mlp"], dev, gen, stream)
+    run_bf16(libs["mlp_bf16"], dev, gen)
+    if not only_bf16:
+        print(f"mma.sync tf32 alone: {mma_roof(dev, stream)}", flush=True)
+        run_attention(libs["attention"], dev, gen, stream)
+        run_mlp(libs["mlp"], dev, gen, stream)
     return 0
 
 
