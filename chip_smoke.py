@@ -4,8 +4,10 @@ drives the TANet float32 ViTTA stream under each of its three
 regularization modes and as the epoch-style loop, the TANet bfloat16
 stream and its trajectory against the float32 one, the Video Swin-B float32
 forward paths and the Video Swin-B float32 ViTTA stream end to end, the
-last under each of its four attention routes, and Video Swin-T's forward
-paths and stream under two of them.
+last under each of its four attention routes, Video Swin-T's forward
+paths and stream under two of them, and the Video Swin-B and Swin-T
+bfloat16 streams (Swin-T's under both of those routes) with their
+trajectories against float32.
 
     python3 chip_smoke.py
 
@@ -244,9 +246,37 @@ result line:
    time to enqueue each step and its wall time, and a profiled step of
    each: device busy, launches, the copy kernels' launches and time.
 
+30. The MLP without the LayerNorm and the attention per (head, window) at
+   bfloat16 (rows 8, 9, 12 and 13 in the bfloat16 Swin-T), held as phase
+   25 holds its rows: the MLP at Swin-T's stages 1-2 (widths 96 and 192)
+   forward at 1 and 2 clips and backward at 2, each step on its own a, dh
+   and dhc, its plan the library's; the attention per (head, window) at
+   every Swin-T stage (forward at 1 and 2 clips, backward at 2) and every
+   Swin-B stage (2 clips, values only), with and without mask, on views of
+   the packed projection output, each step on its own e and dl; the packed
+   bfloat16 pair at Swin-T's head counts (3, 6, 12, 24), values only.  Two
+   backward runs bit-equal, launches per call bfloat16 instances only.
+   Device ms per Swin-T pass of 2 clips (graph replays) beside the bound at
+   bfloat16, the float32 kernels', the plain versions', the MLP's
+   F.linear-F.gelu-F.linear composition at bfloat16 and its autograd
+   backward, sdpa with the dense bias and its backward with and without
+   the bias's gradient.
+31. A small bfloat16 Swin of Swin-T's first widths (embed 96, depths
+   (2, 1), heads (3, 6), window (2, 3, 3), 4 x 48 x 48: norm2 apart from
+   the MLP at both widths) under "packed" and "heads": two tta_online
+   steps on the card and on the CPU, held as phase 26's.
+32. Swin-T at bfloat16 (embed 96, depths (2, 2, 6, 2), heads (3, 6, 12,
+   24); float32 masters, SGD, losses and statistics; phase 17's weights and
+   source statistics): ``tta_stream`` over 6 videos on the packed route and
+   3 under "heads", as phase 27: per video the launches of phase 17 but, on
+   the packed route, the bias expansion and collapse, every LayerNorm,
+   LayerNorm-MLP, MLP and attention launch a bfloat16 kernel.
+33. float32 against bfloat16 Swin-T trajectories over 10 videos, as phase
+   28, held to GATE_BOUNDS.
+
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
-7-11, 13, 14, 16, 17, 26-29, 25 (25 last: the memory of its CUDA graphs
-would stand in phase 27's peak).  No earlier full-size stream was cut for
+7-11, 13, 14, 16, 17, 26-29, 31-33, 21 at bfloat16, 25, 30 (25 and 30
+last: the memory of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
@@ -372,6 +402,9 @@ SWIN_T_STAGES = ((96, 3, 25088, 64, 2), (192, 6, 6272, 16, 2),
 SWIN_T_STAT_EVAL_VIDEOS = 3   # Swin-T's eval videos; one warm-up
 SWIN_T_VIDEOS = 6             # Swin-T's streams; two warm-up
 SWIN_B_HEADS_VIDEOS = 3       # Swin-B's stream under "heads"; one warm-up
+SWIN_T_BF16_VIDEOS = 6        # Swin-T's bfloat16 stream, packed; two warm-up
+SWIN_T_BF16_HEADS_VIDEOS = 3  # and under "heads"; one warm-up
+SWIN_T_GATE_VIDEOS = 10       # phase 33's two Swin-T streams
 SWIN_LN_PROJ_VIDEOS = 5   # the ln_proj route's stream; two warm-up
 SWIN_PROJ_VIDEOS = 3      # the proj route's stream; one warm-up
 SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
@@ -2757,7 +2790,8 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2),
     clip are multiples of 8 at every stage).  Outside the blocks there is
     one LayerNorm per stage (patch embed, PatchMerging) and the final one.
     At bfloat16 the packed attention takes the compact bias itself: no
-    expansion and no collapse launch."""
+    expansion and no collapse launch; under ``"heads"`` the bias is
+    expanded and collapsed at float32 at either dtype."""
     attn = {None: "attn_packed", "packed": "attn_packed", "proj": "attn_proj",
             "ln_proj": "attn_ln_proj", "heads": "attn_heads"}[route]
     blocks = sum(depths)
@@ -2772,7 +2806,7 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2),
            "attn_heads_bwd": 0, "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0,
            "ln_mlp_bwd": fused, "mlp_bwd": blocks - fused}
     fwd[attn + "_fwd"] = bwd[attn + "_bwd"] = blocks
-    if dtype == "bfloat16":
+    if dtype == "bfloat16" and attn != "attn_heads":
         fwd["bias_expand"] = bwd["bias_collapse"] = 0
     return fwd, bwd
 
@@ -3297,6 +3331,17 @@ def sdpa_backend(leaves, mask, scale) -> str:
         return f"unknown ({type(exc).__name__})"
 
 
+def per_site(t, sizes):
+    """One line: each bfloat16 kernel's device us a call beside its bound
+    at bfloat16 and its launches a call; ``sizes`` is {label: (time key,
+    bytes, operations, launches)}."""
+    print("  " + "; ".join(
+        f"{label} device us {fmt(t[key][1] and t[key][1] * 1e3)} against "
+        f"its bound {bound(nb, fl, BF16_FLOP_PER_S)[0] * 1e3:.2f} us, "
+        f"{n} launches a call"
+        for label, (key, nb, fl, n) in sizes.items()), flush=True)
+
+
 def phase_bf16_swin_kernels(dev):
     """Phase 25: the bfloat16 LayerNorm, LayerNorm-MLP and packed attention
     kernels (rows 3, 4, 10, 11, 14, 15 in the bfloat16 Swin) against their
@@ -3374,15 +3419,6 @@ def phase_bf16_swin_kernels(dev):
     tot = {k: Totals() for k in ("ln_fwd", "ln_bwd", "attn_fwd", "attn_bwd",
                                  "mlp_fwd", "mlp_bwd")}
 
-    def per_site(t, sizes):
-        """One line: each kernel's device us a call beside its bound at
-        bfloat16 and its launches a call; ``sizes`` is {label: (time key,
-        bytes, operations, launches)}."""
-        print("  " + "; ".join(
-            f"{label} device us {fmt(t[key][1] and t[key][1] * 1e3)} against "
-            f"its bound {bound(nb, fl, BF16_FLOP_PER_S)[0] * 1e3:.2f} us, "
-            f"{n} launches a call"
-            for label, (key, nb, fl, n) in sizes.items()), flush=True)
     comp = {"mlp_fwd": 0.0, "mlp_bwd": 0.0}
     f32 = {k: 0.0 for k in tot}     # the float32 kernels' device ms a pass
     # the bfloat16 attention on the dense bias, and sdpa's backward without
@@ -3879,11 +3915,409 @@ def phase_bf16_swin_kernels(dev):
     return rows
 
 
+def phase_bf16_swin_t_kernels(dev):
+    """Phase 30: the bfloat16 MLP without the LayerNorm and attention per
+    (head, window) (rows 8, 9, 12 and 13 in the bfloat16 Swin-T) against
+    their plain versions, held by vitta_tpu_torch/tools/bf16_checks.py as
+    phase 25 holds rows 10, 11, 14 and 15: every step within one bfloat16
+    ulp of the plain version on the kernel's own rounded intermediates (the
+    MLP's a, dh and dhc, which its backward hands out on request; the
+    attention's e and dl from its tapped instances), those against their
+    plain values, the attention's out, dq, dk and dv end to end as phase
+    25's; two backward runs bit-equal; launches per call from the
+    libraries' counts, every one a bfloat16 instance, the MLP's backward
+    count the library's own (``vitta_mlp_bwd_bf16_launches``) and its plan
+    ``cuda_mlp.bf16_gemm_plan``.  The MLP at Swin-T's stages 1-2 (widths
+    96 and 192), forward at 1 and 2 clips, backward at 2; the attention per
+    (head, window) at every Swin-T stage, forward at 1 and 2 clips,
+    backward at 2, and at every Swin-B stage at 2 clips (values only), with
+    and without mask, on q, k, v as views of the packed projection output;
+    the packed bfloat16 pair at Swin-T's head counts (3, 6, 12, 24),
+    compact bias, values only.  Device ms per Swin-T pass of 2 clips (CUDA
+    graphs' replays) beside the bound at bfloat16, the float32 kernel's on
+    the same values, the plain versions', the MLP's
+    F.linear-F.gelu-F.linear composition at bfloat16 and its autograd
+    backward, the attention's sdpa with the dense bias (and mask) as
+    attn_mask and its backward with and without the bias's gradient.
+    Returns the four JSON rows."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    from vitta_tpu_torch.tools import bf16_checks as bc
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def bf(*shape, scale=1.0):
+        return randn(*shape, scale=scale).to(bf16)
+
+    def kernels(fn, want):
+        names = launches_of(fn)
+        _bf16_swin_launches(names)
+        if sum(names.values()) != want:
+            raise AssertionError(f"launches {names}, expected {want}")
+        return names
+
+    tot = {k: Totals() for k in ("mlp_fwd", "mlp_bwd", "heads_fwd",
+                                 "heads_bwd")}
+    f32 = dict.fromkeys(tot, 0.0)
+    comp = {"mlp_fwd": 0.0, "mlp_bwd": 0.0}
+    no_dbias = 0.0
+
+    def note(row, result):
+        tot[row].err = max(tot[row].err, result[2])
+
+    def add(acc, key, sites, ms_):
+        acc[key] = (None if acc[key] is None or ms_ is None
+                    else acc[key] + sites * ms_)
+
+    # rows 8 and 9: Swin-T's stages 1 and 2, where norm2 runs apart
+    for c, _nh, tokens, _nw, depth in SWIN_T_STAGES[:2]:
+        f = 4 * c
+        w1, b1 = bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
+        w2, b2 = bf(c, f, scale=f ** -0.5), bf(c, scale=0.1)
+        for clips in (1, 2):
+            m_rows = clips * tokens
+            x = bf(m_rows, c)
+            what = f"mlp bf16 M={m_rows} C={c}"
+            if (cm.bf16_gemm_plan_cuda(m_rows, c, f)
+                    != cm.bf16_gemm_plan(m_rows, c, f, sms)):
+                raise AssertionError(f"{what}: the library's plan is not "
+                                     "cuda_mlp.bf16_gemm_plan")
+            kernels(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2, True), 2)
+            got = cm.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
+            for nm, p, q in zip(("o", "a", "s"), got, bc.mlp_fwd_stages(
+                    x, w1, b1, w2, b2, got[1])):
+                note("mlp_fwd", bc.assert_bf16_within(f"{what} {nm}", p, q))
+            if clips == 1:
+                del x, got
+                continue
+            _o, a, s_ = got
+            g = bf(m_rows, c)
+            n_bwd = cm.mlp_bf16_bwd_launches_cuda(m_rows, c, f)
+            if n_bwd != cm.bf16_bwd_launches(m_rows, c, f, sms, ln=False):
+                raise AssertionError(f"{what}: {n_bwd} backward launches, "
+                                     "not bf16_bwd_launches'")
+            names = kernels(lambda: cm.mlp_bwd_cuda(x, a, s_, g, w1, w2),
+                            n_bwd)
+            if sum(n for k, n in names.items()
+                   if k.startswith("gemm_wgmma_bf16")) != 3:
+                raise AssertionError(f"{what}: backward launches {names}")
+            taps = {}
+            res = cm.mlp_bwd_cuda(x, a, s_, g, w1, w2, taps=taps)
+            ref = bc.mlp_bwd_stages(x, a, s_, g, w1, w2, taps["dh"],
+                                    taps["dhc"])
+            again = cm.mlp_bwd_cuda(x, a, s_, g, w1, w2)
+            if not all(torch.equal(p, q) for p, q in zip(res, again)):
+                raise AssertionError(f"{what}: two backward runs differ")
+            if not torch.equal(taps["dhc"], ref["dhc"]):
+                raise AssertionError(f"{what}: dh is not rounded once")
+            check_scaled(f"{what} dh", taps["dh"], ref["dh"], MLP_BWD_TOL)
+            for nm, p in zip(("dx", "dw1", "db1", "dw2", "db2"), res):
+                note("mlp_bwd", bc.assert_bf16_within(f"{what} {nm}", p,
+                                                      ref[nm]))
+            leaves = [t_.detach().requires_grad_()
+                      for t_ in (x, w1, b1, w2, b2)]
+            with torch.enable_grad():
+                co = F.linear(F.gelu(F.linear(leaves[0], leaves[1],
+                                              leaves[2])),
+                              leaves[3], leaves[4])
+            t = {"kernel": _measure_bf16(lambda: cm.mlp_fwd_cuda(
+                     x, w1, b1, w2, b2, True)),
+                 "plain": _measure_bf16(lambda: cm.mlp_bf16_reference(
+                     x, w1, b1, w2, b2, True)),
+                 "composition": _measure_bf16(lambda: F.linear(F.gelu(
+                     F.linear(x, w1, b1)), w2, b2)),
+                 "kernel bwd": _measure_bf16(lambda: cm.mlp_bwd_cuda(
+                     x, a, s_, g, w1, w2)),
+                 "plain bwd": _measure_bf16(
+                     lambda: cm.mlp_bf16_backward_reference(x, a, s_, g, w1,
+                                                            w2)),
+                 "composition bwd": _measure_bf16_grad(
+                     lambda: torch.autograd.grad(co, leaves, g,
+                                                 retain_graph=True))}
+            _report(f"{what} F={f}, backward {n_bwd} launches",
+                    max(tot["mlp_fwd"].err, tot["mlp_bwd"].err), t)
+            xf, a32 = x.float(), [v.float() for v in (w1, b1, w2, b2)]
+            _o32, af, sf = cm.mlp_fwd_cuda(xf, *a32, save_residuals=True)
+            gf = g.float()
+            add(f32, "mlp_fwd", depth, graph_ms(
+                lambda: cm.mlp_fwd_cuda(xf, *a32, save_residuals=True)))
+            add(f32, "mlp_bwd", depth, graph_ms(
+                lambda: cm.mlp_bwd_cuda(xf, af, sf, gf, a32[0], a32[2])))
+            del xf, a32, _o32, af, sf, gf
+            flops_f = 4 * m_rows * c * f + 10 * m_rows * f
+            flops_b = 8 * m_rows * c * f + 4 * m_rows * f
+            bytes_f = (2 * m_rows * c + 2 * m_rows * f + 2 * c * f + f
+                       + c) * 2
+            bytes_b = (3 * m_rows * c + 2 * m_rows * f + 4 * c * f + f
+                       + c) * 2
+            per_site(t, {"fwd": ("kernel", bytes_f, flops_f, 2),
+                         "bwd": ("kernel bwd", bytes_b, flops_b, n_bwd)})
+            tot["mlp_fwd"].add(depth, ms=t["kernel"][0],
+                               device_ms=t["kernel"][1],
+                               plain_ms=t["plain"][0],
+                               plain_device_ms=t["plain"][1],
+                               bytes=bytes_f, flops=flops_f)
+            tot["mlp_bwd"].add(depth, ms=t["kernel bwd"][0],
+                               device_ms=t["kernel bwd"][1],
+                               plain_ms=t["plain bwd"][0],
+                               plain_device_ms=t["plain bwd"][1],
+                               bytes=bytes_b, flops=flops_b)
+            add(comp, "mlp_fwd", depth, t["composition"][1])
+            add(comp, "mlp_bwd", depth, t["composition bwd"][1])
+            del x, got, a, s_, g, res, again, ref, taps, leaves, co
+
+    # rows 12 and 13: every Swin-T stage (timed), then every Swin-B stage
+    # (values only); the packed pair at Swin-T's head counts beside them
+    wd, wh, ww = SWIN_WINDOW
+    n_tok, hw = wd * wh * ww, wh * ww
+    for model, stages in (("swin-T", SWIN_T_STAGES),
+                          ("swin-B", SWIN_STAGES)):
+        for c, nh, tokens, nw, depth in stages:
+            hd, scale = c // nh, (c // nh) ** -0.5
+            vc = randn(nh, 2 * wd - 1, hw, hw, scale=0.5)
+            dense = cb.expand_bias_reference(vc, wd)
+            mask = None
+            if nw > 1:
+                mask = torch.where(torch.rand(nw, n_tok, n_tok, device=dev,
+                                              generator=gen) < 0.3,
+                                   -100.0, 0.0)
+                mask.diagonal(dim1=1, dim2=2).zero_()
+            for clips in ((1, 2) if model == "swin-T" else (2,)):
+                b_ = clips * tokens // n_tok
+                split = ca.bwd_split(b_, nh, dev)
+                qkv, g = bf(b_, n_tok, 3 * c), bf(b_, n_tok, nh, hd)
+                q, k, v = qkv.reshape(b_, n_tok, 3, nh, hd).unbind(2)
+                for m in ((None, mask) if mask is not None else (None,)):
+                    what = (f"attention (heads) bf16 {model} B_={b_} "
+                            f"nh={nh} hd={hd} mask={m is not None}")
+                    kernels(lambda: ca.attn_heads_fwd_cuda(q, k, v, dense, m,
+                                                           scale), 1)
+                    tf = {}
+                    out, ms_ = ca.attn_heads_fwd_cuda(q, k, v, dense, m,
+                                                      scale, save_ms=True,
+                                                      taps=tf)
+                    want, want_ms = ca.heads_attention_bf16_reference(
+                        q, k, v, dense, m, scale, save_ms=True)
+                    tot["heads_fwd"].err = max(tot["heads_fwd"].err,
+                                               check_close(
+                        f"{what} row max/sum", ms_, want_ms, ATTN_TOL))
+                    e_want, dl_want = bc.heads_attention_bf16_intermediates(
+                        q, k, v, dense, m, ms_, g, scale)
+                    note("heads_fwd", bc.assert_bf16_within(
+                        f"{what} forward e", tf["e"], e_want))
+                    note("heads_fwd", bc.assert_bf16_within(
+                        f"{what} out from the kernel's e", out,
+                        bc.heads_attention_bf16_fwd_stage(v, ms_, tf["e"])))
+                    slack = bc.heads_attention_bf16_slack(q, k, v, dense, m,
+                                                          ms_, g, scale)
+                    note("heads_fwd", bc.assert_bf16_mostly_within(
+                        f"{what} out", out, want, slack[0]))
+                    del tf, want, want_ms
+                    if clips == 1:
+                        del e_want, dl_want, slack
+                        print(f"{what}: out within its bounds", flush=True)
+                        continue
+                    names = kernels(lambda: ca.attn_heads_bwd_cuda(
+                        q, k, v, dense, m, ms_, g, scale), 2 + (split > 1))
+                    if names.get("dbias_reduce_kernel") != 1:
+                        raise AssertionError(f"{what}: launches {names}")
+                    tb = {}
+                    got = ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_, g,
+                                                 scale, taps=tb)
+                    again = ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_, g,
+                                                   scale)
+                    if not all(torch.equal(p_, q_)
+                               for p_, q_ in zip(got, again)):
+                        raise AssertionError(f"{what}: two backward runs "
+                                             "differ")
+                    note("heads_bwd", bc.assert_bf16_within(
+                        f"{what} backward e", tb["e"], e_want))
+                    tot["heads_bwd"].err = max(tot["heads_bwd"].err,
+                                               check_scaled(
+                        f"{what} dl", tb["dl"], dl_want, ATTN_BWD_TOL))
+                    wants = ca.heads_attention_bf16_backward_reference(
+                        q, k, v, dense, m, ms_, g, scale)
+                    stages_ = bc.heads_attention_bf16_bwd_stages(
+                        q, k, ms_, g, tb["e"], tb["dl"], scale)
+                    for nm, p_, st, w_, sl in zip(("dq", "dk", "dv"), got,
+                                                  stages_, wants, slack[1:]):
+                        note("heads_bwd", bc.assert_bf16_within(
+                            f"{what} {nm} from the kernel's e and dl", p_,
+                            st))
+                        note("heads_bwd", bc.assert_bf16_mostly_within(
+                            f"{what} {nm}", p_, w_, sl))
+                    tot["heads_bwd"].err = max(tot["heads_bwd"].err,
+                                               check_scaled(
+                        f"{what} dbias", got[3], wants[3], ATTN_BWD_TOL))
+                    del tb, again, stages_, e_want, dl_want, slack
+                    sites = depth // 2 if mask is not None else depth
+                    if model == "swin-B":
+                        print(f"{what}, {split} block(s) a problem: every "
+                              "output within its bounds, two runs bit-equal",
+                              flush=True)
+                        del got, wants
+                        continue
+                    q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(
+                        2, 0, 3, 1, 4)
+                    leaves = [q5[i].detach().requires_grad_()
+                              for i in range(3)]
+                    am = (dense[None] if m is None else (
+                        dense[None, None] + m[None, :, None]).expand(
+                            b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                                b_, nh, n_tok, n_tok)).to(bf16)
+                    am_g = am.expand(b_, nh, n_tok, n_tok).contiguous(
+                        ).requires_grad_()
+                    g4 = g.permute(0, 2, 1, 3)
+                    with torch.enable_grad():
+                        o_lib = F.scaled_dot_product_attention(
+                            *leaves, attn_mask=am, scale=scale)
+                        o_lib_b = F.scaled_dot_product_attention(
+                            *leaves, attn_mask=am_g, scale=scale)
+                    t = {"kernel": _measure_bf16(
+                             lambda: ca.attn_heads_fwd_cuda(q, k, v, dense,
+                                                            m, scale)),
+                         "plain": _measure_bf16(
+                             lambda: ca.heads_attention_bf16_reference(
+                                 q, k, v, dense, m, scale)),
+                         "sdpa": _measure_bf16(
+                             lambda: F.scaled_dot_product_attention(
+                                 q5[0], q5[1], q5[2], attn_mask=am,
+                                 scale=scale)),
+                         "kernel bwd": _measure_bf16(
+                             lambda: ca.attn_heads_bwd_cuda(
+                                 q, k, v, dense, m, ms_, g, scale)),
+                         "plain bwd": _measure_bf16(
+                             lambda: ca.heads_attention_bf16_backward_reference(
+                                 q, k, v, dense, m, ms_, g, scale)),
+                         "sdpa bwd": _measure_bf16_grad(
+                             lambda: torch.autograd.grad(o_lib, leaves, g4,
+                                                         retain_graph=True)),
+                         "sdpa bwd with dbias": _measure_bf16_grad(
+                             lambda: torch.autograd.grad(
+                                 o_lib_b, leaves + [am_g], g4,
+                                 retain_graph=True))}
+                    _report(f"{what}, {split} block(s) a problem",
+                            max(tot["heads_fwd"].err, tot["heads_bwd"].err),
+                            t)
+                    qf, gf = qkv.float(), g.float()
+                    qf3 = qf.reshape(b_, n_tok, 3, nh, hd).unbind(2)
+                    _o32, ms32 = ca.attn_heads_fwd_cuda(*qf3, dense, m, scale,
+                                                        save_ms=True)
+                    add(f32, "heads_fwd", sites, graph_ms(
+                        lambda: ca.attn_heads_fwd_cuda(*qf3, dense, m,
+                                                       scale)))
+                    add(f32, "heads_bwd", sites, graph_ms(
+                        lambda: ca.attn_heads_bwd_cuda(*qf3, dense, m, ms32,
+                                                       gf, scale)))
+                    del qf, gf, qf3, _o32, ms32
+                    no_dbias = (None if no_dbias is None
+                                or t["sdpa bwd"][1] is None
+                                else no_dbias + sites * t["sdpa bwd"][1])
+                    pairs = b_ * nh * n_tok * n_tok
+                    extra = (dense.numel() + (0 if m is None
+                                              else m.numel())) * 4
+                    bytes_f = (qkv.numel() + out.numel()) * 2 + extra
+                    bytes_b = ((2 * qkv.numel() + g.numel()) * 2
+                               + ms_.numel() * 4 + dense.numel() * 4 + extra)
+                    per_site(t, {"fwd": ("kernel", bytes_f,
+                                         pairs * (4 * hd + 6), 1),
+                                 "bwd": ("kernel bwd", bytes_b,
+                                         pairs * (10 * hd + 12),
+                                         2 + (split > 1))})
+                    tot["heads_fwd"].add(
+                        sites, ms=t["kernel"][0], device_ms=t["kernel"][1],
+                        plain_ms=t["plain"][0],
+                        plain_device_ms=t["plain"][1],
+                        library_ms=t["sdpa"][0],
+                        library_device_ms=t["sdpa"][1], bytes=bytes_f,
+                        flops=pairs * (4 * hd + 6))
+                    tot["heads_bwd"].add(
+                        sites, ms=t["kernel bwd"][0],
+                        device_ms=t["kernel bwd"][1],
+                        plain_ms=t["plain bwd"][0],
+                        plain_device_ms=t["plain bwd"][1],
+                        library_ms=t["sdpa bwd with dbias"][0],
+                        library_device_ms=t["sdpa bwd with dbias"][1],
+                        bytes=bytes_b, flops=pairs * (10 * hd + 12))
+                    del got, wants, leaves, am, am_g, o_lib, o_lib_b, q5
+                if model == "swin-T" and clips == 2:
+                    # the packed pair at this head count, compact bias
+                    what = f"attention bf16 (packed) B_={b_} nh={nh}"
+                    qkv_g = bf(b_, n_tok, c)
+                    for m in ((None, mask) if mask is not None else (None,)):
+                        out, ms_ = ca.attn_packed_fwd_cuda(
+                            qkv, vc, m, scale, nh, save_ms=True)
+                        dqkv, dbias = ca.attn_packed_bwd_cuda(
+                            qkv, vc, m, ms_, qkv_g, scale, nh)
+                        s_out, s_dqkv = bc.packed_attention_bf16_slack(
+                            qkv, vc, m, ms_, qkv_g, scale, nh)
+                        wq, wb = ca.packed_attention_bf16_backward_reference(
+                            qkv, vc, m, ms_, qkv_g, scale, nh)
+                        bc.assert_bf16_mostly_within(
+                            f"{what} out", out,
+                            ca.packed_attention_bf16_reference(
+                                qkv, vc, m, scale, nh), s_out)
+                        bc.assert_bf16_mostly_within(f"{what} dqkv", dqkv,
+                                                     wq, s_dqkv)
+                        check_scaled(f"{what} dbias", dbias, wb,
+                                     ATTN_BWD_TOL)
+                        del out, ms_, dqkv, dbias, s_out, s_dqkv, wq, wb
+                    print(f"{what} (Swin-T's heads): out, dqkv and the "
+                          "compact dbias within their bounds", flush=True)
+                    del qkv_g
+                del qkv, g, q, k, v
+    src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
+    rows = [tot["mlp_fwd"].row("mlp_fwd_bf16", f"{src}/mlp.cu",
+                               f"{ops}/pallas_mlp.py:138", has_library=False,
+                               flop_rate=BF16_FLOP_PER_S),
+            tot["mlp_bwd"].row("mlp_bwd_bf16", f"{src}/mlp.cu",
+                               f"{ops}/pallas_mlp.py:154", has_library=False,
+                               flop_rate=BF16_FLOP_PER_S),
+            tot["heads_fwd"].row("attn_heads_fwd_bf16", f"{src}/attention.cu",
+                                 f"{ops}/pallas_attention.py:83",
+                                 flop_rate=BF16_FLOP_PER_S),
+            tot["heads_bwd"].row("attn_heads_bwd_bf16", f"{src}/attention.cu",
+                                 f"{ops}/pallas_attention.py:91",
+                                 flop_rate=BF16_FLOP_PER_S)]
+    rows[0]["composition_device_ms"] = comp["mlp_fwd"]
+    rows[1]["composition_device_ms"] = comp["mlp_bwd"]
+    rows[3]["library_without_dbias_device_ms"] = no_dbias
+    for row, key in zip(rows, tot):
+        row["float32_device_ms"] = f32[key]
+    for row in rows:
+        print(f"{row['name']} per Swin-T pass of 2 clips: device ms kernel "
+              f"{fmt(row['device_ms'])} float32 kernel "
+              f"{fmt(row['float32_device_ms'])} plain "
+              f"{fmt(row['plain_device_ms'])} library "
+              f"{fmt(row['library_device_ms'])}"
+              + (f" composition {fmt(row['composition_device_ms'])}"
+                 if "composition_device_ms" in row else "")
+              + (f" library without dbias "
+                 f"{fmt(row['library_without_dbias_device_ms'])}"
+                 if "library_without_dbias_device_ms" in row else "")
+              + f"; event ms {row['ms']:.4f} / {row['plain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} at bfloat16",
+              flush=True)
+    return rows
+
+
 BF16_SWIN_SMALL = dict(embed_dim=128, depths=(2, 1), num_heads=(4, 8),
                        window_size=(2, 3, 3))
 
 
-def phase_bf16_swin_small(seed, t=4, hw=48):
+# Swin-T's first two widths (norm2 apart from the MLP), its heads there
+BF16_SWIN_T_SMALL = dict(embed_dim=96, depths=(2, 1), num_heads=(3, 6),
+                         window_size=(2, 3, 3))
+
+
+def phase_bf16_swin_small(seed, t=4, hw=48, model=BF16_SWIN_SMALL,
+                          route="packed", what="swin small slice (bfloat16)"):
     """Phase 26: two tta_online steps of a small bfloat16 Swin (Swin-B's
     first width, every width a multiple of 128 so that norm2 runs inside
     the LayerNorm-MLP as on Swin-B: embed 128, depths (2, 1), heads (4, 8),
@@ -3893,10 +4327,12 @@ def phase_bf16_swin_small(seed, t=4, hw=48):
     slice (``_assert_bf16_slice``).  Both round where the kernels round
     (the CPU through the plain versions); cuBLAS and oneDNN round the qkv,
     proj and merging products and cuDNN and oneDNN the patch embedding
-    each their own way."""
+    each their own way.  Phase 31 runs it on ``BF16_SWIN_T_SMALL`` (Swin-T's
+    widths 96 and 192: norm2 apart, the MLP without the LayerNorm) under
+    ``route`` "packed" and "heads"."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.precompute import compute_source_statistics
-    cfg = _swin_cfg(t=t, hw=hw, **BF16_SWIN_SMALL)
+    cfg = _swin_cfg(t=t, hw=hw, **model)
     chosen = ("layers.1", "backbone.norm")
     cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3),
                       tta=dataclasses.replace(cfg.tta, chosen_blocks=chosen))
@@ -3910,7 +4346,8 @@ def phase_bf16_swin_small(seed, t=4, hw=48):
     runs = {}
     for dev in ("cuda", "cpu"):
         names = {}
-        eng = VittaEngine(_synthetic_swin(cfg, "bfloat16", drop_path_rate=0.0,
+        eng = VittaEngine(_synthetic_swin(cfg, "bfloat16", attn_route=route,
+                                          drop_path_rate=0.0,
                                           head_dropout=0.0),
                           cfg, sd, src, device=dev)
         state = eng.init_state()
@@ -3931,19 +4368,20 @@ def phase_bf16_swin_small(seed, t=4, hw=48):
                      {k: (v.mean.cpu(), v.var.cpu())
                       for k, v in state.ema.items()})
     counts = _swin_counts()
-    fwd, bwd = swin_launches("packed", 128, (2, 1), "bfloat16")
+    fwd, bwd = swin_launches(route, model["embed_dim"], model["depths"],
+                             "bfloat16")
     for k, n in {**fwd, **bwd}.items():
-        if n and counts[k] == 0:
-            raise AssertionError(f"bf16 swin small slice: the {k} kernel was "
-                                 "never launched")
-    _assert_bf16_slice("swin small slice (bfloat16)", sd, runs,
-                       {k: counts[k] for k in ("ln_mlp_fwd", "ln_mlp_bwd",
-                                               "attn_packed_fwd",
-                                               "attn_packed_bwd")})
+        if bool(n) != bool(counts[k]):
+            raise AssertionError(f"{what}: the {k} kernel launched "
+                                 f"{counts[k]} times, where a pass makes {n}")
+    _assert_bf16_slice(what, sd, runs,
+                       {k: counts[k] for k, n in {**fwd, **bwd}.items()
+                        if n})
 
 
 def phase_bf16_swin_full(cfg, sd, stats, seed, card,
-                         n_videos=SWIN_ADAPT_VIDEOS, warmup=2):
+                         n_videos=SWIN_ADAPT_VIDEOS, warmup=2,
+                         attn_route="packed", what="swin-B"):
     """Phase 27: Swin-B's tta_stream at bfloat16 (``Recognizer3D(...,
     dtype="bfloat16")``, the construction of vitta_tpu's bench.py:117;
     float32 masters, SGD, losses and statistics) over seeded videos with
@@ -3954,11 +4392,17 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     every LayerNorm, attention and LayerNorm-MLP launch a bfloat16 kernel
     by the libraries' own counts and none a float32 one, no contiguity
     copy; ms/video, peak memory, then one profiled step: host, device busy,
-    idle share, busy by class of kernel.  Returns (launch counts, summary)."""
+    idle share, busy by class of kernel.  Phase 32 runs it on Swin-T
+    under ``attn_route`` "packed" and "heads" (``swin_launches``' counts:
+    the MLP without the LayerNorm at stages 1-2, and under "heads" the
+    attention per (head, window) on the float32 bias expansion and
+    collapse).  Returns (launch counts, summary)."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.loops import tta_stream
     t, hw = cfg.data.clip_length, cfg.data.input_size
-    engine = VittaEngine(_synthetic_swin(cfg, "bfloat16"), cfg, sd, stats)
+    engine = VittaEngine(_synthetic_swin(cfg, "bfloat16",
+                                         attn_route=attn_route),
+                         cfg, sd, stats)
     rng = np.random.default_rng(seed + 1)
     videos = _videos(rng, n_videos, t, hw)
     writer = _StepTimes()
@@ -3978,35 +4422,38 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     _bf16_swin_launches(names)
     for k in ("loss_reg", "loss_consis", "loss_ce"):
         if not np.isfinite(meters[k].avg):
-            raise AssertionError(f"bf16 swin-B {k} is not finite")
+            raise AssertionError(f"bf16 {what} {k} is not finite")
     logits = engine.eval_logits(videos[-1][1])
     if (tuple(logits.shape) != (1, cfg.model.num_classes)
             or logits.dtype != torch.float32
             or not bool(torch.isfinite(logits).all())):
-        raise AssertionError("bf16 swin-B eval logits are not finite float32")
-    fwd, bwd = swin_launches("packed", dtype="bfloat16")
+        raise AssertionError(f"bf16 {what} eval logits are not finite "
+                             "float32")
+    fwd, bwd = swin_launches(attn_route, cfg.model.embed_dim,
+                             cfg.model.depths, "bfloat16")
     for k, per_pass in fwd.items():
         if counts[k] != 2 * per_pass * n_videos:
-            raise AssertionError(f"bf16 swin-B {k}: {counts[k]} launches over "
+            raise AssertionError(f"bf16 {what} {k}: {counts[k]} launches over "
                                  f"{n_videos} videos, expected 2 x {per_pass}")
     for k, per_pass in bwd.items():
         if counts[k] != per_pass * n_videos:
-            raise AssertionError(f"bf16 swin-B {k}: {counts[k]} launches over "
+            raise AssertionError(f"bf16 {what} {k}: {counts[k]} launches over "
                                  f"{n_videos} videos, expected {per_pass}")
     if counts["contiguity_copies"]:
-        raise AssertionError("bf16 swin-B: contiguity copies")
+        raise AssertionError(f"bf16 {what}: contiguity copies")
     for k, p in engine.model.named_parameters():
         if p.dtype != torch.float32 or p.grad is None or not bool(
                 torch.isfinite(p.grad).all()):
-            raise AssertionError(f"bf16 swin-B {k}: no finite float32 "
+            raise AssertionError(f"bf16 {what} {k}: no finite float32 "
                                  "gradient on a float32 master")
     warm = writer.ms[warmup:]
-    summary = {"model": "swin-B", "route": "packed", "dtype": "bfloat16",
+    summary = {"model": what, "route": attn_route, "dtype": "bfloat16",
                "videos": len(warm), "median_ms": statistics.median(warm),
                "min_ms": min(warm), "max_ms": max(warm),
                "peak_gib": peak / 2**30}
-    print(f"swin-B bfloat16 adapt full slice: {n_videos} videos, median "
-          f"{summary['median_ms']:.3f} ms/video (min {min(warm):.3f}, max "
+    print(f"{what} bfloat16 adapt full slice ({attn_route}): {n_videos} "
+          f"videos, median {summary['median_ms']:.3f} ms/video (min "
+          f"{min(warm):.3f}, max "
           f"{max(warm):.3f}) after {warmup} warm-up, peak memory "
           f"{summary['peak_gib']:.3f} GiB, losses reg "
           f"{meters['loss_reg'].avg:.5f} consis "
@@ -4021,8 +4468,8 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
         st[0], _m = engine.adapt_eval_step(st[0], views, clip, label)
     host_ms, busy, rows = device_breakdown(step, top=None)
     if busy == 0:
-        print("swin-B bfloat16 adapt step: device time not measured",
-              flush=True)
+        print(f"{what} bfloat16 adapt step ({attn_route}): device time not "
+              "measured", flush=True)
         return counts, summary
     classes = {}
     for k, ms, n in rows:
@@ -4037,8 +4484,8 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
         classes[cls] = (ms0 + ms, n0 + n)
     summary.update(host_ms=host_ms, device_busy_ms=busy,
                    idle_share=max(0.0, 1 - busy / host_ms))
-    print(f"swin-B bfloat16 adapt step, profiled: host {host_ms:.3f} ms, "
-          f"device busy {busy:.3f} ms, idle share "
+    print(f"{what} bfloat16 adapt step ({attn_route}), profiled: host "
+          f"{host_ms:.3f} ms, device busy {busy:.3f} ms, idle share "
           f"{summary['idle_share']:.2f}; by class: "
           + "; ".join(f"{c} {ms:.3f} ms x{n}" for c, (ms, n) in
                       sorted(classes.items(), key=lambda kv: -kv[1][0]))
@@ -4049,12 +4496,12 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
 
 
 def phase_bf16_swin_trajectories(cfg, sd, stats, card, n_videos,
-                                 seed=SEED):
+                                 seed=SEED, what="Swin-B"):
     """Phase 28: float32 against bfloat16 Swin-B on the card, the quantities
     of benchmarks/bf16_gate.py (swin): the same float32 masters, source
     statistics and uint8 videos (one seeded generator a video), drop-path
     and dropout masks from the same seeds, through ``adapt_eval_step`` at
-    each dtype, held to GATE_BOUNDS."""
+    each dtype, held to GATE_BOUNDS.  Phase 33 runs it on Swin-T."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.adapt.loops import video_seed
     t, hw = cfg.data.clip_length, cfg.data.input_size
@@ -4099,7 +4546,7 @@ def phase_bf16_swin_trajectories(cfg, sd, stats, card, n_videos,
         "consis_loss_max_fp32": float(np.max(t32["loss_consis"])),
         "params_rel_l2_drift": rel(p16, p32),
         "ema_rel_l2_drift": rel(e16, e32)}
-    print(f"Swin-B fp32 against bf16 trajectories ({n_videos} videos each, "
+    print(f"{what} fp32 against bf16 trajectories ({n_videos} videos each, "
           f"{time.perf_counter() - t0:.1f} s): " + json.dumps(gate)
           + f"; on {card}", flush=True)
     bad = [k for k, (op, lim) in GATE_BOUNDS.items()
@@ -4108,7 +4555,7 @@ def phase_bf16_swin_trajectories(cfg, sd, stats, card, n_videos,
             0.1 * gate["consis_loss_max_fp32"] + 1e-4):
         bad.append("consis_loss_max_absdiff")
     if bad:
-        raise AssertionError(f"Swin-B bf16 trajectories beyond their bounds: "
+        raise AssertionError(f"{what} bf16 trajectories beyond their bounds: "
                              f"{bad}")
     return gate
 
@@ -4392,6 +4839,24 @@ def main() -> int:
     dtype_turns = phase_bf16_swin_interleaved(_swin_cfg(), sd, stats, SEED,
                                               card)
     lap("phase 29, Swin-B float32 and bfloat16 steps in turns")
+    # Video Swin-T at bfloat16: small slices on both routes, the full
+    # streams, float32 against bfloat16 trajectories (its kernels in phase
+    # 30, after phase 25)
+    for route in ("packed", "heads"):
+        phase_bf16_swin_small(SEED, model=BF16_SWIN_T_SMALL, route=route,
+                              what=f"swin-T small slice (bfloat16, {route})")
+    lap("phase 31, bfloat16 Swin-T small slices")
+    t16_launches, t16_packed = phase_bf16_swin_full(
+        cfg_t, t_sd, t_stats, SEED, card, n_videos=SWIN_T_BF16_VIDEOS,
+        what="swin-T")
+    t16h_launches, t16_heads = phase_bf16_swin_full(
+        cfg_t, t_sd, t_stats, SEED, card, n_videos=SWIN_T_BF16_HEADS_VIDEOS,
+        warmup=1, attn_route="heads", what="swin-T")
+    lap("phase 32, Swin-T bfloat16 streams")
+    swin_t_gate = phase_bf16_swin_trajectories(cfg_t, t_sd, t_stats, card,
+                                               SWIN_T_GATE_VIDEOS,
+                                               what="Swin-T")
+    lap("phase 33, Swin-T float32 against bfloat16 trajectories")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)
@@ -4400,6 +4865,15 @@ def main() -> int:
     for row in swin_bf16_rows:
         row["launches"] = b16_launches[row["name"][:-len("_bf16")]]
     lap("phase 25, bfloat16 Swin kernels")
+    swin_t_bf16_rows = phase_bf16_swin_t_kernels(dev)
+    for row in swin_t_bf16_rows:
+        key = row["name"][:-len("_bf16")]
+        by_route, videos = ((t16h_launches, SWIN_T_BF16_HEADS_VIDEOS)
+                            if "heads" in key
+                            else (t16_launches, SWIN_T_BF16_VIDEOS))
+        row["launches"] = by_route[key]
+        row["launches_a_step"] = by_route[key] / videos
+    lap("phase 30, bfloat16 Swin-T kernels")
     for s in tanet_modes:
         print(f"TANet, {s['mode']}, {s['dtype']}: median "
               f"{s['median_ms']:.3f} ms/video (min "
@@ -4409,7 +4883,8 @@ def main() -> int:
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
-    for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads, b16):
+    for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads, b16,
+              t16_packed, t16_heads):
         print(f"{s['model']} adapt step, route {s['route']}"
               f"{', bfloat16' if s.get('dtype') == 'bfloat16' else ''}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
@@ -4438,12 +4913,15 @@ def main() -> int:
           flush=True)
     print("Swin-B fp32 against bf16 trajectories: " + json.dumps(swin_gate),
           flush=True)
+    print("Swin-T fp32 against bf16 trajectories: "
+          + json.dumps(swin_t_gate), flush=True)
     print("Swin-B float32 and bfloat16 steps in turns, ms: " + json.dumps(
         {d: {k: (round(statistics.median(v), 3) if isinstance(v, list)
                  else v) for k, v in r.items()}
          for d, r in dtype_turns.items()}) + f"; on {card}", flush=True)
     print(json.dumps({"kernels": tam_rows + bn_rows + bf16_rows + swin_rows
-                      + proj_rows + unfused_rows + swin_bf16_rows}))
+                      + proj_rows + unfused_rows + swin_bf16_rows
+                      + swin_t_bf16_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1957,12 +1957,275 @@ def test_bf16_swin_half_twin_gives_the_bits_of_casting_at_use(cuda_device):
     assert all(torch.equal(x, y) for k in e1 for x, y in zip(e1[k], e2[k]))
 
 
+# Video Swin-T at bfloat16: the MLP without the LayerNorm (rows 8-9) at
+# stages 1-2 for 2 and 1 clips, a ragged M, a narrow C; the attention per
+# (head, window) (rows 12-13) at every Swin-T stage for 2 clips and small
+# windows
+SWIN_T_MLP_BF16 = [(50176, 96), (12544, 192), (25088, 96), (6272, 192),
+                   (77, 96), (9, 48)]
+SWIN_T_ATTN_BF16 = [dict(b_=128, nh=3, hd=32, window=(8, 7, 7), nw=64),
+                    dict(b_=32, nh=6, hd=32, window=(8, 7, 7), nw=16),
+                    dict(b_=8, nh=12, hd=32, window=(8, 7, 7), nw=4),
+                    dict(b_=2, nh=24, hd=32, window=(8, 7, 7), nw=0),
+                    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", SWIN_T_MLP_BF16, ids=str)
+def test_mlp_bf16_kernels_match_plain(cuda_device, m, c):
+    """The bfloat16 MLP without the LayerNorm: each step within one ulp of
+    its plain version on the kernel's own rounded a, dh and dhc, two
+    backward runs bit-equal, every launch a bfloat16 wgmma instance (2 a
+    forward, 3 products a backward) and the backward's count the
+    library's and ``bf16_bwd_launches``'s."""
+    from vitta_tpu_torch.tools.bf16_checks import (mlp_bwd_stages,
+                                                   mlp_fwd_stages)
+    x, _g, _bt, w1, b1, w2, b2 = _bf16_mlp_case(cuda_device, m, c)
+    f = 4 * c
+    cuda_mlp.counters.reset()
+    got = cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
+    assert cuda_mlp.counters.mlp_fwd == 1
+    _o, a, s = got
+    for name, p, q in zip(("o", "a", "s"), got,
+                          mlp_fwd_stages(x, w1, b1, w2, b2, a)):
+        _within_one_bf16_ulp(name, p, q)
+    assert torch.equal(cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2), got[0])
+    g = _bf16_randn(cuda_device, m, c, seed=8)
+    taps = {}
+    res = cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2, taps=taps)
+    ref = mlp_bwd_stages(x, a, s, g, w1, w2, taps["dh"], taps["dhc"])
+    _assert_grad("dh", taps["dh"], ref["dh"])
+    assert torch.equal(taps["dhc"], ref["dhc"])       # dh rounded once
+    for name, r in zip(PLAIN_MLP_GRADS, res):
+        _within_one_bf16_ulp(name, r, ref[name])
+    again = cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2)
+    assert all(torch.equal(p, q) for p, q in zip(res, again))
+    fwd = launches_of(lambda: cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2, True))
+    assert fwd == _bf16_names(fwd) and sum(fwd.values()) == 2, fwd
+    bwd = launches_of(lambda: cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2))
+    assert bwd == _bf16_names(bwd), bwd
+    assert sum(n for k, n in bwd.items() if "gemm_wgmma_bf16" in k) == 3, bwd
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (sum(bwd.values()) == cuda_mlp.mlp_bf16_bwd_launches_cuda(m, c, f)
+            == cuda_mlp.bf16_bwd_launches(m, c, f, sms, ln=False)), bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", SWIN_T_MLP_BF16, ids=str)
+def test_mlp_bf16_plan_matches_the_kernels(cuda_device, m, c):
+    """At Swin-T's extents (K and N of 96 and 192) the library's cut of the
+    six products is ``bf16_gemm_plan``'s, which
+    tests/test_torch_gemm_bf16_order.py follows on the CPU."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (cuda_mlp.bf16_gemm_plan_cuda(m, c, 4 * c)
+            == cuda_mlp.bf16_gemm_plan(m, c, 4 * c, sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["views", "own"])
+@pytest.mark.parametrize("case", SWIN_T_ATTN_BF16, ids=str)
+def test_heads_attention_bf16_kernels_match_plain(cuda_device, case, layout):
+    """The bfloat16 attention per (head, window), on q, k, v as views of a
+    packed output and as tensors of their own: each step within one ulp of
+    its plain version on the kernel's own rounded e and dl, e and dl
+    against their plain values, out, dq, dk, dv end to end as the card's
+    check holds them, dbias to GRAD_REL, two backward runs bit-equal, the
+    packed pair's bfloat16 launches."""
+    from vitta_tpu_torch.tools import bf16_checks as bc
+    q, k, v, bias, mask, scale = _heads_case(cuda_device, layout, **case)
+    q, k, v = (t.to(BF16) for t in (q, k, v)) if layout == "own" else \
+        torch.stack([q, k, v], dim=2).to(BF16).unbind(2)
+    ca = cuda_attention
+    ca.counters.reset()
+    out, ms = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale, save_ms=True)
+    assert ca.counters.heads_fwd == 1 and out.dtype == BF16
+    want, want_ms = ca.heads_attention_bf16_reference(q, k, v, bias, mask,
+                                                      scale, save_ms=True)
+    torch.testing.assert_close(ms, want_ms, rtol=2e-5, atol=2e-5)
+    g = _bf16_randn(cuda_device, *out.shape, seed=5)
+    tf, tb = {}, {}
+    out_t, ms_t = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale,
+                                         save_ms=True, taps=tf)
+    assert torch.equal(out_t, out) and torch.equal(ms_t, ms)
+    e_want, dl_want = bc.heads_attention_bf16_intermediates(
+        q, k, v, bias, mask, ms, g, scale)
+    _within_one_bf16_ulp("forward e", tf["e"], e_want)
+    _within_one_bf16_ulp("out from the kernel's e", out,
+                         bc.heads_attention_bf16_fwd_stage(v, ms, tf["e"]))
+    got = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
+    tapped = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale,
+                                    taps=tb)
+    assert all(torch.equal(p, r) for p, r in zip(got, tapped))
+    _within_one_bf16_ulp("backward e", tb["e"], e_want)
+    _assert_grad("dl", tb["dl"], dl_want)
+    for name, p, r in zip(("dq", "dk", "dv"), got,
+                          bc.heads_attention_bf16_bwd_stages(
+                              q, k, ms, g, tb["e"], tb["dl"], scale)):
+        _within_one_bf16_ulp(f"{name} from the kernel's e and dl", p, r)
+    wq, wk, wv, wb = ca.heads_attention_bf16_backward_reference(
+        q, k, v, bias, mask, ms, g, scale)
+    slack = bc.heads_attention_bf16_slack(q, k, v, bias, mask, ms, g, scale)
+    for name, p, r, sl in zip(("out", "dq", "dk", "dv"), (out,) + got[:3],
+                              (want, wq, wk, wv), slack):
+        bc.assert_bf16_mostly_within(name, p, r, sl)
+    assert got[3].dtype == torch.float32
+    _assert_grad("dbias", got[3], wb)
+    again = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
+    assert all(torch.equal(p, r) for p, r in zip(again, got))
+    fwd = launches_of(lambda: ca.attn_heads_fwd_cuda(q, k, v, bias, mask,
+                                                     scale))
+    assert fwd == {"attn_fwd_bf16_kernel": 1}, fwd
+    bwd = launches_of(lambda: ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms,
+                                                     g, scale))
+    split = ca.bwd_split(case["b_"], case["nh"], cuda_device)
+    assert bwd.get("attn_bwd_bf16_kernel") == 1, bwd
+    assert bwd.get("dkv_sum_kernel<__nv_bfloat16>", 0) == (split > 1), bwd
+    assert bwd.get("dbias_reduce_kernel") == 1, bwd
+    assert sum(bwd.values()) == 2 + (split > 1), bwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("case", SWIN_T_ATTN_BF16[:4], ids=str)
+def test_packed_attention_bf16_takes_swin_t_heads(cuda_device, case,
+                                                  compact):
+    """The bfloat16 packed pair at Swin-T's head counts (3, 6, 12, 24):
+    out and dqkv as the card's end-to-end check holds them, dbias to
+    GRAD_REL."""
+    from vitta_tpu_torch.tools import bf16_checks as bc
+    qkv, vc, mask, wd = _attn_case(cuda_device, **case)
+    qkv = qkv.to(BF16)
+    nh, hd = case["nh"], case["hd"]
+    scale = hd ** -0.5
+    bias = vc if compact else cuda_bias.expand_bias_reference(vc, wd)
+    ca = cuda_attention
+    out, ms = ca.attn_packed_fwd_cuda(qkv, bias, mask, scale, nh,
+                                      save_ms=True)
+    want = ca.packed_attention_bf16_reference(qkv, bias, mask, scale, nh)
+    g = _bf16_randn(cuda_device, *out.shape, seed=5)
+    dqkv, dbias = ca.attn_packed_bwd_cuda(qkv, bias, mask, ms, g, scale, nh)
+    wq, wb = ca.packed_attention_bf16_backward_reference(qkv, bias, mask, ms,
+                                                         g, scale, nh)
+    s_out, s_dqkv = bc.packed_attention_bf16_slack(qkv, bias, mask, ms, g,
+                                                   scale, nh)
+    bc.assert_bf16_mostly_within("out", out, want, s_out)
+    bc.assert_bf16_mostly_within("dqkv", dqkv, wq, s_dqkv)
+    _assert_grad("dbias", dbias, wb)
+
+
+@pytest.mark.cuda
+def test_bf16_swin_t_kernels_refuse_unaligned_views(cuda_device):
+    """The bfloat16 MLP and heads kernels move 16-byte units of 8 values
+    and refuse a view 2 bytes past a 16-byte boundary; q, k, v of mixed
+    dtypes, and float32 weights beside bfloat16 x, are refused."""
+    x, _g, _bt, w1, b1, w2, b2 = _bf16_mlp_case(cuda_device, 24, 16)
+    buf = torch.empty(x.numel() + 1, dtype=BF16, device=cuda_device)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_mlp.mlp(xs, w1, b1, w2, b2)
+    with pytest.raises(TypeError):
+        cuda_mlp.mlp(x, w1.float(), b1, w2, b2)
+    q, k, v, bias, mask, scale = _heads_case(cuda_device, "views", 6, 3, 8,
+                                             (2, 3, 3), 3)
+    qkv = torch.stack([q, k, v], dim=2).to(BF16)
+    buf = torch.empty(qkv.numel() + 1, dtype=BF16, device=cuda_device)
+    shifted = buf[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_attention.window_attention_heads(*shifted.unbind(2), bias, mask,
+                                              scale)
+    qb, kb, vb = qkv.unbind(2)
+    with pytest.raises(TypeError):
+        cuda_attention.window_attention_heads(qb, kb.float(), vb, bias, mask,
+                                              scale)
+    with pytest.raises(TypeError):            # the bias stays float32
+        cuda_attention.window_attention_heads(qb, kb, vb, bias.to(BF16),
+                                              mask, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mlp", "heads"])
+def test_bf16_swin_t_ops_differentiate_through_their_kernels(cuda_device,
+                                                             op):
+    """Under autograd the bfloat16 ``mlp`` and ``window_attention_heads``
+    run their forward and backward kernel once each and return bfloat16
+    gradients for bfloat16 inputs (float32 for the bias); the heads op on
+    views of one packed tensor gives that tensor's gradient, copying
+    nothing."""
+    from vitta_tpu_torch.models import swin
+    dev = cuda_device
+    if op == "mlp":
+        x, _g, _bt, w1, b1, w2, b2 = _bf16_mlp_case(dev, 24, 16)
+        ins, names = [x, w1, b1, w2, b2], ("mlp_fwd", "mlp_bwd")
+        fn, mod = cuda_mlp.mlp, cuda_mlp
+    else:
+        qkv, vc, mask, wd = _attn_case(dev, 6, 3, 8, (2, 3, 3), 3)
+        ins = [qkv.to(BF16), cuda_bias.expand_bias_reference(vc, wd)]
+        names, mod = ("heads_fwd", "heads_bwd"), cuda_attention
+
+        def fn(a, b):
+            return cuda_attention.window_attention_heads(
+                *a.reshape(6, 18, 3, 3, 8).unbind(2), b, mask, 8 ** -0.5)
+    ins = [t.requires_grad_() for t in ins]
+    mod.counters.reset()
+    swin.counters.reset()
+    out = fn(*ins)
+    assert out.dtype == BF16
+    out.float().sum().backward()
+    assert tuple(getattr(mod.counters, n) for n in names) == (1, 1)
+    assert swin.counters.contiguity_copies == 0
+    for t in ins:
+        assert t.grad is not None and t.grad.dtype == t.dtype
+
+
+@pytest.mark.cuda
+def test_bf16_swin_t_runs_through_the_kernels(cuda_device):
+    """A Swin of Swin-T's widths at bfloat16 under each route, tapped
+    forward and backward: every MLP through the bfloat16 ``mlp`` kernels,
+    every attention through the bfloat16 packed or heads kernels (the
+    wrappers' counters and the libraries' counts), no float32 MLP or
+    attention kernel."""
+    from vitta_tpu_torch.models.layers import Taps
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    for route in ("packed", "heads"):
+        torch.manual_seed(0)
+        model = Recognizer3D(5, window_size=(2, 3, 3), embed_dim=96,
+                             depths=(2, 1), num_heads=(3, 6),
+                             attn_route=route, dtype="bfloat16").to(
+                                 cuda_device)
+        x = torch.randn(2, 4, 48, 48, 3, device=cuda_device)
+        cuda_mlp.counters.reset()
+        cuda_attention.counters.reset()
+
+        def step():
+            taps = Taps({"stat"})
+            logits = model(x, taps, train=True)
+            (logits.sum() + sum(v["stat"].var.sum() for v in taps.values())
+             ).backward()
+        names = launches_of(step)
+        mc, ac = cuda_mlp.counters, cuda_attention.counters
+        assert (mc.mlp_fwd, mc.mlp_bwd, mc.fwd, mc.bwd) == (3, 3, 0, 0)
+        heads = route == "heads"
+        assert (ac.heads_fwd, ac.heads_bwd) == ((3, 3) if heads else (0, 0))
+        assert (ac.fwd, ac.bwd) == ((0, 0) if heads else (3, 3))
+        for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
+            assert not any(part in k for k in names), names
+        # 2 products a forward, 3 launches a backward (dw1 and dw2 in one)
+        assert sum(n for k, n in names.items()
+                   if "gemm_wgmma_bf16" in k) == 3 * (2 + 3), names
+        assert all(p.grad is not None and p.grad.dtype == torch.float32
+                   for p in model.parameters())
+
+
 @pytest.mark.cuda
 def test_bf16_swin_refuses_what_is_not_ported(cuda_device):
-    """At bfloat16 the routes other than packed and the widths whose norm2
-    runs apart (rows 8-9) raise, naming the ROADMAP's queue."""
-    for route in ("proj", "ln_proj", "heads"):
+    """At bfloat16 the projection-fused routes (rows 16-19) raise, naming
+    the ROADMAP's queue; heads and the widths whose norm2 runs apart (rows
+    8-9, 12-13) build."""
+    for route in ("proj", "ln_proj"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _bf16_swin(cuda_device, route=route)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _bf16_swin(cuda_device, embed_dim=96)
+    _bf16_swin(cuda_device, route="heads")
+    _bf16_swin(cuda_device, embed_dim=96)

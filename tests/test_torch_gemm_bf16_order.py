@@ -28,14 +28,24 @@ output by up to an ulp of one term, so their floor is 2^-12 of the
 largest magnitude.  dgamma and dbeta (float32) to 5e-5 of their largest
 value.  That the emulated cut of K is the library's own is checked on the
 card (tests/test_torch_cuda.py: test_bf16_gemm_plan_matches_the_kernels).
+
+The MLP without the LayerNorm (vitta_mlp_{fwd,bwd}_bf16, Swin-T's widths 96
+and 192) runs the same six products on x by the same plan, against
+vitta_tpu's _fwd_kernel and _bwd_kernel (pallas_mlp.py:138-183); its dx
+(dhc w1, rounded in the epilogue) and dw1 are held to ``DIRECT`` on
+vitta_tpu's own dhc, rebuilt outside its kernel by the kernel's first
+product (which gives its dx and dw1 bit for bit), and the emulated dhc
+within one ulp of it (tests/test_torch_bf16_swin_t_kernels.py says why).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from vitta_tpu.ops.pallas_mlp import _pallas_lnmlp_bwd, _pallas_lnmlp_fwd
+from vitta_tpu.ops.pallas_mlp import (_pallas_lnmlp_bwd, _pallas_lnmlp_fwd,
+                                      _pallas_mlp_bwd, _pallas_mlp_fwd)
 from vitta_tpu_torch.ops.cuda_ln import (layer_norm_backward_reference,
                                          layer_norm_reference)
 from vitta_tpu_torch.ops.cuda_mlp import bf16_gemm_plan, gelu_derivative
@@ -48,6 +58,9 @@ SLICE = 64
 DIRECT = 2.0 ** -20
 CHAINED = 2.0 ** -12
 SHAPES = [(77, 64), (77, 128), (1100, 64), (1100, 128)]
+# the MLP without the LayerNorm: Swin-T's first width (1.5 slices of 64, a
+# ragged 128-wide tile) and a narrower one
+MLP_SHAPES = [(77, 96), (1100, 96), (77, 48)]
 
 
 def _jbf16(a):
@@ -173,3 +186,43 @@ def test_core_plan_matches_pallas(m, c):
                 dw2.astype(bf), DIRECT)
         _within("db1", core_colsum(dh).to(BF16), db1[0].astype(bf), DIRECT)
         _within("db2", go32.sum(dim=0).to(BF16), db2[0].astype(bf), DIRECT)
+
+
+@pytest.mark.parametrize("m,c", MLP_SHAPES, ids=str)
+def test_mlp_core_plan_matches_pallas(m, c):
+    f = 4 * c
+    plan = bf16_gemm_plan(m, c, f)
+    if m == 1100:
+        assert plan["dw1"]["splits"] == plan["dw2"]["splits"] == 2
+    p = _inputs(m, c, 17 * m + c)
+    o, a, s = _pallas_mlp_fwd(p["x"], p["w1"], p["b1"], p["w2"], p["b2"],
+                              True, interpret=True)
+    w1t = _t(p["w1"]).float().t()          # the port's (F, C), as float32
+    w2t = _t(p["w2"]).float().t()          # (C, F)
+    ch = lambda k: plan[k]["kchunk"]
+    x32 = _t(p["x"]).float()
+    h = core_product(x32, w1t.t(), ch("h")) + _t(p["b1"]).float()
+    _within("a", torch.nn.functional.gelu(h).to(BF16), a, DIRECT)
+    _within("s", gelu_derivative(h).to(BF16), s, DIRECT)
+    ok = (core_product(_t(a).float(), w2t.t(), ch("o"))
+          + _t(p["b2"]).float()).to(BF16)
+    _within("o", ok, o, DIRECT)
+    dx, dw1, dw2, db1, db2 = _pallas_mlp_bwd(p["x"], a, s, p["go"], p["w1"],
+                                             p["w2"], interpret=True)
+    bf, f32 = jnp.bfloat16, jnp.float32
+    dot = lambda u, w, ax: jax.lax.dot_general(
+        u, w, (ax, ((), ())), preferred_element_type=f32)
+    dhc_j = (dot(p["go"], p["w2"], ((1,), (1,))) * s.astype(f32)).astype(bf)
+    assert bool((dot(dhc_j, p["w1"], ((1,), (1,))).astype(bf) == dx).all())
+    assert bool((dot(p["x"], dhc_j, ((0,), (0,))) == dw1).all())
+    go32 = _t(p["go"]).float()
+    dh = core_product(go32, w2t, ch("dh")) * _t(s).float()
+    _within("dhc", dh.to(BF16), dhc_j, DIRECT)
+    dhc = _t(dhc_j).float()
+    _within("dx", core_product(dhc, w1t, ch("dy")).to(BF16), dx, DIRECT)
+    _within("dw1", core_product(dhc.t(), x32, ch("dw1")).to(BF16).t(),
+            dw1.astype(bf), DIRECT)
+    _within("dw2", core_product(go32.t(), _t(a).float(), ch("dw2")).to(
+        BF16).t(), dw2.astype(bf), DIRECT)
+    _within("db1", core_colsum(dh).to(BF16), db1[0].astype(bf), DIRECT)
+    _within("db2", go32.sum(dim=0).to(BF16), db2[0].astype(bf), DIRECT)

@@ -129,7 +129,13 @@
 // At bfloat16 (vitta_attn_packed_{fwd,bwd}_bf16): the packed pair as
 // vitta_tpu runs it at the compute dtype, qkv, out, g and dqkv bfloat16,
 // the bias, mask, ms and dbias float32, every product one
-// mma.sync.m16n8k16 on bfloat16 operands.  attention_kernels.cuh says where
+// mma.sync.m16n8k16 on bfloat16 operands.  Per (head, window) at bfloat16
+// (vitta_attn_heads_{fwd,bwd}_bf16, _fwd_kernel :83 and _bwd_kernel :91 at
+// the compute dtype) the same kernels read q, k and v through their three
+// strides, as the float32 heads pair does, with the dense bias: the TPU
+// kernels round at the same points (pallas_attention.py:83-124), and the
+// backward reads the row maximum and sum its forward kept where the TPU
+// kernel rebuilds them from the same logits.  attention_kernels.cuh says where
 // it rounds (the TPU kernel's points) and how the work is laid out.  What
 // bounds it: the bytes (qkv, out, bias and mask read once: 0.21 ms a
 // Swin-B forward pass against 0.08 ms of products at 989 TFLOP/s), so both
@@ -281,6 +287,52 @@ int vitta_attn_packed_bwd_bf16(const void* qkv, const float* bias,
       reinterpret_cast<vitta::bf16*>(dqkv), dbias, scratch,
       reinterpret_cast<vitta::bf16*>(e_tap), b_, n, nh, hd, nw, compact, wd,
       hw, scale, (cudaStream_t)stream);
+}
+
+// Per (head, window) at bfloat16: q, k, v (strided as vitta_attn_heads_fwd
+// takes them, every stride a multiple of 8 values and each base 16-byte
+// aligned), out, g, dq, dk, dv bfloat16 (b_, n, nh, hd), the last four
+// contiguous; bias dense (nh, n, n), mask, ms, dbias and scratch
+// (vitta_attn_bwd_bf16_scratch_floats with compact 0) float32; e_tap as for
+// the packed pair.  cudaErrorMisalignedAddress / InvalidValue otherwise.
+int vitta_attn_heads_fwd_bf16(const void* q, const void* k, const void* v,
+                              const long long* strides, const float* bias,
+                              const float* mask, void* out, float* ms, int b_,
+                              int n, int nh, int hd, int nw, float scale,
+                              void* e_tap, void* stream) {
+  using vitta::attn::InRowsB;
+  using vitta::bf16;
+  const long long* s = strides;
+  return (int)vitta::attn::launch_fwd_bf16(
+      InRowsB{reinterpret_cast<const bf16*>(q), s[0], s[1], s[2]},
+      InRowsB{reinterpret_cast<const bf16*>(k), s[3], s[4], s[5]},
+      InRowsB{reinterpret_cast<const bf16*>(v), s[6], s[7], s[8]}, bias, mask,
+      reinterpret_cast<bf16*>(out), ms, reinterpret_cast<bf16*>(e_tap), b_, n,
+      nh, hd, nw, 0, 0, 0, scale, (cudaStream_t)stream);
+}
+
+int vitta_attn_heads_bwd_bf16(const void* q, const void* k, const void* v,
+                              const long long* strides, const float* bias,
+                              const float* mask, const float* ms,
+                              const void* g, void* dq, void* dk, void* dv,
+                              float* dbias, float* scratch, int b_, int n,
+                              int nh, int hd, int nw, float scale,
+                              void* e_tap, void* stream) {
+  using vitta::attn::InRowsB;
+  using vitta::attn::OutRowsB;
+  using vitta::bf16;
+  const long long* s = strides;
+  const long long c = (long long)nh * hd;
+  const auto out = [&](void* p) {
+    return OutRowsB{reinterpret_cast<bf16*>(p), n * c, c, hd};
+  };
+  return (int)vitta::attn::launch_bwd_bf16(
+      InRowsB{reinterpret_cast<const bf16*>(q), s[0], s[1], s[2]},
+      InRowsB{reinterpret_cast<const bf16*>(k), s[3], s[4], s[5]},
+      InRowsB{reinterpret_cast<const bf16*>(v), s[6], s[7], s[8]},
+      reinterpret_cast<const bf16*>(g), out(dq), out(dk), out(dv), bias, mask,
+      ms, dbias, scratch, reinterpret_cast<bf16*>(e_tap), b_, n, nh, hd, nw, 0,
+      0, 0, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1975,7 +1975,8 @@ dbias_windows_kernel(const float* __restrict__ part, float* __restrict__ dbias,
 
 // 16-byte units of q, k, v, g and their gradients: pointers and strides
 // multiples of 8 values, hd a multiple of 8.
-inline bool rows_aligned_bf16(const Rows<const bf16>& x) {
+template <class T>
+inline bool rows_aligned_bf16(const Rows<T>& x) {
   return (reinterpret_cast<std::uintptr_t>(x.p) & 15) == 0 && x.sb % 8 == 0 &&
          x.sr % 8 == 0 && x.sh % 8 == 0;
 }
@@ -1985,8 +1986,13 @@ inline bool rows_aligned_bf16(const Rows<const bf16>& x) {
 inline bool bad_dims_bf16(int b_, int n, int nh, int hd, int nw,
                           bool with_mask, int compact, int wd, int hw) {
   return bad_dims(b_, n, nh, hd, nw, with_mask, compact, wd, hw) ||
-         hd % 8 != 0 || 3LL * nh * hd > kMaxRowStride ||
-         (compact && wd > kMaxWd);
+         hd % 8 != 0 || (compact && wd > kMaxWd);
+}
+
+// Tokens of x at most kMaxRowStride values apart.
+template <class T>
+inline bool near_rows(const Rows<T>& x) {
+  return x.sr <= kMaxRowStride;
 }
 
 // Groups of five warps a forward block: as many as fit shared memory, up to
@@ -2026,23 +2032,21 @@ inline cudaError_t launch_fwd_bf16_instance(const InRowsB& q, const InRowsB& k,
   return cudaGetLastError();
 }
 
-// The packed forward at bfloat16: qkv, out bfloat16 (b_, n, 3*nh*hd) and
-// (b_, n, nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One
-// launch.  cudaErrorMisalignedAddress where qkv or out is not 16-byte
+// The forward at bfloat16 on q, k, v where they lie (strided rows, each a
+// multiple of 8 values apart and 16-byte aligned): out bfloat16 (b_, n,
+// nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One launch.
+// cudaErrorMisalignedAddress where a row of q, k, v or out is not 16-byte
 // aligned.  e_tap: nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e)
 // (kTap).
-inline cudaError_t launch_packed_fwd_bf16(const bf16* qkv, const float* bias,
-                                          const float* mask, bf16* out,
-                                          float* ms, bf16* e_tap, int b_,
-                                          int n, int nh, int hd, int nw,
-                                          int compact, int wd, int hw,
-                                          float scale, cudaStream_t stream) {
+inline cudaError_t launch_fwd_bf16(const InRowsB& q, const InRowsB& k,
+                                   const InRowsB& v, const float* bias,
+                                   const float* mask, bf16* out, float* ms,
+                                   bf16* e_tap, int b_, int n, int nh, int hd,
+                                   int nw, int compact, int wd, int hw,
+                                   float scale, cudaStream_t stream) {
   if (bad_dims_bf16(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
-      out == nullptr)
+      out == nullptr || !near_rows(q) || !near_rows(k) || !near_rows(v))
     return cudaErrorInvalidValue;
-  const InRowsB q = packed_rows(qkv, 0, n, nh, hd);
-  const InRowsB k = packed_rows(qkv, 1, n, nh, hd);
-  const InRowsB v = packed_rows(qkv, 2, n, nh, hd);
   if (!rows_aligned_bf16(q) || !rows_aligned_bf16(k) ||
       !rows_aligned_bf16(v) || (reinterpret_cast<std::uintptr_t>(out) & 15))
     return cudaErrorMisalignedAddress;
@@ -2054,6 +2058,20 @@ inline cudaError_t launch_packed_fwd_bf16(const bf16* qkv, const float* bias,
     return tap ? VITTA_FWD_BF16(true, true) : VITTA_FWD_BF16(false, true);
   return tap ? VITTA_FWD_BF16(true, false) : VITTA_FWD_BF16(false, false);
 #undef VITTA_FWD_BF16
+}
+
+// The same on the packed qkv (b_, n, 3*nh*hd).
+inline cudaError_t launch_packed_fwd_bf16(const bf16* qkv, const float* bias,
+                                          const float* mask, bf16* out,
+                                          float* ms, bf16* e_tap, int b_,
+                                          int n, int nh, int hd, int nw,
+                                          int compact, int wd, int hw,
+                                          float scale, cudaStream_t stream) {
+  return launch_fwd_bf16(packed_rows(qkv, 0, n, nh, hd),
+                         packed_rows(qkv, 1, n, nh, hd),
+                         packed_rows(qkv, 2, n, nh, hd), bias, mask, out, ms,
+                         e_tap, b_, n, nh, hd, nw, compact, wd, hw, scale,
+                         stream);
 }
 
 // Floats of scratch launch_packed_bwd_bf16 needs: dl (b_, nh, n, n) with
@@ -2070,33 +2088,32 @@ inline long long bwd_bf16_scratch_floats(int b_, int n, int nh, int hd,
          (split > 1 ? 2LL * split * probs * n * hd : 0);
 }
 
-// The packed backward at bfloat16: qkv, g, dqkv bfloat16; bias, mask, ms,
-// dbias, scratch float32 (bwd_bf16_scratch_floats, laid out as it says).
-// The kernel, the sum of the blocks' float32 shares of dk and dv where
-// problems are shared, and dbias: the windows' compact partials added in
-// window order (dbias_windows_kernel), or, with the dense bias, dl summed
-// over the windows (dbias_reduce_kernel).  e_tap: nullptr, or (b_, nh, n,
-// n) bfloat16 for bfloat16(e) (kTap), which also writes dl to the
-// scratch's first b_ nh n^2 floats.
-inline cudaError_t launch_packed_bwd_bf16(
-    const bf16* qkv, const float* bias, const float* mask, const float* ms,
-    const bf16* g, bf16* dqkv, float* dbias, float* scratch, bf16* e_tap,
-    int b_, int n, int nh, int hd, int nw, int compact, int wd, int hw,
-    float scale, cudaStream_t stream) {
-  if (bad_dims_bf16(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
-      ms == nullptr || dbias == nullptr || scratch == nullptr)
-    return cudaErrorInvalidValue;
+// The backward at bfloat16 on q, k, v where they lie, g (b_, n, nh*hd)
+// and dq, dk, dv (strided rows, as launch_fwd_bf16 takes them) bfloat16;
+// bias, mask, ms, dbias, scratch float32 (bwd_bf16_scratch_floats, laid
+// out as it says).  The kernel, the sum of the blocks' float32 shares of dk
+// and dv where problems are shared, and dbias: the windows' compact
+// partials added in window order (dbias_windows_kernel), or, with the dense
+// bias, dl summed over the windows (dbias_reduce_kernel).  e_tap: nullptr,
+// or (b_, nh, n, n) bfloat16 for bfloat16(e) (kTap), which also writes dl
+// to the scratch's first b_ nh n^2 floats.
+inline cudaError_t launch_bwd_bf16(
+    const InRowsB& q, const InRowsB& k, const InRowsB& v, const bf16* g,
+    const OutRowsB& dq, const OutRowsB& dk, const OutRowsB& dv,
+    const float* bias, const float* mask, const float* ms, float* dbias,
+    float* scratch, bf16* e_tap, int b_, int n, int nh, int hd, int nw,
+    int compact, int wd, int hw, float scale, cudaStream_t stream) {
   const long long c = (long long)nh * hd;
-  const InRowsB q = packed_rows(qkv, 0, n, nh, hd);
-  const InRowsB k = packed_rows(qkv, 1, n, nh, hd);
-  const InRowsB v = packed_rows(qkv, 2, n, nh, hd);
   const InRowsB gr{g, n * c, c, hd};
-  const OutRowsB dq = packed_rows(dqkv, 0, n, nh, hd);
-  const OutRowsB dk = packed_rows(dqkv, 1, n, nh, hd);
-  const OutRowsB dv = packed_rows(dqkv, 2, n, nh, hd);
+  if (bad_dims_bf16(b_, n, nh, hd, nw, mask != nullptr, compact, wd, hw) ||
+      ms == nullptr || dbias == nullptr || scratch == nullptr ||
+      !near_rows(q) || !near_rows(k) || !near_rows(v) || !near_rows(gr) ||
+      !near_rows(dq) || !near_rows(dk) || !near_rows(dv))
+    return cudaErrorInvalidValue;
   if (!rows_aligned_bf16(q) || !rows_aligned_bf16(k) ||
       !rows_aligned_bf16(v) || !rows_aligned_bf16(gr) ||
-      (reinterpret_cast<std::uintptr_t>(dqkv) & 15))
+      !rows_aligned_bf16(dq) || !rows_aligned_bf16(dk) ||
+      !rows_aligned_bf16(dv))
     return cudaErrorMisalignedAddress;
   const bool tap = e_tap != nullptr;
   const long long probs = (long long)b_ * nh;
@@ -2145,6 +2162,21 @@ inline cudaError_t launch_packed_bwd_bf16(
     count_launch("dbias_reduce_kernel");
   }
   return cudaGetLastError();
+}
+
+// The same on the packed qkv (b_, n, 3*nh*hd), dq, dk and dv written packed
+// into dqkv, the layout of qkv.
+inline cudaError_t launch_packed_bwd_bf16(
+    const bf16* qkv, const float* bias, const float* mask, const float* ms,
+    const bf16* g, bf16* dqkv, float* dbias, float* scratch, bf16* e_tap,
+    int b_, int n, int nh, int hd, int nw, int compact, int wd, int hw,
+    float scale, cudaStream_t stream) {
+  return launch_bwd_bf16(
+      packed_rows(qkv, 0, n, nh, hd), packed_rows(qkv, 1, n, nh, hd),
+      packed_rows(qkv, 2, n, nh, hd), g, packed_rows(dqkv, 0, n, nh, hd),
+      packed_rows(dqkv, 1, n, nh, hd), packed_rows(dqkv, 2, n, nh, hd), bias,
+      mask, ms, dbias, scratch, e_tap, b_, n, nh, hd, nw, compact, wd, hw,
+      scale, stream);
 }
 
 }  // namespace attn

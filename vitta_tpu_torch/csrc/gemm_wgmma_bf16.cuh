@@ -1,7 +1,8 @@
 // The port's bfloat16 matrix product for Hopper (sm_90a), on wgmma fed by
-// TMA: the six products of the bfloat16 LayerNorm-MLP (mlp.cu;
-// vitta_tpu's _lnmlp_fwd_kernel and _lnmlp_bwd_kernel at the compute dtype,
-// vitta_tpu/ops/pallas_mlp.py:303-369).
+// TMA: the six products of the bfloat16 MLP, with the LayerNorm in front
+// and without (mlp.cu; vitta_tpu's _lnmlp_fwd_kernel, _lnmlp_bwd_kernel,
+// _fwd_kernel and _bwd_kernel at the compute dtype,
+// vitta_tpu/ops/pallas_mlp.py:138-183, :303-369).
 //
 // gemm_wgmma_bf16 computes C (M, N) = sum over k of a[m][k] b[n][k] for
 // row-major bfloat16 operands, each either K-major (the contraction index
@@ -12,7 +13,8 @@
 //   h   = y w1^T     A K-major   B K-major    (GELU epilogue: a and s)
 //   o   = a w2^T     A K-major   B K-major    (+ b2)
 //   dh  = go w2      A K-major   B MN-major   (* s: dh float32 and dhc)
-//   dy  = dhc w1     A K-major   B MN-major   (+ gy, float32)
+//   dy  = dhc w1     A K-major   B MN-major   (+ gy, float32; without the
+//                                              LayerNorm dx, bfloat16)
 //   dw1 = dhc^T y    A MN-major  B MN-major   (float32 partials)
 //   dw2 = go^T a     A MN-major  B MN-major   (float32 partials)
 // Every layout is a shared-memory descriptor of wgmma (its transpose bits);
@@ -71,7 +73,9 @@
 //
 // Every extent but M must be a multiple of 8 and every pointer 16-byte
 // aligned (TMA's strides and the epilogue's 16-byte moves); mlp.cu checks
-// both.  vitta_tpu_torch/tools/gemm_variants.py builds mlp.cu with other
+// both.  A K that is no multiple of 64 (Swin-T's C = 96: 1.5 slices) and
+// an N that is none of the 128-wide tile (96, 192) take TMA's zeros in
+// their last slice or box, and the epilogue stores no column past N.  vitta_tpu_torch/tools/gemm_variants.py builds mlp.cu with other
 // VITTA_WG_STAGES_128 / _64, VITTA_WG_PROMOTE, VITTA_WG_TILE (64, 128 or 256
 // for every row product; 256, a 128 x 256 tile of two n128 products a
 // warpgroup, only without promotion: its two accumulator sets would need

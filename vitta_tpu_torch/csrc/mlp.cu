@@ -49,12 +49,18 @@
 // added in a fixed order.  db1, db2, dgamma and dbeta are summed the same
 // way (reduce.cuh).
 //
-// At bfloat16 (vitta_lnmlp_{fwd,bwd}_bf16, the Pallas kernels at the
-// compute dtype) the launches are the same but the six products run on
+// At bfloat16 (vitta_lnmlp_{fwd,bwd}_bf16 and vitta_mlp_{fwd,bwd}_bf16,
+// the Pallas kernels at the compute dtype) the six products run on
 // gemm_wgmma_bf16 (gemm_wgmma_bf16.cuh: wgmma fed by TMA, a fresh float32
 // sum per 64-deep slice, each value rounded once in the epilogue), each
-// cut by its own plan (bf16_plan), and the weight gradients' chunks are
-// added in order by reduce_partials, which rounds once.
+// cut by its own plan (bf16_plan), db1 is summed in the dh product's
+// epilogue, dw1 and dw2 share one launch, and where a weight gradient's
+// plan cuts K its chunks are added in order by reduce_partials, which
+// rounds once.  The MLP without the LayerNorm runs the same products on x
+// (pallas_mlp.py:138-183): forward h and o, 2 launches; backward dh with
+// db1's partials and their sum, dx = dhc w1 rounded in its epilogue (no
+// gy, no LayerNorm backward behind it), the weight gradients, db2's
+// column sums: 6 launches, 7-8 where a gradient's K is cut.
 //
 // Without the LayerNorm (the widths that are no multiple of 128: Video
 // Swin-T's and Swin-S's 96 and 192) the same products run on x itself:
@@ -226,18 +232,19 @@ const bf16* as_bf16(const void* p) { return reinterpret_cast<const bf16*>(p); }
 // float32, dhc (m, f) bfloat16, dy (m, c) float32, the LayerNorm
 // backward's, the weight gradients' float32 partials (dw1's, then dw2's,
 // where their plans cut K), the partial column sums of db1 and then of
-// db2.
+// db2.  Without the LayerNorm (ln false) there is no dh, dy or LayerNorm
+// part: dhc comes first.
 struct Bf16BwdScratch {
   long long dh, dhc, dy, ln, grad, cols;
   long long total() const { return dh + dhc + dy + ln + grad + cols; }
 };
 
-Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f) {
+Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f, bool ln = true) {
   Bf16BwdScratch s;
-  s.dh = (long long)m * f;
+  s.dh = ln ? (long long)m * f : 0;
   s.dhc = ((long long)m * f / 2 + 3) / 4 * 4;
-  s.dy = (long long)m * c;
-  s.ln = (vitta::ln_bwd_scratch_floats(m, c) + 3) / 4 * 4;
+  s.dy = ln ? (long long)m * c : 0;
+  s.ln = ln ? (vitta::ln_bwd_scratch_floats(m, c) + 3) / 4 * 4 : 0;
   s.grad = product_scratch_floats(kDw1, m, c, f) +
            product_scratch_floats(kDw2, m, c, f);
   // db1's column partials (the dh product's, a row per 64 rows), then
@@ -255,6 +262,67 @@ bool all_aligned16(std::initializer_list<const void*> ps) {
   for (const void* p : ps)
     if (p != nullptr && !vitta::aligned16(p)) return false;
   return true;
+}
+
+// The bfloat16 forward's two products on `in` (m, c), the LayerNorm's y
+// or x itself: a (and s where it is not null) = gelu(in w1^T + b1), then
+// o = a w2^T + b2, each rounded once in its epilogue.
+cudaError_t fwd_products_bf16(const bf16* in, const void* w1, const void* b1,
+                              const void* w2, const void* b2, bf16* a,
+                              bf16* s, bf16* o, int m, int c, int f,
+                              cudaStream_t st) {
+  CUtensorMap mi, mw1, ma, mw2;
+  if (!make_map(&mi, in, m, c) || !make_map(&mw1, as_bf16(w1), f, c) ||
+      !make_map(&ma, a, m, f) || !make_map(&mw2, as_bf16(w2), c, f))
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      run_product(kH, mi, mw1, as_bf16(b1), nullptr, Bf16Out{nullptr, a, s},
+                  nullptr, nullptr, m, c, f, st);
+  if (e != cudaSuccess) return e;
+  return run_product(kO, ma, mw2, as_bf16(b2), nullptr,
+                     Bf16Out{nullptr, o, nullptr}, nullptr, nullptr, m, c, f,
+                     st);
+}
+
+// The bfloat16 backward's products and sums on the forward's input `in`
+// (y, or x itself), in launch order: dh = (go w2) * s into dh_out (dhc,
+// and float32 dh where dh_out.f is not null) with its column partials per
+// 64 rows, added in order into db1; the product of dhc and w1 into row_out
+// (+ gy where it is not null: float32 dy for the LayerNorm backward, or
+// bfloat16 dx); dw1 = dhc^T in and dw2 = go^T a in one launch, each
+// rounded once, in its epilogue or, where its plan cuts K into chunks, by
+// the ordered sum of their partials; db2 = the column sums of go.
+cudaError_t bwd_products_bf16(const bf16* in, const bf16* a, const bf16* s,
+                              const bf16* go, const bf16* gy, const bf16* w1,
+                              const bf16* w2, const Bf16Out& dh_out,
+                              const Bf16Out& row_out, bf16* dw1, bf16* db1,
+                              bf16* dw2, bf16* db2, float* grad, float* cols,
+                              int m, int c, int f, cudaStream_t st) {
+  CUtensorMap mgo, mw2, mdhc, mw1, mi, ma;
+  if (!make_map(&mgo, go, m, c) || !make_map(&mw2, w2, c, f) ||
+      !make_map(&mdhc, dh_out.b, m, f) || !make_map(&mw1, w1, f, c) ||
+      !make_map(&mi, in, m, c) || !make_map(&ma, a, m, f))
+    return cudaErrorInvalidValue;
+  cudaError_t e = run_product(kDh, mgo, mw2, nullptr, s, dh_out, nullptr,
+                              nullptr, m, c, f, st, cols);
+  if (e != cudaSuccess) return e;
+  e = launch_reduce_partials(cols, db1, (int)colsum_partials(m),
+                             (long long)f, st);
+  if (e != cudaSuccess) return e;
+  e = run_product(kDy, mdhc, mw1, nullptr, gy, row_out, nullptr, nullptr, m,
+                  c, f, st);
+  if (e != cudaSuccess) return e;
+  const WgGrad g1 = grad_job(kDw1, mdhc, mi, dw1, grad, m, c, f);
+  const WgGrad g2 = grad_job(kDw2, mgo, ma, dw2,
+                             grad + product_scratch_floats(kDw1, m, c, f), m,
+                             c, f);
+  e = wgmma_grads(g1, &g2, st);
+  if (e != cudaSuccess) return e;
+  e = grad_sums(g1, st);
+  if (e != cudaSuccess) return e;
+  e = grad_sums(g2, st);
+  if (e != cudaSuccess) return e;
+  return vitta::launch_col_sums(go, cols, db2, m, c, st);
 }
 
 }  // namespace
@@ -394,23 +462,13 @@ int vitta_lnmlp_fwd_bf16(const void* x, const float* gamma, const float* beta,
   if (!all_aligned16({x, gamma, beta, w1, b1, w2, b2, y, a, s, o}))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16* xb = reinterpret_cast<const bf16*>(x);
   bf16* yb = reinterpret_cast<bf16*>(y);
-  bf16* ab = reinterpret_cast<bf16*>(a);
-  CUtensorMap my, mw1, ma, mw2;
-  if (!make_map(&my, yb, m, c) || !make_map(&mw1, as_bf16(w1), f, c) ||
-      !make_map(&ma, ab, m, f) || !make_map(&mw2, as_bf16(w2), c, f))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = vitta::launch_ln_rows(xb, gamma, beta, yb, m, c, eps, st);
+  const cudaError_t e = vitta::launch_ln_rows(
+      reinterpret_cast<const bf16*>(x), gamma, beta, yb, m, c, eps, st);
   if (e != cudaSuccess) return (int)e;
-  e = run_product(kH, my, mw1, as_bf16(b1), nullptr,
-                  Bf16Out{nullptr, ab, reinterpret_cast<bf16*>(s)}, nullptr,
-                  nullptr, m, c, f, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)run_product(kO, ma, mw2, as_bf16(b2), nullptr,
-                          Bf16Out{nullptr, reinterpret_cast<bf16*>(o),
-                                  nullptr},
-                          nullptr, nullptr, m, c, f, st);
+  return (int)fwd_products_bf16(yb, w1, b1, w2, b2, reinterpret_cast<bf16*>(a),
+                                reinterpret_cast<bf16*>(s),
+                                reinterpret_cast<bf16*>(o), m, c, f, st);
 }
 
 // Floats of scratch vitta_lnmlp_bwd_bf16 needs.
@@ -437,7 +495,9 @@ void vitta_lnmlp_bwd_bf16_plan(int m, int c, int f, long long* offsets) {
 // How the six products are cut on this card, in the order h, o, dh, dy,
 // dw1, dw2: six ints each, the tile's rows and columns, the chunks of K,
 // their length, the persistent grid and the block's dynamic shared memory
-// in bytes (out: 36 ints); all -1 for dimensions the entries refuse.
+// in bytes (out: 36 ints); all -1 for dimensions the entries refuse.  The
+// MLP without the LayerNorm (vitta_mlp_*_bf16) cuts its products the same
+// way: it runs them on x where these run them on y (dy is its dx).
 void vitta_lnmlp_bf16_plan(int m, int c, int f, int* out) {
   for (int which = 0; which < kProducts; ++which) {
     int* q = out + 6 * which;
@@ -473,41 +533,14 @@ int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
   float* ln = dy + sz.dy;
   float* grad = ln + sz.ln;
   float* cols = grad + sz.grad;
-  const bf16* gob = as_bf16(go);
-  CUtensorMap mgo, mw2, mdhc, mw1, my, ma;
-  if (!make_map(&mgo, gob, m, c) || !make_map(&mw2, as_bf16(w2), c, f) ||
-      !make_map(&mdhc, dhc, m, f) || !make_map(&mw1, as_bf16(w1), f, c) ||
-      !make_map(&my, as_bf16(y), m, c) || !make_map(&ma, as_bf16(a), m, f))
-    return (int)cudaErrorInvalidValue;
-  // dh = (go w2) * s, float32 and rounded, with its column sums per 64
-  // rows, added in order into db1; then dy = dhc w1 + gy
-  cudaError_t e = run_product(kDh, mgo, mw2, nullptr, as_bf16(s),
-                              Bf16Out{dh, dhc, nullptr}, nullptr, nullptr,
-                              m, c, f, st, cols);
-  if (e != cudaSuccess) return (int)e;
-  e = launch_reduce_partials(cols, reinterpret_cast<bf16*>(db1),
-                             (int)colsum_partials(m), (long long)f, st);
-  if (e != cudaSuccess) return (int)e;
-  e = run_product(kDy, mdhc, mw1, nullptr, as_bf16(gy),
-                  Bf16Out{dy, nullptr, nullptr}, nullptr, nullptr, m, c, f,
-                  st);
-  if (e != cudaSuccess) return (int)e;
-  // dw1 = dhc^T y and dw2 = go^T a, over all m rows, in one launch, each
-  // rounded once: in the epilogue, or where K is cut into chunks by the
-  // ordered sum of their partials
-  const WgGrad g1 = grad_job(kDw1, mdhc, my, reinterpret_cast<bf16*>(dw1),
-                             grad, m, c, f);
-  const WgGrad g2 = grad_job(kDw2, mgo, ma, reinterpret_cast<bf16*>(dw2),
-                             grad + product_scratch_floats(kDw1, m, c, f), m,
-                             c, f);
-  e = wgmma_grads(g1, &g2, st);
-  if (e != cudaSuccess) return (int)e;
-  e = grad_sums(g1, st);
-  if (e != cudaSuccess) return (int)e;
-  e = grad_sums(g2, st);
-  if (e != cudaSuccess) return (int)e;
-  e = vitta::launch_col_sums(gob, cols, reinterpret_cast<bf16*>(db2), m, c,
-                             st);
+  // dh float32 and rounded, then dy = dhc w1 + gy, float32, which the
+  // LayerNorm backward reads
+  cudaError_t e = bwd_products_bf16(
+      as_bf16(y), as_bf16(a), as_bf16(s), as_bf16(go), as_bf16(gy),
+      as_bf16(w1), as_bf16(w2), Bf16Out{dh, dhc, nullptr},
+      Bf16Out{dy, nullptr, nullptr}, reinterpret_cast<bf16*>(dw1),
+      reinterpret_cast<bf16*>(db1), reinterpret_cast<bf16*>(dw2),
+      reinterpret_cast<bf16*>(db2), grad, cols, m, c, f, st);
   if (e != cudaSuccess) return (int)e;
   const bf16* xb = reinterpret_cast<const bf16*>(x);
   bf16* dxb = reinterpret_cast<bf16*>(dx);
@@ -517,6 +550,66 @@ int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
                                                         (const float*)dy, dxb,
                                                         c),
                                    st);
+}
+
+// The MLP without the LayerNorm at bfloat16 (x, w1, b1, w2, b2, a, s, o, g,
+// dx, dw1, db1, dw2, db2 bfloat16; dh_tap and the scratch float32; every
+// pointer 16-byte aligned and c and f multiples of 8, as above).  Forward:
+// x, o (m, c); a (m, f), always written; s (m, f) or null.  Two launches.
+int vitta_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* a, void* s,
+                       void* o, int m, int c, int f, void* stream) {
+  if (bad_dims_bf16(m, c, f)) return (int)cudaErrorInvalidValue;
+  if (!all_aligned16({x, w1, b1, w2, b2, a, s, o}))
+    return (int)cudaErrorMisalignedAddress;
+  return (int)fwd_products_bf16(as_bf16(x), w1, b1, w2, b2,
+                                reinterpret_cast<bf16*>(a),
+                                reinterpret_cast<bf16*>(s),
+                                reinterpret_cast<bf16*>(o), m, c, f,
+                                (cudaStream_t)stream);
+}
+
+// Floats of scratch vitta_mlp_bwd_bf16 needs: dhc (m, f) bfloat16 at its
+// start, then the weight gradients' partials and the column partials.
+long long vitta_mlp_bwd_bf16_scratch_floats(int m, int c, int f) {
+  if (bad_dims_bf16(m, c, f)) return -1;
+  return bf16_bwd_scratch(m, c, f, false).total();
+}
+
+// Launches of one vitta_mlp_bwd_bf16 call: dh, db1's ordered sum, dx, both
+// weight gradients, one ordered sum for each whose plan cuts K, db2's
+// column sums (two); -1 for dimensions it refuses.
+int vitta_mlp_bwd_bf16_launches(int m, int c, int f) {
+  if (bad_dims_bf16(m, c, f)) return -1;
+  return 6 + (bf16_plan(kDw1, m, c, f).splits > 1) +
+         (bf16_plan(kDw2, m, c, f).splits > 1);
+}
+
+// Backward: x, g, dx (m, c); a, s (m, f); w1, dw1 (f, c); w2, dw2 (c, f);
+// db1 (f); db2 (c); dh_tap (m, f) float32 or null: where it is not null the
+// dh product also writes the float32 dh there (for a check; dhc is at the
+// scratch's start).  dx = dhc w1 is rounded once in its epilogue.
+int vitta_mlp_bwd_bf16(const void* x, const void* a, const void* s,
+                       const void* g, const void* w1, const void* w2,
+                       void* dx, void* dw1, void* db1, void* dw2, void* db2,
+                       float* scratch, float* dh_tap, int m, int c, int f,
+                       void* stream) {
+  if (bad_dims_bf16(m, c, f) || vitta::col_chunks(m) > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (!all_aligned16({x, a, s, g, w1, w2, dx, dw1, db1, dw2, db2, scratch,
+                      dh_tap}))
+    return (int)cudaErrorMisalignedAddress;
+  const Bf16BwdScratch sz = bf16_bwd_scratch(m, c, f, false);
+  bf16* dhc = reinterpret_cast<bf16*>(scratch);
+  float* grad = scratch + sz.dhc;
+  float* cols = grad + sz.grad;
+  return (int)bwd_products_bf16(
+      as_bf16(x), as_bf16(a), as_bf16(s), as_bf16(g), nullptr, as_bf16(w1),
+      as_bf16(w2), Bf16Out{dh_tap, dhc, nullptr},
+      Bf16Out{nullptr, reinterpret_cast<bf16*>(dx), nullptr},
+      reinterpret_cast<bf16*>(dw1), reinterpret_cast<bf16*>(db1),
+      reinterpret_cast<bf16*>(dw2), reinterpret_cast<bf16*>(db2), grad, cols,
+      m, c, f, (cudaStream_t)stream);
 }
 
 // Floats of scratch vitta_lnmlp_bf16_product needs for product `which`.

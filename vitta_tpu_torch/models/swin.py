@@ -76,16 +76,19 @@ they use them, as flax's ``promote_dtype`` does (the gradient of the cast
 upcasts the bfloat16 gradient to the float32 master); the LayerNorms'
 parameters, the relative-position tables, their bias and the shift mask
 stay float32, and so does the head, which pools in float32
-(vitta_tpu/models/swin.py:700-705).  The LayerNorm, LayerNorm-MLP and
-packed attention kernels run at bfloat16; the attention takes the
+(vitta_tpu/models/swin.py:700-705).  The LayerNorm, LayerNorm-MLP, MLP
+and attention kernels run at bfloat16.  The packed attention takes the
 relative-position bias in its compact form (nh, 2wd-1, hw, hw), with no
 expansion kernel, and its backward returns the compact gradient in
 vitta_tpu's own order (each window collapsed over its frame pairs, then
 the windows added), where float32 expands the bias and collapses the sum
-over the windows.  Only the packed route and
-widths that are multiples of 128 (norm2 inside the LayerNorm-MLP op, every
-width of Swin-B) are ported at bfloat16: the other routes and Swin-T's 96
-and 192 raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+over the windows.  Under ``"heads"`` the bias is expanded to its dense
+form at float32 (and its gradient collapsed) at both dtypes, as vitta_tpu
+does on that route (pallas_attention.py:696-699).  A width whose norm2
+runs apart (Swin-T's 96 and 192) takes the bfloat16 LayerNorm and the
+bfloat16 ``mlp``.  The packed and heads routes are ported at bfloat16;
+``"proj"`` and ``"ln_proj"`` raise ``NotImplementedError`` (ROADMAP.md,
+queue 2).
 """
 
 from __future__ import annotations
@@ -119,9 +122,8 @@ from vitta_tpu_torch.ops.dispatch import mlp_ln_fused, resolve_attn_route
 
 def _not_ported_bf16(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} at bfloat16 is not ported (ROADMAP.md, queue 1): the "
-        "bfloat16 Swin runs the packed route at widths that are multiples "
-        "of 128")
+        f"{what} at bfloat16 is not ported (ROADMAP.md, queue 2): the "
+        "bfloat16 Swin runs the packed and heads routes")
 
 
 def at_dtype(p, dt):
@@ -334,12 +336,12 @@ class WindowAttention3D(nn.Module):
         mask = self._mask(mask_np, mask_key, x.device)
         full = n == wd * wh * ww
         if full:
-            # compact (nh, 2wd-1, hw, hw) at bfloat16, whose packed kernels
-            # read it and collapse its gradient on chip
+            # compact (nh, 2wd-1, hw, hw) for the bfloat16 packed kernels,
+            # which read it and collapse its gradient on chip
             # (ops/cuda_attention.py); dense (nh, N, N) otherwise
             bias = compact_bias(self.relative_position_bias_table,
                                 self.window_size)
-            if self.dtype != torch.bfloat16:
+            if self.dtype != torch.bfloat16 or route == "heads":
                 bias = expand_bias(bias, wd)
         if full and ln is not None:
             return window_attention_ln_proj(
@@ -414,13 +416,9 @@ class SwinBlock3D(nn.Module):
             # the op returns y in window layout: only the token-order-
             # invariant spatiotemp tap may read it
             self.attn_route = self.attn_fallback
-        if self.dtype == torch.bfloat16:
-            if self.attn_route != "packed":
-                raise _not_ported_bf16(f"attn_route={self.attn_route!r}")
-            if dim % 128:
-                raise _not_ported_bf16(
-                    f"width {dim} (norm2 apart from the MLP, PERF.md rows "
-                    "8-9)")
+        if (self.dtype == torch.bfloat16
+                and self.attn_route not in ("packed", "heads")):
+            raise _not_ported_bf16(f"attn_route={self.attn_route!r}")
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       dtype=self.dtype)
         self.norm2 = LayerNorm(dim, f"{tap_prefix}.norm2",
@@ -493,12 +491,10 @@ class SwinBlock3D(nn.Module):
                                at_dtype(fc2.bias, dt),
                                self.norm2.eps)
             self.norm2(ln_out, taps, mode="sow_output")
-        elif dt == torch.bfloat16:
-            raise _not_ported_bf16(f"{x.numel() // c} tokens of width {c} "
-                                   "(norm2 apart from the MLP)")
         else:
-            y = mlp(self.norm2(_contiguous(x), taps), fc1.weight, fc1.bias,
-                    fc2.weight, fc2.bias)
+            y = mlp(self.norm2(_contiguous(x), taps), at_dtype(fc1.weight, dt),
+                    at_dtype(fc1.bias, dt), at_dtype(fc2.weight, dt),
+                    at_dtype(fc2.bias, dt))
         return x + drop_path(y, self.drop_path, train, generator)
 
 

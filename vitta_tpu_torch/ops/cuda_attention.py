@@ -56,8 +56,16 @@ collapses on chip and writes (window, head) partials, never dl itself.
 ``packed_attention_bf16_reference`` and
 ``packed_attention_bf16_backward_reference`` are their plain versions, and
 on the CPU a bfloat16 qkv runs them as one autograd Function
-(``PackedAttentionPlain``).  The per-(head, window) op at bfloat16 is not
-ported (ROADMAP.md, queue 1).
+(``PackedAttentionPlain``).  ``window_attention_heads`` at bfloat16 (q, k,
+v, out, the cotangent, dq, dk and dv bfloat16; the dense bias, the mask,
+ms and dbias float32) runs ``vitta_attn_heads_{fwd,bwd}_bf16``, the
+counterparts of pallas_attention.py:83 and :91 at the compute dtype, which
+round at the same points: the same bfloat16 kernels on q, k and v where
+they lie (three strides each, as the float32 heads pair reads them), with
+the dense bias and its dense dbias, summed over the windows in their order
+(pallas_attention.py:116-124).  ``heads_attention_bf16_reference`` and
+``heads_attention_bf16_backward_reference`` are their plain versions, run
+on the CPU as one autograd Function (``HeadsAttentionPlain``).
 
 The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
 does not take raises.
@@ -156,19 +164,62 @@ def packed_attention_backward_reference(qkv, bias, mask, ms, g, scale: float,
     return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3), dbias
 
 
-def _bf16_logits(qkv, bias, mask, scale: float, nh: int):
-    """q, k, v of the packed bfloat16 ``qkv`` as float32 (B_, N, nh, hd)
-    and the logits (B_, nh, N, N), float32 as the bfloat16 kernels make
-    them: (q k^T) * scale + bias + mask."""
-    b_, n, c3 = qkv.shape
-    q, k, v = qkv.reshape(b_, n, 3, nh, c3 // 3 // nh).to(
-        torch.float32).unbind(2)
+def _bf16_logits_of(q, k, v, bias, mask, scale: float):
+    """q, k, v (B_, N, nh, hd) as float32 and the logits (B_, nh, N, N),
+    float32 as the bfloat16 kernels make them: (q k^T) * scale + bias +
+    mask."""
+    b_, n, nh, _ = q.shape
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + _dense(bias)[None]
     if mask is not None:
         nw = mask.shape[0]
         logits = (logits.reshape(b_ // nw, nw, nh, n, n)
                   + mask[None, :, None]).reshape(b_, nh, n, n)
     return q, k, v, logits
+
+
+def _bf16_logits(qkv, bias, mask, scale: float, nh: int):
+    """``_bf16_logits_of`` the packed bfloat16 ``qkv`` (B_, N, 3C)."""
+    b_, n, c3 = qkv.shape
+    q, k, v = qkv.reshape(b_, n, 3, nh, c3 // 3 // nh).to(
+        torch.float32).unbind(2)
+    return _bf16_logits_of(q, k, v, bias, mask, scale)
+
+
+def _bf16_attend(v, logits):
+    """(o (B_, N, nh, hd) float32 before its one rounding, ms (B_, N,
+    2nh)) of the bfloat16 forward: e = exp(l - m) and its sum s in
+    float32, o = (bfloat16(e) v) / s."""
+    b_, nh, n, _ = logits.shape
+    m = logits.amax(dim=-1)                                    # (B_, nh, N)
+    e = torch.exp(logits - m[..., None])
+    s = e.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).to(torch.float32),
+                     v) / s.permute(0, 2, 1)[..., None]
+    ms = torch.stack([m, s], dim=-1).permute(0, 2, 1, 3)       # (B_, N, nh, 2)
+    return o, ms.reshape(b_, n, 2 * nh).contiguous()
+
+
+def _bf16_attend_backward(q, k, v, logits, ms, gh, scale: float):
+    """(dq, dk, dv (B_, N, nh, hd) float32 before their one rounding, dl
+    (B_, nh, N, N) float32) of the bfloat16 backward from float32 q, k, v,
+    the logits, the forward's ``ms`` and the float32 cotangent ``gh``: e
+    from the row maximum, gs = bfloat16(g / s), dv = bfloat16(e)^T gs, dq
+    and dk from bfloat16(dl)."""
+    b_, n, nh, _ = q.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)          # (B_, nh, N, 2)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]                                   # (B_, nh, N, 1)
+    gs = (gh * inv.permute(0, 2, 1, 3)).to(bf16).to(f32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(bf16).to(f32), gs)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    dl = e * (dp - rs) * inv
+    dlc = dl.to(bf16).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
+    return dq, dk, dv, dl
 
 
 def packed_attention_bf16_reference(qkv, bias, mask, scale: float, nh: int,
@@ -179,16 +230,9 @@ def packed_attention_bf16_reference(qkv, bias, mask, scale: float, nh: int,
     the logits' exp (B_, N, 2nh)."""
     b_, n, c3 = qkv.shape
     _q, _k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
-    m = logits.amax(dim=-1)                                    # (B_, nh, N)
-    e = torch.exp(logits - m[..., None])
-    s = e.sum(dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).to(torch.float32),
-                     v) / s.permute(0, 2, 1)[..., None]
+    o, ms = _bf16_attend(v, logits)
     out = o.reshape(b_, n, c3 // 3).to(qkv.dtype)
-    if not save_ms:
-        return out
-    ms = torch.stack([m, s], dim=-1).permute(0, 2, 1, 3)       # (B_, N, nh, 2)
-    return out, ms.reshape(b_, n, 2 * nh).contiguous()
+    return (out, ms) if save_ms else out
 
 
 def packed_attention_bf16_backward_reference(qkv, bias, mask, ms, g,
@@ -199,22 +243,39 @@ def packed_attention_bf16_backward_reference(qkv, bias, mask, ms, g,
     dv = bfloat16(e)^T gs, dl float32 (into dbias), dq and dk from
     bfloat16(dl)."""
     b_, n, c3 = qkv.shape
-    hd = c3 // 3 // nh
-    f32, bf16 = torch.float32, torch.bfloat16
     q, k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
-    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)          # (B_, nh, N, 2)
-    e = torch.exp(logits - ms4[..., 0:1])
-    inv = 1.0 / ms4[..., 1:2]                                   # (B_, nh, N, 1)
-    gh = g.reshape(b_, n, nh, hd).to(f32)
-    gs = (gh * inv.permute(0, 2, 1, 3)).to(bf16).to(f32)
-    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(bf16).to(f32), gs)
-    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
-    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
-    dl = e * (dp - rs) * inv
-    dlc = dl.to(bf16).to(f32)
-    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
+    dq, dk, dv, dl = _bf16_attend_backward(
+        q, k, v, logits, ms, g.reshape(q.shape).to(torch.float32), scale)
     return (torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3).to(qkv.dtype),
+            dbias_in_window_order(dl, bias))
+
+
+def heads_attention_bf16_reference(q, k, v, bias, mask, scale: float,
+                                   save_ms: bool = False):
+    """The attention per (head, window) at bfloat16 as its kernel computes
+    it (pallas_attention.py:83-88 at the compute dtype): q, k, v bfloat16
+    (B_, N, nh, hd), the dense bias and the mask float32; out bfloat16
+    (B_, N, nh, hd), and with ``save_ms`` the float32 row maximum and sum of
+    the logits' exp (B_, N, 2nh)."""
+    q32, k32, v32, logits = _bf16_logits_of(q, k, v, bias, mask, scale)
+    o, ms = _bf16_attend(v32, logits)
+    out = o.to(q.dtype)
+    return (out, ms) if save_ms else out
+
+
+def heads_attention_bf16_backward_reference(q, k, v, bias, mask, ms, g,
+                                            scale: float):
+    """(dq, dk, dv bfloat16 (B_, N, nh, hd), dbias float32 (nh, N, N)) for
+    the cotangent ``g`` (B_, N, nh, hd) at bfloat16, as the kernel computes
+    them (pallas_attention.py:91-124 at the compute dtype) from the
+    forward's row maximum and sum ``ms``, which the TPU kernel rebuilds from
+    the same logits: gs = bfloat16(g / s), dv = bfloat16(e)^T gs, dl
+    float32, dq and dk from bfloat16(dl), dbias the sum of dl over the
+    windows in their order."""
+    q32, k32, v32, logits = _bf16_logits_of(q, k, v, bias, mask, scale)
+    dq, dk, dv, dl = _bf16_attend_backward(q32, k32, v32, logits, ms,
+                                           g.to(torch.float32), scale)
+    return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype),
             dbias_in_window_order(dl, bias))
 
 
@@ -297,6 +358,12 @@ def _lib():
         lib.vitta_attn_packed_bwd_bf16.argtypes = \
             lib.vitta_attn_packed_bwd.argtypes[:-1] + [p, p]
         lib.vitta_attn_packed_bwd_bf16.restype = i
+        lib.vitta_attn_heads_fwd_bf16.argtypes = \
+            lib.vitta_attn_heads_fwd.argtypes[:-1] + [p, p]
+        lib.vitta_attn_heads_fwd_bf16.restype = i
+        lib.vitta_attn_heads_bwd_bf16.argtypes = \
+            lib.vitta_attn_heads_bwd.argtypes[:-1] + [p, p]
+        lib.vitta_attn_heads_bwd_bf16.restype = i
         _LIB = lib
     return _LIB
 
@@ -543,19 +610,31 @@ def window_attention_packed(qkv, bias, mask, scale: float, nh: int,
 def _check_heads(q, k, v, bias, mask):
     """Raise on anything the per-(head, window) kernels do not take; return
     (B_, N, nh, hd, nW, the nine strides as a ctypes array).  q, k and v
-    may be strided views as long as each head's channels are contiguous."""
+    float32 or bfloat16, all three the same; they may be strided views as
+    long as each head's channels are contiguous, at bfloat16 with every
+    stride a multiple of 8 values, each base on a 16-byte boundary and hd
+    a multiple of 8."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B_, N, nh, hd), got shape "
                          f"{tuple(q.shape)}")
     b_, n, nh, hd = q.shape
     dev = q.device
+    dtype = q.dtype if q.dtype == torch.bfloat16 else torch.float32
     strides = []
     for name, ten in (("q", q), ("k", k), ("v", v)):
         check_tensor("window attention", name, ten, (b_, n, nh, hd), dev,
-                     contiguous=False)
+                     contiguous=False, dtypes=(dtype,))
         if ten.stride(3) != 1 and hd > 1:
             raise ValueError(f"{name}: the channels of a head must be "
                              f"contiguous, got strides {ten.stride()}")
+        if dtype == torch.bfloat16 and (
+                ten.data_ptr() % 16 or hd % 8
+                or any(st % 8 for st in ten.stride()[:3])):
+            raise ValueError(
+                f"the bfloat16 window attention kernels take q, k, v on "
+                f"16-byte boundaries, strides that are multiples of 8 and hd "
+                f"a multiple of 8; {name} lies {ten.data_ptr() % 16} bytes "
+                f"past a boundary with strides {ten.stride()}, hd={hd}")
         strides += [ten.stride(0), ten.stride(1), ten.stride(2)]
     check_tensor("window attention", "bias", bias, (nh, n, n), dev)
     nw = 0
@@ -574,56 +653,77 @@ def _check_heads(q, k, v, bias, mask):
     if max(strides[1::3]) > lib.vitta_attn_max_row_stride():
         raise ValueError(
             f"the window attention kernels take q, k, v whose tokens lie at "
-            f"most {lib.vitta_attn_max_row_stride()} floats apart; got "
+            f"most {lib.vitta_attn_max_row_stride()} values apart; got "
             f"strides {strides[1::3]}")
     return b_, n, nh, hd, nw, (ctypes.c_longlong * 9)(*strides)
 
 
 def attn_heads_fwd_cuda(q, k, v, bias, mask, scale: float,
-                        save_ms: bool = False):
+                        save_ms: bool = False, taps=None):
     """Forward kernel per (head, window): one launch; returns out
-    (B_, N, nh, hd), and ms (B_, N, 2nh) with ``save_ms``."""
+    (B_, N, nh, hd) at q's dtype, and ms (B_, N, 2nh) with ``save_ms``.
+    ``taps``, a dict, at bfloat16 only: as ``attn_packed_fwd_cuda``'s,
+    ``taps["e"]`` holds the kernel's bfloat16(e)."""
     b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
     dev = q.device
-    out = torch.empty((b_, n, nh, hd), dtype=torch.float32, device=dev)
+    out = torch.empty((b_, n, nh, hd), dtype=q.dtype, device=dev)
     ms = torch.empty((b_, n, 2 * nh), dtype=torch.float32,
                      device=dev) if save_ms else None
+    e_tap = _e_tap(taps, q, b_, n, nh)
+    lib = _lib()
+    bf16 = q.dtype == torch.bfloat16
+    fwd = lib.vitta_attn_heads_fwd_bf16 if bf16 else lib.vitta_attn_heads_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = _lib().vitta_attn_heads_fwd(
+        code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), None if ms is None else ms.data_ptr(), b_, n, nh,
-            hd, nw, float(scale), stream)
+            hd, nw, float(scale),
+            *((None if e_tap is None else e_tap.data_ptr(),) if bf16 else ()),
+            stream)
     raise_on(code, "window attention (heads) forward kernel")
     counters.heads_fwd += 1
     return (out, ms) if save_ms else out
 
 
-def attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale: float):
+def attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale: float, taps=None):
     """Backward kernels per (head, window), from the row maximum and sum
     ``ms`` the forward wrote: one wrapper call, the packed backward's two to
     three launches on the current stream; returns (dq, dk, dv, each
-    (B_, N, nh, hd) and contiguous, dbias (nh, N, N)), allocated here with
-    the scratch."""
+    (B_, N, nh, hd), contiguous and at q's dtype, dbias (nh, N, N)
+    float32), allocated here with the scratch.  ``taps``, a dict, at
+    bfloat16 only: ``taps["e"]`` and ``taps["dl"]`` as
+    ``attn_packed_bwd_cuda`` fills them."""
     b_, n, nh, hd, nw, strides = _check_heads(q, k, v, bias, mask)
     dev = q.device
     check_tensor("window attention", "ms", ms, (b_, n, 2 * nh), dev)
-    check_tensor("window attention", "grad", g, (b_, n, nh, hd), dev)
+    check_tensor("window attention", "grad", g, (b_, n, nh, hd), dev,
+                 dtypes=(q.dtype,))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and g.data_ptr() % 16:
+        raise ValueError("the bfloat16 window attention kernels take a "
+                         "cotangent on a 16-byte boundary")
     lib = _lib()
-    dq, dk, dv = (torch.empty((b_, n, nh, hd), dtype=torch.float32,
-                              device=dev) for _ in range(3))
+    dq, dk, dv = (torch.empty((b_, n, nh, hd), dtype=q.dtype, device=dev)
+                  for _ in range(3))
     dbias = torch.empty_like(bias)
-    scratch = _bwd_scratch(b_, n, nh, hd, dev)
+    scratch = _bwd_scratch(b_, n, nh, hd, dev, q.dtype, tap=taps is not None)
+    e_tap = _e_tap(taps, q, b_, n, nh)
+    bwd = lib.vitta_attn_heads_bwd_bf16 if bf16 else lib.vitta_attn_heads_bwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.vitta_attn_heads_bwd(
+        code = bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), strides,
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
             ms.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), b_, n, nh,
-            hd, nw, float(scale), stream)
+            hd, nw, float(scale),
+            *((None if e_tap is None else e_tap.data_ptr(),) if bf16 else ()),
+            stream)
     raise_on(code, "window attention (heads) backward kernel")
+    if taps is not None:
+        taps["dl"] = scratch[:b_ * nh * n * n].view(b_, nh, n, n)
     counters.heads_bwd += 1
     return dq, dk, dv, dbias
 
@@ -652,17 +752,45 @@ class HeadsWindowAttention(torch.autograd.Function):
                                    ctx.scale) + (None, None, None)
 
 
+class HeadsAttentionPlain(torch.autograd.Function):
+    """The bfloat16 plain forward and plain backward per (head, window) as
+    one differentiable op, the CPU's form at bfloat16: it rounds where the
+    kernels round."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.scale = scale
+        out, ms = heads_attention_bf16_reference(q, k, v, bias, mask, scale,
+                                                 save_ms=True)
+        ctx.save_for_backward(q, k, v, bias, mask, ms)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask, ms = ctx.saved_tensors
+        return heads_attention_bf16_backward_reference(
+            q, k, v, bias, mask, ms, g, ctx.scale) + (None, None)
+
+
 def window_attention_heads(q, k, v, bias, mask, scale: float):
     """Window attention on separate ``q``, ``k``, ``v`` (B_, N, nh, hd) ->
     (B_, N, nh, hd).
 
     bias: dense (nh, N, N); mask (nW, N, N) of 0 / -100 or None.  A CPU
-    tensor takes the plain version; a CUDA tensor takes the kernels
-    (forward, and backward under autograd), which read strided views where
-    they lie and raise on any dtype other than float32, a head whose
-    channels are not contiguous, N > 416 or hd > 32."""
+    tensor takes the plain version (at bfloat16 the bfloat16 plain
+    versions, forward and backward, ``HeadsAttentionPlain``); a CUDA tensor
+    takes the kernels (forward, and backward under autograd), which read
+    strided views where they lie and raise on q, k, v other than all
+    float32 or all bfloat16 (bias and mask float32), a head whose channels
+    are not contiguous, N > 416 or hd > 32, and at bfloat16 a view off a
+    16-byte boundary."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, bias, mask, scale)
+        if q.dtype != torch.bfloat16:
+            return attention_reference(q, k, v, bias, mask, scale)
+        if grad_wanted(q, k, v, bias):
+            return HeadsAttentionPlain.apply(q, k, v, bias, mask,
+                                             float(scale))
+        return heads_attention_bf16_reference(q, k, v, bias, mask, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no window attention for device {q.device}")
     return HeadsWindowAttention.apply(q, k, v, bias, mask, float(scale),

@@ -27,18 +27,23 @@ as the counterparts of pallas_mlp.py:138 and :154.  When a gradient is
 wanted it keeps (x, w1, w2, a, s) (pallas_mlp.py:256-258); otherwise the
 forward writes no s and keeps nothing (:249-253).
 
-At bfloat16 (``ln_mlp`` only: x, the four MLP weights and biases, y, a, s,
-o and every gradient but dgamma and dbeta bfloat16; gamma, beta and every
-sum float32) the kernels are ``vitta_lnmlp_{fwd,bwd}_bf16``, the
-counterparts of the same Pallas kernels at the compute dtype, and round
-where they do (pallas_mlp.py:303-353, VJP :605-613): y before y w1^T, a and
-s once each, o once; dh = (go w2) * s in float32, rounded (dhc) before dy
-and dw1; dy + gy in float32; dx, dw1, db1, dw2 and db2 once.  The plain
-versions round at the same points, and on the CPU a bfloat16 ``ln_mlp``
-runs the plain forward and the plain backward as one autograd Function, so
-that it rounds where the kernels do (at float32 the CPU keeps torch's
-autograd of the plain forward).  ``mlp`` at bfloat16 is not ported
-(ROADMAP.md, queue 1): its kernels take float32 only.
+At bfloat16 (x, the four MLP weights and biases, y, a, s, o and every
+gradient but dgamma and dbeta bfloat16; gamma, beta and every sum float32)
+the kernels are ``vitta_lnmlp_{fwd,bwd}_bf16``, the counterparts of the same
+Pallas kernels at the compute dtype, and round where they do
+(pallas_mlp.py:303-353, VJP :605-613): y before y w1^T, a and s once each,
+o once; dh = (go w2) * s in float32, rounded (dhc) before dy and dw1; dy +
+gy in float32; dx, dw1, db1, dw2 and db2 once.  ``mlp`` at bfloat16 runs
+``vitta_mlp_{fwd,bwd}_bf16``, the counterparts of pallas_mlp.py:138 and
+:154 at the compute dtype (VJP :261-266), with the same rounding on x
+itself, and dx = dhc w1 rounded once; ``mlp_bf16_reference`` and
+``mlp_bf16_backward_reference`` are their plain versions.  Both run their
+six products on the bfloat16 wgmma core (csrc/gemm_wgmma_bf16.cuh), cut as
+``bf16_gemm_plan`` says.  The plain versions round at the same points, and
+on the CPU a bfloat16 ``ln_mlp`` or ``mlp`` runs the plain forward and the
+plain backward as one autograd Function, so that it rounds where the
+kernels do (at float32 the CPU keeps torch's autograd of the plain
+forward).
 
 There is no fallback: a CUDA tensor a kernel does not take raises.
 """
@@ -71,20 +76,40 @@ def gelu_derivative(h):
     return phi + h * torch.exp(-0.5 * h * h) * _INV_SQRT_2PI
 
 
+def _rounded_mlp(x, w1, b1, w2, b2):
+    """(o, a, s) of fc1 -> exact GELU -> fc2 on ``x`` as the kernels make
+    them at x's dtype: float32 arithmetic, a, s and o rounded once each (at
+    float32 every cast is the identity)."""
+    dt, f32 = x.dtype, torch.float32
+    h = F.linear(x.to(f32), w1.to(f32), b1.to(f32))
+    a = F.gelu(h).to(dt)
+    o = F.linear(a.to(f32), w2.to(f32), b2.to(f32)).to(dt)
+    return o, a, gelu_derivative(h).to(dt)
+
+
+def _rounded_mlp_backward(x, a, s, go, w1, w2):
+    """(dhc w1 float32, dw1, db1, dw2, db2) of the MLP on ``x`` for the
+    cotangent ``go`` of o, as the kernels make them at x's dtype: dh =
+    (go w2) * s in float32, rounded (dhc) before the two products that read
+    it, and the weight and bias gradients rounded once."""
+    dt, f32 = x.dtype, torch.float32
+    go32 = go.to(f32)
+    dh = (go32 @ w2.to(f32)) * s.to(f32)
+    dhc = dh.to(dt).to(f32)
+    return (dhc @ w1.to(f32), (dhc.t() @ x.to(f32)).to(dt),
+            dh.sum(dim=0).to(dt), (go32.t() @ a.to(f32)).to(dt),
+            go32.sum(dim=0).to(dt))
+
+
 def ln_mlp_reference(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
                      save_residuals: bool = False):
     """The unfused composition on ``x`` (..., C); returns (o, y), and with
     ``save_residuals`` (o, y, a, s).  At bfloat16 (x and the MLP weights)
     the arithmetic is float32 and y, a, s and o are rounded where the
     kernels round them; at float32 every cast is the identity."""
-    dt, f32 = x.dtype, torch.float32
     y = layer_norm_reference(x, gamma, beta, eps)
-    h = F.linear(y.to(f32), w1.to(f32), b1.to(f32))
-    a = F.gelu(h).to(dt)
-    o = F.linear(a.to(f32), w2.to(f32), b2.to(f32)).to(dt)
-    if not save_residuals:
-        return o, y
-    return o, y, a, gelu_derivative(h).to(dt)
+    o, a, s = _rounded_mlp(y, w1, b1, w2, b2)
+    return (o, y, a, s) if save_residuals else (o, y)
 
 
 def ln_mlp_backward_reference(x, y, a, s, go, gy, gamma, w1, w2,
@@ -95,17 +120,31 @@ def ln_mlp_backward_reference(x, y, a, s, go, gy, gamma, w1, w2,
     (M, F).  At bfloat16 the arithmetic is float32, dh is rounded (dhc)
     before the two products that read it, and dx and the weight and bias
     gradients are rounded once; dgamma and dbeta are float32."""
-    dt, f32 = x.dtype, torch.float32
-    go32 = go.to(f32)
-    dh = (go32 @ w2.to(f32)) * s.to(f32)
-    dhc = dh.to(dt).to(f32)
-    dy = dhc @ w1.to(f32)
+    dy, dw1, db1, dw2, db2 = _rounded_mlp_backward(y, a, s, go, w1, w2)
     if gy is not None:
-        dy = dy + gy.to(f32)
+        dy = dy + gy.to(torch.float32)
     dx, dgamma, dbeta = layer_norm_backward_reference(x, gamma, dy, eps)
-    return (dx.to(dt), dgamma, dbeta, (dhc.t() @ y.to(f32)).to(dt),
-            dh.sum(dim=0).to(dt), (go32.t() @ a.to(f32)).to(dt),
-            go32.sum(dim=0).to(dt))
+    return dx.to(x.dtype), dgamma, dbeta, dw1, db1, dw2, db2
+
+
+def mlp_bf16_reference(x, w1, b1, w2, b2, save_residuals: bool = False):
+    """The MLP without the LayerNorm at bfloat16 (x and the weights and
+    biases bfloat16) as its kernel computes it (pallas_mlp.py:138-151 at
+    the compute dtype): h = x w1^T + b1 in float32, a and s rounded once,
+    o = bfloat16(a) w2^T + b2 rounded once.  Returns o, and with
+    ``save_residuals`` (o, a, s)."""
+    o, a, s = _rounded_mlp(x, w1, b1, w2, b2)
+    return (o, a, s) if save_residuals else o
+
+
+def mlp_bf16_backward_reference(x, a, s, g, w1, w2):
+    """(dx, dw1, db1, dw2, db2), all bfloat16, for the cotangent ``g`` of o
+    at bfloat16, from what the forward keeps, as the kernel computes them
+    (pallas_mlp.py:154-183, VJP :261-266): dh = (g w2) * s in float32, dhc
+    its rounded form, dx = dhc w1, dw1 = dhc^T x, dw2 = g^T a, db1 = sum dh
+    and db2 = sum g in float32, each rounded once."""
+    dx, dw1, db1, dw2, db2 = _rounded_mlp_backward(x, a, s, g, w1, w2)
+    return dx.to(x.dtype), dw1, db1, dw2, db2
 
 
 def mlp_reference(x, w1, b1, w2, b2, save_residuals: bool = False):
@@ -166,6 +205,14 @@ def _lib():
         lib.vitta_lnmlp_bf16_product_scratch_floats.argtypes = [i, i, i, i]
         lib.vitta_lnmlp_bf16_product_scratch_floats.restype = \
             ctypes.c_longlong
+        lib.vitta_mlp_fwd_bf16.argtypes = lib.vitta_mlp_fwd.argtypes
+        lib.vitta_mlp_fwd_bf16.restype = i
+        lib.vitta_mlp_bwd_bf16.argtypes = [p] * 13 + [i, i, i, p]
+        lib.vitta_mlp_bwd_bf16.restype = i
+        lib.vitta_mlp_bwd_bf16_scratch_floats.argtypes = [i, i, i]
+        lib.vitta_mlp_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_mlp_bwd_bf16_launches.argtypes = [i, i, i]
+        lib.vitta_mlp_bwd_bf16_launches.restype = i
         _LIB = lib
     return _LIB
 
@@ -236,23 +283,33 @@ def bf16_gemm_plan(m: int, c: int, f: int, sms: int = 132):
     return plan
 
 
-def bf16_bwd_launches(m: int, c: int, f: int, sms: int = 132) -> int:
+def bf16_bwd_launches(m: int, c: int, f: int, sms: int = 132,
+                      ln: bool = True) -> int:
     """Launches of one bfloat16 backward call: dh with db1's column
-    partials, their ordered sum, dy, both weight gradients in one launch
-    and the ordered sums of those whose plan cuts K, db2's column sums (two)
-    and the LayerNorm backward (two)."""
+    partials, their ordered sum, dy (dx without the LayerNorm), both weight
+    gradients in one launch and the ordered sums of those whose plan cuts
+    K, db2's column sums (two) and, with ``ln``, the LayerNorm backward
+    (two)."""
     plan = bf16_gemm_plan(m, c, f, sms)
-    return 8 + sum(plan[k]["splits"] > 1 for k in ("dw1", "dw2"))
+    return (8 if ln else 6) + sum(plan[k]["splits"] > 1
+                                  for k in ("dw1", "dw2"))
 
 
 def bf16_gemm_plan_cuda(m: int, c: int, f: int):
     """The library's own plan of the six products on this card (the same
-    keys as ``bf16_gemm_plan``)."""
+    keys as ``bf16_gemm_plan``), for the LayerNorm-MLP and the MLP without
+    the LayerNorm alike (the latter's dy is its dx)."""
     k = len(BF16_PLAN_KEYS)
     out = (ctypes.c_int * (k * len(BF16_PRODUCTS)))()
     _lib().vitta_lnmlp_bf16_plan(m, c, f, out)
     return {name: dict(zip(BF16_PLAN_KEYS, out[k * i:k * i + k]))
             for i, name in enumerate(BF16_PRODUCTS)}
+
+
+def mlp_bf16_bwd_launches_cuda(m: int, c: int, f: int) -> int:
+    """The library's count of the launches one bfloat16 ``mlp`` backward
+    makes on this card (``bf16_bwd_launches(..., ln=False)`` mirrors it)."""
+    return _lib().vitta_mlp_bwd_bf16_launches(m, c, f)
 
 
 def bf16_product_cuda(name: str, a, b, bias=None, aux=None, lib=None):
@@ -519,45 +576,65 @@ def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
 def mlp_fwd_cuda(x2, w1, b1, w2, b2, save_residuals: bool = False):
     """Forward kernels of the MLP without the LayerNorm on ``x2`` (M, C):
     one wrapper call, two launches on the current stream; returns o, and
-    with ``save_residuals`` (o, a, s)."""
+    with ``save_residuals`` (o, a, s), at x's dtype (float32, or bfloat16
+    with bfloat16 weights and biases)."""
+    bf16 = x2.dtype == torch.bfloat16
     m, c, f = _check(x2, w1, (("x", x2, "mc"), ("w1", w1, "fc"),
                               ("b1", b1, "f"), ("w2", w2, "cf"),
-                              ("b2", b2, "c")), "MLP")
+                              ("b2", b2, "c")), "MLP", bf16=bf16)
     dev = x2.device
     o = torch.empty_like(x2)
-    a = torch.empty((m, f), dtype=torch.float32, device=dev)
+    a = torch.empty((m, f), dtype=x2.dtype, device=dev)
     s = torch.empty_like(a) if save_residuals else None
+    lib = _lib()
+    fwd = lib.vitta_mlp_fwd_bf16 if bf16 else lib.vitta_mlp_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = _lib().vitta_mlp_fwd(
-            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), a.data_ptr(),
-            None if s is None else s.data_ptr(), o.data_ptr(), m, c, f,
-            stream)
+        code = fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                   b2.data_ptr(), a.data_ptr(),
+                   None if s is None else s.data_ptr(), o.data_ptr(), m, c, f,
+                   stream)
     raise_on(code, "MLP forward kernel")
     counters.mlp_fwd += 1
     return (o, a, s) if save_residuals else o
 
 
-def mlp_bwd_cuda(x2, a, s, g, w1, w2):
+def mlp_bwd_cuda(x2, a, s, g, w1, w2, taps=None):
     """Backward kernels of the MLP without the LayerNorm: one wrapper call,
     its launches on the current stream.  Returns (dx, dw1, db1, dw2, db2),
-    allocated here with the scratch (dh (M, F) and the partial sums)."""
+    allocated here with the scratch (float32: dh (M, F) and the partial
+    sums; bfloat16: dhc (M, F) and the partial sums).  ``taps``, a dict, at
+    bfloat16 only: the dh product also writes the float32 dh, and
+    ``taps["dh"]`` and ``taps["dhc"]`` hold dh and its rounded form as the
+    kernels made them, for a check."""
+    bf16 = x2.dtype == torch.bfloat16
     m, c, f = _check(x2, w1, (("x", x2, "mc"), ("a", a, "mf"),
                               ("s", s, "mf"), ("grad of o", g, "mc"),
-                              ("w1", w1, "fc"), ("w2", w2, "cf")), "MLP")
+                              ("w1", w1, "fc"), ("w2", w2, "cf")), "MLP",
+                     bf16=bf16)
+    if taps is not None and not bf16:
+        raise ValueError("taps are read from the bfloat16 kernels only")
     dev = x2.device
     lib = _lib()
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    new = lambda *shape: torch.empty(shape, dtype=x2.dtype, device=dev)
     dx, dw1, db1, dw2, db2 = new(m, c), new(f, c), new(f), new(c, f), new(c)
-    scratch = new(lib.vitta_mlp_bwd_scratch_floats(m, c, f))
+    floats = (lib.vitta_mlp_bwd_bf16_scratch_floats if bf16
+              else lib.vitta_mlp_bwd_scratch_floats)(m, c, f)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    ptrs = [x2.data_ptr(), a.data_ptr(), s.data_ptr(), g.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr()]
+    if bf16:
+        dh = None
+        if taps is not None:
+            dh = taps["dh"] = torch.empty((m, f), dtype=torch.float32,
+                                          device=dev)
+            taps["dhc"] = scratch[:m * f // 2].view(torch.bfloat16).view(m, f)
+        ptrs.append(None if dh is None else dh.data_ptr())
+    bwd = lib.vitta_mlp_bwd_bf16 if bf16 else lib.vitta_mlp_bwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = lib.vitta_mlp_bwd(
-            x2.data_ptr(), a.data_ptr(), s.data_ptr(), g.data_ptr(),
-            w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            scratch.data_ptr(), m, c, f, stream)
+        code = bwd(*ptrs, m, c, f, stream)
     raise_on(code, "MLP backward kernel")
     counters.mlp_bwd += 1
     return dx, dw1, db1, dw2, db2
@@ -586,16 +663,43 @@ class Mlp(torch.autograd.Function):
             + (None, None)
 
 
+class MlpPlain(torch.autograd.Function):
+    """The bfloat16 plain forward and plain backward of the MLP without the
+    LayerNorm as one differentiable op, the CPU's form at bfloat16: it
+    rounds where the kernels round (``mlp_bf16_reference``,
+    ``mlp_bf16_backward_reference``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2):
+        o, a, s = mlp_bf16_reference(x2, w1, b1, w2, b2, save_residuals=True)
+        ctx.save_for_backward(x2, a, s, w1, w2)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, a, s, w1, w2 = ctx.saved_tensors
+        return mlp_bf16_backward_reference(x2, a, s, g, w1, w2)
+
+
 def mlp(x, w1, b1, w2, b2, save_residuals: bool = False):
     """(fc1 -> exact GELU -> fc2)(x) over the last axis of ``x`` (..., C),
-    in x's shape; with ``save_residuals`` also a and s as (M, F).
+    in x's shape; with ``save_residuals`` also a and s as (M, F).  x, the
+    weights and the biases all float32 or all bfloat16.
 
-    A CPU tensor takes the plain version; a CUDA tensor takes the kernels
-    (forward, and backward under autograd), which raise on any dtype other
-    than float32, a non-contiguous input, or a C or F that is not a
-    multiple of 4."""
+    A CPU tensor takes the plain version (at bfloat16 with the plain
+    backward, ``MlpPlain``, where a gradient is wanted); a CUDA tensor takes
+    the kernels (forward, and backward under autograd), which raise on any
+    other dtype, a non-contiguous input, or a C or F that is not a multiple
+    of 4 (8 and 16-byte aligned tensors at bfloat16)."""
     if x.device.type == "cpu":
-        res = mlp_reference(x, w1, b1, w2, b2, save_residuals)
+        if x.dtype == torch.bfloat16:
+            if not save_residuals and grad_wanted(x, w1, b1, w2, b2):
+                c = x.shape[-1]
+                return MlpPlain.apply(x.reshape(-1, c), w1, b1, w2,
+                                      b2).reshape(x.shape)
+            res = mlp_bf16_reference(x, w1, b1, w2, b2, save_residuals)
+        else:
+            res = mlp_reference(x, w1, b1, w2, b2, save_residuals)
         if save_residuals:
             f = w1.shape[0]
             return res[0], res[1].reshape(-1, f), res[2].reshape(-1, f)

@@ -1,6 +1,6 @@
-"""How the bfloat16 Video Swin kernels (LayerNorm, LayerNorm-MLP, packed
-attention) are held to their plain versions on the card; shared by
-chip_smoke.py and tests/test_torch_cuda.py.
+"""How the bfloat16 Video Swin kernels (LayerNorm, LayerNorm-MLP, MLP,
+packed attention, attention per (head, window)) are held to their plain
+versions on the card; shared by chip_smoke.py and tests/test_torch_cuda.py.
 
 A bfloat16 output of a kernel and of its plain version round float32 values
 that their float32 sums reach in other orders, so a value may round one ulp
@@ -16,17 +16,21 @@ So each output is held, to one ulp everywhere, to its plain version
 computed from the kernel's own rounded intermediates, and each intermediate
 to its plain value: the LayerNorm-MLP's a is an output, and dh, its
 rounded form and dy lie in the backward's scratch (``ln_mlp_fwd_stages``,
-``ln_mlp_bwd_stages``); the attention kernels' instances that also write
-bfloat16(e), and the backward's dl in its scratch, give the attention's
+``ln_mlp_bwd_stages``); the MLP's a is an output, and its backward hands
+out dh and dhc on request (``mlp_fwd_stages``, ``mlp_bwd_stages``); the
+attention kernels' instances that also write bfloat16(e), and the
+backward's dl in its scratch, give the attention's
 (``packed_attention_bf16_fwd_stage``, ``packed_attention_bf16_bwd_stages``,
-``packed_attention_bf16_intermediates``).
+``packed_attention_bf16_intermediates``, and the ``heads_attention_bf16_``
+ones of the same names per (head, window)).
 
 End to end, against the plain version on its own intermediates, the
 attention's out and dqkv are held by ``assert_bf16_mostly_within``: at most
 ``BEYOND_SHARE`` (1e-4) of the values beyond one ulp or 2^-12 of the
 tensor's largest magnitude, and those within ``2^-7`` (one bfloat16 ulp
 relative to a value, at most) times the sum of the absolute products that
-pass through the rounded intermediates (``packed_attention_bf16_slack``).
+pass through the rounded intermediates (``packed_attention_bf16_slack``,
+``heads_attention_bf16_slack``).
 """
 
 from __future__ import annotations
@@ -98,16 +102,38 @@ def assert_bf16_mostly_within(name, got, want, slack,
             float(diff.max()), beyond)
 
 
+def mlp_fwd_stages(x, w1, b1, w2, b2, a):
+    """The plain values of the bfloat16 MLP forward's rounded outputs (o,
+    a, s): a and s from x, o from the kernel's ``a``."""
+    from vitta_tpu_torch.ops.cuda_mlp import gelu_derivative
+    h = F.linear(x.to(F32), w1.to(F32), b1.to(F32))
+    return (F.linear(a.to(F32), w2.to(F32), b2.to(F32)).to(BF16),
+            F.gelu(h).to(BF16), gelu_derivative(h).to(BF16))
+
+
 def ln_mlp_fwd_stages(x, gamma, beta, w1, b1, w2, b2, eps, y, a):
     """The plain values of the bfloat16 LayerNorm-MLP forward's rounded
     outputs (o, y, a, s), each from the kernel's own rounded inputs: y from
     x, a and s from the kernel's y, o from the kernel's a."""
     from vitta_tpu_torch.ops.cuda_ln import layer_norm_reference
-    from vitta_tpu_torch.ops.cuda_mlp import gelu_derivative
-    h = F.linear(y.to(F32), w1.to(F32), b1.to(F32))
-    return (F.linear(a.to(F32), w2.to(F32), b2.to(F32)).to(BF16),
-            layer_norm_reference(x, gamma, beta, eps), F.gelu(h).to(BF16),
-            gelu_derivative(h).to(BF16))
+    o, a_ref, s_ref = mlp_fwd_stages(y, w1, b1, w2, b2, a)
+    return o, layer_norm_reference(x, gamma, beta, eps), a_ref, s_ref
+
+
+def mlp_bwd_stages(x, a, s, g, w1, w2, dh, dhc):
+    """The plain values of the bfloat16 MLP backward's steps, each from the
+    kernel's own inputs to it (its float32 dh and rounded dhc, which
+    ``mlp_bwd_cuda(..., taps=)`` hands out): {"dh" (float32), "dhc", "dy"
+    (dhc w1, float32), "dx" (its rounded form), "dw1", "db1", "dw2",
+    "db2"}; the LayerNorm-MLP's on its y in place of x."""
+    g32, dhc32 = g.to(F32), dhc.to(F32)
+    dy = dhc32 @ w1.to(F32)
+    return {"dh": (g32 @ w2.to(F32)) * s.to(F32), "dhc": dh.to(BF16),
+            "dy": dy, "dx": dy.to(BF16),
+            "dw1": (dhc32.t() @ x.to(F32)).to(BF16),
+            "db1": dh.sum(dim=0).to(BF16),
+            "dw2": (g32.t() @ a.to(F32)).to(BF16),
+            "db2": g32.sum(dim=0).to(BF16)}
 
 
 def ln_mlp_bwd_stages(x, y, a, s, go, gy, gamma, w1, w2, eps, dh, dhc, dy):
@@ -116,17 +142,31 @@ def ln_mlp_bwd_stages(x, y, a, s, go, gy, gamma, w1, w2, eps, dh, dhc, dy):
     the kernel left them in its scratch): {"dh", "dhc", "dy" (float32 but
     dhc), "dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"}."""
     from vitta_tpu_torch.ops.cuda_ln import layer_norm_backward_reference
-    go32 = go.to(F32)
-    dy_ref = dhc.to(F32) @ w1.to(F32)
+    out = mlp_bwd_stages(y, a, s, go, w1, w2, dh, dhc)
     if gy is not None:
-        dy_ref = dy_ref + gy.to(F32)
-    dx, dgamma, dbeta = layer_norm_backward_reference(x, gamma, dy, eps)
-    return {"dh": (go32 @ w2.to(F32)) * s.to(F32), "dhc": dh.to(BF16),
-            "dy": dy_ref, "dx": dx, "dgamma": dgamma, "dbeta": dbeta,
-            "dw1": (dhc.to(F32).t() @ y.to(F32)).to(BF16),
-            "db1": dh.sum(dim=0).to(BF16),
-            "dw2": (go32.t() @ a.to(F32)).to(BF16),
-            "db2": go32.sum(dim=0).to(BF16)}
+        out["dy"] = out["dy"] + gy.to(F32)
+    out["dx"], out["dgamma"], out["dbeta"] = layer_norm_backward_reference(
+        x, gamma, dy, eps)
+    return out
+
+
+def _slack(q, k, v, logits, ms, gh, scale: float):
+    """The bounds of ``packed_attention_bf16_slack`` in (B_, N, nh, hd):
+    out's, then dq's, dk's and dv's, from float32 q, k, v, the logits and
+    the cotangent ``gh``."""
+    b_, n, nh, _hd = q.shape
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]
+    out = torch.einsum("bhqk,bkhd->bqhd", e * inv, v.abs())
+    gs = (gh * inv.permute(0, 2, 1, 3)).to(BF16).to(F32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    dl = (e * (dp - rs) * inv).abs()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.abs()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.abs()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", e, gs.abs())
+    return tuple(ULP_REL * t for t in (out, dq, dk, dv))
 
 
 def packed_attention_bf16_slack(qkv, bias, mask, ms, g, scale: float,
@@ -137,22 +177,19 @@ def packed_attention_bf16_slack(qkv, bias, mask, ms, g, scale: float,
     scale sum_i |dl_ij| |q_i| for dk, in the layouts of out and dqkv."""
     from vitta_tpu_torch.ops.cuda_attention import _bf16_logits
     b_, n, c3 = qkv.shape
-    hd = c3 // 3 // nh
     q, k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
-    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
-    e = torch.exp(logits - ms4[..., 0:1])
-    inv = 1.0 / ms4[..., 1:2]
-    out = torch.einsum("bhqk,bkhd->bqhd", e * inv, v.abs())
-    gh = g.reshape(b_, n, nh, hd).to(F32)
-    gs = (gh * inv.permute(0, 2, 1, 3)).to(BF16).to(F32)
-    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
-    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
-    dl = (e * (dp - rs) * inv).abs()
-    dq = torch.einsum("bhqk,bkhd->bqhd", dl, k.abs()) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", dl, q.abs()) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", e, gs.abs())
-    return (ULP_REL * out.reshape(b_, n, c3 // 3),
-            ULP_REL * torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3))
+    out, dq, dk, dv = _slack(q, k, v, logits, ms,
+                             g.reshape(q.shape).to(F32), scale)
+    return (out.reshape(b_, n, c3 // 3),
+            torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3))
+
+
+def heads_attention_bf16_slack(q, k, v, bias, mask, ms, g, scale: float):
+    """``packed_attention_bf16_slack`` per (head, window): (out's, dq's,
+    dk's, dv's) bounds, each (B_, N, nh, hd)."""
+    from vitta_tpu_torch.ops.cuda_attention import _bf16_logits_of
+    q, k, v, logits = _bf16_logits_of(q, k, v, bias, mask, scale)
+    return _slack(q, k, v, logits, ms, g.to(F32), scale)
 
 
 def _packed(qkv, ms, nh: int):
@@ -163,13 +200,29 @@ def _packed(qkv, ms, nh: int):
     return q, k, v, ms.reshape(b_, n, nh, 2)[..., 1]
 
 
+def _fwd_stage(v, s, e):
+    """(e v) / s in float32 (B_, N, nh, hd) from the kernel's rounded e."""
+    return torch.einsum("bhqk,bkhd->bqhd", e.to(F32), v) / s[..., None]
+
+
+def _bwd_stages(q, k, s, gh, e, dl, scale: float):
+    """dq, dk, dv in float32 (B_, N, nh, hd) from the kernel's rounded e and
+    float32 dl: dv = e^T bfloat16(g / s), dq and dk from bfloat16(dl),
+    times scale."""
+    gs = (gh * (1.0 / s)[..., None]).to(BF16).to(F32)
+    dlc = dl.to(BF16).to(F32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(F32), gs)
+    return dq, dk, dv
+
+
 def packed_attention_bf16_fwd_stage(qkv, ms, e, nh: int):
     """The plain out of the bfloat16 attention forward from the kernel's own
     rounded ``e`` (B_, nh, N, N) and ``ms``: bfloat16((e v) / s)."""
     b_, n, c3 = qkv.shape
     _q, _k, v, s = _packed(qkv, ms, nh)
-    o = torch.einsum("bhqk,bkhd->bqhd", e.to(F32), v) / s[..., None]
-    return o.reshape(b_, n, c3 // 3).to(BF16)
+    return _fwd_stage(v, s, e).reshape(b_, n, c3 // 3).to(BF16)
 
 
 def packed_attention_bf16_bwd_stages(qkv, ms, g, e, dl, scale: float,
@@ -180,12 +233,38 @@ def packed_attention_bf16_bwd_stages(qkv, ms, g, e, dl, scale: float,
     scale, rounded."""
     b_, n, c3 = qkv.shape
     q, k, _v, s = _packed(qkv, ms, nh)
-    gs = (g.reshape(q.shape).to(F32) * (1.0 / s)[..., None]).to(BF16).to(F32)
-    dlc = dl.to(BF16).to(F32)
-    dq = torch.einsum("bhqk,bkhd->bqhd", dlc, k) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", dlc, q) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", e.to(F32), gs)
+    dq, dk, dv = _bwd_stages(q, k, s, g.reshape(q.shape).to(F32), e, dl,
+                             scale)
     return torch.stack([dq, dk, dv], dim=2).reshape(b_, n, c3).to(BF16)
+
+
+def heads_attention_bf16_fwd_stage(v, ms, e):
+    """``packed_attention_bf16_fwd_stage`` per (head, window): out
+    (B_, N, nh, hd) from v and the kernel's own ``e`` and ``ms``."""
+    b_, n, nh, _hd = v.shape
+    return _fwd_stage(v.to(F32), ms.reshape(b_, n, nh, 2)[..., 1],
+                      e).to(BF16)
+
+
+def heads_attention_bf16_bwd_stages(q, k, ms, g, e, dl, scale: float):
+    """``packed_attention_bf16_bwd_stages`` per (head, window): (dq, dk,
+    dv), each (B_, N, nh, hd) bfloat16."""
+    b_, n, nh, _hd = q.shape
+    return tuple(t.to(BF16) for t in _bwd_stages(
+        q.to(F32), k.to(F32), ms.reshape(b_, n, nh, 2)[..., 1], g.to(F32),
+        e, dl, scale))
+
+
+def _intermediates(v, logits, ms, gh):
+    """(bfloat16(e), dl float32) from float32 v, the logits, the kernel's
+    ``ms`` and the float32 cotangent ``gh``."""
+    b_, n, nh, _hd = v.shape
+    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
+    e = torch.exp(logits - ms4[..., 0:1])
+    inv = 1.0 / ms4[..., 1:2]
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, v)
+    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
+    return e.to(BF16), e * (dp - rs) * inv
 
 
 def packed_attention_bf16_intermediates(qkv, bias, mask, ms, g, scale: float,
@@ -194,11 +273,13 @@ def packed_attention_bf16_intermediates(qkv, bias, mask, ms, g, scale: float,
     logits and the kernel's row maximum and sum ``ms``: the values the
     kernels' e and dl are held to."""
     from vitta_tpu_torch.ops.cuda_attention import _bf16_logits
-    b_, n, _c3 = qkv.shape
     _q, _k, v, logits = _bf16_logits(qkv, bias, mask, scale, nh)
-    ms4 = ms.reshape(b_, n, nh, 2).permute(0, 2, 1, 3)
-    e = torch.exp(logits - ms4[..., 0:1])
-    inv = 1.0 / ms4[..., 1:2]
-    dp = torch.einsum("bqhd,bkhd->bhqk", g.reshape(v.shape).to(F32), v)
-    rs = torch.sum(dp * e, dim=-1, keepdim=True) * inv
-    return e.to(BF16), e * (dp - rs) * inv
+    return _intermediates(v, logits, ms, g.reshape(v.shape).to(F32))
+
+
+def heads_attention_bf16_intermediates(q, k, v, bias, mask, ms, g,
+                                       scale: float):
+    """``packed_attention_bf16_intermediates`` per (head, window)."""
+    from vitta_tpu_torch.ops.cuda_attention import _bf16_logits_of
+    _q, _k, v32, logits = _bf16_logits_of(q, k, v, bias, mask, scale)
+    return _intermediates(v32, logits, ms, g.to(F32))
