@@ -6,8 +6,8 @@ stream and its trajectory against the float32 one, the Video Swin-B float32
 forward paths and the Video Swin-B float32 ViTTA stream end to end, the
 last under each of its four attention routes, Video Swin-T's forward
 paths and stream under two of them, and the Video Swin-B and Swin-T
-bfloat16 streams (Swin-T's under both of those routes) with their
-trajectories against float32.
+bfloat16 streams (Swin-T's under both of those routes, Swin-B's also under
+the two projection-fused routes) with their trajectories against float32.
 
     python3 chip_smoke.py
 
@@ -273,10 +273,42 @@ result line:
    LayerNorm-MLP, MLP and attention launch a bfloat16 kernel.
 33. float32 against bfloat16 Swin-T trajectories over 10 videos, as phase
    28, held to GATE_BOUNDS.
+34. The projection-fused attention at bfloat16, with and without the
+   LayerNorm, forward and backward (rows 16-19 in the bfloat16 Swin under
+   "proj" and "ln_proj"), at every Swin-B and Swin-T stage shape: forward
+   at 1 clip (values), and at 2 clips with and without the mask,
+   ``attn_ln_proj`` with and without a cotangent on y, held by
+   ``bf16_checks.check_proj_bf16``: qkv and out by the Dense bound (between
+   the Dense sums of the plain product's bfloat16 neighbours, at most 1e-3
+   of the values apart from the plain version), every other step within
+   one bfloat16 ulp of its plain version on the kernel's own
+   intermediates (o_att; g_att, dqkv, dl and dy from the backward's
+   scratch; e from the attention's tapped instances), the attention end to
+   end as phase 25's, the float32 intermediates and sums to 2e-5 of their
+   largest magnitude; two backward runs bit-equal; the backward's launches
+   the library's own count (``vitta_attn_proj_bwd_bf16_launches``), within
+   8 and 11, every one a bfloat16 instance.
+35. At Swin-B's shapes (2 clips), device ms per Swin-B pass of 2 clips
+   (graph replays) of the four, beside the float32 kernels' on the same
+   values, the plain versions', the bound at bfloat16,
+   ``F.multi_head_attention_forward`` at bfloat16 for ``attn_proj`` (its
+   backward under autograd) and the composition each replaces (the
+   LayerNorm kernel, F.linear, the bfloat16 packed kernel on the dense
+   bias, F.linear; its backward under autograd).
+36. Phase 26's small bfloat16 Swin under "proj" and "ln_proj", card against
+   CPU.
+37. Swin-B at bfloat16 under "ln_proj" and under "proj": ``tta_stream`` over
+   3 videos each, as phase 27, per pass 24 ``attn_ln_proj`` and 5 LayerNorm
+   launches, or 24 ``attn_proj`` and 29, the bias expansion and collapse,
+   no packed attention, no contiguity copy, every attention launch a
+   bfloat16 instance; a profiled step each.
+38. One adapt+eval step each of packed, proj and ln_proj at bfloat16 in
+   turns, as phase 14's.
 
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
-7-11, 13, 14, 16, 17, 26-29, 31-33, 21 at bfloat16, 25, 30 (25 and 30
-last: the memory of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
+7-11, 13, 14, 16, 17, 26-29, 31-33, 36-38, 21 at bfloat16, 25, 30, 34, 35
+(25, 30, 34 and 35 last: the memory of their CUDA graphs would stand in the
+streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
@@ -408,6 +440,7 @@ SWIN_T_GATE_VIDEOS = 10       # phase 33's two Swin-T streams
 SWIN_LN_PROJ_VIDEOS = 5   # the ln_proj route's stream; two warm-up
 SWIN_PROJ_VIDEOS = 3      # the proj route's stream; one warm-up
 SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
+BF16_PROJ_VIDEOS = 3      # each bfloat16 projection-fused stream; one warm-up
 # backward kernels: |error| <= tol * (largest |value| of the plain version's
 # tensor).  The sums over rows and windows are taken in chunks and the
 # chunks added in order, not in the plain version's order; float32
@@ -2790,8 +2823,9 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2),
     clip are multiples of 8 at every stage).  Outside the blocks there is
     one LayerNorm per stage (patch embed, PatchMerging) and the final one.
     At bfloat16 the packed attention takes the compact bias itself: no
-    expansion and no collapse launch; under ``"heads"`` the bias is
-    expanded and collapsed at float32 at either dtype."""
+    expansion and no collapse launch; under ``"heads"``, ``"proj"`` and
+    ``"ln_proj"`` the bias is expanded and collapsed at float32 at either
+    dtype."""
     attn = {None: "attn_packed", "packed": "attn_packed", "proj": "attn_proj",
             "ln_proj": "attn_ln_proj", "heads": "attn_heads"}[route]
     blocks = sum(depths)
@@ -2806,7 +2840,7 @@ def swin_launches(route, embed_dim=128, depths=(2, 2, 18, 2),
            "attn_heads_bwd": 0, "attn_proj_bwd": 0, "attn_ln_proj_bwd": 0,
            "ln_mlp_bwd": fused, "mlp_bwd": blocks - fused}
     fwd[attn + "_fwd"] = bwd[attn + "_bwd"] = blocks
-    if dtype == "bfloat16" and attn != "attn_heads":
+    if dtype == "bfloat16" and attn == "attn_packed":
         fwd["bias_expand"] = bwd["bias_collapse"] = 0
     return fwd, bwd
 
@@ -3203,14 +3237,15 @@ def phase_swin_adapt_full(cfg, sd, stats, seed, card, attn_route=None,
     return counts, summary
 
 
-def phase_routes_interleaved(cfg, sd, stats, seed, card):
+def phase_routes_interleaved(cfg, sd, stats, seed, card, dtype="float32"):
     """One adapt+eval step of the Swin of ``cfg`` under packed, proj and
     ln_proj in turns (packed, proj, ln_proj, ln_proj, proj, packed), one
     engine per route built once and warmed up, on one seeded video with its
     inputs on the card: device busy of each step (torch.profiler) and its
     peak memory above what the engines hold between steps, the memory a
-    route's activations and kept tensors take.  Returns {route: {"busy":
-    [ms], "peak": [GiB]}}."""
+    route's activations and kept tensors take.  Phase 38 runs it at
+    ``dtype`` bfloat16 (``Recognizer3D(..., dtype="bfloat16")``).  Returns
+    {route: {"busy": [ms], "peak": [GiB]}}."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
     from vitta_tpu_torch.models import get_model
     t, hw = cfg.data.clip_length, cfg.data.input_size
@@ -3218,7 +3253,10 @@ def phase_routes_interleaved(cfg, sd, stats, seed, card):
                           _videos(np.random.default_rng(seed + 2), 1, t,
                                   hw)[0])
     routes = ("packed", "proj", "ln_proj")
-    engines = {r: VittaEngine(get_model(cfg, attn_route=r), cfg, sd, stats)
+    engines = {r: VittaEngine(get_model(cfg, attn_route=r)
+                              if dtype == "float32" else
+                              _synthetic_swin(cfg, dtype, attn_route=r),
+                              cfg, sd, stats)
                for r in routes}
     states = {r: e.init_state() for r, e in engines.items()}
     out = {r: {"busy": [], "peak": []} for r in routes}
@@ -3237,7 +3275,8 @@ def phase_routes_interleaved(cfg, sd, stats, seed, card):
         _host, busy, _rows = device_breakdown(step, top=None)
         out[route]["busy"].append(busy if busy > 0 else None)
     for route, r in out.items():
-        print(f"swin-B adapt step, interleaved, route {route}: device busy "
+        print(f"swin-B adapt step, interleaved, route {route}"
+              f"{', bfloat16' if dtype == 'bfloat16' else ''}: device busy "
               + ", ".join(fmt(b) for b in r["busy"]) + " ms, step peak "
               "above the engines' memory "
               + ", ".join(f"{p:.3f}" for p in r["peak"]) + f" GiB; on {card}",
@@ -4627,6 +4666,315 @@ def phase_bf16_swin_interleaved(cfg, sd, stats, seed, card, rounds=3):
     return out
 
 
+def _quick_bf16(fn):
+    """(CUDA-event ms, device ms from a CUDA graph's replay) of ``fn``, with
+    fewer runs than ``_measure_bf16``: phase 34 times eight ops at seven
+    shapes."""
+    return cuda_ms(fn, reps=3, warmup=1), graph_ms(fn, calls=3, reps=2)
+
+
+def phase_bf16_proj_kernels(dev):
+    """Phase 34: the bfloat16 projection-fused attention, with and without
+    the LayerNorm, forward and backward (rows 16-19 at bfloat16) against
+    their plain versions at every Swin-B and Swin-T stage shape: forward
+    at 1 clip (values: qkv and out by the Dense bound, o_att end to end),
+    and at 2 clips, with and without the mask, ``attn_proj``, and
+    ``attn_ln_proj`` with and without a cotangent on y, every step on the
+    kernel's own intermediates (``bf16_checks.check_proj_bf16``: qkv,
+    o_att, g_att, dqkv, dl and dy, e from the attention's tapped
+    instances), two backward runs bit-equal, the launches of a call the
+    library's count and within the chain's budget (8, 11), every one a
+    bfloat16 instance.  Phase 35: at Swin-B's shapes (2 clips) device ms
+    from CUDA graphs' replays beside the float32 kernel's on the same
+    values, the plain versions', the bound at bfloat16 (bytes over 3.35
+    TB/s, operations over 989 TFLOP/s), ``F.multi_head_attention_forward``
+    at bfloat16 for ``attn_proj`` (its backward under autograd, without
+    the bias's gradient) and the composition each op replaces (the
+    LayerNorm kernel, F.linear, the bfloat16 packed attention kernel on
+    the dense bias, F.linear; its backward under autograd), summed over the
+    24 sites of a Swin-B pass of 2 clips.  Returns the four JSON rows."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_attention_proj as cp
+    from vitta_tpu_torch.ops import cuda_bias as cb
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    from vitta_tpu_torch.tools import bf16_checks as bc
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    wd, wh, ww = SWIN_WINDOW
+    hw, n_tok = wh * ww, wd * wh * ww
+    eps = 1e-5
+    keys = ("proj_fwd", "proj_bwd", "ln_proj_fwd", "ln_proj_bwd")
+    tot = {k: Totals() for k in keys}
+    f32 = dict.fromkeys(keys, 0.0)
+    comp = dict.fromkeys(keys, 0.0)
+    per_call = {"proj_bwd": set(), "ln_proj_bwd": set()}
+
+    def add(acc, key, sites, ms_):
+        acc[key] = (None if acc[key] is None or ms_ is None
+                    else acc[key] + sites * ms_)
+
+    for model, stages in (("swin-B", SWIN_STAGES), ("swin-T", SWIN_T_STAGES)):
+        for stage, (c, nh, tokens, nw, depth) in enumerate(stages):
+            hd, scale = c // nh, (c // nh) ** -0.5
+            gm, bt = 1 + 0.1 * randn(c), 0.1 * randn(c)
+            w = (randn(3 * c, c, scale=c ** -0.5).to(bf16),
+                 (0.1 * randn(3 * c)).to(bf16),
+                 randn(c, c, scale=c ** -0.5).to(bf16),
+                 (0.1 * randn(c)).to(bf16))
+            dense = cb.expand_bias_reference(
+                randn(nh, 2 * wd - 1, hw, hw, scale=0.5), wd)
+            mask = None
+            if nw > 1:
+                mask = torch.where(torch.rand(nw, n_tok, n_tok, device=dev,
+                                              generator=gen) < 0.3,
+                                   -100.0, 0.0)
+                mask.diagonal(dim1=1, dim2=2).zero_()
+            for clips in (1, 2):
+                b_ = clips * tokens // n_tok
+                m_rows = b_ * n_tok
+                x = (randn(b_, n_tok, c, scale=1.5) + 0.3).to(bf16)
+                g = randn(b_, n_tok, c).to(bf16)
+                gy = (0.3 * randn(b_, n_tok, c)).to(bf16)
+                for m in ((None, mask) if mask is not None else (None,)):
+                    tag = (f"{model} B_={b_} N={n_tok} C={c} nh={nh} mask="
+                           f"{m is not None}")
+                    sites = depth // 2 if mask is not None else depth
+                    if clips == 1:   # the eval batch: values only
+                        for ln in (None, (gm, bt, eps)):
+                            outs = (cp.attn_proj_fwd(x, *w, dense, m, scale,
+                                                     nh, True)
+                                    if ln is None else cp.attn_ln_proj_fwd(
+                                        x, *ln, *w, dense, m, scale, nh,
+                                        True))
+                            y = x if ln is None else outs[1]
+                            out, qkv, o_att, ms_ = (outs if ln is None else
+                                                    (outs[0],) + outs[2:])
+                            bc.assert_dense_within("qkv", qkv, y, w[0], w[1])
+                            bc.assert_dense_within("out", out, o_att, w[2],
+                                                   w[3])
+                            bc.assert_bf16_mostly_within(
+                                "o_att", o_att,
+                                ca.packed_attention_bf16_reference(
+                                    qkv, dense, m, scale, nh),
+                                bc.packed_attention_bf16_slack(
+                                    qkv, dense, m, ms_, g, scale, nh)[0])
+                            del outs, y, out, qkv, o_att, ms_
+                        print(f"attn_proj / attn_ln_proj bf16 fwd {tag}: "
+                              "qkv, out and o_att within their bounds",
+                              flush=True)
+                        continue
+                    checks = {}
+                    for op, ln, g_y in (("proj", None, None),
+                                        ("ln_proj gy", (gm, bt, eps), gy),
+                                        ("ln_proj", (gm, bt, eps), None)):
+                        r = bc.check_proj_bf16(x, ln, *w, dense, m, scale,
+                                               nh, g, g_y)
+                        checks[op] = r
+                        per_call["proj_bwd" if ln is None
+                                 else "ln_proj_bwd"].add(r["launches"][1])
+                        key = "proj" if ln is None else "ln_proj"
+                        for side in ("fwd", "bwd"):
+                            tot[f"{key}_{side}"].err = max(
+                                tot[f"{key}_{side}"].err, r["abs"][side])
+                    print(f"attn_proj / attn_ln_proj bf16 {tag}: every step "
+                          "within its bounds, two backward runs bit-equal; "
+                          "launches forward / backward "
+                          + ", ".join(f"{k} {v['launches']}"
+                                      for k, v in checks.items())
+                          + "; values an ulp apart " + json.dumps(
+                              {k: {n: float(f"{a:.2e}") for n, a in
+                                   v["apart"].items()}
+                               for k, v in checks.items()}), flush=True)
+                    if model == "swin-T":
+                        del checks
+                        continue
+                    # phase 35: times at Swin-B's shapes
+                    _o, qkv_, o_att, ms_ = checks["proj"]["fwd"]
+                    _o, y_ln, qkv_ln, o_ln, ms_ln = checks["ln_proj gy"]["fwd"]
+                    del checks, _o
+                    g_y = gy if stage >= 2 else None
+                    pargs = (x, qkv_, w[0], w[2], dense, m, o_att, ms_, g,
+                             scale, nh)
+                    largs = (x, y_ln, qkv_ln, gm, eps, w[0], w[2], dense, m,
+                             o_ln, ms_ln, g, g_y, scale, nh)
+
+                    def composition(xin, wts, with_ln, bias_=dense):
+                        y = cl.layer_norm(xin, gm, bt, eps) if with_ln \
+                            else xin
+                        o = ca.window_attention_packed(
+                            F.linear(y, wts[0], wts[1]), bias_, m, scale, nh)
+                        return F.linear(o, wts[2], wts[3]), y
+
+                    am = (dense[None] if m is None else
+                          dense[None, None] + m[None, :, None]).expand(
+                              b_ // nw, nw, nh, n_tok, n_tok).reshape(
+                                  b_ * nh, n_tok, n_tok).to(bf16)
+                    x_t = x.transpose(0, 1).contiguous()
+
+                    def mha(xin, wq, bq, wp_, bp_):
+                        return F.multi_head_attention_forward(
+                            xin, xin, xin, c, nh, wq, bq, None, None, False,
+                            0.0, wp_, bp_, training=False,
+                            need_weights=False, attn_mask=am)[0]
+
+                    t = {"proj": _quick_bf16(lambda: cp.attn_proj_fwd(
+                             x, *w, dense, m, scale, nh)),
+                         "ln_proj": _quick_bf16(lambda: cp.attn_ln_proj_fwd(
+                             x, gm, bt, eps, *w, dense, m, scale, nh)),
+                         "proj plain": _quick_bf16(
+                             lambda: cp.proj_attention_bf16_reference(
+                                 x, *w, dense, m, scale, nh)),
+                         "ln_proj plain": _quick_bf16(
+                             lambda: cp.ln_proj_attention_bf16_reference(
+                                 x, gm, bt, eps, *w, dense, m, scale, nh)),
+                         "proj library": _quick_bf16(lambda: mha(x_t, *w)),
+                         "proj composition": _quick_bf16(
+                             lambda: composition(x, w, False)),
+                         "ln_proj composition": _quick_bf16(
+                             lambda: composition(x, w, True)),
+                         "proj bwd": _quick_bf16(
+                             lambda: cp.attn_proj_bwd(*pargs)),
+                         "ln_proj bwd": _quick_bf16(
+                             lambda: cp.attn_ln_proj_bwd(*largs)),
+                         "proj bwd plain": _quick_bf16(
+                             lambda: cp.proj_attention_bf16_backward_reference(
+                                 *pargs)),
+                         "ln_proj bwd plain": _quick_bf16(
+                             lambda:
+                             cp.ln_proj_attention_bf16_backward_reference(
+                                 *largs))}
+                    leaves = [v.detach().clone().requires_grad_()
+                              for v in (x,) + w]
+                    bias_l = dense.detach().clone().requires_grad_()
+                    lib_leaves = [v.detach().clone().requires_grad_()
+                                  for v in (x_t,) + w]
+                    g_t = g.transpose(0, 1).contiguous()
+                    with torch.enable_grad():
+                        out_c, _y = composition(leaves[0], leaves[1:], False,
+                                                bias_l)
+                        out_cl, y_cl = composition(leaves[0], leaves[1:],
+                                                   True, bias_l)
+                        out_lib = mha(*lib_leaves)
+                    outs_l, cots_l = (([out_cl, y_cl], [g, g_y])
+                                      if g_y is not None else ([out_cl], [g]))
+                    t["proj bwd library"] = _measure_bf16_grad(
+                        lambda: torch.autograd.grad(out_lib, lib_leaves, g_t,
+                                                    retain_graph=True))
+                    t["proj bwd composition"] = _measure_bf16_grad(
+                        lambda: torch.autograd.grad(
+                            out_c, leaves + [bias_l], g, retain_graph=True))
+                    t["ln_proj bwd composition"] = _measure_bf16_grad(
+                        lambda: torch.autograd.grad(
+                            outs_l, leaves + [bias_l], cots_l,
+                            retain_graph=True))
+                    del out_c, _y, out_cl, y_cl, out_lib, outs_l, leaves
+                    del lib_leaves, g_t
+                    _report(f"attn_proj / attn_ln_proj bf16 {tag}",
+                            max(v.err for v in tot.values()), t)
+                    # the float32 kernels on the same values
+                    xf, wf, gf = x.float(), [v.float() for v in w], g.float()
+                    gyf = None if g_y is None else g_y.float()
+                    _of, qf, oaf, msf = cp.attn_proj_fwd(xf, *wf, dense, m,
+                                                         scale, nh, True)
+                    _of, ylf, qlf, olf, mslf = cp.attn_ln_proj_fwd(
+                        xf, gm, bt, eps, *wf, dense, m, scale, nh, True)
+                    add(f32, "proj_fwd", sites, graph_ms(
+                        lambda: cp.attn_proj_fwd(xf, *wf, dense, m, scale,
+                                                 nh)))
+                    add(f32, "ln_proj_fwd", sites, graph_ms(
+                        lambda: cp.attn_ln_proj_fwd(xf, gm, bt, eps, *wf,
+                                                    dense, m, scale, nh)))
+                    add(f32, "proj_bwd", sites, graph_ms(
+                        lambda: cp.attn_proj_bwd(xf, qf, wf[0], wf[2], dense,
+                                                 m, oaf, msf, gf, scale,
+                                                 nh)))
+                    add(f32, "ln_proj_bwd", sites, graph_ms(
+                        lambda: cp.attn_ln_proj_bwd(
+                            xf, ylf, qlf, gm, eps, wf[0], wf[2], dense, m,
+                            olf, mslf, gf, gyf, scale, nh)))
+                    del xf, wf, gf, gyf, _of, qf, oaf, msf, ylf, qlf, olf
+                    del mslf
+                    # what each must move (bfloat16 activations and
+                    # weights, the float32 bias, mask and ms) and do
+                    act, small = 2 * m_rows * c, (
+                        2 * (4 * c * c + 4 * c) + 4 * dense.numel()
+                        + (0 if m is None else 4 * m.numel()))
+                    attn_f = b_ * nh * n_tok * n_tok * (4 * hd + 6)
+                    attn_b = b_ * nh * n_tok * n_tok * (10 * hd + 12)
+                    sizes = {
+                        "proj_fwd": (2 * act + small,
+                                     8 * m_rows * c * c + attn_f),
+                        "ln_proj_fwd": (3 * act + small + 8 * c,
+                                        8 * m_rows * c * c + attn_f
+                                        + 8 * m_rows * c),
+                        # x, qkv (3), o_att, g read, dx written; ms; the
+                        # weights read, their gradients and dbias written
+                        "proj_bwd": (7 * act + 8 * m_rows * nh + 2 * small,
+                                     16 * m_rows * c * c + attn_b),
+                        "ln_proj_bwd": (
+                            (8 + (g_y is not None)) * act + 8 * m_rows * nh
+                            + 2 * small + 16 * c,
+                            16 * m_rows * c * c + attn_b + 20 * m_rows * c)}
+                    per_site(t, {k: ({"proj_fwd": "proj",
+                                      "ln_proj_fwd": "ln_proj",
+                                      "proj_bwd": "proj bwd",
+                                      "ln_proj_bwd": "ln_proj bwd"}[k],
+                                     nb, fl,
+                                     3 + ("ln" in k) if "fwd" in k
+                                     else max(per_call[k]))
+                                 for k, (nb, fl) in sizes.items()})
+                    for key, label in (("proj_fwd", "proj"),
+                                       ("ln_proj_fwd", "ln_proj"),
+                                       ("proj_bwd", "proj bwd"),
+                                       ("ln_proj_bwd", "ln_proj bwd")):
+                        nb, fl = sizes[key]
+                        lib = t.get(f"{label} library", (None, None))
+                        tot[key].add(sites, ms=t[label][0],
+                                     device_ms=t[label][1],
+                                     plain_ms=t[f"{label} plain"][0],
+                                     plain_device_ms=t[f"{label} plain"][1],
+                                     library_ms=lib[0],
+                                     library_device_ms=lib[1], bytes=nb,
+                                     flops=fl)
+                        add(comp, key, sites, t[f"{label} composition"][1])
+                    del qkv_, o_att, ms_, y_ln, qkv_ln, o_ln, ms_ln, am, x_t
+                    del pargs, largs
+                del x, g, gy
+    src, ops = "vitta_tpu_torch/csrc/attention_proj.cu", \
+        "vitta_tpu/ops/pallas_attention.py"
+    rows = [tot["proj_fwd"].row("attn_proj_fwd_bf16", src, f"{ops}:724",
+                                flop_rate=BF16_FLOP_PER_S),
+            tot["proj_bwd"].row("attn_proj_bwd_bf16", src, f"{ops}:747",
+                                flop_rate=BF16_FLOP_PER_S),
+            tot["ln_proj_fwd"].row("attn_ln_proj_fwd_bf16", src,
+                                   f"{ops}:945", has_library=False,
+                                   flop_rate=BF16_FLOP_PER_S),
+            tot["ln_proj_bwd"].row("attn_ln_proj_bwd_bf16", src,
+                                   f"{ops}:967", has_library=False,
+                                   flop_rate=BF16_FLOP_PER_S)]
+    for row, key in zip(rows, keys):
+        row["float32_device_ms"] = f32[key]
+        row["composition_device_ms"] = comp[key]
+        if key in per_call:
+            row["launches_per_call"] = sorted(per_call[key])
+        print(f"{row['name']} per Swin-B pass of 2 clips (24 sites): device "
+              f"ms kernel {fmt(row['device_ms'])} float32 kernel "
+              f"{fmt(row['float32_device_ms'])} plain "
+              f"{fmt(row['plain_device_ms'])} library "
+              f"{fmt(row['library_device_ms'])} composition "
+              f"{fmt(row['composition_device_ms'])}; event ms "
+              f"{row['ms']:.4f} / {row['plain_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']} at bfloat16"
+              + (f"; launches per call {row['launches_per_call']}"
+                 if key in per_call else ""), flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4857,6 +5205,23 @@ def main() -> int:
                                                SWIN_T_GATE_VIDEOS,
                                                what="Swin-T")
     lap("phase 33, Swin-T float32 against bfloat16 trajectories")
+    # Video Swin at bfloat16 under the projection-fused routes (rows 16-19):
+    # small slices card against CPU, the Swin-B streams, one step of each
+    # route in turns (their kernels in phases 34-35, after phase 30)
+    for route in ("proj", "ln_proj"):
+        phase_bf16_swin_small(SEED, route=route,
+                              what=f"swin small slice (bfloat16, {route})")
+    lap("phase 36, bfloat16 small slices of the projection-fused routes")
+    b16l_launches, b16_ln_proj = phase_bf16_swin_full(
+        _swin_cfg(), sd, stats, SEED, card, n_videos=BF16_PROJ_VIDEOS,
+        warmup=1, attn_route="ln_proj")
+    b16p_launches, b16_proj = phase_bf16_swin_full(
+        _swin_cfg(), sd, stats, SEED, card, n_videos=BF16_PROJ_VIDEOS,
+        warmup=1, attn_route="proj")
+    lap("phase 37, Swin-B bfloat16 streams under ln_proj and proj")
+    bf16_interleaved = phase_routes_interleaved(_swin_cfg(), sd, stats, SEED,
+                                                card, dtype="bfloat16")
+    lap("phase 38, Swin-B bfloat16 steps of the three routes in turns")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)
@@ -4874,6 +5239,13 @@ def main() -> int:
         row["launches"] = by_route[key]
         row["launches_a_step"] = by_route[key] / videos
     lap("phase 30, bfloat16 Swin-T kernels")
+    proj_bf16_rows = phase_bf16_proj_kernels(dev)
+    for row in proj_bf16_rows:
+        key = row["name"][:-len("_bf16")]
+        by_route = b16l_launches if "ln_proj" in key else b16p_launches
+        row["launches"] = by_route[key]
+        row["launches_a_step"] = by_route[key] / BF16_PROJ_VIDEOS
+    lap("phases 34-35, bfloat16 projection-fused attention kernels")
     for s in tanet_modes:
         print(f"TANet, {s['mode']}, {s['dtype']}: median "
               f"{s['median_ms']:.3f} ms/video (min "
@@ -4884,7 +5256,7 @@ def main() -> int:
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
     for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads, b16,
-              t16_packed, t16_heads):
+              t16_packed, t16_heads, b16_ln_proj, b16_proj):
         print(f"{s['model']} adapt step, route {s['route']}"
               f"{', bfloat16' if s.get('dtype') == 'bfloat16' else ''}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
@@ -4901,6 +5273,15 @@ def main() -> int:
               f" ms, step peak {max(r['peak']):.3f} GiB above the engines' "
               f"memory; peak of its own stream "
               f"{streams[route]['peak_gib']:.3f} GiB; on {card}", flush=True)
+    b16_streams = {"packed": b16, "proj": b16_proj, "ln_proj": b16_ln_proj}
+    for route, r in bf16_interleaved.items():
+        busy = [b for b in r["busy"] if b is not None]
+        print(f"swin-B adapt step, bfloat16, route {route}, interleaved with "
+              f"the other two: device busy "
+              f"{fmt(statistics.mean(busy) if busy else None)} ms, step peak "
+              f"{max(r['peak']):.3f} GiB above the engines' memory; peak of "
+              f"its own stream {b16_streams[route]['peak_gib']:.3f} GiB; on "
+              f"{card}", flush=True)
     print("gemm_tiles rates, TFLOP/s (gemm_tiles, torch.matmul): "
           + json.dumps({k: {c: [round(v, 2) if v else v for v in r]
                             for c, r in calls.items()}
@@ -4921,7 +5302,7 @@ def main() -> int:
          for d, r in dtype_turns.items()}) + f"; on {card}", flush=True)
     print(json.dumps({"kernels": tam_rows + bn_rows + bf16_rows + swin_rows
                       + proj_rows + unfused_rows + swin_bf16_rows
-                      + swin_t_bf16_rows}))
+                      + swin_t_bf16_rows + proj_bf16_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The port's Video Swin at bfloat16 against vitta_tpu's
 ``Recognizer3D(dtype="bfloat16")`` on the CPU, through the same float32
-weights (tests/torch_swin.py's oracle, as tests/test_torch_swin.py), and what
-the bfloat16 Swin refuses.
+weights (tests/torch_swin.py's oracle, as tests/test_torch_swin.py), the
+routes it builds, and what it refuses.
 
 The model: Swin-B's first width with every width a multiple of 128 (embed
 128, depths (2, 1), heads (4, 8), window (2, 3, 3), 4 frames of 48 x 48), so
@@ -156,11 +156,36 @@ def test_activations_are_bf16_and_the_rest_float32(shared):
 
 
 @pytest.mark.parametrize("route", ["proj", "ln_proj"])
-def test_bf16_swin_refuses_other_routes(route):
-    """The projection-fused routes (PERF.md rows 16-19 at bfloat16) are
-    not ported; packed and heads are (tests/test_torch_bf16_swin_t.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Recognizer3D(dtype="bfloat16", attn_route=route, **MODEL_KW)
+def test_bf16_swin_builds_the_fused_routes(route, monkeypatch):
+    """The projection-fused routes (PERF.md rows 16-19 at bfloat16) build
+    at bfloat16 from vitta_tpu's flags (``attn_route=None`` under
+    ``VITTA_ATTN_PROJ_FUSED=1``, and ``VITTA_ATTN_LN=1`` for ln_proj) and
+    send every block of full windows to the route's op on bfloat16
+    activations and weights (tests/test_torch_bf16_swin_proj.py holds their
+    values to vitta_tpu's under ``attn_route``)."""
+    from vitta_tpu_torch.models import swin as swin_mod
+    op = {"proj": "window_attention_proj",
+          "ln_proj": "window_attention_ln_proj"}[route]
+    dtypes = []
+
+    def spy(*a, _fn=getattr(swin_mod, op), **kw):
+        dtypes.append((a[0].dtype, a[4].dtype))
+        return _fn(*a, **kw)
+    monkeypatch.setattr(swin_mod, op, spy)
+    monkeypatch.delenv("VITTA_ATTN_NO_PROJ", raising=False)
+    monkeypatch.setenv("VITTA_ATTN_PROJ_FUSED", "1")
+    if route == "ln_proj":
+        monkeypatch.setenv("VITTA_ATTN_LN", "1")
+    else:
+        monkeypatch.delenv("VITTA_ATTN_LN", raising=False)
+    model = Recognizer3D(dtype="bfloat16", attn_route=None, **MODEL_KW)
+    assert all(b.attn_route == route for layer in model.backbone.layers
+               for b in layer.blocks)
+    with torch.no_grad():
+        logits = model(torch.zeros(1, T, HW, HW, 3))
+    assert logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    assert dtypes == [(torch.bfloat16, torch.bfloat16)] * sum(DEPTHS)
 
 
 def test_bf16_swin_refuses_norm2_apart(monkeypatch):

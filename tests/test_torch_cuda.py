@@ -2221,11 +2221,117 @@ def test_bf16_swin_t_runs_through_the_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_swin_refuses_what_is_not_ported(cuda_device):
-    """At bfloat16 the projection-fused routes (rows 16-19) raise, naming
-    the ROADMAP's queue; heads and the widths whose norm2 runs apart (rows
-    8-9, 12-13) build."""
-    for route in ("proj", "ln_proj"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _bf16_swin(cuda_device, route=route)
-    _bf16_swin(cuda_device, route="heads")
+    """At bfloat16 every route builds (the projection-fused ones, rows
+    16-19, since their bfloat16 kernels exist), and so do the widths whose
+    norm2 runs apart (rows 8-9); float16 is refused."""
+    for route in ("packed", "heads", "proj", "ln_proj"):
+        _bf16_swin(cuda_device, route=route)
     _bf16_swin(cuda_device, embed_dim=96)
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    with pytest.raises(ValueError):
+        Recognizer3D(5, window_size=(2, 3, 3), embed_dim=128, depths=(2, 1),
+                     num_heads=(4, 8), dtype="float16")
+
+
+# --------------------------------------------------------------------------
+# bfloat16: the projection-fused attention (rows 16-19) in the bfloat16 Swin
+# under "proj" and "ln_proj", against its plain versions by
+# vitta_tpu_torch/tools/bf16_checks.py:check_proj_bf16: each step on the
+# kernel's own rounded intermediates (qkv and o_att, and g_att, dqkv, dl and
+# dy from the backward's scratch), qkv and out by the Dense bound
+# (``assert_dense_within``), the attention end to end as the packed one,
+# the float32 intermediates and sums to 2e-5 of their largest magnitude;
+# the launches the library's count and within the chain's budget.  Every
+# Swin-B and Swin-T stage shape at 2 clips (with the mask where the
+# stage's shifted blocks take it) and a small window.
+SWIN_PROJ_BF16 = [dict(b_=b_, nh=nh, hd=32, window=(8, 7, 7), nw=nw)
+                  for b_, nw, heads in ((128, 64, (4, 3)), (32, 16, (8, 6)),
+                                        (8, 4, (16, 12)), (2, 0, (32, 24)))
+                  for nh in heads]
+SWIN_PROJ_BF16 += [dict(b_=6, nh=2, hd=16, window=(2, 3, 3), nw=3)]
+
+
+def _bf16_proj_case(device, b_, nh, hd, window, nw):
+    x, gm, bt, w, dense, mask, scale = _proj_case(device, b_, nh, hd, window,
+                                                  nw)
+    g = _bf16_randn(device, *x.shape, seed=21)
+    gy = _bf16_randn(device, *x.shape, seed=22, scale=0.3)
+    return (x.to(BF16), gm, bt, tuple(t.to(BF16) for t in w), dense, mask,
+            scale, g, gy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["proj", "ln_proj", "ln_proj, no gy"])
+@pytest.mark.parametrize("case", SWIN_PROJ_BF16, ids=str)
+def test_proj_bf16_kernels_match_plain(cuda_device, case, op):
+    from vitta_tpu_torch.tools import bf16_checks as bc
+    x, gm, bt, w, dense, mask, scale, g, gy = _bf16_proj_case(cuda_device,
+                                                             **case)
+    ln = None if op == "proj" else (gm, bt, 1e-5)
+    got = bc.check_proj_bf16(x, ln, *w, dense, mask, scale, case["nh"], g,
+                             gy if op == "ln_proj" else None)
+    assert all(t.dtype == BF16 for t in got["grads"][:1])
+    assert got["grads"][-1].dtype == torch.float32
+    assert got["launches"][0] == (3 if ln is None else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [(50176, 128), (12544, 256), (3136, 512),
+                                 (784, 1024), (50176, 96), (784, 768),
+                                 (108, 32)], ids=str)
+def test_proj_bf16_plan_matches_the_kernels(cuda_device, m, c):
+    cp = cuda_attention_proj
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cp.bf16_gemm_plan_cuda(m, c) == cp.bf16_gemm_plan(m, c, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["proj", "ln_proj"])
+def test_bf16_swin_proj_runs_through_the_kernels(cuda_device, route):
+    """A bfloat16 Swin under the projection-fused routes, tapped forward
+    and backward: every block through the route's bfloat16 op (the
+    wrappers' counters), no packed or float32 attention kernel and no
+    float32 product (the libraries' counts), every gradient of a float32
+    master float32; under "ln_proj" the blocks' norm1 inside the op."""
+    from vitta_tpu_torch.models.layers import Taps
+    model = _bf16_swin(cuda_device, route=route)
+    x = torch.randn(2, 4, 48, 48, 3, device=cuda_device)
+    pc = cuda_attention_proj.counters
+    pc.reset()
+    cuda_attention.counters.reset()
+
+    def step():
+        taps = Taps({"stat"})
+        logits = model(x, taps, train=True)
+        (logits.sum() + sum(v["stat"].var.sum() for v in taps.values())
+         ).backward()
+    names = launches_of(step)
+    fused = (pc.proj_fwd, pc.proj_bwd, pc.ln_proj_fwd, pc.ln_proj_bwd)
+    assert fused == ((3, 3, 0, 0) if route == "proj" else (0, 0, 3, 3))
+    ac = cuda_attention.counters
+    assert (ac.fwd, ac.bwd, ac.heads_fwd, ac.heads_bwd) == (0, 0, 0, 0)
+    for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
+        assert not any(part in k for k in names), names
+    assert names.get("attn_fwd_bf16_kernel") == 3, names
+    assert names.get("attn_bwd_bf16_kernel") == 3, names
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
+
+
+@pytest.mark.cuda
+def test_proj_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No fallback: a view 2 bytes off a 16-byte boundary, a head dim that
+    is no multiple of 8 and a float32 weight beside a bfloat16 x raise."""
+    cp = cuda_attention_proj
+    x, gm, bt, w, dense, mask, scale, g, _gy = _bf16_proj_case(
+        cuda_device, b_=6, nh=2, hd=16, window=(2, 3, 3), nw=3)
+    off = torch.empty(x.numel() + 1, dtype=BF16, device=cuda_device)[1:]
+    off = off.view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.attn_proj_fwd(off, *w, dense, mask, scale, 2)
+    with pytest.raises(TypeError):
+        cp.attn_proj_fwd(x, w[0].float(), *w[1:], dense, mask, scale, 2)
+    x12, _gm, _bt, w12, dense12, _m, s12, _g, _gy = _bf16_proj_case(
+        cuda_device, b_=4, nh=2, hd=12, window=(2, 3, 3), nw=0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cp.attn_proj_fwd(x12, *w12, dense12, None, s12, 2)

@@ -29,6 +29,22 @@ largest magnitude.  dgamma and dbeta (float32) to 5e-5 of their largest
 value.  That the emulated cut of K is the library's own is checked on the
 card (tests/test_torch_cuda.py: test_bf16_gemm_plan_matches_the_kernels).
 
+The projection-fused attention (vitta_attn_proj_{fwd,bwd}_bf16,
+csrc/attention_proj.cu) runs six products of the same layouts on the core
+by the plan ``cuda_attention_proj.bf16_gemm_plan`` gives (its two weight
+gradients share one launch and its chunks of K), against vitta_tpu's
+_proj_attn_fwd and _proj_attn_bwd (pallas_attention.py:724-782): qkv and
+out through the Dense epilogue (``EPI_DENSE``: the float32 sum rounded,
+the bfloat16 bias added, the sum rounded again), held as the emulated
+product against vitta_tpu's rounded product (rebuilt outside its kernel:
+jnp.dot at bfloat16, which gives its o_att, and so its qkv, bit for bit,
+through its packed kernel) to ``DIRECT`` and the Dense step from
+vitta_tpu's product bit for bit; g_att, dx (from vitta_tpu's dqkv, rebuilt
+the same way, which gives its dx bit for bit) and the weight gradients to
+``DIRECT``; dbqkv and dbproj as the column partials of 256 rows
+(``colsum_partials``: 8 rows in flight, each row's share added in order,
+then the 8 in order) added in order by one ordered sum, to ``DIRECT``.
+
 The MLP without the LayerNorm (vitta_mlp_{fwd,bwd}_bf16, Swin-T's widths 96
 and 192) runs the same six products on x by the same plan, against
 vitta_tpu's _fwd_kernel and _bwd_kernel (pallas_mlp.py:138-183); its dx
@@ -44,8 +60,12 @@ import numpy as np
 import pytest
 import torch
 
+from vitta_tpu.ops.pallas_attention import (_packed_attn_bwd,
+                                            _packed_attn_fwd, _proj_attn_bwd,
+                                            _proj_attn_fwd)
 from vitta_tpu.ops.pallas_mlp import (_pallas_lnmlp_bwd, _pallas_lnmlp_fwd,
                                       _pallas_mlp_bwd, _pallas_mlp_fwd)
+from vitta_tpu_torch.ops import cuda_attention_proj as cap
 from vitta_tpu_torch.ops.cuda_ln import (layer_norm_backward_reference,
                                          layer_norm_reference)
 from vitta_tpu_torch.ops.cuda_mlp import bf16_gemm_plan, gelu_derivative
@@ -105,6 +125,25 @@ def core_colsum(dh):
         part = per[0]
         for g in range(1, 8):
             part = part + per[g]
+        total = part if total is None else total + part
+    return total
+
+
+def colsum_partials(x):
+    """The column sums of x (M, N) float32 as the projection-fused
+    backward adds its bias gradients (reduce.cuh: col_sums2_kernel, then
+    reduce_sums): per 256 rows, each of 8 warps its rows r0 + w, r0 + w +
+    8, ... in order, then the 8 warps in order; the 256-row partials in
+    order."""
+    total = None
+    for r0 in range(0, x.shape[0], 256):
+        rows = x[r0:r0 + 256]
+        part = None
+        for w in range(8):
+            acc = torch.zeros(x.shape[1], dtype=F32)
+            for r in range(w, rows.shape[0], 8):
+                acc = acc + rows[r]
+            part = acc if part is None else part + acc
         total = part if total is None else total + part
     return total
 
@@ -226,3 +265,69 @@ def test_mlp_core_plan_matches_pallas(m, c):
         BF16).t(), dw2.astype(bf), DIRECT)
     _within("db1", core_colsum(dh).to(BF16), db1[0].astype(bf), DIRECT)
     _within("db2", go32.sum(dim=0).to(BF16), db2[0].astype(bf), DIRECT)
+
+
+# (windows, heads, head dim) of the projection-fused attention on (2, 3, 3)
+# windows of 18 tokens: M = 72, and M = 1152, whose weight gradients' K is
+# cut into chunks
+PROJ_SHAPES = [(4, 2, 16), (64, 2, 32)]
+
+
+@pytest.mark.parametrize("b_,nh,hd", PROJ_SHAPES, ids=str)
+def test_proj_core_plan_matches_pallas(b_, nh, hd):
+    n, c = 18, nh * hd
+    m = b_ * n
+    plan = cap.bf16_gemm_plan(m, c)
+    if m > 1024:
+        assert plan["dwqkv"]["splits"] > 1 and plan["dwproj"]["splits"] > 1
+    ch = lambda k: plan[k]["kchunk"]
+    rng = np.random.default_rng(5 * m + c)
+    x = _jbf16(rng.normal(size=(b_, n, c)) * 1.5)
+    w = _jbf16(rng.normal(size=(c, 3 * c)) / np.sqrt(c))      # (in, out)
+    b = _jbf16(0.5 * rng.normal(size=3 * c))
+    wp = _jbf16(rng.normal(size=(c, c)) / np.sqrt(c))
+    bp = _jbf16(0.5 * rng.normal(size=c))
+    bias = jnp.asarray(rng.normal(size=(nh, n, n)) * 0.5, jnp.float32)
+    g = _jbf16(rng.normal(size=(b_, n, c)))
+    scale = hd ** -0.5
+    out, o_att, ms = _proj_attn_fwd(x, w, b.reshape(1, -1), wp,
+                                    bp.reshape(1, -1), bias, None, scale, nh,
+                                    save_res=True, interpret=True)
+    bf, f32 = jnp.bfloat16, jnp.float32
+    dot = lambda u, v, ax: jax.lax.dot_general(
+        u, v, (ax, ((), ())), preferred_element_type=f32)
+    prod_j = dot(x, w, ((2,), (0,))).astype(bf)
+    qkv_j = prod_j + b
+    assert bool((_packed_attn_fwd(qkv_j, bias, None, scale, nh,
+                                  interpret=True) == o_att).all())
+    prod_o = dot(o_att, wp, ((2,), (0,))).astype(bf)
+    x32, o32 = _t(x).float().reshape(m, c), _t(o_att).float().reshape(m, c)
+    wt, wpt = _t(w).float(), _t(wp).float()           # (in, out)
+    for name, a, wgt, kk, prod, bb, want in (
+            ("qkv", x32, wt, ch("qkv"), prod_j, b, qkv_j),
+            ("out", o32, wpt, ch("out"), prod_o, bp, out)):
+        core = core_product(a, wgt, kk).to(BF16)
+        _within(f"{name} product", core, prod.reshape(m, -1), DIRECT)
+        step = (_t(prod).float() + _t(bb).float()).to(BF16)
+        assert torch.equal(step, _t(want)), name
+    dx, dw, db, dwp, dbp, _dbias = _proj_attn_bwd(
+        x, w, b.reshape(1, -1), wp, bias, None, o_att, ms, g, scale, nh,
+        interpret=True)
+    g_att = dot(g, wp, ((2,), (1,))).astype(bf)
+    dqkv, _ = _packed_attn_bwd(qkv_j, bias, None, ms, g_att, scale, nh,
+                               interpret=True)
+    assert bool((dot(dqkv, w, ((2,), (1,))).astype(bf) == dx).all())
+    g32 = _t(g).float().reshape(m, c)
+    d32 = _t(dqkv).float().reshape(m, 3 * c)
+    _within("g_att", core_product(g32, wpt.t(), ch("g_att")).to(BF16),
+            g_att.reshape(m, c), DIRECT)
+    _within("dx", core_product(d32, wt.t(), ch("dx")).to(BF16),
+            dx.reshape(m, c), DIRECT)
+    _within("dwqkv", core_product(d32.t(), x32, ch("dwqkv")).to(BF16).t(),
+            dw.astype(bf), DIRECT)
+    _within("dwproj", core_product(g32.t(), o32, ch("dwproj")).to(BF16).t(),
+            dwp.astype(bf), DIRECT)
+    _within("dbqkv", colsum_partials(d32).to(BF16), db[0].astype(bf),
+            DIRECT)
+    _within("dbproj", colsum_partials(g32).to(BF16), dbp[0].astype(bf),
+            DIRECT)

@@ -4,6 +4,14 @@
 // _fwd_kernel and _bwd_kernel at the compute dtype,
 // vitta_tpu/ops/pallas_mlp.py:138-183, :303-369).
 //
+// It also runs the six products of the bfloat16 projection-fused window
+// attention (attention_proj.cu; _proj_fwd_kernel, _proj_bwd_kernel and
+// their LayerNorm forms at the compute dtype, vitta_tpu/ops/
+// pallas_attention.py:724-782, :945-1016), which have the MLP's operand
+// layouts: qkv = y wqkv^T and out = o_att wproj^T as h and o (EPI_DENSE),
+// g_att = g wproj and dx = dqkv wqkv (dy + gy under the LayerNorm) as dh
+// and dy, dwproj = g^T o_att and dwqkv = dqkv^T y as dw2 and dw1.
+//
 // gemm_wgmma_bf16 computes C (M, N) = sum over k of a[m][k] b[n][k] for
 // row-major bfloat16 operands, each either K-major (the contraction index
 // contiguous: an activation (M, K) as A, an nn.Linear weight (N, K) as B)
@@ -57,7 +65,13 @@
 //   product with s or the sum with gy, every global load and store 16
 //   bytes, the rows past M masked; dh's product also sums its columns per
 //   64 rows (db1's partials).  Each value is rounded once, where the
-//   Pallas kernels round it.
+//   Pallas kernels round it, but under EPI_DENSE: flax's Dense at the
+//   compute dtype, as the projection-fused kernels apply it
+//   (pallas_attention.py:732, :737, :955, :960), rounds the product to
+//   bfloat16, adds the bfloat16 bias and rounds the sum again; adding the
+//   bias to the float32 sum first (EPI_BIAS, right for the MLP,
+//   pallas_mlp.py:315-316) lands one ulp off wherever the two roundings
+//   differ.
 // * Filling the card.  The kernel is persistent: min(work, blocks a SM x
 //   SMs) blocks walk the tiles (and chunks of K) in order, the producer
 //   running ahead into the next tile's slices while the consumers store.
@@ -133,6 +147,13 @@ static_assert(kWgTile == 0 || kWgTile == 64 || kWgTile == 128 ||
                   (kWgTile == 256 && !kWgPromote),
               "tile 64, 128, or 256 without promotion");
 static_assert(kWgRowSplit >= 1, "at least one chunk");
+// The Dense epilogue of the bfloat16 core only: C = bfloat16(bfloat16(acc)
+// + bias[col]), the product rounded before the bias is added.
+constexpr int EPI_DENSE = 6;
+static_assert(EPI_DENSE != EPI_BIAS && EPI_DENSE != EPI_GELU &&
+                  EPI_DENSE != EPI_MUL && EPI_DENSE != EPI_ADD &&
+                  EPI_DENSE != EPI_RAW && EPI_DENSE != EPI_PART,
+              "an epilogue of its own");
 // a wait on an mbarrier longer than this (some 8 s) traps: a fault that
 // would leave a slot unfilled ends the launch with an error, not a hang
 constexpr long long kWgWaitCycles = 1LL << 34;
@@ -344,6 +365,10 @@ __device__ __forceinline__ void mul8(float (&v)[8], uint4 w) {
   for (int i = 0; i < 4; ++i)
     v[2 * i] *= bf16_lo(u[i]), v[2 * i + 1] *= bf16_hi(u[i]);
 }
+// v rounded to the nearest bfloat16, even on a tie, as float32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 __device__ __forceinline__ void store_bf16x8(bf16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) =
       make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
@@ -372,7 +397,7 @@ __device__ __forceinline__ void gelu_parts_bf16(float h, float& a,
 // The bias word (8 bfloat16 values at col) an epilogue reads, or zeros.
 template <int EPI>
 __device__ __forceinline__ uint4 wg_bias(const WgArgs& p, int col) {
-  if (EPI == EPI_BIAS || EPI == EPI_GELU)
+  if (EPI == EPI_BIAS || EPI == EPI_GELU || EPI == EPI_DENSE)
     return *reinterpret_cast<const uint4*>(p.bias + col);
   return make_uint4(0u, 0u, 0u, 0u);
 }
@@ -392,12 +417,19 @@ __device__ __forceinline__ uint4 wg_aux(const WgArgs& p, size_t at, bool ok) {
 // EPI_BIAS and EPI_GELU add the bias, EPI_GELU writes gelu and its
 // derivative, EPI_MUL multiplies by aux, EPI_ADD adds aux where it is not
 // null, EPI_RAW writes chunk z's partial (or, a product in one chunk, its
-// rounded value); each value rounded once.  Stores only where `ok`.
+// rounded value); each value rounded once, but under EPI_DENSE, which
+// rounds the sum, adds the bias and rounds again.  Stores only where
+// `ok`.
 template <int EPI>
 __device__ __forceinline__ void wg_epilogue(const WgArgs& p, float (&v)[8],
                                             uint4 bw, uint4 xw, size_t at,
                                             int z, bool ok) {
   if (EPI == EPI_BIAS || EPI == EPI_GELU) add8(v, bw);
+  if (EPI == EPI_DENSE) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = round_bf16(v[e]);
+    add8(v, bw);
+  }
   if (EPI == EPI_GELU) {
     float s[8];
 #pragma unroll

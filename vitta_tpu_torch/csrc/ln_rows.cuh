@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 #include "bf16.cuh"
 #include "launches.cuh"
@@ -237,6 +238,14 @@ ln_rows_bf16x8(const bf16* __restrict__ x, const float* __restrict__ gamma,
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
+}
+
+// Every pointer that is not null 16-byte aligned (the bfloat16 entries'
+// rule: TMA's strides and 16-byte moves).
+inline bool all_aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (p != nullptr && !aligned16(p)) return false;
+  return true;
 }
 
 // Launch the row LayerNorm on `stream`; returns the launch's error code.

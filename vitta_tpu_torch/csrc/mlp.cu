@@ -72,8 +72,6 @@
 
 #include <cuda_runtime.h>
 
-#include <initializer_list>
-
 #include "gemm_tiles.cuh"
 #include "gemm_wgmma_bf16.cuh"
 #include "ln_rows.cuh"
@@ -256,12 +254,6 @@ Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f, bool ln = true) {
 // bfloat16: every extent a multiple of 8 (16-byte rows of 8 values)
 bool bad_dims_bf16(int m, int c, int f) {
   return bad_dims(m, c, f) || c % 8 != 0 || f % 8 != 0;
-}
-
-bool all_aligned16(std::initializer_list<const void*> ps) {
-  for (const void* p : ps)
-    if (p != nullptr && !vitta::aligned16(p)) return false;
-  return true;
 }
 
 // The bfloat16 forward's two products on `in` (m, c), the LayerNorm's y

@@ -46,15 +46,20 @@ __device__ __forceinline__ void put(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The staging tile of a staged sum, the kernel's own: one a block, whatever
+// the type of the sums' outputs.
+using SumTile = float[kStageRows][33];
+
 // out[i] = partial[i] + partial[stride + i] + ... + partial[(count - 1) *
 // stride + i], added in that order, for the block's outputs i from i0 (one
-// a thread, or 32 staged; sum_outputs_per_block).  Every thread of the
-// block calls it.
+// a thread, or 32 staged in `tile`; sum_outputs_per_block).  Every thread
+// of the block calls it.
 template <class TOut>
 __device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
                                              TOut* __restrict__ out,
                                              int count, long long stride,
-                                             long long i0, long long len) {
+                                             long long i0, long long len,
+                                             SumTile& tile) {
   if (count < kStagedCount) {
     const long long i = i0 + threadIdx.x;
     if (i >= len) return;
@@ -63,7 +68,6 @@ __device__ __forceinline__ void ordered_sums(const float* __restrict__ partial,
     put(out + i, s);
     return;
   }
-  __shared__ float tile[kStageRows][33];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long i = i0 + lane;
   const bool ok = i < len;
@@ -88,8 +92,9 @@ template <class TOut>
 __global__ void __launch_bounds__(kSumThreads)
 reduce_partials_kernel(const float* __restrict__ partial,
                        TOut* __restrict__ out, int P, long long L) {
+  __shared__ SumTile tile;
   ordered_sums(partial, out, P, L,
-               (long long)blockIdx.x * sum_outputs_per_block(P), L);
+               (long long)blockIdx.x * sum_outputs_per_block(P), L, tile);
 }
 
 template <class TOut>
@@ -112,6 +117,7 @@ inline cudaError_t launch_reduce_partials(const float* partial, TOut* out,
 // stride floats apart, of len floats each: out[i] = partial[0 * stride +
 // i] + ... + partial[(count - 1) * stride + i], in that order, as
 // reduce_partials adds them; its blocks are first[j] .. first[j + 1] - 1.
+// Its output is float32 (out) or bfloat16 (outb, rounded once).
 constexpr int kMaxPartialSums = 6;
 
 struct PartialSum {
@@ -119,6 +125,7 @@ struct PartialSum {
   float* out;
   long long stride, len;
   int count;
+  bf16* outb;
 };
 
 struct PartialSums {
@@ -129,9 +136,19 @@ struct PartialSums {
   // an output that is null is not wanted and is skipped
   bool add(const float* partial, long long stride, float* out, int count,
            long long len) {
-    if (out == nullptr || len <= 0) return true;
+    return add_to(partial, stride, out, nullptr, count, len);
+  }
+  bool add(const float* partial, long long stride, bf16* out, int count,
+           long long len) {
+    return add_to(partial, stride, nullptr, out, count, len);
+  }
+
+ private:
+  bool add_to(const float* partial, long long stride, float* out, bf16* outb,
+              int count, long long len) {
+    if ((out == nullptr && outb == nullptr) || len <= 0) return true;
     if (n == kMaxPartialSums) return false;
-    sum[n] = PartialSum{partial, out, stride, len, count};
+    sum[n] = PartialSum{partial, out, stride, len, count, outb};
     const int per = sum_outputs_per_block(count);
     first[0] = 0;
     first[n + 1] = first[n] + (int)((len + per - 1) / per);
@@ -145,10 +162,13 @@ reduce_sums_kernel(const PartialSums sums) {
   int j = 0;
   while (j + 1 < sums.n && (int)blockIdx.x >= sums.first[j + 1]) ++j;
   const PartialSum s = sums.sum[j];
-  ordered_sums(s.partial, s.out, s.count, s.stride,
-               (long long)(blockIdx.x - sums.first[j]) *
-                   sum_outputs_per_block(s.count),
-               s.len);
+  __shared__ SumTile tile;
+  const long long i0 = (long long)(blockIdx.x - sums.first[j]) *
+                       sum_outputs_per_block(s.count);
+  if (s.outb != nullptr)
+    ordered_sums(s.partial, s.outb, s.count, s.stride, i0, s.len, tile);
+  else
+    ordered_sums(s.partial, s.out, s.count, s.stride, i0, s.len, tile);
 }
 
 inline cudaError_t launch_reduce_sums(const PartialSums& sums,
@@ -173,12 +193,13 @@ __device__ __forceinline__ float as_float(bf16 v) {
 // block (32, 8): a warp reads 32 neighbouring columns of one row, the 8
 // warps walk the chunk's rows.
 template <class TIn>
-__global__ void __launch_bounds__(kColLanes * kColWarps)
-col_sums_kernel(const TIn* __restrict__ x, float* __restrict__ partial,
-                long long rows, int c) {
+__device__ __forceinline__ void col_sums_block(const TIn* __restrict__ x,
+                                               float* __restrict__ partial,
+                                               long long rows, int c,
+                                               int bx) {
   __shared__ float part[kColWarps][kColLanes + 1];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * kColLanes + tx;
+  const int col = bx * kColLanes + tx;
   const long long r0 = (long long)blockIdx.y * kColChunk;
   const long long r1 = r0 + kColChunk < rows ? r0 + kColChunk : rows;
   float s = 0.f;
@@ -193,6 +214,27 @@ col_sums_kernel(const TIn* __restrict__ x, float* __restrict__ partial,
     for (int w = 0; w < kColWarps; ++w) t += part[w][tx];
     partial[(long long)blockIdx.y * c + col] = t;
   }
+}
+
+template <class TIn>
+__global__ void __launch_bounds__(kColLanes * kColWarps)
+col_sums_kernel(const TIn* __restrict__ x, float* __restrict__ partial,
+                long long rows, int c) {
+  col_sums_block(x, partial, rows, c, blockIdx.x);
+}
+
+// The column partials of two matrices of `rows` rows in one launch, as
+// col_sums_kernel makes each: blocks 0 .. nb1 - 1 of grid.x take x1's
+// columns (c1 of them), the others x2's (c2).
+template <class TIn>
+__global__ void __launch_bounds__(kColLanes * kColWarps)
+col_sums2_kernel(const TIn* __restrict__ x1, float* __restrict__ p1, int c1,
+                 const TIn* __restrict__ x2, float* __restrict__ p2, int c2,
+                 long long rows, int nb1) {
+  if ((int)blockIdx.x < nb1)
+    col_sums_block(x1, p1, rows, c1, blockIdx.x);
+  else
+    col_sums_block(x2, p2, rows, c2, blockIdx.x - nb1);
 }
 
 // out[col] = sum over all rows of x[r][col]; partial holds
@@ -210,6 +252,25 @@ inline cudaError_t launch_col_sums(const TIn* x, float* partial, TOut* out,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_reduce_partials(partial, out, chunks, c, stream);
+}
+
+// The column partials of x1 (rows, c1) into p1 and of x2 (rows, c2) into
+// p2, col_chunks(rows) rows of c1 or c2 floats each, in one launch; x2
+// may be null (then x1's alone).  A reduce (reduce_partials, or a chain's
+// reduce_sums) adds each one's rows in order.
+template <class TIn>
+inline cudaError_t launch_col_partials2(const TIn* x1, float* p1, int c1,
+                                        const TIn* x2, float* p2, int c2,
+                                        long long rows, cudaStream_t stream) {
+  const int nb1 = (c1 + kColLanes - 1) / kColLanes;
+  const int nb2 = x2 != nullptr ? (c2 + kColLanes - 1) / kColLanes : 0;
+  const dim3 grid(nb1 + nb2, col_chunks(rows));
+  const dim3 block(kColLanes, kColWarps);
+  col_sums2_kernel<TIn><<<grid, block, 0, stream>>>(x1, p1, c1, x2, p2, c2,
+                                                    rows, nb1);
+  count_launch(sizeof(TIn) == 4 ? "col_sums2_kernel"
+                                : "col_sums2_kernel<__nv_bfloat16>");
+  return cudaGetLastError();
 }
 
 }  // namespace vitta

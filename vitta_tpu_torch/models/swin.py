@@ -84,11 +84,18 @@ vitta_tpu's own order (each window collapsed over its frame pairs, then
 the windows added), where float32 expands the bias and collapses the sum
 over the windows.  Under ``"heads"`` the bias is expanded to its dense
 form at float32 (and its gradient collapsed) at both dtypes, as vitta_tpu
-does on that route (pallas_attention.py:696-699).  A width whose norm2
-runs apart (Swin-T's 96 and 192) takes the bfloat16 LayerNorm and the
-bfloat16 ``mlp``.  The packed and heads routes are ported at bfloat16;
-``"proj"`` and ``"ln_proj"`` raise ``NotImplementedError`` (ROADMAP.md,
-queue 2).
+does on that route (pallas_attention.py:696-699), and so it is under
+``"proj"`` and ``"ln_proj"``, whose bfloat16 ops
+(ops/cuda_attention_proj.py) take the qkv and output projections' weights
+and biases at bfloat16 (the engine's ``HalfTwin`` copies where it keeps
+them) and round them as flax's Dense does at the compute dtype.  A width
+whose norm2 runs apart (Swin-T's 96 and 192) takes the bfloat16 LayerNorm
+and the bfloat16 ``mlp``.  Every route runs at bfloat16.  vitta_tpu sends
+the blocks whose fused backward overflows the TPU's scoped fast memory
+(Swin-B's fourth stage: 104 MB at bfloat16, pallas_attention.py:256-287)
+to XLA projections around its packed kernel (:1224-1237), with the same
+two roundings (a bfloat16 product plus the bfloat16 bias); the port has no
+such gate and runs the fused op at every stage, as it does at float32.
 """
 
 from __future__ import annotations
@@ -118,12 +125,6 @@ from vitta_tpu_torch.ops.dispatch import mlp_ln_fused, resolve_attn_route
 # ``counters.contiguity_copies``: copies made only to hand a kernel a
 # contiguous tensor, since ``counters.reset()``: activations in the forward
 # below and cotangents in the backward of the four ops
-
-
-def _not_ported_bf16(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} at bfloat16 is not ported (ROADMAP.md, queue 2): the "
-        "bfloat16 Swin runs the packed and heads routes")
 
 
 def at_dtype(p, dt):
@@ -335,28 +336,31 @@ class WindowAttention3D(nn.Module):
         wd, wh, ww = self.window_size
         mask = self._mask(mask_np, mask_key, x.device)
         full = n == wd * wh * ww
+        dt = self.dtype
         if full:
             # compact (nh, 2wd-1, hw, hw) for the bfloat16 packed kernels,
             # which read it and collapse its gradient on chip
-            # (ops/cuda_attention.py); dense (nh, N, N) otherwise
+            # (ops/cuda_attention.py); dense (nh, N, N) otherwise, as
+            # vitta_tpu hands its heads and projection-fused kernels the
+            # dense form at either dtype (pallas_attention.py:1189-1192,
+            # :1238-1243)
             bias = compact_bias(self.relative_position_bias_table,
                                 self.window_size)
-            if self.dtype != torch.bfloat16 or route == "heads":
+            if dt != torch.bfloat16 or route != "packed":
                 bias = expand_bias(bias, wd)
+        wqkv, bqkv = at_dtype(self.qkv.weight, dt), at_dtype(self.qkv.bias, dt)
+        wproj = at_dtype(self.proj.weight, dt)
+        bproj = at_dtype(self.proj.bias, dt)
         if full and ln is not None:
             return window_attention_ln_proj(
-                _contiguous(x), ln[0], ln[1], ln[2], self.qkv.weight,
-                self.qkv.bias, self.proj.weight, self.proj.bias, bias, mask,
-                self.scale, nh)
+                _contiguous(x), ln[0], ln[1], ln[2], wqkv, bqkv, wproj, bproj,
+                bias, mask, self.scale, nh)
         y = x if ln is None else layer_norm(x, *ln)
-        dt = self.dtype
         if full and route == "proj":
-            out = window_attention_proj(
-                _contiguous(y), self.qkv.weight, self.qkv.bias,
-                self.proj.weight, self.proj.bias, bias, mask, self.scale, nh)
+            out = window_attention_proj(_contiguous(y), wqkv, bqkv, wproj,
+                                        bproj, bias, mask, self.scale, nh)
             return out if ln is None else (out, y)
-        qkv = F.linear(y, at_dtype(self.qkv.weight, dt),
-                       at_dtype(self.qkv.bias, dt))     # (B_, n, 3C)
+        qkv = F.linear(y, wqkv, bqkv)                     # (B_, n, 3C)
         if full and route == "heads":
             # q, k, v as views of the projection output, read where they lie
             q, k, v = qkv.reshape(b_, n, 3, nh, c // nh).unbind(2)
@@ -377,8 +381,7 @@ class WindowAttention3D(nn.Module):
             out = attention_reference(q5[:, :, 0], q5[:, :, 1], q5[:, :, 2],
                                       bias, mask, self.scale).reshape(
                                           b_, n, c).to(dt)
-        out = F.linear(out, at_dtype(self.proj.weight, dt),
-                       at_dtype(self.proj.bias, dt))
+        out = F.linear(out, wproj, bproj)
         return out if ln is None else (out, y)
 
 
@@ -416,9 +419,6 @@ class SwinBlock3D(nn.Module):
             # the op returns y in window layout: only the token-order-
             # invariant spatiotemp tap may read it
             self.attn_route = self.attn_fallback
-        if (self.dtype == torch.bfloat16
-                and self.attn_route not in ("packed", "heads")):
-            raise _not_ported_bf16(f"attn_route={self.attn_route!r}")
         self.attn = WindowAttention3D(dim, self.window_size, num_heads,
                                       dtype=self.dtype)
         self.norm2 = LayerNorm(dim, f"{tap_prefix}.norm2",

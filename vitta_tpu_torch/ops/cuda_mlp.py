@@ -246,6 +246,13 @@ def bf16_product_dims(m: int, c: int, f: int):
 def bf16_gemm_plan(m: int, c: int, f: int, sms: int = 132):
     """How the bfloat16 core cuts each product on a card of ``sms`` SMs, as
     ``wg_row_plan`` / ``wg_grad_plan`` in csrc/gemm_wgmma_bf16.cuh:
+    {product: {bm, bn, splits, kchunk, grid, smem}} (``wgmma_plan``)."""
+    return wgmma_plan(bf16_product_dims(m, c, f), ("dw1", "dw2"), sms)
+
+
+def wgmma_plan(dims, grads, sms: int = 132):
+    """The plans of the products ``dims`` ({product: (M, N, K)}), of which
+    the two named in ``grads`` are weight gradients that share one launch:
     {product: {bm, bn, splits, kchunk, grid, smem}}.  A row product takes
     64 x 128 tiles (two blocks an SM) where cdiv(t64, sms) < 2 cdiv(t128,
     sms), or the two tie and t128 < 2 sms, else 128 x 128 (one), over all
@@ -254,12 +261,11 @@ def bf16_gemm_plan(m: int, c: int, f: int, sms: int = 132):
     multiple of 64 long, added in chunk order; the launch's grid is
     min(their work items, SMs)."""
     cdiv = lambda a, b: -(-a // b)
-    dims = bf16_product_dims(m, c, f)
     grad_tiles = sum(cdiv(dims[k][0], 128) * cdiv(dims[k][1], 128)
-                     for k in ("dw1", "dw2"))
+                     for k in grads)
     plan, work = {}, {}
     for name, (mm, nn, kk) in dims.items():
-        if name in ("dw1", "dw2"):
+        if name in grads:
             bm = 128
             splits = min(max(sms // grad_tiles, 1),
                          max(kk // _GRAD_ROWS, 1))
@@ -278,8 +284,8 @@ def bf16_gemm_plan(m: int, c: int, f: int, sms: int = 132):
             bm, 128, splits, kchunk, grid,
             wgmma_smem_bytes(bm, 128, _STAGES[bm]))))
     # the two weight gradients share one launch: its grid
-    for name in ("dw1", "dw2"):
-        plan[name]["grid"] = min(work["dw1"] + work["dw2"], sms)
+    for name in grads:
+        plan[name]["grid"] = min(sum(work[k] for k in grads), sms)
     return plan
 
 

@@ -1,6 +1,7 @@
 """How the bfloat16 Video Swin kernels (LayerNorm, LayerNorm-MLP, MLP,
-packed attention, attention per (head, window)) are held to their plain
-versions on the card; shared by chip_smoke.py and tests/test_torch_cuda.py.
+packed attention, attention per (head, window), the projection-fused
+attention with and without the LayerNorm) are held to their plain versions
+on the card; shared by chip_smoke.py and tests/test_torch_cuda.py.
 
 A bfloat16 output of a kernel and of its plain version round float32 values
 that their float32 sums reach in other orders, so a value may round one ulp
@@ -22,7 +23,21 @@ attention kernels' instances that also write bfloat16(e), and the
 backward's dl in its scratch, give the attention's
 (``packed_attention_bf16_fwd_stage``, ``packed_attention_bf16_bwd_stages``,
 ``packed_attention_bf16_intermediates``, and the ``heads_attention_bf16_``
-ones of the same names per (head, window)).
+ones of the same names per (head, window)); the projection-fused
+attention's qkv and o_att are outputs of its forward, and its backward
+hands out g_att, dqkv, dl and, under the LayerNorm, dy from its scratch
+(``proj_fwd_stages``, ``proj_bwd_stages``; its attention steps are the
+packed ones', on the kernel's own qkv and g_att).
+
+The projection-fused attention's qkv and out are flax's Dense at
+bfloat16: the float32 product rounded, then the bfloat16 bias added and the
+sum rounded again.  The kernel's rounded product is not handed out, and one
+ulp of a product moves the sum by many ulps of the sum where the bias
+cancels most of the product; so ``assert_dense_within`` holds every value
+between the Dense sums of the plain product's bfloat16 neighbours (the
+rounding is monotone, so any product within one ulp lands there) and at
+most ``DENSE_APART`` (1e-3) of the values apart from the plain version:
+one rounding of product plus bias sets a few percent apart.
 
 End to end, against the plain version on its own intermediates, the
 attention's out and dqkv are held by ``assert_bf16_mostly_within``: at most
@@ -46,6 +61,8 @@ ULP_REL = 2.0 ** -7
 # one ulp or BEYOND_FLOOR of the largest magnitude
 BEYOND_SHARE = 1e-4
 BEYOND_FLOOR = 2.0 ** -12
+# the Dense step: the share of values that may differ from the plain version
+DENSE_APART = 1e-3
 
 
 def _ulp(w):
@@ -102,6 +119,33 @@ def assert_bf16_mostly_within(name, got, want, slack,
             float(diff.max()), beyond)
 
 
+def assert_dense_within(name, got, a, w, b, share=DENSE_APART,
+                        floor=FLOOR):
+    """Raise unless ``got`` (..., N) bfloat16, the Dense step of the
+    bfloat16 ``a`` (..., K), ``w`` (N, K) and ``b`` (N), lies everywhere
+    between bfloat16(p - u + b) and bfloat16(p + u + b), p the plain
+    product rounded to bfloat16 and u one ulp of it (widened by ``floor``
+    times the largest magnitude), and at most ``share`` of its values
+    differ from the plain version's; returns (the share that differs, the
+    largest absolute difference)."""
+    k = a.shape[-1]
+    prod = (a.reshape(-1, k).to(F32) @ w.to(F32).t()).to(BF16).to(F32)
+    want = (prod + b.to(F32)).to(BF16).reshape(got.shape)
+    g, w_ = _same_shape(name, got, want)
+    u = _ulp(prod)
+    lo = (prod - u + b.to(F32)).to(BF16).to(F32).reshape(got.shape)
+    hi = (prod + u + b.to(F32)).to(BF16).to(F32).reshape(got.shape)
+    slack = floor * w_.abs().max()
+    out = (g < lo - slack) | (g > hi + slack)
+    apart = float((g != w_).float().mean())
+    if bool(out.any()) or apart > share:
+        raise AssertionError(
+            f"{name}: {int(out.sum())} of {g.numel()} values outside the "
+            f"Dense sums of the product's neighbours, {apart:.2e} of them "
+            f"apart from the plain version (at most {share:.0e})")
+    return apart, float((g - w_).abs().max())
+
+
 def mlp_fwd_stages(x, w1, b1, w2, b2, a):
     """The plain values of the bfloat16 MLP forward's rounded outputs (o,
     a, s): a and s from x, o from the kernel's ``a``."""
@@ -148,6 +192,37 @@ def ln_mlp_bwd_stages(x, y, a, s, go, gy, gamma, w1, w2, eps, dh, dhc, dy):
     out["dx"], out["dgamma"], out["dbeta"] = layer_norm_backward_reference(
         x, gamma, dy, eps)
     return out
+
+
+def proj_fwd_stages(x, wqkv, bqkv, wproj, bproj, o_att):
+    """The plain values of the bfloat16 projection-fused forward's two
+    Dense steps (qkv, out), each from the kernel's own rounded input: qkv
+    from ``x`` (the LayerNorm form's y), out from the kernel's ``o_att``
+    (``assert_dense_within`` holds the kernel's to them); the attention
+    between them is held as the packed one is."""
+    from vitta_tpu_torch.ops.cuda_attention_proj import dense_bf16
+    return dense_bf16(x, wqkv, bqkv), dense_bf16(o_att, wproj, bproj)
+
+
+def proj_bwd_stages(y, wqkv, wproj, o_att, g, gy, dqkv):
+    """The plain values of the bfloat16 projection-fused backward's steps
+    around its attention, each from the kernel's own inputs to it (its
+    rounded dqkv, which ``attn_proj_bwd(..., taps=)`` hands out): {"g_att",
+    "dy" (float32, dqkv wqkv + gy where ``gy`` is not None), "dx" (its
+    rounded form, the form without the LayerNorm), "dwqkv", "dbqkv",
+    "dwproj", "dbproj"}, on ``y``, the qkv product's input (x without the
+    LayerNorm)."""
+    c = y.shape[-1]
+    g2, d2 = g.reshape(-1, c).to(F32), dqkv.reshape(-1, 3 * c).to(F32)
+    dy = (d2 @ wqkv.to(F32)).reshape(y.shape)
+    if gy is not None:
+        dy = dy + gy.to(F32)
+    return {"g_att": (g.to(F32) @ wproj.to(F32)).to(BF16), "dy": dy,
+            "dx": dy.to(BF16),
+            "dwqkv": (d2.t() @ y.reshape(-1, c).to(F32)).to(BF16),
+            "dbqkv": d2.sum(dim=0).to(BF16),
+            "dwproj": (g2.t() @ o_att.reshape(-1, c).to(F32)).to(BF16),
+            "dbproj": g2.sum(dim=0).to(BF16)}
 
 
 def _slack(q, k, v, logits, ms, gh, scale: float):
@@ -283,3 +358,164 @@ def heads_attention_bf16_intermediates(q, k, v, bias, mask, ms, g,
     from vitta_tpu_torch.ops.cuda_attention import _bf16_logits_of
     _q, _k, v32, logits = _bf16_logits_of(q, k, v, bias, mask, scale)
     return _intermediates(v32, logits, ms, g.to(F32))
+
+
+# the float32 intermediates and sums of the projection-fused check: dl, dy,
+# dbias, dgamma and dbeta to this share of their tensor's largest magnitude
+# (float32 sums in another order; tests/test_torch_cuda.py's GRAD_REL)
+F32_REL = 2e-5
+# the launches a bfloat16 projection-fused backward call may make
+PROJ_BWD_BUDGET = {False: 8, True: 11}
+
+
+def _rel_err(name, got, want, rel=F32_REL):
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if err > rel * scale:
+        raise AssertionError(f"{name}: {err:.3e} against {rel:.0e} of "
+                             f"{scale:.3e}")
+    return err / scale if scale else 0.0
+
+
+def check_proj_bf16(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
+                    scale: float, nh: int, g, gy=None):
+    """Run the bfloat16 projection-fused kernels on the card (``ln`` =
+    (gamma, beta, eps) for the LayerNorm form, else None), forward with ms
+    and backward, tapped and not, and hold every step on the kernel's own
+    rounded intermediates: y within one ulp; qkv and out by
+    ``assert_dense_within`` (qkv from y, out from the kernel's o_att); the
+    forward's e within one ulp of its plain value and o_att within one ulp
+    of its plain value from that e, and end to end as the packed attention
+    (``assert_bf16_mostly_within``); ms, dl, dy, dbias, dgamma and dbeta to
+    ``F32_REL``; g_att within one ulp; the backward's e within one ulp and
+    dqkv within one ulp of its plain value from the kernel's e, dl and
+    g_att, and end to end; dx (or, under the LayerNorm, dx from the
+    kernel's dy), dwqkv, dbqkv, dwproj and dbproj within one ulp of their
+    plain values from the kernel's dqkv; dbias against the kernel's dl
+    summed over the windows in their order.  The tapped and untapped runs
+    give the same bits, and so do two untapped backward runs.  Launches
+    (the libraries' counts): 3 forward (4 with the LayerNorm), every one a
+    bfloat16 instance; the backward the library's own count
+    (``cuda_attention_proj.bf16_bwd_launches_cuda``), within
+    ``PROJ_BWD_BUDGET``, three of them gemm_wgmma_bf16.  Returns {"fwd":
+    the forward's outputs, "grads": the backward's, "err": the largest
+    relative error of each float32 check, "apart": the share of each
+    bfloat16 output an ulp from its plain value, "abs": the largest
+    absolute difference of the forward's and of the backward's bfloat16
+    outputs from their plain values, "launches": (forward, backward)}."""
+    from vitta_tpu_torch.ops import cuda_attention as ca
+    from vitta_tpu_torch.ops import cuda_attention_proj as cp
+    from vitta_tpu_torch.ops._launch import launches_of
+    from vitta_tpu_torch.ops.cuda_ln import (layer_norm_backward_reference,
+                                             layer_norm_reference)
+    w = (wqkv, bqkv, wproj, bproj)
+    apart, err, absd = {}, {}, {"fwd": 0.0, "bwd": 0.0}
+
+    def note(side, name, result):
+        apart[name] = result[0]
+        # (share, ratio, largest difference[, beyond]) or, from the Dense
+        # bound, (share, largest difference)
+        absd[side] = max(absd[side], result[2] if len(result) > 2
+                         else result[1])
+
+    def within(name, got, want, side="bwd"):
+        note(side, name, assert_bf16_within(name, got, want))
+
+    def fwd(taps=None):
+        if ln is None:
+            return cp.attn_proj_fwd(x, *w, bias, mask, scale, nh, True,
+                                    taps=taps)
+        return cp.attn_ln_proj_fwd(x, *ln, *w, bias, mask, scale, nh, True,
+                                   taps=taps)
+
+    def bwd(taps=None, y=None, qkv=None, o_att=None, ms=None):
+        if ln is None:
+            return cp.attn_proj_bwd(x, qkv, wqkv, wproj, bias, mask, o_att,
+                                    ms, g, scale, nh, taps=taps)
+        return cp.attn_ln_proj_bwd(x, y, qkv, ln[0], ln[2], wqkv, wproj,
+                                   bias, mask, o_att, ms, g, gy, scale, nh,
+                                   taps=taps)
+
+    b_, n, c = x.shape
+    names = launches_of(fwd)
+    if (sum(names.values()) != 3 + (ln is not None)
+            or names.get("attn_fwd_bf16_kernel") != 1
+            or sum(v for k, v in names.items()
+                   if k.startswith("gemm_wgmma_bf16")) != 2
+            or not all("bf16" in k or "bfloat16" in k for k in names)):
+        raise AssertionError(f"forward launches {names}")
+    n_fwd = sum(names.values())
+    tf = {}
+    outs = fwd(tf)
+    if not all(torch.equal(p, q) for p, q in zip(outs, fwd())):
+        raise AssertionError("the tapped forward differs from the untapped")
+    if ln is None:
+        out, qkv, o_att, ms = outs
+        y = x
+    else:
+        out, y, qkv, o_att, ms = outs
+        within("y", y, layer_norm_reference(x, *ln), "fwd")
+    note("fwd", "qkv", assert_dense_within("qkv", qkv, y, wqkv, bqkv))
+    note("fwd", "out", assert_dense_within("out", out, o_att, wproj, bproj))
+    want_o, want_ms = ca.packed_attention_bf16_reference(qkv, bias, mask,
+                                                         scale, nh, True)
+    err["ms"] = _rel_err("ms", ms, want_ms)
+    res = dict(y=y, qkv=qkv, o_att=o_att, ms=ms)
+    grads = bwd(**res)
+    names = launches_of(lambda: bwd(**res))
+    want_n = cp.bf16_bwd_launches_cuda(b_, n, nh, c // nh, ln is not None)
+    if (sum(names.values()) != want_n
+            or want_n > PROJ_BWD_BUDGET[ln is not None]
+            or names.get("attn_bwd_bf16_kernel") != 1
+            or sum(v for k, v in names.items()
+                   if k.startswith("gemm_wgmma_bf16")) != 3
+            or any(k.startswith(("gemm_tiles", "attn_bwd_kernel",
+                                 "attn_fwd", "ln_rows")) for k in names)):
+        raise AssertionError(f"backward launches {names}, the library "
+                             f"counts {want_n}")
+    tb = {}
+    tapped = bwd(tb, **res)
+    again = bwd(**res)
+    for other in (tapped, again):
+        if not all(torch.equal(p, q) for p, q in zip(grads, other)):
+            raise AssertionError("two backward runs differ")
+    g_att = tb["g_att"]
+    within("g_att", g_att, (g.float() @ wproj.float()).to(BF16))
+    e_want, dl_want = packed_attention_bf16_intermediates(
+        qkv, bias, mask, ms, g_att, scale, nh)
+    within("forward e", tf["e"], e_want, "fwd")
+    within("backward e", tb["e"], e_want)
+    err["dl"] = _rel_err("dl", tb["dl"], dl_want)
+    within("o_att from the kernel's e", o_att,
+           packed_attention_bf16_fwd_stage(qkv, ms, tf["e"], nh), "fwd")
+    s_out, s_dqkv = packed_attention_bf16_slack(qkv, bias, mask, ms, g_att,
+                                                scale, nh)
+    note("fwd", "o_att end to end", assert_bf16_mostly_within(
+        "o_att", o_att, want_o, s_out))
+    within("dqkv from the kernel's e, dl and g_att", tb["dqkv"],
+           packed_attention_bf16_bwd_stages(qkv, ms, g_att, tb["e"],
+                                            tb["dl"], scale, nh))
+    wq, _wb = ca.packed_attention_bf16_backward_reference(
+        qkv, bias, mask, ms, g_att, scale, nh)
+    note("bwd", "dqkv end to end", assert_bf16_mostly_within(
+        "dqkv", tb["dqkv"], wq, s_dqkv))
+    from vitta_tpu_torch.ops.cuda_attention import dbias_in_window_order
+    st = proj_bwd_stages(y, wqkv, wproj, o_att, g, gy, tb["dqkv"])
+    if ln is None:
+        within("dx", grads[0], st["dx"])
+        rest = grads[1:]
+    else:
+        err["dy"] = _rel_err("dy", tb["dy"], st["dy"])
+        gx, gg, gb = layer_norm_backward_reference(
+            x.reshape(-1, c), ln[0], tb["dy"].reshape(-1, c), ln[2])
+        within("dx from the kernel's dy", grads[0], gx.to(BF16).reshape(
+            x.shape))
+        err["dgamma"] = _rel_err("dgamma", grads[1], gg)
+        err["dbeta"] = _rel_err("dbeta", grads[2], gb)
+        rest = grads[3:]
+    for name, got in zip(("dwqkv", "dbqkv", "dwproj", "dbproj"), rest[:4]):
+        within(name, got, st[name])
+    err["dbias"] = _rel_err("dbias", rest[4],
+                            dbias_in_window_order(tb["dl"], bias))
+    return {"fwd": outs, "grads": grads, "err": err, "apart": apart,
+            "abs": absd, "launches": (n_fwd, want_n)}
