@@ -211,8 +211,10 @@ result line:
    within 2^-7 of the absolute products through e and dl); two backward
    runs bit-equal; launches per call, of bfloat16 instances only; a
    LayerNorm view 2 bytes past a 16-byte boundary on the one-value path.
-   The attention's forward on the compact bias gives the dense bias's bits;
-   its backward's compact dbias is the kernel's own dl collapsed per window
+   The attention's forward on the compact bias gives the dense bias's row
+   maxima and e bit for bit, its row sums within ATTN_TOL and out within one
+   ulp (the two kernels sum s and o in their own orders); its backward's
+   compact dbias is the kernel's own dl collapsed per window
    and added in window order, bit for bit, and its scratch smaller than
    one (B_, nh, N, N) dl.  Each row's ``max_abs_err`` is the largest
    difference of any of its outputs, bfloat16 and float32, from the plain
@@ -3410,8 +3412,9 @@ def phase_bf16_swin_kernels(dev):
     composition is timed beside it).  The attention rows are timed on the
     compact bias, the form the bfloat16 model hands them, with the dense
     form's device ms beside them (``dense_bias_device_ms``); the compact
-    forward must give the dense one's bits, the compact dbias the kernel's
-    own dl collapsed per window in window order.  Returns the six JSON
+    forward must give the dense one's row maxima and e to the bit, its
+    sums within ATTN_TOL and out within one ulp, the compact dbias the
+    kernel's own dl collapsed per window in window order.  Returns the six JSON
     rows."""
     import torch.nn.functional as F
     from vitta_tpu_torch.ops import cuda_attention as ca
@@ -3600,14 +3603,6 @@ def phase_bf16_swin_kernels(dev):
                     qkv, dense, m, scale, nh, save_ms=True)
                 tot["attn_fwd"].err = max(tot["attn_fwd"].err, check_close(
                     f"{what} row max/sum", ms_, want_ms, ATTN_TOL))
-                # the compact bias's strips hold other rows, each row's
-                # sums run in the same order: the same bits
-                out_c, ms_c = ca.attn_packed_fwd_cuda(qkv, vc, m, scale, nh,
-                                                      save_ms=True)
-                if not (torch.equal(out_c, out) and torch.equal(ms_c, ms_)):
-                    raise AssertionError(f"{what}: the compact bias's "
-                                         "forward differs from the dense's")
-                del out_c, ms_c
                 # the steps on the kernel's own e and dl, and those against
                 # their plain values
                 tf = {}
@@ -3615,6 +3610,22 @@ def phase_bf16_swin_kernels(dev):
                     qkv, dense, m, scale, nh, save_ms=True, taps=tf)
                 if not (torch.equal(out_t, out) and torch.equal(ms_t, ms_)):
                     raise AssertionError(f"{what}: the tapped forward differs")
+                # the compact bias's kernel forms the same logits (strips of
+                # other rows) and sums s and o in another order than the
+                # dense one's: the same row maxima and e to the bit, s
+                # within float32's reordering, out within one ulp
+                tc = {}
+                out_c, ms_c = ca.attn_packed_fwd_cuda(qkv, vc, m, scale, nh,
+                                                      save_ms=True, taps=tc)
+                if not (torch.equal(ms_c[..., 0::2], ms_[..., 0::2])
+                        and torch.equal(tc["e"], tf["e"])):
+                    raise AssertionError(f"{what}: the compact bias's row "
+                                         "maxima or e differ from the dense's")
+                check_close(f"{what} compact against dense row sums",
+                            ms_c[..., 1::2], ms_[..., 1::2], ATTN_TOL)
+                assert_bf16_within(f"{what} compact against dense out", out_c,
+                                   out)
+                del tc
                 e_want, dl_want = packed_attention_bf16_intermediates(
                     qkv, dense, m, ms_, g, scale, nh)
                 note("e (forward)", "attn_fwd", assert_bf16_within(
@@ -3627,7 +3638,15 @@ def phase_bf16_swin_kernels(dev):
                     qkv, dense, m, ms_, g, scale, nh)
                 note("out", "attn_fwd", assert_bf16_mostly_within(
                     f"{what} out", out, want, s_out))
-                del s_out
+                # the compact bias's forward against the plain version too,
+                # on its own row sums' slack
+                tot["attn_fwd"].err = max(tot["attn_fwd"].err, check_close(
+                    f"{what} compact row max/sum", ms_c, want_ms, ATTN_TOL))
+                s_out_c, _ = packed_attention_bf16_slack(
+                    qkv, vc, m, ms_c, g, scale, nh)
+                note("out", "attn_fwd", assert_bf16_mostly_within(
+                    f"{what} compact out", out_c, want, s_out_c))
+                del s_out, s_out_c, out_c, ms_c
                 for bias_t in (dense, vc):
                     kernels(lambda: ca.attn_packed_fwd_cuda(qkv, bias_t, m,
                                                             scale, nh), 1)
@@ -3689,8 +3708,8 @@ def phase_bf16_swin_kernels(dev):
                 if clips == 1:
                     print(f"{what}, {split} block(s) a problem: out and dqkv "
                           "within their bounds, two runs bit-equal, the "
-                          "compact form's out and ms the dense form's bits",
-                          flush=True)
+                          "compact form's row maxima and e the dense "
+                          "form's bits", flush=True)
                     continue
                 q5 = qkv.reshape(b_, n_tok, 3, nh, hd).permute(2, 0, 3, 1, 4)
                 leaves = [q5[i].detach().requires_grad_() for i in range(3)]
@@ -4135,12 +4154,29 @@ def phase_bf16_swin_t_kernels(dev):
                 for m in ((None, mask) if mask is not None else (None,)):
                     what = (f"attention (heads) bf16 {model} B_={b_} "
                             f"nh={nh} hd={hd} mask={m is not None}")
-                    kernels(lambda: ca.attn_heads_fwd_cuda(q, k, v, dense, m,
-                                                           scale), 1)
+                    names = kernels(lambda: ca.attn_heads_fwd_cuda(
+                        q, k, v, dense, m, scale), 1)
+                    if names != {"attn_fwd_dense_bf16_kernel": 1}:
+                        raise AssertionError(f"{what}: forward launches "
+                                             f"{names}")
+                    plan_nw = nw if m is not None else 0
+                    if (ca.dense_fwd_bf16_plan_cuda(b_, n_tok, nh, plan_nw,
+                                                    True)
+                            != ca.dense_fwd_bf16_plan(b_, n_tok, nh, plan_nw,
+                                                      True, sms)):
+                        raise AssertionError(f"{what}: the library's plan is "
+                                             "not cuda_attention's")
                     tf = {}
                     out, ms_ = ca.attn_heads_fwd_cuda(q, k, v, dense, m,
                                                       scale, save_ms=True,
                                                       taps=tf)
+                    again = ca.attn_heads_fwd_cuda(q, k, v, dense, m, scale,
+                                                   save_ms=True)
+                    if not (torch.equal(out, again[0])
+                            and torch.equal(ms_, again[1])):
+                        raise AssertionError(f"{what}: two forward runs "
+                                             "differ")
+                    del again
                     want, want_ms = ca.heads_attention_bf16_reference(
                         q, k, v, dense, m, scale, save_ms=True)
                     tot["heads_fwd"].err = max(tot["heads_fwd"].err,
@@ -4157,9 +4193,9 @@ def phase_bf16_swin_t_kernels(dev):
                                                           ms_, g, scale)
                     note("heads_fwd", bc.assert_bf16_mostly_within(
                         f"{what} out", out, want, slack[0]))
-                    del tf, want, want_ms
+                    del want, want_ms
                     if clips == 1:
-                        del e_want, dl_want, slack
+                        del tf, e_want, dl_want, slack
                         print(f"{what}: out within its bounds", flush=True)
                         continue
                     names = kernels(lambda: ca.attn_heads_bwd_cuda(
@@ -4177,6 +4213,14 @@ def phase_bf16_swin_t_kernels(dev):
                                              "differ")
                     note("heads_bwd", bc.assert_bf16_within(
                         f"{what} backward e", tb["e"], e_want))
+                    # the dense backward forms q k^T by the forward's
+                    # products: its e is the forward's, bit for bit
+                    if not torch.equal(tf["e"], tb["e"]):
+                        apart = (tf["e"] != tb["e"]).float().mean()
+                        raise AssertionError(
+                            f"{what}: the forward's e is not the "
+                            f"backward's: {apart:.2e} of values differ")
+                    del tf
                     tot["heads_bwd"].err = max(tot["heads_bwd"].err,
                                                check_scaled(
                         f"{what} dl", tb["dl"], dl_want, ATTN_BWD_TOL))

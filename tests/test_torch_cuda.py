@@ -1781,7 +1781,11 @@ def test_attention_bf16_kernels_match_plain(cuda_device, case, compact):
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
     fwd = launches_of(lambda: cuda_attention.attn_packed_fwd_cuda(
         qkv, bias, mask, scale, nh))
-    assert fwd == {"attn_fwd_bf16_kernel": 1}, fwd
+    assert fwd == {"attn_fwd_bf16_kernel" if compact
+                   else "attn_fwd_dense_bf16_kernel": 1}, fwd
+    if not compact:
+        # the dense backward forms q k^T by the forward's products
+        assert torch.equal(tf["e"], tb["e"])
     bwd = launches_of(lambda: cuda_attention.attn_packed_bwd_cuda(
         qkv, bias, mask, ms, g, scale, nh))
     split = cuda_attention.bwd_split(case["b_"], nh, cuda_device)
@@ -2074,7 +2078,9 @@ def test_heads_attention_bf16_kernels_match_plain(cuda_device, case, layout):
     assert all(torch.equal(p, r) for p, r in zip(again, got))
     fwd = launches_of(lambda: ca.attn_heads_fwd_cuda(q, k, v, bias, mask,
                                                      scale))
-    assert fwd == {"attn_fwd_bf16_kernel": 1}, fwd
+    assert fwd == {"attn_fwd_dense_bf16_kernel": 1}, fwd
+    # the dense backward forms q k^T by the forward's products
+    assert torch.equal(tf["e"], tb["e"])
     bwd = launches_of(lambda: ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms,
                                                      g, scale))
     split = ca.bwd_split(case["b_"], case["nh"], cuda_device)
@@ -2285,6 +2291,53 @@ def test_proj_bf16_plan_matches_the_kernels(cuda_device, m, c):
     assert cp.bf16_gemm_plan_cuda(m, c) == cp.bf16_gemm_plan(m, c, sms)
 
 
+# (b_, n, nh, nw, vec) of the dense bfloat16 forward's plan: every Swin
+# stage at 2 clips, with and without the mask, and the tests' windows
+DENSE_FWD_PLANS = [(128, 392, 3, 64, 1), (128, 392, 4, 0, 1),
+                   (32, 392, 6, 16, 1), (8, 392, 16, 4, 1),
+                   (2, 392, 24, 0, 1), (2, 392, 32, 0, 1), (6, 18, 3, 3, 0),
+                   (4, 75, 2, 2, 0), (2, 416, 4, 0, 1), (4, 30, 2, 0, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,n,nh,nw,vec", DENSE_FWD_PLANS, ids=str)
+def test_dense_fwd_bf16_plan_matches_the_kernels(cuda_device, b_, n, nh, nw,
+                                                 vec):
+    """The library's dense-bias forward plan (vitta_attn_dense_fwd_bf16_plan)
+    is cuda_attention.dense_fwd_bf16_plan on this card's SMs."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (cuda_attention.dense_fwd_bf16_plan_cuda(b_, n, nh, nw, vec,
+                                                    cuda_device)
+            == cuda_attention.dense_fwd_bf16_plan(b_, n, nh, nw, vec, sms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_dense_fwd_bf16_takes_unaligned_bias_and_mask(cuda_device,
+                                                      with_mask):
+    """A bias and mask 4 bytes past a 16-byte boundary take the dense
+    forward's 4-byte copies and reads, and give the bits of the aligned
+    ones (the same arithmetic)."""
+    ca = cuda_attention
+    q, k, v, bias, mask, scale = _heads_case(
+        cuda_device, "views", b_=8, nh=3, hd=32, window=(8, 7, 7),
+        nw=4 if with_mask else 0)
+    q, k, v = torch.stack([q, k, v], dim=2).to(BF16).unbind(2)
+
+    def shifted(t):
+        if t is None:
+            return None
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    sb, sm = shifted(bias), shifted(mask)
+    assert sb.data_ptr() % 16 == 4
+    want = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale, save_ms=True)
+    got = ca.attn_heads_fwd_cuda(q, k, v, sb, sm, scale, save_ms=True)
+    assert all(torch.equal(p, r) for p, r in zip(got, want))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["proj", "ln_proj"])
 def test_bf16_swin_proj_runs_through_the_kernels(cuda_device, route):
@@ -2312,7 +2365,7 @@ def test_bf16_swin_proj_runs_through_the_kernels(cuda_device, route):
     assert (ac.fwd, ac.bwd, ac.heads_fwd, ac.heads_bwd) == (0, 0, 0, 0)
     for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
         assert not any(part in k for k in names), names
-    assert names.get("attn_fwd_bf16_kernel") == 3, names
+    assert names.get("attn_fwd_dense_bf16_kernel") == 3, names
     assert names.get("attn_bwd_bf16_kernel") == 3, names
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in model.parameters())

@@ -138,16 +138,20 @@
 // kernel rebuilds them from the same logits.  attention_kernels.cuh says where
 // it rounds (the TPU kernel's points) and how the work is laid out.  What
 // bounds it: the bytes (qkv, out, bias and mask read once: 0.21 ms a
-// Swin-B forward pass against 0.08 ms of products at 989 TFLOP/s), so both
-// kernels read the bias and the mask once a logit from rows staged in
-// shared memory by 16-byte cp.async copies.  The forward forms each logit
-// once and keeps it in registers (a strip's keys split over five warps)
+// Swin-B forward pass against 0.08 ms of products at 989 TFLOP/s), so the
+// kernels read the bias and the mask once a logit, from rows staged in
+// shared memory by 16-byte cp.async copies or, in the dense forward, the
+// mask from device memory into the logits' own registers a window ahead.
+// Both forwards form each logit once and keep it in registers (a strip's
+// keys split over five warps on the compact bias, four on the dense one)
 // between the row maximum and e, since e is rounded against the final
-// maximum.  The backward keeps the float32 kernel's layout (a warp's 32
-// keys, 16-row strips) with two barriers a strip, forms gs in each warp's
-// own fragments, and with the compact bias collapses dl over the frame
-// pairs on chip, a (window, head) partial at a time, in vitta_tpu's order
-// (_dbias_accum): with that bias no (B_, nh, N, N) dl leaves the chip.
+// maximum; the dense forward walks a run of windows a block and stages a
+// head's bias rows once a run.  The backward keeps the float32 kernel's
+// layout (a warp's 32 keys, 16-row strips) with two barriers a strip, forms
+// gs in each warp's own fragments, and with the compact bias collapses dl
+// over the frame pairs on chip, a (window, head) partial at a time, in
+// vitta_tpu's order (_dbias_accum): with that bias no (B_, nh, N, N) dl
+// leaves the chip.
 // The products stay on mma.sync, not wgmma: they are about 2% of either
 // kernel's instructions and, at the dense bfloat16 rate, about 4% of its
 // time on the card; what each waits on is the integer and shared-memory
@@ -273,6 +277,19 @@ int vitta_attn_packed_fwd_bf16(const void* qkv, const float* bias,
       reinterpret_cast<vitta::bf16*>(out), ms,
       reinterpret_cast<vitta::bf16*>(e_tap), b_, n, nh, hd, nw, compact, wd,
       hw, scale, (cudaStream_t)stream);
+}
+
+// The dense-bias bfloat16 forward's plan on this card
+// (attention_kernels.cuh: dense_fwd_plan) into out[10]: strips, keys, ldb,
+// slots, bands, run, runs, vec, blocks, smem.  nw is 0 without a mask; vec
+// where n % 4 == 0 and the bias and mask lie on 16-byte boundaries.
+void vitta_attn_dense_fwd_bf16_plan(int b_, int n, int nh, int nw, int vec,
+                                    int* out) {
+  const vitta::attn::DenseFwdPlan p = vitta::attn::dense_fwd_plan(
+      b_, n, nh, nw, vec != 0, vitta::attn::sm_count());
+  const int v[10] = {p.strips, p.keys, p.ldb, p.slots,  p.bands,
+                     p.run,    p.runs, p.vec, p.blocks, p.smem};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
 }
 
 int vitta_attn_packed_bwd_bf16(const void* qkv, const float* bias,

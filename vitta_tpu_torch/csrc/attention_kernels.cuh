@@ -943,19 +943,61 @@ inline cudaError_t launch_packed_bwd(const float* qkv, const float* bias,
 // row, read slot 0's row or stale spans and are not selected.  Each strip's
 // rows are asked for a whole strip ahead of their use.
 //
-// Forward (attn_fwd_bf16_kernel).  A group of five warps takes one strip at
-// a time, each warp a fifth of the keys, 16-key steps (80 keys at N = 392):
-// the warp's logits stay in registers (40 a lane at N = 392), formed once
-// from its q k^T tiles and the staged bias and mask.  The rows' maxima go
-// through shared memory to the group (a named barrier of 160 threads), e =
-// exp(l - m) against the row's final maximum in place, its sum and
-// bfloat16(e) v on the tensor cores, and the warps' partial o and sums meet
-// in shared memory at a second named barrier, added in warp order; out of
-// a strip is formed while the next strip's logits wait for its first
-// barrier.  A block holds two or three groups (as many as fit 227 KB) over
-// one K and V; its groups take the problem's strips in turns, so no
-// block-wide barrier runs inside the loop.  The q rows and compact spans
-// are the group's, the mask and dense bias rows of a warp's keys its own.
+// Forward, compact bias (attn_fwd_bf16_kernel).  A group of five warps
+// takes one strip at a time, each warp a fifth of the keys, 16-key steps
+// (80 keys at N = 392): the warp's logits stay in registers (40 a lane at
+// N = 392), formed once from its q k^T tiles and the staged spans and mask.
+// The rows' maxima go through shared memory to the group (a named barrier
+// of 160 threads), e = exp(l - m) against the row's final maximum in place,
+// its sum and bfloat16(e) v on the tensor cores, and the warps' partial o
+// and sums meet in shared memory at a second named barrier, added in warp
+// order; out of a strip is formed while the next strip's logits wait for
+// its first barrier.  A block holds two or three groups (as many as fit 227
+// KB) over one K and V; its groups take the problem's strips in turns, so
+// no block-wide barrier runs inside the loop.  The q rows and compact spans
+// are the group's, the mask rows of a warp's keys its own.
+//
+// Forward, dense bias (attn_fwd_dense_bf16_kernel; the heads route, the
+// projection-fused chains and the packed op on a dense bias).  What bounds
+// it: the bytes by the count (q, k, v and out, the bias and mask read once:
+// 0.097 ms a Swin-T pass of 2 clips at 3.35 TB/s), but on the card the
+// latency around each logit.  Every logit takes a float32 bias value and,
+// in shifted windows, a float32 mask value (each (N, N) matrix 614 KB at N
+// = 392, 12 times q, k and v), and a row's maximum must be final before
+// any e is rounded, so a strip's logits all exist before its first exp.
+// A block takes one head and a band of up to four strips (strips b, b +
+// bands, ... of band b) and walks a run of windows, those that share a mask
+// next to each other (dense_fwd_plan):
+//  * the band's 16 rows a strip of the head's bias come into shared memory
+//    once a run (16-byte cp.async copies where n % 4 == 0 and the bias lies
+//    on a 16-byte boundary, 4-byte ones else), not once a window;
+//  * four warps share a strip, its 16-key steps dealt out in turns (7 a
+//    warp at N = 392); each keeps its logits in registers (56 a lane)
+//    between the row maxima and e, and the group's maxima, then its
+//    partial sums and o, meet in shared memory at two named barriers of
+//    128 threads; s and o are the four warps' parts added in warp order,
+//    each lane's sum its keys in order and the quad's four lanes pairs
+//    first (tests/test_torch_attention_bf16_dense.py emulates it);
+//  * the mask's values of a warp's logits come into those same registers a
+//    window ahead, behind the previous window's exp and products, and the
+//    logits form in place, fmaf(q.k, scale, bias) + mask: the mask's
+//    device-memory latency never waits in front of a logit and costs no
+//    register;
+//  * K is double-buffered (the next window's K and q load during this
+//    window), V single (it loads during the logits); K and V rows are 64
+//    bytes with their 16-byte chunks XOR-swizzled, so that ldmatrix reads
+//    eight rows from eight bank groups;
+//  * 16 warps and 230 KB a block, one block an SM; runs are as long as
+//    four blocks an SM's room still cover the grid, so a bias row comes
+//    from L2 once every 4-6 windows at Swin's first stage.
+// q k^T takes qk_tile's two mma.sync products on the same fragments as the
+// backward (wgmma's float32 order is not known to match), so the backward's
+// e is this kernel's to the bit (chip_smoke.py checks it at every Swin
+// stage).  Tried and measured slower on the card (PERF.md, Findings): one
+// warp a strip over all keys in two passes with the bias and mask rows
+// staged (three or four warps an SM), the mask read from L2 in the logit
+// loop, V double-buffered, 5, 6 or 8 warps a strip, 12 or 20 warps a
+// block.
 //
 // Backward (attn_bwd_bf16_kernel).  The layout of the float32 kernel: a
 // warp owns 32 keys (13 warps at N <= 416), dk and dv accumulate in
@@ -1197,40 +1239,37 @@ constexpr int kRedLd = 40;                        // a partial o row, floats
 static_assert(kFwdGroupWarps * kFwdMaxSteps * 16 >= kNMax,
               "the group's warps cover kNMax keys");
 
-// The forward's shared memory, in bytes from its start: K, V, the strips'
-// rows and (compact) each key's K(j); then per group its two q strips, the
+// The compact forward's shared memory, in bytes from its start: K, V, the
+// strips' rows and each key's K(j); then per group its two q strips, the
 // warps' row maxima, sums and partial o, the rows' final maxima, the
-// compact spans as copied and shift-free, and each warp's staged mask and
-// dense-bias rows.
+// compact spans as copied and shift-free, and each warp's staged mask rows.
 struct FwdBf16Layout {
   int steps, kw, keys, wld, span, slot;
   size_t vs, rowtab, kd, group0, g_max, g_sum, g_mfin, g_o, g_raw, g_spans,
-      g_wm, g_wb, group_bytes;
-  __host__ __device__ FwdBf16Layout(int n, int compact, int wd, int hw,
-                                    bool with_mask) {
-    const Strips sp{n, wd, hw, compact ? 16 / wd : 0};
+      g_wm, group_bytes;
+  __host__ __device__ FwdBf16Layout(int n, int wd, int hw, bool with_mask) {
+    const Strips sp{n, wd, hw, 16 / wd};
     steps = ((n + 15) / 16 + kFwdGroupWarps - 1) / kFwdGroupWarps;
     kw = 16 * steps;
     keys = kFwdGroupWarps * kw;
     wld = run_floats(kw);
     // lanes gq read slots gq, frames d1 = gq: span = 8 (mod 32) puts 8
     // frames' rows in 4 bank groups, two to a group
-    span = compact ? sp.ips * hw + ((8 - sp.ips * hw) % 32 + 32) % 32 : 0;
-    slot = compact ? run_floats(sp.ips * hw) : 0;
+    span = sp.ips * hw + ((8 - sp.ips * hw) % 32 + 32) % 32;
+    slot = run_floats(sp.ips * hw);
     vs = (size_t)keys * kLdB * 2;
     rowtab = 2 * vs;
     kd = rowtab + (size_t)16 * sp.count() * 4;
-    group0 = align16(kd + (compact ? (size_t)keys * 4 : 0));
+    group0 = align16(kd + (size_t)keys * 4);
     g_max = 2 * 16 * kLdB * 2;
     g_sum = g_max + kFwdGroupWarps * 16 * 4;
     g_mfin = g_sum + kFwdGroupWarps * 16 * 4;
     g_o = g_mfin + 16 * 4;
     g_raw = g_o + (size_t)kFwdGroupWarps * 16 * kRedLd * 4;
-    g_spans = g_raw + (compact ? (size_t)(2 * wd - 1) * slot * 4 : 0);
-    g_wm = align16(g_spans + (compact ? (size_t)(2 * wd - 1) * span * 4 : 0));
-    g_wb = g_wm + (with_mask ? (size_t)kFwdGroupWarps * 16 * wld * 4 : 0);
-    group_bytes = align16(g_wb + (compact ? 0 : (size_t)kFwdGroupWarps * 16 *
-                                                    wld * 4));
+    g_spans = g_raw + (size_t)(2 * wd - 1) * slot * 4;
+    g_wm = align16(g_spans + (size_t)(2 * wd - 1) * span * 4);
+    group_bytes =
+        align16(g_wm + (with_mask ? (size_t)kFwdGroupWarps * 16 * wld * 4 : 0));
   }
   __host__ __device__ size_t bytes(int groups) const {
     return group0 + groups * group_bytes;
@@ -1243,7 +1282,7 @@ __device__ __forceinline__ void group_sync(int grp) {
                : "memory");
 }
 
-template <bool kTap, bool kCompact>
+template <bool kTap>
 __global__ void __launch_bounds__(kFwdMaxGroups * kFwdGroupThreads, 1)
 attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
                      const float* __restrict__ bias,
@@ -1251,7 +1290,7 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
                      float* __restrict__ ms, bf16* __restrict__ e_tap, int n,
                      int nh, int hd, int nw, int wd, int hw, float scale) {
   extern __shared__ __align__(16) unsigned char attn_smem_bf16[];
-  const FwdBf16Layout L(n, kCompact, wd, hw, mask != nullptr);
+  const FwdBf16Layout L(n, wd, hw, mask != nullptr);
   const int groups = blockDim.x / kFwdGroupThreads;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -1272,48 +1311,38 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
   float* raw = reinterpret_cast<float*>(gs + L.g_raw);     // (2wd-1, slot)
   float* spans = reinterpret_cast<float*>(gs + L.g_spans); // (2wd-1, span)
   float* wm = reinterpret_cast<float*>(gs + L.g_wm) + wg * 16 * L.wld;
-  float* wb = reinterpret_cast<float*>(gs + L.g_wb) + wg * 16 * L.wld;
-  const Strips sp{n, wd, hw, kCompact ? 16 / wd : 0};
+  const Strips sp{n, wd, hw, 16 / wd};
   const int strips = sp.count();
   const int kb = wg * L.kw;                      // the warp's first key
   const int klen = min(L.kw, n - kb);            // its keys below n
-  const float* __restrict__ bias_h =
-      bias + (size_t)h * (kCompact ? (2 * wd - 1) * hw * hw : n * n);
+  const float* __restrict__ bias_h = bias + (size_t)h * (2 * wd - 1) * hw * hw;
   const float* __restrict__ mask_b =
       mask != nullptr ? mask + (size_t)(b % nw) * n * n : nullptr;
 
   // strip s's q rows into Qg buffer qb and compact spans into raw (the
-  // group's), and the mask and dense bias rows of the warp's keys (its own)
+  // group's), and the mask rows of the warp's keys (its own)
   auto stage_group = [&](int s, int qb) {
     load_strip_rows(Qg + qb * 16 * kLdB, q, b, h, rowtab + 16 * s, hd, gt,
                     kFwdGroupThreads);
-    if (kCompact) {
-      const int ii0 = s * sp.ips;
-      stage_spans(raw, L.slot, bias_h, wd, hw, ii0, min(sp.ips, hw - ii0),
-                  wg, kFwdGroupWarps, lane);
-    }
+    const int ii0 = s * sp.ips;
+    stage_spans(raw, L.slot, bias_h, wd, hw, ii0, min(sp.ips, hw - ii0), wg,
+                kFwdGroupWarps, lane);
   };
   auto align_group = [&](int s) {
-    if (kCompact) {
-      const int ii0 = s * sp.ips;
-      align_spans(spans, L.span, raw, L.slot, bias_h, wd, hw, ii0,
-                  min(sp.ips, hw - ii0), wg, kFwdGroupWarps, lane);
-    }
+    const int ii0 = s * sp.ips;
+    align_spans(spans, L.span, raw, L.slot, bias_h, wd, hw, ii0,
+                min(sp.ips, hw - ii0), wg, kFwdGroupWarps, lane);
   };
   auto stage_warp = [&](int s) {
-    if (klen <= 0) return;
-    if (mask_b != nullptr)
+    if (klen > 0 && mask_b != nullptr)
       stage_rows_warp(wm, L.wld, mask_b, rowtab + 16 * s, n, kb, klen, lane);
-    if (!kCompact)
-      stage_rows_warp(wb, L.wld, bias_h, rowtab + 16 * s, n, kb, klen, lane);
   };
 
   load_rows_bf16(Ks, k, b, h, 0, L.keys, n, hd, tid, blockDim.x);
   load_rows_bf16(Vs, v, b, h, 0, L.keys, n, hd, tid, blockDim.x);
   fill_rowtab(rowtab, sp, tid, blockDim.x);
-  if (kCompact)
-    for (int j = tid; j < L.keys; j += blockDim.x)
-      kd[j] = span_key(j, n, hw, L.span);
+  for (int j = tid; j < L.keys; j += blockDim.x)
+    kd[j] = span_key(j, n, hw, L.span);
   __syncthreads();                               // rowtab
   int s = blockIdx.z * groups + grp;
   const int sstep = gridDim.z * groups;
@@ -1327,11 +1356,10 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
   __syncthreads();
 
   // the compact bias's places of the lane's slots gq and gq + 8
-  int rsp[2] = {0, 0};
-  if (kCompact)
+  int rsp[2];
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
-      rsp[u] = span_row(gq + 8 * u, wd, hw, sp.ips, L.span);
+  for (int u = 0; u < 2; ++u)
+    rsp[u] = span_row(gq + 8 * u, wd, hw, sp.ips, L.span);
   const int c = nh * hd;
   // out of strip ps = (the warps' o) / (their sums), each added in warp
   // order, and the rows' maximum and sum: run after the next strip's
@@ -1370,18 +1398,15 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
     cp_async_wait<1>();          // the warp's rows of strip s
     __syncwarp();
     const int* rows = rowtab + 16 * s;
-    // the lane's slots gq and gq + 8: their rows and where their mask and
-    // dense bias values lie
-    int row[2], moff[2] = {0, 0}, boff[2] = {0, 0};
+    // the lane's slots gq and gq + 8: their rows and where their mask
+    // values lie
+    int row[2], moff[2] = {0, 0};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int t = gq + 8 * u, r = rows[t], rr = read_row(r);
       row[u] = r;
       if (mask_b != nullptr)
         moff[u] = t * L.wld + float_shift(mask_b + (size_t)rr * n + kb) - kb;
-      boff[u] = kCompact ? rsp[u]
-                         : t * L.wld +
-                               float_shift(bias_h + (size_t)rr * n + kb) - kb;
     }
     unsigned qf[2][4];
     const bf16* Qb = Qg + qb * 16 * kLdB;
@@ -1407,12 +1432,11 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
           const int j = jt + 2 * tq + cc;
-          const int kj = kCompact ? kd[j] : j;
+          const int kj = kd[j];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             const int e = 2 * u + cc;
-            float l = fmaf(sc[e], scale,
-                           kCompact ? spans[boff[u] + kj] : wb[boff[u] + kj]);
+            float l = fmaf(sc[e], scale, spans[rsp[u] + kj]);
             if (mask_b != nullptr) l += wm[moff[u] + j];
             l = j < n ? l : -CUDART_INF_F;
             lg[st][hf][e] = l;
@@ -1502,6 +1526,382 @@ attn_fwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
     prev = s;
   }
   finish(prev);
+}
+
+// ---------------------------------------- bfloat16 forward, dense bias
+
+// A K or V row in shared memory: 32 channels (64 bytes; channels past hd
+// zeros), its 16-byte chunk c at chunk c ^ ((r >> 1) & 3), so that the
+// eight rows an ldmatrix reads fall in eight different bank groups.
+constexpr int kLdKV = kMaxHeadDim;
+
+__host__ __device__ inline int kv_at(int r, int c) {
+  return r * kLdKV + ((c ^ ((r >> 1) & 3)) << 3);
+}
+
+// The dense forward's shape (see the note above): kDenseSplit warps share
+// a strip, its 16-key steps dealt out in turns (the order of s and o that
+// dense_fwd_plan's mirror and the CPU tests emulate); at most
+// kDenseMaxWarps warps a block (each keeps its logits, kDenseSteps 16-key
+// steps, in registers); runs of windows short enough for kDenseWaves
+// blocks an SM's room.  The two macros exist only for
+// vitta_tpu_torch/tools/attention_bf16_sites.py --dense, which builds this
+// source with other values of them and times those builds; nothing else
+// sets them.
+constexpr int kDenseSplit = 4;
+#ifndef VITTA_DENSE_FWD_MAX_WARPS
+#define VITTA_DENSE_FWD_MAX_WARPS 16
+#endif
+#ifndef VITTA_DENSE_FWD_WAVES
+#define VITTA_DENSE_FWD_WAVES 4
+#endif
+constexpr int kDenseMaxWarps = VITTA_DENSE_FWD_MAX_WARPS;
+constexpr int kDenseWaves = VITTA_DENSE_FWD_WAVES;
+// 16-key steps a warp takes at most
+constexpr int kDenseSteps = (kNMax / 16 + kDenseSplit - 1) / kDenseSplit;
+constexpr int kDenseRedLd = kMaxHeadDim + 4;     // a partial o row, floats
+constexpr int kSmemPerBlock = 232448;
+static_assert(kDenseSplit >= 1 && kDenseMaxWarps % kDenseSplit == 0 &&
+                  kDenseMaxWarps / kDenseSplit <= 15,
+              "whole groups of warps, a named barrier each");
+
+// What dense_fwd_plan chooses, and the shared memory it lays out: K in two
+// buffers and V in one (keys, kLdKV), then per strip of the block its two
+// q buffers (16, kLdB), its 16 rows of the head's bias (16, ldb) and its
+// group's partial maxima, sums and o (split, 16) + (split, 16) + (split,
+// 16, kDenseRedLd) floats.
+struct DenseFwdPlan {
+  int strips;    // 16-row strips of a problem
+  int keys;      // keys the passes walk: n rounded up to 16
+  int ldb;       // floats a staged bias row: keys + 8 (8 mod 16)
+  int slots;     // strips a block, kDenseSplit warps each
+  int bands;     // blocks a (window run, head): strips b, b + bands, ...
+  int run;       // windows a block walks
+  int runs;      // blocks a (band, head)
+  int vec;       // 16-byte copies of the bias rows, 8-byte mask reads
+  int blocks;    // nh * bands * runs
+  int smem;      // bytes a block
+  __host__ __device__ int kv_bytes() const { return 3 * keys * kLdKV * 2; }
+  __host__ __device__ int strip_bytes() const {
+    return 2 * 16 * kLdB * 2 + 16 * ldb * 4 +
+           kDenseSplit * 16 * (kDenseRedLd + 2) * 4;
+  }
+  __host__ __device__ int strip_off(int slot) const {
+    return kv_bytes() + slot * strip_bytes();
+  }
+};
+
+// The plan of a call, by shape alone: b_ windows of n tokens, nh heads,
+// nw masks (0 without one); vec where n % 4 == 0 and the bias and mask lie
+// on 16-byte boundaries; sms, the card's SMs.  A run holds whole groups of
+// the windows that share a mask (b_ / nw of them).
+inline DenseFwdPlan dense_fwd_plan(int b_, int n, int nh, int nw, bool vec,
+                                   int sms) {
+  DenseFwdPlan p;
+  p.strips = (n + 15) / 16;
+  p.keys = 16 * p.strips;
+  p.ldb = p.keys + 8;
+  p.vec = vec ? 1 : 0;
+  const int most = kDenseMaxWarps / kDenseSplit;
+  int fit = (kSmemPerBlock - p.kv_bytes()) / p.strip_bytes();
+  fit = fit < most ? fit : most;
+  fit = fit < p.strips ? fit : p.strips;
+  fit = fit < 1 ? 1 : fit;
+  p.bands = (p.strips + fit - 1) / fit;
+  p.slots = (p.strips + p.bands - 1) / p.bands;
+  p.smem = p.kv_bytes() + p.slots * p.strip_bytes();
+  const int per_sm = kSmemPerBlock / p.smem;
+  const int target = kDenseWaves * sms * (per_sm < 1 ? 1 : per_sm);
+  const int group = nw > 0 ? b_ / nw : 1, groups = b_ / group;
+  const int units = nh * p.bands;
+  int per_run = units * groups / target;
+  per_run = per_run < 1 ? 1 : (per_run > groups ? groups : per_run);
+  p.runs = (groups + per_run - 1) / per_run;
+  p.run = group * ((groups + p.runs - 1) / p.runs);
+  p.blocks = units * p.runs;
+  return p;
+}
+
+// s = q k^T of one 8-key tile from the strip's q fragments and K in its
+// chunk order (kv_at): qk_tile's two products on the same fragments.
+__device__ __forceinline__ void qk_tile_kv(float (&sc)[4],
+                                           const unsigned (&qf)[2][4],
+                                           const bf16* Ks, int jt, int lane) {
+  unsigned kb[4];
+  ldsm_x4(kb, Ks + kv_at(jt + (lane & 7), lane >> 3));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) sc[e] = 0.f;
+  const unsigned b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+  mma_bf16(sc, qf[0], b0);
+  mma_bf16(sc, qf[1], b1);
+}
+
+template <bool kTap, bool kMask>
+__global__ void __launch_bounds__(kDenseMaxWarps * 32)
+attn_fwd_dense_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ mask,
+                           bf16* __restrict__ out, float* __restrict__ ms,
+                           bf16* __restrict__ e_tap, int b_, int n, int nh,
+                           int hd, int nw, float scale, const DenseFwdPlan P) {
+  extern __shared__ __align__(16) unsigned char dense_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;       // mma's g and t
+  const int slot = warp / kDenseSplit, part = warp - slot * kDenseSplit;
+  const int gt = part * 32 + lane;               // thread of the strip's group
+  const int h = blockIdx.x % nh, unit = blockIdx.x / nh;
+  const int band = unit % P.bands, run = unit / P.bands;
+  const int s = band + P.bands * slot;           // the group's strip
+  const bool active = s < P.strips;
+  const int i0 = 16 * s;
+  const int c = nh * hd, steps = P.keys / 16;
+  // the run's windows, those of one mask next to each other: window o of
+  // the order is (o mod group) nw + o / group, its mask o / group
+  const int group = kMask ? b_ / nw : 1;
+  const int o0 = run * P.run, o1 = min(b_, o0 + P.run);
+  auto window = [&](int o) {
+    return kMask ? (o % group) * nw + o / group : o;
+  };
+  bf16* Kb = reinterpret_cast<bf16*>(dense_smem);          // (2, keys, kLdKV)
+  bf16* Vs = Kb + 2 * P.keys * kLdKV;                      // (keys, kLdKV)
+  unsigned char* st_ = dense_smem + P.strip_off(slot);
+  bf16* Qs = reinterpret_cast<bf16*>(st_);                 // (2, 16, kLdB)
+  float* Bs = reinterpret_cast<float*>(st_ + 2 * 16 * kLdB * 2);
+  float* red_max = Bs + 16 * P.ldb;                        // (split, 16)
+  float* red_sum = red_max + kDenseSplit * 16;             // (split, 16)
+  float* red_o = red_sum + kDenseSplit * 16;  // (split, 16, kDenseRedLd)
+  // the group's 128 threads meet at named barrier 1 + slot
+  auto group_sync = [&]() {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + slot), "n"(kDenseSplit * 32)
+                 : "memory");
+  };
+
+  // K or V (x) of window b into dst (keys past n zeros), all threads
+  auto load_kv = [&](bf16* dst, const InRowsB& x, int b) {
+    const bf16* xp = x.at(b, h);
+    for (int idx = tid; idx < 4 * P.keys; idx += blockDim.x) {
+      const int r = idx >> 2, ch = idx & 3;
+      const bool ok = r < n && 8 * ch < hd;
+      cp_async16(dst + kv_at(r, ch), ok ? xp + (long long)r * x.sr + 8 * ch : xp,
+                 ok);
+    }
+  };
+  // the strip's q of window b into its buffer qb, the group's threads
+  auto load_q = [&](int qb, int b) {
+    if (!active) return;
+    const bf16* qp = q.at(b, h);
+    for (int idx = gt; idx < 64; idx += kDenseSplit * 32) {
+      const int r = idx >> 2, ch = idx & 3;
+      const bool ok = i0 + r < n && 8 * ch < hd;
+      cp_async16(Qs + (qb * 16 + r) * kLdB + 8 * ch,
+                 ok ? qp + (long long)(i0 + r) * q.sr + 8 * ch : qp, ok);
+    }
+  };
+
+  // the strip's 16 rows of the head's bias, once a run (rows past n zeros):
+  // warp `part` of the group takes rows part, part + split, ...
+  if (active) {
+    const float* bias_h = bias + (size_t)h * n * n;
+    for (int r = part; r < 16; r += kDenseSplit) {
+      const bool ok = i0 + r < n;
+      const float* row = ok ? bias_h + (size_t)(i0 + r) * n : bias_h;
+      if (P.vec)
+        for (int x = 4 * lane; x < n; x += 128)
+          cp_async<16>(Bs + r * P.ldb + x, row + x, ok);
+      else
+        for (int x = lane; x < n; x += 32)
+          cp_async<4>(Bs + r * P.ldb + x, row + x, ok);
+    }
+  }
+  // K and q of the first window, then its V
+  load_kv(Kb, k, window(o0));
+  load_q(0, window(o0));
+  cp_async_commit();
+  load_kv(Vs, v, window(o0));
+  cp_async_commit();
+  // the lane's rows gq and gq + 8 of the staged bias, at key 2 tq; of the
+  // mask, the rows clamped to n - 1 and keys to the row's last pair
+  const float* br0 = Bs + gq * P.ldb + 2 * tq;
+  const float* br1 = br0 + 8 * P.ldb;
+  const int mrow0 = min(i0 + gq, n - 1), mrow1 = min(i0 + gq + 8, n - 1);
+  const int jlast = P.vec ? n - 2 : n - 1;
+  // the warp's logits: lg[i][hf][e] is row gq + 8 (e >> 1), key 16 st +
+  // 8 hf + 2 tq + (e & 1) of step st = part + split i.  With a mask they
+  // first hold the mask's values, loaded a window ahead.
+  float lg[kDenseSteps][2][4];
+  auto load_mask = [&](int o) {
+    if (!kMask || !active) return;
+    const float* __restrict__ mw = mask + (size_t)(o / group) * n * n;
+#pragma unroll
+    for (int i = 0; i < kDenseSteps; ++i) {
+      const int st = part + kDenseSplit * i;
+      if (st >= steps) continue;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int jm = min(16 * st + 8 * hf + 2 * tq, jlast);
+        const float* m0 = mw + (size_t)mrow0 * n + jm;
+        const float* m1 = mw + (size_t)mrow1 * n + jm;
+        if (P.vec) {
+          const float2 a0 = __ldg(reinterpret_cast<const float2*>(m0));
+          const float2 a1 = __ldg(reinterpret_cast<const float2*>(m1));
+          lg[i][hf][0] = a0.x, lg[i][hf][1] = a0.y;
+          lg[i][hf][2] = a1.x, lg[i][hf][3] = a1.y;
+        } else {
+          lg[i][hf][0] = __ldg(m0), lg[i][hf][1] = __ldg(m0 + (jm + 1 < n));
+          lg[i][hf][2] = __ldg(m1), lg[i][hf][3] = __ldg(m1 + (jm + 1 < n));
+        }
+      }
+    }
+  };
+  load_mask(o0);
+  for (int o = o0; o < o1; ++o) {
+    const int b = window(o), kb = (o - o0) & 1;
+    // the next window's K and q load during this one, this window's V
+    // during its logits
+    if (o + 1 < o1) {
+      load_kv(Kb + (kb ^ 1) * P.keys * kLdKV, k, window(o + 1));
+      load_q(kb ^ 1, window(o + 1));
+    }
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();                             // K, q and the bias
+
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (active) {
+      const bf16* Ks = Kb + kb * P.keys * kLdKV;
+      unsigned qf[2][4];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        ldsm_x4(qf[ks], Qs + (kb * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                 kLdB + 16 * ks + 8 * (lane >> 4));
+      // the logits fmaf(q.k, scale, bias) + mask of the warp's steps, keys
+      // past n -inf, and the warp's row maxima, then the group's
+#pragma unroll
+      for (int i = 0; i < kDenseSteps; ++i) {
+        const int st = part + kDenseSplit * i;
+        if (st >= steps) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int jt = 16 * st + 8 * hf, j = jt + 2 * tq;
+          float sc[4];
+          qk_tile_kv(sc, qf, Ks, jt, lane);
+          const float2 b0 = *reinterpret_cast<const float2*>(br0 + jt);
+          const float2 b1 = *reinterpret_cast<const float2*>(br1 + jt);
+          const float bb[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = fmaf(sc[e], scale, bb[e]);
+            float l = kMask ? x + lg[i][hf][e] : x;
+            if (jt + 8 > n && j + (e & 1) >= n)  // the tile crosses n
+              l = -CUDART_INF_F;
+            lg[i][hf][e] = l;
+            m[e >> 1] = fmaxf(m[e >> 1], l);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], 1));
+        m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], 2));
+        if (tq == 0) red_max[part * 16 + gq + 8 * u] = m[u];
+      }
+      group_sync();                              // the group's maxima
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int w = 0; w < kDenseSplit; ++w)
+          m[u] = fmaxf(m[u], red_max[w * 16 + gq + 8 * u]);
+    }
+    cp_async_wait<1>();
+    __syncthreads();                             // V
+
+    if (active) {
+      // e = exp(l - m), the lane's sums in key order and o += bfloat16(e) v
+      // over 16 keys a step (the two 8-key tiles of e are the A fragment
+      // as they lie)
+      float o_[kDT][4];
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o_[dt][e] = 0.f;
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < kDenseSteps; ++i) {
+        const int st = part + kDenseSplit * i;
+        if (st >= steps) continue;
+        const int j0 = 16 * st;
+        float ex[2][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = __expf(lg[i][hf][e] - m[e >> 1]);
+            ex[hf][e] = x;
+            sum[e >> 1] += x;
+            const int j = j0 + 8 * hf + 2 * tq + (e & 1);
+            const int r = i0 + gq + 8 * (e >> 1);
+            if (kTap && j < n && r < n)
+              e_tap[(((size_t)b * nh + h) * n + r) * n + j] =
+                  __float2bfloat16_rn(x);
+          }
+        const unsigned pa[4] = {pack_bf16(ex[0][0], ex[0][1]),
+                                pack_bf16(ex[0][2], ex[0][3]),
+                                pack_bf16(ex[1][0], ex[1][1]),
+                                pack_bf16(ex[1][2], ex[1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kDT / 2; ++dp) {
+          unsigned vb[4];
+          ldsm_x4_trans(vb, Vs + kv_at(j0 + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                       2 * dp + (lane >> 4)));
+          const unsigned b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+          mma_bf16(o_[2 * dp], pa, b0);
+          mma_bf16(o_[2 * dp + 1], pa, b1);
+        }
+      }
+      // the warp's sums (the quad's four, pairs first) and partial o
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], 1);
+        sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], 2);
+        const int r = gq + 8 * u;
+        if (tq == 0) red_sum[part * 16 + r] = sum[u];
+#pragma unroll
+        for (int dt = 0; dt < kDT; ++dt)
+          *reinterpret_cast<float2*>(red_o + (part * 16 + r) * kDenseRedLd +
+                                     8 * dt + 2 * tq) =
+              make_float2(o_[dt][2 * u], o_[dt][2 * u + 1]);
+      }
+      // the next window's mask into lg, behind the rest of this one
+      if (o + 1 < o1) load_mask(o + 1);
+      group_sync();                              // the group's partials
+      // out = (the warps' o) / (their sums), each added in warp order and
+      // rounded once; the rows' maximum and sum
+      for (int p = gt; p < 16 * 16; p += kDenseSplit * 32) {
+        const int r = p >> 4, d = 2 * (p & 15), i = i0 + r;
+        if (i >= n || d >= hd) continue;
+        float sm = 0.f, o0 = 0.f, o1 = 0.f, mx = -CUDART_INF_F;
+#pragma unroll
+        for (int w = 0; w < kDenseSplit; ++w) {
+          sm += red_sum[w * 16 + r];
+          mx = fmaxf(mx, red_max[w * 16 + r]);
+          const float2 x = *reinterpret_cast<const float2*>(
+              red_o + (w * 16 + r) * kDenseRedLd + d);
+          o0 += x.x;
+          o1 += x.y;
+        }
+        *reinterpret_cast<unsigned*>(out + ((size_t)b * n + i) * c + h * hd +
+                                     d) = pack_bf16(o0 / sm, o1 / sm);
+        if (ms != nullptr && d == 0) {
+          float* mp = ms + ((size_t)b * n + i) * 2 * nh + 2 * h;
+          mp[0] = mx;
+          mp[1] = sm;
+        }
+      }
+    }
+    __syncthreads();              // V, this K buffer and the partials read
+    if (o + 1 < o1) load_kv(Vs, v, window(o + 1));
+    cp_async_commit();
+  }
 }
 
 // --------------------------------------------------- bfloat16 backward
@@ -1995,36 +2395,41 @@ inline bool near_rows(const Rows<T>& x) {
   return x.sr <= kMaxRowStride;
 }
 
-// Groups of five warps a forward block: as many as fit shared memory, up to
-// kFwdMaxGroups.
+// Groups of five warps a compact forward block: as many as fit shared
+// memory, up to kFwdMaxGroups.
 inline int fwd_bf16_groups(const FwdBf16Layout& L) {
   int groups = kFwdMaxGroups;
-  while (groups > 1 && L.bytes(groups) > 232448) --groups;
+  while (groups > 1 && L.bytes(groups) > kSmemPerBlock) --groups;
   return groups;
 }
 
-template <bool kTap, bool kCompact>
-inline cudaError_t launch_fwd_bf16_instance(const InRowsB& q, const InRowsB& k,
-                                            const InRowsB& v,
-                                            const float* bias,
-                                            const float* mask, bf16* out,
-                                            float* ms, bf16* e_tap, int b_,
-                                            int n, int nh, int hd, int nw,
-                                            int wd, int hw, float scale,
-                                            cudaStream_t stream) {
-  auto kernel = attn_fwd_bf16_kernel<kTap, kCompact>;
-  const FwdBf16Layout L(n, kCompact, wd, hw, mask != nullptr);
+// Above 48 KB of dynamic shared memory a kernel must ask for it.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <bool kTap>
+inline cudaError_t launch_fwd_compact_bf16(const InRowsB& q, const InRowsB& k,
+                                           const InRowsB& v, const float* bias,
+                                           const float* mask, bf16* out,
+                                           float* ms, bf16* e_tap, int b_,
+                                           int n, int nh, int hd, int nw,
+                                           int wd, int hw, float scale,
+                                           cudaStream_t stream) {
+  auto kernel = attn_fwd_bf16_kernel<kTap>;
+  const FwdBf16Layout L(n, wd, hw, mask != nullptr);
   const int groups = fwd_bf16_groups(L);
   const size_t smem = L.bytes(groups);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(nh, b_, row_split(nh * b_));
   kernel<<<grid, groups * kFwdGroupThreads, smem, stream>>>(
       q, k, v, bias, mask, out, ms, e_tap, n, nh, hd, nw, wd, hw, scale);
@@ -2032,9 +2437,38 @@ inline cudaError_t launch_fwd_bf16_instance(const InRowsB& q, const InRowsB& k,
   return cudaGetLastError();
 }
 
+// The dense plan of a call whose bias and mask lie where they are given.
+inline DenseFwdPlan dense_fwd_plan_of(const float* bias, const float* mask,
+                                      int b_, int n, int nh, int nw) {
+  const bool vec =
+      n % 4 == 0 && (reinterpret_cast<std::uintptr_t>(bias) & 15) == 0 &&
+      (reinterpret_cast<std::uintptr_t>(mask) & 15) == 0;
+  return dense_fwd_plan(b_, n, nh, mask != nullptr ? nw : 0, vec,
+                        sm_count());
+}
+
+template <bool kTap, bool kMask>
+inline cudaError_t launch_fwd_dense_bf16(const InRowsB& q, const InRowsB& k,
+                                         const InRowsB& v, const float* bias,
+                                         const float* mask, bf16* out,
+                                         float* ms, bf16* e_tap, int b_,
+                                         int n, int nh, int hd, int nw,
+                                         float scale, cudaStream_t stream) {
+  auto kernel = attn_fwd_dense_bf16_kernel<kTap, kMask>;
+  const DenseFwdPlan P = dense_fwd_plan_of(bias, mask, b_, n, nh, nw);
+  cudaError_t e = allow_smem(kernel, P.smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<P.blocks, P.slots * kDenseSplit * 32, P.smem, stream>>>(
+      q, k, v, bias, mask, out, ms, e_tap, b_, n, nh, hd, nw, scale, P);
+  count_launch(kTap ? "attn_fwd_dense_bf16_kernel<tap>"
+                    : "attn_fwd_dense_bf16_kernel");
+  return cudaGetLastError();
+}
+
 // The forward at bfloat16 on q, k, v where they lie (strided rows, each a
 // multiple of 8 values apart and 16-byte aligned): out bfloat16 (b_, n,
-// nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One launch.
+// nh*hd); bias, mask, ms float32 as launch_fwd takes them.  One launch:
+// the compact kernel on the compact bias, the dense kernel on the dense.
 // cudaErrorMisalignedAddress where a row of q, k, v or out is not 16-byte
 // aligned.  e_tap: nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e)
 // (kTap).
@@ -2051,10 +2485,17 @@ inline cudaError_t launch_fwd_bf16(const InRowsB& q, const InRowsB& k,
       !rows_aligned_bf16(v) || (reinterpret_cast<std::uintptr_t>(out) & 15))
     return cudaErrorMisalignedAddress;
   const bool tap = e_tap != nullptr;
-#define VITTA_FWD_BF16(T, C)                                                 \
-  launch_fwd_bf16_instance<T, C>(q, k, v, bias, mask, out, ms, e_tap, b_, n, \
-                                 nh, hd, nw, wd, hw, scale, stream)
-  if (compact)
+  if (compact) {
+#define VITTA_FWD_BF16(T)                                                  \
+  launch_fwd_compact_bf16<T>(q, k, v, bias, mask, out, ms, e_tap, b_, n, nh, \
+                             hd, nw, wd, hw, scale, stream)
+    return tap ? VITTA_FWD_BF16(true) : VITTA_FWD_BF16(false);
+#undef VITTA_FWD_BF16
+  }
+#define VITTA_FWD_BF16(T, M)                                                \
+  launch_fwd_dense_bf16<T, M>(q, k, v, bias, mask, out, ms, e_tap, b_, n, nh, \
+                              hd, nw, scale, stream)
+  if (mask != nullptr)
     return tap ? VITTA_FWD_BF16(true, true) : VITTA_FWD_BF16(false, true);
   return tap ? VITTA_FWD_BF16(true, false) : VITTA_FWD_BF16(false, false);
 #undef VITTA_FWD_BF16

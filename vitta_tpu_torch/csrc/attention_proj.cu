@@ -82,8 +82,8 @@
 // gradients bfloat16; gamma, beta, the dense bias, the mask, ms, dbias,
 // dgamma, dbeta and the scratch float32) the chains are the same, on the
 // bfloat16 parts of the port:
-//   forward:  [ln_rows bf16]  gemm_wgmma_bf16<DENSE>  attn_fwd_bf16 (dense
-//             bias)  gemm_wgmma_bf16<DENSE>
+//   forward:  [ln_rows bf16]  gemm_wgmma_bf16<DENSE>  attn_fwd_dense_bf16
+//             gemm_wgmma_bf16<DENSE>
 //   backward: g_att = bfloat16(g wproj)                  gemm_wgmma_bf16
 //             dqkv, dbias: the bfloat16 attention backward (the kernel,
 //             [the dk, dv sum], dbias_reduce: dl over the windows in

@@ -65,7 +65,12 @@ they lie (three strides each, as the float32 heads pair reads them), with
 the dense bias and its dense dbias, summed over the windows in their order
 (pallas_attention.py:116-124).  ``heads_attention_bf16_reference`` and
 ``heads_attention_bf16_backward_reference`` are their plain versions, run
-on the CPU as one autograd Function (``HeadsAttentionPlain``).
+on the CPU as one autograd Function (``HeadsAttentionPlain``).  On the
+dense bias (this route, the packed op given one, and the projection-fused
+chains) the bfloat16 forward is a kernel of its own, which walks runs of
+windows a block and sums s and o in its own fixed order;
+``dense_fwd_bf16_plan`` is its plan, ``dense_fwd_bf16_plan_cuda`` the
+library's.
 
 The mask has no gradient.  There is no fallback: a CUDA tensor a kernel
 does not take raises.
@@ -364,6 +369,9 @@ def _lib():
         lib.vitta_attn_heads_bwd_bf16.argtypes = \
             lib.vitta_attn_heads_bwd.argtypes[:-1] + [p, p]
         lib.vitta_attn_heads_bwd_bf16.restype = i
+        lib.vitta_attn_dense_fwd_bf16_plan.argtypes = [i] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.vitta_attn_dense_fwd_bf16_plan.restype = None
         _LIB = lib
     return _LIB
 
@@ -456,6 +464,60 @@ def attn_packed_fwd_cuda(qkv, bias, mask, scale: float, nh: int,
     raise_on(code, "window attention forward kernel")
     counters.fwd += 1
     return (out, ms) if save_ms else out
+
+
+# csrc/attention_kernels.cuh: kLdB, kLdKV, kDenseRedLd, the dense forward's
+# defaults and the shared memory a block may take
+_LDB, _LDKV, _RED_LD = 40, 32, 36
+_DENSE_SPLIT, _DENSE_MAX_WARPS, _DENSE_WAVES = 4, 16, 4
+_SMEM_PER_BLOCK = 232448
+DENSE_FWD_PLAN_KEYS = ("strips", "keys", "ldb", "slots", "bands", "run",
+                       "runs", "vec", "blocks", "smem")
+
+
+def dense_fwd_bf16_plan(b_: int, n: int, nh: int, nw: int, vec: bool,
+                        sms: int = 132) -> dict:
+    """The dense-bias bfloat16 forward kernel's plan, as ``dense_fwd_plan``
+    in csrc/attention_kernels.cuh chooses it from the shape alone: ``b_``
+    windows of ``n`` tokens, ``nh`` heads, ``nw`` masks (0 without one),
+    ``vec`` where n % 4 == 0 and the bias and mask lie on 16-byte
+    boundaries, ``sms`` the card's SMs.  A block takes ``slots`` of the
+    problem's 16-row strips (strips b, b + bands, ... of band b), four
+    warps each, for one head, and walks a run of ``run`` windows, whole
+    groups of those that share a mask; it holds K in two buffers, V in one.
+    Keys as DENSE_FWD_PLAN_KEYS."""
+    strips = (n + 15) // 16
+    keys = 16 * strips
+    ldb = keys + 8
+    kv = 3 * keys * _LDKV * 2
+    per = 2 * 16 * _LDB * 2 + 16 * ldb * 4 + _DENSE_SPLIT * 16 * (
+        _RED_LD + 2) * 4
+    fit = max(1, min(strips, _DENSE_MAX_WARPS // _DENSE_SPLIT,
+                     (_SMEM_PER_BLOCK - kv) // per))
+    bands = -(-strips // fit)
+    slots = -(-strips // bands)
+    smem = kv + slots * per
+    target = _DENSE_WAVES * sms * max(1, _SMEM_PER_BLOCK // smem)
+    group = b_ // nw if nw > 0 else 1
+    groups = b_ // group
+    per_run = min(groups, max(1, nh * bands * groups // target))
+    runs = -(-groups // per_run)
+    run = group * -(-groups // runs)
+    return dict(strips=strips, keys=keys, ldb=ldb, slots=slots, bands=bands,
+                run=run, runs=runs, vec=int(bool(vec)),
+                blocks=nh * bands * runs, smem=smem)
+
+
+def dense_fwd_bf16_plan_cuda(b_: int, n: int, nh: int, nw: int, vec: bool,
+                             device=None) -> dict:
+    """The plan the library's dense forward takes on ``device``'s card
+    (``vitta_attn_dense_fwd_bf16_plan``), keyed as
+    ``dense_fwd_bf16_plan``'s."""
+    out = (ctypes.c_int * len(DENSE_FWD_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        _lib().vitta_attn_dense_fwd_bf16_plan(b_, n, nh, nw, int(bool(vec)),
+                                              out)
+    return dict(zip(DENSE_FWD_PLAN_KEYS, out))
 
 
 def bwd_split(b_: int, nh: int, device=None) -> int:

@@ -388,7 +388,8 @@ def check_proj_bf16(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
     of its plain value from that e, and end to end as the packed attention
     (``assert_bf16_mostly_within``); ms, dl, dy, dbias, dgamma and dbeta to
     ``F32_REL``; g_att within one ulp; the backward's e within one ulp and
-    dqkv within one ulp of its plain value from the kernel's e, dl and
+    the forward's to the bit, dqkv within one ulp of its plain value from
+    the kernel's e, dl and
     g_att, and end to end; dx (or, under the LayerNorm, dx from the
     kernel's dy), dwqkv, dbqkv, dwproj and dbproj within one ulp of their
     plain values from the kernel's dqkv; dbias against the kernel's dl
@@ -439,7 +440,7 @@ def check_proj_bf16(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
     b_, n, c = x.shape
     names = launches_of(fwd)
     if (sum(names.values()) != 3 + (ln is not None)
-            or names.get("attn_fwd_bf16_kernel") != 1
+            or names.get("attn_fwd_dense_bf16_kernel") != 1
             or sum(v for k, v in names.items()
                    if k.startswith("gemm_wgmma_bf16")) != 2
             or not all("bf16" in k or "bfloat16" in k for k in names)):
@@ -485,6 +486,10 @@ def check_proj_bf16(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
         qkv, bias, mask, ms, g_att, scale, nh)
     within("forward e", tf["e"], e_want, "fwd")
     within("backward e", tb["e"], e_want)
+    if not torch.equal(tf["e"], tb["e"]):
+        raise AssertionError("the forward's e is not the backward's: "
+                             f"{(tf['e'] != tb['e']).float().mean():.2e} of "
+                             "values differ")
     err["dl"] = _rel_err("dl", tb["dl"], dl_want)
     within("o_att from the kernel's e", o_att,
            packed_attention_bf16_fwd_stage(qkv, ms, tf["e"], nh), "fwd")

@@ -160,9 +160,11 @@ def build(source: str, tag: str, macros: dict, kernel: str):
             used = " ".join(lines[k + 1:k + 4]).replace("ptxas info    :", "")
             regs = re.search(r"Used (\d+) registers", used)
             spill = re.search(r"(\d+) bytes spill stores", used)
+            frame = re.search(r"(\d+) bytes stack frame", used)
             info.append(f"{kernel}{args.group(1) if args else ''}: "
                         f"{regs.group(1) if regs else '?'} registers, "
-                        f"{spill.group(1) if spill else '?'} bytes spilled")
+                        f"{spill.group(1) if spill else '?'} bytes spilled, "
+                        f"{frame.group(1) if frame else '?'} bytes of stack")
     return ctypes.CDLL(str(out)), "; ".join(info)
 
 
