@@ -3681,18 +3681,18 @@ def phase_bf16_swin_kernels(dev):
                         f"{what} {form} dqkv", got[0], wq, s_dqkv))
                     scaled("attn_bwd", f"{what} {form} dbias", got[1], wb,
                            ATTN_BWD_TOL)
-                    if form == "compact":
-                        # the kernel's partials, summed in window order, on
-                        # its own dl: the plain order's bits
-                        if not torch.equal(got[1], ca.dbias_in_window_order(
-                                tb["dl"], vc)):
-                            raise AssertionError(
-                                f"{what}: the compact dbias is not the "
-                                "windows' collapsed dl in window order")
+                    # the kernel's compact partials or (dense) its dl,
+                    # summed in window order on its own dl: the plain
+                    # order's bits
+                    if not torch.equal(got[1], ca.dbias_in_window_order(
+                            tb["dl"], bias_t)):
+                        raise AssertionError(
+                            f"{what}: the {form} dbias is not the windows' "
+                            "dl in window order")
                     names = kernels(lambda: ca.attn_packed_bwd_cuda(
                         qkv, bias_t, m, ms_, g, scale, nh), 2 + (split > 1))
                     reduce_ = ("dbias_windows_kernel" if form == "compact"
-                               else "dbias_reduce_kernel")
+                               else ca.dense_dbias_reduce_kernel(n_tok, nh))
                     if names.get(reduce_) != 1:
                         raise AssertionError(f"{what} {form}: launches "
                                              f"{names}, no {reduce_}")
@@ -4200,7 +4200,8 @@ def phase_bf16_swin_t_kernels(dev):
                         continue
                     names = kernels(lambda: ca.attn_heads_bwd_cuda(
                         q, k, v, dense, m, ms_, g, scale), 2 + (split > 1))
-                    if names.get("dbias_reduce_kernel") != 1:
+                    if names.get(ca.dense_dbias_reduce_kernel(
+                            n_tok, nh)) != 1:
                         raise AssertionError(f"{what}: launches {names}")
                     tb = {}
                     got = ca.attn_heads_bwd_cuda(q, k, v, dense, m, ms_, g,
@@ -4211,6 +4212,12 @@ def phase_bf16_swin_t_kernels(dev):
                                for p_, q_ in zip(got, again)):
                         raise AssertionError(f"{what}: two backward runs "
                                              "differ")
+                    # dbias: the kernel's dl added in window order, the
+                    # plain version's order, to the bit
+                    if not torch.equal(got[3], ca.dbias_in_window_order(
+                            tb["dl"], dense)):
+                        raise AssertionError(f"{what}: dbias is not its dl "
+                                             "added in window order")
                     note("heads_bwd", bc.assert_bf16_within(
                         f"{what} backward e", tb["e"], e_want))
                     # the dense backward forms q k^T by the forward's

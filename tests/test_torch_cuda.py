@@ -1792,8 +1792,10 @@ def test_attention_bf16_kernels_match_plain(cuda_device, case, compact):
     assert bwd.get("attn_bwd_bf16_kernel") == 1, bwd
     assert bwd.get("dkv_sum_kernel<__nv_bfloat16>", 0) == (split > 1), bwd
     # dbias: the windows' compact partials added, or dl summed (dense)
+    n = qkv.shape[1]
     assert bwd.get("dbias_windows_kernel" if compact
-                   else "dbias_reduce_kernel") == 1, bwd
+                   else cuda_attention.dense_dbias_reduce_kernel(n, nh)) \
+        == 1, bwd
     assert sum(bwd.values()) == 2 + (split > 1), bwd
 
 
@@ -2086,7 +2088,8 @@ def test_heads_attention_bf16_kernels_match_plain(cuda_device, case, layout):
     split = ca.bwd_split(case["b_"], case["nh"], cuda_device)
     assert bwd.get("attn_bwd_bf16_kernel") == 1, bwd
     assert bwd.get("dkv_sum_kernel<__nv_bfloat16>", 0) == (split > 1), bwd
-    assert bwd.get("dbias_reduce_kernel") == 1, bwd
+    assert bwd.get(ca.dense_dbias_reduce_kernel(q.shape[1],
+                                                case["nh"])) == 1, bwd
     assert sum(bwd.values()) == 2 + (split > 1), bwd
 
 
@@ -2336,6 +2339,56 @@ def test_dense_fwd_bf16_takes_unaligned_bias_and_mask(cuda_device,
     want = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale, save_ms=True)
     got = ca.attn_heads_fwd_cuda(q, k, v, sb, sm, scale, save_ms=True)
     assert all(torch.equal(p, r) for p, r in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(b_=8, nh=3, hd=32, window=(8, 7, 7), nw=4),
+    dict(b_=2, nh=24, hd=32, window=(8, 7, 7), nw=0),
+    dict(b_=6, nh=3, hd=8, window=(2, 3, 3), nw=3),
+    dict(b_=5, nh=1, hd=16, window=(1, 3, 3), nw=0),
+    dict(b_=17, nh=2, hd=16, window=(2, 3, 3), nw=0)], ids=str)
+def test_dense_bwd_bf16_dbias_is_window_order_in_graph_replays(cuda_device,
+                                                               case):
+    """The dense backward's dbias is its own dl added in window order from
+    zero, to the bit, 4 floats a thread (dbias_reduce_x4_kernel) or one
+    (nh N N = 81: dbias_reduce_kernel), and stays so over repeated calls
+    and two calls in one CUDA graph, replayed twice."""
+    ca = cuda_attention
+    q, k, v, bias, mask, scale = _heads_case(cuda_device, "views", **case)
+    q, k, v = torch.stack([q, k, v], dim=2).to(BF16).unbind(2)
+    _out, ms = ca.attn_heads_fwd_cuda(q, k, v, bias, mask, scale,
+                                      save_ms=True)
+    g = torch.randn(q.shape, device=cuda_device).to(BF16)
+    tb = {}
+    tapped = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale,
+                                    taps=tb)
+    assert torch.equal(tapped[3], ca.dbias_in_window_order(tb["dl"], bias))
+    got = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
+    assert all(torch.equal(p, r) for p, r in zip(got, tapped))
+    bwd = launches_of(lambda: ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms,
+                                                     g, scale))
+    n = q.shape[1]
+    assert bwd.get(ca.dense_dbias_reduce_kernel(n, case["nh"])) == 1, bwd
+    assert (bwd.get("dbias_reduce_x4_kernel", 0)
+            == (case["nh"] * n * n % 4 == 0)), bwd
+    torch.cuda.synchronize(cuda_device)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)  # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            first = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
+            second = ca.attn_heads_bwd_cuda(q, k, v, bias, mask, ms, g, scale)
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    for _ in range(2):
+        for t in first + second:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        for outs in (first, second):
+            assert all(torch.equal(p, r) for p, r in zip(outs, got))
 
 
 @pytest.mark.cuda

@@ -724,6 +724,58 @@ dbias_reduce_kernel(const float* __restrict__ dl, float* __restrict__ dbias,
   dbias[idx] = acc;
 }
 
+// The same sum for the dense form, 4 floats of dbias a thread (nh N N a
+// multiple of 4, dl and dbias 16-byte aligned): each float the windows added
+// in their order from zero, as dbias_reduce_kernel adds them, so the same
+// bits; the loads of kReduceAhead windows are issued before their adds, and
+// streamed (dl is read once).
+constexpr int kReduceAhead = 4;
+__global__ void __launch_bounds__(256)
+dbias_reduce_x4_kernel(const float4* __restrict__ dl,
+                       float4* __restrict__ dbias, int b_, long long per4) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= per4) return;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b0 = 0; b0 < b_; b0 += kReduceAhead) {
+    float4 v[kReduceAhead];
+#pragma unroll
+    for (int u = 0; u < kReduceAhead; ++u)
+      if (b0 + u < b_) v[u] = __ldcs(dl + (long long)(b0 + u) * per4 + idx);
+#pragma unroll
+    for (int u = 0; u < kReduceAhead; ++u)
+      if (b0 + u < b_) {
+        acc.x += v[u].x;
+        acc.y += v[u].y;
+        acc.z += v[u].z;
+        acc.w += v[u].w;
+      }
+  }
+  dbias[idx] = acc;
+}
+
+// dbias (nh, n, n) from the dense form's dl (b_, nh, n, n): the x4 kernel
+// where the sizes and pointers allow it, else dbias_reduce_kernel; the same
+// bits either way.
+inline cudaError_t launch_dense_dbias_reduce(const float* dl, float* dbias,
+                                             int b_, int n, int nh,
+                                             cudaStream_t stream) {
+  const long long outs = (long long)nh * n * n;
+  if (outs % 4 == 0 && (reinterpret_cast<std::uintptr_t>(dl) & 15) == 0 &&
+      (reinterpret_cast<std::uintptr_t>(dbias) & 15) == 0) {
+    const long long per4 = outs / 4;
+    dbias_reduce_x4_kernel<<<(unsigned)((per4 + 255) / 256), 256, 0,
+                             stream>>>(reinterpret_cast<const float4*>(dl),
+                                       reinterpret_cast<float4*>(dbias), b_,
+                                       per4);
+    count_launch("dbias_reduce_x4_kernel");
+  } else {
+    dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
+        dl, dbias, b_, n, nh, 0, 0, 0);
+    count_launch("dbias_reduce_kernel");
+  }
+  return cudaGetLastError();
+}
+
 inline int sm_count() {
   int dev = 0, count = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -2245,7 +2297,15 @@ attn_bwd_bf16_kernel(const InRowsB q, const InRowsB k, const InRowsB v,
                 inv[nt][u]);
             dpt[mt][nt][e] = dl;
             if (kCompact) DLs[r * L.ldl + j] = dl;
-            if (dl_b != nullptr && i >= 0 && j < n) dl_b[i * n + j] = dl;
+            // the dense form's dl is read once, by the windows' sum:
+            // stored evict-first; a compact tap's as before (__stcs in the
+            // compact instance, even where it never runs, slowed it 5%)
+            if (dl_b != nullptr && i >= 0 && j < n) {
+              if (kCompact)
+                dl_b[i * n + j] = dl;
+              else
+                __stcs(dl_b + i * n + j, dl);
+            }
           }
       }
 
@@ -2535,9 +2595,9 @@ inline long long bwd_bf16_scratch_floats(int b_, int n, int nh, int hd,
 // out as it says).  The kernel, the sum of the blocks' float32 shares of dk
 // and dv where problems are shared, and dbias: the windows' compact
 // partials added in window order (dbias_windows_kernel), or, with the dense
-// bias, dl summed over the windows (dbias_reduce_kernel).  e_tap: nullptr,
-// or (b_, nh, n, n) bfloat16 for bfloat16(e) (kTap), which also writes dl
-// to the scratch's first b_ nh n^2 floats.
+// bias, dl summed over the windows (launch_dense_dbias_reduce).  e_tap:
+// nullptr, or (b_, nh, n, n) bfloat16 for bfloat16(e) (kTap), which also
+// writes dl to the scratch's first b_ nh n^2 floats.
 inline cudaError_t launch_bwd_bf16(
     const InRowsB& q, const InRowsB& k, const InRowsB& v, const bf16* g,
     const OutRowsB& dq, const OutRowsB& dk, const OutRowsB& dv,
@@ -2597,10 +2657,7 @@ inline cudaError_t launch_bwd_bf16(
         part, dbias, b_, per);
     count_launch("dbias_windows_kernel");
   } else {
-    const long long outs = (long long)nh * n * n;
-    dbias_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(
-        dl, dbias, b_, n, nh, 0, wd, hw);
-    count_launch("dbias_reduce_kernel");
+    return launch_dense_dbias_reduce(dl, dbias, b_, n, nh, stream);
   }
   return cudaGetLastError();
 }

@@ -86,7 +86,7 @@
 //             gemm_wgmma_bf16<DENSE>
 //   backward: g_att = bfloat16(g wproj)                  gemm_wgmma_bf16
 //             dqkv, dbias: the bfloat16 attention backward (the kernel,
-//             [the dk, dv sum], dbias_reduce: dl over the windows in
+//             [the dk, dv sum], dbias_reduce_x4: dl over the windows in
 //             their order)
 //             dx = bfloat16(dqkv wqkv), or under the LayerNorm
 //             dy = dqkv wqkv + gy, float32, never rounded  gemm_wgmma_bf16

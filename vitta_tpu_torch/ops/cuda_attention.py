@@ -520,6 +520,15 @@ def dense_fwd_bf16_plan_cuda(b_: int, n: int, nh: int, nw: int, vec: bool,
     return dict(zip(DENSE_FWD_PLAN_KEYS, out))
 
 
+def dense_dbias_reduce_kernel(n: int, nh: int) -> str:
+    """The launch that sums the bfloat16 dense backward's dl over the
+    windows (csrc/attention_kernels.cuh, launch_dense_dbias_reduce) on the
+    port's 16-byte aligned tensors: 4 floats a thread where nh N N is a
+    multiple of 4, else one.  Both add the windows in vitta_tpu's order."""
+    return ("dbias_reduce_x4_kernel" if nh * n * n % 4 == 0
+            else "dbias_reduce_kernel")
+
+
 def bwd_split(b_: int, nh: int, device=None) -> int:
     """Blocks that share one (window, head) problem in the backward kernel
     on ``device``'s card: 1 unless the problems are fewer than its SMs."""

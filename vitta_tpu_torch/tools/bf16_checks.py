@@ -520,7 +520,10 @@ def check_proj_bf16(x, ln, wqkv, bqkv, wproj, bproj, bias, mask,
         rest = grads[3:]
     for name, got in zip(("dwqkv", "dbqkv", "dwproj", "dbproj"), rest[:4]):
         within(name, got, st[name])
-    err["dbias"] = _rel_err("dbias", rest[4],
-                            dbias_in_window_order(tb["dl"], bias))
+    want_dbias = dbias_in_window_order(tb["dl"], bias)
+    err["dbias"] = _rel_err("dbias", rest[4], want_dbias)
+    if not torch.equal(rest[4], want_dbias):
+        raise AssertionError("dbias is not the kernel's dl added in window "
+                             "order")
     return {"fwd": outs, "grads": grads, "err": err, "apart": apart,
             "abs": absd, "launches": (n_fwd, want_n)}
