@@ -1889,14 +1889,16 @@ def start_ptxas_report(build):
 
 
 def wgmma_build_report(build, proc):
-    """One line on every gemm_wgmma_bf16 instance of the mlp library: its
-    registers and spills (ptxas -v), its dynamic shared memory (the plan's
-    formula, ``cuda_mlp.wgmma_smem_bytes``) and its HGMMA instructions in
-    the SASS of the built library (cuobjdump -sass): wgmma runs there.
-    Raises where one spills or has no HGMMA."""
+    """One line on every gemm_wgmma_bf16 instance of the mlp library and one
+    on every instance of the fused MLP without the LayerNorm
+    (mlp_rows_bf16, csrc/mlp_fused_bf16.cuh): registers and spills (ptxas
+    -v), dynamic shared memory (the plans' formulas,
+    ``cuda_mlp.wgmma_smem_bytes`` and ``cuda_mlp.mlp_rows_smem``) and the
+    HGMMA instructions in the SASS of the built library (cuobjdump -sass):
+    wgmma runs there.  Raises where one spills or has no HGMMA."""
     import collections
     import re
-    from vitta_tpu_torch.ops.cuda_mlp import wgmma_smem_bytes
+    from vitta_tpu_torch.ops.cuda_mlp import mlp_rows_smem, wgmma_smem_bytes
     _out, err = proc.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"nvcc -Xptxas -v of mlp.cu failed:\n{err}")
@@ -1907,7 +1909,7 @@ def wgmma_build_report(build, proc):
         if m:
             name = m.group(1)
             continue
-        if name and "gemm_wgmma_bf16" in name:
+        if name and ("gemm_wgmma_bf16" in name or "mlp_rows_bf16" in name):
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -1919,15 +1921,31 @@ def wgmma_build_report(build, proc):
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(build.build("mlp"))],
                           capture_output=True, text=True, check=True).stdout
-    parts = []
+    parts, fused = [], []
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         fn = part.split("\n", 1)[0].strip()
-        if "gemm_wgmma_bf16" not in fn:
+        if "gemm_wgmma_bf16" not in fn and "mlp_rows_bf16" not in fn:
             continue
         ops = collections.Counter(
             m.group(1).split(".")[0] for m in re.finditer(
                 r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)",
                 part))
+        if "mlp_rows_bf16" in fn:
+            c, bwd = re.search(r"mlp_rows_bf16ILi(\d+)ELb(\d)E", fn).groups()
+            info = ptx.get(fn, {})
+            spills = info.get("spills", (None, None))
+            if ops["HGMMA"] == 0 or spills != (0, 0):
+                raise AssertionError(f"{fn}: {ops['HGMMA']} HGMMA, spills "
+                                     f"{spills}")
+            sa, ss, sb, smem = mlp_rows_smem(int(c), bwd == "1")
+            fused.append(f"<{c}, {'row pass' if bwd == '1' else 'forward'}>"
+                         f": {info.get('regs')} registers at launch (232 a "
+                         f"consumer thread after setmaxnreg), spill "
+                         f"stores/loads {spills[0]}/{spills[1]} bytes, rings "
+                         f"A/S/B {sa}/{ss}/{sb} slots, dynamic shared memory "
+                         f"{smem} bytes, HGMMA {ops['HGMMA']} of "
+                         f"{sum(ops.values())} instructions")
+            continue
         bm, bn, stages, epi = (int(v) for v in re.findall(r"Li(\d+)E", fn))
         promote, a_mn, b_mn = re.findall(r"Lb(\d)E", fn)
         info = ptx.get(fn, {})
@@ -1942,12 +1960,16 @@ def wgmma_build_report(build, proc):
                      f"shared memory {wgmma_smem_bytes(bm, bn, stages)} "
                      f"bytes, HGMMA {ops['HGMMA']} of {sum(ops.values())} "
                      f"instructions")
-    if not parts:
-        raise AssertionError("no gemm_wgmma_bf16 kernel in the mlp library")
+    if not parts or not fused:
+        raise AssertionError("no gemm_wgmma_bf16 or mlp_rows_bf16 kernel in "
+                             "the mlp library")
     print(f"gemm_wgmma_bf16 instances in csrc/mlp.cu ({len(parts)}; ptxas -v, "
           "cuobjdump -sass; epilogue 0 bias, 1 GELU, 2 * s, 3 + gy, 4 "
           "partials): "
           + "; ".join(parts), flush=True)
+    print(f"mlp_rows_bf16 instances in csrc/mlp_fused_bf16.cuh "
+          f"({len(fused)}; ptxas -v, cuobjdump -sass): " + "; ".join(fused),
+          flush=True)
 
 
 def phase_wgmma_rates(dev):
@@ -3984,9 +4006,15 @@ def phase_bf16_swin_t_kernels(dev):
     plain values, the attention's out, dq, dk and dv end to end as phase
     25's; two backward runs bit-equal; launches per call from the
     libraries' counts, every one a bfloat16 instance, the MLP's backward
-    count the library's own (``vitta_mlp_bwd_bf16_launches``) and its plan
-    ``cuda_mlp.bf16_gemm_plan``.  The MLP at Swin-T's stages 1-2 (widths
-    96 and 192), forward at 1 and 2 clips, backward at 2; the attention per
+    count the library's own (``vitta_mlp_bwd_bf16_launches``) and its plans
+    ``cuda_mlp.mlp_rows_plan`` and ``bf16_gemm_plan``.  The MLP at Swin-T's
+    stages 1-2 (widths 96 and 192) runs csrc/mlp_fused_bf16.cuh: one
+    launch forward (mlp_rows_bf16<C, false>), whose output without a and s
+    is the bits of the one with them and which then allocates no (M, F)
+    tensor; three backward (the row pass mlp_rows_bf16<C, true>, dw1 and dw2
+    in one gemm_wgmma_bf16 launch, reduce_sums_kernel); forward at 1 and 2
+    clips (the eval forward, without residuals, timed at 1), backward at 2;
+    the attention per
     (head, window) at every Swin-T stage, forward at 1 and 2 clips,
     backward at 2, and at every Swin-B stage at 2 clips (values only), with
     and without mask, on q, k, v as views of the packed projection output;
@@ -4034,6 +4062,7 @@ def phase_bf16_swin_t_kernels(dev):
                     else acc[key] + sites * ms_)
 
     # rows 8 and 9: Swin-T's stages 1 and 2, where norm2 runs apart
+    eval_ms = 0.0
     for c, _nh, tokens, _nw, depth in SWIN_T_STAGES[:2]:
         f = 4 * c
         w1, b1 = bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
@@ -4043,15 +4072,39 @@ def phase_bf16_swin_t_kernels(dev):
             x = bf(m_rows, c)
             what = f"mlp bf16 M={m_rows} C={c}"
             if (cm.bf16_gemm_plan_cuda(m_rows, c, f)
-                    != cm.bf16_gemm_plan(m_rows, c, f, sms)):
-                raise AssertionError(f"{what}: the library's plan is not "
-                                     "cuda_mlp.bf16_gemm_plan")
-            kernels(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2, True), 2)
+                    != cm.bf16_gemm_plan(m_rows, c, f, sms)
+                    or cm.mlp_rows_plan_cuda(m_rows, c, f)
+                    != cm.mlp_rows_plan(m_rows, c, f, sms)):
+                raise AssertionError(f"{what}: the library's plans are not "
+                                     "cuda_mlp's")
+            names = kernels(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2, True),
+                            1)
+            if names != {f"mlp_rows_bf16<{c}, false>": 1}:
+                raise AssertionError(f"{what}: forward launches {names}")
             got = cm.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
             for nm, p, q in zip(("o", "a", "s"), got, bc.mlp_fwd_stages(
                     x, w1, b1, w2, b2, got[1])):
                 note("mlp_fwd", bc.assert_bf16_within(f"{what} {nm}", p, q))
+            # without residuals: the same o, and no (M, F) tensor
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            o_eval = cm.mlp_fwd_cuda(x, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            grew = torch.cuda.max_memory_allocated(dev) - before
+            if grew >= m_rows * f * 2 or not torch.equal(o_eval, got[0]):
+                raise AssertionError(f"{what}: the forward without residuals "
+                                     f"allocated {grew} bytes or gave other "
+                                     "bits")
+            del o_eval
             if clips == 1:
+                # the eval forward: one clip, no residuals
+                t_eval = _measure_bf16(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2,
+                                                               b2))
+                eval_ms += depth * t_eval[1]
+                print(f"{what} eval forward (no residuals, {grew} bytes "
+                      f"allocated, o the residual forward's bits): event ms "
+                      f"{t_eval[0]:.4f}, device {t_eval[1]:.4f}", flush=True)
                 del x, got
                 continue
             _o, a, s_ = got
@@ -4062,8 +4115,10 @@ def phase_bf16_swin_t_kernels(dev):
                                      "not bf16_bwd_launches'")
             names = kernels(lambda: cm.mlp_bwd_cuda(x, a, s_, g, w1, w2),
                             n_bwd)
-            if sum(n for k, n in names.items()
-                   if k.startswith("gemm_wgmma_bf16")) != 3:
+            if (n_bwd != 3 or names.get(f"mlp_rows_bf16<{c}, true>") != 1
+                    or names.get("reduce_sums_kernel") != 1
+                    or sum(n for k, n in names.items()
+                           if k.startswith("gemm_wgmma_bf16")) != 1):
                 raise AssertionError(f"{what}: backward launches {names}")
             taps = {}
             res = cm.mlp_bwd_cuda(x, a, s_, g, w1, w2, taps=taps)
@@ -4114,7 +4169,7 @@ def phase_bf16_swin_t_kernels(dev):
                        + c) * 2
             bytes_b = (3 * m_rows * c + 2 * m_rows * f + 4 * c * f + f
                        + c) * 2
-            per_site(t, {"fwd": ("kernel", bytes_f, flops_f, 2),
+            per_site(t, {"fwd": ("kernel", bytes_f, flops_f, 1),
                          "bwd": ("kernel bwd", bytes_b, flops_b, n_bwd)})
             tot["mlp_fwd"].add(depth, ms=t["kernel"][0],
                                device_ms=t["kernel"][1],
@@ -4363,10 +4418,12 @@ def phase_bf16_swin_t_kernels(dev):
                     del qkv_g
                 del qkv, g, q, k, v
     src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
-    rows = [tot["mlp_fwd"].row("mlp_fwd_bf16", f"{src}/mlp.cu",
+    rows = [tot["mlp_fwd"].row("mlp_rows_fwd_bf16",
+                               f"{src}/mlp_fused_bf16.cuh",
                                f"{ops}/pallas_mlp.py:138", has_library=False,
                                flop_rate=BF16_FLOP_PER_S),
-            tot["mlp_bwd"].row("mlp_bwd_bf16", f"{src}/mlp.cu",
+            tot["mlp_bwd"].row("mlp_rows_bwd_bf16",
+                               f"{src}/mlp_fused_bf16.cuh",
                                f"{ops}/pallas_mlp.py:154", has_library=False,
                                flop_rate=BF16_FLOP_PER_S),
             tot["heads_fwd"].row("attn_heads_fwd_bf16", f"{src}/attention.cu",
@@ -4377,6 +4434,10 @@ def phase_bf16_swin_t_kernels(dev):
                                  flop_rate=BF16_FLOP_PER_S)]
     rows[0]["composition_device_ms"] = comp["mlp_fwd"]
     rows[1]["composition_device_ms"] = comp["mlp_bwd"]
+    # the eval forward: 1 clip, no residuals, device ms a pass
+    rows[0]["eval_device_ms"] = eval_ms
+    print(f"mlp_rows_fwd_bf16 eval forward (1 clip, no residuals) per Swin-T "
+          f"pass: device ms {eval_ms:.4f}", flush=True)
     rows[3]["library_without_dbias_device_ms"] = no_dbias
     for row, key in zip(rows, tot):
         row["float32_device_ms"] = f32[key]
@@ -5283,7 +5344,7 @@ def main() -> int:
     lap("phase 25, bfloat16 Swin kernels")
     swin_t_bf16_rows = phase_bf16_swin_t_kernels(dev)
     for row in swin_t_bf16_rows:
-        key = row["name"][:-len("_bf16")]
+        key = row["name"][:-len("_bf16")].replace("mlp_rows_", "mlp_")
         by_route, videos = ((t16h_launches, SWIN_T_BF16_HEADS_VIDEOS)
                             if "heads" in key
                             else (t16_launches, SWIN_T_BF16_VIDEOS))

@@ -1979,15 +1979,21 @@ SWIN_T_ATTN_BF16 = [dict(b_=128, nh=3, hd=32, window=(8, 7, 7), nw=64),
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,c", SWIN_T_MLP_BF16, ids=str)
 def test_mlp_bf16_kernels_match_plain(cuda_device, m, c):
-    """The bfloat16 MLP without the LayerNorm: each step within one ulp of
-    its plain version on the kernel's own rounded a, dh and dhc, two
-    backward runs bit-equal, every launch a bfloat16 wgmma instance (2 a
-    forward, 3 products a backward) and the backward's count the
-    library's and ``bf16_bwd_launches``'s."""
+    """The bfloat16 MLP without the LayerNorm (csrc/mlp_fused_bf16.cuh):
+    each step within one ulp of its plain version on the kernel's own
+    rounded a, dh and dhc, dhc dh rounded once, two backward runs bit-equal,
+    the forward without residuals the residual one's bits and allocating no
+    (M, F) tensor; one launch a forward (mlp_rows_bf16<C, false>), three a
+    backward (the row pass, dw1 and dw2 in one gemm_wgmma_bf16 launch, one
+    reduce_sums_kernel), the count the library's and
+    ``bf16_bwd_launches``'s, the plan ``mlp_rows_plan``'s."""
     from vitta_tpu_torch.tools.bf16_checks import (mlp_bwd_stages,
                                                    mlp_fwd_stages)
     x, _g, _bt, w1, b1, w2, b2 = _bf16_mlp_case(cuda_device, m, c)
     f = 4 * c
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (cuda_mlp.mlp_rows_plan_cuda(m, c, f)
+            == cuda_mlp.mlp_rows_plan(m, c, f, sms))
     cuda_mlp.counters.reset()
     got = cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
     assert cuda_mlp.counters.mlp_fwd == 1
@@ -1995,7 +2001,14 @@ def test_mlp_bf16_kernels_match_plain(cuda_device, m, c):
     for name, p, q in zip(("o", "a", "s"), got,
                           mlp_fwd_stages(x, w1, b1, w2, b2, a)):
         _within_one_bf16_ulp(name, p, q)
-    assert torch.equal(cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2), got[0])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    o_eval = cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(o_eval, got[0])
+    assert (torch.cuda.max_memory_allocated(cuda_device) - before
+            < max(m * f * 2, 512))
     g = _bf16_randn(cuda_device, m, c, seed=8)
     taps = {}
     res = cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2, taps=taps)
@@ -2007,13 +2020,14 @@ def test_mlp_bf16_kernels_match_plain(cuda_device, m, c):
     again = cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2)
     assert all(torch.equal(p, q) for p, q in zip(res, again))
     fwd = launches_of(lambda: cuda_mlp.mlp_fwd_cuda(x, w1, b1, w2, b2, True))
-    assert fwd == _bf16_names(fwd) and sum(fwd.values()) == 2, fwd
+    assert fwd == {f"mlp_rows_bf16<{c}, false>": 1}, fwd
     bwd = launches_of(lambda: cuda_mlp.mlp_bwd_cuda(x, a, s, g, w1, w2))
-    assert bwd == _bf16_names(bwd), bwd
-    assert sum(n for k, n in bwd.items() if "gemm_wgmma_bf16" in k) == 3, bwd
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert (sum(bwd.values()) == cuda_mlp.mlp_bf16_bwd_launches_cuda(m, c, f)
-            == cuda_mlp.bf16_bwd_launches(m, c, f, sms, ln=False)), bwd
+    assert bwd.pop(f"mlp_rows_bf16<{c}, true>") == 1, bwd
+    assert bwd.pop("reduce_sums_kernel") == 1, bwd
+    assert bwd == _bf16_names(bwd) and sum(bwd.values()) == 1, bwd
+    assert all(k.startswith("gemm_wgmma_bf16") for k in bwd), bwd
+    assert (cuda_mlp.mlp_bf16_bwd_launches_cuda(m, c, f) == 3
+            == cuda_mlp.bf16_bwd_launches(m, c, f, sms, ln=False))
 
 
 @pytest.mark.cuda
@@ -2221,9 +2235,13 @@ def test_bf16_swin_t_runs_through_the_kernels(cuda_device):
         assert (ac.fwd, ac.bwd) == ((0, 0) if heads else (3, 3))
         for part in ("attn_fwd_kernel", "attn_bwd_kernel", "gemm_tiles<"):
             assert not any(part in k for k in names), names
-        # 2 products a forward, 3 launches a backward (dw1 and dw2 in one)
+        # the fused MLP without the LayerNorm: 1 launch a forward, the row
+        # pass, dw1 and dw2 in one gemm_wgmma_bf16 launch and one reduce a
+        # backward
         assert sum(n for k, n in names.items()
-                   if "gemm_wgmma_bf16" in k) == 3 * (2 + 3), names
+                   if k.startswith("mlp_rows_bf16<")) == 3 * (1 + 1), names
+        assert sum(n for k, n in names.items()
+                   if "gemm_wgmma_bf16" in k) == 3 * 1, names
         assert all(p.grad is not None and p.grad.dtype == torch.float32
                    for p in model.parameters())
 

@@ -56,10 +56,17 @@
 // cut by its own plan (bf16_plan), db1 is summed in the dh product's
 // epilogue, dw1 and dw2 share one launch, and where a weight gradient's
 // plan cuts K its chunks are added in order by reduce_partials, which
-// rounds once.  The MLP without the LayerNorm runs the same products on x
-// (pallas_mlp.py:138-183): forward h and o, 2 launches; backward dh with
-// db1's partials and their sum, dx = dhc w1 rounded in its epilogue (no
-// gy, no LayerNorm backward behind it), the weight gradients, db2's
+// rounds once.  The MLP without the LayerNorm (pallas_mlp.py:138-183) at
+// Video Swin-T's and Swin-S's widths (C 48, 96 or 192, F = 4C:
+// mlp_fused) runs on mlp_fused_bf16.cuh: the forward in one launch that
+// keeps a on chip (writing a and s only for the backward), the backward as
+// one row pass (dh, dhc, dx, the bias gradients' column sums, two rows a
+// block), dw1 and dw2 in one launch of the core, and one reduce_sums
+// launch that adds the bias gradients' rows and the weight gradients'
+// chunks in order: 3 launches.  At other widths it runs the
+// LayerNorm-MLP's products on x: forward h and o, 2 launches; backward dh
+// with db1's partials and their sum, dx = dhc w1 rounded in its epilogue
+// (no gy, no LayerNorm backward behind it), the weight gradients, db2's
 // column sums: 6 launches, 7-8 where a gradient's K is cut.
 //
 // Without the LayerNorm (the widths that are no multiple of 128: Video
@@ -75,6 +82,7 @@
 #include "gemm_tiles.cuh"
 #include "gemm_wgmma_bf16.cuh"
 #include "ln_rows.cuh"
+#include "mlp_fused_bf16.cuh"
 
 namespace {
 
@@ -231,7 +239,8 @@ const bf16* as_bf16(const void* p) { return reinterpret_cast<const bf16*>(p); }
 // backward's, the weight gradients' float32 partials (dw1's, then dw2's,
 // where their plans cut K), the partial column sums of db1 and then of
 // db2.  Without the LayerNorm (ln false) there is no dh, dy or LayerNorm
-// part: dhc comes first.
+// part: dhc comes first, and the column partials of db1 and db2 lie one
+// after the other in one region (the fused row pass writes both at once).
 struct Bf16BwdScratch {
   long long dh, dhc, dy, ln, grad, cols;
   long long total() const { return dh + dhc + dy + ln + grad + cols; }
@@ -246,8 +255,13 @@ Bf16BwdScratch bf16_bwd_scratch(int m, int c, int f, bool ln = true) {
   s.grad = product_scratch_floats(kDw1, m, c, f) +
            product_scratch_floats(kDw2, m, c, f);
   // db1's column partials (the dh product's, a row per 64 rows), then
-  // db2's (col_sums of go), one after the other
-  s.cols = max2(colsum_partials(m) * f, (long long)vitta::col_chunks(m) * c);
+  // db2's (col_sums of go), one after the other; without the LayerNorm
+  // both at once: colsum_partials(m) rows of each at other widths
+  // (col_chunks(m) <= colsum_partials(m)), the fused row pass's two a
+  // block, 2 min(cdiv(m, 128), SMs)
+  s.cols = ln ? max2(colsum_partials(m) * f,
+                     (long long)vitta::col_chunks(m) * c)
+              : max2(colsum_partials(m), 2 * cdiv(m, kMfRows)) * (f + c);
   return s;
 }
 
@@ -315,6 +329,67 @@ cudaError_t bwd_products_bf16(const bf16* in, const bf16* a, const bf16* s,
   e = grad_sums(g2, st);
   if (e != cudaSuccess) return e;
   return vitta::launch_col_sums(go, cols, db2, m, c, st);
+}
+
+// The fused forward (mlp_fused(c, f)): o, and a and s where they are not
+// null (both or neither), in one launch.
+cudaError_t fwd_fused_bf16(const bf16* x, const bf16* w1, const bf16* b1,
+                           const bf16* w2, const bf16* b2, bf16* a, bf16* s,
+                           bf16* o, int m, int c, int f, cudaStream_t st) {
+  if ((a == nullptr) != (s == nullptr)) return cudaErrorInvalidValue;
+  CUtensorMap mx, mw1, mw2, ma, ms;
+  if (!make_map(&mx, x, m, c) || !make_map(&mw1, w1, f, c) ||
+      !make_map(&mw2, w2, c, f))
+    return cudaErrorInvalidValue;
+  const bool res = a != nullptr;
+  if (res && (!make_map(&ma, a, m, f) || !make_map(&ms, s, m, f)))
+    return cudaErrorInvalidValue;
+  const MfArgs args{b1, b2, o, nullptr, nullptr, nullptr, m, f, res ? 1 : 0};
+  // without residuals the two store maps are never read
+  return launch_mlp_rows_c<false>(c, mx, mw1, mw2, res ? ma : mx,
+                                  res ? ms : mx, args, st);
+}
+
+// The fused backward (mlp_fused(c, f)): the row pass (dhc at the scratch's
+// start, dx, the column partials of dh and g), dw1 and dw2 in one launch
+// of the core, and one ordered reduce of db1's and db2's partials and of
+// the weight gradients' chunks where their plans cut K.
+cudaError_t bwd_fused_bf16(const bf16* x, const bf16* a, const bf16* s,
+                           const bf16* g, const bf16* w1, const bf16* w2,
+                           bf16* dx, bf16* dw1, bf16* db1, bf16* dw2,
+                           bf16* db2, float* scratch, float* dh_tap, int m,
+                           int c, int f, cudaStream_t st) {
+  const Bf16BwdScratch sz = bf16_bwd_scratch(m, c, f, false);
+  bf16* dhc = reinterpret_cast<bf16*>(scratch);
+  float* grad = scratch + sz.dhc;
+  float* part1 = grad + sz.grad;
+  // a row of partials a warpgroup of each persistent block
+  const int tiles = (m + kMfRows - 1) / kMfRows;
+  const long long blocks = 2LL * (tiles < sm_count() ? tiles : sm_count());
+  float* part2 = part1 + blocks * f;
+  CUtensorMap mg, mw1, mw2, ms, mdhc, mx, ma;
+  if (!make_map(&mg, g, m, c) || !make_map(&mw1, w1, f, c) ||
+      !make_map(&mw2, w2, c, f) || !make_map(&ms, s, m, f) ||
+      !make_map(&mdhc, dhc, m, f) || !make_map(&mx, x, m, c) ||
+      !make_map(&ma, a, m, f))
+    return cudaErrorInvalidValue;
+  const MfArgs args{nullptr, nullptr, dx, dh_tap, part1, part2, m, f, 0};
+  cudaError_t e = launch_mlp_rows_c<true>(c, mg, mw1, mw2, ms, mdhc, args, st);
+  if (e != cudaSuccess) return e;
+  const WgGrad g1 = grad_job(kDw1, mdhc, mx, dw1, grad, m, c, f);
+  const WgGrad g2 = grad_job(kDw2, mg, ma, dw2,
+                             grad + product_scratch_floats(kDw1, m, c, f), m,
+                             c, f);
+  e = wgmma_grads(g1, &g2, st);
+  if (e != cudaSuccess) return e;
+  PartialSums sums;
+  sums.add(part1, f, db1, (int)blocks, f);
+  sums.add(part2, c, db2, (int)blocks, c);
+  for (const WgGrad* gr : {&g1, &g2})
+    if (gr->plan.splits > 1)
+      sums.add(gr->partial, (long long)gr->M * gr->N, gr->out,
+               gr->plan.splits, (long long)gr->M * gr->N);
+  return launch_reduce_sums(sums, st);
 }
 
 }  // namespace
@@ -544,16 +619,42 @@ int vitta_lnmlp_bwd_bf16(const void* x, const void* y, const void* a,
                                    st);
 }
 
+// The fused kernels' plan at (m, c, f), 13 ints: fused (1 or 0; the rest
+// -1 where 0), a tile's rows, a chunk's columns of F, the tiles, the
+// persistent grid; the forward's slots of its rings A, S (0), B and its
+// dynamic shared memory in bytes; the backward row pass's.
+void vitta_mlp_bf16_rows_plan(int m, int c, int f, int* out) {
+  const bool ok = !bad_dims_bf16(m, c, f) && mlp_fused(c, f);
+  out[0] = ok ? 1 : 0;
+  for (int i = 1; i < 13; ++i) out[i] = -1;
+  if (!ok) return;
+  const int tiles = (m + kMfRows - 1) / kMfRows;
+  out[1] = kMfRows, out[2] = kMfChunk, out[3] = tiles;
+  out[4] = tiles < sm_count() ? tiles : sm_count();
+  mlp_rows_shape<false>(c, out + 5);
+  mlp_rows_shape<true>(c, out + 9);
+}
+
 // The MLP without the LayerNorm at bfloat16 (x, w1, b1, w2, b2, a, s, o, g,
 // dx, dw1, db1, dw2, db2 bfloat16; dh_tap and the scratch float32; every
 // pointer 16-byte aligned and c and f multiples of 8, as above).  Forward:
-// x, o (m, c); a (m, f), always written; s (m, f) or null.  Two launches.
+// x, o (m, c); a and s (m, f), both or neither: the fused kernel (one
+// launch) writes them only where given; at other widths a is always
+// written (it passes between the two products) and s may be null.
 int vitta_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* a, void* s,
                        void* o, int m, int c, int f, void* stream) {
   if (bad_dims_bf16(m, c, f)) return (int)cudaErrorInvalidValue;
   if (!all_aligned16({x, w1, b1, w2, b2, a, s, o}))
     return (int)cudaErrorMisalignedAddress;
+  if (mlp_fused(c, f))
+    return (int)fwd_fused_bf16(as_bf16(x), as_bf16(w1), as_bf16(b1),
+                               as_bf16(w2), as_bf16(b2),
+                               reinterpret_cast<bf16*>(a),
+                               reinterpret_cast<bf16*>(s),
+                               reinterpret_cast<bf16*>(o), m, c, f,
+                               (cudaStream_t)stream);
+  if (a == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fwd_products_bf16(as_bf16(x), w1, b1, w2, b2,
                                 reinterpret_cast<bf16*>(a),
                                 reinterpret_cast<bf16*>(s),
@@ -568,11 +669,13 @@ long long vitta_mlp_bwd_bf16_scratch_floats(int m, int c, int f) {
   return bf16_bwd_scratch(m, c, f, false).total();
 }
 
-// Launches of one vitta_mlp_bwd_bf16 call: dh, db1's ordered sum, dx, both
-// weight gradients, one ordered sum for each whose plan cuts K, db2's
-// column sums (two); -1 for dimensions it refuses.
+// Launches of one vitta_mlp_bwd_bf16 call: fused, the row pass, both weight
+// gradients and one reduce; else dh, db1's ordered sum, dx, both weight
+// gradients, one ordered sum for each whose plan cuts K, db2's column sums
+// (two); -1 for dimensions it refuses.
 int vitta_mlp_bwd_bf16_launches(int m, int c, int f) {
   if (bad_dims_bf16(m, c, f)) return -1;
+  if (mlp_fused(c, f)) return 3;
   return 6 + (bf16_plan(kDw1, m, c, f).splits > 1) +
          (bf16_plan(kDw2, m, c, f).splits > 1);
 }
@@ -580,7 +683,7 @@ int vitta_mlp_bwd_bf16_launches(int m, int c, int f) {
 // Backward: x, g, dx (m, c); a, s (m, f); w1, dw1 (f, c); w2, dw2 (c, f);
 // db1 (f); db2 (c); dh_tap (m, f) float32 or null: where it is not null the
 // dh product also writes the float32 dh there (for a check; dhc is at the
-// scratch's start).  dx = dhc w1 is rounded once in its epilogue.
+// scratch's start).  dx = dhc w1 is rounded once.
 int vitta_mlp_bwd_bf16(const void* x, const void* a, const void* s,
                        const void* g, const void* w1, const void* w2,
                        void* dx, void* dw1, void* db1, void* dw2, void* db2,
@@ -591,6 +694,13 @@ int vitta_mlp_bwd_bf16(const void* x, const void* a, const void* s,
   if (!all_aligned16({x, a, s, g, w1, w2, dx, dw1, db1, dw2, db2, scratch,
                       dh_tap}))
     return (int)cudaErrorMisalignedAddress;
+  if (mlp_fused(c, f))
+    return (int)bwd_fused_bf16(
+        as_bf16(x), as_bf16(a), as_bf16(s), as_bf16(g), as_bf16(w1),
+        as_bf16(w2), reinterpret_cast<bf16*>(dx),
+        reinterpret_cast<bf16*>(dw1), reinterpret_cast<bf16*>(db1),
+        reinterpret_cast<bf16*>(dw2), reinterpret_cast<bf16*>(db2), scratch,
+        dh_tap, m, c, f, (cudaStream_t)stream);
   const Bf16BwdScratch sz = bf16_bwd_scratch(m, c, f, false);
   bf16* dhc = reinterpret_cast<bf16*>(scratch);
   float* grad = scratch + sz.dhc;

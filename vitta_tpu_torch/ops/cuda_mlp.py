@@ -37,9 +37,16 @@ gy in float32; dx, dw1, db1, dw2 and db2 once.  ``mlp`` at bfloat16 runs
 ``vitta_mlp_{fwd,bwd}_bf16``, the counterparts of pallas_mlp.py:138 and
 :154 at the compute dtype (VJP :261-266), with the same rounding on x
 itself, and dx = dhc w1 rounded once; ``mlp_bf16_reference`` and
-``mlp_bf16_backward_reference`` are their plain versions.  Both run their
-six products on the bfloat16 wgmma core (csrc/gemm_wgmma_bf16.cuh), cut as
-``bf16_gemm_plan`` says.  The plain versions round at the same points, and
+``mlp_bf16_backward_reference`` are their plain versions.  The LayerNorm-MLP
+runs its six products on the bfloat16 wgmma core
+(csrc/gemm_wgmma_bf16.cuh), cut as ``bf16_gemm_plan`` says.  ``mlp`` at
+Swin-T's widths (C 48, 96 or 192 and F = 4C,
+``mlp_bf16_fused``) runs csrc/mlp_fused_bf16.cuh as ``mlp_rows_plan``
+cuts it: the forward in one launch that writes a and s only when a
+gradient will read them, the backward as one row pass (dh, dhc, dx and
+the bias gradients' partials per 64 rows), dw1 and dw2 on the core and one
+ordered reduce (3 launches); at other widths the core's products on x.
+The plain versions round at the same points, and
 on the CPU a bfloat16 ``ln_mlp`` or ``mlp`` runs the plain forward and the
 plain backward as one autograd Function, so that it rounds where the
 kernels do (at float32 the CPU keeps torch's autograd of the plain
@@ -213,6 +220,9 @@ def _lib():
         lib.vitta_mlp_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_mlp_bwd_bf16_launches.argtypes = [i, i, i]
         lib.vitta_mlp_bwd_bf16_launches.restype = i
+        lib.vitta_mlp_bf16_rows_plan.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.vitta_mlp_bf16_rows_plan.restype = None
         _LIB = lib
     return _LIB
 
@@ -291,14 +301,79 @@ def wgmma_plan(dims, grads, sms: int = 132):
 
 def bf16_bwd_launches(m: int, c: int, f: int, sms: int = 132,
                       ln: bool = True) -> int:
-    """Launches of one bfloat16 backward call: dh with db1's column
+    """Launches of one bfloat16 backward call.  Without the LayerNorm at the
+    fused widths (``mlp_bf16_fused``): the row pass, both weight gradients
+    in one launch, one ordered reduce.  Else: dh with db1's column
     partials, their ordered sum, dy (dx without the LayerNorm), both weight
     gradients in one launch and the ordered sums of those whose plan cuts
     K, db2's column sums (two) and, with ``ln``, the LayerNorm backward
     (two)."""
+    if not ln and mlp_bf16_fused(c, f):
+        return 3
     plan = bf16_gemm_plan(m, c, f, sms)
     return (8 if ln else 6) + sum(plan[k]["splits"] > 1
                                   for k in ("dw1", "dw2"))
+
+
+# The fused kernels of the MLP without the LayerNorm
+# (csrc/mlp_fused_bf16.cuh): tiles of 128 rows, F in chunks of 64, the
+# widths they take, the shared memory a block may have, a ring's most slots
+MF_ROWS, MF_CHUNK, MF_WIDTHS = 128, 64, (48, 96, 192)
+MF_SMEM_MAX, MF_MAX_SLOTS, MF_BOX = 232448, 4, 8192
+ROWS_PLAN_KEYS = ("fused", "rows", "chunk", "tiles", "grid", "fwd_a",
+                  "fwd_s", "fwd_b", "fwd_smem", "bwd_a", "bwd_s", "bwd_b",
+                  "bwd_smem")
+
+
+def mlp_bf16_fused(c: int, f: int) -> bool:
+    """Whether the bfloat16 ``mlp`` runs its fused kernels at widths (C,
+    F): C 48, 96 or 192 and F = 4C, Swin's MLP ratio (``mlp_fused``)."""
+    return c in MF_WIDTHS and f == 4 * c
+
+
+def mlp_rows_smem(c: int, bwd: bool):
+    """(slots of rings A, S, B, dynamic shared memory in bytes) of a block
+    of the fused forward (``bwd`` False) or row pass (MfShape, mf_fit):
+    1024 bytes of slack, the x or g tile of two warpgroups (64 x 64 boxes
+    of 8192 bytes, cdiv(C, 64) a row of boxes), each warpgroup's store
+    buffers (a and s; dhc), the row
+    pass's per-warp column sums (2 x 4 x 64 floats) and two warpgroups'
+    running column sums of dh and g (2 x 5C floats), 28 mbarriers; ring A
+    (the first product's weight chunk) and B (the second's) of cdiv(C, 64)
+    boxes a slot, S (the row pass's s of both warpgroups) of 2.  Each ring
+    starts at 4 slots; while the block passes 232448 bytes the ring with
+    the most gives one up (A, then S, then B on a tie)."""
+    nc = -(-c // 64)
+    fixed = (1024 + 2 * nc * MF_BOX + 2 * (1 if bwd else 2) * MF_BOX
+             + (2 * 4 * MF_CHUNK * 4 + 2 * 5 * c * 4 if bwd else 0)
+             + 8 * (2 * 3 * MF_MAX_SLOTS + 4))
+    q = [MF_MAX_SLOTS, MF_MAX_SLOTS if bwd else 0, MF_MAX_SLOTS]
+    size = lambda: fixed + (q[0] + q[2]) * nc * MF_BOX + q[1] * 2 * MF_BOX
+    while size() > MF_SMEM_MAX:
+        q[q.index(max(q))] -= 1
+    return (*q, size())
+
+
+def mlp_rows_plan(m: int, c: int, f: int, sms: int = 132):
+    """How the fused kernels cut (M, C, F) on a card of ``sms`` SMs, as
+    ``vitta_mlp_bf16_rows_plan`` reports it: {fused, rows, chunk, tiles,
+    grid, then fwd_ and bwd_ a, s, b, smem} (-1 each but fused where the
+    widths are not fused): tiles of 128 rows over min(tiles, SMs)
+    persistent blocks, F in chunks of 64, the rings' slots and shared
+    memory of ``mlp_rows_smem``."""
+    if not mlp_bf16_fused(c, f):
+        return dict(zip(ROWS_PLAN_KEYS, (0,) + (-1,) * 12))
+    tiles = -(-m // MF_ROWS)
+    return dict(zip(ROWS_PLAN_KEYS, (1, MF_ROWS, MF_CHUNK, tiles,
+                                     min(tiles, sms), *mlp_rows_smem(c, False),
+                                     *mlp_rows_smem(c, True))))
+
+
+def mlp_rows_plan_cuda(m: int, c: int, f: int):
+    """The library's own ``mlp_rows_plan`` on this card."""
+    out = (ctypes.c_int * len(ROWS_PLAN_KEYS))()
+    _lib().vitta_mlp_bf16_rows_plan(m, c, f, out)
+    return dict(zip(ROWS_PLAN_KEYS, out))
 
 
 def bf16_gemm_plan_cuda(m: int, c: int, f: int):
@@ -581,23 +656,27 @@ def ln_mlp(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5,
 
 def mlp_fwd_cuda(x2, w1, b1, w2, b2, save_residuals: bool = False):
     """Forward kernels of the MLP without the LayerNorm on ``x2`` (M, C):
-    one wrapper call, two launches on the current stream; returns o, and
-    with ``save_residuals`` (o, a, s), at x's dtype (float32, or bfloat16
-    with bfloat16 weights and biases)."""
+    one wrapper call on the current stream, one launch at bfloat16 at the
+    fused widths (``mlp_bf16_fused``; without ``save_residuals`` it
+    allocates and writes nothing of (M, F)), else two (a passes through
+    device memory); returns o, and with ``save_residuals`` (o, a, s), at
+    x's dtype (float32, or bfloat16 with bfloat16 weights and biases)."""
     bf16 = x2.dtype == torch.bfloat16
     m, c, f = _check(x2, w1, (("x", x2, "mc"), ("w1", w1, "fc"),
                               ("b1", b1, "f"), ("w2", w2, "cf"),
                               ("b2", b2, "c")), "MLP", bf16=bf16)
     dev = x2.device
     o = torch.empty_like(x2)
-    a = torch.empty((m, f), dtype=x2.dtype, device=dev)
+    a = None
+    if save_residuals or not (bf16 and mlp_bf16_fused(c, f)):
+        a = torch.empty((m, f), dtype=x2.dtype, device=dev)
     s = torch.empty_like(a) if save_residuals else None
     lib = _lib()
     fwd = lib.vitta_mlp_fwd_bf16 if bf16 else lib.vitta_mlp_fwd
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fwd(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                   b2.data_ptr(), a.data_ptr(),
+                   b2.data_ptr(), None if a is None else a.data_ptr(),
                    None if s is None else s.data_ptr(), o.data_ptr(), m, c, f,
                    stream)
     raise_on(code, "MLP forward kernel")
@@ -612,7 +691,8 @@ def mlp_bwd_cuda(x2, a, s, g, w1, w2, taps=None):
     sums; bfloat16: dhc (M, F) and the partial sums).  ``taps``, a dict, at
     bfloat16 only: the dh product also writes the float32 dh, and
     ``taps["dh"]`` and ``taps["dhc"]`` hold dh and its rounded form as the
-    kernels made them, for a check."""
+    kernels made them, for a check.  At bfloat16 at the fused widths: the
+    row pass, dw1 and dw2, one reduce (``bf16_bwd_launches``)."""
     bf16 = x2.dtype == torch.bfloat16
     m, c, f = _check(x2, w1, (("x", x2, "mc"), ("a", a, "mf"),
                               ("s", s, "mf"), ("grad of o", g, "mc"),

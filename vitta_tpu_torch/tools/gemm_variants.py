@@ -3,6 +3,25 @@ other shapes, on the card.
 
     python3 -m vitta_tpu_torch.tools.gemm_variants          # all three
     python3 -m vitta_tpu_torch.tools.gemm_variants bf16     # the core only
+    python3 -m vitta_tpu_torch.tools.gemm_variants bf16-mlp [--parent DIR
+        ...] [rounds]
+
+``bf16-mlp`` times the bfloat16 MLP without the LayerNorm (rows 8 and 9
+bf16: ``vitta_mlp_{fwd,bwd}_bf16``, csrc/mlp_fused_bf16.cuh) at Video
+Swin-T's stages 1 and 2: the forward with a and s and the backward at 2
+clips, the eval forward without residuals at 1 clip, each by CUDA graphs'
+replays, summed over a pass (two blocks a stage), in ``rounds`` turns (2 by
+default; the order reversed every other round).  It builds csrc/mlp.cu
+from the source, from each entry of ``MLP_BF16_VARIANTS`` (a copy of the
+source's csrc under ``build/vitta_tpu_torch/variants/`` with a few text
+edits; the shipped source has no switch for them) and, with ``--parent``,
+from each ``DIR``'s ``vitta_tpu_torch/csrc`` (an unpacked checkout, e.g.
+``git archive`` under ``build/``), all at once with ``-Xptxas -v``, and
+prints each fused instance's registers and spills.  Every build's outputs
+are checked before it is timed: o, a and s within one bfloat16 ulp of the
+plain values on its own a, the gradients within 2^-7 of the largest value
+of the plain backward's, two backward runs bit-equal; an ablation variant
+(marked so) computes something else and only shows what a part costs.
 
 The bfloat16 core (``csrc/gemm_wgmma_bf16.cuh``, the LayerNorm-MLP's six
 products at bfloat16) fixes its ring's slots (``VITTA_WG_STAGES_128``, 4;
@@ -66,6 +85,7 @@ from vitta_tpu_torch.ops import _build
 from vitta_tpu_torch.ops import cuda_attention as ca
 from vitta_tpu_torch.ops import cuda_bias as cb
 from vitta_tpu_torch.ops import cuda_mlp as cm
+from vitta_tpu_torch.ops._launch import raise_on
 
 # name -> macro values; the first of each is the source's own
 GEMM_VARIANTS = {
@@ -462,6 +482,206 @@ def run_attention(libs, dev, gen, stream):
         del qkv, dense, mask, want, want_ms, am, out, ms
 
 
+# The fused MLP's variants: name -> edits of a copy of the source's csrc,
+# each (text, replacement) found exactly once; the first is the source.
+_GELU = ("gelu_parts_bf16(h0, a0, s0);\n"
+         "        gelu_parts_bf16(h1, a1, s1);")
+# The fused MLP's variants: name -> edits of a copy of the source's csrc,
+# each (text, replacement) found exactly once; the first is the source.
+# An ablation computes something else: it shows what a part costs.
+_GELU = ("gelu_parts_bf16(h0, a0, s0);\n"
+         "        gelu_parts_bf16(h1, a1, s1);")
+MLP_BF16_VARIANTS = {
+    "the source": [],
+    "ablation: no GELU (a = s = h)": [
+        (_GELU, "a0 = s0 = h0;\n        a1 = s1 = h1;"),
+        ("        a0 = h0 * (0.5f * (1.0f + erff(h0 * 0.7071067811865476f)));\n"
+         "        a1 = h1 * (0.5f * (1.0f + erff(h1 * 0.7071067811865476f)));",
+         "        a0 = h0;\n        a1 = h1;")],
+    "ablation: no TMA stores of a, s, dhc": [
+        ("if (t == 0 && x.live && p.residuals) {", "if (false) {"),
+        ("if (t == 0 && x.live) {\n      tma_store(x.mf2, buf, col0, x.m0);",
+         "if (false) {\n      tma_store(x.mf2, buf, col0, x.m0);")],
+    "ablation: no weight gradients": [
+        ("  e = wgmma_grads(g1, &g2, st);\n  if (e != cudaSuccess) return e;\n"
+         "  PartialSums sums;",
+         "  PartialSums sums;")],
+    "ablation: no ordered reduce": [
+        ("gr->plan.splits, (long long)gr->M * gr->N);\n"
+         "  return launch_reduce_sums(sums, st);",
+         "gr->plan.splits, (long long)gr->M * gr->N);\n"
+         "  return cudaSuccess;")],
+}
+# Swin-T's stages 1 and 2: width, tokens a clip, blocks
+MLP_BF16_STAGES = ((96, 25088, 2), (192, 6272, 2))
+
+
+def _edited_csrc(tag: str, edits) -> str:
+    """A copy of the source's csrc with ``edits`` made, each text found
+    exactly once; returns the root that holds vitta_tpu_torch/csrc."""
+    import shutil
+    root = _build.BUILD_DIR / "variants" / f"src_{tag}"
+    csrc = root / "vitta_tpu_torch" / "csrc"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    for text, repl in edits:
+        hits = [f for f in csrc.iterdir() if text in f.read_text()]
+        if len(hits) != 1 or hits[0].read_text().count(text) != 1:
+            raise AssertionError(f"{tag}: {text!r} is not in one place")
+        hits[0].write_text(hits[0].read_text().replace(text, repl))
+    return str(root)
+
+
+def _build_mlp(root: str, tag: str):
+    """(library, ptxas summary of the fused instances) of csrc/mlp.cu under
+    ``root``, or (None, nvcc's error)."""
+    from pathlib import Path
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"libmlp_{tag}.so"
+    src = Path(root) / "vitta_tpu_torch" / "csrc" / "mlp.cu"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                           "-v", "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, f"nvcc failed:\n{proc.stderr[-3000:]}"
+    lines, info = proc.stderr.splitlines(), []
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and "mlp_rows_bf16" in line:
+            name = re.search(r"mlp_rows_bf16ILi(\d+)ELb(\d)E", line)
+            used = " ".join(lines[k + 1:k + 4])
+            regs = re.search(r"Used (\d+) registers", used)
+            spill = re.search(r"(\d+) bytes spill stores", used)
+            kind = "bwd" if name.group(2) == "1" else "fwd"
+            info.append(f"<{name.group(1)}, {kind}>: "
+                        f"{regs.group(1) if regs else '?'} registers at "
+                        f"launch, {spill.group(1) if spill else '?'} bytes "
+                        f"spilled")
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vitta_mlp_fwd_bf16.argtypes = [p] * 8 + [i, i, i, p]
+    lib.vitta_mlp_fwd_bf16.restype = i
+    lib.vitta_mlp_bwd_bf16.argtypes = [p] * 13 + [i, i, i, p]
+    lib.vitta_mlp_bwd_bf16.restype = i
+    lib.vitta_mlp_bwd_bf16_scratch_floats.argtypes = [i, i, i]
+    lib.vitta_mlp_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
+    return lib, "; ".join(info) or "no fused instance"
+
+
+def _mlp_bf16_calls(lib, x, w1, b1, w2, b2, g, a, s):
+    """(forward with residuals, eval forward, backward) of ``lib`` on these
+    tensors on the current stream (a graph's capture's, when captured),
+    each returning its outputs; a library without the fused kernels (an
+    older build) is handed an (M, F) buffer for a always."""
+    m, c = x.shape
+    f = w1.shape[0]
+    dev, bf16 = x.device, torch.bfloat16
+    fused = (hasattr(lib, "vitta_mlp_bf16_rows_plan")
+             and cm.mlp_bf16_fused(c, f))
+    o = torch.empty_like(x)
+    a_out, s_out = torch.empty((m, f), dtype=bf16, device=dev), \
+        torch.empty((m, f), dtype=bf16, device=dev)
+    a_eval = None if fused else a_out
+    new = lambda *shape: torch.empty(shape, dtype=bf16, device=dev)
+    grads = (new(m, c), new(f, c), new(f), new(c, f), new(c))
+    scratch = torch.empty(lib.vitta_mlp_bwd_bf16_scratch_floats(m, c, f),
+                          dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def fwd(res=True):
+        raise_on(lib.vitta_mlp_fwd_bf16(
+            ptr(x), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+            ptr(a_out if res else a_eval), ptr(s_out if res else None),
+            ptr(o), m, c, f, torch.cuda.current_stream().cuda_stream),
+            "forward")
+        return (o, a_out, s_out) if res else o
+
+    def bwd():
+        raise_on(lib.vitta_mlp_bwd_bf16(
+            ptr(x), ptr(a), ptr(s), ptr(g), ptr(w1), ptr(w2),
+            *(ptr(t) for t in grads), ptr(scratch), None, m, c, f,
+            torch.cuda.current_stream().cuda_stream), "backward")
+        return grads
+    return fwd, lambda: fwd(False), bwd
+
+
+def mlp_bf16_main(rounds: int = 2, parents=()) -> int:
+    """Rows 8 and 9 bf16 by every build, in turns (see the module's
+    docstring)."""
+    from pathlib import Path
+    from vitta_tpu_torch.tools.bf16_checks import (assert_bf16_within,
+                                                   mlp_fwd_stages)
+    dev = torch.device("cuda")
+    roots = {name: (_edited_csrc(f"m{k}", edits) if edits
+                    else str(_build.CSRC_DIR.parents[1]))
+             for k, (name, edits) in enumerate(MLP_BF16_VARIANTS.items())}
+    roots.update({f"parent {Path(d).name}": d for d in parents})
+    with ThreadPoolExecutor(max_workers=len(roots)) as pool:
+        built = dict(zip(roots, pool.map(
+            lambda kv: _build_mlp(kv[1], f"b{list(roots).index(kv[0])}"),
+            roots.items())))
+    libs = {}
+    for name, (lib, info) in built.items():
+        print(f"mlp bf16, {name}: {info}", flush=True)
+        if lib is not None:
+            libs[name] = lib
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(torch.bfloat16)
+
+    totals = {name: {"fwd": [0.0] * rounds, "bwd": [0.0] * rounds,
+                     "eval": [0.0] * rounds} for name in libs}
+    for c, tokens, depth in MLP_BF16_STAGES:
+        f = 4 * c
+        w1, b1 = bf(f, c, scale=c ** -0.5), bf(f, scale=0.1)
+        w2, b2 = bf(c, f, scale=f ** -0.5), bf(c, scale=0.1)
+        x, g = bf(2 * tokens, c), bf(2 * tokens, c)
+        a, s_ = cm.mlp_bf16_reference(x, w1, b1, w2, b2, True)[1:]
+        want = cm.mlp_bf16_backward_reference(x, a, s_, g, w1, w2)
+        x1 = x[:tokens]
+        calls, bad = {}, {}
+        for name, lib in libs.items():
+            fwd, _ev, bwd = _mlp_bf16_calls(lib, x, w1, b1, w2, b2, g, a, s_)
+            _fw, ev, _bw = _mlp_bf16_calls(lib, x1, w1, b1, w2, b2, g, a, s_)
+            calls[name] = {"fwd": fwd, "eval": ev, "bwd": bwd}
+            try:
+                got = fwd()
+                for nm, p_, q_ in zip("oas", got, mlp_fwd_stages(
+                        x, w1, b1, w2, b2, got[1])):
+                    assert_bf16_within(f"{name} {nm}", p_, q_)
+                one = [t.clone() for t in bwd()]
+                for nm, p_, q_ in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                      one, want):
+                    scaled(f"{name} {nm}", p_.float(), q_.float(), 2 ** -7)
+                if not all(torch.equal(p_, q_) for p_, q_ in zip(one, bwd())):
+                    raise AssertionError("two backward runs differ")
+                torch.cuda.synchronize()
+            except (AssertionError, RuntimeError) as e:
+                bad[name] = str(e).splitlines()[0][:160]
+        for r in range(rounds):
+            order = list(libs) if r % 2 == 0 else list(libs)[::-1]
+            for name in order:
+                for kind, fn in calls[name].items():
+                    totals[name][kind][r] += depth * graph_ms(fn)
+        for name in libs:
+            note = f" ({bad[name]})" if name in bad else ""
+            print(f"mlp bf16 C={c}: {name}{note}", flush=True)
+        del x, g, a, s_, want, calls, x1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    for name, t in totals.items():
+        print(f"mlp bf16 per Swin-T pass ({card}; device ms by graph "
+              f"replays, in turns): {name}: forward (2 clips, a and s) "
+              + ", ".join(f"{v:.4f}" for v in t["fwd"]) + "; backward "
+              + ", ".join(f"{v:.4f}" for v in t["bwd"])
+              + "; eval forward (1 clip) "
+              + ", ".join(f"{v:.4f}" for v in t["eval"]), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("gemm_variants: no CUDA device", file=sys.stderr)
@@ -473,6 +693,13 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {card}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    if sys.argv[1:2] == ["bf16-mlp"]:
+        args, parents = sys.argv[2:], []
+        while "--parent" in args:
+            at = args.index("--parent")
+            parents.append(args[at + 1])
+            del args[at:at + 2]
+        return mlp_bf16_main(*(int(a) for a in args), parents=parents)
     only_bf16 = sys.argv[1:] == ["bf16"]
     jobs = [("mlp_bf16", f"w{k}", name, macros, "gemm_wgmma_bf16")
             for k, (name, macros) in enumerate(BF16_VARIANTS.items())]
