@@ -144,10 +144,12 @@ result line:
    three outputs, ``relu`` False and True, at every BatchNorm2d shape a
    TANet mean_var step reads (R from 1,568 to 25,088, C from 256 to 2,048)
    and the two BatchNorm1d shapes of a TAM; y, m, v, dx, dscale, dbias, two
-   runs bit-equal; CUDA-event and device times of kernel and plain version
-   summed over one adapt pass.  No one PyTorch call returns y and the
-   statistics, so the library time is none; the composition
-   ``F.batch_norm`` (eval form) + ``torch.var_mean`` is timed beside it.
+   runs and a CUDA graph's replays bit-equal; one launch a call each way,
+   from the library's counts; CUDA-event and device times of kernel and
+   plain version per site beside the bound and summed over one adapt pass.
+   No one PyTorch call returns y and the statistics, so the library time
+   is none; the composition ``F.batch_norm`` (eval form) +
+   ``torch.var_mean`` is timed beside it.
 19. Small slices of the engine's other modes, card against CPU, two steps
    each as phase 5: TANet under BNS (``running_manner`` True and False),
    under cossim (``l1_loss``), with Adam on the norm layers' affine
@@ -174,11 +176,12 @@ result line:
    BatchNorm's y and dx within one bfloat16 ulp, its statistics within
    BN_TOL (variance rtol 1e-4 / atol 1e-5), dscale and dbias within
    BN_BWD_TOL; launches per call from the libraries' counts, of the
-   bfloat16 instances only; two runs bit-equal; a view 2 bytes past a
+   bfloat16 instances only (the BatchNorm's one a call each way); two runs
+   and the BatchNorm's CUDA graph replays bit-equal; a view 2 bytes past a
    16-byte boundary takes each kernel's one-value path.  Device ms per
-   adapt pass beside the bound at bfloat16's bytes, and the plain
-   versions' (and the BatchNorm's ``F.batch_norm`` + ``torch.var_mean``
-   composition at bfloat16).
+   site and per adapt pass beside the bound at bfloat16's bytes, and the
+   plain versions' (and the BatchNorm's ``F.batch_norm`` +
+   ``torch.var_mean`` composition at bfloat16).
 23. TANet at bfloat16 (``compute_dtype="bfloat16"``; float32 masters,
    SGD, losses, EMA and statistics): the small slice of phase 5 card
    against CPU, held to tests/test_torch_bf16_engine.py's bounds, then the
@@ -365,6 +368,7 @@ from vitta_tpu_torch.tools.synthetic import (
 from vitta_tpu_torch.ops._launch import launches_of
 # every LayerNorm kernel site of one Swin-B and one Swin-T forward pass:
 # (tokens per clip, C) -> sites
+from vitta_tpu_torch.tools.bn_variants import BN_SITES
 from vitta_tpu_torch.tools.ln_bias_sites import (SWIN_LN_SITES,
                                                  SWIN_T_LN_SITES)
 from vitta_tpu_torch.tools.tanet_breakdown import (
@@ -381,10 +385,6 @@ FWD_TOL = 1e-5    # tests/test_pallas_tam.py's tolerances
 GRAD_TOL = 2e-4
 N_VIDEOS = 5      # full-slice videos; the first two are warm-up
 TANET_MODE_VIDEOS = 3   # the BNS, cossim and epoch-style streams; one warm-up
-# every BatchNorm2d of layer3 and layer4 on the adapt batch of 2 x 16 frames
-# at 224 x 224, the layers a TANet mean_var step reads: (rows, C) -> sites
-BN_SITES = {(25088, 256): 1, (6272, 256): 11, (6272, 1024): 7,
-            (6272, 512): 1, (1568, 512): 5, (1568, 2048): 4}
 # the two BatchNorm1d shapes of a TAM (layer3's: g_bn (N*C, 2T), l_bn (N, T,
 # C/4)), values only
 BN1D_SHAPES = (((512, 32), "g_bn"), ((2, 16, 64), "l_bn"))
@@ -2020,6 +2020,54 @@ def phase_wgmma_rates(dev):
     return out
 
 
+def bn_stats_one_launch_and_graph(what, x2, scale, bias, mean, var, cots,
+                                  relu=False):
+    """The BatchNorm-statistics kernels' forward and backward on one
+    input: each call one launch, of the input's dtype (the library's own
+    counts), and a CUDA graph of both calls replayed twice giving the eager
+    calls' bits (the tickets are left at 0 by every launch and the graph
+    replays the stream's slot as it is)."""
+    from vitta_tpu_torch.ops.cuda_stats import (bn_stats_bwd_cuda,
+                                                bn_stats_fwd_cuda)
+
+    def run():
+        y, m, v = bn_stats_fwd_cuda(x2, scale, bias, mean, var, 1e-5, relu)
+        return [y, m, v, *bn_stats_bwd_cuda(x2, scale, bias, mean, var, m,
+                                            *cots, 1e-5, relu)]
+    bf16 = x2.dtype == torch.bfloat16
+    for d in ("fwd", "bwd"):
+        names = launches_of(
+            (lambda: bn_stats_fwd_cuda(x2, scale, bias, mean, var, 1e-5,
+                                       relu)) if d == "fwd" else
+            (lambda: bn_stats_bwd_cuda(
+                x2, scale, bias, mean, var, mean, *cots, 1e-5, relu)))
+        if (sum(names.values()) != 1
+                or not all(k.startswith(f"bn_stats_{d}_kernel")
+                           and ("bfloat16" in k) == bf16 for k in names)):
+            raise AssertionError(f"{what} {d}: launches {names}, expected "
+                                 f"one bn_stats_{d}_kernel a call")
+    want = [t.clone() for t in run()]
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "m", "v", "dx", "dscale", "dbias"), got,
+                              want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: a CUDA graph's replay differs "
+                                     f"from the eager call in {name}")
+    del graph
+
+
 def phase_bn_stats_kernels(dev):
     """The BatchNorm-statistics kernels against plain on the card, forward
     and backward with cotangents on y, m and v, ``relu`` False and True, at
@@ -2077,9 +2125,13 @@ def phase_bn_stats_kernels(dev):
                 if not torch.equal(a, b):
                     raise AssertionError(f"{what}: two runs differ in {n}")
             fwd.err, bwd.err = max(fwd.err, e_f), max(bwd.err, e_b)
+            bn_stats_one_launch_and_graph(
+                what, x.reshape(-1, c), scale, bias, mean, var,
+                (cots[0].reshape(-1, c), cots[1], cots[2]), relu)
             if sites == 0 or relu:
                 print(f"{what}: max abs err fwd {e_f:.2e} bwd {e_b:.2e}, two "
-                      "runs bit-equal", flush=True)
+                      "runs and a CUDA graph's replays bit-equal, one launch "
+                      "a call each way", flush=True)
         if sites == 0:
             continue
         x2 = x.reshape(-1, c)
@@ -2113,12 +2165,17 @@ def phase_bn_stats_kernels(dev):
              for k, (fn, grad) in calls.items()}
         _report(f"bn_stats {label} ({sites} sites)", max(e_f, e_b), t)
         n = x.numel()
+        nbytes = {"fwd": (2 * n + 6 * c) * 4, "bwd": (3 * n + 10 * c) * 4}
         fwd.add(sites, ms=t["fwd"][0], plain_ms=t["plain_fwd"][0],
                 device_ms=t["fwd"][1], plain_device_ms=t["plain_fwd"][1],
-                bytes=(2 * n + 6 * c) * 4, flops=6 * n)
+                bytes=nbytes["fwd"], flops=6 * n)
         bwd.add(sites, ms=t["bwd"][0], plain_ms=t["plain_bwd"][0],
                 device_ms=t["bwd"][1], plain_device_ms=t["plain_bwd"][1],
-                bytes=(3 * n + 10 * c) * 4, flops=12 * n)
+                bytes=nbytes["bwd"], flops=12 * n)
+        print("  " + "; ".join(
+            f"{d} device us {fmt(t[d][1] and t[d][1] * 1e3)} against its "
+            f"bound {bound(nbytes[d], 0)[0] * 1e3:.2f} us"
+            for d in ("fwd", "bwd")), flush=True)
         for d in ("fwd", "bwd"):
             comp[d] += sites * t[f"comp_{d}"][0]
             dv = t[f"comp_{d}"][1]
@@ -2172,8 +2229,9 @@ def phase_bf16_kernels(dev):
     bfloat16 ulp (``_bf16_ulps``), its statistics within BN_TOL (variance
     rtol 1e-4 / atol 1e-5) and dscale / dbias within BN_BWD_TOL of their
     largest value.  Launches per call from the libraries' counts (the
-    float32 numbers: 1 and 2 for the TAM, 2 and 2 for the BatchNorm, of
-    the bfloat16 instances); two backward runs bit-equal; a view 2 bytes
+    float32 numbers: 1 and 2 for the TAM, 1 and 1 for the BatchNorm, of
+    the bfloat16 instances); two backward runs bit-equal, and the
+    BatchNorm's CUDA graph replays too; a view 2 bytes
     past a 16-byte boundary takes each kernel's one-value path.  Times per
     adapt pass beside the bound at bfloat16's bytes; returns the four JSON
     rows."""
@@ -2308,8 +2366,10 @@ def phase_bf16_kernels(dev):
             y, m, v = bn_stats_fwd_cuda(x, scale, bias, mean, var, 1e-5, relu)
             names_b = launches_by_kind(lambda: bn_stats_bwd_cuda(
                 x, scale, bias, mean, var, m, g_y, g_m, g_v, 1e-5, relu))
-            if sum(names.values()) != 2 or sum(names_b.values()) != 2:
+            if sum(names.values()) != 1 or sum(names_b.values()) != 1:
                 raise AssertionError(f"{what}: launches {names}, {names_b}")
+            bn_stats_one_launch_and_graph(what, x, scale, bias, mean, var,
+                                          (g_y, g_m, g_v), relu)
             got = bn_stats_bwd_cuda(x, scale, bias, mean, var, m, g_y, g_m,
                                     g_v, 1e-5, relu)
             again = bn_stats_bwd_cuda(x, scale, bias, mean, var, m, g_y, g_m,
@@ -2338,7 +2398,8 @@ def phase_bf16_kernels(dev):
             print(f"{what}: y {n_y} and dx {n_dx} of {x.numel()} values an "
                   f"ulp from the plain version's, statistics max abs err "
                   f"{e_f:.2e}, dscale / dbias {e_b:.2e}; launches {names}, "
-                  f"{names_b}; two runs bit-equal", flush=True)
+                  f"{names_b}; two runs and a CUDA graph's replays "
+                  "bit-equal", flush=True)
         w_in = [t.clone().requires_grad_() for t in (x, scale, bias)]
 
         def composition(xi, wi, bi):
@@ -2365,14 +2426,17 @@ def phase_bf16_kernels(dev):
         _report(f"bn_stats bf16 {r}x{c} ({sites} sites)",
                 max(bn["fwd"].err, bn["bwd"].err), tm)
         nel = x.numel()
-        bn["fwd"].add(sites, ms=tm["fwd"][0], plain_ms=tm["plain_fwd"][0],
-                      device_ms=tm["fwd"][1],
-                      plain_device_ms=tm["plain_fwd"][1],
-                      bytes=2 * nel * 2 + 6 * c * 4, flops=6 * nel)
-        bn["bwd"].add(sites, ms=tm["bwd"][0], plain_ms=tm["plain_bwd"][0],
-                      device_ms=tm["bwd"][1],
-                      plain_device_ms=tm["plain_bwd"][1],
-                      bytes=3 * nel * 2 + 10 * c * 4, flops=12 * nel)
+        nbytes = {"fwd": 2 * nel * 2 + 6 * c * 4,
+                  "bwd": 3 * nel * 2 + 10 * c * 4}
+        for d, flops in (("fwd", 6 * nel), ("bwd", 12 * nel)):
+            bn[d].add(sites, ms=tm[d][0], plain_ms=tm[f"plain_{d}"][0],
+                      device_ms=tm[d][1],
+                      plain_device_ms=tm[f"plain_{d}"][1],
+                      bytes=nbytes[d], flops=flops)
+        print("  " + "; ".join(
+            f"{d} device us {fmt(tm[d][1] and tm[d][1] * 1e3)} against its "
+            f"bound {bound(nbytes[d], 0)[0] * 1e3:.2f} us at bfloat16's bytes"
+            for d in ("fwd", "bwd")), flush=True)
         for d in ("fwd", "bwd"):
             dv = tm[f"comp_{d}"][1]
             comp[d] = (None if dv is None or comp[d] is None
@@ -2389,8 +2453,8 @@ def phase_bf16_kernels(dev):
         xs, scale, bias, mean, var, 1e-5, False)),
         **launches_by_kind(lambda: bn_stats_bwd_cuda(
             xs, scale, bias, mean, var, mean, gs, None, None, 1e-5, False))}
-    if ("bn_stats_fwd_kernel<1, false, __nv_bfloat16>" not in names
-            or "bn_stats_bwd_kernel<1, false, __nv_bfloat16>" not in names):
+    if names != {"bn_stats_fwd_kernel<1, false, __nv_bfloat16>": 1,
+                 "bn_stats_bwd_kernel<1, false, __nv_bfloat16>": 1}:
         raise AssertionError(f"bn_stats bf16 unaligned view: launches {names}")
     y, m, v = bn_stats_fwd_cuda(xs, scale, bias, mean, var, 1e-5, False)
     want_y, (want_m, _wv) = fused_bn_relu_stats_reference(

@@ -1443,7 +1443,10 @@ def test_bn_stats_bf16_kernels_match_plain(cuda_device, lead, c, relu):
         x2, *ins[1:5], 1e-5, relu))
     want_name = (f"bn_stats_fwd_kernel<{8 if wide else 1}, "
                  f"{str(relu).lower()}, __nv_bfloat16>")
-    assert names == {want_name: 1, "bn_stats_finish_kernel": 1}, names
+    assert names == {want_name: 1}, names     # one launch a call
+    names = launches_of(lambda: cuda_stats.bn_stats_bwd_cuda(
+        x2, *ins[1:5], m, ins[5].reshape(-1, c), ins[6], ins[7], 1e-5, relu))
+    assert names == {want_name.replace("fwd", "bwd"): 1}, names
 
 
 @pytest.mark.cuda
@@ -1458,7 +1461,7 @@ def test_bn_stats_bf16_takes_unaligned_views(cuda_device):
     assert xs.data_ptr() % 16 == 2
     names = launches_of(lambda: cuda_stats.bn_stats_fwd_cuda(
         xs, scale, bias, mean, var, 1e-5, False))
-    assert "bn_stats_fwd_kernel<1, false, __nv_bfloat16>" in names, names
+    assert names == {"bn_stats_fwd_kernel<1, false, __nv_bfloat16>": 1}, names
     y, m, v = cuda_stats.bn_stats_fwd_cuda(xs, scale, bias, mean, var, 1e-5,
                                            False)
     want_y, (want_m, want_v) = cuda_stats.fused_bn_relu_stats_reference(
@@ -1468,7 +1471,7 @@ def test_bn_stats_bf16_takes_unaligned_views(cuda_device):
     torch.testing.assert_close(v, want_v, rtol=1e-4, atol=1e-5)
     names = launches_of(lambda: cuda_stats.bn_stats_bwd_cuda(
         xs, scale, bias, mean, var, m, g_y, g_m, g_v, 1e-5, False))
-    assert "bn_stats_bwd_kernel<1, false, __nv_bfloat16>" in names, names
+    assert names == {"bn_stats_bwd_kernel<1, false, __nv_bfloat16>": 1}, names
     got = cuda_stats.bn_stats_bwd_cuda(xs, scale, bias, mean, var, m, g_y,
                                        g_m, g_v, 1e-5, False)
     want = cuda_stats.fused_bn_relu_stats_backward_reference(
@@ -1476,6 +1479,68 @@ def test_bn_stats_bf16_takes_unaligned_views(cuda_device):
     _within_one_bf16_ulp("dx", got[0], want[0])
     for g, w, name in zip(got[1:], want[1:], ("dscale", "dbias")):
         _assert_grad(name, g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=str)
+@pytest.mark.parametrize("rows,c", [(25088, 2048), (1, 5)], ids=str)
+def test_bn_stats_repeats_and_graph_replays_are_bit_equal(cuda_device, rows,
+                                                          c, dtype):
+    """Three calls in a row, then a CUDA graph of the forward and backward
+    replayed twice, then an eager call again: the same bits each time, so
+    every launch left the tickets it drew at 0 (many chunks and column
+    tiles; a single block)."""
+    x, scale, bias, mean, var, g_y, g_m, g_v = _bn_inputs(
+        cuda_device, (rows,), c, seed=5)
+    x, g_y = x.to(dtype), g_y.to(dtype)
+
+    def run():
+        y, m, v = cuda_stats.bn_stats_fwd_cuda(x, scale, bias, mean, var,
+                                               1e-5, False)
+        return [y, m, v, *cuda_stats.bn_stats_bwd_cuda(
+            x, scale, bias, mean, var, m, g_y, g_m, g_v, 1e-5, False)]
+
+    def assert_equal(got, want):
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "m", "v", "dx", "dscale", "dbias"), got,
+                              want):
+            assert torch.equal(a, b), name
+
+    first = run()
+    for _ in range(2):
+        assert_equal(run(), first)
+    side = torch.cuda.Stream(cuda_device)    # warm-up before a capture
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        assert_equal(run(), first)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        assert_equal(captured, first)
+    assert_equal(run(), first)
+
+
+@pytest.mark.cuda
+def test_bn_stats_plan_is_the_mirror(cuda_device):
+    """The kernels' own plan (csrc/bn_stats.cu) against
+    ``cuda_stats.bn_plan`` at the clusters the card holds, at the sites of
+    a TANet step, the TAM's BatchNorm1d and odd sizes, for each instance."""
+    shapes = [(25088, 256), (6272, 256), (6272, 1024), (6272, 512),
+              (1568, 512), (1568, 2048), (512, 32), (32, 64), (1, 5),
+              (37, 30), (200, 33), (25088, 2048)]
+    for rows, c in shapes:
+        for dtype, wide in ((torch.float32, 4), (BF16, 8)):
+            for v in (1, wide):
+                for bwd in (False, True):
+                    own = cuda_stats.bn_plan_cuda(rows, c, v, dtype, bwd)
+                    resident, sms = own.pop("resident"), own.pop("sms")
+                    assert resident >= 1 and sms >= 1
+                    assert own == cuda_stats.bn_plan(rows, c, v, resident,
+                                                     sms), \
+                        (rows, c, v, dtype, bwd)
 
 
 @pytest.mark.cuda

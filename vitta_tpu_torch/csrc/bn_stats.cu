@@ -27,33 +27,108 @@
 // pallas_stats.py:54-57.)
 //
 // What bounds it: bytes.  A dozen operations per element against one read of
-// x and one write of y (backward: x and g_y read, dx written).  The design:
-// threads run along C, so a warp reads neighbouring addresses of one row, 16
-// bytes a thread where C is a multiple of 4 (of 8 at bfloat16; one element a
-// thread where not, or where a view starts off a 16-byte boundary); a block
-// owns a chunk of rows and
-// a tile of columns, keeps each column's sums in registers while it writes y
-// (or dx), and writes one partial per (chunk, column).  The TPU kernel adds
-// into one scratch block that its sequential grid revisits; a CUDA grid has
-// no order, so a second launch adds the partials in a fixed order
-// (reduce.cuh) and no float atomic is used: two runs are bit-equal.  The TPU
-// kernel's row tile (a divisor of R, a multiple of 8) has no counterpart: any
-// R and any C >= 1 are taken.
+// x and one write of y (backward: x and g_y read, dx written).  At the
+// sizes a TANet step gives it (1568-25088 rows, 256-2048 channels, 1-6 MB
+// of x at bfloat16) a call moves its bytes in 1-4 us, so what decides its
+// time is how soon the card is full of loads and how short the tail is.
+// The design, one launch a call:
+// - threads run along C, so a warp reads neighbouring addresses of one row,
+//   16 bytes a thread where C is a multiple of 4 (of 8 at bfloat16; one
+//   element a thread where not, or where a view starts off a 16-byte
+//   boundary); a block of 8 warps owns a chunk of rows and a tile of
+//   columns and keeps each column's sums in registers; the grid is one
+//   wave of at most two blocks an SM (bn_plan);
+// - each thread issues the loads of its first rows, then the block stages
+//   the tile's parameters in shared memory (a column a thread, one
+//   coalesced load of each), and from then on a thread issues the loads of
+//   its next kBnDepth* rows (8 apart) before it works on the ones it has;
+//   the backward reads its seven parameters back from shared memory for
+//   each batch of rows, so that its registers hold the next batch instead;
+// - the TPU kernel adds into one scratch block that its sequential grid
+//   revisits; a CUDA grid has no order, so the sums go up in a fixed order:
+//   a thread's rows in row order, the block's 8 warps in order, the blocks
+//   of a cluster (up to 8 along the rows) in rank order at rank 0, into
+//   whose shared memory the others store their sums with st.async, rank 0
+//   writing one partial, then the tile's partials in chunk order by the
+//   block that draws the tile's last ticket (an integer atomic; no float
+//   atomic), loading kBnSumAhead of them at once.  Two runs are bit-equal
+//   whichever block draws it.  That block resets its ticket to 0, so a
+//   ticket is 0 between launches: the tickets are this library's own
+//   zero-initialised device array, a slot of them per stream (the wrapper
+//   hands out the slots), which CUDA graphs capture and replay as they are.
+// tools/bn_variants.py builds copies with other constants and times them
+// in turns with another checkout's kernels.
+// The TPU kernel's row tile (a divisor of R, a multiple of 8) has no
+// counterpart: any R and any C >= 1 are taken.
 
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <initializer_list>
 
-#include "reduce.cuh"
+#include "launches.cuh"
 
 namespace vitta {
 
-constexpr int kBnLanes = 32;      // threads along C
-constexpr int kBnWarps = 8;       // rows in flight per block
-constexpr int kBnChunk = 128;     // rows per block
+constexpr int kBnLanes = 32;       // threads along C
+constexpr int kBnWarps = 8;        // row groups: the block's warps
+constexpr int kBnThreads = kBnLanes * kBnWarps;
+constexpr int kBnDepthFwd = 4;     // rows whose loads a thread issues at once
+constexpr int kBnDepthFwd8 = 2;    // (8 bfloat16 values a row, in the forward;
+constexpr int kBnDepthBwd = 2;     // the backward loads x and g_y of each)
+constexpr int kBnBlocksPerSm = 2;  // blocks an SM holds (caps registers),
+                                   // and the grid aims at no more
+constexpr int kBnMinChunk = 32;    // fewest rows a block takes
+constexpr int kBnMaxCluster = 8;   // blocks of a cluster, along the rows
+constexpr int kBnSumAhead = 8;     // partials the last block loads at once
+constexpr int kBnSlots = 64;       // streams of a device, one slot each
+constexpr int kBnSlotTiles = 2048; // column tiles a call may have
 
-inline long long bn_chunks(long long rows) {
-  return (rows + kBnChunk - 1) / kBnChunk;
+// The tickets: a slot of kBnSlotTiles per stream, each 0 between launches
+// (zero when the library is loaded, reset by the block that draws a tile's
+// last ticket).
+__device__ unsigned int g_bn_tickets[kBnSlots * kBnSlotTiles];
+
+inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// How a call cuts (rows, c) at V columns a thread: grid (chunks, tiles),
+// clusters of csize blocks along the rows, chunk rows a block.  All blocks
+// fit in one wave, shared evenly by the tiles: at most `resident` clusters
+// of kBnMaxCluster blocks of the kernel (what the card holds at once,
+// BnKernel::resident) and at most kBnBlocksPerSm blocks an SM of `sms`.
+// The cluster is the largest (up to kBnMaxCluster) whose multiples leave
+// at most an eighth of a tile's share of blocks unused, and no larger than
+// the rows allow; each block takes at least kBnMinChunk rows; chunks is a
+// multiple of csize (the last blocks may have no rows).
+// ops/cuda_stats.py:bn_plan mirrors it.
+struct BnPlan {
+  int tiles, csize;
+  long long chunk, chunks;
+};
+
+inline BnPlan bn_plan(long long rows, int c, int v, int resident, int sms) {
+  BnPlan p;
+  p.tiles = (int)cdiv(c, kBnLanes * v);
+  const long long by_sm = (long long)kBnBlocksPerSm * sms;
+  const long long wave = (long long)resident * kBnMaxCluster < by_sm
+                             ? (long long)resident * kBnMaxCluster
+                             : by_sm;
+  const long long share = wave / p.tiles > 1 ? wave / p.tiles : 1;
+  p.csize = kBnMaxCluster;
+  while (p.csize > 1 && share / p.csize * p.csize * 8 < 7 * share)
+    p.csize /= 2;
+  const long long blocks = share / p.csize * p.csize;
+  p.chunk = cdiv(cdiv(rows, blocks), kBnWarps) * kBnWarps;
+  if (p.chunk < kBnMinChunk) p.chunk = kBnMinChunk;
+  const long long n = cdiv(rows, p.chunk);
+  while (p.csize > n) p.csize /= 2;
+  p.chunks = cdiv(n, p.csize) * p.csize;
+  return p;
+}
+
+// Floats of the partials: (chunks / csize, 2, c).
+inline long long bn_partial_floats(const BnPlan& p, int c) {
+  return p.chunks / p.csize * 2 * (long long)c;
 }
 
 using bf16 = __nv_bfloat16;
@@ -116,108 +191,293 @@ __device__ __forceinline__ float round_to(float v, const bf16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Adds the block's kBnWarps per-row-group sums of V columns in the order of
-// the groups and writes them to out[0..V) (warp 0 only).
+// V floats to and from shared memory, 16 bytes at a time where V > 1.
 template <int V>
-__device__ __forceinline__ void block_col_sum(
-    float (*part)[kBnLanes * V + 1], const float (&s)[V], float* out,
-    bool active) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
+__device__ __forceinline__ void put_row(float* p, const float (&in)[V]) {
+  if constexpr (V == 1) {
+    *p = in[0];
+  } else {
 #pragma unroll
-  for (int j = 0; j < V; ++j) part[ty][tx * V + j] = s[j];
-  __syncthreads();
-  if (ty == 0 && active) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float t = 0.f;
-#pragma unroll
-      for (int w = 0; w < kBnWarps; ++w) t += part[w][tx * V + j];
-      out[j] = t;
-    }
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<float4*>(p + j) =
+          make_float4(in[j], in[j + 1], in[j + 2], in[j + 3]);
   }
-  __syncthreads();
 }
 
-// grid (chunks, column tiles), block (32, 8).  partial (chunks, 2, c): the
-// chunk's sum of y, then of y^2.
+template <int V>
+__device__ __forceinline__ void get_row(const float* p, float (&out)[V]) {
+  if constexpr (V == 1) {
+    out[0] = *p;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + j);
+      out[j] = t.x; out[j + 1] = t.y; out[j + 2] = t.z; out[j + 3] = t.w;
+    }
+  }
+}
+
+// D rows of V values, kBnWarps rows apart from row r, all loads issued
+// before any is used; rows from r1 on are not read.
+template <int D, int V, class E>
+__device__ __forceinline__ void load_rows(const E* __restrict__ x,
+                                          float (&v)[D][V], long long r,
+                                          long long r1, int c, int col) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    if (r + d * kBnWarps < r1)
+      load_vec<V>(x + (r + d * kBnWarps) * c + col, v[d]);
+}
+
+template <int D, int V>
+__device__ __forceinline__ void copy_rows(const float (&from)[D][V],
+                                          float (&to)[D][V]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int j = 0; j < V; ++j) to[d][j] = from[d][j];
+}
+
+// Clusters: the blocks of one arrive at a barrier when they start; rank 0
+// waits on an mbarrier for the others' sums, which they store into its
+// shared memory with st.async (each completes its bytes on the mbarrier),
+// so no block waits for its own stores to land.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+template <int V, int NP>
+struct BnShared {
+  float params[NP][kBnLanes * V];             // the tile's, a column each
+  float warps[kBnWarps][2][kBnLanes * V];     // each warp's two sums
+  float2 ranks[kBnMaxCluster][kBnLanes * V];  // each block's, at rank 0
+  unsigned long long bar;                     // rank 0: the others' landed
+  int last;                                   // drew the last ticket
+};
+
+// Every thread of a block calls it first: rank 0 of a cluster makes its
+// mbarrier (one arrival, its own, and the others' bytes), then the
+// cluster's blocks arrive at the cluster's barrier.
+template <class S>
+__device__ __forceinline__ void bn_start(S& sh, int csize) {
+  if (csize == 1) return;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    if (cluster_rank() == 0)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_addr(&sh.bar))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_arrive_relaxed();
+}
+
+// The block's two sums of V columns a thread, a and b, over all rows: over
+// the warps, the cluster's blocks and the tile's clusters, each in order,
+// as the header says.  Writes out[col] and out[c + col] for the tile's
+// columns: the two sums or, with STATS, m = a / R and v = b / R - m^2 from
+// compensated sums over the clusters (E[y^2] - m^2 cancels where |m| is far
+// above the spread).  Every thread of the block calls it.  A block's
+// ticket is one thread's acquire-release atomic after the block's barrier,
+// as a grid barrier of cooperative groups orders a block's writes.
+template <int V, bool STATS, class S>
+__device__ __forceinline__ void bn_sums(S& sh, const float (&a)[V],
+                                        const float (&b)[V],
+                                        float* __restrict__ partial,
+                                        unsigned* __restrict__ tickets,
+                                        float* __restrict__ out, int c,
+                                        int csize, float inv_rows) {
+  constexpr int kCols = kBnLanes * V;
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * kBnLanes + tx;
+  put_row<V>(&sh.warps[ty][0][tx * V], a);
+  put_row<V>(&sh.warps[ty][1][tx * V], b);
+  __syncthreads();
+  float sa = 0.f, sb = 0.f;
+  if (t < kCols) {
+#pragma unroll
+    for (int w = 0; w < kBnWarps; ++w) {
+      sa += sh.warps[w][0][t];
+      sb += sh.warps[w][1][t];
+    }
+  }
+  if (csize > 1) {
+    const unsigned rank = cluster_rank();
+    const uint32_t bar = smem_addr(&sh.bar);
+    cluster_wait();                  // every block started: the mbarrier is
+    if (rank != 0) {                 // made
+      if (t < kCols) {
+        uint32_t at = smem_addr(&sh.ranks[rank][t]), bar0;
+        asm volatile("mapa.shared::cluster.u32 %0, %0, 0;" : "+r"(at));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
+                     : "=r"(bar0) : "r"(bar));
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+            "[%0], {%1, %2}, [%3];" ::"r"(at), "f"(sa), "f"(sb), "r"(bar0)
+            : "memory");
+      }
+      return;
+    }
+    if (t < kCols) sh.ranks[0][t] = make_float2(sa, sb);
+    if (t == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                       "r"(bar), "r"((unsigned)((csize - 1) * kCols * 8))
+                   : "memory");
+    asm volatile(
+        "{\n.reg .pred p;\nBN_WAIT_%=:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+        "@!p bra BN_WAIT_%=;\n}" ::"r"(bar)
+        : "memory");
+    __syncthreads();                 // rank 0's own sums too
+    sa = 0.f;
+    sb = 0.f;
+    if (t < kCols)
+      for (int k = 0; k < csize; ++k) {
+        const float2 u = sh.ranks[k][t];
+        sa += u.x;
+        sb += u.y;
+      }
+  }
+  const long long parts = gridDim.x / csize;
+  const long long stride = 2LL * c;
+  const int col = blockIdx.y * kCols + t;
+  const bool active = t < kCols && col < c;
+  if (active) {
+    float* p = partial + blockIdx.x / csize * stride + col;
+    p[0] = sa;
+    p[c] = sb;
+  }
+  __syncthreads();
+  if (t == 0) {                      // releases the block's partials and, to
+    unsigned drawn;                  // the last, acquires all the others'
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
+                 : "=r"(drawn) : "l"(tickets + blockIdx.y) : "memory");
+    sh.last = drawn == (unsigned)(parts - 1);
+  }
+  __syncthreads();
+  if (!sh.last) return;
+  if (active) {
+    // the partials straight from L2, kBnSumAhead of each sum in flight
+    const float* pa = partial + col;
+    float s = 0.f, ss = 0.f, cs = 0.f, css = 0.f;
+#pragma unroll 1
+    for (long long p0 = 0; p0 < parts; p0 += kBnSumAhead) {
+      float va[kBnSumAhead], vb[kBnSumAhead];
+#pragma unroll
+      for (int u = 0; u < kBnSumAhead; ++u) {
+        const bool ok = p0 + u < parts;
+        va[u] = ok ? __ldcg(pa + (p0 + u) * stride) : 0.f;
+        vb[u] = ok ? __ldcg(pa + (p0 + u) * stride + c) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBnSumAhead; ++u) {
+        if (p0 + u >= parts) break;
+        if (STATS) {           // compensated (Kahan)
+          const float x1 = va[u] - cs, t1 = s + x1;
+          cs = (t1 - s) - x1;
+          s = t1;
+          const float x2 = vb[u] - css, t2 = ss + x2;
+          css = (t2 - ss) - x2;
+          ss = t2;
+        } else {
+          s += va[u];
+          ss += vb[u];
+        }
+      }
+    }
+    if (STATS) {
+      const float m = s * inv_rows;
+      out[col] = m;
+      out[c + col] = ss * inv_rows - m * m;
+    } else {
+      out[col] = s;
+      out[c + col] = ss;
+    }
+  }
+  if (t == 0) tickets[blockIdx.y] = 0u;
+}
+
+// grid (chunks, tiles), block (32, 8), clusters of csize along x.  stats
+// (2, c): m, then v.  partial (chunks / csize, 2, c): each cluster's sums
+// of y and of y^2.
 template <int V, bool RELU, class E>
-__global__ void __launch_bounds__(kBnLanes * kBnWarps)
+__global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
 bn_stats_fwd_kernel(const E* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
                     const float* __restrict__ mean,
                     const float* __restrict__ var, E* __restrict__ y,
-                    float* __restrict__ partial, long long rows, int c,
-                    float eps) {
-  __shared__ float part[kBnWarps][kBnLanes * V + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = (blockIdx.y * kBnLanes + tx) * V;
+                    float* __restrict__ stats, float* __restrict__ partial,
+                    int slot, long long rows, long long chunk, int c,
+                    int csize, float eps) {
+  constexpr int kCols = kBnLanes * V;
+  constexpr int D = V == 8 ? kBnDepthFwd8 : kBnDepthFwd;
+  __shared__ __align__(16) BnShared<V, 2> sh;
+  bn_start(sh, csize);
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * kBnLanes + tx;
+  const int col = blockIdx.y * kCols + tx * V;
   const bool active = col < c;      // c is a multiple of V
-  const long long r0 = (long long)blockIdx.x * kBnChunk;
-  const long long r1 = r0 + kBnChunk < rows ? r0 + kBnChunk : rows;
+  const long long r0 = (long long)blockIdx.x * chunk;
+  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+  const long long rb = r0 + ty;
+  float v[D][V];
+  if (active) load_rows<D, V>(x, v, rb, r1, c, col);
+  // while the first rows load: the tile's parameters, a column a thread
+  const int pc = blockIdx.y * kCols + t;
+  if (t < kCols && pc < c) {
+    const float i = rsqrtf(var[pc] + eps) * scale[pc];
+    sh.params[0][t] = i;
+    sh.params[1][t] = bias[pc] - mean[pc] * i;
+  }
+  __syncthreads();
   float inv[V], shift[V], s[V], ss[V];
+  get_row<V>(&sh.params[0][tx * V], inv);
+  get_row<V>(&sh.params[1][tx * V], shift);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     s[j] = 0.f;
     ss[j] = 0.f;
-    if (active) {
-      inv[j] = rsqrtf(var[col + j] + eps) * scale[col + j];
-      shift[j] = bias[col + j] - mean[col + j] * inv[j];
-    }
   }
   if (active) {
-    for (long long r = r0 + ty; r < r1; r += kBnWarps) {
-      float v[V];
-      load_vec<V>(x + r * c + col, v);
+    for (long long r = rb; r < r1; r += kBnWarps * D) {
+      float next[D][V];             // the next rows load while these go
+      load_rows<D, V>(x, next, r + kBnWarps * D, r1, c, col);
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        float t = fmaf(v[j], inv[j], shift[j]);
-        if (RELU) t = fmaxf(t, 0.f);
-        t = round_to(t, y);          // the statistics are of the stored y
-        v[j] = t;
-        s[j] += t;
-        ss[j] = fmaf(t, t, ss[j]);
+      for (int d = 0; d < D; ++d) {
+        if (r + d * kBnWarps >= r1) break;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float u = fmaf(v[d][j], inv[j], shift[j]);
+          if (RELU) u = fmaxf(u, 0.f);
+          u = round_to(u, y);        // the statistics are of the stored y
+          v[d][j] = u;
+          s[j] += u;
+          ss[j] = fmaf(u, u, ss[j]);
+        }
+        store_vec<V>(y + (r + d * kBnWarps) * c + col, v[d]);
       }
-      store_vec<V>(y + r * c + col, v);
+      copy_rows<D, V>(next, v);
     }
   }
-  float* out = partial + (long long)blockIdx.x * 2 * c + col;
-  block_col_sum<V>(part, s, out, active);
-  block_col_sum<V>(part, ss, out + c, active);
+  bn_sums<V, true>(sh, s, ss, partial,
+                   g_bn_tickets + (long long)slot * kBnSlotTiles, stats, c,
+                   csize, 1.f / (float)rows);
 }
 
-// stats (2, c): m, then v = E[y^2] - m^2, from the chunks' partials added
-// in the order of the chunks (nvcc does not reassociate float32 sums unless
-// asked to, and the build does not ask).
-__global__ void __launch_bounds__(kReduceThreads)
-bn_stats_finish_kernel(const float* __restrict__ partial,
-                       float* __restrict__ stats, long long chunks, int c,
-                       float inv_rows) {
-  const int col = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (col >= c) return;
-  // compensated (Kahan) sums: E[y^2] - m^2 cancels where |m| is far above
-  // the spread, and a plain running sum over hundreds of chunks would add
-  // several float32 roundings of m^2 to v
-  float s = 0.f, ss = 0.f, cs = 0.f, css = 0.f;
-  for (long long p = 0; p < chunks; ++p) {
-    const float a = partial[p * 2 * c + col] - cs;
-    const float ts = s + a;
-    cs = (ts - s) - a;
-    s = ts;
-    const float b = partial[p * 2 * c + c + col] - css;
-    const float tss = ss + b;
-    css = (tss - ss) - b;
-    ss = tss;
-  }
-  const float m = s * inv_rows;
-  stats[col] = m;
-  stats[c + col] = ss * inv_rows - m * m;
-}
-
-// grid (chunks, column tiles), block (32, 8).  partial (chunks, 2, c): the
-// chunk's sum of G * xhat, then of G.  g_y, g_m, g_v may be null.
+// grid (chunks, tiles), block (32, 8), clusters of csize along x.  dsb
+// (2, c): dscale, then dbias.  partial (chunks / csize, 2, c): each
+// cluster's sums of G * xhat and of G.  g_y, g_m, g_v may be null.
 template <int V, bool RELU, class E>
-__global__ void __launch_bounds__(kBnLanes * kBnWarps)
+__global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
 bn_stats_bwd_kernel(const E* __restrict__ x,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias,
@@ -227,63 +487,87 @@ bn_stats_bwd_kernel(const E* __restrict__ x,
                     const E* __restrict__ g_y,
                     const float* __restrict__ g_m,
                     const float* __restrict__ g_v, E* __restrict__ dx,
-                    float* __restrict__ partial, long long rows, int c,
-                    float eps) {
-  __shared__ float part[kBnWarps][kBnLanes * V + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = (blockIdx.y * kBnLanes + tx) * V;
+                    float* __restrict__ dsb, float* __restrict__ partial,
+                    int slot, long long rows, long long chunk, int c,
+                    int csize, float eps) {
+  constexpr int kCols = kBnLanes * V, D = kBnDepthBwd;
+  __shared__ __align__(16) BnShared<V, 7> sh;
+  bn_start(sh, csize);
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * kBnLanes + tx;
+  const int col = blockIdx.y * kCols + tx * V;
   const bool active = col < c;
-  const long long r0 = (long long)blockIdx.x * kBnChunk;
-  const long long r1 = r0 + kBnChunk < rows ? r0 + kBnChunk : rows;
+  const long long r0 = (long long)blockIdx.x * chunk;
+  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+  const long long rb = r0 + ty;
   const float inv_rows = 1.f / (float)rows;
-  float rstd[V], inv[V], shift[V], mu[V], mstat[V], gm[V], gv2[V];
+  float v[D][V], g[D][V];
+  if (active) {
+    load_rows<D, V>(x, v, rb, r1, c, col);
+    if (g_y) load_rows<D, V>(g_y, g, rb, r1, c, col);
+  }
+  // while the first rows load: the tile's parameters, a column a thread
+  const int pc = blockIdx.y * kCols + t;
+  if (t < kCols && pc < c) {
+    const float rstd = rsqrtf(var[pc] + eps), inv = rstd * scale[pc];
+    sh.params[0][t] = rstd;
+    sh.params[1][t] = inv;
+    sh.params[2][t] = mean[pc];
+    sh.params[3][t] = bias[pc] - mean[pc] * inv;
+    sh.params[4][t] = m[pc];
+    sh.params[5][t] = g_m ? g_m[pc] * inv_rows : 0.f;
+    sh.params[6][t] = g_v ? 2.f * g_v[pc] * inv_rows : 0.f;
+  }
+  __syncthreads();
   float ds[V], db[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     ds[j] = 0.f;
     db[j] = 0.f;
-    if (active) {
-      rstd[j] = rsqrtf(var[col + j] + eps);
-      inv[j] = rstd[j] * scale[col + j];
-      mu[j] = mean[col + j];
-      shift[j] = bias[col + j] - mu[j] * inv[j];
-      mstat[j] = m[col + j];
-      gm[j] = g_m ? g_m[col + j] * inv_rows : 0.f;
-      gv2[j] = g_v ? 2.f * g_v[col + j] * inv_rows : 0.f;
-    }
   }
+  // the parameters are read from shared memory for each batch of rows,
+  // four columns at a time, so that the registers hold a second batch of
+  // rows in flight instead
+  constexpr int kGroup = V < 4 ? V : 4;
   if (active) {
-    for (long long r = r0 + ty; r < r1; r += kBnWarps) {
-      float v[V], g[V];
-      load_vec<V>(x + r * c + col, v);
-      if (g_y) {
-        load_vec<V>(g_y + r * c + col, g);
-      } else {
+    for (long long r = rb; r < r1; r += kBnWarps * D) {
+      float next_v[D][V], next_g[D][V];   // the next rows load meanwhile
+      load_rows<D, V>(x, next_v, r + kBnWarps * D, r1, c, col);
+      if (g_y) load_rows<D, V>(g_y, next_g, r + kBnWarps * D, r1, c, col);
+      asm volatile("" ::: "memory");     // read the parameters again
 #pragma unroll
-        for (int j = 0; j < V; ++j) g[j] = 0.f;
+      for (int h = 0; h < V; h += kGroup) {
+        float pr[7][kGroup];               // rstd, inv, mean, shift, m,
+#pragma unroll                             // g_m / R, 2 g_v / R
+        for (int k = 0; k < 7; ++k)
+          get_row<kGroup>(&sh.params[k][tx * V + h], pr[k]);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          if (r + d * kBnWarps >= r1) break;
+#pragma unroll
+          for (int jj = 0; jj < kGroup; ++jj) {
+            const int j = h + jj;
+            const float u = fmaf(v[d][j], pr[1][jj], pr[3][jj]);
+            const float yv = round_to(RELU ? fmaxf(u, 0.f) : u, x);
+            float G = (g_y ? g[d][j] : 0.f) + pr[5][jj] +
+                      pr[6][jj] * (yv - pr[4][jj]);
+            if (RELU && !(u > 0.f)) G = 0.f;
+            ds[j] = fmaf(G, (v[d][j] - pr[2][jj]) * pr[0][jj], ds[j]);
+            db[j] += G;
+            g[d][j] = G * pr[1][jj];
+          }
+        }
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float t = fmaf(v[j], inv[j], shift[j]);
-        const float yv = round_to(RELU ? fmaxf(t, 0.f) : t, x);
-        float G = g[j] + gm[j] + gv2[j] * (yv - mstat[j]);
-        if (RELU && !(t > 0.f)) G = 0.f;
-        ds[j] = fmaf(G, (v[j] - mu[j]) * rstd[j], ds[j]);
-        db[j] += G;
-        g[j] = G * inv[j];
-      }
-      store_vec<V>(dx + r * c + col, g);
+      for (int d = 0; d < D; ++d)
+        if (r + d * kBnWarps < r1)
+          store_vec<V>(dx + (r + d * kBnWarps) * c + col, g[d]);
+      copy_rows<D, V>(next_v, v);
+      copy_rows<D, V>(next_g, g);
     }
   }
-  float* out = partial + (long long)blockIdx.x * 2 * c + col;
-  block_col_sum<V>(part, ds, out, active);
-  block_col_sum<V>(part, db, out + c, active);
-}
-
-template <int V>
-inline dim3 bn_grid(long long rows, int c) {
-  const int per_block = kBnLanes * V;
-  return dim3((unsigned)bn_chunks(rows), (unsigned)((c + per_block - 1) / per_block));
+  bn_sums<V, false>(sh, ds, db, partial,
+                    g_bn_tickets + (long long)slot * kBnSlotTiles, dsb, c,
+                    csize, 0.f);
 }
 
 // 16-byte loads need c a multiple of W (4 floats, 8 bfloat16 values) and
@@ -296,10 +580,11 @@ inline bool bn_vectorized(int c, int w, const void* a, const void* b,
   return c % w == 0 && (bits & 15ULL) == 0;
 }
 
-inline bool bn_shape_ok(long long rows, int c) {
-  // grid.x holds the chunks (at most 2^31 - 1), grid.y the column tiles
-  return rows > 0 && c > 0 && bn_chunks(rows) <= 2147483647LL &&
-         (c + kBnLanes - 1) / kBnLanes <= 65535;
+// What a call takes: rows and c at least 1, at most kBnSlotTiles column
+// tiles (grid.y), a slot of the tickets.
+inline bool bn_shape_ok(long long rows, int c, int v, int slot) {
+  return rows > 0 && c > 0 && cdiv(c, kBnLanes * v) <= kBnSlotTiles &&
+         slot >= 0 && slot < kBnSlots;
 }
 
 // Values a 16-byte unit of E holds.
@@ -317,112 +602,208 @@ inline std::string kernel_name(const char* base, int v, bool relu,
   return s.insert(s.size() - 1, ", __nv_bfloat16");
 }
 
-// The forward: the pass over x, then the ordered sum of its partials.
+// The cluster-dimension attribute of a launch of clusters of `csize`.
+inline cudaLaunchAttribute cluster_attr(int csize) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)csize;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
+// Clusters of kBnMaxCluster blocks of `kernel` the card holds at once (at
+// least 1; kBnBlocksPerSm blocks an SM where the card cannot say).
+inline int query_resident(const void* kernel) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBnMaxCluster);
+  cfg.blockDim = dim3(kBnLanes, kBnWarps);
+  cudaLaunchAttribute attr = cluster_attr(kBnMaxCluster);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = kBnBlocksPerSm * sm_count() / kBnMaxCluster;
+  }
+  return n > 1 ? n : 1;
+}
+
+// One instance of the kernels: its function, the clusters the card holds
+// (read once), its plan at (rows, c).
+template <int V, bool RELU, class E, bool BWD>
+struct BnKernel {
+  static const void* fn() {
+    return BWD ? (const void*)bn_stats_bwd_kernel<V, RELU, E>
+               : (const void*)bn_stats_fwd_kernel<V, RELU, E>;
+  }
+  static int resident() {
+    static const int n = query_resident(fn());
+    return n;
+  }
+  static BnPlan plan(long long rows, int c) {
+    return bn_plan(rows, c, V, resident(), sm_count());
+  }
+};
+
+// One launch of `kernel` on the plan's grid and clusters.
+template <class... P, class... A>
+cudaError_t bn_launch(void (*kernel)(P...), const BnPlan& p, cudaStream_t st,
+                      A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.chunks, (unsigned)p.tiles);
+  cfg.blockDim = dim3(kBnLanes, kBnWarps);
+  cfg.stream = st;
+  cudaLaunchAttribute attr = cluster_attr(p.csize);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int V, bool RELU, class E>
+cudaError_t fwd_launch(const E* x, const float* scale, const float* bias,
+                       const float* mean, const float* var, E* y,
+                       float* stats, float* scratch, long long rows, int c,
+                       float eps, int slot, cudaStream_t st) {
+  const BnPlan p = BnKernel<V, RELU, E, false>::plan(rows, c);
+  return bn_launch(bn_stats_fwd_kernel<V, RELU, E>, p, st, x, scale, bias,
+                   mean, var, y, stats, scratch, slot, rows, p.chunk, c,
+                   p.csize, eps);
+}
+
+template <int V, bool RELU, class E>
+cudaError_t bwd_launch(const E* x, const float* scale, const float* bias,
+                       const float* mean, const float* var, const float* m,
+                       const E* g_y, const float* g_m, const float* g_v,
+                       E* dx, float* dsb, float* scratch, long long rows,
+                       int c, float eps, int slot, cudaStream_t st) {
+  const BnPlan p = BnKernel<V, RELU, E, true>::plan(rows, c);
+  return bn_launch(bn_stats_bwd_kernel<V, RELU, E>, p, st, x, scale, bias,
+                   mean, var, m, g_y, g_m, g_v, dx, dsb, scratch, slot, rows,
+                   p.chunk, c, p.csize, eps);
+}
+
+// The forward: one launch.
 template <class E>
 int bn_fwd(const E* x, const float* scale, const float* bias,
            const float* mean, const float* var, E* y, float* stats,
            float* scratch, long long rows, int c, float eps, int relu,
-           cudaStream_t st) {
-  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
+           int slot, cudaStream_t st) {
   constexpr int W = kVec<E>;
-  const dim3 block(kBnLanes, kBnWarps);
-  const bool vec = bn_vectorized(c, W, x, y, nullptr);
-  if (vec) {
-    const dim3 grid = bn_grid<W>(rows, c);
-    if (relu)
-      bn_stats_fwd_kernel<W, true, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-    else
-      bn_stats_fwd_kernel<W, false, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-  } else {
-    const dim3 grid = bn_grid<1>(rows, c);
-    if (relu)
-      bn_stats_fwd_kernel<1, true, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-    else
-      bn_stats_fwd_kernel<1, false, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, y, scratch, rows, c, eps);
-  }
-  count_launch(
-      kernel_name("bn_stats_fwd_kernel", vec ? W : 1, relu != 0, x).c_str());
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bn_stats_finish_kernel<<<(c + kReduceThreads - 1) / kReduceThreads,
-                           kReduceThreads, 0, st>>>(
-      scratch, stats, bn_chunks(rows), c, 1.f / (float)rows);
-  count_launch("bn_stats_finish_kernel");
-  return (int)cudaGetLastError();
+  const int v = bn_vectorized(c, W, x, y, nullptr) ? W : 1;
+  if (!bn_shape_ok(rows, c, v, slot)) return (int)cudaErrorInvalidValue;
+  const auto launch = v == W ? (relu ? fwd_launch<W, true, E>
+                                     : fwd_launch<W, false, E>)
+                             : (relu ? fwd_launch<1, true, E>
+                                     : fwd_launch<1, false, E>);
+  const cudaError_t e = launch(x, scale, bias, mean, var, y, stats, scratch,
+                               rows, c, eps, slot, st);
+  count_launch(kernel_name("bn_stats_fwd_kernel", v, relu != 0, x).c_str());
+  return (int)e;
 }
 
-// The backward: the pass over x and g_y, then one ordered sum of the
-// partials, which are (chunks, 2 c), for dscale and dbias.
+// The backward: one launch.
 template <class E>
 int bn_bwd(const E* x, const float* scale, const float* bias,
            const float* mean, const float* var, const float* m, const E* g_y,
            const float* g_m, const float* g_v, E* dx, float* dsb,
            float* scratch, long long rows, int c, float eps, int relu,
-           cudaStream_t st) {
-  if (!bn_shape_ok(rows, c)) return (int)cudaErrorInvalidValue;
+           int slot, cudaStream_t st) {
   constexpr int W = kVec<E>;
-  const dim3 block(kBnLanes, kBnWarps);
-  const bool vec = bn_vectorized(c, W, x, g_y, dx);
-  if (vec) {
-    const dim3 grid = bn_grid<W>(rows, c);
-    if (relu)
-      bn_stats_bwd_kernel<W, true, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-    else
-      bn_stats_bwd_kernel<W, false, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-  } else {
-    const dim3 grid = bn_grid<1>(rows, c);
-    if (relu)
-      bn_stats_bwd_kernel<1, true, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-    else
-      bn_stats_bwd_kernel<1, false, E><<<grid, block, 0, st>>>(
-          x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, scratch, rows, c,
-          eps);
-  }
-  count_launch(
-      kernel_name("bn_stats_bwd_kernel", vec ? W : 1, relu != 0, x).c_str());
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_reduce_partials(scratch, dsb, (int)bn_chunks(rows),
-                                     2LL * c, st);
+  const int v = bn_vectorized(c, W, x, g_y, dx) ? W : 1;
+  if (!bn_shape_ok(rows, c, v, slot)) return (int)cudaErrorInvalidValue;
+  const auto launch = v == W ? (relu ? bwd_launch<W, true, E>
+                                     : bwd_launch<W, false, E>)
+                             : (relu ? bwd_launch<1, true, E>
+                                     : bwd_launch<1, false, E>);
+  const cudaError_t e = launch(x, scale, bias, mean, var, m, g_y, g_m, g_v,
+                               dx, dsb, scratch, rows, c, eps, slot, st);
+  count_launch(kernel_name("bn_stats_bwd_kernel", v, relu != 0, x).c_str());
+  return (int)e;
+}
+
+// The plan of the instance at v columns a thread (relu false; relu true has
+// the same registers) and the clusters it was made for.
+template <class E, bool BWD>
+BnPlan bn_plan_of(long long rows, int c, int v, int* resident) {
+  using K = BnKernel<kVec<E>, false, E, BWD>;
+  using K1 = BnKernel<1, false, E, BWD>;
+  *resident = v == 1 ? K1::resident() : K::resident();
+  return v == 1 ? K1::plan(rows, c) : K::plan(rows, c);
+}
+
+// Floats of scratch a call of either direction at type E needs at (rows,
+// c), whichever units its pointers allow.
+template <class E>
+long long bn_scratch_floats(long long rows, int c) {
+  long long most = 0;
+  for (const BnPlan& p :
+       {BnKernel<1, false, E, false>::plan(rows, c),
+        BnKernel<1, true, E, false>::plan(rows, c),
+        BnKernel<kVec<E>, false, E, false>::plan(rows, c),
+        BnKernel<kVec<E>, true, E, false>::plan(rows, c),
+        BnKernel<1, false, E, true>::plan(rows, c),
+        BnKernel<1, true, E, true>::plan(rows, c),
+        BnKernel<kVec<E>, false, E, true>::plan(rows, c),
+        BnKernel<kVec<E>, true, E, true>::plan(rows, c)})
+    if (bn_partial_floats(p, c) > most) most = bn_partial_floats(p, c);
+  return most;
 }
 
 }  // namespace vitta
 
 extern "C" {
 
-// Floats of scratch either call needs: the partials, (chunks, 2, c).
-long long vitta_bn_stats_scratch_floats(long long rows, int c) {
-  return vitta::bn_chunks(rows) * 2 * (long long)c;
+// Floats of scratch a call of either direction needs at (rows, c) with x
+// float32 (bf16 0) or bfloat16 (bf16 1): the partials.
+long long vitta_bn_stats_scratch_floats(long long rows, int c, int bf16) {
+  return bf16 ? vitta::bn_scratch_floats<vitta::bf16>(rows, c)
+              : vitta::bn_scratch_floats<float>(rows, c);
 }
 
-// y (rows, c); stats (2, c) = m then v.  Two launches.
+// The plan of a call at (rows, c), v columns a thread, x float32 (bf16 0)
+// or bfloat16 (bf16 1), forward (bwd 0) or backward: out = tiles, csize,
+// chunk, chunks, and what it was made for: the clusters of 8 blocks of the
+// kernel the card holds at once, the card's SMs.
+void vitta_bn_stats_plan(long long rows, int c, int v, int bf16, int bwd,
+                         long long* out) {
+  int resident = 0;
+  const vitta::BnPlan p =
+      bf16 ? (bwd ? vitta::bn_plan_of<vitta::bf16, true>(rows, c, v, &resident)
+                  : vitta::bn_plan_of<vitta::bf16, false>(rows, c, v, &resident))
+           : (bwd ? vitta::bn_plan_of<float, true>(rows, c, v, &resident)
+                  : vitta::bn_plan_of<float, false>(rows, c, v, &resident));
+  out[0] = p.tiles;
+  out[1] = p.csize;
+  out[2] = p.chunk;
+  out[3] = p.chunks;
+  out[4] = resident;
+  out[5] = vitta::sm_count();
+}
+
+// Streams a device may run the kernels on at once, each with its own
+// slot of tickets in 0 .. slots - 1.
+int vitta_bn_stats_slots() { return vitta::kBnSlots; }
+
+// y (rows, c); stats (2, c) = m then v.  One launch.
 int vitta_bn_stats_fwd(const float* x, const float* scale, const float* bias,
                        const float* mean, const float* var, float* y,
                        float* stats, float* scratch, long long rows, int c,
-                       float eps, int relu, void* stream) {
+                       float eps, int relu, int slot, void* stream) {
   return vitta::bn_fwd(x, scale, bias, mean, var, y, stats, scratch, rows, c,
-                       eps, relu, (cudaStream_t)stream);
+                       eps, relu, slot, (cudaStream_t)stream);
 }
 
 // dx (rows, c); dsb (2, c) = dscale then dbias.  g_y, g_m, g_v may be null.
-// Two launches.
+// One launch.
 int vitta_bn_stats_bwd(const float* x, const float* scale, const float* bias,
                        const float* mean, const float* var, const float* m,
                        const float* g_y, const float* g_m, const float* g_v,
                        float* dx, float* dsb, float* scratch, long long rows,
-                       int c, float eps, int relu, void* stream) {
+                       int c, float eps, int relu, int slot, void* stream) {
   return vitta::bn_bwd(x, scale, bias, mean, var, m, g_y, g_m, g_v, dx, dsb,
-                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
+                       scratch, rows, c, eps, relu, slot,
+                       (cudaStream_t)stream);
 }
 
 // The same at bfloat16: x, y, g_y and dx bfloat16, everything else float32.
@@ -430,10 +811,11 @@ int vitta_bn_stats_fwd_bf16(const void* x, const float* scale,
                             const float* bias, const float* mean,
                             const float* var, void* y, float* stats,
                             float* scratch, long long rows, int c, float eps,
-                            int relu, void* stream) {
+                            int relu, int slot, void* stream) {
   return vitta::bn_fwd(reinterpret_cast<const vitta::bf16*>(x), scale, bias,
                        mean, var, reinterpret_cast<vitta::bf16*>(y), stats,
-                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
+                       scratch, rows, c, eps, relu, slot,
+                       (cudaStream_t)stream);
 }
 
 int vitta_bn_stats_bwd_bf16(const void* x, const float* scale,
@@ -441,11 +823,12 @@ int vitta_bn_stats_bwd_bf16(const void* x, const float* scale,
                             const float* var, const float* m, const void* g_y,
                             const float* g_m, const float* g_v, void* dx,
                             float* dsb, float* scratch, long long rows, int c,
-                            float eps, int relu, void* stream) {
+                            float eps, int relu, int slot, void* stream) {
   return vitta::bn_bwd(reinterpret_cast<const vitta::bf16*>(x), scale, bias,
                        mean, var, m, reinterpret_cast<const vitta::bf16*>(g_y),
                        g_m, g_v, reinterpret_cast<vitta::bf16*>(dx), dsb,
-                       scratch, rows, c, eps, relu, (cudaStream_t)stream);
+                       scratch, rows, c, eps, relu, slot,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

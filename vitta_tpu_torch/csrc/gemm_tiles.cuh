@@ -356,18 +356,6 @@ gemm_tiles(const float* __restrict__ A, const float* __restrict__ B,
                                              blockIdx.y, blockIdx.z, smem);
 }
 
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || count <= 0)
-      count = 132;
-  }
-  return count;
-}
-
 // One launch of gemm_tiles with its ring of slices in dynamic shared
 // memory (above the 48 KB default: the opt-in, and the largest carve-out,
 // which leaves room for as many blocks as the registers allow).

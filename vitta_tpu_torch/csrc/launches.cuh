@@ -6,9 +6,12 @@
 // long card processes).  Each csrc/<name>.cu is built into a library of its
 // own from that one translation unit, so each library keeps its own counts,
 // for as long as the process lives; vitta_launch_counts hands them to
-// ops/_launch.py, which adds them up over the loaded libraries.
+// ops/_launch.py, which adds them up over the loaded libraries.  Also the
+// card's SM count, which the launch plans read (sm_count).
 
 #pragma once
+#include <cuda_runtime.h>
+
 #include <mutex>
 #include <string>
 #include <utility>
@@ -53,6 +56,19 @@ std::string template_name(const char* base, T... args) {
   const char* sep = "<";
   ((s += sep, s += template_arg(args), sep = ", "), ...);
   return s + ">";
+}
+
+// The current device's SMs, read once (132 where it cannot be read).
+inline int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || count <= 0)
+      count = 132;
+  }
+  return count;
 }
 
 }  // namespace

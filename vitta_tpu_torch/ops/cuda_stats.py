@@ -30,11 +30,18 @@ uses the rounded y in the v term, and rounds dx to bfloat16 once.  On the
 CPU ``BnReluStatsPlain`` runs the plain forward and the plain backward
 (``fused_bn_relu_stats_backward_reference``) at either dtype: at bfloat16
 torch's autograd of the plain forward would round G as JAX does.
+
+Each kernel is one launch a call: its blocks' column sums go up through
+their cluster and a ticket drawn per column tile, and the block that draws
+a tile's last ticket adds the tile's partials in a fixed order and resets
+the ticket to 0 (csrc/bn_stats.cu).  ``bn_plan`` mirrors how the kernels
+cut (R, C), so that the CPU tests can follow their order of summation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -46,6 +53,38 @@ counters = LaunchCounters("fwd", "bwd")
 
 # the types the kernels take for x, y, the cotangent of y and dx
 ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/bn_stats.cu's plan: threads along C, warps (row groups) a block,
+# fewest rows a block, most blocks of a cluster, most blocks an SM
+LANES, WARPS, MIN_CHUNK, MAX_CLUSTER, BLOCKS_PER_SM = 32, 8, 32, 8, 2
+PLAN_KEYS = ("tiles", "csize", "chunk", "chunks")
+
+
+def bn_plan(rows: int, c: int, v: int, resident: int, sms: int) -> dict:
+    """How the kernels cut (rows, C) at ``v`` columns a thread (8 at
+    bfloat16 or 4 at float32 where C and the pointers allow 16-byte units,
+    else 1), as ``bn_plan`` in csrc/bn_stats.cu: a grid of ``chunks`` x
+    ``tiles`` blocks of 32 x 8 threads, block (i, j) taking rows [i chunk,
+    (i + 1) chunk) of columns [32 v j, 32 v (j + 1)), clusters of ``csize``
+    blocks along the rows.  All blocks fit in one wave, shared evenly by
+    the tiles: at most ``resident`` clusters of 8 (what the card holds of
+    the kernel at once) and two blocks an SM of ``sms``.  The cluster is
+    the largest whose multiples leave at most an eighth of a tile's share
+    unused, and no larger than the rows allow; each block takes at least
+    32 rows."""
+    cdiv = lambda a, b: -(-a // b)
+    tiles = cdiv(c, LANES * v)
+    wave = min(resident * MAX_CLUSTER, BLOCKS_PER_SM * sms)
+    share = max(wave // tiles, 1)
+    csize = MAX_CLUSTER
+    while csize > 1 and share // csize * csize * 8 < 7 * share:
+        csize //= 2
+    chunk = max(cdiv(cdiv(rows, share // csize * csize), WARPS) * WARPS,
+                MIN_CHUNK)
+    n = cdiv(rows, chunk)
+    while csize > n:
+        csize //= 2
+    return dict(zip(PLAN_KEYS, (tiles, csize, chunk, cdiv(n, csize) * csize)))
 
 
 def fused_bn_relu_stats_reference(x, scale, bias, mean, var, *,
@@ -91,25 +130,84 @@ def fused_bn_relu_stats_backward_reference(x, scale, bias, mean, var, m,
 _LIB = None
 
 
+def bind(lib):
+    """Declare the C interface of a build of csrc/bn_stats.cu on ``lib``."""
+    p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float)
+    lib.vitta_bn_stats_scratch_floats.argtypes = [ll, i, i]
+    lib.vitta_bn_stats_scratch_floats.restype = ll
+    lib.vitta_bn_stats_plan.argtypes = [ll, i, i, i, i, p]
+    lib.vitta_bn_stats_plan.restype = None
+    lib.vitta_bn_stats_slots.argtypes = []
+    lib.vitta_bn_stats_slots.restype = i
+    for name, ptrs in (("fwd", 8), ("bwd", 12)):
+        for entry in (f"vitta_bn_stats_{name}", f"vitta_bn_stats_{name}_bf16"):
+            getattr(lib, entry).argtypes = [p] * ptrs + [ll, i, f, i, i, p]
+            getattr(lib, entry).restype = i
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from vitta_tpu_torch.ops._build import load_library
-        lib = load_library("bn_stats")
-        p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_float)
-        lib.vitta_bn_stats_scratch_floats.argtypes = [ll, i]
-        lib.vitta_bn_stats_scratch_floats.restype = ll
-        lib.vitta_bn_stats_fwd.argtypes = [p] * 8 + [ll, i, f, i, p]
-        lib.vitta_bn_stats_fwd.restype = i
-        lib.vitta_bn_stats_bwd.argtypes = [p] * 12 + [ll, i, f, i, p]
-        lib.vitta_bn_stats_bwd.restype = i
-        lib.vitta_bn_stats_fwd_bf16.argtypes = [p] * 8 + [ll, i, f, i, p]
-        lib.vitta_bn_stats_fwd_bf16.restype = i
-        lib.vitta_bn_stats_bwd_bf16.argtypes = [p] * 12 + [ll, i, f, i, p]
-        lib.vitta_bn_stats_bwd_bf16.restype = i
-        _LIB = lib
+        _LIB = bind(load_library("bn_stats"))
     return _LIB
+
+
+def bn_plan_cuda(rows: int, c: int, v: int, dtype, bwd: bool) -> dict:
+    """The plan of the kernel instance at (rows, C), ``v`` columns a thread,
+    x of ``dtype``, forward or backward, from csrc/bn_stats.cu, with what
+    it was made for: the clusters of the kernel the card holds at once
+    (``resident``) and the card's SMs (``sms``)."""
+    out = (ctypes.c_longlong * (len(PLAN_KEYS) + 2))()
+    _lib().vitta_bn_stats_plan(rows, c, v, int(dtype == torch.bfloat16),
+                               int(bwd), out)
+    return dict(zip(PLAN_KEYS + ("resident", "sms"), out))
+
+
+class TicketSlots:
+    """The slot of the kernels' tickets each (device, stream) uses.
+
+    The tickets are the library's own device array (one copy per device),
+    zero when it is loaded; a launch draws one per block of a column tile
+    and leaves every one of them 0 again.  Two streams may run the kernels
+    at once, so each (device index, stream handle) gets a slot of its own,
+    handed out in the order they are first seen, at most
+    ``vitta_bn_stats_slots()`` per device; beyond that a call raises.  The
+    slot is a launch argument and the array never moves, so a CUDA graph
+    captures and replays it as it is: nothing is allocated or zeroed a
+    call.  Replaying one graph on two streams at once would share a slot,
+    as it shares the graph's scratch."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots = {}
+
+    def __call__(self, device: torch.device, stream: int, most: int) -> int:
+        key = (device.index, stream)
+        with self._lock:
+            slot = self._slots.get(key)
+            if slot is None:
+                slot = sum(d == device.index for d, _s in self._slots)
+                if slot >= most:
+                    raise RuntimeError(
+                        f"the BatchNorm-statistics kernels run on at most "
+                        f"{most} streams of a device; {device} has used them")
+                self._slots[key] = slot
+        return slot
+
+
+ticket_slot = TicketSlots()
+
+
+def _launch_args(x2):
+    """(library, slot, stream) of a call on ``x2``'s device and the current
+    stream."""
+    lib = _lib()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    return lib, ticket_slot(x2.device, stream, lib.vitta_bn_stats_slots()), \
+        stream
 
 
 def _check_inputs(x2, scale, bias, mean, var):
@@ -128,23 +226,25 @@ def _check_inputs(x2, scale, bias, mean, var):
 
 def bn_stats_fwd_cuda(x2, scale, bias, mean, var, eps: float = 1e-5,
                       relu: bool = True):
-    """Forward kernels on ``x2`` (R, C): one wrapper call, two launches on
-    the current stream (the pass over x, then the ordered sum of its
-    partials); returns (y, m, v), allocated here with the scratch."""
+    """Forward kernel on ``x2`` (R, C): one launch on the current stream,
+    which also adds its partials up; returns (y, m, v), allocated here with
+    the partials' scratch.  The tickets' slot is the stream's
+    (``TicketSlots``)."""
     rows, c = _check_inputs(x2, scale, bias, mean, var)
-    lib = _lib()
+    lib, slot, stream = _launch_args(x2)
     y = torch.empty_like(x2)
     stats = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    scratch = torch.empty(lib.vitta_bn_stats_scratch_floats(rows, c),
-                          dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    scratch = torch.empty(
+        lib.vitta_bn_stats_scratch_floats(rows, c,
+                                          int(x2.dtype == torch.bfloat16)),
+        dtype=torch.float32, device=x2.device)
     entry = (lib.vitta_bn_stats_fwd if x2.dtype == torch.float32
              else lib.vitta_bn_stats_fwd_bf16)
     with torch.cuda.device(x2.device):
         code = entry(
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             var.data_ptr(), y.data_ptr(), stats.data_ptr(),
-            scratch.data_ptr(), rows, c, float(eps), int(relu), stream)
+            scratch.data_ptr(), rows, c, float(eps), int(relu), slot, stream)
     raise_on(code, "BatchNorm-statistics forward kernel")
     counters.fwd += 1
     return y, stats[0], stats[1]
@@ -152,12 +252,12 @@ def bn_stats_fwd_cuda(x2, scale, bias, mean, var, eps: float = 1e-5,
 
 def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
                       g_v=None, eps: float = 1e-5, relu: bool = True):
-    """Backward kernels on ``x2`` (R, C), the forward's mean ``m`` (C,) and
+    """Backward kernel on ``x2`` (R, C), the forward's mean ``m`` (C,) and
     the cotangents ``g_y`` (R, C), ``g_m`` (C,), ``g_v`` (C,), each of which
-    may be None: one wrapper call, two launches; returns (dx, dscale,
-    dbias).  A strided ``g_y`` raises and is never copied; the (C,)
-    cotangents are laid out contiguously where they are not (the gradient
-    of a sum over channels is one expanded scalar)."""
+    may be None: one launch; returns (dx, dscale, dbias).  A strided
+    ``g_y`` raises and is never copied; the (C,) cotangents are laid out
+    contiguously where they are not (the gradient of a sum over channels is
+    one expanded scalar)."""
     rows, c = _check_inputs(x2, scale, bias, mean, var)
     check_tensor("BatchNorm-statistics", "m", m, (c,), x2.device)
     g_m = None if g_m is None else g_m.contiguous()
@@ -169,13 +269,14 @@ def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
         if ten is not None:
             check_tensor("BatchNorm-statistics", name, ten, shape, x2.device,
                          dtypes=(dtype,))
-    lib = _lib()
+    lib, slot, stream = _launch_args(x2)
     dx = torch.empty_like(x2)
     dsb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    scratch = torch.empty(lib.vitta_bn_stats_scratch_floats(rows, c),
-                          dtype=torch.float32, device=x2.device)
+    scratch = torch.empty(
+        lib.vitta_bn_stats_scratch_floats(rows, c,
+                                          int(x2.dtype == torch.bfloat16)),
+        dtype=torch.float32, device=x2.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
     entry = (lib.vitta_bn_stats_bwd if x2.dtype == torch.float32
              else lib.vitta_bn_stats_bwd_bf16)
     with torch.cuda.device(x2.device):
@@ -183,7 +284,7 @@ def bn_stats_bwd_cuda(x2, scale, bias, mean, var, m, g_y=None, g_m=None,
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             var.data_ptr(), m.data_ptr(), ptr(g_y), ptr(g_m), ptr(g_v),
             dx.data_ptr(), dsb.data_ptr(), scratch.data_ptr(), rows, c,
-            float(eps), int(relu), stream)
+            float(eps), int(relu), slot, stream)
     raise_on(code, "BatchNorm-statistics backward kernel")
     counters.bwd += 1
     return dx, dsb[0], dsb[1]
