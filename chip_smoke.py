@@ -176,8 +176,10 @@ result line:
    BatchNorm's y and dx within one bfloat16 ulp, its statistics within
    BN_TOL (variance rtol 1e-4 / atol 1e-5), dscale and dbias within
    BN_BWD_TOL; launches per call from the libraries' counts, of the
-   bfloat16 instances only (the BatchNorm's one a call each way); two runs
-   and the BatchNorm's CUDA graph replays bit-equal; a view 2 bytes past a
+   bfloat16 instances only (one a call each way: the TAM backward's
+   ``tam_bwd_bf16x8_kernel`` adds its blocks' rows itself, its plan the
+   mirror's ``bwd_plan_bf16``); two runs, a call on another stream and
+   CUDA graph replays of each backward bit-equal; a view 2 bytes past a
    16-byte boundary takes each kernel's one-value path.  Device ms per
    site and per adapt pass beside the bound at bfloat16's bytes, and the
    plain versions' (and the BatchNorm's ``F.batch_norm`` +
@@ -189,7 +191,8 @@ result line:
    idle share, busy by class of kernel, peak memory, per video 32 TAM
    forward and 16 backward launches and 29 + 29 BatchNorm-statistics
    launches, every one of them a bfloat16 kernel by the libraries' own
-   counts (so no plain version ran) and none a float32 one.
+   counts (so no plain version ran) and none a float32 one; the TAM
+   backward 16 launches a video, one a call (32 at float32).
 24. float32 against bfloat16 trajectories on the card: the same float32
    masters, source statistics and 40 seeded uint8 videos through
    ``adapt_eval_step`` at each dtype; prints the quantities of
@@ -212,7 +215,11 @@ result line:
    and those intermediates against their plain values; end to end the
    attention's out and dqkv at most 1e-4 of the values beyond one ulp, those
    within 2^-7 of the absolute products through e and dl); two backward
-   runs bit-equal; launches per call, of bfloat16 instances only; a
+   runs bit-equal; launches per call, of bfloat16 instances only (the
+   LayerNorm backward one ``ln_bwd_bf16x8`` launch a call, its plan the
+   mirror's ``ln_bwd_bf16_plan``, repeats, another stream and CUDA graph
+   replays bit-equal; also at every Swin-T site, with its device ms per
+   Swin-T pass); a
    LayerNorm view 2 bytes past a 16-byte boundary on the one-value path.
    The attention's forward on the compact bias gives the dense bias's row
    maxima and e bit for bit, its row sums within ATTN_TOL and out within one
@@ -240,8 +247,10 @@ result line:
    statistics): ``tta_stream`` over 6 videos, per video the launches of
    phase 11 but the bias expansion and collapse (the attention takes the
    compact bias), every LayerNorm, LayerNorm-MLP and attention launch a
-   bfloat16 kernel by the libraries' counts; ms/video, peak memory and a
-   profiled step: host, device busy, idle share, busy by class of kernel.
+   bfloat16 kernel by the libraries' counts, the standalone LayerNorm
+   backward one ``ln_bwd_bf16x8`` launch a call (29 a video, was 58);
+   ms/video, peak memory and a profiled step: host, device busy, idle
+   share, busy by class of kernel.
 28. float32 against bfloat16 Swin-B trajectories over 40 videos, as phase
    24: the quantities of benchmarks/bf16_gate.py (swin), held to
    GATE_BOUNDS.
@@ -2218,6 +2227,41 @@ def _bf16_name(name: str) -> bool:
     return "bfloat16" in name or "bf16" in name
 
 
+def one_launch_and_graph(what, run, kernel):
+    """``run`` (one call of a kernel's wrapper) makes one launch, of
+    ``kernel`` (the library's own counts); three calls, one on another
+    stream, and two replays of a CUDA graph of it give the first call's
+    bits (every launch leaves the tickets it drew at 0, and the graph
+    replays the stream's slot as it is)."""
+    names = launches_of(run)
+    if names != {kernel: 1}:
+        raise AssertionError(f"{what}: launches {names}, expected {kernel} "
+                             "once")
+    want = [t.clone() for t in run()]
+
+    def same(got, how):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what}: {how} differs from the first call")
+    for _ in range(2):
+        same(run(), "a repeat")
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = run()
+    torch.cuda.current_stream().wait_stream(side)
+    same(got, "a call on another stream")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    for _ in range(2):
+        graph.replay()
+        same(got, "a CUDA graph's replay")
+    del graph
+
+
 def phase_bf16_kernels(dev):
     """The TAM and BatchNorm-statistics kernels at bfloat16 against their
     plain versions (rows 1, 2 and 7 in the bfloat16 TANet): every TAM site
@@ -2228,10 +2272,11 @@ def phase_bf16_kernels(dev):
     dattn and dkernel within GRAD_TOL; the BatchNorm's y and dx within one
     bfloat16 ulp (``_bf16_ulps``), its statistics within BN_TOL (variance
     rtol 1e-4 / atol 1e-5) and dscale / dbias within BN_BWD_TOL of their
-    largest value.  Launches per call from the libraries' counts (the
-    float32 numbers: 1 and 2 for the TAM, 1 and 1 for the BatchNorm, of
-    the bfloat16 instances); two backward runs bit-equal, and the
-    BatchNorm's CUDA graph replays too; a view 2 bytes
+    largest value.  Launches per call from the libraries' counts (1 and 1
+    for the TAM: the backward's tam_bwd_bf16x8_kernel adds its blocks'
+    rows itself; 1 and 1 for the BatchNorm); the TAM backward's plan the
+    mirror's (``bwd_plan_bf16``); two backward runs bit-equal, and the
+    CUDA graph replays of each backward too; a view 2 bytes
     past a 16-byte boundary takes each kernel's one-value path.  Times per
     adapt pass beside the bound at bfloat16's bytes; returns the four JSON
     rows."""
@@ -2242,8 +2287,9 @@ def phase_bf16_kernels(dev):
         fused_bn_relu_stats_backward_reference,
         fused_bn_relu_stats_reference)
     from vitta_tpu_torch.ops.cuda_tam import (
-        tam_bwd_cuda, tam_dynamic_conv_backward_reference,
-        tam_dynamic_conv_reference, tam_fwd_cuda)
+        bwd_plan_bf16, bwd_plan_bf16_cuda, tam_bwd_cuda,
+        tam_dynamic_conv_backward_reference, tam_dynamic_conv_reference,
+        tam_fwd_cuda)
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.randn(*shape, device=dev, generator=gen)
@@ -2274,11 +2320,15 @@ def phase_bf16_kernels(dev):
             what = f"tam bf16 {(n, t, h, w, c)}"
             fwd_names = launches_by_kind(lambda: tam_fwd_cuda(x, a, k))
             bwd_names = launches_by_kind(lambda: tam_bwd_cuda(g, x, a, k))
-            if (sum(fwd_names.values()) != 1 or sum(bwd_names.values()) != 2
-                    or not any("tam_bwd_kernel" in k_ and _bf16_name(k_)
-                               for k_ in bwd_names)):
+            if (sum(fwd_names.values()) != 1
+                    or bwd_names != {"tam_bwd_bf16x8_kernel": 1}):
                 raise AssertionError(f"{what}: launches {fwd_names}, "
                                      f"{bwd_names}")
+            plan = bwd_plan_bf16_cuda(n, t, h * w, c)
+            if plan != {**bwd_plan_bf16(n, t, h * w, c, plan["sms"]),
+                        "sms": plan["sms"]}:
+                raise AssertionError(f"{what}: the kernel's plan {plan} is "
+                                     "not bwd_plan_bf16's")
             out = tam_fwd_cuda(x, a, k)
             got = tam_bwd_cuda(g, x, a, k)
             again = tam_bwd_cuda(g, x, a, k)
@@ -2304,6 +2354,13 @@ def phase_bf16_kernels(dev):
                       f" dkernel max abs err {e_b:.2e}; launches "
                       f"{fwd_names}, {bwd_names}", flush=True)
                 continue
+            one_launch_and_graph(f"{what} bwd",
+                                 lambda: tam_bwd_cuda(g, x, a, k),
+                                 "tam_bwd_bf16x8_kernel")
+            print(f"{what} bwd: 1 launch, repeats, another stream and CUDA "
+                  f"graph replays bit-equal; plan {plan['blocks']} blocks of "
+                  f"{plan['wc']} x {plan['slots']} threads, {plan['pp']} "
+                  f"positions a thread, {plan['nseg']} segments", flush=True)
             calls = {"fwd": (lambda: tam_fwd_cuda(x, a, k), False),
                      "bwd": (lambda: tam_bwd_cuda(g, x, a, k), False),
                      "plain_fwd": (lambda: tam_dynamic_conv_reference(
@@ -2790,9 +2847,10 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
                              f"({chosen} chosen layers)")
     for bf16 in (True, False):
         got = {k: sum(n for name, n in library.items() if name.startswith(pre)
+                      and "reduce" not in name
                       and ("bfloat16" in name or "bf16" in name) == bf16)
                for k, pre in (("tam_fwd", "tam_fwd"),
-                              ("tam_bwd", "tam_bwd_kernel"),
+                              ("tam_bwd", "tam_bwd"),
                               ("bn_stats_fwd", "bn_stats_fwd_kernel"),
                               ("bn_stats_bwd", "bn_stats_bwd_kernel"))}
         if got != (counts if bf16 == (dtype == "bfloat16")
@@ -2800,6 +2858,13 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
             raise AssertionError(
                 f"{what}: the libraries' {'bfloat16' if bf16 else 'float32'}"
                 f" launches {got} against the wrappers' {counts} at {dtype}")
+    # the TAM backward: one launch a call at bfloat16 (tam_bwd_bf16x8_kernel),
+    # two at float32 (the blocks' kernel and the sum of their rows)
+    tam_bwd = sum(n for name, n in library.items()
+                  if name.startswith("tam_bwd"))
+    if tam_bwd != counts["tam_bwd"] * (1 if dtype == "bfloat16" else 2):
+        raise AssertionError(f"{what}: {tam_bwd} TAM backward launches for "
+                             f"{counts['tam_bwd']} calls at {dtype}")
     ms = writer.ms[warmup:] if writer.ms else [wall_ms / n_videos]
     summary = {"mode": what, "dtype": dtype, "videos": len(ms),
                "chosen": chosen,
@@ -2819,7 +2884,9 @@ def phase_full_slice(seed, n_videos, card, tta=None, what="mean_var",
           f"host-to-device copy), peak memory {peak / 2**30:.3f} GiB, {moved} "
           f"parameter tensors moved, {losses}top1 {top1:.1f}; launches "
           f"{counts} (the libraries' counts of the {dtype} kernels the same),"
-          f" gradient contiguity copies {grad_copies}; on {card}",
+          f" TAM backward {tam_bwd // n_videos} launches a video (the "
+          f"libraries' counts), gradient contiguity copies {grad_copies}; "
+          f"on {card}",
           flush=True)
 
     # where the time goes: one adapt+eval step with its inputs on the card
@@ -3469,6 +3536,25 @@ def per_site(t, sizes):
         for label, (key, nb, fl, n) in sizes.items()), flush=True)
 
 
+def ln_bwd_one_launch(what, x, g, dy):
+    """The bfloat16 LayerNorm backward on (x, g, dy): one launch of an
+    ln_bwd_bf16x8 instance (the library's own counts), its plan the
+    mirror's (``cuda_ln.ln_bwd_bf16_plan`` at the clusters the card holds),
+    repeats, another stream and CUDA graph replays bit-equal."""
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    names = launches_of(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5))
+    if len(names) != 1 or not next(iter(names)).startswith("ln_bwd_bf16x8<"):
+        raise AssertionError(f"{what}: launches {names}, expected one "
+                             "ln_bwd_bf16x8")
+    plan = cl.ln_bwd_bf16_plan_cuda(*x.shape)
+    mirror = cl.ln_bwd_bf16_plan(*x.shape, plan["resident"], plan["sms"])
+    if {k: plan[k] for k in mirror} != mirror:
+        raise AssertionError(f"{what}: the kernel's plan {plan} is not "
+                             f"ln_bwd_bf16_plan's {mirror}")
+    one_launch_and_graph(f"{what} bwd", lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5),
+                         next(iter(names)))
+
+
 def phase_bf16_swin_kernels(dev):
     """Phase 25: the bfloat16 LayerNorm, LayerNorm-MLP and packed attention
     kernels (rows 3, 4, 10, 11, 14, 15 in the bfloat16 Swin) against their
@@ -3589,7 +3675,7 @@ def phase_bf16_swin_kernels(dev):
             if clips == 1:
                 continue
             dy = bf(clips * tokens, c)
-            kernels(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5), 2)
+            ln_bwd_one_launch(what, x, g, dy)
             got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
             again = cl.ln_bwd_cuda(x, g, dy, 1e-5)
             want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
@@ -3625,7 +3711,7 @@ def phase_bf16_swin_kernels(dev):
             per_site(t, {"fwd": ("kernel", 2 * nel * 2 + 2 * c * 4, 8 * nel,
                                  1),
                          "bwd": ("kernel bwd", 3 * nel * 2 + 3 * c * 4,
-                                 12 * nel, 2)})
+                                 12 * nel, 1)})
             tot["ln_fwd"].add(sites, ms=t["kernel"][0],
                               device_ms=t["kernel"][1],
                               plain_ms=t["plain"][0],
@@ -3641,6 +3727,32 @@ def phase_bf16_swin_kernels(dev):
                               library_device_ms=t["F.layer_norm bwd"][1],
                               bytes=3 * nel * 2 + 3 * c * 4, flops=12 * nel)
             del x, dy, got, again, want, xl, yl
+    # the standalone backward at every Swin-T site too (2 clips): values,
+    # one launch, its plan, repeats and graph replays bit-equal, device ms
+    t_pass, t_bound = 0.0, 0.0
+    for (tokens, c), sites in SWIN_T_LN_SITES.items():
+        rows = 2 * tokens
+        x = (randn(rows, c, scale=2.0) + 0.5).to(bf16)
+        g, dy = randn(c), bf(rows, c)
+        what = f"ln bf16 swin-T rows={rows} C={c}"
+        ln_bwd_one_launch(what, x, g, dy)
+        got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+        want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
+        note("dx", "ln_bwd", assert_bf16_within(f"{what} dx", got[0],
+                                                want[0]))
+        for nm, p, q in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+            scaled("ln_bwd", f"{what} {nm}", p, q, LN_BWD_TOL)
+        dev_ms = graph_ms(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5))
+        nbytes = 3 * x.numel() * 2 + 3 * c * 4
+        t_pass = None if dev_ms is None or t_pass is None \
+            else t_pass + sites * dev_ms
+        t_bound += sites * bound(nbytes, 0)[0]
+        print(f"{what} ({sites} sites): device us {fmt(dev_ms and dev_ms * 1e3)}"
+              f" against its bound {bound(nbytes, 0)[0] * 1e3:.2f} us",
+              flush=True)
+        del x, dy, got, want
+    print(f"ln_bwd_bf16 per Swin-T pass of 2 clips: device ms {fmt(t_pass)}, "
+          f"bound {t_bound:.4f} ms by bytes at bfloat16", flush=True)
     # a view 2 bytes off a 16-byte boundary: the one-value paths
     x = (randn(6272, 256, scale=2.0) + 0.5).to(bf16)
     dy, g, b = bf(6272, 256), randn(256), randn(256)
@@ -4635,6 +4747,17 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     counts = _swin_counts()
     peak = torch.cuda.max_memory_allocated()
     _bf16_swin_launches(names)
+    # the standalone LayerNorm backward: one ln_bwd_bf16x8 launch a call,
+    # none of the two-launch instance (ln_bwd_kernel<..., __nv_bfloat16,
+    # __nv_bfloat16> and its reduce); the LayerNorm-MLP's LayerNorm step is
+    # ln_bwd_kernel<..., __nv_bfloat16, float>
+    ln_one = sum(n for k, n in names.items() if k.startswith("ln_bwd_bf16x8<"))
+    ln_two = sum(n for k, n in names.items() if k.startswith("ln_bwd_kernel<")
+                 and k.endswith("__nv_bfloat16, __nv_bfloat16>"))
+    if ln_one != counts["ln_bwd"] or ln_two:
+        raise AssertionError(f"bf16 {what}: {ln_one} ln_bwd_bf16x8 and "
+                             f"{ln_two} two-launch LayerNorm backward "
+                             f"launches for {counts['ln_bwd']} calls")
     for k in ("loss_reg", "loss_consis", "loss_ce"):
         if not np.isfinite(meters[k].avg):
             raise AssertionError(f"bf16 {what} {k} is not finite")
@@ -4672,7 +4795,9 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
           f"{max(warm):.3f}) after {warmup} warm-up, peak memory "
           f"{summary['peak_gib']:.3f} GiB, losses reg "
           f"{meters['loss_reg'].avg:.5f} consis "
-          f"{meters['loss_consis'].avg:.5f}, launches {counts}; bfloat16 "
+          f"{meters['loss_consis'].avg:.5f}, launches {counts}; the "
+          f"standalone LayerNorm backward {ln_one // n_videos} launches a "
+          f"video, one a call (the libraries' counts); bfloat16 "
           f"kernel instances "
           f"{sum(n for k, n in names.items() if _bf16_name(k))}; on {card}",
           flush=True)

@@ -1343,10 +1343,14 @@ def test_tam_bf16_kernels_match_plain(cuda_device, shape):
     out = launches_of(lambda: cuda_tam.tam_fwd_cuda(x, attn, kernel))
     assert sum(out.values()) == 1 and all(
         "bf16" in k or "bfloat16" in k for k in out), out
+    # 16-byte units (C % 8 == 0): one launch, the cross-block sums inside
+    # it; one channel a thread: the blocks' kernel and the sum of its rows
     names = launches_of(lambda: cuda_tam.tam_bwd_cuda(cot, x, attn, kernel))
-    assert sum(names.values()) == 2, names
-    assert sum(n for k, n in names.items()
-               if "tam_bwd_kernel" in k and "bfloat16" in k) == 1, names
+    if shape["c"] % 8 == 0:
+        assert names == {"tam_bwd_bf16x8_kernel": 1}, names
+    else:
+        assert sum(names.values()) == 2, names
+        assert names.get("tam_bwd_kernel<float, __nv_bfloat16>") == 1, names
     cuda_tam.counters.reset()
     got = _value_and_grads(tam_dynamic_conv, x, attn, kernel, cot)
     assert (cuda_tam.counters.fwd, cuda_tam.counters.bwd) == (1, 1)
@@ -1640,9 +1644,11 @@ def test_ln_bf16_kernels_match_plain(cuda_device, rows, c):
     assert sum(fwd.values()) == 1 and _bf16_names(fwd) == fwd, fwd
     vector = c in (64, 128, 256, 512, 1024, 2048)
     assert any("ln_rows_bf16x8" in k for k in fwd) == vector, fwd
+    # 16-byte units (every C here % 8 == 0): one launch a call, the blocks'
+    # column sums finished inside it
     bwd = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
-    assert sum(bwd.values()) == 2, bwd
-    assert sum(_bf16_names(bwd).values()) == 1, bwd
+    assert sum(bwd.values()) == 1, bwd
+    assert all(k.startswith("ln_bwd_bf16x8<") for k in bwd), bwd
     again = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
     assert torch.equal(again[0], xg.grad)     # no atomics: bit-equal
     assert torch.equal(again[1], gg.grad)
@@ -1667,6 +1673,8 @@ def test_ln_bf16_takes_unaligned_views(cuda_device):
     assert xs.is_contiguous() and xs.data_ptr() % 16 == 2
     assert cuda_ln.bwd_vec(c, xs, g, dys) == 0
     assert cuda_ln.bwd_vec(c, x, g, dy) == 1
+    assert cuda_ln.bwd_vec_bf16(c, xs, g, dys) == 0
+    assert cuda_ln.bwd_vec_bf16(c, x, g, dy) == 2
     fwd = launches_of(lambda: cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5))
     assert fwd == {"ln_rows_any<__nv_bfloat16>": 1}, fwd
     _within_one_bf16_ulp("y", cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5),
@@ -2524,3 +2532,109 @@ def test_proj_bf16_kernels_refuse_what_they_do_not_take(cuda_device):
         cuda_device, b_=4, nh=2, hd=12, window=(2, 3, 3), nw=0)
     with pytest.raises(ValueError, match="multiple of 8"):
         cp.attn_proj_fwd(x12, *w12, dense12, None, s12, 2)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 LayerNorm backward and TAM backward in 16-byte units: one
+# launch a call, the blocks' sums finished by the blocks that draw the last
+# tickets (csrc/tickets.cuh).  Their plans against the mirrors the CPU tests
+# follow, and their bits over repeats, another stream and CUDA-graph
+# replays (every launch leaves the tickets it drew at 0).
+
+SWIN_LN_BF16_SITES = [(50176, 128), (12544, 256), (12544, 512), (3136, 512),
+                      (3136, 1024), (784, 1024), (784, 2048), (50176, 96),
+                      (12544, 384), (12544, 192), (3136, 768), (3136, 384),
+                      (784, 1536), (784, 768), (7, 8), (33, 24), (1, 40)]
+TANET_TAM_SITES = [(n, t, p, c) for p, c in ((3136, 64), (3136, 128),
+                                             (784, 128), (784, 256),
+                                             (196, 256), (196, 512),
+                                             (49, 512))
+                   for n, t in ((2, 16), (1, 16), (2, 3))] + [
+                       (2, 5, 35, 24), (3, 40, 7, 8)]
+
+
+@pytest.mark.cuda
+def test_ln_bwd_bf16_plan_is_the_mirror(cuda_device):
+    """csrc/ln.cu's plan of ln_bwd_bf16x8 against ``cuda_ln.
+    ln_bwd_bf16_plan`` at the clusters the card holds of the instance, at
+    every Swin-B and Swin-T site of the adapt batch and odd widths."""
+    for rows, c in SWIN_LN_BF16_SITES:
+        own = cuda_ln.ln_bwd_bf16_plan_cuda(rows, c)
+        resident, sms = own.pop("resident"), own.pop("sms")
+        assert resident >= 1 and sms >= 1
+        assert own == cuda_ln.ln_bwd_bf16_plan(rows, c, resident, sms), \
+            (rows, c)
+
+
+@pytest.mark.cuda
+def test_tam_bwd_bf16_plan_is_the_mirror(cuda_device):
+    """csrc/tam.cu's plan of tam_bwd_bf16x8_kernel against ``cuda_tam.
+    bwd_plan_bf16`` on the card's SMs, at every TANet site (adapt batch,
+    one clip, three frames) and odd sizes."""
+    for n, t, p, c in TANET_TAM_SITES:
+        own = cuda_tam.bwd_plan_bf16_cuda(n, t, p, c)
+        sms = own.pop("sms")
+        assert own == cuda_tam.bwd_plan_bf16(n, t, p, c, sms), (n, t, p, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ln", "tam"])
+def test_bf16_backward_repeats_and_graph_replays_are_bit_equal(cuda_device,
+                                                               op):
+    """Three calls in a row, one on another stream (its own slot of
+    tickets), then a CUDA graph of the call replayed twice, then an eager
+    call again: the same bits each time, one launch a call."""
+    if op == "ln":
+        x = (_randn(cuda_device, 3136, 512, seed=1, scale=2.0)
+             + 0.5).to(BF16)
+        g = _randn(cuda_device, 512, seed=2)
+        dy = _bf16_randn(cuda_device, 3136, 512, seed=3)
+        run = lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    else:
+        x, attn, kernel, cot = _bf16_tam_inputs(cuda_device, n=2, t=16,
+                                                h=28, w=28, c=128)
+        run = lambda: cuda_tam.tam_bwd_cuda(cot, x, attn, kernel)
+    assert sum(launches_of(run).values()) == 1
+
+    def assert_equal(got, want):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    first = run()
+    for _ in range(2):
+        assert_equal(run(), first)
+    side = torch.cuda.Stream(cuda_device)    # warm-up before a capture
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        assert_equal(run(), first)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        assert_equal(captured, first)
+    assert_equal(run(), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c", SWIN_LN_BF16_SITES, ids=str)
+def test_ln_bwd_bf16_at_the_swin_sites(cuda_device, rows, c):
+    """ln_bwd_bf16x8 at every Swin-B and Swin-T site of the adapt batch
+    (and odd widths) against ``layer_norm_backward_reference``: dx within
+    one bfloat16 ulp, dgamma and dbeta within GRAD_REL of their largest
+    value; one launch; two calls bit-equal."""
+    x = (_randn(cuda_device, rows, c, seed=1, scale=2.0) + 0.5).to(BF16)
+    g = _randn(cuda_device, c, seed=2)
+    dy = _bf16_randn(cuda_device, rows, c, seed=3)
+    names = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
+    assert len(names) == 1 and sum(names.values()) == 1, names
+    assert next(iter(names)).startswith("ln_bwd_bf16x8<"), names
+    got = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    want = cuda_ln.layer_norm_backward_reference(x, g, dy, 1e-5)
+    _within_one_bf16_ulp("dx", got[0], want[0])
+    _assert_grad("dgamma", got[1], want[1])
+    _assert_grad("dbeta", got[2], want[2])
+    again = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

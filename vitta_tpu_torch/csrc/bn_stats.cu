@@ -55,7 +55,8 @@
 //   whichever block draws it.  That block resets its ticket to 0, so a
 //   ticket is 0 between launches: the tickets are this library's own
 //   zero-initialised device array, a slot of them per stream (the wrapper
-//   hands out the slots), which CUDA graphs capture and replay as they are.
+//   hands out the slots), which CUDA graphs capture and replay as they are
+//   (tickets.cuh, shared with ln.cu and tam.cu).
 // tools/bn_variants.py builds copies with other constants and times them
 // in turns with another checkout's kernels.
 // The TPU kernel's row tile (a divisor of R, a multiple of 8) has no
@@ -67,6 +68,7 @@
 #include <initializer_list>
 
 #include "launches.cuh"
+#include "tickets.cuh"
 
 namespace vitta {
 
@@ -81,13 +83,6 @@ constexpr int kBnBlocksPerSm = 2;  // blocks an SM holds (caps registers),
 constexpr int kBnMinChunk = 32;    // fewest rows a block takes
 constexpr int kBnMaxCluster = 8;   // blocks of a cluster, along the rows
 constexpr int kBnSumAhead = 8;     // partials the last block loads at once
-constexpr int kBnSlots = 64;       // streams of a device, one slot each
-constexpr int kBnSlotTiles = 2048; // column tiles a call may have
-
-// The tickets: a slot of kBnSlotTiles per stream, each 0 between launches
-// (zero when the library is loaded, reset by the block that draws a tile's
-// last ticket).
-__device__ unsigned int g_bn_tickets[kBnSlots * kBnSlotTiles];
 
 inline long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
@@ -242,20 +237,6 @@ __device__ __forceinline__ void copy_rows(const float (&from)[D][V],
 // waits on an mbarrier for the others' sums, which they store into its
 // shared memory with st.async (each completes its bytes on the mbarrier),
 // so no block waits for its own stores to land.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
 
 template <int V, int NP>
 struct BnShared {
@@ -357,12 +338,9 @@ __device__ __forceinline__ void bn_sums(S& sh, const float (&a)[V],
     p[c] = sb;
   }
   __syncthreads();
-  if (t == 0) {                      // releases the block's partials and, to
-    unsigned drawn;                  // the last, acquires all the others'
-    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;"
-                 : "=r"(drawn) : "l"(tickets + blockIdx.y) : "memory");
-    sh.last = drawn == (unsigned)(parts - 1);
-  }
+  if (t == 0)                        // releases the block's partials and, to
+    sh.last = draw_last_ticket(      // the last, acquires all the others'
+        tickets + blockIdx.y, (unsigned)parts);
   __syncthreads();
   if (!sh.last) return;
   if (active) {
@@ -403,7 +381,6 @@ __device__ __forceinline__ void bn_sums(S& sh, const float (&a)[V],
       out[c + col] = ss;
     }
   }
-  if (t == 0) tickets[blockIdx.y] = 0u;
 }
 
 // grid (chunks, tiles), block (32, 8), clusters of csize along x.  stats
@@ -469,7 +446,7 @@ bn_stats_fwd_kernel(const E* __restrict__ x,
     }
   }
   bn_sums<V, true>(sh, s, ss, partial,
-                   g_bn_tickets + (long long)slot * kBnSlotTiles, stats, c,
+                   slot_tickets(slot), stats, c,
                    csize, 1.f / (float)rows);
 }
 
@@ -566,7 +543,7 @@ bn_stats_bwd_kernel(const E* __restrict__ x,
     }
   }
   bn_sums<V, false>(sh, ds, db, partial,
-                    g_bn_tickets + (long long)slot * kBnSlotTiles, dsb, c,
+                    slot_tickets(slot), dsb, c,
                     csize, 0.f);
 }
 
@@ -580,11 +557,11 @@ inline bool bn_vectorized(int c, int w, const void* a, const void* b,
   return c % w == 0 && (bits & 15ULL) == 0;
 }
 
-// What a call takes: rows and c at least 1, at most kBnSlotTiles column
+// What a call takes: rows and c at least 1, at most kSlotTickets column
 // tiles (grid.y), a slot of the tickets.
 inline bool bn_shape_ok(long long rows, int c, int v, int slot) {
-  return rows > 0 && c > 0 && cdiv(c, kBnLanes * v) <= kBnSlotTiles &&
-         slot >= 0 && slot < kBnSlots;
+  return rows > 0 && c > 0 && cdiv(c, kBnLanes * v) <= kSlotTickets &&
+         slot >= 0 && slot < kTicketSlots;
 }
 
 // Values a 16-byte unit of E holds.
@@ -602,33 +579,6 @@ inline std::string kernel_name(const char* base, int v, bool relu,
   return s.insert(s.size() - 1, ", __nv_bfloat16");
 }
 
-// The cluster-dimension attribute of a launch of clusters of `csize`.
-inline cudaLaunchAttribute cluster_attr(int csize) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = (unsigned)csize;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  return attr;
-}
-
-// Clusters of kBnMaxCluster blocks of `kernel` the card holds at once (at
-// least 1; kBnBlocksPerSm blocks an SM where the card cannot say).
-inline int query_resident(const void* kernel) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kBnMaxCluster);
-  cfg.blockDim = dim3(kBnLanes, kBnWarps);
-  cudaLaunchAttribute attr = cluster_attr(kBnMaxCluster);
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    n = kBnBlocksPerSm * sm_count() / kBnMaxCluster;
-  }
-  return n > 1 ? n : 1;
-}
-
 // One instance of the kernels: its function, the clusters the card holds
 // (read once), its plan at (rows, c).
 template <int V, bool RELU, class E, bool BWD>
@@ -638,7 +588,8 @@ struct BnKernel {
                : (const void*)bn_stats_fwd_kernel<V, RELU, E>;
   }
   static int resident() {
-    static const int n = query_resident(fn());
+    static const int n = query_resident(fn(), dim3(kBnLanes, kBnWarps),
+                                        kBnMaxCluster, 0, kBnBlocksPerSm);
     return n;
   }
   static BnPlan plan(long long rows, int c) {
@@ -783,7 +734,7 @@ void vitta_bn_stats_plan(long long rows, int c, int v, int bf16, int bwd,
 
 // Streams a device may run the kernels on at once, each with its own
 // slot of tickets in 0 .. slots - 1.
-int vitta_bn_stats_slots() { return vitta::kBnSlots; }
+int vitta_bn_stats_slots() { return vitta::kTicketSlots; }
 
 // y (rows, c); stats (2, c) = m then v.  One launch.
 int vitta_bn_stats_fwd(const float* x, const float* scale, const float* bias,

@@ -40,17 +40,13 @@
 // loads of kFwdDepth frames at once; a view that starts elsewhere takes
 // the one-channel kernel.
 //
-// Backward: at the 14x14 and 7x7 sites one column per thread is too few
-// threads to keep the memory busy if each walks its 16 frames with two
-// loads in flight.  So:
+// Backward at float32 (and at bfloat16 where the inputs allow no 16-byte
+// units: one channel a thread): at the 14x14 and 7x7 sites one column per
+// thread is too few threads to keep the memory busy if each walks its 16
+// frames with two loads in flight.  So:
 //  * a thread owns one (n, p) column of 4 channels where C % 4 == 0 and the
 //    caller's g, x, attn and dx are 16-byte aligned (16-byte loads and
-//    stores; one channel where not).  At bfloat16 the unit stays 4
-//    channels, now 8 bytes of g, x and dx (attn is float32: 16), so that
-//    the plan, the shared memory and the registers are the float32 ones:
-//    8 channels a thread would need 32-byte cells in shared memory (one
-//    block an SM at a 16-frame segment) and more registers for a window of
-//    kDepth frames than two blocks an SM leave a thread.  A thread walks
+//    stores; one channel where not).  A thread walks
 //    chunks of kDepth frames: it issues the chunk's loads of g[t+1], x[t] and
 //    attn[t] before any arithmetic, and carries g[t-1] and g[t] across
 //    chunks in registers;
@@ -71,6 +67,35 @@
 //    butterfly).  No float atomics: the result has the same bits from run
 //    to run, and differs from a plain reduction only by the order of
 //    float32 additions.
+//
+// Backward at bfloat16 with C % 8 == 0 and g, x, attn and dx 16-byte
+// aligned (every TANet site): tam_bwd_bf16x8_kernel, one launch a call.  A
+// call moves 5-77 MB, 1.4-23 us at the card's rate, so the second launch
+// and 8-byte units cost a large share of it.  Its design:
+//  * a thread owns one (n, p) column of 8 channels (16 bytes of g, x and
+//    dx) and one segment of kB16Frames frames; for each of its `pp`
+//    positions it issues the loads of the segment's x and of g with a
+//    one-frame halo on either side (the neighbouring segments' blocks read
+//    the same lines at the same time, from L2) before any arithmetic.  A
+//    segment of 4 frames is what lets 8 channels a thread keep two blocks
+//    an SM: the per-thread sums of dy * x for each frame (8 floats a frame)
+//    are 32-byte cells in shared memory, (4 + 3) rows of them a thread,
+//    56 KB a block of 256 threads where a 16-frame segment needed 152 KB;
+//    attn and the weights are staged in shared memory once a block,
+//    rounded;
+//  * the grid is one wave of two blocks an SM (`plan_bf16`): segments of T,
+//    channel chunks of up to kB16MaxUnits units and position blocks, each
+//    thread walking as many positions as the wave leaves;
+//  * a block adds its slots in slot order (kB16SlotParts runs of them at
+//    once, then the runs in order) and writes one partial row a frame
+//    (dattn) and three (dK); then it draws a ticket of its (n, channel
+//    chunk, segment) (tickets.cuh).  The block that draws the last adds the
+//    position blocks' rows in order, kB16SumAhead of them in flight: dattn
+//    of its frames, and the segment's dK rows, which it writes as a partial
+//    and draws a ticket of its (n, channel chunk); the last of those adds
+//    the segments' dK rows in order.  No float atomics, no second launch.
+//    Narrow chunks (kB16MaxUnits units, 32 channels) make many small tiles,
+//    so that the last blocks' sums run on many SMs at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +103,7 @@
 #include <cstdint>
 
 #include "launches.cuh"
+#include "tickets.cuh"
 
 namespace {
 
@@ -287,7 +313,7 @@ template <class E> __device__ __forceinline__ float4 round_unit(float4 v) {
 }
 
 // A unit of V's width of activations of type E: how it lies in memory
-// (raw) and its values as V.  At bfloat16 a unit of 4 channels is 8 bytes.
+// (raw) and its values as V.
 template <class V, class E> struct Act;
 template <class V> struct Act<V, float> {
   using raw = V;
@@ -301,21 +327,6 @@ template <> struct Act<float, __nv_bfloat16> {
   }
   static __device__ __forceinline__ raw store(float v) {
     return __float2bfloat16_rn(v);
-  }
-};
-template <> struct Act<float4, __nv_bfloat16> {
-  using raw = uint2;
-  static __device__ __forceinline__ float4 load(raw r) {
-    return make_float4(__uint_as_float(r.x << 16),
-                       __uint_as_float(r.x & 0xffff0000u),
-                       __uint_as_float(r.y << 16),
-                       __uint_as_float(r.y & 0xffff0000u));
-  }
-  static __device__ __forceinline__ raw store(float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                      *reinterpret_cast<const uint32_t*>(&hi));
   }
 };
 
@@ -335,8 +346,8 @@ struct Plan {
 
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// vec: C % 4 == 0 and the caller's g, x, attn and dx start on their
-// units' boundaries (float32: 16 bytes; bfloat16: 8, attn 16)
+// vec: C % 4 == 0 and the caller's g, x, attn and dx start on 16-byte
+// boundaries (float32; at bfloat16 this plan takes one channel a thread)
 Plan plan_for(int N, int T, int P, int C, bool vec) {
   Plan q;
   q.vec = vec;
@@ -533,9 +544,6 @@ template <> const char* bwd_kernel_name<float4, float>() {
 template <> const char* bwd_kernel_name<float, float>() {
   return "tam_bwd_kernel<float>";
 }
-template <> const char* bwd_kernel_name<float4, __nv_bfloat16>() {
-  return "tam_bwd_kernel<float4, __nv_bfloat16>";
-}
 template <> const char* bwd_kernel_name<float, __nv_bfloat16>() {
   return "tam_bwd_kernel<float, __nv_bfloat16>";
 }
@@ -570,6 +578,330 @@ int launch_bwd(const Plan& q, const void* g, const void* x,
           part_a, part_k, dattn, dkern, N, T, q.units, q.npb, q.nseg);
   vitta::count_launch(sizeof(V) == 16 ? "tam_bwd_reduce_kernel<float4>"
                                       : "tam_bwd_reduce_kernel<float>");
+  return (int)cudaGetLastError();
+}
+
+// ---- the bfloat16 backward in 16-byte units, one launch ---------------------
+// Its shape, as measured best (PERF.md's kernel table, row 2 bf16;
+// vitta_tpu_torch/tools/tam_variants.py times other values on patched
+// copies of this file).  ops/cuda_tam.py:bwd_plan_bf16 mirrors the plan.
+constexpr int kB16Threads = 256;
+constexpr int kB16BlocksPerSm = 2;  // blocks an SM holds, and the grid aims at
+constexpr int kB16Frames = 4;       // frames of a segment
+constexpr int kB16MaxUnits = 4;     // most 8-channel units of a position a block spans
+constexpr int kB16SumAhead = 8;     // partial rows the last blocks load at once
+constexpr int kB16SlotParts = 8;    // parts of the slots a block adds at once
+constexpr int kB16Rows = kB16Frames + 3;   // a block's partial rows
+// outputs a thread of the last blocks adds: a block's rows of wc units of
+// 8 channels over its wc * floor(kB16Threads / wc) threads
+constexpr int kB16Outs = (kB16Rows * 8 + kB16Threads / kB16MaxUnits - 1) /
+                         (kB16Threads / kB16MaxUnits);
+
+// How tam_bwd_bf16x8_kernel cuts (N, T, P, C), units of 8 channels: blocks
+// of wc units (threads in x) x slots positions (threads in y), each thread
+// walking pp positions in turn; T in nseg segments of kB16Frames frames,
+// ncc channel chunks, npb position blocks; blocks = N ncc npb nseg, at most
+// kB16BlocksPerSm an SM of `sms` where the positions allow (pp as small as
+// that leaves).
+struct PlanB16 {
+  int units, wc, slots, pp, nseg, npb, ncc;
+  long long blocks;
+};
+
+PlanB16 plan_bf16(int N, int T, int P, int C, int sms) {
+  PlanB16 q;
+  q.units = C / 8;
+  q.wc = q.units < kB16MaxUnits ? q.units : kB16MaxUnits;
+  q.slots = kB16Threads / q.wc;
+  q.ncc = cdiv(q.units, q.wc);
+  q.nseg = cdiv(T, kB16Frames);
+  const long long per = (long long)N * q.ncc * q.nseg;
+  const long long wave = (long long)kB16BlocksPerSm * sms;
+  const long long most = wave / per > 1 ? wave / per : 1;   // position blocks
+  q.pp = cdiv(P, most * q.slots);
+  q.npb = cdiv(P, (long long)q.slots * q.pp);
+  q.blocks = per * q.npb;
+  return q;
+}
+
+// Tickets a call draws on: one per (n, chunk, segment), one per (n, chunk).
+long long tickets_bf16(const PlanB16& q, int N) {
+  return (long long)N * q.ncc * (q.nseg + 1);
+}
+
+// The partials, in floats: dattn rows (tile, position block, frame, unit),
+// dK rows (tile, position block, 3, unit), then the segments' dK rows (n
+// and chunk, segment, 3, unit), a row of wc units of 8 channels each.
+long long part_bf16_floats(const PlanB16& q, int N) {
+  const long long row = 8LL * q.wc, tiles = (long long)N * q.ncc * q.nseg;
+  return tiles * q.npb * kB16Rows * row + tiles * 3 * row;
+}
+
+// Shared memory of a block: the cells (kB16Rows rows of a 32-byte cell a
+// thread), the sums of kB16SlotParts parts of its slots (parts x rows x
+// units x 8), attn's segment (frames x units x 8) and the weights (units x
+// 3 x 8), rounded to bfloat16.
+size_t smem_bf16(const PlanB16& q) {
+  return ((size_t)kB16Rows * q.wc * (q.slots + kB16SlotParts) * 8 +
+          kB16Frames * q.wc * 8 + q.wc * 24) * sizeof(float);
+}
+
+__device__ __forceinline__ void add4(float* p, float a, float b, float c,
+                                     float d) {
+  float4 v = *reinterpret_cast<float4*>(p);
+  v.x += a, v.y += b, v.z += c, v.w += d;
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// grid (blocks), block (wc, slots), dynamic shared memory smem_bf16.
+// Block b is (n, chunk cc, position block pb, segment seg), seg varying
+// fastest; thread (ux, y) takes unit cc * wc + ux of positions (pb * pp +
+// m) * slots + y, m < pp, and frames seg * kB16Frames .. + kB16Frames - 1.
+// dattn (N, T, C) and dkern (N, C, 3) float32; part as part_bf16_floats.
+__global__ void __launch_bounds__(kB16Threads, kB16BlocksPerSm)
+tam_bwd_bf16x8_kernel(const uint4* __restrict__ g, const uint4* __restrict__ x,
+                      const float* __restrict__ attn,
+                      const float* __restrict__ kern, uint4* __restrict__ dx,
+                      float* __restrict__ dattn, float* __restrict__ dkern,
+                      float* __restrict__ part, int ticket_slot, int T,
+                      int P, int U, int ncc, int npb, int nseg, int pp) {
+  extern __shared__ __align__(16) float sm[];
+  const int wc = blockDim.x, slots = blockDim.y, rs = wc * slots;
+  const int ux = threadIdx.x, y = threadIdx.y, slot = y * wc + ux;
+  float* cells = sm;                             // (kB16Rows, rs, 8)
+  float* parts = cells + (size_t)kB16Rows * rs * 8;  // (kB16SlotParts,
+                                                 //  kB16Rows, wc, 8)
+  float* as = parts + kB16SlotParts * kB16Rows * wc * 8;   // (kB16Frames,
+                                                           //  wc, 8)
+  float* ks = as + kB16Frames * wc * 8;          // (wc, 3, 8)
+  __shared__ int last;
+  long long b = blockIdx.x;
+  const int seg = (int)(b % nseg);
+  b /= nseg;
+  const int pb = (int)(b % npb);
+  b /= npb;
+  const int cc = (int)(b % ncc), n = (int)(b / ncc);
+  const int C = U * 8, wc8 = wc * 8, t0 = seg * kB16Frames;
+  const long long tile = ((long long)n * ncc + cc) * nseg + seg;
+  const long long tile2 = (long long)n * ncc + cc;
+  const long long tiles = (long long)gridDim.x / npb;   // N ncc nseg
+  unsigned* tickets = vitta::slot_tickets(ticket_slot);
+
+  // attn's segment and the weights, rounded, a value a thread; the cells 0
+  for (int i = slot; i < kB16Frames * wc8; i += rs) {
+    const int r = i / wc8, k8 = i - r * wc8, uu = cc * wc + k8 / 8;
+    const int t = t0 + r;
+    as[i] = t < T && uu < U
+                ? round_as<__nv_bfloat16>(attn[((long long)n * T + t) * C +
+                                               uu * 8 + (k8 & 7)])
+                : 0.f;
+  }
+  for (int i = slot; i < wc * 24; i += rs) {
+    const int u2 = i / 24, j = i - u2 * 24, k = j / 8, ch = j & 7;
+    const int uu = cc * wc + u2;
+    ks[i] = uu < U ? round_as<__nv_bfloat16>(
+                         kern[((long long)n * C + uu * 8 + ch) * 3 + k])
+                   : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kB16Frames; ++r) {
+    float* c8 = cells + ((size_t)r * rs + slot) * 8;
+    *reinterpret_cast<float4*>(c8) = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(c8 + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  const int u = cc * wc + ux;
+  const long long FU = (long long)P * U;        // a frame, in units
+  float dk[3][8];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dk[k][j] = 0.f;
+  const float* kx = ks + ux * 24;
+  for (int m = 0; m < pp; ++m) {
+    const int p = (pb * pp + m) * slots + y;
+    if (u >= U || p >= P) break;           // so are its later positions
+    const long long col = ((long long)n * T * P + p) * U + u;
+    // the segment's x and g with its halo, all loads before any arithmetic
+    uint4 gv[kB16Frames + 2], xv[kB16Frames];
+#pragma unroll
+    for (int f = 0; f < kB16Frames + 2; ++f) {
+      const int t = t0 - 1 + f;
+      gv[f] = t >= 0 && t < T ? g[col + t * FU] : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int d = 0; d < kB16Frames; ++d) {
+      const int t = t0 + d;
+      xv[d] = t < T ? x[col + t * FU] : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int d = 0; d < kB16Frames; ++d) {
+      if (t0 + d >= T) break;
+      float gm[8], gc[8], gn[8], xf[8], o[8];
+      unpack8(gv[d], gm);
+      unpack8(gv[d + 1], gc);
+      unpack8(gv[d + 2], gn);
+      unpack8(xv[d], xf);
+      float* c8 = cells + ((size_t)d * rs + slot) * 8;
+#pragma unroll
+      for (int h = 0; h < 8; h += 4) {     // four channels at a time
+        const float4 k0 = *reinterpret_cast<const float4*>(kx + h);
+        const float4 k1 = *reinterpret_cast<const float4*>(kx + 8 + h);
+        const float4 k2 = *reinterpret_cast<const float4*>(kx + 16 + h);
+        const float4 a4 =
+            *reinterpret_cast<const float4*>(as + (d * wc + ux) * 8 + h);
+        const float kk0[4] = {k0.x, k0.y, k0.z, k0.w};
+        const float kk1[4] = {k1.x, k1.y, k1.z, k1.w};
+        const float kk2[4] = {k2.x, k2.y, k2.z, k2.w};
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+        float q[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = h + j;
+          const float dy = kk0[j] * gn[c] + kk1[j] * gc[c] + kk2[j] * gm[c];
+          o[c] = av[j] * dy;
+          q[j] = dy * xf[c];
+          const float yv = av[j] * xf[c];
+          dk[0][c] += gn[c] * yv;
+          dk[1][c] += gc[c] * yv;
+          dk[2][c] += gm[c] * yv;
+        }
+        add4(c8 + h, q[0], q[1], q[2], q[3]);
+      }
+      dx[col + (t0 + d) * FU] = pack8(o);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float* c8 = cells + ((size_t)(kB16Frames + k) * rs + slot) * 8;
+    *reinterpret_cast<float4*>(c8) =
+        make_float4(dk[k][0], dk[k][1], dk[k][2], dk[k][3]);
+    *reinterpret_cast<float4*>(c8 + 4) =
+        make_float4(dk[k][4], dk[k][5], dk[k][6], dk[k][7]);
+  }
+  __syncthreads();
+
+  // each (row, unit) over the slots in slot order, kB16SlotParts runs of
+  // sp slots at once, then the runs in order: the block's partial rows
+  const int sp = (slots + kB16SlotParts - 1) / kB16SlotParts;
+  for (int it = slot; it < kB16SlotParts * kB16Rows * wc; it += rs) {
+    const int q = it / (kB16Rows * wc), o = it - q * kB16Rows * wc;
+    const int r = o / wc, ox = o - r * wc;
+    const float* c0 = cells + (size_t)r * rs * 8 + ox * 8;
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    const int y1 = (q + 1) * sp < slots ? (q + 1) * sp : slots;
+    for (int yy = q * sp; yy < y1; ++yy) {
+      const float4 v0 = *reinterpret_cast<const float4*>(c0 + yy * wc * 8);
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(c0 + yy * wc * 8 + 4);
+      s0.x += v0.x, s0.y += v0.y, s0.z += v0.z, s0.w += v0.w;
+      s1.x += v1.x, s1.y += v1.y, s1.z += v1.z, s1.w += v1.w;
+    }
+    *reinterpret_cast<float4*>(parts + (size_t)it * 8) = s0;
+    *reinterpret_cast<float4*>(parts + (size_t)it * 8 + 4) = s1;
+  }
+  __syncthreads();
+  float* pa = part + (tile * npb + pb) * kB16Rows * wc8;
+  for (int o = slot; o < kB16Rows * wc * 2; o += rs) {   // a float4 each
+    const int r = o / (2 * wc), h = o - r * 2 * wc, ox = h / 2;
+    if (cc * wc + ox >= U) continue;
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < kB16SlotParts; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          parts + ((size_t)(q * kB16Rows + r) * wc + ox) * 8 + (h & 1) * 4);
+      s0.x += v.x, s0.y += v.y, s0.z += v.z, s0.w += v.w;
+    }
+    *reinterpret_cast<float4*>(pa + r * wc8 + ox * 8 + (h & 1) * 4) = s0;
+  }
+  __syncthreads();
+  if (slot == 0) last = vitta::draw_last_ticket(tickets + tile, npb);
+  __syncthreads();
+  if (!last) return;
+
+  // the position blocks' rows in order: dattn of the segment's frames, and
+  // the segment's dK rows as a partial of (n, chunk).  A thread adds up to
+  // kB16Outs outputs (kB16Rows * wc8 <= kB16Outs * rs), the loads of
+  // kB16SumAhead position blocks of each in flight together
+  float* pk2 = part + tiles * npb * kB16Rows * wc8 +
+               (tile2 * nseg + seg) * 3 * wc8;
+  const float* src = part + tile * npb * kB16Rows * wc8;
+  bool want[kB16Outs];
+  float acc[kB16Outs];
+#pragma unroll
+  for (int j = 0; j < kB16Outs; ++j) {
+    const int o = slot + j * rs, r = o / wc8, k8 = o - r * wc8;
+    want[j] = o < kB16Rows * wc8 && cc * wc + k8 / 8 < U &&
+              !(r < kB16Frames && t0 + r >= T);
+    acc[j] = 0.f;
+  }
+#pragma unroll 1
+  for (int p0 = 0; p0 < npb; p0 += kB16SumAhead) {
+    float v[kB16Outs][kB16SumAhead];
+#pragma unroll
+    for (int j = 0; j < kB16Outs; ++j)
+#pragma unroll
+      for (int e = 0; e < kB16SumAhead; ++e)
+        v[j][e] = want[j] && p0 + e < npb
+                      ? __ldcg(src + (long long)(p0 + e) * kB16Rows * wc8 +
+                               slot + j * rs)
+                      : 0.f;
+#pragma unroll
+    for (int j = 0; j < kB16Outs; ++j)
+#pragma unroll
+      for (int e = 0; e < kB16SumAhead; ++e)
+        if (p0 + e < npb) acc[j] += v[j][e];
+  }
+#pragma unroll
+  for (int j = 0; j < kB16Outs; ++j) {
+    if (!want[j]) continue;
+    const int o = slot + j * rs, r = o / wc8, k8 = o - r * wc8;
+    const int uu = cc * wc + k8 / 8;
+    if (r < kB16Frames)
+      dattn[((long long)n * T + t0 + r) * C + uu * 8 + (k8 & 7)] = acc[j];
+    else
+      pk2[(r - kB16Frames) * wc8 + k8] = acc[j];
+  }
+  __syncthreads();
+  if (slot == 0) last = vitta::draw_last_ticket(tickets + tiles + tile2, nseg);
+  __syncthreads();
+  if (!last) return;
+
+  // the segments' dK rows in order
+  const float* pk = part + tiles * npb * kB16Rows * wc8 + tile2 * nseg * 3 * wc8;
+  for (int o = slot; o < 3 * wc8; o += rs) {
+    const int k = o / wc8, k8 = o - k * wc8, uu = cc * wc + k8 / 8;
+    if (uu >= U) continue;
+    float s = 0.f;
+#pragma unroll 1
+    for (int s0 = 0; s0 < nseg; s0 += kB16SumAhead) {
+      float v[kB16SumAhead];
+#pragma unroll
+      for (int e = 0; e < kB16SumAhead; ++e)
+        v[e] = s0 + e < nseg ? __ldcg(pk + (s0 + e) * 3 * wc8 + o) : 0.f;
+#pragma unroll
+      for (int e = 0; e < kB16SumAhead; ++e)
+        if (s0 + e < nseg) s += v[e];
+    }
+    dkern[((long long)n * C + uu * 8 + (k8 & 7)) * 3 + k] = s;
+  }
+}
+
+int launch_bwd_bf16(const PlanB16& q, const void* g, const void* x,
+                    const float* attn, const float* kern, void* dx,
+                    float* scratch, float* dattn, float* dkern, int N, int T,
+                    int P, int slot, cudaStream_t s) {
+  const size_t smem = smem_bf16(q);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tam_bwd_bf16x8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bf16(PlanB16{kB16MaxUnits, kB16MaxUnits,
+                             kB16Threads / kB16MaxUnits, 1, 1, 1, 1, 1}));
+  if (attr != cudaSuccess) return (int)attr;
+  tam_bwd_bf16x8_kernel<<<(unsigned)q.blocks, dim3(q.wc, q.slots), smem, s>>>(
+      reinterpret_cast<const uint4*>(g), reinterpret_cast<const uint4*>(x),
+      attn, kern, reinterpret_cast<uint4*>(dx), dattn, dkern, scratch,
+      slot, T, P, q.units, q.ncc, q.npb, q.nseg, q.pp);
+  vitta::count_launch("tam_bwd_bf16x8_kernel");
   return (int)cudaGetLastError();
 }
 
@@ -661,28 +993,56 @@ int vitta_tam_fwd_bf16(const void* x, const float* attn, const float* kern,
   return (int)cudaGetLastError();
 }
 
+// The bfloat16 backward's plan in 16-byte units (tam_bwd_bf16x8_kernel), as
+// the nine numbers units, wc, slots, pp, nseg, npb, ncc, blocks (PlanB16)
+// and the card's SMs it was made for.
+void vitta_tam_bwd_bf16_plan(int N, int T, int P, int C, long long* out) {
+  const int sms = vitta::sm_count();
+  const PlanB16 q = plan_bf16(N, T, P, C, sms);
+  const long long v[9] = {q.units, q.wc, q.slots, q.pp, q.nseg,
+                          q.npb, q.ncc, q.blocks, sms};
+  for (int k = 0; k < 9; ++k) out[k] = v[k];
+}
+
+// Floats of scratch vitta_tam_bwd_bf16 needs: vec 1 (16-byte units) its
+// partials, vec 0 (one channel) as vitta_tam_bwd_scratch_floats.
+long long vitta_tam_bwd_bf16_scratch_floats(int N, int T, int P, int C,
+                                            int vec) {
+  if (!vec) return vitta_tam_bwd_scratch_floats(N, T, P, C, 0);
+  return part_bf16_floats(plan_bf16(N, T, P, C, vitta::sm_count()), N);
+}
+
+// Streams a device may run the bfloat16 backward on at once, each with its
+// own slot of tickets in 0 .. slots - 1.
+int vitta_tam_slots() { return vitta::kTicketSlots; }
+
 // bfloat16 g, x and dx, float32 attn, kern, dattn and dkern.  vec = 1: C %
-// 4 == 0, g, x and dx 8-byte and attn 16-byte aligned (units of 4
-// channels, the float32 plan; the caller decides and passes the same vec
-// to vitta_tam_bwd_scratch_floats).
+// 8 == 0 and g, x, attn and dx 16-byte aligned (units of 8 channels, one
+// launch; `slot` the stream's tickets); vec = 0: one channel a thread, two
+// launches.  The caller decides and passes the same vec to
+// vitta_tam_bwd_bf16_scratch_floats.
 int vitta_tam_bwd_bf16(const void* g, const void* x, const float* attn,
                        const float* kern, void* dx, float* scratch,
                        float* dattn, float* dkern, int N, int T, int P, int C,
-                       int vec, void* stream) {
+                       int vec, int slot, void* stream) {
   if (bad_dims(N, T, P, C)) return (int)cudaErrorInvalidValue;
-  if (vec && (C % 4 != 0 || !aligned(g, 8) || !aligned(x, 8) ||
-              !aligned16(attn) || !aligned(dx, 8)))
-    return (int)cudaErrorMisalignedAddress;
-  const Plan q = plan_for(N, T, P, C, vec != 0);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    if (C % 8 != 0 || !aligned16(g) || !aligned16(x) || !aligned16(attn) ||
+        !aligned16(dx))
+      return (int)cudaErrorMisalignedAddress;
+    const PlanB16 q = plan_bf16(N, T, P, C, vitta::sm_count());
+    if (q.blocks > 0x7fffffffLL || tickets_bf16(q, N) > vitta::kSlotTickets ||
+        slot < 0 || slot >= vitta::kTicketSlots)
+      return (int)cudaErrorInvalidValue;
+    return launch_bwd_bf16(q, g, x, attn, kern, dx, scratch, dattn, dkern, N,
+                           T, P, slot, s);
+  }
+  const Plan q = plan_for(N, T, P, C, false);
   if (q.npb > 65535 || (long long)N * q.nseg > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return q.vec ? launch_bwd<float4, __nv_bfloat16>(
-                     q, g, x, attn, kern, dx, scratch, dattn, dkern, N, T, P,
-                     C, s)
-               : launch_bwd<float, __nv_bfloat16>(
-                     q, g, x, attn, kern, dx, scratch, dattn, dkern, N, T, P,
-                     C, s);
+  return launch_bwd<float, __nv_bfloat16>(q, g, x, attn, kern, dx, scratch,
+                                          dattn, dkern, N, T, P, C, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 """What every kernel wrapper of the port shares: launch counters, the
 checks a tensor passes before its pointer goes to a kernel, the one place
-where a strided cotangent is copied, and the raise on a CUDA error code;
-and the kernel libraries' own counts of their launches, by kernel."""
+where a strided cotangent is copied, the raise on a CUDA error code, the
+slots of the kernels' tickets (csrc/tickets.cuh) a stream uses; and the
+kernel libraries' own counts of their launches, by kernel."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict
 
 import torch
@@ -83,6 +85,40 @@ def float4_units(c: int, *tensors) -> int:
     every tensor it reads or writes by the unit starts on a 16-byte
     boundary; else 0 (a contiguous view may start 4 bytes past one)."""
     return vector_units(c, 4, *tensors)
+
+
+class TicketSlots:
+    """The slot of a library's tickets (csrc/tickets.cuh) each (device,
+    stream) uses.
+
+    The tickets are the library's own device array (one copy per device),
+    zero when it is loaded; a launch draws them per tile of its work and
+    leaves every one of them 0 again.  Two streams may run the kernels at
+    once, so each (device index, stream handle) gets a slot of its own,
+    handed out in the order they are first seen, at most ``most`` (the
+    library's count) per device; beyond that a call raises.  The slot is a
+    launch argument and the array never moves, so a CUDA graph captures and
+    replays it as it is: nothing is allocated or zeroed a call.  Replaying
+    one graph on two streams at once would share a slot, as it shares the
+    graph's scratch.  ``what`` names the kernels in that error."""
+
+    def __init__(self, what: str):
+        self._what = what
+        self._lock = threading.Lock()
+        self._slots = {}
+
+    def __call__(self, device: torch.device, stream: int, most: int) -> int:
+        key = (device.index, stream)
+        with self._lock:
+            slot = self._slots.get(key)
+            if slot is None:
+                slot = sum(d == device.index for d, _s in self._slots)
+                if slot >= most:
+                    raise RuntimeError(
+                        f"the {self._what} kernels run on at most {most} "
+                        f"streams of a device; {device} has used them")
+                self._slots[key] = slot
+        return slot
 
 
 def raise_on(code: int, what: str):

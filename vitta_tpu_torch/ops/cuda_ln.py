@@ -19,7 +19,13 @@ not take raises.
 At bfloat16 (x, y, dy and dx bfloat16; gamma, beta, the statistics, every
 sum, dgamma and dbeta float32) the kernels round y and dx once, where
 vitta_tpu/ops/pallas_ln.py:47-73 rounds them at the compute dtype, and the
-plain versions round at the same points.
+plain versions round at the same points.  The bfloat16 backward takes
+16-byte units of 8 values in one launch where ``bwd_vec_bf16`` says so
+(C % 8 == 0, C <= 2048, every tensor 16-byte aligned: every Video Swin
+site); ``ln_bwd_bf16_plan`` mirrors how that kernel cuts its rows and where
+it adds its sums (csrc/ln.cu: ln_bwd_bf16x8), and its tickets' slot is the
+stream's (``TicketSlots``).  Elsewhere it takes the float32 plan's kernel
+and its second launch.
 """
 
 from __future__ import annotations
@@ -28,9 +34,9 @@ import ctypes
 
 import torch
 
-from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         contiguous_counted, grad_wanted,
-                                         raise_on, vector_units)
+from vitta_tpu_torch.ops._launch import (LaunchCounters, TicketSlots,
+                                         check_tensor, contiguous_counted,
+                                         grad_wanted, raise_on, vector_units)
 
 counters = LaunchCounters("fwd", "bwd")
 
@@ -43,6 +49,19 @@ BWD_LANE_SCALARS = 8     # the same in single floats
 BWD_MAX_BATCH = 4        # rows a warp takes at once
 BWD_MAX_C = 8 * 32 * BWD_LANE_FLOATS
 PLAN_KEYS = ("vec", "units", "batch", "wpr", "blocks", "rows_per_block")
+
+# csrc/ln.cu's constants of the bfloat16 backward in 16-byte units
+# (ln_bwd_bf16x8): a block, blocks an SM, rows a row group takes at least,
+# most blocks of a cluster, most units a lane holds of a row, lanes a row,
+# the widest C
+B16_THREADS = 256
+B16_BLOCKS_PER_SM = 2
+B16_MIN_STEPS = 1
+B16_MAX_CLUSTER = 8
+B16_MAX_UNITS = 3
+B16_MIN_LANES, B16_MAX_LANES = 4, 128
+B16_MAX_C = 2048
+B16_PLAN_KEYS = ("lanes", "units", "csize", "chunk", "blocks")
 
 
 def layer_norm_reference(x, gamma, beta, eps: float = 1e-5):
@@ -105,6 +124,39 @@ def ln_bwd_plan(rows: int, c: int, vec: int) -> dict:
                 blocks=-(-rows // per_block), rows_per_block=per_block)
 
 
+def ln_bwd_bf16_plan(rows: int, c: int, resident: int, sms: int) -> dict:
+    """How the bfloat16 backward in 16-byte units cuts (rows, C), as
+    ``ln_bwd_bf16_plan`` in csrc/ln.cu: a row is ``lanes`` lanes (4 to 128,
+    a power of two), each holding ``units`` (at most 3) units of 8 values
+    of it, units lane, lane + lanes, ...; a block of 256 threads is 256 /
+    lanes row groups, group g taking at step s the row r0 + s * groups + g
+    of its ``chunk`` contiguous rows (the rows shared evenly over the wave,
+    at least a row a group; a warp whose rows run out stops); ``blocks``
+    blocks (a multiple of ``csize``, the last may
+    have no rows) in clusters of ``csize`` (up to 8, no more than the blocks
+    with rows).  All blocks fit in one wave: at most ``resident`` clusters
+    of 8 (what the card holds of the instance at once) and two blocks an SM
+    of ``sms``.  Raises where the kernel takes no such shape."""
+    if rows <= 0 or c <= 0 or c % 8 or c > B16_MAX_C:
+        raise ValueError(f"the bfloat16 LayerNorm backward in 16-byte units "
+                         f"takes rows > 0 and C a multiple of 8 up to "
+                         f"{B16_MAX_C}, got ({rows}, {c})")
+    cdiv = lambda a, b: -(-a // b)
+    n = c // 8
+    lanes = B16_MIN_LANES
+    while lanes < B16_MAX_LANES and cdiv(n, lanes) > B16_MAX_UNITS:
+        lanes *= 2
+    groups = B16_THREADS // lanes
+    wave = min(resident * B16_MAX_CLUSTER, B16_BLOCKS_PER_SM * sms)
+    chunk = max(cdiv(rows, wave), B16_MIN_STEPS * groups)
+    nb = cdiv(rows, chunk)
+    csize = B16_MAX_CLUSTER
+    while csize > 1 and csize > nb:
+        csize //= 2
+    return dict(zip(B16_PLAN_KEYS, (lanes, cdiv(n, lanes), csize, chunk,
+                                    cdiv(nb, csize) * csize)))
+
+
 ACT_DTYPES = (torch.float32, torch.bfloat16)   # x, y, dy, dx
 
 
@@ -114,6 +166,18 @@ def bwd_vec(c: int, *tensors) -> int:
     boundary of its unit; else 0 (single elements)."""
     return vector_units(c, 4, *tensors)
 
+
+def bwd_vec_bf16(c: int, *tensors) -> int:
+    """The bfloat16 backward's units: 2 where it takes 16-byte units of 8
+    values in one launch (C % 8 == 0, C <= 2048, every tensor 16-byte
+    aligned), else ``bwd_vec``'s 1 (units of 4 values, 8 bytes) or 0."""
+    if c <= B16_MAX_C and vector_units(c, 8, *tensors):
+        return 2
+    return bwd_vec(c, *tensors)
+
+
+# the slot of the bfloat16 backward's tickets each (device, stream) uses
+ticket_slot = TicketSlots("bfloat16 LayerNorm backward")
 
 _LIB = None
 
@@ -139,8 +203,17 @@ def _lib():
         lib.vitta_ln_bwd_plan.restype = None
         lib.vitta_ln_fwd_bf16.argtypes = lib.vitta_ln_fwd.argtypes
         lib.vitta_ln_fwd_bf16.restype = ctypes.c_int
-        lib.vitta_ln_bwd_bf16.argtypes = lib.vitta_ln_bwd.argtypes
+        lib.vitta_ln_bwd_bf16.argtypes = lib.vitta_ln_bwd.argtypes[:-1] + [
+            ctypes.c_int, p]
         lib.vitta_ln_bwd_bf16.restype = ctypes.c_int
+        lib.vitta_ln_bwd_bf16_plan.argtypes = [ctypes.c_longlong,
+                                               ctypes.c_int, p]
+        lib.vitta_ln_bwd_bf16_plan.restype = None
+        lib.vitta_ln_bwd_bf16_scratch_floats.argtypes = \
+            lib.vitta_ln_bwd_scratch_floats.argtypes
+        lib.vitta_ln_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_ln_slots.argtypes = []
+        lib.vitta_ln_slots.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -176,13 +249,26 @@ def ln_bwd_plan_cuda(rows: int, c: int, vec: int) -> dict:
     return dict(zip(PLAN_KEYS, out))
 
 
+def ln_bwd_bf16_plan_cuda(rows: int, c: int) -> dict:
+    """The bfloat16 backward's own plan in 16-byte units, from csrc/ln.cu
+    (units 0 where it takes no such shape), with what it was made for: the
+    clusters of 8 blocks of its instance the card holds at once
+    (``resident``) and the card's SMs (``sms``)."""
+    keys = B16_PLAN_KEYS + ("resident", "sms")
+    out = (ctypes.c_longlong * len(keys))()
+    _lib().vitta_ln_bwd_bf16_plan(rows, c, out)
+    return dict(zip(keys, out))
+
+
 def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
-    """Backward kernels on ``x2`` (R, C) and the cotangent ``dy`` (R, C):
-    one wrapper call, two launches on the current stream (dx with the
-    blocks' partial column sums, then their sum); returns (dx, dgamma,
-    dbeta), allocated here with the scratch.  x and dy float32, or both
-    bfloat16 (dx then bfloat16, dgamma and dbeta float32).  Units of 4
-    elements where ``bwd_vec`` says so, single elements otherwise."""
+    """Backward kernels on ``x2`` (R, C) and the cotangent ``dy`` (R, C);
+    returns (dx, dgamma, dbeta), allocated here with the scratch.  x and dy
+    float32, or both bfloat16 (dx then bfloat16, dgamma and dbeta float32).
+    At bfloat16 in 16-byte units (``bwd_vec_bf16`` 2): one launch on the
+    current stream, which also adds the blocks' column sums, with the
+    stream's slot of tickets.  Otherwise two launches (dx with the blocks'
+    partial column sums, then their sum), units of 4 elements where
+    ``bwd_vec`` says so, single elements otherwise."""
     if x2.dim() != 2:
         raise ValueError(f"x must be (R, C), got shape {tuple(x2.shape)}")
     rows, c = x2.shape
@@ -199,16 +285,26 @@ def ln_bwd_cuda(x2, gamma, dy, eps: float = 1e-5):
     lib = _lib()
     dx = torch.empty_like(x2)
     dgb = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    scratch = torch.empty(lib.vitta_ln_bwd_scratch_floats(rows, c),
-                          dtype=torch.float32, device=x2.device)
-    vec = bwd_vec(c, x2, gamma, dy, dx)
-    bwd = lib.vitta_ln_bwd_bf16 if x2.dtype == torch.bfloat16 \
-        else lib.vitta_ln_bwd
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        code = bwd(x2.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
-                   dx.data_ptr(), dgb.data_ptr(), scratch.data_ptr(), rows,
-                   c, float(eps), vec, stream)
+    ptrs = (x2.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dgb.data_ptr())
+    if x2.dtype == torch.bfloat16:
+        vec = bwd_vec_bf16(c, x2, gamma, dy, dx)
+        floats = (lib.vitta_ln_bwd_bf16_scratch_floats(rows, c) if vec == 2
+                  else lib.vitta_ln_bwd_scratch_floats(rows, c))
+        slot = (ticket_slot(x2.device, stream, lib.vitta_ln_slots())
+                if vec == 2 else 0)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x2.device)
+        with torch.cuda.device(x2.device):
+            code = lib.vitta_ln_bwd_bf16(*ptrs, scratch.data_ptr(), rows, c,
+                                         float(eps), vec, slot, stream)
+    else:
+        vec = bwd_vec(c, x2, gamma, dy, dx)
+        scratch = torch.empty(lib.vitta_ln_bwd_scratch_floats(rows, c),
+                              dtype=torch.float32, device=x2.device)
+        with torch.cuda.device(x2.device):
+            code = lib.vitta_ln_bwd(*ptrs, scratch.data_ptr(), rows, c,
+                                    float(eps), vec, stream)
     raise_on(code, "LayerNorm backward kernel")
     counters.bwd += 1
     return dx, dgb[0], dgb[1]

@@ -41,12 +41,11 @@ cut (R, C), so that the CPU tests can follow their order of summation.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         grad_wanted, raise_on)
+from vitta_tpu_torch.ops._launch import (LaunchCounters, TicketSlots,
+                                         check_tensor, grad_wanted, raise_on)
 from vitta_tpu_torch.ops.stats import TapStats, channel_stats
 
 counters = LaunchCounters("fwd", "bwd")
@@ -166,39 +165,7 @@ def bn_plan_cuda(rows: int, c: int, v: int, dtype, bwd: bool) -> dict:
     return dict(zip(PLAN_KEYS + ("resident", "sms"), out))
 
 
-class TicketSlots:
-    """The slot of the kernels' tickets each (device, stream) uses.
-
-    The tickets are the library's own device array (one copy per device),
-    zero when it is loaded; a launch draws one per block of a column tile
-    and leaves every one of them 0 again.  Two streams may run the kernels
-    at once, so each (device index, stream handle) gets a slot of its own,
-    handed out in the order they are first seen, at most
-    ``vitta_bn_stats_slots()`` per device; beyond that a call raises.  The
-    slot is a launch argument and the array never moves, so a CUDA graph
-    captures and replays it as it is: nothing is allocated or zeroed a
-    call.  Replaying one graph on two streams at once would share a slot,
-    as it shares the graph's scratch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._slots = {}
-
-    def __call__(self, device: torch.device, stream: int, most: int) -> int:
-        key = (device.index, stream)
-        with self._lock:
-            slot = self._slots.get(key)
-            if slot is None:
-                slot = sum(d == device.index for d, _s in self._slots)
-                if slot >= most:
-                    raise RuntimeError(
-                        f"the BatchNorm-statistics kernels run on at most "
-                        f"{most} streams of a device; {device} has used them")
-                self._slots[key] = slot
-        return slot
-
-
-ticket_slot = TicketSlots()
+ticket_slot = TicketSlots("BatchNorm-statistics")
 
 
 def _launch_args(x2):

@@ -28,10 +28,13 @@ kernels' bits; dattn and dkernel differ by the order of float32 sums.  On
 the CPU ``TamPlain`` runs the plain forward and the plain backward
 (``tam_dynamic_conv_backward_reference``) at either dtype: at bfloat16
 torch's autograd of the plain forward would round the gradients of attn
-and the weights to bfloat16.  At bfloat16 the
-backward's 4-channel units are 8 bytes of g, x and dx, and the forward
-takes 8 channels a thread with 16-byte loads where C % 8 == 0 and x, attn
-and out are 16-byte aligned.
+and the weights to bfloat16.  At bfloat16 the forward and the backward take
+8 channels a thread with 16-byte loads where C % 8 == 0 and their tensors
+are 16-byte aligned (every TANet site), one channel a thread elsewhere.
+The bfloat16 backward in 16-byte units is one launch: its blocks' partial
+rows are added by the blocks that draw the last tickets (csrc/tam.cu:
+tam_bwd_bf16x8_kernel; the tickets' slot is the stream's,
+``TicketSlots``), and ``bwd_plan_bf16`` mirrors how it cuts the work.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from vitta_tpu_torch.ops._launch import (LaunchCounters, check_tensor,
-                                         raise_on, vector_units)
+from vitta_tpu_torch.ops._launch import (LaunchCounters, TicketSlots,
+                                         check_tensor, raise_on,
+                                         vector_units)
 
 KSIZE = 3  # reference TAM kernel size (temporal_module.py:27)
 # the activations' types the kernels take (attn and the weights: float32)
@@ -59,6 +63,13 @@ BWD_DEPTH, BWD_MAX_UNITS, BWD_MIN_POSITIONS = 4, 16, 32
 BWD_MAX_SEG_FRAMES, BWD_TARGET_BLOCKS, BWD_THREADS = 16, 132, 256
 PLAN_KEYS = ("vec", "units", "wc", "slots", "pp", "seg_len", "nseg", "npb",
              "ncc")
+# csrc/tam.cu's constants of the bfloat16 backward in 16-byte units: a
+# block's threads, blocks an SM the grid aims at, frames of a segment, most
+# units of 8 channels a block spans, runs of slots a block adds at once
+B16_THREADS, B16_BLOCKS_PER_SM, B16_FRAMES, B16_MAX_UNITS = 256, 2, 4, 4
+B16_SLOT_PARTS = 8
+B16_PLAN_KEYS = ("units", "wc", "slots", "pp", "nseg", "npb", "ncc",
+                 "blocks")
 
 
 def bwd_plan(n, t, p, c, vec=None, depth=BWD_DEPTH):
@@ -84,6 +95,31 @@ def bwd_plan(n, t, p, c, vec=None, depth=BWD_DEPTH):
     seg_len = chunks * depth
     return dict(zip(PLAN_KEYS, (vec, units, wc, slots, pp, seg_len,
                                 cdiv(t, seg_len), npb, ncc)))
+
+
+def bwd_plan_bf16(n, t, p, c, sms):
+    """How the bfloat16 backward in 16-byte units cuts (N, T, P, C), as
+    ``plan_bf16`` in csrc/tam.cu: units of 8 channels; blocks of ``wc``
+    units x ``slots`` positions (256 threads or just under), each thread
+    walking ``pp`` positions in turn; T in ``nseg`` segments of 4 frames,
+    ``ncc`` channel chunks and ``npb`` position blocks, ``blocks`` in all,
+    at most two an SM of ``sms`` where the positions allow (pp as small as
+    that leaves).  Block b is (n, chunk, position block, segment), the
+    segment varying fastest."""
+    if c % 8:
+        raise ValueError(f"the bfloat16 TAM backward in 16-byte units takes "
+                         f"C a multiple of 8, got {c}")
+    cdiv = lambda a, b: -(-a // b)
+    units = c // 8
+    wc = min(units, B16_MAX_UNITS)
+    slots = B16_THREADS // wc
+    ncc, nseg = cdiv(units, wc), cdiv(t, B16_FRAMES)
+    per = n * ncc * nseg
+    most = max(B16_BLOCKS_PER_SM * sms // per, 1)
+    pp = cdiv(p, most * slots)
+    npb = cdiv(p, slots * pp)
+    return dict(zip(B16_PLAN_KEYS, (units, wc, slots, pp, nseg, npb, ncc,
+                                    per * npb)))
 
 
 def _rounded(v, dtype):
@@ -160,8 +196,14 @@ def _lib():
         lib.vitta_tam_bwd.restype = i
         lib.vitta_tam_fwd_bf16.argtypes = [p, p, p, p] + [i] * 5 + [p]
         lib.vitta_tam_fwd_bf16.restype = i
-        lib.vitta_tam_bwd_bf16.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.vitta_tam_bwd_bf16.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.vitta_tam_bwd_bf16.restype = i
+        lib.vitta_tam_bwd_bf16_scratch_floats.argtypes = [i] * 5
+        lib.vitta_tam_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
+        lib.vitta_tam_bwd_bf16_plan.argtypes = [i] * 4 + [p]
+        lib.vitta_tam_bwd_bf16_plan.restype = None
+        lib.vitta_tam_slots.argtypes = []
+        lib.vitta_tam_slots.restype = i
         lib.vitta_tam_bwd_scratch_floats.argtypes = [i] * 5
         lib.vitta_tam_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.vitta_tam_bwd_plan.argtypes = [i] * 5 + [p]
@@ -184,9 +226,15 @@ def _check(x, attn, kernel, g=None):
 
 
 def bwd_vec(c, *tensors) -> int:
-    """1 where the backward takes units of 4 channels (16 bytes of float32,
-    8 of bfloat16; attn's always 16), else 0 (one channel a thread)."""
-    return vector_units(c, 4, *tensors)
+    """1 where the backward takes 16-byte units (4 channels of float32, 8
+    of bfloat16; attn float32 either way), else 0 (one channel a
+    thread)."""
+    bf16 = any(t.dtype == torch.bfloat16 for t in tensors)
+    return vector_units(c, 8 if bf16 else 4, *tensors)
+
+
+# the slot of the bfloat16 backward's tickets each (device, stream) uses
+ticket_slot = TicketSlots("bfloat16 TAM backward")
 
 
 def fwd_vec_bf16(c, *tensors) -> int:
@@ -201,6 +249,15 @@ def bwd_plan_cuda(n, t, p, c, vec=None):
     vec = int(c % 4 == 0 if vec is None else vec)
     _lib().vitta_tam_bwd_plan(n, t, p, c, vec, out)
     return dict(zip(PLAN_KEYS, out))
+
+
+def bwd_plan_bf16_cuda(n, t, p, c):
+    """The bfloat16 backward's own plan in 16-byte units, from csrc/tam.cu,
+    with the card's SMs it was made for (``sms``)."""
+    keys = B16_PLAN_KEYS + ("sms",)
+    out = (ctypes.c_longlong * len(keys))()
+    _lib().vitta_tam_bwd_bf16_plan(n, t, p, c, out)
+    return dict(zip(keys, out))
 
 
 def tam_fwd_cuda(x, attn, kernel):
@@ -221,24 +278,36 @@ def tam_fwd_cuda(x, attn, kernel):
 
 
 def tam_bwd_cuda(g, x, attn, kernel):
-    """Backward kernel: (dx, dattn, dkernel) for the cotangent ``g``; two
-    launches, the second the sum of the blocks' partial rows."""
+    """Backward kernel: (dx, dattn, dkernel) for the cotangent ``g``.  At
+    bfloat16 in 16-byte units (``bwd_vec`` 1) one launch, which also adds
+    the blocks' partial rows, with the stream's slot of tickets; otherwise
+    two launches, the second the sum of the blocks' partial rows."""
     n, t, p, c = _check(x, attn, kernel, g)
     lib = _lib()
     dx = torch.empty_like(x)
     dattn = torch.empty_like(attn)
     dkernel = torch.empty_like(kernel)
     vec = bwd_vec(c, g, x, attn, dx)
-    scratch = torch.empty(lib.vitta_tam_bwd_scratch_floats(n, t, p, c, vec),
-                          dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    entry = (lib.vitta_tam_bwd if x.dtype == torch.float32
-             else lib.vitta_tam_bwd_bf16)
-    with torch.cuda.device(x.device):
-        code = entry(g.data_ptr(), x.data_ptr(), attn.data_ptr(),
-                     kernel.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
-                     dattn.data_ptr(), dkernel.data_ptr(), n, t, p, c, vec,
-                     stream)
+    ptrs = (g.data_ptr(), x.data_ptr(), attn.data_ptr(), kernel.data_ptr(),
+            dx.data_ptr())
+    outs = (dattn.data_ptr(), dkernel.data_ptr())
+    if x.dtype == torch.float32:
+        scratch = torch.empty(lib.vitta_tam_bwd_scratch_floats(n, t, p, c,
+                                                               vec),
+                              dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            code = lib.vitta_tam_bwd(*ptrs, scratch.data_ptr(), *outs, n, t,
+                                     p, c, vec, stream)
+    else:
+        slot = ticket_slot(x.device, stream, lib.vitta_tam_slots()) \
+            if vec else 0
+        scratch = torch.empty(
+            lib.vitta_tam_bwd_bf16_scratch_floats(n, t, p, c, vec),
+            dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            code = lib.vitta_tam_bwd_bf16(*ptrs, scratch.data_ptr(), *outs,
+                                          n, t, p, c, vec, slot, stream)
     raise_on(code, "TAM backward kernel")
     counters.bwd += 1
     return dx, dattn, dkernel
