@@ -3555,6 +3555,21 @@ def ln_bwd_one_launch(what, x, g, dy):
                          next(iter(names)))
 
 
+def ln_fwd_one_launch(what, x, g, b):
+    """The bfloat16 LayerNorm forward on (x, g, b): one launch of the
+    ln_fwd_bf16x8 instance its plan names (the library's own counts), the
+    plan the mirror's (``cuda_ln.ln_fwd_bf16_plan`` at the blocks an SM
+    holds), repeats, another stream and CUDA graph replays bit-equal."""
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    plan = cl.ln_fwd_bf16_plan_cuda(*x.shape)
+    mirror = cl.ln_fwd_bf16_plan(*x.shape, plan["per_sm"], plan["sms"])
+    if {k: plan[k] for k in mirror} != mirror:
+        raise AssertionError(f"{what}: the kernel's plan {plan} is not "
+                             f"ln_fwd_bf16_plan's {mirror}")
+    one_launch_and_graph(f"{what} fwd", lambda: (cl.ln_fwd_cuda(
+        x, g, b, 1e-5),), f"ln_fwd_bf16x8<{plan['units']}, {plan['lanes']}>")
+
+
 def phase_bf16_swin_kernels(dev):
     """Phase 25: the bfloat16 LayerNorm, LayerNorm-MLP and packed attention
     kernels (rows 3, 4, 10, 11, 14, 15 in the bfloat16 Swin) against their
@@ -3570,7 +3585,11 @@ def phase_bf16_swin_kernels(dev):
     those within 2^-7 of the absolute products through e and dl; float32
     outputs (dgamma, dbeta, ms, dbias) within the float32 phases'
     tolerances; two backward runs bit-equal; launches per call from the
-    libraries' counts, every one a bfloat16 instance; a LayerNorm view 2
+    libraries' counts, every one a bfloat16 instance; the LayerNorm forward
+    at every Swin-B and Swin-T site at 1 and 2 clips one launch of the
+    16-byte form its plan (the mirror's) names, bit-equal over repeats,
+    another stream and graph replays, with device us beside the bound and
+    F.layer_norm's per Swin-T site and pass; a LayerNorm view 2
     bytes past a 16-byte boundary on the one-value path.  Each row's
     ``max_abs_err`` is the largest difference of any of its outputs from
     the plain version it is held to.  Device ms per Swin-B pass of 2 clips
@@ -3668,7 +3687,7 @@ def phase_bf16_swin_kernels(dev):
         for clips in (1, 2):
             x = (randn(clips * tokens, c, scale=2.0) + 0.5).to(bf16)
             what = f"ln bf16 rows={clips * tokens} C={c}"
-            kernels(lambda: cl.ln_fwd_cuda(x, g, b, 1e-5), 1)
+            ln_fwd_one_launch(what, x, g, b)
             note("y", "ln_fwd", assert_bf16_within(
                 f"{what} y", cl.ln_fwd_cuda(x, g, b, 1e-5),
                 cl.layer_norm_reference(x, g, b, 1e-5)))
@@ -3727,6 +3746,39 @@ def phase_bf16_swin_kernels(dev):
                               library_device_ms=t["F.layer_norm bwd"][1],
                               bytes=3 * nel * 2 + 3 * c * 4, flops=12 * nel)
             del x, dy, got, again, want, xl, yl
+    # the forward at every Swin-T site (1 and 2 clips): values, one launch
+    # of the 16-byte form, its plan, repeats and graph replays bit-equal,
+    # device us beside the bound, F.layer_norm's beside it, per pass
+    f_pass = {1: [0.0, 0.0, 0.0], 2: [0.0, 0.0, 0.0]}
+    for (tokens, c), sites in SWIN_T_LN_SITES.items():
+        g, b = randn(c), randn(c)
+        gb, bb = g.to(bf16), b.to(bf16)
+        for clips in (1, 2):
+            rows = clips * tokens
+            x = (randn(rows, c, scale=2.0) + 0.5).to(bf16)
+            what = f"ln bf16 swin-T rows={rows} C={c}"
+            ln_fwd_one_launch(what, x, g, b)
+            note("y", "ln_fwd", assert_bf16_within(
+                f"{what} y", cl.ln_fwd_cuda(x, g, b, 1e-5),
+                cl.layer_norm_reference(x, g, b, 1e-5)))
+            dev_ms = graph_ms(lambda: cl.ln_fwd_cuda(x, g, b, 1e-5))
+            lib_ms = graph_ms(lambda: F.layer_norm(x, (c,), gb, bb, 1e-5))
+            nb = 2 * x.numel() * 2 + 2 * c * 4
+            acc = f_pass[clips]
+            acc[0] = None if dev_ms is None or acc[0] is None \
+                else acc[0] + sites * dev_ms
+            acc[1] = None if lib_ms is None or acc[1] is None \
+                else acc[1] + sites * lib_ms
+            acc[2] += sites * bound(nb, 0)[0]
+            print(f"{what} fwd ({sites} sites): device us "
+                  f"{fmt(dev_ms and dev_ms * 1e3)} against its bound "
+                  f"{bound(nb, 0)[0] * 1e3:.2f} us, F.layer_norm "
+                  f"{fmt(lib_ms and lib_ms * 1e3)}", flush=True)
+            del x
+    for clips, (dv, lb, bd) in f_pass.items():
+        print(f"ln_fwd_bf16 per Swin-T pass of {clips} clip(s): device ms "
+              f"{fmt(dv)}, F.layer_norm {fmt(lb)}, bound {bd:.4f} ms by "
+              "bytes at bfloat16", flush=True)
     # the standalone backward at every Swin-T site too (2 clips): values,
     # one launch, its plan, repeats and graph replays bit-equal, device ms
     t_pass, t_bound = 0.0, 0.0
@@ -4747,6 +4799,12 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     counts = _swin_counts()
     peak = torch.cuda.max_memory_allocated()
     _bf16_swin_launches(names)
+    # every LayerNorm forward (standalone, and the first step of the
+    # LayerNorm-MLP and ln_proj chains) in 16-byte units: none one value at
+    # a time
+    if names.get("ln_rows_any<__nv_bfloat16>"):
+        raise AssertionError(f"bf16 {what}: {names} holds one-value "
+                             "LayerNorm forward launches")
     # the standalone LayerNorm backward: one ln_bwd_bf16x8 launch a call,
     # none of the two-launch instance (ln_bwd_kernel<..., __nv_bfloat16,
     # __nv_bfloat16> and its reduce); the LayerNorm-MLP's LayerNorm step is
@@ -4754,6 +4812,8 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
     ln_one = sum(n for k, n in names.items() if k.startswith("ln_bwd_bf16x8<"))
     ln_two = sum(n for k, n in names.items() if k.startswith("ln_bwd_kernel<")
                  and k.endswith("__nv_bfloat16, __nv_bfloat16>"))
+    ln_fwd16 = sum(n for k, n in names.items()
+                   if k.startswith("ln_fwd_bf16x8<"))
     if ln_one != counts["ln_bwd"] or ln_two:
         raise AssertionError(f"bf16 {what}: {ln_one} ln_bwd_bf16x8 and "
                              f"{ln_two} two-launch LayerNorm backward "
@@ -4797,7 +4857,9 @@ def phase_bf16_swin_full(cfg, sd, stats, seed, card,
           f"{meters['loss_reg'].avg:.5f} consis "
           f"{meters['loss_consis'].avg:.5f}, launches {counts}; the "
           f"standalone LayerNorm backward {ln_one // n_videos} launches a "
-          f"video, one a call (the libraries' counts); bfloat16 "
+          f"video, one a call (the libraries' counts); the LayerNorm "
+          f"forward in 16-byte units {ln_fwd16 // n_videos} launches a "
+          f"video, one value at a time 0; bfloat16 "
           f"kernel instances "
           f"{sum(n for k, n in names.items() if _bf16_name(k))}; on {card}",
           flush=True)

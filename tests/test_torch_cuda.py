@@ -1571,8 +1571,11 @@ def test_bf16_tanet_runs_through_the_kernels(cuda_device):
                    if all(p in k for p in parts)
                    and ("bfloat16" in k or "bf16" in k) == bf16)
     assert count("tam_fwd") == 16 and count("tam_fwd", bf16=False) == 0
-    assert count("tam_bwd_kernel") == 16, names
-    assert count("tam_bwd_kernel", bf16=False) == 0, names
+    # the TAM backward in one launch a call (tam_bwd_bf16x8_kernel), none of
+    # the two-launch form (tam_bwd_kernel and its reduce)
+    assert count("tam_bwd_bf16x8_kernel") == 16, names
+    assert count("tam_bwd_kernel") == 0, names
+    assert count("tam_bwd", bf16=False) == 0, names
     for d in ("fwd", "bwd"):
         assert count(f"bn_stats_{d}_kernel") == 53, names
         assert count(f"bn_stats_{d}_kernel", bf16=False) == 32, names
@@ -1595,11 +1598,14 @@ def test_bf16_tanet_runs_through_the_kernels(cuda_device):
 # dl.  Float32 outputs (dgamma, dbeta, dh, dy, dbias, ms) to GRAD_REL / 2e-5,
 # as at float32.
 # Inputs are rounded to bfloat16 once; the plain versions run on the card.
-# Swin-B at one clip: every LayerNorm shape (tokens, C), the stage widths
-# and the merging norms, and rows and widths the vector path does not take
+# Swin-B and Swin-T at one clip: every LayerNorm shape (tokens, C), the
+# stage widths and the merging norms, and rows and widths off the Swin
+# sites (C = 8 and 24: units past the row; 1040: 32 lanes of 5 units)
 SWIN_B_LN_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
-                  (6272, 512), (1568, 1024), (392, 2048), (50, 96), (7, 8),
-                  (33, 24)]
+                  (6272, 512), (1568, 1024), (392, 2048), (25088, 96),
+                  (6272, 192), (6272, 384), (1568, 384), (1568, 768),
+                  (392, 768), (392, 1536), (50, 96), (7, 8), (33, 24),
+                  (5, 1040)]
 SWIN_B_MLP_BF16 = [(25088, 128), (6272, 256), (1568, 512), (392, 1024),
                    (3136, 512), (784, 1024), (77, 256), (9, 8)]
 SWIN_B_ATTN_BF16 = [dict(b_=64, nh=4, hd=32, window=(8, 7, 7), nw=64),
@@ -1642,8 +1648,13 @@ def test_ln_bf16_kernels_match_plain(cuda_device, rows, c):
     _assert_grad("dbeta", bg.grad, want[2])
     fwd = launches_of(lambda: cuda_ln.ln_fwd_cuda(x, g, b, 1e-5))
     assert sum(fwd.values()) == 1 and _bf16_names(fwd) == fwd, fwd
-    vector = c in (64, 128, 256, 512, 1024, 2048)
-    assert any("ln_rows_bf16x8" in k for k in fwd) == vector, fwd
+    # every aligned C % 8 == 0 up to 2048 takes the 16-byte form, the
+    # instance its plan names
+    plan = cuda_ln.ln_fwd_bf16_plan_cuda(rows, c)
+    assert cuda_ln.fwd_vec_bf16(c, x, g, b) == 1
+    assert fwd == {f"ln_fwd_bf16x8<{plan['units']}, {plan['lanes']}>": 1}, \
+        fwd
+    assert torch.equal(cuda_ln.ln_fwd_cuda(x, g, b, 1e-5), y.detach())
     # 16-byte units (every C here % 8 == 0): one launch a call, the blocks'
     # column sums finished inside it
     bwd = launches_of(lambda: cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5))
@@ -1675,6 +1686,8 @@ def test_ln_bf16_takes_unaligned_views(cuda_device):
     assert cuda_ln.bwd_vec(c, x, g, dy) == 1
     assert cuda_ln.bwd_vec_bf16(c, xs, g, dys) == 0
     assert cuda_ln.bwd_vec_bf16(c, x, g, dy) == 2
+    assert cuda_ln.fwd_vec_bf16(c, xs, g, b) == 0
+    assert cuda_ln.fwd_vec_bf16(c, x, g, b) == 1
     fwd = launches_of(lambda: cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5))
     assert fwd == {"ln_rows_any<__nv_bfloat16>": 1}, fwd
     _within_one_bf16_ulp("y", cuda_ln.ln_fwd_cuda(xs, g, b, 1e-5),
@@ -1978,10 +1991,14 @@ def test_bf16_swin_runs_through_the_kernels(cuda_device):
         return sum(n for k, n in names.items()
                    if part in k and ("bfloat16" in k or "bf16" in k) == bf16)
     # 6 LayerNorms of their own (norm1 of the 3 blocks, the patch-embed,
-    # merging and final norms) and norm2 in each of the 3 LayerNorm-MLPs
-    assert count("ln_rows") == 6 + 3, names
-    assert count("ln_rows", bf16=False) == 0, names
-    assert count("ln_bwd_kernel") == 6 + 3, names   # and 3 in the LN-MLPs
+    # merging and final norms) and norm2 in each of the 3 LayerNorm-MLPs, all
+    # in 16-byte units (no one-value ln_rows_any); the 6 standalone
+    # backwards in one ln_bwd_bf16x8 launch each, the LN-MLPs' LayerNorm step
+    # on ln_bwd_kernel
+    assert count("ln_fwd_bf16x8") == 6 + 3, names
+    assert count("ln_rows") == count("ln_rows", bf16=False) == 0, names
+    assert count("ln_bwd_bf16x8") == 6, names
+    assert count("ln_bwd_kernel") == 3, names
     assert count("attn_fwd_bf16_kernel") == 3, names
     assert count("attn_bwd_bf16_kernel") == 3, names
     # 2 products a forward, 3 launches a backward (dw1 and dw2 in one)
@@ -2564,6 +2581,25 @@ def test_ln_bwd_bf16_plan_is_the_mirror(cuda_device):
         assert resident >= 1 and sms >= 1
         assert own == cuda_ln.ln_bwd_bf16_plan(rows, c, resident, sms), \
             (rows, c)
+
+
+@pytest.mark.cuda
+def test_ln_fwd_bf16_plan_is_the_mirror(cuda_device):
+    """csrc/ln_rows.cuh's plan of ln_fwd_bf16x8 against ``cuda_ln.
+    ln_fwd_bf16_plan`` at the blocks of the instance an SM holds, at every
+    Swin-B and Swin-T site at 1 and 2 clips and odd widths; widths the
+    kernel does not take have no plan (units 0)."""
+    sites = SWIN_LN_BF16_SITES + [(rows // 2, c)
+                                  for rows, c in SWIN_LN_BF16_SITES
+                                  if rows > 1]
+    for rows, c in sites + [(5, 1040), (9, 1800)]:
+        own = cuda_ln.ln_fwd_bf16_plan_cuda(rows, c)
+        per_sm, sms = own.pop("per_sm"), own.pop("sms")
+        assert per_sm >= 1 and sms >= 1
+        assert own == cuda_ln.ln_fwd_bf16_plan(rows, c, per_sm, sms), \
+            (rows, c)
+    for rows, c in ((8, 100), (8, 2056), (0, 128)):
+        assert cuda_ln.ln_fwd_bf16_plan_cuda(rows, c)["units"] == 0
 
 
 @pytest.mark.cuda

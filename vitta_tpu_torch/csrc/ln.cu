@@ -27,7 +27,11 @@
 // and dx bfloat16; gamma, beta, the statistics, every sum and dgamma and
 // dbeta float32, pallas_ln.py:47-73) the same arithmetic takes bfloat16
 // rows: y and dx are rounded once.  The bound halves with the bytes.  The
-// forward moves 16-byte units of 8 values (ln_rows.cuh).  The backward,
+// forward (ln_rows.cuh: ln_fwd_bf16x8, one launch a call) takes every C %
+// 8 == 0 up to 2048 on 16-byte aligned pointers in 16-byte units of 8
+// values, gamma and beta loaded into registers while the rows load, the
+// rows shared over one wave; its plan is vitta_ln_fwd_bf16_plan's.  The
+// backward,
 // where C % 8 == 0, C <= kLnB16MaxC and x, dy, dx and gamma are 16-byte
 // aligned (every Video Swin site), is ln_bwd_bf16x8 below: one launch a
 // call.  At the Swin-B sites a call moves 5-40 MB, 1.4-12 us at the card's
@@ -56,8 +60,9 @@
 // Elsewhere (C not a multiple of 8, a view off a 16-byte boundary, C above
 // kLnB16MaxC) the float32 plan's kernel takes units of 4 (8 bytes) or
 // single values, and the second launch (ln_rows.cuh: launch_ln_bwd).
-// tools/ln_variants.py builds copies with other constants and times them in
-// turns with another checkout's kernels.
+// tools/ln_variants.py builds copies with other constants and times them
+// (backward, and with --fwd the bfloat16 forward) in turns with another
+// checkout's kernels.
 
 #include "ln_rows.cuh"
 #include "tickets.cuh"
@@ -600,6 +605,18 @@ int vitta_ln_fwd_bf16(const void* x, const float* gamma, const float* beta,
                                     gamma, beta,
                                     reinterpret_cast<vitta::bf16*>(y), rows,
                                     c, eps, (cudaStream_t)stream);
+}
+
+// The bfloat16 forward's plan in 16-byte units (ln_fwd_bf16x8), as seven
+// numbers: lanes, units, batch, chunk, blocks (LnFwdPlan), and what it was
+// made for: the blocks of the instance an SM holds, the card's SMs; units
+// 0 where it takes no such shape.
+void vitta_ln_fwd_bf16_plan(long long rows, int c, long long* out) {
+  int per_sm = 0;
+  const vitta::LnFwdPlan q = vitta::ln_fwd_bf16_plan_of(rows, c, &per_sm);
+  const long long v[7] = {q.lanes, q.units, q.batch, q.chunk, q.blocks,
+                          per_sm, vitta::sm_count()};
+  for (int k = 0; k < 7; ++k) out[k] = v[k];
 }
 
 // vec 2: 16-byte units of 8 values, one launch (ln_bwd_bf16x8; c % 8 == 0,

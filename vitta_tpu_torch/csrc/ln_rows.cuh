@@ -12,9 +12,9 @@
 // C == 128 * VEC (every Swin-B width); the generic form takes any C and
 // reads the row a second time, which the L1 cache serves.  At bfloat16
 // (x and y bfloat16, gamma, beta and every sum float32, y rounded once)
-// the vector form moves 16-byte units of 8 values, LANES = min(32, C / 8)
-// lanes a row and 32 / LANES rows a warp (C = 128: two rows a warp), so
-// that every lane holds whole units of one row.
+// ln_fwd_bf16x8 below takes every C % 8 == 0 up to 2048 on 16-byte aligned
+// pointers in 16-byte units of 8 values (its design is at its definition);
+// the generic form takes the rest (unaligned views, C % 8 != 0).
 //
 // Backward, from (x, gamma, dy), with xh = (x - mu) * rstd recomputed and
 // wg = dy * gamma:
@@ -175,67 +175,6 @@ ln_rows_any(const E* __restrict__ x, const float* __restrict__ gamma,
     from_float(yr[j], (to_float(xr[j]) - mu) * rstd * gamma[j] + beta[j]);
 }
 
-// bfloat16 rows of C = 8 * UNITS * LANES: LANES lanes a row, each with
-// UNITS 16-byte units of 8 values, 32 / LANES rows a warp; the sums over a
-// row's lanes only.
-template <int UNITS, int LANES>
-__global__ void __launch_bounds__(kLnThreads)
-ln_rows_bf16x8(const bf16* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, bf16* __restrict__ y,
-               long long rows, float eps) {
-  constexpr int C = 8 * UNITS * LANES;
-  constexpr int kRowsPerWarp = 32 / LANES;
-  const int lane = threadIdx.x & 31, sub = lane % LANES;
-  const long long row =
-      ((long long)blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5)) *
-          kRowsPerWarp + lane / LANES;
-  const bool ok = row < rows;
-  float v[UNITS][8];
-  float s = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < UNITS; ++i) {
-    uint4 t = make_uint4(0u, 0u, 0u, 0u);
-    if (ok)
-      t = *reinterpret_cast<const uint4*>(x + row * C +
-                                          8 * (sub + LANES * i));
-    const unsigned w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[i][2 * j] = bf16_lo(w[j]);
-      v[i][2 * j + 1] = bf16_hi(w[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s += v[i][j];
-      sq += v[i][j] * v[i][j];
-    }
-  }
-#pragma unroll
-  for (int o = LANES / 2; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  }
-  if (!ok) return;
-  const float mu = s * (1.0f / C);
-  const float rstd = rsqrtf(sq * (1.0f / C) - mu * mu + eps);
-#pragma unroll
-  for (int i = 0; i < UNITS; ++i) {
-    const int c0 = 8 * (sub + LANES * i);
-    const float4 g0 = *reinterpret_cast<const float4*>(gamma + c0);
-    const float4 g1 = *reinterpret_cast<const float4*>(gamma + c0 + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(beta + c0);
-    const float4 b1 = *reinterpret_cast<const float4*>(beta + c0 + 4);
-    const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-    float o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o[j] = (v[i][j] - mu) * rstd * g[j] + b[j];
-    *reinterpret_cast<uint4*>(y + row * C + c0) =
-        make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]),
-                   pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
-  }
-}
-
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
@@ -276,30 +215,242 @@ inline cudaError_t launch_ln_rows(const float* x, const float* gamma,
   return cudaGetLastError();
 }
 
-// The same at bfloat16 (x, y bfloat16): 16-byte units where C is one of
-// the vector widths and x, y, gamma and beta are 16-byte aligned, one
-// value at a time otherwise, with the same values.
+// ------------------------------------------------------- forward, bfloat16
+//
+// ln_fwd_bf16x8: bfloat16 rows with C % 8 == 0 up to kLnF16MaxC on 16-byte
+// aligned pointers (every Video Swin width, Swin-B's 128 * 2^k and Swin-T's
+// 96 * 2^k), one launch a call.  A row is L lanes of one warp (4 to 32, a
+// power of two), each holding U 16-byte units of 8 values of it, units
+// lane, lane + L, ...: the fewest lanes with at most kLnF16MaxUnits units a
+// lane (C = 96: 4 lanes of 3 units; 128: 8 of 2; 384: 16 of 3; 512: 32 of
+// 2), and 32 lanes of up to 8 units beyond (1536: 6, 2048: 8).  A row's
+// sums are each lane's over its units in order, then a butterfly over the
+// row's lanes: no shared memory, no barrier.  Rows of C <= kLnF16BatchC
+// are taken kLnF16Batch at a time by a row group, all their loads issued
+// before any is used (64-96 bytes in flight a lane).  Each lane loads its
+// units' gamma and beta into registers right after its first rows' loads
+// (the L1 serves the SM's later warps), so that no row waits on a second
+// trip to memory after its sums; staged in shared memory once a block,
+// they put a barrier and every block's loads of the same lines before the
+// sums.  Up to 255 registers a thread at 8 units: 128-thread blocks keep
+// the blocks an SM holds granular.  The grid (ln_fwd_bf16_plan) shares the
+// rows evenly over the blocks the card holds in one wave, at least a
+// step's rows a block; a warp whose rows run out stops.  Every sum is
+// float32, y is rounded once.  ops/cuda_ln.py:ln_fwd_bf16_plan mirrors the
+// plan.
+
+constexpr int kLnF16Threads = 128;      // a block: 4 warps
+constexpr int kLnF16MaxUnits = 3;       // units a lane, below 32 lanes a row
+constexpr int kLnF16MaxLanes = 32;      // a row within one warp
+constexpr int kLnF16MaxC = 2048;
+constexpr int kLnF16BatchC = 256;       // rows this wide or narrower are
+constexpr int kLnF16Batch = 2;          // taken this many at a time
+
+// Rows a row group takes at once, `units` units of `lanes` lanes a row.
+__host__ __device__ constexpr int ln_fwd_batch(int units, int lanes) {
+  return 8 * units * lanes <= kLnF16BatchC ? kLnF16Batch : 1;
+}
+
+// How ln_fwd_bf16x8 cuts (rows, c): `lanes` lanes a row, each holding
+// `units` units; a row group takes `batch` rows at once; `blocks` blocks of
+// `chunk` contiguous rows (the last may have fewer), at most `per_sm` blocks
+// an SM of `sms` (one wave) unless a block would take less than a step
+// (kLnF16Threads / lanes * batch rows).  units 0 where the kernel takes no
+// such shape.
+struct LnFwdPlan {
+  int lanes, units, batch;
+  long long chunk, blocks;
+};
+
+inline LnFwdPlan ln_fwd_bf16_plan(long long rows, int c, int per_sm,
+                                  int sms) {
+  LnFwdPlan q{0, 0, 1, 0, 0};
+  if (rows <= 0 || c <= 0 || c % 8 != 0 || c > kLnF16MaxC) return q;
+  const int n = c / 8;
+  int lanes = 4;
+  while (lanes < kLnF16MaxLanes && (n + lanes - 1) / lanes > kLnF16MaxUnits)
+    lanes *= 2;
+  q.lanes = lanes;
+  q.units = (n + lanes - 1) / lanes;
+  q.batch = ln_fwd_batch(q.units, lanes);
+  const long long step = (long long)(kLnF16Threads / lanes) * q.batch;
+  const long long wave = (long long)per_sm * sms;
+  q.chunk = (rows + wave - 1) / wave;
+  if (q.chunk < step) q.chunk = step;
+  q.blocks = (rows + q.chunk - 1) / q.chunk;
+  return q;
+}
+
+// The B rows from `row` of the units a lane holds, as they lie in memory
+// (zero where the row or the unit does not exist).
+template <int U, int L, int B>
+__device__ __forceinline__ void ln_fwd_load(const bf16* __restrict__ x,
+                                            long long row, long long r1,
+                                            int n, int sub,
+                                            uint4 (&v)[B][U]) {
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int u = sub + L * i;
+      v[b][i] = make_uint4(0u, 0u, 0u, 0u);
+      if (row + b < r1 && u < n)
+        v[b][i] = *reinterpret_cast<const uint4*>(x + ((row + b) * n + u) * 8);
+    }
+}
+
+__device__ __forceinline__ void unpack_bf16x8(uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = bf16_lo(w[j]);
+    f[2 * j + 1] = bf16_hi(w[j]);
+  }
+}
+
+// grid (plan.blocks), block kLnF16Threads.  Block b takes rows [b * chunk,
+// min((b + 1) * chunk, rows)); row group g (threads g * L .. g * L + L - 1)
+// takes at step s the B rows from r0 + (s * G + g) * B.
+template <int U, int L>
+__global__ void __launch_bounds__(kLnF16Threads)
+ln_fwd_bf16x8(const bf16* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, bf16* __restrict__ y,
+              long long rows, int c, long long chunk, float eps) {
+  constexpr int B = ln_fwd_batch(U, L);
+  constexpr int G = kLnF16Threads / L;          // row groups of a block
+  const int tid = threadIdx.x, sub = tid % L;
+  const int n = c >> 3;
+  const long long r0 = (long long)blockIdx.x * chunk;
+  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
+  const long long steps = (r1 - r0 + G * B - 1) / (G * B);
+  long long row = r0 + (long long)(tid / L) * B;
+  uint4 v[B][U];
+  ln_fwd_load<U, L, B>(x, row, r1, n, sub, v);
+  // this lane's gamma and beta, loaded while its first rows load
+  float4 gm[U][2], bt[U][2];
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = sub + L * i;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    gm[i][0] = gm[i][1] = bt[i][0] = bt[i][1] = zero;
+    if (u < n) {
+      gm[i][0] = reinterpret_cast<const float4*>(gamma)[2 * u];
+      gm[i][1] = reinterpret_cast<const float4*>(gamma)[2 * u + 1];
+      bt[i][0] = reinterpret_cast<const float4*>(beta)[2 * u];
+      bt[i][1] = reinterpret_cast<const float4*>(beta)[2 * u + 1];
+    }
+  }
+  const float inv_c = 1.0f / c;
+  for (long long s = 0; s < steps; ++s, row += (long long)G * B) {
+    // a warp whose rows have run out stops (rows only grow with s)
+    if (!__any_sync(0xffffffffu, row < r1)) break;
+    if (s > 0) ln_fwd_load<U, L, B>(x, row, r1, n, sub, v);
+    float mu[B], rstd[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        float f[8];
+        unpack_bf16x8(v[b][i], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s1 += f[j];
+          s2 += f[j] * f[j];
+        }
+      }
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+      }
+      mu[b] = s1 * inv_c;
+      rstd[b] = rsqrtf(s2 * inv_c - mu[b] * mu[b] + eps);
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (row + b >= r1) break;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        const int u = sub + L * i;
+        if (u >= n) break;
+        float f[8], o[8];
+        unpack_bf16x8(v[b][i], f);
+        const float4 g0 = gm[i][0], g1 = gm[i][1];
+        const float4 b0 = bt[i][0], b1 = bt[i][1];
+        const float g[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+        const float be[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          o[j] = (f[j] - mu[b]) * rstd[b] * g[j] + be[j];
+        *reinterpret_cast<uint4*>(y + ((row + b) * n + u) * 8) =
+            make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]),
+                       pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
+      }
+    }
+  }
+}
+
+// The instances: (units, lanes) as ln_fwd_bf16_plan picks them for C up to
+// kLnF16MaxC.
+#define VITTA_LN_F16_INSTANCES(X)                                          \
+  X(1, 4) X(2, 4) X(3, 4) X(2, 8) X(3, 8) X(2, 16) X(3, 16) X(2, 32)        \
+  X(3, 32) X(4, 32) X(5, 32) X(6, 32) X(7, 32) X(8, 32)
+
+// Blocks of an instance an SM holds at once (the card's own answer, read
+// once; 1 where it cannot be read).  Internal linkage: each library reads
+// its own instance.
+namespace {
+template <int U, int L>
+int ln_fwd_per_sm() {
+  static const int n = [] {
+    int k = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &k, ln_fwd_bf16x8<U, L>, kLnF16Threads, 0) != cudaSuccess ||
+        k < 1) {
+      cudaGetLastError();
+      k = 1;
+    }
+    return k;
+  }();
+  return n;
+}
+
+// The plan at (rows, c) with what it was made for: the blocks of its
+// instance an SM holds (*per_sm) on the card's SMs (sm_count()).
+inline LnFwdPlan ln_fwd_bf16_plan_of(long long rows, int c, int* per_sm) {
+  const LnFwdPlan shape = ln_fwd_bf16_plan(rows, c, 1, 1);
+  *per_sm = 0;
+#define VITTA_LN_F16_PER_SM(U, L)                 \
+  if (shape.units == U && shape.lanes == L)       \
+    *per_sm = ln_fwd_per_sm<U, L>();
+  VITTA_LN_F16_INSTANCES(VITTA_LN_F16_PER_SM)
+#undef VITTA_LN_F16_PER_SM
+  if (*per_sm == 0) return LnFwdPlan{0, 0, 1, 0, 0};
+  return ln_fwd_bf16_plan(rows, c, *per_sm, sm_count());
+}
+}  // namespace
+
+// The same at bfloat16 (x, y bfloat16): ln_fwd_bf16x8 where C % 8 == 0, C
+// <= kLnF16MaxC and x, y, gamma and beta are 16-byte aligned, one value at
+// a time otherwise (ln_rows_any), with the same values.
 inline cudaError_t launch_ln_rows(const bf16* x, const float* gamma,
                                   const float* beta, bf16* y, long long rows,
                                   int c, float eps, cudaStream_t stream) {
   if (rows <= 0) return cudaSuccess;
-  const bool vec = aligned16(x) && aligned16(y) && aligned16(gamma) &&
-                   aligned16(beta);
-#define VITTA_LN_BF16_CASE(U, L)                                             \
-  if (vec && c == 8 * U * L) {                                               \
-    constexpr long long per = (long long)kLnRowsPerBlock * (32 / L);         \
-    ln_rows_bf16x8<U, L><<<(unsigned)((rows + per - 1) / per), kLnThreads,   \
-                           0, stream>>>(x, gamma, beta, y, rows, eps);       \
-    count_launch("ln_rows_bf16x8<" #U ", " #L ">");                         \
+  if (all_aligned16({x, y, gamma, beta})) {
+    int per_sm = 0;
+    const LnFwdPlan q = ln_fwd_bf16_plan_of(rows, c, &per_sm);
+#define VITTA_LN_F16_CASE(U, L)                                              \
+  if (q.units == U && q.lanes == L) {                                        \
+    ln_fwd_bf16x8<U, L><<<(unsigned)q.blocks, kLnF16Threads, 0, stream>>>(   \
+        x, gamma, beta, y, rows, c, q.chunk, eps);                           \
+    count_launch("ln_fwd_bf16x8<" #U ", " #L ">");                          \
     return cudaGetLastError();                                               \
   }
-  VITTA_LN_BF16_CASE(1, 8)
-  VITTA_LN_BF16_CASE(1, 16)
-  VITTA_LN_BF16_CASE(1, 32)
-  VITTA_LN_BF16_CASE(2, 32)
-  VITTA_LN_BF16_CASE(4, 32)
-  VITTA_LN_BF16_CASE(8, 32)
-#undef VITTA_LN_BF16_CASE
+    VITTA_LN_F16_INSTANCES(VITTA_LN_F16_CASE)
+#undef VITTA_LN_F16_CASE
+  }
   ln_rows_any<bf16><<<(unsigned)((rows + kLnRowsPerBlock - 1) /
                                  kLnRowsPerBlock),
                       kLnThreads, 0, stream>>>(x, gamma, beta, y, rows, c,

@@ -19,7 +19,12 @@ not take raises.
 At bfloat16 (x, y, dy and dx bfloat16; gamma, beta, the statistics, every
 sum, dgamma and dbeta float32) the kernels round y and dx once, where
 vitta_tpu/ops/pallas_ln.py:47-73 rounds them at the compute dtype, and the
-plain versions round at the same points.  The bfloat16 backward takes
+plain versions round at the same points.  The bfloat16 forward takes
+16-byte units of 8 values where ``fwd_vec_bf16`` says so (C % 8 == 0, C <=
+2048, every tensor 16-byte aligned: every Video Swin width);
+``ln_fwd_bf16_plan`` mirrors how that kernel cuts its rows and in what
+order it adds a row (csrc/ln_rows.cuh: ln_fwd_bf16x8), one value at a time
+elsewhere.  The bfloat16 backward takes
 16-byte units of 8 values in one launch where ``bwd_vec_bf16`` says so
 (C % 8 == 0, C <= 2048, every tensor 16-byte aligned: every Video Swin
 site); ``ln_bwd_bf16_plan`` mirrors how that kernel cuts its rows and where
@@ -157,7 +162,56 @@ def ln_bwd_bf16_plan(rows: int, c: int, resident: int, sms: int) -> dict:
                                     cdiv(nb, csize) * csize)))
 
 
+# csrc/ln_rows.cuh's constants of the bfloat16 forward in 16-byte units
+# (ln_fwd_bf16x8): a block, most units a lane holds below 32 lanes a row,
+# most lanes a row (one warp), the widest C, and the widest rows taken
+# F16_BATCH at a time
+F16_THREADS = 128
+F16_MAX_UNITS = 3
+F16_MAX_LANES = 32
+F16_MAX_C = 2048
+F16_BATCH_C, F16_BATCH = 256, 2
+F16_PLAN_KEYS = ("lanes", "units", "batch", "chunk", "blocks")
+
+
+def ln_fwd_bf16_plan(rows: int, c: int, per_sm: int, sms: int) -> dict:
+    """How the bfloat16 forward in 16-byte units cuts (rows, C), as
+    ``ln_fwd_bf16_plan`` in csrc/ln_rows.cuh: a row is ``lanes`` lanes of
+    one warp (4 to 32, a power of two: the fewest with at most 3 units a
+    lane, else 32), each holding ``units`` units of 8 values of it, units
+    lane, lane + lanes, ...; its sums are each lane's over its units in
+    order, then a butterfly over its lanes.  A block of 128 threads is 128
+    / lanes row groups, group g taking at step s the ``batch`` rows (2
+    where 8 units lanes <= 256, else 1) from
+    r0 + (s * groups + g) * batch of its ``chunk`` contiguous rows; the
+    rows are shared evenly over one wave (``per_sm`` blocks an SM of
+    ``sms``), a block taking at least a step's rows.  Raises where the
+    kernel takes no such shape."""
+    if rows <= 0 or c <= 0 or c % 8 or c > F16_MAX_C:
+        raise ValueError(f"the bfloat16 LayerNorm forward in 16-byte units "
+                         f"takes rows > 0 and C a multiple of 8 up to "
+                         f"{F16_MAX_C}, got ({rows}, {c})")
+    cdiv = lambda a, b: -(-a // b)
+    n = c // 8
+    lanes = 4
+    while lanes < F16_MAX_LANES and cdiv(n, lanes) > F16_MAX_UNITS:
+        lanes *= 2
+    units = cdiv(n, lanes)
+    batch = F16_BATCH if 8 * units * lanes <= F16_BATCH_C else 1
+    step = F16_THREADS // lanes * batch
+    chunk = max(cdiv(rows, per_sm * sms), step)
+    return dict(zip(F16_PLAN_KEYS, (lanes, units, batch, chunk,
+                                    cdiv(rows, chunk))))
+
+
 ACT_DTYPES = (torch.float32, torch.bfloat16)   # x, y, dy, dx
+
+
+def fwd_vec_bf16(c: int, *tensors) -> int:
+    """1 where the bfloat16 forward takes 16-byte units of 8 values
+    (ln_fwd_bf16x8: C % 8 == 0, C <= 2048, every tensor 16-byte aligned),
+    else 0 (one value at a time)."""
+    return int(c <= F16_MAX_C and bool(vector_units(c, 8, *tensors)))
 
 
 def bwd_vec(c: int, *tensors) -> int:
@@ -209,6 +263,9 @@ def _lib():
         lib.vitta_ln_bwd_bf16_plan.argtypes = [ctypes.c_longlong,
                                                ctypes.c_int, p]
         lib.vitta_ln_bwd_bf16_plan.restype = None
+        lib.vitta_ln_fwd_bf16_plan.argtypes = \
+            lib.vitta_ln_bwd_bf16_plan.argtypes
+        lib.vitta_ln_fwd_bf16_plan.restype = None
         lib.vitta_ln_bwd_bf16_scratch_floats.argtypes = \
             lib.vitta_ln_bwd_scratch_floats.argtypes
         lib.vitta_ln_bwd_bf16_scratch_floats.restype = ctypes.c_longlong
@@ -257,6 +314,17 @@ def ln_bwd_bf16_plan_cuda(rows: int, c: int) -> dict:
     keys = B16_PLAN_KEYS + ("resident", "sms")
     out = (ctypes.c_longlong * len(keys))()
     _lib().vitta_ln_bwd_bf16_plan(rows, c, out)
+    return dict(zip(keys, out))
+
+
+def ln_fwd_bf16_plan_cuda(rows: int, c: int) -> dict:
+    """The bfloat16 forward's own plan in 16-byte units, from
+    csrc/ln_rows.cuh (units 0 where it takes no such shape), with what it
+    was made for: the blocks of its instance an SM holds (``per_sm``) and
+    the card's SMs (``sms``)."""
+    keys = F16_PLAN_KEYS + ("per_sm", "sms")
+    out = (ctypes.c_longlong * len(keys))()
+    _lib().vitta_ln_fwd_bf16_plan(rows, c, out)
     return dict(zip(keys, out))
 
 
