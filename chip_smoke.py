@@ -1,13 +1,16 @@
 """Smoke run of vitta_tpu_torch on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, checks each against its plain PyTorch version, and
-drives the TANet float32 ViTTA stream under each of its three
-regularization modes and as the epoch-style loop, the TANet bfloat16
-stream and its trajectory against the float32 one, the Video Swin-B float32
-forward paths and the Video Swin-B float32 ViTTA stream end to end, the
-last under each of its four attention routes, Video Swin-T's forward
-paths and stream under two of them, and the Video Swin-B and Swin-T
-bfloat16 streams (Swin-T's under both of those routes, Swin-B's also under
-the two projection-fused routes) with their trajectories against float32.
+drives the TANet float32 and bfloat16 ViTTA streams under each of their
+three regularization modes and as the epoch-style loop, the bfloat16
+trajectory against the float32 one, the Video Swin-B float32 forward
+paths and the Video Swin-B float32 ViTTA stream end to end, the last under
+each of its four attention routes, Video Swin-T's forward paths and stream
+under two of them, the Video Swin-B and Swin-T bfloat16 streams (Swin-T's
+under both of those routes, Swin-B's also under the two projection-fused
+routes and under cossim and the epoch-style loop) with their trajectories
+against float32, and the loader chain (list of videos, datasets, the
+pinned-memory Prefetcher, tta_stream) on TANet and Swin-B, whose host
+library it builds with g++.
 
     python3 chip_smoke.py
 
@@ -192,7 +195,11 @@ result line:
    forward and 16 backward launches and 29 + 29 BatchNorm-statistics
    launches, every one of them a bfloat16 kernel by the libraries' own
    counts (so no plain version ran) and none a float32 one; the TAM
-   backward 16 launches a video, one a call (32 at float32).
+   backward 16 launches a video, one a call (32 at float32).  Then under
+   ``stat_reg="BNS"``, ``"cossim"`` and as ``tta_epoch_adapt``: the small
+   slice card against CPU at the same bounds (the epoch-style loop's top-1
+   exactly) and a full stream of BF16_MODE_VIDEOS videos each, as phase 20
+   runs them at float32.
 24. float32 against bfloat16 trajectories on the card: the same float32
    masters, source statistics and 40 seeded uint8 videos through
    ``adapt_eval_step`` at each dtype; prints the quantities of
@@ -250,7 +257,12 @@ result line:
    bfloat16 kernel by the libraries' counts, the standalone LayerNorm
    backward one ``ln_bwd_bf16x8`` launch a call (29 a video, was 58);
    ms/video, peak memory and a profiled step: host, device busy, idle
-   share, busy by class of kernel.
+   share, busy by class of kernel.  Then (after phase 29) under the modes
+   vitta_tpu's engine runs on Video Swin beside ``mean_var``:
+   ``stat_reg="cossim"`` and ``tta_epoch_adapt`` (BNS reads BatchNorm
+   layers, which Video Swin has none of): phase 26's small slice card
+   against CPU at its bounds, and Swin-B streams of BF16_MODE_VIDEOS
+   videos, every Swin kernel launch a bfloat16 instance.
 28. float32 against bfloat16 Swin-B trajectories over 40 videos, as phase
    24: the quantities of benchmarks/bf16_gate.py (swin), held to
    GATE_BOUNDS.
@@ -318,11 +330,29 @@ result line:
    bfloat16 instance; a profiled step each.
 38. One adapt+eval step each of packed, proj and ln_proj at bfloat16 in
    turns, as phase 14's.
+39. The loader chain of vitta_tpu's main_eval.py on TANet
+   (``tanet_ucf101_preset``, ``TANetVideoDataset``: rows 1, 2 and 7) and
+   Swin-B (``swin_ucf101_preset``, float32, packed, ``SwinVideoDataset``:
+   rows 3-6, 10, 11, 14 and 15): ``make_video_source("synthetic")`` at
+   UCF101's 240 x 320 frames -> ``PairedTTADataset(emit_uint8=True)`` ->
+   ``Prefetcher`` (pinned host memory, a copy stream a worker) ->
+   ``tta_stream`` over one warm-up video and LOADER_VIDEOS more.  The host
+   library must have been built with g++ into build/vitta_tpu_torch/.  The
+   loader-fed stream's predictions, losses and final parameters must equal
+   those of the same items fed from numpy arrays in memory within the
+   spread of two in-memory runs (cuDNN's deterministic algorithms for the
+   check).  Then, from runs apart from the check over one warm-up video
+   and LOADER_TIMED_VIDEOS more (longer than 8 workers' window, so that the
+   workers run beside the steps), the feeds in turns (LOADER_ROUNDS
+   rounds): ms/video in memory and through the loader at 1
+   and min(8, usable cores) workers, the consumer's wait for each item,
+   the loader's host ms per item alone, one item's host-to-device copy from
+   pinned and from pageable memory, and the host's cores.
 
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
-7-11, 13, 14, 16, 17, 26-29, 31-33, 36-38, 21 at bfloat16, 25, 30, 34, 35
-(25, 30, 34 and 35 last: the memory of their CUDA graphs would stand in the
-streams' peaks).  No earlier full-size stream was cut for
+23's other modes, 7-11, 13, 14, 16, 17, 26-29, 27's other modes, 31-33,
+36-39, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
+of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
 4 eval videos where it ran 4 and 5, and the TANet slice 5 videos where it
@@ -452,6 +482,13 @@ SWIN_LN_PROJ_VIDEOS = 5   # the ln_proj route's stream; two warm-up
 SWIN_PROJ_VIDEOS = 3      # the proj route's stream; one warm-up
 SWIN_PROJ_EVAL_VIDEOS = 3   # the ln_proj route's eval videos; one warm-up
 BF16_PROJ_VIDEOS = 3      # each bfloat16 projection-fused stream; one warm-up
+BF16_MODE_VIDEOS = 3      # each bfloat16 stream under cossim, BNS or the
+                          # epoch-style loop (phases 23 and 27); one warm-up
+LOADER_VIDEOS = 4         # phase 39's list a model, after one warm-up video
+LOADER_TIMED_VIDEOS = 16  # its timed streams: longer than 8 workers' window,
+                          # so that the workers run beside the steps
+LOADER_ROUNDS = 2         # phase 39's rounds of the feeds in turns
+LOADER_FRAME = (240, 320)   # UCF101's frame size (height, width)
 # backward kernels: |error| <= tol * (largest |value| of the plain version's
 # tensor).  The sums over rows and windows are taken in chunks and the
 # chunks added in order, not in the plain version's order; float32
@@ -2555,22 +2592,23 @@ def _assert_bf16_slice(what, sd, runs, launches):
     """Card against CPU at bfloat16 (both the port): two bfloat16 runs that
     round at other points (cuDNN against oneDNN), held as
     tests/test_torch_bf16_engine.py holds the port to vitta_tpu at
-    bfloat16: reg and ce losses rtol 1e-3, consistency atol 2e-4; eval
-    logits within 2e-2 of the largest; each EMA layer's mean within 1e-2 of
-    its largest, its variance at rtol 2e-2 / atol 1e-2 of the layer's
-    largest v + m^2 (one ulp on every bfloat16 y moves E[y^2] by up to
-    2^-7 of it); the whole update within 5% of its norm, the median
-    tensor's within 2%, every tensor's within 75%."""
+    bfloat16: reg and ce losses rtol 1e-3, consistency atol 2e-4 (the
+    epoch-style loop's top-1 exactly); eval logits within 2e-2 of the
+    largest; each EMA layer's mean within 1e-2 of its largest, its variance
+    at rtol 2e-2 / atol 1e-2 of the layer's largest v + m^2 (one ulp on
+    every bfloat16 y moves E[y^2] by up to 2^-7 of it); the whole update
+    within 5% of its norm, the median tensor's within 2%, every tensor's
+    within 75%."""
     (m_gpu, l_gpu, p_gpu, e_gpu), (m_cpu, l_cpu, p_cpu, e_cpu) = (
         runs["cuda"], runs["cpu"])
     for i, (a, b) in enumerate(zip(m_gpu, m_cpu)):
-        for f in ("loss_reg", "loss_ce"):
-            if not abs(a[f] - b[f]) <= 1e-3 * abs(b[f]):
+        for f in a:     # the losses; the epoch-style loop's top-1 exactly
+            ok = (abs(a[f] - b[f]) <= 2e-4 if f == "loss_consis"
+                  else abs(a[f] - b[f]) <= 1e-3 * abs(b[f])
+                  if f.startswith("loss") else a[f] == b[f])
+            if not ok:
                 raise AssertionError(f"{what}: step {i} {f}: card {a[f]} cpu "
                                      f"{b[f]}")
-        if not abs(a["loss_consis"] - b["loss_consis"]) <= 2e-4:
-            raise AssertionError(f"{what}: step {i} loss_consis: card "
-                                 f"{a['loss_consis']} cpu {b['loss_consis']}")
     logit_err = check_scaled(f"{what} eval logits", l_gpu, l_cpu, 2e-2)
     if not e_cpu:
         raise AssertionError(f"{what}: no layer was chosen")
@@ -4696,7 +4734,8 @@ BF16_SWIN_T_SMALL = dict(embed_dim=96, depths=(2, 1), num_heads=(3, 6),
 
 
 def phase_bf16_swin_small(seed, t=4, hw=48, model=BF16_SWIN_SMALL,
-                          route="packed", what="swin small slice (bfloat16)"):
+                          route="packed", what="swin small slice (bfloat16)",
+                          tta=None, epoch=False):
     """Phase 26: two tta_online steps of a small bfloat16 Swin (Swin-B's
     first width, every width a multiple of 128 so that norm2 runs inside
     the LayerNorm-MLP as on Swin-B: embed 128, depths (2, 1), heads (4, 8),
@@ -4708,18 +4747,29 @@ def phase_bf16_swin_small(seed, t=4, hw=48, model=BF16_SWIN_SMALL,
     proj and merging products and cuDNN and oneDNN the patch embedding
     each their own way.  Phase 31 runs it on ``BF16_SWIN_T_SMALL`` (Swin-T's
     widths 96 and 192: norm2 apart, the MLP without the LayerNorm) under
-    ``route`` "packed" and "heads"."""
+    ``route`` "packed" and "heads".  Phase 27 runs it under the ``tta``
+    overrides of ``stat_reg="cossim"`` (the relation-map targets of one
+    clean batch) and, with ``epoch``, as ``tta_epoch_adapt`` (two
+    adapt-only steps, then one evaluation pass)."""
     from vitta_tpu_torch.adapt.engine import VittaEngine
-    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    from vitta_tpu_torch.adapt.loops import tta_epoch_adapt
+    from vitta_tpu_torch.adapt.precompute import (compute_cossim_statistics,
+                                                  compute_source_statistics)
     cfg = _swin_cfg(t=t, hw=hw, **model)
     chosen = ("layers.1", "backbone.norm")
     cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-3),
-                      tta=dataclasses.replace(cfg.tta, chosen_blocks=chosen))
+                      tta=dataclasses.replace(cfg.tta, chosen_blocks=chosen,
+                                              **(tta or {})))
     sd = _swin_weights(cfg, seed)
     rng = np.random.default_rng(seed)
     batches = _normalized_batches(rng, cfg, (2,), t, hw)
-    src = compute_source_statistics(_swin_model(cfg, sd), batches,
-                                    device="cpu")
+    if cfg.tta.stat_reg == "cossim":
+        src = compute_cossim_statistics(
+            _swin_model(cfg, sd), batches, clip_len=t, device="cpu",
+            tap_filter=lambda n: "patch_embed" not in n)
+    else:
+        src = compute_source_statistics(_swin_model(cfg, sd), batches,
+                                        device="cpu")
     videos = _videos(rng, 2, t, hw)
     _reset_swin_counts()
     runs = {}
@@ -4734,6 +4784,12 @@ def phase_bf16_swin_small(seed, t=4, hw=48, model=BF16_SWIN_SMALL,
 
         def steps():
             nonlocal state
+            if epoch:
+                top1, state = tta_epoch_adapt(
+                    eng, videos, [(c, lb) for _v, c, lb in videos],
+                    seed=seed)
+                metrics.append({"top1": top1})
+                return
             for views, clip, label in videos:
                 state, m = eng.adapt_eval_step(state, views, clip, label)
                 metrics.append({f: float(getattr(m, f)) for f in
@@ -5338,6 +5394,283 @@ def phase_bf16_proj_kernels(dev):
     return rows
 
 
+def phase_bf16_swin_modes(cfg, sd, stats, seed, card, mode,
+                          n_videos=BF16_MODE_VIDEOS, warmup=1):
+    """Phase 27 under the engine's other modes that vitta_tpu runs on Video
+    Swin (BNS reads BatchNorm layers, of which it has none): Swin-B at
+    bfloat16, drop-path 0.2 and head dropout 0.5, over ``n_videos`` seeded
+    videos, ``mode`` "cossim" (``tta_stream`` with the relation-map targets
+    of the float32 model over one clean batch of 2 clips) or
+    "tta_epoch_adapt" (adapt-only steps on phase 9's source statistics,
+    then one ``validate`` pass).  Every LayerNorm, attention and
+    LayerNorm-MLP launch a bfloat16 instance, finite losses, a finite
+    gradient on every float32 master; returns a summary of its times."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import tta_epoch_adapt, tta_stream
+    from vitta_tpu_torch.adapt.precompute import compute_cossim_statistics
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    if mode == "cossim":
+        cfg = cfg.replace(tta=dataclasses.replace(
+            cfg.tta, stat_reg="cossim", stat_type=("temp",)))
+        rng = np.random.default_rng(seed)
+        batches = [(torch.from_numpy(c).cuda(), lb) for c, lb in
+                   _normalized_batches(rng, cfg, (2,), t, hw)]
+        stats = compute_cossim_statistics(
+            _swin_model(cfg, sd), batches, clip_len=t,
+            tap_filter=lambda n: "patch_embed" not in n)
+        del batches
+    engine = VittaEngine(_synthetic_swin(cfg, "bfloat16"), cfg, sd, stats)
+    rng = np.random.default_rng(seed + 1)
+    videos = _videos(rng, n_videos, t, hw)
+    writer = _StepTimes()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_swin_counts()
+    box = {}
+
+    def run():
+        if mode == "cossim":
+            (box["top1"],), box["state"], box["meters"] = tta_stream(
+                engine, videos, seed=seed, metrics_writer=writer)
+        else:
+            box["top1"], box["state"] = tta_epoch_adapt(
+                engine, videos, [(c, lb) for _v, c, lb in videos], seed=seed)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = launches_of(run)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    _bf16_swin_launches(names)
+    counts = _swin_counts()
+    state = box["state"]
+    if state.step != n_videos or not any(counts.values()):
+        raise AssertionError(f"swin-B bfloat16 ({mode}): {state.step} steps, "
+                             f"launches {counts}")
+    for k, m in box.get("meters", {}).items():
+        if k.startswith("loss") and not np.isfinite(m.avg):
+            raise AssertionError(f"swin-B bfloat16 ({mode}): {k} not finite")
+    for k, p in engine.model.named_parameters():
+        if p.dtype != torch.float32 or p.grad is None or not bool(
+                torch.isfinite(p.grad).all()):
+            raise AssertionError(f"swin-B bfloat16 ({mode}) {k}: no finite "
+                                 "float32 gradient on a float32 master")
+    # at lr 1e-5 a norm weight of 1 moves below float32's resolution
+    moved = sum(not torch.equal(p.detach(), engine.init_params[k])
+                for k, p in engine.model.named_parameters())
+    if not moved:
+        raise AssertionError(f"swin-B bfloat16 ({mode}): no parameter moved")
+    ms = writer.ms[warmup:] if writer.ms else [wall_ms / n_videos]
+    summary = {"model": "swin-B", "route": f"packed, {mode}",
+               "dtype": "bfloat16", "videos": len(ms),
+               "median_ms": statistics.median(ms), "min_ms": min(ms),
+               "max_ms": max(ms),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"swin-B bfloat16 adapt full slice ({mode}): {n_videos} videos, "
+          + (f"median {summary['median_ms']:.3f} ms/video after {warmup} "
+             f"warm-up" if writer.ms else
+             f"{wall_ms / n_videos:.3f} ms/video over the adapt-only steps "
+             f"and the evaluation pass")
+          + f", top1 {box['top1']:.1f}, {len(state.ema)} chosen layers, "
+          f"{moved} parameter tensors moved, peak "
+          f"memory {summary['peak_gib']:.3f} GiB, launches {counts}, bfloat16 "
+          f"kernel instances "
+          f"{sum(n for k, n in names.items() if _bf16_name(k))}; on {card}",
+          flush=True)
+    return summary
+
+
+class _Waits:
+    """Iterates ``items`` and keeps the host ms each step waited for its
+    next item (the consumer's wait)."""
+
+    def __init__(self, items):
+        self.items, self.ms = items, []
+
+    def __iter__(self):
+        it = iter(self.items)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            yield item
+
+
+def _stream_record(engine, data, seed):
+    """``tta_stream`` over ``data``; (each video's losses and prediction,
+    the final parameters), read after the stream."""
+    from vitta_tpu_torch.adapt.loops import tta_stream
+    seen = []
+    step = engine.adapt_eval_step
+
+    def recording(state, views, clip, label, generator=None):
+        state, m = step(state, views, clip, label, generator)
+        seen.append(m)
+        return state, m
+    engine.adapt_eval_step = recording
+    try:
+        tta_stream(engine, data, seed=seed)
+    finally:
+        del engine.adapt_eval_step
+    torch.cuda.synchronize()
+    losses = torch.stack([torch.stack([m.loss_reg, m.loss_consis, m.loss_ce])
+                          for m in seen]).double().cpu()
+    preds = torch.cat([m.pred for m in seen]).cpu()
+    params = {k: p.detach().clone() for k, p in engine.model.named_parameters()}
+    return losses, preds, params
+
+
+def _stream_spread(a, b):
+    """(largest loss difference, predictions that differ, largest
+    parameter difference) between two recorded streams."""
+    return (float((a[0] - b[0]).abs().max()), int((a[1] != b[1]).sum()),
+            max(float((a[2][k] - b[2][k]).abs().max()) for k in a[2]))
+
+
+def phase_loader(card, what, cfg, engine, dataset_cls, seed=SEED):
+    """Phase 39, for one model: the loader chain of vitta_tpu's
+    main_eval.py (make_video_source -> PairedTTADataset(emit_uint8=True) ->
+    Prefetcher -> tta_stream) on the card.  ``SyntheticVideoSource`` at
+    UCF101's 240 x 320 frames, a list of one warm-up video and
+    LOADER_VIDEOS more, the dataset of ``dataset_cls`` at the model's
+    operating point, the ``Prefetcher`` staging each item in pinned memory
+    and copying it on a stream of its own.
+
+    The check: the stream fed by the loader gives the predictions, losses
+    and final parameters of the same items fed from numpy arrays in memory,
+    within the spread of two in-memory runs (exactly where they agree
+    exactly); cuDNN's deterministic algorithms for the check.  The times,
+    from runs apart from the check over a longer list (a warm-up video and
+    LOADER_TIMED_VIDEOS more, so that the workers keep working beside the
+    steps), in turns: ms/video of the in-memory feed and of the loader at 1
+    and at min(8, usable cores) workers, the consumer's wait for the next
+    item, the loader's host ms per item alone (one thread on cached frames,
+    and through the Prefetcher with no engine), one item's host-to-device
+    copy from pinned and from pageable memory."""
+    from vitta_tpu_torch.adapt.loops import tta_stream
+    from vitta_tpu_torch.data import native
+    from vitta_tpu_torch.data.dataset import PairedTTADataset
+    from vitta_tpu_torch.data.pipeline import Prefetcher
+    from vitta_tpu_torch.data.records import VideoRecord
+    from vitta_tpu_torch.data.video_reader import make_video_source
+    t0 = time.perf_counter()
+    lib = native.build_library("vitta_host")
+    native.get_lib()
+    if lib.parent != native.BUILD_DIR or not lib.is_file():
+        raise AssertionError(f"{what} loader: the host library is {lib}")
+    build_s = time.perf_counter() - t0
+    src = make_video_source("synthetic", height=LOADER_FRAME[0],
+                            width=LOADER_FRAME[1])
+    classes = cfg.model.num_classes
+    records = [VideoRecord(f"{what}_{i}", src.num_frames(f"{what}_{i}"),
+                           i % classes)
+               for i in range(1 + max(LOADER_VIDEOS, LOADER_TIMED_VIDEOS))]
+    paired, timed = (PairedTTADataset(cfg, src, recs, seed=seed,
+                                      dataset_cls=dataset_cls,
+                                      emit_uint8=True)
+                     for recs in (records[:1 + LOADER_VIDEOS], records))
+    t0 = time.perf_counter()
+    timed_items = [timed[i] for i in range(len(timed))]
+    first_ms = (time.perf_counter() - t0) * 1e3 / len(timed_items)
+    items = timed_items[:len(paired)]
+    views, clip, label = items[0]
+    want = ((2, cfg.data.clip_length, cfg.data.input_size,
+             cfg.data.input_size, 3), np.uint8)
+    if (views.shape, views.dtype) != want or clip.dtype != np.uint8 \
+            or label.dtype != np.int32 or label.shape != (1,):
+        raise AssertionError(f"{what} loader: items {views.shape} "
+                             f"{views.dtype}, {clip.shape}, {label}")
+    workers = min(8, len(os.sched_getaffinity(0)))
+
+    # the check: the same items in memory twice, then through the loader
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mem_a = _stream_record(engine, items, seed)
+        mem_b = _stream_record(engine, items, seed)
+        fed = _stream_record(engine, Prefetcher(paired, n_workers=workers),
+                             seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    spread, got = _stream_spread(mem_a, mem_b), _stream_spread(fed, mem_a)
+    if any(g > s for g, s in zip(got, spread)):
+        raise AssertionError(
+            f"{what} loader: the loader-fed stream is (losses {got[0]:.3e}, "
+            f"{got[1]} predictions, parameters {got[2]:.3e}) from the "
+            f"in-memory one, beyond the in-memory runs' spread {spread}")
+    if not (torch.isfinite(fed[0]).all() and mem_a[0][:, 0].min() > 0):
+        raise AssertionError(f"{what} loader: losses {fed[0]}")
+
+    # the times, apart from the check, the feeds in turns
+    feeds = {"in memory": lambda: timed_items,
+             "loader, 1 worker": lambda: Prefetcher(timed, n_workers=1),
+             f"loader, {workers} workers": lambda: Prefetcher(
+                 timed, n_workers=workers)}
+    ms = {k: [] for k in feeds}
+    waits = {k: [] for k in feeds}
+    for _round in range(LOADER_ROUNDS):
+        for name, make in feeds.items():
+            writer, feed = _StepTimes(), _Waits(make())
+            tta_stream(engine, feed, seed=seed, metrics_writer=writer)
+            torch.cuda.synchronize()
+            ms[name] += writer.ms[1:]
+            waits[name] += feed.ms[1:]
+    alone = {}
+    for n in (1, workers):
+        t0 = time.perf_counter()
+        for _item in Prefetcher(timed, n_workers=n):
+            pass
+        torch.cuda.synchronize()
+        alone[n] = (time.perf_counter() - t0) * 1e3 / len(timed)
+    t0 = time.perf_counter()
+    for i in range(len(timed)):
+        timed[i]
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+    arrays = [a for a in items[1] if a.nbytes > 64]
+    pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+
+    def copy_ms(from_pinned):
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a, p in zip(arrays, pinned):
+                (p.to("cuda", non_blocking=True) if from_pinned
+                 else torch.from_numpy(a).to("cuda"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    copy = {"pinned": copy_ms(True), "pageable": copy_ms(False)}
+    mb = sum(a.nbytes for a in arrays) / 1e6
+    print(f"{what} loader chain: PairedTTADataset({dataset_cls.__name__}, "
+          f"emit_uint8) over SyntheticVideoSource{LOADER_FRAME} -> "
+          f"Prefetcher(cuda, pinned, {workers} workers) -> tta_stream, "
+          f"{len(paired)} videos: against the same items in memory, losses "
+          f"{got[0]:.3e}, predictions differing {got[1]}, parameters "
+          f"{got[2]:.3e} (the in-memory runs' spread {spread[0]:.3e}, "
+          f"{spread[1]}, {spread[2]:.3e}); host library "
+          f"{os.path.relpath(lib, ROOT)} ({build_s:.2f} s to build or "
+          f"find); on {card}", flush=True)
+    print(f"{what} loader times, {LOADER_ROUNDS} rounds of "
+          f"{LOADER_TIMED_VIDEOS} videos after a warm-up, feeds in turns: "
+          + "; ".join(f"{k} median {statistics.median(v):.3f} ms/video "
+                      f"(min {min(v):.3f}, max {max(v):.3f}), the consumer's "
+                      f"wait median {statistics.median(waits[k]):.3f} ms "
+                      f"(max {max(waits[k]):.3f})" for k, v in ms.items())
+          + f"; the loader alone: {host_ms:.3f} host ms per item on one "
+          f"thread (the first pass {first_ms:.3f}), through the Prefetcher "
+          + ", ".join(f"{v:.3f} ms per item at {n} worker{'s' * (n > 1)}"
+                      for n, v in alone.items())
+          + f"; one item's host-to-device copy ({mb:.2f} MB): pinned "
+          f"{copy['pinned']:.3f} ms, pageable {copy['pageable']:.3f} ms; "
+          f"host cores {os.cpu_count()}, usable "
+          f"{len(os.sched_getaffinity(0))}; on {card}", flush=True)
+    return {"ms": {k: statistics.median(v) for k, v in ms.items()},
+            "wait_ms": {k: statistics.median(v) for k, v in waits.items()},
+            "host_ms": host_ms, "prefetcher_ms": alone, "copy_ms": copy}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5433,6 +5766,21 @@ def main() -> int:
                                             what=what, warmup=1, **kw)
         tanet_modes.append(summary)
     lap("phase 20, TANet under BNS, cossim and the epoch-style loop")
+    # phase 23 under the same modes: the bfloat16 TANet's small slices card
+    # against CPU at phase 23's bounds, then its full-size streams
+    for what, kw in (
+            ("BNS", dict(tta=dict(stat_reg="BNS"))),
+            ("cossim", dict(tta=dict(stat_reg="cossim",
+                                     stat_type=("temp",)))),
+            ("tta_epoch_adapt", dict(epoch=True))):
+        phase_small_slice(SEED, what=f"small slice (bfloat16, {what})",
+                          dtype="bfloat16", **kw)
+        _counts, summary = phase_full_slice(SEED, BF16_MODE_VIDEOS, card,
+                                            what=what, warmup=1,
+                                            dtype="bfloat16", **kw)
+        tanet_modes.append(summary)
+    lap("phase 23, TANet bfloat16 under BNS, cossim and the epoch-style "
+        "loop")
     phase_swin_card_vs_cpu(
         "swin small slice", _swin_cfg(
             t=4, hw=24, embed_dim=8, depths=(1, 1, 2, 1),
@@ -5550,6 +5898,17 @@ def main() -> int:
     dtype_turns = phase_bf16_swin_interleaved(_swin_cfg(), sd, stats, SEED,
                                               card)
     lap("phase 29, Swin-B float32 and bfloat16 steps in turns")
+    # phase 27 under the other modes vitta_tpu runs on Video Swin: small
+    # slices card against CPU, then Swin-B's streams
+    b16_modes = []
+    for mode, kw in (("cossim", dict(tta=dict(stat_reg="cossim",
+                                               stat_type=("temp",)))),
+                     ("tta_epoch_adapt", dict(epoch=True))):
+        phase_bf16_swin_small(SEED, what=f"swin small slice (bfloat16, "
+                              f"{mode})", **kw)
+        b16_modes.append(phase_bf16_swin_modes(_swin_cfg(), sd, stats, SEED,
+                                               card, mode))
+    lap("phase 27, Swin-B bfloat16 under cossim and the epoch-style loop")
     # Video Swin-T at bfloat16: small slices on both routes, the full
     # streams, float32 against bfloat16 trajectories (its kernels in phase
     # 30, after phase 25)
@@ -5585,6 +5944,20 @@ def main() -> int:
     bf16_interleaved = phase_routes_interleaved(_swin_cfg(), sd, stats, SEED,
                                                 card, dtype="bfloat16")
     lap("phase 38, Swin-B bfloat16 steps of the three routes in turns")
+    # the loader chain on both models at full width
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.data.dataset import SwinVideoDataset, TANetVideoDataset
+    from vitta_tpu_torch.models import get_model
+    tanet_engine, _rng = _tanet_engine(_cfg(16, 101), SEED)
+    loader = {"TANet": phase_loader(card, "TANet", tanet_engine.cfg,
+                                    tanet_engine, TANetVideoDataset)}
+    del tanet_engine
+    swin_engine = VittaEngine(get_model(_swin_cfg(), attn_route="packed"),
+                              _swin_cfg(), sd, stats)
+    loader["swin-B"] = phase_loader(card, "swin-B", swin_engine.cfg,
+                                    swin_engine, SwinVideoDataset)
+    del swin_engine
+    lap("phase 39, the loader chain on TANet and Swin-B")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)
@@ -5619,7 +5992,7 @@ def main() -> int:
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
     for s in (packed, ln_proj, proj, b_heads, t_packed, t_heads, b16,
-              t16_packed, t16_heads, b16_ln_proj, b16_proj):
+              t16_packed, t16_heads, b16_ln_proj, b16_proj, *b16_modes):
         print(f"{s['model']} adapt step, route {s['route']}"
               f"{', bfloat16' if s.get('dtype') == 'bfloat16' else ''}: median "
               f"{s['median_ms']:.3f} ms/video (min {s['min_ms']:.3f}, max "
@@ -5653,6 +6026,11 @@ def main() -> int:
           "torch.matmul at bfloat16): " + json.dumps(
               {k: {c: [round(v, 2) for v in r] for c, r in calls.items()}
                for k, calls in wgmma_rates.items()}), flush=True)
+    print("loader chain, ms (host clock): " + json.dumps(
+        {m: {k: ({n: round(x, 3) for n, x in v.items()}
+                 if isinstance(v, dict) else round(v, 3))
+             for k, v in r.items()} for m, r in loader.items()})
+          + f"; on {card}", flush=True)
     print("TANet fp32 against bf16 trajectories: " + json.dumps(gate),
           flush=True)
     print("Swin-B fp32 against bf16 trajectories: " + json.dumps(swin_gate),

@@ -2674,3 +2674,43 @@ def test_ln_bwd_bf16_at_the_swin_sites(cuda_device, rows, c):
     _assert_grad("dbeta", got[2], want[2])
     again = cuda_ln.ln_bwd_cuda(x, g, dy, 1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ---------------------------------------------------------------------------
+# The loader's Prefetcher (vitta_tpu_torch/data/pipeline.py) on the card:
+# pinned host memory, a copy stream a worker, the consumer's stream waiting
+# on each item's event.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_workers", [1, 3])
+def test_prefetcher_copies_to_the_card_in_order(cuda_device, n_workers):
+    """Every item's arrays arrive on the card, in index order, equal to the
+    dataset's numpy arrays, and stay equal after later items were copied
+    (their memory is not handed to a worker's stream while in use)."""
+    from vitta_tpu_torch.data.pipeline import Prefetcher
+
+    class Items:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(i)
+            return (rng.integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8),
+                    rng.normal(size=(1, 4, 8)).astype(np.float32),
+                    np.asarray([i], np.int32))
+
+    data = Items()
+    got = []
+    for i, (views, clip, label) in enumerate(
+            Prefetcher(data, prefetch=3, n_workers=n_workers, start=1)):
+        assert views.device.type == clip.device.type == "cuda"
+        assert int(label[0]) == i + 1
+        # work on the consumer's stream right after the copy
+        got.append((views.float().sum(), clip * 2, views))
+    torch.cuda.synchronize()
+    assert len(got) == len(data) - 1
+    for i, (total, clip2, views) in enumerate(got):
+        want_v, want_c, _ = data[i + 1]
+        assert float(total) == float(want_v.astype(np.float64).sum())
+        np.testing.assert_array_equal(clip2.cpu().numpy(), want_c * 2)
+        np.testing.assert_array_equal(views.cpu().numpy(), want_v)

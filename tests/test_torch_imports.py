@@ -1,5 +1,6 @@
 """The port stands alone: importing all of vitta_tpu_torch loads neither
-JAX (nor flax or optax) nor the JAX package."""
+JAX (nor flax or optax) nor the JAX package; importing its data layer
+loads neither PIL nor decord and builds nothing."""
 
 import pkgutil
 import subprocess
@@ -22,7 +23,10 @@ def test_port_imports_no_jax():
                  "ops.cuda_ln", "ops.cuda_bias", "ops.cuda_attention",
                  "ops.cuda_mlp", "ops.cuda_attention_proj", "ops.dispatch",
                  "ops.cuda_stats", "ops.relation",
-                 "tools.attention_routes", "tools.synthetic"):
+                 "tools.attention_routes", "tools.synthetic",
+                 "data.records", "data.sampling", "data.native",
+                 "data.transforms", "data.video_reader", "data.native_decode",
+                 "data.dataset", "data.pipeline"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -82,6 +86,27 @@ def test_stats_op_and_engine_modes_import_without_jax():
         "assert (counters.fwd, counters.bwd) == (0, 0)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu')]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_data_layer_imports_no_pil_or_decord():
+    """The card's machine has neither PIL nor decord: the data layer and
+    the chain that uses it import without them, and no host library is
+    built at import."""
+    code = (
+        "import sys\n"
+        "from vitta_tpu_torch.data import (dataset, native, native_decode, "
+        "pipeline, records, sampling, transforms, video_reader)\n"
+        "from vitta_tpu_torch.data.dataset import PairedTTADataset\n"
+        "from vitta_tpu_torch.data.pipeline import Prefetcher\n"
+        "from vitta_tpu_torch.adapt.loops import tta_stream, validate\n"
+        "from vitta_tpu_torch.config import label_flip_map\n"
+        "assert not native._LOADED\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('PIL', 'decord', 'jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu'))\n"
+        "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -91,10 +91,14 @@ def tta_epoch_adapt(engine: VittaEngine, tta_data, eval_data,
 
 def validate(engine: VittaEngine, data, params=None) -> Tuple[float, float]:
     """Plain evaluation loop (reference basics.py:96-217 without the
-    baseline adaptation pre-passes).  ``params`` defaults to the engine's
-    initial weights."""
+    baseline adaptation pre-passes).  ``data`` yields (clip, label) pairs,
+    or items with ``frames`` and ``label`` (a dataset's ``Sample``), as
+    vitta_tpu/adapt/loops.py:127-130 takes them.  ``params`` defaults to
+    the engine's initial weights."""
     top1, top5 = AverageMeter(), AverageMeter()
-    for clip, label in data:
+    for item in data:
+        clip, label = ((item.frames, np.asarray([item.label], np.int64))
+                       if hasattr(item, "frames") else item)
         t1, t5, _pred = engine.eval_step(
             engine.init_params if params is None else params, clip, label)
         top1.update(float(t1), n=label.shape[0])

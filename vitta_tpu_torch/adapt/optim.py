@@ -19,10 +19,16 @@ layers alone, every other parameter frozen, partial-BN not applied
 (vitta_tpu/adapt/optim.py:125-129).  ``torch.optim.Adam`` and ``optax.adam``
 compute the same update: both add eps (1e-8) outside the square root of the
 bias-corrected second moment.
+
+``VITTA_BF16_MOMENTUM`` (vitta_tpu/adapt/optim.py:87-95, read at
+vitta_tpu/adapt/engine.py:329-330): SGD's momentum buffers in bfloat16
+(``HalfMomentumSGD``), the parameters float32 masters.  Off by default, as
+there.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict
 
@@ -57,12 +63,53 @@ def norm_affine_mask(named_params) -> Dict[str, bool]:
             for name, _ in named_params}
 
 
+def half_momentum_enabled() -> bool:
+    """Carry SGD's momentum buffers in bfloat16: ``VITTA_BF16_MOMENTUM``
+    set to anything non-empty, as vitta_tpu reads it
+    (vitta_tpu/adapt/optim.py:87-95).  Default off."""
+    return bool(os.environ.get("VITTA_BF16_MOMENTUM"))
+
+
+class HalfMomentumSGD(torch.optim.Optimizer):
+    """SGD(momentum, weight_decay) with bfloat16 momentum buffers over
+    float32 parameters, vitta_tpu's ``fused_sgd_step`` on a bfloat16
+    momentum tree (vitta_tpu/adapt/optim.py:98-122), in its order:
+    ``v2 = mu * float(v) + g + wd * p``, ``p -= lr * v2``, ``v =
+    bfloat16(v2)``, the arithmetic float32.  A buffer starts at 0, so the
+    first step is vitta_tpu's to the bit (and within a float32 ulp of
+    ``torch.optim.SGD``'s, which adds ``-lr * v`` in one rounding); after
+    it the buffers' bfloat16 rounding is what differs."""
+
+    def __init__(self, params, lr: float, momentum: float,
+                 weight_decay: float):
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("HalfMomentumSGD takes no closure")
+        for group in self.param_groups:
+            lr, mu, wd = group["lr"], group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                v = state.get("momentum_buffer")
+                if v is None:
+                    v = torch.zeros_like(p, dtype=torch.bfloat16)
+                v2 = mu * v.float() + p.grad.float() + wd * p
+                p.sub_(lr * v2)
+                state["momentum_buffer"] = v2.to(torch.bfloat16)
+
+
 def build_optimizer(cfg: OptimConfig, model: torch.nn.Module,
                     arch: str = "tanet",
                     partial_bn: bool = False) -> torch.optim.Optimizer:
     """torch-style SGD(momentum, weight_decay) over the trainable
-    parameters of ``model``, or with ``update_only_bn_affine`` Adam over
-    its norm layers' weight and bias."""
+    parameters of ``model`` (``HalfMomentumSGD`` where
+    ``half_momentum_enabled()``), or with ``update_only_bn_affine`` Adam
+    over its norm layers' weight and bias."""
     named = list(model.named_parameters())
     if cfg.update_only_bn_affine:
         mask = norm_affine_mask(named)
@@ -73,5 +120,6 @@ def build_optimizer(cfg: OptimConfig, model: torch.nn.Module,
         params = [p for name, p in named if mask[name]]
     else:
         params = [p for _, p in named]
-    return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
-                           weight_decay=cfg.weight_decay)
+    sgd = HalfMomentumSGD if half_momentum_enabled() else torch.optim.SGD
+    return sgd(params, lr=cfg.lr, momentum=cfg.momentum,
+               weight_decay=cfg.weight_decay)

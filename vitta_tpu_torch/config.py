@@ -1,7 +1,7 @@
 """Typed configuration for vitta_tpu_torch.
 
-A copy of vitta_tpu/config.py without ``label_flip_map``, which reaches
-into the data layer: the port imports nothing of the JAX package.
+A copy of vitta_tpu/config.py: the port imports nothing of the JAX
+package.
 
 Replaces the reference's single global argparse parser with imperative
 per-script overrides (reference utils/opts.py:11-132 and the "To Specify"
@@ -285,6 +285,19 @@ def swin_ucf101_preset(**overrides) -> VittaConfig:
 def num_classes_for(dataset: str) -> int:
     """Reference corpus/main_eval.py:39-47."""
     return {"ucf101": 101, "somethingv2": 174, "kinetics": 400}[dataset]
+
+
+def label_flip_map(dataset: str):
+    """Horizontal-flip label-swap map, or None.
+
+    SSv2 has direction-sensitive classes ("left to right" vs "right to
+    left"): the reference hard-codes swaps for 86<->87, 93<->94,
+    166<->167 wherever a random flip is applied (utils/utils_.py:134-142,
+    tanet_models/transforms.py:62-80)."""
+    if dataset == "somethingv2":
+        from vitta_tpu_torch.data.transforms import SSV2_LABEL_FLIP
+        return SSV2_LABEL_FLIP
+    return None
 
 
 def _dataset_preset(arch: str, dataset: str, **overrides) -> VittaConfig:
