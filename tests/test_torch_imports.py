@@ -1,6 +1,8 @@
 """The port stands alone: importing all of vitta_tpu_torch loads neither
-JAX (nor flax or optax) nor the JAX package; importing its data layer
-loads neither PIL nor decord and builds nothing."""
+JAX (nor flax, optax or orbax) nor the JAX package; importing its data
+layer loads neither PIL nor decord and builds nothing; the baselines, the
+CLI and its scripts import without a card, touch no device and write
+nothing."""
 
 import pkgutil
 import subprocess
@@ -26,14 +28,20 @@ def test_port_imports_no_jax():
                  "tools.attention_routes", "tools.synthetic",
                  "data.records", "data.sampling", "data.native",
                  "data.transforms", "data.video_reader", "data.native_decode",
-                 "data.dataset", "data.pipeline"):
+                 "data.dataset", "data.pipeline", "baselines",
+                 "baselines.common", "baselines.source", "baselines.norm",
+                 "baselines.tent", "baselines.shot", "baselines.dua",
+                 "baselines.t3a", "cli.opts", "cli.main_eval", "cli.drivers",
+                 "adapt.stream_ckpt", "utils.logging", "utils.observability",
+                 "scripts.tta_tanet_ucf101", "scripts.tta_swin_ucf101",
+                 "scripts.sourceonly_ucf101_corr", "scripts.compute_stats"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
         "print(len(bad))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -106,6 +114,35 @@ def test_data_layer_imports_no_pil_or_decord():
         "assert not native._LOADED\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('PIL', 'decord', 'jax', 'jaxlib', 'flax', 'optax', 'vitta_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_baselines_and_cli_import_without_jax_or_a_card():
+    """The baselines, the CLI, the mid-stream checkpoint and the entry
+    scripts, from a process that never saw JAX: importing them resolves no
+    device and builds nothing; their run device is the card unless
+    VITTA_PLATFORM=cpu."""
+    code = (
+        "import os, sys\n"
+        "from vitta_tpu_torch.baselines import BASELINES, setup_baseline\n"
+        "from vitta_tpu_torch.cli import drivers, main_eval, opts\n"
+        "from vitta_tpu_torch.adapt.stream_ckpt import StreamCheckpointer\n"
+        "from vitta_tpu_torch.utils.logging import ResultWriter, get_logger\n"
+        "from vitta_tpu_torch.utils.observability import (MetricsWriter, "
+        "StepTimer, profile)\n"
+        "from vitta_tpu_torch.scripts import (compute_stats, "
+        "sourceonly_ucf101_corr, tta_swin_ucf101, tta_tanet_ucf101)\n"
+        "from vitta_tpu_torch.data import native\n"
+        "assert sorted(BASELINES) == ['dua', 'norm', 'shot', 'source', "
+        "'t3a', 'tent']\n"
+        "assert not native._LOADED\n"
+        "os.environ['VITTA_PLATFORM'] = 'cpu'\n"
+        "assert str(opts.run_device()) == 'cpu'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)

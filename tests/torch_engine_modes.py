@@ -82,6 +82,23 @@ def videos(t, n=N_STEPS):
              np.asarray([i % K], np.int32)) for i in range(n)]
 
 
+def round_as_written(jeng):
+    """Compile the JAX engine's steps with XLA's excess precision off, so
+    that the compiled program rounds to bfloat16 wherever vitta_tpu's code
+    says it does.  XLA:CPU otherwise keeps fused bfloat16 intermediates in
+    float32 (``xla_allow_excess_precision`` defaults to true): the
+    reference is what the code says, not what the fusion keeps.  Run op by
+    op (``jax.disable_jit()``) the steps round at the same points: the first
+    step's losses are the same, later steps differ by the order of XLA's
+    sums, and the run costs about five times as long.  Returns ``jeng``."""
+    options = {"xla_allow_excess_precision": False}
+    for name in ("_adapt_eval", "_adapt_eval_std", "_adapt_only",
+                 "_eval_only"):
+        setattr(jeng, name, jax.jit(getattr(jeng, f"{name}_impl"),
+                                    compiler_options=options))
+    return jeng
+
+
 def engines(sd, variables, src, t, tap_names=None, optim=None, **tta):
     """(JAX engine, port engine on the CPU) of one configuration."""
     jcfg = cfg_of(jax_preset, t, optim=optim, **tta)

@@ -25,25 +25,49 @@ def video_seed(seed: int, index: int) -> int:
     return ((seed * 1000003) ^ index) & (2 ** 63 - 1)
 
 
+def _preload_meter(meter: AverageMeter, sum_count) -> AverageMeter:
+    meter.sum, meter.count = sum_count
+    meter.avg = meter.sum / max(meter.count, 1)
+    return meter
+
+
 def tta_stream(engine: VittaEngine, paired_data, seed: int = 0,
                state: Optional[TTAState] = None,
-               metrics_writer=None) -> Tuple[list, TTAState, dict]:
+               metrics_writer=None, *, logger=None, print_freq: int = 20,
+               checkpointer=None, start_index: int = 0,
+               meter_state: Optional[dict] = None
+               ) -> Tuple[list, TTAState, dict]:
     """Run the online TTA loop over one corruption stream.
 
     ``paired_data`` yields (tta_views (V,T,S,S,3), eval_clip (E,T,S,S,3),
     label (1,)) per video, as numpy arrays or tensors.  Returns
     ([top1_avg], final_state, meters) — the reference returns
     ``[top1.avg]`` (basics.py:740-747).  ``metrics_writer.scalar(tag,
-    value, step)`` receives each video's losses, top-1 and step time.
-    Mid-stream checkpointing and resume are not ported yet."""
+    value, step)`` receives each video's losses, top-1 and step time;
+    ``logger`` a line every ``print_freq`` videos.
+
+    Mid-stream resume (vitta_tpu/adapt/loops.py:26-107): pass
+    ``checkpointer`` (adapt/stream_ckpt.StreamCheckpointer) to save the
+    carried state every ``checkpointer.every`` videos; on restart the caller
+    restores (state, start_index, meter_state) from it and feeds a
+    ``paired_data`` that begins at ``start_index`` (``Prefetcher(start=)``).
+    Each video's dropout seed is ``video_seed(seed, index)`` of its absolute
+    index, so the resumed trajectory is the uninterrupted one."""
     if state is None:
         state = engine.init_state()
     top1, top5 = AverageMeter(), AverageMeter()
     losses_reg, losses_consis, losses_ce = (AverageMeter(), AverageMeter(),
                                             AverageMeter())
+    meters = dict(top1=top1, top5=top5, loss_reg=losses_reg,
+                  loss_consis=losses_consis, loss_ce=losses_ce)
+    for name, meter in meters.items():
+        # the loss meters are part of the resumed trajectory too;
+        # batch_time is this process's wall clock and restarts
+        if meter_state and name in meter_state:
+            _preload_meter(meter, meter_state[name])
     batch_time = AverageMeter()
     end = time.time()
-    for bi, (views, clip, label) in enumerate(paired_data):
+    for bi, (views, clip, label) in enumerate(paired_data, start=start_index):
         engine.generator.manual_seed(video_seed(seed, bi))
         state, m = engine.adapt_eval_step(state, views, clip, label)
         # reading the metrics waits for the device
@@ -59,9 +83,19 @@ def tta_stream(engine: VittaEngine, paired_data, seed: int = 0,
             metrics_writer.scalar("tta/loss_consis", losses_consis.val, bi)
             metrics_writer.scalar("tta/top1_avg", top1.avg, bi)
             metrics_writer.scalar("tta/step_ms", batch_time.val * 1000, bi)
-    meters = dict(top1=top1, top5=top5, loss_reg=losses_reg,
-                  loss_consis=losses_consis, loss_ce=losses_ce,
-                  batch_time=batch_time)
+        if logger and bi % print_freq == 0:
+            logger.debug(
+                f"TTA [{bi}] time {batch_time.val:.3f} ({batch_time.avg:.3f}) "
+                f"reg {losses_reg.val:.4f} ({losses_reg.avg:.4f}) "
+                f"consis {losses_consis.val:.4f} ({losses_consis.avg:.4f}) "
+                f"top1 {top1.val:.3f} ({top1.avg:.3f})")
+        if checkpointer is not None and (bi + 1) % checkpointer.every == 0:
+            checkpointer.save(state, bi + 1,
+                              {k: (v.sum, v.count) for k, v in meters.items()},
+                              generator=engine.generator)
+    if checkpointer is not None:
+        checkpointer.clear()
+    meters["batch_time"] = batch_time
     return [top1.avg], state, meters
 
 

@@ -51,11 +51,10 @@ class TANet(nn.Module):
         self.dtype = self.base_model.dtype
         self.new_fc = nn.Linear(2048, num_classes)
 
-    def forward(self, x, taps: Optional[dict] = None, *, train: bool = False,
-                generator: Optional[torch.Generator] = None,
-                use_running_average: bool = True,
-                update_running_stats: bool = False):
-        """x: (B, T, H, W, 3) -> logits (B, num_classes)."""
+    def _frame_features(self, x, taps, train, generator, use_running_average,
+                        update_running_stats):
+        """(B*T, 2048) per-frame features, after the TSN dropout when
+        ``train``."""
         b, t, h, w, c = x.shape
         if t != self.clip_length:
             raise ValueError(f"clip of {t} frames; the model was built for "
@@ -63,8 +62,36 @@ class TANet(nn.Module):
         feats = self.base_model(
             x.reshape(b * t, h, w, c), taps,
             use_running_average=use_running_average,
-            update_running_stats=update_running_stats)          # (B*T, 2048)
+            update_running_stats=update_running_stats)
         if train and self.dropout > 0:
             feats = dropout(feats, self.dropout, generator)
+        return feats
+
+    def forward(self, x, taps: Optional[dict] = None, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                use_running_average: bool = True,
+                update_running_stats: bool = False):
+        """x: (B, T, H, W, 3) -> logits (B, num_classes)."""
+        b, t = x.shape[:2]
+        feats = self._frame_features(x, taps, train, generator,
+                                     use_running_average, update_running_stats)
         logits = self.new_fc(feats).reshape(b, t, self.num_classes)
         return torch.mean(logits, dim=1)
+
+    def features(self, x, *, train: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 use_running_average: bool = True,
+                 update_running_stats: bool = False):
+        """Clip-level features (B, 2048): the per-frame features averaged
+        over T before the classifier, for SHOT and T3A
+        (vitta_tpu/models/tanet.py:62-78).  ``train`` applies the TSN
+        dropout to the per-frame features before the mean, as the extractor
+        runs during SHOT's adaptation (reference baselines/shot.py:73)."""
+        b, t = x.shape[:2]
+        feats = self._frame_features(x, None, train, generator,
+                                     use_running_average, update_running_stats)
+        return feats.reshape(b, t, -1).mean(dim=1)
+
+    def classify(self, feats):
+        """The classifier on clip features (SHOT's frozen classifier)."""
+        return self.new_fc(feats)
