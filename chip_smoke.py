@@ -11,7 +11,10 @@ routes and under cossim and the epoch-style loop) with their trajectories
 against float32, and the loader chain (list of videos, datasets, the
 pinned-memory Prefetcher, tta_stream) on TANet and Swin-B, whose host
 library it builds with g++, then the six baselines and the CLI's
-corruption sweep with a mid-stream checkpoint and ``--resume``.
+corruption sweep with a mid-stream checkpoint and ``--resume``, then the
+model zoo (VideoMAE ViT-B, R(2+1)D-18, I3D-ResNet 18 and 50,
+Inception-I3D, TANet without the TAM) at full width and the Kinetics-400-C
+and SSv2-C drivers.
 
     python3 chip_smoke.py
 
@@ -371,9 +374,28 @@ result line:
    parameters, buffers, momentum, EMA and every logged loss and top-1
    (cuDNN deterministic).
 
+42. The model zoo's kernels at its shapes (``phase_zoo_kernels``): the
+   float32 LayerNorm forward and backward (rows 3-4) at VideoMAE's
+   (3136, 768) and (1568, 768), the MLP without the LayerNorm (rows 8-9) at
+   (3136, 768, 3072), the BatchNorm-statistics pair (row 7) at every
+   BatchNorm site of the zoo's CNNs on the adapt batch (read from one
+   forward on the card), against the plain versions at phase 4's, 15's and
+   18's tolerances, one launch a call, the instance that ran named (the
+   one-column ``<1, ...>`` at R(2+1)D's odd and 2-mod-4 widths); times per
+   pass of each model's chosen layers.
+43. The model zoo card against CPU (``phase_zoo_small``): each model at
+   T=4, 32 x 32 (Inception T=8), logits, every tap, one tta_online step
+   (losses, EMA, eval logits, updates, top-1) at phase 40's bounds.
+44. Each zoo model at full width (``phase_zoo_full``): 101 classes, 2
+   views x 16 x 224², ``tta_stream`` over ZOO_VIDEOS videos under mean_var,
+   the wrappers' launches held to ZOO_PREDICTED, no clone or copy in a
+   CNN's forward; ms/video, device busy, idle share, peak memory.
+45. The Kinetics-400-C and SSv2-C drivers (``phase_zoo_drivers``):
+   ``compute_stats`` then one corruption of 2 synthetic videos each.
+
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
 23's other modes, 7-11, 13, 14, 16, 17, 26-29, 27's other modes, 31-33,
-36-41, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
+36-45, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
 of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
@@ -5827,6 +5849,8 @@ def phase_baselines_small(seed=SEED, dropout=0.0):
     generators draw other masks from one seed: with the preset's dropout
     0.8 SHOT's updates are 1.33 of their norm apart (median tensor; NVIDIA
     H100 80GB HBM3, 700 W) and its logits 9.9e-3.
+    The eval logits of the model as loaded, before any update, are held
+    the same way, so that a forward fault shows apart from the updates.
     SHOT's pseudo-labels must be equal on both.  TENT and SHOT run a third
     time, on the CPU from weights one ulp away (``_one_ulp_away``); that
     run's gap to the CPU's, printed beside the card's, is what rounding
@@ -5858,6 +5882,8 @@ def phase_baselines_small(seed=SEED, dropout=0.0):
             b = setup_baseline(name, get_model(cfg), cfg,
                                sd_ulp if run != dev else sd, device=dev,
                                **({"filter_k": 3} if name == "t3a" else {}))
+            with torch.no_grad():
+                before = b.model(probe.to(dev), None, train=False).cpu()
             pseudo = (b.pseudo_labels(eval_ds, 2).tolist()
                       if name == "shot" else None)
             top1 = (b.run(raw_ds, eval_ds, 2, no_vids=DUA_NO_VIDS, seed=seed)
@@ -5866,9 +5892,9 @@ def phase_baselines_small(seed=SEED, dropout=0.0):
                 logits = b.model(probe.to(dev), None, train=False).cpu()
             state = {k: v.detach().cpu().clone()
                      for k, v in b.model.state_dict().items()}
-            runs[run] = (top1, logits, state, pseudo)
-        (t_gpu, l_gpu, s_gpu, pl_gpu), (t_cpu, l_cpu, s_cpu, pl_cpu) = (
-            runs["cuda"], runs["cpu"])
+            runs[run] = (top1, logits, state, pseudo, before)
+        ((t_gpu, l_gpu, s_gpu, pl_gpu, b_gpu),
+         (t_cpu, l_cpu, s_cpu, pl_cpu, b_cpu)) = runs["cuda"], runs["cpu"]
         what = f"baseline {name} small"
         params = {k: s_cpu[k] for k, _p in get_model(cfg).named_parameters()}
         stats = [k for k in s_cpu if k.endswith(("running_mean",
@@ -5876,6 +5902,11 @@ def phase_baselines_small(seed=SEED, dropout=0.0):
         checks = {
             "top-1": lambda: t_gpu == t_cpu or _fail(
                 f"{what}: top-1 card {t_gpu} cpu {t_cpu}"),
+            # the model as loaded, before any update: a gap here is the
+            # forward's, not the adaptation's
+            "logits before the update": lambda: check_close(
+                f"{what}, eval logits before the update", b_gpu, b_cpu, 2e-3,
+                2e-4),
 
             "logits": lambda: check_close(f"{what}, eval logits", l_gpu,
                                           l_cpu, 2e-3, 2e-4),
@@ -6241,6 +6272,594 @@ def phase_cli_resume(card, seed=SEED):
     return {"rows": got["mean"], "full_s": full_s, "resume_s": resume_s}
 
 
+# ---------------------------------------------------------------------------
+# Phases 42-45: the model zoo (VideoMAE ViT-B, R(2+1)D-18, I3D-ResNet 18 and
+# 50, Inception-I3D, TANet without the TAM) and the Kinetics-400-C and SSv2-C
+# drivers
+
+ZOO_VIDEOS = 3         # each zoo model's full stream; the first is warm-up
+ZOO_SMALL_T = {"i3d_incep": 8}   # frames of phase 43's clips (else 4)
+# per video of a zoo stream under mean_var, written in PERF.md before the
+# first run: the LayerNorms (25 taps: blocks_*.norm1/norm2 and norm, 25 in
+# the adapt forward and 25 in the eval forward, 25 backward) and the 12
+# MLPs (12 + 12 forward, 12 backward) of VideoMAE; one BatchNorm-statistics
+# launch each way at each chosen BatchNorm (R(2+1)D 18, I3D-18 10, I3D-50
+# 29, Inception 42, TANet without the TAM 29), none in the eval forward;
+# nothing else of the port's kernels
+ZOO_PREDICTED = {
+    "videomae": dict(ln_fwd=50, ln_bwd=25, mlp_fwd=24, mlp_bwd=12),
+    "r2plus1d": dict(bn_stats_fwd=18, bn_stats_bwd=18),
+    "i3d_resnet18": dict(bn_stats_fwd=10, bn_stats_bwd=10),
+    "i3d_resnet50": dict(bn_stats_fwd=29, bn_stats_bwd=29),
+    "i3d_incep": dict(bn_stats_fwd=42, bn_stats_bwd=42),
+    "tanet_no_tam": dict(bn_stats_fwd=29, bn_stats_bwd=29),
+}
+ZOO_COUNTERS = ("ln_fwd", "ln_bwd", "mlp_fwd", "mlp_bwd", "bn_stats_fwd",
+                "bn_stats_bwd", "tam_fwd", "tam_bwd", "ln_mlp", "attention",
+                "bias")
+ZOO_BN_MODELS = ("r2plus1d", "i3d_resnet18", "i3d_resnet50", "i3d_incep",
+                 "tanet_no_tam")
+VIDEOMAE_ROWS = (3136, 1568)   # tokens of 2 views (adapt) and 1 clip (eval)
+
+
+def _zoo_counts():
+    """The wrappers' launch counts of every kernel family since the last
+    ``_zoo_reset``."""
+    from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
+                                     cuda_bias, cuda_ln, cuda_mlp, cuda_stats,
+                                     cuda_tam)
+    a, p = cuda_attention.counters, cuda_attention_proj.counters
+    return {"ln_fwd": cuda_ln.counters.fwd, "ln_bwd": cuda_ln.counters.bwd,
+            "mlp_fwd": cuda_mlp.counters.mlp_fwd,
+            "mlp_bwd": cuda_mlp.counters.mlp_bwd,
+            "bn_stats_fwd": cuda_stats.counters.fwd,
+            "bn_stats_bwd": cuda_stats.counters.bwd,
+            "tam_fwd": cuda_tam.counters.fwd, "tam_bwd": cuda_tam.counters.bwd,
+            "ln_mlp": cuda_mlp.counters.fwd + cuda_mlp.counters.bwd,
+            "attention": (a.fwd + a.bwd + a.heads_fwd + a.heads_bwd
+                          + p.proj_fwd + p.proj_bwd + p.ln_proj_fwd
+                          + p.ln_proj_bwd),
+            "bias": cuda_bias.counters.fwd + cuda_bias.counters.bwd}
+
+
+def _zoo_reset():
+    from vitta_tpu_torch.ops import (cuda_attention, cuda_attention_proj,
+                                     cuda_bias, cuda_ln, cuda_mlp, cuda_stats,
+                                     cuda_tam)
+    from vitta_tpu_torch.ops._launch import copy_counters
+    for mod in (cuda_attention, cuda_attention_proj, cuda_bias, cuda_ln,
+                cuda_mlp, cuda_stats, cuda_tam):
+        mod.counters.reset()
+    copy_counters.reset()
+
+
+def zoo_bn_sites(dev):
+    """{model: {(rows, C, eps): [calls a forward pass, chosen calls]}} of
+    every BatchNorm of the zoo's CNNs on the adapt batch (2 views of 16 x
+    224 x 224), read from one untapped forward on the card; "chosen" are
+    the calls at the layers the model's ``--chosen_blocks`` select, where a
+    mean_var step runs the BatchNorm-statistics kernels."""
+    from vitta_tpu_torch.adapt.engine import select_tap_names
+    from vitta_tpu_torch.models.layers import BatchNorm
+    from vitta_tpu_torch.tools.synthetic import ZOO_MODELS, zoo_cfg, zoo_model
+    out = {}
+    x = torch.zeros(2, 16, 224, 224, 3, device=dev)
+    for name in ZOO_BN_MODELS:
+        cfg = zoo_cfg(name)
+        model = zoo_model(name, cfg).to(dev)
+        names = [m.tap_name for m in model.modules()
+                 if isinstance(m, BatchNorm)]
+        chosen = set(select_tap_names(names, ZOO_MODELS[name][1]))
+        sites, hooks = {}, []
+
+        def hook(mod, args):
+            key = (args[0].numel() // mod.features, mod.features, mod.eps)
+            slot = sites.setdefault(key, [0, 0])
+            slot[0] += 1
+            slot[1] += mod.tap_name in chosen
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                hooks.append(m.register_forward_pre_hook(hook))
+        with torch.no_grad():
+            model(x, None)
+        for h in hooks:
+            h.remove()
+        out[name] = sites
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_kernels(dev):
+    """Phase 42: the kernels of the model zoo's path against their plain
+    versions at the shapes and widths no earlier phase runs: the float32
+    LayerNorm forward and backward (rows 3-4) at VideoMAE's (3136, 768) and
+    (1568, 768), the MLP without the LayerNorm (rows 8-9) at (3136, 768,
+    3072), and the BatchNorm-statistics pair (row 7) at every BatchNorm
+    site of R(2+1)D-18, I3D-ResNet 18 and 50, Inception-I3D (eps 1e-3) and
+    TANet without the TAM on the adapt batch, with their real row counts:
+    y, m, v, dx, dscale, dbias at phase 18's tolerances, one launch a call
+    each way, naming the instance that ran (``<1, ...>`` one column a
+    thread where C is odd or 2 mod 4: R(2+1)D's 45, 230, 460 and 921; ``<4,
+    ...>`` 16-byte units otherwise).  Times (event and device ms) of kernel,
+    plain version and, where one exists, the library call; returns the
+    JSON rows, each summed over one pass of its model: VideoMAE's adapt
+    forward (25 LayerNorms at 3136 rows, 12 MLPs) or backward; a CNN's
+    chosen BatchNorms on the adapt batch."""
+    import torch.nn.functional as F
+    from vitta_tpu_torch.ops import cuda_ln as cl
+    from vitta_tpu_torch.ops import cuda_mlp as cm
+    from vitta_tpu_torch.ops.cuda_stats import (
+        bn_stats_bwd_cuda, bn_stats_fwd_cuda,
+        fused_bn_relu_stats_backward_reference,
+        fused_bn_relu_stats_reference)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    def quick(fn, grad=False):
+        return measure(fn, reps=5, dev_reps=3, grad=grad)
+
+    src, ops = "vitta_tpu_torch/csrc", "vitta_tpu/ops"
+    rows = []
+    # rows 3 and 4 at VideoMAE's width: 25 LayerNorms a pass
+    ln_f, ln_b = Totals(), Totals()
+    c = 768
+    for m_rows in VIDEOMAE_ROWS:
+        x = randn(m_rows, c, scale=2.0) + 0.5
+        g, b, dy = randn(c), randn(c), randn(m_rows, c)
+        what = f"ln videomae rows={m_rows} C={c}"
+        e_f = check_close(f"{what} fwd", cl.ln_fwd_cuda(x, g, b, 1e-5),
+                          cl.layer_norm_reference(x, g, b, 1e-5), LN_TOL)
+        got = cl.ln_bwd_cuda(x, g, dy, 1e-5)
+        want = cl.layer_norm_backward_reference(x, g, dy, 1e-5)
+        e_b = max(check_scaled(f"{what} {nm}", p, q, LN_BWD_TOL)
+                  for nm, p, q in zip(("dx", "dgamma", "dbeta"), got, want))
+        if not all(torch.equal(p, q) for p, q in
+                   zip(got, cl.ln_bwd_cuda(x, g, dy, 1e-5))):
+            raise AssertionError(f"{what}: two backward runs differ")
+        names = {d: launches_of(fn) for d, fn in (
+            ("fwd", lambda: cl.ln_fwd_cuda(x, g, b, 1e-5)),
+            ("bwd", lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5)))}
+        if sum(names["fwd"].values()) != 1 or sum(names["bwd"].values()) != 2:
+            raise AssertionError(f"{what}: launches {names}, expected 1 "
+                                 "forward and 2 backward a call")
+        leaves = [v.clone().requires_grad_() for v in (x, g, b)]
+        y_lib = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-5)
+        t = {"fwd": quick(lambda: cl.ln_fwd_cuda(x, g, b, 1e-5)),
+             "fwd plain": quick(lambda: cl.layer_norm_reference(x, g, b,
+                                                                1e-5)),
+             "F.layer_norm": quick(lambda: F.layer_norm(x, (c,), g, b, 1e-5)),
+             "bwd": quick(lambda: cl.ln_bwd_cuda(x, g, dy, 1e-5)),
+             "bwd plain": quick(lambda: cl.layer_norm_backward_reference(
+                 x, g, dy, 1e-5)),
+             "F.layer_norm backward": quick(lambda: torch.autograd.grad(
+                 y_lib, leaves, dy, retain_graph=True), grad=True)}
+        _report(f"{what} (launches {names})", max(e_f, e_b), t)
+        ln_f.err, ln_b.err = max(ln_f.err, e_f), max(ln_b.err, e_b)
+        if m_rows == VIDEOMAE_ROWS[0]:
+            ln_f.add(25, ms=t["fwd"][0], device_ms=t["fwd"][1],
+                     plain_ms=t["fwd plain"][0],
+                     plain_device_ms=t["fwd plain"][1],
+                     library_ms=t["F.layer_norm"][0],
+                     library_device_ms=t["F.layer_norm"][1],
+                     bytes=(2 * x.numel() + 2 * c) * 4, flops=8 * x.numel())
+            ln_b.add(25, ms=t["bwd"][0], device_ms=t["bwd"][1],
+                     plain_ms=t["bwd plain"][0],
+                     plain_device_ms=t["bwd plain"][1],
+                     library_ms=t["F.layer_norm backward"][0],
+                     library_device_ms=t["F.layer_norm backward"][1],
+                     bytes=(3 * x.numel() + 3 * c) * 4, flops=14 * x.numel())
+        del x, dy, got, want, leaves, y_lib
+    rows += [ln_f.row("ln_fwd_videomae", f"{src}/ln.cu",
+                      f"{ops}/pallas_ln.py:85"),
+             ln_b.row("ln_bwd_videomae", f"{src}/ln.cu",
+                      f"{ops}/pallas_ln.py:100")]
+
+    # rows 8 and 9 at VideoMAE's width: 12 MLPs a pass
+    m_rows, f = VIDEOMAE_ROWS[0], 3072
+    w1, b1 = randn(f, c, scale=c ** -0.5), 0.1 * randn(f)
+    w2, b2 = randn(c, f, scale=f ** -0.5), 0.1 * randn(c)
+    x, g = randn(m_rows, c, scale=1.5), randn(m_rows, c)
+    what = f"mlp videomae M={m_rows} C={c} F={f}"
+    got = cm.mlp_fwd_cuda(x, w1, b1, w2, b2, save_residuals=True)
+    want = cm.mlp_reference(x, w1, b1, w2, b2, save_residuals=True)
+    e_f = max(check_close(f"{what} fwd {nm}", p, q, MLP_TOL)
+              for nm, p, q in zip(("o", "a", "s"), got, want))
+    _o, a, s_ = got
+    args = (x, a, s_, g, w1, w2)
+    got_b = cm.mlp_bwd_cuda(*args)
+    e_b = max(check_scaled(f"{what} bwd {nm}", p, q, MLP_BWD_TOL)
+              for nm, p, q in zip(("dx", "dw1", "db1", "dw2", "db2"), got_b,
+                                  cm.mlp_backward_reference(*args)))
+    if not all(torch.equal(p, q)
+               for p, q in zip(cm.mlp_bwd_cuda(*args), got_b)):
+        raise AssertionError(f"{what}: two backward runs differ")
+    names = {d: launches_of(fn) for d, fn in (
+        ("fwd", lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2)),
+        ("bwd", lambda: cm.mlp_bwd_cuda(*args)))}
+    leaves = [v.detach().clone().requires_grad_()
+              for v in (x, w1, b1, w2, b2)]
+    with torch.enable_grad():
+        o_lib = cm.mlp_reference(*leaves)
+    t = {"fwd": quick(lambda: cm.mlp_fwd_cuda(x, w1, b1, w2, b2)),
+         "fwd keeping a, s": quick(lambda: cm.mlp_fwd_cuda(
+             x, w1, b1, w2, b2, save_residuals=True)),
+         "fwd plain (F.linear-gelu-F.linear)": quick(
+             lambda: cm.mlp_reference(x, w1, b1, w2, b2)),
+         "bwd": quick(lambda: cm.mlp_bwd_cuda(*args)),
+         "bwd plain": quick(lambda: cm.mlp_backward_reference(*args)),
+         "bwd of the composition": quick(lambda: torch.autograd.grad(
+             o_lib, leaves, g, retain_graph=True), grad=True)}
+    _report(f"{what} (launches {names})", max(e_f, e_b), t)
+    mlp_f, mlp_b = Totals(), Totals()
+    mlp_f.err, mlp_b.err = e_f, e_b
+    flops, bflops = 4 * m_rows * c * f + 10 * m_rows * f, \
+        8 * m_rows * c * f + 4 * m_rows * f
+    plain = t["fwd plain (F.linear-gelu-F.linear)"]
+    mlp_f.add(12, ms=t["fwd keeping a, s"][0],
+              device_ms=t["fwd keeping a, s"][1], plain_ms=plain[0],
+              plain_device_ms=plain[1],
+              bytes=(2 * m_rows * c + 2 * m_rows * f + 2 * c * f + f + c) * 4,
+              flops=flops, tc_flops=4 * m_rows * c * f)
+    mlp_b.add(12, ms=t["bwd"][0], device_ms=t["bwd"][1],
+              plain_ms=t["bwd plain"][0], plain_device_ms=t["bwd plain"][1],
+              library_ms=t["bwd of the composition"][0],
+              library_device_ms=t["bwd of the composition"][1],
+              bytes=(3 * m_rows * c + 2 * m_rows * f + 4 * c * f + f + c) * 4,
+              flops=bflops, tc_flops=8 * m_rows * c * f)
+    rows += [mlp_f.row("mlp_fwd_videomae", f"{src}/mlp.cu",
+                       f"{ops}/pallas_mlp.py:209", has_library=False),
+             mlp_b.row("mlp_bwd_videomae", f"{src}/mlp.cu",
+                       f"{ops}/pallas_mlp.py:228", has_library=False)]
+    rows[-2]["composition_device_ms"] = rows[-2]["plain_device_ms"]
+    rows[-1]["composition_device_ms"] = mlp_b.sum["library_device_ms"]
+    del x, g, a, s_, args, got, want, got_b, leaves, o_lib, w1, w2
+
+    # row 7 at every BatchNorm site of the zoo's CNNs
+    sites = zoo_bn_sites(dev)
+    timed = {}
+    for model, per_site in sites.items():
+        tot = {"fwd": Totals(), "bwd": Totals()}
+        instances = {}
+        for (r, c, eps), (calls, chosen) in sorted(per_site.items()):
+            key = (r, c, eps)
+            x = randn(r, c, scale=2.0) + 0.5
+            scale = torch.rand(c, device=dev, generator=gen) + 0.5
+            bias, mean = randn(c), 0.1 * randn(c)
+            var = torch.rand(c, device=dev, generator=gen) + 0.5
+            cots = (randn(r, c), randn(c), randn(c))
+            y, m, v = bn_stats_fwd_cuda(x, scale, bias, mean, var, eps, False)
+            ry, (rm, rv) = fused_bn_relu_stats_reference(
+                x, scale, bias, mean, var, eps=eps, relu=False)
+            what = f"bn_stats {model} rows={r} C={c} eps={eps:g}"
+            e_f = max(check_close(f"{what} y", y, ry, BN_TOL),
+                      check_close(f"{what} m", m, rm, BN_TOL, 1e-6),
+                      check_close(f"{what} v", v, rv, 1e-4, 1e-5))
+            got = bn_stats_bwd_cuda(x, scale, bias, mean, var, m, *cots, eps,
+                                    False)
+            want = fused_bn_relu_stats_backward_reference(
+                x, scale, bias, mean, var, rm, *cots, eps=eps, relu=False)
+            e_b = max(check_scaled(f"{what} {nm}", p, q, BN_BWD_TOL)
+                      for nm, p, q in zip(("dx", "dscale", "dbias"), got,
+                                          want))
+            names = {}
+            for d, fn in (("fwd", lambda: bn_stats_fwd_cuda(
+                    x, scale, bias, mean, var, eps, False)),
+                    ("bwd", lambda: bn_stats_bwd_cuda(
+                        x, scale, bias, mean, var, m, *cots, eps, False))):
+                names[d] = launches_of(fn)
+                if (sum(names[d].values()) != 1
+                        or not all(k.startswith(f"bn_stats_{d}_kernel")
+                                   for k in names[d])):
+                    raise AssertionError(f"{what}: {d} launches {names[d]}, "
+                                         f"expected one bn_stats_{d}_kernel")
+            inst = "/".join(k[len("bn_stats_"):] for d in ("fwd", "bwd")
+                            for k in names[d])
+            instances.setdefault(inst, []).append(c)
+            for d, e in (("fwd", e_f), ("bwd", e_b)):
+                tot[d].err = max(tot[d].err, e)
+            line = (f"{what}: {calls} calls a pass ({chosen} chosen), max abs "
+                    f"err fwd {e_f:.2e} bwd {e_b:.2e}, instances {inst}")
+            if chosen:
+                if key not in timed:
+                    ref_in = [t_.clone().requires_grad_()
+                              for t_ in (x, scale, bias)]
+                    ref_out = fused_bn_relu_stats_reference(
+                        *ref_in, mean, var, eps=eps, relu=False)
+                    ref_out = (ref_out[0], *ref_out[1])
+                    timed[key] = {
+                        "fwd": quick(lambda: bn_stats_fwd_cuda(
+                            x, scale, bias, mean, var, eps, False)),
+                        "bwd": quick(lambda: bn_stats_bwd_cuda(
+                            x, scale, bias, mean, var, m, *cots, eps,
+                            False)),
+                        "plain_fwd": quick(
+                            lambda: fused_bn_relu_stats_reference(
+                                x, scale, bias, mean, var, eps=eps,
+                                relu=False)),
+                        "plain_bwd": quick(lambda: torch.autograd.grad(
+                            ref_out, ref_in, cots, retain_graph=True),
+                            grad=True)}
+                    del ref_in, ref_out
+                tm = timed[key]
+                n = r * c
+                for d, nb, fl in (("fwd", (2 * n + 6 * c) * 4, 6 * n),
+                                  ("bwd", (3 * n + 10 * c) * 4, 12 * n)):
+                    tot[d].add(chosen, ms=tm[d][0], device_ms=tm[d][1],
+                               plain_ms=tm[f"plain_{d}"][0],
+                               plain_device_ms=tm[f"plain_{d}"][1],
+                               bytes=nb, flops=fl)
+                line += ("; device us fwd / bwd "
+                         f"{fmt(tm['fwd'][1] and tm['fwd'][1] * 1e3)} / "
+                         f"{fmt(tm['bwd'][1] and tm['bwd'][1] * 1e3)}")
+            print(line, flush=True)
+            del x, cots, y, m, v, ry, rm, rv, got, want
+        print(f"bn_stats {model}: {sum(n for n, _ in per_site.values())} "
+              f"BatchNorm calls a forward pass at {len(per_site)} shapes, "
+              f"{sum(ch for _, ch in per_site.values())} chosen; instances "
+              f"by width: " + "; ".join(f"{k} at C {sorted(set(v))}"
+                                        for k, v in instances.items()),
+              flush=True)
+        for d in ("fwd", "bwd"):
+            rows.append(tot[d].row(f"bn_stats_{d}_{model}",
+                                   f"{src}/bn_stats.cu",
+                                   f"{ops}/pallas_stats.py:80",
+                                   has_library=False))
+            rows[-1]["instances"] = sorted(instances)
+    for r in rows:
+        print(f"{r['name']} per pass: event ms {r['ms']:.4f}, device ms "
+              f"{fmt(r['device_ms'])}, plain {r['plain_ms']:.4f} (device "
+              f"{fmt(r['plain_device_ms'])}), library "
+              f"{fmt(r['library_ms'])} (device "
+              f"{fmt(r['library_device_ms'])}), bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}{_floor(r)}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_zoo_small(seed=SEED):
+    """Phase 43, card against CPU for each zoo model at T=4, 32 x 32
+    (Inception at T=8; 101 classes, dropout and drop path 0, lr 1e-2):
+    from one seeded state dict and one clean clip's source statistics, a
+    tapped forward (logits and every tap), then one ``tta_online``
+    adapt+eval step each: losses, the EMA, the adapted model's eval logits,
+    each parameter's update and top-1.  Phase 40's bounds: top-1 equal,
+    logits rtol 2e-3 / atol 2e-4, each update within 2% of its norm; the
+    taps and the EMA at phase 5's rtol 1e-3 / atol 1e-5 of the statistics
+    (phase 40 reads the running statistics the same way)."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.models.layers import flatten_taps
+    from vitta_tpu_torch.tools.synthetic import (ZOO_MODELS, zoo_cfg,
+                                                 zoo_model, zoo_weights)
+    lines = []
+    for name in ZOO_MODELS:
+        t = ZOO_SMALL_T.get(name, 4)
+        cfg = zoo_cfg(name, t=t, hw=32)
+        cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, lr=1e-2))
+        sd = zoo_weights(name, cfg, seed)
+        rng = np.random.default_rng(seed)
+        clean = torch.from_numpy(rng.normal(size=(2, t, 32, 32, 3)).astype(
+            np.float32))
+        video = _videos(rng, 1, t, 32)[0]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = zoo_model(name, cfg, deterministic=True)
+            model.load_state_dict(sd)
+            model.to(dev)
+            taps = {}
+            with torch.no_grad():
+                logits = model(clean.to(dev), taps).cpu()
+            stats = {k: (s.mean.cpu(), s.var.cpu())
+                     for k, s in flatten_taps(taps).items()}
+            runs[dev] = [logits, stats]
+        src = {k: (m.numpy(), v.numpy()) for k, (m, v) in
+               runs["cpu"][1].items()}
+        for dev in ("cuda", "cpu"):
+            eng = VittaEngine(zoo_model(name, cfg, deterministic=True), cfg,
+                              sd, src, device=dev)
+            state, m = eng.adapt_eval_step(eng.init_state(), *video)
+            runs[dev] += [
+                {f: float(getattr(m, f)) for f in
+                 ("loss_reg", "loss_consis", "loss_ce", "top1")},
+                eng.eval_logits(video[1]).cpu(),
+                {k: p.detach().cpu() for k, p in eng.model.named_parameters()},
+                {k: (s.mean.cpu(), s.var.cpu()) for k, s in state.ema.items()},
+                len(eng.tap_names)]
+        (l_g, s_g, m_g, el_g, p_g, e_g, chosen), \
+            (l_c, s_c, m_c, el_c, p_c, e_c, _n) = runs["cuda"], runs["cpu"]
+        what = f"zoo small {name} (T={t}, 32x32)"
+        err = check_close(f"{what} logits", l_g, l_c, 2e-3, 2e-4)
+        if set(s_g) != set(s_c) or not s_c:
+            raise AssertionError(f"{what}: tap names differ")
+        tap_err = max(check_close(f"{what} tap {k}", g, c_, 1e-3, 1e-5)
+                      for k in s_c for g, c_ in zip(s_g[k], s_c[k]))
+        for f in ("loss_reg", "loss_consis", "loss_ce"):
+            if not abs(m_g[f] - m_c[f]) <= 1e-5 + 1e-3 * abs(m_c[f]):
+                raise AssertionError(f"{what}: {f} card {m_g[f]} cpu "
+                                     f"{m_c[f]}")
+        if m_g["top1"] != m_c["top1"]:
+            raise AssertionError(f"{what}: top-1 card {m_g['top1']} cpu "
+                                 f"{m_c['top1']}")
+        eval_err = check_close(f"{what} eval logits", el_g, el_c, 2e-3, 2e-4)
+        ema_err = max(check_close(f"{what} ema {k}", g, c_, 1e-3, 1e-5)
+                      for k in e_c for g, c_ in zip(e_g[k], e_c[k]))
+        worst, moved = _assert_updates_agree(what, sd, p_g, p_c, 2e-2)
+        if moved == 0:
+            raise AssertionError(f"{what}: no parameter moved")
+        lines.append(f"{name}: logits {err:.2e}, {len(s_c)} taps {tap_err:.2e}"
+                     f", losses {m_g} vs {m_c}, eval logits {eval_err:.2e}, "
+                     f"EMA of {chosen} layers {ema_err:.2e}, {moved} "
+                     f"parameters moved, worst update {worst:.2e} of its norm")
+    print("zoo small card vs cpu: " + "; ".join(lines), flush=True)
+
+
+def _activation_copies(model, x):
+    """The clones and copies one untapped forward of ``model`` on ``x``
+    dispatches (``conv_ndhwc`` hands cuDNN channels_last_3d views and
+    takes its output back as a view: none is expected)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.copies = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(k in str(func) for k in ("clone", "copy", "contiguous")):
+                self.copies.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Ops() as ops:
+        model(x, None)
+    return ops.copies
+
+
+def phase_zoo_full(card, seed=SEED):
+    """Phase 44: each zoo model at full width (VideoMAE ViT-B, R(2+1)D-18,
+    I3D-ResNet 18 and 50, Inception-I3D, TANet without the TAM; 101
+    classes, 2 views x 16 x 224 x 224, seeded weights, each model's source
+    statistics from one clean clip) through ``tta_stream`` over ZOO_VIDEOS
+    synthetic uint8 videos under mean_var, ``tta_online``, SGD at the TANet
+    preset's lr, dropout and drop path as built.  The wrappers' launch
+    counts of every kernel family must equal ZOO_PREDICTED times the
+    videos; the libraries' own counts are printed beside them; one
+    untapped forward of a CNN dispatches no clone or copy
+    (``_activation_copies``: the convs take and give channels-last views).
+    Then one
+    profiled step: host ms, device busy ms, idle share, by class of kernel.
+    Returns {model: (counts, summary)}."""
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import tta_stream
+    from vitta_tpu_torch.ops._launch import copy_counters
+    from vitta_tpu_torch.tools.synthetic import (ZOO_MODELS, zoo_cfg,
+                                                 zoo_model, zoo_weights)
+    out = {}
+    for name in ZOO_MODELS:
+        cfg = zoo_cfg(name)
+        sd = zoo_weights(name, cfg, seed)
+        rng = np.random.default_rng(seed)
+        model = zoo_model(name, cfg)
+        model.load_state_dict(sd)
+        clean = torch.from_numpy(rng.normal(
+            size=(2, 16, 224, 224, 3)).astype(np.float32)).cuda()
+        src = _tanet_source(model.cuda(), clean)
+        # the CNNs' convs: none (VideoMAE's plain attention reshapes the
+        # heads' transposed outputs, as vitta_tpu's einsums do)
+        copies_fwd = (_activation_copies(model, clean)
+                      if name in ZOO_BN_MODELS else [])
+        if copies_fwd:
+            raise AssertionError(f"zoo {name}: a forward dispatched the "
+                                 f"copies {copies_fwd}")
+        del model, clean
+        engine = VittaEngine(zoo_model(name, cfg), cfg, sd, src)
+        videos = _videos(rng, ZOO_VIDEOS, 16, 224)
+        writer = _StepTimes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zoo_reset()
+        box = {}
+
+        def run():
+            top1, box["state"], box["meters"] = tta_stream(
+                engine, videos, seed=seed, metrics_writer=writer)
+            torch.cuda.synchronize()
+        library = launches_of(run)
+        counts = _zoo_counts()
+        copies = copy_counters.contiguity_copies
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k: ZOO_PREDICTED[name].get(k, 0) * ZOO_VIDEOS
+                for k in ZOO_COUNTERS}
+        if counts != want:
+            raise AssertionError(f"zoo {name}: launches {counts}, predicted "
+                                 f"{want}")
+        state, meters = box["state"], box["meters"]
+        for k in ("loss_reg", "loss_consis", "loss_ce"):
+            if not np.isfinite(meters[k].avg):
+                raise AssertionError(f"zoo {name}: {k} {meters[k].avg}")
+        if not meters["loss_reg"].avg > 0 or state.step != ZOO_VIDEOS:
+            raise AssertionError(f"zoo {name}: reg loss "
+                                 f"{meters['loss_reg'].avg}, {state.step} "
+                                 "steps")
+        moved = sum(not torch.equal(p.detach(), engine.init_params[k])
+                    for k, p in engine.model.named_parameters())
+        if moved == 0 or not all(bool(torch.isfinite(p).all())
+                                 for p in engine.model.parameters()):
+            raise AssertionError(f"zoo {name}: {moved} tensors moved, or one "
+                                 "is not finite")
+        ms = writer.ms[1:]
+        summary = {"model": name, "videos": len(ms),
+                   "chosen": len(engine.tap_names),
+                   "median_ms": statistics.median(ms), "min_ms": min(ms),
+                   "max_ms": max(ms), "peak_gib": peak,
+                   "contiguity_copies": copies}
+        host_ms, busy, classes, largest = _profile_step(engine, videos[-1],
+                                                        state)
+        if busy:
+            summary.update(host_ms=host_ms, device_busy_ms=busy,
+                           idle_share=max(0.0, 1 - busy / host_ms))
+        ours = {k: n for k, n in library.items()
+                if k.startswith(("ln_", "mlp", "gemm", "reduce", "bn_stats",
+                                 "tam_", "attn", "bias", "dbias", "col_"))}
+        print(f"zoo full {name}: {ZOO_VIDEOS} videos, {summary['chosen']} "
+              f"chosen layers, median {summary['median_ms']:.3f} ms/video "
+              f"(min {summary['min_ms']:.3f}, max {summary['max_ms']:.3f}; "
+              f"host clock, after 1 warm-up), device busy "
+              f"{fmt(summary.get('device_busy_ms'))} ms of a profiled step "
+              f"(host {host_ms:.3f} ms, idle share "
+              f"{fmt(summary.get('idle_share'))}), peak memory {peak:.3f} "
+              f"GiB, losses reg {meters['loss_reg'].avg:.5f} consis "
+              f"{meters['loss_consis'].avg:.5f}, {moved} tensors moved; "
+              f"wrapper launches {counts} (predicted, per video "
+              f"{ZOO_PREDICTED[name]}), contiguity copies {copies}, "
+              f"clones or copies in a CNN's forward 0; the "
+              f"libraries' launches by kernel {ours}; by class, ms "
+              f"(launches): " + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
+                                          for k, v in classes.items())
+              + f"; on {card}", flush=True)
+        out[name] = (counts, summary)
+        del engine, state, box
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_drivers(card, seed=SEED):
+    """Phase 45: the Kinetics-400-C and SSv2-C drivers
+    (``vitta_tpu_torch.scripts.tta_swin_kinetics`` / ``tta_swin_ssv2``,
+    Video Swin-B at its preset, 400 and 174 classes) on the card, one
+    corruption of 2 synthetic videos each, from Swin-B's source statistics
+    written by the port's ``compute_stats`` script over the same list; each
+    must return a row for the corruption and the mean."""
+    from vitta_tpu_torch.scripts import (compute_stats, tta_swin_kinetics,
+                                         tta_swin_ssv2)
+    with tempfile.TemporaryDirectory() as root:
+        listing = os.path.join(root, "list.txt")
+        with open(listing, "w") as f:
+            f.write("vid_a 48 3\nvid_b 52 7\n")
+        common = ["--video_source", "synthetic", "--val_vid_list", listing,
+                  "--workers", "2", "--seed", str(seed)]
+        t0 = time.perf_counter()
+        paths = compute_stats.main(["--arch", "videoswintransformer",
+                                    "--batch_size", "2", "--result_dir",
+                                    os.path.join(root, "stats"), *common])
+        stats_s = time.perf_counter() - t0
+        lines = [f"compute_stats (Swin-B, 2 videos) {stats_s:.1f} s"]
+        for name, driver, classes in (("kinetics", tta_swin_kinetics, 400),
+                                      ("somethingv2", tta_swin_ssv2, 174)):
+            t0 = time.perf_counter()
+            results = driver.main(
+                [*common, "--corruptions", "gauss", "--result_dir",
+                 os.path.join(root, name), "--spatiotemp_mean_clean_file",
+                 paths[0], "--spatiotemp_var_clean_file", paths[1]])
+            seconds = time.perf_counter() - t0
+            if set(results) != {"gauss", "mean"}:
+                raise AssertionError(f"driver {name}: rows {results}")
+            lines.append(f"{name} ({classes} classes): rows {results} in "
+                         f"{seconds:.1f} s")
+    print(f"zoo drivers on {card}: " + "; ".join(lines), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -6535,6 +7154,23 @@ def main() -> int:
     lap("phase 40, the baselines")
     cli = phase_cli_resume(card)
     lap("phase 41, the CLI's sweep, mid-stream checkpoint and --resume")
+    # the model zoo: its kernels at the new shapes, card against CPU, each
+    # model's full stream, the Kinetics-400-C and SSv2-C drivers
+    zoo_rows = phase_zoo_kernels(dev)
+    lap("phase 42, the model zoo's kernels")
+    phase_zoo_small()
+    lap("phase 43, the model zoo card against CPU")
+    zoo = phase_zoo_full(card)
+    for row in zoo_rows:
+        kind, d, model = row["name"].split("_", 2)
+        if kind == "bn":                      # bn_stats_{fwd,bwd}_{model}
+            d, model = model.split("_", 1)
+            row["launches"] = zoo[model][0][f"bn_stats_{d}"]
+        else:                                 # {ln,mlp}_{fwd,bwd}_videomae
+            row["launches"] = zoo[model][0][f"{kind}_{d}"]
+    lap("phase 44, the model zoo's streams")
+    phase_zoo_drivers(card)
+    lap("phase 45, the Kinetics-400-C and SSv2-C drivers")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)
@@ -6565,6 +7201,13 @@ def main() -> int:
               f"{s['min_ms']:.3f}, max {s['max_ms']:.3f}, {s['videos']} "
               f"videos), {s['chosen']} chosen layers, host "
               f"{fmt(s.get('host_ms'))} ms, device busy "
+              f"{fmt(s.get('device_busy_ms'))} ms, idle share "
+              f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
+              f"GiB; on {card}", flush=True)
+    for name, (_counts, s) in zoo.items():
+        print(f"zoo {name} adapt step: median {s['median_ms']:.3f} ms/video "
+              f"(min {s['min_ms']:.3f}, max {s['max_ms']:.3f}, {s['videos']} "
+              f"videos), host {fmt(s.get('host_ms'))} ms, device busy "
               f"{fmt(s.get('device_busy_ms'))} ms, idle share "
               f"{fmt(s.get('idle_share'))}, peak memory {s['peak_gib']:.3f} "
               f"GiB; on {card}", flush=True)
@@ -6626,7 +7269,7 @@ def main() -> int:
          for d, r in dtype_turns.items()}) + f"; on {card}", flush=True)
     print(json.dumps({"kernels": tam_rows + bn_rows + bf16_rows + swin_rows
                       + proj_rows + unfused_rows + swin_bf16_rows
-                      + swin_t_bf16_rows + proj_bf16_rows}))
+                      + swin_t_bf16_rows + proj_bf16_rows + zoo_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

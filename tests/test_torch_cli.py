@@ -11,8 +11,8 @@ source model's own predictions on all but one video, so that top-1 is not
 0 by construction.  Then the flags parse to vitta_tpu's configuration, the
 precompute writes vitta_tpu's statistics files (at
 tests/test_torch_precompute.py's rtol 1e-3 / atol 1e-5), and the port's run
-device,
-architectures and sweep modes raise where they should.
+device, the model zoo's checkpoint paths and sweep modes raise where they
+should.
 """
 
 import dataclasses
@@ -152,8 +152,10 @@ def test_flags_parse_to_vitta_tpus_configuration(monkeypatch):
 
 
 def test_what_the_port_does_not_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        get_opts(["--arch", "i3d_resnet50"])
+    # the model zoo builds, but loads no checkpoint (as in vitta_tpu)
+    _a, cfg = get_opts(["--arch", "i3d_resnet50", "--model_path", "x.pth"])
+    with pytest.raises(NotImplementedError, match="checkpoints load"):
+        main_eval.load_variables(cfg)
     monkeypatch.setenv("VITTA_PLATFORM", "cpu")
     assert run_device() == torch.device("cpu")
     monkeypatch.setenv("VITTA_PLATFORM", "tpu")

@@ -34,7 +34,10 @@ def test_port_imports_no_jax():
                  "baselines.t3a", "cli.opts", "cli.main_eval", "cli.drivers",
                  "adapt.stream_ckpt", "utils.logging", "utils.observability",
                  "scripts.tta_tanet_ucf101", "scripts.tta_swin_ucf101",
-                 "scripts.sourceonly_ucf101_corr", "scripts.compute_stats"):
+                 "scripts.sourceonly_ucf101_corr", "scripts.compute_stats",
+                 "models.videomae", "models.r2plus1d", "models.i3d",
+                 "models.i3d_incep", "scripts.tta_swin_kinetics",
+                 "scripts.tta_swin_ssv2", "utils.checkpoint"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -141,6 +144,36 @@ def test_baselines_and_cli_import_without_jax_or_a_card():
         "assert not native._LOADED\n"
         "os.environ['VITTA_PLATFORM'] = 'cpu'\n"
         "assert str(opts.run_device()) == 'cpu'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_model_zoo_and_its_drivers_import_without_jax():
+    """VideoMAE, R(2+1)D, I3D and Inception-I3D, their converters, the
+    zoo's set-up helpers and the Kinetics-400-C and SSv2-C drivers, from a
+    process that never saw JAX: building the models touches no device."""
+    code = (
+        "import sys\n"
+        "from vitta_tpu_torch.models.videomae import VideoMAE, ViTBlock\n"
+        "from vitta_tpu_torch.models.r2plus1d import R2Plus1D, Conv2Plus1D\n"
+        "from vitta_tpu_torch.models.i3d import I3D, I3DResNet, I3D_DEPTHS\n"
+        "from vitta_tpu_torch.models.i3d_incep import InceptionI3d\n"
+        "from vitta_tpu_torch.models.layers import conv_ndhwc\n"
+        "from vitta_tpu_torch.utils.checkpoint import (videomae_state_dict, "
+        "inflate_swin2d_state_dict, r2plus1d_state_dict_from_jax, "
+        "i3d_state_dict_from_jax, i3d_incep_state_dict_from_jax, "
+        "videomae_state_dict_from_jax)\n"
+        "from vitta_tpu_torch.tools.synthetic import ZOO_MODELS, zoo_model\n"
+        "from vitta_tpu_torch.scripts import tta_swin_kinetics, "
+        "tta_swin_ssv2\n"
+        "assert sorted(ZOO_MODELS) == ['i3d_incep', 'i3d_resnet18', "
+        "'i3d_resnet50', 'r2plus1d', 'tanet_no_tam', 'videomae']\n"
+        "m = R2Plus1D(3)\n"
+        "assert next(m.parameters()).device.type == 'cpu'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
         "assert not bad, bad\n")

@@ -48,11 +48,12 @@ def tanet_trainable_mask(named_params) -> Dict[str, bool]:
 
 # weight and bias of the norm layers the JAX package's ``norm_affine_mask``
 # names (vitta_tpu/adapt/optim.py:51-62: bn1/2/3, downsample_bn, g_bn, l_bn,
-# norm, norm1, norm2), under the port's state-dict names.  The patch
-# embedding's norm is ``patch_embed_norm`` there and so not in the set.
+# norm, norm1, norm2), under the port's state-dict names (the model zoo's
+# CNNs keep ``downsample_bn``).  The patch embedding's norm is
+# ``patch_embed_norm`` there and so not in the set.
 _NORM_AFFINE = re.compile(
-    r"(^|\.)(bn[123]|downsample\.1|G\.1|L\.1|norm|norm1|norm2)"
-    r"\.(weight|bias)$")
+    r"(^|\.)(bn[123]|downsample\.1|downsample_bn|G\.1|L\.1|norm|norm1|"
+    r"norm2)\.(weight|bias)$")
 
 
 def norm_affine_mask(named_params) -> Dict[str, bool]:

@@ -54,8 +54,15 @@ def load_variables(cfg: VittaConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
     checkpoint path, the weights of ``get_model(cfg)`` built under
     ``torch.manual_seed(seed)`` (synthetic and development runs).  The
     caller loads it with ``load_state_dict(strict=True)``, so a checkpoint
-    of another model or class count raises there."""
+    of another model or class count raises there.  Only TANet and Video
+    Swin load a checkpoint: for the rest of the model zoo a path raises, as
+    vitta_tpu/cli/main_eval.py:46-52 does."""
     if cfg.model.checkpoint_path:
+        if cfg.model.arch not in ("tanet", "videoswintransformer"):
+            raise NotImplementedError(
+                f"arch={cfg.model.arch}: checkpoints load for tanet and "
+                "videoswintransformer only; run it without --model_path "
+                "(seeded random weights)")
         return load_reference_checkpoint(cfg.model.checkpoint_path)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)

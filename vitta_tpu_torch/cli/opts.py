@@ -24,10 +24,6 @@ import torch
 from vitta_tpu_torch.config import (VittaConfig, num_classes_for,
                                     swin_ucf101_preset, tanet_ucf101_preset)
 
-# architectures the flags name that the port does not build yet
-UNPORTED_ARCHS = ("i3d_resnet18", "i3d_resnet50", "i3d_incep", "r2plus1d",
-                  "videomae")
-
 
 def str2bool(v: str) -> bool:
     return str(v).lower() in ("1", "true", "t", "yes", "y")
@@ -67,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype of TANet (params, statistics and "
-                        "the classifier stay float32); Video Swin is built "
-                        "at float32 under either")
+                        "the classifier stay float32); every other model is "
+                        "built at float32 under either")
     p.add_argument("--partial_bn", action="store_true")
     p.add_argument("--num_clips", type=int, default=1)
     p.add_argument("--frame_uniform", type=str2bool, default=True)
@@ -142,15 +138,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> VittaConfig:
-    if args.arch in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch={args.arch}: the port builds tanet and "
-            "videoswintransformer; the other models are ROADMAP.md queue 1 "
-            "item 14")
     if args.stats_npz:
         raise ValueError(
             "--stats_npz: neither package reads a stats archive; pass the "
             "--*_clean_file .npy pairs")
+    # the model zoo's other archs take the TANet preset, as
+    # vitta_tpu/cli/opts.py:131-146 builds them
     base = (swin_ucf101_preset() if args.arch == "videoswintransformer"
             else tanet_ucf101_preset())
     data = dataclasses.replace(

@@ -326,6 +326,25 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv_ndhwc(conv: nn.Conv3d, x: torch.Tensor,
+               padding=None) -> torch.Tensor:
+    """Apply ``conv`` to a channels-last clip ``(N, T, H, W, C)``, with
+    ``padding`` in place of the module's where given.  The permuted view is
+    ``channels_last_3d`` memory, which cuDNN takes and returns as is, so
+    the view back is contiguous and ``contiguous`` is free: no copy of the
+    activation is made.  Float32, as every model that calls it."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight, conv.bias,
+                 conv.stride, conv.padding if padding is None else padding,
+                 conv.dilation, conv.groups)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def max_pool_ndhwc(x, window, stride, padding=0):
+    """torch MaxPool3d (pads with -inf) on ``(N, T, H, W, C)``."""
+    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, stride,
+                        padding).permute(0, 2, 3, 4, 1).contiguous()
+
+
 def max_pool_nhwc(x, window: int, stride: int, padding: int):
     """torch MaxPool2d (pads with -inf) on ``(N, H, W, C)``."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride,

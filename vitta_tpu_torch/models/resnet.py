@@ -5,7 +5,9 @@ models/tanet_models/tanet.py:125-150 and temporal_module.py:68-140):
 
 * channels-last frames ``(N*T, H, W, C)``;
 * stride on the 3x3 conv2 (torchvision v1.5 Bottleneck);
-* TAM inserted after conv1/bn1/relu (temporal_module.py:85-91);
+* TAM inserted after conv1/bn1/relu (temporal_module.py:85-91), or no
+  TAM where ``use_tam`` is False (a plain ResNet-50 of frames,
+  vitta_tpu/models/resnet.py:37,53,86);
 * every BatchNorm records its channel statistics into the tap dict;
 * ``dtype`` is the compute dtype: the stem casts the normalised input to
   it (vitta_tpu/models/resnet.py:95), convolutions, BatchNorm outputs,
@@ -78,21 +80,24 @@ class BottleneckNet(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """torchvision Bottleneck + TAM, expansion 4."""
+    """torchvision Bottleneck + TAM (none where ``use_tam`` is False),
+    expansion 4."""
 
     def __init__(self, inplanes: int, planes: int, clip_len: int,
                  tap_prefix: str, stride: int = 1, downsample: bool = False,
-                 stat_types: Tuple[str, ...] = ("spatiotemp",)):
+                 stat_types: Tuple[str, ...] = ("spatiotemp",),
+                 use_tam: bool = True):
         super().__init__()
         self.net = BottleneckNet(inplanes, planes, stride, downsample,
                                  tap_prefix, clip_len, stat_types)
-        self.tam = TAM(planes, clip_len, f"{tap_prefix}.tam",
-                       stat_types=stat_types)
+        self.tam = (TAM(planes, clip_len, f"{tap_prefix}.tam",
+                        stat_types=stat_types) if use_tam else None)
 
     def forward(self, x, taps: Optional[dict] = None, **bn_kw):
         net = self.net
         out = torch.relu(net.bn1(conv_nhwc(net.conv1, x), taps, **bn_kw))
-        out = self.tam(out, taps, **bn_kw)
+        if self.tam is not None:
+            out = self.tam(out, taps, **bn_kw)
         out = torch.relu(net.bn2(conv_nhwc(net.conv2, out), taps, **bn_kw))
         out = net.bn3(conv_nhwc(net.conv3, out), taps, **bn_kw)
         identity = x
@@ -103,13 +108,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTAM(nn.Module):
-    """ResNet-50 + TAM feature extractor: (N*T, H, W, 3) -> (N*T, 2048)
-    float32, computing at ``dtype`` (float32 or bfloat16)."""
+    """ResNet-50 (+ TAM where ``use_tam``) feature extractor: (N*T, H, W,
+    3) -> (N*T, 2048) float32, computing at ``dtype`` (float32 or
+    bfloat16)."""
 
     def __init__(self, clip_len: int,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
                  tap_prefix: str = "base_model",
-                 dtype: Union[str, torch.dtype] = torch.float32):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 use_tam: bool = True):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -122,7 +129,7 @@ class ResNetTAM(nn.Module):
                 stage.append(Bottleneck(
                     inplanes, planes, clip_len, f"{tap_prefix}.layer{li}_{bi}",
                     stride=stride if bi == 0 else 1, downsample=(bi == 0),
-                    stat_types=stat_types))
+                    stat_types=stat_types, use_tam=use_tam))
                 inplanes = planes * 4
             setattr(self, f"layer{li}", nn.Sequential(*stage))
 

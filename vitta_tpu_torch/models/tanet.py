@@ -13,6 +13,10 @@ models/tanet_models/tanet.py:16-333):
 statistics unless the caller asks for the batch-stat form; ``train``
 only switches dropout on.
 
+``use_tam=False`` builds the backbone without its TAMs, a plain ResNet-50
+of frames (vitta_tpu/models/tanet.py:31): no ``tam.*`` parameters and no
+BatchNorm1d taps.
+
 ``dtype`` ("float32" or "bfloat16", ``cfg.model.compute_dtype``) is the
 backbone's compute dtype (vitta_tpu/models/tanet.py:35); the parameters,
 the pooled features, dropout, ``new_fc`` and the logits stay float32.
@@ -39,7 +43,7 @@ def dropout(x, rate: float, generator: Optional[torch.Generator]):
 
 class TANet(nn.Module):
     def __init__(self, num_classes: int, clip_length: int = 16,
-                 dropout: float = 0.8,
+                 dropout: float = 0.8, use_tam: bool = True,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
                  dtype: str = "float32"):
         super().__init__()
@@ -47,7 +51,7 @@ class TANet(nn.Module):
         self.clip_length = clip_length
         self.dropout = dropout
         self.base_model = ResNetTAM(clip_length, tuple(stat_types),
-                                    dtype=dtype)
+                                    dtype=dtype, use_tam=use_tam)
         self.dtype = self.base_model.dtype
         self.new_fc = nn.Linear(2048, num_classes)
 

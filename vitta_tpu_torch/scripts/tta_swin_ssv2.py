@@ -1,0 +1,29 @@
+"""ViTTA on Video Swin-B / SSv2-C (Something-Something-v2, 174 classes) —
+the port's counterpart of scripts/tta_swin_ssv2.py: the tta_swin_ucf101
+driver with ``--dataset somethingv2`` (the per-arch Swin settings of
+tta_swin_ucf101.py and 174 classes, as ``config.ssv2_preset``; SSv2's flip
+label map applies where flips are drawn, and the TTA views never flip).
+Takes the flags of tta_tanet_ucf101; flags given after these override
+them:
+
+  python -m vitta_tpu_torch.scripts.tta_swin_ssv2 --model_path ... \\
+      --video_data_dir ... --val_vid_list '.../{}.txt' \\
+      --spatiotemp_mean_clean_file ... --spatiotemp_var_clean_file ...
+
+``--n_parallel_streams`` > 1 raises (stream-parallel sweeps are not ported:
+ROADMAP.md queue 1 item 13).
+"""
+
+import sys
+
+from vitta_tpu_torch.scripts import tta_tanet_ucf101
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return tta_tanet_ucf101.main(["--arch", "videoswintransformer",
+                                  "--dataset", "somethingv2", *argv])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Seeded weights, synthetic videos and step timing for runs of the port
 that need no checkpoint and no dataset: what chip_smoke.py and
-tools/attention_routes.py both set up, kept in one place.
+tools/attention_routes.py both set up, kept in one place; the model zoo's
+configurations, models and seeded weights at full width (``ZOO_MODELS``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,69 @@ SWIN_MODELS = {
     "swin_t": dict(embed_dim=96, depths=(2, 2, 6, 2),
                    num_heads=(3, 6, 12, 24)),
 }
+
+
+# The model zoo beside TANet and Video Swin (vitta_tpu/models/__init__.py:
+# 24-35), by name: (the configuration's arch, the ``--chosen_blocks`` a user
+# passes for it; the TANet preset's own match no VideoMAE or Inception
+# layer, vitta_tpu/adapt/engine.py:100-113).  "tanet_no_tam" is
+# ``TANet(use_tam=False)``, which no flag builds.
+ZOO_MODELS = {
+    "videomae": ("videomae", ("norm",)),
+    "r2plus1d": ("r2plus1d", ("layer3", "layer4")),
+    "i3d_resnet18": ("i3d_resnet18", ("layer3", "layer4")),
+    "i3d_resnet50": ("i3d_resnet50", ("layer3", "layer4")),
+    "i3d_incep": ("i3d_incep", ("Mixed_4", "Mixed_5")),
+    "tanet_no_tam": ("tanet", ("layer3", "layer4")),
+}
+
+
+def zoo_cfg(name, t=16, hw=224, num_classes=101):
+    """``tanet_ucf101_preset`` for the zoo model ``name`` (the preset the
+    CLI builds every arch but Video Swin on), at ``t`` frames of ``hw`` x
+    ``hw`` and ``num_classes``, with its chosen blocks."""
+    from vitta_tpu_torch.config import tanet_ucf101_preset
+    arch, chosen = ZOO_MODELS[name]
+    cfg = tanet_ucf101_preset()
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, clip_length=t, input_size=hw,
+                                 scale_size=hw),
+        model=dataclasses.replace(cfg.model, arch=arch,
+                                  num_classes=num_classes),
+        tta=dataclasses.replace(cfg.tta, chosen_blocks=chosen))
+
+
+def zoo_model(name, cfg, deterministic=False):
+    """The zoo model ``name`` of ``cfg`` at full width: ``get_model(cfg)``,
+    or TANet without its TAMs.  ``deterministic`` sets its dropout and
+    drop path to 0 (where the card's and the CPU's generators would draw
+    other masks)."""
+    from vitta_tpu_torch.models import get_model
+    from vitta_tpu_torch.models.tanet import TANet
+    model = (TANet(cfg.model.num_classes, clip_length=cfg.data.clip_length,
+                   dropout=cfg.model.dropout, use_tam=False)
+             if name == "tanet_no_tam" else get_model(cfg))
+    if deterministic:
+        model.dropout = 0.0              # the heads' (R(2+1)D has none)
+        for blk in getattr(model, "blocks", ()):
+            blk.drop_path = 0.0          # VideoMAE's
+    return model
+
+
+def zoo_weights(name, cfg, seed):
+    """A seeded state dict of the zoo model ``name``: torch's initialisers
+    under ``torch.manual_seed(seed)``, then every BatchNorm's running mean
+    drawn from N(0, 0.1) and running variance from U(0.5, 1.5), so that no
+    BatchNorm is the identity."""
+    from vitta_tpu_torch.models.layers import BatchNorm
+    torch.manual_seed(seed)
+    model = zoo_model(name, cfg)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    return {k: v.clone() for k, v in model.state_dict().items()}
 
 
 def swin_cfg(t=16, hw=224, **model_kw):

@@ -11,7 +11,14 @@ The port's module tree uses the reference checkpoint's own key names
 the ``{"params", "batch_stats"}`` trees as numpy arrays, so weights made
 by either package serve the other.  ``swin_state_dict_from_jax`` is the
 same for Video Swin, the inverse of ``convert_swin_checkpoint``
-(vitta_tpu/utils/checkpoint.py:162).  Neither function imports JAX.
+(vitta_tpu/utils/checkpoint.py:162); ``videomae_state_dict_from_jax``,
+``r2plus1d_state_dict_from_jax``, ``i3d_state_dict_from_jax`` and
+``i3d_incep_state_dict_from_jax`` for the model zoo, whose CNNs keep the
+JAX package's module names.  None of them imports JAX.
+``videomae_state_dict`` and ``inflate_swin2d_state_dict`` take a reference
+torch state dict (timm's VideoMAE, an image Swin) into the port's modules,
+as ``convert_videomae_checkpoint`` and ``inflate_swin2d_checkpoint``
+(vitta_tpu/utils/checkpoint.py:226,274) take it into the JAX package's.
 
 ``save_stats`` and ``load_reference_stats`` write and read the reference's
 object-array ``.npy`` pair (corpus/basics.py:306-307), one entry per norm
@@ -102,8 +109,9 @@ def tanet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
                 _conv(sd, f"{net}.downsample.0", fp["downsample_conv"])
                 _bn(sd, f"{net}.downsample.1", fp["downsample_bn"],
                     fs["downsample_bn"])
-            sd.update(tam_state_dict_from_jax(
-                fp["tam"], fs["tam"], f"base_model.layer{li}.{bi}.tam"))
+            if "tam" in fp:     # TANet(use_tam=False) has none
+                sd.update(tam_state_dict_from_jax(
+                    fp["tam"], fs["tam"], f"base_model.layer{li}.{bi}.tam"))
     sd["new_fc.weight"] = _t(np.transpose(params["new_fc"]["kernel"]))
     sd["new_fc.bias"] = _t(params["new_fc"]["bias"])
     return sd
@@ -159,6 +167,174 @@ def swin_state_dict_from_jax(variables, depths=(2, 2, 18, 2),
     return sd
 
 
+def _flax_modules(params, path=()):
+    """(path, {leaf: array}) of every module of a flax params tree that
+    holds arrays, depth first."""
+    leaves = {k: v for k, v in params.items() if not hasattr(v, "items")}
+    if leaves:
+        yield path, leaves
+    for k, v in params.items():
+        if hasattr(v, "items"):
+            yield from _flax_modules(v, path + (k,))
+
+
+def _lookup(tree, path):
+    for k in path:
+        if not hasattr(tree, "items") or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def state_dict_from_flax(variables, rename=lambda path: ".".join(path)
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax model's variables -> the state dict of the port's module of
+    the same tree, named by ``rename(path)``: a 5-D conv kernel (kt, kh, kw,
+    in, out) -> (out, in, kt, kh, kw); a Dense kernel (in, out) -> (out,
+    in); scale / bias -> weight / bias, with mean / var -> running_mean /
+    running_var where the module has batch statistics (a BatchNorm), none
+    where it has not (a LayerNorm)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaves in _flax_modules(params):
+        prefix = rename(path)
+        if "kernel" in leaves:
+            k = np.asarray(leaves["kernel"])
+            axes = (4, 3, 0, 1, 2) if k.ndim == 5 else (1, 0)
+            sd[f"{prefix}.weight"] = _t(np.transpose(k, axes))
+            if "bias" in leaves:
+                sd[f"{prefix}.bias"] = _t(leaves["bias"])
+        elif "scale" in leaves:
+            bn = _lookup(stats, path)
+            if bn is not None:
+                _bn(sd, prefix, leaves, bn)
+            else:
+                sd[f"{prefix}.weight"] = _t(leaves["scale"])
+                sd[f"{prefix}.bias"] = _t(leaves["bias"])
+        else:
+            raise ValueError(f"unknown flax module {'/'.join(path)}: "
+                             f"{sorted(leaves)}")
+    return sd
+
+
+def r2plus1d_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``R2Plus1D`` variables -> the port's ``R2Plus1D`` state dict
+    (the same module names)."""
+    return state_dict_from_flax(variables)
+
+
+def i3d_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``I3D`` (any depth) variables -> the port's ``I3D`` state
+    dict."""
+    return state_dict_from_flax(variables)
+
+
+def i3d_incep_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionI3d`` variables -> the port's ``InceptionI3d`` state
+    dict."""
+    return state_dict_from_flax(variables)
+
+
+def videomae_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ``VideoMAE`` variables -> the port's ``VideoMAE`` state dict,
+    whose names are timm's: ``patch_embed`` -> ``patch_embed.proj``,
+    ``blocks_3`` -> ``blocks.3``."""
+    def rename(path):
+        head = path[0]
+        if head == "patch_embed":
+            head = "patch_embed.proj"
+        elif head.startswith("blocks_"):
+            head = "blocks." + head[len("blocks_"):]
+        return ".".join((head,) + tuple(path[1:]))
+    return state_dict_from_flax(variables, rename)
+
+
+def videomae_state_dict(sd, depth: int = 12) -> Dict[str, torch.Tensor]:
+    """A VideoMAE fine-tuned torch state dict (timm's keys, ``model`` and
+    ``module.`` wrappers allowed) -> the port's ``VideoMAE`` state dict,
+    which loads with ``strict=True`` (vitta_tpu/utils/checkpoint.py:226):
+    separate ``q_bias`` / ``v_bias`` become the qkv bias with a zero k bias,
+    ``fc_norm`` (or ``norm``) the final norm; the keys the model does not
+    have (``pos_embed`` ...) are left out."""
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    sd = {k: torch.as_tensor(v).to(torch.float32)
+          for k, v in strip_module_prefix(sd).items()}
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(dst, src=None):
+        out[dst] = sd[src or dst].clone()
+
+    take("patch_embed.proj.weight")
+    take("patch_embed.proj.bias")
+    for i in range(depth):
+        tb = f"blocks.{i}"
+        for name in ("norm1", "norm2", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            take(f"{tb}.{name}.weight")
+            take(f"{tb}.{name}.bias")
+        take(f"{tb}.attn.qkv.weight")
+        if f"{tb}.attn.qkv.bias" in sd:
+            take(f"{tb}.attn.qkv.bias")
+        else:
+            q, v = sd[f"{tb}.attn.q_bias"], sd[f"{tb}.attn.v_bias"]
+            out[f"{tb}.attn.qkv.bias"] = torch.cat(
+                [q, torch.zeros_like(q), v])
+    norm = "fc_norm" if "fc_norm.weight" in sd else "norm"
+    take("norm.weight", f"{norm}.weight")
+    take("norm.bias", f"{norm}.bias")
+    take("head.weight")
+    take("head.bias")
+    return out
+
+
+def inflate_swin2d_state_dict(sd, num_classes: Optional[int] = None,
+                              patch_t: int = 2, window_t: int = 8,
+                              window_hw=(7, 7)) -> Dict[str, torch.Tensor]:
+    """An image Swin state dict -> the port's Video Swin state dict
+    (vitta_tpu/utils/checkpoint.py:274, ``SwinTransformer3D.inflate_weights``
+    of swin_transformer.py:563-614): ``patch_embed.proj`` (C, 3, ph, pw)
+    replicated over ``patch_t`` frames and divided by it, each relative
+    position bias table tiled over the 2 * window_t - 1 temporal offsets,
+    every other key under ``backbone.``; the 2D head dropped where
+    ``num_classes`` is given, and then a head drawn from
+    ``numpy.random.default_rng(0)`` (normal, std 0.01) unless the dict has
+    ``cls_head``.  The ``relative_position_index`` buffers are made for the
+    3D window; the depths are the state dict's own."""
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    sd = {k: np.asarray(torch.as_tensor(v).to(torch.float32))
+          for k, v in strip_module_prefix(sd).items()}
+    full = {}
+    for k, v in sd.items():
+        if k == "patch_embed.proj.weight":
+            v = np.repeat(v[:, :, None], patch_t, axis=2) / float(patch_t)
+        elif k.endswith("relative_position_bias_table"):
+            v = np.tile(v, (2 * window_t - 1, 1))
+        elif k.endswith("relative_position_index") or "attn_mask" in k:
+            continue
+        full["backbone." + k] = v
+    if num_classes is not None:
+        full.pop("backbone.head.weight", None)
+        full.pop("backbone.head.bias", None)
+        if "cls_head.fc_cls.weight" not in full:
+            rng = np.random.default_rng(0)
+            feat = full["backbone.norm.weight"].shape[0]
+            full["cls_head.fc_cls.weight"] = rng.normal(
+                0, 0.01, (num_classes, feat)).astype(np.float32)
+            full["cls_head.fc_cls.bias"] = np.zeros(num_classes, np.float32)
+    index = torch.from_numpy(
+        relative_position_index((window_t, *window_hw)).copy())
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in full.items():
+        if key.startswith("backbone.head."):
+            continue      # the image classifier; Video Swin's is cls_head
+        out[key] = _t(v)
+        if key.endswith("relative_position_bias_table"):
+            out[key[:-len("bias_table")] + "index"] = index.clone()
+    return out
+
+
 def tanet_norm_layers(use_tam: bool = True) -> List[Tuple[str, str]]:
     """Norm layers of TANet in the torch ``named_modules()`` order used by
     ``choose_layers`` (utils/BNS_utils.py:245-259): per bottleneck net.bn1,
@@ -200,7 +376,11 @@ def _stat_layers(arch: str, use_tam: bool, include_bn1d: bool, depths):
                 if kind == "bn2d" or include_bn1d]
     if arch == "videoswintransformer":
         return [name for name, _ in swin_norm_layers(depths)]
-    raise NotImplementedError(arch)
+    # as vitta_tpu/utils/checkpoint.py:345: no statistics file layout for
+    # the model zoo
+    raise NotImplementedError(
+        f"arch={arch}: statistics files are laid out for tanet and "
+        "videoswintransformer only")
 
 
 def load_reference_stats(mean_file: str, var_file: str, arch: str,
