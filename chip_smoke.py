@@ -14,7 +14,9 @@ library it builds with g++, then the six baselines and the CLI's
 corruption sweep with a mid-stream checkpoint and ``--resume``, then the
 model zoo (VideoMAE ViT-B, R(2+1)D-18, I3D-ResNet 18 and 50,
 Inception-I3D, TANet without the TAM) at full width and the Kinetics-400-C
-and SSv2-C drivers.
+and SSv2-C drivers, then stream parallelism (two TANet streams as two
+processes sharing the card, the parallel sweep killed and resumed,
+``sharded_validate``), the trainer and the entry's multi-process dry run.
 
     python3 chip_smoke.py
 
@@ -393,9 +395,31 @@ result line:
 45. The Kinetics-400-C and SSv2-C drivers (``phase_zoo_drivers``):
    ``compute_stats`` then one corruption of 2 synthetic videos each.
 
+46. Two TANet float32 streams at full width as two processes of one
+   torchrun group sharing the card (``tools/parallel_streams.py``), then
+   each alone in its process: bit-equal (losses, logits, parameters, EMA),
+   rows 1, 2 and 7 launched 32 / 16 / 29 + 29 a video in every process;
+   ms/video a stream, videos/s overall, busy share, peak memory
+   (``phase_parallel_streams``).
+47. The parallel sweep (``run_parallel_sweep``) over two corruptions as 2
+   spawned processes on the card (``parallel.mesh.SpawnedGroup``), killed
+   after its first checkpoint and resumed: the uninterrupted rows and steps.
+48. ``sharded_validate`` over those 2 processes, 5 videos of 8 classes in
+   batches of 2 and a remainder, each label the class the source model
+   ranks 0, 3, 6, 0 and 1: top-1 and top-5 those of a plain evaluation on
+   the card (strictly between 0 and 100: a lost share, a half evaluated
+   twice or a dropped remainder changes one of them), top-1 the source
+   baseline's.
+49. The trainer: card against CPU at T 2, 64², each step from the CPU's
+   state, the whole update and momentum within 4 times the CPU's own
+   one-ulp spread (at most 10%), a planted fault (no weight decay) beyond
+   it; full size (4 clips of 16 x 224²): 16 + 16 TAM launches a step,
+   ms/step, busy, peak memory, a checkpoint round trip bit-equal.
+50. ``entry.entry()`` on the card and ``entry.dryrun_multichip(2)``.
+
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
 23's other modes, 7-11, 13, 14, 16, 17, 26-29, 27's other modes, 31-33,
-36-45, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
+36-50, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
 of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
@@ -6860,6 +6884,597 @@ def phase_zoo_drivers(card, seed=SEED):
     print(f"zoo drivers on {card}: " + "; ".join(lines), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phases 46-50: stream parallelism, the trainer, the entry
+# ---------------------------------------------------------------------------
+PARALLEL_STREAMS = 2    # phase 46: processes sharing the card
+PAR_SWEEP_VIDEOS = 4    # phase 47: videos of each corruption (T 4, 64 x 64)
+PAR_SWEEP_EVERY = 2     # its checkpoint cadence; the kill after the first
+PAR_EVAL_VIDEOS = 5     # phase 48: batches of 2 and a remainder of 1
+PAR_CLASSES = 8         # phases 47-48: few classes, so that top-5 can miss
+# phase 48: the rank of each eval video's label among the source model's
+# class scores (0 its first choice).  Top-1 reads 40 and top-5 80; a rank's
+# share left out, one half evaluated twice or the remainder batch dropped
+# each changes one of them (module docstring, phase 48)
+PAR_EVAL_LABEL_RANKS = (0, 3, 6, 0, 1)
+TRAIN_FULL_STEPS = 3    # phase 49: TANet, 4 clips of 16 x 224², 101 classes
+TRAIN_ULP_SEEDS = (1, 2)  # phase 49: the CPU's one-ulp spreads it reads
+TRAIN_SPREAD_FACTOR = 4   # and how many of them the card may read
+GROUP_TIMEOUT_S = 600   # every launch of a process group
+
+
+def _stream_measures(rec):
+    """ms/video (median over the timed videos, host clock at each step's
+    start), videos/s of the timed window, the profiled step's device-busy
+    ms and its share of that median, peak GiB."""
+    w, n = rec["warmup"], len(rec["starts"])
+    starts = np.asarray(rec["starts"][w:n])   # the timed ones, then the
+    window = starts[-1] - starts[0]           # profiled one's start
+    ms = float(np.median(np.diff(starts))) * 1e3
+    return {"ms_per_video": ms, "videos_per_s": (n - 1 - w) / window,
+            "busy_ms": rec["busy_ms"], "profiled_ms": rec["profiled_ms"],
+            "busy_share": rec["busy_ms"] / ms if rec["busy_ms"] else None,
+            "peak_gib": rec["peak_gib"]}
+
+
+def phase_parallel_streams(card):
+    """Phase 46: PARALLEL_STREAMS TANet float32 streams at the reference
+    operating point (``tools/parallel_streams.py``: mean_var, 2 views x 16 x
+    224², 101 classes, seeded weights, each stream its own seeded videos,
+    1 warm-up video, 8 timed and 1 profiled)
+    as processes of one ``torchrun --standalone`` group: first sharing the
+    card (``run_parallel_streams``, gloo, ``streams_per_chip`` the group's
+    size), then each stream alone on the card in its own process while the
+    others wait.  Each stream's per-video losses and eval logits, its final
+    parameters and EMA must be the ones it has alone, bit for bit (cuDNN's
+    deterministic algorithms); each run's wrappers must count 32 TAM
+    forward, 16 backward and 29 + 29 BatchNorm-statistics launches a video,
+    the libraries the same float32 kernels (two TAM backward launches a
+    call).  Prints ms/video a stream, videos/s overall, each process's busy
+    share (the profiled step's device-busy ms over the stream's median
+    ms/video) and peak memory, shared and alone, and the host's usable
+    cores."""
+    from vitta_tpu_torch.tools import parallel_streams
+    torch.cuda.empty_cache()
+    n = PARALLEL_STREAMS
+    recs = {}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(n), "-m",
+             "vitta_tpu_torch.tools.parallel_streams", out], cwd=ROOT,
+            capture_output=True, text=True, timeout=GROUP_TIMEOUT_S,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel streams: exit {proc.returncode}"
+                                 f"\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        launch_s = time.perf_counter() - t0
+        for i in range(n):
+            for mode in ("paired", "alone"):
+                recs[i, mode] = torch.load(
+                    os.path.join(out, f"stream_{i}_{mode}.pt"),
+                    weights_only=False)
+    nv = parallel_streams.VIDEOS
+    for (i, mode), rec in recs.items():
+        chosen = rec["chosen"]
+        want = {"tam_fwd": 32 * nv, "tam_bwd": 16 * nv,
+                "bn_stats_fwd": chosen * nv, "bn_stats_bwd": chosen * nv}
+        if rec["launches"] != want or chosen != 29:
+            raise AssertionError(f"stream {i} {mode}: launches "
+                                 f"{rec['launches']}, expected {want}")
+        lib = rec["library"]
+        got = {k: sum(c for name, c in lib.items() if name.startswith(pre)
+                      and "reduce" not in name and "bf16" not in name)
+               for k, pre in (("tam_fwd", "tam_fwd"),
+                              ("bn_stats_fwd", "bn_stats_fwd_kernel"),
+                              ("bn_stats_bwd", "bn_stats_bwd_kernel"))}
+        tam_bwd = sum(c for name, c in lib.items()
+                      if name.startswith("tam_bwd"))
+        if got != {k: want[k] for k in got} or tam_bwd != 2 * want["tam_bwd"]:
+            raise AssertionError(f"stream {i} {mode}: the libraries' "
+                                 f"launches {lib}")
+    for i in range(n):
+        a, b = recs[i, "paired"], recs[i, "alone"]
+        if a["losses"] != b["losses"] or a["top1"] != b["top1"]:
+            raise AssertionError(f"stream {i}: losses shared {a['losses']} "
+                                 f"!= alone {b['losses']}")
+        logit_err = max(float((x - y).abs().max())
+                        for x, y in zip(a["logits"], b["logits"]))
+        param_err = max(float((a["params"][k] - b["params"][k]).abs().max())
+                        for k in b["params"])
+        ema_err = max(float((x - y).abs().max()) for k in b["ema"]
+                      for x, y in zip(a["ema"][k], b["ema"][k]))
+        if len(a["logits"]) != nv or max(logit_err, param_err, ema_err):
+            raise AssertionError(f"stream {i} shared against alone: logits "
+                                 f"{logit_err:.3e}, parameters "
+                                 f"{param_err:.3e}, EMA {ema_err:.3e}")
+    m = {key: _stream_measures(rec) for key, rec in recs.items()}
+    shared = sum(m[i, "paired"]["videos_per_s"] for i in range(n))
+    alone = statistics.mean(m[i, "alone"]["videos_per_s"] for i in range(n))
+    cores = recs[0, "paired"]["cores"]
+    for (i, mode), r in sorted(m.items()):
+        print(f"parallel streams, stream {i} {'shared' if mode == 'paired' else 'alone'}: "
+              f"{r['ms_per_video']:.3f} ms/video (median of "
+              f"{nv - 1 - parallel_streams.WARMUP}), {r['videos_per_s']:.3f} "
+              f"videos/s, device busy {fmt(r['busy_ms'])} ms a step (the "
+              f"profiled one took {fmt(r['profiled_ms'])} ms; busy share "
+              f"{fmt(r['busy_share'])}), "
+              f"peak memory {fmt(r['peak_gib'])} GiB; on {card}", flush=True)
+    summary = {
+        "streams": n, "videos": nv, "cores": cores,
+        "ms_per_video": {f"{i} {mode}": m[i, mode]["ms_per_video"]
+                         for i, mode in m},
+        "videos_per_s_shared": shared, "videos_per_s_alone": alone,
+        "throughput_ratio": shared / alone,
+        "busy_share": {f"{i} {mode}": m[i, mode]["busy_share"]
+                       for i, mode in m},
+        "peak_gib": {f"{i} {mode}": m[i, mode]["peak_gib"] for i, mode in m},
+        "launch_s": launch_s}
+    print(f"parallel streams ({n} processes on one card, TANet float32, "
+          f"{cores} usable cores a process): shared and alone bit-equal "
+          f"(losses, logits, parameters, EMA), launches 32 / 16 / 29 / 29 a "
+          f"video in every process; {shared:.3f} videos/s shared against "
+          f"{alone:.3f} alone ({shared / alone:.3f}x); the group's launch "
+          f"{launch_s:.1f} s; on {card}", flush=True)
+    return summary
+
+
+def _par_sweep_cfg(result_dir, resume):
+    from vitta_tpu_torch.cli.opts import get_opts
+    argv = ["--clip_length", "4", "--input_size", "64", "--scale_size", "72",
+            "--result_dir", result_dir, "--video_source", "synthetic",
+            "--stat_reg", "BNS", "--n_parallel_streams", "2",
+            "--streams_per_chip", "2", "--stream_ckpt_every",
+            str(PAR_SWEEP_EVERY), "--verbose", "false"]
+    cfg = get_opts(argv + (["--resume"] if resume else []))[1]
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 num_classes=PAR_CLASSES))
+
+
+def _par_records(n, labels=None):
+    from vitta_tpu_torch.data.records import VideoRecord
+    labels = labels or [i % PAR_CLASSES for i in range(n)]
+    return [VideoRecord(f"par_{i}", 40 + 3 * i, labels[i]) for i in range(n)]
+
+
+def _par_eval_set(labels=None):
+    """Phase 48's eval videos (the synthetic source), and the source
+    model on the card."""
+    from vitta_tpu_torch.cli.main_eval import load_variables
+    from vitta_tpu_torch.data.dataset import TANetVideoDataset
+    from vitta_tpu_torch.data.video_reader import SyntheticVideoSource
+    from vitta_tpu_torch.models import get_model
+    cfg = _par_sweep_cfg("", False)
+    model = get_model(cfg)
+    model.load_state_dict(load_variables(cfg, seed=cfg.runtime.seed))
+    ds = TANetVideoDataset(cfg, SyntheticVideoSource(),
+                           _par_records(PAR_EVAL_VIDEOS, labels),
+                           dataset_type="eval")
+    return cfg, model, ds
+
+
+def _eval_reference(cfg, model, ds):
+    """Each eval video's mean logits on the card, and top-1 / top-5 as
+    the baselines average them over batches of 2 (plain PyTorch:
+    ``topk_accuracy`` a batch, weighted by its videos)."""
+    from vitta_tpu_torch.baselines.common import (batched_eval_iter,
+                                                  eval_views_of)
+    from vitta_tpu_torch.ops.losses import topk_accuracy
+    from vitta_tpu_torch.utils.meters import AverageMeter
+    model = model.to("cuda")
+    e = eval_views_of(cfg)
+    means, top1, top5 = [], AverageMeter(), AverageMeter()
+    for clips, labels in batched_eval_iter(ds, 2):
+        with torch.no_grad():
+            logits = model(torch.as_tensor(clips).cuda(), None, train=False)
+        mean = logits.reshape(len(labels), e, -1).mean(dim=1)
+        t1, t5 = topk_accuracy(mean, torch.as_tensor(labels).cuda())
+        top1.update(float(t1), n=len(labels))
+        top5.update(float(t5), n=len(labels))
+        means.extend(mean.cpu())
+    return means, (top1.avg, top5.avg)
+
+
+def _group_worker(rank, world, store, phase, root, out):
+    """A process of phases 47-48 (spawned): the parallel sweep over two
+    corruptions on this rank's stream device.  ``phase`` "plain":
+    ``sharded_validate``, the sweep through under ``root/plain``, then the
+    sweep under ``root/cut`` until its first checkpoint commits, where the
+    group exits (3) together; "resume": the sweep under ``root/cut`` with
+    ``--resume``.  Every step's losses and the rows go to
+    ``out.<plain|resume>.<rank>.json``."""
+    import torch.distributed as dist
+
+    from vitta_tpu_torch.adapt import stream_ckpt
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.cli.drivers import run_parallel_sweep
+    from vitta_tpu_torch.parallel.data_eval import sharded_validate
+    from vitta_tpu_torch.parallel.mesh import (coordination_barrier,
+                                               initialize_distributed)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(num_processes=world, process_id=rank,
+                           init_method=f"file://{store}",
+                           timeout_s=GROUP_TIMEOUT_S)
+    steps = []
+    step = VittaEngine.adapt_eval_step
+
+    def recorded(self, *a, **k):
+        state, m = step(self, *a, **k)
+        steps.append([float(m.loss_reg), float(m.loss_consis),
+                      float(m.loss_ce), float(m.top1)])
+        return state, m
+
+    VittaEngine.adapt_eval_step = recorded
+
+    def sweep(where, resume):
+        t0 = time.perf_counter()
+        rows = run_parallel_sweep(
+            _par_sweep_cfg(os.path.join(root, where), resume),
+            ["gauss", "contrast"], source_kind="synthetic",
+            records=_par_records(PAR_SWEEP_VIDEOS))
+        return rows, time.perf_counter() - t0
+
+    try:
+        record = {}
+        if phase == "plain":
+            with open(os.path.join(root, "labels.json")) as f:
+                cfg, model, ds = _par_eval_set(json.load(f))
+            t0 = time.perf_counter()
+            record["validate"] = sharded_validate(model, ds, cfg,
+                                                  batch_size=2)
+            record["validate_s"] = time.perf_counter() - t0
+        record["rows"], record["sweep_s"] = sweep(
+            "plain" if phase == "plain" else "cut", phase == "resume")
+        record["steps"] = list(steps)
+        with open(f"{out}.{phase}.{rank}.json", "w") as f:
+            json.dump(record, f)
+        if phase == "plain":
+            real_save = stream_ckpt.StreamCheckpointer.save
+
+            def save_then_die(self, *a, **k):
+                real_save(self, *a, **k)
+                coordination_barrier("preempted")
+                os._exit(3)
+
+            stream_ckpt.StreamCheckpointer.save = save_then_die
+            sweep("cut", False)
+            raise AssertionError("the checkpoint hook never fired")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_sweep(card):
+    """Phases 47-48: ``run_parallel_sweep`` over two corruptions of
+    PAR_SWEEP_VIDEOS synthetic videos as 2 spawned processes on the card
+    (``streams_per_chip`` 2, TANet at T 4, 64 x 64, PAR_CLASSES classes,
+    BNS, the CLI's seeded weights, ``--stream_ckpt_every 2``, cuDNN
+    deterministic): one run through, one killed right after its first
+    checkpoint commits (its group directory then holds each rank's state
+    file under ``step_2/``) and resumed with ``--resume``; the resumed rows
+    must be the uninterrupted run's on both ranks, and every step from the
+    resume point on its losses and top-1.  Before the sweep the
+    uninterrupted run's processes run ``sharded_validate`` over
+    PAR_EVAL_VIDEOS eval videos in batches of 2 (the last a remainder of
+    one, rank 0's alone): top-1 and top-5 equal, on both ranks, to the
+    source-only baseline's top-1 and to a plain evaluation's top-1 and
+    top-5 on the card.  Each eval video's label is the class that the
+    source model ranks PAR_EVAL_LABEL_RANKS there, so that the reference
+    reads strictly between 0 and 100 on both counts and a lost share, a
+    half evaluated twice or a dropped remainder changes the reading.  One
+    group runs the validation, the sweep through and the sweep that is
+    killed, one after the other; a second group resumes."""
+    from vitta_tpu_torch.baselines import setup_baseline
+    from vitta_tpu_torch.cli.main_eval import load_variables
+    from vitta_tpu_torch.models import get_model
+    from vitta_tpu_torch.parallel.mesh import SpawnedGroup
+
+    torch.cuda.empty_cache()
+    # the eval videos' labels from the source model's ranking on the card
+    cfg, model, ds = _par_eval_set()
+    means, _ = _eval_reference(cfg, model, ds)
+    labels = [int(torch.argsort(m, descending=True)[k])
+              for m, k in zip(means, PAR_EVAL_LABEL_RANKS)]
+    cfg, model, ds = _par_eval_set(labels)
+    _means, want = _eval_reference(cfg, model, ds)
+    ref = setup_baseline("source", get_model(cfg), cfg,
+                         load_variables(cfg, seed=cfg.runtime.seed),
+                         device="cuda").run(ds, batch_size=2)
+    del model
+    if ref != want[0] or not all(0 < v < 100 for v in want):
+        raise AssertionError(f"phase 48's reference: top-1 / top-5 {want}, "
+                             f"the source baseline's top-1 {ref}")
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "labels.json"), "w") as f:
+            json.dump(labels, f)
+        out = os.path.join(root, "sweep")
+        t0 = time.perf_counter()
+        SpawnedGroup(_group_worker, 2, (os.path.join(root, "store_plain"),
+                                        "plain", root, out)).join(
+            GROUP_TIMEOUT_S, expect=3, what="parallel sweep, then killed")
+        first_s = time.perf_counter() - t0
+        (ckpt,) = [d for d in os.listdir(os.path.join(root, "cut"))
+                   if d.startswith("stream_ckpt_group_")]
+        ckpt = os.path.join(root, "cut", ckpt)
+        files = sorted(os.listdir(os.path.join(ckpt,
+                                               f"step_{PAR_SWEEP_EVERY}")))
+        if files != ["rank_0.pt", "rank_1.pt"]:
+            raise AssertionError(f"the killed group's checkpoint: {files}")
+        t0 = time.perf_counter()
+        SpawnedGroup(_group_worker, 2, (os.path.join(root, "store_resume"),
+                                        "resume", root, out)).join(
+            GROUP_TIMEOUT_S, what="parallel sweep, resumed")
+        resume_s = time.perf_counter() - t0
+        got = {}
+        for phase in ("plain", "resume"):
+            for r in range(2):
+                with open(f"{out}.{phase}.{r}.json") as f:
+                    got[phase, r] = json.load(f)
+    for r in range(2):
+        if got["resume", r]["rows"] != got["plain", 0]["rows"] or \
+                got["plain", r]["rows"] != got["plain", 0]["rows"]:
+            raise AssertionError(f"rank {r}: rows {got['resume', r]['rows']}"
+                                 f" against {got['plain', 0]['rows']}")
+        if got["resume", r]["steps"] != \
+                got["plain", r]["steps"][PAR_SWEEP_EVERY:]:
+            raise AssertionError(f"rank {r}: the resumed steps differ")
+    print(f"parallel sweep (2 processes, one card, {PAR_CLASSES} classes): "
+          f"rows {got['plain', 0]['rows']}; killed after the checkpoint at "
+          f"video {PAR_SWEEP_EVERY} and resumed: rows and the "
+          f"{PAR_SWEEP_VIDEOS - PAR_SWEEP_EVERY} resumed steps' losses equal "
+          f"on both ranks; validation, sweep and killed sweep {first_s:.1f} s"
+          f" in one group (sweep {got['plain', 0]['sweep_s']:.1f} s in a "
+          f"process), resumed {resume_s:.1f} s; on {card}", flush=True)
+    # phase 48: sharded_validate against the references on the card
+    ranks = [tuple(got["plain", r]["validate"]) for r in range(2)]
+    if ranks[0] != ranks[1] or ranks[0] != want:
+        raise AssertionError(f"sharded_validate {ranks} against the plain "
+                             f"evaluation's top-1 / top-5 {want}")
+    print(f"sharded_validate (2 processes, {PAR_EVAL_VIDEOS} videos in "
+          f"batches of 2, labels ranked {PAR_EVAL_LABEL_RANKS} by the source "
+          f"model): top-1 / top-5 {ranks[0]} on both ranks, the plain "
+          f"evaluation's {want}, the source baseline's top-1 {ref}; "
+          f"{got['plain', 0]['validate_s']:.2f} s; on {card}", flush=True)
+    return {"rows": got["plain", 0]["rows"], "validate": ranks[0],
+            "resume_s": resume_s}
+
+
+def _trainer_snapshots(trainer, state, batches):
+    """Each step's starting point (state dict and momentum by name) of
+    ``trainer`` over ``batches``, the last the end; with the metrics."""
+    snaps, metrics = [], []
+    for x, y in batches:
+        snaps.append(({k: v.detach().clone() for k, v in
+                       trainer.model.state_dict().items()},
+                      {k: state.optimizer.state[p]["momentum_buffer"].clone()
+                       for k, p in state.params.items()
+                       if p in state.optimizer.state}))
+        state, m = trainer.train_step(state, x, y)
+        metrics.append([float(v) for v in m])
+    snaps.append(({k: v.detach().clone() for k, v in
+                   trainer.model.state_dict().items()},
+                  {k: state.optimizer.state[p]["momentum_buffer"].clone()
+                   for k, p in state.params.items()}))
+    return snaps, metrics
+
+
+def _trainer_step_from(trainer, start, mom, k, x, y):
+    """``trainer``'s step ``k`` from the state dict ``start`` and the
+    momentum buffers ``mom`` (by name; none before the first step): the
+    state dict and momentum after it, on the CPU, and the metrics."""
+    state = trainer.init_state(start)
+    for n_, p in state.params.items():
+        if n_ in mom:
+            state.optimizer.state[p]["momentum_buffer"] = \
+                mom[n_].to(trainer.device, copy=True)
+    state, m = trainer.train_step(dataclasses.replace(state, step=k), x, y)
+    return ({n_: v.to("cpu", copy=True)
+             for n_, v in trainer.model.state_dict().items()},
+            {n_: state.optimizer.state[p]["momentum_buffer"].to(
+                "cpu", copy=True) for n_, p in state.params.items()},
+            [float(v) for v in m])
+
+
+def _update_gap(run, run_start, want, want_mom, start):
+    """(update, momentum): how far ``run`` (a ``_trainer_step_from``
+    result from ``run_start``) is from the step that went from ``start`` to
+    the state dict ``want`` and momentum ``want_mom``, each over all
+    parameters as one vector, relative to the norm of the wanted one."""
+    got, got_mom, _m = run
+    names = list(want_mom)
+    upd = [torch.cat([(sd[n_] - s0[n_]).ravel() for n_ in names])
+           for sd, s0 in ((got, run_start), (want, start))]
+    mom = [torch.cat([m_[n_].ravel() for n_ in names])
+           for m_ in (got_mom, want_mom)]
+    return tuple(float((a - b).norm() / b.norm()) for a, b in (upd, mom))
+
+
+def phase_trainer(card, seed=SEED):
+    """Phase 49: the trainer (``adapt/train.py``).  Card against CPU at T 2,
+    64 x 64, 4 clips, 5 classes, dropout 0, lr 1e-3 dropping x0.1 after
+    every step, clipping at 0.5: 3 steps, each from the CPU's state before
+    it: the loss rtol 2e-3, top-1 equal, running statistics within 1e-3 of
+    each layer's largest.  The batch-statistics step of a random-weight
+    TANet is ill-conditioned (tests/test_torch_train.py): one float32 ulp of
+    the weights moves the CPU's own whole update by 1-7% of its norm.  So
+    each step's whole update and momentum are held within
+    TRAIN_SPREAD_FACTOR times the largest such spread of TRAIN_ULP_SEEDS
+    on the CPU, and never more than 10%, as tests/test_torch_train.py
+    holds the port against vitta_tpu (cuDNN sums every convolution in
+    another order, which moves every activation and not only the weights);
+    the CPU's step without weight decay (a planted fault) must read beyond
+    that bound at one step at least, or the check could not fail.
+    Then full size: TANet at 101 classes, 4 clips of 16 x 224²,
+    TRAIN_FULL_STEPS steps and a profiled one: 16 TAM forward and 16
+    backward launches a step, ms/step, busy, peak memory; a checkpoint
+    round trip bit-equal; the model's counts (``utils/analysis.py``)."""
+    from vitta_tpu_torch.adapt.train import (Trainer, restore_checkpoint,
+                                             save_checkpoint)
+    from vitta_tpu_torch.models.tanet import TANet
+    from vitta_tpu_torch.ops import cuda_tam
+    from vitta_tpu_torch.utils.analysis import model_analysis
+
+    sched = dict(lr=1e-3, lr_steps=(1, 2), steps_per_epoch=1,
+                 clip_gradient=0.5)
+    torch.manual_seed(seed)
+    sd = TANet(5, clip_length=2, dropout=0.0).state_dict()
+    rng = np.random.default_rng(seed)
+    batches = [(rng.normal(size=(4, 2, 64, 64, 3)).astype(np.float32),
+                (np.arange(4) + i) % 5) for i in range(3)]
+
+    def trainer(device, **kw):
+        return Trainer(TANet(5, clip_length=2, dropout=0.0), device=device,
+                       **sched, **kw)
+
+    cpu = trainer("cpu")
+    snaps, metrics = _trainer_snapshots(cpu, cpu.init_state(sd), batches)
+    gpu, no_wd = trainer("cuda"), trainer("cpu", weight_decay=0.0)
+    rows, caught = [], False
+    for k, (x, y) in enumerate(batches):
+        start, mom = snaps[k]
+        want, want_mom = snaps[k + 1]
+        run = _trainer_step_from(gpu, start, mom, k, x, y)
+        got, _got_mom, (loss, top1, _top5) = run
+        stat = max(float((got[n_] - w).abs().max() / w.abs().max())
+                   for n_, w in want.items()
+                   if n_.endswith(("running_mean", "running_var")))
+        lerr = abs(loss - metrics[k][0]) / abs(metrics[k][0])
+        gap = _update_gap(run, start, want, want_mom, start)
+        spread = [0.0, 0.0]
+        for s_ in TRAIN_ULP_SEEDS:
+            away = _one_ulp_away(start, s_)
+            ulp = _update_gap(_trainer_step_from(cpu, away, mom, k, x, y),
+                              away, want, want_mom, start)
+            spread = [max(a, b) for a, b in zip(spread, ulp)]
+        bound = [min(0.1, TRAIN_SPREAD_FACTOR * v) for v in spread]
+        fault = _update_gap(_trainer_step_from(no_wd, start, mom, k, x, y),
+                            start, want, want_mom, start)
+        caught |= any(f > b for f, b in zip(fault, bound))
+        rows.append((lerr, stat, gap, spread, fault))
+        if (lerr > 2e-3 or top1 != metrics[k][1] or stat > 1e-3
+                or any(g > b for g, b in zip(gap, bound))):
+            raise AssertionError(f"trainer card vs cpu step {k}: loss "
+                                 f"{loss} / {metrics[k][0]}, top-1 {top1} / "
+                                 f"{metrics[k][1]}, statistics {stat:.2e}, "
+                                 f"update / momentum {gap} against "
+                                 f"{bound}")
+    if not caught:
+        raise AssertionError("trainer card vs cpu: the step without weight "
+                             "decay reads within the bounds at every step "
+                             f"({[r[4] for r in rows]})")
+    print("trainer small slice card vs cpu (T 2, 64 x 64, 4 clips, each step "
+          "from the CPU's state; update / momentum gaps of their norms, the "
+          "CPU's largest one-ulp spread, the CPU without weight decay): "
+          + "; ".join(f"step {k} loss {r[0]:.2e} statistics {r[1]:.2e} "
+                      f"card {r[2][0]:.4f} / {r[2][1]:.4f}, one ulp "
+                      f"{r[3][0]:.4f} / {r[3][1]:.4f}, no weight decay "
+                      f"{r[4][0]:.4f} / {r[4][1]:.4f}"
+                      for k, r in enumerate(rows)) + f"; on {card}",
+          flush=True)
+
+    # full size
+    del cpu, gpu, no_wd
+    torch.cuda.empty_cache()
+    torch.manual_seed(seed)
+    model = TANet(101, clip_length=16)
+    info = model_analysis(model)
+    trainer = Trainer(model, device="cuda", **sched)
+    state = trainer.init_state()
+    clips = [(rng.normal(size=(4, 16, 224, 224, 3)).astype(np.float32),
+              (np.arange(4) + i) % 101) for i in range(TRAIN_FULL_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_tam.counters.reset()
+    ms = []
+    for x, y in clips[:TRAIN_FULL_STEPS]:
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, x, y)
+        float(m[0])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = (cuda_tam.counters.fwd, cuda_tam.counters.bwd)
+    if counts != (16 * TRAIN_FULL_STEPS, 16 * TRAIN_FULL_STEPS):
+        raise AssertionError(f"trainer: TAM launches {counts} over "
+                             f"{TRAIN_FULL_STEPS} steps, expected 16 + 16 a "
+                             "step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    it = iter(clips[TRAIN_FULL_STEPS:])
+
+    def one():
+        nonlocal state
+        x, y = next(it)
+        state, m = trainer.train_step(state, x, y)
+        float(m[0])
+
+    host_ms, busy, _classes, largest = _profile_train(one)
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "train.pt")
+        save_checkpoint(path, state)
+        want = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        want_mom = {k: state.optimizer.state[p]["momentum_buffer"].clone()
+                    for k, p in state.params.items()}
+        other = Trainer(TANet(101, clip_length=16), device="cuda", **sched)
+        got = restore_checkpoint(path, target=other.init_state())
+    same = (got.step == state.step and all(
+        torch.equal(v, want[k]) for k, v in other.model.state_dict().items())
+        and all(torch.equal(got.optimizer.state[p]["momentum_buffer"],
+                            want_mom[k]) for k, p in got.params.items()))
+    if not same:
+        raise AssertionError("trainer checkpoint: the restored state differs")
+    summary = {"ms_per_step": statistics.median(ms[1:]), "ms": ms,
+               "host_ms": host_ms, "busy_ms": busy, "peak_gib": peak,
+               "analysis": info}
+    print(f"trainer full size (TANet, 101 classes, 4 clips of 16 x 224², "
+          f"SGD, clipping at 0.5, batch statistics): {TRAIN_FULL_STEPS} steps "
+          f"{', '.join(f'{v:.1f}' for v in ms)} ms (the first warms up), "
+          f"TAM launches 16 + 16 a step, profiled step host {host_ms:.3f} ms "
+          f"busy {fmt(busy)} ms, largest "
+          + "; ".join(f"{k[:40]} {t:.2f} ms x{c}" for k, t, c in largest[:3])
+          + f", peak memory {peak:.3f} GiB; checkpoint round trip "
+          f"bit-equal; model_analysis {info}; on {card}", flush=True)
+    return summary
+
+
+def _profile_train(step):
+    """(host ms, busy ms, classes, largest) of one trainer step under the
+    profiler, as ``_profile_step`` reads an adapt step."""
+    from torch.profiler import ProfilerActivity, profile
+    from vitta_tpu_torch.tools.tanet_breakdown import kernel_classes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) or None
+    return host_ms, busy, kernel_classes(rows), rows
+
+
+def phase_entry(card):
+    """Phase 50: ``entry.entry()`` (TANet's forward at T 8, 112², 101
+    classes, on the card) and ``entry.dryrun_multichip(2)``: one
+    stream-parallel adapt+eval step over 2 spawned processes on the card,
+    2 finite losses."""
+    from vitta_tpu_torch import entry
+    fn, args = entry.entry()
+    out = fn(*args)
+    if tuple(out.shape) != (2, 101) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"entry: logits {tuple(out.shape)}")
+    del fn, args, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    losses = entry.dryrun_multichip(2)
+    print(f"entry: forward (2, 101) finite; dryrun_multichip(2) losses "
+          f"{losses} in {time.perf_counter() - t0:.1f} s; on {card}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -7171,6 +7786,15 @@ def main() -> int:
     lap("phase 44, the model zoo's streams")
     phase_zoo_drivers(card)
     lap("phase 45, the Kinetics-400-C and SSv2-C drivers")
+    # stream parallelism, the trainer and the entry
+    parallel = phase_parallel_streams(card)
+    lap("phase 46, two TANet streams sharing the card")
+    par_sweep = phase_parallel_sweep(card)
+    lap("phases 47-48, the parallel sweep and sharded_validate")
+    trainer = phase_trainer(card)
+    lap("phase 49, the trainer")
+    phase_entry(card)
+    lap("phase 50, the entry and its multi-process dry run")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)
@@ -7257,6 +7881,10 @@ def main() -> int:
                for k, v in baseline_times.items()})
           + f"; cli sweep {cli['full_s']:.1f} s, resumed "
           f"{cli['resume_s']:.1f} s; on {card}", flush=True)
+    print("parallel streams, trainer: " + json.dumps(
+        {"parallel_streams": parallel, "parallel_sweep": par_sweep,
+         "trainer": {k: v for k, v in trainer.items() if k != "analysis"}})
+          + f"; on {card}", flush=True)
     print("TANet fp32 against bf16 trajectories: " + json.dumps(gate),
           flush=True)
     print("Swin-B fp32 against bf16 trajectories: " + json.dumps(swin_gate),

@@ -3,7 +3,7 @@ the port's adapt-step losses against vitta_tpu's, and the port's own
 spread one float32 ulp of the weights away (ROADMAP.md queue 3).
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/bf16_swin_epoch_spread.py \
-        [seeds] [--bias-apart] [--half-bf16-ulp]
+        [seeds] [--bias-apart] [--reference-attention] [--half-bf16-ulp]
 
 Prints one JSON object: the three adapt-only steps' (reg, consistency, ce)
 losses of vitta_tpu's engine compiled with XLA's excess precision on and
@@ -15,6 +15,8 @@ the port per step, and the gap to the reference rounded as written.
 embedding rounding the product before adding the bias, as vitta_tpu's
 ``nn.Dense`` / ``nn.Conv`` do op by op; ``bias_share`` is the share of a
 bfloat16 Dense's outputs that the two orders put one ulp apart.
+``--reference-attention`` runs its packed attention rounded as vitta_tpu's
+CPU path rounds it (tests/bf16_swin_epoch_layers.py).
 ``--half-bf16-ulp`` moves the weights by 2^-8 of their value instead of
 2^-23: about half of the bfloat16 twins the model multiplies by then move
 by one bfloat16 ulp (a float32 ulp moves almost none of them).  About 2
@@ -76,6 +78,9 @@ def main(argv):
     seeds = int(argv[1]) if len(argv) > 1 and argv[1].isdigit() else 12
     if "--bias-apart" in argv:
         _bias_apart()
+    if "--reference-attention" in argv:
+        from tests.bf16_swin_epoch_layers import _reference_attention
+        _reference_attention()
     step = 2.0 ** (-8 if "--half-bf16-ulp" in argv else -23)
     torch.set_num_threads(1)
     torch.manual_seed(0)

@@ -165,13 +165,11 @@ def test_what_the_port_does_not_run(monkeypatch):
         monkeypatch.delenv("VITTA_PLATFORM")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_device()
-    _a, cfg = get_opts(["--n_parallel_streams", "4"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        drivers.run_corruption_sweep(cfg, ["gauss"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        drivers.run_parallel_sweep(cfg, ["gauss"])
-    _a, cfg = get_opts(["--streams_per_chip", "4"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        drivers.run_corruption_sweep(cfg, ["gauss"])
+        # stream-parallel sweeps run (tests/test_torch_parallel.py), on the
+        # card unless the CPU is asked for: never a fallback
+        _a, cfg = get_opts(["--n_parallel_streams", "4",
+                            "--streams_per_chip", "4"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            drivers.run_parallel_sweep(cfg, ["gauss"])
     with pytest.raises(ValueError, match="stats_npz"):
         get_opts(["--stats_npz", "stats.npz"])

@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                  "scripts.sourceonly_ucf101_corr", "scripts.compute_stats",
                  "models.videomae", "models.r2plus1d", "models.i3d",
                  "models.i3d_incep", "scripts.tta_swin_kinetics",
-                 "scripts.tta_swin_ssv2", "utils.checkpoint"):
+                 "scripts.tta_swin_ssv2", "utils.checkpoint",
+                 "parallel.mesh", "parallel.streams", "parallel.data_eval",
+                 "adapt.train", "utils.analysis", "entry"):
         assert f"vitta_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -174,6 +176,36 @@ def test_model_zoo_and_its_drivers_import_without_jax():
         "'i3d_resnet50', 'r2plus1d', 'tanet_no_tam', 'videomae']\n"
         "m = R2Plus1D(3)\n"
         "assert next(m.parameters()).device.type == 'cpu'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_trainer_and_entry_import_without_jax():
+    """Stream parallelism, the trainer, the analysis utilities and the
+    entry, from a process that never saw JAX: importing them joins no
+    process group, resolves no device and starts no process."""
+    code = (
+        "import multiprocessing, sys\n"
+        "import torch.distributed as dist\n"
+        "from vitta_tpu_torch.parallel.mesh import (initialize_distributed, "
+        "coordination_barrier, stream_device, world_size)\n"
+        "from vitta_tpu_torch.parallel.streams import (StreamParallelEngine, "
+        "run_parallel_streams, stream_video_seed)\n"
+        "from vitta_tpu_torch.parallel.data_eval import sharded_validate\n"
+        "from vitta_tpu_torch.adapt.train import (Trainer, TrainState, "
+        "step_decay_schedule, save_checkpoint, restore_checkpoint)\n"
+        "from vitta_tpu_torch.utils.analysis import (count_params, "
+        "model_analysis, param_table)\n"
+        "from vitta_tpu_torch.entry import entry, dryrun_multichip\n"
+        "from vitta_tpu_torch.cli.drivers import run_parallel_sweep\n"
+        "assert not dist.is_initialized() and world_size() == 1\n"
+        "assert initialize_distributed() == 1 and not dist.is_initialized()\n"
+        "coordination_barrier('single process: a no-op')\n"
+        "assert not multiprocessing.active_children()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vitta_tpu'))\n"
         "assert not bad, bad\n")

@@ -246,8 +246,9 @@ def test_swin_inflation_matches_vitta_tpus():
 def test_kinetics_and_ssv2_drivers(module, dataset, classes, monkeypatch):
     """The drivers run tta_tanet_ucf101's sweep on Video Swin at the
     dataset's class count (vitta_tpu's scripts/tta_swin_{kinetics,ssv2}.py),
-    later flags override theirs, and a stream-parallel sweep raises naming
-    ROADMAP.md queue 1 item 13."""
+    later flags override theirs, and ``--n_parallel_streams`` > 1 takes the
+    stream-parallel sweep, as vitta_tpu's scripts do
+    (scripts/tta_tanet_ucf101.py:28-29)."""
     import importlib
     from vitta_tpu.cli.opts import get_opts as jax_get_opts
     from vitta_tpu_torch.scripts import tta_tanet_ucf101
@@ -267,6 +268,12 @@ def test_kinetics_and_ssv2_drivers(module, dataset, classes, monkeypatch):
     assert cfg.model.num_classes == jcfg.model.num_classes
     assert cfg.tta.chosen_blocks == jcfg.tta.chosen_blocks
     assert (vit.model.arch, vit.model.num_classes) == ("videomae", classes)
-    monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        driver.main(["--n_parallel_streams", "2", "--corruptions", "gauss"])
+    parallel = []
+    monkeypatch.setattr(tta_tanet_ucf101, "run_parallel_sweep",
+                        lambda cfg, corruptions, source_kind: parallel.append(
+                            (cfg, corruptions)) or {"mean": [0.0]})
+    driver.main(["--n_parallel_streams", "2", "--corruptions", "gauss"])
+    (pcfg, pcorruptions), = parallel
+    assert len(seen) == 2 and pcorruptions == ["gauss"]
+    assert (pcfg.runtime.n_parallel_streams, pcfg.model.num_classes) == \
+        (2, classes)

@@ -25,9 +25,14 @@ Layout under ``directory``:
                   (corruption names); a mismatch on open raises instead of
                   restoring a state adapted on another stream
 
-Single-process: vitta_tpu's multi-process coordination (``_is_primary``,
-``_align_processes``) belongs to the port's multi-GPU streams, which are
-not ported yet.
+A stream-parallel group (one process a stream, ``parallel/streams.py``)
+shares one directory, as vitta_tpu's multi-process runs do
+(vitta_tpu/adapt/stream_ckpt.py:44-64): each rank writes its own stream's
+state to ``step_<n>/rank_<r>.pt``, all ranks meet at a barrier, and only
+rank 0 then writes the commit marker (whose meters are per-stream vectors)
+and the manifest and removes superseded checkpoints; the ranks meet again
+before any goes on.  ``restore`` reads the rank's own file; ``clear`` is
+rank 0's alone.
 """
 
 from __future__ import annotations
@@ -37,7 +42,29 @@ import os
 import shutil
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from vitta_tpu_torch.parallel.mesh import (coordination_barrier, rank,
+                                           world_size)
+
+
+def _is_primary() -> bool:
+    """Rank 0 of the group, or the only process."""
+    return rank() == 0
+
+
+def _align_processes(tag: str) -> None:
+    """Host barrier of a group's processes around the checkpoint's file
+    work (vitta_tpu/adapt/stream_ckpt.py:_align_processes); a no-op for a
+    single process."""
+    coordination_barrier(tag)
+
+
+def _write(path: str, payload) -> None:
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -95,7 +122,7 @@ class StreamCheckpointer:
                     f"to a different stream group: stored manifest "
                     f"{stored!r} != requested {manifest!r}. Use a fresh "
                     f"result_dir or clear the checkpoint.")
-        else:
+        elif _is_primary():
             tmp = self._manifest_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(manifest, f)
@@ -103,32 +130,48 @@ class StreamCheckpointer:
 
     def save(self, state, next_bi: int, meters: dict,
              generator: Optional[torch.Generator] = None) -> None:
-        """Checkpoint ``state`` (a ``TTAState``) and ``generator``'s state;
-        ``meters`` is {name: (sum, count)}."""
-        path = os.path.join(self.directory, f"step_{next_bi}.pt")
-        payload = {
-            "params": {k: p.detach() for k, p in state.params.items()},
-            "batch_stats": {k: b.detach()
-                            for k, b in state.batch_stats.items()},
-            "optimizer": state.optimizer.state_dict(),
-            "ema": _flatten(state.ema),
-            "step": int(state.step),
-            "generator": (None if generator is None
-                          else generator.get_state()),
-        }
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        tmp = self._latest_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"next_bi": int(next_bi), "path": path,
-                       "meters": {k: [float(s), int(c)]
-                                  for k, (s, c) in meters.items()}}, f)
-        os.replace(tmp, self._latest_path)
-        # drop superseded checkpoints
-        for name in os.listdir(self.directory):
-            if name.startswith("step_") and name != f"step_{next_bi}.pt":
-                os.remove(os.path.join(self.directory, name))
+        """Checkpoint ``state`` (a ``TTAState``; None on an idle rank of a
+        group) and ``generator``'s state; ``meters`` is {name: (sum,
+        count)}, where ``sum`` is a scalar or, in a group, the per-stream
+        vector."""
+        group = world_size() > 1
+        if group:
+            path = os.path.join(self.directory, f"step_{next_bi}")
+            os.makedirs(path, exist_ok=True)
+            mine = os.path.join(path, f"rank_{rank()}.pt")
+        else:
+            path = mine = os.path.join(self.directory, f"step_{next_bi}.pt")
+        if state is not None:
+            _write(mine, {
+                "params": {k: p.detach() for k, p in state.params.items()},
+                "batch_stats": {k: b.detach()
+                                for k, b in state.batch_stats.items()},
+                "optimizer": state.optimizer.state_dict(),
+                "ema": _flatten(state.ema),
+                "step": int(state.step),
+                "generator": (None if generator is None
+                              else generator.get_state()),
+            })
+        # every stream's file is complete before the marker names it
+        _align_processes("stream_ckpt_save")
+        if _is_primary():
+            tmp = self._latest_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({"next_bi": int(next_bi), "path": path,
+                           "meters": {k: [np.asarray(s, np.float64).tolist(),
+                                          int(c)]
+                                      for k, (s, c) in meters.items()}}, f)
+            os.replace(tmp, self._latest_path)
+            # drop superseded checkpoints
+            for name in os.listdir(self.directory):
+                old = os.path.join(self.directory, name)
+                if name.startswith("step_") and old != path:
+                    if os.path.isdir(old):
+                        shutil.rmtree(old, ignore_errors=True)
+                    else:
+                        os.remove(old)
+        # no rank starts its next save while rank 0 still removes
+        _align_processes("stream_ckpt_commit")
 
     def restore(self, template, generator: Optional[torch.Generator] = None
                 ) -> Optional[Tuple[object, int, dict]]:
@@ -137,14 +180,22 @@ class StreamCheckpointer:
         ``template`` is the engine's ``init_state()``: the saved parameters,
         buffers and optimizer state are copied into the live tensors it
         names, and the EMA takes its structure and device.  ``generator``,
-        where given, gets the saved generator state back."""
+        where given, gets the saved generator state back.  In a group each
+        rank reads its own stream's file; an idle rank (``template`` None)
+        gets ``(None, next_bi, meters)``."""
         try:
             with open(self._latest_path) as f:
                 meta = json.load(f)
         except FileNotFoundError:
             return None
-        saved = torch.load(meta["path"], map_location="cpu",
-                           weights_only=True)
+        meters = {k: (s if isinstance(s, list) else float(s), int(c))
+                  for k, (s, c) in meta["meters"].items()}
+        if template is None:
+            return None, int(meta["next_bi"]), meters
+        path = meta["path"]
+        if world_size() > 1:
+            path = os.path.join(path, f"rank_{rank()}.pt")
+        saved = torch.load(path, map_location="cpu", weights_only=True)
         with torch.no_grad():
             for k, p in template.params.items():
                 p.copy_(saved["params"][k])
@@ -157,10 +208,11 @@ class StreamCheckpointer:
             params=template.params, optimizer=template.optimizer,
             ema=_unflatten_like(template.ema, saved["ema"]),
             step=saved["step"], batch_stats=template.batch_stats)
-        meters = {k: (float(s), int(c)) for k, (s, c) in meta["meters"].items()}
         return state, int(meta["next_bi"]), meters
 
     def clear(self) -> None:
         """Remove the checkpoint (called when the stream completes, so that
-        a later --resume of the sweep does not bring back a stale state)."""
-        shutil.rmtree(self.directory, ignore_errors=True)
+        a later --resume of the sweep does not bring back a stale state);
+        rank 0's alone in a group."""
+        if _is_primary():
+            shutil.rmtree(self.directory, ignore_errors=True)

@@ -8,26 +8,35 @@ row per corruption to the ``all_result`` file.  ``--resume`` skips the
 corruptions recorded in ``<result_dir>/sweep_state.json`` and, with
 ``--stream_ckpt_every``, resumes the interrupted one mid-stream.
 
-vitta_tpu's stream-parallel sweep (``run_parallel_sweep``, corruption
-streams sharded over a device mesh) belongs to the port's multi-GPU
-streams, which are not ported yet (ROADMAP.md queue 1 item 13); asking for
-it raises rather than running the streams one after another.
+``run_parallel_sweep`` is vitta_tpu's stream-parallel mode: the pending
+corruptions are adapted in groups of up to the world size, one process a
+stream (``parallel/streams.py``), launched by torchrun, several processes
+on one card where ``--streams_per_chip`` says so:
+
+  torchrun --nproc_per_node 2 -m vitta_tpu_torch.scripts.tta_tanet_ucf101 \\
+      --n_parallel_streams 2 --streams_per_chip 2 ...
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
+import shutil
 from typing import Sequence
 
-from vitta_tpu_torch.cli.main_eval import evaluate
+from vitta_tpu_torch.adapt.engine import VittaEngine
+from vitta_tpu_torch.adapt.stream_ckpt import StreamCheckpointer
+from vitta_tpu_torch.cli.main_eval import (evaluate, load_source_stats,
+                                           load_variables, make_datasets)
 from vitta_tpu_torch.config import VittaConfig
+from vitta_tpu_torch.models import get_model
+from vitta_tpu_torch.parallel.mesh import (coordination_barrier,
+                                           initialize_distributed, local_rank,
+                                           rank, stream_device)
+from vitta_tpu_torch.parallel.streams import run_parallel_streams
 from vitta_tpu_torch.utils.logging import ResultWriter, get_logger
-
-_NO_PARALLEL = ("stream-parallel sweeps (n_parallel_streams > 1, "
-                "streams_per_chip != 1) run on several GPUs, which the port "
-                "does not do yet: ROADMAP.md queue 1 item 13")
 
 
 def _sweep_state_path(result_dir: str) -> str:
@@ -60,13 +69,19 @@ def _save_sweep_state(result_dir: str, results: dict) -> None:
     os.replace(tmp, path)
 
 
+def _corruption_cfg(cfg: VittaConfig, corruption: str) -> VittaConfig:
+    """``cfg`` with the ``{}`` of its ``val_vid_list`` made ``corruption``."""
+    if "{}" not in cfg.data.val_vid_list:
+        return cfg
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, val_vid_list=cfg.data.val_vid_list.format(corruption)))
+
+
 def run_corruption_sweep(cfg: VittaConfig, corruptions: Sequence[str],
                          source_kind: str = "decord", records=None,
                          logger=None, device=None) -> dict:
     """Sequential sweep (the reference protocol) on ``device``, by default
     ``opts.run_device()``."""
-    if cfg.runtime.n_parallel_streams > 1 or cfg.runtime.streams_per_chip != 1:
-        raise NotImplementedError(_NO_PARALLEL)
     logger = logger or get_logger(cfg.runtime.result_dir,
                                   verbose=cfg.runtime.verbose)
     writer = ResultWriter(cfg.runtime.result_dir, cfg)
@@ -79,12 +94,9 @@ def run_corruption_sweep(cfg: VittaConfig, corruptions: Sequence[str],
             results[corruption] = done[corruption]
             writer.write_row(done[corruption])
             continue
-        ccfg = cfg
-        if "{}" in cfg.data.val_vid_list:
-            ccfg = cfg.replace(data=dataclasses.replace(
-                cfg.data, val_vid_list=cfg.data.val_vid_list.format(corruption)))
-        rows, _state = evaluate(ccfg, corruption, source_kind=source_kind,
-                                records=records, logger=logger, device=device)
+        rows, _state = evaluate(_corruption_cfg(cfg, corruption), corruption,
+                                source_kind=source_kind, records=records,
+                                logger=logger, device=device)
         results[corruption] = rows
         writer.write_row(rows)
         _save_sweep_state(cfg.runtime.result_dir, results)
@@ -98,5 +110,66 @@ def run_corruption_sweep(cfg: VittaConfig, corruptions: Sequence[str],
 def run_parallel_sweep(cfg: VittaConfig, corruptions: Sequence[str],
                        source_kind: str = "decord", records=None,
                        logger=None) -> dict:
-    """vitta_tpu's stream-parallel sweep; not ported yet."""
-    raise NotImplementedError(_NO_PARALLEL)
+    """Stream-parallel sweep (vitta_tpu/cli/drivers.py:90-192): the
+    pending corruptions in groups of up to the world size (capped by
+    ``n_parallel_streams``), rank ``r`` adapting the group's stream ``r`` on
+    its stream device (``stream_device``: card
+    ``local_rank // streams_per_chip``, or the CPU where
+    ``VITTA_PLATFORM=cpu``).  Joins the process group torchrun describes
+    (one process: a group of one).  With ``--stream_ckpt_every`` each group
+    checkpoints into ``stream_ckpt_group_<sha1 of its corruptions[:12]>``,
+    its manifest the full list; rank 0 alone writes ``sweep_state.json``
+    and the result file.  Every rank returns the same rows."""
+    world = initialize_distributed()
+    primary = rank() == 0
+    device = stream_device(local_rank(), cfg.runtime.streams_per_chip)
+    logger = logger or get_logger(cfg.runtime.result_dir,
+                                  verbose=cfg.runtime.verbose)
+    done = _load_sweep_state(cfg, logger)
+    pending = [c for c in corruptions if c not in done]
+    src_stats = load_source_stats(cfg)
+    if src_stats is None and cfg.tta.stat_reg != "BNS":
+        raise FileNotFoundError(
+            "the parallel sweep runs the ViTTA stream, which needs "
+            "precomputed source statistics — run compute_stats first")
+    engine = VittaEngine(get_model(cfg),
+                         cfg, load_variables(cfg, seed=cfg.runtime.seed),
+                         src_stats, device=device)
+    group_cap = (min(world, cfg.runtime.n_parallel_streams)
+                 if cfg.runtime.n_parallel_streams > 1 else world)
+    results = dict(done)
+    for g0 in range(0, len(pending), group_cap):
+        names = list(pending[g0:g0 + group_cap])
+        group = [make_datasets(_corruption_cfg(cfg, c), source_kind, records,
+                               seed=cfg.runtime.seed) for c in names]
+        ckpt = None
+        if cfg.runtime.stream_ckpt_every > 0:
+            gkey = hashlib.sha1("|".join(names).encode()).hexdigest()[:12]
+            ckpt_dir = os.path.join(cfg.runtime.result_dir,
+                                    f"stream_ckpt_group_{gkey}")
+            if not cfg.runtime.resume:
+                # rank 0 clears; the others wait, so that no manifest check
+                # races the removal
+                if primary:
+                    shutil.rmtree(ckpt_dir, ignore_errors=True)
+                coordination_barrier("stream_ckpt_clear")
+            ckpt = StreamCheckpointer(ckpt_dir, cfg.runtime.stream_ckpt_every,
+                                      manifest={"corruptions": names})
+        got, _state = run_parallel_streams(
+            engine, group, seed=cfg.runtime.seed, logger=logger,
+            checkpointer=ckpt, n_workers=cfg.data.num_workers)
+        for corruption, acc in zip(names, got):
+            results[corruption] = [float(acc)]
+        # every rank holds the same rows (the gather); one writes them
+        if primary:
+            _save_sweep_state(cfg.runtime.result_dir, results)
+    if primary:
+        writer = ResultWriter(cfg.runtime.result_dir, cfg)
+        for corruption in corruptions:
+            writer.write_row(results[corruption])
+        writer.close()
+    accs = [results[c][0] for c in corruptions]
+    results["mean"] = [sum(accs) / len(accs)]
+    logger.info(f"mean top-1 over {len(accs)} corruptions: "
+                f"{results['mean'][0]:.3f}")
+    return results

@@ -76,11 +76,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", type=str2bool, default=True)
     p.add_argument("--print_freq", type=int, default=20)
     p.add_argument("--n_parallel_streams", type=int, default=1,
-                   help="corruption streams adapted at once; the port runs "
-                        "one (multi-GPU streams are not ported yet)")
+                   help="corruption streams adapted at once, one process a "
+                        "stream under torchrun (cli/drivers.py:"
+                        "run_parallel_sweep)")
     p.add_argument("--streams_per_chip", type=int, default=1,
-                   help="streams on one device of a stream-parallel sweep; "
-                        "anything but 1 raises (not ported yet)")
+                   help="stream processes that share one card in a "
+                        "stream-parallel sweep")
     p.add_argument("--resume", action="store_true",
                    help="skip corruptions already completed per "
                         "<result_dir>/sweep_state.json")

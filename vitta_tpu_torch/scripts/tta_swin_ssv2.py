@@ -10,8 +10,8 @@ them:
       --video_data_dir ... --val_vid_list '.../{}.txt' \\
       --spatiotemp_mean_clean_file ... --spatiotemp_var_clean_file ...
 
-``--n_parallel_streams`` > 1 raises (stream-parallel sweeps are not ported:
-ROADMAP.md queue 1 item 13).
+``--n_parallel_streams`` > 1 adapts the streams that many at a time, one
+process a stream under torchrun, as tta_tanet_ucf101 says.
 """
 
 import sys
