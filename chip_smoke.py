@@ -16,7 +16,10 @@ model zoo (VideoMAE ViT-B, R(2+1)D-18, I3D-ResNet 18 and 50,
 Inception-I3D, TANet without the TAM) at full width and the Kinetics-400-C
 and SSv2-C drivers, then stream parallelism (two TANet streams as two
 processes sharing the card, the parallel sweep killed and resumed,
-``sharded_validate``), the trainer and the entry's multi-process dry run.
+``sharded_validate``), the trainer and the entry's multi-process dry run,
+then Video Swin's layout variants (window-resident stages, the patch
+embedding as a product) card against CPU and, at full size, in turns with
+the default form.
 
     python3 chip_smoke.py
 
@@ -417,9 +420,32 @@ result line:
    ms/step, busy, peak memory, a checkpoint round trip bit-equal.
 50. ``entry.entry()`` on the card and ``entry.dryrun_multichip(2)``.
 
+51. Video Swin's layout variants (``VITTA_WINDOW_RESIDENT``,
+   ``VITTA_PATCHIFY_V2``; each read when a model is built, and 0 for
+   phases 1-50, ``main``), small slices card against CPU: phase 26's
+   small Swin under each of LAYOUT_SMALL (window-resident on packed,
+   heads, proj and ln_proj; the product patch embedding alone and with the
+   window layout), at float32 (phase 10's bounds) and bfloat16 (phase
+   26's); every flag taken as set, the window layout's counter
+   (``models/swin.py:counters.window_resident_stages``) above 0 where it is
+   on and 0 where it is off.
+52. Swin-B at full size on the packed route, float32 and bfloat16, its
+   forms (spatial, window-resident, the product patch embedding;
+   LAYOUT_FORMS) one engine each, in turns: 3 rounds of 1 warm-up and 8
+   videos a form; ms/video, a profiled step's device busy, idle share,
+   launches and data-movement launches (rolls, copies, concatenations,
+   gathers) and ms, the launches a step by wrapper (the same as the
+   spatial form's), the step's peak memory; each form's per-video losses
+   and eval logits held to the spatial form's (``phase_layout_turns``).
+   Then float32 spatial against the product patch embedding once more
+   with cuDNN's TF32 on, PyTorch's default that the scripts keep (the
+   Conv3d in TF32, the product in float32), held to the bfloat16 bounds.
+53. Swin-T at full size, packed and heads, window-resident against
+   spatial: one round, the same readings.
+
 Phases run in the order 1-4, 12, 15, 21, 18, 22, 5, 6, 23, 24, 19, 20,
 23's other modes, 7-11, 13, 14, 16, 17, 26-29, 27's other modes, 31-33,
-36-50, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
+36-53, 21 at bfloat16, 25, 30, 34, 35 (25, 30, 34 and 35 last: the memory
 of their CUDA graphs would stand in the streams' peaks).  No earlier full-size stream was cut for
 phases 18 to 28.  To
 leave the time to phases 10 and 11, phase 9 runs 3 statistics batches and
@@ -7475,6 +7501,326 @@ def phase_entry(card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Video Swin's layout variants (phases 51-53): VITTA_WINDOW_RESIDENT and
+# VITTA_PATCHIFY_V2, each read when a model is built
+
+LAYOUT_FLAGS = ("VITTA_WINDOW_RESIDENT", "VITTA_PATCHIFY_V2")
+# phase 51: (route, the flags on) of each small slice, at float32 and
+# bfloat16; the window layout on every route, the product patch embedding
+# also alone (the window layout off: its counter must read 0)
+LAYOUT_SMALL = (("packed", ("VITTA_PATCHIFY_V2",)),
+                ("packed", ("VITTA_WINDOW_RESIDENT",)),
+                ("heads", ("VITTA_WINDOW_RESIDENT",)),
+                ("proj", ("VITTA_WINDOW_RESIDENT", "VITTA_PATCHIFY_V2")),
+                ("ln_proj", ("VITTA_WINDOW_RESIDENT",)))
+# phase 52: the forms of Swin-B compared in turns on the packed route, by
+# the flags each turns on
+LAYOUT_FORMS = {"spatial": (), "window-resident": ("VITTA_WINDOW_RESIDENT",),
+                "product patch embedding": ("VITTA_PATCHIFY_V2",)}
+LAYOUT_VIDEOS = 8     # timed videos a turn, after one warm-up video
+LAYOUT_ROUNDS = 3     # phase 52's rounds of the forms in turns (phase 53: 1)
+# the kernels that only move data, by a part of their names: the spatial
+# form's rolls and window copies, the window layout's gathers, casts and
+# concatenations
+MOVEMENT_KERNELS = ("roll", "cat", "copy", "index")
+
+
+class layout_flags:
+    """Within ``with``: the flags in ``on`` set to 1 and the other layout
+    flags to 0, for what is built there to read; restored after."""
+
+    def __init__(self, *on):
+        self.on = set(on)
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in LAYOUT_FLAGS}
+        for k in LAYOUT_FLAGS:
+            os.environ[k] = "1" if k in self.on else "0"
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _err(v) -> str:
+    return "-" if v is None else f"{v:.2e}"
+
+
+def _short(flags):
+    return "+".join(f[len("VITTA_"):].lower() for f in flags) or "default"
+
+
+def _model_took(model):
+    """{flag: whether the model took it} of the flags a model reads."""
+    backbone = model.backbone
+    return {"VITTA_WINDOW_RESIDENT": all(layer.window_resident
+                                         for layer in backbone.layers),
+            "VITTA_PATCHIFY_V2": backbone.patch_embed.patchify_v2}
+
+
+def _check_layout_taken(what, took, flags):
+    """Raise unless each flag of ``took`` ({flag: taken}) was taken as it
+    is set: no form passes untaken."""
+    for k, v in took.items():
+        if v != (k in flags):
+            raise AssertionError(f"{what}: {k} is "
+                                 f"{'on' if k in flags else 'off'}, taken "
+                                 f"{'on' if v else 'off'}")
+
+
+def phase_layout_small(seed=SEED):
+    """Phase 51: the small Swin of phase 26 (embed 128, depths (2, 1), heads
+    (4, 8), window (2, 3, 3), 4 x 48²: both stages shift H and W) under each
+    of LAYOUT_SMALL, at float32 (two tta_online steps card against CPU,
+    phase 10's bounds) and bfloat16 (phase 26's); the window layout's
+    counter above 0 where its flag is on and 0 where it is off, every other
+    flag taken as set."""
+    from vitta_tpu_torch.models import swin
+    cfg = _swin_cfg(t=4, hw=48, **BF16_SWIN_SMALL)
+    for dtype in ("float32", "bfloat16"):
+        for route, flags in LAYOUT_SMALL:
+            what = (f"swin layout small slice ({dtype}, {route}, "
+                    f"{_short(flags)})")
+            with layout_flags(*flags):
+                _check_layout_taken(what, _model_took(_synthetic_swin(
+                    cfg, dtype, attn_route=route)), flags)
+                if dtype == "float32":
+                    phase_swin_adapt_small(cfg, seed, 4, 48, attn_route=route,
+                                           what=what)
+                else:
+                    phase_bf16_swin_small(seed, route=route, what=what)
+                stages = swin.counters.window_resident_stages
+            if (stages > 0) != ("VITTA_WINDOW_RESIDENT" in flags):
+                raise AssertionError(f"{what}: {stages} stage passes in "
+                                     "window layout")
+            print(f"{what}: {stages} stage passes in window layout",
+                  flush=True)
+
+
+def _movement(rows):
+    """(launches, device ms, the four most launched by name) of the
+    data-movement kernels among the profiler's ``rows``."""
+    moved = sorted(((n, ms, k) for k, ms, n in rows
+                    if any(p in k.lower() for p in MOVEMENT_KERNELS)),
+                   reverse=True)
+    return (sum(n for n, _ms, _k in moved), sum(ms for _n, ms, _k in moved),
+            [(k[:70], n) for n, _ms, k in moved[:4]])
+
+
+def phase_layout_turns(cfg, sd, stats, seed, card, dtype, forms,
+                       rounds=LAYOUT_ROUNDS, what="swin-B", tf32=False):
+    """Phases 52-53: one engine of the Swin of ``cfg`` at ``dtype`` per
+    form in ``forms`` ({name: (route, flags)}), each built once under its
+    flags; ``rounds`` turns of the forms (in order, then reversed in the
+    next round), each turn a fresh stream of 1 warm-up and LAYOUT_VIDEOS
+    timed videos (``adapt_eval_step``, drop-path and head dropout on, each
+    video's generator seeded as ``tta_stream`` seeds it; host clock,
+    synchronised).  In the first round each video's losses and, untimed,
+    its eval logits after the step; each form held to the first's:
+    window-resident at float32 to vitta_tpu's own bound for the window
+    layout (rtol / atol 2e-5, tests/test_swin_window_resident.py), the
+    product patch embedding at float32 to phase 11's (losses rtol 1e-3 /
+    atol 1e-5, logits rtol 2e-3 / atol 2e-4), every form at bfloat16 to
+    phase 26's (reg and ce losses rtol 1e-3, consistency atol 2e-4, logits
+    within 2e-2 of the largest).  ``tf32``: cuDNN's TF32 on throughout, as
+    PyTorch has it by default (the Conv3d patch embedding in TF32; every
+    other float32 product is the port's kernels' or cuBLAS's with TF32 off
+    either way), and the forms held to the bfloat16 bounds: TF32 keeps 10
+    bits of mantissa, bfloat16 7.
+    Then one step each: the wrappers' launches and the stages in window
+    layout, the step's peak memory above what the engines hold, and a
+    profiled step: device busy, idle share, launches, the data-movement
+    kernels' launches and ms.  Returns {form: summary}."""
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        return _layout_turns(cfg, sd, stats, seed, card, dtype, forms, rounds,
+                             what, tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def _layout_turns(cfg, sd, stats, seed, card, dtype, forms, rounds, what,
+                  tf32):
+    from vitta_tpu_torch.adapt.engine import VittaEngine
+    from vitta_tpu_torch.adapt.loops import video_seed
+    from vitta_tpu_torch.models import swin
+    t, hw = cfg.data.clip_length, cfg.data.input_size
+    videos = [tuple(torch.from_numpy(a).cuda() for a in v) for v in
+              _videos(np.random.default_rng(seed + 5), 1 + LAYOUT_VIDEOS, t,
+                      hw)]
+    engines = {}
+    for form, (route, flags) in forms.items():
+        with layout_flags(*flags):
+            engines[form] = VittaEngine(
+                _synthetic_swin(cfg, dtype, attn_route=route), cfg, sd, stats)
+        _check_layout_taken(f"{what} {dtype} {form}",
+                            _model_took(engines[form].model), flags)
+    out = {f: {"ms": [], "losses": [], "logits": []} for f in forms}
+    order = list(forms)
+    for r in range(rounds):
+        for form in (order if r % 2 == 0 else order[::-1]):
+            eng, rec = engines[form], out[form]
+            state = eng.init_state()
+            for i, (views, clip, label) in enumerate(videos):
+                eng.generator.manual_seed(video_seed(seed, i))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = eng.adapt_eval_step(state, views, clip, label)
+                losses = [float(m.loss_reg), float(m.loss_consis),
+                          float(m.loss_ce)]
+                torch.cuda.synchronize()
+                if i:
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                if r == 0:
+                    rec["losses"].append(losses)
+                    rec["logits"].append(eng.eval_logits(clip).cpu())
+    base = order[0]
+    # the bfloat16 bounds at bfloat16 and under cuDNN's TF32
+    loose = dtype != "float32" or tf32
+    for form in order[1:]:
+        exact = "product" not in form
+        for i, (a, b) in enumerate(zip(out[form]["losses"],
+                                       out[base]["losses"])):
+            for name, x, y in zip(("reg", "consis", "ce"), a, b):
+                if not loose:
+                    ok = (abs(x - y) <= 2e-5 + 2e-5 * abs(y) if exact
+                          else abs(x - y) <= 1e-5 + 1e-3 * abs(y))
+                else:
+                    ok = (abs(x - y) <= 2e-4 if name == "consis"
+                          else abs(x - y) <= 1e-3 * abs(y))
+                if not ok:
+                    raise AssertionError(f"{what} {dtype} {form} video {i} "
+                                         f"loss_{name}: {x} against {y}")
+        for i, (a, b) in enumerate(zip(out[form]["logits"],
+                                       out[base]["logits"])):
+            if not loose:
+                rtol, atol = (2e-5, 2e-5) if exact else (2e-3, 2e-4)
+                err = check_close(f"{what} {form} eval logits {i}", a, b,
+                                  rtol, atol)
+            else:
+                err = check_scaled(f"{what} {form} eval logits {i}", a, b,
+                                   2e-2)
+            out[form]["logit_err"] = max(err, out[form].get("logit_err", 0))
+        out[form]["loss_err"] = max(
+            abs(x - y) for a, b in zip(out[form]["losses"],
+                                       out[base]["losses"])
+            for x, y in zip(a, b))
+    views, clip, label = videos[-1]
+    for form in order:
+        eng, rec = engines[form], out[form]
+        box = [eng.init_state()]
+
+        def step():
+            box[0], _m = eng.adapt_eval_step(box[0], views, clip, label)
+        step()
+        torch.cuda.synchronize()
+        _reset_swin_counts()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        rec["peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        counts = _swin_counts()
+        counts["window_resident_stages"] = (
+            swin.counters.window_resident_stages)
+        rec["launches"] = {k: n for k, n in counts.items() if n}
+        host, busy, rows = device_breakdown(step, top=None)
+        moves, move_ms, most = _movement(rows)
+        rec.update(host_ms=host, busy_ms=busy if busy > 0 else None,
+                   idle_share=max(0.0, 1 - busy / host) if busy > 0 else None,
+                   kernel_launches=sum(n for _k, _ms, n in rows),
+                   movement_launches=moves, movement_ms=move_ms,
+                   movement_most=most,
+                   median_ms=statistics.median(rec["ms"]),
+                   min_ms=min(rec["ms"]), max_ms=max(rec["ms"]))
+        wr = "VITTA_WINDOW_RESIDENT" in forms[form][1]
+        if (counts["window_resident_stages"] > 0) != wr:
+            raise AssertionError(f"{what} {dtype} {form}: "
+                                 f"{counts['window_resident_stages']} stage "
+                                 "passes in window layout")
+        if counts["contiguity_copies"]:
+            raise AssertionError(f"{what} {dtype} {form}: contiguity copies")
+    # the same kernels a step as the default form
+    exp = dict(out[base]["launches"])
+    for form in order[1:]:
+        got = dict(out[form]["launches"])
+        got.pop("window_resident_stages", None)
+        if got != exp:
+            raise AssertionError(f"{what} {dtype} {form}: launches {got}, "
+                                 f"expected {exp}")
+    for form in order:
+        r = out[form]
+        print(f"{what} {dtype} layout form {form!r} ({forms[form][0]}"
+              f"{', cuDNN TF32 on' if tf32 else ''}), in "
+              f"turns ({rounds} rounds of {LAYOUT_VIDEOS} videos after 1 "
+              f"warm-up): median {r['median_ms']:.3f} ms/video (min "
+              f"{r['min_ms']:.3f}, max {r['max_ms']:.3f}); profiled step: "
+              f"host {r['host_ms']:.3f} ms, device busy {fmt(r['busy_ms'])} "
+              f"ms, idle share {fmt(r['idle_share'])}, {r['kernel_launches']} "
+              f"kernel launches, of which data movement "
+              f"{r['movement_launches']} taking {r['movement_ms']:.3f} ms "
+              f"(most launched: {r['movement_most']}); "
+              f"step peak {r['peak_gib']:.3f} GiB above the engines' memory; "
+              f"launches a step by wrapper {r['launches']}; against "
+              f"{base!r}: losses max abs {_err(r.get('loss_err'))}, eval "
+              f"logits max abs {_err(r.get('logit_err'))}; on {card}",
+              flush=True)
+    del engines
+    torch.cuda.empty_cache()
+    return {f: {k: v for k, v in r.items()
+                if k not in ("losses", "logits", "ms")}
+            for f, r in out.items()}
+
+
+def phase_layout_forms(card, swin_b=None, swin_t=None):
+    """Phases 52-53: Swin-B's forms at float32 and bfloat16 in turns, its
+    spatial form and product patch embedding at float32 again with cuDNN's
+    TF32 on (PyTorch's default), then Swin-T's spatial and window-resident
+    forms on the packed and heads routes.  ``swin_b`` and ``swin_t`` are (state dict, source statistics);
+    where None, seeded weights and one batch's statistics made here, so
+    that the phases run alone after the build:
+
+        python3 -c "import torch, chip_smoke as c; ...; c.phase_layout_forms(c.card_line())"
+
+    Returns {"<model> <dtype>[ <route>]": {form: summary}}."""
+    from vitta_tpu_torch.adapt.precompute import compute_source_statistics
+    out = {}
+    for name, given in (("swin-B", swin_b), ("swin-T", swin_t)):
+        cfg = _swin_cfg(**SWIN_MODELS["swin_b" if name == "swin-B"
+                                      else "swin_t"])
+        if given is None:
+            sd = _swin_weights(cfg, SEED)
+            given = sd, compute_source_statistics(
+                _swin_model(cfg, sd), _normalized_batches(
+                    np.random.default_rng(SEED), cfg, (2,), 16, 224))
+        sd, stats = given
+        if name == "swin-B":
+            forms = {f: ("packed", flags)
+                     for f, flags in LAYOUT_FORMS.items()}
+            for dtype in ("float32", "bfloat16"):
+                out[f"{name} {dtype}"] = phase_layout_turns(
+                    cfg, sd, stats, SEED, card, dtype, forms)
+            out[f"{name} float32, cuDNN TF32 on"] = phase_layout_turns(
+                cfg, sd, stats, SEED, card, "float32",
+                {f: forms[f] for f in ("spatial", "product patch embedding")},
+                tf32=True)
+            continue
+        for route in ("packed", "heads"):
+            out[f"{name} float32 {route}"] = phase_layout_turns(
+                cfg, sd, stats, SEED, card, "float32",
+                {f: (route, flags) for f, flags in LAYOUT_FORMS.items()
+                 if f in ("spatial", "window-resident")},
+                rounds=1, what=name)
+    print("Swin layout forms in turns: " + json.dumps(out)
+          + f"; on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -7484,6 +7830,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 1-50 measure the default layout whatever the shell exports;
+    # phases 51-53 set the flags themselves (layout_flags)
+    for k in LAYOUT_FLAGS:
+        os.environ[k] = "0"
     card = card_line()
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}); TF32 off for "
@@ -7795,6 +8145,12 @@ def main() -> int:
     lap("phase 49, the trainer")
     phase_entry(card)
     lap("phase 50, the entry and its multi-process dry run")
+    # Video Swin's layout variants: small slices card against CPU, then the
+    # forms of Swin-B and Swin-T at full size in turns
+    phase_layout_small()
+    lap("phase 51, Swin layout variants, small slices card against CPU")
+    phase_layout_forms(card, (sd, stats), (t_sd, t_stats))
+    lap("phases 52-53, Swin-B and Swin-T layout forms in turns")
     # phase 21 at bfloat16 and phase 25 time CUDA graphs: after the
     # streams, whose peak memory their cuBLAS workspace would stand in
     wgmma_rates = phase_wgmma_rates(dev)

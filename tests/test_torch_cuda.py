@@ -2714,3 +2714,90 @@ def test_prefetcher_copies_to_the_card_in_order(cuda_device, n_workers):
         assert float(total) == float(want_v.astype(np.float64).sum())
         np.testing.assert_array_equal(clip2.cpu().numpy(), want_c * 2)
         np.testing.assert_array_equal(views.cpu().numpy(), want_v)
+
+
+# ---------------------------------------------------------------------------
+# Video Swin's layout variants on the card (VITTA_WINDOW_RESIDENT,
+# VITTA_PATCHIFY_V2): the same kernels a pass as the default form
+
+
+def _swin_launch_counts():
+    from vitta_tpu_torch.models import swin
+    out = {}
+    for mod in (cuda_ln, cuda_bias, cuda_attention, cuda_attention_proj,
+                cuda_mlp, swin):
+        for name in mod.counters._names:
+            out[f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"] = getattr(
+                mod.counters, name)
+    return out
+
+
+def _reset_swin_launch_counts():
+    from vitta_tpu_torch.models import swin
+    for mod in (cuda_ln, cuda_bias, cuda_attention, cuda_attention_proj,
+                cuda_mlp, swin):
+        mod.counters.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["packed", "heads", "ln_proj"])
+def test_swin_layout_variants_on_the_card(cuda_device, float32_matmul,
+                                          monkeypatch, dtype, route):
+    """A small Swin (embed 128, depths (2, 1), window (2, 3, 3), 4 x 48²:
+    both stages shift H and W), tapped forward and backward, in the
+    default form and with the window-resident stages and the product patch
+    embedding: both stages in window layout, no contiguity copy; the same
+    kernel launches by wrapper.  Values against the default form's: at float32 logits and taps
+    rtol / atol 2e-5 and every gradient within 5e-4 of its largest value
+    (tests/test_torch_swin_layouts.py's bounds); at bfloat16, where the
+    product patch embedding rounds some outputs the other way and the
+    difference runs through the blocks, every one within 2e-2 of its
+    largest value, the bound of the bfloat16 slices' eval logits
+    (chip_smoke.py ``_assert_bf16_slice``; the CPU's plain versions read
+    0.9% for the gradients, 4e-4 for the logits)."""
+    from vitta_tpu_torch.models.layers import Taps
+    from vitta_tpu_torch.models.swin import Recognizer3D
+    # the Conv3d in float32, as the product that replaces it
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    forms = {"default": {}, "variants": dict(VITTA_WINDOW_RESIDENT="1",
+                                             VITTA_PATCHIFY_V2="1")}
+    x = _randn(cuda_device, 2, 4, 48, 48, 3, seed=7)
+    runs = {}
+    for form, env in forms.items():
+        for name in ("VITTA_WINDOW_RESIDENT", "VITTA_PATCHIFY_V2"):
+            monkeypatch.setenv(name, env.get(name, "0"))
+        torch.manual_seed(0)
+        model = Recognizer3D(5, window_size=(2, 3, 3), embed_dim=128,
+                             depths=(2, 1), num_heads=(4, 8),
+                             drop_path_rate=0.0, attn_route=route,
+                             dtype=dtype).to(cuda_device)
+        _reset_swin_launch_counts()
+        taps = Taps({"stat"})
+        logits = model(x, taps, train=True)
+        loss = (logits.float() ** 2).sum() + sum(
+            v["stat"].mean.sum() + v["stat"].var.sum() for v in taps.values())
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        runs[form] = (logits.detach().float(), taps, grads,
+                      _swin_launch_counts())
+    base_logits, base_taps, base_grads, base_counts = runs.pop("default")
+    assert base_counts["swin.window_resident_stages"] == 0
+    bf16 = dtype == "bfloat16"
+    for form, (logits, taps, grads, counts) in runs.items():
+        assert counts.pop("swin.window_resident_stages") == 2, form
+        want = {k: n for k, n in base_counts.items()
+                if k != "swin.window_resident_stages"}
+        assert counts == want, form
+        assert counts["swin.contiguity_copies"] == 0, form
+        pairs = [("logits", logits, base_logits)] + [
+            (f"tap {name}", a, b) for name, slot in base_taps.items()
+            for a, b in zip(taps[name]["stat"], slot["stat"])]
+        for what, a, b in pairs:
+            if bf16:
+                _assert_grad(f"{form} {what}", a, b, rel=2e-2)
+            else:
+                torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        for i, (a, b) in enumerate(zip(grads, base_grads)):
+            _assert_grad(f"{form} gradient {i}", a, b,
+                         rel=2e-2 if bf16 else 5e-4)

@@ -125,8 +125,11 @@ def compute_cossim_statistics(model: torch.nn.Module, data_iter,
     whose normalization runs inside a fused op hands its y to the module in
     ``"sow_output"`` mode, which the hook sees like any output).  The
     ``"ln_proj"`` attention route returns that y in window layout, which
-    has lost the time axis: build the model on another route.  Runs without
-    gradients on ``device``, by default the card.
+    has lost the time axis: build the model on another route.  So does a
+    stage built window-resident (``VITTA_WINDOW_RESIDENT`` with the
+    spatiotemp taps alone): build the model with the cossim taps, as a
+    cossim run does, or with the flag off.  Runs without gradients on
+    ``device``, by default the card.
     """
     device = resolve_device(device)
     model = model.to(device)
@@ -135,6 +138,11 @@ def compute_cossim_statistics(model: torch.nn.Module, data_iter,
         raise ValueError("the relation-map precompute needs the norm "
                          "outputs in token layout: build the model with an "
                          "attn_route other than 'ln_proj'")
+    if any(getattr(m, "window_resident", False) for m in model.modules()):
+        raise ValueError("the relation-map precompute needs the norm "
+                         "outputs in token layout: build the model with "
+                         "stat_types=('cossim',) or VITTA_WINDOW_RESIDENT "
+                         "off")
     sims: Dict[str, TapStats] = {}
 
     def hook(module, _args, out):

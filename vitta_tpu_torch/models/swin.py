@@ -1,5 +1,5 @@
 """Video Swin Transformer (Swin-B) — the PyTorch counterpart of
-vitta_tpu/models/swin.py on its spatial path.
+vitta_tpu/models/swin.py.
 
 The reference backbone (models/videoswintransformer_models/
 swin_transformer.py):
@@ -62,9 +62,20 @@ takes where its packed kernel does not fit.  No flag gives it.
 
 No route changes a parameter, a ``state_dict`` key or a tap name.
 
-Not ported, being layouts of the TPU and no change of the math: the
-window-resident stage form, the patchify-matmul patch embedding, and the
-scoped-VMEM gates that move Swin-B's fourth stage to other kernels.
+The layout variants of vitta_tpu, each the same math, each off unless its
+environment flag is on when the module is built (ops/dispatch.py says why
+the port's defaults differ from vitta_tpu's):
+
+* ``VITTA_WINDOW_RESIDENT``: ``BasicLayer`` keeps a stage in window layout
+  from block to block, one token gather where the layout changes
+  (``relayout_index``, ``TokenGather``) in place of the spatial form's
+  roll, partition, reverse and roll around every block; each such stage
+  adds one to ``counters.window_resident_stages``;
+* ``VITTA_PATCHIFY_V2``: ``PatchEmbed3D`` as ``patchify_mm`` times the
+  flattened Conv3d weight.
+
+Not ported: the scoped-VMEM gates that move Swin-B's fourth stage to other
+kernels, a limit of the TPU's.
 
 ``dtype`` (an argument of every module from ``Recognizer3D`` down, "float32"
 or "bfloat16", vitta_tpu/models/swin.py's ``dtype``) is the compute dtype.
@@ -120,11 +131,14 @@ from vitta_tpu_torch.ops.cuda_attention_proj import (window_attention_ln_proj,
                                                      window_attention_proj)
 from vitta_tpu_torch.ops.cuda_bias import compact_bias, expand_bias
 from vitta_tpu_torch.ops.cuda_mlp import ln_mlp, mlp
-from vitta_tpu_torch.ops.dispatch import mlp_ln_fused, resolve_attn_route
+from vitta_tpu_torch.ops.dispatch import (mlp_ln_fused, patchify_v2_enabled,
+                                          resolve_attn_route,
+                                          window_resident_enabled)
 
 # ``counters.contiguity_copies``: copies made only to hand a kernel a
 # contiguous tensor, since ``counters.reset()``: activations in the forward
-# below and cotangents in the backward of the four ops
+# below and cotangents in the backward of the four ops.
+# ``counters.window_resident_stages``: stages that ran in window layout
 
 
 def at_dtype(p, dt):
@@ -273,18 +287,25 @@ def compute_shift_mask(dp: int, hp: int, wp: int,
 
 
 def drop_path(x, rate: float, train: bool,
-              generator: Optional[torch.Generator]):
+              generator: Optional[torch.Generator],
+              samples: Optional[int] = None):
     """Per-sample stochastic depth (timm DropPath semantics,
     vitta_tpu/models/swin.py:257-279): one draw per sample of dim 0
     decides whether its whole residual branch is dropped; the kept ones
-    are scaled by 1/keep."""
+    are scaled by 1/keep.  ``samples`` is the true sample count where dim
+    0 folds each sample's windows (the window layout, B*nW): one draw per
+    sample, repeated over its windows, so that the generator gives the
+    same masks as in the spatial layout."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                      generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    s = x.shape[0] if samples is None else samples
+    mask = torch.rand((s,) + (1,) * x.dim(), generator=generator,
+                      device=x.device) < keep
+    # (s, windows of a sample, ...): each draw broadcast over its windows
+    xs = x.reshape(s, -1, *x.shape[1:])
+    return torch.where(mask, xs / keep, torch.zeros(
+        (), dtype=x.dtype, device=x.device)).reshape(x.shape)
 
 
 class WindowAttention3D(nn.Module):
@@ -425,8 +446,18 @@ class SwinBlock3D(nn.Module):
                                stat_types=stat_types)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, taps=None, *, train: bool = False, generator=None):
-        """x: (B, D, H, W, C) -> the same shape."""
+    def forward(self, x, taps=None, *, train: bool = False, generator=None,
+                wr=None):
+        """Spatial form: x (B, D, H, W, C) -> the same shape.
+
+        Window-resident form (``wr`` = (B, (D, H, W), window, shift), from
+        ``BasicLayer``): x is already this block's window layout
+        (B*nW, N, C) and so is the result; the stage owns the shift and the
+        partition, and the block is token-wise ops and the windowed
+        attention (vitta_tpu/models/swin.py:403-420).  Parameter and tap
+        names are those of the spatial form."""
+        if wr is not None:
+            return self._window_resident(x, wr, taps, train, generator)
         b, d, h, w, c = x.shape
         window, shift = get_window_size((d, h, w), self.window_size,
                                         self.shift_size)
@@ -472,13 +503,31 @@ class SwinBlock3D(nn.Module):
         x = shortcut + drop_path(x, self.drop_path, train, generator)
         return self._mlp_tail(x, taps, train, generator)
 
-    def _mlp_tail(self, x, taps, train, generator):
+    def _window_resident(self, xw, wr, taps, train, generator):
+        """The block on its window layout xw (B*nW, N, C): every tap counts
+        the B samples, not the windows, and drop-path draws per sample.  No
+        padding here (the stage's gate), so ``"ln_proj"`` always fuses."""
+        b, (d, h, w), window, shift = wr
+        mask_np = compute_shift_mask(d, h, w, window, shift)
+        mask_key = (d, h, w, window, shift)
+        if self.attn_route == "ln_proj":
+            gamma, beta = self.norm1(xw, taps, mode="params")
+            attn, ln_out = self.attn(xw, mask_np, mask_key, "ln_proj",
+                                     ln=(gamma, beta, self.norm1.eps))
+            self.norm1(ln_out, taps, mode="sow_output", stat_count=b)
+        else:
+            attn = self.attn(self.norm1(xw, taps, stat_count=b), mask_np,
+                             mask_key, self.attn_route)
+        xw = xw + drop_path(attn, self.drop_path, train, generator, b)
+        return self._mlp_tail(xw, taps, train, generator, samples=b)
+
+    def _mlp_tail(self, x, taps, train, generator, samples=None):
         """norm2 and the MLP (vitta_tpu/models/swin.py:422-439).  Where
         ``mlp_ln_fused`` holds norm2 runs inside the MLP op: the module
         still owns the parameters and records both tap sides (the input
         here, the output from the y the op returns), so tap names do not
         move.  Otherwise norm2 is a LayerNorm of its own and the MLP op has
-        none."""
+        none.  ``samples``: the true sample count of the window layout."""
         c = x.shape[-1]
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         dt = self.dtype
@@ -490,12 +539,12 @@ class SwinBlock3D(nn.Module):
                                at_dtype(fc2.weight, dt),
                                at_dtype(fc2.bias, dt),
                                self.norm2.eps)
-            self.norm2(ln_out, taps, mode="sow_output")
+            self.norm2(ln_out, taps, mode="sow_output", stat_count=samples)
         else:
-            y = mlp(self.norm2(_contiguous(x), taps), at_dtype(fc1.weight, dt),
-                    at_dtype(fc1.bias, dt), at_dtype(fc2.weight, dt),
-                    at_dtype(fc2.bias, dt))
-        return x + drop_path(y, self.drop_path, train, generator)
+            y = mlp(self.norm2(_contiguous(x), taps, stat_count=samples),
+                    at_dtype(fc1.weight, dt), at_dtype(fc1.bias, dt),
+                    at_dtype(fc2.weight, dt), at_dtype(fc2.bias, dt))
+        return x + drop_path(y, self.drop_path, train, generator, samples)
 
 
 class PatchMerging(nn.Module):
@@ -526,14 +575,79 @@ class PatchMerging(nn.Module):
                         at_dtype(self.reduction.weight, self.dtype))
 
 
+@functools.lru_cache(maxsize=64)
+def window_order(dims: Tuple[int, int, int], window: Tuple[int, int, int],
+                 shift: Optional[Tuple[int, int, int]]) -> np.ndarray:
+    """The token order of one sample's layout: for each position, its index
+    in the (D, H, W) grid in row-major order.  ``shift`` None is the grid
+    itself; a shift is the window layout of the grid rolled by -shift, what
+    ``torch.roll(x, -shift)`` then ``window_partition`` make.  Cached: treat
+    the result as read-only."""
+    d, h, w = dims
+    grid = np.arange(d * h * w).reshape(d, h, w)
+    if shift is None:
+        return grid.reshape(-1)
+    wd, wh, ww = window
+    grid = np.roll(grid, [-s for s in shift], axis=(0, 1, 2))
+    return grid.reshape(d // wd, wd, h // wh, wh, w // ww, ww).transpose(
+        0, 2, 4, 1, 3, 5).reshape(-1)
+
+
+def relayout_index(dims, window, src, dst) -> Optional[np.ndarray]:
+    """The gather index that takes one sample's tokens from layout ``src``
+    to layout ``dst`` (``window_order``'s ``shift``: None for the grid):
+    ``out[:, i] = x[:, index[i]]``; None where the two orders are the same.
+    A window layout to another is vitta_tpu's ``window_relayout``
+    (window_reverse, the net roll, window_partition; models/swin.py:
+    468-478) as one permutation."""
+    src_order = window_order(dims, window, src)
+    to_src = np.empty_like(src_order)
+    to_src[src_order] = np.arange(src_order.size)
+    index = to_src[window_order(dims, window, dst)]
+    return None if np.array_equal(index, np.arange(index.size)) else index
+
+
+class TokenGather(torch.autograd.Function):
+    """``x[:, index]`` on (B, L, C), one gather; its backward is the gather
+    of the cotangent by the inverse permutation: both are copies, exact and
+    free of atomics (``index_select``'s own backward adds with atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.save_for_backward(inverse)
+        return x.index_select(1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse, = ctx.saved_tensors
+        return g.index_select(1, inverse), None, None
+
+
 class BasicLayer(nn.Module):
-    """One Swin stage (swin_transformer.py:332-413)."""
+    """One Swin stage (swin_transformer.py:332-413).
+
+    Under ``VITTA_WINDOW_RESIDENT`` (read here, once) a stage whose taps
+    are spatiotemp alone, and whose dims all divide by the (clamped)
+    window, keeps its activations in window layout from block to block
+    (vitta_tpu/models/swin.py:517-553): one gather into the layout of block
+    0, one where the shift changes, one back to the grid at exit, each a
+    permutation of the tokens (``relayout_index``, ``TokenGather``; its
+    index made once per shape and device), in place of the spatial form's
+    roll, partition, reverse and roll around every block.  Every op in the
+    blocks is token-wise or windowed, and the spatiotemp statistics do not
+    depend on the tokens' order.  Any other stage takes the spatial form."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size,
                  drop_paths, downsample: bool, tap_prefix: str,
                  stat_types: Tuple[str, ...] = ("spatiotemp",),
                  attn_route: Optional[str] = None, dtype="float32"):
         super().__init__()
+        self.window_size = tuple(window_size)
+        # the window layout scrambles the (D, H, W) structure that every
+        # statistic but spatiotemp reads
+        self.window_resident = (window_resident_enabled()
+                                and tuple(stat_types) == ("spatiotemp",))
+        self._gathers = {}
         shift = tuple(s // 2 for s in window_size)
         self.blocks = nn.ModuleList([
             SwinBlock3D(dim, num_heads, f"{tap_prefix}.blocks_{i}",
@@ -547,16 +661,84 @@ class BasicLayer(nn.Module):
             dtype=dtype) if downsample else None
 
     def forward(self, x, taps=None, *, train: bool = False, generator=None):
-        for blk in self.blocks:
-            x = blk(x, taps, train=train, generator=generator)
+        if self.window_resident_ok(x.shape):
+            x = self._forward_window_resident(x, taps, train, generator)
+        else:
+            for blk in self.blocks:
+                x = blk(x, taps, train=train, generator=generator)
         if self.downsample is not None:
             x = self.downsample(x, taps)
         return x
 
+    def window_resident_ok(self, shape) -> bool:
+        """Whether an input of ``shape`` (B, D, H, W, C) takes the window
+        layout: the flag and the taps allow it and no dim needs padding."""
+        if not self.window_resident:
+            return False
+        dims = tuple(shape[1:4])
+        window = get_window_size(dims, self.window_size)
+        return all(n % k == 0 for n, k in zip(dims, window))
+
+    def _relayout(self, x, dims, window, src, dst):
+        """x (B, L, C) from layout ``src`` to ``dst`` (``relayout_index``)."""
+        key = (dims, window, src, dst, str(x.device))
+        if key not in self._gathers:
+            index = relayout_index(dims, window, src, dst)
+            self._gathers[key] = None if index is None else (
+                torch.from_numpy(index).to(x.device),
+                torch.from_numpy(np.argsort(index)).to(x.device))
+        pair = self._gathers[key]
+        return x if pair is None else TokenGather.apply(x, *pair)
+
+    def _forward_window_resident(self, x, taps, train, generator):
+        b, d, h, w, c = x.shape
+        dims = (d, h, w)
+        window, base_shift = get_window_size(
+            dims, self.window_size, tuple(s // 2 for s in self.window_size))
+        n = window[0] * window[1] * window[2]
+        cur = (0, 0, 0)
+        xw = self._relayout(x.reshape(b, -1, c), dims, window, None, cur)
+        for i, blk in enumerate(self.blocks):
+            shift = (0, 0, 0) if i % 2 == 0 else base_shift
+            if shift != cur:
+                xw = self._relayout(xw, dims, window, cur, shift)
+                cur = shift
+            xw = blk(xw.reshape(-1, n, c), taps, train=train,
+                     generator=generator,
+                     wr=(b, dims, window, shift)).reshape(b, -1, c)
+        counters.window_resident_stages += 1
+        return self._relayout(xw, dims, window, cur, None).reshape(
+            b, d, h, w, c)
+
+
+def patchify_mm(x, patch_size):
+    """(B, T, H, W, c) -> (B, T/pd, H/ph, W/pw, c*pd*ph*pw), each patch in
+    (c, t, h, w) order (vitta_tpu/models/swin.py:574-590): the row order of
+    the Conv3d weight (C, c, pd, ph, pw) flattened, which vitta_tpu's
+    ``kernel_mm`` makes of its (pd, ph, pw, c, C) kernel."""
+    pd, ph, pw = patch_size
+    b, t, h, w, c = x.shape
+    x = x.reshape(b, t // pd, pd, h // ph, ph, w // pw, pw, c)
+    x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)
+    return x.reshape(b, t // pd, h // ph, w // pw, c * pd * ph * pw)
+
 
 class PatchEmbed3D(nn.Module):
     """Conv3d patchify + LayerNorm without a tap
-    (swin_transformer.py:416-456)."""
+    (swin_transformer.py:416-456).
+
+    Under ``VITTA_PATCHIFY_V2`` (read here, once) an input whose T, H and W
+    divide by the patch is embedded as ``patchify_mm`` times the Conv3d
+    weight flattened, (C, 3*pd*ph*pw), with no convolution
+    (vitta_tpu/models/swin.py:650-660).  The parameters stay the
+    Conv3d's.  At bfloat16 ``F.linear`` sums the product and the bias in
+    float32 and rounds once, where ``F.conv3d`` rounds them and where XLA
+    does with its excess precision on; vitta_tpu's program as written
+    rounds the product before it adds the bias.  At float32 on the card the
+    two forms follow different switches: the Conv3d runs in TF32 under
+    ``torch.backends.cudnn.allow_tf32`` (PyTorch's default: on), the
+    product under ``torch.backends.cuda.matmul.allow_tf32`` (default:
+    off)."""
 
     def __init__(self, patch_size, embed_dim: int, tap_prefix: str,
                  dtype="float32"):
@@ -565,6 +747,7 @@ class PatchEmbed3D(nn.Module):
         self.patch_size = tuple(patch_size)
         self.proj = nn.Conv3d(3, embed_dim, kernel_size=self.patch_size,
                               stride=self.patch_size)
+        self.patchify_v2 = patchify_v2_enabled()
         self.norm = LayerNorm(embed_dim, f"{tap_prefix}.patch_embed_norm",
                               tap=False)
 
@@ -572,16 +755,20 @@ class PatchEmbed3D(nn.Module):
         """(B, T, H, W, 3) -> (B, D, H', W', C)."""
         pd, ph, pw = self.patch_size
         t, h, w = x.shape[1:4]
+        dt = self.dtype
+        weight = at_dtype(self.proj.weight, dt)          # (C, 3, pd, ph, pw)
+        bias = at_dtype(self.proj.bias, dt)
         if t % pd or h % ph or w % pw:
             x = F.pad(x, (0, 0, 0, (-w) % pw, 0, (-h) % ph, 0, (-t) % pd))
+        elif self.patchify_v2:
+            x = F.linear(patchify_mm(x.to(dt), self.patch_size),
+                         weight.reshape(weight.shape[0], -1), bias)
+            return self.norm(x)
         # the permuted view of a channels-last clip is channels_last_3d
         # memory, which the convolution takes and returns as is; then the
         # view back is contiguous and ``contiguous`` is free.  The clip and
         # the weights at the compute dtype
-        dt = self.dtype
-        x = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3),
-                     at_dtype(self.proj.weight, dt),
-                     at_dtype(self.proj.bias, dt),
+        x = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), weight, bias,
                      self.proj.stride).permute(0, 2, 3, 4, 1)
         return self.norm(_contiguous(x))
 

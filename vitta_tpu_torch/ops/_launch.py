@@ -29,8 +29,9 @@ class LaunchCounters:
 
 # copies made only to hand a kernel a contiguous tensor, since ``reset``:
 # activations in the Video Swin forward (models/swin.py) and cotangents in
-# the backward of the four Video Swin ops
-copy_counters = LaunchCounters("contiguity_copies")
+# the backward of the four Video Swin ops; and the Video Swin stages that
+# ran in window layout (``VITTA_WINDOW_RESIDENT``)
+copy_counters = LaunchCounters("contiguity_copies", "window_resident_stages")
 
 
 def contiguous_counted(x: torch.Tensor) -> torch.Tensor:

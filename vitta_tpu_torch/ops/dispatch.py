@@ -1,4 +1,5 @@
-"""What chooses Video Swin's attention route and its MLP form.
+"""What chooses Video Swin's attention route, its MLP form and its layout
+variants.
 
 The port's own copy of what it needs from vitta_tpu/ops/dispatch.py: the
 same environment names with the same tri-state (unset or empty -> the
@@ -24,6 +25,41 @@ block fuses norm2 into its MLP op or runs the two apart
 
 There is no flag that turns a kernel off: on a CUDA tensor every route runs
 hand-written kernels.
+
+The layout variants of Video Swin, the same names and tri-state as
+vitta_tpu/ops/dispatch.py:43-166, each read once where the module that
+takes it is built:
+
+* ``VITTA_WINDOW_RESIDENT``: a stage keeps its activations in window layout
+  from block to block (models/swin.py:BasicLayer), one gather at entry, at
+  each change of shift and at exit in place of a roll, a partition, a
+  reverse and a roll around every block;
+* ``VITTA_PATCHIFY_V2``: the patch embedding as an unfold in (c, t, h, w)
+  order times the flattened Conv3d weight (``patchify_mm``).
+
+vitta_tpu turns both on by default: those defaults are ms/video of its TPU
+sweeps (its :10-33), which say nothing of the H100.  Here both are off by
+default, so the default path is the one the port has run since it began
+(per-block roll and partition, the Conv3d); a PR judged on the benchmark's
+cells may flip one.  Each is the same math as the default, held so by
+tests/test_torch_swin_layouts.py.
+
+vitta_tpu's other flags have no counterpart: ``VITTA_ATTN_PIPE`` and
+``VITTA_MLP_PIPE`` order the work inside its Pallas kernels (the port's
+kernels have their own schedules); ``VITTA_DISABLE_PALLAS`` turns its
+kernels off, and the port has no such switch; ``VITTA_JAX_CACHE`` and
+``VITTA_NO_COMPILE_CACHE`` steer JAX's compile cache; ``VITTA_NO_HALF_TWIN``
+is the default of an argument the port's engine takes as it is
+(``VittaEngine(half_twin=False)``); ``VITTA_PATCHIFY``, the engine's unfold
+of the uint8 frames before it normalises them, is off in vitta_tpu too, and
+no caller of the port needs a second unfolded form beside
+``VITTA_PATCHIFY_V2``'s; ``VITTA_COMPACT_BIAS`` (the float32 packed
+attention on the compact bias) made a float32 Swin-B step on the H100
+0.7-1.2 ms busier than the bias expansion and collapse it saves, and the
+compact bias that vitta_tpu takes by itself where the dense one overflows
+the TPU's scoped memory (pallas_attention.py:328) answers a limit the H100
+does not have.  The bfloat16 packed attention takes the compact bias
+always.
 """
 
 from __future__ import annotations
@@ -86,3 +122,16 @@ def mlp_ln_fused(c: int, tokens: int) -> bool:
     in both packages: Swin-B's 128 to 1024 fuse, Swin-T's and Swin-S's 96
     and 192 do not."""
     return c % 128 == 0 and tokens % 8 == 0
+
+
+def window_resident_enabled() -> bool:
+    """Video Swin stages keep their activations in window layout
+    (``VITTA_WINDOW_RESIDENT``).  Default off."""
+    return flag_enabled("VITTA_WINDOW_RESIDENT", False)
+
+
+def patchify_v2_enabled() -> bool:
+    """The patch embedding as ``patchify_mm`` times the flattened Conv3d
+    weight (``VITTA_PATCHIFY_V2``).  Default off."""
+    return flag_enabled("VITTA_PATCHIFY_V2", False)
+
